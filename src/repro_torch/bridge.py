@@ -1,0 +1,63 @@
+"""Weight bridge: the JAX package's parameter tree -> the port's params.
+
+The caller hands over plain numpy arrays (the reference's params after
+``strip`` and ``np.asarray``), so this module never sees JAX.  The bridge
+unstacks the reference's ``scanned`` leading layer axis into a list of
+per-layer dicts and keeps every layout as it is (``wq (d, H, hd)``,
+``wo (Hq, hd, d)``, ``embed (padded_vocab, d)``, ``lm_head (d,
+padded_vocab)``), so nothing is transposed.  Weights are cast once to the
+activation dtype; norm parameters stay fp32.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.transformer import check_dense
+
+_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+def _convert(tree, path, *, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, path + (k,), dtype=dtype, device=device)
+                for k, v in tree.items()}
+    arr = np.asarray(tree)
+    keep32 = any(name in _NORMS for name in path)
+    t = torch.tensor(arr)
+    return t.to(device=device, dtype=torch.float32 if keep32 else dtype)
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
+                    device: DeviceLike = None) -> Dict[str, Any]:
+    """Reference param tree of numpy arrays -> port params on ``device``."""
+    check_dense(cfg)
+    dev = resolve_device(device)
+    dt = cfg.activation_dtype
+    dec = np_tree["decoder"]
+    if dec.get("prologue"):
+        raise NotImplementedError("unscanned prologue layers belong to the "
+                                  "MLA/MoE slice of the port")
+    scanned = dec["scanned"]
+
+    def layer(i, tree):
+        if isinstance(tree, dict):
+            return {k: layer(i, v) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    layers = [_convert(layer(i, scanned), ("layers",), dtype=dt, device=dev)
+              for i in range(cfg.num_layers)]
+    out: Dict[str, Any] = {
+        "embed": _convert(np_tree["embed"], ("embed",), dtype=dt, device=dev),
+        "decoder": {"layers": layers},
+        "final_norm": _convert(np_tree["final_norm"], ("final_norm",),
+                               dtype=dt, device=dev),
+    }
+    if "lm_head" in np_tree:
+        out["lm_head"] = _convert(np_tree["lm_head"], ("lm_head",), dtype=dt,
+                                  device=dev)
+    return out

@@ -1,0 +1,38 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution.
+
+Only the dense GQA architectures this slice serves are registered; any
+other arch id raises ``KeyError``.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Tuple
+
+from repro_torch.configs.base import (MLAConfig, MoEConfig, ModelConfig,
+                                      SSMConfig, torch_dtype)
+
+_MODULES: Dict[str, str] = {
+    "minitron-4b": "minitron_4b",
+    "qwen2.5-32b": "qwen2_5_32b",
+}
+
+ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)
+
+
+def _load(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r} in the port; known: "
+                       f"{sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _load(arch).CONFIG
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return _load(arch).REDUCED
+
+
+__all__ = ["ARCH_IDS", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig",
+           "get_config", "get_reduced", "torch_dtype"]

@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` under ``repro_torch/kernels/*/csrc`` is compiled with
+``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
+at first use, under ``build/kernels/`` at the root of the checkout, and
+loaded with ``ctypes``.  The library's name carries a hash of the sources
+and flags, so a changed source builds anew.  The sources compile in
+parallel, one ``nvcc`` each, then link.  Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+          "-lineinfo"]
+
+
+def sources() -> List[Path]:
+    return sorted(_PKG.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "on a machine with the CUDA toolkit")
+
+
+def _digest(srcs: List[Path]) -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    headers = sorted(_PKG.glob("*/csrc/*.cuh"))
+    for p in srcs + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"librepro_torch_kernels-{_digest(sources())}.so"
+
+
+def build() -> Path:
+    """Compile (if the hashed library is missing) and return its path.
+    The compiler's output, ptxas register and spill lines included, is
+    kept beside the library as ``<name>.log``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+             *map(str, objs), "-lcudart"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        lib.with_suffix(".log").write_text("\n".join(log))
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, then load the kernels' shared library once per
+    process."""
+    return ctypes.CDLL(str(build()))
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if err != 0:
+        lib = load_library()
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,99 @@
+// Helpers shared by the port's attention kernels.
+//
+// Tiles live in shared memory as rows of 32-bit words: a word holds one
+// fp32 value or two bf16 values.  A row is padded by one word, so threads
+// that read the same word index of consecutive rows hit distinct banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+constexpr float kNegInf = -1e30f;   // the reference's finite mask fill
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+template <typename T> struct Word;
+
+template <> struct Word<float> {
+  static constexpr int N = 1;       // values per 32-bit word
+  __device__ static void unpack(uint32_t w, float* out) {
+    out[0] = __uint_as_float(w);
+  }
+  __device__ static uint32_t pack(const float* in) {
+    return __float_as_uint(in[0]);
+  }
+  // an fp32 value cast to this type and back (astype before a product)
+  __device__ static float round(float x) { return x; }
+};
+
+template <> struct Word<__nv_bfloat16> {
+  static constexpr int N = 2;
+  __device__ static void unpack(uint32_t w, float* out) {
+    __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&w);
+    float2 f = __bfloat1622float2(h);
+    out[0] = f.x;
+    out[1] = f.y;
+  }
+  __device__ static uint32_t pack(const float* in) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(in[0], in[1]);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+};
+
+// Copy `rows` rows of `row_words` words from global memory (16-byte loads;
+// rows start 16-byte aligned) into shared memory with a row pitch of
+// `pitch` words.  Rows at or past `valid_rows` are filled with zeros.
+__device__ inline void load_rows(uint32_t* dst, int pitch, const char* src,
+                                 long long row_bytes, int rows,
+                                 int valid_rows, int row_words, int tid,
+                                 int nthreads) {
+  const int per_row = row_words / 4;
+  const int total = rows * per_row;
+  for (int c = tid; c < total; c += nthreads) {
+    const int r = c / per_row;
+    const int ch = c - r * per_row;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < valid_rows) {
+      val = *reinterpret_cast<const uint4*>(src + r * row_bytes + ch * 16);
+    }
+    uint32_t* d = dst + r * pitch + ch * 4;
+    d[0] = val.x;
+    d[1] = val.y;
+    d[2] = val.z;
+    d[3] = val.w;
+  }
+}
+
+template <int WIDTH>
+__device__ inline float group_max(float x) {
+#pragma unroll
+  for (int o = WIDTH / 2; o > 0; o >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  }
+  return x;
+}
+
+template <int WIDTH>
+__device__ inline float group_sum(float x) {
+#pragma unroll
+  for (int o = WIDTH / 2; o > 0; o >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  }
+  return x;
+}
+
+// Allow more than 48 KB of dynamic shared memory where a launch needs it.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace repro

@@ -1,0 +1,89 @@
+"""Prefill flash attention: the CUDA kernel's wrapper.
+
+Replaces the Pallas kernel ``src/repro/kernels/flash_attention/kernel.py``
+(``flash_attention`` / ``_flash_kernel``) and covers the prefill contract
+of the reference's ``layers.blockwise_attention`` that ``gqa_prefill``
+runs: GQA by head index, causal mask, sliding window with a global-layer
+bypass, logit soft-cap, and lengths that are not a multiple of the tile.
+On the H100 the kernel is bound by operations; this first version keeps
+the tiles in shared memory and the accumulators in registers on the CUDA
+cores, and skips the key tiles above the diagonal or outside the window
+(csrc/flash_attention.cu has the design).
+
+A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
+the kernel or raises.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_D = 128
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=1)
+def _fn():
+    fn = _build.load_library().flash_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                   _I, _I, _I, _F, _I, _P]
+    return fn
+
+
+def _check(q, k, v):
+    """Raise on what the kernel does not take."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != D:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not match (prefill: one S)")
+    if not (q.device == k.device == v.device) or q.device.type != "cuda":
+        raise ValueError("q, k and v must lie on one CUDA device")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"kernel takes float32 or bfloat16 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    size = q.element_size()
+    if D > _MAX_D or (D * size) % 32:
+        raise ValueError(f"head_dim {D} of {q.dtype}: the kernel takes up to "
+                         f"{_MAX_D}, a multiple of 32 bytes")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+                (s * size) % 16 for s in t.stride()[:-1]):
+            raise ValueError(f"{name} needs a unit stride on head_dim and "
+                             f"16-byte aligned rows, got strides {t.stride()}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    logit_cap: float = 0.0, is_global=None):
+    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D)."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   logit_cap=logit_cap, is_global=is_global)
+    _check(q, k, v)
+    B, S, Hq, D = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, Hq, k.shape[2], D,
+                q.stride(0), q.stride(1), q.stride(2),
+                k.stride(0), k.stride(1), k.stride(2),
+                v.stride(0), v.stride(1), v.stride(2),
+                out.stride(0), out.stride(1), out.stride(2),
+                int(bool(causal)), int(window), int(bool(is_global)),
+                float(logit_cap), _DTYPES[q.dtype], stream)
+    _build.check(err, "flash_attention")
+    launches += 1
+    return out

@@ -1,0 +1,156 @@
+"""Dense decoder stack of the port (``repro.models.transformer``).
+
+The reference scans one stacked layer body with ``lax.scan``; here a
+Python loop runs over a list of per-layer parameter dicts.  The decode
+cache keeps the reference's structure, ``{"prologue": [], "scanned":
+{"attn": {"k", "v"}}, "pos"}``, with the stacked (L, B, T, Hkv, D) KV
+tensors (slot axis 1) updated IN PLACE layer by layer.
+
+MoE, MLA, SSM, hybrid and encoder-decoder stacks raise
+``NotImplementedError``: they belong to later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+PyTree = Any
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise for the stacks this slice of the port does not cover."""
+    later = [("moe", cfg.moe is not None, "the MLA/MoE slice"),
+             ("mla", cfg.mla is not None, "the MLA/MoE slice"),
+             ("ssm", cfg.ssm is not None, "the SSM slice"),
+             ("hybrid_parallel", cfg.hybrid_parallel, "the SSM slice"),
+             ("encoder_layers", cfg.encoder_layers > 0,
+              "the encoder and enc-dec slices")]
+    for field, present, where in later:
+        if present:
+            raise NotImplementedError(
+                f"{cfg.name}: {field} is not ported yet; it belongs to "
+                f"{where} of the PyTorch port")
+
+
+def norm_init(kind: str, dim: int, device) -> Dict[str, torch.Tensor]:
+    """Norm parameters stay fp32: the norms compute in fp32."""
+    p = {"scale": torch.ones(dim, dtype=torch.float32, device=device)}
+    if kind != "rmsnorm":
+        p["bias"] = torch.zeros(dim, dtype=torch.float32, device=device)
+    return p
+
+
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
+    p: Dict[str, PyTree] = {
+        "ln1": norm_init(cfg.norm, cfg.d_model, device),
+        "attn": A.gqa_init(gen, cfg, dtype=dtype, device=device),
+    }
+    if cfg.d_ff:
+        p["ln2"] = norm_init(cfg.norm, cfg.d_model, device)
+        p["ffn"] = M.ffn_init(gen, cfg, cfg.d_ff, dtype=dtype, device=device)
+    return p
+
+
+def _ffn(p, cfg: ModelConfig, x):
+    if "ffn" in p:
+        h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
+        x = x + M.ffn_apply(p["ffn"], cfg, h2)
+    return x
+
+
+def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
+                   is_global: bool, use_kernels: bool):
+    h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
+    y, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
+                                     cache["attn"], is_global=is_global,
+                                     use_kernels=use_kernels)
+    return _ffn(p, cfg, x + y), cache
+
+
+def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
+                use_kernels: bool, kv_bound: Optional[int], live):
+    h = L.apply_norm(cfg.norm, p["ln1"], x1, cfg.norm_eps)
+    y, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
+                                  is_global=is_global,
+                                  use_kernels=use_kernels,
+                                  kv_bound=kv_bound, live=live)
+    return _ffn(p, cfg, x1 + y), cache
+
+
+def decoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
+    check_dense(cfg)
+    return {"layers": [_layer_init(gen, cfg, dtype=dtype, device=device)
+                       for _ in range(cfg.num_layers)]}
+
+
+def decoder_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                       device):
+    check_dense(cfg)
+    one = A.gqa_cache_init(cfg, batch, max_len, dtype, device)
+    scanned = {"attn": {name: torch.zeros((cfg.num_layers,) + t.shape,
+                                          dtype=dtype, device=device)
+                        for name, t in one.items()}}
+    return {"prologue": [], "scanned": scanned,
+            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+
+def _layer_cache(cache, i: int):
+    """Layer ``i``'s cache as views into the stacked tensors."""
+    return {"attn": {name: t[i] for name, t in
+                     cache["scanned"]["attn"].items()}}
+
+
+def cache_slot_axes(cache) -> PyTree:
+    """Slot axis per cache leaf, -1 for leaves without one: the stacked
+    (scanned) leaves carry the layer axis first, so their slot axis is 1;
+    every other leaf is slot-leading."""
+    def axis(leaf, scanned: bool):
+        if isinstance(leaf, dict):
+            return {k: axis(v, scanned) for k, v in leaf.items()}
+        if isinstance(leaf, list):
+            return [axis(v, scanned) for v in leaf]
+        if not isinstance(leaf, torch.Tensor) or leaf.ndim == 0:
+            return -1
+        return 1 if scanned else 0
+
+    return {k: axis(v, k == "scanned") for k, v in cache.items()}
+
+
+def _global(cfg: ModelConfig, i: int) -> bool:
+    return i in cfg.global_attn_layers
+
+
+def decoder_prefill(params, cfg: ModelConfig, x, positions, cache, *,
+                    true_len=None, use_kernels: bool = True):
+    layers: List = params["layers"]
+    for i, lp in enumerate(layers):
+        x, _ = _layer_prefill(lp, cfg, x, positions, _layer_cache(cache, i),
+                              is_global=_global(cfg, i),
+                              use_kernels=use_kernels)
+    B, S = x.shape[0], x.shape[1]
+    if true_len is None:
+        pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    else:
+        pos = torch.as_tensor(true_len, dtype=torch.int32,
+                              device=x.device).expand(B).clone()
+    return x, {"prologue": [], "scanned": cache["scanned"], "pos": pos}
+
+
+def decoder_step(params, cfg: ModelConfig, x1, cache, *,
+                 use_kernels: bool = False, kv_bound: Optional[int] = None,
+                 live=None):
+    """use_kernels/kv_bound/live: the ragged decode hot path (see
+    ``attention.gqa_step``)."""
+    pos = cache["pos"]
+    for i, lp in enumerate(params["layers"]):
+        x1, _ = _layer_step(lp, cfg, x1, _layer_cache(cache, i), pos,
+                            is_global=_global(cfg, i),
+                            use_kernels=use_kernels, kv_bound=kv_bound,
+                            live=live)
+    return x1, {"prologue": [], "scanned": cache["scanned"], "pos": pos + 1}

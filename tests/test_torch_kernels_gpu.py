@@ -1,0 +1,128 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``gpu``: each test skips without a CUDA device (decided in
+the fixture, not at import).  Imports no JAX, so it runs on a machine with
+only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerances: bf16 to 2e-2 (a few bf16 ulps of O(1) outputs; kernel and
+plain version round p at different points), fp32 to 1e-4 (summation order).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ragged_decode import ops as rd  # noqa: E402
+from repro_torch.kernels.ragged_decode.ref import \
+    ragged_decode_attention_ref  # noqa: E402
+
+GPU_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window,cap,glob", [(0, 0.0, None), (40, 20.0, False),
+                                             (40, 20.0, True)])
+def test_ragged_decode_kernel_on_gpu(cuda, dtype, window, cap, glob):
+    B, T_full, Hq, Hkv, D = 6, 512, 24, 8, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, 1, Hq, D), generator=gen, device=cuda).to(dtype)
+    kc = torch.randn((B, T_full, Hkv, D), generator=gen, device=cuda).to(dtype)
+    vc = torch.randn((B, T_full, Hkv, D), generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor([1, 63, 64, 65, 300, 200], dtype=torch.int32,
+                        device=cuda)
+    live = torch.tensor([True, True, True, True, True, False], device=cuda)
+    k, v = kc[:, :320], vc[:, :320]          # strided view, as the engine
+    kw = dict(window=window, logit_cap=cap, is_global=glob, live=live)
+    before = rd.launches
+    got = rd.ragged_decode_attention(q, k, v, lens, **kw)
+    want = ragged_decode_attention_ref(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert rd.launches == before + 1
+    assert (got[5] == 0).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [32, 200])
+@pytest.mark.parametrize("window,cap,glob", [(0, 0.0, None), (64, 30.0, False),
+                                             (64, 30.0, True)])
+def test_flash_kernel_on_gpu(cuda, dtype, S, window, cap, glob):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((1, S, h, 128), generator=gen,
+                           device=cuda).to(dtype) for h in (24, 8, 8))
+    kw = dict(window=window, logit_cap=cap, is_global=glob)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_TOL[dtype], err
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((2, 1, 4, 64), dtype=torch.float16, device=cuda)
+    k = torch.zeros((2, 8, 2, 64), dtype=torch.float16, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        rd.ragged_decode_attention(q, k, k, lens)
+    qb = torch.zeros((1, 8, 4, 200), dtype=torch.bfloat16, device=cuda)
+    kb = torch.zeros((1, 8, 2, 200), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(qb, kb, kb)
+
+
+@pytest.mark.gpu
+def test_engine_on_gpu_kernel_path_matches_plain_path(cuda):
+    """The decode engine on the card, reduced minitron in fp32: streams
+    with both kernels on equal the plain path's, and every layer of every
+    prefill and decode step launched its kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import DecodeEngine, ServeConfig
+
+    cfg = dataclasses.replace(get_reduced("minitron-4b"), dtype="float32")
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
+               for n in rng.integers(3, 40, size=5)]
+    streams = {}
+    for kern in (True, False):
+        eng = DecodeEngine(model, params, ServeConfig(
+            max_slots=3, max_len=64, eos_id=-1, use_kernels=kern,
+            kv_page_rows=4, kv_arena_frac=0.5))
+        rd0, fa0 = rd.launches, fa.launches
+        for p in prompts:
+            eng.submit(p, max_new_tokens=12)
+        steps = 0
+        while eng.has_work:
+            eng.step()
+            steps += 1
+        streams[kern] = eng.results()
+        decode_steps = eng._obs.registry.histogram_at("decode_step_s").count
+        if kern:
+            n = rd.launches - rd0
+            assert n % cfg.num_layers == 0
+            assert cfg.num_layers <= n <= cfg.num_layers * decode_steps
+            assert fa.launches - fa0 >= cfg.num_layers * len(prompts)
+        else:
+            assert (rd.launches, fa.launches) == (rd0, fa0)
+    assert streams[True] == streams[False]
