@@ -7,16 +7,23 @@
    and capability, and builds the port's CUDA kernels from this checkout
    into ``build/kernels/``.
 2. Kernel phase: each kernel against its plain PyTorch version on the same
-   inputs at the serving path's shapes (minitron-4b heads, bf16; ragged
+   inputs at the serving paths' shapes, with its time, the plain version's,
+   one PyTorch library call's as a yardstick where one computes the same
+   function, and its bound.  Attention (minitron-4b heads, bf16): ragged
    decode lengths with a dead slot and lengths that are no multiple of the
-   tile; prefill lengths 32, 200 and 1024), with its time, the plain
-   version's, one PyTorch library call's as a yardstick, and its bound.
-3. Serving phase: full-width minitron-4b (32 layers, random bf16 weights
+   tile; prefill lengths 32, 200 and 1024.  Mamba (falcon-mamba-7b widths):
+   the decode step for 8 slots with one dead, in bf16 and fp32; the
+   selective scan at S = 1, 37, 200 and 1024.
+3. Serving phase, minitron-4b: full width (32 layers, random bf16 weights
    from a fixed seed) through ``DecodeEngine`` with the kernels on: 8
    requests of 100-1000 prompt tokens and 32 new tokens each.  Asserts that
-   every layer of every prefill and decode step launched its kernel.
-4. Reference check: on one short prompt, the kernel path's logits against
-   the plain path's (prefill and four decode steps), within a stated bound.
+   every layer of every prefill and decode step launched its kernel, then
+   profiles a replay and checks kernel-path logits against the plain path.
+4. Serving phase, falcon-mamba-7b: the same for full width (64 layers)
+   through ``SSMEngine`` with ``max_len`` 512, so that prompts past it show
+   admission to be slot-bound.  The kernel path is checked against the
+   plain path in bf16 and, on an fp32 copy of the weights, in fp32; the
+   bf16 plain path's distance from the fp32 one is reported beside.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -35,14 +42,30 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                  # fp32 outside the tensor cores
+# exponentials on the special-function units: 16 per clock per SM at
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput), 132 SMs at the H100 SXM's 1980 MHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 # bf16 kernel vs plain version: outputs are O(1) weighted means of bf16
 # values; the two round p and the running sums at different points, so
 # they may differ by a few bf16 ulps (2**-8 relative).  fp32: summation
 # order only.
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # full-depth logits, kernel path vs plain path: bf16 rounding at different
-# points compounds over 32 layers; bound relative to the largest |logit|.
+# points compounds over the layers (32 minitron, 64 falcon-mamba); bound
+# relative to the largest |logit|.
 LOGIT_REL_TOL = 5e-2
+# falcon-mamba-7b in bf16: 64 random-weight Mamba layers carry a one-ulp
+# bf16 difference (a product summed in another order rounds the other way)
+# on to 4.9-5.1e-2 of the largest |logit| on an H100, already after the
+# prefill, where the two paths differ only in the fp32 scan.  The same
+# check in fp32 holds the kernels to the plain path's function, and the
+# bf16 plain path's own distance from fp32 is reported beside.
+SSM_LOGIT_REL_TOL = 1e-1
+# fp32: summation order only, carried through 64 layers
+FP32_LOGIT_REL_TOL = 1e-3
+MAMBA_ORDER = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+               "dt_bias", "A_log", "D", "out_proj")
 
 
 def log(*parts) -> None:
@@ -69,11 +92,26 @@ def card_line() -> str:
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms over ``reps`` launches, each timed
     with CUDA events after a write of 256 MB that evicts the 50 MB L2, as
-    the serving path finds its inputs cold (weights pass between layers)."""
+    the serving path finds its inputs cold (weights pass between layers).
+
+    The timed launches queue behind a sleep on the stream that outlasts the
+    host's enqueue of all of them, so the events time the device's work:
+    a call whose host side (Python, allocations, launches) is slower than
+    its kernels would otherwise time the host.  A call of more launches
+    than the queue holds (a plain version of thousands of small kernels)
+    still waits on the host.  The host's enqueue time of one call is
+    logged beside."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"  (host enqueue of one call {host_s * 1e3:.4f} ms)")
+    # spin long enough at the H100's top clock of 1.98 GHz
+    torch.cuda._sleep(int((reps * (host_s + 2e-4) + 5e-3) * 1.98e9))
     pairs = []
     for _ in range(reps):
         flush.zero_()
@@ -87,11 +125,42 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0):
+    """Least time in ms for ``nbytes`` of traffic, ``flops`` at the peak of
+    ``dtype`` and ``exps`` exponentials on the special-function units, and
+    which of bytes or operations binds."""
     peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / peak, exps / SFU_EXP_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def agree(got, want, tol: float) -> bool:
+    """|got - want| <= tol + tol |want| everywhere, and got finite: a bf16
+    value that rounds to the neighbouring bf16 moves by 2**-8 of itself."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= tol + tol * w.abs()).all().item()
+                and g.isfinite().all().item())
+
+
+def _counter(name: str):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.ragged_decode import ops as rd
+    return {"ragged_decode": (rd, "launches"),
+            "flash_attention": (fa, "launches"),
+            "mamba_step": (ms, "step_launches"),
+            "mamba_scan": (ms, "scan_launches")}[name]
+
+
+def reset_counts(names) -> None:
+    for name in names:
+        setattr(*_counter(name), 0)
+
+
+def read_counts(names):
+    return {name: getattr(*_counter(name)) for name in names}
 
 
 # ---------------------------------------------------------------------------
@@ -238,22 +307,159 @@ def run_kernel_phase(torch, reps: int = 20):
     return results
 
 
+def run_ssm_kernel_phase(torch, reps: int = 20):
+    """The Mamba step and selective-scan kernels against their plain
+    versions at falcon-mamba-7b widths (d_model 4096, d_in 8192, N 16,
+    dt_rank 256, conv width 4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,
+                                                    mamba_step_ref, softplus)
+    from repro_torch.models import ssm as S
+
+    cfg = get_config("falcon-mamba-7b")
+    d_in, R, N, w = S.dims(cfg)
+    d_model = cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results = {}
+
+    # -- decode step: 8 slots, slot 5 dead ----------------------------------
+    B, dead = 8, 5
+    live = torch.ones(B, dtype=torch.bool, device="cuda")
+    live[dead] = False
+    worst = 0.0
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        p = S.mamba_init(gen, cfg, dtype=dt, device="cuda")
+        args = [p[k] for k in MAMBA_ORDER]
+        x1 = torch.randn((B, 1, d_model), generator=gen, device="cuda").to(dt)
+        conv0 = torch.randn((B, w - 1, d_in), generator=gen,
+                            device="cuda").to(dt)
+        h0 = torch.randn((B, d_in, N), generator=gen, device="cuda") * 0.5
+        conv, h = conv0.clone(), h0.clone()
+        out = ms.mamba_step(x1, conv, h, *args, live=live)
+        want = mamba_step_ref(x1, conv0, h0, *args, live=live)
+        torch.cuda.synchronize()
+        tol = TOL[dtype]
+        errs = [(g.float() - r.float()).abs().max().item()
+                for g, r in zip((out, conv, h), want)]
+        ok = all(agree(g, r, tol) for g, r in zip((out, conv, h), want))
+        dead_ok = bool((out[dead] == 0).all().item()
+                       and torch.equal(conv[dead], conv0[dead])
+                       and torch.equal(h[dead], h0[dead]))
+        log(f"mamba_step {dtype} B={B} (slot {dead} dead): max_abs_err out "
+            f"{errs[0]:.3e} conv {errs[1]:.3e} h {errs[2]:.3e}, tol {tol:.0e} "
+            f"abs + rel; dead row zero and bit-unchanged {dead_ok}")
+        if not (ok and dead_ok):
+            raise SystemExit(f"mamba_step {dtype} disagrees with its plain "
+                             f"version")
+        if dtype == "bfloat16":
+            worst = max(errs)
+            ms_ = time_ms(torch, lambda: ms.mamba_step(x1, conv, h, *args,
+                                                       live=live), reps)
+            plain_ms = time_ms(torch, lambda: mamba_step_ref(
+                x1, conv, h, *args, live=live), max(reps // 4, 3))
+            nlive = int(live.sum().item())
+            es = x1.element_size()
+            products = (d_model * 2 * d_in + d_in * (R + 2 * N) + R * d_in
+                        + d_in * d_model)
+            fp32_params = w * d_in + 3 * d_in + d_in * N
+            state = (w - 1) * d_in * es + d_in * N * 4
+            nbytes = (products * es + fp32_params * 4 + 2 * B * d_model * es
+                      + 2 * nlive * state + 4 * B)
+            flops = 2 * nlive * products
+            b_ms, b_by = bound(nbytes, flops, dtype,
+                               exps=nlive * d_in * (N + 3))
+            log(f"mamba_step timing (falcon-mamba-7b widths, bf16, {nlive} "
+                f"live of {B} slots, one layer): kernel {ms_:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                f"{nbytes / 1e6:.1f} MB); library none: no single PyTorch "
+                f"call computes the Mamba step")
+            results["mamba_step"] = dict(
+                name="mamba_step", route="cuda",
+                source="src/repro_torch/kernels/mamba_scan/csrc/"
+                       "mamba_scan.cu",
+                replaces="src/repro/kernels/mamba_scan/kernel.py:107",
+                ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+        del p, args
+    results["mamba_step"]["max_abs_err"] = worst
+
+    # -- prefill selective scan --------------------------------------------
+    worst = 0.0
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                   device="cuda")).expand(d_in, N).contiguous()
+    d_vec = torch.ones(d_in, dtype=torch.float32, device="cuda")
+    for S_len, dtype in ((1, "bfloat16"), (37, "bfloat16"), (200, "bfloat16"),
+                         (1024, "bfloat16"), (200, "float32")):
+        dt_ = getattr(torch, dtype)
+        x = torch.randn((1, S_len, d_in), generator=gen, device="cuda").to(dt_)
+        delta = softplus(torch.randn((1, S_len, d_in), generator=gen,
+                                     device="cuda") - 4.0)
+        # B and C as the prefill hands them over: strided views of dbc
+        dbc = torch.randn((1, S_len, R + 2 * N), generator=gen,
+                          device="cuda").to(dt_)
+        bm, cm = dbc[..., R:R + N], dbc[..., R + N:]
+        y, h_last = ms.mamba_scan(x, delta, bm, cm, a_log, d_vec)
+        want_y, want_h = mamba_scan_ref(x, delta, bm, cm, a_log, d_vec)
+        torch.cuda.synchronize()
+        tol = TOL["float32"]
+        err_y = (y - want_y).abs().max().item()
+        err_h = (h_last - want_h).abs().max().item()
+        log(f"mamba_scan S={S_len} {dtype} inputs (y, h fp32): max_abs_err "
+            f"y {err_y:.3e} h {err_h:.3e}, tol {tol:.0e} abs + rel")
+        if not (agree(y, want_y, tol) and agree(h_last, want_h, tol)):
+            raise SystemExit(f"mamba_scan S={S_len} {dtype} disagrees with "
+                             f"its plain version")
+        worst = max(worst, err_y, err_h)
+        if S_len == 1024:
+            ms_ = time_ms(torch, lambda: ms.mamba_scan(
+                x, delta, bm, cm, a_log, d_vec), reps)
+            plain_ms = time_ms(torch, lambda: mamba_scan_ref(
+                x, delta, bm, cm, a_log, d_vec), 3)
+            es = x.element_size()
+            n_io = S_len * d_in
+            nbytes = (n_io * es + n_io * 4 + 2 * S_len * N * es
+                      + 4 * d_in * (N + 1) + n_io * 4 + 4 * d_in * N)
+            exps = n_io * N + d_in * N
+            flops = 6 * n_io * N + 3 * n_io
+            b_ms, b_by = bound(nbytes, flops, "float32", exps=exps)
+            log(f"mamba_scan timing (S={S_len}, B=1, d_in={d_in}, N={N}, bf16 "
+                f"x/B/C): kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; bytes {nbytes / 1e6:.1f} MB = "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, exponentials "
+                f"{exps / 1e6:.1f} M = {exps / SFU_EXP_PER_S * 1e3:.4f} ms); "
+                f"library none: no single PyTorch call computes the "
+                f"selective scan")
+            results["mamba_scan"] = dict(
+                name="mamba_scan", route="cuda",
+                source="src/repro_torch/kernels/mamba_scan/csrc/"
+                       "mamba_scan.cu",
+                replaces="src/repro/kernels/mamba_scan/kernel.py:165",
+                ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+    results["mamba_scan"]["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
-# phase 3: serving full-width minitron-4b through the decode engine
+# phases 3 and 4: serving a full-width model through its engine
 # ---------------------------------------------------------------------------
 
-def run_serving_phase(torch, model, params):
+def run_serving_phase(torch, model, params, engine_cls, scfg, *, per_step,
+                      per_prefill):
+    """8 requests of 100-1000 prompt tokens, 32 new tokens each, through
+    ``engine_cls``; ``per_step`` / ``per_prefill`` name the kernels every
+    layer launches on every decode step / prefill.  Then the same workload
+    again under the profiler.  Returns the launch counts of the run."""
     import numpy as np
 
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.ragged_decode import ops as rd
-    from repro_torch.workloads.decode import DecodeEngine, ServeConfig
-
     cfg = model.cfg
-    scfg = ServeConfig(max_slots=8, max_len=2048, eos_id=-1,
-                       use_kernels=True)
+    name = cfg.name
+    kernels = (per_step, per_prefill)
     # warm-up on its own engine: cuBLAS handles, allocator pools
-    warm = DecodeEngine(model, params, scfg)
+    warm = engine_cls(model, params, scfg)
     warm.submit(np.arange(1, 65), max_new_tokens=4)
     warm.run_to_completion()
     del warm
@@ -278,12 +484,11 @@ def run_serving_phase(torch, model, params):
         torch.cuda.synchronize()
         return step_s, time.perf_counter() - t0
 
-    engine = DecodeEngine(model, params, scfg)
-    rd.launches = 0
-    fa.launches = 0
+    engine = engine_cls(model, params, scfg)
     torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
     step_s, wall = serve(engine)
-    launches = {"ragged_decode": rd.launches, "flash_attention": fa.launches}
+    launches = read_counts(kernels)
     reg = engine._obs.registry
     prefill_h = reg.histogram_at("prefill_s")
     decode_steps = reg.histogram_at("decode_step_s").count
@@ -292,14 +497,14 @@ def run_serving_phase(torch, model, params):
     toks = sum(len(t) for t in results.values())
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     L = cfg.num_layers
-    log(f"serving: prompts {plens.tolist()}, {new} new tokens each, "
-        f"{prefills} prefills, {decode_steps} decode steps, launches "
-        f"{launches}")
+    log(f"serving {name} ({type(engine).__name__}, max_len {scfg.max_len}): "
+        f"prompts {plens.tolist()}, {new} new tokens each, {prefills} "
+        f"prefills, {decode_steps} decode steps, launches {launches}")
     require(prefills == 8, f"{prefills} prefills, want 8")
-    require(launches["ragged_decode"] >= L * decode_steps > 0,
-            f"decode kernel launched {launches} for {decode_steps} steps")
-    require(launches["flash_attention"] >= L * prefills,
-            f"prefill kernel launched {launches} for {prefills} prefills")
+    require(launches[per_step] >= L * decode_steps > 0,
+            f"{per_step} launched {launches} for {decode_steps} steps")
+    require(launches[per_prefill] >= L * prefills,
+            f"{per_prefill} launched {launches} for {prefills} prefills")
     require(len(results) == 8 and all(len(t) == new
                                       for t in results.values()),
             f"streams incomplete: {[len(t) for t in results.values()]}")
@@ -308,7 +513,7 @@ def run_serving_phase(torch, model, params):
     # step 0 admits and prefills all 8 requests; the rest are decode steps
     decode_ms = sorted(s * 1e3 for s in step_s[1:])
     p50 = decode_ms[len(decode_ms) // 2]
-    log(f"serving: prefill ms per request mean "
+    log(f"serving {name}: prefill ms per request mean "
         f"{prefill_h.mean * 1e3:.2f} (min {prefill_h.min * 1e3:.2f}, max "
         f"{prefill_h.max * 1e3:.2f}); decode ms per step p50 {p50:.3f}; "
         f"{toks} tokens in {wall:.3f} s = {toks / wall:.1f} tokens/s; "
@@ -318,7 +523,7 @@ def run_serving_phase(torch, model, params):
     # kernel time by kind against the unprofiled wall gives the idle share
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        serve(DecodeEngine(model, params, scfg))
+        serve(engine_cls(model, params, scfg))
     per_kernel = {}
     for ev in prof.key_averages():
         # only kernel events are traced, so each one's device time counts
@@ -326,64 +531,102 @@ def run_serving_phase(torch, model, params):
               or getattr(ev, "device_time_total", 0.0))
         if us > 0:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3
-    kinds = {"ragged_decode": 0.0, "flash_attention": 0.0,
-             "matmul (cuBLAS)": 0.0, "other": 0.0}
-    for name, ms in per_kernel.items():
-        low = name.lower()
-        kind = next((k for k in ("ragged_decode", "flash_attention")
-                     if k in low), None)
+    kinds = dict.fromkeys(kernels + ("matmul (cuBLAS)", "other"), 0.0)
+    for kname, ms in per_kernel.items():
+        low = kname.lower()
+        kind = next((k for k in kernels if k in low), None)
         if kind is None:
             kind = "matmul (cuBLAS)" if any(t in low for t in (
                 "gemm", "gemv", "nvjet", "xmma", "cutlass")) else "other"
         kinds[kind] += ms
     busy = sum(kinds.values())
     if busy > 0:
-        log(f"serving profile: device kernel time {busy:.1f} ms of the "
-            f"unprofiled {wall * 1e3:.1f} ms wall (busy share "
+        log(f"serving {name} profile: device kernel time {busy:.1f} ms of "
+            f"the unprofiled {wall * 1e3:.1f} ms wall (busy share "
             f"{busy / (wall * 1e3):.3f}); by kind (ms): "
             + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items()))
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-        log("serving profile: top kernels (ms): " + "; ".join(
+        log(f"serving {name} profile: top kernels (ms): " + "; ".join(
             f"{n[:60]} {ms:.1f}" for n, ms in top))
     else:
-        log("serving profile: the profiler recorded no device time "
+        log(f"serving {name} profile: the profiler recorded no device time "
             "(device busy share not measured)")
     return launches
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernel path against plain path, full width, one short prompt
+# kernel path against plain path, full width, one short prompt
 # ---------------------------------------------------------------------------
 
-def run_reference_check(torch, model, params):
+def run_reference_check(torch, path_a, path_b, *, tol, label):
+    """Logits of two paths on one 100-token prompt, then 5 decode steps each
+    fed path a's argmax.  A path is (model, params, use_kernels).  Fails
+    when max|da - db| / max|db| exceeds ``tol`` (or, with ``tol`` None,
+    only reports it) or the argmax parts where b's top-2 margin is not
+    below the bound.  Returns the largest relative difference."""
+    (ma, pa, ka), (mb, pb, kb) = path_a, path_b
     gen = torch.Generator(device="cuda").manual_seed(2)
     S = 100
-    toks = torch.randint(1, model.cfg.vocab_size, (1, S), generator=gen,
+    toks = torch.randint(1, ma.cfg.vocab_size, (1, S), generator=gen,
                          device="cuda", dtype=torch.int32)
-    caches = {kern: model.init_cache(1, S + 8) for kern in (True, False)}
-    logits = {}
-    for kern, cache in caches.items():
-        logits[kern], caches[kern] = model.prefill(
-            params, {"tokens": toks}, cache, use_kernels=kern)
+    paths = ((ma, pa, ka), (mb, pb, kb))
+    caches = [m.init_cache(1, S + 8) for m, _, _ in paths]
+    logits = [None, None]
+    for i, (m, p, kern) in enumerate(paths):
+        logits[i], caches[i] = m.prefill(p, {"tokens": toks}, caches[i],
+                                         use_kernels=kern)
     worst = 0.0
+    bound_ = math.inf if tol is None else tol
     for step in range(5):
-        a, b = logits[True].float(), logits[False].float()
+        a, b = logits[0].float(), logits[1].float()
         rel = ((a - b).abs().max() / b.abs().max()).item()
         top2 = b.topk(2, dim=-1).values[0]
         margin = (top2[0] - top2[1]).item() / b.abs().max().item()
         same = bool((a.argmax(-1) == b.argmax(-1)).all().item())
-        log(f"reference check step {step}: max|dlogit|/max|logit| = "
-            f"{rel:.3e} (tol {LOGIT_REL_TOL:.0e}), argmax equal {same}, "
-            f"plain top-2 margin {margin:.3e}")
-        if not (math.isfinite(rel) and rel <= LOGIT_REL_TOL
-                and (same or margin < LOGIT_REL_TOL)):
-            raise SystemExit("kernel path disagrees with the plain path")
+        log(f"{label} step {step}: max|dlogit|/max|logit| = {rel:.3e} "
+            f"(tol {'none, reported' if tol is None else f'{tol:.0e}'}), "
+            f"argmax equal {same}, top-2 margin of b {margin:.3e}")
+        if not (math.isfinite(rel) and rel <= bound_
+                and (same or tol is None or margin < tol)):
+            raise SystemExit(f"{label}: the two paths disagree")
         worst = max(worst, rel)
         nxt = a.argmax(-1).to(torch.int32)[:, None]
-        for kern in (True, False):
-            logits[kern], caches[kern] = model.decode_step(
-                params, caches[kern], nxt, use_kernels=kern)
+        for i, (m, p, kern) in enumerate(paths):
+            logits[i], caches[i] = m.decode_step(p, caches[i], nxt,
+                                                 use_kernels=kern)
     return worst
+
+
+def run_ssm_reference_checks(torch, model, params):
+    """falcon-mamba-7b: kernel path against plain path in bf16 and, on an
+    fp32 copy of the same weights, in fp32; and the bf16 plain path against
+    the fp32 one, the model's own bf16 rounding error."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+
+    run_reference_check(torch, (model, params, True), (model, params, False),
+                        tol=SSM_LOGIT_REL_TOL,
+                        label="reference check falcon-mamba-7b bf16")
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"), "cuda")
+
+    def up(tree):
+        if isinstance(tree, dict):
+            return {k: up(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [up(v) for v in tree]
+        return tree.float()
+
+    p32 = up(params)
+    run_reference_check(torch, (m32, p32, True), (m32, p32, False),
+                        tol=FP32_LOGIT_REL_TOL,
+                        label="reference check falcon-mamba-7b fp32")
+    run_reference_check(torch, (model, params, False), (m32, p32, False),
+                        tol=None,
+                        label="bf16 rounding floor falcon-mamba-7b (plain "
+                              "bf16 vs plain fp32)")
+    del p32
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -399,6 +642,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models.model import build_model
+    from repro_torch.workloads import DecodeEngine, SSMEngine, ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -413,12 +657,22 @@ def main() -> int:
     log(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s: {lib.name}")
     build_log = lib.with_suffix(".log")
     if build_log.exists():
+        entry = ""
         for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
-                log("  " + line.strip())
+            if "Compiling entry function" in line:
+                # the mangled name's tail: kernel, template arguments
+                entry = line.split("'")[1][-64:]
+            elif "registers" in line or line.startswith("=="):
+                log(f"  {entry} {line.strip()}" if "registers" in line
+                    else "  " + line.strip())
+            elif "spill" in line and " 0 bytes spill stores" not in line:
+                log(f"  {entry} {line.strip()}")
 
     kernels = run_kernel_phase(torch)
+    kernels.update(run_ssm_kernel_phase(torch))
+    launches = {}
 
+    # minitron-4b through the decode engine, then freed
     cfg = get_config("minitron-4b")
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -426,12 +680,39 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"minitron-4b: {cfg.param_count() / 1e9:.2f} B params, random bf16 "
         f"weights in {time.perf_counter() - t0:.2f} s")
-    launches = run_serving_phase(torch, model, params)
-    run_reference_check(torch, model, params)
+    launches.update(run_serving_phase(
+        torch, model, params, DecodeEngine,
+        ServeConfig(max_slots=8, max_len=2048, eos_id=-1, use_kernels=True),
+        per_step="ragged_decode", per_prefill="flash_attention"))
+    run_reference_check(torch, (model, params, True), (model, params, False),
+                        tol=LOGIT_REL_TOL, label="reference check minitron-4b")
+    del model, params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # falcon-mamba-7b through the SSM engine: max_len 512 is below three
+    # of the prompts, which are served all the same (slot-bound admission)
+    cfg = get_config("falcon-mamba-7b")
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"falcon-mamba-7b: {cfg.param_count() / 1e9:.2f} B params, random "
+        f"bf16 weights in {time.perf_counter() - t0:.2f} s")
+    scfg = ServeConfig(max_slots=8, max_len=512, eos_id=-1, use_kernels=True)
+    arena = SSMEngine(model, params, scfg).arena
+    log(f"falcon-mamba-7b admission: arena of {arena.capacity} state "
+        f"elements = {scfg.max_slots} slots x one slot's state over "
+        f"{cfg.num_layers} layers, whatever max_len")
+    launches.update(run_serving_phase(
+        torch, model, params, SSMEngine, scfg, per_step="mamba_step",
+        per_prefill="mamba_scan"))
+    run_ssm_reference_checks(torch, model, params)
 
     entries = []
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
+        require(entry["launches"] > 0, f"{name} never launched on its path")
         entries.append({k: entry[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -5,8 +5,10 @@ The caller hands over plain numpy arrays (the reference's params after
 unstacks the reference's ``scanned`` leading layer axis into a list of
 per-layer dicts and keeps every layout as it is (``wq (d, H, hd)``,
 ``wo (Hq, hd, d)``, ``embed (padded_vocab, d)``, ``lm_head (d,
-padded_vocab)``), so nothing is transposed.  Weights are cast once to the
-activation dtype; norm parameters stay fp32.
+padded_vocab)``, ``in_proj (d, 2 d_in)``), so nothing is transposed.
+Weights are cast once to the activation dtype; norm parameters and the
+Mamba block's conv_w, conv_b, dt_bias, A_log and D stay fp32, as the
+reference holds them in fp32 and casts each to fp32 at use.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import check_dense
+from repro_torch.models.transformer import check_supported
 
 _NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+_SSM_FP32 = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
 
 
 def _convert(tree, path, *, dtype, device):
@@ -27,7 +30,8 @@ def _convert(tree, path, *, dtype, device):
         return {k: _convert(v, path + (k,), dtype=dtype, device=device)
                 for k, v in tree.items()}
     arr = np.asarray(tree)
-    keep32 = any(name in _NORMS for name in path)
+    keep32 = (any(name in _NORMS for name in path)
+              or ("ssm" in path and path[-1] in _SSM_FP32))
     t = torch.tensor(arr)
     return t.to(device=device, dtype=torch.float32 if keep32 else dtype)
 
@@ -35,7 +39,7 @@ def _convert(tree, path, *, dtype, device):
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
                     device: DeviceLike = None) -> Dict[str, Any]:
     """Reference param tree of numpy arrays -> port params on ``device``."""
-    check_dense(cfg)
+    check_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.activation_dtype
     dec = np_tree["decoder"]

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the dense GQA architectures this slice serves are registered; any
-other arch id raises ``KeyError``.
+Only the architectures the port serves are registered (the dense GQA
+decoders and the attention-free Mamba decoder); any other arch id raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from repro_torch.configs.base import (MLAConfig, MoEConfig, ModelConfig,
 _MODULES: Dict[str, str] = {
     "minitron-4b": "minitron_4b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)

@@ -111,6 +111,10 @@ class ModelConfig:
         return -(-self.vocab_size // 256) * 256
 
     @property
+    def attention_free(self) -> bool:
+        return self.attn_type == "none"
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 

@@ -4,9 +4,10 @@
         [--device cpu] --requests N
 
 Builds the model with random weights from ``--seed``, submits ``N``
-requests with random prompts, runs the decode engine until they finish
-and prints JSON stats, as ``repro.launch.serve`` does in single-model
-mode.  Runs on the GPU unless ``--device cpu`` is given.
+requests with random prompts, runs the engine of the arch's workload class
+until they finish (``DecodeEngine`` for dense archs, ``SSMEngine`` for
+``falcon-mamba-7b``) and prints JSON stats, as ``repro.launch.serve`` does
+in single-model mode.  Runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -19,7 +20,10 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.models.model import build_model
-from repro_torch.workloads.decode import DecodeEngine, ServeConfig
+from repro_torch.workloads import (DECODE, SSM, DecodeEngine, SSMEngine,
+                                   ServeConfig, workload_class_of)
+
+ENGINES = {DECODE: DecodeEngine, SSM: SSMEngine}
 
 
 def main(argv=None) -> int:
@@ -38,9 +42,9 @@ def main(argv=None) -> int:
     model = build_model(cfg, args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)
-    engine = DecodeEngine(model, params,
-                          ServeConfig(max_slots=args.max_slots,
-                                      max_len=args.max_len, eos_id=-1))
+    engine = ENGINES[workload_class_of(cfg)](
+        model, params, ServeConfig(max_slots=args.max_slots,
+                                   max_len=args.max_len, eos_id=-1))
     rng = np.random.default_rng(args.seed)
     t0 = time.monotonic()
     for _ in range(args.requests):
@@ -59,6 +63,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": (torch.cuda.get_device_name(model.device)
                    if model.device.type == "cuda" else "cpu"),
+        "arch": cfg.name, "workload_class": engine.workload_class,
         "requests": args.requests, "decode_steps": steps,
         "tokens_emitted": emitted, "wall_s": round(dt, 2),
         "tokens_per_s": round(emitted / dt, 1),

@@ -1,10 +1,12 @@
 """Model facade of the port (``repro.models.model``, decoder-only serving).
 
 ``Model(cfg, device)`` gives ``init(generator)``, ``init_cache``,
-``prefill`` and ``decode_step`` over plain parameter dicts.  Weights are
-cast once, at load, to the activation dtype: the same values as the
-reference's per-use ``.astype(x.dtype)`` at half the memory of fp32.  Norm
-parameters stay fp32, as the norms compute in fp32.
+``prefill`` and ``decode_step`` over plain parameter dicts, for dense GQA
+and attention-free Mamba decoders.  Weights are cast once, at load, to the
+activation dtype: the same values as the reference's per-use
+``.astype(x.dtype)`` at half the memory of fp32.  Norm parameters and the
+Mamba block's conv_w, conv_b, dt_bias, A_log and D stay fp32, as the
+reference computes with them in fp32.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ PyTree = Any
 
 
 class Model:
-    """Decoder-only dense GQA model on one device."""
+    """Decoder-only model (dense GQA or attention-free Mamba) on one
+    device."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
-        T.check_dense(cfg)
+        T.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 

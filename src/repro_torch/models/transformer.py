@@ -1,12 +1,15 @@
-"""Dense decoder stack of the port (``repro.models.transformer``).
+"""Decoder stack of the port (``repro.models.transformer``): dense GQA
+layers and attention-free Mamba layers.
 
 The reference scans one stacked layer body with ``lax.scan``; here a
 Python loop runs over a list of per-layer parameter dicts.  The decode
 cache keeps the reference's structure, ``{"prologue": [], "scanned":
-{"attn": {"k", "v"}}, "pos"}``, with the stacked (L, B, T, Hkv, D) KV
-tensors (slot axis 1) updated IN PLACE layer by layer.
+{"attn": {"k", "v"}} or {"ssm": {"conv", "h"}}, "pos"}``, with stacked
+leaves (layer axis 0, slot axis 1: KV (L, B, T, Hkv, D), conv window (L,
+B, w-1, d_in), state (L, B, d_in, N) fp32) updated IN PLACE layer by
+layer.
 
-MoE, MLA, SSM, hybrid and encoder-decoder stacks raise
+MoE, MLA, hybrid (attention beside SSM) and encoder-decoder stacks raise
 ``NotImplementedError``: they belong to later slices of the port.
 """
 from __future__ import annotations
@@ -19,16 +22,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 PyTree = Any
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for the stacks this slice of the port does not cover."""
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the stacks the port does not cover yet: it serves dense
+    GQA decoders and attention-free SSM (Mamba) decoders."""
     later = [("moe", cfg.moe is not None, "the MLA/MoE slice"),
              ("mla", cfg.mla is not None, "the MLA/MoE slice"),
-             ("ssm", cfg.ssm is not None, "the SSM slice"),
-             ("hybrid_parallel", cfg.hybrid_parallel, "the SSM slice"),
+             ("hybrid_parallel", cfg.hybrid_parallel, "the hybrid SSM slice"),
+             ("ssm beside attention",
+              cfg.ssm is not None and not cfg.attention_free,
+              "the hybrid SSM slice"),
              ("encoder_layers", cfg.encoder_layers > 0,
               "the encoder and enc-dec slices")]
     for field, present, where in later:
@@ -47,10 +54,11 @@ def norm_init(kind: str, dim: int, device) -> Dict[str, torch.Tensor]:
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
-    p: Dict[str, PyTree] = {
-        "ln1": norm_init(cfg.norm, cfg.d_model, device),
-        "attn": A.gqa_init(gen, cfg, dtype=dtype, device=device),
-    }
+    p: Dict[str, PyTree] = {"ln1": norm_init(cfg.norm, cfg.d_model, device)}
+    if cfg.ssm is not None:
+        p["ssm"] = S.mamba_init(gen, cfg, dtype=dtype, device=device)
+    else:
+        p["attn"] = A.gqa_init(gen, cfg, dtype=dtype, device=device)
     if cfg.d_ff:
         p["ln2"] = norm_init(cfg.norm, cfg.d_model, device)
         p["ffn"] = M.ffn_init(gen, cfg, cfg.d_ff, dtype=dtype, device=device)
@@ -67,43 +75,55 @@ def _ffn(p, cfg: ModelConfig, x):
 def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
                    is_global: bool, use_kernels: bool):
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    y, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
-                                     cache["attn"], is_global=is_global,
-                                     use_kernels=use_kernels)
+    if "ssm" in p:
+        y, cache["ssm"] = S.mamba_prefill(p["ssm"], cfg, h, cache["ssm"],
+                                          use_kernels=use_kernels)
+    else:
+        y, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
+                                         cache["attn"], is_global=is_global,
+                                         use_kernels=use_kernels)
     return _ffn(p, cfg, x + y), cache
 
 
 def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
                 use_kernels: bool, kv_bound: Optional[int], live):
     h = L.apply_norm(cfg.norm, p["ln1"], x1, cfg.norm_eps)
-    y, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
-                                  is_global=is_global,
-                                  use_kernels=use_kernels,
-                                  kv_bound=kv_bound, live=live)
+    if "ssm" in p:
+        y, cache["ssm"] = S.mamba_step(p["ssm"], cfg, h, cache["ssm"],
+                                       use_kernels=use_kernels, live=live)
+    else:
+        y, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
+                                      is_global=is_global,
+                                      use_kernels=use_kernels,
+                                      kv_bound=kv_bound, live=live)
     return _ffn(p, cfg, x1 + y), cache
 
 
 def decoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
-    check_dense(cfg)
+    check_supported(cfg)
     return {"layers": [_layer_init(gen, cfg, dtype=dtype, device=device)
                        for _ in range(cfg.num_layers)]}
 
 
 def decoder_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                        device):
-    check_dense(cfg)
-    one = A.gqa_cache_init(cfg, batch, max_len, dtype, device)
-    scanned = {"attn": {name: torch.zeros((cfg.num_layers,) + t.shape,
-                                          dtype=dtype, device=device)
-                        for name, t in one.items()}}
+    check_supported(cfg)
+    if cfg.ssm is not None:
+        kind, one = "ssm", S.mamba_cache_init(cfg, batch, dtype, device)
+    else:
+        kind, one = "attn", A.gqa_cache_init(cfg, batch, max_len, dtype,
+                                             device)
+    scanned = {kind: {name: torch.zeros((cfg.num_layers,) + t.shape,
+                                        dtype=t.dtype, device=device)
+                      for name, t in one.items()}}
     return {"prologue": [], "scanned": scanned,
             "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
 
 
 def _layer_cache(cache, i: int):
     """Layer ``i``'s cache as views into the stacked tensors."""
-    return {"attn": {name: t[i] for name, t in
-                     cache["scanned"]["attn"].items()}}
+    return {kind: {name: t[i] for name, t in leaves.items()}
+            for kind, leaves in cache["scanned"].items()}
 
 
 def cache_slot_axes(cache) -> PyTree:

@@ -1,3 +1,7 @@
+from repro_torch.workloads.base import (DECODE, SSM, WORKLOAD_CLASSES,
+                                        workload_class_of)
 from repro_torch.workloads.decode import DecodeEngine, Request, ServeConfig
+from repro_torch.workloads.ssm import SSMEngine
 
-__all__ = ["DecodeEngine", "Request", "ServeConfig"]
+__all__ = ["DECODE", "DecodeEngine", "Request", "SSM", "SSMEngine",
+           "ServeConfig", "WORKLOAD_CLASSES", "workload_class_of"]

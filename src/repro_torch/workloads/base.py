@@ -1,13 +1,33 @@
 """Shared engine plumbing of the port (the parts of
-``repro.workloads.base`` the decode engine uses): the decayed estimate of
-submitted lengths behind ``recent_lengths()`` and bounded retention of
-finished requests."""
+``repro.workloads.base`` the engines use): the workload classes and the
+class an architecture defaults to, the decayed estimate of submitted
+lengths behind ``recent_lengths()`` and bounded retention of finished
+requests."""
 from __future__ import annotations
 
 import collections
 from typing import List, Tuple
 
+from repro_torch.configs.base import ModelConfig
+
+# canonical workload-class ids
 DECODE = "decode"
+SSM = "ssm"
+ENCODER = "encoder"
+ENCDEC = "encdec"
+WORKLOAD_CLASSES: Tuple[str, ...] = (DECODE, SSM, ENCODER, ENCDEC)
+
+
+def workload_class_of(cfg: ModelConfig) -> str:
+    """Default workload class for an architecture: attention-free SSM archs
+    decode from recurrent state (``ssm``), encoder-decoder archs serve full
+    encode-decode jobs (``encdec``), anything else with a decode loop is
+    ``decode``.  ``encoder`` is never inferred: it is a tenant's choice."""
+    if cfg.ssm is not None and cfg.attention_free:
+        return SSM
+    if cfg.encoder_layers > 0 and cfg.cross_attention:
+        return ENCDEC
+    return DECODE
 
 
 class DecayedLengthEstimator:

@@ -159,9 +159,12 @@ class DecodeEngine(EngineTelemetry):
     # admission accounting
     # ------------------------------------------------------------------
     def _per_token_cache_elems(self) -> int:
-        """Per-token KV elements over all layers (admission accounting)."""
+        """Per-token KV elements over all layers (admission accounting);
+        an attention-free arch holds no KV."""
         mc = self.model.cfg
-        return max(2 * mc.num_kv_heads * mc.resolved_head_dim, 1) * mc.num_layers
+        per_tok = (0 if mc.attention_free
+                   else 2 * mc.num_kv_heads * mc.resolved_head_dim)
+        return max(per_tok, 1) * mc.num_layers
 
     def _arena_capacity(self) -> int:
         return self.cfg.max_slots * self.cfg.max_len * self._per_token_elems
@@ -331,7 +334,8 @@ class DecodeEngine(EngineTelemetry):
         # next input token per slot: host-injected (fresh prefill / sync
         # mode) or the previous step's device-resident output (pipelined)
         toks = torch.where(inject_mask, inject_vals, prev)[:, None]
-        kv_bound = self._kv_bound() if self.cfg.use_kernels else None
+        kv_bound = (self._kv_bound() if self.cfg.use_kernels
+                    and not self.model.cfg.attention_free else None)
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, toks, use_kernels=self.cfg.use_kernels,
             kv_bound=kv_bound, live_mask=live)
@@ -449,11 +453,13 @@ class DecodeEngine(EngineTelemetry):
         return -(-length // bucket) * bucket
 
     def _prefill_into_slot(self, req: Request) -> None:
-        """Pad the prompt to its bucket and prefill with ``true_len``; KV
-        past the true length is masked by the slot's position and
-        overwritten by later decodes."""
+        """Prefill one request into its slot.  Attention archs pad the
+        prompt to its bucket and pass ``true_len``: KV past the true length
+        is masked by the slot's position and overwritten by later decodes.
+        SSM archs carry recurrent state that padding would corrupt, so they
+        prefill at the exact prompt length."""
         L = len(req.tokens)
-        nb = self._bucketed(L)
+        nb = self._bucketed(L) if self.model.cfg.ssm is None else L
         toks = np.zeros((1, nb), np.int32)
         toks[0, :L] = req.tokens
         with self._obs.timed("prefill", "prefill_s", len=L):

@@ -7,6 +7,10 @@ only PyTorch:
 
 Tolerances: bf16 to 2e-2 (a few bf16 ulps of O(1) outputs; kernel and
 plain version round p at different points), fp32 to 1e-4 (summation order).
+The Mamba step rounds at the reference's points in both versions, but sums
+its products in another order, so a value may land on the neighbouring
+bf16 (2**-8 of itself): it is held to tol + tol |want|.  The scan computes
+in fp32 in both versions: 1e-4 + 1e-4 |want|.
 """
 import pytest
 
@@ -14,11 +18,22 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as ms  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,  # noqa: E402
+                                                mamba_step_ref, softplus)
 from repro_torch.kernels.ragged_decode import ops as rd  # noqa: E402
 from repro_torch.kernels.ragged_decode.ref import \
     ragged_decode_attention_ref  # noqa: E402
 
 GPU_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+MAMBA_ORDER = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+               "dt_bias", "A_log", "D", "out_proj")
+
+
+def _agree(got, want, tol):
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= tol + tol * w.abs()).all()
+                and g.isfinite().all())
 
 
 @pytest.fixture
@@ -125,4 +140,117 @@ def test_engine_on_gpu_kernel_path_matches_plain_path(cuda):
             assert fa.launches - fa0 >= cfg.num_layers * len(prompts)
         else:
             assert (rd.launches, fa.launches) == (rd0, fa0)
+    assert streams[True] == streams[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d_model,N,B", [(256, 16, 8), (64, 4, 11),
+                                         (96, 8, 3)])
+def test_mamba_step_kernel_on_gpu(cuda, dtype, d_model, N, B):
+    """Widths whose x_proj columns (dt_rank + 2N) are no multiple of 16
+    bytes take the scalar-load product; B = 11 spans two row groups.  One
+    slot is dead: zero output, conv and h bit-unchanged."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import ssm as S
+
+    base = get_reduced("falcon-mamba-7b")
+    cfg = dataclasses.replace(base, d_model=d_model, ssm=dataclasses.replace(
+        base.ssm, state_dim=N))
+    d_in, _, _, w = S.dims(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    p = S.mamba_init(gen, cfg, dtype=dtype, device=cuda)
+    args = [p[k] for k in MAMBA_ORDER]
+    x1 = torch.randn((B, 1, d_model), generator=gen, device=cuda).to(dtype)
+    conv0 = torch.randn((B, w - 1, d_in), generator=gen, device=cuda).to(dtype)
+    h0 = torch.randn((B, d_in, N), generator=gen, device=cuda) * 0.5
+    live = torch.ones(B, dtype=torch.bool, device=cuda)
+    live[1] = False
+    conv, h = conv0.clone(), h0.clone()
+    before = ms.step_launches
+    out = ms.mamba_step(x1, conv, h, *args, live=live)
+    want = mamba_step_ref(x1, conv0, h0, *args, live=live)
+    torch.cuda.synchronize()
+    assert ms.step_launches == before + 1
+    for got, ref in zip((out, conv, h), want):
+        assert _agree(got, ref, GPU_TOL[dtype])
+    assert (out[1] == 0).all()
+    assert torch.equal(conv[1], conv0[1]) and torch.equal(h[1], h0[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 37, 200])
+@pytest.mark.parametrize("N", [4, 16])
+def test_mamba_scan_kernel_on_gpu(cuda, dtype, S, N):
+    """B = 2 rows, d_in = 80 channels (no multiple of the 32-channel
+    block); B and C strided views of one (B, S, R + 2N) tensor."""
+    B, D, R = 2, 80, 6
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((B, S, D), generator=gen, device=cuda).to(dtype)
+    delta = softplus(torch.randn((B, S, D), generator=gen, device=cuda) - 3)
+    dbc = torch.randn((B, S, R + 2 * N), generator=gen, device=cuda).to(dtype)
+    bm, cm = dbc[..., R:R + N], dbc[..., R + N:]
+    a_log = torch.log(torch.rand((D, N), generator=gen, device=cuda) * 4 + 0.5)
+    d = torch.randn(D, generator=gen, device=cuda)
+    before = ms.scan_launches
+    y, h = ms.mamba_scan(x, delta, bm, cm, a_log, d)
+    want_y, want_h = mamba_scan_ref(x, delta, bm, cm, a_log, d)
+    torch.cuda.synchronize()
+    assert ms.scan_launches == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    assert _agree(y, want_y, 1e-4) and _agree(h, want_h, 1e-4)
+
+
+@pytest.mark.gpu
+def test_mamba_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 4, 32), dtype=torch.float16, device=cuda)
+    dt = torch.zeros((1, 4, 32), device=cuda)
+    b = torch.zeros((1, 4, 16), dtype=torch.float16, device=cuda)
+    a_log = torch.zeros((32, 16), device=cuda)
+    d = torch.zeros(32, device=cuda)
+    with pytest.raises(TypeError):
+        ms.mamba_scan(x, dt, b, b, a_log, d)
+    b5 = torch.zeros((1, 4, 5), device=cuda)
+    with pytest.raises(ValueError):
+        ms.mamba_scan(x.float(), dt, b5, b5, a_log[:, :5].contiguous(), d)
+
+
+@pytest.mark.gpu
+def test_ssm_engine_on_gpu_kernel_path_matches_plain_path(cuda):
+    """The SSM engine on the card, reduced falcon-mamba in fp32: streams
+    with both Mamba kernels on equal the plain path's, and every layer of
+    every prefill and decode step launched its kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import Model
+    from repro_torch.workloads import SSMEngine, ServeConfig
+
+    cfg = dataclasses.replace(get_reduced("falcon-mamba-7b"), dtype="float32")
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
+               for n in rng.integers(3, 40, size=5)]
+    streams = {}
+    for kern in (True, False):
+        eng = SSMEngine(model, params, ServeConfig(
+            max_slots=3, max_len=16, eos_id=-1, use_kernels=kern))
+        st0, sc0 = ms.step_launches, ms.scan_launches
+        for p in prompts:
+            eng.submit(p, max_new_tokens=12)
+        while eng.has_work:
+            eng.step()
+        streams[kern] = eng.results()
+        decode_steps = eng._obs.registry.histogram_at("decode_step_s").count
+        if kern:
+            assert ms.step_launches - st0 == cfg.num_layers * decode_steps
+            assert ms.scan_launches - sc0 == cfg.num_layers * len(prompts)
+        else:
+            assert (ms.step_launches, ms.scan_launches) == (st0, sc0)
     assert streams[True] == streams[False]

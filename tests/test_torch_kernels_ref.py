@@ -1,4 +1,6 @@
-"""Port parity for the two attention kernels of ``repro_torch``.
+"""Port parity for the two attention kernels of ``repro_torch`` (the Mamba
+kernels' plain versions are held against the JAX package in
+``test_torch_ssm.py``) and the kernel build.
 
 Each kernel's plain version against the JAX package's kernel in Pallas
 interpret mode and against its pure-jnp oracle, on the same numpy inputs
@@ -113,7 +115,8 @@ def test_flash_wrapper_takes_plain_on_cpu():
 
 def test_build_lists_sources_and_raises_without_nvcc(monkeypatch, tmp_path):
     names = sorted(p.name for p in _build.sources())
-    assert names == ["common.cu", "flash_attention.cu", "ragged_decode.cu"]
+    assert names == ["common.cu", "flash_attention.cu", "mamba_scan.cu",
+                     "ragged_decode.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.library_path().name.startswith("librepro_torch_kernels-")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)

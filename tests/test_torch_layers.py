@@ -24,7 +24,7 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
-from repro_torch.models.transformer import check_dense  # noqa: E402
+from repro_torch.models.transformer import check_supported  # noqa: E402
 
 RNG = np.random.default_rng(7)
 FP32_TOL = 1e-5
@@ -50,7 +50,8 @@ def _close(jax_out, torch_out, tol):
     np.testing.assert_allclose(b, a, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b", "qwen2.5-32b"])
+@pytest.mark.parametrize("arch", ["minitron-4b", "qwen2.5-32b",
+                                  "falcon-mamba-7b"])
 def test_configs_match_reference(arch):
     for get_t, get_j in ((TC.get_config, jax_get_config),
                          (TC.get_reduced, jax_get_reduced)):
@@ -59,6 +60,7 @@ def test_configs_match_reference(arch):
         assert ct.param_count() == cj.param_count()
         assert ct.padded_vocab == cj.padded_vocab
         assert ct.resolved_head_dim == cj.resolved_head_dim
+        assert ct.attention_free == cj.attention_free
     assert TC.get_reduced(arch).activation_dtype == torch.bfloat16
     full = TC.get_config("minitron-4b")
     assert 4.1e9 < full.param_count() < 4.3e9
@@ -66,13 +68,15 @@ def test_configs_match_reference(arch):
 
 def test_unknown_arch_and_later_slices_raise():
     with pytest.raises(KeyError):
-        TC.get_config("falcon-mamba-7b")
+        TC.get_config("hymba-1.5b")
     cfg = TC.get_reduced("minitron-4b")
+    # an SSM beside attention (hybrid) is a later slice; attention-free is not
     for field, value in (("moe", TC.MoEConfig(4, 2, 32)),
                          ("mla", TC.MLAConfig()), ("ssm", TC.SSMConfig()),
                          ("hybrid_parallel", True), ("encoder_layers", 2)):
         with pytest.raises(NotImplementedError, match="slice"):
-            check_dense(dataclasses.replace(cfg, **{field: value}))
+            check_supported(dataclasses.replace(cfg, **{field: value}))
+    check_supported(TC.get_reduced("falcon-mamba-7b"))
 
 
 def test_default_device_raises_without_gpu():

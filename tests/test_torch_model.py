@@ -1,7 +1,7 @@
 """Port parity for the whole model: ``repro_torch`` ``Model.prefill`` plus
-greedy ``decode_step`` s against the JAX ``Model`` on minitron-reduced and
-qwen2.5-reduced, with the JAX init's weights carried over by
-``params_from_jax``.
+greedy ``decode_step`` s against the JAX ``Model`` on minitron-reduced,
+qwen2.5-reduced and falcon-mamba-reduced, with the JAX init's weights
+carried over by ``params_from_jax``.
 
 fp32 leg (``dtype="float32"``): greedy streams equal, logits within 1e-4
 of the largest |logit| (summation order only).  bf16 leg: logits within
@@ -29,7 +29,7 @@ from repro_torch.models.model import Model  # noqa: E402
 
 FP32_LOGIT_TOL = 1e-4
 BF16_LOGIT_TOL = 3e-2
-ARCHS = ["minitron-4b", "qwen2.5-32b"]
+ARCHS = ["minitron-4b", "qwen2.5-32b", "falcon-mamba-7b"]
 
 
 def _pair(arch, dtype):
@@ -49,20 +49,25 @@ def _rel(a, b):
 
 def _run(jm, jp, tm, tp, *, use_kernels, steps, tol, exact_streams):
     """Prefill a right-padded batch (true lengths 11 and 6 in 16), then
-    greedy-decode ``steps`` tokens on both sides, each fed its own argmax."""
+    greedy-decode ``steps`` tokens on both sides, each fed its own argmax.
+    An SSM arch prefills an exact-length batch of 11 tokens instead: padding
+    would enter its recurrent state."""
     B, S, max_len = 2, 16, 40
+    ssm = jm.cfg.ssm is not None
     rng = np.random.default_rng(3)
     toks = rng.integers(1, jm.cfg.vocab_size, size=(B, S)).astype(np.int32)
     true_len = np.array([11, 6], np.int32)
+    if ssm:
+        toks, true_len = toks[:, :11], np.array([11, 11], np.int32)
     prefill = jax.jit(jm.prefill)
     jstep = jax.jit(jm.decode_step, static_argnames=("use_kernels",
                                                      "kv_bound"))
     jl, jc = prefill(jp, {"tokens": jnp.asarray(toks)},
                      strip(jm.init_cache(B, max_len)),
-                     true_len=jnp.asarray(true_len))
+                     true_len=None if ssm else jnp.asarray(true_len))
     tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
                         tm.init_cache(B, max_len),
-                        true_len=torch.from_numpy(true_len),
+                        true_len=None if ssm else torch.from_numpy(true_len),
                         use_kernels=use_kernels)
     live = np.array([True, True])
     parted = [False] * B
