@@ -21,9 +21,10 @@
    profiles a replay and checks kernel-path logits against the plain path.
 4. Serving phase, falcon-mamba-7b: the same for full width (64 layers)
    through ``SSMEngine`` with ``max_len`` 512, so that prompts past it show
-   admission to be slot-bound.  The kernel path is checked against the
-   plain path in bf16 and, on an fp32 copy of the weights, in fp32; the
-   bf16 plain path's distance from the fp32 one is reported beside.
+   admission to be slot-bound.  For three weight seeds the kernel path is
+   checked against the plain path on an fp32 copy of the weights, and in
+   bf16 against the model's own rounding floor: its distance from the fp32
+   plain path may exceed the bf16 plain path's by a stated margin only.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -46,24 +47,35 @@ F32_FLOPS = 67e12                  # fp32 outside the tensor cores
 # compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 # instruction throughput), 132 SMs at the H100 SXM's 1980 MHz boost clock
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
+# exponentials evaluated beside them on the FP32 pipe (128 lanes per SM),
+# as range reduction plus a polynomial: about 8 FP32 instructions each.
+# The bound counts both, so that it is the least time; the SFU-only figure
+# is logged beside it
+FMA_EXP_PER_S = 132 * 128 * 1.98e9 / 8
 # bf16 kernel vs plain version: outputs are O(1) weighted means of bf16
 # values; the two round p and the running sums at different points, so
 # they may differ by a few bf16 ulps (2**-8 relative).  fp32: summation
 # order only.
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # full-depth logits, kernel path vs plain path: bf16 rounding at different
-# points compounds over the layers (32 minitron, 64 falcon-mamba); bound
-# relative to the largest |logit|.
+# points compounds over minitron's 32 layers; bound relative to the largest
+# |logit|.
 LOGIT_REL_TOL = 5e-2
-# falcon-mamba-7b in bf16: 64 random-weight Mamba layers carry a one-ulp
-# bf16 difference (a product summed in another order rounds the other way)
-# on to 4.9-5.1e-2 of the largest |logit| on an H100, already after the
-# prefill, where the two paths differ only in the fp32 scan.  The same
-# check in fp32 holds the kernels to the plain path's function, and the
-# bf16 plain path's own distance from fp32 is reported beside.
-SSM_LOGIT_REL_TOL = 1e-1
+# falcon-mamba-7b in bf16 is held to its own rounding floor, measured in
+# the same run on the same weights: the kernel path's distance from the
+# fp32 plain path may exceed the bf16 plain path's distance from it by at
+# most this share.  Both are bf16 roundings at the same points, differing
+# in summation order only, so their distances from fp32 are two draws from
+# one spread (the floor moved by +-8% from step to step on an H100).
+SSM_FLOOR_MARGIN = 0.25
+# a path's argmax may differ from its reference's only where the
+# reference's top-2 margin, relative to its largest |logit|, is below this
+ARGMAX_MARGIN = 5e-2
 # fp32: summation order only, carried through 64 layers
 FP32_LOGIT_REL_TOL = 1e-3
+# weight seeds of the falcon-mamba-7b reference checks; seed 0 is the
+# served model
+SSM_CHECK_SEEDS = (0, 1, 2)
 MAMBA_ORDER = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
                "dt_bias", "A_log", "D", "out_proj")
 
@@ -127,11 +139,11 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0):
     """Least time in ms for ``nbytes`` of traffic, ``flops`` at the peak of
-    ``dtype`` and ``exps`` exponentials on the special-function units, and
-    which of bytes or operations binds."""
+    ``dtype`` and ``exps`` exponentials on the special-function units and
+    the FP32 pipe together, and which of bytes or operations binds."""
     peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(flops / peak, exps / SFU_EXP_PER_S)
+    t_ops = max(flops / peak, exps / (SFU_EXP_PER_S + FMA_EXP_PER_S))
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -428,7 +440,10 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
                 f"x/B/C): kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}; bytes {nbytes / 1e6:.1f} MB = "
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, exponentials "
-                f"{exps / 1e6:.1f} M = {exps / SFU_EXP_PER_S * 1e3:.4f} ms); "
+                f"{exps / 1e6:.1f} M = "
+                f"{exps / (SFU_EXP_PER_S + FMA_EXP_PER_S) * 1e3:.4f} ms on "
+                f"SFU + FP32 pipe, {exps / SFU_EXP_PER_S * 1e3:.4f} ms on "
+                f"the SFU alone); "
                 f"library none: no single PyTorch call computes the "
                 f"selective scan")
             results["mamba_scan"] = dict(
@@ -558,75 +573,129 @@ def run_serving_phase(torch, model, params, engine_cls, scfg, *, per_step,
 # kernel path against plain path, full width, one short prompt
 # ---------------------------------------------------------------------------
 
-def run_reference_check(torch, path_a, path_b, *, tol, label):
-    """Logits of two paths on one 100-token prompt, then 5 decode steps each
-    fed path a's argmax.  A path is (model, params, use_kernels).  Fails
-    when max|da - db| / max|db| exceeds ``tol`` (or, with ``tol`` None,
-    only reports it) or the argmax parts where b's top-2 margin is not
-    below the bound.  Returns the largest relative difference."""
-    (ma, pa, ka), (mb, pb, kb) = path_a, path_b
+def path_logits(torch, paths, *, steps: int = 5):
+    """fp32 logits of each path on one 100-token prompt and after each of
+    ``steps`` decode steps, every path fed the last path's argmax.  A path
+    is (model, params, use_kernels).  Returns, per position, the list of
+    the paths' logits."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     S = 100
-    toks = torch.randint(1, ma.cfg.vocab_size, (1, S), generator=gen,
-                         device="cuda", dtype=torch.int32)
-    paths = ((ma, pa, ka), (mb, pb, kb))
-    caches = [m.init_cache(1, S + 8) for m, _, _ in paths]
-    logits = [None, None]
+    toks = torch.randint(1, paths[0][0].cfg.vocab_size, (1, S),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    caches = [m.init_cache(1, S + steps + 3) for m, _, _ in paths]
+    logits = [None] * len(paths)
     for i, (m, p, kern) in enumerate(paths):
         logits[i], caches[i] = m.prefill(p, {"tokens": toks}, caches[i],
                                          use_kernels=kern)
-    worst = 0.0
-    bound_ = math.inf if tol is None else tol
-    for step in range(5):
-        a, b = logits[0].float(), logits[1].float()
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        top2 = b.topk(2, dim=-1).values[0]
-        margin = (top2[0] - top2[1]).item() / b.abs().max().item()
-        same = bool((a.argmax(-1) == b.argmax(-1)).all().item())
-        log(f"{label} step {step}: max|dlogit|/max|logit| = {rel:.3e} "
-            f"(tol {'none, reported' if tol is None else f'{tol:.0e}'}), "
-            f"argmax equal {same}, top-2 margin of b {margin:.3e}")
-        if not (math.isfinite(rel) and rel <= bound_
-                and (same or tol is None or margin < tol)):
-            raise SystemExit(f"{label}: the two paths disagree")
-        worst = max(worst, rel)
-        nxt = a.argmax(-1).to(torch.int32)[:, None]
+    out = [[x.float() for x in logits]]
+    for _ in range(steps):
+        nxt = logits[-1].argmax(-1).to(torch.int32)[:, None]
         for i, (m, p, kern) in enumerate(paths):
             logits[i], caches[i] = m.decode_step(p, caches[i], nxt,
                                                  use_kernels=kern)
+        out.append([x.float() for x in logits])
+    return out
+
+
+def rel_err(a, ref) -> float:
+    """max|a - ref| relative to the largest |ref|."""
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def argmax_check(a, ref, margin_tol: float):
+    """(argmax equal, ref's top-2 margin relative to its largest |logit|,
+    ok): a may pick another token only where that margin is below
+    ``margin_tol``."""
+    top2 = ref.topk(2, dim=-1).values[0]
+    margin = (top2[0] - top2[1]).item() / ref.abs().max().item()
+    same = bool((a.argmax(-1) == ref.argmax(-1)).all().item())
+    return same, margin, same or margin < margin_tol
+
+
+def run_reference_check(torch, path_a, path_b, *, tol, label):
+    """Path a against path b, both fed b's argmax.  Fails when
+    max|a - b| / max|b| exceeds ``tol`` at any position, or the argmax
+    parts where b's top-2 margin is not below min(tol, ARGMAX_MARGIN).
+    Returns the largest relative difference."""
+    worst = 0.0
+    for step, (a, b) in enumerate(path_logits(torch, (path_a, path_b))):
+        rel = rel_err(a, b)
+        same, margin, ok = argmax_check(a, b, min(tol, ARGMAX_MARGIN))
+        log(f"{label} step {step}: max|dlogit|/max|logit| = {rel:.3e} "
+            f"(tol {tol:.0e}), argmax equal {same}, top-2 margin of b "
+            f"{margin:.3e}")
+        require(math.isfinite(rel) and rel <= tol and ok,
+                f"{label}: the two paths disagree at step {step}")
+        worst = max(worst, rel)
     return worst
 
 
-def run_ssm_reference_checks(torch, model, params):
-    """falcon-mamba-7b: kernel path against plain path in bf16 and, on an
-    fp32 copy of the same weights, in fp32; and the bf16 plain path against
-    the fp32 one, the model's own bf16 rounding error."""
+def to_fp32(tree):
+    if isinstance(tree, dict):
+        return {k: to_fp32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_fp32(v) for v in tree]
+    return tree.float()
+
+
+def run_ssm_reference_checks(torch, model):
+    """falcon-mamba-7b at full depth, for each weight seed of
+    ``SSM_CHECK_SEEDS``: four paths on the same tokens, the kernel and the
+    plain path in bf16 and on an fp32 copy of the same weights.  In fp32
+    the kernel path must compute the plain path's function
+    (``FP32_LOGIT_REL_TOL``).  In bf16 its distance from the fp32 plain
+    path, the largest over all positions, must stay within
+    1 + ``SSM_FLOOR_MARGIN`` times the bf16 plain path's (the model's own
+    rounding floor, measured here), and its argmax must be the fp32 plain
+    path's wherever that path's top-2 margin is ``ARGMAX_MARGIN`` or
+    more."""
     import dataclasses
 
     from repro_torch.models.model import build_model
 
-    run_reference_check(torch, (model, params, True), (model, params, False),
-                        tol=SSM_LOGIT_REL_TOL,
-                        label="reference check falcon-mamba-7b bf16")
     m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"), "cuda")
-
-    def up(tree):
-        if isinstance(tree, dict):
-            return {k: up(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [up(v) for v in tree]
-        return tree.float()
-
-    p32 = up(params)
-    run_reference_check(torch, (m32, p32, True), (m32, p32, False),
-                        tol=FP32_LOGIT_REL_TOL,
-                        label="reference check falcon-mamba-7b fp32")
-    run_reference_check(torch, (model, params, False), (m32, p32, False),
-                        tol=None,
-                        label="bf16 rounding floor falcon-mamba-7b (plain "
-                              "bf16 vs plain fp32)")
-    del p32
-    torch.cuda.empty_cache()
+    for seed in SSM_CHECK_SEEDS:
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        p32 = to_fp32(params)
+        label = f"reference check falcon-mamba-7b seed {seed}"
+        paths = ((model, params, True), (model, params, False),
+                 (m32, p32, True), (m32, p32, False))
+        worst = dict.fromkeys(("kernel bf16", "plain bf16",
+                               "bf16 kernel vs plain", "fp32 kernel vs plain"),
+                              0.0)
+        for step, (k16, p16, k32, f32) in enumerate(
+                path_logits(torch, paths)):
+            errs = (rel_err(k16, f32), rel_err(p16, f32), rel_err(k16, p16),
+                    rel_err(k32, f32))
+            same32, _, ok32 = argmax_check(k32, f32, FP32_LOGIT_REL_TOL)
+            same16, margin, ok16 = argmax_check(k16, f32, ARGMAX_MARGIN)
+            log(f"{label} step {step}: distance from plain fp32, kernel bf16 "
+                f"{errs[0]:.3e}, plain bf16 {errs[1]:.3e}; bf16 kernel vs "
+                f"plain {errs[2]:.3e}; fp32 kernel vs plain {errs[3]:.3e} "
+                f"(tol {FP32_LOGIT_REL_TOL:.0e}), argmax equal {same32}; bf16 "
+                f"kernel argmax equal to fp32's {same16}, fp32 top-2 margin "
+                f"{margin:.3e}")
+            require(all(map(math.isfinite, errs)),
+                    f"{label}: non-finite logits at step {step}")
+            require(errs[3] <= FP32_LOGIT_REL_TOL and ok32,
+                    f"{label}: fp32 kernel path disagrees with the plain "
+                    f"path at step {step}")
+            require(ok16, f"{label}: bf16 kernel path picks another token "
+                          f"than fp32 at step {step} (margin {margin:.3e})")
+            for key, e in zip(worst, errs):
+                worst[key] = max(worst[key], e)
+        limit = (1 + SSM_FLOOR_MARGIN) * worst["plain bf16"]
+        log(f"{label}: largest over positions, distance from plain fp32: "
+            f"kernel bf16 {worst['kernel bf16']:.3e}, limit {limit:.3e} = "
+            f"(1 + {SSM_FLOOR_MARGIN}) x the bf16 floor "
+            f"{worst['plain bf16']:.3e}; bf16 kernel vs plain "
+            f"{worst['bf16 kernel vs plain']:.3e}; fp32 kernel vs plain "
+            f"{worst['fp32 kernel vs plain']:.3e}")
+        require(worst["kernel bf16"] <= limit,
+                f"{label}: the bf16 kernel path is further from fp32 than "
+                f"the bf16 rounding floor allows")
+        del params, p32, paths
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -707,7 +776,10 @@ def main() -> int:
     launches.update(run_serving_phase(
         torch, model, params, SSMEngine, scfg, per_step="mamba_step",
         per_prefill="mamba_scan"))
-    run_ssm_reference_checks(torch, model, params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    run_ssm_reference_checks(torch, model)
 
     entries = []
     for name, entry in kernels.items():

@@ -90,7 +90,7 @@ def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> Params:
 
 
 def mamba_prefill(p: Params, cfg: ModelConfig, x, cache: Params, *,
-                  use_kernels: bool = True, chunk: int = 128):
+                  use_kernels: bool = True):
     """Prompt pass from a zero state.  x: (B, S, d) -> (B, S, d); the
     cache's conv window (the last w-1 pre-conv inputs, zeros before the
     prompt when S < w-1) and final state are written in place."""
@@ -107,7 +107,7 @@ def mamba_prefill(p: Params, cfg: ModelConfig, x, cache: Params, *,
                                    p["D"])
     else:
         y, h_last = mamba_scan_ref(x_conv, dt, b_ssm, c_ssm, p["A_log"],
-                                   p["D"], chunk=chunk)
+                                   p["D"])
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"]
     keep = min(S, w - 1)

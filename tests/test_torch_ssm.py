@@ -192,8 +192,8 @@ def test_prefill_matches_reference(use_kernels, S):
 def test_prefill_then_step_equals_stepwise(S):
     """The contract of the reference's
     ``test_mamba_prefill_state_matches_stepwise``, carried on: prefill the
-    first S tokens (chunk 4, so S = 11 ends in a short chunk), then step
-    the rest; outputs and state equal stepping from a zero state.  S = 2
+    first S tokens, then step the rest; outputs and state equal stepping
+    from a zero state.  S = 2
     is shorter than the conv window: the port zero-fills the window's
     head, as the causal conv pads."""
     _, cfg = _cfgs()
@@ -201,7 +201,7 @@ def test_prefill_then_step_equals_stepwise(S):
     B, total = 2, S + 4
     x = torch.tensor(RNG.normal(size=(B, total, cfg.d_model)), dtype=torch.float32)
     pre = TS.mamba_cache_init(cfg, B, torch.float32, "cpu")
-    out_p, _ = TS.mamba_prefill(p, cfg, x[:, :S], pre, chunk=4)
+    out_p, _ = TS.mamba_prefill(p, cfg, x[:, :S], pre)
     after_prefill = {k: v.clone() for k, v in pre.items()}
     outs_p = [out_p]
     for t in range(S, total):
