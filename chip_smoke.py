@@ -25,6 +25,16 @@
    checked against the plain path on an fp32 copy of the weights, and in
    bf16 against the model's own rounding floor: its distance from the fp32
    plain path may exceed the bf16 plain path's by a stated margin only.
+5. Paper phase.  The filco_mm sweep (the stand-in for Fig. 8's
+   single-kernel efficiency): a 2048^3 buffer in fp32 and bf16, valid dims
+   at 1/8, 1/4, 1/2 and all of each axis and a ragged (1040, 1032, 2040);
+   ``flex_mm`` against its plain version with zeros outside the valid
+   region (the output starts as NaN), ``static_mm`` against its plain
+   version on the whole buffer, both timed beside the bound and
+   ``torch.matmul`` on the valid slices.  Then full-width BERT-128 down
+   the paper's path: two-stage DSE, codegen, ``DataPlaneSim`` on the card
+   with every CU pass through ``flex_mm``, every layer's DDR result held
+   to a plain fp32 walk of the DAG.  It runs between phases 2 and 3.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -76,6 +86,12 @@ FP32_LOGIT_REL_TOL = 1e-3
 # weight seeds of the falcon-mamba-7b reference checks; seed 0 is the
 # served model
 SSM_CHECK_SEEDS = (0, 1, 2)
+# the filco_mm sweep: one buffer, valid dims at these fractions of each
+# axis, and a ragged shape whose edges cut every tile
+SWEEP_BUF = 2048
+SWEEP_FRACS = (8, 4, 2, 1)
+SWEEP_RAGGED = (1040, 1032, 2040)
+PAPER_WORKLOAD = "BERT-128"
 MAMBA_ORDER = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
                "dt_bias", "A_log", "D", "out_proj")
 
@@ -157,13 +173,16 @@ def agree(got, want, tol: float) -> bool:
 
 
 def _counter(name: str):
+    from repro_torch.kernels.filco_mm import ops as fm
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.ragged_decode import ops as rd
     return {"ragged_decode": (rd, "launches"),
             "flash_attention": (fa, "launches"),
             "mamba_step": (ms, "step_launches"),
-            "mamba_scan": (ms, "scan_launches")}[name]
+            "mamba_scan": (ms, "scan_launches"),
+            "flex_mm": (fm, "launches"),
+            "static_mm": (fm, "static_launches")}[name]
 
 
 def reset_counts(names) -> None:
@@ -698,6 +717,186 @@ def run_ssm_reference_checks(torch, model):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the paper path (filco_mm sweep, BERT-128 on the data plane)
+# ---------------------------------------------------------------------------
+
+def run_paper_kernel_phase(torch, reps: int = 20):
+    """The filco_mm sweep.  Inputs are uniform in [-1, 1), b scaled by
+    1/sqrt(K) as the path's weights are, so outputs are O(1) (std about
+    1/3) and a bf16 ulp stays below ``TOL``.  Each dims first against the
+    plain version, into an output that starts as NaN (dead tiles and
+    masked edges must write zeros); then the timed sweep, which is
+    ``static_mm``'s path as fig8 is in the JAX package.  Returns the
+    kernels' entries and the sweep's launch counts."""
+    from repro_torch.kernels.filco_mm import ops as fm
+    from repro_torch.kernels.filco_mm.ref import flex_mm_ref, static_mm_ref
+
+    X = SWEEP_BUF
+    shapes = [(X // f,) * 3 for f in SWEEP_FRACS] + [SWEEP_RAGGED]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {"flex_mm": 0.0, "static_mm": 0.0}
+    bufs = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        a = (torch.rand((X, X), generator=gen, device="cuda") * 2 - 1).to(dt)
+        b = ((torch.rand((X, X), generator=gen, device="cuda") * 2 - 1)
+             / math.sqrt(X)).to(dt)
+        bufs[dtype] = (a, b)
+        tol = TOL[dtype]
+        for mkn in shapes:
+            m, _, n = mkn
+            dims = torch.tensor(mkn, dtype=torch.int32, device="cuda")
+            out = torch.full((X, X), float("nan"), dtype=dt, device="cuda")
+            fm.flex_mm(a, b, dims, out=out)
+            want = flex_mm_ref(a, b, dims)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            zeros = bool((out[m:] == 0).all().item()
+                         and (out[:, n:] == 0).all().item())
+            log(f"flex_mm {dtype} buffer {X}^3 dims {mkn}: max_abs_err "
+                f"{err:.3e} tol {tol:.0e}, zero outside [:m, :n] {zeros}")
+            require(err <= tol and agree(out, want, tol) and zeros,
+                    f"flex_mm {dtype} {mkn} disagrees with its plain version")
+            worst["flex_mm"] = max(worst["flex_mm"], err)
+        got = fm.static_mm(a, b)
+        want = static_mm_ref(a, b)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"static_mm {dtype} {X}^3: max_abs_err {err:.3e} tol {tol:.0e}")
+        require(err <= tol and agree(got, want, tol),
+                f"static_mm {dtype} disagrees with its plain version")
+        worst["static_mm"] = max(worst["static_mm"], err)
+        del out, want, got
+
+    reset_counts(("static_mm",))
+    results = {}
+    static_atoms = fm.atoms_issued_static(X, X, X)
+    for dtype, (a, b) in bufs.items():
+        es = a.element_size()
+        static_ms = time_ms(torch, lambda: fm.static_mm(a, b), reps)
+        for mkn in shapes:
+            m, k, n = mkn
+            dims = torch.tensor(mkn, dtype=torch.int32, device="cuda")
+            ms_ = time_ms(torch, lambda: fm.flex_mm(a, b, dims), reps)
+            av, bv = a[:m, :k], b[:k, :n]
+            lib_ms = time_ms(torch, lambda: torch.matmul(av, bv), reps)
+            # inputs' valid regions read once, the whole buffer written
+            b_ms, b_by = bound((m * k + k * n + X * X) * es, 2 * m * k * n,
+                               dtype)
+            atoms = fm.atoms_issued_flexible(m, k, n)
+            log(f"filco_mm sweep {dtype} buffer {X}^3 dims {mkn}: flex_mm "
+                f"{ms_:.4f} ms, static_mm {static_ms:.4f} ms (whole "
+                f"buffer), live tiles {atoms} of {static_atoms} "
+                f"({atoms / static_atoms:.4f}), bound {b_ms:.4f} ms "
+                f"({b_by}), torch.matmul on the valid slices {lib_ms:.4f} ms")
+            if mkn == (X, X, X) and dtype == "float32":
+                plain_ms = time_ms(torch, lambda: flex_mm_ref(a, b, dims),
+                                   max(reps // 4, 3))
+                static_plain_ms = time_ms(
+                    torch, lambda: static_mm_ref(a, b), max(reps // 4, 3))
+                log(f"filco_mm plain versions fp32 {X}^3: flex_mm_ref "
+                    f"{plain_ms:.4f} ms, static_mm_ref "
+                    f"{static_plain_ms:.4f} ms")
+                src = "src/repro_torch/kernels/filco_mm/csrc/filco_mm.cu"
+                results["flex_mm"] = dict(
+                    name="flex_mm", route="cuda", source=src,
+                    replaces="src/repro/kernels/filco_mm/kernel.py:86",
+                    max_abs_err=worst["flex_mm"], ms=ms_, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                results["static_mm"] = dict(
+                    name="static_mm", route="cuda", source=src,
+                    replaces="src/repro/kernels/filco_mm/kernel.py:124",
+                    max_abs_err=worst["static_mm"], ms=static_ms,
+                    plain_ms=static_plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+    launches = read_counts(("static_mm",))
+    del bufs
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def run_paper_path_phase(torch):
+    """Full-width BERT-128 through the port's entry point with the
+    example's DSE settings (``run_path``): host DSE, codegen,
+    ``DataPlaneSim`` on the card from a numpy seed-0 DDR image, and every
+    layer held to the plain fp32 walk.  The flex_mm launches must equal
+    the program's CU passes.  Then the same program again under the
+    profiler for the device time of the launches.  Returns the launch
+    counts of the run."""
+    from repro_torch.configs.paper_workloads import PAPER_WORKLOADS
+    from repro_torch.core.simulator import cu_pass_dims
+    from repro_torch.kernels.filco_mm import ops as fm
+    from repro_torch.launch.dse_to_silicon import run_path
+
+    wl = PAPER_WORKLOADS[PAPER_WORKLOAD]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(("flex_mm",))
+    run = run_path(wl, device="cuda")
+    launches = read_counts(("flex_mm",))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    s = run.stats
+    dims = cu_pass_dims(run.prog)
+    passes = len(dims)
+    log(f"paper path {wl.name}: {s['layers']} MM layers, "
+        f"{wl.total_flops / 1e9:.2f} GFLOP, {passes} CU passes in "
+        f"{s['pass_shapes']} shapes, {s['instr_bytes']} instruction bytes, "
+        f"DDR {s['ddr_elems']} fp32 elements, {s['fmus']} FMUs of "
+        f"{s['fmu_elems']}; DSE {s['dse_s']:.3f} s (stage 1 "
+        f"{run.dse.stage1_s:.3f}, stage 2 {run.dse.stage2_s:.3f}), codegen "
+        f"{s['codegen_s']:.4f} s, sim wall {s['sim_s']:.4f} s; flex_mm "
+        f"launches {launches['flex_mm']}; peak memory {peak_gib:.3f} GiB")
+    # what the passes need: operands read and results written once, the
+    # useful products; beside them what 128x8x128 tiles issue
+    ceil = lambda x, a: -(-x // a)
+    nbytes = sum(4 * (m * k + k * n + m * n) for m, k, n in dims)
+    flops = sum(2 * m * k * n for m, k, n in dims)
+    issued = sum(2 * ceil(m, fm.TILE_M) * fm.TILE_M * ceil(k, fm.TILE_K)
+                 * fm.TILE_K * ceil(n, fm.TILE_N) * fm.TILE_N
+                 for m, k, n in dims)
+    blocks = [ceil(m, fm.TILE_M) * ceil(n, fm.TILE_N) for m, _, n in dims]
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"paper path {wl.name}: the passes move {nbytes / 1e9:.3f} GB and "
+        f"make {flops / 1e9:.2f} GFLOP, bound {b_ms:.4f} ms ({b_by}); the "
+        f"kernel's tiles issue {issued / 1e9:.2f} GFLOP in {min(blocks)}-"
+        f"{max(blocks)} blocks per pass on {sms} SMs")
+    log(f"paper path {wl.name}: largest |DDR - walk| / max |walk| over "
+        f"layers {s['max_rel_err']:.3e} (tol {s['rel_tol']:.0e}), at layer "
+        f"{int(run.errors.argmax())}")
+    require(launches["flex_mm"] == passes,
+            f"flex_mm launched {launches['flex_mm']} times for {passes} CU "
+            f"passes")
+    require(s["ok"], f"paper path {wl.name}: a layer's DDR result disagrees "
+                     f"with the walk ({s['max_rel_err']:.3e})")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run.sim.run(run.prog)
+        torch.cuda.synchronize()
+    kern_ms = other_ms = 0.0
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", 0.0)
+              or getattr(ev, "device_time_total", 0.0))
+        if "filco_mm" in ev.key:
+            kern_ms += us / 1e3
+        else:
+            other_ms += us / 1e3
+    if kern_ms > 0:
+        log(f"paper path {wl.name} profile: flex_mm device time "
+            f"{kern_ms:.3f} ms over {passes} launches "
+            f"({wl.total_flops / (kern_ms * 1e-3) / 1e12:.2f} TFLOP/s), "
+            f"other device time (FMU and DDR copies) {other_ms:.3f} ms; "
+            f"unprofiled sim wall {s['sim_s'] * 1e3:.3f} ms")
+    else:
+        log(f"paper path {wl.name} profile: the profiler recorded no device "
+            f"time (flex_mm device time not measured)")
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -737,9 +936,15 @@ def main() -> int:
             elif "spill" in line and " 0 bytes spill stores" not in line:
                 log(f"  {entry} {line.strip()}")
 
+    start = time.perf_counter()
+    phase_s = lambda: f"{time.perf_counter() - start:.1f} s"
     kernels = run_kernel_phase(torch)
     kernels.update(run_ssm_kernel_phase(torch))
-    launches = {}
+    log(f"kernel phases done at {phase_s()} after the build")
+    paper_kernels, launches = run_paper_kernel_phase(torch)
+    kernels.update(paper_kernels)
+    launches.update(run_paper_path_phase(torch))
+    log(f"paper phase done at {phase_s()}")
 
     # minitron-4b through the decode engine, then freed
     cfg = get_config("minitron-4b")
@@ -758,6 +963,7 @@ def main() -> int:
     del model, params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    log(f"minitron-4b phase done at {phase_s()}")
 
     # falcon-mamba-7b through the SSM engine: max_len 512 is below three
     # of the prompts, which are served all the same (slot-bound admission)
@@ -780,6 +986,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     run_ssm_reference_checks(torch, model)
+    log(f"falcon-mamba-7b phase done at {phase_s()}")
 
     entries = []
     for name, entry in kernels.items():

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` nor
 ``chip_smoke.py`` imports JAX or any module of the JAX package ``repro``
-(``repro_torch`` itself is fine), and importing the port starts no build.
+(``repro_torch`` itself is fine), no TPU constant enters the port, and
+importing the port starts no build.
 """
 import ast
 import subprocess
@@ -43,6 +44,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.workloads.decode, repro_torch.launch.serve\n"
             "import repro_torch.bridge\n"
+            "import repro_torch.launch.dse_to_silicon\n"
+            "import repro_torch.core.simulator, repro_torch.common\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n"
@@ -53,3 +56,9 @@ def test_importing_the_port_loads_no_jax():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_no_tpu_profile_in_the_port():
+    bad = [str(p.relative_to(ROOT)) for p in FILES
+           if "TPU_V5E" in p.read_text()]
+    assert not bad, bad

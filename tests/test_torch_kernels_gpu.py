@@ -10,12 +10,16 @@ plain version round p at different points), fp32 to 1e-4 (summation order).
 The Mamba step rounds at the reference's points in both versions, but sums
 its products in another order, so a value may land on the neighbouring
 bf16 (2**-8 of itself): it is held to tol + tol |want|.  The scan computes
-in fp32 in both versions: 1e-4 + 1e-4 |want|.
+in fp32 in both versions: 1e-4 + 1e-4 |want|.  filco_mm sums in fp32 in
+both versions and rounds once to the output dtype: tol + tol |want|.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.filco_mm import ops as fm  # noqa: E402
+from repro_torch.kernels.filco_mm.ref import (flex_mm_ref,  # noqa: E402
+                                              static_mm_ref)
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as ms  # noqa: E402
@@ -254,3 +258,132 @@ def test_ssm_engine_on_gpu_kernel_path_matches_plain_path(cuda):
         else:
             assert (ms.step_launches, ms.scan_launches) == (st0, sc0)
     assert streams[True] == streams[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flex_mm_kernel_random_dims_one_buffer(cuda, dtype):
+    """One compiled kernel, one 192^3 buffer, many (m, k, n): each against
+    the plain version, zeros outside the valid region."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.rand((192, 192), generator=gen, device=cuda).to(dtype) - 0.5
+    b = torch.rand((192, 192), generator=gen, device=cuda).to(dtype) - 0.5
+    rng = torch.Generator().manual_seed(6)
+    shapes = torch.randint(0, 193, (40, 3), generator=rng).tolist()
+    shapes += [[1, 1, 1], [192, 192, 192], [129, 8, 127], [0, 5, 5]]
+    before = fm.launches
+    for mkn in shapes:
+        dims = torch.tensor(mkn, dtype=torch.int32, device=cuda)
+        got = fm.flex_mm(a, b, dims)
+        want = flex_mm_ref(a, b, dims)
+        m, _, n = mkn
+        assert _agree(got, want, GPU_TOL[dtype]), mkn
+        assert (got[m:] == 0).all() and (got[:, n:] == 0).all(), mkn
+    torch.cuda.synchronize()
+    assert fm.launches == before + len(shapes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", [(40, 50, 60), (300, 200, 400), (0, 7, 9),
+                                 (1, 1, 1), (130, 0, 257)])
+def test_flex_mm_kernel_dead_tiles_write_zeros(cuda, mkn):
+    """The output buffer starts as NaN: every dead tile and every masked
+    edge must come back zero, the valid region equal to the plain
+    version's; NaN in both paddings stays out."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.rand((300, 200), generator=gen, device=cuda) - 0.5
+    b = torch.rand((200, 400), generator=gen, device=cuda) - 0.5
+    m, k, n = mkn
+    want = flex_mm_ref(a, b, list(mkn))
+    a[:, k:] = float("nan")
+    b[k:, :] = float("nan")
+    out = torch.full((300, 400), float("nan"), device=cuda)
+    dims = torch.tensor(mkn, dtype=torch.int32, device=cuda)
+    assert fm.flex_mm(a, b, dims, out=out) is out
+    torch.cuda.synchronize()
+    assert out.isfinite().all()
+    assert (out[m:] == 0).all() and (out[:, n:] == 0).all()
+    assert _agree(out, want, GPU_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flex_mm_kernel_strided_windows(cuda, dtype):
+    """Windows of a flat buffer with row strides that are no multiple of 4
+    (scalar path) and that are (vector path) take no copy."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    flat = torch.rand(40000, generator=gen, device=cuda).to(dtype) - 0.5
+    for cols, (r, c) in ((37, (50, 30)), (64, (70, 64))):
+        a = flat.as_strided((r, c), (cols, 1), 3)
+        b = flat.as_strided((c, 45), (48, 1), 20000)
+        out = torch.empty((r, 45), dtype=dtype, device=cuda)
+        dims = torch.tensor([r, c, 45], dtype=torch.int32, device=cuda)
+        fm.flex_mm(a, b, dims, out=out)
+        assert _agree(out, flex_mm_ref(a, b, dims), GPU_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_static_mm_kernel_on_gpu(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    a = torch.rand((260, 130), generator=gen, device=cuda).to(dtype) - 0.5
+    b = torch.rand((130, 200), generator=gen, device=cuda).to(dtype) - 0.5
+    before = fm.static_launches
+    got = fm.static_mm(a, b)
+    torch.cuda.synchronize()
+    assert fm.static_launches == before + 1
+    assert _agree(got, static_mm_ref(a, b), GPU_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_filco_mm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    a = torch.zeros((8, 8), dtype=torch.float16, device=cuda)
+    dims = torch.tensor([8, 8, 8], dtype=torch.int32, device=cuda)
+    before = fm.launches
+    with pytest.raises(TypeError):
+        fm.flex_mm(a, a, dims)                      # fp16
+    f = a.float()
+    with pytest.raises(TypeError):
+        fm.flex_mm(f, f, dims.long())               # int64 dims
+    with pytest.raises(ValueError):
+        fm.flex_mm(f, f.cpu(), dims)                # two devices
+    with pytest.raises(ValueError):
+        fm.flex_mm(f, f, dims.cpu())                # dims on the host
+    with pytest.raises(ValueError):
+        fm.flex_mm(f.t(), f, dims)                  # column stride
+    with pytest.raises(ValueError):
+        fm.flex_mm(f, f, dims, out=torch.empty((8, 4), device=cuda))
+    with pytest.raises(TypeError):
+        fm.static_mm(f, f.to(torch.bfloat16))
+    assert fm.launches == before
+
+
+@pytest.mark.gpu
+def test_simulator_on_gpu_matches_cpu(cuda):
+    """The data-plane simulator on the card, every CU pass through the
+    kernel, against the same program on the CPU's plain path."""
+    from repro_torch.configs.paper_workloads import POINTNET_S
+    from repro_torch.core.analytical import filco_vck190
+    from repro_torch.core.codegen import generate
+    from repro_torch.core.dse import run_dse
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.simulator import DataPlaneSim, cu_pass_dims
+    from repro_torch.launch.dse_to_silicon import ddr_image
+
+    accel = filco_vck190()
+    res = run_dse(POINTNET_S, accel, solver="ga", max_modes=4,
+                  ga_config=GAConfig(population=16, generations=12, seed=0))
+    prog = generate(POINTNET_S, res.plan)
+    image = torch.from_numpy(ddr_image(POINTNET_S, prog.layout, 0))
+    cap = max(max(l.m * l.k, l.k * l.n, l.m * l.n) for l in POINTNET_S.layers)
+    ddr = {}
+    for dev in (cuda, "cpu"):
+        sim = DataPlaneSim(image.numel(), accel.num_fmus, cap,
+                           accel.num_cus, device=dev)
+        sim.ddr.copy_(image)
+        before = fm.launches
+        sim.run(prog)
+        ddr[str(dev)] = sim.ddr.cpu()
+        passes = len(cu_pass_dims(prog))
+        assert fm.launches - before == (passes if dev == cuda else 0)
+    assert _agree(ddr[str(cuda)], ddr["cpu"], 1e-5)
