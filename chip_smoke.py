@@ -11,7 +11,10 @@
    one PyTorch library call's as a yardstick where one computes the same
    function, and its bound.  Attention (minitron-4b heads, bf16): ragged
    decode lengths with a dead slot and lengths that are no multiple of the
-   tile; prefill lengths 32, 200 and 1024.  Mamba (falcon-mamba-7b widths):
+   tile; prefill lengths 32, 200 and 1024.  Each attention kernel also
+   logs its grid (blocks; chunk and splits for ragged decode), its CUDA
+   launches per call as the profiler counts them, and its achieved GB/s or
+   TFLOP/s beside the card's peak.  Mamba (falcon-mamba-7b widths):
    the decode step for 8 slots with one dead, in bf16 and fp32; the
    selective scan at S = 1, 37, 200 and 1024.
 3. Serving phase, minitron-4b: full width (32 layers, random bf16 weights
@@ -194,6 +197,24 @@ def read_counts(names):
     return {name: getattr(*_counter(name)) for name in names}
 
 
+def cuda_launches(torch, fn):
+    """The device kernels one call of ``fn`` launches, by name, as the
+    profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+            kinds[name] = kinds.get(name, 0) + 1
+    return kinds
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -273,10 +294,21 @@ def run_kernel_phase(torch, reps: int = 20):
     nbytes = (2 * live_len * Hkv * D * es + 2 * B * Hq * D * es + 8 * B)
     flops = 4 * live_len * Hq * D
     b_ms, b_by = bound(nbytes, flops, "bfloat16")
-    log(f"ragged_decode timing (B={B} T={k.shape[1]} Hq={Hq} Hkv={Hkv} "
+    T = k.shape[1]
+    chunk, n_split = rd.split_plan(
+        B, Hkv, T, torch.cuda.get_device_properties(0).multi_processor_count)
+    items = Hkv * sum(-(-n // chunk) if a else 1 for n, a in zip(lengths, live))
+    kinds = cuda_launches(torch, lambda: rd.ragged_decode_attention(
+        q, k, v, lens, live=livet))
+    log(f"ragged_decode timing (B={B} T={T} Hq={Hq} Hkv={Hkv} "
         f"D={D} bf16, live KV rows {live_len}): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"({b_by}); {nbytes / ms / 1e6:.1f} GB/s (bound "
+        f"{HBM_BYTES_PER_S / 1e9:.0f}), sdpa {nbytes / lib_ms / 1e6:.1f} "
+        f"GB/s of the same bytes")
+    log(f"ragged_decode grid: chunk {chunk} rows, {n_split} splits, "
+        f"{B * Hkv * n_split} blocks launched ({items} with work; B*Hkv = "
+        f"{B * Hkv}); CUDA launches per call {sum(kinds.values())} {kinds}")
     results["ragged_decode"] = dict(
         name="ragged_decode", route="cuda",
         source="src/repro_torch/kernels/ragged_decode/csrc/ragged_decode.cu",
@@ -324,9 +356,21 @@ def run_kernel_phase(torch, reps: int = 20):
             flops = 4 * 128 * 24 * S * (S + 1) // 2
             b_ms, b_by = bound(nbytes, flops, dtype)
             timing[S] = (ms, plain_ms, lib_ms, b_ms, b_by)
+            kinds = cuda_launches(torch, lambda: fa.flash_attention(q, k, v))
+            # four sequences per launch: the time per sequence against B = 1
+            # shows how much the longest causal chain costs at B = 1
+            q4, k4, v4 = (t.expand(4, -1, -1, -1).contiguous()
+                          for t in (q, k, v))
+            ms4 = time_ms(torch, lambda: fa.flash_attention(q4, k4, v4),
+                          max(reps // 2, 3)) / 4
             log(f"flash_attention timing S={S} (Hq=24 Hkv=8 D=128 bf16 "
                 f"causal): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                f"{flops / ms / 1e9:.1f} TFLOP/s (bound "
+                f"{BF16_FLOPS / 1e12:.0f}), sdpa {flops / lib_ms / 1e9:.1f}; "
+                f"{fa.grid(1, S, 24)} blocks, CUDA launches per call "
+                f"{sum(kinds.values())} {kinds}; B=4: {ms4:.4f} ms per "
+                f"sequence")
     ms, plain_ms, lib_ms, b_ms, b_by = timing[1024]
     results["flash_attention"] = dict(
         name="flash_attention", route="cuda",

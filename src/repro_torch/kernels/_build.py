@@ -99,6 +99,13 @@ def load_library() -> ctypes.CDLL:
     return ctypes.CDLL(str(build()))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``; the wrappers size their grids by it."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if err != 0:

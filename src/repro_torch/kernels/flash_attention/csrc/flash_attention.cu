@@ -8,13 +8,45 @@
 // soft-cap, and S that is not a multiple of the tile.
 //
 // Bound on the H100: operations (4 * D flops per attended (query, key)
-// pair), against bytes that are read once.  This first version computes on
-// the CUDA cores in fp32: one block of 128 threads per (batch * head,
-// 64-query tile) loops over the 64-key tiles on or below the diagonal and
-// inside the window, skipping the rest.  Q, K and V tiles sit in shared
-// memory; each thread keeps a 4 x 8 tile of scores and a 4 x D/8 tile of
-// the output accumulator in registers, with the running max and sum in
-// fp32.  Tensor cores (mma.sync / wgmma) and TMA pipelining are later work.
+// pair, on the tensor cores for bf16), against bytes that are read once.
+//
+// bf16 (flash_attention_mma): FlashAttention-2's design with mma.sync.
+// One block of 4 warps per (batch * head, 64-query tile); each warp owns
+// 16 query rows and keeps its Q fragments, its 16 x 64 score tile and its
+// 16 x D output accumulator in registers (two blocks per SM).
+//
+// - K and V tiles of 64 keys stream through a two-stage cp.async ring in
+//   shared memory, rows padded by 16 bytes so that ldmatrix reads are free
+//   of bank conflicts.  Every thread copies the same chunk of a fixed set
+//   of rows, so a copy costs a few instructions.  The copy of tile j + 1
+//   overlaps the products of tile j, with one barrier per tile.
+// - S = Q.K^T and O += P.V are m16n8k16 bf16 products with fp32 sums.  The
+//   K fragments are loaded a k-step ahead and a row of V fragments at
+//   once: left to itself the compiler may issue each ldmatrix just before
+//   its product, and the warps then wait on every load.
+// - The online softmax runs on the fp32 score fragment in the log2 domain
+//   (ex2.approx; max and sum reduced by quad shuffles), each step a
+//   straight-line pass.  P is rounded to bf16 in registers and fed straight
+//   in as the A operand of P.V: the m16n8 accumulator layout is the
+//   m16n8k16 A layout.
+// - Only tiles that cross the diagonal, the window edge or S are masked,
+//   by a second copy of the tile body (a mask predicated into the one copy
+//   ran on every tile).
+// - Head dims below 128 are zero-padded to 16, 32, 64 or 128 in shared
+//   memory.
+// - The heaviest causal query tiles are launched first.  At B = 1 a causal
+//   prefill is then bound by its longest chain, the heaviest tile's loop
+//   over the keys.  More rows per warp, more warps per block, deeper
+//   rings, three blocks per SM, or a tile's keys split between two warp
+//   sets were each slower at minitron's shapes on an H100.  wgmma with TMA
+//   is the next step.
+//
+// fp32 (flash_attention_simt): on the CUDA cores, since TF32 tensor cores
+// would change fp32 numerics.  One block of 128
+// threads per (batch * head, 64-query tile) loops over the 64-key tiles on
+// or below the diagonal and inside the window.  Q, K and V tiles sit in
+// shared memory; each thread keeps a 4 x 8 tile of scores and a 4 x D/8
+// tile of the output accumulator in registers.
 //
 // Mixed precision follows the reference: scores in fp32, p cast to the
 // value dtype before P.V (the running sum keeps fp32 p), output cast to
@@ -47,7 +79,7 @@ struct FlashArgs {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(FlashArgs a) {
+flash_attention_simt(FlashArgs a) {
   constexpr int E = Word<T>::N;
   constexpr int kMaxWC = kMaxD / E / 8;        // output words per thread
   const int bh = blockIdx.x;
@@ -201,15 +233,373 @@ flash_attention_kernel(FlashArgs a) {
   }
 }
 
-template <typename T>
-cudaError_t launch(const FlashArgs& a, int B, cudaStream_t stream) {
-  const int pitch = a.D / Word<T>::N + 1;
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
+  // 16 bytes, or 16 zero bytes when !valid (no global read)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>   // wait until at most N committed groups are in flight
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col); bf16 in, fp32 sums
+__device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <bool B> struct Flag { static constexpr bool value = B; };
+
+__device__ inline float fast_exp2(float x) {   // 2^x, one MUFU.EX2
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One block: 4 warps of 16 query rows each; a two-stage ring of (K, V)
+// tile pairs.
+template <int DP>   // head dim padded to 16, 32, 64 or 128
+struct MmaTile {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * kWarps;     // query rows per block
+  static constexpr int kBK = 64;              // keys per tile
+  static constexpr int kStages = 2;
+  static constexpr int kPitch = DP + 8;       // bf16 per shared row
+  static constexpr int kChunks = DP / 8;      // 16-byte chunks per row
+  static constexpr int kTile = kBK * kPitch;  // bf16 per K or V tile
+  static constexpr int kStage = 2 * kTile;    // a K tile, then a V tile
+  static constexpr size_t kSmem = kStages * kStage * sizeof(__nv_bfloat16);
+  // Q passes through the last stage before its keys arrive
+  static_assert(kBQ <= 2 * kBK, "Q fits in one stage");
+};
+
+// This thread's share of the cp.async copies of one tile: the same 16-byte
+// chunk of every (kThreads / kChunks)-th row, so every offset but the
+// tile's base is fixed for the whole kernel.  Rows past the data and
+// chunks past the head dim are zero-filled and read nothing.
+template <typename M>
+struct TileCopy {
+  static constexpr int kRowStep = M::kThreads / M::kChunks;
+  static_assert(M::kThreads % M::kChunks == 0, "whole rows per pass");
+  int row, soff, goff;     // first row; shared (elements), global (bytes)
+  bool on;                 // the chunk lies inside the head dim
+  __device__ TileCopy(int tid, int chunks) {
+    const int ch = tid % M::kChunks;
+    row = tid / M::kChunks;
+    soff = row * M::kPitch + ch * 8;
+    goff = ch * 16;
+    on = ch < chunks;
+  }
+  // rows [0, ROWS) of a tile from `src` (its row 0) with `row_bytes`
+  // between rows; `valid_rows` of them exist; `safe` is any valid address
+  template <int ROWS>
+  __device__ void issue(__nv_bfloat16* dst, const char* src,
+                        long long row_bytes, int valid_rows,
+                        const void* safe) const {
+    const char* g = src + goff + row * row_bytes;
+    const long long step = kRowStep * row_bytes;
+#pragma unroll
+    for (int i = 0; i < (ROWS + kRowStep - 1) / kRowStep; ++i) {
+      const int r = row + i * kRowStep;
+      if (ROWS % kRowStep == 0 || r < ROWS) {
+        const bool ok = on && r < valid_rows;
+        cp_async16(dst + soff + i * kRowStep * M::kPitch, ok ? g : safe, ok);
+      }
+      g += step;
+    }
+  }
+};
+
+// A x4 fragment of the 16 x 16 block at (row 0, column k0) of a padded
+// shared tile, as the A operand (rows) of m16n8k16.
+template <int PITCH>
+__device__ inline void load_a(uint32_t (&r)[4], const __nv_bfloat16* base,
+                              int k0, int lane) {
+  ldmatrix_x4(r, base + ((lane & 7) + ((lane >> 3) & 1) * 8) * PITCH + k0 +
+                     (lane >> 4) * 8);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(MmaTile<DP>::kThreads)
+flash_attention_mma(FlashArgs a) {
+  using M = MmaTile<DP>;
+  constexpr int ST = M::kStages;
+  using bf16 = __nv_bfloat16;
+  constexpr int kBQ = M::kBQ, kBK = M::kBK, kPitch = M::kPitch;
+  constexpr int kNS = kBK / 8;                 // score n-tiles per warp
+  constexpr int kNO = DP / 8;                  // output n-tiles per warp
+  const int bh = blockIdx.x;
+  const int b = bh / a.Hq;
+  const int h = bh - b * a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  // heaviest causal query tiles first
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wrow = warp * 16;                  // this warp's rows
+  const int g = lane >> 2;                     // fragment row (and row + 8)
+  const int t = lane & 3;                      // fragment column pair
+  const int chunks = a.D / 8;
+
+  extern __shared__ uint4 smem_mma[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_mma);
+  bf16* sQ = ring + (ST - 1) * M::kStage;
+
+  const int q_hi = min(q_lo + kBQ, a.S) - 1;
+  const int kt_end = a.causal ? q_hi / kBK + 1 : (a.S + kBK - 1) / kBK;
+  const bool win = a.window > 0 && !a.glob;
+  int kt_begin = 0;
+  if (win && q_lo - a.window + 1 > 0) kt_begin = (q_lo - a.window + 1) / kBK;
+  const int n_it = kt_end - kt_begin;
+
+  const long long es = sizeof(bf16);
+  const char* kb = static_cast<const char*>(a.k) + (b * a.k_sb + hk * a.k_sh) * es;
+  const char* vb = static_cast<const char*>(a.v) + (b * a.v_sb + hk * a.v_sh) * es;
+  const TileCopy<M> copy(tid, chunks);
+  // stage `it % ST` holds tile kt_begin + it
+  auto load_stage = [&](int it) {
+    bf16* dst = ring + (it % ST) * M::kStage;
+    const int k_lo = (kt_begin + it) * kBK;
+    copy.template issue<kBK>(dst, kb + k_lo * a.k_ss * es, a.k_ss * es,
+                             a.S - k_lo, a.k);
+    copy.template issue<kBK>(dst + M::kTile, vb + k_lo * a.v_ss * es,
+                             a.v_ss * es, a.S - k_lo, a.v);
+  };
+  copy.template issue<kBQ>(
+      sQ, static_cast<const char*>(a.q) + (b * a.q_sb + q_lo * a.q_ss + h * a.q_sh) * es,
+      a.q_ss * es, a.S - q_lo, a.q);
+  // one commit group per stage (empty past the last tile, so that the
+  // group count stays uniform)
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_it) load_stage(i);
+    cp_async_commit();
+  }
+
+  uint32_t qf[DP / 16][4];
+  float o[kNO][4];
+#pragma unroll
+  for (int j = 0; j < kNO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // running max (log2 domain) and this thread's share of the running sum,
+  // for rows g and g + 8 of the warp's 16
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  const float qk_scale = a.scale * kLog2e;
+  const float inv_cap = a.logit_cap > 0.f ? 1.f / a.logit_cap : 0.f;
+  const int row0 = q_lo + wrow + g;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();   // stage it landed; every warp is done with it - 1
+    if (it == 0) {
+#pragma unroll
+      for (int kd = 0; kd < DP / 16; ++kd)
+        load_a<kPitch>(qf[kd], sQ + wrow * kPitch, kd * 16, lane);
+      __syncthreads();   // Q is in registers before its stage is refilled
+    }
+    if (it + ST - 1 < n_it) load_stage(it + ST - 1);
+    cp_async_commit();
+
+    const int kt = kt_begin + it;
+    const int k_lo = kt * kBK;
+    // only tiles that cross the diagonal, the window edge or S are masked:
+    // the tile body is compiled once with and once without the mask
+    auto tile = [&](auto mask_tag) {
+      constexpr bool MASK = decltype(mask_tag)::value;
+      const bf16* sK = ring + (it % ST) * M::kStage;
+      const bf16* sV = sK + M::kTile;
+
+      // S = Q . K^T: 16 rows x kBK keys per warp
+      float s[kNS][4];
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // K fragments one k-step ahead of their products, so that the
+      // products do not wait on each ldmatrix in turn
+      uint32_t kr[2][kBK / 16][4];
+      auto load_k = [&](int kd, uint32_t (&dst)[kBK / 16][4]) {
+#pragma unroll
+        for (int nb = 0; nb < kBK / 16; ++nb)
+          ldmatrix_x4(dst[nb], sK + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * kPitch +
+                                   kd * 16 + ((lane >> 3) & 1) * 8);
+      };
+      load_k(0, kr[0]);
+#pragma unroll
+      for (int kd = 0; kd < DP / 16; ++kd) {
+        if (kd + 1 < DP / 16) load_k(kd + 1, kr[(kd + 1) & 1]);
+#pragma unroll
+        for (int nb = 0; nb < kBK / 16; ++nb) {
+          mma_bf16(s[2 * nb], qf[kd], kr[kd & 1][nb][0], kr[kd & 1][nb][1]);
+          mma_bf16(s[2 * nb + 1], qf[kd], kr[kd & 1][nb][2], kr[kd & 1][nb][3]);
+        }
+      }
+
+      // scale and cap into the log2 domain, mask, online softmax; each step
+      // a straight-line pass over the fragment (the branches are uniform)
+      if (a.logit_cap > 0.f) {
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = a.logit_cap * tanhf(s[j][e] * a.scale * inv_cap) * kLog2e;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kNS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= qk_scale;
+      }
+      if constexpr (MASK) {
+#pragma unroll
+        for (int j = 0; j < kNS; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qpos = row0 + (e >> 1) * 8;
+            const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
+            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos)) &
+                            (!win | (kpos > qpos - a.window));
+            s[j][e] = ok ? s[j][e] : -INFINITY;  // p = exp2(-inf) = 0
+          }
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = group_max<4>(mx[r]);
+        alpha[r] = fast_exp2(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = fast_exp2(s[j][e] - m[e >> 1]);
+          rs[e >> 1] += s[j][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int j = 0; j < kNO; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+
+      // O += P . V, P rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        // all of this k-step's V fragments in flight before its products
+        uint32_t vr[DP / 16][4];
+#pragma unroll
+        for (int nd = 0; nd < DP / 16; ++nd)
+          ldmatrix_x4_trans(vr[nd], sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
+                                        nd * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int nd = 0; nd < DP / 16; ++nd) {
+          mma_bf16(o[2 * nd], pa, vr[nd][0], vr[nd][1]);
+          mma_bf16(o[2 * nd + 1], pa, vr[nd][2], vr[nd][3]);
+        }
+      }
+    };
+    if (k_lo + kBK > a.S || (a.causal && k_lo + kBK - 1 > q_lo) ||
+        (win && k_lo <= q_hi - a.window)) {
+      tile(Flag<true>());
+    } else {
+      tile(Flag<false>());
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float inv = 1.f / fmaxf(group_sum<4>(l[r]), 1e-30f);
+    const int qpos = row0 + r * 8;
+    if (qpos < a.S) {
+      bf16* orow = static_cast<bf16*>(a.out) + b * a.o_sb + qpos * a.o_ss + h * a.o_sh;
+#pragma unroll
+      for (int j = 0; j < kNO; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d < a.D) {
+          *reinterpret_cast<uint32_t*>(orow + d) =
+              pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_mma(const FlashArgs& a, int B, cudaStream_t stream) {
+  using M = MmaTile<DP>;
+  auto kernel = flash_attention_mma<DP>;
+  cudaError_t err = allow_smem(kernel, M::kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * a.Hq, (a.S + M::kBQ - 1) / M::kBQ);
+  kernel<<<grid, M::kThreads, M::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
+  const int pitch = a.D + 1;
   const size_t bytes = 4 * (static_cast<size_t>(kBQ + 2 * kBK) * pitch +
                             static_cast<size_t>(kBQ) * (kBK + 1));
-  cudaError_t err = allow_smem(flash_attention_kernel<T>, bytes);
+  cudaError_t err = allow_smem(flash_attention_simt<float>, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * a.Hq, (a.S + kBQ - 1) / kBQ);
-  flash_attention_kernel<T><<<grid, kThreads, bytes, stream>>>(a);
+  flash_attention_simt<float><<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -233,7 +623,14 @@ extern "C" int flash_attention(
               1.0f / sqrtf(static_cast<float>(D))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0) return 0;
-  if (dtype == kBF16) return static_cast<int>(launch<__nv_bfloat16>(a, B, s));
-  if (dtype == kF32) return static_cast<int>(launch<float>(a, B, s));
+  if (dtype == kBF16) {
+    const int D = a.D;
+    if (D <= 16) return static_cast<int>(launch_mma<16>(a, B, s));
+    if (D <= 32) return static_cast<int>(launch_mma<32>(a, B, s));
+    if (D <= 64) return static_cast<int>(launch_mma<64>(a, B, s));
+    if (D <= 128) return static_cast<int>(launch_mma<128>(a, B, s));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == kF32) return static_cast<int>(launch_simt(a, B, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

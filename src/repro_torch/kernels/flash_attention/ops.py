@@ -5,13 +5,15 @@ Replaces the Pallas kernel ``src/repro/kernels/flash_attention/kernel.py``
 of the reference's ``layers.blockwise_attention`` that ``gqa_prefill``
 runs: GQA by head index, causal mask, sliding window with a global-layer
 bypass, logit soft-cap, and lengths that are not a multiple of the tile.
-On the H100 the kernel is bound by operations; this first version keeps
-the tiles in shared memory and the accumulators in registers on the CUDA
-cores, and skips the key tiles above the diagonal or outside the window
+On the H100 the kernel is bound by operations.  bf16 runs on the tensor
+cores (mma.sync, K and V staged by cp.async, the softmax in registers);
+fp32 keeps a CUDA-core kernel, since TF32 would change its numerics.  Both
+skip the key tiles above the diagonal or outside the window
 (csrc/flash_attention.cu has the design).
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``launches`` counts kernel launches.
+the kernel or raises.  ``launches`` counts kernel launches.  ``grid``
+gives the blocks one call launches.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 128
+_BQ = 64                      # query rows per block, both kernels
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -63,6 +66,11 @@ def _check(q, k, v):
                 (s * size) % 16 for s in t.stride()[:-1]):
             raise ValueError(f"{name} needs a unit stride on head_dim and "
                              f"16-byte aligned rows, got strides {t.stride()}")
+
+
+def grid(B: int, S: int, Hq: int):
+    """Blocks of one launch: one per (batch * head, 64-query tile)."""
+    return B * Hq * -(-S // _BQ)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -51,11 +51,6 @@ def _scan_fn():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _splits(B: int, K: int, N: int, vec_cols: int, sms: int) -> int:
     """K splits of one skinny product, so that about two blocks per SM
     stream its weight: column tiles x row groups x splits >= 2 x SMs."""
@@ -133,7 +128,7 @@ def mamba_step(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
           and conv_w.shape == (w, d_in) and a_log.shape == (d_in, N),
           "mamba_step: weight shapes disagree with x1, conv and h")
     vec = 16 // x1.element_size()
-    sms = _sm_count(x1.device.index or 0)
+    sms = _build.sm_count(x1.device.index or 0)
     products = ((d_model, 2 * d_in), (d_in, R + 2 * N), (R, d_in),
                 (d_in, d_model))
     splits = [_splits(B, K, Nc, vec, sms) for K, Nc in products]

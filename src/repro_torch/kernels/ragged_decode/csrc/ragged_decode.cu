@@ -1,228 +1,422 @@
-// Ragged single-token GQA decode attention for sm_90a.
+// Ragged single-token GQA decode attention for sm_90a: split-KV
+// (flash-decoding) in two launches.
 //
 // Replaces the Pallas kernel src/repro/kernels/ragged_decode/kernel.py
-// (ragged_decode_kernel / _decode_kernel).  One block per (slot, KV head)
-// holds the G = Hq / Hkv query heads of that KV head and walks the KV rows
-// [start, len) in tiles of BK rows with an online softmax in fp32.  The
-// loop bound cdiv(len, BK) replaces the Pallas kernel's clamped index map,
-// a sliding window also moves the start, and dead slots (live == 0) read
-// no KV at all and write exact zeros.
+// (ragged_decode_kernel / _decode_kernel).
 //
-// Bound on the H100: the KV bytes of the live rows (two tiny products per
-// byte).  The design streams each KV row from device memory exactly once
-// per (slot, KV head), with 16-byte loads of whole tiles into shared
-// memory, and shares it across the G query heads.  Split-KV (more blocks
-// than B * Hkv when that is below the SM count), cp.async/TMA pipelining
-// and tensor-core products are later work.
+// Bound on the H100: the KV bytes of the live rows.  With G = Hq / Hkv
+// query heads per KV head (3 at minitron's widths) a KV row feeds 4 * G * D
+// flops for 4 * D bytes, so tensor cores would fill G of an mma's 16 rows
+// and buy nothing: the products stay on the CUDA cores, and the design is
+// about keeping enough loads in flight.
+//
+// One launch.  The work items are (slot, chunk of KV rows, KV head) for
+// the chunks that hold rows to read, packed at the front of the grid: the
+// grid is sized from the host's T (the engine's bounded cache view) and
+// the wrapper's chunk, never from the lengths, and the blocks past the
+// live work exit at once.  Each block reads every slot's length and live
+// flag into shared memory (one load each, in parallel), clamps the
+// lengths to [1, T], clips the chunks to [window start, length), and
+// finds its item by a prefix sum.  A dead slot is one item per KV head
+// that writes exact zeros and reads no KV.
+//
+// Inside a block, a row of D values is spread over a group of lanes, 16
+// bytes each, so a warp covers 32 / lanes-per-row rows at once; each such
+// row group is an independent stream of rows with its own online softmax.
+// Every stream loads U rows of K and V ahead of its arithmetic (U 16-byte
+// loads of each in flight per lane), holds the G query heads in registers
+// and sums each score with warp shuffles: no shared memory and no barrier
+// in the loop.  The block then merges its streams through shared memory
+// and writes its chunk's partial (m, l and the unnormalised fp32
+// accumulator) per query head.
+//
+// Combine: the blocks of one (slot, KV head) take a ticket from a counter
+// after writing their partials; the last one merges the chunks with
+// weights exp(m_c - M), divides by l only where l > 0, writes the output
+// and resets the counter for the next call.  The counters live in a
+// buffer the wrapper keeps per device and stream, zeroed once.
 //
 // Semantics follow the reference: scores in fp32, logit cap before the
 // mask, mask pos < len and (window: pos > len-1-window unless global),
 // masked positions excluded explicitly (not through exp underflow),
-// division by l only where l > 0.
+// division by l only where l > 0.  p stays fp32 in P.V.
 #include "../../common/csrc/common.cuh"
 
 namespace repro {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kBK = 64;           // KV rows per tile
-constexpr int kMaxPairs = 8;      // (head, word) outputs per thread
+constexpr int kWarps = kThreads / 32;
 
 struct DecodeArgs {
   const void* q;
   const void* k;
   const void* v;
-  const int* lengths;
-  const int* live;
-  void* out;
-  int Hq, Hkv, D;
+  const void* lengths;      // null: every row has len_value
+  const void* live;         // null: every row is live
+  float* ml;                // (B, Hq, n_split, 2) partial max and sum
+  float* acc;               // (B, Hq, n_split, D) partial accumulators
+  int* tickets;             // (B, Hkv) zero between calls
+  void* out;                // (B, Hq, D)
+  int B, Hq, Hkv, D, T, chunk, n_split, lanes;   // lanes per KV row
   long long q_sb, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
+  long long len_stride, live_stride;
+  int len_size, len_value, live_size;            // element bytes: 1, 4, 8
   int window, glob;
   float logit_cap, scale;
 };
 
-__device__ inline bool in_mask(int pos, int len, int window, int glob) {
-  return pos < len && (window == 0 || glob || pos > len - 1 - window);
+__device__ inline long long read_int(const void* p, int size, long long i) {
+  if (size == 8) return static_cast<const long long*>(p)[i];
+  if (size == 4) return static_cast<const int*>(p)[i];
+  return static_cast<const unsigned char*>(p)[i];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ragged_decode_kernel(DecodeArgs a) {
-  constexpr int E = Word<T>::N;
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int G = a.Hq / a.Hkv;
-  const int W = a.D / E;          // words per row
-  const int pitch = W + 1;
-  const int pairs = G * W;
+__device__ inline int row_len(const DecodeArgs& a, int b) {
+  const long long n = a.lengths ? read_int(a.lengths, a.len_size,
+                                           b * a.len_stride)
+                                : a.len_value;
+  return static_cast<int>(min(max(n, 1LL), static_cast<long long>(a.T)));
+}
 
-  extern __shared__ uint32_t smem[];
-  uint32_t* qs = smem;                        // G x W
-  uint32_t* ks = qs + G * W;                  // kBK x pitch
-  uint32_t* vs = ks + kBK * pitch;            // kBK x pitch
-  float* ps = reinterpret_cast<float*>(vs + kBK * pitch);   // G x kBK
-  float* ms = ps + G * kBK;                   // running max per head
-  float* ls = ms + G;                         // running sum per head
-  float* alpha = ls + G;                      // this tile's rescale
+__device__ inline bool row_live(const DecodeArgs& a, int b) {
+  return !a.live || read_int(a.live, a.live_size, b * a.live_stride) != 0;
+}
 
-  uint32_t* o = reinterpret_cast<uint32_t*>(
-      static_cast<T*>(a.out) + (static_cast<long long>(b) * a.Hq + h * G) * a.D);
-  if (a.live[b] == 0) {
-    for (int p = tid; p < pairs; p += kThreads) o[p] = 0u;
+template <typename T> struct Vec;   // one 16-byte load as fp32 values
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& w, float* f) {
+    f[0] = __uint_as_float(w.x);
+    f[1] = __uint_as_float(w.y);
+    f[2] = __uint_as_float(w.z);
+    f[3] = __uint_as_float(w.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& w, float* f) {
+    Word<__nv_bfloat16>::unpack(w.x, f);
+    Word<__nv_bfloat16>::unpack(w.y, f + 2);
+    Word<__nv_bfloat16>::unpack(w.z, f + 4);
+    Word<__nv_bfloat16>::unpack(w.w, f + 6);
+  }
+};
+
+template <typename T> __device__ inline T from_f32(float x);
+template <> __device__ inline float from_f32<float>(float x) { return x; }
+template <> __device__ inline __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// KV chunks [c_lo, c_hi) that hold rows to read for a slot of clamped
+// length `len`; a dead slot (len -1) gets one item (c_lo = -1) that only
+// writes zeros
+__device__ inline void slot_chunks(const DecodeArgs& a, int len, int& c_lo,
+                                   int& c_hi) {
+  if (len < 0) {
+    c_lo = -1;
+    c_hi = 0;
     return;
   }
-  const int len = a.lengths[b];
+  const int start = a.window > 0 && !a.glob ? max(len - a.window, 0) : 0;
+  c_lo = start / a.chunk;
+  c_hi = (len + a.chunk - 1) / a.chunk;
+}
+
+// GM: the largest query group this instance holds (G <= GM)
+template <typename T, int GM>
+__global__ void __launch_bounds__(kThreads)
+ragged_decode_split(DecodeArgs a) {
+  constexpr int E = Vec<T>::N;               // values per lane per row
+  constexpr int U = GM <= 4 ? 4 : 2;         // rows in flight per stream
+  const int tid = threadIdx.x;
+  const int G = a.Hq / a.Hkv;
+  const int segs = a.D / E;                  // 16-byte segments per row
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c = lane & (a.lanes - 1);        // this lane's segment
+  const int streams = kWarps * (32 / a.lanes);
+  const int stream = tid / a.lanes;
+  const bool on = c < segs;
+
+  // shared memory: the slots' clamped lengths (-1: dead), then the merge
+  // area of the block's streams or of the last block's chunks
+  extern __shared__ float smem[];
+  int* s_len = reinterpret_cast<int*>(smem);
+  float* work = smem + ((a.B + 3) & ~3);
+  for (int i = tid; i < a.B; i += kThreads) {
+    const int len = row_len(a, i);           // both loads in flight at once
+    s_len[i] = row_live(a, i) ? len : -1;
+  }
+  __syncthreads();
+
+  // this block's item: the (item / Hkv)-th chunk over the slots in order
+  const int hk = blockIdx.x % a.Hkv;
+  int item = blockIdx.x / a.Hkv;
+  int b = 0, c_lo = 0, c_hi = 0;
+  for (; b < a.B; ++b) {
+    slot_chunks(a, s_len[b], c_lo, c_hi);
+    const int n = max(c_hi - c_lo, 1);
+    if (item < n) break;
+    item -= n;
+  }
+  if (b == a.B) return;                      // past the live work
+  const int len = s_len[b];
+  const long long head0 = static_cast<long long>(b) * a.Hq + hk * G;
+  if (len < 0) {                             // dead slot: exact zeros
+    T* o = static_cast<T*>(a.out) + head0 * a.D;
+    for (int i = tid; i < G * a.D; i += kThreads) o[i] = from_f32<T>(0.f);
+    return;
+  }
+  const int split = c_lo + item;
+  const long long head_step = static_cast<long long>(a.n_split);
+  float* ml = a.ml + (head0 * a.n_split + split) * 2;
+  float* pacc = a.acc + (head0 * a.n_split + split) * a.D;
+  int lo = split * a.chunk;
+  const int hi = min(lo + a.chunk, len);
+  if (a.window > 0 && !a.glob) lo = max(lo, len - a.window);
+
+  float qv[GM][E];
   const char* qb = static_cast<const char*>(a.q) +
-                   (b * a.q_sb + static_cast<long long>(h) * G * a.q_sh) * sizeof(T);
-  load_rows(qs, W, qb, a.q_sh * sizeof(T), G, G, W, tid, kThreads);
-  if (tid < G) {
-    ms[tid] = kNegInf;
-    ls[tid] = 0.f;
-  }
-  int start = 0;
-  if (a.window > 0 && !a.glob && len - a.window > 0) {
-    start = ((len - a.window) / kBK) * kBK;
+                   (b * a.q_sb + static_cast<long long>(hk) * G * a.q_sh) * sizeof(T) +
+                   c * 16;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (g < G && on) w = __ldg(reinterpret_cast<const uint4*>(qb + g * a.q_sh * sizeof(T)));
+    Vec<T>::unpack(w, qv[g]);
   }
 
-  float acc[kMaxPairs][E];
+  float m[GM], l[GM], acc[GM][E];
 #pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n)
+  for (int g = 0; g < GM; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[n][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
 
-  const char* kb = static_cast<const char*>(a.k) + (b * a.k_sb + h * a.k_sh) * sizeof(T);
-  const char* vb = static_cast<const char*>(a.v) + (b * a.v_sb + h * a.v_sh) * sizeof(T);
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const char* kb = static_cast<const char*>(a.k) +
+                   (b * a.k_sb + hk * a.k_sh) * sizeof(T) + c * 16;
+  const char* vb = static_cast<const char*>(a.v) +
+                   (b * a.v_sb + hk * a.v_sh) * sizeof(T) + c * 16;
+  const long long k_row = a.k_st * sizeof(T);
+  const long long v_row = a.v_st * sizeof(T);
 
-  for (int t0 = start; t0 < len; t0 += kBK) {
-    const int nvalid = min(kBK, len - t0);
-    __syncthreads();   // the previous tile's readers are done
-    load_rows(ks, pitch, kb + t0 * a.k_st * sizeof(T), a.k_st * sizeof(T),
-              kBK, nvalid, W, tid, kThreads);
-    load_rows(vs, pitch, vb + t0 * a.v_st * sizeof(T), a.v_st * sizeof(T),
-              kBK, nvalid, W, tid, kThreads);
-    __syncthreads();
-
-    // scores: one (head, row) pair per thread and pass
-    for (int i = tid; i < G * kBK; i += kThreads) {
-      const int g = i / kBK;
-      const int t = i - g * kBK;
-      const uint32_t* qr = qs + g * W;
-      const uint32_t* kr = ks + t * pitch;
-      float s = 0.f;
-      for (int w = 0; w < W; ++w) {
-        float qa[E], ka[E];
-        Word<T>::unpack(qr[w], qa);
-        Word<T>::unpack(kr[w], ka);
+  // the trip count is the block's, so every lane reaches the shuffles
+  for (int r0 = lo; r0 < hi; r0 += streams * U) {
+    uint4 kw[U], vw[U];
 #pragma unroll
-        for (int e = 0; e < E; ++e) s = fmaf(qa[e], ka[e], s);
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + stream + u * streams;
+      kw[u] = make_uint4(0u, 0u, 0u, 0u);
+      vw[u] = kw[u];
+      if (r < hi && on) {
+        kw[u] = __ldg(reinterpret_cast<const uint4*>(kb + r * k_row));
+        vw[u] = __ldg(reinterpret_cast<const uint4*>(vb + r * v_row));
       }
-      s *= a.scale;
-      if (a.logit_cap > 0.f) s = a.logit_cap * tanhf(s / a.logit_cap);
-      ps[i] = in_mask(t0 + t, len, a.window, a.glob) ? s : kNegInf;
     }
-    __syncthreads();
-
-    // online softmax: one warp per head
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float mx = kNegInf;
-      for (int t = lane; t < kBK; t += 32) mx = fmaxf(mx, ps[g * kBK + t]);
-      mx = group_max<32>(mx);
-      const float m_prev = ms[g];
-      const float m_new = fmaxf(m_prev, mx);
+    float sc[U][GM];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[E];
+      Vec<T>::unpack(kw[u], kf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qv[g][e], kf[e], d);
+        sc[u][g] = d;
+      }
+    }
+    // sum each score over the row's lanes (aligned groups of a.lanes)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      if (o < a.lanes) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int g = 0; g < GM; ++g)
+            sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], o);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float x = sc[u][g] * a.scale;
+        if (a.logit_cap > 0.f) x = a.logit_cap * tanhf(x / a.logit_cap);
+        sc[u][g] = x;
+        if (r0 + stream + u * streams < hi) mx = fmaxf(mx, x);
+      }
+      const float alpha = expf(m[g] - mx);
+      m[g] = mx;
       float sum = 0.f;
-      for (int t = lane; t < kBK; t += 32) {
-        const bool ok = in_mask(t0 + t, len, a.window, a.glob);
-        const float p = ok ? expf(ps[g * kBK + t] - m_new) : 0.f;
-        ps[g * kBK + t] = p;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = r0 + stream + u * streams < hi ? expf(sc[u][g] - mx)
+                                                       : 0.f;
+        sc[u][g] = p;
         sum += p;
       }
-      sum = group_sum<32>(sum);
-      if (lane == 0) {
-        const float r = expf(m_prev - m_new);
-        alpha[g] = r;
-        ls[g] = ls[g] * r + sum;
-        ms[g] = m_new;
-      }
+      l[g] = l[g] * alpha + sum;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[E];
+      Vec<T>::unpack(vw[u], vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(sc[u][g], vf[e], acc[g][e]);
+    }
+  }
 
-    // P.V: each thread owns (head, word) output pairs
+  // merge the block's streams: (m, l) per (stream, head), then the
+  // accumulators per (head, value)
+  float* s_m = work;                          // streams x GM
+  float* s_l = s_m + streams * GM;            // streams x GM
+  float* s_acc = s_l + streams * GM;          // streams x GM x D
 #pragma unroll
-    for (int n = 0; n < kMaxPairs; ++n) {
-      const int p = tid + n * kThreads;
-      if (p < pairs) {
-        const int g = p / W;
-        const int wc = p - g * W;
-        const float r = alpha[g];
+  for (int g = 0; g < GM; ++g) {
+    if (g < G) {
+      if (c == 0) {
+        s_m[stream * GM + g] = m[g];
+        s_l[stream * GM + g] = l[g];
+      }
+      if (on) {
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[n][e] *= r;
-        const float* pr = ps + g * kBK;
-        for (int t = 0; t < nvalid; ++t) {
-          float va[E];
-          Word<T>::unpack(vs[t * pitch + wc], va);
-          const float pt = pr[t];
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[n][e] = fmaf(pt, va[e], acc[n][e]);
-        }
+        for (int e = 0; e < E; ++e)
+          s_acc[(stream * GM + g) * a.D + c * E + e] = acc[g][e];
       }
     }
   }
   __syncthreads();
-
-#pragma unroll
-  for (int n = 0; n < kMaxPairs; ++n) {
-    const int p = tid + n * kThreads;
-    if (p < pairs) {
-      const int g = p / W;
-      const float l = ls[g];
-      const float d = l > 0.f ? l : 1.f;
-      float vals[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) vals[e] = acc[n][e] / d;
-      o[p] = Word<T>::pack(vals);
+  for (int i = tid; i < G * a.D; i += kThreads) {
+    const int g = i / a.D;
+    const int d = i - g * a.D;
+    float mx = kNegInf;
+    for (int s = 0; s < streams; ++s) mx = fmaxf(mx, s_m[s * GM + g]);
+    float sum = 0.f, val = 0.f;
+    for (int s = 0; s < streams; ++s) {
+      // a stream that saw no row has l = 0 and a zero accumulator
+      const float w = s_l[s * GM + g] > 0.f ? expf(s_m[s * GM + g] - mx) : 0.f;
+      sum += w * s_l[s * GM + g];
+      val += w * s_acc[(s * GM + g) * a.D + d];
+    }
+    pacc[g * head_step * a.D + d] = val;
+    if (d == 0) {
+      ml[g * head_step * 2] = mx;
+      ml[g * head_step * 2 + 1] = sum;
     }
   }
+
+  // ticket: the last block of this (slot, KV head) merges the chunks
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int n = c_hi - c_lo;
+    s_last = atomicAdd(a.tickets + b * a.Hkv + hk, 1) == n - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int n = c_hi - c_lo;
+  float* s_w = work;                          // GM x n weights
+  float* s_sum = work + GM * n;               // GM merged sums
+  for (int g = warp; g < G; g += kWarps) {
+    const float* gml = a.ml + ((head0 + g) * a.n_split + c_lo) * 2;
+    float mx = kNegInf;
+    for (int i = lane; i < n; i += 32) mx = fmaxf(mx, __ldcg(gml + 2 * i));
+    mx = group_max<32>(mx);
+    float sum = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      const float w = expf(__ldcg(gml + 2 * i) - mx);
+      s_w[g * n + i] = w;
+      sum += w * __ldcg(gml + 2 * i + 1);
+    }
+    sum = group_sum<32>(sum);
+    if (lane == 0) s_sum[g] = sum;
+  }
+  __syncthreads();
+  T* o = static_cast<T*>(a.out) + head0 * a.D;
+  for (int i = tid; i < G * a.D; i += kThreads) {
+    const int g = i / a.D;
+    const int d = i - g * a.D;
+    const float* src = a.acc + ((head0 + g) * a.n_split + c_lo) * a.D + d;
+    const float* w = s_w + g * n;
+    float val = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) val = fmaf(w[j], __ldcg(src + j * a.D), val);
+    const float l = s_sum[g];
+    o[i] = from_f32<T>(val / (l > 0.f ? l : 1.f));
+  }
+  if (tid == 0) a.tickets[b * a.Hkv + hk] = 0;   // ready for the next call
+}
+
+
+template <typename T, int GM>
+cudaError_t launch_split(const DecodeArgs& a, cudaStream_t stream) {
+  const int streams = kWarps * (32 / a.lanes);
+  const size_t merge = max(static_cast<size_t>(streams) * GM * (2 + a.D),
+                           static_cast<size_t>(GM) * (a.n_split + 1));
+  const size_t bytes = sizeof(float) * (((a.B + 3) & ~3) + merge);
+  auto kernel = ragged_decode_split<T, GM>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(a.B) * a.Hkv * a.n_split;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const DecodeArgs& a, int B, cudaStream_t stream) {
+cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
   const int G = a.Hq / a.Hkv;
-  const int W = a.D / Word<T>::N;
-  const size_t words = static_cast<size_t>(G) * W + 2 * kBK * (W + 1);
-  const size_t floats = static_cast<size_t>(G) * kBK + 3 * G;
-  const size_t bytes = 4 * (words + floats);
-  cudaError_t err = allow_smem(ragged_decode_kernel<T>, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B, a.Hkv);
-  ragged_decode_kernel<T><<<grid, kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
+  if (G == 1) return launch_split<T, 1>(a, stream);
+  if (G == 2) return launch_split<T, 2>(a, stream);
+  if (G == 3) return launch_split<T, 3>(a, stream);
+  if (G == 4) return launch_split<T, 4>(a, stream);
+  if (G <= 8) return launch_split<T, 8>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace repro
 
 // Plain C entry point.  q: (B, Hq, D) with strides (q_sb, q_sh, 1); k, v:
-// (B, T, Hkv, D) with strides (sb, st, sh, 1); lengths, live: (B,) int32;
-// out: contiguous (B, Hq, D).  Returns cudaGetLastError() after the launch.
+// (B, T, Hkv, D) with strides (sb, st, sh, 1); lengths: null (every row
+// len_value) or (B,) integers of len_size bytes at stride len_stride; live:
+// null (all live) or (B,) of live_size bytes at stride live_stride; ml and
+// acc: fp32 scratch of (B, Hq, n_split, 2) and (B, Hq, n_split, D);
+// tickets: (B, Hkv) int32, zero on entry and on return; out: contiguous
+// (B, Hq, D).  chunk * n_split >= T; lanes is a power of two >= D * elem /
+// 16 and <= 32.  Returns cudaGetLastError() after the launch.
 extern "C" int ragged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    const void* live, void* out, int B, int Hq, int Hkv, int D,
-    long long q_sb, long long q_sh, long long k_sb, long long k_st,
-    long long k_sh, long long v_sb, long long v_st, long long v_sh,
+    const void* live, void* ml, void* acc, void* tickets, void* out, int B,
+    int Hq, int Hkv,
+    int D, int T, int chunk, int n_split, int lanes, long long q_sb,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, long long len_stride,
+    int len_size, int len_value, long long live_stride, int live_size,
     int window, int glob, float logit_cap, int dtype, void* stream) {
   using namespace repro;
-  DecodeArgs a{q, k, v, static_cast<const int*>(lengths),
-               static_cast<const int*>(live), out, Hq, Hkv, D,
-               q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
+  DecodeArgs a{q, k, v, lengths, live, static_cast<float*>(ml),
+               static_cast<float*>(acc), static_cast<int*>(tickets), out, B,
+               Hq, Hkv, D, T, chunk,
+               n_split, lanes, q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
+               v_sh, len_stride, live_stride, len_size, len_value, live_size,
                window, glob, logit_cap, 1.0f / sqrtf(static_cast<float>(D))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
-  if (dtype == kBF16) return static_cast<int>(launch<__nv_bfloat16>(a, B, s));
-  if (dtype == kF32) return static_cast<int>(launch<float>(a, B, s));
+  if (dtype == kBF16) return static_cast<int>(launch<__nv_bfloat16>(a, s));
+  if (dtype == kF32) return static_cast<int>(launch<float>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

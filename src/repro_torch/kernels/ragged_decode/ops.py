@@ -3,18 +3,26 @@
 Replaces the Pallas kernel ``src/repro/kernels/ragged_decode/kernel.py``
 (``ragged_decode_kernel`` / ``_decode_kernel``), called on every decode step
 from ``gqa_step``.  On the H100 the kernel is bound by the KV bytes of the
-live rows: it reads each live row's KV prefix once per (slot, KV head),
-shares it across that head's query group, stops at the row's true length
-and skips dead slots, so the engine's bounded cache view costs no more
-than its live prefix (csrc/ragged_decode.cu has the design).
+live rows.  It splits each slot's KV rows into chunks, one block per
+(slot, chunk, KV head) that holds rows to read, so the serving shape fills
+the card; the last block of each (slot, KV head) merges the chunks
+(csrc/ragged_decode.cu has the design).  ``split_plan`` picks the chunk
+and the grid from the host's ``T`` alone, and ``ragged_decode_split_ref``
+in ``ref.py`` is the same split and merge in plain PyTorch.
 
-A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``launches`` counts kernel launches.
+A call on the card is one launch and one ``torch.empty`` for the output
+and the fp32 scratch: the kernel reads ``lengths`` (int32 or int64,
+clamped to [1, T] on the card) and ``live`` (bool or integer) as the
+engine hands them over, and keeps its merge tickets in a buffer zeroed
+once per device and stream.  A CPU tensor takes the plain version
+(``ref.py``); a CUDA tensor launches the kernel or raises.  ``launches``
+counts wrapper calls that launched the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import numbers
 
 import torch
 
@@ -24,7 +32,12 @@ from repro_torch.kernels.ragged_decode.ref import ragged_decode_attention_ref
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_PAIRS = 8 * 128          # (head, word) outputs one block can hold
+_LEN_SIZES = {torch.int32: 4, torch.int64: 8}       # bytes the kernel reads
+_LIVE_SIZES = {**_LEN_SIZES, torch.bool: 1, torch.uint8: 1, torch.int8: 1}
+_MAX_G = 8                    # query heads per KV head one block holds
+_MAX_ROW_BYTES = 512          # one KV row over at most 32 lanes of 16 bytes
+_BLOCKS_PER_SM = 8            # split target: launched blocks per SM
+_MIN_CHUNK = 32               # KV rows per chunk, a multiple of this
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -32,9 +45,33 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 def _fn():
     fn = _build.load_library().ragged_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                   _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P]
+    fn.argtypes = [_P] * 9 + [_I] * 8 + [_L] * 9 + [_I, _I, _L, _I, _I, _I,
+                                                     _F, _I, _P]
     return fn
+
+
+def split_plan(B: int, Hkv: int, T: int, sms: int):
+    """(chunk, n_split) for a (B, T, Hkv, D) cache view on a card of
+    ``sms`` SMs: chunks of a multiple of 32 rows, as many as give about
+    ``_BLOCKS_PER_SM`` blocks per SM over the B * Hkv (slot, KV head)
+    pairs.  Depends on host ints only, never on the lengths."""
+    per_block = -(-T * B * Hkv // (_BLOCKS_PER_SM * sms))
+    chunk = max(_MIN_CHUNK, -(-per_block // _MIN_CHUNK) * _MIN_CHUNK)
+    return chunk, -(-T // chunk)
+
+
+# per (device, stream): the kernel's (slot, KV head) tickets, int32 zeros
+# that every launch leaves at zero
+_tickets: dict = {}
+
+
+def _ticket_buffer(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def _check(q1, k, v):
@@ -49,27 +86,43 @@ def _check(q1, k, v):
     if q1.dtype not in _DTYPES or not (q1.dtype == k.dtype == v.dtype):
         raise TypeError(f"kernel takes float32 or bfloat16 q, k, v of one "
                         f"dtype, got {q1.dtype}, {k.dtype}, {v.dtype}")
-    if Hq % Hkv:
-        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    size = q1.element_size()
-    if (D * size) % 16 or (Hq // Hkv) * (D * size // 4) > _MAX_PAIRS:
+    if Hq % Hkv or Hq // Hkv > _MAX_G:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv} or has "
+                         f"more than {_MAX_G} query heads per KV head")
+    row = D * q1.element_size()
+    if row % 16 or row > _MAX_ROW_BYTES:
         raise ValueError(f"head_dim {D} of {q1.dtype} is not a multiple of "
-                         f"16 bytes or too wide for one block")
+                         f"16 bytes or wider than {_MAX_ROW_BYTES} bytes")
     for name, t in (("q", q1), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-                (s * size) % 16 for s in t.stride()[:-1]):
+                (s * t.element_size()) % 16 for s in t.stride()[:-1]):
             raise ValueError(f"{name} needs a unit stride on head_dim and "
                              f"16-byte aligned rows, got strides {t.stride()}")
     if T < 1:
         raise ValueError("empty KV cache")
 
 
+def _per_row(x, B: int, device, sizes, what: str):
+    """(tensor, element bytes, stride) of a per-row vector (or a scalar
+    tensor) of one of ``sizes``' dtypes, as the kernel reads it in place."""
+    if x.device != device:
+        x = x.to(device)
+    if x.dtype not in sizes:
+        raise TypeError(f"{what} must be one of {sorted(map(str, sizes))}, "
+                        f"got {x.dtype}")
+    if x.dim() > 1 or (x.dim() == 1 and x.shape[0] not in (1, B)):
+        raise ValueError(f"{what} must be a scalar or ({B},), got "
+                         f"{tuple(x.shape)}")
+    stride = x.stride(0) if x.dim() == 1 and x.shape[0] == B else 0
+    return x, sizes[x.dtype], stride
+
+
 def ragged_decode_attention(q, k, v, lengths, *, window: int = 0,
                             logit_cap: float = 0.0, is_global=None,
                             live=None):
     """q: (B, 1, Hq, D); k, v: (B, T, Hkv, D), possibly a strided view of a
-    longer cache (never copied); lengths: (B,) true KV lengths; live:
-    optional (B,) bool -> (B, 1, Hq, D).  Dead rows return zeros."""
+    longer cache (never copied); lengths: int or (B,) true KV lengths;
+    live: optional (B,) bool -> (B, 1, Hq, D).  Dead rows return zeros."""
     global launches
     if q.device.type == "cpu":
         return ragged_decode_attention_ref(
@@ -79,19 +132,41 @@ def ragged_decode_attention(q, k, v, lengths, *, window: int = 0,
     _check(q1, k, v)
     B, Hq, D = q1.shape
     T, Hkv = k.shape[1], k.shape[2]
-    lens = torch.as_tensor(lengths, device=q.device).expand(B)
-    lens = lens.clamp(1, T).to(torch.int32).contiguous()
-    live_i = (torch.ones(B, dtype=torch.int32, device=q.device) if live is None
-              else live.to(device=q.device, dtype=torch.int32).contiguous())
-    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn()(q1.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                live_i.data_ptr(), out.data_ptr(), B, Hq, Hkv, D,
+    dev = q.device
+    if isinstance(lengths, numbers.Integral):
+        len_ptr, len_size, len_stride = None, 0, 0
+        len_value = max(1, min(int(lengths), T))
+    else:
+        lens, len_size, len_stride = _per_row(
+            torch.as_tensor(lengths, device=dev), B, dev, _LEN_SIZES,
+            "lengths")
+        len_ptr, len_value = lens.data_ptr(), 0
+    live_ptr, live_size, live_stride = None, 0, 0
+    if live is not None:
+        live_t, live_size, live_stride = _per_row(live, B, dev, _LIVE_SIZES,
+                                                  "live")
+        live_ptr = live_t.data_ptr()
+    chunk, n_split = split_plan(B, Hkv, T, _build.sm_count(dev.index or 0))
+    es = q.element_size()
+    lanes = 1 << (D * es // 16 - 1).bit_length()   # power of two >= segments
+    # one allocation: the output, then the fp32 partials (m, l) and acc
+    out_bytes = -(-B * Hq * D * es // 256) * 256
+    parts = B * Hq * n_split
+    buf = torch.empty(out_bytes + 4 * parts * (2 + D), dtype=torch.uint8,
+                      device=dev)
+    base = buf.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _ticket_buffer(dev, stream, B * Hkv)
+    err = _fn()(q1.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, live_ptr,
+                base + out_bytes, base + out_bytes + 8 * parts,
+                tickets.data_ptr(), base,
+                B, Hq, Hkv, D, T, chunk, n_split, lanes,
                 q1.stride(0), q1.stride(1),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
+                len_stride, len_size, len_value, live_stride, live_size,
                 int(window), int(bool(is_global)), float(logit_cap),
                 _DTYPES[q.dtype], stream)
     _build.check(err, "ragged_decode_attention")
     launches += 1
-    return out[:, None]
+    return buf[:B * Hq * D * es].view(q.dtype).view(B, 1, Hq, D)

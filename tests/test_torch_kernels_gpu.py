@@ -47,40 +47,83 @@ def cuda():
     return torch.device("cuda")
 
 
+def _decode_shape(case, chunk_of):
+    """(Hq, Hkv, T, lengths, live) of a ragged decode case; ``chunk_of(B,
+    Hkv, T)`` is the kernel's chunk for that view."""
+    if case == "mixed":                 # tile-edge lengths, one dead slot
+        return 24, 8, 320, [1, 63, 64, 65, 300, 200], [1, 1, 1, 1, 1, 0]
+    if case == "chunk_edges":           # T no multiple of the chunk
+        c = chunk_of(6, 8, 300)
+        lens = [c - 1, c, c + 1, 1, 300, min(2 * c + 5, 300)]
+        return 24, 8, 300, lens, [1, 1, 1, 1, 1, 0]
+    if case == "all_dead":
+        return 24, 8, 96, [5, 96, 40], [0, 0, 0]
+    if case == "long":                  # B = 1: many splits
+        return 24, 8, 2048, [2000], [1]
+    if case == "g1":
+        return 8, 8, 160, [1, 150, 33], [1, 1, 1]
+    if case == "g8":
+        return 64, 8, 160, [160, 77, 1], [1, 0, 1]
+    raise ValueError(case)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("window,cap,glob", [(0, 0.0, None), (40, 20.0, False),
                                              (40, 20.0, True)])
-def test_ragged_decode_kernel_on_gpu(cuda, dtype, window, cap, glob):
-    B, T_full, Hq, Hkv, D = 6, 512, 24, 8, 128
+@pytest.mark.parametrize("case", ["mixed", "chunk_edges", "all_dead", "long",
+                                  "g1", "g8"])
+def test_ragged_decode_kernel_on_gpu(cuda, dtype, window, cap, glob, case):
+    """Lengths at the chunk's edges, length 1, dead slots (all of them in
+    one case), G in {1, 3, 8}; with the window of 40 the window's start
+    falls inside a later chunk of the long rows.  K and V are strided
+    views of a longer cache, as the engine passes them."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    Hq, Hkv, T, lengths, alive = _decode_shape(
+        case, lambda B, H, T: rd.split_plan(B, H, T, sms)[0])
+    B, D = len(lengths), 128
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((B, 1, Hq, D), generator=gen, device=cuda).to(dtype)
-    kc = torch.randn((B, T_full, Hkv, D), generator=gen, device=cuda).to(dtype)
-    vc = torch.randn((B, T_full, Hkv, D), generator=gen, device=cuda).to(dtype)
-    lens = torch.tensor([1, 63, 64, 65, 300, 200], dtype=torch.int32,
-                        device=cuda)
-    live = torch.tensor([True, True, True, True, True, False], device=cuda)
-    k, v = kc[:, :320], vc[:, :320]          # strided view, as the engine
+    kc = torch.randn((B, T + 64, Hkv, D), generator=gen, device=cuda).to(dtype)
+    vc = torch.randn((B, T + 64, Hkv, D), generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    live = torch.tensor(alive, dtype=torch.bool, device=cuda)
+    k, v = kc[:, :T], vc[:, :T]          # strided view, as the engine
     kw = dict(window=window, logit_cap=cap, is_global=glob, live=live)
     before = rd.launches
     got = rd.ragged_decode_attention(q, k, v, lens, **kw)
     want = ragged_decode_attention_ref(q, k, v, lens, **kw)
     torch.cuda.synchronize()
     assert rd.launches == before + 1
-    assert (got[5] == 0).all()
+    for b, a in enumerate(alive):
+        assert a or (got[b] == 0).all()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= GPU_TOL[dtype], err
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("S", [32, 200])
+@pytest.mark.parametrize("S", [1, 32, 63, 64, 65, 127, 128, 129, 200, 1000,
+                               1024])
 @pytest.mark.parametrize("window,cap,glob", [(0, 0.0, None), (64, 30.0, False),
                                              (64, 30.0, True)])
-def test_flash_kernel_on_gpu(cuda, dtype, S, window, cap, glob):
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("fused", [False, True])
+def test_flash_kernel_on_gpu(cuda, dtype, S, window, cap, glob, G, D, fused):
+    """``fused``: q, k and v are strided views of one (1, S, Hq + 2 Hkv, D)
+    projection."""
+    Hkv = 8
+    Hq = G * Hkv
     gen = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v = (torch.randn((1, S, h, 128), generator=gen,
-                           device=cuda).to(dtype) for h in (24, 8, 8))
+    if fused:
+        qkv = torch.randn((1, S, Hq + 2 * Hkv, D), generator=gen,
+                          device=cuda).to(dtype)
+        q, k, v = (qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv],
+                   qkv[:, :, Hq + Hkv:])
+    else:
+        q, k, v = (torch.randn((1, S, h, D), generator=gen,
+                               device=cuda).to(dtype) for h in (Hq, Hkv, Hkv))
     kw = dict(window=window, logit_cap=cap, is_global=glob)
     before = fa.launches
     got = fa.flash_attention(q, k, v, **kw)
@@ -98,6 +141,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     lens = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         rd.ragged_decode_attention(q, k, k, lens)
+    q9 = torch.zeros((1, 1, 18, 64), dtype=torch.bfloat16, device=cuda)
+    k9 = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):                 # G = 9 > 8
+        rd.ragged_decode_attention(q9, k9, k9, lens[:1])
     qb = torch.zeros((1, 8, 4, 200), dtype=torch.bfloat16, device=cuda)
     kb = torch.zeros((1, 8, 2, 200), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):

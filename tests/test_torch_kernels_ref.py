@@ -22,8 +22,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.ragged_decode import ops as rd  # noqa: E402
-from repro_torch.kernels.ragged_decode.ref import \
-    ragged_decode_attention_ref  # noqa: E402
+from repro_torch.kernels.ragged_decode.ref import (  # noqa: E402
+    ragged_decode_attention_ref, ragged_decode_partials,
+    ragged_decode_split_ref)
 
 RNG = np.random.default_rng(5)
 FP32_TOL = 1e-5
@@ -57,6 +58,56 @@ def test_ragged_decode_plain_matches_jax(impl, window, cap, glob):
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=FP32_TOL, atol=FP32_TOL)
     assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("impl", ["interpret", "ref"])
+@pytest.mark.parametrize("chunk", [4, 16, 32, 64])
+@pytest.mark.parametrize("window,cap,glob", [
+    (0, 0.0, None), (8, 0.0, False), (8, 0.0, True), (8, 20.0, False)])
+def test_ragged_decode_split_spec_matches_jax(impl, chunk, window, cap, glob):
+    """The split kernel's plain spec against the plain version and the
+    Pallas kernel.  At chunk 4 most chunks are empty (short rows, the
+    window); window 8 starts inside a later chunk of the long rows."""
+    B, T, Hq, Hkv, D = 5, 64, 6, 2, 16
+    q, k, v = _qkv(B, 1, T, Hq, Hkv, D)
+    lens = np.array([1, 17, 64, 40, 33], np.int32)
+    live = np.array([True, True, True, False, True])
+    kw = dict(window=window, logit_cap=cap, is_global=glob)
+    want = jax_rd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  jnp.asarray(lens), live=jnp.asarray(live), impl=impl, **kw)
+    tq, tk, tv = torch.tensor(q), torch.tensor(k), torch.tensor(v)
+    tl, tlive = torch.tensor(lens), torch.tensor(live)
+    got = ragged_decode_split_ref(
+        tq, tk, tv, tl, chunk=chunk, live=tlive, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    plain = ragged_decode_attention_ref(tq, tk, tv, tl, live=tlive, **kw)
+    np.testing.assert_allclose(got.numpy(),
+                               plain.numpy(), rtol=FP32_TOL, atol=FP32_TOL)
+    assert (got[3] == 0).all()
+    # empty chunks: past the length, before the window, a dead row
+    m, l, acc = ragged_decode_partials(tq, tk, tv, tl, chunk=chunk,
+                                       live=tlive, **kw)
+    start = np.maximum(lens - window, 0) if window and not glob else 0 * lens
+    lo = np.arange(-(-T // chunk)) * chunk
+    empty = ((lo[None] + chunk <= start[:, None]) | (lo[None] >= lens[:, None])
+             | ~live[:, None])
+    assert empty.any() and not empty.all()
+    e = torch.tensor(empty)[:, None, :].expand_as(l)
+    assert (m[e] == -1e30).all() and (l[e] == 0).all()
+    assert (acc[e] == 0).all() and (l[~e] > 0).all()
+
+
+def test_split_plan_fills_the_card_from_host_ints():
+    """The serving shape (8 slots, 8 KV heads, kv_bound 1056, 132 SMs)
+    launches more than B * Hkv blocks; chunks are multiples of 32 that
+    cover T; B = 1 at T = 2048 gives many splits."""
+    chunk, n = rd.split_plan(8, 8, 1056, 132)
+    assert chunk % 32 == 0 and (n - 1) * chunk < 1056 <= n * chunk
+    assert 8 * 8 * n > 2 * 132
+    chunk, n = rd.split_plan(1, 8, 2048, 132)
+    assert n >= 32 and n * chunk >= 2048
+    assert rd.split_plan(1, 1, 1, 132) == (32, 1)
 
 
 def test_ragged_decode_wrapper_takes_plain_on_cpu():
