@@ -33,11 +33,15 @@
    at 1/8, 1/4, 1/2 and all of each axis and a ragged (1040, 1032, 2040);
    ``flex_mm`` against its plain version with zeros outside the valid
    region (the output starts as NaN), ``static_mm`` against its plain
-   version on the whole buffer, both timed beside the bound and
+   version on the whole buffer, both timed beside the bound (fp32 as
+   3xTF32 on the tensor cores, the CUDA-core bound logged beside) and
    ``torch.matmul`` on the valid slices.  Then full-width BERT-128 down
    the paper's path: two-stage DSE, codegen, ``DataPlaneSim`` on the card
    with every CU pass through ``flex_mm``, every layer's DDR result held
-   to a plain fp32 walk of the DAG.  It runs between phases 2 and 3.
+   to a plain fp32 walk of the DAG; the device time of the passes under
+   the profiler, the host's enqueue of the program, and a per-shape table
+   of ``flex_mm`` against ``torch.matmul`` at each pass shape with the
+   kernel's plan.  It runs between phases 2 and 3.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -55,6 +59,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+TF32_FLOPS = 495e12                # dense TF32 tensor-core peak
 F32_FLOPS = 67e12                  # fp32 outside the tensor cores
 # exponentials on the special-function units: 16 per clock per SM at
 # compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
@@ -156,11 +161,16 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0):
+def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0,
+          tf32x3: bool = False):
     """Least time in ms for ``nbytes`` of traffic, ``flops`` at the peak of
     ``dtype`` and ``exps`` exponentials on the special-function units and
-    the FP32 pipe together, and which of bytes or operations binds."""
+    the FP32 pipe together, and which of bytes or operations binds.  With
+    ``tf32x3`` an fp32 product is three TF32 tensor-core products (the
+    filco_mm kernel's fp32 arithmetic): 3 x ``flops`` at the TF32 peak."""
     peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    if tf32x3 and dtype == "float32":
+        flops, peak = 3 * flops, TF32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(flops / peak, exps / (SFU_EXP_PER_S + FMA_EXP_PER_S))
     return (max(t_bytes, t_ops) * 1e3,
@@ -816,6 +826,10 @@ def run_paper_kernel_phase(torch, reps: int = 20):
     reset_counts(("static_mm",))
     results = {}
     static_atoms = fm.atoms_issued_static(X, X, X)
+    bm, bn, bk, splits = fm.plan(X, X, X)
+    gx, gy, _ = fm.grid(X, X, bm, bn, splits)
+    log(f"filco_mm sweep plan for the {X}^3 buffer: tile {bm}x{bn}x{bk}, "
+        f"{splits} split(s), {gx * gy * splits} blocks")
     for dtype, (a, b) in bufs.items():
         es = a.element_size()
         static_ms = time_ms(torch, lambda: fm.static_mm(a, b), reps)
@@ -825,15 +839,22 @@ def run_paper_kernel_phase(torch, reps: int = 20):
             ms_ = time_ms(torch, lambda: fm.flex_mm(a, b, dims), reps)
             av, bv = a[:m, :k], b[:k, :n]
             lib_ms = time_ms(torch, lambda: torch.matmul(av, bv), reps)
-            # inputs' valid regions read once, the whole buffer written
-            b_ms, b_by = bound((m * k + k * n + X * X) * es, 2 * m * k * n,
-                               dtype)
-            atoms = fm.atoms_issued_flexible(m, k, n)
+            # inputs' valid regions read once, the whole buffer written;
+            # fp32 on the tensor cores as 3xTF32, the CUDA-core bound beside
+            nbytes, flops = (m * k + k * n + X * X) * es, 2 * m * k * n
+            b_ms, b_by = bound(nbytes, flops, dtype, tf32x3=True)
+            by, cc = b_by, ""
+            if dtype == "float32":
+                by += ", 3xTF32" if b_by == "operations" else ""
+                cc = (f"; CUDA-core fp32 bound "
+                      f"{bound(nbytes, flops, dtype)[0]:.4f} ms")
+            atoms = fm.atoms_issued_flexible(m, k, n, buf=(X, X, X))
             log(f"filco_mm sweep {dtype} buffer {X}^3 dims {mkn}: flex_mm "
                 f"{ms_:.4f} ms, static_mm {static_ms:.4f} ms (whole "
                 f"buffer), live tiles {atoms} of {static_atoms} "
                 f"({atoms / static_atoms:.4f}), bound {b_ms:.4f} ms "
-                f"({b_by}), torch.matmul on the valid slices {lib_ms:.4f} ms")
+                f"({by}){cc}, torch.matmul on the valid slices "
+                f"{lib_ms:.4f} ms; {flops / ms_ / 1e9:.1f} TFLOP/s")
             if mkn == (X, X, X) and dtype == "float32":
                 plain_ms = time_ms(torch, lambda: flex_mm_ref(a, b, dims),
                                    max(reps // 4, 3))
@@ -858,6 +879,66 @@ def run_paper_kernel_phase(torch, reps: int = 20):
     del bufs
     torch.cuda.empty_cache()
     return results, launches
+
+
+def run_paper_shape_table(torch, dims, reps: int = 20):
+    """``flex_mm`` at each CU pass shape of the path, with buffers exactly
+    the pass as the simulator hands its windows over and operands scaled
+    as the DDR image scales them: against its plain version, its time,
+    ``torch.matmul``'s on the same windows (TF32 off), the bound (bytes,
+    or 3xTF32 operations) and the plan.  Then the host's enqueue of one
+    ``flex_mm`` call, over as many calls as the path has passes."""
+    from collections import Counter
+
+    from repro_torch.kernels.filco_mm import ops as fm
+    from repro_torch.kernels.filco_mm.ref import flex_mm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    counts = Counter(dims)
+    tot = tot_lib = 0.0
+    log("paper path per-shape table (m, k, n) x passes: flex_mm ms, "
+        "torch.matmul ms, bound ms (by), plan tile/splits/blocks, max rel "
+        "err")
+    for (m, k, n), count in sorted(counts.items()):
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        b = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        d = torch.tensor((m, k, n), dtype=torch.int32, device="cuda")
+        out = torch.full((m, n), float("nan"), device="cuda")
+        fm.flex_mm(a, b, d, out=out)
+        want = flex_mm_ref(a, b, d)
+        err = ((out - want).abs().max() / want.abs().max()).item()
+        require(agree(out, want, TOL["float32"]),
+                f"flex_mm at pass shape {(m, k, n)} disagrees with its plain "
+                f"version")
+        ms_ = time_ms(torch, lambda: fm.flex_mm(a, b, d, out=out), reps)
+        lib_ms = time_ms(torch, lambda: torch.matmul(a, b), reps)
+        b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2 * m * k * n,
+                           "float32", tf32x3=True)
+        bm, bn, bk, splits = fm.plan(m, k, n)
+        gx, gy, _ = fm.grid(m, n, bm, bn, splits)
+        tot += count * ms_
+        tot_lib += count * lib_ms
+        log(f"  {(m, k, n)} x {count}: {ms_:.4f} | {lib_ms:.4f} | "
+            f"{b_ms:.4f} ({b_by}{', 3xTF32' if b_by == 'operations' else ''})"
+            f" | {bm}x{bn}x{bk} / {splits} / {gx * gy * splits} | {err:.2e}")
+    log(f"paper path per-shape times weighted by passes: flex_mm "
+        f"{tot:.3f} ms, torch.matmul {tot_lib:.3f} ms (each launch with a "
+        f"cold L2)")
+    (m, k, n), count = counts.most_common(1)[0]
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    d = torch.tensor((m, k, n), dtype=torch.int32, device="cuda")
+    out = torch.empty((m, n), device="cuda")
+    fm.flex_mm(a, b, d, out=out)
+    torch.cuda.synchronize()
+    passes = len(dims)
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        fm.flex_mm(a, b, d, out=out)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(f"paper path host: {passes} flex_mm calls at {(m, k, n)} enqueue in "
+        f"{host_s * 1e3:.3f} ms ({host_s / passes * 1e6:.1f} us per call)")
 
 
 def run_paper_path_phase(torch):
@@ -892,20 +973,25 @@ def run_paper_path_phase(torch):
         f"{s['codegen_s']:.4f} s, sim wall {s['sim_s']:.4f} s; flex_mm "
         f"launches {launches['flex_mm']}; peak memory {peak_gib:.3f} GiB")
     # what the passes need: operands read and results written once, the
-    # useful products; beside them what 128x8x128 tiles issue
+    # useful products (fp32 as 3xTF32); beside them what the plan's tiles
+    # issue and how many blocks each pass launches
     ceil = lambda x, a: -(-x // a)
     nbytes = sum(4 * (m * k + k * n + m * n) for m, k, n in dims)
     flops = sum(2 * m * k * n for m, k, n in dims)
-    issued = sum(2 * ceil(m, fm.TILE_M) * fm.TILE_M * ceil(k, fm.TILE_K)
-                 * fm.TILE_K * ceil(n, fm.TILE_N) * fm.TILE_N
-                 for m, k, n in dims)
-    blocks = [ceil(m, fm.TILE_M) * ceil(n, fm.TILE_N) for m, _, n in dims]
-    b_ms, b_by = bound(nbytes, flops, "float32")
+    issued, blocks = 0, []
+    for m, k, n in dims:
+        bm, bn, bk, splits = fm.plan(m, k, n)
+        issued += 2 * fm.atoms_issued_flexible(m, k, n) * bm * bk * bn
+        gx, gy, _ = fm.grid(m, n, bm, bn, splits)
+        blocks.append(gx * gy * splits)
+    b_ms, b_by = bound(nbytes, flops, "float32", tf32x3=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"paper path {wl.name}: the passes move {nbytes / 1e9:.3f} GB and "
-        f"make {flops / 1e9:.2f} GFLOP, bound {b_ms:.4f} ms ({b_by}); the "
-        f"kernel's tiles issue {issued / 1e9:.2f} GFLOP in {min(blocks)}-"
-        f"{max(blocks)} blocks per pass on {sms} SMs")
+        f"make {flops / 1e9:.2f} GFLOP, bound {b_ms:.4f} ms ({b_by}; as "
+        f"3xTF32 the products take {3 * flops / TF32_FLOPS * 1e3:.4f} ms, on "
+        f"CUDA cores {flops / F32_FLOPS * 1e3:.4f} ms); the plan's tiles "
+        f"issue {issued / 1e9:.2f} GFLOP in {min(blocks)}-{max(blocks)} "
+        f"blocks per pass on {sms} SMs")
     log(f"paper path {wl.name}: largest |DDR - walk| / max |walk| over "
         f"layers {s['max_rel_err']:.3e} (tol {s['rel_tol']:.0e}), at layer "
         f"{int(run.errors.argmax())}")
@@ -936,6 +1022,17 @@ def run_paper_path_phase(torch):
     else:
         log(f"paper path {wl.name} profile: the profiler recorded no device "
             f"time (flex_mm device time not measured)")
+    # the host's side: enqueue of the whole program (309 kernel launches
+    # and the FMU and DDR copies) against its wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.sim.run(run.prog)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"paper path {wl.name} host: DataPlaneSim.run enqueues the program "
+        f"in {(t1 - t0) * 1e3:.3f} ms of {(t2 - t0) * 1e3:.3f} ms wall")
+    run_paper_shape_table(torch, dims)
     del run
     torch.cuda.empty_cache()
     return launches

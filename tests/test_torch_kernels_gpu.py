@@ -11,7 +11,9 @@ The Mamba step rounds at the reference's points in both versions, but sums
 its products in another order, so a value may land on the neighbouring
 bf16 (2**-8 of itself): it is held to tol + tol |want|.  The scan computes
 in fp32 in both versions: 1e-4 + 1e-4 |want|.  filco_mm sums in fp32 in
-both versions and rounds once to the output dtype: tol + tol |want|.
+both versions and rounds once to the output dtype: tol + tol |want|; its
+fp32 products are three TF32 products on the tensor cores, within about
+1e-6 of fp32's.
 """
 import pytest
 
@@ -380,6 +382,135 @@ def test_static_mm_kernel_on_gpu(cuda, dtype):
     torch.cuda.synchronize()
     assert fm.static_launches == before + 1
     assert _agree(got, static_mm_ref(a, b), GPU_TOL[dtype])
+
+
+# BERT-128's CU passes on the paper path (m, k, n): the port's DSE with
+# the example's settings gives 309 passes in these 18 shapes
+BERT128_PASS_SHAPES = (
+    (16, 768, 768), (16, 768, 3072), (16, 3072, 768), (32, 768, 768),
+    (32, 3072, 768), (64, 768, 768), (64, 768, 3072), (64, 3072, 768),
+    (128, 768, 768), (128, 768, 3072), (128, 3072, 768), (192, 128, 64),
+    (384, 64, 128), (384, 128, 64), (768, 64, 128), (768, 128, 64),
+    (1536, 64, 128), (1536, 128, 64))
+
+
+def _pass_operands(gen, m, k, n, device, dtype=torch.float32):
+    """Operands scaled as the DDR image scales them: the input N(0, 1), the
+    weight N(0, 1) / sqrt(k)."""
+    a = torch.randn((m, k), generator=gen, device=device)
+    b = torch.randn((k, n), generator=gen, device=device) / k ** 0.5
+    return a.to(dtype), b.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", BERT128_PASS_SHAPES)
+def test_flex_mm_kernel_bert128_pass_shapes(cuda, mkn):
+    """Each pass shape with the buffer exactly the pass, as the simulator
+    hands the windows over: the plan's tile and splits, one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a, b = _pass_operands(gen, *mkn, cuda)
+    dims = torch.tensor(mkn, dtype=torch.int32, device=cuda)
+    out = torch.full((mkn[0], mkn[2]), float("nan"), device=cuda)
+    before = fm.launches
+    fm.flex_mm(a, b, dims, out=out)
+    torch.cuda.synchronize()
+    assert fm.launches == before + 1
+    assert _agree(out, flex_mm_ref(a, b, dims), GPU_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("where", ["inside_a_split", "on_a_split_edge",
+                                   "before_the_last_split", "at_the_end",
+                                   "zero", "inside_the_first_step"])
+def test_flex_mm_kernel_split_k_runtime_k(cuda, dtype, where):
+    """A (16, 768, 768) buffer plans several splits of kspan: a runtime k
+    that ends inside a split, on a split's edge, two splits before the
+    last (the later splits hold nothing), at the end, at 0 and inside the
+    first k-step; NaN in both paddings beyond k, Inf beyond m and n."""
+    Mx, Kx, Nx = 16, 768, 768
+    _, _, bk, splits = fm.plan(Mx, Kx, Nx)
+    kspan = fm.split_span(Kx, bk, splits)
+    assert splits > 3
+    k = {"inside_a_split": kspan + 7, "on_a_split_edge": 2 * kspan,
+         "before_the_last_split": (splits - 2) * kspan - 5,
+         "at_the_end": Kx, "zero": 0, "inside_the_first_step": 5}[where]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a, b = _pass_operands(gen, Mx, Kx, Nx, cuda, dtype)
+    m, n = 13, 700
+    want = flex_mm_ref(a, b, [m, k, n])
+    a[:, k:] = float("nan")
+    b[k:, :] = float("nan")
+    a[m:, :] = float("inf")
+    b[:, n:] = float("-inf")
+    out = torch.full((Mx, Nx), float("nan"), dtype=dtype, device=cuda)
+    fm.flex_mm(a, b, torch.tensor([m, k, n], dtype=torch.int32,
+                                  device=cuda), out=out)
+    torch.cuda.synchronize()
+    assert (out[m:] == 0).all() and (out[:, n:] == 0).all()
+    assert _agree(out, want, GPU_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flex_mm_kernel_unaligned_windows_split_k(cuda, dtype):
+    """FMU windows whose rows are not 16-byte aligned (cols 771 and 37:
+    4-byte copies in fp32, plain loads in bf16) at a split-K plan."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    flat = torch.randn(80000, generator=gen, device=cuda).to(dtype)
+    a = flat.as_strided((16, 768), (771, 1), 1)
+    b = flat.as_strided((768, 37), (37, 1), 20001) / 768 ** 0.5
+    out = torch.full((16, 37), float("nan"), dtype=dtype, device=cuda)
+    dims = torch.tensor([16, 768, 37], dtype=torch.int32, device=cuda)
+    assert fm.plan(16, 768, 37)[3] > 1
+    fm.flex_mm(a, b, dims, out=out)
+    torch.cuda.synchronize()
+    assert _agree(out, flex_mm_ref(a, b, dims), GPU_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flex_mm_split_tickets_back_at_zero_and_per_stream(cuda):
+    """Every split launch leaves its stream's tickets at zero, and a
+    launch on a second stream uses that stream's own scratch."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    a, b = _pass_operands(gen, 16, 3072, 768, cuda)
+    dims = torch.tensor([16, 3072, 768], dtype=torch.int32, device=cuda)
+    want = flex_mm_ref(a, b, dims)
+    side = torch.cuda.Stream(device=cuda)
+    outs = []
+    for stream in (torch.cuda.current_stream(cuda), side):
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                outs.append(fm.flex_mm(a, b, dims))
+        stream.synchronize()
+        tickets, _ = fm._scratch[(cuda.index or 0, stream.cuda_stream)]
+        assert (tickets == 0).all()
+    for out in outs:
+        assert torch.equal(out, outs[0])      # split order is fixed
+    assert _agree(outs[0], want, GPU_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_flex_mm_never_syncs_on_dims(cuda):
+    """The wrapper reads no device value on the host: the dims stay on
+    the card (the paper's runtime instruction)."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    a, b = _pass_operands(gen, 64, 768, 3072, cuda)
+    imem = torch.tensor([[64, 768, 3072], [40, 500, 1000]],
+                        dtype=torch.int32, device=cuda)
+    outs = [torch.empty((64, 3072), device=cuda) for _ in range(2)]
+    fm.flex_mm(a, b, imem[0], out=outs[0])      # scratch allocated here
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for p in range(2):
+            fm.flex_mm(a, b, imem[p], out=outs[p])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for p in range(2):
+        assert _agree(outs[p], flex_mm_ref(a, b, imem[p]),
+                      GPU_TOL[torch.float32])
 
 
 @pytest.mark.gpu
