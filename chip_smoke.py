@@ -15,7 +15,10 @@
    logs its grid (blocks; chunk and splits for ragged decode), its CUDA
    launches per call as the profiler counts them, and its achieved GB/s or
    TFLOP/s beside the card's peak.  Mamba (falcon-mamba-7b widths):
-   the decode step for 8 slots with one dead, in bf16 and fp32; the
+   the decode step for 8 slots with one dead, in bf16 and fp32, and the
+   bf16 step by launch under the profiler (each weight product's time,
+   TB/s and plan beside ``torch.matmul`` on the same operands, the
+   epilogues, the gaps), its launches serialised and overlapped; the
    selective scan at S = 1, 37, 200 and 1024.
 3. Serving phase, minitron-4b: full width (32 layers, random bf16 weights
    from a fixed seed) through ``DecodeEngine`` with the kernels on: 8
@@ -24,8 +27,10 @@
    profiles a replay and checks kernel-path logits against the plain path.
 4. Serving phase, falcon-mamba-7b: the same for full width (64 layers)
    through ``SSMEngine`` with ``max_len`` 512, so that prompts past it show
-   admission to be slot-bound.  For three weight seeds the kernel path is
-   checked against the plain path on an fp32 copy of the weights, and in
+   admission to be slot-bound, profiled once more with the step's launches
+   serialised, where each kernel's time is its own.  For three weight
+   seeds the kernel path is checked against the plain path on an fp32
+   copy of the weights, and in
    bf16 against the model's own rounding floor: its distance from the fp32
    plain path may exceed the bf16 plain path's by a stated margin only.
 5. Paper phase.  The filco_mm sweep (the stand-in for Fig. 8's
@@ -225,6 +230,58 @@ def cuda_launches(torch, fn):
     return kinds
 
 
+# the Mamba step's launches in call order, and which of them are the four
+# weight products
+STEP_LAUNCHES = ("in_proj", "conv", "x_proj", "dbc", "dt_proj", "ssm",
+                 "out_proj", "out")
+STEP_PRODUCTS = ("in_proj", "x_proj", "dt_proj", "out_proj")
+
+
+def step_breakdown(torch, fn, reps: int = 10, clean: bool = False):
+    """Device time of each of the Mamba step's launches, from
+    ``torch.profiler`` over ``reps`` calls of ``fn``, each after a write
+    that evicts the L2 (as ``time_ms`` does) or, with ``clean``, a read
+    that evicts it and leaves no dirty line to write back (as serving
+    finds it: the previous layer's weights pass through the L2 clean), all
+    queued behind a sleep so that the host's enqueue does not open gaps.
+    Returns (mean ms of each launch in call order, mean span ms from the
+    first launch's start to the last one's end); the span less the
+    launches' sum is the device's gaps between them (negative where
+    launches overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
+    evict = (lambda: flush.max()) if clean else flush.zero_
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evict()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int((reps * (host_s + 2e-4) + 5e-3) * 1.98e9))
+        for _ in range(reps):
+            evict()
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA
+                  and "mamba_step" in ev.name),
+                 key=lambda ev: ev.time_range.start)
+    n = len(STEP_LAUNCHES)
+    require(len(evs) == reps * n,
+            f"step profile: {len(evs)} launches for {reps} calls of {n}")
+    per, span = [0.0] * n, 0.0
+    for c in range(reps):
+        call = evs[c * n:(c + 1) * n]
+        for i, ev in enumerate(call):
+            per[i] += (ev.time_range.end - ev.time_range.start) / 1e3 / reps
+        span += (max(ev.time_range.end for ev in call)
+                 - call[0].time_range.start) / 1e3 / reps
+    return per, span
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -392,6 +449,56 @@ def run_kernel_phase(torch, reps: int = 20):
     return results
 
 
+def log_step_breakdown(torch, gen, x1, conv, h, args, live, reps):
+    """The bf16 step's device time by launch at falcon-mamba-7b widths,
+    with its launches serialised and overlapped: each weight product's
+    time, bytes, TB/s and plan beside ``torch.matmul`` on the same
+    (B, K) @ (K, N) operands (its yardstick; the port never calls it),
+    the four epilogues' time, and the gaps between launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan import ops as ms
+    weights = dict(zip(STEP_PRODUCTS, (args[0], args[3], args[4], args[8])))
+    B = x1.shape[0]
+    sms = _build.sm_count(0)
+    lib = {}
+    for name, w in weights.items():
+        xb = torch.randn((B, w.shape[0]), generator=gen,
+                         device="cuda").to(w.dtype)
+        lib[name] = time_ms(torch, lambda: xb @ w, reps)
+    call = lambda: ms.mamba_step(x1, conv, h, *args, live=live)
+    for ov, clean in ((False, False), (False, True), (True, False)):
+        ms.overlap = ov
+        events = ("" if clean else f"; step by CUDA events after a write "
+                  f"{time_ms(torch, call, reps):.4f} ms")
+        per, span = step_breakdown(torch, call, clean=clean)
+        t = dict(zip(STEP_LAUNCHES, per))
+        parts = []
+        for name, w in weights.items():
+            nbytes = w.numel() * w.element_size()
+            p = ms.plan(B, *w.shape, sms)
+            parts.append(
+                f"{name} ({w.shape[0]}x{w.shape[1]}) {t[name]:.4f} ms for "
+                f"{nbytes / 1e6:.1f} MB = {nbytes / t[name] / 1e9:.2f} TB/s "
+                f"[{p.splits} splits, {p.items} items, {p.grid} blocks], "
+                f"torch.matmul {lib[name]:.4f} ms = "
+                f"{nbytes / lib[name] / 1e9:.2f} TB/s")
+        prod = sum(t[n] for n in STEP_PRODUCTS)
+        epi = sum(v for n, v in t.items() if n not in STEP_PRODUCTS)
+        mode = (("overlapped" if ov else "serialised") + ", L2 "
+                + ("evicted clean by a read" if clean else "flushed by a "
+                   "write"))
+        log(f"mamba_step by launch, {mode} (bf16, falcon-mamba-7b widths, "
+            f"one layer, torch.profiler; overlapped launches' times include "
+            f"their wait): " + "; ".join(parts))
+        log(f"mamba_step by launch, {mode}: products {prod:.4f} ms, "
+            f"epilogues {epi:.4f} ms (" + ", ".join(
+                f"{n} {v:.4f}" for n, v in t.items()
+                if n not in STEP_PRODUCTS)
+            + f"), span first start to last end {span:.4f} ms, gaps (span "
+            f"less the launches' sum) {span - prod - epi:.4f} ms{events}")
+    ms.overlap = True
+
+
 def run_ssm_kernel_phase(torch, reps: int = 20):
     """The Mamba step and selective-scan kernels against their plain
     versions at falcon-mamba-7b widths (d_model 4096, d_in 8192, N 16,
@@ -467,6 +574,7 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
                 replaces="src/repro/kernels/mamba_scan/kernel.py:107",
                 ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+            log_step_breakdown(torch, gen, x1, conv, h, args, live, reps)
         del p, args
     results["mamba_step"]["max_abs_err"] = worst
 
@@ -607,11 +715,36 @@ def run_serving_phase(torch, model, params, engine_cls, scfg, *, per_step,
         f"{toks} tokens in {wall:.3f} s = {toks / wall:.1f} tokens/s; "
         f"peak memory {peak_gib:.2f} GiB")
 
-    # the same workload again under torch.profiler (device activity only):
-    # kernel time by kind against the unprofiled wall gives the idle share
+    # the same workload again under torch.profiler (device activity only)
+    replays = [("", None)]
+    if per_step == "mamba_step":
+        # the step's launches overlap (a kernel starts, then waits on the
+        # one before), so its kernels' summed durations count the waits;
+        # a replay with them serialised gives each kernel's own time
+        replays.append((", launches serialised", False))
+    for label, overlap in replays:
+        profile_serving(torch, lambda: serve(engine_cls(model, params, scfg)),
+                        name + label, kernels, wall, launches[per_step],
+                        per_step, overlap)
+    return launches
+
+
+def profile_serving(torch, run, name, kernels, wall, steps, per_step,
+                    overlap):
+    """Profile ``run`` (device activity only) and log the device time by
+    kind, the top kernels, and the busy share of the unprofiled ``wall``:
+    the union of the kernels' intervals on the device's timeline, so that
+    overlapping launches are counted once.  ``overlap`` (if not None) sets
+    the Mamba step's launch mode for the replay."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.mamba_scan import ops as ms
+    if overlap is not None:
+        ms.overlap = overlap
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        serve(engine_cls(model, params, scfg))
+        run()
+    ms.overlap = True
     per_kernel = {}
     for ev in prof.key_averages():
         # only kernel events are traced, so each one's device time counts
@@ -619,27 +752,41 @@ def run_serving_phase(torch, model, params, engine_cls, scfg, *, per_step,
               or getattr(ev, "device_time_total", 0.0))
         if us > 0:
             per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    union /= 1e3
     kinds = dict.fromkeys(kernels + ("matmul (cuBLAS)", "other"), 0.0)
-    for kname, ms in per_kernel.items():
+    for kname, t in per_kernel.items():
         low = kname.lower()
         kind = next((k for k in kernels if k in low), None)
         if kind is None:
-            kind = "matmul (cuBLAS)" if any(t in low for t in (
+            kind = "matmul (cuBLAS)" if any(pat in low for pat in (
                 "gemm", "gemv", "nvjet", "xmma", "cutlass")) else "other"
-        kinds[kind] += ms
+        kinds[kind] += t
     busy = sum(kinds.values())
-    if busy > 0:
-        log(f"serving {name} profile: device kernel time {busy:.1f} ms of "
-            f"the unprofiled {wall * 1e3:.1f} ms wall (busy share "
-            f"{busy / (wall * 1e3):.3f}); by kind (ms): "
-            + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items()))
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-        log(f"serving {name} profile: top kernels (ms): " + "; ".join(
-            f"{n[:60]} {ms:.1f}" for n, ms in top))
-    else:
+    if busy <= 0:
         log(f"serving {name} profile: the profiler recorded no device time "
             "(device busy share not measured)")
-    return launches
+        return
+    log(f"serving {name} profile: kernels' summed device time {busy:.1f} ms, "
+        f"device busy (union of kernel intervals) {union:.1f} ms of the "
+        f"unprofiled {wall * 1e3:.1f} ms wall (busy share "
+        f"{union / (wall * 1e3):.3f}); by kind (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items()))
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log(f"serving {name} profile: top kernels (ms): " + "; ".join(
+        f"{n[:60]} {t:.1f}" for n, t in top))
+    if per_step == "mamba_step":
+        prod = sum(t for k, t in per_kernel.items()
+                   if "mamba_step_gemm" in k or "mamba_step_mma" in k)
+        log(f"serving {name} profile: the step's weight-product kernels "
+            f"{prod:.1f} ms of mamba_step's {kinds[per_step]:.1f} ms, "
+            f"{prod / max(steps, 1):.4f} ms per call")
 
 
 # ---------------------------------------------------------------------------

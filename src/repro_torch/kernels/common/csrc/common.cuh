@@ -147,6 +147,41 @@ __device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---------------------------------------------------------------------------
+// programmatic dependent launch (Hopper)
+// ---------------------------------------------------------------------------
+
+// Let the next kernel on the stream start launching now; it still waits in
+// pdl_wait() for this grid's completion before it touches what we write.
+__device__ inline void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Wait until the previous kernel on the stream has completed and its writes
+// are visible.  A no-op for a kernel launched without the attribute.
+__device__ inline void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Launch `kernel` on `stream`; with `overlap`, as a programmatic dependent
+// of the kernel before it, so that it may start while that one runs.
+template <typename... Params, typename... Args>
+inline cudaError_t launch(void (*kernel)(Params...), dim3 grid, dim3 block,
+                          size_t smem, cudaStream_t stream, bool overlap,
+                          Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = overlap ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // Allow more than 48 KB of dynamic shared memory where a launch needs it.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -12,29 +12,36 @@
 //   channels before dt, B and C exist, and dt_proj expands dt back to d_in
 //   channels.  So one call is eight launches on one stream:
 //
-//     1. in_proj    skinny product, fp32 partial sums per K split
-//     2. conv       sum the partials, round xz; conv-window shift (in
-//                   place), depthwise conv in fp32, SiLU, round -> x_conv
+//     1. in_proj    skinny product
+//     2. conv       round xz; conv-window shift (in place), depthwise conv
+//                   in fp32, SiLU, round -> x_conv
 //     3. x_proj     skinny product of x_conv
-//     4. dbc        sum the partials, round -> (dt_raw, B, C)
+//     4. dbc        round -> (dt_raw, B, C)
 //     5. dt_proj    skinny product of dt_raw
-//     6. ssm        sum, round, + dt_bias, softplus; h = exp(dt A) h +
-//                   dt x B on the fp32 state (in place); y = C.h + D x;
-//                   gate by SiLU(z), round
+//     6. ssm        round, + dt_bias, softplus; h = exp(dt A) h + dt x B on
+//                   the fp32 state (in place); y = C.h + D x; gate by
+//                   SiLU(z), round
 //     7. out_proj   skinny product of y
-//     8. out        sum the partials, round; dead rows write zeros
+//     8. out        round; dead rows write zeros
 //
-//   The skinny product streams each weight row once for up to eight slot
-//   rows (16-byte loads, neighbouring threads on neighbouring columns),
-//   keeps the rows' activations in shared memory and accumulates in fp32.
-//   K is split across blocks so that every product fills the card; the
-//   partial sums go to scratch and the next launch adds them in a fixed
-//   order, so the result does not depend on scheduling.  No library
-//   product is called.  Rounding points are the reference's
-//   (src/repro/kernels/mamba_scan/ref.py:22-42).  Dead rows (live == 0)
-//   read and write no state: their conv window and h stay bit for bit
-//   unchanged, and their output is zero.  The caches are updated in place,
-//   so a dead row is never written.
+//   In bf16 each skinny product runs on the tensor cores (mma.sync with
+//   the slot rows as the n = 8 operand), fed by a cp.async ring, and
+//   streams its weight once for up to 32 slot rows.  The wrapper's plan()
+//   cuts it into (64-column strip, K span) items that fill the card in one
+//   even wave; K is split only where the strips cannot fill it.  An
+//   unsplit product writes its rounded result; a split one writes fp32
+//   partials that the next launch adds in split order, so the result does
+//   not depend on scheduling (no atomics).  The eight launches are
+//   programmatic dependents of each other: a product's weights start
+//   streaming while the launch before it runs, and every kernel reads and
+//   writes activations, state and scratch only after griddepcontrol.wait.
+//   fp32 (the tests' reference check) and bf16 rows that are not 16-byte
+//   aligned take a CUDA-core product (FMA on 16-byte loads, 8 slot rows
+//   per pass).  No library product is called.  Rounding points are the
+//   reference's (src/repro/kernels/mamba_scan/ref.py:22-42).  Dead rows
+//   (live == 0) read and write no state: their conv window and h stay bit
+//   for bit unchanged, and their output is zero.  The caches are updated
+//   in place, so a dead row is never written.
 //
 // * mamba_scan / _scan_kernel, the selective scan of a prefill.  The
 //   Pallas kernel walks the sequence as a sequential grid axis with the
@@ -79,8 +86,18 @@ __device__ inline float softplus(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// skinny product: part[s, b, n] = sum_{k in split s} x[b, k] * w[k, n]
+// skinny products: out[b, n] = sum_k x[b, k] * w[k, n], one launch each
 // ---------------------------------------------------------------------------
+
+// How a product is cut, from the wrapper's plan(): route, K splits (1:
+// the result is written rounded, in the activation dtype), K rows per
+// split, and blocks (tensor-core route only).
+enum Route : int { kFma = 0, kMma = 1 };
+struct ProductPlan {
+  int route, splits, span, grid;
+};
+
+// -- CUDA-core route: fp32, and bf16 whose rows are not 16-byte aligned --
 
 constexpr int kRows = 8;          // slot rows per block (grid.z walks more)
 constexpr int kColThreads = 8;    // threads across a tile's columns
@@ -131,6 +148,8 @@ mamba_step_gemm_kernel(GemmArgs a) {
   using Raw = RawCols<T, V>;
   static_assert(kStageK * kRows >= kGemmWarps * kRows * TN, "reduction room");
   __shared__ __align__(16) float xs[kStageK * kRows];   // [k][row]
+  pdl_launch_dependents();
+  pdl_wait();
 
   const int tid = threadIdx.x;
   const int ct = tid % kColThreads;
@@ -226,22 +245,292 @@ mamba_step_gemm_kernel(GemmArgs a) {
 }
 
 template <typename T>
-cudaError_t skinny_gemm(const void* x, long long ldx, const void* w,
-                        float* part, int B, int K, int N, int splits,
-                        cudaStream_t stream) {
-  GemmArgs a{x, w, part, B, K, N, ldx, (K + splits - 1) / splits};
-  const dim3 rows_grid(1, splits, (B + kRows - 1) / kRows);
+cudaError_t skinny_fma(const void* x, long long ldx, const void* w,
+                       float* part, int B, int K, int N,
+                       const ProductPlan& p, cudaStream_t s, bool overlap) {
+  GemmArgs a{x, w, part, B, K, N, ldx, p.span};
+  const int row_groups = (B + kRows - 1) / kRows;
   constexpr int V = 4 * Word<T>::N;
   if (N % V == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {
-    const dim3 grid((N + kColThreads * V - 1) / (kColThreads * V),
-                    rows_grid.y, rows_grid.z);
-    mamba_step_gemm_kernel<T, V><<<grid, kGemmThreads, 0, stream>>>(a);
-  } else {
-    const dim3 grid((N + kColThreads - 1) / kColThreads, rows_grid.y,
-                    rows_grid.z);
-    mamba_step_gemm_kernel<T, 1><<<grid, kGemmThreads, 0, stream>>>(a);
+    const dim3 grid((N + kColThreads * V - 1) / (kColThreads * V), p.splits,
+                    row_groups);
+    return launch(mamba_step_gemm_kernel<T, V>, grid, dim3(kGemmThreads), 0,
+                  s, overlap, a);
   }
-  return cudaGetLastError();
+  const dim3 grid((N + kColThreads - 1) / kColThreads, p.splits, row_groups);
+  return launch(mamba_step_gemm_kernel<T, 1>, grid, dim3(kGemmThreads), 0, s,
+                overlap, a);
+}
+
+// -- tensor-core route: bf16 with 16-byte aligned rows ---------------------
+//
+// A work item is (64-column strip, K span).  Its weight tile streams once
+// through a ring of (128 x 64) stages in shared memory by
+// 16-byte cp.async copies (128 contiguous bytes per weight row, the ragged
+// column and K edges zero-filled), with the slot rows' x for the same K
+// rows beside it.  The product runs on mma.sync m16n8k16 with A = W^T (16
+// columns x 16 K, ldmatrix.trans from the row-major tile; chunks swizzled
+// by row so the eight rows of a matrix hit distinct banks) and B = the
+// slot rows as n-tiles of 8: NT n-tiles share each A fragment, so up to 8
+// NT rows take one pass over the weights.  Four warps take two k-steps of
+// each stage; their sums meet in shared memory in warp order.  The weight
+// ring is started before pdl_wait(): under programmatic dependent launch
+// the weights (which nothing in the step writes) stream while the launch
+// before still runs, and x is read, and anything written, only after it.
+
+constexpr int kMmaBN = 64;        // strip width: 128-byte weight rows
+constexpr int kMmaBK = 128;       // weight rows per stage
+constexpr int kMmaThreads = 128;
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMmaMaxNT = 4;      // up to 32 slot rows per pass
+constexpr int kRowChunks = kMmaBN / 8;    // 16-byte chunks per weight row
+constexpr int kMTiles = kMmaBN / 16;      // 16-column m-tiles per strip
+constexpr int kWarpKSteps = kMmaBK / 16 / kMmaWarps;  // per warp per stage
+constexpr int kWTileBytes = kMmaBK * kMmaBN * 2;
+constexpr int kXPitch = kMmaBK * 2 + 16;  // bytes per x row (conflict-free)
+constexpr int kRedPitch = kMmaBN + 4;     // floats per reduction row
+
+template <int NT>
+__host__ __device__ constexpr int mma_stage_bytes() {
+  return kWTileBytes + NT * 8 * kXPitch;
+}
+// ring depth: 5 stages (80 KB of weights) in flight for 8 slot rows, two
+// blocks per SM; 3 stages (48 KB) for more rows, still two blocks per SM
+template <int NT>
+__host__ __device__ constexpr int mma_stages() { return NT == 1 ? 6 : 4; }
+template <int NT>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return mma_stages<NT>() * mma_stage_bytes<NT>();
+}
+
+struct MmaArgs {
+  const __nv_bfloat16* x;   // this pass's rows of (B, K), stride ldx
+  const __nv_bfloat16* w;   // (K, N) row-major
+  float* part;              // (splits, B, N) fp32 partial sums, or
+  __nv_bfloat16* out;       // (B, N) rounded result when splits == 1
+  int B, r0, rows, K, N;
+  long long ldx;
+  int span, splits, items;
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+mamba_step_mma_kernel(MmaArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  static_assert(kMmaWarps * NT * 8 * kRedPitch * 4 <= mma_smem_bytes<NT>(),
+                "reduction room");
+  constexpr int kStages = mma_stages<NT>();
+  pdl_launch_dependents();
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  bool waited = false;
+
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int strip = item / a.splits;
+    const int split = item - strip * a.splits;
+    const int n0 = strip * kMmaBN;
+    const int kb = split * a.span;
+    const int ke = min(a.K, kb + a.span);
+    const int steps = (ke - kb + kMmaBK - 1) / kMmaBK;
+    auto stage = [&](int s) {
+      return smem + (s % kStages) * mma_stage_bytes<NT>();
+    };
+    auto load_w = [&](int s) {
+      if (s >= steps) return;
+      unsigned char* dst = stage(s);
+      const int k0 = kb + s * kMmaBK;
+      for (int c = tid; c < kMmaBK * kRowChunks; c += kMmaThreads) {
+        const int r = c / kRowChunks;
+        const int ch = c % kRowChunks;
+        const int k = k0 + r;
+        const int n = n0 + ch * 8;
+        const bool ok = k < ke && n < a.N;
+        cp_async16(dst + r * kMmaBN * 2 + ((ch ^ (r & 7)) * 16),
+                   ok ? a.w + static_cast<long long>(k) * a.N + n : a.w, ok);
+      }
+    };
+    auto load_x = [&](int s) {
+      if (s >= steps) return;
+      unsigned char* dst = stage(s) + kWTileBytes;
+      const int k0 = kb + s * kMmaBK;
+      constexpr int kChunks = kMmaBK / 8;
+      for (int c = tid; c < NT * 8 * kChunks; c += kMmaThreads) {
+        const int r = c / kChunks;
+        const int ch = c % kChunks;
+        const int k = k0 + ch * 8;
+        const bool ok = r < a.rows && k < ke;
+        cp_async16(dst + r * kXPitch + ch * 16,
+                   ok ? a.x + r * a.ldx + k : a.x, ok);
+      }
+    };
+
+    // prologue: weights first, then (after the wait) x; one commit group
+    // per load, so the main loop waits on a fixed count
+    for (int s = 0; s < kStages - 1; ++s) {
+      load_w(s);
+      cp_async_commit();
+    }
+    if (!waited) {
+      pdl_wait();
+      waited = true;
+    }
+    for (int s = 0; s < kStages - 1; ++s) {
+      load_x(s);
+      cp_async_commit();
+    }
+
+    float acc[kMTiles][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kStages - 2>();   // stage s's weights and x are in
+      __syncthreads();                   // and stage s - 1 is consumed
+      load_w(s + kStages - 1);
+      load_x(s + kStages - 1);
+      cp_async_commit();
+      const unsigned char* ws = stage(s);
+      const unsigned char* xs = ws + kWTileBytes;
+#pragma unroll
+      for (int j = 0; j < kWarpKSteps; ++j) {
+        const int ks = warp * kWarpKSteps + j;
+        uint32_t bx[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const unsigned char* p =
+              xs + (nt * 8 + g) * kXPitch + (ks * 16 + 2 * t) * 2;
+          bx[nt][0] = *reinterpret_cast<const uint32_t*>(p);
+          bx[nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+        }
+        const int mat = lane / 8;
+        const int kr = ks * 16 + (lane % 8) + (mat >= 2 ? 8 : 0);
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          const int ch = mt * 2 + (mat & 1);
+          uint32_t af[4];
+          ldmatrix_x4_trans(af,
+                            ws + kr * kMmaBN * 2 + ((ch ^ (kr & 7)) * 16));
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            mma_bf16(acc[mt][nt], af, bx[nt][0], bx[nt][1]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // the ring is free for the reduction
+
+    // d0, d1: column g of the m-tile, rows 2t, 2t + 1; d2, d3: column g + 8
+    float* red = reinterpret_cast<float*>(smem);   // [warp][row][col]
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float* rw = red + (warp * NT * 8 + nt * 8 + 2 * t) * kRedPitch +
+                    mt * 16 + g;
+        rw[0] = acc[mt][nt][0];
+        rw[kRedPitch] = acc[mt][nt][1];
+        rw[8] = acc[mt][nt][2];
+        rw[kRedPitch + 8] = acc[mt][nt][3];
+      }
+    __syncthreads();
+    for (int o = tid; o < NT * 8 * kMmaBN; o += kMmaThreads) {
+      const int b = o / kMmaBN;
+      const int c = o % kMmaBN;
+      const int n = n0 + c;
+      float sum = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < kMmaWarps; ++wp) {
+        sum += red[(wp * NT * 8 + b) * kRedPitch + c];
+      }
+      if (b < a.rows && n < a.N) {
+        const long long row = a.r0 + b;
+        if (a.splits == 1) {
+          a.out[row * a.N + n] = __float2bfloat16(sum);
+        } else {
+          a.part[(static_cast<long long>(split) * a.B + row) * a.N + n] = sum;
+        }
+      }
+    }
+    __syncthreads();   // the next item's ring overwrites the reduction
+  }
+  // a grid completes only after the launch before it, so that the launch
+  // after it may wait on this one alone
+  if (!waited) pdl_wait();
+}
+
+template <int NT>
+cudaError_t mma_pass(const MmaArgs& a, int grid, cudaStream_t s,
+                     bool overlap) {
+  auto kernel = mamba_step_mma_kernel<NT>;
+  constexpr int smem = mma_smem_bytes<NT>();
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, dim3(grid), dim3(kMmaThreads), smem, s, overlap, a);
+}
+
+cudaError_t skinny_mma(const void* x, long long ldx, const void* w,
+                       float* part, void* out, int B, int K, int N,
+                       const ProductPlan& p, cudaStream_t s, bool overlap) {
+  if (N % 8 != 0 || K % 8 != 0 || ldx % 8 != 0 || p.span % kMmaBK != 0 ||
+      p.splits < 1 || p.grid < 1 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int strips = (N + kMmaBN - 1) / kMmaBN;
+  for (int r0 = 0; r0 < B; r0 += kMmaMaxNT * 8) {
+    const int rows = min(kMmaMaxNT * 8, B - r0);
+    const MmaArgs a{static_cast<const __nv_bfloat16*>(x) + r0 * ldx,
+                    static_cast<const __nv_bfloat16*>(w), part,
+                    static_cast<__nv_bfloat16*>(out), B, r0, rows, K, N, ldx,
+                    p.span, p.splits, strips * p.splits};
+    const cudaError_t e = rows <= 8    ? mma_pass<1>(a, p.grid, s, overlap)
+                          : rows <= 16 ? mma_pass<2>(a, p.grid, s, overlap)
+                                       : mma_pass<4>(a, p.grid, s, overlap);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// A product's result as the next launch reads it: fp32 partial sums per
+// split, summed in split order, or the rounded activation-dtype output of
+// an unsplit tensor-core product.
+struct ProdOut {
+  const float* part;     // (splits, B, width), or null
+  const void* direct;    // (B, width), or null
+  int splits;
+};
+
+template <typename T>
+cudaError_t skinny(const void* x, long long ldx, const void* w, int B, int K,
+                   int N, const ProductPlan& p, float*& part, T*& direct,
+                   ProdOut& res, cudaStream_t s, bool overlap) {
+  if (p.route == kMma && p.splits == 1) {
+    res = ProdOut{nullptr, direct, 1};
+    T* out = direct;
+    direct += (static_cast<long long>(B) * N + 7) / 8 * 8;
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return skinny_mma(x, ldx, w, nullptr, out, B, K, N, p, s, overlap);
+    }
+    return cudaErrorInvalidValue;
+  }
+  res = ProdOut{part, nullptr, p.splits};
+  float* out = part;
+  part += static_cast<long long>(p.splits) * B * N;
+  if (p.route == kMma) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return skinny_mma(x, ldx, w, out, nullptr, B, K, N, p, s, overlap);
+    }
+    return cudaErrorInvalidValue;
+  }
+  return skinny_fma<T>(x, ldx, w, out, B, K, N, p, s, overlap);
 }
 
 // ---------------------------------------------------------------------------
@@ -251,27 +540,33 @@ cudaError_t skinny_gemm(const void* x, long long ldx, const void* w,
 constexpr int kEpiThreads = 256;
 constexpr int kMaxConv = 8;       // conv width the kernel takes
 
-__device__ inline float sum_splits(const float* part, int splits, int B,
-                                   long long width, int b, long long n) {
+template <typename T>
+__device__ inline float prod_at(const ProdOut& p, int B, long long width,
+                                int b, long long n) {
+  if (p.direct != nullptr) {
+    return to_f<T>(static_cast<const T*>(p.direct)[b * width + n]);
+  }
   float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += part[(sp * B + b) * width + n];
+  for (int sp = 0; sp < p.splits; ++sp) s += p.part[(sp * B + b) * width + n];
   return s;
 }
 
 struct ConvArgs {
-  const float* part;   // (splits, B, 2 d_in) in_proj partials
+  ProdOut xz;          // in_proj's (B, 2 d_in)
   const int* live;
   void* conv;          // (B, w-1, d_in), strides (conv_sb, conv_sw, 1)
   const float* conv_w; // (w, d_in)
   const float* conv_b; // (d_in,)
   void* xconv;         // (B, d_in)
   void* z;             // (B, d_in)
-  int splits, B, d_in, w;
+  int B, d_in, w;
   long long conv_sb, conv_sw;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kEpiThreads) mamba_step_conv_kernel(ConvArgs a) {
+  pdl_launch_dependents();
+  pdl_wait();
   const int c = blockIdx.x * kEpiThreads + threadIdx.x;
   const int b = blockIdx.y;
   if (c >= a.d_in) return;
@@ -283,8 +578,8 @@ __global__ void __launch_bounds__(kEpiThreads) mamba_step_conv_kernel(ConvArgs a
     return;
   }
   const long long width = 2LL * a.d_in;
-  const float xp = Word<T>::round(sum_splits(a.part, a.splits, a.B, width, b, c));
-  const float zs = sum_splits(a.part, a.splits, a.B, width, b, a.d_in + c);
+  const float xp = Word<T>::round(prod_at<T>(a.xz, a.B, width, b, c));
+  const float zs = prod_at<T>(a.xz, a.B, width, b, a.d_in + c);
   T* cv = static_cast<T*>(a.conv) + b * a.conv_sb + c;
   float win[kMaxConv];
 #pragma unroll
@@ -308,14 +603,16 @@ __global__ void __launch_bounds__(kEpiThreads) mamba_step_conv_kernel(ConvArgs a
 }
 
 struct RoundArgs {
-  const float* part;   // (splits, B, width)
+  ProdOut in;          // (B, width)
   const int* live;     // null: every row
   void* out;           // (B, width)
-  int splits, B, width;
+  int B, width;
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kEpiThreads) mamba_step_round_kernel(RoundArgs a) {
+  pdl_launch_dependents();
+  pdl_wait();
   const int n = blockIdx.x * kEpiThreads + threadIdx.x;
   const int b = blockIdx.y;
   if (n >= a.width) return;
@@ -324,11 +621,11 @@ __global__ void __launch_bounds__(kEpiThreads) mamba_step_round_kernel(RoundArgs
     *o = from_f<T>(0.f);
     return;
   }
-  *o = from_f<T>(sum_splits(a.part, a.splits, a.B, a.width, b, n));
+  *o = from_f<T>(prod_at<T>(a.in, a.B, a.width, b, n));
 }
 
 struct SsmArgs {
-  const float* part;   // (splits, B, d_in) dt_proj partials
+  ProdOut dt;          // dt_proj's (B, d_in)
   const int* live;
   const void* dbc;     // (B, R + 2N)
   const void* xconv;   // (B, d_in)
@@ -338,12 +635,14 @@ struct SsmArgs {
   const float* d;
   float* h;            // (B, d_in, N), strides (h_sb, N, 1)
   void* y;             // (B, d_in)
-  int splits, B, d_in, R;
+  int B, d_in, R;
   long long h_sb;
 };
 
 template <typename T, int N>
 __global__ void __launch_bounds__(kEpiThreads) mamba_step_ssm_kernel(SsmArgs a) {
+  pdl_launch_dependents();
+  pdl_wait();
   const int c = blockIdx.x * kEpiThreads + threadIdx.x;
   const int b = blockIdx.y;
   T* yo = static_cast<T*>(a.y) + static_cast<long long>(b) * a.d_in + c;
@@ -357,8 +656,7 @@ __global__ void __launch_bounds__(kEpiThreads) mamba_step_ssm_kernel(SsmArgs a) 
   if (threadIdx.x < 2 * N) bc[threadIdx.x] = to_f<T>(dbc[threadIdx.x]);
   __syncthreads();
   if (c >= a.d_in) return;
-  const float dtp = Word<T>::round(
-      sum_splits(a.part, a.splits, a.B, a.d_in, b, c));
+  const float dtp = Word<T>::round(prod_at<T>(a.dt, a.B, a.d_in, b, c));
   const float dt = softplus(dtp + a.dt_bias[c]);
   const long long bc_off = static_cast<long long>(b) * a.d_in + c;
   const float xc = to_f<T>(static_cast<const T*>(a.xconv)[bc_off]);
@@ -406,11 +704,13 @@ struct StepArgs {
   const float* d;
   const void* out_proj; // (d_in, d_model)
   void* out;            // (B, d_model)
-  float* part;          // fp32 scratch for the partial sums
+  float* part;          // fp32 scratch: the split products' partial sums
+  void* prod;           // scratch: the unsplit products' rounded outputs
   void* act;            // scratch: x_conv, z, y (B, d_in) and dbc (B, R+2N)
   int B, d_model, d_in, R, N, w;
   long long conv_sb, conv_sw, h_sb;
-  int splits[4];
+  ProductPlan plan[4];  // in_proj, x_proj, dt_proj, out_proj
+  bool overlap;
 };
 
 #define REPRO_TRY(expr)                          \
@@ -419,43 +719,48 @@ struct StepArgs {
     if (e_ != cudaSuccess) return e_;            \
   } while (0)
 
+// activation-dtype scratch regions start on 16-byte boundaries
+inline long long pad8(long long n) { return (n + 7) / 8 * 8; }
+
 template <typename T, int N>
 cudaError_t step(const StepArgs& a, cudaStream_t s) {
-  T* act = static_cast<T*>(a.act);
-  T* xconv = act;
-  T* z = xconv + static_cast<long long>(a.B) * a.d_in;
-  T* y = z + static_cast<long long>(a.B) * a.d_in;
-  T* dbc = y + static_cast<long long>(a.B) * a.d_in;
+  T* xconv = static_cast<T*>(a.act);
+  T* z = xconv + pad8(static_cast<long long>(a.B) * a.d_in);
+  T* y = z + pad8(static_cast<long long>(a.B) * a.d_in);
+  T* dbc = y + pad8(static_cast<long long>(a.B) * a.d_in);
   const int wdbc = a.R + 2 * N;
   const dim3 chan((a.d_in + kEpiThreads - 1) / kEpiThreads, a.B);
+  const dim3 epi(kEpiThreads);
+  const bool ov = a.overlap;
+  float* part = a.part;          // each product takes its own region
+  T* direct = static_cast<T*>(a.prod);
+  ProdOut r;
 
-  REPRO_TRY(skinny_gemm<T>(a.x1, a.d_model, a.in_proj, a.part, a.B,
-                           a.d_model, 2 * a.d_in, a.splits[0], s));
-  ConvArgs ca{a.part, a.live, a.conv, a.conv_w, a.conv_b, xconv, z,
-              a.splits[0], a.B, a.d_in, a.w, a.conv_sb, a.conv_sw};
-  mamba_step_conv_kernel<T><<<chan, kEpiThreads, 0, s>>>(ca);
-  REPRO_TRY(cudaGetLastError());
+  REPRO_TRY(skinny<T>(a.x1, a.d_model, a.in_proj, a.B, a.d_model,
+                      2 * a.d_in, a.plan[0], part, direct, r, s, ov));
+  const ConvArgs ca{r, a.live, a.conv, a.conv_w, a.conv_b, xconv, z,
+                    a.B, a.d_in, a.w, a.conv_sb, a.conv_sw};
+  REPRO_TRY(launch(mamba_step_conv_kernel<T>, chan, epi, 0, s, ov, ca));
 
-  REPRO_TRY(skinny_gemm<T>(xconv, a.d_in, a.x_proj, a.part, a.B, a.d_in,
-                           wdbc, a.splits[1], s));
-  RoundArgs ra{a.part, nullptr, dbc, a.splits[1], a.B, wdbc};
-  mamba_step_round_kernel<T><<<dim3((wdbc + kEpiThreads - 1) / kEpiThreads, a.B),
-                    kEpiThreads, 0, s>>>(ra);
-  REPRO_TRY(cudaGetLastError());
+  REPRO_TRY(skinny<T>(xconv, a.d_in, a.x_proj, a.B, a.d_in, wdbc,
+                      a.plan[1], part, direct, r, s, ov));
+  const RoundArgs ra{r, nullptr, dbc, a.B, wdbc};
+  REPRO_TRY(launch(mamba_step_round_kernel<T>,
+                   dim3((wdbc + kEpiThreads - 1) / kEpiThreads, a.B), epi, 0,
+                   s, ov, ra));
 
-  REPRO_TRY(skinny_gemm<T>(dbc, wdbc, a.dt_proj, a.part, a.B, a.R, a.d_in,
-                           a.splits[2], s));
-  SsmArgs sa{a.part, a.live, dbc, xconv, z, a.dt_bias, a.a_log, a.d, a.h, y,
-             a.splits[2], a.B, a.d_in, a.R, a.h_sb};
-  mamba_step_ssm_kernel<T, N><<<chan, kEpiThreads, 0, s>>>(sa);
-  REPRO_TRY(cudaGetLastError());
+  REPRO_TRY(skinny<T>(dbc, wdbc, a.dt_proj, a.B, a.R, a.d_in, a.plan[2],
+                      part, direct, r, s, ov));
+  const SsmArgs sa{r, a.live, dbc, xconv, z, a.dt_bias, a.a_log, a.d, a.h, y,
+                   a.B, a.d_in, a.R, a.h_sb};
+  REPRO_TRY(launch(mamba_step_ssm_kernel<T, N>, chan, epi, 0, s, ov, sa));
 
-  REPRO_TRY(skinny_gemm<T>(y, a.d_in, a.out_proj, a.part, a.B, a.d_in,
-                           a.d_model, a.splits[3], s));
-  RoundArgs oa{a.part, a.live, a.out, a.splits[3], a.B, a.d_model};
-  mamba_step_round_kernel<T><<<dim3((a.d_model + kEpiThreads - 1) / kEpiThreads, a.B),
-                    kEpiThreads, 0, s>>>(oa);
-  return cudaGetLastError();
+  REPRO_TRY(skinny<T>(y, a.d_in, a.out_proj, a.B, a.d_in, a.d_model,
+                      a.plan[3], part, direct, r, s, ov));
+  const RoundArgs oa{r, a.live, a.out, a.B, a.d_model};
+  return launch(mamba_step_round_kernel<T>,
+                dim3((a.d_model + kEpiThreads - 1) / kEpiThreads, a.B), epi,
+                0, s, ov, oa);
 }
 
 template <typename T>
@@ -597,25 +902,29 @@ cudaError_t scan_for_n(const ScanArgs& a, int B, int N, cudaStream_t s) {
 }  // namespace
 }  // namespace repro
 
-// Plain C entry points.  Returns cudaGetLastError() of the first launch
-// that failed, else of the last.
+// Plain C entry points.  Returns the error of the first launch that
+// failed, else of the last.
 //
 // mamba_step: x1 (B, d_model); conv (B, w-1, d_in) strides (conv_sb,
 // conv_sw, 1) and h (B, d_in, N) strides (h_sb, N, 1), both updated in
 // place for live rows; live (B,) int32; weights contiguous in the
 // activation dtype (in_proj (d_model, 2 d_in), x_proj (d_in, R + 2N),
 // dt_proj (R, d_in), out_proj (d_in, d_model)); conv_w (w, d_in), conv_b,
-// dt_bias, D (d_in,) and a_log (d_in, N) fp32; out (B, d_model).  part:
-// fp32 scratch of max_i splits_i * B * N_i floats; act: activation-dtype
-// scratch of B * (3 d_in + R + 2N) values.
+// dt_bias, D (d_in,) and a_log (d_in, N) fp32; out (B, d_model).  plan:
+// host int[16], (route, splits, span, grid) of in_proj, x_proj, dt_proj
+// and out_proj.  part: fp32 scratch of the sum of splits_i * B * N_i over
+// the split products; prod: activation-dtype scratch of the sum of B * N_i
+// rounded up to 8 over the unsplit tensor-core products; act:
+// activation-dtype scratch of 3 pad8(B d_in) + B (R + 2N) values.  overlap:
+// launch each kernel as a programmatic dependent of the one before.
 extern "C" int mamba_step(
     const void* x1, void* conv, void* h, const void* live,
     const void* in_proj, const void* conv_w, const void* conv_b,
     const void* x_proj, const void* dt_proj, const void* dt_bias,
     const void* a_log, const void* d, const void* out_proj, void* out,
-    void* part, void* act, int B, int d_model, int d_in, int R, int N, int w,
-    long long conv_sb, long long conv_sw, long long h_sb, int split_in,
-    int split_x, int split_dt, int split_out, int dtype, void* stream) {
+    void* part, void* prod, void* act, const int* plan, int B, int d_model,
+    int d_in, int R, int N, int w, long long conv_sb, long long conv_sw,
+    long long h_sb, int overlap, int dtype, void* stream) {
   using namespace repro;
   if (B == 0) return 0;
   if (w < 1 || w > kMaxConv) return static_cast<int>(cudaErrorInvalidValue);
@@ -624,9 +933,12 @@ extern "C" int mamba_step(
              static_cast<const float*>(conv_b), x_proj, dt_proj,
              static_cast<const float*>(dt_bias),
              static_cast<const float*>(a_log), static_cast<const float*>(d),
-             out_proj, out, static_cast<float*>(part), act, B, d_model, d_in,
-             R, N, w, conv_sb, conv_sw, h_sb,
-             {split_in, split_x, split_dt, split_out}};
+             out_proj, out, static_cast<float*>(part), prod, act, B, d_model,
+             d_in, R, N, w, conv_sb, conv_sw, h_sb, {}, overlap != 0};
+  for (int i = 0; i < 4; ++i) {
+    a.plan[i] = ProductPlan{plan[4 * i], plan[4 * i + 1], plan[4 * i + 2],
+                            plan[4 * i + 3]};
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return static_cast<int>(step_for_n<__nv_bfloat16>(a, s));
   if (dtype == kF32) return static_cast<int>(step_for_n<float>(a, s));

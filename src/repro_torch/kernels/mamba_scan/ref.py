@@ -8,6 +8,9 @@ and out are rounded to the activation dtype; the conv sum, softplus, the
 recurrence and y are fp32.  It is functional: the kernel's wrapper and the
 model copy its new state into the cache.
 
+``skinny_product_spec`` is the order in which the bf16 step kernel sums
+one weight product on the tensor cores, for the tests.
+
 ``mamba_scan_ref`` is the prefill selective scan: the function of the
 reference's chunked ``selective_scan`` + C-projection in ``_ssm_inner``,
 chunk by chunk with the state carried, each chunk stepped in time order
@@ -58,6 +61,38 @@ def mamba_step_ref(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
         new_conv = torch.where(lv, new_conv, conv)
         h_new = torch.where(lv, h_new, h)
     return out, new_conv, h_new
+
+
+def skinny_product_spec(x, w, splits: int, span: int, *, stage: int = 128,
+                        warps: int = 4, kstep: int = 16):
+    """``x (B, K) @ w (K, N)`` in fp32 in the tensor-core step product's
+    order: split s covers K rows [s span, (s + 1) span); in each ring stage
+    of ``stage`` rows, warp i sums its k-steps of ``kstep`` rows (stage /
+    kstep / warps of them, in order) into its own accumulator; a split's
+    sum is its warps' accumulators added in warp order, and the splits are
+    added in split order.  Products of two bf16 values are exact in fp32;
+    within one k-step the tensor core's own order stands in for the
+    ``@``'s."""
+    f32 = torch.float32
+    B, K = x.shape
+    x32, w32 = x.to(f32), w.to(f32)
+    per_warp = stage // kstep // warps
+    total = torch.zeros((B, w.shape[1]), dtype=f32)
+    for s in range(splits):
+        kb, ke = s * span, min(K, (s + 1) * span)
+        acc = [torch.zeros_like(total) for _ in range(warps)]
+        for k0 in range(kb, ke, stage):
+            for i in range(warps):
+                for j in range(per_warp):
+                    a = k0 + (i * per_warp + j) * kstep
+                    b = min(a + kstep, ke)
+                    if a < b:
+                        acc[i] += x32[:, a:b] @ w32[a:b]
+        part = acc[0]
+        for i in range(1, warps):
+            part = part + acc[i]
+        total = total + part
+    return total
 
 
 def mamba_scan_ref(x, dt, b, c, a_log, d, *, chunk: int = 128):

@@ -196,14 +196,9 @@ def test_engine_on_gpu_kernel_path_matches_plain_path(cuda):
     assert streams[True] == streams[False]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d_model,N,B", [(256, 16, 8), (64, 4, 11),
-                                         (96, 8, 3)])
-def test_mamba_step_kernel_on_gpu(cuda, dtype, d_model, N, B):
-    """Widths whose x_proj columns (dt_rank + 2N) are no multiple of 16
-    bytes take the scalar-load product; B = 11 spans two row groups.  One
-    slot is dead: zero output, conv and h bit-unchanged."""
+def _mamba_case(cuda, dtype, d_model, N, B, seed=4):
+    """A reduced falcon-mamba block at ``d_model`` and state dim ``N``,
+    and a step's inputs for ``B`` slots."""
     import dataclasses
 
     from repro_torch.configs import get_reduced
@@ -213,14 +208,30 @@ def test_mamba_step_kernel_on_gpu(cuda, dtype, d_model, N, B):
     cfg = dataclasses.replace(base, d_model=d_model, ssm=dataclasses.replace(
         base.ssm, state_dim=N))
     d_in, _, _, w = S.dims(cfg)
-    gen = torch.Generator(device=cuda).manual_seed(4)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     p = S.mamba_init(gen, cfg, dtype=dtype, device=cuda)
     args = [p[k] for k in MAMBA_ORDER]
     x1 = torch.randn((B, 1, d_model), generator=gen, device=cuda).to(dtype)
     conv0 = torch.randn((B, w - 1, d_in), generator=gen, device=cuda).to(dtype)
     h0 = torch.randn((B, d_in, N), generator=gen, device=cuda) * 0.5
+    return args, x1, conv0, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d_model,N", [(256, 16), (64, 4), (96, 8)])
+@pytest.mark.parametrize("B", [1, 8, 11, 16, 40])
+def test_mamba_step_kernel_on_gpu(cuda, dtype, d_model, N, B):
+    """Widths whose x_proj columns (dt_rank + 2N) or dt_proj rows are no
+    multiple of 16 bytes take the CUDA-core product (64 and 96); at 256
+    every bf16 product runs on the tensor cores, in_proj unsplit and
+    out_proj split.  B = 11 and 16 take two n-tiles of 8 slot rows in one
+    pass over the weights, B = 40 two passes.  Slot 1 is dead (B > 1):
+    zero output, conv and h bit-unchanged."""
+    args, x1, conv0, h0 = _mamba_case(cuda, dtype, d_model, N, B)
     live = torch.ones(B, dtype=torch.bool, device=cuda)
-    live[1] = False
+    if B > 1:
+        live[1] = False
     conv, h = conv0.clone(), h0.clone()
     before = ms.step_launches
     out = ms.mamba_step(x1, conv, h, *args, live=live)
@@ -229,8 +240,56 @@ def test_mamba_step_kernel_on_gpu(cuda, dtype, d_model, N, B):
     assert ms.step_launches == before + 1
     for got, ref in zip((out, conv, h), want):
         assert _agree(got, ref, GPU_TOL[dtype])
-    assert (out[1] == 0).all()
-    assert torch.equal(conv[1], conv0[1]) and torch.equal(h[1], h0[1])
+    if B > 1:
+        assert (out[1] == 0).all()
+        assert torch.equal(conv[1], conv0[1]) and torch.equal(h[1], h0[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_step_kernel_is_deterministic(cuda, dtype, monkeypatch):
+    """Two calls on the same inputs give bitwise-equal outputs and states
+    (split partials are summed in a fixed order, no atomics), with the
+    launches overlapped or not.  d_model 1024 splits in_proj and out_proj
+    on the tensor cores."""
+    args, x1, conv0, h0 = _mamba_case(cuda, dtype, 1024, 16, 8)
+    live = torch.ones(8, dtype=torch.bool, device=cuda)
+    live[3] = False
+    runs = []
+    for ov in (True, True, False):
+        monkeypatch.setattr(ms, "overlap", ov)
+        conv, h = conv0.clone(), h0.clone()
+        out = ms.mamba_step(x1, conv, h, *args, live=live)
+        torch.cuda.synchronize()
+        runs.append((out, conv, h))
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_model", [256, 1024])
+def test_mamba_step_back_to_back_equals_synchronized(cuda, d_model):
+    """Two steps with different inputs queued back to back on one stream
+    (the second's launches may start while the first's run) equal the same
+    two steps with a synchronize between them, bit for bit: no launch
+    writes scratch or state that the launch before still reads."""
+    args, x1, conv0, h0 = _mamba_case(cuda, torch.bfloat16, d_model, 16, 8)
+    x2 = torch.randn(x1.shape, generator=torch.Generator(
+        device=cuda).manual_seed(9), device=cuda).to(x1.dtype)
+    live = torch.ones(8, dtype=torch.bool, device=cuda)
+    live[5] = False
+    results = []
+    for sync in (False, True):
+        conv, h = conv0.clone(), h0.clone()
+        torch.cuda.synchronize()
+        a = ms.mamba_step(x1, conv, h, *args, live=live)
+        if sync:
+            torch.cuda.synchronize()
+        b = ms.mamba_step(x2, conv, h, *args, live=live)
+        torch.cuda.synchronize()
+        results.append((a, b, conv, h))
+    assert all(torch.equal(p, q) for p, q in zip(*results))
+    assert not torch.equal(results[0][0], results[0][1])
 
 
 @pytest.mark.gpu
