@@ -19,7 +19,10 @@
    bf16 step by launch under the profiler (each weight product's time,
    TB/s and plan beside ``torch.matmul`` on the same operands, the
    epilogues, the gaps), its launches serialised and overlapped; the
-   selective scan at S = 1, 37, 200 and 1024.
+   selective scan against its plain version at S = 1, 37, 200 and 1024,
+   its registers and spills from the build log, and its time at S = 128,
+   512 and 1024 with its TB/s, exponentials per second against the SFU's
+   peak, grid and blocks per SM.
 3. Serving phase, minitron-4b: full width (32 layers, random bf16 weights
    from a fixed seed) through ``DecodeEngine`` with the kernels on: 8
    requests of 100-1000 prompt tokens and 32 new tokens each.  Asserts that
@@ -51,6 +54,12 @@
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
 outside a checkout of the repository, or when any phase fails.
+
+    python3 chip_smoke.py --scan-baseline DIR [DIR ...]
+
+builds the kernels and only times the selective scan of each other
+checkout DIR (its own mamba_scan.cu, e.g. the parent commit unpacked with
+``git archive``) beside this checkout's, in turns on one card.
 """
 from __future__ import annotations
 
@@ -499,6 +508,158 @@ def log_step_breakdown(torch, gen, x1, conv, h, args, live, reps):
     ms.overlap = True
 
 
+SCAN_SWEEP = (128, 512, 1024)      # prompt lengths the scan is timed at
+
+
+def scan_params(torch, d_in: int, N: int):
+    """A_log as falcon-mamba-7b initialises it (log 1..N per channel) and
+    D = 1."""
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                   device="cuda")).expand(d_in, N).contiguous()
+    return a_log, torch.ones(d_in, dtype=torch.float32, device="cuda")
+
+
+def scan_inputs(torch, gen, S: int, d_in: int, R: int, N: int, dtype):
+    """x, dt (softplus'd) and B, C as the prefill hands them over: B and C
+    strided views of one (1, S, R + 2N) dbc tensor."""
+    from repro_torch.kernels.mamba_scan.ref import softplus
+    x = torch.randn((1, S, d_in), generator=gen, device="cuda").to(dtype)
+    delta = softplus(torch.randn((1, S, d_in), generator=gen,
+                                 device="cuda") - 4.0)
+    dbc = torch.randn((1, S, R + 2 * N), generator=gen,
+                      device="cuda").to(dtype)
+    return x, delta, dbc[..., R:R + N], dbc[..., R + N:]
+
+
+def scan_work(S: int, d_in: int, N: int, es: int):
+    """(bytes, exponentials, flops) of one B = 1 scan: x, dt, B, C, A_log
+    and D read once, y and the last state written once; one exponential
+    per state-step and per A; six flops per state-step, three per output."""
+    n_io = S * d_in
+    nbytes = (n_io * es + n_io * 4 + 2 * S * N * es + 4 * d_in * (N + 1)
+              + n_io * 4 + 4 * d_in * N)
+    return nbytes, n_io * N + d_in * N, 6 * n_io * N + 3 * n_io
+
+
+def scan_sweep(torch, gen, d_in: int, R: int, N: int, reps: int,
+               label: str = "mamba_scan", show_plan: bool = True):
+    """Times the scan at B = 1, bf16, for each S of ``SCAN_SWEEP`` and logs
+    its bytes per second and exponentials per second beside the SFU's peak,
+    its plan (grid, blocks per SM) and its bound.  Returns {S: (ms, bound
+    ms, bound_by)}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan import ops as ms
+    a_log, d_vec = scan_params(torch, d_in, N)
+    p = ms.scan_plan(1, d_in, N, _build.sm_count(0))
+    out = {}
+    for S in SCAN_SWEEP:
+        x, delta, bm, cm = scan_inputs(torch, gen, S, d_in, R, N,
+                                       torch.bfloat16)
+        t = time_ms(torch, lambda: ms.mamba_scan(x, delta, bm, cm, a_log,
+                                                 d_vec), reps)
+        nbytes, exps, flops = scan_work(S, d_in, N, 2)
+        b_ms, b_by = bound(nbytes, flops, "float32", exps=exps)
+        log(f"{label} S={S} (B=1, d_in={d_in}, N={N}, bf16): {t:.4f} ms, "
+            f"{nbytes / t / 1e9:.3f} TB/s of {nbytes / 1e6:.1f} MB, "
+            f"{exps / t / 1e9:.3f} T exp/s = "
+            f"{exps / t * 1e3 / SFU_EXP_PER_S:.3f} of the SFU peak; bound "
+            f"{b_ms:.4f} ms ({b_by}; bytes "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, SFU alone "
+            f"{exps / SFU_EXP_PER_S * 1e3:.4f} ms)" + (
+                f"; plan {p.channels} channels per block, grid {p.grid} "
+                f"blocks of {p.channels * N // ms._SCAN_STATES} scanning "
+                f"threads and a "
+                f"producer warp, at most {p.per_sm} per SM"
+                if show_plan else ""))
+        out[S] = (t, b_ms, b_by)
+        del x, delta, bm, cm
+    return out
+
+
+def log_scan_build(text: str = None, label: str = "mamba_scan") -> None:
+    """The scan kernels' registers and spills, from ptxas in the build log
+    (or in ``text``)."""
+    from repro_torch.kernels import _build
+    if text is None:
+        path = _build.library_path().with_suffix(".log")
+        if not path.exists():
+            return
+        text = path.read_text()
+    entry, spill = None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if "mamba_scan_kernel" in name else None
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "registers" in line:
+            tmpl = entry[entry.index("mamba_scan_kernel") + 17:]
+            log(f"{label} build {tmpl}: {line.split(':', 1)[1].strip()}; "
+                f"{spill}")
+            entry = None
+
+
+def build_other_scan(checkout: Path):
+    """Another checkout's scan (its mamba_scan.cu and common.cu, built into
+    build/other/<name>/) as a function with this checkout's C signature;
+    a scan whose C function takes no channels per block ignores them."""
+    import ctypes
+    from repro_torch.kernels import _build
+    kdir = checkout.resolve() / "src" / "repro_torch" / "kernels"
+    src = kdir / "mamba_scan" / "csrc" / "mamba_scan.cu"
+    lib_path = ROOT / "build" / "other" / checkout.name / "libmamba_scan.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    out = subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS,
+                          "-shared", "-o", str(lib_path), str(src),
+                          str(kdir / "common" / "csrc" / "common.cu")],
+                         check=True, capture_output=True, text=True)
+    log_scan_build(out.stdout + out.stderr, str(checkout))
+    fn = ctypes.CDLL(str(lib_path)).mamba_scan
+    fn.restype = ctypes.c_int
+    planned = "int channels, int dtype" in src.read_text()
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 8 + [ctypes.c_int] * (
+                       2 if planned else 1) + [ctypes.c_void_p])
+    return fn if planned else (lambda *a: fn(*a[:20], *a[21:]))
+
+
+def run_scan_compare(torch, others, reps: int = 20):
+    """``--scan-baseline DIR [DIR ...]``: the scan of each other checkout
+    (DIR: its root) beside this checkout's, timed by ``scan_sweep`` on one
+    card in turns (the others, this checkout twice, the others), each
+    first compared with the plain version at S = 1024 (this checkout's
+    must agree)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.models import ssm as S
+    orig = ms._scan_fn
+    new = orig()
+    d_in, R, N, _ = S.dims(get_config("falcon-mamba-7b"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    a_log, d_vec = scan_params(torch, d_in, N)
+    x, delta, bm, cm = scan_inputs(torch, gen, 1024, d_in, R, N,
+                                   torch.bfloat16)
+    want = mamba_scan_ref(x, delta, bm, cm, a_log, d_vec)
+    olds = [(str(o), build_other_scan(o)) for o in others]
+    this = [("this checkout", new)]
+    try:
+        for label, fn in olds + this + this + olds:
+            ms._scan_fn = lambda fn=fn: fn
+            got = ms.mamba_scan(x, delta, bm, cm, a_log, d_vec)
+            torch.cuda.synchronize()
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            ok = all(agree(g, w, TOL["float32"]) for g, w in zip(got, want))
+            # another checkout may be a probe that computes something else
+            require(ok or fn is not new,
+                    f"{label}: scan disagrees with its plain version")
+            log(f"{label}: S=1024 max_abs_err {err:.3e}, agrees {ok}")
+            scan_sweep(torch, gen, d_in, R, N, reps, label=label,
+                       show_plan=fn is new)
+    finally:
+        ms._scan_fn = orig
+
+
 def run_ssm_kernel_phase(torch, reps: int = 20):
     """The Mamba step and selective-scan kernels against their plain
     versions at falcon-mamba-7b widths (d_model 4096, d_in 8192, N 16,
@@ -506,7 +667,7 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
     from repro_torch.configs import get_config
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,
-                                                    mamba_step_ref, softplus)
+                                                    mamba_step_ref)
     from repro_torch.models import ssm as S
 
     cfg = get_config("falcon-mamba-7b")
@@ -580,19 +741,11 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
 
     # -- prefill selective scan --------------------------------------------
     worst = 0.0
-    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
-                                   device="cuda")).expand(d_in, N).contiguous()
-    d_vec = torch.ones(d_in, dtype=torch.float32, device="cuda")
+    a_log, d_vec = scan_params(torch, d_in, N)
     for S_len, dtype in ((1, "bfloat16"), (37, "bfloat16"), (200, "bfloat16"),
                          (1024, "bfloat16"), (200, "float32")):
-        dt_ = getattr(torch, dtype)
-        x = torch.randn((1, S_len, d_in), generator=gen, device="cuda").to(dt_)
-        delta = softplus(torch.randn((1, S_len, d_in), generator=gen,
-                                     device="cuda") - 4.0)
-        # B and C as the prefill hands them over: strided views of dbc
-        dbc = torch.randn((1, S_len, R + 2 * N), generator=gen,
-                          device="cuda").to(dt_)
-        bm, cm = dbc[..., R:R + N], dbc[..., R + N:]
+        x, delta, bm, cm = scan_inputs(torch, gen, S_len, d_in, R, N,
+                                       getattr(torch, dtype))
         y, h_last = ms.mamba_scan(x, delta, bm, cm, a_log, d_vec)
         want_y, want_h = mamba_scan_ref(x, delta, bm, cm, a_log, d_vec)
         torch.cuda.synchronize()
@@ -606,34 +759,22 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
                              f"its plain version")
         worst = max(worst, err_y, err_h)
         if S_len == 1024:
-            ms_ = time_ms(torch, lambda: ms.mamba_scan(
-                x, delta, bm, cm, a_log, d_vec), reps)
             plain_ms = time_ms(torch, lambda: mamba_scan_ref(
                 x, delta, bm, cm, a_log, d_vec), 3)
-            es = x.element_size()
-            n_io = S_len * d_in
-            nbytes = (n_io * es + n_io * 4 + 2 * S_len * N * es
-                      + 4 * d_in * (N + 1) + n_io * 4 + 4 * d_in * N)
-            exps = n_io * N + d_in * N
-            flops = 6 * n_io * N + 3 * n_io
-            b_ms, b_by = bound(nbytes, flops, "float32", exps=exps)
-            log(f"mamba_scan timing (S={S_len}, B=1, d_in={d_in}, N={N}, bf16 "
-                f"x/B/C): kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}; bytes {nbytes / 1e6:.1f} MB = "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, exponentials "
-                f"{exps / 1e6:.1f} M = "
-                f"{exps / (SFU_EXP_PER_S + FMA_EXP_PER_S) * 1e3:.4f} ms on "
-                f"SFU + FP32 pipe, {exps / SFU_EXP_PER_S * 1e3:.4f} ms on "
-                f"the SFU alone); "
-                f"library none: no single PyTorch call computes the "
-                f"selective scan")
-            results["mamba_scan"] = dict(
-                name="mamba_scan", route="cuda",
-                source="src/repro_torch/kernels/mamba_scan/csrc/"
-                       "mamba_scan.cu",
-                replaces="src/repro/kernels/mamba_scan/kernel.py:165",
-                ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+        del x, delta, bm, cm, y, h_last, want_y, want_h
+    log_scan_build()
+    sweep = scan_sweep(torch, gen, d_in, R, N, reps)
+    ms_, b_ms, b_by = sweep[1024]
+    log(f"mamba_scan timing (S=1024, B=1, d_in={d_in}, N={N}, bf16 x/B/C): "
+        f"kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); library none: no single PyTorch call computes the "
+        f"selective scan")
+    results["mamba_scan"] = dict(
+        name="mamba_scan", route="cuda",
+        source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan/kernel.py:165",
+        ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
     results["mamba_scan"]["max_abs_err"] = worst
     torch.cuda.empty_cache()
     return results
@@ -1223,6 +1364,13 @@ def main() -> int:
                     else "  " + line.strip())
             elif "spill" in line and " 0 bytes spill stores" not in line:
                 log(f"  {entry} {line.strip()}")
+
+    if "--scan-baseline" in sys.argv:
+        log_scan_build()
+        run_scan_compare(torch, [Path(p) for p in sys.argv[sys.argv.index(
+            "--scan-baseline") + 1:]])
+        print(card_line(), flush=True)
+        return 0
 
     start = time.perf_counter()
     phase_s = lambda: f"{time.perf_counter() - start:.1f} s"

@@ -46,15 +46,40 @@
 // * mamba_scan / _scan_kernel, the selective scan of a prefill.  The
 //   Pallas kernel walks the sequence as a sequential grid axis with the
 //   state in VMEM scratch; here a loop over time inside the block takes its
-//   place, so no state crosses blocks.  One block holds 32 channels of one
-//   row; each channel's N states are spread over N / 2 lanes, two states
-//   in registers each, and y's sum over states is a shuffle reduction.
-//   Time steps are staged 64 at a time in shared memory (x, dt, B, C) and
-//   y leaves through shared memory, so global accesses stay coalesced.  It
-//   takes any S and also returns the last state, which the prefill stores
-//   in the cache.  Bound at S = 1024, d_in = 8192, N = 16: 85 MB (0.025
-//   ms) against 134 M exponentials on the special-function units (about
-//   0.03 ms).
+//   place, so no state crosses blocks.  At falcon-mamba-7b widths (S =
+//   1024, d_in = 8192, N = 16) it moves 85 MB (0.025 ms at 3.35 TB/s) and
+//   takes 134 M exponentials, one per state-step: 0.032 ms on the
+//   special-function units (16 per clock per SM) alone.  Measured, what
+//   held it back was neither: per-thread copies issued in a burst after
+//   each barrier, and warps that stall on their own chains (two per SM
+//   sub-partition).  The design:
+//   - a producer warp stages 64-step tiles of x, dt, B and C into a 3-slot
+//     ring, one Tensor Memory Accelerator copy per input and tile from a
+//     3-d tensor map (zeros past S and past d_in), on full/empty
+//     mbarriers; inputs that no tensor map can describe (B and C views
+//     that are not 16-byte aligned) come as its cp.async chunks instead;
+//   - the consumer warps hold 4 of a channel's N states per lane in
+//     registers, on N / 4 consecutive lanes, so dt, x and the sum over
+//     lanes are paid once per 4 states (8 per lane measured slower: one
+//     warp per SM sub-partition);
+//   - exp(dt A) is one MUFU.EX2 of dt (A log2 e), A prescaled once: a
+//     state-step is an FMUL, the MUFU, an FMUL for dt x B and the two
+//     FMAs of h and y;
+//   - a lane takes 16 steps at a time (only the h FMAs wait on the step
+//     before), then sums y over a channel's lanes for all 16 by a fixed
+//     xor tree that scatters as it goes, so every lane stores steps of its
+//     own straight from registers, branch-free;
+//   - the wrapper's scan_plan() picks the channels per block from host
+//     ints so that every SM gets as many channels as the others, within one
+//     block (128 blocks of 64 channels at B = 1, d_in = 8192);
+//   - the time axis is not split: 131 k (channel, state) chains already
+//     fill the card, and carrying a state across blocks would cost a
+//     second exponential per state-step.
+//   It takes any S and also returns the last state, which the prefill
+//   stores in the cache.  No atomics: bit-equal from run to run.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include <type_traits>
 
 #include "../../common/csrc/common.cuh"
@@ -777,9 +802,13 @@ cudaError_t step_for_n(const StepArgs& a, cudaStream_t s) {
 // prefill selective scan
 // ---------------------------------------------------------------------------
 
-constexpr int kScanChannels = 32;     // channels per block
-constexpr int kScanSteps = 64;        // time steps staged per pass
-constexpr int kStatesPerLane = 2;    // N / 2 lanes per channel
+constexpr int kScanTile = 64;          // time steps per staged tile
+constexpr int kScanStages = 3;         // ring slots the producer fills ahead
+constexpr int kScanStates = 4;         // of a channel's states per lane
+constexpr int kScanGroup = 16;         // time steps a lane takes per group
+constexpr int kScanPad = 16;           // a tile's steps round up to this
+constexpr int kScanMaxChannels = 64;   // channels per block, at most
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct ScanArgs {
   const void* x;        // (B, S, D), strides (x_sb, x_ss, 1)
@@ -790,102 +819,422 @@ struct ScanArgs {
   const float* d;       // (D,)
   float* y;             // (B, S, D) contiguous
   float* h_last;        // (B, D, N) contiguous
-  int S, D;
+  int S, D, channels;   // channels: per block, a multiple of 8
   long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
+  int vx, vdt, vb, vc;  // bytes per copy of each input's rows: 16, 8, 4, 2
+  int tmx, tmdt, tmb, tmc;   // 1: the input comes by its tensor map
 };
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kScanChannels * N / kStatesPerLane)
-mamba_scan_kernel(ScanArgs a) {
-  constexpr int G = N / kStatesPerLane;           // lanes per channel
-  constexpr int THREADS = kScanChannels * G;
-  __shared__ float xs[kScanSteps][kScanChannels];
-  __shared__ float dts[kScanSteps][kScanChannels];
-  __shared__ float ys[kScanSteps][kScanChannels];
-  __shared__ float bs[kScanSteps][N];
-  __shared__ float cs[kScanSteps][N];
+// the four inputs' tensor maps (x, dt, B, C), where ScanArgs says so
+struct ScanMaps {
+  CUtensorMap x, dt, b, c;
+};
 
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * kScanChannels;
-  const int tid = threadIdx.x;
-  const int cl = tid / G;
-  const int g = tid - cl * G;
-  const int c = c0 + cl;
-  const bool active = c < a.D;
-  const T* x = static_cast<const T*>(a.x) + b * a.x_sb;
-  const float* dt = a.dt + b * a.dt_sb;
-  const T* bm = static_cast<const T*>(a.bm) + b * a.b_sb;
-  const T* cm = static_cast<const T*>(a.cm) + b * a.c_sb;
+// 2^x on the special-function unit: one MUFU.EX2, denormals flushed
+__device__ inline float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  float A[kStatesPerLane], h[kStatesPerLane];
-#pragma unroll
-  for (int i = 0; i < kStatesPerLane; ++i) {
-    const int n = g * kStatesPerLane + i;
-    A[i] = active ? -expf(a.a_log[static_cast<long long>(c) * N + n]) : 0.f;
-    h[i] = 0.f;
+// Stage `rows` rows of `width` elements from global rows `ss` elements
+// apart into shared rows `pitch` elements apart.  Only the first `valid`
+// elements of the first `valid_rows` rows are read; the rest is zero.
+// `vec` bytes per copy: cp.async of 16, 8 or 4 bytes (the source's rows
+// and base aligned to it), or plain loads for 2-byte aligned bf16 rows.
+template <typename E>
+__device__ inline void stage_rows(E* dst, int pitch, const E* src,
+                                  long long ss, int rows, int valid_rows,
+                                  int width, int valid, int vec, int tid,
+                                  int nthreads) {
+  constexpr int es = static_cast<int>(sizeof(E));
+  if (vec < 4) {
+    for (int i = tid; i < rows * width; i += nthreads) {
+      const int r = i / width;
+      const int j = i - r * width;
+      dst[r * pitch + j] = (r < valid_rows && j < valid)
+                               ? src[r * ss + j] : from_f<E>(0.f);
+    }
+    return;
   }
-  const float dd = active ? a.d[c] : 0.f;
-
-  for (int t0 = 0; t0 < a.S; t0 += kScanSteps) {
-    const int steps = min(kScanSteps, a.S - t0);
-    __syncthreads();   // the previous pass's y has left shared memory
-    for (int i = tid; i < steps * kScanChannels; i += THREADS) {
-      const int t = i / kScanChannels;
-      const int j = i - t * kScanChannels;
-      const bool ok = c0 + j < a.D;
-      const long long tt = t0 + t;
-      xs[t][j] = ok ? to_f<T>(x[tt * a.x_ss + c0 + j]) : 0.f;
-      dts[t][j] = ok ? dt[tt * a.dt_ss + c0 + j] : 0.f;
+  // chunk i = r per_row + c of the tile for i = tid, tid + nthreads, ...,
+  // walked without a division in the loop
+  const int per_row = width * es / vec;
+  const int dr = nthreads / per_row;
+  const int dc = nthreads - dr * per_row;
+  int r = tid / per_row;
+  int c = tid - r * per_row;
+  const char* base = reinterpret_cast<const char*>(src);
+  const unsigned sdst = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  while (r < rows) {
+    const int off = c * vec;
+    const int n = r < valid_rows ? max(0, min(vec, valid * es - off)) : 0;
+    const char* p = n > 0 ? base + r * ss * es + off : base;
+    const unsigned d = sdst + static_cast<unsigned>(r * pitch * es + off);
+    if (vec == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(d), "l"(p), "r"(n));
+    } else if (vec == 8) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                   :: "r"(d), "l"(p), "r"(n));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   :: "r"(d), "l"(p), "r"(n));
     }
-    for (int i = tid; i < steps * N; i += THREADS) {
-      const int t = i / N;
-      const int n = i - t * N;
-      const long long tt = t0 + t;
-      bs[t][n] = to_f<T>(bm[tt * a.b_ss + n]);
-      cs[t][n] = to_f<T>(cm[tt * a.c_ss + n]);
-    }
-    __syncthreads();
-    // unrolled: the exponentials of later steps do not wait on h
-#pragma unroll 4
-    for (int t = 0; t < steps; ++t) {
-      const float dtv = dts[t][cl];
-      const float xv = xs[t][cl];
-      const float dx = dtv * xv;
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < kStatesPerLane; ++i) {
-        const int n = g * kStatesPerLane + i;
-        h[i] = expf(dtv * A[i]) * h[i] + dx * bs[t][n];
-        part = fmaf(h[i], cs[t][n], part);
-      }
-#pragma unroll
-      for (int o = G / 2; o > 0; o >>= 1) {
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-      }
-      if (g == 0) ys[t][cl] = part + dd * xv;
-    }
-    __syncthreads();
-    for (int i = tid; i < steps * kScanChannels; i += THREADS) {
-      const int t = i / kScanChannels;
-      const int j = i - t * kScanChannels;
-      if (c0 + j < a.D) {
-        a.y[(static_cast<long long>(b) * a.S + t0 + t) * a.D + c0 + j] = ys[t][j];
-      }
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < kStatesPerLane; ++i) {
-      a.h_last[(static_cast<long long>(b) * a.D + c) * N +
-               g * kStatesPerLane + i] = h[i];
+    r += dr;
+    c += dc;
+    if (c >= per_row) {
+      c -= per_row;
+      ++r;
     }
   }
 }
 
+// store v at p where ok, as one predicated instruction (no branch)
+__device__ inline void store_if(float* p, float v, bool ok) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n"
+      " @q st.global.f32 [%0], %1;\n}\n"
+      :: "l"(p), "f"(v), "r"(static_cast<int>(ok)) : "memory");
+}
+
+// y of U steps from G lanes' partials: each step's partials summed over
+// the lanes by xor offsets G / 2, ..., 1, scattered as they go.  Lane g
+// keeps the upper half of the steps where g has the offset's bit, so it
+// ends with the sums of steps [g U / G, (g + 1) U / G) in p[0, U / G).
+template <int U, int G>
+__device__ inline void sum_scatter(float (&p)[U], int g) {
+  if constexpr (G > 1) {
+    constexpr int O = G / 2;
+    constexpr int H = U / 2;
+    const bool hi = (g & O) != 0;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float send = hi ? p[j] : p[j + H];
+      const float keep = hi ? p[j + H] : p[j];
+      p[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    sum_scatter<H, G / 2>(reinterpret_cast<float(&)[H]>(p), g);
+  }
+}
+
+// mbarriers in shared memory (sm_90)
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ inline void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// arrive on `bar` once every cp.async this thread issued has landed
+__device__ inline void mbar_arrive_on_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// arrive on `bar` and expect `bytes` more of bulk copies to land there
+__device__ inline void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// one box of a 3-d tensor map (at channel c, step t, row b) copied by the
+// Tensor Memory Accelerator into shared memory, counted on `bar` as it
+// lands; elements outside the tensor arrive as zeros
+__device__ inline void tma_load(uint32_t dst, const CUtensorMap* map, int c,
+                                int t, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<unsigned long long>(map)), "r"(c),
+         "r"(t), "r"(b), "r"(bar)
+      : "memory");
+}
+
+__device__ inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// the consumer warps alone (the producer warp does not take part)
+__device__ inline void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(threads) : "memory");
+}
+
+// Shared memory of one scan block: per ring slot x, B and C in the input
+// dtype and dt in fp32, each [step][column]; two tiles of B, C in fp32,
+// [step][B then C]; a full and an empty mbarrier per slot.  Every region
+// starts 128-byte aligned (tensor-map copies).
 template <typename T, int N>
-cudaError_t scan(const ScanArgs& a, int B, cudaStream_t s) {
-  const dim3 grid((a.D + kScanChannels - 1) / kScanChannels, B);
-  mamba_scan_kernel<T, N><<<grid, kScanChannels * N / kStatesPerLane, 0, s>>>(a);
+constexpr size_t scan_smem(int channels) {
+  return static_cast<size_t>(kScanStages) * kScanTile *
+             (channels * (sizeof(T) + sizeof(float)) + 2 * N * sizeof(T)) +
+         static_cast<size_t>(2) * kScanTile * 2 * N * sizeof(float) +
+         2 * kScanStages * sizeof(unsigned long long);
+}
+
+// One block scans `channels` channels of one row over all S steps.  Its
+// consumer warps hold a channel's N states on G = N / K consecutive lanes,
+// K = 4 in registers each (state n = g K + k on lane g); one more warp, the
+// producer, stages the tiles.
+template <typename T, int N>
+__global__ void __launch_bounds__(kScanMaxChannels * N / kScanStates + 32, 1)
+mamba_scan_kernel(const ScanArgs a, const __grid_constant__ ScanMaps maps) {
+  constexpr int K = kScanStates;
+  constexpr int G = N / K;
+  constexpr int U = kScanGroup;
+  constexpr int V = U / G;             // steps of a group a lane stores
+  static_assert(N % K == 0 && kScanPad % U == 0 && V >= 1, "N: 4, 8, 16");
+  extern __shared__ __align__(128) unsigned char scan_smem_raw[];
+  const int CH = a.channels;
+  const int threads = CH * G;                                // consumers
+  float* dts = reinterpret_cast<float*>(scan_smem_raw);     // [slot][t][CH]
+  float* bcf = dts + kScanStages * kScanTile * CH;           // [2][t][2N]
+  T* xs = reinterpret_cast<T*>(bcf + 2 * kScanTile * 2 * N);  // [slot][t][CH]
+  T* bs = xs + kScanStages * kScanTile * CH;                 // [slot][t][N]
+  T* cs = bs + kScanStages * kScanTile * N;                  // [slot][t][N]
+  const uint32_t bars = static_cast<uint32_t>(__cvta_generic_to_shared(
+      cs + kScanStages * kScanTile * N));
+  auto full = [&](int slot) { return bars + 8 * slot; };
+  auto empty = [&](int slot) { return bars + 8 * (kScanStages + slot); };
+
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * CH;
+  const int cv = min(CH, a.D - c0);
+  const int tid = threadIdx.x;
+  const int tiles = (a.S + kScanTile - 1) / kScanTile;
+  if (tid == 0) {
+    for (int i = 0; i < kScanStages; ++i) {
+      // lane 0 of the producer with the tensor-map bytes, and its 32
+      // lanes once their cp.async chunks have landed
+      mbar_init(full(i), 33);
+      mbar_init(empty(i), threads);    // every consumer, done with the slot
+    }
+  }
+  __syncthreads();
+
+  if (tid >= threads) {
+    // The producer: tile i into slot i % stages once the consumers have
+    // left the tile before it there; its copies arrive on the slot's full
+    // barrier as they land.  Rows past S (up to a multiple of kScanPad)
+    // and channels past d_in are zeros, which leave h as it is (2^0 h + 0).
+    const int lane = tid - threads;
+    const T* x = static_cast<const T*>(a.x) + b * a.x_sb + c0;
+    const float* dt = a.dt + b * a.dt_sb + c0;
+    const T* bm = static_cast<const T*>(a.bm) + b * a.b_sb;
+    const T* cm = static_cast<const T*>(a.cm) + b * a.c_sb;
+    // an input with a tensor map comes as one copy per tile, issued by
+    // lane 0; any other as cp.async chunks from all 32 lanes
+    const int es = static_cast<int>(sizeof(T));
+    const int tile_bytes = kScanTile * (a.tmx * CH * es + a.tmdt * CH * 4 +
+                                        (a.tmb + a.tmc) * N * es);
+    const auto sh = [](const void* p) {
+      return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+    };
+    for (int i = 0; i < tiles; ++i) {
+      const int slot = i % kScanStages;
+      if (i >= kScanStages) mbar_wait(empty(slot), (i / kScanStages - 1) & 1);
+      const int t0 = i * kScanTile;
+      const int rows = min(kScanTile, a.S - t0);
+      const int padded = min(kScanTile,
+                             (rows + kScanPad - 1) / kScanPad * kScanPad);
+      T* xd = xs + slot * kScanTile * CH;
+      float* dd = dts + slot * kScanTile * CH;
+      T* bd = bs + slot * kScanTile * N;
+      T* cd = cs + slot * kScanTile * N;
+      const uint32_t bar = full(slot);
+      if (lane == 0) {
+        mbar_expect(bar, tile_bytes);
+        if (a.tmx) tma_load(sh(xd), &maps.x, c0, t0, b, bar);
+        if (a.tmdt) tma_load(sh(dd), &maps.dt, c0, t0, b, bar);
+        if (a.tmb) tma_load(sh(bd), &maps.b, 0, t0, b, bar);
+        if (a.tmc) tma_load(sh(cd), &maps.c, 0, t0, b, bar);
+      }
+      if (!a.tmx) {
+        stage_rows(xd, CH, x + t0 * a.x_ss, a.x_ss, padded, rows, CH, cv,
+                   a.vx, lane, 32);
+      }
+      if (!a.tmdt) {
+        stage_rows(dd, CH, dt + t0 * a.dt_ss, a.dt_ss, padded, rows, CH, cv,
+                   a.vdt, lane, 32);
+      }
+      if (!a.tmb) {
+        stage_rows(bd, N, bm + t0 * a.b_ss, a.b_ss, padded, rows, N, N, a.vb,
+                   lane, 32);
+      }
+      if (!a.tmc) {
+        stage_rows(cd, N, cm + t0 * a.c_ss, a.c_ss, padded, rows, N, N, a.vc,
+                   lane, 32);
+      }
+      __threadfence_block();   // plain-load rows (2-byte bf16) first
+      mbar_arrive_on_copies(bar);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  const int cl = tid / G;
+  const int g = tid - cl * G;
+  const int c = c0 + cl;
+  const bool active = cl < cv;
+  // A = -exp(A_log) prescaled by log2(e): exp(dt A) = 2^(dt A log2 e)
+  float A2[K], h[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    A2[k] = active ? -expf(a.a_log[static_cast<long long>(c) * N + g * K + k]) *
+                         kLog2e
+                   : 0.f;
+    h[k] = 0.f;
+  }
+  // D x enters y as the first term of the channel's lane 0
+  const float dl = active && g == 0 ? a.d[c] : 0.f;
+  float* yrow = a.y + static_cast<long long>(b) * a.S * a.D + c;
+
+  for (int i = 0; i < tiles; ++i) {
+    const int slot = i % kScanStages;
+    const int t0 = i * kScanTile;
+    const int rows = min(kScanTile, a.S - t0);
+    const int padded = min(kScanTile,
+                           (rows + kScanPad - 1) / kScanPad * kScanPad);
+    mbar_wait(full(slot), (i / kScanStages) & 1);
+    // B and C of tile i to fp32, [step][B then C], into the buffer that
+    // tile i - 2 used: every consumer left it before the barrier of tile
+    // i - 1
+    const T* bt = bs + slot * kScanTile * N;
+    const T* ct = cs + slot * kScanTile * N;
+    float* bcw = bcf + (i & 1) * kScanTile * 2 * N;
+    for (int j = tid; j < padded * N; j += threads) {
+      const int t = j / N;
+      bcw[j + t * N] = to_f<T>(bt[j]);
+      bcw[j + t * N + N] = to_f<T>(ct[j]);
+    }
+    consumers_sync(threads);
+    const T* xt = xs + slot * kScanTile * CH + cl;
+    const float* dtt = dts + slot * kScanTile * CH + cl;
+    for (int t = 0; t < padded; t += U) {
+      // a group of U steps: only the h FMAs wait on the step before, so
+      // the loads and exponentials of later steps need not wait
+      float part[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float dtv = dtt[(t + u) * CH];
+        const float xv = to_f<T>(xt[(t + u) * CH]);
+        const float dx = dtv * xv;
+        const float* bv = bcw + (t + u) * 2 * N + g * K;
+        part[u] = dl * xv;
+#pragma unroll
+        for (int q = 0; q < K / 4; ++q) {
+          const float4 b4 = reinterpret_cast<const float4*>(bv)[q];
+          const float4 c4 = reinterpret_cast<const float4*>(bv + N)[q];
+          const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+          const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = 4 * q + j;
+            h[k] = fmaf(ex2_approx(dtv * A2[k]), h[k], dx * bb[j]);
+            part[u] = fmaf(h[k], cc[j], part[u]);
+          }
+        }
+      }
+      sum_scatter<U, G>(part, g);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int step = t + g * V + j;
+        store_if(yrow + static_cast<long long>(t0 + step) * a.D, part[j],
+                 active && step < rows);
+      }
+    }
+    mbar_arrive(empty(slot));   // x, dt and raw B, C of the slot are read
+  }
+  if (active) {
+    float* hl = a.h_last + (static_cast<long long>(b) * a.D + c) * N + g * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) hl[k] = h[k];
+  }
+}
+
+// Largest copy (16, 8, 4 or 2 bytes) that the base `p`, the strides (in
+// elements of `es` bytes) and a shared row of `row_bytes` all allow.
+inline int copy_bytes(const void* p, long long sb, long long ss, int es,
+                      int row_bytes) {
+  const unsigned long long m = reinterpret_cast<unsigned long long>(p) |
+                               static_cast<unsigned long long>(sb * es) |
+                               static_cast<unsigned long long>(ss * es) |
+                               static_cast<unsigned long long>(row_bytes);
+  for (int v = 16; v >= 4; v >>= 1) {
+    if (m % v == 0) return v;
+  }
+  return 2;
+}
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// the driver's tensor-map encoder, found once through the runtime
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of (B, S, width) rows, strides (sb, ss, 1) in elements of
+// `es` bytes, read in boxes of `box` columns by kScanTile steps of one row.
+// False where the copy engine cannot take it (16-byte alignment).
+bool tile_map(CUtensorMap* m, const void* base, int es, int width, int S,
+              int B, long long ss, long long sb, int box) {
+  const EncodeTiled enc = tensor_map_encoder();
+  const long long row = ss * es, batch = sb * es;
+  if (enc == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
+      row % 16 != 0 || batch % 16 != 0 || box * es % 16 != 0) {
+    return false;
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row),
+                                 static_cast<cuuint64_t>(batch)};
+  const cuuint32_t boxes[3] = {static_cast<cuuint32_t>(box),
+                               static_cast<cuuint32_t>(kScanTile), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(m, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             3, const_cast<void*>(base), dims, strides, boxes, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int N>
+cudaError_t scan(ScanArgs a, int B, cudaStream_t s) {
+  constexpr int es = static_cast<int>(sizeof(T));
+  a.vx = copy_bytes(a.x, a.x_sb, a.x_ss, es, a.channels * es);
+  a.vdt = copy_bytes(a.dt, a.dt_sb, a.dt_ss, 4, a.channels * 4);
+  a.vb = copy_bytes(a.bm, a.b_sb, a.b_ss, es, N * es);
+  a.vc = copy_bytes(a.cm, a.c_sb, a.c_ss, es, N * es);
+  ScanMaps maps;
+  a.tmx = tile_map(&maps.x, a.x, es, a.D, a.S, B, a.x_ss, a.x_sb, a.channels);
+  a.tmdt = tile_map(&maps.dt, a.dt, 4, a.D, a.S, B, a.dt_ss, a.dt_sb,
+                    a.channels);
+  a.tmb = tile_map(&maps.b, a.bm, es, N, a.S, B, a.b_ss, a.b_sb, N);
+  a.tmc = tile_map(&maps.c, a.cm, es, N, a.S, B, a.c_ss, a.c_sb, N);
+  const size_t smem = scan_smem<T, N>(a.channels);
+  REPRO_TRY(allow_smem(mamba_scan_kernel<T, N>, smem));
+  const dim3 grid((a.D + a.channels - 1) / a.channels, B);
+  mamba_scan_kernel<T, N>
+      <<<grid, a.channels * N / kScanStates + 32, smem, s>>>(a, maps);
   return cudaGetLastError();
 }
 
@@ -948,21 +1297,31 @@ extern "C" int mamba_step(
 // mamba_scan: x (B, S, D) in the activation dtype, strides (x_sb, x_ss, 1);
 // dt (B, S, D) fp32, strides (dt_sb, dt_ss, 1); b, c (B, S, N) in the
 // activation dtype, strides (sb, ss, 1); a_log (D, N) and d (D,) fp32 ->
-// y (B, S, D) fp32 and h_last (B, D, N) fp32, both contiguous.
+// y (B, S, D) fp32 and h_last (B, D, N) fp32, both contiguous.  channels:
+// per block, a multiple of 8 up to 64 that makes whole warps of N / 4
+// lanes per channel (the wrapper's scan_plan()).
 extern "C" int mamba_scan(
     const void* x, const void* dt, const void* b, const void* c,
     const void* a_log, const void* d, void* y, void* h_last, int B, int S,
     int D, int N, long long x_sb, long long x_ss, long long dt_sb,
     long long dt_ss, long long b_sb, long long b_ss, long long c_sb,
-    long long c_ss, int dtype, void* stream) {
+    long long c_ss, int channels, int dtype, void* stream) {
   using namespace repro;
   if (B == 0 || S == 0) return 0;
+  // whole warps: the sums over a channel's lanes shuffle the full warp
+  if (channels < 8 || channels > kScanMaxChannels || channels % 8 != 0 ||
+      channels * N / kScanStates % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ScanArgs a{x, static_cast<const float*>(dt), b, c,
              static_cast<const float*>(a_log), static_cast<const float*>(d),
              static_cast<float*>(y), static_cast<float*>(h_last), S, D,
-             x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
+             channels, x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss,
+             0, 0, 0, 0, 0, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return static_cast<int>(scan_for_n<__nv_bfloat16>(a, B, N, s));
+  if (dtype == kBF16) {
+    return static_cast<int>(scan_for_n<__nv_bfloat16>(a, B, N, s));
+  }
   if (dtype == kF32) return static_cast<int>(scan_for_n<float>(a, B, N, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,8 +11,11 @@ product streams its weight once for up to 32 slot rows, on the tensor
 cores, in one even pass over the card that ``plan()`` cuts from host ints;
 the launches overlap (programmatic dependent launch).  fp32, and bf16
 rows that are not 16-byte aligned, take a CUDA-core product that streams
-the weights once per 8 slot rows.  The scan keeps the state in registers
-and loops over time inside the block.
+the weights once per 8 slot rows.  The scan loops over time inside the
+block: a producer warp keeps 64-step tiles of x, dt, B and C in flight
+(one tensor-map copy per input and tile) while the other warps scan, 4 of
+a channel's states per lane in registers, each exponential one MUFU.EX2;
+``scan_plan()`` spreads the channels evenly over the card from host ints.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel or raises.  ``step_launches`` and ``scan_launches`` count the
@@ -47,6 +50,8 @@ _BLOCK_SMEM = 1024            # reserved by the hardware per block
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FMA, _MMA = 0, 1             # csrc Route
 overlap = True                # launch the step's kernels overlapped (PDL)
+_SCAN_STATES = 4              # states a scan lane holds (csrc kScanStates)
+_SCAN_CHANNELS = tuple(range(8, 65, 8))   # csrc kScanMaxChannels = 64
 
 
 @functools.lru_cache(maxsize=1)
@@ -61,7 +66,7 @@ def _step_fn():
 def _scan_fn():
     fn = _build.load_library().mamba_scan
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 8 + [_I] * 4 + [_L] * 8 + [_I, _P]
+    fn.argtypes = [_P] * 8 + [_I] * 4 + [_L] * 8 + [_I] * 2 + [_P]
     return fn
 
 
@@ -122,6 +127,33 @@ def plan(B: int, K: int, N: int, sms: int = 132) -> ProductPlan:
                 best, span, splits = score(strips * s), sp, s
     items = strips * splits
     return ProductPlan(_MMA, splits, span * _BK, min(items, cap), items)
+
+
+class ScanPlan(NamedTuple):
+    """How one scan is cut: ``channels`` per block, ``blocks`` per row
+    (grid.x), ``grid`` blocks in all, and ``per_sm``: the most blocks any
+    SM gets when they are dealt out evenly."""
+    channels: int
+    blocks: int
+    grid: int
+    per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(B: int, D: int, N: int, sms: int = 132) -> ScanPlan:
+    """The scan's plan for B rows of D channels and N states on ``sms``
+    SMs, from host ints alone.  Every block scans all S steps of its
+    channels, so an SM's time is the channels it gets: the channels per
+    block (a multiple of 8 up to 64) minimise the most any SM gets,
+    ceil(blocks / sms) x channels, and the largest such block wins a tie;
+    a block's consumers are whole warps of N / 4 lanes per channel (one
+    producer warp joins them).
+    At B = 1, d_in = 8192: 128 blocks of 64 channels, one per SM."""
+    load = lambda ch: _ceil(B * _ceil(D, ch), sms) * ch
+    whole = [ch for ch in _SCAN_CHANNELS if ch * N // _SCAN_STATES % 32 == 0]
+    ch = min(whole, key=lambda ch: (load(ch), -ch))
+    blocks = _ceil(D, ch)
+    return ScanPlan(ch, blocks, B * blocks, _ceil(B * blocks, sms))
 
 
 def _splits(B: int, K: int, N: int, vec_cols: int, sms: int) -> int:
@@ -271,12 +303,13 @@ def mamba_scan(x, dt, b, c, a_log, d):
           "mamba_scan needs a unit stride on the last axis")
     y = torch.empty((B, S, D), dtype=torch.float32, device=dev)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    p = scan_plan(B, D, N, _build.sm_count(dev.index or 0))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _scan_fn()(
         x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
         a_log.data_ptr(), d.data_ptr(), y.data_ptr(), h_last.data_ptr(),
         B, S, D, N, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-        b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+        b.stride(0), b.stride(1), c.stride(0), c.stride(1), p.channels,
         _DTYPES[x.dtype], stream)
     _build.check(err, "mamba_scan")
     scan_launches += 1

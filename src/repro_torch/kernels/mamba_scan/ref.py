@@ -15,11 +15,15 @@ one weight product on the tensor cores, for the tests.
 reference's chunked ``selective_scan`` + C-projection in ``_ssm_inner``,
 chunk by chunk with the state carried, each chunk stepped in time order
 (the associative scan inside a chunk sums in another order only).
+``mamba_scan_spec`` is the same function in the CUDA scan's order of
+arithmetic, for the tests.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+LOG2E = 1.4426950408889634
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -117,4 +121,47 @@ def mamba_scan_ref(x, dt, b, c, a_log, d, *, chunk: int = 128):
         ys.append(torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1),
                                c32[:, sl]))
     y = torch.cat(ys, dim=1) + d.to(f32) * x32
+    return y, h
+
+
+def _fma(a, b, c):
+    """fp32 ``a b + c`` rounded once (the product is exact in fp64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def mamba_scan_spec(x, dt, b, c, a_log, d, *, states_per_lane: int = 4):
+    """The prefill scan in fp32 in the CUDA kernel's order of arithmetic:
+    a channel's N states lie on G = N / K lanes, K = min(states_per_lane,
+    N) (the kernel holds 4), lane g holding states [g K, (g + 1) K).  Per
+    step and state, h = fma(2^(dt (A log2 e)), h, (dt x) B), with A log2 e
+    and both products rounded to fp32; lane g's partial of y is an fma
+    chain over its states in order, starting from D x on lane 0 and from
+    0 on the others; the G partials are summed by xor offsets G / 2, ...,
+    1.  2^ is taken here to within an ulp where the kernel takes MUFU.EX2
+    (within a few).  Same arguments and results as ``mamba_scan_ref``."""
+    f32 = torch.float32
+    B, S, D = x.shape
+    N = b.shape[-1]
+    K = min(states_per_lane, N)
+    G = N // K
+    a2 = -torch.exp(a_log.to(f32)) * torch.tensor(LOG2E, dtype=f32)
+    x32, dt32, b32, c32 = (v.to(f32) for v in (x, dt, b, c))
+    h = torch.zeros((B, D, N), dtype=f32, device=x.device)
+    y = torch.empty((B, S, D), dtype=f32, device=x.device)
+    lane0 = torch.zeros((G,), dtype=f32, device=x.device)
+    lane0[0] = 1.0
+    for t in range(S):
+        dtt, xt = dt32[:, t], x32[:, t]                    # (B, D)
+        da = torch.exp2(dtt[..., None] * a2)               # (B, D, N)
+        h = _fma(da, h, (dtt * xt)[..., None] * b32[:, t, None, :])
+        hk = h.view(B, D, G, K)
+        ck = c32[:, t].view(B, 1, G, K).expand(B, D, G, K)
+        part = (d.to(f32) * xt)[..., None] * lane0          # (B, D, G)
+        for k in range(K):
+            part = _fma(hk[..., k], ck[..., k], part)
+        o = G // 2
+        while o:
+            part = part + part[..., torch.arange(G) ^ o]
+            o //= 2
+        y[:, t] = part[..., 0]
     return y, h

@@ -10,7 +10,8 @@ plain version round p at different points), fp32 to 1e-4 (summation order).
 The Mamba step rounds at the reference's points in both versions, but sums
 its products in another order, so a value may land on the neighbouring
 bf16 (2**-8 of itself): it is held to tol + tol |want|.  The scan computes
-in fp32 in both versions: 1e-4 + 1e-4 |want|.  filco_mm sums in fp32 in
+in fp32 in both versions (the kernel's exponentials one MUFU.EX2 each,
+within a few ulps): 1e-4 + 1e-4 |want|.  filco_mm sums in fp32 in
 both versions and rounds once to the output dtype: tol + tol |want|; its
 fp32 products are three TF32 products on the tensor cores, within about
 1e-6 of fp32's.
@@ -292,28 +293,50 @@ def test_mamba_step_back_to_back_equals_synchronized(cuda, d_model):
     assert not torch.equal(results[0][0], results[0][1])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("S", [1, 37, 200])
-@pytest.mark.parametrize("N", [4, 16])
-def test_mamba_scan_kernel_on_gpu(cuda, dtype, S, N):
-    """B = 2 rows, d_in = 80 channels (no multiple of the 32-channel
-    block); B and C strided views of one (B, S, R + 2N) tensor."""
-    B, D, R = 2, 80, 6
-    gen = torch.Generator(device=cuda).manual_seed(5)
+def _scan_case(cuda, dtype, B, S, D, N, R, seed=5):
+    """x, dt, B and C (strided views of one (B, S, R + 2N) dbc tensor: at
+    R = 6 in bf16 B starts 12 bytes into a row, at R = 256 16-byte
+    aligned), A_log and D."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn((B, S, D), generator=gen, device=cuda).to(dtype)
     delta = softplus(torch.randn((B, S, D), generator=gen, device=cuda) - 3)
     dbc = torch.randn((B, S, R + 2 * N), generator=gen, device=cuda).to(dtype)
-    bm, cm = dbc[..., R:R + N], dbc[..., R + N:]
     a_log = torch.log(torch.rand((D, N), generator=gen, device=cuda) * 4 + 0.5)
     d = torch.randn(D, generator=gen, device=cuda)
+    return x, delta, dbc[..., R:R + N], dbc[..., R + N:], a_log, d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 37, 63, 64, 65, 129, 200, 1000])
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("D", [80, 8192])
+@pytest.mark.parametrize("R", [6, 256])
+def test_mamba_scan_kernel_on_gpu(cuda, dtype, S, N, B, D, R):
+    """S at the 64-step staging tile's edges and past it; d_in = 80 (no
+    multiple of the 64-channel block) and falcon's 8192; B and C as
+    unaligned (R = 6) and aligned (R = 256) views."""
+    ins = _scan_case(cuda, dtype, B, S, D, N, R)
     before = ms.scan_launches
-    y, h = ms.mamba_scan(x, delta, bm, cm, a_log, d)
-    want_y, want_h = mamba_scan_ref(x, delta, bm, cm, a_log, d)
+    y, h = ms.mamba_scan(*ins)
+    want_y, want_h = mamba_scan_ref(*ins)
     torch.cuda.synchronize()
     assert ms.scan_launches == before + 1
     assert y.dtype == h.dtype == torch.float32
     assert _agree(y, want_y, 1e-4) and _agree(h, want_h, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [6, 256])
+def test_mamba_scan_kernel_is_deterministic(cuda, dtype, R):
+    """No atomics: two calls on the same inputs are bit-equal."""
+    ins = _scan_case(cuda, dtype, 1, 1000, 8192, 16, R)
+    y1, h1 = ms.mamba_scan(*ins)
+    y2, h2 = ms.mamba_scan(*ins)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 @pytest.mark.gpu

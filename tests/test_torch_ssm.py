@@ -8,7 +8,8 @@ numpy with a seed.
 Tolerances (fp32 throughout): the step to 3e-5, the JAX suite's own bound
 for its fused step against its oracle; the scan's y and last state to 1e-5
 (summation order only: the reference sums inside a chunk with an
-associative scan, the port in time order); a block's output, which adds a
+associative scan, the port in time order, the CUDA kernel's spec over
+lanes and with 2^ of a prescaled A); a block's output, which adds a
 d_in-long out_proj sum on top, to 1e-4.
 """
 import dataclasses
@@ -33,6 +34,7 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,  # noqa: E402
+                                                mamba_scan_spec,
                                                 mamba_step_ref)
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
@@ -152,6 +154,53 @@ def test_scan_plain_matches_pallas_interpret_oracle_and_chunked_scan():
                               (x, dt, b, c, a_log, d)))
     _close(y2.numpy(), y.numpy(), SCAN_TOL)
     _close(h2.numpy(), h_last.numpy(), SCAN_TOL)
+
+
+@pytest.mark.parametrize("S,N,states", [(1, 4, 4), (17, 8, 4), (17, 8, 8),
+                                        (40, 16, 4), (40, 16, 8),
+                                        (64, 16, 4)])
+def test_scan_spec_matches_pallas_interpret_oracle_and_plain(S, N, states):
+    """The CUDA kernel's order of arithmetic (states per lane, y's fma
+    chain from D x and its xor tree over the lanes, 2^ of prescaled A)
+    computes the Pallas kernel's function: S at 1, ragged and a whole
+    64-step tile."""
+    B, D = 2, 32
+    ins = _scan_inputs(B, S, D, N)
+    want_k = jax_kernel.mamba_scan(*(jnp.asarray(a) for a in ins), bd=16,
+                                   bs=S, interpret=True)
+    want_y, want_h = mamba_scan_ref(*(torch.tensor(v) for v in ins))
+    y, h_last = mamba_scan_spec(*(torch.tensor(v) for v in ins),
+                                states_per_lane=states)
+    assert y.dtype == h_last.dtype == torch.float32
+    _close(y.numpy(), want_k, SCAN_TOL)
+    _close(y.numpy(), want_y.numpy(), SCAN_TOL)
+    _close(h_last.numpy(), want_h.numpy(), SCAN_TOL)
+
+
+@pytest.mark.parametrize("B,D,N", [(1, 8192, 16), (1, 8192, 8), (3, 80, 16),
+                                   (3, 80, 4), (8, 8192, 16), (2, 512, 8),
+                                   (1, 40, 16)])
+def test_scan_plan_fills_the_card_evenly(B, D, N):
+    """Every channel of every row in exactly one block; blocks of whole
+    consumer warps (N / 4 lanes a channel) with at most 64 channels; no
+    channel count per block gives any SM fewer channels at most,
+    ceil(blocks / SMs) x channels."""
+    sms = 132
+    p = ops.scan_plan(B, D, N, sms)
+    assert p.channels % 8 == 0 and 8 <= p.channels <= 64
+    assert p.channels * N // 4 % 32 == 0
+    assert p.blocks == -(-D // p.channels) and p.grid == B * p.blocks
+    assert (p.blocks - 1) * p.channels < D <= p.blocks * p.channels
+    assert p.per_sm == -(-p.grid // sms)
+    load = lambda ch: -(-B * -(-D // ch) // sms) * ch
+    whole = [ch for ch in range(8, 65, 8) if ch * N // 4 % 32 == 0]
+    assert load(p.channels) == min(load(ch) for ch in whole)
+
+
+def test_scan_plan_at_falcon_widths():
+    """B = 1, d_in = 8192, N = 16 on 132 SMs: 128 blocks of 64 channels,
+    none of the SMs gets two; computed from host ints alone."""
+    assert tuple(ops.scan_plan(1, 8192, 16, 132)) == (64, 128, 128, 1)
 
 
 def test_scan_wrapper_takes_plain_on_cpu():
