@@ -25,17 +25,31 @@
    peak, grid and blocks per SM.
 3. Serving phase, minitron-4b: full width (32 layers, random bf16 weights
    from a fixed seed) through ``DecodeEngine`` with the kernels on: 8
-   requests of 100-1000 prompt tokens and 32 new tokens each.  Asserts that
-   every layer of every prefill and decode step launched its kernel, then
-   profiles a replay and checks kernel-path logits against the plain path.
+   requests of 100-1000 prompt tokens and 32 new tokens each, on four
+   fresh engines in turns, decode steps as CUDA graphs (the main path),
+   eager, graphs, eager, each warmed by ``warm_compile(None)`` before the
+   clock.  Each run logs decode p50, prefill mean, tokens/s, peak memory,
+   graph captures on the serving path (0 with graphs), steps on a
+   covering bound, the graph pool's bytes and each graph's captured
+   launches and replays; the streams must be equal.  Asserts that every
+   layer of every prefill and decode step launched its kernel (a replay
+   counts its captured launches), compares one step's logits graph
+   against eager and the step's time at its exact KV bound against the
+   covering one, profiles each way (the whole run, then the decode steps
+   alone: device time per step against host time) and checks kernel-path
+   logits against the plain path.  A migration phase then resizes an
+   engine 8 -> 12 -> 8 slots mid-stream, preempts, evacuates and adopts
+   into a second engine: every stream must equal an uninterrupted run's
+   and every ragged decode ticket buffer must read zero.
 4. Serving phase, falcon-mamba-7b: the same for full width (64 layers)
    through ``SSMEngine`` with ``max_len`` 512, so that prompts past it show
    admission to be slot-bound, profiled once more with the step's launches
-   serialised, where each kernel's time is its own.  For three weight
-   seeds the kernel path is checked against the plain path on an fp32
-   copy of the weights, and in
-   bf16 against the model's own rounding floor: its distance from the fp32
-   plain path may exceed the bf16 plain path's by a stated margin only.
+   serialised, where each kernel's time is its own; the decode graph's
+   edges are counted by kind (the step's launches must be programmatic
+   edges).  For three weight seeds the kernel path is checked against the
+   plain path on an fp32 copy of the weights, and in bf16 against the
+   model's own rounding floor: its distance from the fp32 plain path may
+   exceed the bf16 plain path's by a stated margin only.
 5. Paper phase.  The filco_mm sweep (the stand-in for Fig. 8's
    single-kernel efficiency): a 2048^3 buffer in fp32 and bf16, valid dims
    at 1/8, 1/4, 1/2 and all of each axis and a ragged (1040, 1032, 2040);
@@ -200,16 +214,8 @@ def agree(got, want, tol: float) -> bool:
 
 
 def _counter(name: str):
-    from repro_torch.kernels.filco_mm import ops as fm
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.mamba_scan import ops as ms
-    from repro_torch.kernels.ragged_decode import ops as rd
-    return {"ragged_decode": (rd, "launches"),
-            "flash_attention": (fa, "launches"),
-            "mamba_step": (ms, "step_launches"),
-            "mamba_scan": (ms, "scan_launches"),
-            "flex_mm": (fm, "launches"),
-            "static_mm": (fm, "static_launches")}[name]
+    from repro_torch.kernels.launches import COUNTERS
+    return COUNTERS[name]
 
 
 def reset_counts(names) -> None:
@@ -784,108 +790,362 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
 # phases 3 and 4: serving a full-width model through its engine
 # ---------------------------------------------------------------------------
 
-def run_serving_phase(torch, model, params, engine_cls, scfg, *, per_step,
-                      per_prefill):
-    """8 requests of 100-1000 prompt tokens, 32 new tokens each, through
-    ``engine_cls``; ``per_step`` / ``per_prefill`` name the kernels every
-    layer launches on every decode step / prefill.  Then the same workload
-    again under the profiler.  Returns the launch counts of the run."""
-    import numpy as np
-
-    cfg = model.cfg
-    name = cfg.name
-    kernels = (per_step, per_prefill)
-    # warm-up on its own engine: cuBLAS handles, allocator pools
-    warm = engine_cls(model, params, scfg)
-    warm.submit(np.arange(1, 65), max_new_tokens=4)
-    warm.run_to_completion()
-    del warm
+def serve(torch, engine, prompts, new):
+    """Submit ``prompts`` (``new`` tokens each) and step ``engine`` to the
+    end.  Returns (seconds of each step, wall seconds, streams in the
+    order of submission)."""
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    step_s = []
+    while engine.has_work:
+        s0 = time.perf_counter()
+        engine.step()
+        step_s.append(time.perf_counter() - s0)
+        require(len(step_s) <= 1000, "serving did not finish")
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    results = engine.results()
+    return step_s, wall, [results[r] for r in rids]
 
-    rng = np.random.default_rng(0)
-    plens = rng.integers(100, 1001, size=8)
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)) for n in plens]
-    new = 32
 
-    def serve(engine):
+def make_engine(torch, engine_cls, model, params, scfg, graphs: bool):
+    """A fresh engine whose decode steps are CUDA graphs (``graphs``) or
+    eager, warmed by ``warm_compile(None)``.  Returns (engine, builds,
+    seconds the warm-up took)."""
+    from repro_torch.workloads import decode
+    decode.graphs = graphs
+    try:
+        engine = engine_cls(model, params, scfg)
         t0 = time.perf_counter()
-        for p in prompts:
-            engine.submit(p, max_new_tokens=new)
-        step_s = []
-        while engine.has_work:
-            s0 = time.perf_counter()
-            engine.step()
-            step_s.append(time.perf_counter() - s0)
-            require(len(step_s) <= 1000, "serving did not finish")
+        built = engine.warm_compile(None)
         torch.cuda.synchronize()
-        return step_s, time.perf_counter() - t0
+    finally:
+        decode.graphs = True
+    return engine, built, time.perf_counter() - t0
 
-    engine = engine_cls(model, params, scfg)
+
+def graph_steps(engine):
+    from repro_torch.workloads.compile_cache import GraphStep
+    return [e for e in engine._exec._exe.values() if isinstance(e, GraphStep)]
+
+
+def serving_run(torch, engine_cls, model, params, scfg, prompts, new,
+                kernels, graphs: bool):
+    """One measured run on a fresh engine, warmed before the clock; its
+    numbers, its launch counts and its streams."""
+    import gc
+    gc.collect()                # the last run's engine and its graphs
+    engine, built, warm_s = make_engine(torch, engine_cls, model, params,
+                                        scfg, graphs)
+    captures, covering = engine.graph_captures, engine.covering_steps
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
-    step_s, wall = serve(engine)
+    step_s, wall, streams = serve(torch, engine, prompts, new)
     launches = read_counts(kernels)
     reg = engine._obs.registry
     prefill_h = reg.histogram_at("prefill_s")
-    decode_steps = reg.histogram_at("decode_step_s").count
-    prefills = prefill_h.count
-    results = engine.results()
-    toks = sum(len(t) for t in results.values())
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    L = cfg.num_layers
-    log(f"serving {name} ({type(engine).__name__}, max_len {scfg.max_len}): "
-        f"prompts {plens.tolist()}, {new} new tokens each, {prefills} "
-        f"prefills, {decode_steps} decode steps, launches {launches}")
-    require(prefills == 8, f"{prefills} prefills, want 8")
-    require(launches[per_step] >= L * decode_steps > 0,
-            f"{per_step} launched {launches} for {decode_steps} steps")
-    require(launches[per_prefill] >= L * prefills,
-            f"{per_prefill} launched {launches} for {prefills} prefills")
-    require(len(results) == 8 and all(len(t) == new
-                                      for t in results.values()),
-            f"streams incomplete: {[len(t) for t in results.values()]}")
-    require(all(0 <= x < cfg.vocab_size for t in results.values()
-                for x in t), "token out of the vocabulary")
-    # step 0 admits and prefills all 8 requests; the rest are decode steps
+    # step 0 admits and prefills all requests; the rest are decode steps
     decode_ms = sorted(s * 1e3 for s in step_s[1:])
-    p50 = decode_ms[len(decode_ms) // 2]
-    log(f"serving {name}: prefill ms per request mean "
-        f"{prefill_h.mean * 1e3:.2f} (min {prefill_h.min * 1e3:.2f}, max "
-        f"{prefill_h.max * 1e3:.2f}); decode ms per step p50 {p50:.3f}; "
-        f"{toks} tokens in {wall:.3f} s = {toks / wall:.1f} tokens/s; "
-        f"peak memory {peak_gib:.2f} GiB")
+    toks = sum(len(t) for t in streams)
+    run = {
+        "label": "graphs" if graphs else "eager",
+        "engine": type(engine).__name__, "streams": streams,
+        "launches": launches, "wall": wall,
+        "decode_wall": sum(step_s[1:]), "tokens": toks,
+        "tokens_s": toks / wall,
+        "p50": decode_ms[len(decode_ms) // 2],
+        "prefill": (prefill_h.mean * 1e3, prefill_h.min * 1e3,
+                    prefill_h.max * 1e3),
+        "prefills": prefill_h.count,
+        "decode_steps": reg.histogram_at("decode_step_s").count,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "warm": (built, warm_s),
+        "path_captures": engine.graph_captures - captures,
+        "covering": engine.covering_steps - covering,
+        "pool_mib": engine.graph_pool_bytes() / 2**20,
+        "graphs": [(g.launches, g.replays) for g in graph_steps(engine)],
+    }
+    return run
 
-    # the same workload again under torch.profiler (device activity only)
-    replays = [("", None)]
+
+def filled_engine(torch, engine_cls, model, params, scfg, S: int,
+                  max_len: int):
+    """An engine of 8 slots whose pool holds 8 prefilled S-token prompts
+    (random, seed 3), and one more random token per slot."""
+    import dataclasses
+    cfg = dataclasses.replace(scfg, max_slots=8, max_len=max_len)
+    engine = engine_cls(model, params, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    V = model.cfg.vocab_size
+    toks = torch.randint(1, V, (8, S), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    _, filled = model.prefill(params, {"tokens": toks}, engine.cache,
+                              use_kernels=True)
+    engine.cache["pos"].copy_(filled["pos"])
+    x = torch.randint(1, V, (8, 1), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    return engine, x
+
+
+def covering_cost(torch, engine_cls, model, params, scfg):
+    """The price of dispatching on a covering bound: one decode step of 8
+    slots at 900 live rows, captured at its exact bound (928) and at full
+    capacity (the covering bound serving uses), each timed over 20
+    replays (L2 flushed before each, as ``time_ms`` does)."""
+    engine, _ = filled_engine(torch, engine_cls, model, params, scfg, 900,
+                              scfg.max_len)
+    pool = engine._pool
+    pool.inputs[2].fill_(1)                     # every slot live
+    times = {}
+    for bounds in ((928,), (scfg.max_len,)):
+        step = engine._build_decode(pool, bounds)
+        times[bounds] = time_ms(torch, step, reps=20)
+    log(f"covering bound cost {model.cfg.name}: a decode step of 8 slots "
+        f"at 900 rows, graph at the exact bound (928,) {times[(928,)]:.4f} "
+        f"ms, at the covering bound ({scfg.max_len},) "
+        f"{times[(scfg.max_len,)]:.4f} ms ({card_line()})")
+
+
+def graph_logits_check(torch, engine_cls, model, params, scfg):
+    """One decode step of 8 live slots (100-token prompts), eager and as
+    a captured graph on the same state: the largest |logit| difference
+    (expected 0: the graph replays the eager step's kernels)."""
+    engine, x = filled_engine(torch, engine_cls, model, params, scfg, 100,
+                              256)
+    live = torch.ones(8, dtype=torch.bool, device="cuda")
+    kv_bound = None if model.cfg.attention_free else 128
+    pool = engine._pool
+
+    def step():
+        return model.decode_step(params, pool.cache, x, use_kernels=True,
+                                 kv_bound=kv_bound, live_mask=live)[0]
+
+    graph = engine._capture(pool, step)
+    state = engine._step_state(pool)
+    saved = [t.clone() for t in state]
+    eager = step().float()
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    replay = graph().float()
+    torch.cuda.synchronize()
+    diff = (eager - replay).abs().max().item()
+    require(math.isfinite(diff) and bool(replay.isfinite().all().item()),
+            "graph logits are not finite")
+    return diff
+
+
+def graph_edge_kinds(graph):
+    """The edges of a captured graph whose template was kept, by kind, as
+    the driver reads them (``cuGraphGetEdges_v2``): "programmatic" (the
+    launch after may start before the one before ends: programmatic
+    dependent launch) and "full"."""
+    import ctypes
+
+    class Edge(ctypes.Structure):
+        _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                    ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetEdges_v2(handle, None, None, None, ctypes.byref(n))
+    require(err == 0, f"cuGraphGetEdges_v2 failed: {err}")
+    src = (ctypes.c_void_p * n.value)()
+    dst = (ctypes.c_void_p * n.value)()
+    data = (Edge * n.value)()
+    err = cu.cuGraphGetEdges_v2(handle, src, dst, data, ctypes.byref(n))
+    require(err == 0, f"cuGraphGetEdges_v2 failed: {err}")
+    kinds = {"programmatic": 0, "full": 0}
+    for e in data:      # type 1: CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC
+        kinds["programmatic" if e.type == 1 else "full"] += 1
+    return kinds
+
+
+def pdl_edge_check(torch, engine_cls, model, params, scfg):
+    """Capture the decode step of ``engine_cls`` with its graph's template
+    kept and count the graph's edges by kind: each layer's Mamba step is
+    eight launches, each one a programmatic dependent of the launch
+    before, so at least 7 programmatic edges per layer must be there."""
+    base = torch.cuda.CUDAGraph
+
+    class Kept(base):
+        def __new__(cls):
+            return super().__new__(cls, keep_graph=True)
+
+        def __init__(self):
+            super().__init__(keep_graph=True)
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        engine, _, _ = make_engine(torch, engine_cls, model, params, scfg,
+                                   True)
+    finally:
+        torch.cuda.CUDAGraph = base
+    (step,) = graph_steps(engine)
+    kinds = graph_edge_kinds(step.graph)
+    L = model.cfg.num_layers
+    log(f"graph edges of {model.cfg.name}'s decode step ({step.launches} "
+        f"captured): {kinds}; want at least 7 programmatic per layer "
+        f"({7 * L})")
+    require(kinds["programmatic"] >= 7 * L,
+            "the Mamba step's launches did not capture as programmatic "
+            "edges")
+
+
+def run_serving_phase(torch, model, params, engine_cls, scfg, *, per_step,
+                      per_prefill):
+    """8 requests of 100-1000 prompt tokens, 32 new tokens each, through
+    ``engine_cls`` on fresh engines, warmed by ``warm_compile(None)``
+    before the clock: decode steps as CUDA graphs (the main path), then
+    eagerly; the two runs' streams must be equal token for token.
+    ``per_step`` / ``per_prefill`` name the kernels every layer launches
+    on every decode step / prefill.  Then both again under the profiler.
+    Returns the graph run's launch counts and streams."""
+    cfg = model.cfg
+    name = cfg.name
+    kernels = (per_step, per_prefill)
+    prompts = serving_prompts(cfg)
+    new = 32
+    # warm-up on its own engine, the same prompts: cuBLAS handles, the
+    # allocator's blocks for every prefill shape
+    warm = engine_cls(model, params, scfg)
+    for p in prompts:
+        warm.submit(p, max_new_tokens=2)
+    warm.run_to_completion()
+    del warm
+    torch.cuda.synchronize()
+
+    # in turns, so that neither way runs on a colder process
+    runs = [serving_run(torch, engine_cls, model, params, scfg, prompts,
+                        new, kernels, graphs)
+            for graphs in (True, False, True, False)]
+    L = cfg.num_layers
+    card = card_line()
+    for run in runs:
+        launches = run["launches"]
+        steps = run["decode_steps"]
+        mean, lo, hi = run["prefill"]
+        log(f"serving {name} ({run['engine']}, max_len "
+            f"{scfg.max_len}, {run['label']}): prompts "
+            f"{[len(p) for p in prompts]}, {new} new tokens each, "
+            f"{run['prefills']} prefills, {steps} decode steps, launches "
+            f"{launches}")
+        log(f"serving {name} {run['label']}: warm_compile built "
+            f"{run['warm'][0]} in {run['warm'][1]:.3f} s before the clock; "
+            f"graph captures on the serving path {run['path_captures']}; "
+            f"steps on a covering bound {run['covering']}; graph pool "
+            f"{run['pool_mib']:.1f} MiB; graphs (launches captured, "
+            f"replays) {run['graphs']}")
+        log(f"serving {name} {run['label']}: prefill ms per request mean "
+            f"{mean:.2f} (min {lo:.2f}, max {hi:.2f}); decode ms per step "
+            f"p50 {run['p50']:.3f}; {run['tokens']} tokens in "
+            f"{run['wall']:.3f} s = {run['tokens_s']:.1f} tokens/s; peak "
+            f"memory {run['peak_gib']:.2f} GiB ({card})")
+        require(run["prefills"] == 8, f"{run['prefills']} prefills, want 8")
+        require(launches[per_step] >= L * steps > 0,
+                f"{per_step} launched {launches} for {steps} steps")
+        require(launches[per_prefill] >= L * run["prefills"],
+                f"{per_prefill} launched {launches} for {run['prefills']} "
+                "prefills")
+        require(len(run["streams"]) == 8 and all(
+            len(t) == new for t in run["streams"]),
+            f"streams incomplete: {[len(t) for t in run['streams']]}")
+        require(all(0 <= x < cfg.vocab_size for t in run["streams"]
+                    for x in t), "token out of the vocabulary")
+    for graph, eager in (runs[0:2], runs[2:4]):
+        require(graph["path_captures"] == 0,
+                f"{graph['path_captures']} graph captures on the serving "
+                "path after warm_compile")
+        require(bool(graph["graphs"]) and not eager["graphs"],
+                "the graph run replayed no graph, or the eager run did")
+        replays = sum(r for _, r in graph["graphs"])
+        require(replays == graph["decode_steps"],
+                f"{replays} graph replays for {graph['decode_steps']} steps")
+        require(graph["streams"] == eager["streams"] == runs[0]["streams"],
+                f"{name}: graph and eager streams differ")
+    diff = graph_logits_check(torch, engine_cls, model, params, scfg)
+    log(f"serving {name}: streams of the four runs equal, token for token; "
+        f"one decode step's logits, graph vs eager, max |diff| = "
+        f"{diff:.3e}")
+    if not cfg.attention_free:
+        covering_cost(torch, engine_cls, model, params, scfg)
+    torch.cuda.empty_cache()
+
+    # the same workload again under torch.profiler (device activity
+    # only), each way, on fresh engines warmed before the profiler starts:
+    # the whole run, then the decode steps alone (the profiler starts
+    # after step 0, which admits and prefills every request)
+    def make(graphs, first_step=False):
+        def build():
+            engine = make_engine(torch, engine_cls, model, params, scfg,
+                                 graphs)[0]
+            if first_step:
+                for p in prompts:
+                    engine.submit(p, max_new_tokens=new)
+                engine.step()
+                torch.cuda.synchronize()
+            return engine
+        return build
+
+    def rest(engine):
+        while engine.has_work:
+            engine.step()
+        torch.cuda.synchronize()
+
+    profiles = []
+    for graphs, run in ((True, runs[0]), (False, runs[1])):
+        profiles.append((make(graphs), lambda e: serve(torch, e, prompts,
+                                                       new),
+                         run["label"], run["wall"], None, None))
+        profiles.append((make(graphs, True), rest,
+                         run["label"] + ", decode steps", run["decode_wall"],
+                         None, run["decode_steps"] - 1))
     if per_step == "mamba_step":
         # the step's launches overlap (a kernel starts, then waits on the
         # one before), so its kernels' summed durations count the waits;
         # a replay with them serialised gives each kernel's own time
-        replays.append((", launches serialised", False))
-    for label, overlap in replays:
-        profile_serving(torch, lambda: serve(engine_cls(model, params, scfg)),
-                        name + label, kernels, wall, launches[per_step],
-                        per_step, overlap)
-    return launches
+        profiles.append((make(True), lambda e: serve(torch, e, prompts,
+                                                     new),
+                         "graphs, launches serialised", runs[0]["wall"],
+                         False, None))
+    for build, run, label, wall, overlap, steps in profiles:
+        profile_serving(torch, build, run, f"{name} {label}", kernels, wall,
+                        runs[0]["launches"][per_step], per_step, overlap,
+                        per_steps=steps)
+    return runs[0]["launches"], runs[0]["streams"]
 
 
-def profile_serving(torch, run, name, kernels, wall, steps, per_step,
-                    overlap):
-    """Profile ``run`` (device activity only) and log the device time by
+def serving_prompts(cfg):
+    """The serving phases' 8 prompts of 100-1000 tokens, from seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    plens = rng.integers(100, 1001, size=8)
+    return [rng.integers(1, cfg.vocab_size, size=int(n)) for n in plens]
+
+
+def profile_serving(torch, make, run, name, kernels, wall, steps, per_step,
+                    overlap, per_steps=None):
+    """Profile ``run(make())`` (device activity only; the engine is made,
+    and warmed, before the profiler starts) and log the device time by
     kind, the top kernels, and the busy share of the unprofiled ``wall``:
     the union of the kernels' intervals on the device's timeline, so that
     overlapping launches are counted once.  ``overlap`` (if not None) sets
-    the Mamba step's launch mode for the replay."""
+    the Mamba step's launch mode for the replay, captures included.  With
+    ``per_steps`` (the decode steps profiled), also each step's device
+    busy time against its host time in the unprofiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.mamba_scan import ops as ms
     if overlap is not None:
         ms.overlap = overlap
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-    ms.overlap = True
+    try:
+        engine = make()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(engine)
+    finally:
+        ms.overlap = True
+    del engine
     per_kernel = {}
     for ev in prof.key_averages():
         # only kernel events are traced, so each one's device time counts
@@ -922,12 +1182,115 @@ def profile_serving(torch, run, name, kernels, wall, steps, per_step,
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     log(f"serving {name} profile: top kernels (ms): " + "; ".join(
         f"{n[:60]} {t:.1f}" for n, t in top))
+    if per_steps:
+        log(f"serving {name} profile: per decode step, device busy "
+            f"{union / per_steps:.3f} ms of {wall * 1e3 / per_steps:.3f} ms "
+            f"host (mean over {per_steps} steps); by kind (ms per step): "
+            + ", ".join(f"{k} {v / per_steps:.3f}"
+                        for k, v in kinds.items()))
     if per_step == "mamba_step":
         prod = sum(t for k, t in per_kernel.items()
                    if "mamba_step_gemm" in k or "mamba_step_mma" in k)
         log(f"serving {name} profile: the step's weight-product kernels "
             f"{prod:.1f} ms of mamba_step's {kinds[per_step]:.1f} ms, "
             f"{prod / max(steps, 1):.4f} ms per call")
+
+
+# ---------------------------------------------------------------------------
+# live resize and replica migration, full width, through CUDA graphs
+# ---------------------------------------------------------------------------
+
+def run_migration_phase(torch, model, params, scfg):
+    """minitron-4b through ``DecodeEngine`` with graphs: the serving
+    phase's 8 prompts (32 new tokens); at step 3 ``apply(slots=12)`` and 4
+    more prompts (8 new tokens); at step 14 ``apply(slots=8)``; at step 16
+    2 more prompts, queued (every slot is taken); at step 17 one request
+    preempted (parked) and the engine evacuated: a second engine on the
+    same params adopts its live and parked requests (``adopt_request``)
+    and its queue (``adopt_queued``) and serves them to the end.  An
+    uninterrupted engine runs the same submits and applies.  Every stream
+    must equal the uninterrupted run's, and every ragged decode ticket
+    buffer must read zero afterwards."""
+    import numpy as np
+
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.workloads import DecodeEngine
+
+    prompts = serving_prompts(model.cfg)
+    rng = np.random.default_rng(1)
+    extra = [rng.integers(1, model.cfg.vocab_size, size=int(n))
+             for n in rng.integers(100, 600, size=6)]
+
+    def run(migrate: bool):
+        a = DecodeEngine(model, params, scfg)
+        a.warm_compile(None)
+        submitted = [(a.submit(p, max_new_tokens=32), p) for p in prompts]
+        moved, b, steps = [], None, 0
+        while a.has_work:
+            if steps == 3:
+                a.apply(point=DesignPoint(cus=0, slots=12))
+                submitted += [(a.submit(p, max_new_tokens=8), p)
+                              for p in extra[:4]]
+            elif steps == 14:
+                applied = a.apply(point=DesignPoint(cus=0, slots=8))
+                require(applied == {"slots": 8}, f"shrink gave {applied}")
+            elif steps == 16:
+                submitted += [(a.submit(p, max_new_tokens=8), p)
+                              for p in extra[4:]]
+            elif steps == 17 and migrate:
+                require(a.preempt_one() is not None, "nothing to preempt")
+                live, queued = a.evacuate()
+                require(len(live) == 8 and len(queued) == 2
+                        and a.preempted_depth == 0 and not a.has_work,
+                        f"evacuate left {len(live)} live, {len(queued)} "
+                        "queued")
+                b = DecodeEngine(model, params, scfg)
+                for req, block in live:
+                    b.adopt_request(req, block)
+                for req in queued:
+                    b.adopt_queued(req)
+                moved = [req for req, _ in live] + queued
+                while b.has_work:
+                    b.step()
+                    steps += 1
+                    require(steps <= 1000, "migrated serving did not finish")
+                b.results()
+                break
+            a.step()
+            steps += 1
+            require(steps <= 1000, "serving did not finish")
+        torch.cuda.synchronize()
+        done = a.results()
+        out = {tuple(p.tolist()): done[rid] for rid, p in submitted
+               if rid in done}
+        out.update({tuple(r.tokens.tolist()): list(r.out_tokens)
+                    for r in moved})
+        engines = [e for e in (a, b) if e is not None]
+        return out, steps, engines
+
+    t0 = time.perf_counter()
+    plain, plain_steps, plain_engines = run(False)
+    moved, steps, engines = run(True)
+    wall = time.perf_counter() - t0
+    require(len(plain) == len(moved) == 14, f"{len(plain)} and {len(moved)} "
+            "streams, want 14")
+    require(all(len(plain[k]) == len(moved[k]) for k in plain),
+            "migrated streams are incomplete")
+    require(moved == plain, "streams after resize, evacuate and adopt "
+            "differ from the uninterrupted run")
+    tickets = [g.tickets for e in engines + plain_engines
+               for g in graph_steps(e)] + list(rd._tickets.values())
+    nonzero = sum(int(t.abs().sum().item()) for t in tickets)
+    require(nonzero == 0, f"ragged decode tickets left at {nonzero}")
+    log(f"migration {model.cfg.name}: 14 requests, slots 8 -> 12 (step 3) "
+        f"-> 8 (step 14), evacuate at step 17 (8 live incl. 1 parked, 2 "
+        f"queued) into a second engine; {steps} steps (uninterrupted "
+        f"{plain_steps}); streams equal the uninterrupted run's, token "
+        f"for token; {len(tickets)} ticket buffers read zero; graph "
+        f"captures {[e.graph_captures for e in engines]} (uninterrupted "
+        f"{[e.graph_captures for e in plain_engines]}); both runs "
+        f"{wall:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1390,10 +1753,13 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"minitron-4b: {cfg.param_count() / 1e9:.2f} B params, random bf16 "
         f"weights in {time.perf_counter() - t0:.2f} s")
+    scfg = ServeConfig(max_slots=8, max_len=2048, eos_id=-1,
+                       use_kernels=True)
     launches.update(run_serving_phase(
-        torch, model, params, DecodeEngine,
-        ServeConfig(max_slots=8, max_len=2048, eos_id=-1, use_kernels=True),
-        per_step="ragged_decode", per_prefill="flash_attention"))
+        torch, model, params, DecodeEngine, scfg, per_step="ragged_decode",
+        per_prefill="flash_attention")[0])
+    run_migration_phase(torch, model, params, scfg)
+    torch.cuda.empty_cache()
     run_reference_check(torch, (model, params, True), (model, params, False),
                         tol=LOGIT_REL_TOL, label="reference check minitron-4b")
     del model, params
@@ -1417,7 +1783,8 @@ def main() -> int:
         f"{cfg.num_layers} layers, whatever max_len")
     launches.update(run_serving_phase(
         torch, model, params, SSMEngine, scfg, per_step="mamba_step",
-        per_prefill="mamba_scan"))
+        per_prefill="mamba_scan")[0])
+    pdl_edge_check(torch, SSMEngine, model, params, scfg)
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

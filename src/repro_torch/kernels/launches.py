@@ -1,0 +1,33 @@
+"""The kernel wrappers' launch counters, by kernel name.  Each wrapper adds
+one to its module's counter where it launches its kernel; a CUDA graph's
+replay adds the launches its capture recorded
+(``repro_torch.workloads.compile_cache.GraphStep``)."""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels.filco_mm import ops as _fm
+from repro_torch.kernels.flash_attention import ops as _fa
+from repro_torch.kernels.mamba_scan import ops as _ms
+from repro_torch.kernels.ragged_decode import ops as _rd
+
+# kernel name -> (wrapper module, counter attribute)
+COUNTERS = {"ragged_decode": (_rd, "launches"),
+            "flash_attention": (_fa, "launches"),
+            "mamba_step": (_ms, "step_launches"),
+            "mamba_scan": (_ms, "scan_launches"),
+            "flex_mm": (_fm, "launches"),
+            "static_mm": (_fm, "static_launches")}
+
+
+def counts() -> Dict[str, int]:
+    """Every counter's value now."""
+    return {name: getattr(mod, attr) for name, (mod, attr)
+            in COUNTERS.items()}
+
+
+def add(delta: Dict[str, int]) -> None:
+    """Add ``delta`` to the counters, by kernel name."""
+    for name, n in delta.items():
+        mod, attr = COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)

@@ -14,12 +14,14 @@ A call on the card is one launch and one ``torch.empty`` for the output
 and the fp32 scratch: the kernel reads ``lengths`` (int32 or int64,
 clamped to [1, T] on the card) and ``live`` (bool or integer) as the
 engine hands them over, and keeps its merge tickets in a buffer zeroed
-once per device and stream.  A CPU tensor takes the plain version
+once per device and stream (a CUDA graph's capture gets one of its own,
+``use_tickets``).  A CPU tensor takes the plain version
 (``ref.py``); a CUDA tensor launches the kernel or raises.  ``launches``
 counts wrapper calls that launched the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import numbers
@@ -69,9 +71,35 @@ def _ticket_buffer(device, stream: int, n: int) -> torch.Tensor:
     key = (device.index, stream)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"ragged_decode_attention: no ticket buffer of {n} for the "
+                "capturing stream; give the capture one (use_tickets)")
         buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _tickets[key] = buf
     return buf
+
+
+@contextlib.contextmanager
+def use_tickets(buf, stream: int):
+    """Launches on ``stream`` take ``buf`` (int32 zeros) as their tickets
+    inside the block.  A CUDA graph captured there keeps the buffer's
+    address, so the caller keeps ``buf`` as long as the graph: its
+    replays then share tickets with no eager call and no other graph.
+    ``buf`` None leaves the stream's buffer as it is."""
+    if buf is None:
+        yield
+        return
+    key = (buf.device.index, stream)
+    prev = _tickets.get(key)
+    _tickets[key] = buf
+    try:
+        yield
+    finally:
+        if prev is None:
+            _tickets.pop(key, None)
+        else:
+            _tickets[key] = prev
 
 
 def _check(q1, k, v):

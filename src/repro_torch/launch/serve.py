@@ -3,11 +3,13 @@
     python -m repro_torch.launch.serve --arch minitron-4b [--reduced] \\
         [--device cpu] --requests N
 
-Builds the model with random weights from ``--seed``, submits ``N``
-requests with random prompts, runs the engine of the arch's workload class
-until they finish (``DecodeEngine`` for dense archs, ``SSMEngine`` for
-``falcon-mamba-7b``) and prints JSON stats, as ``repro.launch.serve`` does
-in single-model mode.  Runs on the GPU unless ``--device cpu`` is given.
+Builds the model with random weights from ``--seed``, warms the engine's
+decode steps (``warm_compile``: CUDA graphs on the card) before the clock,
+submits ``N`` requests with random prompts, runs the engine of the arch's
+workload class until they finish (``DecodeEngine`` for dense archs,
+``SSMEngine`` for ``falcon-mamba-7b``) and prints JSON stats, as
+``repro.launch.serve`` does in single-model mode.  Runs on the GPU unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ def main(argv=None) -> int:
     engine = ENGINES[workload_class_of(cfg)](
         model, params, ServeConfig(max_slots=args.max_slots,
                                    max_len=args.max_len, eos_id=-1))
+    warm_builds = engine.warm_compile(None)
     rng = np.random.default_rng(args.seed)
     t0 = time.monotonic()
     for _ in range(args.requests):
@@ -70,6 +73,9 @@ def main(argv=None) -> int:
         "step_ms": {"p50": round(float(np.percentile(arr, 50)), 2),
                     "p95": round(float(np.percentile(arr, 95)), 2)},
         "arena_utilization": engine.arena.utilization(),
+        "warm_compile_builds": warm_builds,
+        "graph_captures": engine.graph_captures,
+        "covering_steps": engine.covering_steps,
     }, indent=1))
     return 0
 

@@ -166,11 +166,14 @@ def decoder_step(params, cfg: ModelConfig, x1, cache, *,
                  use_kernels: bool = False, kv_bound: Optional[int] = None,
                  live=None):
     """use_kernels/kv_bound/live: the ragged decode hot path (see
-    ``attention.gqa_step``)."""
+    ``attention.gqa_step``).  Positions advance in place, as the KV and
+    state do: a captured step reads and writes the same tensors on every
+    replay."""
     pos = cache["pos"]
     for i, lp in enumerate(params["layers"]):
         x1, _ = _layer_step(lp, cfg, x1, _layer_cache(cache, i), pos,
                             is_global=_global(cfg, i),
                             use_kernels=use_kernels, kv_bound=kv_bound,
                             live=live)
-    return x1, {"prologue": [], "scanned": cache["scanned"], "pos": pos + 1}
+    pos.add_(1)
+    return x1, cache

@@ -5,11 +5,13 @@ A Mamba tenant carries O(1) state per slot, a conv window plus the
 (d_inner, N) recurrent state per layer, so admission is slot-bound, never
 length-bound: any prompt length and any generation budget occupy exactly
 one state slot (``mamba_prefill`` folds the whole prompt into the state).
-The continuous-batching machinery (slots, pipelined dispatch, paged
-admission, preemption with exact resume) is the decode engine's; this
-class swaps the admission accounting for the constant-size state pool.
-The base engine prefills SSM archs at the exact prompt length and passes
-no KV bound to their decode steps.
+The continuous-batching machinery (slots, pipelined dispatch from the
+executable cache of CUDA graphs, paged admission, preemption with exact
+resume, live resizing, evacuation and adoption) is the decode engine's;
+this class swaps the admission accounting for the constant-size state
+pool.  The base engine prefills SSM archs at the exact prompt length
+(one prefill entry per length) and its decode bounds are ``()``: one
+decode graph per slot count, each layer's Mamba step in it.
 """
 from __future__ import annotations
 
@@ -19,14 +21,16 @@ from repro_torch.models import ssm as S
 from repro_torch.models.model import Model
 from repro_torch.obs import Telemetry
 from repro_torch.workloads.base import SSM
+from repro_torch.workloads.compile_cache import ExecutableCache
 from repro_torch.workloads.decode import DecodeEngine, Request, ServeConfig
 
 
-# fabriclint: disable=protocol -- single-device port: the fabric surface (reshard_to, apply, warm_compile, sync, design) belongs to the port's fabric slice
+# fabriclint: disable=protocol -- one device: reshard_to waits for a second GPU
 class SSMEngine(DecodeEngine):
     workload_class = SSM
 
     def __init__(self, model: Model, params, cfg: ServeConfig,
+                 exec_cache: Optional[ExecutableCache] = None,
                  obs: Optional[Telemetry] = None):
         mc = model.cfg
         if mc.ssm is None or not mc.attention_free:
@@ -34,7 +38,7 @@ class SSMEngine(DecodeEngine):
                 f"SSMEngine serves attention-free SSM archs; {mc.name!r} is "
                 f"family={mc.family!r} (use DecodeEngine for archs with a "
                 "KV cache)")
-        super().__init__(model, params, cfg, obs=obs)
+        super().__init__(model, params, cfg, exec_cache=exec_cache, obs=obs)
 
     # ------------------------------------------------------------------
     # constant-size state pool: admission accounting hooks

@@ -31,6 +31,7 @@ from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,  # noqa: E402
 from repro_torch.kernels.ragged_decode import ops as rd  # noqa: E402
 from repro_torch.kernels.ragged_decode.ref import \
     ragged_decode_attention_ref  # noqa: E402
+from repro_torch.workloads.decode import _WARMUP  # noqa: E402
 
 GPU_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 MAMBA_ORDER = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
@@ -188,9 +189,12 @@ def test_engine_on_gpu_kernel_path_matches_plain_path(cuda):
         streams[kern] = eng.results()
         decode_steps = eng._obs.registry.histogram_at("decode_step_s").count
         if kern:
+            # each decode step replays its graph (the layers' launches);
+            # each capture ran _WARMUP eager steps before it
             n = rd.launches - rd0
             assert n % cfg.num_layers == 0
-            assert cfg.num_layers <= n <= cfg.num_layers * decode_steps
+            assert cfg.num_layers <= n <= cfg.num_layers * (
+                decode_steps + _WARMUP * eng.graph_captures)
             assert fa.launches - fa0 >= cfg.num_layers * len(prompts)
         else:
             assert (rd.launches, fa.launches) == (rd0, fa0)
@@ -384,7 +388,10 @@ def test_ssm_engine_on_gpu_kernel_path_matches_plain_path(cuda):
         streams[kern] = eng.results()
         decode_steps = eng._obs.registry.histogram_at("decode_step_s").count
         if kern:
-            assert ms.step_launches - st0 == cfg.num_layers * decode_steps
+            # each decode step replays its graph (the layers' launches);
+            # each capture ran _WARMUP eager steps before it
+            assert ms.step_launches - st0 == cfg.num_layers * (
+                decode_steps + _WARMUP * eng.graph_captures)
             assert ms.scan_launches - sc0 == cfg.num_layers * len(prompts)
         else:
             assert (ms.step_launches, ms.scan_launches) == (st0, sc0)
