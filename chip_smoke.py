@@ -50,7 +50,23 @@
    plain path on an fp32 copy of the weights, and in bf16 against the
    model's own rounding floor: its distance from the fp32 plain path may
    exceed the bf16 plain path's by a stated margin only.
-5. Paper phase.  The filco_mm sweep (the stand-in for Fig. 8's
+5. Fabric phase: full-width minitron-4b (``max_len`` 2048) and
+   falcon-mamba-7b (``max_len`` 512), random bf16 weights from seeds 0 and
+   1, as two tenants of one ``ComposedServer`` on 8 logical CUs (8 slots
+   each, the two-stage policy every 4 steps, warm recomposition).  Each
+   tenant's 8 prompts of phase 3 land in one burst at a step drawn from
+   numpy seed 0, 32 new tokens each; once minitron is half done, ``unify``
+   gives it the card.  Logs every recomposition event, graph captures on
+   the serving path after warming (must be 0), per tenant tokens/s, decode
+   p50 (host, and on the device: its stream) and TTFT p50/p99, the
+   prediction ledger (Stage 1's per-token cost against the measured one,
+   per design key), peak memory and the launches of the four serving
+   kernels inside the fabric (each must launch).  Requires a
+   policy-driven recomposition and the unify, and each tenant's streams
+   equal to a lone engine's on the same requests and weights, but where
+   the lone path's top-2 margin is under ``ARGMAX_MARGIN`` (counted and
+   logged).  Then the run again under the profiler: the busy share.
+6. Paper phase.  The filco_mm sweep (the stand-in for Fig. 8's
    single-kernel efficiency): a 2048^3 buffer in fp32 and bf16, valid dims
    at 1/8, 1/4, 1/2 and all of each axis and a ragged (1040, 1032, 2040);
    ``flex_mm`` against its plain version with zeros outside the valid
@@ -875,6 +891,9 @@ def filled_engine(torch, engine_cls, model, params, scfg, S: int,
     import dataclasses
     cfg = dataclasses.replace(scfg, max_slots=8, max_len=max_len)
     engine = engine_cls(model, params, cfg)
+    # the pool was made on the engine's stream; these writes are on this
+    # thread's stream
+    torch.cuda.synchronize()
     gen = torch.Generator(device="cuda").manual_seed(3)
     V = model.cfg.vocab_size
     toks = torch.randint(1, V, (8, S), generator=gen, device="cuda",
@@ -884,6 +903,7 @@ def filled_engine(torch, engine_cls, model, params, scfg, S: int,
     engine.cache["pos"].copy_(filled["pos"])
     x = torch.randint(1, V, (8, 1), generator=gen, device="cuda",
                       dtype=torch.int32)
+    torch.cuda.synchronize()
     return engine, x
 
 
@@ -899,6 +919,7 @@ def covering_cost(torch, engine_cls, model, params, scfg):
     times = {}
     for bounds in ((928,), (scfg.max_len,)):
         step = engine._build_decode(pool, bounds)
+        torch.cuda.synchronize()        # the capture ran on engine streams
         times[bounds] = time_ms(torch, step, reps=20)
     log(f"covering bound cost {model.cfg.name}: a decode step of 8 slots "
         f"at 900 rows, graph at the exact bound (928,) {times[(928,)]:.4f} "
@@ -921,6 +942,7 @@ def graph_logits_check(torch, engine_cls, model, params, scfg):
                                  kv_bound=kv_bound, live_mask=live)[0]
 
     graph = engine._capture(pool, step)
+    torch.cuda.synchronize()            # the capture ran on engine streams
     state = engine._step_state(pool)
     saved = [t.clone() for t in state]
     eager = step().float()
@@ -1194,6 +1216,222 @@ def profile_serving(torch, make, run, name, kernels, wall, steps, per_step,
         log(f"serving {name} profile: the step's weight-product kernels "
             f"{prod:.1f} ms of mamba_step's {kinds[per_step]:.1f} ms, "
             f"{prod / max(steps, 1):.4f} ms per call")
+
+
+# ---------------------------------------------------------------------------
+# the serving fabric: two full-width tenants of one composed card
+# ---------------------------------------------------------------------------
+
+FABRIC_CUS = 8
+# tenant (arch), max_len, weight seed
+FABRIC_FLEET = (("minitron-4b", 2048, 0), ("falcon-mamba-7b", 512, 1))
+FABRIC_KERNELS = ("ragged_decode", "flash_attention", "mamba_step",
+                  "mamba_scan")
+FABRIC_NEW = 32
+
+
+def make_fabric(torch, params=None):
+    """The fabric of the phase: the two tenants on ``FABRIC_CUS`` CUs of
+    the card, 8 slots each, the two-stage policy deciding every 4 steps,
+    warm recomposition; each tenant warmed by ``warm_compile(None)``."""
+    from repro_torch.common.platform import H100_SXM, per_cu
+    from repro_torch.serve import (AnalyticalPolicy, ComposedServer,
+                                   ServeConfig, TenantSpec)
+    specs = [TenantSpec(arch, arch, reduced=False, seed=seed,
+                        serve=ServeConfig(max_slots=8, max_len=max_len,
+                                          eos_id=-1, use_kernels=True))
+             for arch, max_len, seed in FABRIC_FLEET]
+    srv = ComposedServer(specs, num_cus=FABRIC_CUS, device="cuda",
+                         params=params,
+                         policy=AnalyticalPolicy(per_cu(H100_SXM,
+                                                        FABRIC_CUS)),
+                         decide_every=4, warm=True)
+    for eng in srv.engines.values():
+        eng.warm_compile(None)
+    torch.cuda.synchronize()
+    return srv
+
+
+def fabric_traffic(cfgs):
+    """Each tenant's 8 requests (``serving_prompts``: 100-1000 tokens) in
+    one burst at a step drawn from numpy seed 0 over 4x the requests, the
+    span of the reference launcher's bursty pattern."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return {t: (int(rng.integers(0, 4 * 8)), serving_prompts(cfg))
+            for t, cfg in cfgs.items()}
+
+
+def drive_fabric(torch, srv, traffic):
+    """Serve ``traffic``; once minitron has a request in flight and half
+    its work done, unify the card on it (``unify``).  Returns (streams by
+    tenant in submission order, the wall in s, the manual unify's event,
+    the steps)."""
+    rids = {t: None for t in traffic}
+    last = max(at for at, _ in traffic.values())
+    uni, unify_event, step = "minitron-4b", None, 0
+    t0 = time.perf_counter()
+    while step <= last or any(e.has_work for e in srv.engines.values()):
+        for t, (at, prompts) in traffic.items():
+            if step == at:
+                rids[t] = [srv.submit(t, p, max_new_tokens=FABRIC_NEW)
+                           for p in prompts]
+        eng = srv.engines[uni]
+        if (unify_event is None and rids[uni] is not None
+                and eng.active_count > 0
+                and eng.pending_tokens() < 8 * FABRIC_NEW // 2):
+            unify_event = srv.unify(uni)
+        srv.step()
+        step += 1
+        require(step <= 2000, "the fabric did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = srv.results()
+    return ({t: [res[t][r] for r in rids[t]] for t in traffic}, wall,
+            unify_event, step)
+
+
+def first_token_margin(torch, model, params, prompt, tokens):
+    """The top-2 margin, relative to its largest |logit|, of the logits
+    that pick the token after ``tokens``: a prefill of ``prompt`` then
+    ``tokens`` on a fresh cache, the kernels on."""
+    seq = list(prompt) + list(tokens)
+    toks = torch.tensor([seq], dtype=torch.int32, device="cuda")
+    cache = model.init_cache(1, len(seq) + 1)
+    logits, _ = model.prefill(params, {"tokens": toks}, cache,
+                              use_kernels=True)
+    top2 = logits.float().topk(2, dim=-1).values[0]
+    return (top2[0] - top2[1]).item() / logits.float().abs().max().item()
+
+
+def lone_streams(torch, srv, tenant, prompts):
+    """``prompts`` served by a lone engine of ``tenant`` (its class, its
+    weights, its initial ServeConfig), warmed first."""
+    from repro_torch.workloads.base import build_engine
+    grp = srv.engines[tenant]
+    eng = build_engine(srv.classes[tenant], grp._model, grp.params,
+                       srv.specs[tenant].serve)
+    eng.warm_compile(None)
+    rids = [eng.submit(p, max_new_tokens=FABRIC_NEW) for p in prompts]
+    res = eng.run_to_completion(1000)
+    return [res[r] for r in rids]
+
+
+def run_fabric_phase(torch):
+    """Full-width minitron-4b (DecodeEngine) and falcon-mamba-7b
+    (SSMEngine) as two tenants of one 8-CU fabric: bursty traffic, the
+    policy recomposing live, one manual unify; the fabric's events, its
+    captures on the serving path after warming (0), per-tenant tokens/s,
+    decode p50 and TTFT, predicted against measured per-token cost per
+    design key, peak memory and the four serving kernels' launches inside
+    it.  Each tenant's streams must equal a lone engine's on the same
+    requests and weights, except at counted near-ties.  Then the same run
+    under the profiler: the busy share of the fabric's wall."""
+    import gc
+    card = card_line()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = make_fabric(torch)
+    sizes = ", ".join(f"{t} ({c.param_count() / 1e9:.2f} B params)"
+                      for t, c in srv.cfgs.items())
+    log(f"fabric: {sizes} on {FABRIC_CUS} CUs of one card, built and warmed in "
+        f"{time.perf_counter() - t0:.2f} s; initial composition "
+        f"{srv.sizes()}; Stage 1 memory budget per CU "
+        f"{srv.policy.stage1.mem_budget_bytes / 1e9:.2f} GB")
+    traffic = fabric_traffic(srv.cfgs)
+    bursts = {t: at for t, (at, _) in traffic.items()}
+    plens = [len(p) for p in next(iter(traffic.values()))[1]]
+    log(f"fabric traffic: burst steps {bursts}, 8 requests each of {plens} "
+        f"prompt tokens, {FABRIC_NEW} new tokens")
+    reset_counts(FABRIC_KERNELS)
+    streams, wall, unify_event, steps = drive_fabric(torch, srv, traffic)
+    launches = read_counts(FABRIC_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = srv.stats()
+    for e in srv.events:
+        log(f"fabric event step {e.step} {e.reason}"
+            f"{' (manual)' if e is unify_event else ''}: "
+            f"{e.sizes_before} -> {e.sizes_after}, moved {list(e.moved)}, "
+            f"retuned {list(e.retuned)}, parked {list(e.parked)}, design "
+            f"{e.design}, apply {e.seconds:.4f} s, warm builds "
+            f"{e.warm_builds} in {e.warm_compile_seconds:.4f} s, first "
+            f"step after {e.post_step_seconds} s")
+    summ = srv.slo_summary()["tenants"]
+    dec = srv.decode_step_ms()
+    merged = srv.metrics()
+    for t, st in streams.items():
+        toks = sum(len(x) for x in st)
+        ttft = summ[t].get("ttft_ms", {})
+        dev = merged.merged_histogram("decode_device_s", tenant=t)
+        log(f"fabric {t}: {toks} tokens in {wall:.3f} s = "
+            f"{toks / wall:.1f} tokens/s; decode step p50 "
+            f"{dec.get(t, {}).get('p50', float('nan'))} ms host, "
+            f"{dev.quantile(0.5) * 1e3:.3f} ms on the device (its stream, "
+            f"{dev.count} steps); TTFT p50 "
+            f"{ttft.get('p50')} ms, p99 {ttft.get('p99')} ms; design "
+            f"{stats['design_points'][t]}; graph captures on the serving "
+            f"path {stats['serving_captures'][t]} ({card})")
+    led = srv.ledger.summary()
+    for key, ent in led["entries"].items():
+        log(f"fabric ledger {key}: predicted {ent['predicted_unit_s']} s "
+            f"per token (Stage 1 at commit), measured p50 "
+            f"{ent['measured_p50_unit_s']} s per token on the device over "
+            f"{ent['measured_n']} steps, predicted/measured {ent['ratio']}")
+    log(f"fabric ledger aggregate {led['aggregate']}")
+    log(f"fabric: {steps} steps, peak memory {peak:.2f} GiB, launches "
+        f"inside the fabric {launches}; {stats['recompositions']} "
+        f"recompositions in {stats['recompose_seconds']} s of apply and "
+        f"{stats['warm_compile_seconds']} s of warming ({card})")
+    policy_events = [e for e in srv.events if e is not unify_event]
+    require(bool(policy_events), "no policy-driven recomposition")
+    require(unify_event is not None and unify_event.reason == "unify",
+            "no unify")
+    require(all(n == 0 for n in stats["serving_captures"].values()),
+            f"graph captures on the serving path after warm_compile: "
+            f"{stats['serving_captures']}")
+    for k in FABRIC_KERNELS:
+        require(launches[k] > 0, f"{k} never launched inside the fabric")
+    near_ties = 0
+    for t, st in streams.items():
+        vocab = srv.cfgs[t].vocab_size
+        require(len(st) == 8 and all(len(x) == FABRIC_NEW for x in st)
+                and all(0 <= v < vocab for x in st for v in x),
+                f"fabric {t}: streams incomplete or out of the vocabulary")
+        prompts = traffic[t][1]
+        lone = lone_streams(torch, srv, t, prompts)
+        grp = srv.engines[t]
+        for i, (got, want) in enumerate(zip(st, lone)):
+            if got == want:
+                continue
+            p = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            margin = first_token_margin(torch, grp._model, grp.params,
+                                        prompts[i], want[:p])
+            near_ties += 1
+            log(f"fabric {t} request {i}: parts from the lone engine at "
+                f"token {p} ({got[p]} vs {want[p]}); the lone path's top-2 "
+                f"margin there {margin:.3e} (near-tie below "
+                f"{ARGMAX_MARGIN:.0e})")
+            require(margin < ARGMAX_MARGIN,
+                    f"fabric {t} request {i} parts from the lone engine "
+                    "away from a near-tie")
+    log(f"fabric: streams equal the lone engines' but for {near_ties} "
+        "near-tie(s)")
+    params = {t: g.params for t, g in srv.engines.items()}
+    del srv
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def run(fab):
+        drive_fabric(torch, fab, traffic)
+
+    profile_serving(torch, lambda: make_fabric(torch, params), run,
+                    "fabric", FABRIC_KERNELS, wall, launches["mamba_step"],
+                    None, None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1789,7 +2027,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     run_ssm_reference_checks(torch, model)
+    del model
     log(f"falcon-mamba-7b phase done at {phase_s()}")
+
+    # both models as two tenants of one composed card
+    run_fabric_phase(torch)
+    log(f"fabric phase done at {phase_s()}")
 
     entries = []
     for name, entry in kernels.items():

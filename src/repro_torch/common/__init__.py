@@ -1,4 +1,6 @@
-from repro_torch.common.platform import (PROFILES, VCK190, PlatformProfile,
-                                         get_profile)
+from repro_torch.common.platform import (DEFAULT_CUS, H100_SXM, PROFILES,
+                                         VCK190, PlatformProfile,
+                                         get_profile, per_cu)
 
-__all__ = ["PROFILES", "VCK190", "PlatformProfile", "get_profile"]
+__all__ = ["DEFAULT_CUS", "H100_SXM", "PROFILES", "VCK190",
+           "PlatformProfile", "get_profile", "per_cu"]

@@ -6,9 +6,17 @@ input (paper §3.1, Fig. 6).  We keep that contract: every latency estimate in
 ``repro_torch.core.analytical`` reads from a :class:`PlatformProfile`, never
 from hard-coded constants.
 
-One profile ships: ``VCK190``, the paper's evaluation board (AMD Versal
-ACAP, 150 MHz PL, 1 GHz AIE), which the paper path's DSE prices designs on.
-An H100 profile comes with the port's fabric slice.
+Two profiles ship:
+
+* ``VCK190`` — the paper's evaluation board (AMD Versal ACAP, 150 MHz PL,
+  1 GHz AIE), which the paper path's DSE prices designs on;
+* ``H100_SXM`` — one NVIDIA H100 SXM (data sheet figures), which the
+  serving fabric prices tenants on.
+
+The serving fabric composes one card out of ``N`` logical CUs, and its
+policy prices a tenant on ``c`` CUs as ``c/N`` of the card's compute,
+bandwidth and memory: :func:`per_cu` is that share as a profile (the
+reference's profiles are per chip, and a chip is one of its CUs).
 """
 from __future__ import annotations
 
@@ -78,7 +86,56 @@ VCK190 = PlatformProfile(
     bitstream_reload_s=1.0,                      # full PDI reload ~seconds
 )
 
-PROFILES = {p.name: p for p in (VCK190,)}
+# ---------------------------------------------------------------------------
+# NVIDIA H100 SXM (data sheet, dense rates): 132 SMs; bf16 on the tensor
+# cores at 989 TFLOP/s = 132 SMs x 4096 FLOP/clock at 1.83 GHz, counted in
+# wgmma m64n256k16 atoms (524288 FLOP, 128 clocks each); 80 GB of HBM3 at
+# 3.35 TB/s; 228 KB of shared memory per SM at 128 B/clock.  One card has no
+# inter-chip link in this model.  ``bitstream_reload_s`` is the port's own
+# measured cost of one decode-graph capture on the card, 0.13-0.18 s
+# (PERF.md §2): what a recomposition that is not warmed pays.
+# ---------------------------------------------------------------------------
+H100_SXM = PlatformProfile(
+    name="h100_sxm",
+    peak_flops=989e12,
+    atom_shape=(64, 16, 256),
+    atom_cycles=128.0,
+    compute_clock_hz=1.83e9,
+    num_compute_units=132,
+    hbm_bytes=80 * 10**9,
+    hbm_bw=3.35e12,
+    onchip_bytes=132 * 228 * 1024,
+    onchip_bw=132 * 128 * 1.83e9,
+    ici_bw=0.0,
+    ici_links=0,
+    instr_bytes=32,
+    reconfig_cycles=16.0,
+    bitstream_reload_s=0.15,
+)
+
+# The serving fabric's default CU count on one card: 8, as the reference's
+# 8-column fabric, so decisions on both can be compared.
+DEFAULT_CUS = 8
+
+
+def per_cu(profile: PlatformProfile, num_cus: int) -> PlatformProfile:
+    """One CU's share of ``profile`` when the card is composed of
+    ``num_cus`` logical CUs: compute, bandwidth and memory divided by
+    ``num_cus`` (``num_compute_units`` may come out fractional: 16.5 SMs a
+    CU at 132 / 8).  The analytical model then prices ``c`` CUs as ``c``
+    times this share, as it prices ``c`` chips of the reference's mesh."""
+    n = max(int(num_cus), 1)
+    return dataclasses.replace(
+        profile, name=f"{profile.name}/{n}",
+        peak_flops=profile.peak_flops / n,
+        num_compute_units=profile.num_compute_units / n,
+        hbm_bytes=profile.hbm_bytes // n,
+        hbm_bw=profile.hbm_bw / n,
+        onchip_bytes=profile.onchip_bytes // n,
+        onchip_bw=profile.onchip_bw / n)
+
+
+PROFILES = {p.name: p for p in (VCK190, H100_SXM)}
 
 
 def get_profile(name: str) -> PlatformProfile:

@@ -10,12 +10,13 @@ size, reproducing the paper's guidance in §4.4).
 The result carries the ExecutionPlan consumed by the code generator
 (instruction streams) and by the mesh composer.
 
-The *serving-side* incarnation of the same two-stage split lives in the
-reference's ``serve/dse.py`` (not ported yet): there Stage 1 optimizes one
-tenant engine's runtime parameters (TP degree, slot count, bucket ladder)
-per candidate CU grant with the analytical model, and Stage 2 is the
-recomposition policy's split search over those Stage-1-optimal
-:class:`DesignPoint` memos.  The
+The *serving-side* incarnation of the same two-stage split lives in
+:mod:`repro_torch.serve.dse`: there Stage 1 optimizes one tenant engine's
+runtime parameters (replica count, slot count, bucket ladder) per
+candidate CU grant with the analytical model, and Stage 2 is the
+recomposition policy's split search
+(:class:`repro_torch.serve.fabric.AnalyticalPolicy`) over those
+Stage-1-optimal :class:`DesignPoint` memos.  The
 ``DesignPoint`` record is defined here because it is the shared currency
 between the two stages — the offline driver's mode tables play the same
 role for the schedule optimizer.

@@ -1,7 +1,8 @@
 """Shared engine plumbing of the port (``repro.workloads.base`` on one
 device): the workload classes and the class an architecture defaults to,
-the ``Engine`` protocol the fabric programs against, the decayed estimate
-of submitted lengths behind ``recent_lengths()``, per-engine build
+the ``Engine`` protocol the fabric programs against, the bucket ladders
+the serving DSE prices encode phases on, the decayed estimate of
+submitted lengths behind ``recent_lengths()``, per-engine build
 counting, bounded retention of finished requests, ``build_engine`` and
 the runtime sanitizer (``REPRO_SANITIZE=1``)."""
 from __future__ import annotations
@@ -11,7 +12,7 @@ import contextlib
 import functools
 import os
 import threading
-from typing import (Any, Dict, List, Optional, Protocol, Tuple,
+from typing import (Any, Dict, List, Optional, Protocol, Sequence, Tuple,
                     runtime_checkable)
 
 from repro_torch.configs.base import ModelConfig
@@ -35,6 +36,30 @@ def workload_class_of(cfg: ModelConfig) -> str:
     if cfg.encoder_layers > 0 and cfg.cross_attention:
         return ENCDEC
     return DECODE
+
+
+def length_buckets(buckets: Sequence[int], cap: int) -> Tuple[int, ...]:
+    """Normalized ascending ladder of padded-length program buckets.
+
+    ``buckets`` are the requested sequence-length breakpoints (e.g.
+    ``(128, 512)``); ``cap`` is the engine's hard capacity and is always the
+    final bucket.  Entries outside ``(0, cap)`` are dropped.  A job of
+    length L runs in the smallest bucket >= L, so short jobs skip the padded
+    FLOPs of the full-capacity program; an empty ``buckets`` means one
+    program at ``cap``.
+    """
+    ladder = sorted({int(b) for b in buckets if 0 < int(b) < cap})
+    return tuple(ladder) + (cap,)
+
+
+def pick_bucket(ladder: Sequence[int], length: int) -> int:
+    """Smallest bucket in ``ladder`` that fits ``length`` (ladder is
+    ascending and its last entry is the capacity, so callers reject
+    oversized jobs before picking)."""
+    for b in ladder:
+        if length <= b:
+            return b
+    return ladder[-1]
 
 
 class DecayedLengthEstimator:
@@ -185,7 +210,9 @@ def build_engine(wclass: str, model, params, serve_cfg, *, exec_cache=None,
     classes = {DECODE: DecodeEngine, SSM: SSMEngine}
     if wclass not in classes:
         raise KeyError(f"unknown or unported workload class {wclass!r}; "
-                       f"the port serves {tuple(classes)}")
+                       f"the port serves {tuple(classes)} (the encoder and "
+                       "enc-dec engines are ROADMAP.md queue 1, items 5 "
+                       "and 6)")
     return classes[wclass](model, params, serve_cfg, exec_cache=exec_cache,
                            obs=obs)
 

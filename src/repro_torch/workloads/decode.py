@@ -20,6 +20,15 @@ keys.  ``graphs = False`` (this module) builds eager closures on the card
 too, for comparison; on the CPU every entry is one.  A graph that fails
 to capture or replay raises.
 
+Serving stream: on the card each engine does its device work on a CUDA
+stream of its own, ``stream`` (a fabric's tenants then overlap on the
+card): steps, captures, resizes, exports and restores, whichever thread
+calls them.  A capture's side stream waits on it and it waits on the side
+stream, so a ``warm_compile`` from another thread never runs its warm-up
+steps ahead of a replay still queued on it.  A caller that touches the
+engine's state on another stream orders it against ``stream`` itself
+(``torch.cuda.synchronize()`` before and after).
+
 Pipelined dispatch: when termination is length-based (``eos_id < 0``),
 step *k* runs from the device-resident tokens of step *k-1* (the pool's
 ``prev``) before the host reads them; each step's tokens are copied to
@@ -33,6 +42,7 @@ waits for a second GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -143,6 +153,9 @@ class _Inflight:
     ready: Optional[torch.cuda.Event]   # set when the host copy landed
     entries: List[Tuple[int, Request, bool]]   # (slot, request, finishing)
     pipelined: bool
+    # recorded on the serving stream just before the step: with ``ready``
+    # it times the step on the device (None off the card)
+    start: Optional[torch.cuda.Event] = None
 
 
 def _tree_map(fn: Callable, axes, *trees):
@@ -196,10 +209,11 @@ class DecodeEngine(EngineTelemetry):
     resizing, replica evacuation and adoption, and preemption with exact
     resume.
 
-    ``_lock`` (re-entrant) orders all of the engine's device work: a step,
-    a capture (``warm_compile`` from another thread included), a resize,
-    an export or an adoption each hold it, so a capture's warm-up steps
-    and its replays never meet a replay of the serving loop."""
+    ``_lock`` (re-entrant) orders the host calls that launch the engine's
+    device work: a step, a capture (``warm_compile`` from another thread
+    included), a resize, an export or an adoption each hold it.  The
+    device work itself is ordered by the engine's serving stream
+    ``stream``, on which all of it runs (on the card)."""
 
     workload_class = DECODE
 
@@ -225,9 +239,15 @@ class DecodeEngine(EngineTelemetry):
         self._free_slots = list(range(cfg.max_slots))
         self.params = params
         self._lock = threading.RLock()
-        self._side = (torch.cuda.Stream(self.device)
-                      if self.device.type == "cuda" else None)
-        self._pool = self._new_pool(cfg.max_slots)
+        cuda = self.device.type == "cuda"
+        # the serving stream; it first waits for the caller's stream, where
+        # the params were made
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        if cuda:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._side = torch.cuda.Stream(self.device) if cuda else None
+        with self._on_stream():
+            self._pool = self._new_pool(cfg.max_slots)
         # a candidate pool warm_compile built for another slot count
         self._staged: Optional[_Pool] = None
         self._exec = (exec_cache if exec_cache is not None
@@ -241,8 +261,18 @@ class DecodeEngine(EngineTelemetry):
         self._prefill_lens = ({self._bucketed(cfg.prefill_bucket)}
                               if model.cfg.ssm is None else set())
         self._inflight: Optional[_Inflight] = None
+        # (device seconds, tokens) of the last harvested decode step on the
+        # card, until a reader takes it (``take_step_device``)
+        self._step_device: Optional[Tuple[float, int]] = None
         self._inject: Dict[int, int] = {}   # slot -> token since last dispatch
         self._emit_buf: List[Tuple[int, int]] = []
+
+    def _on_stream(self):
+        """The serving stream as the calling thread's current stream (a
+        no-op off the card)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     @property
     def cache(self) -> PyTree:
@@ -344,9 +374,10 @@ class DecodeEngine(EngineTelemetry):
         return staged
 
     def sync(self) -> None:
-        """Block until this engine's device work is done."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Block until this engine's device work is done: its serving
+        stream (which waits on every capture's side stream)."""
+        if self.stream is not None:
+            self.stream.synchronize()
 
     def design(self) -> Dict[str, Any]:
         """The applied design point: TP degree (one device: None), slot
@@ -366,7 +397,7 @@ class DecodeEngine(EngineTelemetry):
         if point.tp not in (None, 1):
             raise ValueError(f"tensor parallelism (tp={point.tp}) waits for "
                              "a second GPU")
-        with self._lock:
+        with self._lock, self._on_stream():
             self._harvest()             # in-flight tokens of the old pool
             applied: Dict[str, Any] = {}
             if point.slots is not None and \
@@ -399,7 +430,7 @@ class DecodeEngine(EngineTelemetry):
     def _do_resize_slots(self, slots: int, live: List[int]) -> None:
         """Callers harvest first: no step may be in flight on the old
         pool."""
-        with self._lock:
+        with self._lock, self._on_stream():
             mapping = {old: new for new, old in enumerate(live)}
             new = self._pool_for(slots)
             if live:
@@ -440,7 +471,7 @@ class DecodeEngine(EngineTelemetry):
         """One slot's cache rows as a host-side copy (slot dim kept; a
         copy even when the cache lies on the CPU, where ``.cpu()`` would
         alias the pool); leaves without a slot axis export a placeholder."""
-        with explicit_read():
+        with explicit_read(), self._on_stream():
             return _tree_map(
                 lambda ax, t: torch.zeros(()) if ax < 0
                 else t.narrow(ax, slot, 1).to("cpu", copy=True),
@@ -449,7 +480,7 @@ class DecodeEngine(EngineTelemetry):
     def _restore_slot(self, req: Request, block: PyTree) -> None:
         """Write an exported block into ``req.slot`` and make it live; its
         last emitted token is host-injected, as after any harvest."""
-        with explicit_read():
+        with explicit_read(), self._on_stream():
             _write_slot(self.cache, block, req.slot, self._slot_axes)
         self._active[req.slot] = req
         if req.out_tokens:
@@ -675,7 +706,7 @@ class DecodeEngine(EngineTelemetry):
         memory pool, on the engine's side stream.  The warm-up steps run
         on the pool's live state, which is saved first and restored after
         them."""
-        main = torch.cuda.current_stream(self.device)
+        main = self.stream
         side = self._side
         saved = [t.clone() for t in self._step_state(pool)]
         tickets = None
@@ -772,7 +803,7 @@ class DecodeEngine(EngineTelemetry):
         performed."""
         del sub
         point = point if point is not None else DesignPoint(cus=0)
-        with self._lock, \
+        with self._lock, self._on_stream(), \
                 self._obs.timed("warm_compile", "warm_compile_s") as sp:
             B = point.slots or self.cfg.max_slots
             pool = self._pool_for(B)
@@ -862,6 +893,14 @@ class DecodeEngine(EngineTelemetry):
     def arena_utilization(self) -> float:
         return self.arena.utilization()
 
+    def take_step_device(self) -> Optional[Tuple[float, int]]:
+        """(device seconds, tokens) of the last decode step harvested since
+        the last call, on the card (from its start to its tokens' host copy
+        on the serving stream: what the step cost while sharing the card);
+        None off the card or when no step was harvested."""
+        out, self._step_device = self._step_device, None
+        return out
+
     def recent_lengths(self) -> Tuple[int, ...]:
         return self._recent_lens.lengths()
 
@@ -941,7 +980,8 @@ class DecodeEngine(EngineTelemetry):
         nb = self._bucketed(L) if self.model.cfg.ssm is None else L
         toks = np.zeros((1, nb), np.int32)
         toks[0, :L] = req.tokens
-        with self._obs.timed("prefill", "prefill_s", len=L):
+        with self._obs.timed("prefill", "prefill_s", len=L), \
+                self._on_stream():
             exe = self._prefill_exec(nb)
             first_dev = exe(self._to_device(toks), L, req.slot)
             with explicit_read():
@@ -957,7 +997,7 @@ class DecodeEngine(EngineTelemetry):
         """One engine iteration: admit -> dispatch decode -> harvest.
         Returns [(rid, token)] newly observed on the host; under pipelined
         decode these are the previous dispatch's tokens."""
-        with self._lock:
+        with self._lock, self._on_stream():
             self._admit()
             if not self._active:
                 self._harvest()
@@ -999,14 +1039,18 @@ class DecodeEngine(EngineTelemetry):
         pool.inputs.copy_(src.pin_memory() if cuda else src, non_blocking=cuda)
         if self._inflight is None:
             pool.prev.zero_()               # no step in flight feeds this one
+        start = None
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self.stream)
         nxt = exe()
         pool.prev.copy_(nxt)
         ready = None
         if cuda:
             host_nxt = torch.empty(B, dtype=torch.int32, pin_memory=True)
             host_nxt.copy_(nxt, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
+            ready = torch.cuda.Event(enable_timing=True)
+            ready.record(self.stream)
         else:
             host_nxt = nxt.clone()          # an entry may reuse its output
         self._inject.clear()
@@ -1026,7 +1070,7 @@ class DecodeEngine(EngineTelemetry):
         # harvest the PREVIOUS dispatch while this one runs; its continuing
         # slots are fed by the dispatch just made, so no re-injection
         self._harvest(register_inject=False)
-        self._inflight = _Inflight(host_nxt, ready, entries, pipelined)
+        self._inflight = _Inflight(host_nxt, ready, entries, pipelined, start)
         if not pipelined or not self._active:
             self._harvest()
 
@@ -1039,6 +1083,9 @@ class DecodeEngine(EngineTelemetry):
         if inf.ready is not None:
             with explicit_read():
                 inf.ready.synchronize()         # sync point: the step's tokens
+                device_s = inf.start.elapsed_time(inf.ready) / 1e3
+            self._step_device = (device_s, len(inf.entries))
+            self._obs.observe("decode_device_s", device_s)
         nxt = inf.host.numpy()
         for slot, req, finishing in inf.entries:
             tok = int(nxt[slot])

@@ -209,3 +209,83 @@ def test_sanitized_graph_run_is_bit_identical(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="synchroniz"):
         bad.step()
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.gpu
+def test_background_warm_against_the_serving_stream(cuda, monkeypatch):
+    """The engine serves on a stream of its own (not the caller's); a
+    second thread's warm_compile captures new bounds and a candidate pool
+    on the LIVE pool while replays are still queued on that stream, and
+    the streams equal a serial run of the same engine config."""
+    def run(background):
+        eng = _engine("minitron-4b", True, monkeypatch, max_len=256)
+        assert eng.stream is not None
+        assert eng.stream != torch.cuda.current_stream()
+        assert eng.stream != torch.cuda.default_stream()
+        stop, errors = threading.Event(), []
+
+        def warm():
+            try:
+                while not stop.is_set():
+                    eng.warm_compile(None)
+                    eng.warm_compile(None, DesignPoint(cus=0, slots=4))
+            except Exception as exc:     # surfaced by the assert below
+                errors.append(exc)
+
+        t = threading.Thread(target=warm) if background else None
+        if t is not None:
+            t.start()
+        try:
+            got = _serve(eng, n=6, new=60)
+        finally:
+            stop.set()
+            if t is not None:
+                t.join(timeout=120)
+        assert not errors and (t is None or not t.is_alive())
+        return got, eng.graph_captures
+
+    serial, _ = run(False)
+    raced, captures = run(True)
+    assert captures >= 3
+    assert raced == serial
+
+
+@pytest.mark.gpu
+def test_two_tenants_on_their_streams_equal_alone(cuda, monkeypatch):
+    """Two tenants of one ComposedServer, each engine on its own stream,
+    so their steps overlap on the card: each tenant's streams equal the
+    same requests served by a lone engine of that tenant with the same
+    weights."""
+    from repro_torch.serve.fabric import ComposedServer, TenantSpec
+
+    monkeypatch.setattr(D, "graphs", True)
+    sc = ServeConfig(max_slots=3, max_len=128, eos_id=-1, kv_page_rows=8)
+    fleet = (("a", "minitron-4b"), ("b", "falcon-mamba-7b"))
+    params = {t: _model(arch)[1] for t, arch in fleet}
+    srv = ComposedServer([TenantSpec(t, arch, serve=sc) for t, arch in fleet],
+                         num_cus=8, device="cuda", params=params, policy=None)
+    streams = {e.stream for g in srv.engines.values() for e in g.replicas}
+    assert len(streams) == 2 and torch.cuda.current_stream() not in streams
+    for g in srv.engines.values():
+        g.warm_compile(None)
+    rng = np.random.default_rng(4)
+    rids = {t: [srv.submit(t, rng.integers(1, 200, size=int(n)),
+                           max_new_tokens=30)
+                for n in rng.integers(3, 40, size=5)] for t, _ in fleet}
+    out = srv.drain(max_steps=500)
+    assert srv.stats()["serving_captures"] == {"a": 0, "b": 0}
+    for t, _ in fleet:      # each decode step timed on its tenant's stream
+        dev = srv.metrics().merged_histogram("decode_device_s", tenant=t)
+        assert dev.count >= 29 and dev.min > 0
+    for t, arch in fleet:
+        model, p, cls = _model(arch)
+        alone = cls(model, p, sc)
+        rng = np.random.default_rng(4)
+        prompts = {}
+        for tt, _ in fleet:
+            prompts[tt] = [rng.integers(1, 200, size=int(n))
+                           for n in rng.integers(3, 40, size=5)]
+        lone = [alone.submit(x, max_new_tokens=30) for x in prompts[t]]
+        res = alone.run_to_completion(500)
+        assert [out[t][r] for r in rids[t]] == [res[r] for r in lone]
+        assert all(len(out[t][r]) == 30 for r in rids[t])

@@ -46,6 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.bridge\n"
             "import repro_torch.launch.dse_to_silicon\n"
             "import repro_torch.core.simulator, repro_torch.common\n"
+            "import repro_torch.serve, repro_torch.serve.fabric\n"
+            "import repro_torch.serve.dse, repro_torch.serve.traffic\n"
+            "import repro_torch.core.composer, repro_torch.obs.accounting\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n"
