@@ -80,6 +80,32 @@
    the profiler, the host's enqueue of the program, and a per-shape table
    of ``flex_mm`` against ``torch.matmul`` at each pass shape with the
    kernel's plan.  It runs between phases 2 and 3.
+7. Enc-dec phase: full-width seamless-m4t-medium (12 encoder and 12
+   decoder layers, random bf16 weights from seed 0) through
+   ``EncDecEngine``, the kernels on: phase 3's 8 prompts as sources (a
+   bidirectional encode per source bucket through the flash kernel with
+   per-row key padding), [bos] decoder prompts, 32 new tokens, 8 slots, on
+   four fresh engines in turns (graphs, eager, graphs, eager).  Logs the
+   admission encodes' device time, prefill ms, decode p50, tokens/s,
+   captures on the serving path (0 with graphs) and the attention
+   kernels' launches; streams must be equal; the kernel path's logits are
+   held to the plain path's in bf16 (5e-2 of the largest |logit|) and on
+   an fp32 copy (1e-3), the argmax parting only at counted near-ties.  The
+   kernel phase holds the masked flash kernel to its plain version over B
+   in {1, 8}, S in {1, 63, 64, 65, 1024}, head_dim 64 and 128, causal and
+   not, bf16 and fp32, and times it at the seamless encoder's shapes
+   beside SDPA under the same mask.
+8. Encoder phase: qwen2.5-32b at its published widths cut to 16 of 64
+   layers, through ``EncoderEngine``: 16 jobs of 64-2048 tokens on the
+   ladder (512, 1024, 2048); sequences/s, embeddings against the plain
+   path, and one job's largest embedding difference across two ladders.
+9. Mixed-fleet phase: the launcher's ``serve_fabric`` in process with
+   ``--scenario flash-crowd`` over its MIXED_FLEET (the four classes, the
+   encoder tenant cut to 16 layers) on 8 CUs, paged KV at ``--kv-frac
+   0.4``: per-class throughput, TTFT, events, preemptions (at least one),
+   SLO attainment, captures on the serving path (0), peak memory and the
+   five serving kernels' launches (each must launch); every stream equals
+   a slot-granular replay of the same schedule but at counted near-ties.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -90,6 +116,11 @@ outside a checkout of the repository, or when any phase fails.
 builds the kernels and only times the selective scan of each other
 checkout DIR (its own mamba_scan.cu, e.g. the parent commit unpacked with
 ``git archive``) beside this checkout's, in turns on one card.
+
+    python3 chip_smoke.py --flash-baseline DIR [DIR ...]
+
+does the same for the causal flash kernel (its flash_attention.cu) at a
+1024-token prompt, B = 1 and 4; outputs must be bitwise equal.
 """
 from __future__ import annotations
 
@@ -477,7 +508,108 @@ def run_kernel_phase(torch, reps: int = 20):
         replaces="src/repro/kernels/flash_attention/kernel.py:75",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
+    results.update(run_masked_flash_phase(torch, gen, reps))
     return results
+
+
+def masked_flash_lengths(B: int, S: int):
+    """Per-row key counts of a masked flash case: drawn in [1, S] from a
+    seed, the last row S itself."""
+    import numpy as np
+    lens = np.random.default_rng(B * 7919 + S).integers(1, S + 1, size=B)
+    lens[-1] = S
+    return [int(n) for n in lens]
+
+
+def run_masked_flash_phase(torch, gen, reps: int):
+    """The flash kernel with per-row key padding (``kv_len``) against its
+    plain version: B in {1, 8}, S in {1, 63, 64, 65, 1024}, per-row
+    lengths in [1, S] and S, H 16, head_dim 64 and 128, causal and not, bf16
+    and fp32.  Then timed at seamless-m4t-medium's encoder shapes (B 8, S
+    1024, H 16, D 64, bidirectional, bf16, the enc-dec phase's source
+    lengths) beside the plain version and SDPA under the same key-padding
+    mask; the bound counts the valid score entries only."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    F = torch.nn.functional
+    H = 16
+    worst = 0.0
+    n_cases = 0
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        errs = []
+        for B in (1, 8):
+            for S in (1, 63, 64, 65, 1024):
+                lens = torch.tensor(masked_flash_lengths(B, S),
+                                    dtype=torch.int32, device="cuda")
+                for D in (64, 128):
+                    q, k, v = (torch.randn((B, S, H, D), generator=gen,
+                                           device="cuda").to(dt)
+                               for _ in range(3))
+                    for causal in (False, True):
+                        got = fa.flash_attention(q, k, v, causal=causal,
+                                                 kv_len=lens)
+                        want = flash_attention_ref(q, k, v, causal=causal,
+                                                   kv_len=lens)
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs().max().item()
+                        n_cases += 1
+                        errs.append(err)
+                        if not (err <= TOL[dtype] and math.isfinite(err)):
+                            raise SystemExit(
+                                f"flash_attention kv_len B={B} S={S} D={D} "
+                                f"causal={causal} {dtype}: max_abs_err "
+                                f"{err:.3e} against its plain version")
+        log(f"flash_attention kv_len {dtype}: {len(errs)} cases (B 1/8, S "
+            f"1/63/64/65/1024, D 64/128, causal and not), max_abs_err "
+            f"{max(errs):.3e} tol {TOL[dtype]:.0e}")
+        if dtype == "bfloat16":
+            worst = max(errs)
+    # timing at the seamless encoder's shapes
+    B, S, D = 8, 1024, 64
+    src = serving_prompt_lengths()
+    lens = torch.tensor(src, dtype=torch.int32, device="cuda")
+    q, k, v = (torch.randn((B, S, H, D), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    got = fa.flash_attention(q, k, v, causal=False, kv_len=lens)
+    want = flash_attention_ref(q, k, v, causal=False, kv_len=lens)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    require(err <= TOL["bfloat16"], f"masked flash at the encoder's shapes: "
+            f"max_abs_err {err:.3e}")
+    worst = max(worst, err)
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=False,
+                                                   kv_len=lens), reps)
+    plain_ms = time_ms(torch, lambda: flash_attention_ref(
+        q, k, v, causal=False, kv_len=lens), max(reps // 4, 3))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), reps)
+    valid = sum(src)
+    es = q.element_size()
+    # q read and out written whole; K and V read only where valid
+    nbytes = 2 * B * S * H * D * es + 2 * valid * H * D * es + 4 * B
+    flops = 4 * D * H * S * valid          # every query row, valid keys
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    kinds = cuda_launches(torch, lambda: fa.flash_attention(
+        q, k, v, causal=False, kv_len=lens))
+    log(f"flash_attention kv_len timing (B={B} S={S} H={H} D={D} bf16 "
+        f"bidirectional, lengths {src}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa with the key-padding mask {lib_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s "
+        f"of valid scores (bound {BF16_FLOPS / 1e12:.0f}), sdpa "
+        f"{flops / lib_ms / 1e9:.1f}; {fa.grid(B, S, H)} blocks, CUDA "
+        f"launches per call {sum(kinds.values())} {kinds} ({card_line()})")
+    return {"flash_attention_kv_len": dict(
+        name="flash_attention_kv_len", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:75",
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)}
 
 
 def log_step_breakdown(torch, gen, x1, conv, h, args, live, reps):
@@ -680,6 +812,69 @@ def run_scan_compare(torch, others, reps: int = 20):
                        show_plan=fn is new)
     finally:
         ms._scan_fn = orig
+
+
+def build_other_flash(checkout: Path):
+    """Another checkout's flash kernel (its flash_attention.cu and
+    common.cu, built into build/other/<name>/) as a function with this
+    checkout's C signature; a kernel whose C function takes no key
+    padding drops it (its callers pass none)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    kdir = checkout.resolve() / "src" / "repro_torch" / "kernels"
+    src = kdir / "flash_attention" / "csrc" / "flash_attention.cu"
+    lib_path = ROOT / "build" / "other" / checkout.name / "libflash.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS,
+                    "-shared", "-o", str(lib_path), str(src),
+                    str(kdir / "common" / "csrc" / "common.cu")],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib_path)).flash_attention
+    fn.restype = ctypes.c_int
+    padded = "const int* kv_len" in src.read_text()
+    P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+    fn.argtypes = ([P] * 4 + [I] * 5 + [L] * 12 + [I] * 3 + [F]
+                   + ([P, F] if padded else []) + [I, P])
+    return fn if padded else (lambda *a: fn(*a[:25], *a[27:]))
+
+
+def run_flash_compare(torch, others, reps: int = 50):
+    """``--flash-baseline DIR [DIR ...]``: the causal flash kernel of each
+    other checkout (DIR: its root) beside this checkout's, at a 1024-token
+    prompt (minitron-4b's heads, bf16) for B = 1 and 4, on one card in
+    turns (the others, this checkout twice, the others, this checkout);
+    each output must equal this checkout's bitwise."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    orig = fa._fn
+    new = orig()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    olds = [(str(o), build_other_flash(o)) for o in others]
+    this = [("this checkout", new)]
+    try:
+        for B in (1, 4):
+            q = torch.randn((B, 1024, 24, 128), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            k, v = (torch.randn((B, 1024, 8, 128), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            fa._fn = lambda: new
+            want = fa.flash_attention(q, k, v)
+            times = {}
+            for label, fn in olds + this + this + olds + this:
+                fa._fn = lambda fn=fn: fn
+                got = fa.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"{label}: causal flash differs from this checkout's")
+                times.setdefault(label, []).append(time_ms(
+                    torch, lambda: fa.flash_attention(q, k, v), reps))
+            log(f"flash causal S=1024 B={B} Hq=24 Hkv=8 D=128 bf16, ms per "
+                f"turn: " + "; ".join(f"{lab} {[round(t, 5) for t in ts]}"
+                                      for lab, ts in times.items())
+                + f" ({card_line()})")
+    finally:
+        fa._fn = orig
 
 
 def run_ssm_kernel_phase(torch, reps: int = 20):
@@ -1145,6 +1340,13 @@ def serving_prompts(cfg):
     return [rng.integers(1, cfg.vocab_size, size=int(n)) for n in plens]
 
 
+def serving_prompt_lengths():
+    """The lengths of ``serving_prompts``."""
+    import numpy as np
+    return [int(n) for n in np.random.default_rng(0).integers(100, 1001,
+                                                               size=8)]
+
+
 def profile_serving(torch, make, run, name, kernels, wall, steps, per_step,
                     overlap, per_steps=None):
     """Profile ``run(make())`` (device activity only; the engine is made,
@@ -1300,8 +1502,15 @@ def first_token_margin(torch, model, params, prompt, tokens):
     cache = model.init_cache(1, len(seq) + 1)
     logits, _ = model.prefill(params, {"tokens": toks}, cache,
                               use_kernels=True)
-    top2 = logits.float().topk(2, dim=-1).values[0]
-    return (top2[0] - top2[1]).item() / logits.float().abs().max().item()
+    return top2_margin(model, logits)
+
+
+def top2_margin(model, logits) -> float:
+    """The top-2 margin of (1, V) logits relative to their largest |value|,
+    over the vocabulary only: the padding columns hold -1e30."""
+    real = logits.float()[..., :model.cfg.vocab_size]
+    top2 = real.topk(2, dim=-1).values[0]
+    return (top2[0] - top2[1]).item() / real.abs().max().item()
 
 
 def lone_streams(torch, srv, tenant, prompts):
@@ -1429,6 +1638,457 @@ def run_fabric_phase(torch):
                     "fabric", FABRIC_KERNELS, wall, launches["mamba_step"],
                     None, None)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec and encoder workload classes, and the four-class fleet
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-medium through EncDecEngine: 8 slots, sources up to 1024
+# frames on a four-bucket ladder, [bos] decoder prompts, 32 new tokens
+ENCDEC_SERVE = dict(max_slots=8, max_len=64, max_src_len=1024,
+                    len_buckets=(128, 256, 512), eos_id=-1, use_kernels=True)
+ENCDEC_KERNELS = ("ragged_decode", "flash_attention", "flash_attention_kv_len")
+ENCDEC_NEW = 32
+# qwen2.5-32b through EncoderEngine at its published widths, 16 of its 64
+# layers (all 64 are about 65 GB of bf16 weights); 16 jobs of 64-2048
+# tokens on the ladder (512, 1024, 2048)
+ENCODER_LAYERS = 16
+ENCODER_SERVE = dict(max_slots=8, max_len=2048, len_buckets=(512, 1024),
+                     use_kernels=True)
+# the launcher's flash-crowd scenario over its MIXED_FLEET on 8 CUs: paged
+# KV at 0.4 of the slots' worst case (8-row pages, 64-row slots: page
+# exhaustion preempts), 12 requests per tenant, 32 new tokens
+MIXED_ARGS = ["--fabric", "--scenario", "flash-crowd", "--device", "cuda",
+              "--num-cus", "8", "--kv-frac", "0.4", "--kv-page-rows", "8",
+              "--max-slots", "8", "--max-len", "64", "--requests", "12",
+              "--max-new-tokens", "32", "--layers",
+              f"qwen2.5-32b={ENCODER_LAYERS}", "--log-every", "0"]
+MIXED_KERNELS = ("ragged_decode", "flash_attention", "flash_attention_kv_len",
+                 "mamba_step", "mamba_scan")
+
+
+def padded_sources(torch, sources, S: int):
+    """(B, S) right-padded int32 tokens and (B,) int32 lengths, on the
+    card."""
+    import numpy as np
+    toks = np.zeros((len(sources), S), np.int32)
+    for i, src in enumerate(sources):
+        toks[i, :len(src)] = src
+    lens = np.array([len(x) for x in sources], np.int32)
+    return (torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda())
+
+
+def encdec_path_logits(torch, paths, sources, bos: int, *, steps: int = 5):
+    """Per source, fp32 logits of each path after the [bos] prefill and
+    after each of ``steps`` decode steps, every path fed the last path's
+    argmax.  A path is (model, params, use_kernels); the sources are
+    encoded together, right-padded to 1024 with their lengths.  The logits
+    cover the vocabulary only (seamless pads 256206 to 256256 columns,
+    which hold -1e30)."""
+    toks, lens = padded_sources(torch, sources, 1024)
+    encs = [m.encode(p, {"tokens": toks}, lens=lens, use_kernels=kern)
+            for m, p, kern in paths]
+    out = []
+    for b, src in enumerate(sources):
+        bos_t = torch.full((1, 1), bos, dtype=torch.int32, device="cuda")
+        logits, caches = [None] * len(paths), [None] * len(paths)
+        for i, (m, p, kern) in enumerate(paths):
+            logits[i], caches[i] = m.prefill(
+                p, {"tokens": bos_t}, m.init_cache(1, steps + 4,
+                                                   src_len=1024),
+                enc_out=encs[i][b:b + 1], src_len=len(src),
+                use_kernels=kern)
+        V = paths[0][0].cfg.vocab_size
+        rows = [[x.float()[..., :V] for x in logits]]
+        for _ in range(steps):
+            nxt = logits[-1].argmax(-1).to(torch.int32)[:, None]
+            for i, (m, p, kern) in enumerate(paths):
+                logits[i], caches[i] = m.decode_step(p, caches[i], nxt,
+                                                     use_kernels=kern)
+            rows.append([x.float()[..., :V] for x in logits])
+        out.append(rows)
+    return out
+
+
+def encdec_reference_check(torch, path_a, path_b, sources, bos, *, tol,
+                           label):
+    """Path a (kernels) against path b (plain), both fed b's argmax, per
+    source: max|a - b| / max|b| within ``tol`` at every position; the
+    argmax may part only where b's top-2 margin is below ARGMAX_MARGIN
+    (counted).  Returns (largest relative difference, near-ties)."""
+    worst, ties = 0.0, 0
+    for b, rows in enumerate(encdec_path_logits(torch, (path_a, path_b),
+                                                sources, bos)):
+        for step, (a, ref) in enumerate(rows):
+            rel = rel_err(a, ref)
+            same, margin, ok = argmax_check(a, ref, ARGMAX_MARGIN)
+            ties += not same
+            require(math.isfinite(rel) and rel <= tol and ok,
+                    f"{label}: source {b} step {step}: max|dlogit|/max|"
+                    f"logit| {rel:.3e} (tol {tol:.0e}), argmax equal "
+                    f"{same}, top-2 margin {margin:.3e}")
+            worst = max(worst, rel)
+    log(f"{label}: {len(sources)} sources x 6 positions, max|dlogit|/max|"
+        f"logit| = {worst:.3e} (tol {tol:.0e}); argmax parted at {ties} "
+        f"near-tie(s) (top-2 margin < {ARGMAX_MARGIN:.0e})")
+    return worst, ties
+
+
+def encode_groups(sources, ladder):
+    """The engine's admission encodes of ``sources``: (bucket, sources)
+    per group of each source's own smallest fitting bucket."""
+    from repro_torch.workloads.base import pick_bucket
+    groups = {}
+    for src in sources:
+        groups.setdefault(pick_bucket(ladder, len(src)), []).append(src)
+    return sorted(groups.items())
+
+
+def run_encdec_phase(torch):
+    """Full-width seamless-m4t-medium (12 + 12 layers, random bf16 weights
+    from seed 0) through ``EncDecEngine``: 8 sources of 100-1000 tokens,
+    [bos] decoder prompts, 32 new tokens, 8 slots, on four fresh engines in
+    turns (decode steps as CUDA graphs, then eager), each warmed by
+    ``warm_compile(None)`` before the clock.  Logs encode (the batched
+    admission encodes' device time) and prefill ms, decode p50, tokens/s,
+    captures on the serving path (0 with graphs) and the launches of the
+    three attention kernels; streams must be equal.  Then the kernel path's
+    logits against the plain path's, in bf16 (5e-2 of the largest |logit|)
+    and on an fp32 copy of the weights (1e-3), the argmax parting only at
+    counted near-ties; between the two, the graph run under the profiler
+    (device time by kind, busy share).  Returns the first graph run's
+    launches."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.workloads import EncDecEngine, ServeConfig
+    from repro_torch.workloads.base import length_buckets
+    cfg = get_config("seamless-m4t-medium")
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"seamless-m4t-medium: {cfg.param_count() / 1e9:.2f} B params "
+        f"({cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers), "
+        f"random bf16 weights in {time.perf_counter() - t0:.2f} s")
+    scfg = ServeConfig(**ENCDEC_SERVE)
+    sources = serving_prompts(cfg)
+    warm = EncDecEngine(model, params, scfg)
+    for src in sources:
+        warm.submit(src, max_new_tokens=2)
+    warm.run_to_completion()
+    del warm
+    torch.cuda.synchronize()
+    runs = [serving_run(torch, EncDecEngine, model, params, scfg, sources,
+                        ENCDEC_NEW, ENCDEC_KERNELS, graphs)
+            for graphs in (True, False, True, False)]
+    ladder = length_buckets(scfg.len_buckets, scfg.max_src_len)
+    groups = encode_groups(sources, ladder)
+    enc_ms = 0.0
+    for sb, group in groups:
+        toks, lens = padded_sources(torch, group + [[1]] * (
+            scfg.max_slots - len(group)), sb)
+        lens[len(group):] = 0               # rows that hold no job
+        enc_ms += time_ms(torch, lambda: model.encode(
+            params, {"tokens": toks}, lens=lens), reps=5)
+    card = card_line()
+    L, Le = cfg.num_layers, cfg.encoder_layers
+    for run in runs:
+        launches = run["launches"]
+        mean, lo, hi = run["prefill"]
+        log(f"enc-dec seamless-m4t-medium {run['label']}: sources "
+            f"{[len(x) for x in sources]} in buckets "
+            f"{[(sb, len(g)) for sb, g in groups]}, {ENCDEC_NEW} new tokens "
+            f"each; encode {enc_ms:.3f} ms on the device (the admission's "
+            f"batched encodes); prefill ms per request mean {mean:.2f} (min "
+            f"{lo:.2f}, max {hi:.2f}, the first of a batch waits on its "
+            f"encode); decode ms per step p50 {run['p50']:.3f}; "
+            f"{run['tokens']} tokens in {run['wall']:.3f} s = "
+            f"{run['tokens_s']:.1f} tokens/s; peak memory "
+            f"{run['peak_gib']:.2f} GiB; graph captures on the serving path "
+            f"{run['path_captures']}; covering steps {run['covering']}; "
+            f"graphs (launches captured, replays) {run['graphs']}; launches "
+            f"{launches} ({card})")
+        steps = run["decode_steps"]
+        require(run["prefills"] == 8, f"{run['prefills']} prefills, want 8")
+        require(launches["ragged_decode"] >= 2 * L * steps > 0,
+                f"ragged_decode launched {launches} for {steps} steps")
+        require(launches["flash_attention"] >= L * 8,
+                f"flash_attention launched {launches} for 8 prefills")
+        require(launches["flash_attention_kv_len"] >= Le * len(groups),
+                f"flash_attention_kv_len launched {launches} for "
+                f"{len(groups)} encodes")
+        require(len(run["streams"]) == 8 and all(
+            len(t) == ENCDEC_NEW and all(0 <= v < cfg.vocab_size for v in t)
+            for t in run["streams"]), "enc-dec streams incomplete")
+    for graph, eager in (runs[0:2], runs[2:4]):
+        require(graph["path_captures"] == 0,
+                f"{graph['path_captures']} captures on the serving path")
+        require(bool(graph["graphs"]) and not eager["graphs"],
+                "the graph run replayed no graph, or the eager run did")
+        require(graph["streams"] == eager["streams"] == runs[0]["streams"],
+                "enc-dec graph and eager streams differ")
+    log("enc-dec: streams of the four runs equal, token for token")
+    profile_serving(
+        torch, lambda: make_engine(torch, EncDecEngine, model, params, scfg,
+                                   True)[0],
+        lambda e: serve(torch, e, sources, ENCDEC_NEW),
+        "seamless-m4t-medium graphs", ("ragged_decode", "flash_attention"),
+        runs[0]["wall"], runs[0]["launches"]["ragged_decode"],
+        "ragged_decode", None)
+    encdec_reference_check(torch, (model, params, True),
+                           (model, params, False), sources, scfg.bos_id,
+                           tol=LOGIT_REL_TOL,
+                           label="enc-dec reference check bf16")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32, "cuda")
+    params32 = to_fp32(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_reference_check(torch, (model32, params32, True),
+                           (model32, params32, False), sources, scfg.bos_id,
+                           tol=FP32_LOGIT_REL_TOL,
+                           label="enc-dec reference check fp32")
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_kv_len":
+            runs[0]["launches"]["flash_attention_kv_len"]}
+
+
+def encoder_jobs(cfg):
+    """The encoder phase's 16 jobs of 64-2048 tokens, from seed 1."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [rng.integers(1, cfg.vocab_size, size=int(n))
+            for n in rng.integers(64, 2049, size=16)]
+
+
+def encode_all(torch, engine, jobs):
+    """Every job through ``engine``; (embeddings in job order as an (n,
+    d) fp32 tensor, wall seconds, steps)."""
+    t0 = time.perf_counter()
+    rids = [engine.submit(j) for j in jobs]
+    steps = 0
+    while engine.has_work:
+        engine.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = engine.results()
+    return torch.tensor([res[r] for r in rids]), wall, steps
+
+
+def run_encoder_phase(torch):
+    """qwen2.5-32b at its published widths, cut to 16 layers (random bf16
+    weights from seed 0), through ``EncoderEngine``: 16 jobs of 64-2048
+    tokens on the ladder (512, 1024, 2048), 8 jobs per step, warmed before
+    the clock.  Logs sequences/s and the flash launches; the embeddings
+    against the plain path's (within 5e-2 of each job's largest |value|:
+    bf16 roundings at other points over 16 layers); and the largest
+    difference of one job's embedding between the ladder and the
+    capacity alone (2048), and whether it is bitwise: a finding, not a
+    gate."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.workloads import EncoderEngine, ServeConfig
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=ENCODER_LAYERS)
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"qwen2.5-32b encoder: {cfg.param_count() / 1e9:.2f} B params "
+        f"({ENCODER_LAYERS} of 64 layers at d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}), "
+        f"random bf16 weights in {time.perf_counter() - t0:.2f} s")
+    jobs = encoder_jobs(cfg)
+    scfg = ServeConfig(**ENCODER_SERVE)
+    encode_all(torch, EncoderEngine(model, params, scfg), jobs)   # warm-up
+    engine = EncoderEngine(model, params, scfg)
+    engine.warm_compile(None)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(("flash_attention",))
+    emb, wall, steps = encode_all(torch, engine, jobs)
+    launches = read_counts(("flash_attention",))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hits = engine.stats()["bucket_hits"]
+    log(f"encoder qwen2.5-32b: {len(jobs)} jobs of "
+        f"{[len(j) for j in jobs]} tokens in {steps} steps, bucket hits "
+        f"{hits}; {wall:.3f} s = {len(jobs) / wall:.2f} sequences/s, "
+        f"{sum(len(j) for j in jobs) / wall:.0f} tokens/s; peak memory "
+        f"{peak:.2f} GiB; launches {launches} ({card_line()})")
+    require(emb.shape == (len(jobs), cfg.d_model)
+            and bool(emb.isfinite().all().item()),
+            "encoder embeddings missing or not finite")
+    require(launches["flash_attention"] >= cfg.num_layers * steps,
+            f"flash_attention launched {launches} in {steps} steps")
+    plain = EncoderEngine(model, params, dataclasses.replace(
+        scfg, use_kernels=False))
+    ref, _, _ = encode_all(torch, plain, jobs)
+    rel = ((emb - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+    log(f"encoder qwen2.5-32b: embeddings, kernel path against plain path, "
+        f"max over jobs of max|d|/max|value| = {rel:.3e} (tol "
+        f"{LOGIT_REL_TOL:.0e})")
+    require(math.isfinite(rel) and rel <= LOGIT_REL_TOL,
+            "encoder embeddings disagree with the plain path")
+    full = EncoderEngine(model, params, dataclasses.replace(
+        scfg, len_buckets=()))
+    alone, _, _ = encode_all(torch, full, jobs)
+    diff = (emb - alone).abs().max().item()
+    log(f"encoder qwen2.5-32b: ladder (512, 1024, 2048) against the "
+        f"capacity alone: largest |difference| of one job's embedding "
+        f"{diff:.3e} (max |value| {alone.abs().max().item():.3e}), bitwise "
+        f"equal {bool(torch.equal(emb, alone))} (a finding, not a gate)")
+    del engine, plain, full, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mixed_params(torch, names):
+    """Random bf16 weights of the launcher's MIXED_FLEET, full width and
+    the encoder tenant cut to ENCODER_LAYERS, tenant i from seed i."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import MIXED_FLEET
+    from repro_torch.models.model import build_model
+    params = {}
+    for i, ((_, arch), name) in enumerate(zip(MIXED_FLEET, names)):
+        cfg = get_config(arch)
+        if arch == "qwen2.5-32b":
+            cfg = dataclasses.replace(cfg, num_layers=ENCODER_LAYERS)
+        params[name] = build_model(cfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(i))
+    torch.cuda.synchronize()
+    return params
+
+
+def encdec_token_margin(torch, model, params, src, tokens, bos: int):
+    """The top-2 margin, relative to its largest |logit|, of the logits
+    that pick the enc-dec token after ``tokens``: the source encoded, then
+    a prefill of [bos] + ``tokens``, the kernels on."""
+    toks, lens = padded_sources(torch, [src], len(src))
+    enc = model.encode(params, {"tokens": toks}, lens=lens)
+    dec = torch.tensor([[bos] + list(tokens)], dtype=torch.int32,
+                       device="cuda")
+    logits, _ = model.prefill(
+        params, {"tokens": dec}, model.init_cache(1, dec.shape[1] + 1,
+                                                  src_len=len(src)),
+        enc_out=enc, src_len=len(src))
+    return top2_margin(model, logits)
+
+
+def run_mixed_fleet_phase(torch):
+    """The launcher's ``serve_fabric`` in process: ``--scenario
+    flash-crowd`` over its MIXED_FLEET (minitron-4b decode, falcon-mamba-7b
+    SSM, qwen2.5-32b encoder cut to 16 layers, seamless-m4t-medium enc-dec,
+    all at published widths, random bf16 weights) on 8 CUs with paged KV at
+    ``--kv-frac 0.4``.  Logs per-class throughput, TTFT p50/p99, the
+    events, preemptions, the SLO attainment, captures on the serving path
+    (0), peak memory and the serving kernels' launches inside the fleet
+    (each must launch).  Then the slot-granular replay of the same schedule
+    (``--kv-frac 1.0 --no-preempt``) on the same weights: every token
+    stream must equal it but at counted near-ties (the replay's top-2
+    margin below ARGMAX_MARGIN where they part)."""
+    import gc
+
+    from repro_torch.launch import serve as launcher
+    args = launcher.parser().parse_args(MIXED_ARGS)
+    names = [t.name for t in launcher.fleet_tenants(
+        args, launcher.ServeConfig())]
+    t0 = time.perf_counter()
+    params = mixed_params(torch, names)
+    log(f"mixed fleet: weights of {names} made in "
+        f"{time.perf_counter() - t0:.2f} s; launcher args {MIXED_ARGS}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(MIXED_KERNELS)
+    srv, doc, submitted = launcher.serve_fabric(args, params)
+    launches = read_counts(MIXED_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    card = card_line()
+    for e in doc["events"]:
+        log(f"mixed fleet event step {e['step']} {e['reason']}: sizes "
+            f"{e['sizes']}, retuned {e['retuned']}, design {e['design']}, "
+            f"apply {e['seconds']} s, warm builds {e['warm_builds']}")
+    for t, tp in doc["per_class_throughput"].items():
+        ttft = doc["slo"]["tenants"].get(t, {}).get("ttft_ms", {})
+        log(f"mixed fleet {t} ({tp['class']}): {tp['value']} "
+            f"{tp['unit']}; TTFT p50 {ttft.get('p50')} ms, p99 "
+            f"{ttft.get('p99')} ms; preemptions {doc['preemptions'][t]}; "
+            f"captures on the serving path {doc['serving_captures'][t]}")
+    log(f"mixed fleet: {doc['decode_steps']} steps in {doc['wall_s']} s, "
+        f"harness step ms {doc['harness_step_ms']}, slo_preemptions "
+        f"{doc['slo_preemptions']}, slo_attainment "
+        f"{json.dumps(doc['slo_attainment'])}; peak memory {peak:.2f} GiB; "
+        f"launches inside the fleet {launches} ({card})")
+    require(set(doc["serving_captures"].values()) == {0},
+            f"captures on the serving path: {doc['serving_captures']}")
+    require(sum(doc["preemptions"].values()) >= 1, "no preemption")
+    require(all(v["value"] > 0 for v in doc["per_class_throughput"].values()),
+            "a class served nothing")
+    for k in MIXED_KERNELS:
+        require(launches[k] > 0, f"{k} never launched inside the fleet")
+    res_a = srv.results()
+    models = {t: (g._model, g.params) for t, g in srv.engines.items()}
+    bos = srv.specs[names[3]].serve.bos_id
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    args_b = launcher.parser().parse_args(MIXED_ARGS + [
+        "--kv-frac", "1.0", "--no-preempt"])
+    srv_b, doc_b, _ = launcher.serve_fabric(args_b, params)
+    res_b = srv_b.results()
+    log(f"mixed fleet replay (slot-granular: --kv-frac 1.0 --no-preempt): "
+        f"preemptions {doc_b['preemptions']}, digest "
+        f"{doc_b['streams_digest'][:16]} against {doc['streams_digest'][:16]}")
+    del srv_b
+    gc.collect()
+    ties = 0
+    emb_rel = 0.0
+    for t, rid, prompt in submitted:
+        got, want = res_a[t][rid], res_b[t][rid]
+        if doc["workload_classes"][t] == "encoder":
+            a, b = torch.tensor(got), torch.tensor(want)
+            require(a.shape == b.shape == (models[t][0].cfg.d_model,)
+                    and bool(a.isfinite().all().item()),
+                    f"{t} request {rid}: embedding missing")
+            emb_rel = max(emb_rel, ((a - b).abs().max()
+                                    / b.abs().max()).item())
+            continue
+        require(len(got) == len(want) == 32, f"{t} request {rid}: "
+                f"{len(got)} and {len(want)} tokens, want 32")
+        if got == want:
+            continue
+        p = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+        model, prm = models[t]
+        if doc["workload_classes"][t] == "encdec":
+            margin = encdec_token_margin(torch, model, prm, prompt,
+                                         want[:p], bos)
+        else:
+            margin = first_token_margin(torch, model, prm, prompt, want[:p])
+        ties += 1
+        log(f"mixed fleet {t} request {rid}: parts from the replay at token "
+            f"{p} ({got[p]} vs {want[p]}); the replay's top-2 margin there "
+            f"{margin:.3e}")
+        require(margin < ARGMAX_MARGIN, f"mixed fleet {t} request {rid} "
+                "parts from the slot-granular replay away from a near-tie")
+    log(f"mixed fleet: paged streams equal the slot-granular replay's but "
+        f"for {ties} near-tie(s); digests equal "
+        f"{doc['streams_digest'] == doc_b['streams_digest']}; encoder "
+        f"embeddings, largest max|d|/max|value| between the runs "
+        f"{emb_rel:.3e}")
+    del params, models
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1966,6 +2626,12 @@ def main() -> int:
             elif "spill" in line and " 0 bytes spill stores" not in line:
                 log(f"  {entry} {line.strip()}")
 
+    if "--flash-baseline" in sys.argv:
+        run_flash_compare(torch, [Path(p) for p in sys.argv[sys.argv.index(
+            "--flash-baseline") + 1:]])
+        print(card_line(), flush=True)
+        return 0
+
     if "--scan-baseline" in sys.argv:
         log_scan_build()
         run_scan_compare(torch, [Path(p) for p in sys.argv[sys.argv.index(
@@ -2033,6 +2699,14 @@ def main() -> int:
     # both models as two tenants of one composed card
     run_fabric_phase(torch)
     log(f"fabric phase done at {phase_s()}")
+
+    # the enc-dec and encoder classes, then the launcher's four-class fleet
+    launches.update(run_encdec_phase(torch))
+    log(f"enc-dec phase done at {phase_s()}")
+    run_encoder_phase(torch)
+    log(f"encoder phase done at {phase_s()}")
+    run_mixed_fleet_phase(torch)
+    log(f"mixed-fleet phase done at {phase_s()}")
 
     entries = []
     for name, entry in kernels.items():

@@ -3,9 +3,11 @@
 The caller hands over plain numpy arrays (the reference's params after
 ``strip`` and ``np.asarray``), so this module never sees JAX.  The bridge
 unstacks the reference's ``scanned`` leading layer axis into a list of
-per-layer dicts and keeps every layout as it is (``wq (d, H, hd)``,
-``wo (Hq, hd, d)``, ``embed (padded_vocab, d)``, ``lm_head (d,
-padded_vocab)``, ``in_proj (d, 2 d_in)``), so nothing is transposed.
+per-layer dicts (the decoder's, with its cross layers, and an enc-dec's
+encoder stack beside ``frame_norm``) and keeps every layout as it is
+(``wq (d, H, hd)``, ``wo (Hq, hd, d)``, ``embed (padded_vocab, d)``,
+``lm_head (d, padded_vocab)``, ``in_proj (d, 2 d_in)``), so nothing is
+transposed.
 Weights are cast once to the activation dtype; norm parameters and the
 Mamba block's conv_w, conv_b, dt_bias, A_log and D stay fp32, as the
 reference holds them in fp32 and casts each to fp32 at use.
@@ -21,7 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import check_supported
 
-_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+_NORMS = ("ln1", "ln2", "ln_cross", "final_norm", "frame_norm", "q_norm",
+          "k_norm")
 _SSM_FP32 = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
 
 
@@ -46,22 +49,27 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
     if dec.get("prologue"):
         raise NotImplementedError("unscanned prologue layers belong to the "
                                   "MLA/MoE slice of the port")
-    scanned = dec["scanned"]
 
     def layer(i, tree):
         if isinstance(tree, dict):
             return {k: layer(i, v) for k, v in tree.items()}
         return np.asarray(tree)[i]
 
-    layers = [_convert(layer(i, scanned), ("layers",), dtype=dt, device=dev)
-              for i in range(cfg.num_layers)]
+    def unstack(scanned, n):
+        return [_convert(layer(i, scanned), ("layers",), dtype=dt,
+                         device=dev) for i in range(n)]
+
     out: Dict[str, Any] = {
         "embed": _convert(np_tree["embed"], ("embed",), dtype=dt, device=dev),
-        "decoder": {"layers": layers},
-        "final_norm": _convert(np_tree["final_norm"], ("final_norm",),
-                               dtype=dt, device=dev),
+        "decoder": {"layers": unstack(dec["scanned"], cfg.num_layers)},
     }
-    if "lm_head" in np_tree:
-        out["lm_head"] = _convert(np_tree["lm_head"], ("lm_head",), dtype=dt,
-                                  device=dev)
+    for name in ("final_norm", "lm_head", "frame_norm"):
+        if name in np_tree:
+            out[name] = _convert(np_tree[name], (name,), dtype=dt, device=dev)
+    if cfg.is_encdec:
+        enc = np_tree["encoder"]
+        out["encoder"] = {
+            "layers": unstack(enc["scanned"], cfg.encoder_layers),
+            "final_norm": _convert(enc["final_norm"], ("final_norm",),
+                                   dtype=dt, device=dev)}
     return out

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 Only the architectures the port serves are registered (the dense GQA
-decoders and the attention-free Mamba decoder); any other arch id raises
-``KeyError``.
+decoders, the attention-free Mamba decoder and the seamless-m4t
+encoder-decoder); any other arch id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ _MODULES: Dict[str, str] = {
     "minitron-4b": "minitron_4b",
     "qwen2.5-32b": "qwen2_5_32b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)

@@ -111,6 +111,10 @@ class ModelConfig:
         return -(-self.vocab_size // 256) * 256
 
     @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
     def attention_free(self) -> bool:
         return self.attn_type == "none"
 

@@ -1,11 +1,21 @@
-// Causal blockwise (flash) attention for prefill, sm_90a.
+// Blockwise (flash) attention for prefill and encoders, sm_90a.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/kernel.py
-// (flash_attention / _flash_kernel), and covers the wider prefill contract
-// of the reference's layers.blockwise_attention: q (B, S, Hq, D) and k, v
+// (flash_attention / _flash_kernel), and covers the wider contract of the
+// reference's layers.blockwise_attention: q (B, S, Hq, D) and k, v
 // (B, S, Hkv, D) in the JAX layout, GQA by head index (kv head = h / G),
-// causal masking, a sliding window with a global-layer bypass, the logit
-// soft-cap, and S that is not a multiple of the tile.
+// causal or bidirectional, a sliding window with a global-layer bypass, the
+// logit soft-cap, S that is not a multiple of the tile, and per-row key
+// padding: with kv_len, key j of row b counts only where j < kv_len[b].
+//
+// Key padding ends each block's key loop at its row's last valid tile, so
+// a short row of a long bucket reads and multiplies only its own keys.  A
+// row of length 0 (a batch row that holds no job) has no key to attend;
+// the plain version then scores every key of its padded blocks alike, and
+// the kernel gives the same: the sum of V over the S keys, divided by the
+// plain version's padded key count (empty_den), never NaN.  Both kernels
+// take the padding as a template flag (KV), so that the launches without
+// it compile to the code they had before it (each row's length is S).
 //
 // Bound on the H100: operations (4 * D flops per attended (query, key)
 // pair, on the tensor cores for bf16), against bytes that are read once.
@@ -75,9 +85,17 @@ struct FlashArgs {
   long long o_sb, o_ss, o_sh;
   int causal, window, glob;
   float logit_cap, scale;
+  const int* kv_len;   // (B,) valid keys per row, or null: all S
+  float empty_den;     // a length-0 row's divisor (see the top)
 };
 
-template <typename T>
+// Valid keys of row b: kv_len[b] clamped to [0, S], or S without padding.
+template <bool KV>
+__device__ inline int row_keys(const FlashArgs& a, int b) {
+  return KV ? min(max(a.kv_len[b], 0), a.S) : a.S;
+}
+
+template <typename T, bool KV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt(FlashArgs a) {
   constexpr int E = Word<T>::N;
@@ -119,9 +137,14 @@ flash_attention_simt(FlashArgs a) {
   }
 
   const int q_hi = min(q_lo + kBQ, a.S) - 1;
-  const int kt_end = a.causal ? q_hi / kBK + 1 : (a.S + kBK - 1) / kBK;
+  // a length-0 row attends every key alike, as the plain version does
+  const int nk = row_keys<KV>(a, b);
+  const bool uniform = KV && nk == 0;
+  const int kend = uniform ? a.S : nk;
+  const int kt_end = (a.causal && !uniform) ? min(q_hi / kBK + 1, (kend + kBK - 1) / kBK)
+                                            : (kend + kBK - 1) / kBK;
   int kt_begin = 0;
-  if (a.window > 0 && !a.glob && q_lo - a.window + 1 > 0) {
+  if (!uniform && a.window > 0 && !a.glob && q_lo - a.window + 1 > 0) {
     kt_begin = (q_lo - a.window + 1) / kBK;
   }
   const char* kb = static_cast<const char*>(a.k) + (b * a.k_sb + hk * a.k_sh) * sizeof(T);
@@ -129,7 +152,7 @@ flash_attention_simt(FlashArgs a) {
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k_lo = kt * kBK;
-    const int kvalid = min(kBK, a.S - k_lo);
+    const int kvalid = min(kBK, kend - k_lo);
     __syncthreads();   // the previous tile's readers are done
     load_rows(ks, pitch, kb + k_lo * a.k_ss * sizeof(T), a.k_ss * sizeof(T),
               kBK, kvalid, W, tid, kThreads);
@@ -169,10 +192,11 @@ flash_attention_simt(FlashArgs a) {
         const int kpos = k_lo + tx + 8 * j;
         float x = s[i][j] * a.scale;
         if (a.logit_cap > 0.f) x = a.logit_cap * tanhf(x / a.logit_cap);
-        const bool valid = kpos < a.S && (!a.causal || kpos <= qpos) &&
-                           (a.window == 0 || a.glob || kpos > qpos - a.window);
+        const bool valid = kpos < kend &&
+                           (uniform || ((!a.causal || kpos <= qpos) &&
+                                        (a.window == 0 || a.glob || kpos > qpos - a.window)));
         ok |= static_cast<unsigned>(valid) << j;
-        s[i][j] = valid ? x : kNegInf;
+        s[i][j] = valid ? (uniform ? 0.f : x) : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = group_max<8>(mx);
@@ -217,7 +241,7 @@ flash_attention_simt(FlashArgs a) {
   for (int i = 0; i < kRows; ++i) {
     const int qpos = q_lo + ty * kRows + i;
     if (qpos < a.S) {
-      const float d = fmaxf(l[i], 1e-30f);
+      const float d = uniform ? a.empty_den : fmaxf(l[i], 1e-30f);
       uint32_t* orow = reinterpret_cast<uint32_t*>(
           static_cast<T*>(a.out) + b * a.o_sb + qpos * a.o_ss + h * a.o_sh);
 #pragma unroll
@@ -317,7 +341,7 @@ __device__ inline void load_a(uint32_t (&r)[4], const __nv_bfloat16* base,
                      (lane >> 4) * 8);
 }
 
-template <int DP>
+template <int DP, bool KV>
 __global__ void __launch_bounds__(MmaTile<DP>::kThreads)
 flash_attention_mma(FlashArgs a) {
   using M = MmaTile<DP>;
@@ -345,8 +369,14 @@ flash_attention_mma(FlashArgs a) {
   bf16* sQ = ring + (ST - 1) * M::kStage;
 
   const int q_hi = min(q_lo + kBQ, a.S) - 1;
-  const int kt_end = a.causal ? q_hi / kBK + 1 : (a.S + kBK - 1) / kBK;
-  const bool win = a.window > 0 && !a.glob;
+  // a length-0 row attends every key alike, as the plain version does
+  const int nk = row_keys<KV>(a, b);
+  const bool uniform = KV && nk == 0;
+  const int kend = uniform ? a.S : nk;
+  const int kt_end = (a.causal && !uniform) ? min(q_hi / kBK + 1, (kend + kBK - 1) / kBK)
+                                            : (kend + kBK - 1) / kBK;
+  const bool win = a.window > 0 && !a.glob && !uniform;
+  const bool causal = a.causal && !uniform;
   int kt_begin = 0;
   if (win && q_lo - a.window + 1 > 0) kt_begin = (q_lo - a.window + 1) / kBK;
   const int n_it = kt_end - kt_begin;
@@ -360,9 +390,9 @@ flash_attention_mma(FlashArgs a) {
     bf16* dst = ring + (it % ST) * M::kStage;
     const int k_lo = (kt_begin + it) * kBK;
     copy.template issue<kBK>(dst, kb + k_lo * a.k_ss * es, a.k_ss * es,
-                             a.S - k_lo, a.k);
+                             kend - k_lo, a.k);
     copy.template issue<kBK>(dst + M::kTile, vb + k_lo * a.v_ss * es,
-                             a.v_ss * es, a.S - k_lo, a.v);
+                             a.v_ss * es, kend - k_lo, a.v);
   };
   copy.template issue<kBQ>(
       sQ, static_cast<const char*>(a.q) + (b * a.q_sb + q_lo * a.q_ss + h * a.q_sh) * es,
@@ -457,9 +487,10 @@ flash_attention_mma(FlashArgs a) {
           for (int e = 0; e < 4; ++e) {
             const int qpos = row0 + (e >> 1) * 8;
             const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
-            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos)) &
+            const bool ok = (kpos < kend) & (!causal | (kpos <= qpos)) &
                             (!win | (kpos > qpos - a.window));
-            s[j][e] = ok ? s[j][e] : -INFINITY;  // p = exp2(-inf) = 0
+            // p = exp2(-inf) = 0; a length-0 row scores its keys alike
+            s[j][e] = ok ? (uniform ? 0.f : s[j][e]) : -INFINITY;
           }
         }
       }
@@ -516,7 +547,7 @@ flash_attention_mma(FlashArgs a) {
         }
       }
     };
-    if (k_lo + kBK > a.S || (a.causal && k_lo + kBK - 1 > q_lo) ||
+    if (uniform || k_lo + kBK > kend || (causal && k_lo + kBK - 1 > q_lo) ||
         (win && k_lo <= q_hi - a.window)) {
       tile(Flag<true>());
     } else {
@@ -526,7 +557,7 @@ flash_attention_mma(FlashArgs a) {
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / fmaxf(group_sum<4>(l[r]), 1e-30f);
+    const float inv = 1.f / (uniform ? a.empty_den : fmaxf(group_sum<4>(l[r]), 1e-30f));
     const int qpos = row0 + r * 8;
     if (qpos < a.S) {
       bf16* orow = static_cast<bf16*>(a.out) + b * a.o_sb + qpos * a.o_ss + h * a.o_sh;
@@ -545,7 +576,8 @@ flash_attention_mma(FlashArgs a) {
 template <int DP>
 cudaError_t launch_mma(const FlashArgs& a, int B, cudaStream_t stream) {
   using M = MmaTile<DP>;
-  auto kernel = flash_attention_mma<DP>;
+  auto kernel = a.kv_len ? &flash_attention_mma<DP, true>
+                         : &flash_attention_mma<DP, false>;
   cudaError_t err = allow_smem(kernel, M::kSmem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * a.Hq, (a.S + M::kBQ - 1) / M::kBQ);
@@ -557,10 +589,12 @@ cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
   const int pitch = a.D + 1;
   const size_t bytes = 4 * (static_cast<size_t>(kBQ + 2 * kBK) * pitch +
                             static_cast<size_t>(kBQ) * (kBK + 1));
-  cudaError_t err = allow_smem(flash_attention_simt<float>, bytes);
+  auto kernel = a.kv_len ? &flash_attention_simt<float, true>
+                         : &flash_attention_simt<float, false>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * a.Hq, (a.S + kBQ - 1) / kBQ);
-  flash_attention_simt<float><<<grid, kThreads, bytes, stream>>>(a);
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -569,19 +603,20 @@ cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
 
 // Plain C entry point.  q: (B, S, Hq, D), k, v: (B, S, Hkv, D), out:
 // (B, S, Hq, D), each with its (batch, seq, head) strides and a unit
-// stride on D.  Returns cudaGetLastError() after the launch.
+// stride on D; kv_len: (B,) int32 on the device, or null.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int S,
     int Hq, int Hkv, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, int causal, int window, int glob, float logit_cap,
-    int dtype, void* stream) {
+    const int* kv_len, float empty_den, int dtype, void* stream) {
   using namespace repro;
   FlashArgs a{q, k, v, out, S, Hq, Hkv, D,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
               o_sb, o_ss, o_sh, causal, window, glob, logit_cap,
-              1.0f / sqrtf(static_cast<float>(D))};
+              1.0f / sqrtf(static_cast<float>(D)), kv_len, empty_den};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0) return 0;
   if (dtype == kBF16) {

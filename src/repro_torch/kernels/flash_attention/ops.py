@@ -1,10 +1,13 @@
-"""Prefill flash attention: the CUDA kernel's wrapper.
+"""Flash attention: the CUDA kernel's wrapper.
 
 Replaces the Pallas kernel ``src/repro/kernels/flash_attention/kernel.py``
-(``flash_attention`` / ``_flash_kernel``) and covers the prefill contract
-of the reference's ``layers.blockwise_attention`` that ``gqa_prefill``
-runs: GQA by head index, causal mask, sliding window with a global-layer
-bypass, logit soft-cap, and lengths that are not a multiple of the tile.
+(``flash_attention`` / ``_flash_kernel``) and covers the contract of the
+reference's ``layers.blockwise_attention`` that ``gqa_prefill`` and the
+encoders' ``gqa_fwd`` run: GQA by head index, causal or bidirectional,
+sliding window with a global-layer bypass, logit soft-cap, lengths that
+are not a multiple of the tile, and per-row key padding (``kv_len``: key
+``j`` of row ``b`` counts only where ``j < kv_len[b]``; each row's key loop
+ends at its last valid tile).
 On the H100 the kernel is bound by operations.  bf16 runs on the tensor
 cores (mma.sync, K and V staged by cp.async, the softmax in registers);
 fp32 keeps a CUDA-core kernel, since TF32 would change its numerics.  Both
@@ -12,8 +15,9 @@ skip the key tiles above the diagonal or outside the window
 (csrc/flash_attention.cu has the design).
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``launches`` counts kernel launches.  ``grid``
-gives the blocks one call launches.
+the kernel or raises.  ``launches`` counts launches without key padding,
+``masked_launches`` those with it.  ``grid`` gives the blocks one call
+launches.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 launches = 0
+masked_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 128
@@ -39,11 +44,11 @@ def _fn():
     fn.restype = ctypes.c_int
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                   _I, _I, _I, _F, _I, _P]
+                   _I, _I, _I, _F, _P, _F, _I, _P]
     return fn
 
 
-def _check(q, k, v):
+def _check(q, k, v, kv_len, window, is_global):
     """Raise on what the kernel does not take."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -66,6 +71,16 @@ def _check(q, k, v):
                 (s * size) % 16 for s in t.stride()[:-1]):
             raise ValueError(f"{name} needs a unit stride on head_dim and "
                              f"16-byte aligned rows, got strides {t.stride()}")
+    if kv_len is not None:
+        if (kv_len.device != q.device or kv_len.dtype != torch.int32
+                or tuple(kv_len.shape) != (B,) or not kv_len.is_contiguous()):
+            raise ValueError(f"kv_len must be a contiguous ({B},) int32 "
+                             f"tensor on {q.device}, got {kv_len.dtype} "
+                             f"{tuple(kv_len.shape)} on {kv_len.device}")
+        if window and not is_global:
+            # a query row past its length may then see no key at all
+            raise ValueError("kv_len with a sliding window is not "
+                             "supported by the kernel")
 
 
 def grid(B: int, S: int, Hq: int):
@@ -73,14 +88,24 @@ def grid(B: int, S: int, Hq: int):
     return B * Hq * -(-S // _BQ)
 
 
+def empty_row_divisor(S: int, block_size: int = 512) -> float:
+    """What the plain version divides a length-0 row's sum of V by: it
+    scores every key of its padded blocks alike, ``ceil(S / bs) * bs``
+    keys with ``bs = min(block_size, S)``."""
+    bs = min(block_size, S)
+    return float(-(-S // bs) * bs)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    logit_cap: float = 0.0, is_global=None):
-    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D)."""
-    global launches
+                    logit_cap: float = 0.0, is_global=None, kv_len=None):
+    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D).
+    kv_len: optional (B,) int32 valid keys per row, on q's device."""
+    global launches, masked_launches
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   logit_cap=logit_cap, is_global=is_global)
-    _check(q, k, v)
+                                   logit_cap=logit_cap, is_global=is_global,
+                                   kv_len=kv_len)
+    _check(q, k, v, kv_len, window, is_global)
     B, S, Hq, D = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -91,7 +116,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 v.stride(0), v.stride(1), v.stride(2),
                 out.stride(0), out.stride(1), out.stride(2),
                 int(bool(causal)), int(window), int(bool(is_global)),
-                float(logit_cap), _DTYPES[q.dtype], stream)
+                float(logit_cap),
+                None if kv_len is None else kv_len.data_ptr(),
+                empty_row_divisor(S), _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention")
-    launches += 1
+    if kv_len is None:
+        launches += 1
+    else:
+        masked_launches += 1
     return out

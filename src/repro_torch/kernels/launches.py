@@ -14,6 +14,7 @@ from repro_torch.kernels.ragged_decode import ops as _rd
 # kernel name -> (wrapper module, counter attribute)
 COUNTERS = {"ragged_decode": (_rd, "launches"),
             "flash_attention": (_fa, "launches"),
+            "flash_attention_kv_len": (_fa, "masked_launches"),
             "mamba_step": (_ms, "step_launches"),
             "mamba_scan": (_ms, "scan_launches"),
             "flex_mm": (_fm, "launches"),

@@ -8,8 +8,7 @@ Single tenant:
 builds the model with random weights from ``--seed``, warms the engine's
 decode steps (``warm_compile``: CUDA graphs on the card) before the clock,
 submits ``N`` requests with random prompts, runs the engine of the arch's
-workload class until they finish (``DecodeEngine`` for dense archs,
-``SSMEngine`` for ``falcon-mamba-7b``) and prints JSON stats, as
+workload class until they finish and prints JSON stats, as
 ``repro.launch.serve`` does in single-model mode.
 
 Multi-tenant fabric (``--fabric``, one ``--arch`` per tenant):
@@ -18,21 +17,46 @@ Multi-tenant fabric (``--fabric``, one ``--arch`` per tenant):
         --arch falcon-mamba-7b [--reduced] [--device cpu] [--num-cus 8]
 
 serves the tenants on one card composed of ``--num-cus`` logical CUs
-(``ComposedServer``), with the reference launcher's bursty per-tenant
-traffic, the two-stage analytical policy (``--split-only`` for the
-split-only ablation) deciding every ``--decide-every`` steps, and warm
-recomposition (``--no-warm`` off, ``--prewarm-async`` in a background
-thread).  Prints one JSON document: the recomposition events, tokens/s
-per tenant, the streams digest, the last busy decision's predicted
-makespans and the SLO summary.
+(``ComposedServer``), with bursty per-tenant traffic, the two-stage
+analytical policy (``--split-only`` for the split-only ablation) deciding
+every ``--decide-every`` steps, and warm recomposition (``--no-warm`` off,
+``--prewarm-async`` in a background thread).
 
-Both modes run on the GPU unless ``--device cpu`` is given.
+The reference's mixed fleet (``MIXED_FLEET``: one tenant per workload
+class, minitron-4b decode, falcon-mamba-7b SSM, qwen2.5-32b encoder and
+seamless-m4t-medium enc-dec):
+
+    python -m repro_torch.launch.serve --fabric --scenario mixed \\
+        --reduced --device cpu
+
+``--scenario diurnal``, ``flash-crowd`` or ``heavy-tail`` serves the fleet
+under the seeded open-loop generator (``repro_torch.serve.traffic``) with
+SLO targets attached (``--slo-*``, scoped by ``--slo-tenant``);
+``--kv-frac`` below 1 oversubscribes the paged KV arena, so page
+exhaustion preempts; ``--layers ARCH=N`` cuts an arch to N (decoder)
+layers at its published widths.  Prints one JSON document on stdout:
+recomposition events, per-class throughput, TTFT and the SLO summary and
+attainment, the streams digest, the harness's step times and the last
+busy decision's predicted makespans; ``--log-every`` writes a telemetry
+line to stderr, ``--trace-out`` the span trace, ``--metrics-json`` the
+merged metrics.
+
+Smokes (exit 0 when they hold, on the mixed fleet, reduced):
+``--obs-smoke`` (the trace carries recompose, decode-step and
+warm-compile spans and every class has decode-step latencies) and
+``--slo-smoke`` (a flash crowd on an oversubscribed paged arena preempts,
+and every stream equals a slot-granular replay of the same schedule).
+
+Every mode runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -41,12 +65,25 @@ import torch
 from repro_torch.common.platform import H100_SXM, per_cu
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.models.model import build_model
-from repro_torch.serve import (AnalyticalPolicy, ComposedServer, ServeConfig,
-                               TenantSpec)
-from repro_torch.workloads import (DECODE, SSM, DecodeEngine, SSMEngine,
-                                   workload_class_of)
+from repro_torch.serve import (AnalyticalPolicy, ComposedServer, SLOTarget,
+                               ServeConfig, TenantSpec, arrival_schedule)
+from repro_torch.workloads import (DECODE, ENCODER, SSM, DecodeEngine,
+                                   SSMEngine, workload_class_of)
 
 ENGINES = {DECODE: DecodeEngine, SSM: SSMEngine}
+
+# --scenario profiles served by the open-loop generator on the mixed fleet,
+# with SLO targets attached
+TRAFFIC_SCENARIOS = ("diurnal", "flash-crowd", "heavy-tail")
+
+# the fleet of --scenario mixed and the traffic scenarios: one tenant per
+# workload class, so the class-aware policy splits the card across all four
+# bound resources (decode bandwidth, SSM state bandwidth, encoder compute,
+# enc-dec decode plus cross-attention source reads)
+MIXED_FLEET = (("decode", "minitron-4b"),
+               ("ssm", "falcon-mamba-7b"),
+               ("encoder", "qwen2.5-32b"),
+               ("encdec", "seamless-m4t-medium"))
 
 
 def _device_name(device: torch.device) -> str:
@@ -56,54 +93,131 @@ def _device_name(device: torch.device) -> str:
 
 def _streams_digest(results) -> str:
     """Order-independent sha256 over every tenant's (rid -> token stream)
-    map: equal digests mean identical serving output."""
+    map: equal digests mean identical serving output.  Float outputs
+    (encoder embeddings) are left out: their bits follow the summation
+    order, which the scheduling may change."""
     h = hashlib.sha256()
     for t in sorted(results):
         for rid in sorted(results[t]):
-            arr = np.asarray(results[t][rid], dtype=np.int64)
+            arr = np.asarray(results[t][rid])
+            if not np.issubdtype(arr.dtype, np.integer):
+                continue
             h.update(f"{t}/{rid}:".encode())
             h.update(arr.tobytes())
             h.update(b";")
     return h.hexdigest()
 
 
-def run_fabric(args) -> int:
-    """Traffic-driven multi-tenant serving on one recomposable card."""
+def _telemetry_line(server, steps: int, toks: int, dt: float) -> str:
+    """One line of serving summary (stderr): units/s, decode-step
+    percentiles, fleet queue depth, the last recomposition's reason."""
+    h = server.obs.registry.merged_histogram("decode_step_s")
+    p50 = h.quantile(0.5) * 1e3 if h.count else 0.0
+    p99 = h.quantile(0.99) * 1e3 if h.count else 0.0
+    qd = sum(eng.queue_depth for eng in server.engines.values())
+    reason = server.events[-1].reason if server.events else "-"
+    return (f"[serve {dt:7.1f}s step {steps:5d}] "
+            f"tok/s={toks / max(dt, 1e-9):7.1f} "
+            f"step_ms p50={p50:.2f} p99={p99:.2f} "
+            f"queue={qd} last_recompose={reason}")
+
+
+def _layer_cuts(args):
+    cuts = {}
+    for item in args.layers or ():
+        arch, n = item.split("=")
+        cuts[arch] = int(n)
+    return cuts
+
+
+def fleet_tenants(args, serve: ServeConfig):
+    """The tenants of a run: the mixed fleet for ``--scenario mixed`` and
+    the traffic scenarios (with SLO targets on the traffic scenarios,
+    scoped by ``--slo-tenant``), else one tenant per ``--arch``."""
+    cuts = _layer_cuts(args)
+    use_traffic = args.scenario in TRAFFIC_SCENARIOS
+    if args.scenario == "mixed" or use_traffic:
+        slo = (SLOTarget(ttft_p50_ms=args.slo_ttft_p50_ms,
+                         ttft_p99_ms=args.slo_ttft_p99_ms,
+                         per_token_p99_ms=args.slo_per_token_p99_ms)
+               if use_traffic else None)
+        return [TenantSpec(f"{w}-{arch}", arch, reduced=args.reduced,
+                           serve=serve, seed=i, workload=w,
+                           slo=(slo if args.slo_tenant in f"{w}-{arch}"
+                                else None),
+                           layers=cuts.get(arch, 0))
+                for i, (w, arch) in enumerate(MIXED_FLEET)]
+    return [TenantSpec(f"tenant{i}-{arch}", arch, reduced=args.reduced,
+                       serve=serve, seed=i, layers=cuts.get(arch, 0))
+            for i, arch in enumerate(args.arch)]
+
+
+def serve_fabric(args, params=None):
+    """Build the fabric of ``args``, serve its traffic and return
+    ``(server, document, submitted)``: the document is what ``run_fabric``
+    prints, ``submitted`` the (tenant, rid, tokens) of every request.
+    ``params`` (tenant name -> weights) replaces random weights."""
     serve = ServeConfig(max_slots=args.max_slots, max_len=args.max_len,
-                        eos_id=-1)
-    tenants = [TenantSpec(f"tenant{i}-{arch}", arch, reduced=args.reduced,
-                          serve=serve, seed=i)
-               for i, arch in enumerate(args.arch)]
+                        eos_id=-1, kv_arena_frac=args.kv_frac,
+                        kv_page_rows=args.kv_page_rows)
+    tenants = fleet_tenants(args, serve)
+    use_traffic = args.scenario in TRAFFIC_SCENARIOS
     policy = AnalyticalPolicy(per_cu(H100_SXM, args.num_cus),
                               two_stage=not args.split_only)
     server = ComposedServer(tenants, num_cus=args.num_cus,
                             device=args.device, policy=policy,
                             decide_every=args.decide_every,
                             warm=not args.no_warm,
-                            prewarm_async=args.prewarm_async)
+                            prewarm_async=args.prewarm_async,
+                            telemetry=not args.no_telemetry,
+                            slo_preempt=not args.no_preempt, params=params)
     if not args.no_warm:
         for eng in server.engines.values():
             eng.warm_compile(None)
     rng = np.random.default_rng(args.seed)
-    # bursty open-loop traffic, as the reference launcher draws it: an
-    # arrival step per request over 4x the per-tenant count, prompt
-    # lengths drawn at submit time
-    queue = sorted((int(rng.integers(0, 4 * args.requests)), t.name)
-                   for t in tenants for _ in range(args.requests))
+    if use_traffic:
+        # the seeded open-loop arrival process: the same seed replays the
+        # same schedule
+        queue = [(a.step, a.tenant, a.prompt_len, a.max_new)
+                 for a in arrival_schedule(
+                     args.scenario, [t.name for t in tenants],
+                     args.requests, args.seed,
+                     max_new=args.max_new_tokens)]
+    else:
+        # bursty: an arrival step per request over 4x the per-tenant
+        # count, prompt lengths drawn at submit time
+        queue = [(s, n, None, args.max_new_tokens)
+                 for s, n in sorted((int(rng.integers(0, 4 * args.requests)),
+                                     t.name)
+                                    for t in tenants
+                                    for _ in range(args.requests))]
     t0 = time.monotonic()
-    steps = 0
+    steps = toks = 0
     predicted = None
+    submitted = []
+    # host time around each fabric step, the same with telemetry on or off
+    harness_step_ms = []
     while queue or server.pending():
         while queue and queue[0][0] <= steps:
-            _, name = queue.pop(0)
+            _, name, plen, mnew = queue.pop(0)
             vocab = server.cfgs[name].vocab_size
-            plen = int(rng.integers(4, 24))
-            server.submit(name, rng.integers(1, vocab, size=plen),
-                          max_new_tokens=args.max_new_tokens)
-        server.step()
+            if plen is None:
+                plen = int(rng.integers(4, 24))
+            prompt = rng.integers(1, vocab, size=plen)
+            submitted.append((name, server.submit(name, prompt,
+                                                  max_new_tokens=mnew),
+                              prompt))
+        s0 = time.perf_counter()
+        out = server.step()
+        harness_step_ms.append((time.perf_counter() - s0) * 1e3)
+        toks += sum(len(v) for v in out.values())
         if policy.predicted is not None:
             predicted = dict(policy.predicted)   # last busy decide's view
         steps += 1
+        if args.log_every and steps % args.log_every == 0:
+            # stderr: stdout carries exactly one JSON document
+            print(_telemetry_line(server, steps, toks,
+                                  time.monotonic() - t0), file=sys.stderr)
         if steps > 10_000:
             break
     server.drain(max_steps=2000)
@@ -111,14 +225,30 @@ def run_fabric(args) -> int:
         torch.cuda.synchronize(server.device)
     dt = time.monotonic() - t0
     stats = server.stats()
-    print(json.dumps({
+    arr = np.asarray(harness_step_ms if harness_step_ms else [0.0])
+    # decode, ssm and enc-dec tenants emit tokens, encoder tenants
+    # completed sequences (embeddings)
+    throughput = {
+        t: {"class": server.classes[t],
+            "unit": ("seqs_per_s" if server.classes[t] == ENCODER
+                     else "tokens_per_s"),
+            "value": round(stats["tokens_emitted"][t] / dt, 2)}
+        for t in server.engines}
+    doc = {
         "device": _device_name(server.device),
-        "tenants": [t.name for t in tenants], "num_cus": args.num_cus,
-        "two_stage": not args.split_only, "decode_steps": steps,
-        "wall_s": round(dt, 2), **stats,
+        "tenants": [t.name for t in tenants], "scenario": args.scenario,
+        "num_cus": args.num_cus, "two_stage": not args.split_only,
+        "decode_steps": steps, "wall_s": round(dt, 2), **stats,
+        "telemetry": not args.no_telemetry,
+        "harness_step_ms": {
+            "p50": round(float(np.percentile(arr, 50)), 3),
+            "p99": round(float(np.percentile(arr, 99)), 3),
+            "n": len(harness_step_ms)},
         "tokens_per_s": {t: round(n / dt, 2)
                          for t, n in stats["tokens_emitted"].items()},
+        "per_class_throughput": throughput,
         "slo": server.slo_summary(),
+        "slo_attainment": server.slo_attainment(),
         "streams_digest": _streams_digest(server.results()),
         # the last busy decide's predicted makespans (analytical, seconds)
         "predicted_makespan_s": predicted,
@@ -132,13 +262,188 @@ def run_fabric(args) -> int:
                         t: round(s, 4)
                         for t, s in e.post_step_seconds.items()}}
                    for e in server.events],
-    }, indent=1, default=list))
+    }
+    return server, doc, submitted
+
+
+def run_fabric(args) -> int:
+    """Traffic-driven multi-tenant serving on one recomposable card."""
+    server, doc, _ = serve_fabric(args)
+    print(json.dumps(doc, indent=1, default=list))
+    if args.trace_out:
+        server.dump_trace(args.trace_out)
+        print(f"trace written: {args.trace_out}", file=sys.stderr)
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(server.metrics_snapshot(), f, indent=1)
+        print(f"metrics written: {args.metrics_json}", file=sys.stderr)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# obs smoke: the telemetry pipeline must observe a mixed-fleet run
+# ---------------------------------------------------------------------------
+
+def run_obs_smoke(args) -> int:
+    """Serve a short reduced mixed-fleet run with tracing on, export the
+    trace, and require that it is valid trace-event JSON with at least one
+    ``recompose``, decode-step and ``warm_compile`` span, and that every
+    tenant class has decode-step latencies (the encoder records its
+    batched encode under the same ``decode_step_s``)."""
+    serve = ServeConfig(max_slots=2, max_len=64, eos_id=-1)
+    tenants = [TenantSpec(f"{w}-{arch}", arch, reduced=True, serve=serve,
+                          seed=i, workload=w)
+               for i, (w, arch) in enumerate(MIXED_FLEET)]
+    server = ComposedServer(tenants, num_cus=args.num_cus,
+                            device=args.device,
+                            policy=AnalyticalPolicy(
+                                per_cu(H100_SXM, args.num_cus)),
+                            decide_every=3)
+    rng = np.random.default_rng(args.seed)
+    for t in server.engines:
+        vocab = server.cfgs[t].vocab_size
+        for _ in range(3):
+            server.submit(t, rng.integers(1, vocab, size=8),
+                          max_new_tokens=6)
+    server.drain(max_steps=600)
+    if server.stats()["recompositions"] == 0:
+        # a quiet run: one forced recomposition exercises the span path
+        sizes = server.sizes()
+        lo = min(sizes, key=sizes.get)
+        hi = max(sizes, key=sizes.get)
+        sizes[lo], sizes[hi] = sizes[lo] + 1, sizes[hi] - 1
+        server.recompose(sizes, reason="obs-smoke")
+        server.drain(max_steps=200)
+    trace_path = args.trace_out
+    if not trace_path:
+        # the checkout's build directory, which git ignores
+        os.makedirs("build", exist_ok=True)
+        trace_path = os.path.join("build", "obs_smoke_trace.json")
+    server.dump_trace(trace_path)
+    with open(trace_path) as f:
+        trace = json.load(f)
+    events = trace.get("traceEvents", [])
+    names = [e.get("name") for e in events]
+    schema_ok = all(
+        isinstance(e.get("ts"), (int, float))
+        and isinstance(e.get("dur"), (int, float))
+        and e.get("ph") == "X" and e.get("name")
+        for e in events)
+    merged = server.metrics()
+    hist_by_class = {
+        server.classes[t]:
+            merged.merged_histogram("decode_step_s", tenant=t).count
+        for t in server.engines}
+    checks = {
+        "trace_events": len(events),
+        "trace_schema_ok": bool(events) and schema_ok,
+        "recompose_spans": names.count("recompose"),
+        "decode_step_spans": sum(n in ("decode_step", "encode_step")
+                                 for n in names),
+        "warm_compile_spans": names.count("warm_compile"),
+        "decode_step_hist_by_class": hist_by_class,
+    }
+    ok = (checks["trace_schema_ok"]
+          and checks["recompose_spans"] >= 1
+          and checks["decode_step_spans"] >= 1
+          and checks["warm_compile_spans"] >= 1
+          and all(n > 0 for n in hist_by_class.values()))
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(server.metrics_snapshot(), f, indent=1)
+    print(json.dumps({**checks, "trace_path": trace_path, "ok": ok}))
+    if not ok:
+        print("obs smoke FAILED: the trace lost spans or a class lost its "
+              "decode-step latencies (see the checks)", file=sys.stderr)
+        return 1
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# SLO smoke: a flash crowd must preempt, and streams must not change
+# ---------------------------------------------------------------------------
+
+def run_slo_smoke(args) -> int:
+    """A flash crowd over the reduced mixed fleet on an oversubscribed
+    paged arena (``kv_arena_frac`` 0.4) must preempt at least one live
+    stream, every request must complete its budget, the streams must equal
+    a slot-granular replay of the same schedule without SLO preemption
+    (preemption saves exact device state; greedy rows do not depend on
+    their batch), and the SLO attainment must not be empty."""
+    requests, mnew = max(args.requests, 6), 24
+    names = [f"{w}-{arch}" for w, arch in MIXED_FLEET]
+
+    def build(paged: bool) -> ComposedServer:
+        serve = ServeConfig(max_slots=3, max_len=64, eos_id=-1,
+                            paged_kv=paged, kv_page_rows=8,
+                            kv_arena_frac=0.4 if paged else 1.0)
+        slo = (SLOTarget(ttft_p50_ms=100.0, ttft_p99_ms=400.0)
+               if paged else None)
+        tenants = [TenantSpec(f"{w}-{arch}", arch, reduced=True,
+                              serve=serve, seed=i, workload=w, slo=slo)
+                   for i, (w, arch) in enumerate(MIXED_FLEET)]
+        # no policy: the smoke pins scheduling behaviour, not the DSE
+        return ComposedServer(tenants, num_cus=args.num_cus,
+                              device=args.device, policy=None,
+                              slo_preempt=paged)
+
+    sched = arrival_schedule("flash-crowd", names, requests, args.seed,
+                             max_new=mnew)
+
+    def run(server: ComposedServer):
+        rng = np.random.default_rng(args.seed)
+        queue = [(a.step, a.tenant, a.prompt_len, a.max_new) for a in sched]
+        steps = 0
+        while queue or server.pending():
+            while queue and queue[0][0] <= steps:
+                _, name, plen, mn = queue.pop(0)
+                vocab = server.cfgs[name].vocab_size
+                server.submit(name, rng.integers(1, vocab, size=plen),
+                              max_new_tokens=mn)
+            server.step()
+            steps += 1
+            if steps > 4000:
+                break
+        server.drain(max_steps=1000)
+        return server.results()
+
+    paged = build(True)
+    res_paged = run(paged)
+    res_base = run(build(False))
+    stats = paged.stats()
+    preemptions = sum(stats["preemptions"].values())
+    att = paged.slo_attainment()
+    complete = all(
+        len(units) == mnew
+        for t, streams in res_paged.items()
+        if paged.classes[t] != ENCODER
+        for units in streams.values())
+    digest_paged = _streams_digest(res_paged)
+    checks = {
+        "preemptions": preemptions,
+        "slo_preemptions": stats["slo_preemptions"],
+        "complete": complete,
+        "digest_match": digest_paged == _streams_digest(res_base),
+        "attainment_tenants": sorted(att["tenants"]),
+        "streams_digest": digest_paged,
+    }
+    ok = (preemptions >= 1 and complete and checks["digest_match"]
+          and bool(att["tenants"]))
+    print(json.dumps({**checks, "ok": ok}))
+    if not ok:
+        print("SLO smoke FAILED: the flash crowd did not preempt, or a "
+              "stream diverged or never completed (see the checks)",
+              file=sys.stderr)
+        return 1
     return 0
 
 
 def run_single(args) -> int:
     cfg = get_reduced(args.arch[0]) if args.reduced else \
         get_config(args.arch[0])
+    cuts = _layer_cuts(args)
+    if args.arch[0] in cuts:
+        cfg = dataclasses.replace(cfg, num_layers=cuts[args.arch[0]])
     model = build_model(cfg, args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)
@@ -177,12 +482,19 @@ def run_single(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS, action="append",
-                    required=True, help="repeat for each fabric tenant")
+                    help="repeat for each fabric tenant")
     ap.add_argument("--fabric", action="store_true",
                     help="serve every --arch as a tenant of one fabric")
+    ap.add_argument("--scenario",
+                    choices=["bursty", "mixed"] + list(TRAFFIC_SCENARIOS),
+                    default="bursty",
+                    help="fabric traffic: 'bursty' serves the --arch "
+                         "tenants; 'mixed' the four-class fleet; the "
+                         "traffic profiles serve that fleet under the "
+                         "seeded open-loop generator with SLO targets")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--requests", type=int, default=8,
@@ -191,6 +503,9 @@ def main(argv=None) -> int:
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", action="append", metavar="ARCH=N",
+                    help="cut ARCH to N (decoder) layers at its published "
+                         "widths; repeatable")
     ap.add_argument("--num-cus", type=int, default=8,
                     help="logical CUs the card is composed of")
     ap.add_argument("--decide-every", type=int, default=4)
@@ -201,7 +516,57 @@ def main(argv=None) -> int:
                          "thread; commit once warm")
     ap.add_argument("--split-only", action="store_true",
                     help="the split-only policy (no Stage 1)")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="no metrics registry or span tracer (streams are "
+                         "the same either way)")
+    ap.add_argument("--metrics-json", metavar="PATH",
+                    help="write the merged metrics snapshot as JSON")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="write the span trace as trace-event JSON")
+    ap.add_argument("--log-every", type=int, default=200, metavar="N",
+                    help="a telemetry line on stderr every N fabric steps "
+                         "(0: none)")
+    ap.add_argument("--kv-frac", type=float, default=1.0,
+                    help="KV arena size as a share of the slots' worst "
+                         "case (< 1 oversubscribes: page exhaustion "
+                         "preempts)")
+    ap.add_argument("--kv-page-rows", type=int, default=16,
+                    help="token rows per KV page")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="no SLO preemption (attainment still reported)")
+    ap.add_argument("--slo-ttft-p50-ms", type=float, default=150.0)
+    ap.add_argument("--slo-ttft-p99-ms", type=float, default=400.0)
+    ap.add_argument("--slo-per-token-p99-ms", type=float, default=0.0,
+                    help="per-token p99 target (0: untracked)")
+    ap.add_argument("--slo-tenant", default="", metavar="SUBSTR",
+                    help="SLO targets only for tenants whose name holds "
+                         "SUBSTR (empty: every tenant)")
+    ap.add_argument("--obs-smoke", action="store_true",
+                    help="require the telemetry to trace a mixed-fleet run")
+    ap.add_argument("--slo-smoke", action="store_true",
+                    help="require a flash crowd on an oversubscribed paged "
+                         "arena to preempt, with streams equal to a "
+                         "slot-granular replay")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = parser()
     args = ap.parse_args(argv)
+    if args.obs_smoke:
+        return run_obs_smoke(args)
+    if args.slo_smoke:
+        return run_slo_smoke(args)
+    if args.scenario == "mixed" or args.scenario in TRAFFIC_SCENARIOS:
+        if not args.fabric:
+            ap.error(f"--scenario {args.scenario} requires --fabric")
+        if args.arch:
+            ap.error(f"--scenario {args.scenario} picks its own fleet; "
+                     "drop --arch")
+        return run_fabric(args)
+    if not args.arch:
+        ap.error("--arch is required (except with --scenario mixed or a "
+                 "traffic scenario, --obs-smoke and --slo-smoke)")
     if args.fabric:
         return run_fabric(args)
     if len(args.arch) != 1:

@@ -1,13 +1,16 @@
-"""GQA attention block of the port (``repro.models.attention``, GQA half).
+"""GQA and cross-attention blocks of the port (``repro.models.attention``
+without MLA).
 
 Parameters keep the reference's einsum layouts, ``wq/wk/wv (d, H, hd)`` and
 ``wo (Hq, hd, d)``, so weights bridge without transposes; the projections
 reshape them to matrices at use (views, no copies).  Cache per layer:
 ``{"k": (B, T, Hkv, D), "v": (B, T, Hkv, D)}``, updated IN PLACE.
 
-Prefill attention always goes through the flash kernel's wrapper and
-decode attention, with ``use_kernels``, through the ragged decode kernel's;
-on CPU tensors each wrapper runs its plain version.
+With ``use_kernels``, full-sequence attention (prefill, encoders) goes
+through the flash kernel's wrapper and decode attention, self and cross,
+through the ragged decode kernel's; on CPU tensors each wrapper runs its
+plain version.  Cross-attention over a full sequence stays stock torch, as
+the reference computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -81,6 +84,22 @@ def _window(cfg: ModelConfig) -> int:
     return cfg.window_size if cfg.attn_type == "sliding" else 0
 
 
+def gqa_fwd(p: Params, cfg: ModelConfig, x, positions, *, causal: bool = True,
+            is_global: bool = False, kv_len=None, use_kernels: bool = True):
+    """Full-sequence attention without a cache (encoders, embedding
+    stacks).  kv_len: optional (B,) int32 valid lengths of right-padded
+    rows: each row masks its own key padding, so its valid outputs do not
+    depend on the padded length."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    kw = dict(causal=causal, window=_window(cfg), logit_cap=cfg.logit_softcap,
+              is_global=is_global, kv_len=kv_len)
+    if use_kernels:
+        o = flash_attention(q, k, v, **kw)
+    else:
+        o = L.blockwise_attention(q, k, v, **kw)
+    return _out(o, p["wo"])
+
+
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device) -> Params:
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -127,3 +146,73 @@ def gqa_step(p: Params, cfg: ModelConfig, x1, cache: Params, pos, *,
     else:
         o = L.decode_attention(q, ck, cv, pos + 1, **kw)
     return _out(o, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (enc-dec decoder): K/V from the encoder output, computed
+# once at prefill into the slot's cross cache
+# ---------------------------------------------------------------------------
+
+def cross_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
+               device) -> Params:
+    return gqa_init(gen, cfg, dtype=dtype, device=device)
+
+
+def _cross_q(p: Params, cfg: ModelConfig, x):
+    q = _proj(x, p["wq"])
+    return q + p["bq"] if cfg.qkv_bias else q
+
+
+def cross_kv(p: Params, cfg: ModelConfig, enc_out):
+    """Encoder output (B, S_src, d) -> cross K, V (B, S_src, Hkv, hd)."""
+    k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k, v
+
+
+def cross_fwd(p: Params, cfg: ModelConfig, x, enc_out, src_len=None):
+    """Cross-attention of x (B, Sq, d) over the encoder output (prefill).
+
+    src_len: optional scalar or (B,) valid source lengths of a right-padded
+    encoder output: keys at or past it are masked out of the softmax.  The
+    masked path is the reference's einsum form (scores (B, Hq, Sq, S_src),
+    small for the decoder prompts a serving prefill runs); without it the
+    plain blockwise attention runs, as in the reference."""
+    q = _cross_q(p, cfg, x)
+    k, v = cross_kv(p, cfg, enc_out)
+    if src_len is None:
+        o = L.blockwise_attention(q, k, v, causal=False)
+    else:
+        B, Sq, Hq, D = q.shape
+        Ss, Hkv = k.shape[1], k.shape[2]
+        kexp = k.repeat_interleave(Hq // Hkv, dim=2)
+        vexp = v.repeat_interleave(Hq // Hkv, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                         kexp.float()) / math.sqrt(D)
+        lens = torch.as_tensor(src_len, device=q.device).expand(B)
+        mask = (torch.arange(Ss, device=q.device)[None, None, None, :]
+                < lens[:, None, None, None])
+        s = torch.where(mask, s, L.NEG_INF)
+        w = torch.softmax(s, dim=-1).to(vexp.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", w.float(),
+                         vexp.float()).to(q.dtype)
+    return _out(o, p["wo"])
+
+
+def cross_step(p: Params, cfg: ModelConfig, x1, ck, cv, src_len, *,
+               use_kernels: bool = False, src_bound: Optional[int] = None,
+               live=None):
+    """Decode-step cross-attention of x1 (B, 1, d) over the slot's cross
+    cache (B, max_src, Hkv, hd), each row masked at its ``src_len``.  With
+    ``use_kernels`` the ragged kernel reads only ``[:, :src_bound]`` (the
+    bound covers every live row's source) and skips dead slots."""
+    q = _cross_q(p, cfg, x1)
+    if use_kernels:
+        sb = ck.shape[1] if src_bound is None else src_bound
+        o = ragged_decode_attention(q, ck[:, :sb], cv[:, :sb], src_len,
+                                    live=live)
+    else:
+        o = L.decode_attention(q, ck, cv, src_len)
+    return _out(o, p["wo"])

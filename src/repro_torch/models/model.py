@@ -1,8 +1,11 @@
-"""Model facade of the port (``repro.models.model``, decoder-only serving).
+"""Model facade of the port (``repro.models.model``, serving).
 
 ``Model(cfg, device)`` gives ``init(generator)``, ``init_cache``,
-``prefill`` and ``decode_step`` over plain parameter dicts, for dense GQA
-and attention-free Mamba decoders.  Weights are cast once, at load, to the
+``prefill``, ``decode_step`` and ``encode`` over plain parameter dicts,
+for dense GQA and attention-free Mamba decoders and dense GQA
+encoder-decoders (whose audio frontend is a stub: token embeddings or
+precomputed frame embeddings enter the encoder through ``frame_norm``).
+Weights are cast once, at load, to the
 activation dtype: the same values as the reference's per-use
 ``.astype(x.dtype)`` at half the memory of fp32.  Norm parameters and the
 Mamba block's conv_w, conv_b, dt_bias, A_log and D stay fp32, as the
@@ -23,8 +26,8 @@ PyTree = Any
 
 
 class Model:
-    """Decoder-only model (dense GQA or attention-free Mamba) on one
-    device."""
+    """Decoder-only model (dense GQA or attention-free Mamba) or dense
+    encoder-decoder on one device."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         T.check_supported(cfg)
@@ -50,6 +53,12 @@ class Model:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = normal((cfg.d_model, cfg.padded_vocab))
+        if cfg.is_encdec:
+            params["encoder"] = T.encoder_init(generator, cfg, dtype=dt,
+                                               device=dev)
+            if cfg.frontend == "frames":
+                params["frame_norm"] = T.norm_init(cfg.norm, cfg.d_model,
+                                                   dev)
         return params
 
     # ------------------------------------------------------------------
@@ -69,11 +78,31 @@ class Model:
     def _embed(self, params, tokens):
         return params["embed"][tokens.long()].to(self.cfg.activation_dtype)
 
+    def _encode(self, params, frames, src_len=None, use_kernels: bool = True):
+        """Bidirectional encoder over frame embeddings (B, S, d); src_len:
+        optional (B,) int32 valid frame counts of right-padded rows."""
+        cfg = self.cfg
+        x = L.apply_norm(cfg.norm, params["frame_norm"],
+                         frames.to(cfg.activation_dtype), cfg.norm_eps)
+        B, S = x.shape[0], x.shape[1]
+        pos = torch.arange(S, device=x.device).expand(B, S)
+        return T.encoder_fwd(params["encoder"], cfg, x, pos, kv_len=src_len,
+                             use_kernels=use_kernels)
+
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int):
-        """Pooled decode cache for ``batch`` slots of ``max_len`` tokens."""
-        return T.decoder_cache_init(self.cfg, batch, max_len,
-                                    self.cfg.activation_dtype, self.device)
+    def init_cache(self, batch: int, max_len: int, *, src_len: int = 0):
+        """Pooled decode cache for ``batch`` slots of ``max_len`` tokens.
+        src_len: the cross cache's source capacity (enc-dec archs), with a
+        per-slot ``src_len`` int32 vector of valid source lengths."""
+        cfg = self.cfg
+        cache = T.decoder_cache_init(
+            cfg, batch, max_len, cfg.activation_dtype, self.device,
+            cross_src=src_len if cfg.is_encdec else 0)
+        if cfg.is_encdec:
+            cache["src_len"] = torch.full((batch,), src_len,
+                                          dtype=torch.int32,
+                                          device=self.device)
+        return cache
 
     @staticmethod
     def cache_slot_axes(cache):
@@ -81,20 +110,30 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, batch, cache, *, true_len=None,
-                use_kernels: bool = True):
+                use_kernels: bool = True, enc_out=None, src_len=None):
         """Run the prompt, writing its K/V into ``cache`` in place.
 
         true_len: optional scalar or (B,) valid prompt lengths of a
         right-padded prompt.  Returns the logits at the last valid position
-        per row and the cache with per-row positions."""
+        per row and the cache with per-row positions.
+
+        Enc-dec archs also take ``enc_out``, encoder hidden states (B,
+        S_src, d) computed apart (else ``batch["frames"]`` is encoded
+        here), and ``src_len``, a scalar or (B,) valid source lengths of a
+        right-padded ``enc_out``: it masks the cross-attention and is
+        recorded in the returned cache's ``src_len``."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
         pos = torch.arange(S, device=x.device).expand(B, S)
+        if cfg.is_encdec and enc_out is None:
+            enc_out = self._encode(params, batch["frames"],
+                                   use_kernels=use_kernels)
         x, cache = T.decoder_prefill(params["decoder"], cfg, x, pos, cache,
                                      true_len=true_len,
-                                     use_kernels=use_kernels)
+                                     use_kernels=use_kernels,
+                                     enc_out=enc_out, src_len=src_len)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         rows = torch.arange(B, device=x.device)
         if true_len is None:
@@ -103,19 +142,52 @@ class Model:
             idx = torch.as_tensor(true_len, device=x.device).expand(B) - 1
             last = x[rows, idx.long()]
         logits = self._mask_pad(last @ self._head(params))
+        if cfg.is_encdec:
+            src = enc_out.shape[1] if src_len is None else src_len
+            cache["src_len"] = torch.as_tensor(
+                src, dtype=torch.int32, device=x.device).expand(B).clone()
         return logits, cache
 
     @torch.no_grad()
+    def encode(self, params, batch, *, lens=None, use_kernels: bool = True):
+        """Full-sequence hidden states (B, S, d) for embedding workloads:
+        no cache, no decode loop.
+
+        Enc-dec archs run the bidirectional encoder over ``frames`` when
+        given, else over the token embeddings (the frontend stub), and
+        ``lens`` (optional (B,) int32 valid lengths of right-padded rows)
+        masks each row's key padding.  Decoder-only archs run the causal
+        decoder stack and its final norm; causal rows do not see their
+        padding, so ``lens`` is not needed there."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            frames = batch.get("frames")
+            if frames is None:
+                frames = params["embed"][batch["tokens"].long()]
+            return self._encode(params, frames, src_len=lens,
+                                use_kernels=use_kernels)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        pos = torch.arange(S, device=x.device).expand(B, S)
+        x = T.decoder_fwd(params["decoder"], cfg, x, pos,
+                          use_kernels=use_kernels)
+        return L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+
+    @torch.no_grad()
     def decode_step(self, params, cache, tokens, *, use_kernels: bool = False,
-                    kv_bound: Optional[int] = None, live_mask=None):
+                    kv_bound: Optional[int] = None,
+                    src_bound: Optional[int] = None, live_mask=None):
         """tokens: (B, 1) -> (logits (B, V), cache).  With ``use_kernels``
-        decode attention reads only the ``kv_bound`` prefix and skips slots
-        whose ``live_mask`` is false."""
+        decode attention reads only the ``kv_bound`` prefix (cross-attention
+        the ``src_bound`` prefix) and skips slots whose ``live_mask`` is
+        false."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         x, cache = T.decoder_step(params["decoder"], cfg, x, cache,
                                   use_kernels=use_kernels, kv_bound=kv_bound,
-                                  live=live_mask)
+                                  live=live_mask, src_len=cache.get("src_len"),
+                                  src_bound=src_bound)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         logits = self._mask_pad(x[:, 0] @ self._head(params))
         return logits, cache

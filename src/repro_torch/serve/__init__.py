@@ -1,8 +1,8 @@
 """The port's serving fabric (``repro.serve`` on one GPU): the
 multi-tenant ``ComposedServer`` with its analytical policy, the serving
-DSE's Stage 1, replica groups and open-loop traffic.  The encoder and
-enc-dec engines, and the reference's ``serve_engine_rules`` (tensor
-parallelism over a mesh), are not part of the port yet."""
+DSE's Stage 1, replica groups and open-loop traffic, over the four engine
+classes.  The reference's ``serve_engine_rules`` (tensor parallelism over
+a mesh) is not part of the port yet."""
 from repro_torch.core.dse import DesignPoint
 from repro_torch.obs import (MetricsRegistry, PredictionLedger, SpanTracer,
                              Telemetry)
@@ -13,7 +13,8 @@ from repro_torch.serve.fabric import (AnalyticalPolicy, ComposedServer,
                                       SLOTarget, TenantLoad,
                                       TenantObservation, TenantSpec)
 from repro_torch.serve.traffic import PROFILES, Arrival, arrival_schedule
-from repro_torch.workloads import DecodeEngine, Request, ServeConfig, SSMEngine
+from repro_torch.workloads import (DecodeEngine, EncDecEngine, EncoderEngine,
+                                   Request, ServeConfig, SSMEngine)
 from repro_torch.workloads.compile_cache import ExecutableCache
 
 # the serving engine is the transformer decode workload class; the name
@@ -26,6 +27,8 @@ __all__ = [
     "ServeConfig",
     "ServeEngine",
     "DecodeEngine",
+    "EncDecEngine",
+    "EncoderEngine",
     "SSMEngine",
     "AnalyticalPolicy",
     "Arrival",

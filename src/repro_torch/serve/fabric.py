@@ -110,8 +110,8 @@ class TenantSpec:
     serve: ServeConfig = ServeConfig()
     seed: int = 0
     # workload class: "auto" derives from the arch (attention-free SSM ->
-    # "ssm", else "decode"); "encoder" and "encdec" name engines that
-    # belong to later slices of the port, and raise at construction
+    # "ssm", enc-dec with cross-attention -> "encdec", else "decode");
+    # "encoder" is a tenant's choice: any arch can serve embeddings
     workload: str = "auto"
     # ceiling on the tenant's data-parallel replica count (Stage-1 dp axis);
     # 1 pins the tenant to a single engine per grant
@@ -119,6 +119,9 @@ class TenantSpec:
     # latency targets for the SLO-aware scheduler; None = best-effort
     # tenant (never preempted on latency grounds, absent from attainment)
     slo: Optional[SLOTarget] = None
+    # (decoder) layers to build, 0 = the config's own: a depth cut that
+    # keeps the published widths, for a fleet that would not fit the card
+    layers: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1114,6 +1117,8 @@ class ComposedServer:
         for spec in tenants:
             cfg = (get_reduced(spec.arch) if spec.reduced
                    else get_config(spec.arch))
+            if spec.layers:
+                cfg = dataclasses.replace(cfg, num_layers=spec.layers)
             wclass = (workload_class_of(cfg) if spec.workload == "auto"
                       else spec.workload)
             model = build_model(cfg, self.device)
@@ -1125,6 +1130,10 @@ class ComposedServer:
             weight_bytes += _param_bytes(tparams)
             self.cfgs[spec.name] = cfg
             self.classes[spec.name] = wclass
+            if wclass == ENCDEC:
+                # prices the per-step cross-attention source-cache read
+                self.src_lens[spec.name] = (spec.serve.max_src_len
+                                            or spec.serve.max_len)
             self.engines[spec.name] = ReplicaGroup(
                 wclass, model, tparams, spec.serve,
                 sub=self.subs[spec.name], exec_cache=self.exec_cache,
@@ -1144,7 +1153,10 @@ class ComposedServer:
     # ------------------------------------------------------------------
     def submit(self, tenant: str, tokens, max_new_tokens: int = 16,
                **kwargs) -> int:
-        """Route one request to ``tenant``'s engine; returns its rid."""
+        """Route one request to ``tenant``'s engine; returns its rid.  An
+        enc-dec tenant's ``tokens`` is the source: token ids, or a (S,
+        d_model) array of precomputed frames; extra keywords pass through
+        to the engine's submit (its forced-decoding ``prefix=``)."""
         return self.engines[tenant].submit(tokens, max_new_tokens, **kwargs)
 
     def sizes(self) -> Dict[str, int]:
@@ -1250,7 +1262,7 @@ class ComposedServer:
             out[t] = TenantDesignSpace(
                 wclass=self.classes[t],
                 max_len=eng.cfg.max_len,
-                max_src=0,
+                max_src=getattr(eng.replicas[0], "_max_src", 0),
                 base_slots=d["slots"],
                 base_buckets=tuple(d["buckets"] or ()),
                 base_tp=d["tp"],

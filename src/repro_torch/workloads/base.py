@@ -201,18 +201,17 @@ class EngineTelemetry:
 
 def build_engine(wclass: str, model, params, serve_cfg, *, exec_cache=None,
                  obs=None):
-    """Construct the engine serving ``wclass`` traffic for ``model``
-    (``decode`` or ``ssm``; the encoder and enc-dec engines belong to
-    later slices of the port)."""
+    """Construct the engine serving ``wclass`` traffic for ``model``."""
     from repro_torch.workloads.decode import DecodeEngine
+    from repro_torch.workloads.encdec import EncDecEngine
+    from repro_torch.workloads.encoder import EncoderEngine
     from repro_torch.workloads.ssm import SSMEngine
 
-    classes = {DECODE: DecodeEngine, SSM: SSMEngine}
+    classes = {DECODE: DecodeEngine, SSM: SSMEngine, ENCODER: EncoderEngine,
+               ENCDEC: EncDecEngine}
     if wclass not in classes:
-        raise KeyError(f"unknown or unported workload class {wclass!r}; "
-                       f"the port serves {tuple(classes)} (the encoder and "
-                       "enc-dec engines are ROADMAP.md queue 1, items 5 "
-                       "and 6)")
+        raise KeyError(f"unknown workload class {wclass!r}; known: "
+                       f"{tuple(classes)}")
     return classes[wclass](model, params, serve_cfg, exec_cache=exec_cache,
                            obs=obs)
 
@@ -350,9 +349,11 @@ def sanitize_check(engine) -> None:
     release went through ``_release_slot``."""
     if not sanitize_enabled():
         return
-    check = getattr(engine.arena, "check", None)
+    check = getattr(getattr(engine, "arena", None), "check", None)
     if callable(check):
         check()
+    if not hasattr(engine, "_active"):
+        return                  # no slots: jobs finish within their step
     active, free = engine._active, engine._free_slots
     name = type(engine).__name__
     dup = set(active) & set(free)

@@ -88,7 +88,9 @@ def _round_block(n: int) -> int:
 
 @dataclasses.dataclass
 class Request:
-    """One submitted request's host-side lifecycle record."""
+    """One submitted request's host-side lifecycle record (``tokens`` is
+    the prompt, or an enc-dec job's source: token ids or (S, d_model)
+    frame embeddings)."""
 
     rid: int
     tokens: np.ndarray                  # prompt
@@ -100,6 +102,8 @@ class Request:
     # tokens scheduled for emission (prefill's first token + dispatched
     # decode steps); runs ahead of len(out_tokens) by the in-flight step
     scheduled: int = 0
+    # enc-dec forced decoding: target-prefix ids after BOS (None: BOS alone)
+    prefix: Optional[np.ndarray] = None
     # perf_counter() at submit; rides the record through an adoption
     submitted_s: float = 0.0
 
@@ -114,6 +118,14 @@ class ServeConfig:
     prefill_bucket: int = 32           # prompts padded up to this length
     # overlap decode dispatch with host bookkeeping (when eos_id < 0)
     pipeline_decode: bool = True
+    # enc-dec tenants: per-slot cross-attention source capacity in source
+    # frames (0: max_len); submit()'s tokens are then the source
+    max_src_len: int = 0
+    # decoder start token of enc-dec jobs (the decoder prompt is [bos])
+    bos_id: int = 1
+    # sequence-length buckets of batched encodes (EncoderEngine jobs,
+    # EncDecEngine sources); () is the capacity alone
+    len_buckets: Tuple[int, ...] = ()
     # ceiling of apply()'s slot resizes, whatever the design point asks
     slot_cap: int = 64
     # hand-written kernels on the hot path: ragged decode attention over
@@ -349,8 +361,13 @@ class DecodeEngine(EngineTelemetry):
     # ------------------------------------------------------------------
     # the device pool and live design-point reconfiguration
     # ------------------------------------------------------------------
+    def _init_cache(self, slots: int) -> PyTree:
+        """The pooled cache of ``slots`` slots (hook: enc-dec adds its
+        cross cache)."""
+        return self.model.init_cache(slots, self.cfg.max_len)
+
     def _new_pool(self, slots: int) -> _Pool:
-        cache = self.model.init_cache(slots, self.cfg.max_len)
+        cache = self._init_cache(slots)
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                            device=self.device)
         graph_pool = (torch.cuda.graph_pool_handle()
@@ -678,16 +695,18 @@ class DecodeEngine(EngineTelemetry):
         cands = sorted(itertools.product(*axes), key=lambda t: (sum(t), t))
         return [t for t in cands if t != tuple(bounds)]
 
-    def _decode_fn(self, pool: _Pool, kv_bound: Optional[int]):
-        """One decode step of ``pool`` from its static inputs; the next
-        input token per slot is host-injected or the previous step's
-        device-resident output."""
+    def _decode_fn(self, pool: _Pool, bounds: Tuple[int, ...]):
+        """One decode step of ``pool`` from its static inputs, at its
+        bounds (KV, then an enc-dec's source); the next input token per
+        slot is host-injected or the previous step's device-resident
+        output."""
         inputs = pool.inputs
         live = inputs[2].bool()
         toks = torch.where(inputs[1].bool(), inputs[0], pool.prev)[:, None]
         logits, _ = self.model.decode_step(
             self.params, pool.cache, toks, use_kernels=self.cfg.use_kernels,
-            kv_bound=kv_bound, live_mask=live)
+            kv_bound=bounds[0] if bounds else None,
+            src_bound=bounds[1] if len(bounds) > 1 else None, live_mask=live)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         return torch.where(live, nxt, torch.zeros_like(nxt))
 
@@ -698,7 +717,7 @@ class DecodeEngine(EngineTelemetry):
         them again (a new or restored slot is written whole)."""
         cache = pool.cache
         return [cache["pos"]] + [t for kind, leaves in cache["scanned"].items()
-                                 if kind != "attn" for t in leaves.values()]
+                                 if kind == "ssm" for t in leaves.values()]
 
     def _capture(self, pool: _Pool, decode_once: Callable[[], torch.Tensor]
                  ) -> GraphStep:
@@ -749,10 +768,8 @@ class DecodeEngine(EngineTelemetry):
     def _build_decode(self, pool: _Pool, bounds: Tuple[int, ...] = ()):
         """A decode step of ``pool`` at ``bounds``: a CUDA graph on the
         card, else the eager closure."""
-        kv_bound = bounds[0] if bounds else None
-
         def decode_once():
-            return self._decode_fn(pool, kv_bound)
+            return self._decode_fn(pool, bounds)
 
         if self.device.type != "cuda" or not graphs:
             return decode_once
@@ -962,9 +979,14 @@ class DecodeEngine(EngineTelemetry):
                     if req.submitted_s > 0.0:
                         obs.observe("queue_wait_s", now - req.submitted_s)
             with obs.span("admit", n=len(admitted)):
-                for req in admitted:
-                    self._prefill_into_slot(req)
+                self._prefill_admitted(admitted)
         self._resume_parked()
+
+    def _prefill_admitted(self, reqs: List[Request]) -> None:
+        """Prefill the requests just admitted (hook: the enc-dec engine
+        shares one batched source encode among them)."""
+        for req in reqs:
+            self._prefill_into_slot(req)
 
     def _bucketed(self, length: int) -> int:
         bucket = max(self.cfg.prefill_bucket, 8)
@@ -989,6 +1011,11 @@ class DecodeEngine(EngineTelemetry):
         req.out_tokens.append(first)
         req.scheduled = 1
         self._inject[req.slot] = first
+        self._record_ttft(req)
+
+    def _record_ttft(self, req: Request) -> None:
+        """The first token just reached the host: time to first token from
+        the request's submit stamp."""
         if req.submitted_s > 0.0 and self._obs.enabled:
             self._obs.observe("ttft_s", time.perf_counter() - req.submitted_s)
 

@@ -399,6 +399,9 @@ def test_engines_satisfy_protocol(wclass, arch):
     assert stats["compile_builds"] == 0 and stats["reshard_count"] == 0
     assert stats["design"] == {"tp": None, "slots": 2, "buckets": None}
     with pytest.raises(KeyError):
-        build_engine("encoder", tm, tp, ServeConfig())
+        build_engine("no-such-class", tm, tp, ServeConfig())
+    # any arch serves embeddings: the encoder class is a tenant's choice
+    enc = build_engine("encoder", tm, tp, ServeConfig())
+    assert enc.workload_class == "encoder" and isinstance(enc, Engine)
     with pytest.raises(ValueError, match="second GPU"):
         eng.apply(None, DesignPoint(cus=0, tp=2))

@@ -21,7 +21,8 @@ from repro_torch.core.dse import DesignPoint  # noqa: E402
 from repro_torch.kernels.ragged_decode import ops as rd  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.workloads import decode as D  # noqa: E402
-from repro_torch.workloads import DecodeEngine, SSMEngine, ServeConfig  # noqa: E402
+from repro_torch.workloads import (DecodeEngine, EncDecEngine,  # noqa: E402
+                                   EncoderEngine, SSMEngine, ServeConfig)
 from repro_torch.workloads.compile_cache import GraphStep  # noqa: E402
 
 ARCHS = ("minitron-4b", "qwen2.5-32b", "falcon-mamba-7b")
@@ -41,7 +42,8 @@ def _model(arch):
     if arch not in _MODELS:
         model = Model(get_reduced(arch), "cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
-        cls = SSMEngine if arch == "falcon-mamba-7b" else DecodeEngine
+        cls = {"falcon-mamba-7b": SSMEngine,
+               "seamless-m4t-medium": EncDecEngine}.get(arch, DecodeEngine)
         _MODELS[arch] = (model, params, cls)
     return _MODELS[arch]
 
@@ -289,3 +291,85 @@ def test_two_tenants_on_their_streams_equal_alone(cuda, monkeypatch):
         res = alone.run_to_completion(500)
         assert [out[t][r] for r in rids[t]] == [res[r] for r in lone]
         assert all(len(out[t][r]) == 30 for r in rids[t])
+
+
+@pytest.mark.gpu
+def test_encdec_graph_streams_equal_eager(cuda, monkeypatch):
+    """EncDecEngine on the card: decode steps as graphs keyed by both
+    bounds (decoder KV, source), captured by warm_compile and none on the
+    serving path; token sources, precomputed frames and forced prefixes
+    give the eager engine's streams."""
+    model, params, _ = _model("seamless-m4t-medium")
+    rng = np.random.default_rng(5)
+    d = model.cfg.d_model
+    jobs = []
+    for i in range(6):
+        src = rng.integers(1, 200, size=int(rng.integers(3, 60)))
+        kw = {"prefix": rng.integers(1, 200, size=3)} if i % 3 == 1 else {}
+        if i % 3 == 2:
+            src = rng.normal(size=(len(src), d)).astype(np.float32)
+        jobs.append((src, kw))
+    streams = []
+    for graphs in (True, False):
+        eng = _engine("seamless-m4t-medium", graphs, monkeypatch,
+                      max_src_len=64, len_buckets=(16, 32))
+        eng.submit(jobs[2][0], max_new_tokens=1)     # frames and prefix
+        eng.submit(jobs[1][0], max_new_tokens=1, prefix=jobs[1][1]["prefix"])
+        eng.run_to_completion(20)
+        eng.warm_compile(None)
+        warmed = eng.graph_captures
+        rids = [eng.submit(src, max_new_tokens=24, **kw) for src, kw in jobs]
+        res = eng.run_to_completion(500)
+        assert eng.graph_captures == warmed
+        assert bool(_graphs_of(eng)) == graphs
+        assert all(len(g.launches) and g.launches["ragged_decode"] ==
+                   2 * model.cfg.num_layers for g in _graphs_of(eng))
+        streams.append([res[r] for r in rids])
+    assert streams[0] == streams[1]
+    assert all(len(s) == 24 for s in streams[0])
+
+
+@pytest.mark.gpu
+def test_encoder_engine_on_its_stream_beside_a_decode_tenant(cuda,
+                                                             monkeypatch):
+    """An encoder tenant and a decode tenant of one ComposedServer, each
+    engine on a stream of its own: the embeddings equal a lone
+    EncoderEngine's on the same jobs and weights (1e-5 relative: the same
+    kernels on the same inputs), the decode streams a lone engine's."""
+    from repro_torch.serve.fabric import ComposedServer, TenantSpec
+
+    monkeypatch.setattr(D, "graphs", True)
+    sc = ServeConfig(max_slots=3, max_len=128, eos_id=-1,
+                     len_buckets=(32, 64))
+    fleet = (("e", "qwen2.5-32b", "encoder"), ("d", "minitron-4b", "decode"))
+    params = {t: _model(arch)[1] for t, arch, _ in fleet}
+    srv = ComposedServer([TenantSpec(t, arch, serve=sc, workload=w)
+                          for t, arch, w in fleet],
+                         num_cus=8, device="cuda", params=params, policy=None)
+    enc = srv.engines["e"].replicas[0]
+    assert isinstance(enc, EncoderEngine)
+    streams = {e.stream for g in srv.engines.values() for e in g.replicas}
+    assert len(streams) == 2 and torch.cuda.current_stream() not in streams
+    for g in srv.engines.values():
+        g.warm_compile(None)
+    rng = np.random.default_rng(6)
+    jobs = {t: [rng.integers(1, 200, size=int(n))
+                for n in rng.integers(3, 120, size=7)] for t, _, _ in fleet}
+    rids = {t: [srv.submit(t, x, max_new_tokens=20) for x in jobs[t]]
+            for t, _, _ in fleet}
+    out = srv.drain(max_steps=500)
+    assert srv.stats()["serving_captures"] == {"e": 0, "d": 0}
+    assert srv.stats()["tokens_emitted"]["e"] == 7
+    model, p, _ = _model("qwen2.5-32b")
+    lone = EncoderEngine(model, p, sc)
+    lr = [lone.submit(x) for x in jobs["e"]]
+    ref = lone.run_to_completion(50)
+    for r, q in zip(rids["e"], lr):
+        got, want = np.asarray(out["e"][r]), np.asarray(ref[q])
+        assert got.shape == (model.cfg.d_model,)
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    model, p, cls = _model("minitron-4b")
+    alone = cls(model, p, sc)
+    la = [alone.submit(x, max_new_tokens=20) for x in jobs["d"]]
+    res = alone.run_to_completion(500)
+    assert [out["d"][r] for r in rids["d"]] == [res[r] for r in la]

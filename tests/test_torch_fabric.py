@@ -9,9 +9,16 @@
    same traffic with the same prices (a policy holding the reference's
    per-chip profile numbers as one CU): the event sequence (step, reason,
    sizes after, design applied) and every stream must be equal.
+   The same subprocess runs the reference's mixed fleet (one tenant per
+   workload class: minitron-4b decode, falcon-mamba-7b SSM, qwen2.5-32b
+   encoder, seamless-m4t-medium enc-dec, reduced, fp32) on traffic with
+   forced prefixes and precomputed frames: events and token streams must
+   be equal, embeddings within 1e-5 of the largest |value|.
 2. The reference's fabric scenarios (``tests/test_fabric.py``), one to one,
    as CPU tests of the port: a CU is a share of one device, so "devices"
    become CU ids and a move builds nothing (a slot retune does).
+3. The launcher's mixed-fleet modes on the CPU: ``--scenario`` JSON,
+   ``--slo-smoke`` and ``--obs-smoke``.
 """
 import dataclasses
 import json
@@ -71,8 +78,9 @@ fleet = json.loads(sys.argv[2])
 serve = F.ServeConfig(**json.loads(sys.argv[3]))
 traffic = json.load(open(out + "/traffic.json"))
 mesh = jax.make_mesh((1, 8), ("data", "model"))
-srv = F.ComposedServer(mesh, [F.TenantSpec(n, a, seed=s, serve=serve)
-                              for n, a, s in fleet],
+srv = F.ComposedServer(mesh, [F.TenantSpec(n, a, seed=s, serve=serve,
+                                          workload=(w or ["auto"])[0])
+                              for n, a, s, *w in fleet],
                        policy=F.AnalyticalPolicy(), decide_every=4,
                        tp=False, warm=True)
 
@@ -86,23 +94,25 @@ def flat(tree, pre, acc):
     return acc
 
 
-for n, _, _ in fleet:
+for n, *_ in fleet:
     np.savez(f"{out}/params_{n}.npz",
              **flat(jax.tree.map(np.asarray, strip(srv.engines[n].params)),
                     (), {}))
 rids, step = [], 0
 while traffic or any(e.has_work for e in srv.engines.values()):
     while traffic and traffic[0][0] <= step:
-        _, t, toks, new = traffic.pop(0)
-        rids.append((t, srv.submit(t, np.asarray(toks, np.int32),
-                                   max_new_tokens=new)))
+        _, t, toks, new, *kw = traffic.pop(0)
+        src = np.asarray(toks)
+        src = src.astype(np.float32 if src.ndim == 2 else np.int32)
+        rids.append((t, srv.submit(t, src, max_new_tokens=new,
+                                   **(kw[0] if kw else {}))))
     srv.step()
     step += 1
     assert step < 500
 res = srv.results()
 json.dump({"events": [[e.step, e.reason, e.sizes_after, e.design]
                       for e in srv.events],
-           "streams": [[t, r, [int(x) for x in res[t][r]]]
+           "streams": [[t, r, [float(x) for x in res[t][r]]]
                        for t, r in rids]},
           open(out + "/jax.json", "w"), default=list)
 """
@@ -145,9 +155,11 @@ def _serve_traffic(srv, traffic):
     rids, step = [], 0
     while traffic or any(e.has_work for e in srv.engines.values()):
         while traffic and traffic[0][0] <= step:
-            _, t, toks, new = traffic.pop(0)
-            rids.append((t, srv.submit(t, np.asarray(toks, np.int32),
-                                       max_new_tokens=new)))
+            _, t, toks, new, *kw = traffic.pop(0)
+            src = np.asarray(toks)
+            src = src.astype(np.float32 if src.ndim == 2 else np.int32)
+            rids.append((t, srv.submit(t, src, max_new_tokens=new,
+                                       **(kw[0] if kw else {}))))
         srv.step()
         step += 1
         assert step < 500
@@ -155,33 +167,39 @@ def _serve_traffic(srv, traffic):
     return [[t, r, list(res[t][r])] for t, r in rids]
 
 
-@pytest.fixture(scope="module")
-def jax_fabric(tmp_path_factory):
-    """The reference fabric's events, streams and initial params, from one
-    8-fake-device subprocess (about 30 s)."""
-    out = tmp_path_factory.mktemp("jax_fabric")
-    traffic = _traffic()
+def _run_jax_fabric(out, fleet, traffic):
+    """The reference fabric over ``fleet`` on ``traffic``, in one
+    8-fake-device subprocess: its events, streams and initial params."""
     (out / "traffic.json").write_text(json.dumps(traffic))
     t0 = time.perf_counter()
     run = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_JAX_FABRIC), str(out),
-         json.dumps(FLEET), json.dumps(SERVE)],
+         json.dumps(fleet), json.dumps(SERVE)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, (run.stdout[-2000:], run.stderr[-4000:])
     assert time.perf_counter() - t0 < 300
     ref = json.loads((out / "jax.json").read_text())
     params = {n: params_from_jax(_unflat(np.load(out / f"params_{n}.npz")),
                                  _fp32(arch), "cpu")
-              for n, arch, _ in FLEET}
+              for n, arch, *_ in fleet}
     return ref, params, traffic
 
 
-def _port_fabric(params, telemetry=True):
+@pytest.fixture(scope="module")
+def jax_fabric(tmp_path_factory):
+    """The reference fabric's events, streams and initial params, from one
+    8-fake-device subprocess (about 30 s)."""
+    return _run_jax_fabric(tmp_path_factory.mktemp("jax_fabric"), FLEET,
+                           _traffic())
+
+
+def _port_fabric(params, telemetry=True, fleet=FLEET):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fabric, "get_reduced", _fp32)
         return ComposedServer(
-            [TenantSpec(n, a, seed=s, serve=ServeConfig(**SERVE))
-             for n, a, s in FLEET],
+            [TenantSpec(n, a, seed=s, serve=ServeConfig(**SERVE),
+                        workload=(w or ["auto"])[0])
+             for n, a, s, *w in fleet],
             num_cus=8, device="cpu", params=params,
             policy=AnalyticalPolicy(TPU_NUMBERS), decide_every=4,
             warm=True, telemetry=telemetry)
@@ -232,10 +250,64 @@ def test_fabric_telemetry_surfaces(jax_fabric):
     assert {"decide", "recompose", "migrate"} <= names
 
 
-def test_encoder_tenant_raises():
-    with pytest.raises(KeyError, match="items 5"):
-        ComposedServer([TenantSpec("e", "minitron-4b", workload="encoder")],
-                       num_cus=2, device="cpu")
+# the reference launcher's MIXED_FLEET, reduced: one tenant per class
+MIXED = (("d", "minitron-4b", 0, "decode"), ("s", "falcon-mamba-7b", 1, "ssm"),
+         ("e", "qwen2.5-32b", 2, "encoder"),
+         ("x", "seamless-m4t-medium", 3, "encdec"))
+
+
+def _mixed_traffic():
+    """(step, tenant, source, new tokens, submit keywords): embedding jobs
+    and enc-dec jobs beside a decode burst and SSM requests; the enc-dec
+    tenant gets a forced prefix and precomputed (S, d_model) frames."""
+    rng = np.random.default_rng(1)
+    out = []
+    for step, t, n, new in ((0, "d", 3, 10), (0, "e", 4, 0), (0, "x", 2, 8),
+                            (5, "s", 2, 8), (9, "e", 3, 0), (12, "x", 2, 6),
+                            (20, "d", 1, 6)):
+        for _ in range(n):
+            plen = int(rng.integers(4, 20))
+            out.append((step, t, rng.integers(3, 200, size=plen).tolist(),
+                        new))
+    d = get_reduced("seamless-m4t-medium").d_model
+    out.append((14, "x", rng.integers(3, 200, size=7).tolist(), 6,
+                {"prefix": [5, 9, 11]}))
+    out.append((14, "x", (0.5 * rng.normal(size=(9, d))).tolist(), 5))
+    return sorted(out, key=lambda a: a[0])
+
+
+@pytest.fixture(scope="module")
+def jax_mixed_fabric(tmp_path_factory):
+    """The reference fabric over the mixed fleet, one 8-fake-device
+    subprocess."""
+    return _run_jax_fabric(tmp_path_factory.mktemp("jax_mixed"), MIXED,
+                           _mixed_traffic())
+
+
+def test_mixed_fleet_events_and_streams_equal_jax_fabric(jax_mixed_fabric):
+    """The four classes on one fabric, priced by the same policy: the
+    event sequence and every token stream equal the reference's, each
+    embedding within 1e-5 of the largest |value|."""
+    ref, params, traffic = jax_mixed_fabric
+    srv = _port_fabric(params, fleet=MIXED)
+    streams = _serve_traffic(srv, traffic)
+    events = [[e.step, e.reason, e.sizes_after, e.design]
+              for e in srv.events]
+    assert json.loads(json.dumps(events, default=list)) == ref["events"]
+    assert len(ref["events"]) >= 1
+    assert [s[:2] for s in streams] == [s[:2] for s in ref["streams"]]
+    for (t, r, got), (_, _, want) in zip(streams, ref["streams"]):
+        if t == "e":
+            got, want = np.asarray(got), np.asarray(want)
+            assert got.shape == want.shape == (64,)
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        else:
+            assert got == [int(x) for x in want], (t, r)
+    st = srv.stats()
+    assert st["workload_classes"] == {"d": "decode", "s": "ssm",
+                                      "e": "encoder", "x": "encdec"}
+    assert st["tokens_emitted"]["e"] == 7
+    assert srv.src_lens == {"x": SERVE["max_len"]}
 
 
 # ---------------------------------------------------------------------------
@@ -470,3 +542,59 @@ def test_slo_scheduler_preempts_and_reports_attainment():
     assert row["preemptions"] >= 1 and row["ttft"]["n"] >= 3
     assert row["ttft"]["p99"]["target_ms"] == 1e-3
     assert row["ttft"]["p99"]["met"] is False
+
+
+@pytest.mark.parametrize("scenario", ["mixed", "flash-crowd"])
+def test_launcher_scenario_json_carries_reference_keys(capsys, scenario):
+    """``--fabric --scenario`` over the reference's MIXED_FLEET on the CPU:
+    one JSON document on stdout with the reference launcher's keys and a
+    per-class throughput for each of the four classes."""
+    from repro_torch.launch import serve
+
+    assert serve.main(["--fabric", "--scenario", scenario, "--reduced",
+                       "--device", "cpu", "--requests", "3",
+                       "--max-new-tokens", "6", "--kv-frac", "0.4",
+                       "--log-every", "0"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert {"scenario", "harness_step_ms", "slo_attainment",
+            "per_class_throughput", "events", "streams_digest"} <= set(out)
+    assert out["scenario"] == scenario
+    tput = out["per_class_throughput"]
+    assert sorted(v["class"] for v in tput.values()) == \
+        ["decode", "encdec", "encoder", "ssm"]
+    assert all(v["value"] > 0 for v in tput.values())
+    assert tput["encoder-qwen2.5-32b"]["unit"] == "seqs_per_s"
+    assert set(out["serving_captures"].values()) == {0}
+    slo = out["slo_attainment"]["tenants"]
+    assert (set(slo) == set(tput)) == (scenario == "flash-crowd")
+    with pytest.raises(SystemExit):
+        serve.main(["--scenario", scenario, "--device", "cpu"])
+
+
+def test_launcher_slo_smoke_preempts_with_equal_digests(capsys):
+    """``--slo-smoke --device cpu``: the flash crowd on the oversubscribed
+    paged arena preempts, and the paged run's streams equal the
+    slot-granular replay's."""
+    from repro_torch.launch import serve
+
+    assert serve.main(["--slo-smoke", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert out["ok"] and out["preemptions"] >= 1 and out["digest_match"]
+    assert out["complete"] and len(out["attainment_tenants"]) == 4
+
+
+def test_launcher_obs_smoke_traces_spans(capsys, tmp_path):
+    """``--obs-smoke``: the trace holds recompose, decode-step and
+    warm-compile spans, and every class has decode-step latencies."""
+    from repro_torch.launch import serve
+
+    trace = tmp_path / "trace.json"
+    assert serve.main(["--obs-smoke", "--device", "cpu", "--trace-out",
+                       str(trace)]) == 0
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert out["ok"] and out["recompose_spans"] >= 1
+    assert out["decode_step_spans"] >= 1 and out["warm_compile_spans"] >= 1
+    assert set(out["decode_step_hist_by_class"]) == \
+        {"decode", "ssm", "encoder", "encdec"}
+    names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"recompose", "warm_compile"} <= names

@@ -49,6 +49,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serve, repro_torch.serve.fabric\n"
             "import repro_torch.serve.dse, repro_torch.serve.traffic\n"
             "import repro_torch.core.composer, repro_torch.obs.accounting\n"
+            "import repro_torch.workloads.encoder\n"
+            "import repro_torch.workloads.encdec\n"
+            "import repro_torch.configs.seamless_m4t_medium\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n"

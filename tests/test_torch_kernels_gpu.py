@@ -138,6 +138,68 @@ def test_flash_kernel_on_gpu(cuda, dtype, S, window, cap, glob, G, D, fused):
     assert err <= GPU_TOL[dtype], err
 
 
+def _kv_case(cuda, B, S, D, dtype, lens):
+    """(q, k, v, kv_len) of a key-padded flash case: H = 16 heads (G = 1,
+    seamless-m4t's attention), ``lens`` the valid keys per row."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((B, S, 16, D), generator=gen,
+                           device=cuda).to(dtype) for _ in range(3))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+
+def _drawn_lens(B, S):
+    """Per-row lengths drawn in [1, S]; the last row is S itself."""
+    gen = torch.Generator().manual_seed(B * 10007 + S)
+    lens = torch.randint(1, S + 1, (B,), generator=gen).tolist()
+    lens[-1] = S
+    return lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 1024])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_kv_len_on_gpu(cuda, dtype, B, S, D, causal):
+    """Per-row key padding: key ``j`` of row ``b`` counts only where
+    ``j < kv_len[b]``; query rows past a row's length are held too."""
+    q, k, v, lens = _kv_case(cuda, B, S, D, dtype, _drawn_lens(B, S))
+    before = (fa.launches, fa.masked_launches)
+    got = fa.flash_attention(q, k, v, causal=causal, kv_len=lens)
+    want = flash_attention_ref(q, k, v, causal=causal, kv_len=lens)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.masked_launches) == (before[0], before[1] + 1)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_TOL[dtype] and got.isfinite().all(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 63, 1000])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_kv_len_zero_rows_on_gpu(cuda, dtype, S, causal):
+    """Rows of length 0 (a batch row that holds no job, as the engines
+    pass them) give what the plain version gives, never NaN."""
+    q, k, v, lens = _kv_case(cuda, 4, S, 64, dtype, [0, min(5, S), 0, S])
+    got = fa.flash_attention(q, k, v, causal=causal, kv_len=lens)
+    want = flash_attention_ref(q, k, v, causal=causal, kv_len=lens)
+    torch.cuda.synchronize()
+    assert got.isfinite().all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_kv_len_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs are bitwise equal."""
+    q, k, v, lens = _kv_case(cuda, 8, 1024, 64, dtype, _drawn_lens(8, 1024))
+    a = fa.flash_attention(q, k, v, causal=False, kv_len=lens)
+    b = fa.flash_attention(q, k, v, causal=False, kv_len=lens)
+    assert torch.equal(a, b)
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((2, 1, 4, 64), dtype=torch.float16, device=cuda)
@@ -153,6 +215,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     kb = torch.zeros((1, 8, 2, 200), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention(qb, kb, kb)
+    qw = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):                 # kv_len with a window
+        fa.flash_attention(qw, qw, qw, window=4, kv_len=lens)
+    with pytest.raises(ValueError):                 # kv_len not int32
+        fa.flash_attention(qw, qw, qw, kv_len=lens.long())
 
 
 @pytest.mark.gpu

@@ -70,13 +70,18 @@ def test_unknown_arch_and_later_slices_raise():
     with pytest.raises(KeyError):
         TC.get_config("hymba-1.5b")
     cfg = TC.get_reduced("minitron-4b")
-    # an SSM beside attention (hybrid) is a later slice; attention-free is not
+    # an SSM beside attention (hybrid) is a later slice; attention-free is
+    # not, and neither is a dense encoder-decoder (an SSM one has no slice)
     for field, value in (("moe", TC.MoEConfig(4, 2, 32)),
                          ("mla", TC.MLAConfig()), ("ssm", TC.SSMConfig()),
-                         ("hybrid_parallel", True), ("encoder_layers", 2)):
+                         ("hybrid_parallel", True)):
         with pytest.raises(NotImplementedError, match="slice"):
             check_supported(dataclasses.replace(cfg, **{field: value}))
+    with pytest.raises(NotImplementedError, match="slice"):
+        check_supported(dataclasses.replace(TC.get_reduced("falcon-mamba-7b"),
+                                            encoder_layers=2))
     check_supported(TC.get_reduced("falcon-mamba-7b"))
+    check_supported(TC.get_reduced("seamless-m4t-medium"))
 
 
 def test_default_device_raises_without_gpu():
