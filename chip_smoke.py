@@ -106,6 +106,21 @@
    SLO attainment, captures on the serving path (0), peak memory and the
    five serving kernels' launches (each must launch); every stream equals
    a slot-granular replay of the same schedule but at counted near-ties.
+10. MLA and MoE phase: full-width deepseek-v2-lite-16b (27 layers, 64
+   routed experts top-6 and 2 shared, MLA; random bf16 weights from seed
+   0, 31.4 GB) through ``DecodeEngine`` with the kernels on: phase 3's 8
+   prompts, 32 new tokens, 8 slots, ``max_len`` 2048, decode steps as
+   graphs then eager (streams equal, 0 captures on the serving path, the
+   flash kernel at head dim 192 launched 27 times per prefill, peak
+   memory under 80 GiB).  Logs prefill ms, decode p50, tokens/s, the
+   decode step beside its bound and by module (MoE dispatch, routed and
+   shared experts, MLA), and the busy share; holds the kernel path's
+   logits to the plain path's with the router pinned to the plain path's
+   experts, in bf16 (5e-2) and in fp32 (1e-3) at full depth, and logs the
+   routing partings, the unpinned distance and the bf16 rounding floor.
+   The kernel phase holds flash at head dims 24, 192 and 256 (causal,
+   windowed, key-padded, S 65) in bf16 and fp32 and times it at
+   deepseek's prefill shape beside SDPA.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -509,6 +524,7 @@ def run_kernel_phase(torch, reps: int = 20):
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
     results.update(run_masked_flash_phase(torch, gen, reps))
+    results.update(run_mla_flash_phase(torch, gen, reps))
     return results
 
 
@@ -605,6 +621,92 @@ def run_masked_flash_phase(torch, gen, reps: int):
         f"launches per call {sum(kinds.values())} {kinds} ({card_line()})")
     return {"flash_attention_kv_len": dict(
         name="flash_attention_kv_len", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:75",
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)}
+
+
+MLA_HEAD_DIMS = (24, 192, 256)      # deepseek reduced and full qk dims; 256
+MLA_H = 16                          # deepseek-v2-lite's heads (G = 1)
+
+
+def run_mla_flash_phase(torch, gen, reps: int):
+    """The flash kernel at MLA's head dims against its plain version: D
+    in {24, 192, 256}, bf16 and fp32, H 16, over four cases each: causal
+    at S 1024, windowed with a cap at S 200, key-padded (B 3, lengths 200,
+    100 and 5) and causal at S 65 (no multiple of the tile); v zero past
+    128, as MLA pads it.  Then timed at deepseek-v2-lite's prefill shape
+    (B 1, S 1024, H 16, D 192, causal, bf16) beside the plain version and
+    SDPA, and at D 24 and 256 for the record."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    F = torch.nn.functional
+    H = MLA_H
+    cases = (("causal", 1, 1024, {}),
+             ("window+cap", 1, 200, dict(window=64, logit_cap=30.0)),
+             ("kv_len", 3, 200, dict(kv_len=[200, 100, 5])),
+             ("S=65", 1, 65, {}))
+
+    def inputs(B, S, D, dt):
+        q, k, v = (torch.randn((B, S, H, D), generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+        if D > 128:
+            v[..., 128:] = 0
+        return q, k, v
+
+    worst = 0.0
+    for D in MLA_HEAD_DIMS:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            errs = []
+            for name, B, S, kw in cases:
+                q, k, v = inputs(B, S, D, dt)
+                if "kv_len" in kw:
+                    kw = dict(kv_len=torch.tensor(kw["kv_len"],
+                                                  dtype=torch.int32,
+                                                  device="cuda"))
+                got = fa.flash_attention(q, k, v, causal=True, **kw)
+                want = flash_attention_ref(q, k, v, causal=True, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                errs.append(err)
+                if not (err <= TOL[dtype] and math.isfinite(err)):
+                    raise SystemExit(
+                        f"flash_attention D={D} {name} {dtype}: max_abs_err "
+                        f"{err:.3e} against its plain version")
+            log(f"flash_attention D={D} {dtype}: "
+                f"{[c[0] for c in cases]} max_abs_err "
+                + ", ".join(f"{e:.3e}" for e in errs)
+                + f" tol {TOL[dtype]:.0e}")
+            if D == 192 and dtype == "bfloat16":
+                worst = max(errs)
+    B, S = 1, 1024
+    timed = {}
+    for D in MLA_HEAD_DIMS:
+        q, k, v = inputs(B, S, D, torch.bfloat16)
+        es = q.element_size()
+        nbytes = 4 * q.numel() * es             # q, k, v read; out written
+        flops = 4 * D * H * S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), reps)
+        plain_ms = (time_ms(torch, lambda: flash_attention_ref(q, k, v),
+                            max(reps // 4, 3)) if D == 192 else None)
+        timed[D] = (ms, plain_ms, lib_ms, b_ms, b_by)
+        log(f"flash_attention timing D={D} (B={B} S={S} H={H} bf16 causal): "
+            f"kernel {ms:.4f} ms, "
+            + (f"plain {plain_ms:.4f} ms, " if plain_ms else "")
+            + f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s; "
+            f"sdpa {flops / lib_ms / 1e9:.1f} TFLOP/s; {fa.grid(B, S, H)} "
+            f"blocks ({card_line()})")
+    ms, plain_ms, lib_ms, b_ms, b_by = timed[192]
+    return {"flash_attention_d192": dict(
+        name="flash_attention_d192", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:75",
@@ -1863,6 +1965,405 @@ def run_encdec_phase(torch):
             runs[0]["launches"]["flash_attention_kv_len"]}
 
 
+# ---------------------------------------------------------------------------
+# MLA and MoE: full-width deepseek-v2-lite-16b through the decode engine
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_SERVE = dict(max_slots=8, max_len=2048, eos_id=-1, use_kernels=True)
+DEEPSEEK_NEW = 32
+DEEPSEEK_KERNELS = ("flash_attention_d192",)
+
+
+def routing_partings(torch, run, n_moe: int):
+    """Call ``run()``, which runs two paths in turns as ``path_logits``
+    does (each position: path a's forward, then path b's, ``n_moe`` MoE
+    layers each), while the router's top-k picks are recorded.  Returns
+    (run's result, decisions, partings): a parting is a (token, layer)
+    whose top-k set differs between the two paths."""
+    from repro_torch.models import moe as M
+    seen = []
+    routing = M._routing
+
+    def record(p, mo, xg):
+        out = routing(p, mo, xg)
+        seen.append(out[1].sort(dim=-1).values)
+        return out
+
+    M._routing = record
+    try:
+        result = run()
+    finally:
+        M._routing = routing
+    require(len(seen) % (2 * n_moe) == 0,
+            f"{len(seen)} routings recorded for two paths of {n_moe} layers")
+    decisions = partings = 0
+    for blk in range(0, len(seen), 2 * n_moe):
+        for a, b in zip(seen[blk:blk + n_moe], seen[blk + n_moe:blk + 2 * n_moe]):
+            differ = (a != b).any(-1)
+            decisions += differ.numel()
+            partings += int(differ.sum().item())
+    return result, decisions, partings
+
+
+def moe_reference_check(torch, path_a, path_b, *, tol, label, n_moe,
+                        S: int = 100, steps: int = 5):
+    """Path a (kernels) against path b (plain) on one S-token prompt (seed
+    2) and ``steps`` decode steps, each fed b's argmax, with the router
+    pinned: at each position b runs first and records its top-k experts
+    per MoE layer, then a routes to those experts, its gates renormalised
+    from its own probabilities.  a's logits must lie within ``tol`` of b's
+    (relative to max|b|), the argmax parting only where b's top-2 margin
+    is below min(tol, ARGMAX_MARGIN) (counted).  Where a's own top-k would
+    have parted from b's is counted and logged, not failed: a near-tie
+    among the experts flips under rounding at other points, and a flip
+    moves a token's output by a whole expert.  The unpinned run (each
+    path its own routing, ``path_logits``) is logged beside, not failed.
+    Returns the largest pinned relative difference."""
+    from repro_torch.models import moe as M
+    routing = M._routing
+    st = {"rec": [], "i": 0, "picks": 0, "parted": 0}
+
+    def record(p, mo, xg):
+        out = routing(p, mo, xg)
+        st["rec"].append(out[1])
+        return out
+
+    def pinned(p, mo, xg):
+        _, idx, probs = routing(p, mo, xg)
+        want = st["rec"][st["i"]]
+        st["i"] += 1
+        differ = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+        st["picks"] += differ.numel()
+        st["parted"] += int(differ.sum().item())
+        gates = probs.gather(-1, want)
+        return gates / gates.sum(-1, keepdim=True), want, probs
+
+    (ma, pa, ka), (mb, pb, kb) = path_a, path_b
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(1, mb.cfg.vocab_size, (1, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    ca, cb = ma.init_cache(1, S + steps + 3), mb.init_cache(1, S + steps + 3)
+    worst, parted = 0.0, 0
+    nxt = None
+    for step in range(steps + 1):
+        st["rec"], st["i"] = [], 0
+        try:
+            M._routing = record
+            if nxt is None:
+                lb, cb = mb.prefill(pb, {"tokens": toks}, cb, use_kernels=kb)
+            else:
+                lb, cb = mb.decode_step(pb, cb, nxt, use_kernels=kb)
+            M._routing = pinned
+            if nxt is None:
+                la, ca = ma.prefill(pa, {"tokens": toks}, ca, use_kernels=ka)
+            else:
+                la, ca = ma.decode_step(pa, ca, nxt, use_kernels=ka)
+        finally:
+            M._routing = routing
+        require(st["i"] == len(st["rec"]) == n_moe,
+                f"{label}: {st['i']} pinned of {len(st['rec'])} recorded "
+                f"routings, want {n_moe}")
+        a, b = la.float(), lb.float()
+        rel = rel_err(a, b)
+        same, margin, ok = argmax_check(a, b, min(tol, ARGMAX_MARGIN))
+        parted += not same
+        log(f"{label} step {step} (routing pinned): max|dlogit|/max|logit| "
+            f"= {rel:.3e} (tol {tol:.0e}), argmax equal {same}, top-2 "
+            f"margin of b {margin:.3e}")
+        require(math.isfinite(rel) and rel <= tol and ok,
+                f"{label}: the two paths disagree at step {step}")
+        worst = max(worst, rel)
+        nxt = lb.argmax(-1).to(torch.int32)[:, None]
+    free, decisions, free_parted = routing_partings(
+        torch, lambda: path_logits(torch, (path_a, path_b), steps=steps),
+        n_moe)
+    free_rel = max(rel_err(a, b) for a, b in free)
+    log(f"{label}: largest {worst:.3e} with the routing pinned; argmax "
+        f"partings {parted} of {steps + 1} positions; a's own top-k parted "
+        f"from b's at {st['parted']} of {st['picks']} (token, layer) picks "
+        f"over the run; unpinned (each path its own routing): largest {free_rel:.3e}, routing parted at "
+        f"{free_parted} of {decisions} picks (logged, not failed)")
+    return worst
+
+
+def forced_logits(model, params, use_kernels: bool, tokens):
+    """fp32 logits after prefilling ``tokens[:, :100]`` and after each
+    later token, fed as given (the same positions for every path)."""
+    cache = model.init_cache(1, tokens.shape[1] + 2)
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :100]},
+                                  cache, use_kernels=use_kernels)
+    out = [logits.float()]
+    for i in range(100, tokens.shape[1] - 1):
+        logits, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
+                                          use_kernels=use_kernels)
+        out.append(logits.float())
+    return out
+
+
+def to_fp32_in_place(tree):
+    """Cast every tensor of a param tree to fp32, leaf by leaf, so that the
+    bf16 copy of each is freed as the next is made."""
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree))
+    for key, leaf in list(items):
+        if isinstance(leaf, (dict, list)):
+            to_fp32_in_place(leaf)
+        else:
+            tree[key] = leaf.float()
+
+
+def param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def graph_ms(torch, fn, reps: int = 10) -> float:
+    """Device ms of ``fn`` captured as one CUDA graph and replayed, as a
+    decode step runs it, timed as ``time_ms`` times a call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return time_ms(torch, graph.replay, reps)
+
+
+def deepseek_step_breakdown(torch, model, params, scfg, reps: int = 10):
+    """One decode step of 8 live slots at 900 rows (a filled engine, as
+    ``covering_cost`` builds it) as a graph at its exact bound (928),
+    timed whole beside its bound (every weight read once, the experts
+    included, and the latent rows); then each module of one layer at the
+    step's shapes, each captured as a graph of its own (L2 flushed before
+    each replay), times its layer count: the MoE layer less its experts
+    (router, capacity, one-hot dispatch and combine), the routed experts'
+    products, the shared experts, MLA's absorbed step, and the prologue's
+    dense FFN."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.workloads import DecodeEngine
+    cfg = model.cfg
+    engine, _ = filled_engine(torch, DecodeEngine, model, params, scfg, 900,
+                              scfg.max_len)
+    pool = engine._pool
+    pool.inputs[2].fill_(1)                     # every slot live
+    kv_bound = 928
+    step = engine._build_decode(pool, (kv_bound,))
+    torch.cuda.synchronize()            # the capture ran on engine streams
+    step_ms = time_ms(torch, step, reps=reps)
+    dec = params["decoder"]
+    n_moe, n_pro = len(dec["layers"]), len(dec["prologue"])
+    wbytes = (param_bytes(dec) + param_bytes(params["lm_head"]))
+    lat = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    kbytes = 8 * 900 * lat * 2 * cfg.num_layers
+    b_ms, _ = bound(wbytes + kbytes, 0.0, "bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h = torch.randn((8, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lp = dec["layers"][0]
+    moe_ms = graph_ms(torch, lambda: M.moe_apply(lp["moe"], cfg, h), reps)
+    E, C = cfg.moe.num_experts, M.capacity(cfg.moe, 1)
+    xe = torch.randn((E, 8 * C, cfg.d_model), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    experts_ms = graph_ms(torch, lambda: M._expert_ffn(
+        lp["moe"]["experts"], cfg, xe), reps)
+    shared_ms = graph_ms(torch, lambda: M.ffn_apply(lp["moe"]["shared"], cfg,
+                                                   h), reps)
+    attn = engine.cache["scanned"]["attn"]
+    lc = {"ckv": attn["ckv"][0], "krope": attn["krope"][0]}
+    pos = engine.cache["pos"].clone()
+    mla_ms = graph_ms(torch, lambda: A.mla_step(
+        lp["attn"], cfg, h, lc, pos, use_kernels=True, kv_bound=kv_bound),
+        reps)
+    dense_ms = graph_ms(torch, lambda: M.ffn_apply(dec["prologue"][0]["ffn"],
+                                                  cfg, h), reps)
+    parts = {"MoE dispatch (router, capacity, one-hots, combine)":
+             n_moe * (moe_ms - experts_ms - shared_ms),
+             "routed experts (64 x 3 products)": n_moe * experts_ms,
+             "shared experts": n_moe * shared_ms,
+             "MLA latent attention (absorbed step)": cfg.num_layers * mla_ms,
+             "prologue dense FFN": n_pro * dense_ms}
+    log(f"deepseek-v2-lite-16b decode step (graph, 8 slots at 900 rows, "
+        f"bound {kv_bound}): {step_ms:.3f} ms, bound {b_ms:.3f} ms (bytes: "
+        f"{wbytes / 1e9:.2f} GB of weights, every expert, and "
+        f"{kbytes / 1e9:.3f} GB of latents at 3.35 TB/s; {step_ms / b_ms:.2f}"
+        f"x); by module, one layer's graph x its count (ms per step): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; the rest (embedding, norms, residuals, head, argmax, graph "
+        f"gaps) {step_ms - sum(parts.values()):.3f}; routed experts alone "
+        f"{n_moe * experts_ms / step_ms:.2f} of the step ({card_line()})")
+    del engine, step
+    return step_ms, b_ms
+
+
+def run_deepseek_phase(torch):
+    """Full-width deepseek-v2-lite-16b (27 layers: one dense prologue
+    layer, then 26 MoE layers of 64 routed experts top-6 and 2 shared;
+    MLA attention), random bf16 weights from seed 0, through
+    ``DecodeEngine`` with the kernels on: phase 3's 8 prompts, 32 new
+    tokens, 8 slots, ``max_len`` 2048, on fresh engines in turns (decode
+    steps as CUDA graphs, then eager), each warmed by
+    ``warm_compile(None)``.  Prefill runs the flash kernel at D = 192 (q
+    nope and rope, v padded); the rest is stock torch, as the reference
+    computes it outside any kernel.  Logs prefill ms, decode p50,
+    tokens/s, peak memory (< 80 GiB), captures on the serving path (0 with
+    graphs) and the flash launches (27 per prefill); streams must be
+    equal.  Then the step breakdown, the busy share under the profiler,
+    and the kernel path's logits against the plain path's with the router
+    pinned to the plain path's experts (``moe_reference_check``), in bf16
+    (5e-2) and, the weights cast to fp32 in place, in fp32 (1e-3), both at
+    full depth, argmax partings only at counted near-ties; routing
+    partings and the unpinned distance are logged, as is the bf16 model's
+    own rounding floor (each bf16 path's distance from the fp32 plain
+    path on fixed tokens).  Frees its weights before returning the graph
+    run's launches."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.workloads import DecodeEngine, ServeConfig
+    cfg = get_config("deepseek-v2-lite-16b")
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"deepseek-v2-lite-16b: {cfg.param_count() / 1e9:.2f} B params "
+        f"({cfg.num_layers} layers, {cfg.moe.first_k_dense} dense prologue; "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+        f"{cfg.moe.num_shared_experts} shared; MLA rank "
+        f"{cfg.mla.kv_lora_rank}), random bf16 weights "
+        f"({param_bytes(params) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    scfg = ServeConfig(**DEEPSEEK_SERVE)
+    engine = DecodeEngine(model, params, scfg)
+    log(f"deepseek-v2-lite-16b admission: {engine._per_token_elems} latent "
+        f"elements per token over {cfg.num_layers} layers "
+        f"(kv_lora_rank + qk_rope_head_dim = "
+        f"{cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim} per layer)")
+    require(engine._per_token_elems == 15552,
+            f"per-token cache elements {engine._per_token_elems}, want 15552")
+    del engine
+    prompts = serving_prompts(cfg)
+    warm = DecodeEngine(model, params, scfg)
+    for p in prompts:
+        warm.submit(p, max_new_tokens=2)
+    warm.run_to_completion()
+    del warm
+    torch.cuda.synchronize()
+    runs = [serving_run(torch, DecodeEngine, model, params, scfg, prompts,
+                        DEEPSEEK_NEW, DEEPSEEK_KERNELS, graphs)
+            for graphs in (True, False)]
+    card = card_line()
+    L = cfg.num_layers
+    for run in runs:
+        launches = run["launches"]
+        mean, lo, hi = run["prefill"]
+        log(f"serving deepseek-v2-lite-16b ({run['engine']}, max_len "
+            f"{scfg.max_len}, {run['label']}): prompts "
+            f"{[len(p) for p in prompts]}, {DEEPSEEK_NEW} new tokens each; "
+            f"prefill ms per request mean {mean:.2f} (min {lo:.2f}, max "
+            f"{hi:.2f}); decode ms per step p50 {run['p50']:.3f}; "
+            f"{run['tokens']} tokens in {run['wall']:.3f} s = "
+            f"{run['tokens_s']:.1f} tokens/s; peak memory "
+            f"{run['peak_gib']:.2f} GiB; warm_compile built "
+            f"{run['warm'][0]} in {run['warm'][1]:.3f} s; graph captures on "
+            f"the serving path {run['path_captures']}; covering steps "
+            f"{run['covering']}; graphs (launches captured, replays) "
+            f"{run['graphs']}; launches {launches} ({card})")
+        require(run["prefills"] == 8, f"{run['prefills']} prefills, want 8")
+        require(launches["flash_attention_d192"] == L * 8,
+                f"flash_attention_d192 launched {launches} for 8 prefills "
+                f"of {L} layers")
+        require(run["peak_gib"] < 80, f"peak memory {run['peak_gib']:.2f} "
+                "GiB")
+        require(len(run["streams"]) == 8 and all(
+            len(t) == DEEPSEEK_NEW and all(0 <= v < cfg.vocab_size for v in t)
+            for t in run["streams"]), "deepseek streams incomplete")
+    graph, eager = runs
+    require(graph["path_captures"] == 0,
+            f"{graph['path_captures']} captures on the serving path")
+    require(bool(graph["graphs"]) and not eager["graphs"],
+            "the graph run replayed no graph, or the eager run did")
+    replays = sum(r for _, r in graph["graphs"])
+    require(replays == graph["decode_steps"],
+            f"{replays} graph replays for {graph['decode_steps']} steps")
+    require(graph["streams"] == eager["streams"],
+            "deepseek graph and eager streams differ")
+    log("serving deepseek-v2-lite-16b: graph and eager streams equal, token "
+        "for token")
+    deepseek_step_breakdown(torch, model, params, scfg)
+    torch.cuda.empty_cache()
+
+    def make(first_step):
+        def build():
+            engine = make_engine(torch, DecodeEngine, model, params, scfg,
+                                 True)[0]
+            if first_step:
+                for p in prompts:
+                    engine.submit(p, max_new_tokens=DEEPSEEK_NEW)
+                engine.step()
+                torch.cuda.synchronize()
+            return engine
+        return build
+
+    def rest(engine):
+        while engine.has_work:
+            engine.step()
+        torch.cuda.synchronize()
+
+    flash = graph["launches"]["flash_attention_d192"]
+    profile_serving(torch, make(False),
+                    lambda e: serve(torch, e, prompts, DEEPSEEK_NEW),
+                    "deepseek-v2-lite-16b graphs", ("flash_attention",),
+                    graph["wall"], flash, "flash_attention", None)
+    profile_serving(torch, make(True), rest,
+                    "deepseek-v2-lite-16b graphs, decode steps",
+                    ("flash_attention",), graph["decode_wall"], flash,
+                    "flash_attention", None,
+                    per_steps=graph["decode_steps"] - 1)
+    n_moe = len(params["decoder"]["layers"])
+    moe_reference_check(torch, (model, params, True), (model, params, False),
+                        tol=LOGIT_REL_TOL, n_moe=n_moe,
+                        label="reference check deepseek-v2-lite-16b bf16")
+    # the bf16 model's own rounding floor: both bf16 paths on fixed tokens,
+    # then the same weights in fp32 (converted in place: 62.8 GB), whose
+    # plain path they are measured from
+    tokens = torch.randint(1, cfg.vocab_size, (1, 106), device="cuda",
+                           dtype=torch.int32,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(5))
+    bf16 = {kern: forced_logits(model, params, kern, tokens)
+            for kern in (True, False)}
+    to_fp32_in_place(params)
+    torch.cuda.empty_cache()
+    model = build_model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+    moe_reference_check(torch, (model, params, True), (model, params, False),
+                        tol=FP32_LOGIT_REL_TOL, n_moe=n_moe,
+                        label="reference check deepseek-v2-lite-16b fp32")
+    fp32 = forced_logits(model, params, False, tokens)
+    dist = {kern: [rel_err(a, b) for a, b in zip(bf16[kern], fp32)]
+            for kern in (True, False)}
+    log("deepseek-v2-lite-16b bf16 rounding floor (fixed tokens, 6 "
+        "positions; distance from the fp32 plain path, relative to its "
+        "largest |logit|): kernel bf16 "
+        + ", ".join(f"{e:.3e}" for e in dist[True]) + "; plain bf16 "
+        + ", ".join(f"{e:.3e}" for e in dist[False])
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (logged, not failed)")
+    del params, model, bf16, fp32
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"flash_attention_d192": flash}
+
+
 def encoder_jobs(cfg):
     """The encoder phase's 16 jobs of 64-2048 tokens, from seed 1."""
     import numpy as np
@@ -2707,6 +3208,10 @@ def main() -> int:
     log(f"encoder phase done at {phase_s()}")
     run_mixed_fleet_phase(torch)
     log(f"mixed-fleet phase done at {phase_s()}")
+
+    # MLA and MoE: full-width deepseek-v2-lite-16b through the decode engine
+    launches.update(run_deepseek_phase(torch))
+    log(f"deepseek phase done at {phase_s()}")
 
     entries = []
     for name, entry in kernels.items():

@@ -4,7 +4,9 @@ The caller hands over plain numpy arrays (the reference's params after
 ``strip`` and ``np.asarray``), so this module never sees JAX.  The bridge
 unstacks the reference's ``scanned`` leading layer axis into a list of
 per-layer dicts (the decoder's, with its cross layers, and an enc-dec's
-encoder stack beside ``frame_norm``) and keeps every layout as it is
+encoder stack beside ``frame_norm``), converts the decoder's unscanned
+``prologue`` layers as they are, leaves the MoE experts stacked on their
+expert axis (``w_up (E, d, f)``) and keeps every layout as it is
 (``wq (d, H, hd)``, ``wo (Hq, hd, d)``, ``embed (padded_vocab, d)``,
 ``lm_head (d, padded_vocab)``, ``in_proj (d, 2 d_in)``), so nothing is
 transposed.
@@ -24,7 +26,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import check_supported
 
 _NORMS = ("ln1", "ln2", "ln_cross", "final_norm", "frame_norm", "q_norm",
-          "k_norm")
+          "k_norm", "kv_norm")
 _SSM_FP32 = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
 
 
@@ -46,9 +48,8 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     dt = cfg.activation_dtype
     dec = np_tree["decoder"]
-    if dec.get("prologue"):
-        raise NotImplementedError("unscanned prologue layers belong to the "
-                                  "MLA/MoE slice of the port")
+    prologue = [_convert(lp, ("layers",), dtype=dt, device=dev)
+                for lp in dec.get("prologue", ())]
 
     def layer(i, tree):
         if isinstance(tree, dict):
@@ -61,7 +62,9 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
 
     out: Dict[str, Any] = {
         "embed": _convert(np_tree["embed"], ("embed",), dtype=dt, device=dev),
-        "decoder": {"layers": unstack(dec["scanned"], cfg.num_layers)},
+        "decoder": {"prologue": prologue,
+                    "layers": unstack(dec["scanned"],
+                                      cfg.num_layers - len(prologue))},
     }
     for name in ("final_norm", "lm_head", "frame_norm"):
         if name in np_tree:

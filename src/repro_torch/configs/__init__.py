@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 Only the architectures the port serves are registered (the dense GQA
-decoders, the attention-free Mamba decoder and the seamless-m4t
-encoder-decoder); any other arch id raises ``KeyError``.
+decoders, the attention-free Mamba decoder, the seamless-m4t
+encoder-decoder and the MoE decoders: deepseek-v2-lite with MLA, and
+arctic, whose full size does not fit one card and runs reduced only); any
+other arch id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ _MODULES: Dict[str, str] = {
     "qwen2.5-32b": "qwen2_5_32b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "seamless-m4t-medium": "seamless_m4t_medium",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "arctic-480b": "arctic_480b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)

@@ -42,8 +42,18 @@
 // - Only tiles that cross the diagonal, the window edge or S are masked,
 //   by a second copy of the tile body (a mask predicated into the one copy
 //   ran on every tile).
-// - Head dims below 128 are zero-padded to 16, 32, 64 or 128 in shared
-//   memory.
+// - Head dims are zero-padded to 16, 32, 64, 128, 192 or 256 in shared
+//   memory; a row is any whole number of 16-byte chunks (MLA's prefill
+//   runs 192, and 24 on its reduced config).  Above 128 the registers run
+//   short: the output accumulator alone is DP / 2 fp32 per lane.  So the
+//   K fragments are loaded per k-step, not one ahead; the V fragments in
+//   groups of four; and the Q fragments are read per k-step from a Q tile
+//   that keeps its own shared memory, one block per SM.  Held in registers
+//   at 192, Q spilled and the kernel ran 1.3x slower on an H100 (outputs
+//   bitwise equal).
+// - A thread's share of a tile copy is the same chunk of every few rows
+//   where the block's threads divide into the row's chunks, and chunks in
+//   turn across rows where they do not (24 chunks at 192).
 // - The heaviest causal query tiles are launched first.  At B = 1 a causal
 //   prefill is then bound by its longest chain, the heaviest tile's loop
 //   over the keys.  More rows per warp, more warps per block, deeper
@@ -55,8 +65,9 @@
 // would change fp32 numerics.  One block of 128
 // threads per (batch * head, 64-query tile) loops over the 64-key tiles on
 // or below the diagonal and inside the window.  Q, K and V tiles sit in
-// shared memory; each thread keeps a 4 x 8 tile of scores and a 4 x D/8
-// tile of the output accumulator in registers.
+// shared memory (209 KB at D = 256); each thread keeps a 4 x 8 tile of
+// scores and a 4 x D/8 tile of the output accumulator in registers, sized
+// for D up to 128 or up to 256.
 //
 // Mixed precision follows the reference: scores in fp32, p cast to the
 // value dtype before P.V (the running sum keeps fp32 p), output cast to
@@ -71,7 +82,6 @@ constexpr int kBQ = 64;           // query rows per block: 16 row groups x 4
 constexpr int kBK = 64;           // key rows per tile: 8 column lanes x 8
 constexpr int kRows = 4;          // query rows per thread
 constexpr int kCols = 8;          // score columns per thread
-constexpr int kMaxD = 128;
 
 struct FlashArgs {
   const void* q;
@@ -95,11 +105,10 @@ __device__ inline int row_keys(const FlashArgs& a, int b) {
   return KV ? min(max(a.kv_len[b], 0), a.S) : a.S;
 }
 
-template <typename T, bool KV>
+template <typename T, bool KV, int kMaxWC>   // output words per thread
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt(FlashArgs a) {
   constexpr int E = Word<T>::N;
-  constexpr int kMaxWC = kMaxD / E / 8;        // output words per thread
   const int bh = blockIdx.x;
   const int b = bh / a.Hq;
   const int h = bh - b * a.Hq;
@@ -109,7 +118,6 @@ flash_attention_simt(FlashArgs a) {
   const int ty = tid / 8;                      // row group: rows ty*4 + i
   const int tx = tid % 8;                      // column lane
   const int W = a.D / E;
-  const int nwc = W / 8;
   const int pitch = W + 1;
 
   extern __shared__ uint32_t smem[];
@@ -225,7 +233,7 @@ flash_attention_simt(FlashArgs a) {
       for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty * kRows + i) * pp + t];
 #pragma unroll
       for (int j = 0; j < kMaxWC; ++j) {
-        if (j < nwc) {
+        if (tx + 8 * j < W) {
           float va[E];
           Word<T>::unpack(vs[t * pitch + tx + 8 * j], va);
 #pragma unroll
@@ -246,7 +254,7 @@ flash_attention_simt(FlashArgs a) {
           static_cast<T*>(a.out) + b * a.o_sb + qpos * a.o_ss + h * a.o_sh);
 #pragma unroll
       for (int j = 0; j < kMaxWC; ++j) {
-        if (j < nwc) {
+        if (tx + 8 * j < W) {
           float vals[E];
 #pragma unroll
           for (int e = 0; e < E; ++e) vals[e] = acc[i][j][e] / d;
@@ -279,7 +287,7 @@ __device__ inline float fast_exp2(float x) {   // 2^x, one MUFU.EX2
 
 // One block: 4 warps of 16 query rows each; a two-stage ring of (K, V)
 // tile pairs.
-template <int DP>   // head dim padded to 16, 32, 64 or 128
+template <int DP>   // head dim padded to 16, 32, 64, 128, 192 or 256
 struct MmaTile {
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
@@ -290,22 +298,33 @@ struct MmaTile {
   static constexpr int kChunks = DP / 8;      // 16-byte chunks per row
   static constexpr int kTile = kBK * kPitch;  // bf16 per K or V tile
   static constexpr int kStage = 2 * kTile;    // a K tile, then a V tile
-  static constexpr size_t kSmem = kStages * kStage * sizeof(__nv_bfloat16);
-  // Q passes through the last stage before its keys arrive
+  // register budget above 128 (see the top): K fragments one k-step ahead,
+  // V fragments in flight per group, Q fragments held for the whole loop
+  static constexpr bool kKAhead = DP <= 128;
+  static constexpr int kVGroup = DP <= 128 ? DP / 16 : 4;
+  static constexpr bool kQRegs = DP <= 128;
+  // Q passes through the last stage before its keys arrive, or keeps its
+  // own tile after the ring
+  static constexpr size_t kSmem =
+      (kStages * kStage + (kQRegs ? 0 : kBQ * kPitch)) * sizeof(__nv_bfloat16);
   static_assert(kBQ <= 2 * kBK, "Q fits in one stage");
+  static_assert((DP / 16) % kVGroup == 0, "whole V groups");
 };
 
-// This thread's share of the cp.async copies of one tile: the same 16-byte
-// chunk of every (kThreads / kChunks)-th row, so every offset but the
-// tile's base is fixed for the whole kernel.  Rows past the data and
-// chunks past the head dim are zero-filled and read nothing.
+// This thread's share of the cp.async copies of one tile.  Where the
+// block's threads divide into a row's chunks, the same 16-byte chunk of
+// every (kThreads / kChunks)-th row, so every offset but the tile's base
+// is fixed for the whole kernel; else the chunks in turn, row after row.
+// Rows past the data and chunks past the head dim are zero-filled and
+// read nothing.
 template <typename M>
 struct TileCopy {
-  static constexpr int kRowStep = M::kThreads / M::kChunks;
-  static_assert(M::kThreads % M::kChunks == 0, "whole rows per pass");
+  static constexpr bool kWhole = M::kThreads % M::kChunks == 0;
+  static constexpr int kRowStep = kWhole ? M::kThreads / M::kChunks : 1;
   int row, soff, goff;     // first row; shared (elements), global (bytes)
   bool on;                 // the chunk lies inside the head dim
-  __device__ TileCopy(int tid, int chunks) {
+  int tid, chunks;
+  __device__ TileCopy(int tid_, int chunks_) : tid(tid_), chunks(chunks_) {
     const int ch = tid % M::kChunks;
     row = tid / M::kChunks;
     soff = row * M::kPitch + ch * 8;
@@ -318,16 +337,31 @@ struct TileCopy {
   __device__ void issue(__nv_bfloat16* dst, const char* src,
                         long long row_bytes, int valid_rows,
                         const void* safe) const {
-    const char* g = src + goff + row * row_bytes;
-    const long long step = kRowStep * row_bytes;
+    if constexpr (kWhole) {
+      const char* g = src + goff + row * row_bytes;
+      const long long step = kRowStep * row_bytes;
 #pragma unroll
-    for (int i = 0; i < (ROWS + kRowStep - 1) / kRowStep; ++i) {
-      const int r = row + i * kRowStep;
-      if (ROWS % kRowStep == 0 || r < ROWS) {
-        const bool ok = on && r < valid_rows;
-        cp_async16(dst + soff + i * kRowStep * M::kPitch, ok ? g : safe, ok);
+      for (int i = 0; i < (ROWS + kRowStep - 1) / kRowStep; ++i) {
+        const int r = row + i * kRowStep;
+        if (ROWS % kRowStep == 0 || r < ROWS) {
+          const bool ok = on && r < valid_rows;
+          cp_async16(dst + soff + i * kRowStep * M::kPitch, ok ? g : safe, ok);
+        }
+        g += step;
       }
-      g += step;
+    } else {
+      constexpr int kTotal = ROWS * M::kChunks;
+#pragma unroll
+      for (int i = 0; i < (kTotal + M::kThreads - 1) / M::kThreads; ++i) {
+        const int c = tid + i * M::kThreads;
+        if (kTotal % M::kThreads == 0 || c < kTotal) {
+          const int r = c / M::kChunks;
+          const int ch = c - r * M::kChunks;
+          const bool ok = ch < chunks && r < valid_rows;
+          cp_async16(dst + r * M::kPitch + ch * 8,
+                     ok ? src + r * row_bytes + ch * 16 : safe, ok);
+        }
+      }
     }
   }
 };
@@ -366,7 +400,7 @@ flash_attention_mma(FlashArgs a) {
 
   extern __shared__ uint4 smem_mma[];
   bf16* ring = reinterpret_cast<bf16*>(smem_mma);
-  bf16* sQ = ring + (ST - 1) * M::kStage;
+  bf16* sQ = ring + (M::kQRegs ? ST - 1 : ST) * M::kStage;
 
   const int q_hi = min(q_lo + kBQ, a.S) - 1;
   // a length-0 row attends every key alike, as the plain version does
@@ -405,7 +439,7 @@ flash_attention_mma(FlashArgs a) {
     cp_async_commit();
   }
 
-  uint32_t qf[DP / 16][4];
+  uint32_t qf[M::kQRegs ? DP / 16 : 1][4];
   float o[kNO][4];
 #pragma unroll
   for (int j = 0; j < kNO; ++j)
@@ -422,7 +456,7 @@ flash_attention_mma(FlashArgs a) {
   for (int it = 0; it < n_it; ++it) {
     cp_async_wait<ST - 2>();
     __syncthreads();   // stage it landed; every warp is done with it - 1
-    if (it == 0) {
+    if (M::kQRegs && it == 0) {
 #pragma unroll
       for (int kd = 0; kd < DP / 16; ++kd)
         load_a<kPitch>(qf[kd], sQ + wrow * kPitch, kd * 16, lane);
@@ -446,23 +480,39 @@ flash_attention_mma(FlashArgs a) {
       for (int j = 0; j < kNS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      // K fragments one k-step ahead of their products, so that the
-      // products do not wait on each ldmatrix in turn
-      uint32_t kr[2][kBK / 16][4];
+      // K fragments one k-step ahead of their products (up to DP 128), so
+      // that the products do not wait on each ldmatrix in turn
+      constexpr int kKBuf = M::kKAhead ? 2 : 1;
+      uint32_t kr[kKBuf][kBK / 16][4];
       auto load_k = [&](int kd, uint32_t (&dst)[kBK / 16][4]) {
 #pragma unroll
         for (int nb = 0; nb < kBK / 16; ++nb)
           ldmatrix_x4(dst[nb], sK + (nb * 16 + (lane & 7) + (lane >> 4) * 8) * kPitch +
                                    kd * 16 + ((lane >> 3) & 1) * 8);
       };
-      load_k(0, kr[0]);
-#pragma unroll
-      for (int kd = 0; kd < DP / 16; ++kd) {
-        if (kd + 1 < DP / 16) load_k(kd + 1, kr[(kd + 1) & 1]);
+      auto products = [&](const uint32_t (&qa)[4],
+                          const uint32_t (&kf)[kBK / 16][4]) {
 #pragma unroll
         for (int nb = 0; nb < kBK / 16; ++nb) {
-          mma_bf16(s[2 * nb], qf[kd], kr[kd & 1][nb][0], kr[kd & 1][nb][1]);
-          mma_bf16(s[2 * nb + 1], qf[kd], kr[kd & 1][nb][2], kr[kd & 1][nb][3]);
+          mma_bf16(s[2 * nb], qa, kf[nb][0], kf[nb][1]);
+          mma_bf16(s[2 * nb + 1], qa, kf[nb][2], kf[nb][3]);
+        }
+      };
+      if constexpr (M::kKAhead) load_k(0, kr[0]);
+#pragma unroll
+      for (int kd = 0; kd < DP / 16; ++kd) {
+        if constexpr (M::kKAhead) {
+          if (kd + 1 < DP / 16) load_k(kd + 1, kr[(kd + 1) % kKBuf]);
+        } else {
+          load_k(kd, kr[0]);
+        }
+        const int kbuf = M::kKAhead ? (kd & 1) : 0;
+        if constexpr (M::kQRegs) {
+          products(qf[kd], kr[kbuf]);
+        } else {
+          uint32_t qs[4];
+          load_a<kPitch>(qs, sQ + wrow * kPitch, kd * 16, lane);
+          products(qs, kr[kbuf]);
         }
       }
 
@@ -534,16 +584,20 @@ flash_attention_mma(FlashArgs a) {
         pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
         pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
         pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        // all of this k-step's V fragments in flight before its products
-        uint32_t vr[DP / 16][4];
+        // a group of this k-step's V fragments (all of them up to DP 128)
+        // in flight before its products
 #pragma unroll
-        for (int nd = 0; nd < DP / 16; ++nd)
-          ldmatrix_x4_trans(vr[nd], sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
-                                        nd * 16 + (lane >> 4) * 8);
+        for (int ng = 0; ng < DP / 16; ng += M::kVGroup) {
+          uint32_t vr[M::kVGroup][4];
 #pragma unroll
-        for (int nd = 0; nd < DP / 16; ++nd) {
-          mma_bf16(o[2 * nd], pa, vr[nd][0], vr[nd][1]);
-          mma_bf16(o[2 * nd + 1], pa, vr[nd][2], vr[nd][3]);
+          for (int n = 0; n < M::kVGroup; ++n)
+            ldmatrix_x4_trans(vr[n], sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
+                                         (ng + n) * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int n = 0; n < M::kVGroup; ++n) {
+            mma_bf16(o[2 * (ng + n)], pa, vr[n][0], vr[n][1]);
+            mma_bf16(o[2 * (ng + n) + 1], pa, vr[n][2], vr[n][3]);
+          }
         }
       }
     };
@@ -585,12 +639,13 @@ cudaError_t launch_mma(const FlashArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int kMaxWC>
 cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
   const int pitch = a.D + 1;
   const size_t bytes = 4 * (static_cast<size_t>(kBQ + 2 * kBK) * pitch +
                             static_cast<size_t>(kBQ) * (kBK + 1));
-  auto kernel = a.kv_len ? &flash_attention_simt<float, true>
-                         : &flash_attention_simt<float, false>;
+  auto kernel = a.kv_len ? &flash_attention_simt<float, true, kMaxWC>
+                         : &flash_attention_simt<float, false, kMaxWC>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * a.Hq, (a.S + kBQ - 1) / kBQ);
@@ -625,8 +680,14 @@ extern "C" int flash_attention(
     if (D <= 32) return static_cast<int>(launch_mma<32>(a, B, s));
     if (D <= 64) return static_cast<int>(launch_mma<64>(a, B, s));
     if (D <= 128) return static_cast<int>(launch_mma<128>(a, B, s));
+    if (D <= 192) return static_cast<int>(launch_mma<192>(a, B, s));
+    if (D <= 256) return static_cast<int>(launch_mma<256>(a, B, s));
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == kF32) return static_cast<int>(launch_simt(a, B, s));
+  if (dtype == kF32) {
+    // output words per thread: D / 8 up to 16, else up to 32
+    if (a.D <= 128) return static_cast<int>(launch_simt<16>(a, B, s));
+    if (a.D <= 256) return static_cast<int>(launch_simt<32>(a, B, s));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,8 +15,10 @@ skip the key tiles above the diagonal or outside the window
 (csrc/flash_attention.cu has the design).
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``launches`` counts launches without key padding,
-``masked_launches`` those with it.  ``grid`` gives the blocks one call
+the kernel or raises.  Each launch adds one to one counter:
+``masked_launches`` with key padding, else by the head dim's kernel
+instance, ``launches`` up to 128, ``d192_launches`` above 128 up to 192
+and ``d256_launches`` above that.  ``grid`` gives the blocks one call
 launches.
 """
 from __future__ import annotations
@@ -31,9 +33,12 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 launches = 0
 masked_launches = 0
+d192_launches = 0
+d256_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 128
+_MAX_D = 256
+_ROW_BYTES = 16               # a row is a whole number of 16-byte chunks
 _BQ = 64                      # query rows per block, both kernels
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -46,6 +51,13 @@ def _fn():
                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                    _I, _I, _I, _F, _P, _F, _I, _P]
     return fn
+
+
+def head_dim_supported(D: int, dtype) -> bool:
+    """Whether the kernel takes head dim ``D`` of ``dtype``: up to
+    ``_MAX_D``, rows of whole 16-byte chunks."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return 0 < D <= _MAX_D and (D * size) % _ROW_BYTES == 0
 
 
 def _check(q, k, v, kv_len, window, is_global):
@@ -63,9 +75,9 @@ def _check(q, k, v, kv_len, window, is_global):
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     size = q.element_size()
-    if D > _MAX_D or (D * size) % 32:
+    if not head_dim_supported(D, q.dtype):
         raise ValueError(f"head_dim {D} of {q.dtype}: the kernel takes up to "
-                         f"{_MAX_D}, a multiple of 32 bytes")
+                         f"{_MAX_D}, a multiple of {_ROW_BYTES} bytes")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
                 (s * size) % 16 for s in t.stride()[:-1]):
@@ -100,7 +112,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     logit_cap: float = 0.0, is_global=None, kv_len=None):
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D).
     kv_len: optional (B,) int32 valid keys per row, on q's device."""
-    global launches, masked_launches
+    global launches, masked_launches, d192_launches, d256_launches
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap, is_global=is_global,
@@ -120,8 +132,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 None if kv_len is None else kv_len.data_ptr(),
                 empty_row_divisor(S), _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention")
-    if kv_len is None:
-        launches += 1
-    else:
+    if kv_len is not None:
         masked_launches += 1
+    elif D > 192:
+        d256_launches += 1
+    elif D > 128:
+        d192_launches += 1
+    else:
+        launches += 1
     return out

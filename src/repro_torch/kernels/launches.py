@@ -15,6 +15,8 @@ from repro_torch.kernels.ragged_decode import ops as _rd
 COUNTERS = {"ragged_decode": (_rd, "launches"),
             "flash_attention": (_fa, "launches"),
             "flash_attention_kv_len": (_fa, "masked_launches"),
+            "flash_attention_d192": (_fa, "d192_launches"),
+            "flash_attention_d256": (_fa, "d256_launches"),
             "mamba_step": (_ms, "step_launches"),
             "mamba_scan": (_ms, "scan_launches"),
             "flex_mm": (_fm, "launches"),

@@ -1,5 +1,5 @@
-"""GQA and cross-attention blocks of the port (``repro.models.attention``
-without MLA).
+"""GQA, cross-attention and MLA blocks of the port
+(``repro.models.attention``).
 
 Parameters keep the reference's einsum layouts, ``wq/wk/wv (d, H, hd)`` and
 ``wo (Hq, hd, d)``, so weights bridge without transposes; the projections
@@ -11,6 +11,14 @@ through the flash kernel's wrapper and decode attention, self and cross,
 through the ragged decode kernel's; on CPU tensors each wrapper runs its
 plain version.  Cross-attention over a full sequence stays stock torch, as
 the reference computes it outside any kernel.
+
+MLA (DeepSeek-V2's multi-head latent attention) caches the compressed
+latent per layer instead, ``{"ckv": (B, T, R), "krope": (B, T, Dr)}``.
+Its prefill expands the latents to per-head K and V and runs the flash
+kernel at the qk head dim (Dn + Dr: 192 for deepseek-v2-lite), with V
+zero-padded to it and sliced back after, as the reference pads it for
+its shared kernel.  Its decode step is the reference's absorbed form, a
+chain of fp32 einsums over the latent cache outside any kernel.
 """
 from __future__ import annotations
 
@@ -216,3 +224,139 @@ def cross_step(p: Params, cfg: ModelConfig, x1, ck, cv, src_len, *,
     else:
         o = L.decode_attention(q, ck, cv, src_len)
     return _out(o, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2, arXiv:2405.04434 §2.1)
+#
+#   c_kv   = rms_norm(x @ W_dkv)            (B, S, R)       latent KV
+#   k_rope = rope(x @ W_kr)                 (B, S, Dr)      shared by heads
+#   k_nope = c_kv @ W_uk (B, S, H, Dn);  v = c_kv @ W_uv (B, S, H, Dv)
+#   q      = x @ W_q, or rms_norm(x @ W_dq) @ W_uq       (B, S, H, Dn + Dr)
+# Decode attends in the latent space (W_uk absorbed into q, W_uv applied
+# after):  score = q_nope W_uk^T c_kv + q_rope k_rope;  out = (p c_kv) W_uv
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
+             device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    kw = dict(dtype=dtype, device=device)
+    p = {
+        "w_dkv": _normal(gen, (d, r), 1.0 / math.sqrt(d), **kw),
+        "w_kr": _normal(gen, (d, dr), 1.0 / math.sqrt(d), **kw),
+        "w_uk": _normal(gen, (r, h, dn), 1.0 / math.sqrt(r), **kw),
+        "w_uv": _normal(gen, (r, h, dv), 1.0 / math.sqrt(r), **kw),
+        "wo": _normal(gen, (h, dv, d), 1.0 / math.sqrt(h * dv), **kw),
+        "kv_norm": torch.ones(r, dtype=torch.float32, device=device),
+    }
+    if m.q_lora_rank:
+        qr = m.q_lora_rank
+        p["w_dq"] = _normal(gen, (d, qr), 1.0 / math.sqrt(d), **kw)
+        p["w_uq"] = _normal(gen, (qr, h, dn + dr), 1.0 / math.sqrt(qr), **kw)
+        p["q_norm"] = torch.ones(qr, dtype=torch.float32, device=device)
+    else:
+        p["w_q"] = _normal(gen, (d, h, dn + dr), 1.0 / math.sqrt(d), **kw)
+    return p
+
+
+def _mla_q(p: Params, cfg: ModelConfig, x, positions):
+    m = cfg.mla
+    if m.q_lora_rank:
+        cq = L.rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+        q = _proj(cq, p["w_uq"])
+    else:
+        q = _proj(x, p["w_q"])
+    dn = m.qk_nope_head_dim
+    return q[..., :dn], L.apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latents(p: Params, cfg: ModelConfig, x, positions):
+    ckv = L.rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    kr = L.apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0]
+    return ckv, kr
+
+
+def _mla_attend(p: Params, cfg: ModelConfig, x, positions, ckv, kr, *,
+                use_kernels: bool):
+    """Causal attention over the latents expanded to per-head K and V: the
+    flash kernel at the qk head dim, V zero-padded to it."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    k_nope = _proj(ckv, p["w_uk"])
+    v = _proj(ckv, p["w_uv"])
+    B, S, H, _ = k_nope.shape
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    dqk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    vpad = torch.nn.functional.pad(v, (0, dqk - m.v_head_dim))
+    if use_kernels:
+        o = flash_attention(q, k, vpad, causal=True)
+    else:
+        o = L.blockwise_attention(q, k, vpad, causal=True)
+    return _out(o[..., :m.v_head_dim], p["wo"])
+
+
+def mla_fwd(p: Params, cfg: ModelConfig, x, positions, *,
+            use_kernels: bool = True):
+    """Full-sequence causal MLA without a cache."""
+    ckv, kr = _mla_latents(p, cfg, x, positions)
+    return _mla_attend(p, cfg, x, positions, ckv, kr,
+                       use_kernels=use_kernels)
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> Params:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_prefill(p: Params, cfg: ModelConfig, x, positions, cache: Params, *,
+                use_kernels: bool = True):
+    """Prefill: the latents, computed once, feed the attention and are
+    written into the cache at [0, S) in place."""
+    ckv, kr = _mla_latents(p, cfg, x, positions)
+    y = _mla_attend(p, cfg, x, positions, ckv, kr, use_kernels=use_kernels)
+    S = x.shape[1]
+    cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+    cache["krope"][:, :S] = kr.to(cache["krope"].dtype)
+    return y, cache
+
+
+def mla_step(p: Params, cfg: ModelConfig, x1, cache: Params, pos, *,
+             use_kernels: bool = False, kv_bound: Optional[int] = None):
+    """Absorbed MLA decode of one token, x1 (B, 1, d), at per-row positions
+    ``pos`` (B,): scores, softmax and the latent output in fp32, scale
+    1/sqrt(Dn + Dr).  With ``use_kernels`` the latent read is bounded to
+    ``[:, :kv_bound]`` (the masked suffix scores nothing either way)."""
+    m = cfg.mla
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(p, cfg, x1, positions)        # (B, 1, H, Dn/Dr)
+    ckv1, kr1 = _mla_latents(p, cfg, x1, positions)
+    cckv = L.scatter_kv(cache["ckv"], ckv1, pos)
+    ckr = L.scatter_kv(cache["krope"], kr1, pos)
+    att_ckv, att_kr = cckv, ckr
+    if use_kernels and kv_bound is not None:
+        att_ckv, att_kr = cckv[:, :kv_bound], ckr[:, :kv_bound]
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])[:, 0]
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    ckv32 = att_ckv.float()
+    s = (torch.einsum("bhr,btr->bht", q_abs.float(), ckv32)
+         + torch.einsum("bhk,btk->bht", q_rope[:, 0].float(),
+                        att_kr.float())) * scale
+    T = att_ckv.shape[1]
+    mask = (torch.arange(T, device=x1.device)[None, None, :]
+            < (pos + 1)[:, None, None])
+    s = torch.where(mask, s, L.NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bht,btr->bhr", w, ckv32)
+    o = torch.einsum("bhr,rhk->bhk", o_lat.to(x1.dtype), p["w_uv"])
+    y = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None]
+    return y, cache

@@ -2,7 +2,8 @@
 
 ``Model(cfg, device)`` gives ``init(generator)``, ``init_cache``,
 ``prefill``, ``decode_step`` and ``encode`` over plain parameter dicts,
-for dense GQA and attention-free Mamba decoders and dense GQA
+for dense and MoE decoders (GQA or MLA attention, with DeepSeek's
+first-k-dense prologue), attention-free Mamba decoders and dense GQA
 encoder-decoders (whose audio frontend is a stub: token embeddings or
 precomputed frame embeddings enter the encoder through ``frame_norm``).
 Weights are cast once, at load, to the
@@ -26,8 +27,8 @@ PyTree = Any
 
 
 class Model:
-    """Decoder-only model (dense GQA or attention-free Mamba) or dense
-    encoder-decoder on one device."""
+    """Decoder-only model (dense or MoE, GQA or MLA, or attention-free
+    Mamba) or dense encoder-decoder on one device."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         T.check_supported(cfg)
@@ -110,7 +111,8 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, batch, cache, *, true_len=None,
-                use_kernels: bool = True, enc_out=None, src_len=None):
+                use_kernels: bool = True, enc_out=None, src_len=None,
+                moe_dispatch: str = "einsum"):
         """Run the prompt, writing its K/V into ``cache`` in place.
 
         true_len: optional scalar or (B,) valid prompt lengths of a
@@ -121,7 +123,8 @@ class Model:
         S_src, d) computed apart (else ``batch["frames"]`` is encoded
         here), and ``src_len``, a scalar or (B,) valid source lengths of a
         right-padded ``enc_out``: it masks the cross-attention and is
-        recorded in the returned cache's ``src_len``."""
+        recorded in the returned cache's ``src_len``.  ``moe_dispatch``
+        selects the MoE layers' dispatch, "einsum" or "gather"."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -133,7 +136,8 @@ class Model:
         x, cache = T.decoder_prefill(params["decoder"], cfg, x, pos, cache,
                                      true_len=true_len,
                                      use_kernels=use_kernels,
-                                     enc_out=enc_out, src_len=src_len)
+                                     enc_out=enc_out, src_len=src_len,
+                                     moe_dispatch=moe_dispatch)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         rows = torch.arange(B, device=x.device)
         if true_len is None:
@@ -177,17 +181,19 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, *, use_kernels: bool = False,
                     kv_bound: Optional[int] = None,
-                    src_bound: Optional[int] = None, live_mask=None):
+                    src_bound: Optional[int] = None, live_mask=None,
+                    moe_dispatch: str = "einsum"):
         """tokens: (B, 1) -> (logits (B, V), cache).  With ``use_kernels``
         decode attention reads only the ``kv_bound`` prefix (cross-attention
         the ``src_bound`` prefix) and skips slots whose ``live_mask`` is
-        false."""
+        false.  ``moe_dispatch`` as in ``prefill``."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         x, cache = T.decoder_step(params["decoder"], cfg, x, cache,
                                   use_kernels=use_kernels, kv_bound=kv_bound,
                                   live=live_mask, src_len=cache.get("src_len"),
-                                  src_bound=src_bound)
+                                  src_bound=src_bound,
+                                  moe_dispatch=moe_dispatch)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         logits = self._mask_pad(x[:, 0] @ self._head(params))
         return logits, cache

@@ -1,25 +1,46 @@
-"""Dense FFN of the port (``repro.models.moe``, dense part only).
+"""Dense FFN and Mixture-of-Experts FFN of the port (``repro.models.moe``):
+top-k routing with capacity, shared experts, the dense-residual branch
+(Arctic); DeepSeek's first-k-dense layers are the transformer's prologue.
 
-The routed mixture of experts belongs to a later slice of the port.
+Dispatch is the reference's GShard einsum formulation (one-hot dispatch
+and combine tensors, every expert run on its capacity rows) or its
+gather variant (``dispatch_impl="gather"``: source-token indices built by
+a scatter, then gathers).  Tokens dispatch per group: a batch row, or
+``group_size`` tokens when a row is a whole multiple of it, with capacity
+C = int(T * top_k / E * capacity_factor) per expert and group, assigned
+slot by slot (all first choices, then all second ones), drops included.
+
+Nothing here waits on the host (no ``nonzero``, boolean indexing,
+``F.one_hot``'s range check or ``.item()``): one-hots compare against an
+``arange``, so a decode step through an MoE layer captures as a CUDA
+graph.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
 
+Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# dense FFN (also the non-MoE path) and the stacked experts
+# ---------------------------------------------------------------------------
 
 def ffn_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int, *, dtype,
-             device) -> Dict[str, torch.Tensor]:
-    """Plain (or GLU) MLP weights, fan-in scaled as in the reference."""
+             device, expert_dim: int = 0) -> Params:
+    """Plain (or GLU) MLP weights, fan-in scaled as in the reference; with
+    ``expert_dim`` > 0, stacked over a leading expert axis."""
     d = cfg.d_model
+    lead = (expert_dim,) if expert_dim else ()
 
     def w(shape):
-        return torch.randn(shape, generator=gen, dtype=dtype,
+        return torch.randn(lead + shape, generator=gen, dtype=dtype,
                            device=device) * (1.0 / math.sqrt(shape[0]))
 
     p = {"w_up": w((d, d_ff)), "w_down": w((d_ff, d))}
@@ -28,7 +49,7 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int, *, dtype,
     return p
 
 
-def ffn_apply(p: Dict[str, torch.Tensor], cfg: ModelConfig, x):
+def ffn_apply(p: Params, cfg: ModelConfig, x):
     act = L.activation(cfg.act)
     up = x @ p["w_up"]
     if cfg.glu:
@@ -36,3 +57,156 @@ def ffn_apply(p: Dict[str, torch.Tensor], cfg: ModelConfig, x):
     else:
         h = act(up)
     return h @ p["w_down"]
+
+
+def _expert_ffn(p: Params, cfg: ModelConfig, x):
+    """x: (E, rows, d), batched over the stacked weights' expert axis."""
+    act = L.activation(cfg.act)
+    up = torch.bmm(x, p["w_up"])
+    if cfg.glu:
+        h = act(torch.bmm(x, p["w_gate"])) * up
+    else:
+        h = act(up)
+    return torch.bmm(h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE layer
+# ---------------------------------------------------------------------------
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
+             device) -> Dict[str, object]:
+    mo = cfg.moe
+    kw = dict(dtype=dtype, device=device)
+    p: Dict[str, object] = {
+        "router": torch.randn((cfg.d_model, mo.num_experts), generator=gen,
+                              **kw) * 0.02,
+        "experts": ffn_init(gen, cfg, mo.expert_d_ff,
+                            expert_dim=mo.num_experts, **kw),
+    }
+    if mo.num_shared_experts:
+        p["shared"] = ffn_init(
+            gen, cfg,
+            mo.num_shared_experts * (mo.shared_d_ff or mo.expert_d_ff), **kw)
+    if mo.dense_residual:
+        p["dense"] = ffn_init(gen, cfg, mo.dense_residual_d_ff or cfg.d_ff,
+                              **kw)
+    return p
+
+
+def capacity(mo: MoEConfig, group_tokens: int) -> int:
+    c = int(group_tokens * mo.top_k / mo.num_experts * mo.capacity_factor)
+    return max(c, 1)
+
+
+def _one_hot(idx, n: int, dtype):
+    """``idx`` (...) -> (..., n), zero rows where idx lies outside [0, n)
+    (as ``jax.nn.one_hot``), with no check that syncs with the host."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _routing(p, mo: MoEConfig, xg):
+    """xg: (G, T, d) -> gates (G, T, k), idx (G, T, k), probs (G, T, E),
+    all fp32 but idx.  Router logits accumulate in fp32 from operands in
+    the activation dtype, as the reference's preferred_element_type."""
+    logits = xg.float() @ p["router"].to(xg.dtype).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, idx = torch.topk(probs, mo.top_k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    return gate_vals, idx, probs
+
+
+def _capacity_positions(idx, E: int, C: int):
+    """Slot-by-slot capacity assignment (GShard): (pos, keep), pos (G, T,
+    k) int32 position in its expert, keep (G, T, k) bool (pos < C)."""
+    G, T, K = idx.shape
+    counts = torch.zeros((G, E), dtype=torch.int32, device=idx.device)
+    poss, keeps = [], []
+    for j in range(K):
+        oh = _one_hot(idx[:, :, j], E, torch.int32)               # (G,T,E)
+        pos_e = torch.cumsum(oh, dim=1, dtype=torch.int32) - oh \
+            + counts[:, None, :]
+        pos = (pos_e * oh).sum(dim=-1, dtype=torch.int32)          # (G,T)
+        keep = pos < C
+        counts = counts + (oh * keep[..., None]).sum(dim=1,
+                                                     dtype=torch.int32)
+        poss.append(pos)
+        keeps.append(keep)
+    return torch.stack(poss, -1), torch.stack(keeps, -1)
+
+
+def moe_apply(p, cfg: ModelConfig, x, *,
+              dispatch_impl: str = "einsum") -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss)."""
+    mo = cfg.moe
+    B0, S0, d = x.shape
+    # GShard groups bound the (G, T, E, C) dispatch tensors, C being
+    # proportional to the group's tokens
+    g = mo.group_size
+    if g and S0 > g and S0 % g == 0:
+        x = x.reshape(B0 * (S0 // g), g, d)
+    B, S, _ = x.shape
+    E = mo.num_experts
+    C = capacity(mo, S)
+    gate_vals, idx, probs = _routing(p, mo, x)
+    pos, keep = _capacity_positions(idx, E, C)
+    dt = x.dtype
+
+    if dispatch_impl == "einsum":
+        # combine (G, T, E, C): the gate weight at each kept (expert,
+        # position), in the activation dtype
+        combine = torch.zeros((B, S, E, C), dtype=dt, device=x.device)
+        for j in range(mo.top_k):
+            oh_e = _one_hot(idx[:, :, j], E, dt)
+            oh_c = _one_hot(pos[:, :, j], C, dt)
+            w = (gate_vals[:, :, j] * keep[:, :, j]).to(dt)
+            combine = combine + w[..., None, None] * \
+                (oh_e[..., :, None] * oh_c[..., None, :])
+        dispatch = (combine > 0).to(dt)
+        expert_in = torch.einsum("gtec,gtd->gecd", dispatch, x)
+        eo = _expert_ffn(p["experts"], cfg,
+                         expert_in.transpose(0, 1).reshape(E, B * C, d))
+        expert_out = eo.reshape(E, B, C, d).transpose(0, 1)  # (G, E, C, d)
+        y = torch.einsum("gtec,gecd->gtd", combine, expert_out)
+    elif dispatch_impl == "gather":
+        # (G, E, C) source-token index by a scatter; a dropped token goes to
+        # a spare capacity column C, sliced off after
+        src = torch.zeros((B, E * (C + 1)), dtype=torch.int64,
+                          device=x.device)
+        has = torch.zeros((B, E * (C + 1)), dtype=dt, device=x.device)
+        tok = torch.arange(S, device=x.device).expand(B, S)
+        for j in range(mo.top_k):
+            p_safe = torch.where(keep[:, :, j], pos[:, :, j], C)
+            flat = idx[:, :, j] * (C + 1) + p_safe
+            src.scatter_(1, flat, tok)
+            has.scatter_(1, flat, torch.ones((B, S), dtype=dt,
+                                             device=x.device))
+        src = src.reshape(B, E, C + 1)[:, :, :C]
+        has = has.reshape(B, E, C + 1)[:, :, :C]
+        rows = torch.arange(B, device=x.device)[:, None, None]
+        expert_in = x[rows, src.clamp(0, S - 1)] * has[..., None]
+        eo = _expert_ffn(p["experts"], cfg,
+                         expert_in.transpose(0, 1).reshape(E, B * C, d))
+        expert_out = eo.reshape(E, B, C, d).transpose(0, 1)
+        flat_out = expert_out.reshape(B, E * C, d)
+        y = torch.zeros_like(x)
+        brow = torch.arange(B, device=x.device)[:, None]
+        for j in range(mo.top_k):
+            w = (gate_vals[:, :, j] * keep[:, :, j]).to(dt)
+            t_out = flat_out[brow, idx[:, :, j] * C
+                             + pos[:, :, j].clamp(0, C - 1)]
+            y = y + w[..., None] * t_out
+    else:
+        raise ValueError(dispatch_impl)
+
+    # auxiliary load-balance loss (Switch): E * sum_e f_e * P_e
+    me = probs.mean(dim=(0, 1))
+    fe = _one_hot(idx[:, :, 0], E, torch.float32).mean(dim=(0, 1))
+    aux = E * (fe * me).sum()
+
+    if mo.num_shared_experts:
+        y = y + ffn_apply(p["shared"], cfg, x)
+    if mo.dense_residual:
+        y = y + ffn_apply(p["dense"], cfg, x)
+    return y.reshape(B0, S0, d), aux

@@ -1,23 +1,28 @@
-"""Transformer stacks of the port (``repro.models.transformer``): dense GQA
-and attention-free Mamba decoders, and the encoder-decoder's
-bidirectional encoder and cross-attending decoder.
+"""Transformer stacks of the port (``repro.models.transformer``): dense
+GQA, MoE (with MLA or GQA attention) and attention-free Mamba decoders,
+and the encoder-decoder's bidirectional encoder and cross-attending
+decoder.
 
 The reference scans one stacked layer body with ``lax.scan``; here a
-Python loop runs over a list of per-layer parameter dicts.  The decode
-cache keeps the reference's structure, ``{"prologue": [], "scanned":
-{"attn": {"k", "v"}} or {"ssm": {"conv", "h"}}, "pos"}``, with stacked
-leaves (layer axis 0, slot axis 1: KV (L, B, T, Hkv, D), conv window (L,
-B, w-1, d_in), state (L, B, d_in, N) fp32) updated IN PLACE layer by
-layer.  An enc-dec decoder's cache adds ``scanned["cross"] = {"k", "v"}``
-(L, B, max_src, Hkv, D), the reference's per-layer ``cross_k`` and
-``cross_v``.
+Python loop runs over a list of per-layer parameter dicts,
+``{"prologue": [...], "layers": [...]}``: the prologue holds the
+reference's unscanned layers (DeepSeek's first-k-dense layers, whose FFN
+has another width), ``layers`` its scanned ones.  The decode cache keeps
+the reference's structure, ``{"prologue": [per-layer caches], "scanned":
+{"attn": {"k", "v"} or {"ckv", "krope"}} or {"ssm": {"conv", "h"}},
+"pos"}``, with stacked scanned leaves (layer axis 0, slot axis 1: KV (L,
+B, T, Hkv, D), MLA latents (L, B, T, R) and (L, B, T, Dr), conv window
+(L, B, w-1, d_in), state (L, B, d_in, N) fp32) and slot-leading prologue
+leaves, all updated IN PLACE layer by layer.  An enc-dec decoder's cache
+adds ``scanned["cross"] = {"k", "v"}`` (L, B, max_src, Hkv, D), the
+reference's per-layer ``cross_k`` and ``cross_v``.
 
-MoE, MLA and hybrid (attention beside SSM) stacks raise
-``NotImplementedError``: they belong to later slices of the port.
+Hybrid stacks (attention beside SSM) raise ``NotImplementedError``: they
+belong to a later slice of the port.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -32,11 +37,9 @@ PyTree = Any
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the stacks the port does not cover yet: it serves dense
-    GQA decoders, attention-free SSM (Mamba) decoders and dense GQA
-    encoder-decoders."""
-    later = [("moe", cfg.moe is not None, "the MLA/MoE slice"),
-             ("mla", cfg.mla is not None, "the MLA/MoE slice"),
-             ("hybrid_parallel", cfg.hybrid_parallel, "the hybrid SSM slice"),
+    and MoE decoders (GQA or MLA attention), attention-free SSM (Mamba)
+    decoders and dense GQA encoder-decoders."""
+    later = [("hybrid_parallel", cfg.hybrid_parallel, "the hybrid SSM slice"),
              ("ssm beside attention",
               cfg.ssm is not None and not cfg.attention_free,
               "the hybrid SSM slice"),
@@ -58,31 +61,49 @@ def norm_init(kind: str, dim: int, device) -> Dict[str, torch.Tensor]:
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device,
-                cross: bool = False):
-    """One layer; ``cross`` adds cross-attention (enc-dec decoder)."""
+                cross: bool = False, dense_override_ff: int = 0):
+    """One layer; ``cross`` adds cross-attention (enc-dec decoder);
+    ``dense_override_ff`` > 0 gives a dense FFN of that width in place of
+    the MoE (prologue layers)."""
+    kw = dict(dtype=dtype, device=device)
     p: Dict[str, PyTree] = {"ln1": norm_init(cfg.norm, cfg.d_model, device)}
     if cfg.ssm is not None:
-        p["ssm"] = S.mamba_init(gen, cfg, dtype=dtype, device=device)
+        p["ssm"] = S.mamba_init(gen, cfg, **kw)
+    elif cfg.mla is not None:
+        p["attn"] = A.mla_init(gen, cfg, **kw)
     else:
-        p["attn"] = A.gqa_init(gen, cfg, dtype=dtype, device=device)
+        p["attn"] = A.gqa_init(gen, cfg, **kw)
     if cross:
         p["ln_cross"] = norm_init(cfg.norm, cfg.d_model, device)
-        p["cross"] = A.cross_init(gen, cfg, dtype=dtype, device=device)
-    if cfg.d_ff:
+        p["cross"] = A.cross_init(gen, cfg, **kw)
+    if dense_override_ff:
         p["ln2"] = norm_init(cfg.norm, cfg.d_model, device)
-        p["ffn"] = M.ffn_init(gen, cfg, cfg.d_ff, dtype=dtype, device=device)
+        p["ffn"] = M.ffn_init(gen, cfg, dense_override_ff, **kw)
+    elif cfg.moe is not None:
+        p["ln2"] = norm_init(cfg.norm, cfg.d_model, device)
+        p["moe"] = M.moe_init(gen, cfg, **kw)
+    elif cfg.d_ff:
+        p["ln2"] = norm_init(cfg.norm, cfg.d_model, device)
+        p["ffn"] = M.ffn_init(gen, cfg, cfg.d_ff, **kw)
     return p
 
 
-def _ffn(p, cfg: ModelConfig, x):
-    if "ffn" in p:
+def _ffn(p, cfg: ModelConfig, x, moe_dispatch: str = "einsum"):
+    """The FFN sublayer: dense, or MoE (its aux loss is for training and
+    is dropped here)."""
+    if "moe" in p:
+        h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
+        y, _ = M.moe_apply(p["moe"], cfg, h2, dispatch_impl=moe_dispatch)
+        x = x + y
+    elif "ffn" in p:
         h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
         x = x + M.ffn_apply(p["ffn"], cfg, h2)
     return x
 
 
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, causal: bool,
-               is_global: bool, kv_len, use_kernels: bool):
+               is_global: bool, kv_len, use_kernels: bool,
+               moe_dispatch: str = "einsum"):
     """Residual layer without a cache (encoders, embedding stacks).  An SSM
     layer folds the sequence from a zero state, as its prefill does."""
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
@@ -90,11 +111,13 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, causal: bool,
         scratch = S.mamba_cache_init(cfg, x.shape[0], x.dtype, x.device)
         y, _ = S.mamba_prefill(p["ssm"], cfg, h, scratch,
                                use_kernels=use_kernels)
+    elif cfg.mla is not None:
+        y = A.mla_fwd(p["attn"], cfg, h, positions, use_kernels=use_kernels)
     else:
         y = A.gqa_fwd(p["attn"], cfg, h, positions, causal=causal,
                       is_global=is_global, kv_len=kv_len,
                       use_kernels=use_kernels)
-    return _ffn(p, cfg, x + y)
+    return _ffn(p, cfg, x + y, moe_dispatch)
 
 
 def _cross(p, cfg: ModelConfig, x, fn):
@@ -107,11 +130,15 @@ def _cross(p, cfg: ModelConfig, x, fn):
 
 def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
                    is_global: bool, use_kernels: bool, enc_out=None,
-                   src_len=None):
+                   src_len=None, moe_dispatch: str = "einsum"):
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     if "ssm" in p:
         y, cache["ssm"] = S.mamba_prefill(p["ssm"], cfg, h, cache["ssm"],
                                           use_kernels=use_kernels)
+    elif cfg.mla is not None:
+        y, cache["attn"] = A.mla_prefill(p["attn"], cfg, h, positions,
+                                         cache["attn"],
+                                         use_kernels=use_kernels)
     else:
         y, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
                                          cache["attn"], is_global=is_global,
@@ -123,16 +150,21 @@ def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
         Ss = enc_out.shape[1]
         cache["cross"]["k"][:, :Ss] = ck.to(cache["cross"]["k"].dtype)
         cache["cross"]["v"][:, :Ss] = cv.to(cache["cross"]["v"].dtype)
-    return _ffn(p, cfg, x), cache
+    return _ffn(p, cfg, x, moe_dispatch), cache
 
 
 def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
                 use_kernels: bool, kv_bound: Optional[int], live,
-                src_len=None, src_bound: Optional[int] = None):
+                src_len=None, src_bound: Optional[int] = None,
+                moe_dispatch: str = "einsum"):
     h = L.apply_norm(cfg.norm, p["ln1"], x1, cfg.norm_eps)
     if "ssm" in p:
         y, cache["ssm"] = S.mamba_step(p["ssm"], cfg, h, cache["ssm"],
                                        use_kernels=use_kernels, live=live)
+    elif cfg.mla is not None:
+        y, cache["attn"] = A.mla_step(p["attn"], cfg, h, cache["attn"], pos,
+                                      use_kernels=use_kernels,
+                                      kv_bound=kv_bound)
     else:
         y, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
                                       is_global=is_global,
@@ -141,40 +173,63 @@ def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
     x1 = _cross(p, cfg, x1 + y, lambda hc: A.cross_step(
         p["cross"], cfg, hc, cache["cross"]["k"], cache["cross"]["v"],
         src_len, use_kernels=use_kernels, src_bound=src_bound, live=live))
-    return _ffn(p, cfg, x1), cache
+    return _ffn(p, cfg, x1, moe_dispatch), cache
+
+
+def _prologue_plan(cfg: ModelConfig) -> Tuple[int, int]:
+    """(num_prologue, num_scanned) layers."""
+    k = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    return k, cfg.num_layers - k
 
 
 def decoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
     check_supported(cfg)
-    return {"layers": [_layer_init(gen, cfg, dtype=dtype, device=device,
-                                   cross=cfg.cross_attention)
-                       for _ in range(cfg.num_layers)]}
+    n_pro, n_scan = _prologue_plan(cfg)
+    kw = dict(dtype=dtype, device=device, cross=cfg.cross_attention)
+    pro_ff = cfg.moe.first_dense_d_ff if cfg.moe is not None else 0
+    return {"prologue": [_layer_init(gen, cfg, dense_override_ff=pro_ff,
+                                     **kw) for _ in range(n_pro)],
+            "layers": [_layer_init(gen, cfg, **kw) for _ in range(n_scan)]}
+
+
+def _layer_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device, cross_src: int):
+    """One layer's cache, slot axis 0."""
+    if cfg.ssm is not None:
+        c = {"ssm": S.mamba_cache_init(cfg, batch, dtype, device)}
+    elif cfg.mla is not None:
+        c = {"attn": A.mla_cache_init(cfg, batch, max_len, dtype, device)}
+    else:
+        c = {"attn": A.gqa_cache_init(cfg, batch, max_len, dtype, device)}
+    if cross_src:
+        c["cross"] = A.gqa_cache_init(cfg, batch, cross_src, dtype, device)
+    return c
 
 
 def decoder_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                        device, *, cross_src: int = 0):
     """cross_src: the cross cache's source capacity (enc-dec decoders)."""
     check_supported(cfg)
-    if cfg.ssm is not None:
-        kinds = {"ssm": S.mamba_cache_init(cfg, batch, dtype, device)}
-    else:
-        kinds = {"attn": A.gqa_cache_init(cfg, batch, max_len, dtype,
-                                          device)}
-    if cross_src:
-        kinds["cross"] = A.gqa_cache_init(cfg, batch, cross_src, dtype,
-                                          device)
-    scanned = {kind: {name: torch.zeros((cfg.num_layers,) + t.shape,
+    n_pro, n_scan = _prologue_plan(cfg)
+    pro = [_layer_cache_init(cfg, batch, max_len, dtype, device, cross_src)
+           for _ in range(n_pro)]
+    one = _layer_cache_init(cfg, batch, max_len, dtype, device, cross_src)
+    scanned = {kind: {name: torch.zeros((n_scan,) + t.shape,
                                         dtype=t.dtype, device=device)
-                      for name, t in one.items()}
-               for kind, one in kinds.items()}
-    return {"prologue": [], "scanned": scanned,
+                      for name, t in leaves.items()}
+               for kind, leaves in one.items()}
+    return {"prologue": pro, "scanned": scanned,
             "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
 
 
-def _layer_cache(cache, i: int):
-    """Layer ``i``'s cache as views into the stacked tensors."""
-    return {kind: {name: t[i] for name, t in leaves.items()}
-            for kind, leaves in cache["scanned"].items()}
+def _layers_and_caches(params, cache):
+    """(params, cache) of every layer in order: the prologue's own, then
+    each scanned layer's, its cache as views into the stacked tensors."""
+    scanned = [{kind: {name: t[i] for name, t in leaves.items()}
+                for kind, leaves in cache["scanned"].items()}
+               for i in range(len(params["layers"]))]
+    return zip(params["prologue"] + params["layers"],
+               cache["prologue"] + scanned)
 
 
 def cache_slot_axes(cache) -> PyTree:
@@ -198,50 +253,52 @@ def _global(cfg: ModelConfig, i: int) -> bool:
 
 
 def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
-                use_kernels: bool = True):
+                use_kernels: bool = True, moe_dispatch: str = "einsum"):
     """Full-sequence causal decoder pass without a cache (the embedding
     stacks of decoder-only archs)."""
-    for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(params["prologue"] + params["layers"]):
         x = _layer_fwd(lp, cfg, x, positions, causal=True,
                        is_global=_global(cfg, i), kv_len=None,
-                       use_kernels=use_kernels)
+                       use_kernels=use_kernels, moe_dispatch=moe_dispatch)
     return x
 
 
 def decoder_prefill(params, cfg: ModelConfig, x, positions, cache, *,
                     true_len=None, use_kernels: bool = True, enc_out=None,
-                    src_len=None):
+                    src_len=None, moe_dispatch: str = "einsum"):
     """enc_out/src_len: the encoder output and its valid lengths, for the
     cross layers of an enc-dec decoder (src_len None: all of enc_out)."""
-    layers: List = params["layers"]
-    for i, lp in enumerate(layers):
-        x, _ = _layer_prefill(lp, cfg, x, positions, _layer_cache(cache, i),
+    for i, (lp, lc) in enumerate(_layers_and_caches(params, cache)):
+        x, _ = _layer_prefill(lp, cfg, x, positions, lc,
                               is_global=_global(cfg, i),
                               use_kernels=use_kernels, enc_out=enc_out,
-                              src_len=src_len)
+                              src_len=src_len, moe_dispatch=moe_dispatch)
     B, S = x.shape[0], x.shape[1]
     if true_len is None:
         pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
     else:
         pos = torch.as_tensor(true_len, dtype=torch.int32,
                               device=x.device).expand(B).clone()
-    return x, {"prologue": [], "scanned": cache["scanned"], "pos": pos}
+    return x, {"prologue": cache["prologue"], "scanned": cache["scanned"],
+               "pos": pos}
 
 
 def decoder_step(params, cfg: ModelConfig, x1, cache, *,
                  use_kernels: bool = False, kv_bound: Optional[int] = None,
-                 live=None, src_len=None, src_bound: Optional[int] = None):
+                 live=None, src_len=None, src_bound: Optional[int] = None,
+                 moe_dispatch: str = "einsum"):
     """use_kernels/kv_bound/live: the ragged decode hot path (see
-    ``attention.gqa_step``); src_len/src_bound: the cross-attention reads
-    of an enc-dec decoder (``attention.cross_step``).  Positions advance in
-    place, as the KV and state do: a captured step reads and writes the
-    same tensors on every replay."""
+    ``attention.gqa_step``; MLA bounds its latent read the same way);
+    src_len/src_bound: the cross-attention reads of an enc-dec decoder
+    (``attention.cross_step``).  Positions advance in place, as the KV and
+    state do: a captured step reads and writes the same tensors on every
+    replay."""
     pos = cache["pos"]
-    for i, lp in enumerate(params["layers"]):
-        x1, _ = _layer_step(lp, cfg, x1, _layer_cache(cache, i), pos,
-                            is_global=_global(cfg, i),
+    for i, (lp, lc) in enumerate(_layers_and_caches(params, cache)):
+        x1, _ = _layer_step(lp, cfg, x1, lc, pos, is_global=_global(cfg, i),
                             use_kernels=use_kernels, kv_bound=kv_bound,
-                            live=live, src_len=src_len, src_bound=src_bound)
+                            live=live, src_len=src_len, src_bound=src_bound,
+                            moe_dispatch=moe_dispatch)
     pos.add_(1)
     return x1, cache
 

@@ -298,11 +298,16 @@ class DecodeEngine(EngineTelemetry):
     # admission accounting
     # ------------------------------------------------------------------
     def _per_token_cache_elems(self) -> int:
-        """Per-token KV elements over all layers (admission accounting);
-        an attention-free arch holds no KV."""
+        """Per-token KV elements over all layers (admission accounting):
+        MLA caches its latent and rope key, an attention-free arch holds
+        no KV."""
         mc = self.model.cfg
-        per_tok = (0 if mc.attention_free
-                   else 2 * mc.num_kv_heads * mc.resolved_head_dim)
+        if mc.mla is not None:
+            per_tok = mc.mla.kv_lora_rank + mc.mla.qk_rope_head_dim
+        elif mc.attention_free:
+            per_tok = 0
+        else:
+            per_tok = 2 * mc.num_kv_heads * mc.resolved_head_dim
         return max(per_tok, 1) * mc.num_layers
 
     def _arena_capacity(self) -> int:

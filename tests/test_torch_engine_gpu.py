@@ -25,7 +25,8 @@ from repro_torch.workloads import (DecodeEngine, EncDecEngine,  # noqa: E402
                                    EncoderEngine, SSMEngine, ServeConfig)
 from repro_torch.workloads.compile_cache import GraphStep  # noqa: E402
 
-ARCHS = ("minitron-4b", "qwen2.5-32b", "falcon-mamba-7b")
+ARCHS = ("minitron-4b", "qwen2.5-32b", "falcon-mamba-7b",
+         "deepseek-v2-lite-16b")
 
 
 @pytest.fixture
@@ -92,6 +93,36 @@ def test_graph_streams_equal_eager(cuda, arch, monkeypatch):
         assert bool(_graphs_of(eng)) == graphs
     assert streams[0] == streams[1]
     assert all(len(s) == 40 for s in streams[0])
+
+
+@pytest.mark.gpu
+def test_mla_moe_engine_kernel_path_matches_plain_path(cuda):
+    """deepseek-v2-lite reduced (MLA, MoE, a dense prologue layer) in fp32
+    through ``DecodeEngine``: with the kernels on, every layer of every
+    prefill launches the flash kernel at MLA's qk dim (24), the decode
+    steps run as graphs (routing and capacity stay on the device), and
+    the streams equal the plain path's."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    cfg = dataclasses.replace(get_reduced("deepseek-v2-lite-16b"),
+                              dtype="float32")
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    streams = {}
+    for kern in (True, False):
+        eng = DecodeEngine(model, params, ServeConfig(
+            max_slots=3, max_len=128, eos_id=-1, use_kernels=kern,
+            kv_page_rows=8))
+        eng.warm_compile(None)
+        warmed = eng.graph_captures
+        fa0 = fa.launches
+        streams[kern] = _serve(eng, n=5, new=24)
+        assert eng.graph_captures == warmed and (warmed >= 1)
+        assert fa.launches - fa0 == (cfg.num_layers * 5 if kern else 0)
+    assert streams[True] == streams[False]
+    assert all(len(s) == 24 for s in streams[True])
 
 
 @pytest.mark.gpu

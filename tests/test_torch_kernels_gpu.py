@@ -138,6 +138,43 @@ def test_flash_kernel_on_gpu(cuda, dtype, S, window, cap, glob, G, D, fused):
     assert err <= GPU_TOL[dtype], err
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 63, 65, 200, 1024])
+@pytest.mark.parametrize("case", ["causal", "window", "kv_len",
+                                  "bidirectional"])
+@pytest.mark.parametrize("D", [24, 192, 256])
+def test_flash_kernel_mla_head_dims_on_gpu(cuda, dtype, S, case, D):
+    """Head dims of MLA's prefill: 24 (deepseek-v2-lite-reduced's qk dim,
+    rows of 48 bytes in bf16), 192 (deepseek-v2-lite's) and 256, over 16
+    heads (MLA's G = 1), v zero past 128 as MLA pads it; causal, windowed
+    with a cap, key-padded (B = 3) and bidirectional.  Each launch counts
+    on its head dim's counter."""
+    B = 3 if case == "kv_len" else 1
+    gen = torch.Generator(device=cuda).manual_seed(D + S)
+    q, k, v = (torch.randn((B, S, 16, D), generator=gen,
+                           device=cuda).to(dtype) for _ in range(3))
+    if D > 128:
+        v[..., 128:] = 0
+    kw = {"causal": dict(), "window": dict(window=64, logit_cap=30.0),
+          "kv_len": dict(kv_len=torch.tensor(
+              [S, max(S // 2, 1), min(5, S)], dtype=torch.int32,
+              device=cuda)),
+          "bidirectional": dict(causal=False)}[case]
+    counter = ("masked_launches" if case == "kv_len" else
+               {24: "launches", 192: "d192_launches",
+                256: "d256_launches"}[D])
+    before = getattr(fa, counter)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fa, counter) == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_TOL[dtype] and got.isfinite().all(), err
+    if D > 128:
+        assert bool((got[..., 128:] == 0).all())
+
+
 def _kv_case(cuda, B, S, D, dtype, lens):
     """(q, k, v, kv_len) of a key-padded flash case: H = 16 heads (G = 1,
     seamless-m4t's attention), ``lens`` the valid keys per row."""
@@ -211,10 +248,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     k9 = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):                 # G = 9 > 8
         rd.ragged_decode_attention(q9, k9, k9, lens[:1])
-    qb = torch.zeros((1, 8, 4, 200), dtype=torch.bfloat16, device=cuda)
-    kb = torch.zeros((1, 8, 2, 200), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):
-        fa.flash_attention(qb, kb, kb)
+    for D in (264, 4):           # above 256; rows of 8 bytes
+        qb = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device=cuda)
+        kb = torch.zeros((1, 8, 2, D), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError):
+            fa.flash_attention(qb, kb, kb)
     qw = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):                 # kv_len with a window
         fa.flash_attention(qw, qw, qw, window=4, kv_len=lens)

@@ -51,7 +51,8 @@ def _close(jax_out, torch_out, tol):
 
 
 @pytest.mark.parametrize("arch", ["minitron-4b", "qwen2.5-32b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "deepseek-v2-lite-16b",
+                                  "arctic-480b"])
 def test_configs_match_reference(arch):
     for get_t, get_j in ((TC.get_config, jax_get_config),
                          (TC.get_reduced, jax_get_reduced)):
@@ -72,11 +73,14 @@ def test_unknown_arch_and_later_slices_raise():
     cfg = TC.get_reduced("minitron-4b")
     # an SSM beside attention (hybrid) is a later slice; attention-free is
     # not, and neither is a dense encoder-decoder (an SSM one has no slice)
-    for field, value in (("moe", TC.MoEConfig(4, 2, 32)),
-                         ("mla", TC.MLAConfig()), ("ssm", TC.SSMConfig()),
+    # nor MoE or MLA (ported with deepseek-v2-lite)
+    for field, value in (("ssm", TC.SSMConfig()),
                          ("hybrid_parallel", True)):
         with pytest.raises(NotImplementedError, match="slice"):
             check_supported(dataclasses.replace(cfg, **{field: value}))
+    for field, value in (("moe", TC.MoEConfig(4, 2, 32)),
+                         ("mla", TC.MLAConfig())):
+        check_supported(dataclasses.replace(cfg, **{field: value}))
     with pytest.raises(NotImplementedError, match="slice"):
         check_supported(dataclasses.replace(TC.get_reduced("falcon-mamba-7b"),
                                             encoder_layers=2))
