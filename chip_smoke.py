@@ -121,6 +121,25 @@
    The kernel phase holds flash at head dims 24, 192 and 256 (causal,
    windowed, key-padded, S 65) in bf16 and fp32 and times it at
    deepseek's prefill shape beside SDPA.
+11. Multi-query phase: full-width granite-34b (88 layers, 48 query heads
+   on one KV head, random bf16 weights from seed 0, 67.9 GB) through
+   ``DecodeEngine``: phase 3's 8 prompts, 32 new tokens, 8 slots,
+   ``max_len`` 2048, graphs then eager (streams equal, 0 captures on the
+   serving path, ragged decode 88 launches per step, flash 88 per
+   prefill, peak memory under 80 GiB); a decode step beside its weight
+   bound; kernel path against plain path in bf16 at full depth (5e-2) and,
+   the bf16 weights freed, in fp32 at the published widths cut to 16 of 88
+   layers (1e-3).  The kernel phase holds ragged decode in head groups of
+   at most 8 at G = 48, 9 and 5 (with a window, on sliding and global
+   layers) and times G = 48 at granite's serving shape beside SDPA.
+12. Hybrid phase: full-width hymba-1.5b (32 layers of attention beside
+   Mamba, window 1024 but 3 global layers; random bf16 weights from seed
+   0) through ``DecodeEngine``: 8 prompts, two past the window, 32 new
+   tokens, graphs then eager (streams equal, 0 captures; per step 32
+   launches of ragged decode and of the Mamba step, per prefill 32 of
+   flash and of the scan); a decode step beside its bound; kernel path
+   against plain path from an 1100-token prompt for three weight seeds,
+   fp32 within 1e-3 and bf16 within 1.25x the model's own rounding floor.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -136,6 +155,12 @@ checkout DIR (its own mamba_scan.cu, e.g. the parent commit unpacked with
 
 does the same for the causal flash kernel (its flash_attention.cu) at a
 1024-token prompt, B = 1 and 4; outputs must be bitwise equal.
+
+    python3 chip_smoke.py --ragged-splits
+
+builds the kernels and only times ragged decode at each split target
+(blocks per SM the wrapper's grid aims at) at granite's, minitron's and
+hymba's heads.
 """
 from __future__ import annotations
 
@@ -525,7 +550,141 @@ def run_kernel_phase(torch, reps: int = 20):
         bound_by=b_by, library_ms=lib_ms)
     results.update(run_masked_flash_phase(torch, gen, reps))
     results.update(run_mla_flash_phase(torch, gen, reps))
+    results.update(run_group_decode_phase(torch, gen, reps))
     return results
+
+
+# ragged decode past 8 query heads per KV head: (label, Hq, Hkv, D)
+GROUP_CASES = (("G48 granite", 48, 1, 128), ("G9", 18, 2, 128),
+               ("G5 hymba", 25, 5, 64))
+
+
+# split targets (launched blocks per SM) of the ragged decode sweep
+RAGGED_SPLIT_TARGETS = (1, 2, 4, 8, 16)
+
+
+def run_ragged_split_sweep(torch, reps: int = 30):
+    """The ragged decode kernel at each split target of
+    ``RAGGED_SPLIT_TARGETS`` (the wrapper's ``_BLOCKS_PER_SM``, which sizes
+    the grid), at granite's, minitron's and hymba's heads (8 slots, the
+    phase-2 lengths, bf16), two turns over the targets; the wrapper's
+    target is restored after."""
+    from repro_torch.kernels.ragged_decode import ops as rd
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lengths = [1000, 517, 129, 1, 64, 999, 700, 333]
+    live = [1, 1, 1, 1, 1, 1, 0, 1]
+    shapes = {"granite G48": (48, 1, 128), "minitron G3": (24, 8, 128),
+              "hymba G5": (25, 5, 64)}
+    cases = {k: decode_case(torch, gen, lengths=lengths, live=live,
+                            T_full=2048, dtype="bfloat16", Hq=h, Hkv=kv, D=d)
+             for k, (h, kv, d) in shapes.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    keep = rd._BLOCKS_PER_SM
+    times = {}
+    try:
+        for _ in range(2):
+            for target in RAGGED_SPLIT_TARGETS:
+                rd._BLOCKS_PER_SM = target
+                for k, (q, kk, v, lens, lv) in cases.items():
+                    times.setdefault((k, target), []).append(time_ms(
+                        torch, lambda: rd.ragged_decode_attention(
+                            q, kk, v, lens, live=lv), reps))
+        for (k, target), t in sorted(times.items()):
+            Hq, Hkv, _ = shapes[k]
+            rd._BLOCKS_PER_SM = target
+            groups = rd.head_groups(Hq // Hkv)[0]
+            chunk, n = rd.split_plan(8, Hkv, 1024, sms, groups)
+            log(f"ragged_decode split target {target} blocks/SM, {k}: "
+                f"chunk {chunk}, {8 * Hkv * groups * n} blocks; ms "
+                + ", ".join(f"{x:.4f}" for x in t))
+    finally:
+        rd._BLOCKS_PER_SM = keep
+    log(card_line())
+
+
+def run_group_decode_phase(torch, gen, reps: int):
+    """The ragged decode kernel in head groups of at most 8 against its
+    plain version: granite's multi-query group (Hq 48 on 1 KV head, D 128:
+    6 groups of 8), G = 9 (groups of 5 and 4) and hymba's G = 5 (D 64), in
+    bf16 and fp32, plain and with a window of 256 under a logit cap, on a
+    sliding and on a global layer; the phase-2 lengths with a dead slot.
+    Then G = 48 timed at granite's serving shape (8 slots, bf16, 3043 live
+    rows) beside the plain version and SDPA on the same mask (K and V
+    repeated to 48 heads outside the timed call); the bound is the live
+    rows' KV bytes plus q, the output and the lengths."""
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_decode.ref import \
+        ragged_decode_attention_ref
+    F = torch.nn.functional
+    lengths = [1000, 517, 129, 1, 64, 999, 700, 333]
+    live = [1, 1, 1, 1, 1, 1, 0, 1]            # slot 6 is dead
+    worst = 0.0
+    for label, Hq, Hkv, D in GROUP_CASES:
+        for dtype in ("bfloat16", "float32"):
+            for kw in ({}, dict(window=256, logit_cap=30.0),
+                       dict(window=256, logit_cap=30.0, is_global=True)):
+                q, k, v, lens, livet = decode_case(
+                    torch, gen, lengths=lengths, live=live, T_full=2048,
+                    dtype=dtype, Hq=Hq, Hkv=Hkv, D=D)
+                got = rd.ragged_decode_attention(q, k, v, lens, live=livet,
+                                                 **kw)
+                want = ragged_decode_attention_ref(q, k, v, lens,
+                                                   live=livet, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                dead_zero = bool((got[6] == 0).all().item())
+                log(f"ragged_decode {label} (Hq {Hq}, Hkv {Hkv}, D {D}, "
+                    f"groups {rd.head_groups(Hq // Hkv)}) {dtype} "
+                    f"{kw or 'plain'}: max_abs_err={err:.3e} "
+                    f"tol={TOL[dtype]:.0e} dead_row_zero={dead_zero}")
+                require(err <= TOL[dtype] and dead_zero and
+                        math.isfinite(err), f"ragged_decode {label} {dtype} "
+                        f"{kw} disagrees with its plain version")
+                if label.startswith("G48") and dtype == "bfloat16":
+                    worst = max(worst, err)
+    label, Hq, Hkv, D = GROUP_CASES[0]
+    q, k, v, lens, livet = decode_case(torch, gen, lengths=lengths,
+                                       live=live, T_full=2048,
+                                       dtype="bfloat16", Hq=Hq, Hkv=Hkv, D=D)
+    ms = time_ms(torch, lambda: rd.ragged_decode_attention(
+        q, k, v, lens, live=livet), reps)
+    plain_ms = time_ms(torch, lambda: ragged_decode_attention_ref(
+        q, k, v, lens, live=livet), max(reps // 4, 3))
+    B, T = q.shape[0], k.shape[1]
+    qh = q.transpose(1, 2)                                  # (B, Hq, 1, D)
+    kh = k.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    vh = v.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), reps)
+    live_len = sum(n for n, a in zip(lengths, live) if a)
+    es = q.element_size()
+    nbytes = 2 * live_len * Hkv * D * es + 2 * B * Hq * D * es + 4 * B
+    flops = 4 * live_len * Hq * D
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups, gsize = rd.head_groups(Hq // Hkv)
+    chunk, n_split = rd.split_plan(B, Hkv, T, sms, groups)
+    scratch = B * Hq * n_split * (2 + D) * 4
+    kinds = cuda_launches(torch, lambda: rd.ragged_decode_attention(
+        q, k, v, lens, live=livet))
+    log(f"ragged_decode {label} timing (B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} "
+        f"bf16, live KV rows {live_len}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {nbytes / 1e6:.3f} MB); {nbytes / ms / 1e6:.1f} GB/s, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s ({card_line()})")
+    log(f"ragged_decode {label} grid: {groups} head groups of {gsize}, chunk "
+        f"{chunk} rows, {n_split} splits, {B * Hkv * groups * n_split} blocks "
+        f"launched; fp32 partials {scratch / 2**20:.2f} MiB; tickets "
+        f"{rd.ticket_count(B, Hq, Hkv)}; CUDA launches per call "
+        f"{sum(kinds.values())} {kinds}")
+    return {"ragged_decode_g48": dict(
+        name="ragged_decode_g48", route="cuda",
+        source="src/repro_torch/kernels/ragged_decode/csrc/ragged_decode.cu",
+        replaces="src/repro/kernels/ragged_decode/kernel.py:86",
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)}
 
 
 def masked_flash_lengths(B: int, S: int):
@@ -2087,16 +2246,18 @@ def moe_reference_check(torch, path_a, path_b, *, tol, label, n_moe,
 
 
 def forced_logits(model, params, use_kernels: bool, tokens):
-    """fp32 logits after prefilling ``tokens[:, :100]`` and after each
-    later token, fed as given (the same positions for every path)."""
+    """fp32 logits over the vocabulary after prefilling ``tokens[:, :100]``
+    and after each later token, fed as given (the same positions for every
+    path)."""
+    V = model.cfg.vocab_size
     cache = model.init_cache(1, tokens.shape[1] + 2)
     logits, cache = model.prefill(params, {"tokens": tokens[:, :100]},
                                   cache, use_kernels=use_kernels)
-    out = [logits.float()]
+    out = [logits.float()[..., :V]]
     for i in range(100, tokens.shape[1] - 1):
         logits, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
                                           use_kernels=use_kernels)
-        out.append(logits.float())
+        out.append(logits.float()[..., :V])
     return out
 
 
@@ -2362,6 +2523,270 @@ def run_deepseek_phase(torch):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return {"flash_attention_d192": flash}
+
+
+# ---------------------------------------------------------------------------
+# the last serving families: granite-34b (multi-query) and hymba-1.5b
+# (attention beside Mamba), full width, through DecodeEngine
+# ---------------------------------------------------------------------------
+
+FAMILY_SERVE = dict(max_slots=8, max_len=2048, eos_id=-1, use_kernels=True)
+FAMILY_NEW = 32
+GRANITE_KERNELS = ("ragged_decode", "flash_attention")
+HYMBA_KERNELS = ("ragged_decode", "flash_attention", "mamba_step",
+                 "mamba_scan")
+# granite's fp32 leg: the published widths cut to this many of 88 layers
+# (88 in fp32 would take 136 GB)
+GRANITE_FP32_LAYERS = 16
+# hymba's prompts past its 1024-token window, beside six of phase 3's
+HYMBA_LONG = (1500, 1200)
+
+
+def family_serving(torch, model, params, prompts, kernels, per_step,
+                   per_prefill):
+    """A model's prompts through ``DecodeEngine`` (``FAMILY_SERVE``, 32 new
+    tokens), after a warm-up engine, on fresh engines in turns: decode
+    steps as CUDA graphs, then eager.  Logs each run's prefill ms, decode
+    p50, tokens/s, peak memory, captures and launches; requires 8 prefills,
+    0 captures on the serving path with graphs, one replay per decode step,
+    every kernel of ``per_step`` launched once per layer and decode step
+    and of ``per_prefill`` once per layer and prefill, peak memory under
+    80 GiB, and the two runs' streams equal.  Returns the graph run."""
+    from repro_torch.workloads import DecodeEngine, ServeConfig
+    cfg = model.cfg
+    name = cfg.name
+    scfg = ServeConfig(**FAMILY_SERVE)
+    warm = DecodeEngine(model, params, scfg)
+    for p in prompts:
+        warm.submit(p, max_new_tokens=2)
+    warm.run_to_completion()
+    del warm
+    torch.cuda.synchronize()
+    runs = [serving_run(torch, DecodeEngine, model, params, scfg, prompts,
+                        FAMILY_NEW, kernels, graphs)
+            for graphs in (True, False)]
+    card = card_line()
+    L = cfg.num_layers
+    for run in runs:
+        launches = run["launches"]
+        mean, lo, hi = run["prefill"]
+        steps = run["decode_steps"]
+        log(f"serving {name} ({run['engine']}, max_len {scfg.max_len}, "
+            f"{run['label']}): prompts {[len(p) for p in prompts]}, "
+            f"{FAMILY_NEW} new tokens each; prefill ms per request mean "
+            f"{mean:.2f} (min {lo:.2f}, max {hi:.2f}); decode ms per step "
+            f"p50 {run['p50']:.3f}; {run['tokens']} tokens in "
+            f"{run['wall']:.3f} s = {run['tokens_s']:.1f} tokens/s; peak "
+            f"memory {run['peak_gib']:.2f} GiB; warm_compile built "
+            f"{run['warm'][0]} in {run['warm'][1]:.3f} s; graph captures on "
+            f"the serving path {run['path_captures']}; covering steps "
+            f"{run['covering']}; graphs (launches captured, replays) "
+            f"{run['graphs']}; {steps} decode steps, launches {launches} "
+            f"({card})")
+        require(run["prefills"] == 8, f"{run['prefills']} prefills, want 8")
+        for kern in per_step:
+            require(launches[kern] == L * steps > 0,
+                    f"{name}: {kern} launched {launches[kern]} for {steps} "
+                    f"decode steps of {L} layers")
+        for kern in per_prefill:
+            require(launches[kern] == L * 8,
+                    f"{name}: {kern} launched {launches[kern]} for 8 "
+                    f"prefills of {L} layers")
+        require(run["peak_gib"] < 80, f"{name}: peak memory "
+                f"{run['peak_gib']:.2f} GiB")
+        require(len(run["streams"]) == 8 and all(
+            len(t) == FAMILY_NEW and all(0 <= v < cfg.vocab_size for v in t)
+            for t in run["streams"]), f"{name} streams incomplete")
+    graph, eager = runs
+    require(graph["path_captures"] == 0,
+            f"{graph['path_captures']} captures on the serving path")
+    require(bool(graph["graphs"]) and not eager["graphs"],
+            "the graph run replayed no graph, or the eager run did")
+    replays = sum(r for _, r in graph["graphs"])
+    require(replays == graph["decode_steps"],
+            f"{replays} graph replays for {graph['decode_steps']} steps")
+    require(graph["streams"] == eager["streams"],
+            f"{name} graph and eager streams differ")
+    log(f"serving {name}: graph and eager streams equal, token for token")
+
+    # the decode steps alone under the profiler (after step 0, which
+    # admits and prefills every request): device time per step by kind
+    def make():
+        engine = make_engine(torch, DecodeEngine, model, params, scfg,
+                             True)[0]
+        for p in prompts:
+            engine.submit(p, max_new_tokens=FAMILY_NEW)
+        engine.step()
+        torch.cuda.synchronize()
+        return engine
+
+    def rest(engine):
+        while engine.has_work:
+            engine.step()
+        torch.cuda.synchronize()
+
+    profile_serving(torch, make, rest, f"{name} graphs, decode steps",
+                    kernels, graph["decode_wall"],
+                    graph["launches"][per_step[0]], per_step[0], None,
+                    per_steps=graph["decode_steps"] - 1)
+    return graph
+
+
+def step_vs_bound(torch, model, params, state_bytes: int = 0):
+    """One decode step of 8 live slots at 900 rows (a filled engine) as a
+    graph at its exact bound (928), timed beside its bound: every weight
+    read once (the embedding's 8 rows aside), the live KV rows read, and
+    ``state_bytes`` of recurrent state read and written."""
+    from repro_torch.workloads import DecodeEngine, ServeConfig
+    cfg = model.cfg
+    engine, _ = filled_engine(torch, DecodeEngine, model, params,
+                              ServeConfig(**FAMILY_SERVE), 900,
+                              FAMILY_SERVE["max_len"])
+    pool = engine._pool
+    pool.inputs[2].fill_(1)                     # every slot live
+    step = engine._build_decode(pool, (928,))
+    torch.cuda.synchronize()            # the capture ran on engine streams
+    step_ms = time_ms(torch, step, reps=10)
+    wbytes = param_bytes(params) - param_bytes(params["embed"])
+    es = params["embed"].element_size()
+    kbytes = (8 * 900 * 2 * cfg.num_kv_heads * cfg.resolved_head_dim * es
+              * cfg.num_layers)
+    b_ms, _ = bound(wbytes + kbytes + state_bytes, 0.0, "bfloat16")
+    log(f"{cfg.name} decode step (graph, 8 slots at 900 rows, bound 928): "
+        f"{step_ms:.3f} ms, bound {b_ms:.3f} ms (bytes: {wbytes / 1e9:.2f} "
+        f"GB of weights, {kbytes / 1e9:.3f} GB of KV, "
+        f"{state_bytes / 1e9:.3f} GB of state at 3.35 TB/s; "
+        f"{step_ms / b_ms:.2f}x) ({card_line()})")
+    del engine, step
+    return step_ms, b_ms
+
+
+def run_granite_phase(torch):
+    """Full-width granite-34b (88 layers, d_model 6144, 48 query heads on
+    one KV head, head dim 128, a GELU FFN of 24576 without GLU; random bf16
+    weights from seed 0, 67.9 GB) through ``DecodeEngine`` with the
+    kernels on: phase 3's 8 prompts, 32 new tokens, 8 slots, ``max_len``
+    2048, decode steps as graphs then eager (``family_serving``): ragged
+    decode in 6 head groups of 8 launched 88 times per step, flash 88 times
+    per prefill.  Then a decode step beside its weight bound, and the
+    kernel path's logits against the plain path's in bf16 at full depth
+    (5e-2, argmax partings only at counted near-ties).  The bf16 weights
+    freed, the fp32 leg runs at the published widths cut to
+    ``GRANITE_FP32_LAYERS`` layers (1e-3).  Frees its weights; returns the
+    graph run's ragged decode launches."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.workloads import DecodeEngine, ServeConfig
+    cfg = get_config("granite-34b")
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"granite-34b: {cfg.param_count() / 1e9:.2f} B params "
+        f"({cfg.num_layers} layers, {cfg.num_heads} query heads on "
+        f"{cfg.num_kv_heads} KV head), random bf16 weights "
+        f"({param_bytes(params) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    engine = DecodeEngine(model, params, ServeConfig(**FAMILY_SERVE))
+    per_tok = engine._per_token_elems
+    del engine
+    log(f"granite-34b admission: {per_tok} KV elements per token over "
+        f"{cfg.num_layers} layers (2 x {cfg.num_kv_heads} x "
+        f"{cfg.resolved_head_dim} per layer)")
+    require(per_tok == 22528, f"per-token cache elements {per_tok}, want "
+            "22528")
+    graph = family_serving(torch, model, params, serving_prompts(cfg),
+                           GRANITE_KERNELS, ("ragged_decode",),
+                           ("flash_attention",))
+    step_vs_bound(torch, model, params)
+    torch.cuda.empty_cache()
+    run_reference_check(torch, (model, params, True), (model, params, False),
+                        tol=LOGIT_REL_TOL,
+                        label="reference check granite-34b bf16")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=GRANITE_FP32_LAYERS,
+                              dtype="float32")
+    model = build_model(cut, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    log(f"granite-34b fp32 leg: published widths cut to "
+        f"{GRANITE_FP32_LAYERS} of {cfg.num_layers} layers "
+        f"({param_bytes(params) / 1e9:.2f} GB in fp32; all 88 would take "
+        f"{cfg.param_count() * 4 / 1e9:.0f} GB)")
+    run_reference_check(torch, (model, params, True), (model, params, False),
+                        tol=FP32_LOGIT_REL_TOL,
+                        label=f"reference check granite-34b fp32 "
+                              f"({GRANITE_FP32_LAYERS} layers)")
+    del params, model
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"ragged_decode_g48": graph["launches"]["ragged_decode"]}
+
+
+def hymba_prompts(cfg):
+    """Two prompts past hymba's 1024-token window (``HYMBA_LONG``, seed 4)
+    and six of phase 3's."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    long = [rng.integers(1, cfg.vocab_size, size=n) for n in HYMBA_LONG]
+    return long + serving_prompts(cfg)[:6]
+
+
+def run_hymba_phase(torch):
+    """Full-width hymba-1.5b (32 layers, d_model 1600; in every layer GQA
+    attention, 25 heads on 5, head dim 64, sliding window 1024 but the
+    global layers 0, 15 and 31, beside a Mamba block of d_in 3200, N 16;
+    random bf16 weights from seed 0) through ``DecodeEngine`` with the
+    kernels on: 8 prompts, two of them past the window (``hymba_prompts``),
+    32 new tokens, 8 slots, ``max_len`` 2048, decode steps as graphs then
+    eager (``family_serving``): per decode step 32 launches each of ragged
+    decode and the Mamba step, per prefill 32 each of flash and the scan.
+    Then a decode step beside its bound, and for each weight seed of
+    ``SSM_CHECK_SEEDS`` the kernel path against the plain path from a
+    1100-token prompt (past the window) at full depth: fp32 within 1e-3,
+    bf16 within 1 + ``SSM_FLOOR_MARGIN`` of the model's own bf16 rounding
+    floor, as falcon-mamba-7b is held.  Returns the graph run's
+    launches."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+    from repro_torch.models.model import build_model
+    cfg = get_config("hymba-1.5b")
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    d_in, R, N, _ = S.dims(cfg)
+    log(f"hymba-1.5b: {cfg.param_count() / 1e9:.2f} B params "
+        f"({cfg.num_layers} layers, window {cfg.window_size}, global "
+        f"{cfg.global_attn_layers}; Mamba d_in {d_in}, dt_rank {R}, N {N}), "
+        f"random bf16 weights ({param_bytes(params) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    prompts = hymba_prompts(cfg)
+    require(sum(len(p) > cfg.window_size for p in prompts) >= 2,
+            "hymba prompts do not cross the window")
+    graph = family_serving(torch, model, params, prompts, HYMBA_KERNELS,
+                           ("ragged_decode", "mamba_step"),
+                           ("flash_attention", "mamba_scan"))
+    # each slot's fp32 state and bf16 conv window, read and written
+    d_in, _, N, w = S.dims(cfg)
+    state = 2 * 8 * cfg.num_layers * (d_in * N * 4 + (w - 1) * d_in * 2)
+    step_vs_bound(torch, model, params, state_bytes=state)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_ssm_reference_checks(torch, model, S=1100)
+    del model
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return graph["launches"]
 
 
 def encoder_jobs(cfg):
@@ -2696,27 +3121,29 @@ def run_migration_phase(torch, model, params, scfg):
 # kernel path against plain path, full width, one short prompt
 # ---------------------------------------------------------------------------
 
-def path_logits(torch, paths, *, steps: int = 5):
-    """fp32 logits of each path on one 100-token prompt and after each of
+def path_logits(torch, paths, *, steps: int = 5, S: int = 100):
+    """fp32 logits of each path on one S-token prompt and after each of
     ``steps`` decode steps, every path fed the last path's argmax.  A path
     is (model, params, use_kernels).  Returns, per position, the list of
-    the paths' logits."""
+    the paths' logits over the vocabulary only: the padding columns hold
+    -1e30 (hymba pads 32001 to 32256), which would swamp a comparison
+    relative to the largest |logit|."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    S = 100
-    toks = torch.randint(1, paths[0][0].cfg.vocab_size, (1, S),
-                         generator=gen, device="cuda", dtype=torch.int32)
+    V = paths[0][0].cfg.vocab_size
+    toks = torch.randint(1, V, (1, S), generator=gen, device="cuda",
+                         dtype=torch.int32)
     caches = [m.init_cache(1, S + steps + 3) for m, _, _ in paths]
     logits = [None] * len(paths)
     for i, (m, p, kern) in enumerate(paths):
         logits[i], caches[i] = m.prefill(p, {"tokens": toks}, caches[i],
                                          use_kernels=kern)
-    out = [[x.float() for x in logits]]
+    out = [[x.float()[..., :V] for x in logits]]
     for _ in range(steps):
         nxt = logits[-1].argmax(-1).to(torch.int32)[:, None]
         for i, (m, p, kern) in enumerate(paths):
             logits[i], caches[i] = m.decode_step(p, caches[i], nxt,
                                                  use_kernels=kern)
-        out.append([x.float() for x in logits])
+        out.append([x.float()[..., :V] for x in logits])
     return out
 
 
@@ -2735,13 +3162,14 @@ def argmax_check(a, ref, margin_tol: float):
     return same, margin, same or margin < margin_tol
 
 
-def run_reference_check(torch, path_a, path_b, *, tol, label):
-    """Path a against path b, both fed b's argmax.  Fails when
-    max|a - b| / max|b| exceeds ``tol`` at any position, or the argmax
-    parts where b's top-2 margin is not below min(tol, ARGMAX_MARGIN).
-    Returns the largest relative difference."""
-    worst = 0.0
-    for step, (a, b) in enumerate(path_logits(torch, (path_a, path_b))):
+def run_reference_check(torch, path_a, path_b, *, tol, label, S=100):
+    """Path a against path b, both fed b's argmax, from an S-token prompt.
+    Fails when max|a - b| / max|b| exceeds ``tol`` at any position, or the
+    argmax parts where b's top-2 margin is not below min(tol,
+    ARGMAX_MARGIN).  Returns the largest relative difference."""
+    worst, parted = 0.0, 0
+    rows = path_logits(torch, (path_a, path_b), S=S)
+    for step, (a, b) in enumerate(rows):
         rel = rel_err(a, b)
         same, margin, ok = argmax_check(a, b, min(tol, ARGMAX_MARGIN))
         log(f"{label} step {step}: max|dlogit|/max|logit| = {rel:.3e} "
@@ -2750,6 +3178,10 @@ def run_reference_check(torch, path_a, path_b, *, tol, label):
         require(math.isfinite(rel) and rel <= tol and ok,
                 f"{label}: the two paths disagree at step {step}")
         worst = max(worst, rel)
+        parted += not same
+    log(f"{label}: largest {worst:.3e}; argmax partings {parted} of "
+        f"{len(rows)} positions, each at a top-2 margin under "
+        f"{min(tol, ARGMAX_MARGIN):.0e}")
     return worst
 
 
@@ -2761,10 +3193,11 @@ def to_fp32(tree):
     return tree.float()
 
 
-def run_ssm_reference_checks(torch, model):
-    """falcon-mamba-7b at full depth, for each weight seed of
-    ``SSM_CHECK_SEEDS``: four paths on the same tokens, the kernel and the
-    plain path in bf16 and on an fp32 copy of the same weights.  In fp32
+def run_ssm_reference_checks(torch, model, S: int = 100):
+    """An SSM model (falcon-mamba-7b, hymba-1.5b) at full depth, for each
+    weight seed of ``SSM_CHECK_SEEDS``: four paths on the same tokens (an
+    S-token prompt, 5 steps), the kernel and the plain path in bf16 and on
+    an fp32 copy of the same weights.  In fp32
     the kernel path must compute the plain path's function
     (``FP32_LOGIT_REL_TOL``).  In bf16 its distance from the fp32 plain
     path, the largest over all positions, must stay within
@@ -2780,14 +3213,14 @@ def run_ssm_reference_checks(torch, model):
     for seed in SSM_CHECK_SEEDS:
         params = model.init(torch.Generator(device="cuda").manual_seed(seed))
         p32 = to_fp32(params)
-        label = f"reference check falcon-mamba-7b seed {seed}"
+        label = f"reference check {model.cfg.name} seed {seed}"
         paths = ((model, params, True), (model, params, False),
                  (m32, p32, True), (m32, p32, False))
         worst = dict.fromkeys(("kernel bf16", "plain bf16",
                                "bf16 kernel vs plain", "fp32 kernel vs plain"),
                               0.0)
         for step, (k16, p16, k32, f32) in enumerate(
-                path_logits(torch, paths)):
+                path_logits(torch, paths, S=S)):
             errs = (rel_err(k16, f32), rel_err(p16, f32), rel_err(k16, p16),
                     rel_err(k32, f32))
             same32, _, ok32 = argmax_check(k32, f32, FP32_LOGIT_REL_TOL)
@@ -3133,6 +3566,10 @@ def main() -> int:
         print(card_line(), flush=True)
         return 0
 
+    if "--ragged-splits" in sys.argv:
+        run_ragged_split_sweep(torch)
+        return 0
+
     if "--scan-baseline" in sys.argv:
         log_scan_build()
         run_scan_compare(torch, [Path(p) for p in sys.argv[sys.argv.index(
@@ -3212,6 +3649,12 @@ def main() -> int:
     # MLA and MoE: full-width deepseek-v2-lite-16b through the decode engine
     launches.update(run_deepseek_phase(torch))
     log(f"deepseek phase done at {phase_s()}")
+
+    # the last serving families, on the card that deepseek left empty
+    launches.update(run_granite_phase(torch))
+    log(f"granite phase done at {phase_s()}")
+    run_hymba_phase(torch)
+    log(f"hymba phase done at {phase_s()}")
 
     entries = []
     for name, entry in kernels.items():

@@ -9,7 +9,8 @@ encoder stack beside ``frame_norm``), converts the decoder's unscanned
 expert axis (``w_up (E, d, f)``) and keeps every layout as it is
 (``wq (d, H, hd)``, ``wo (Hq, hd, d)``, ``embed (padded_vocab, d)``,
 ``lm_head (d, padded_vocab)``, ``in_proj (d, 2 d_in)``), so nothing is
-transposed.
+transposed.  A hybrid layer carries both blocks, ``attn`` and ``ssm``, and
+their output norms, ``attn_out_norm`` and ``ssm_out_norm``.
 Weights are cast once to the activation dtype; norm parameters and the
 Mamba block's conv_w, conv_b, dt_bias, A_log and D stay fp32, as the
 reference holds them in fp32 and casts each to fp32 at use.
@@ -26,7 +27,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import check_supported
 
 _NORMS = ("ln1", "ln2", "ln_cross", "final_norm", "frame_norm", "q_norm",
-          "k_norm", "kv_norm")
+          "k_norm", "kv_norm", "attn_out_norm", "ssm_out_norm")
 _SSM_FP32 = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
 
 

@@ -1,10 +1,12 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the architectures the port serves are registered (the dense GQA
-decoders, the attention-free Mamba decoder, the seamless-m4t
-encoder-decoder and the MoE decoders: deepseek-v2-lite with MLA, and
-arctic, whose full size does not fit one card and runs reduced only); any
-other arch id raises ``KeyError``.
+Every architecture of the reference is registered: the dense GQA
+decoders (minitron, qwen2.5, granite with multi-query attention, qwen1.5
+with QKV bias, chameleon with QK-norm), the attention-free Mamba decoder
+(falcon-mamba), the hybrid attention-beside-Mamba decoder (hymba), the
+seamless-m4t encoder-decoder and the MoE decoders (deepseek-v2-lite with
+MLA, and arctic).  arctic and qwen1.5 do not fit one card at full size and
+run reduced only.  Any other arch id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ _MODULES: Dict[str, str] = {
     "seamless-m4t-medium": "seamless_m4t_medium",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "arctic-480b": "arctic_480b",
+    "granite-34b": "granite_34b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "chameleon-34b": "chameleon_34b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_MODULES)

@@ -10,31 +10,38 @@
 // and buy nothing: the products stay on the CUDA cores, and the design is
 // about keeping enough loads in flight.
 //
-// One launch.  The work items are (slot, chunk of KV rows, KV head) for
-// the chunks that hold rows to read, packed at the front of the grid: the
-// grid is sized from the host's T (the engine's bounded cache view) and
-// the wrapper's chunk, never from the lengths, and the blocks past the
-// live work exit at once.  Each block reads every slot's length and live
-// flag into shared memory (one load each, in parallel), clamps the
-// lengths to [1, T], clips the chunks to [window start, length), and
+// Query-head groups.  A block holds at most 8 query heads in registers
+// (q and the accumulator: 2 x 8 x E fp32 per lane).  A larger G (48 at
+// granite's multi-query widths) is cut into `groups` groups of `gsize`
+// heads (the last may be shorter), each its own work item: the blocks of
+// one (slot, chunk, KV head) read the same KV rows, and every read after
+// the first comes from the L2.
+//
+// One launch.  The work items are (slot, chunk of KV rows, KV head, head
+// group) for the chunks that hold rows to read, packed at the front of the
+// grid: the grid is sized from the host's T (the engine's bounded cache
+// view) and the wrapper's chunk, never from the lengths, and the blocks
+// past the live work exit at once.  Each block reads every slot's length
+// and live flag into shared memory (one load each, in parallel), clamps
+// the lengths to [1, T], clips the chunks to [window start, length), and
 // finds its item by a prefix sum.  A dead slot is one item per KV head
-// that writes exact zeros and reads no KV.
+// and head group that writes exact zeros and reads no KV.
 //
 // Inside a block, a row of D values is spread over a group of lanes, 16
 // bytes each, so a warp covers 32 / lanes-per-row rows at once; each such
 // row group is an independent stream of rows with its own online softmax.
 // Every stream loads U rows of K and V ahead of its arithmetic (U 16-byte
-// loads of each in flight per lane), holds the G query heads in registers
-// and sums each score with warp shuffles: no shared memory and no barrier
-// in the loop.  The block then merges its streams through shared memory
-// and writes its chunk's partial (m, l and the unnormalised fp32
+// loads of each in flight per lane), holds its group's query heads in
+// registers and sums each score with warp shuffles: no shared memory and no
+// barrier in the loop.  The block then merges its streams through shared
+// memory and writes its chunk's partial (m, l and the unnormalised fp32
 // accumulator) per query head.
 //
-// Combine: the blocks of one (slot, KV head) take a ticket from a counter
-// after writing their partials; the last one merges the chunks with
-// weights exp(m_c - M), divides by l only where l > 0, writes the output
-// and resets the counter for the next call.  The counters live in a
-// buffer the wrapper keeps per device and stream, zeroed once.
+// Combine: the blocks of one (slot, KV head, head group) take a ticket
+// from a counter after writing their partials; the last one merges the
+// chunks with weights exp(m_c - M), divides by l only where l > 0, writes
+// the output and resets the counter for the next call.  The counters
+// live in a buffer the wrapper keeps per device and stream, zeroed once.
 //
 // Semantics follow the reference: scores in fp32, logit cap before the
 // mask, mask pos < len and (window: pos > len-1-window unless global),
@@ -56,9 +63,10 @@ struct DecodeArgs {
   const void* live;         // null: every row is live
   float* ml;                // (B, Hq, n_split, 2) partial max and sum
   float* acc;               // (B, Hq, n_split, D) partial accumulators
-  int* tickets;             // (B, Hkv) zero between calls
+  int* tickets;             // (B, Hkv, groups) zero between calls
   void* out;                // (B, Hq, D)
   int B, Hq, Hkv, D, T, chunk, n_split, lanes;   // lanes per KV row
+  int groups, gsize;        // query-head groups per KV head, heads each
   long long q_sb, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
@@ -126,7 +134,7 @@ __device__ inline void slot_chunks(const DecodeArgs& a, int len, int& c_lo,
   c_hi = (len + a.chunk - 1) / a.chunk;
 }
 
-// GM: the largest query group this instance holds (G <= GM)
+// GM: the largest head group this instance holds (gsize <= GM)
 template <typename T, int GM>
 __global__ void __launch_bounds__(kThreads)
 ragged_decode_split(DecodeArgs a) {
@@ -153,9 +161,15 @@ ragged_decode_split(DecodeArgs a) {
   }
   __syncthreads();
 
-  // this block's item: the (item / Hkv)-th chunk over the slots in order
-  const int hk = blockIdx.x % a.Hkv;
-  int item = blockIdx.x / a.Hkv;
+  // this block's item: (KV head, head group) from the low digits, then the
+  // (item)-th chunk over the slots in order
+  const int units = a.Hkv * a.groups;
+  const int unit = blockIdx.x % units;
+  const int hk = unit / a.groups;
+  const int grp = unit - hk * a.groups;
+  const int Gb = min(a.gsize, G - grp * a.gsize);   // this group's heads
+  const int h0 = hk * G + grp * a.gsize;            // its first query head
+  int item = blockIdx.x / units;
   int b = 0, c_lo = 0, c_hi = 0;
   for (; b < a.B; ++b) {
     slot_chunks(a, s_len[b], c_lo, c_hi);
@@ -165,10 +179,10 @@ ragged_decode_split(DecodeArgs a) {
   }
   if (b == a.B) return;                      // past the live work
   const int len = s_len[b];
-  const long long head0 = static_cast<long long>(b) * a.Hq + hk * G;
+  const long long head0 = static_cast<long long>(b) * a.Hq + h0;
   if (len < 0) {                             // dead slot: exact zeros
     T* o = static_cast<T*>(a.out) + head0 * a.D;
-    for (int i = tid; i < G * a.D; i += kThreads) o[i] = from_f32<T>(0.f);
+    for (int i = tid; i < Gb * a.D; i += kThreads) o[i] = from_f32<T>(0.f);
     return;
   }
   const int split = c_lo + item;
@@ -181,12 +195,12 @@ ragged_decode_split(DecodeArgs a) {
 
   float qv[GM][E];
   const char* qb = static_cast<const char*>(a.q) +
-                   (b * a.q_sb + static_cast<long long>(hk) * G * a.q_sh) * sizeof(T) +
+                   (b * a.q_sb + static_cast<long long>(h0) * a.q_sh) * sizeof(T) +
                    c * 16;
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (g < G && on) w = __ldg(reinterpret_cast<const uint4*>(qb + g * a.q_sh * sizeof(T)));
+    if (g < Gb && on) w = __ldg(reinterpret_cast<const uint4*>(qb + g * a.q_sh * sizeof(T)));
     Vec<T>::unpack(w, qv[g]);
   }
 
@@ -285,7 +299,7 @@ ragged_decode_split(DecodeArgs a) {
   float* s_acc = s_l + streams * GM;          // streams x GM x D
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (g < G) {
+    if (g < Gb) {
       if (c == 0) {
         s_m[stream * GM + g] = m[g];
         s_l[stream * GM + g] = l[g];
@@ -298,7 +312,7 @@ ragged_decode_split(DecodeArgs a) {
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * a.D; i += kThreads) {
+  for (int i = tid; i < Gb * a.D; i += kThreads) {
     const int g = i / a.D;
     const int d = i - g * a.D;
     float mx = kNegInf;
@@ -317,13 +331,16 @@ ragged_decode_split(DecodeArgs a) {
     }
   }
 
-  // ticket: the last block of this (slot, KV head) merges the chunks
+  // ticket: the last block of this (slot, KV head, head group) merges the
+  // chunks
   __shared__ int s_last;
+  int* ticket =
+      a.tickets + (static_cast<long long>(b) * a.Hkv + hk) * a.groups + grp;
   __threadfence();
   __syncthreads();
   if (tid == 0) {
     const int n = c_hi - c_lo;
-    s_last = atomicAdd(a.tickets + b * a.Hkv + hk, 1) == n - 1;
+    s_last = atomicAdd(ticket, 1) == n - 1;
   }
   __syncthreads();
   if (!s_last) return;
@@ -331,7 +348,7 @@ ragged_decode_split(DecodeArgs a) {
   const int n = c_hi - c_lo;
   float* s_w = work;                          // GM x n weights
   float* s_sum = work + GM * n;               // GM merged sums
-  for (int g = warp; g < G; g += kWarps) {
+  for (int g = warp; g < Gb; g += kWarps) {
     const float* gml = a.ml + ((head0 + g) * a.n_split + c_lo) * 2;
     float mx = kNegInf;
     for (int i = lane; i < n; i += 32) mx = fmaxf(mx, __ldcg(gml + 2 * i));
@@ -347,7 +364,7 @@ ragged_decode_split(DecodeArgs a) {
   }
   __syncthreads();
   T* o = static_cast<T*>(a.out) + head0 * a.D;
-  for (int i = tid; i < G * a.D; i += kThreads) {
+  for (int i = tid; i < Gb * a.D; i += kThreads) {
     const int g = i / a.D;
     const int d = i - g * a.D;
     const float* src = a.acc + ((head0 + g) * a.n_split + c_lo) * a.D + d;
@@ -358,7 +375,7 @@ ragged_decode_split(DecodeArgs a) {
     const float l = s_sum[g];
     o[i] = from_f32<T>(val / (l > 0.f ? l : 1.f));
   }
-  if (tid == 0) a.tickets[b * a.Hkv + hk] = 0;   // ready for the next call
+  if (tid == 0) *ticket = 0;                 // ready for the next call
 }
 
 
@@ -371,20 +388,26 @@ cudaError_t launch_split(const DecodeArgs& a, cudaStream_t stream) {
   auto kernel = ragged_decode_split<T, GM>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const long long blocks = static_cast<long long>(a.B) * a.Hkv * a.n_split;
+  const long long blocks =
+      static_cast<long long>(a.B) * a.Hkv * a.groups * a.n_split;
   kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
+  // the groups cover the G heads, and every group holds at least one
   const int G = a.Hq / a.Hkv;
-  if (G == 1) return launch_split<T, 1>(a, stream);
-  if (G == 2) return launch_split<T, 2>(a, stream);
-  if (G == 3) return launch_split<T, 3>(a, stream);
-  if (G == 4) return launch_split<T, 4>(a, stream);
-  if (G <= 8) return launch_split<T, 8>(a, stream);
-  return cudaErrorInvalidValue;
+  const int n = a.gsize;
+  if (n < 1 || n > 8 || a.groups < 1 || a.groups * n < G ||
+      (a.groups - 1) * n >= G) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 1) return launch_split<T, 1>(a, stream);
+  if (n == 2) return launch_split<T, 2>(a, stream);
+  if (n == 3) return launch_split<T, 3>(a, stream);
+  if (n == 4) return launch_split<T, 4>(a, stream);
+  return launch_split<T, 8>(a, stream);
 }
 
 }  // namespace
@@ -395,14 +418,17 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
 // len_value) or (B,) integers of len_size bytes at stride len_stride; live:
 // null (all live) or (B,) of live_size bytes at stride live_stride; ml and
 // acc: fp32 scratch of (B, Hq, n_split, 2) and (B, Hq, n_split, D);
-// tickets: (B, Hkv) int32, zero on entry and on return; out: contiguous
-// (B, Hq, D).  chunk * n_split >= T; lanes is a power of two >= D * elem /
-// 16 and <= 32.  Returns cudaGetLastError() after the launch.
+// tickets: (B, Hkv, groups) int32, zero on entry and on return; out:
+// contiguous (B, Hq, D).  chunk * n_split >= T; lanes is a power of two >=
+// D * elem / 16 and <= 32; the G = Hq / Hkv heads of a KV head are cut into
+// `groups` groups of `gsize` <= 8 (the last one shorter where gsize does
+// not divide G).  Returns cudaGetLastError() after the launch.
 extern "C" int ragged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* live, void* ml, void* acc, void* tickets, void* out, int B,
     int Hq, int Hkv,
-    int D, int T, int chunk, int n_split, int lanes, long long q_sb,
+    int D, int T, int chunk, int n_split, int lanes, int groups, int gsize,
+    long long q_sb,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, long long len_stride,
     int len_size, int len_value, long long live_stride, int live_size,
@@ -411,7 +437,8 @@ extern "C" int ragged_decode_attention(
   DecodeArgs a{q, k, v, lengths, live, static_cast<float*>(ml),
                static_cast<float*>(acc), static_cast<int*>(tickets), out, B,
                Hq, Hkv, D, T, chunk,
-               n_split, lanes, q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
+               n_split, lanes, groups, gsize, q_sb, q_sh, k_sb, k_st,
+               k_sh, v_sb, v_st,
                v_sh, len_stride, live_stride, len_size, len_value, live_size,
                window, glob, logit_cap, 1.0f / sqrtf(static_cast<float>(D))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -2,22 +2,24 @@
 
 Replaces the Pallas kernel ``src/repro/kernels/ragged_decode/kernel.py``
 (``ragged_decode_kernel`` / ``_decode_kernel``), called on every decode step
-from ``gqa_step``.  On the H100 the kernel is bound by the KV bytes of the
-live rows.  It splits each slot's KV rows into chunks, one block per
-(slot, chunk, KV head) that holds rows to read, so the serving shape fills
-the card; the last block of each (slot, KV head) merges the chunks
+from ``gqa_step``, for any query group G = Hq / Hkv, as the Pallas block
+takes.  On the H100 the kernel is bound by the KV bytes of the live rows.
+It splits each slot's KV rows into chunks and a KV head's G query heads
+into groups of at most 8 (``head_groups``), one block per (slot, chunk, KV
+head, head group) that holds rows to read, so the serving shape fills the
+card; the last block of each (slot, KV head, head group) merges the chunks
 (csrc/ragged_decode.cu has the design).  ``split_plan`` picks the chunk
-and the grid from the host's ``T`` alone, and ``ragged_decode_split_ref``
-in ``ref.py`` is the same split and merge in plain PyTorch.
+and the grid from host ints alone, and ``ragged_decode_split_ref`` in
+``ref.py`` is the same split and merge in plain PyTorch.
 
 A call on the card is one launch and one ``torch.empty`` for the output
 and the fp32 scratch: the kernel reads ``lengths`` (int32 or int64,
 clamped to [1, T] on the card) and ``live`` (bool or integer) as the
-engine hands them over, and keeps its merge tickets in a buffer zeroed
-once per device and stream (a CUDA graph's capture gets one of its own,
-``use_tickets``).  A CPU tensor takes the plain version
-(``ref.py``); a CUDA tensor launches the kernel or raises.  ``launches``
-counts wrapper calls that launched the kernel.
+engine hands them over, and keeps its merge tickets, ``ticket_count`` of
+them, in a buffer zeroed once per device and stream (a CUDA graph's
+capture gets one of its own, ``use_tickets``).  A CPU tensor takes the
+plain version (``ref.py``); a CUDA tensor launches the kernel or raises.
+``launches`` counts wrapper calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -29,14 +31,14 @@ import numbers
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ragged_decode.ref import ragged_decode_attention_ref
+from repro_torch.kernels.ragged_decode.ref import (head_groups,
+                                                   ragged_decode_attention_ref)
 
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LEN_SIZES = {torch.int32: 4, torch.int64: 8}       # bytes the kernel reads
 _LIVE_SIZES = {**_LEN_SIZES, torch.bool: 1, torch.uint8: 1, torch.int8: 1}
-_MAX_G = 8                    # query heads per KV head one block holds
 _MAX_ROW_BYTES = 512          # one KV row over at most 32 lanes of 16 bytes
 _BLOCKS_PER_SM = 8            # split target: launched blocks per SM
 _MIN_CHUNK = 32               # KV rows per chunk, a multiple of this
@@ -47,23 +49,30 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 def _fn():
     fn = _build.load_library().ragged_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 9 + [_I] * 8 + [_L] * 9 + [_I, _I, _L, _I, _I, _I,
-                                                     _F, _I, _P]
+    fn.argtypes = [_P] * 9 + [_I] * 10 + [_L] * 9 + [_I, _I, _L, _I, _I,
+                                                      _I, _F, _I, _P]
     return fn
 
 
-def split_plan(B: int, Hkv: int, T: int, sms: int):
-    """(chunk, n_split) for a (B, T, Hkv, D) cache view on a card of
-    ``sms`` SMs: chunks of a multiple of 32 rows, as many as give about
-    ``_BLOCKS_PER_SM`` blocks per SM over the B * Hkv (slot, KV head)
-    pairs.  Depends on host ints only, never on the lengths."""
-    per_block = -(-T * B * Hkv // (_BLOCKS_PER_SM * sms))
+def ticket_count(B: int, Hq: int, Hkv: int) -> int:
+    """Merge tickets one launch over B slots takes: one per (slot, KV
+    head, head group)."""
+    return B * Hkv * head_groups(Hq // Hkv)[0]
+
+
+def split_plan(B: int, Hkv: int, T: int, sms: int, groups: int = 1):
+    """(chunk, n_split) for a (B, T, Hkv, D) cache view whose KV heads
+    each have ``groups`` head groups, on a card of ``sms`` SMs: chunks of
+    a multiple of 32 rows, as many as give about ``_BLOCKS_PER_SM`` blocks
+    per SM over the B * Hkv * groups (slot, KV head, head group) units.
+    Depends on host ints only, never on the lengths."""
+    per_block = -(-T * B * Hkv * groups // (_BLOCKS_PER_SM * sms))
     chunk = max(_MIN_CHUNK, -(-per_block // _MIN_CHUNK) * _MIN_CHUNK)
     return chunk, -(-T // chunk)
 
 
-# per (device, stream): the kernel's (slot, KV head) tickets, int32 zeros
-# that every launch leaves at zero
+# per (device, stream): the kernel's (slot, KV head, head group) tickets,
+# int32 zeros that every launch leaves at zero
 _tickets: dict = {}
 
 
@@ -114,9 +123,8 @@ def _check(q1, k, v):
     if q1.dtype not in _DTYPES or not (q1.dtype == k.dtype == v.dtype):
         raise TypeError(f"kernel takes float32 or bfloat16 q, k, v of one "
                         f"dtype, got {q1.dtype}, {k.dtype}, {v.dtype}")
-    if Hq % Hkv or Hq // Hkv > _MAX_G:
-        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv} or has "
-                         f"more than {_MAX_G} query heads per KV head")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     row = D * q1.element_size()
     if row % 16 or row > _MAX_ROW_BYTES:
         raise ValueError(f"head_dim {D} of {q1.dtype} is not a multiple of "
@@ -174,21 +182,26 @@ def ragged_decode_attention(q, k, v, lengths, *, window: int = 0,
         live_t, live_size, live_stride = _per_row(live, B, dev, _LIVE_SIZES,
                                                   "live")
         live_ptr = live_t.data_ptr()
-    chunk, n_split = split_plan(B, Hkv, T, _build.sm_count(dev.index or 0))
+    groups, gsize = head_groups(Hq // Hkv)
+    chunk, n_split = split_plan(B, Hkv, T, _build.sm_count(dev.index or 0),
+                                groups)
     es = q.element_size()
     lanes = 1 << (D * es // 16 - 1).bit_length()   # power of two >= segments
-    # one allocation: the output, then the fp32 partials (m, l) and acc
+    # one allocation: the output, then the fp32 partials (m, l) and acc.
+    # split_plan counts the head groups, so B * Hkv * groups * n_split stays
+    # near _BLOCKS_PER_SM blocks per SM and the partials near 4 * 8 * sms *
+    # gsize * (2 + D) bytes whatever Hq (4.4 MB at D 128 on 132 SMs)
     out_bytes = -(-B * Hq * D * es // 256) * 256
     parts = B * Hq * n_split
     buf = torch.empty(out_bytes + 4 * parts * (2 + D), dtype=torch.uint8,
                       device=dev)
     base = buf.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = _ticket_buffer(dev, stream, B * Hkv)
+    tickets = _ticket_buffer(dev, stream, ticket_count(B, Hq, Hkv))
     err = _fn()(q1.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, live_ptr,
                 base + out_bytes, base + out_bytes + 8 * parts,
                 tickets.data_ptr(), base,
-                B, Hq, Hkv, D, T, chunk, n_split, lanes,
+                B, Hq, Hkv, D, T, chunk, n_split, lanes, groups, gsize,
                 q1.stride(0), q1.stride(1),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),

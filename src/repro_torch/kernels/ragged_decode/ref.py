@@ -8,9 +8,10 @@ and a ``live`` row mask whose dead rows return exact zeros.  The kernel's
 wrapper takes it for CPU tensors.
 
 ``ragged_decode_split_ref`` is the CUDA kernel's split-KV algorithm in
-plain PyTorch, its executable spec: per chunk of KV rows a partial
-(max, sum, unnormalised accumulator), an empty chunk as (NEG_INF, 0, 0),
-then the merge.  Nothing on the serving path calls it.
+plain PyTorch, its executable spec: a KV head's query heads cut into the
+kernel's head groups (``head_groups``), and per group and chunk of KV rows
+a partial (max, sum, unnormalised accumulator), an empty chunk as
+(NEG_INF, 0, 0), then the merge.  Nothing on the serving path calls it.
 """
 from __future__ import annotations
 
@@ -19,6 +20,16 @@ import math
 import torch
 
 from repro_torch.models.layers import NEG_INF, decode_attention
+
+GROUP = 8                     # query heads one kernel block holds at most
+
+
+def head_groups(G: int):
+    """(groups, gsize): the G query heads of a KV head cut into the fewest
+    groups of at most ``GROUP`` heads, as even as they come (the last
+    group the shorter): 48 -> 6 x 8, 9 -> 5 + 4, 5 -> 1 x 5."""
+    groups = -(-G // GROUP)
+    return groups, -(-G // groups)
 
 
 def ragged_decode_attention_ref(q, k, v, lengths, *, window: int = 0,
@@ -77,16 +88,28 @@ def ragged_decode_partials(q, k, v, lengths, *, chunk: int, window: int = 0,
 def ragged_decode_split_ref(q, k, v, lengths, *, chunk: int, window: int = 0,
                             logit_cap: float = 0.0, is_global=None,
                             live=None):
-    """The split kernel's result: its partials merged with weights
-    exp(m_i - M) over the non-empty chunks, divided by l only where l > 0,
-    dead rows exact zeros -> (B, 1, Hq, D) in q's dtype."""
-    m, l, acc = ragged_decode_partials(
-        q, k, v, lengths, chunk=chunk, window=window, logit_cap=logit_cap,
-        is_global=is_global, live=live)
-    full = l > 0
-    M = torch.where(full, m, NEG_INF).amax(dim=-1, keepdim=True)
-    w = torch.where(full, torch.exp(m - M), 0.0)
-    L = (w * l).sum(dim=-1)
-    out = (w[..., None] * acc).sum(dim=-2)
-    out = out / torch.where(L > 0, L, 1.0)[..., None]
-    return out[:, None].to(q.dtype)
+    """The split kernel's result: per head group of each KV head, its
+    partials merged with weights exp(m_i - M) over the non-empty chunks,
+    divided by l only where l > 0, dead rows exact zeros -> (B, 1, Hq, D)
+    in q's dtype."""
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    groups, gsize = head_groups(G)
+    qg = q.reshape(B, 1, Hkv, G, D)
+    outs = []
+    for i in range(groups):
+        heads = qg[:, :, :, i * gsize:min(G, (i + 1) * gsize)]
+        n = heads.shape[3]
+        m, l, acc = ragged_decode_partials(
+            heads.reshape(B, 1, Hkv * n, D), k, v, lengths, chunk=chunk,
+            window=window, logit_cap=logit_cap, is_global=is_global,
+            live=live)
+        full = l > 0
+        M = torch.where(full, m, NEG_INF).amax(dim=-1, keepdim=True)
+        w = torch.where(full, torch.exp(m - M), 0.0)
+        L = (w * l).sum(dim=-1)
+        out = (w[..., None] * acc).sum(dim=-2)
+        out = out / torch.where(L > 0, L, 1.0)[..., None]
+        outs.append(out.reshape(B, Hkv, n, D))
+    return torch.cat(outs, dim=2).reshape(B, 1, Hq, D).to(q.dtype)

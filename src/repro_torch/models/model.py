@@ -3,8 +3,8 @@
 ``Model(cfg, device)`` gives ``init(generator)``, ``init_cache``,
 ``prefill``, ``decode_step`` and ``encode`` over plain parameter dicts,
 for dense and MoE decoders (GQA or MLA attention, with DeepSeek's
-first-k-dense prologue), attention-free Mamba decoders and dense GQA
-encoder-decoders (whose audio frontend is a stub: token embeddings or
+first-k-dense prologue), attention-free Mamba decoders, hybrid decoders
+(attention beside Mamba in every layer) and dense GQA encoder-decoders (whose audio frontend is a stub: token embeddings or
 precomputed frame embeddings enter the encoder through ``frame_norm``).
 Weights are cast once, at load, to the
 activation dtype: the same values as the reference's per-use
@@ -27,8 +27,8 @@ PyTree = Any
 
 
 class Model:
-    """Decoder-only model (dense or MoE, GQA or MLA, or attention-free
-    Mamba) or dense encoder-decoder on one device."""
+    """Decoder-only model (dense or MoE, GQA or MLA, attention-free Mamba
+    or hybrid) or dense encoder-decoder on one device."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         T.check_supported(cfg)

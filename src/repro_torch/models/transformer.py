@@ -1,7 +1,7 @@
 """Transformer stacks of the port (``repro.models.transformer``): dense
-GQA, MoE (with MLA or GQA attention) and attention-free Mamba decoders,
-and the encoder-decoder's bidirectional encoder and cross-attending
-decoder.
+GQA, MoE (with MLA or GQA attention), attention-free Mamba and hybrid
+(attention beside Mamba in every layer: hymba) decoders, and the
+encoder-decoder's bidirectional encoder and cross-attending decoder.
 
 The reference scans one stacked layer body with ``lax.scan``; here a
 Python loop runs over a list of per-layer parameter dicts,
@@ -13,12 +13,17 @@ the reference's structure, ``{"prologue": [per-layer caches], "scanned":
 "pos"}``, with stacked scanned leaves (layer axis 0, slot axis 1: KV (L,
 B, T, Hkv, D), MLA latents (L, B, T, R) and (L, B, T, Dr), conv window
 (L, B, w-1, d_in), state (L, B, d_in, N) fp32) and slot-leading prologue
-leaves, all updated IN PLACE layer by layer.  An enc-dec decoder's cache
-adds ``scanned["cross"] = {"k", "v"}`` (L, B, max_src, Hkv, D), the
-reference's per-layer ``cross_k`` and ``cross_v``.
+leaves, all updated IN PLACE layer by layer.  A hybrid layer's cache holds
+both ``attn`` and ``ssm``.  An enc-dec decoder's cache adds
+``scanned["cross"] = {"k", "v"}`` (L, B, max_src, Hkv, D), the reference's
+per-layer ``cross_k`` and ``cross_v``.
 
-Hybrid stacks (attention beside SSM) raise ``NotImplementedError``: they
-belong to a later slice of the port.
+A hybrid layer (``cfg.hybrid_parallel``) runs GQA attention and a Mamba
+block on the same normed input and adds ``0.5 * (rmsnorm(a) +
+rmsnorm(s))`` to the residual, each output under its own RMSNorm
+(``attn_out_norm``, ``ssm_out_norm``); sliding-window layers but the
+``global_attn_layers`` ones.  Without a cache its Mamba block folds the
+sequence from a zero state, as an SSM layer's does.
 """
 from __future__ import annotations
 
@@ -36,20 +41,14 @@ PyTree = Any
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the stacks the port does not cover yet: it serves dense
-    and MoE decoders (GQA or MLA attention), attention-free SSM (Mamba)
-    decoders and dense GQA encoder-decoders."""
-    later = [("hybrid_parallel", cfg.hybrid_parallel, "the hybrid SSM slice"),
-             ("ssm beside attention",
-              cfg.ssm is not None and not cfg.attention_free,
-              "the hybrid SSM slice"),
-             ("ssm encoder", cfg.is_encdec and cfg.ssm is not None,
-              "no slice: the reference's enc-dec archs are dense")]
-    for field, present, where in later:
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: {field} is not ported yet; it belongs to "
-                f"{where} of the PyTorch port")
+    """Raise for the stacks the port does not cover: it serves dense and
+    MoE decoders (GQA or MLA attention), attention-free SSM (Mamba) and
+    hybrid decoders, and dense GQA encoder-decoders.  An SSM encoder is no
+    reference arch."""
+    if cfg.is_encdec and cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: an ssm encoder belongs to no slice of the "
+            "PyTorch port: the reference's enc-dec archs are dense")
 
 
 def norm_init(kind: str, dim: int, device) -> Dict[str, torch.Tensor]:
@@ -67,7 +66,12 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device,
     the MoE (prologue layers)."""
     kw = dict(dtype=dtype, device=device)
     p: Dict[str, PyTree] = {"ln1": norm_init(cfg.norm, cfg.d_model, device)}
-    if cfg.ssm is not None:
+    if cfg.hybrid_parallel:
+        p["attn"] = A.gqa_init(gen, cfg, **kw)
+        p["ssm"] = S.mamba_init(gen, cfg, **kw)
+        p["attn_out_norm"] = norm_init("rmsnorm", cfg.d_model, device)
+        p["ssm_out_norm"] = norm_init("rmsnorm", cfg.d_model, device)
+    elif cfg.ssm is not None:
         p["ssm"] = S.mamba_init(gen, cfg, **kw)
     elif cfg.mla is not None:
         p["attn"] = A.mla_init(gen, cfg, **kw)
@@ -101,16 +105,35 @@ def _ffn(p, cfg: ModelConfig, x, moe_dispatch: str = "einsum"):
     return x
 
 
+def _hybrid(p, cfg: ModelConfig, a, s):
+    """The hybrid mixer's output from its attention and Mamba outputs:
+    0.5 (rmsnorm(a) + rmsnorm(s))."""
+    a = L.apply_norm("rmsnorm", p["attn_out_norm"], a, cfg.norm_eps)
+    s = L.apply_norm("rmsnorm", p["ssm_out_norm"], s, cfg.norm_eps)
+    return 0.5 * (a + s)
+
+
+def _ssm_fwd(p, cfg: ModelConfig, h, use_kernels: bool):
+    """A Mamba block over a whole sequence from a zero state, as its
+    prefill folds it."""
+    scratch = S.mamba_cache_init(cfg, h.shape[0], h.dtype, h.device)
+    return S.mamba_prefill(p["ssm"], cfg, h, scratch,
+                           use_kernels=use_kernels)[0]
+
+
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, causal: bool,
                is_global: bool, kv_len, use_kernels: bool,
                moe_dispatch: str = "einsum"):
     """Residual layer without a cache (encoders, embedding stacks).  An SSM
     layer folds the sequence from a zero state, as its prefill does."""
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    if "ssm" in p:
-        scratch = S.mamba_cache_init(cfg, x.shape[0], x.dtype, x.device)
-        y, _ = S.mamba_prefill(p["ssm"], cfg, h, scratch,
-                               use_kernels=use_kernels)
+    if cfg.hybrid_parallel:
+        a = A.gqa_fwd(p["attn"], cfg, h, positions, causal=causal,
+                      is_global=is_global, kv_len=kv_len,
+                      use_kernels=use_kernels)
+        y = _hybrid(p, cfg, a, _ssm_fwd(p, cfg, h, use_kernels))
+    elif "ssm" in p:
+        y = _ssm_fwd(p, cfg, h, use_kernels)
     elif cfg.mla is not None:
         y = A.mla_fwd(p["attn"], cfg, h, positions, use_kernels=use_kernels)
     else:
@@ -132,7 +155,14 @@ def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
                    is_global: bool, use_kernels: bool, enc_out=None,
                    src_len=None, moe_dispatch: str = "einsum"):
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    if "ssm" in p:
+    if cfg.hybrid_parallel:
+        a, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
+                                         cache["attn"], is_global=is_global,
+                                         use_kernels=use_kernels)
+        s, cache["ssm"] = S.mamba_prefill(p["ssm"], cfg, h, cache["ssm"],
+                                          use_kernels=use_kernels)
+        y = _hybrid(p, cfg, a, s)
+    elif "ssm" in p:
         y, cache["ssm"] = S.mamba_prefill(p["ssm"], cfg, h, cache["ssm"],
                                           use_kernels=use_kernels)
     elif cfg.mla is not None:
@@ -158,7 +188,15 @@ def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
                 src_len=None, src_bound: Optional[int] = None,
                 moe_dispatch: str = "einsum"):
     h = L.apply_norm(cfg.norm, p["ln1"], x1, cfg.norm_eps)
-    if "ssm" in p:
+    if cfg.hybrid_parallel:
+        a, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
+                                      is_global=is_global,
+                                      use_kernels=use_kernels,
+                                      kv_bound=kv_bound, live=live)
+        s, cache["ssm"] = S.mamba_step(p["ssm"], cfg, h, cache["ssm"],
+                                       use_kernels=use_kernels, live=live)
+        y = _hybrid(p, cfg, a, s)
+    elif "ssm" in p:
         y, cache["ssm"] = S.mamba_step(p["ssm"], cfg, h, cache["ssm"],
                                        use_kernels=use_kernels, live=live)
     elif cfg.mla is not None:
@@ -195,7 +233,10 @@ def decoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
 def _layer_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                       device, cross_src: int):
     """One layer's cache, slot axis 0."""
-    if cfg.ssm is not None:
+    if cfg.hybrid_parallel:
+        c = {"attn": A.gqa_cache_init(cfg, batch, max_len, dtype, device),
+             "ssm": S.mamba_cache_init(cfg, batch, dtype, device)}
+    elif cfg.ssm is not None:
         c = {"ssm": S.mamba_cache_init(cfg, batch, dtype, device)}
     elif cfg.mla is not None:
         c = {"attn": A.mla_cache_init(cfg, batch, max_len, dtype, device)}

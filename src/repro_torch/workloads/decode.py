@@ -734,9 +734,12 @@ class DecodeEngine(EngineTelemetry):
         side = self._side
         saved = [t.clone() for t in self._step_state(pool)]
         tickets = None
-        if self.cfg.use_kernels and not self.model.cfg.attention_free:
+        mc = self.model.cfg
+        if self.cfg.use_kernels and not mc.attention_free:
+            # the wrapper's count: one ticket per (slot, KV head, head group)
             tickets = torch.zeros(
-                max(64, pool.slots * self.model.cfg.num_kv_heads),
+                max(64, ragged_ops.ticket_count(pool.slots, mc.num_heads,
+                                                mc.num_kv_heads)),
                 dtype=torch.int32, device=self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):

@@ -245,9 +245,12 @@ def test_check_supported_takes_mla_and_moe():
     for arch in ARCHS:
         check_supported(get_config(arch))
         check_supported(get_reduced(arch))
+    check_supported(dataclasses.replace(get_reduced(ARCHS[0]),
+                                        hybrid_parallel=True))
     with pytest.raises(NotImplementedError, match="slice"):
         check_supported(dataclasses.replace(get_reduced(ARCHS[0]),
-                                            hybrid_parallel=True))
+                                            encoder_layers=2,
+                                            ssm=get_reduced("hymba-1.5b").ssm))
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from repro_torch.workloads import (DecodeEngine, EncDecEngine,  # noqa: E402
 from repro_torch.workloads.compile_cache import GraphStep  # noqa: E402
 
 ARCHS = ("minitron-4b", "qwen2.5-32b", "falcon-mamba-7b",
-         "deepseek-v2-lite-16b")
+         "deepseek-v2-lite-16b", "granite-34b", "hymba-1.5b")
 
 
 @pytest.fixture
@@ -123,6 +123,64 @@ def test_mla_moe_engine_kernel_path_matches_plain_path(cuda):
         assert fa.launches - fa0 == (cfg.num_layers * 5 if kern else 0)
     assert streams[True] == streams[False]
     assert all(len(s) == 24 for s in streams[True])
+
+
+# granite at its own query group, narrow (48 heads of 16 on 1 KV head),
+# and hymba-reduced (attention beside Mamba, window 8, layer 0 global)
+NEW_FAMILIES = {"granite-g48": ("granite-34b", dict(num_heads=48,
+                                                    num_kv_heads=1,
+                                                    head_dim=16)),
+                "hymba": ("hymba-1.5b", {})}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", NEW_FAMILIES)
+def test_new_families_kernel_path_matches_plain_path(cuda, family,
+                                                     monkeypatch):
+    """fp32 through ``DecodeEngine`` with 12 slots: the kernel path's
+    decode steps as graphs (their ticket buffers sized by the wrapper's
+    count, 12 x 6 = 72 for G = 48) and eagerly, and the plain path; the
+    three runs' streams are equal, every layer of every prefill and step
+    launched its kernels (hymba: flash and the scan, ragged decode and the
+    Mamba step), and every ticket reads zero after."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_scan import ops as ms
+
+    arch, kw = NEW_FAMILIES[family]
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32", **kw)
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    hybrid = cfg.hybrid_parallel
+    L, n, new = cfg.num_layers, 14, 20
+    streams = []
+    for kern, graphs in ((True, True), (True, False), (False, False)):
+        monkeypatch.setattr(D, "graphs", graphs)
+        eng = DecodeEngine(model, params, ServeConfig(
+            max_slots=12, max_len=128, eos_id=-1, use_kernels=kern,
+            kv_page_rows=8))
+        eng.warm_compile(None)
+        warmed = eng.graph_captures
+        before = (rd.launches, fa.launches, ms.step_launches,
+                  ms.scan_launches)
+        streams.append(_serve(eng, n=n, new=new))
+        steps = eng._obs.registry.histogram_at("decode_step_s").count
+        got = [a - b for a, b in zip((rd.launches, fa.launches,
+                                      ms.step_launches, ms.scan_launches),
+                                     before)]
+        want = [L * steps, L * n] + ([L * steps, L * n] if hybrid else
+                                     [0, 0])
+        assert got == (want if kern else [0, 0, 0, 0]), (got, want)
+        assert eng.graph_captures == warmed and (warmed >= 1) == graphs
+        if graphs:
+            bufs = [g.tickets for g in _graphs_of(eng)]
+            assert bufs and all(b.numel() >= rd.ticket_count(
+                12, cfg.num_heads, cfg.num_kv_heads) for b in bufs)
+            torch.cuda.synchronize()
+            assert all(int(b.abs().sum()) == 0 for b in bufs)
+    assert streams[0] == streams[1] == streams[2]
+    assert all(len(s) == new for s in streams[0])
 
 
 @pytest.mark.gpu

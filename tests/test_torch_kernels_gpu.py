@@ -68,6 +68,11 @@ def _decode_shape(case, chunk_of):
         return 8, 8, 160, [1, 150, 33], [1, 1, 1]
     if case == "g8":
         return 64, 8, 160, [160, 77, 1], [1, 0, 1]
+    if case == "g9":                    # two head groups, of 5 and 4
+        return 18, 2, 320, [1, 63, 64, 65, 300, 200], [1, 1, 1, 1, 1, 0]
+    if case == "g48":                   # granite's multi-query group, 6 x 8
+        return 48, 1, 1056, [1000, 517, 129, 1, 64, 999, 700, 333], \
+            [1, 1, 1, 1, 1, 1, 0, 1]
     raise ValueError(case)
 
 
@@ -76,12 +81,13 @@ def _decode_shape(case, chunk_of):
 @pytest.mark.parametrize("window,cap,glob", [(0, 0.0, None), (40, 20.0, False),
                                              (40, 20.0, True)])
 @pytest.mark.parametrize("case", ["mixed", "chunk_edges", "all_dead", "long",
-                                  "g1", "g8"])
+                                  "g1", "g8", "g9", "g48"])
 def test_ragged_decode_kernel_on_gpu(cuda, dtype, window, cap, glob, case):
     """Lengths at the chunk's edges, length 1, dead slots (all of them in
-    one case), G in {1, 3, 8}; with the window of 40 the window's start
-    falls inside a later chunk of the long rows.  K and V are strided
-    views of a longer cache, as the engine passes them."""
+    one case), G in {1, 3, 8, 9, 48} (past 8 in head groups of at most 8);
+    with the window of 40 the window's start falls inside a later chunk of
+    the long rows.  K and V are strided views of a longer cache, as the
+    engine passes them."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     Hq, Hkv, T, lengths, alive = _decode_shape(
         case, lambda B, H, T: rd.split_plan(B, H, T, sms)[0])
@@ -229,6 +235,30 @@ def test_flash_kernel_kv_len_zero_rows_on_gpu(cuda, dtype, S, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ["granite", "hymba"])
+@pytest.mark.parametrize("glob", [False, True])
+@pytest.mark.parametrize("S", [1, 65, 1100])
+def test_flash_kernel_at_the_new_families_heads(cuda, dtype, shape, glob, S):
+    """granite: multi-query, 48 query heads on 1 KV head, head dim 128,
+    causal; hymba: 25 heads on 5, head dim 64, a sliding window of 1024
+    (S 1100 crosses it) or a global layer."""
+    Hq, Hkv, D, window = {"granite": (48, 1, 128, 0),
+                          "hymba": (25, 5, 64, 1024)}[shape]
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn((1, S, h, D), generator=gen,
+                           device=cuda).to(dtype) for h in (Hq, Hkv, Hkv))
+    kw = dict(causal=True, window=window, is_global=glob)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GPU_TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernel_kv_len_is_deterministic(cuda, dtype):
     """Two launches on the same inputs are bitwise equal."""
     q, k, v, lens = _kv_case(cuda, 8, 1024, 64, dtype, _drawn_lens(8, 1024))
@@ -244,10 +274,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     lens = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         rd.ragged_decode_attention(q, k, k, lens)
-    q9 = torch.zeros((1, 1, 18, 64), dtype=torch.bfloat16, device=cuda)
-    k9 = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):                 # G = 9 > 8
-        rd.ragged_decode_attention(q9, k9, k9, lens[:1])
+    q5 = torch.zeros((1, 1, 5, 64), dtype=torch.bfloat16, device=cuda)
+    k5 = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):                 # Hq not a multiple of Hkv
+        rd.ragged_decode_attention(q5, k5, k5, lens[:1])
     for D in (264, 4):           # above 256; rows of 8 bytes
         qb = torch.zeros((1, 8, 4, D), dtype=torch.bfloat16, device=cuda)
         kb = torch.zeros((1, 8, 2, D), dtype=torch.bfloat16, device=cuda)
@@ -342,6 +372,46 @@ def test_mamba_step_kernel_on_gpu(cuda, dtype, d_model, N, B):
     live = torch.ones(B, dtype=torch.bool, device=cuda)
     if B > 1:
         live[1] = False
+    conv, h = conv0.clone(), h0.clone()
+    before = ms.step_launches
+    out = ms.mamba_step(x1, conv, h, *args, live=live)
+    want = mamba_step_ref(x1, conv0, h0, *args, live=live)
+    torch.cuda.synchronize()
+    assert ms.step_launches == before + 1
+    for got, ref in zip((out, conv, h), want):
+        assert _agree(got, ref, GPU_TOL[dtype])
+    if B > 1:
+        assert (out[1] == 0).all()
+        assert torch.equal(conv[1], conv0[1]) and torch.equal(h[1], h0[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", [1, 8])
+def test_mamba_step_kernel_at_hymba_widths(cuda, dtype, B):
+    """hymba-1.5b's Mamba block: d_model 1600, d_in 3200, dt_rank 100, N
+    16.  x_proj (3200 x 132) and dt_proj (100 x 3200) are no multiple of 8
+    wide or deep, so they take the CUDA-core product; slot 1 is dead."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+
+    cfg = get_config("hymba-1.5b")
+    d_in, R, N, w = S.dims(cfg)
+    assert (d_in, R, N) == (3200, 100, 16)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    p = S.mamba_init(gen, cfg, dtype=dtype, device=cuda)
+    args = [p[k] for k in MAMBA_ORDER]
+    x1 = torch.randn((B, 1, cfg.d_model), generator=gen,
+                     device=cuda).to(dtype)
+    conv0 = torch.randn((B, w - 1, d_in), generator=gen, device=cuda).to(dtype)
+    h0 = torch.randn((B, d_in, N), generator=gen, device=cuda) * 0.5
+    live = torch.ones(B, dtype=torch.bool, device=cuda)
+    if B > 1:
+        live[1] = False
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    x_plan = ms._product_plan(B, d_in, R + 2 * N, d_in, 0, p["x_proj"], sms)
+    dt_plan = ms._product_plan(B, R, d_in, R + 2 * N, 0, p["dt_proj"], sms)
+    assert x_plan.route == dt_plan.route == ms._FMA
     conv, h = conv0.clone(), h0.clone()
     before = ms.step_launches
     out = ms.mamba_step(x1, conv, h, *args, live=live)

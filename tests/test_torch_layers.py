@@ -69,16 +69,14 @@ def test_configs_match_reference(arch):
 
 def test_unknown_arch_and_later_slices_raise():
     with pytest.raises(KeyError):
-        TC.get_config("hymba-1.5b")
+        TC.get_config("no-such-arch")
     cfg = TC.get_reduced("minitron-4b")
-    # an SSM beside attention (hybrid) is a later slice; attention-free is
-    # not, and neither is a dense encoder-decoder (an SSM one has no slice)
-    # nor MoE or MLA (ported with deepseek-v2-lite)
+    # an SSM encoder has no slice; SSM layers, hybrid layers (ported with
+    # hymba), a dense encoder-decoder, MoE and MLA (ported with
+    # deepseek-v2-lite) are all taken
     for field, value in (("ssm", TC.SSMConfig()),
-                         ("hybrid_parallel", True)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            check_supported(dataclasses.replace(cfg, **{field: value}))
-    for field, value in (("moe", TC.MoEConfig(4, 2, 32)),
+                         ("hybrid_parallel", True),
+                         ("moe", TC.MoEConfig(4, 2, 32)),
                          ("mla", TC.MLAConfig())):
         check_supported(dataclasses.replace(cfg, **{field: value}))
     with pytest.raises(NotImplementedError, match="slice"):
