@@ -131,7 +131,9 @@
    the bf16 weights freed, in fp32 at the published widths cut to 16 of 88
    layers (1e-3).  The kernel phase holds ragged decode in head groups of
    at most 8 at G = 48, 9 and 5 (with a window, on sliding and global
-   layers) and times G = 48 at granite's serving shape beside SDPA.
+   layers) and times G = 48 at granite's serving shape beside SDPA; it
+   holds flash at granite's heads (48 on 1, D 128, causal) and hymba's
+   (25 on 5, D 64, window 1024, sliding and global) at S 65 and 1100.
 12. Hybrid phase: full-width hymba-1.5b (32 layers of attention beside
    Mamba, window 1024 but 3 global layers; random bf16 weights from seed
    0) through ``DecodeEngine``: 8 prompts, two past the window, 32 new
@@ -140,6 +142,9 @@
    flash and of the scan); a decode step beside its bound; kernel path
    against plain path from an 1100-token prompt for three weight seeds,
    fp32 within 1e-3 and bf16 within 1.25x the model's own rounding floor.
+   The kernel phase holds the Mamba step at hymba's widths (x_proj and
+   dt_proj on the CUDA-core product, checked) in bf16 and fp32 with a dead
+   slot, and the scan at d_in 3200 up to S 1500.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -155,12 +160,6 @@ checkout DIR (its own mamba_scan.cu, e.g. the parent commit unpacked with
 
 does the same for the causal flash kernel (its flash_attention.cu) at a
 1024-token prompt, B = 1 and 4; outputs must be bitwise equal.
-
-    python3 chip_smoke.py --ragged-splits
-
-builds the kernels and only times ragged decode at each split target
-(blocks per SM the wrapper's grid aims at) at granite's, minitron's and
-hymba's heads.
 """
 from __future__ import annotations
 
@@ -465,7 +464,8 @@ def run_kernel_phase(torch, reps: int = 20):
     b_ms, b_by = bound(nbytes, flops, "bfloat16")
     T = k.shape[1]
     chunk, n_split = rd.split_plan(
-        B, Hkv, T, torch.cuda.get_device_properties(0).multi_processor_count)
+        B, Hq, Hkv, T,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     items = Hkv * sum(-(-n // chunk) if a else 1 for n, a in zip(lengths, live))
     kinds = cuda_launches(torch, lambda: rd.ragged_decode_attention(
         q, k, v, lens, live=livet))
@@ -540,6 +540,7 @@ def run_kernel_phase(torch, reps: int = 20):
                 f"{fa.grid(1, S, 24)} blocks, CUDA launches per call "
                 f"{sum(kinds.values())} {kinds}; B=4: {ms4:.4f} ms per "
                 f"sequence")
+    worst = max(worst, run_family_flash_checks(torch, gen))
     ms, plain_ms, lib_ms, b_ms, b_by = timing[1024]
     results["flash_attention"] = dict(
         name="flash_attention", route="cuda",
@@ -554,52 +555,47 @@ def run_kernel_phase(torch, reps: int = 20):
     return results
 
 
+# flash at the heads of the last serving families: (label, Hq, Hkv, D,
+# window, is_global); granite is multi-query and causal, hymba slides a
+# window of 1024 but on its global layers
+FAMILY_FLASH = (("granite MQA", 48, 1, 128, 0, False),
+                ("hymba sliding", 25, 5, 64, 1024, False),
+                ("hymba global", 25, 5, 64, 1024, True))
+
+
+def run_family_flash_checks(torch, gen):
+    """The flash kernel against its plain version at ``FAMILY_FLASH``'s
+    heads, causal, at S 65 and 1100 (past hymba's window), in bf16 and
+    fp32.  Fails the run on a miss; returns the largest bf16 error."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    worst = 0.0
+    for label, Hq, Hkv, D, window, glob in FAMILY_FLASH:
+        for S in (65, 1100):
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                q, k, v = (torch.randn((1, S, h, D), generator=gen,
+                                       device="cuda").to(dt)
+                           for h in (Hq, Hkv, Hkv))
+                kw = dict(causal=True, window=window, is_global=glob)
+                got = fa.flash_attention(q, k, v, **kw)
+                want = flash_attention_ref(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                log(f"flash_attention {label} (Hq {Hq}, Hkv {Hkv}, D {D}, "
+                    f"window {window}, global {glob}) S={S} {dtype}: "
+                    f"max_abs_err={err:.3e} tol={TOL[dtype]:.0e}")
+                require(err <= TOL[dtype] and math.isfinite(err),
+                        f"flash_attention {label} S={S} {dtype} disagrees "
+                        f"with its plain version")
+                if dtype == "bfloat16":
+                    worst = max(worst, err)
+    return worst
+
+
 # ragged decode past 8 query heads per KV head: (label, Hq, Hkv, D)
 GROUP_CASES = (("G48 granite", 48, 1, 128), ("G9", 18, 2, 128),
                ("G5 hymba", 25, 5, 64))
-
-
-# split targets (launched blocks per SM) of the ragged decode sweep
-RAGGED_SPLIT_TARGETS = (1, 2, 4, 8, 16)
-
-
-def run_ragged_split_sweep(torch, reps: int = 30):
-    """The ragged decode kernel at each split target of
-    ``RAGGED_SPLIT_TARGETS`` (the wrapper's ``_BLOCKS_PER_SM``, which sizes
-    the grid), at granite's, minitron's and hymba's heads (8 slots, the
-    phase-2 lengths, bf16), two turns over the targets; the wrapper's
-    target is restored after."""
-    from repro_torch.kernels.ragged_decode import ops as rd
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    lengths = [1000, 517, 129, 1, 64, 999, 700, 333]
-    live = [1, 1, 1, 1, 1, 1, 0, 1]
-    shapes = {"granite G48": (48, 1, 128), "minitron G3": (24, 8, 128),
-              "hymba G5": (25, 5, 64)}
-    cases = {k: decode_case(torch, gen, lengths=lengths, live=live,
-                            T_full=2048, dtype="bfloat16", Hq=h, Hkv=kv, D=d)
-             for k, (h, kv, d) in shapes.items()}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    keep = rd._BLOCKS_PER_SM
-    times = {}
-    try:
-        for _ in range(2):
-            for target in RAGGED_SPLIT_TARGETS:
-                rd._BLOCKS_PER_SM = target
-                for k, (q, kk, v, lens, lv) in cases.items():
-                    times.setdefault((k, target), []).append(time_ms(
-                        torch, lambda: rd.ragged_decode_attention(
-                            q, kk, v, lens, live=lv), reps))
-        for (k, target), t in sorted(times.items()):
-            Hq, Hkv, _ = shapes[k]
-            rd._BLOCKS_PER_SM = target
-            groups = rd.head_groups(Hq // Hkv)[0]
-            chunk, n = rd.split_plan(8, Hkv, 1024, sms, groups)
-            log(f"ragged_decode split target {target} blocks/SM, {k}: "
-                f"chunk {chunk}, {8 * Hkv * groups * n} blocks; ms "
-                + ", ".join(f"{x:.4f}" for x in t))
-    finally:
-        rd._BLOCKS_PER_SM = keep
-    log(card_line())
 
 
 def run_group_decode_phase(torch, gen, reps: int):
@@ -665,7 +661,7 @@ def run_group_decode_phase(torch, gen, reps: int):
     b_ms, b_by = bound(nbytes, flops, "bfloat16")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     groups, gsize = rd.head_groups(Hq // Hkv)
-    chunk, n_split = rd.split_plan(B, Hkv, T, sms, groups)
+    chunk, n_split = rd.split_plan(B, Hq, Hkv, T, sms)
     scratch = B * Hq * n_split * (2 + D) * 4
     kinds = cuda_launches(torch, lambda: rd.ragged_decode_attention(
         q, k, v, lens, live=livet))
@@ -1138,11 +1134,76 @@ def run_flash_compare(torch, others, reps: int = 50):
         fa._fn = orig
 
 
+def mamba_step_check(torch, gen, cfg, dtype: str, live, dead: int):
+    """One Mamba step kernel launch at ``cfg``'s widths against its plain
+    version, on 8 slots of which ``dead`` is dead: out, conv and h within
+    ``TOL[dtype]`` (abs + rel), the dead row zero and its state bit-
+    unchanged.  Fails the run on a miss; returns (the three max abs
+    errors, args, x1, conv, h)."""
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import mamba_step_ref
+    from repro_torch.models import ssm as S
+    d_in, _, N, w = S.dims(cfg)
+    B = live.shape[0]
+    dt = getattr(torch, dtype)
+    p = S.mamba_init(gen, cfg, dtype=dt, device="cuda")
+    args = [p[k] for k in MAMBA_ORDER]
+    x1 = torch.randn((B, 1, cfg.d_model), generator=gen,
+                     device="cuda").to(dt)
+    conv0 = torch.randn((B, w - 1, d_in), generator=gen, device="cuda").to(dt)
+    h0 = torch.randn((B, d_in, N), generator=gen, device="cuda") * 0.5
+    conv, h = conv0.clone(), h0.clone()
+    out = ms.mamba_step(x1, conv, h, *args, live=live)
+    want = mamba_step_ref(x1, conv0, h0, *args, live=live)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    errs = [(g.float() - r.float()).abs().max().item()
+            for g, r in zip((out, conv, h), want)]
+    ok = all(agree(g, r, tol) for g, r in zip((out, conv, h), want))
+    dead_ok = bool((out[dead] == 0).all().item()
+                   and torch.equal(conv[dead], conv0[dead])
+                   and torch.equal(h[dead], h0[dead]))
+    log(f"mamba_step {cfg.name} widths {dtype} B={B} (slot {dead} dead): "
+        f"max_abs_err out {errs[0]:.3e} conv {errs[1]:.3e} h {errs[2]:.3e}, "
+        f"tol {tol:.0e} abs + rel; dead row zero and bit-unchanged "
+        f"{dead_ok}")
+    require(ok and dead_ok, f"mamba_step {cfg.name} {dtype} disagrees with "
+            f"its plain version")
+    return errs, args, x1, conv, h
+
+
+def mamba_scan_check(torch, gen, S_len: int, dtype: str, d_in: int, R: int,
+                     N: int, a_log, d_vec):
+    """One scan launch of an S_len-token prompt at d_in channels against
+    its plain version (y and h fp32 within ``TOL["float32"]``, abs + rel).
+    Fails the run on a miss; returns the larger max abs error."""
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    x, delta, bm, cm = scan_inputs(torch, gen, S_len, d_in, R, N,
+                                   getattr(torch, dtype))
+    y, h_last = ms.mamba_scan(x, delta, bm, cm, a_log, d_vec)
+    want_y, want_h = mamba_scan_ref(x, delta, bm, cm, a_log, d_vec)
+    torch.cuda.synchronize()
+    tol = TOL["float32"]
+    err_y = (y - want_y).abs().max().item()
+    err_h = (h_last - want_h).abs().max().item()
+    log(f"mamba_scan S={S_len} d_in={d_in} {dtype} inputs (y, h fp32): "
+        f"max_abs_err y {err_y:.3e} h {err_h:.3e}, tol {tol:.0e} abs + rel")
+    require(agree(y, want_y, tol) and agree(h_last, want_h, tol),
+            f"mamba_scan S={S_len} d_in={d_in} {dtype} disagrees with its "
+            f"plain version")
+    return max(err_y, err_h)
+
+
 def run_ssm_kernel_phase(torch, reps: int = 20):
     """The Mamba step and selective-scan kernels against their plain
     versions at falcon-mamba-7b widths (d_model 4096, d_in 8192, N 16,
-    dt_rank 256, conv width 4)."""
+    dt_rank 256, conv width 4), timed there; then at hymba-1.5b's (d_model
+    1600, d_in 3200, dt_rank 100), whose x_proj (N 132) and dt_proj (K 100)
+    take the step's CUDA-core product, with the scan at d_in 3200 over
+    hymba's prompt lengths."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,
                                                     mamba_step_ref)
@@ -1160,30 +1221,8 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
     live[dead] = False
     worst = 0.0
     for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
-        p = S.mamba_init(gen, cfg, dtype=dt, device="cuda")
-        args = [p[k] for k in MAMBA_ORDER]
-        x1 = torch.randn((B, 1, d_model), generator=gen, device="cuda").to(dt)
-        conv0 = torch.randn((B, w - 1, d_in), generator=gen,
-                            device="cuda").to(dt)
-        h0 = torch.randn((B, d_in, N), generator=gen, device="cuda") * 0.5
-        conv, h = conv0.clone(), h0.clone()
-        out = ms.mamba_step(x1, conv, h, *args, live=live)
-        want = mamba_step_ref(x1, conv0, h0, *args, live=live)
-        torch.cuda.synchronize()
-        tol = TOL[dtype]
-        errs = [(g.float() - r.float()).abs().max().item()
-                for g, r in zip((out, conv, h), want)]
-        ok = all(agree(g, r, tol) for g, r in zip((out, conv, h), want))
-        dead_ok = bool((out[dead] == 0).all().item()
-                       and torch.equal(conv[dead], conv0[dead])
-                       and torch.equal(h[dead], h0[dead]))
-        log(f"mamba_step {dtype} B={B} (slot {dead} dead): max_abs_err out "
-            f"{errs[0]:.3e} conv {errs[1]:.3e} h {errs[2]:.3e}, tol {tol:.0e} "
-            f"abs + rel; dead row zero and bit-unchanged {dead_ok}")
-        if not (ok and dead_ok):
-            raise SystemExit(f"mamba_step {dtype} disagrees with its plain "
-                             f"version")
+        errs, args, x1, conv, h = mamba_step_check(torch, gen, cfg, dtype,
+                                                   live, dead)
         if dtype == "bfloat16":
             worst = max(errs)
             ms_ = time_ms(torch, lambda: ms.mamba_step(x1, conv, h, *args,
@@ -1214,7 +1253,27 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
                 ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
             log_step_breakdown(torch, gen, x1, conv, h, args, live, reps)
-        del p, args
+        del args
+
+    # -- the step at hymba-1.5b's widths: the CUDA-core product route -------
+    hcfg = get_config("hymba-1.5b")
+    hd_in, hR, hN, _ = S.dims(hcfg)
+    sms = _build.sm_count(0)
+    for dtype in ("bfloat16", "float32"):
+        errs, args, *_ = mamba_step_check(torch, gen, hcfg, dtype, live, dead)
+        x_proj, dt_proj = args[3], args[4]
+        routes = (ms._product_plan(B, hd_in, hR + 2 * hN, hd_in, 0, x_proj,
+                                   sms).route,
+                  ms._product_plan(B, hR, hd_in, hR + 2 * hN, 0, dt_proj,
+                                   sms).route)
+        log(f"mamba_step hymba-1.5b {dtype}: x_proj {tuple(x_proj.shape)} "
+            f"and dt_proj {tuple(dt_proj.shape)} routes {routes} (CUDA-core "
+            f"product {ms._FMA})")
+        require(routes == (ms._FMA, ms._FMA), f"mamba_step hymba-1.5b "
+                f"{dtype}: x_proj or dt_proj left the CUDA-core product")
+        if dtype == "bfloat16":
+            worst = max(worst, *errs)
+        del args
     results["mamba_step"]["max_abs_err"] = worst
 
     # -- prefill selective scan --------------------------------------------
@@ -1222,24 +1281,20 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
     a_log, d_vec = scan_params(torch, d_in, N)
     for S_len, dtype in ((1, "bfloat16"), (37, "bfloat16"), (200, "bfloat16"),
                          (1024, "bfloat16"), (200, "float32")):
-        x, delta, bm, cm = scan_inputs(torch, gen, S_len, d_in, R, N,
-                                       getattr(torch, dtype))
-        y, h_last = ms.mamba_scan(x, delta, bm, cm, a_log, d_vec)
-        want_y, want_h = mamba_scan_ref(x, delta, bm, cm, a_log, d_vec)
-        torch.cuda.synchronize()
-        tol = TOL["float32"]
-        err_y = (y - want_y).abs().max().item()
-        err_h = (h_last - want_h).abs().max().item()
-        log(f"mamba_scan S={S_len} {dtype} inputs (y, h fp32): max_abs_err "
-            f"y {err_y:.3e} h {err_h:.3e}, tol {tol:.0e} abs + rel")
-        if not (agree(y, want_y, tol) and agree(h_last, want_h, tol)):
-            raise SystemExit(f"mamba_scan S={S_len} {dtype} disagrees with "
-                             f"its plain version")
-        worst = max(worst, err_y, err_h)
-        if S_len == 1024:
-            plain_ms = time_ms(torch, lambda: mamba_scan_ref(
-                x, delta, bm, cm, a_log, d_vec), 3)
-        del x, delta, bm, cm, y, h_last, want_y, want_h
+        worst = max(worst, mamba_scan_check(torch, gen, S_len, dtype, d_in,
+                                            R, N, a_log, d_vec))
+    x, delta, bm, cm = scan_inputs(torch, gen, 1024, d_in, R, N,
+                                   torch.bfloat16)
+    plain_ms = time_ms(torch, lambda: mamba_scan_ref(
+        x, delta, bm, cm, a_log, d_vec), 3)
+    del x, delta, bm, cm
+    # hymba's d_in 3200 at its prompts' lengths (1500 and 1200 serving, 1100
+    # in the reference check, the shorter ones 100-1000)
+    ha_log, hd_vec = scan_params(torch, hd_in, hN)
+    for S_len, dtype in ((37, "bfloat16"), (1100, "bfloat16"),
+                         (1500, "bfloat16"), (1100, "float32")):
+        worst = max(worst, mamba_scan_check(torch, gen, S_len, dtype, hd_in,
+                                            hR, hN, ha_log, hd_vec))
     log_scan_build()
     sweep = scan_sweep(torch, gen, d_in, R, N, reps)
     ms_, b_ms, b_by = sweep[1024]
@@ -3564,10 +3619,6 @@ def main() -> int:
         run_flash_compare(torch, [Path(p) for p in sys.argv[sys.argv.index(
             "--flash-baseline") + 1:]])
         print(card_line(), flush=True)
-        return 0
-
-    if "--ragged-splits" in sys.argv:
-        run_ragged_split_sweep(torch)
         return 0
 
     if "--scan-baseline" in sys.argv:

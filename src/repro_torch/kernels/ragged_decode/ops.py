@@ -60,12 +60,14 @@ def ticket_count(B: int, Hq: int, Hkv: int) -> int:
     return B * Hkv * head_groups(Hq // Hkv)[0]
 
 
-def split_plan(B: int, Hkv: int, T: int, sms: int, groups: int = 1):
-    """(chunk, n_split) for a (B, T, Hkv, D) cache view whose KV heads
-    each have ``groups`` head groups, on a card of ``sms`` SMs: chunks of
-    a multiple of 32 rows, as many as give about ``_BLOCKS_PER_SM`` blocks
-    per SM over the B * Hkv * groups (slot, KV head, head group) units.
-    Depends on host ints only, never on the lengths."""
+def split_plan(B: int, Hq: int, Hkv: int, T: int, sms: int):
+    """(chunk, n_split) for a (B, T, Hkv, D) cache view read by Hq query
+    heads, on a card of ``sms`` SMs: chunks of a multiple of 32 rows, as
+    many as give about ``_BLOCKS_PER_SM`` blocks per SM over the B * Hkv *
+    groups (slot, KV head, head group) units, the groups those of
+    ``head_groups(Hq // Hkv)``.  Depends on host ints only, never on the
+    lengths."""
+    groups = head_groups(Hq // Hkv)[0]
     per_block = -(-T * B * Hkv * groups // (_BLOCKS_PER_SM * sms))
     chunk = max(_MIN_CHUNK, -(-per_block // _MIN_CHUNK) * _MIN_CHUNK)
     return chunk, -(-T // chunk)
@@ -183,8 +185,8 @@ def ragged_decode_attention(q, k, v, lengths, *, window: int = 0,
                                                   "live")
         live_ptr = live_t.data_ptr()
     groups, gsize = head_groups(Hq // Hkv)
-    chunk, n_split = split_plan(B, Hkv, T, _build.sm_count(dev.index or 0),
-                                groups)
+    chunk, n_split = split_plan(B, Hq, Hkv, T,
+                                _build.sm_count(dev.index or 0))
     es = q.element_size()
     lanes = 1 << (D * es // 16 - 1).bit_length()   # power of two >= segments
     # one allocation: the output, then the fp32 partials (m, l) and acc.

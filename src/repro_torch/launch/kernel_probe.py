@@ -1,0 +1,302 @@
+"""Probes of the port's kernels that the smoke run does not hold: where a
+model's bf16 rounding comes from, and how the ragged decode grid's split
+target moves its time.
+
+    python -m repro_torch.launch.kernel_probe rounding \\
+        [--arch hymba-1.5b] [--seeds 0 1 2] [--prompt 1100] [--reduced] \\
+        [--device cpu]
+
+builds the model at full width (``--reduced``: its reduced config) with
+random bf16 weights from each seed and runs one prompt of ``--prompt``
+tokens and 5 decode steps on several paths, each fed the fp32 plain
+path's argmax, as ``chip_smoke.py``'s reference check of an SSM model
+does (the same weights, prompt and tokens).  The bf16 paths differ in
+which kernels run: all of them, none (the model's plain path), each one
+alone put back on its plain version, and each one alone.  Prints, per
+path, its largest distance from the fp32 plain path (max |dlogit| over
+the vocabulary relative to the largest |logit|, over the six positions)
+and its ratio to the bf16 plain path's distance, the model's rounding
+floor, and by position its distances from the fp32 and from the bf16
+plain path.  On the CPU every wrapper takes its plain version, so all paths
+agree there: the CPU run checks the probe, not the kernels.
+
+    python -m repro_torch.launch.kernel_probe ragged-splits
+
+times the ragged decode kernel at split targets of 1-16 launched blocks
+per SM (the wrapper's ``_BLOCKS_PER_SM``) at granite-34b's (48 query heads
+on 1 KV head, D 128), minitron-4b's (24 on 8) and hymba-1.5b's (25 on 5,
+D 64) heads: 8 slots of 1000-1 live rows, one dead, bf16, two turns over
+the targets, the L2 flushed before each launch.  Needs a CUDA card.
+
+Prints one JSON object on its last line.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import subprocess
+import time
+from typing import Dict, List, Sequence
+
+import torch
+
+from repro_torch.device import resolve_device
+
+STEPS = 5
+PROMPT_SEED = 2           # chip_smoke.py's reference-check prompt
+SPLIT_TARGETS = (1, 2, 4, 8, 16)
+SPLIT_LENGTHS = (1000, 517, 129, 1, 64, 999, 700, 333)
+SPLIT_LIVE = (1, 1, 1, 1, 1, 1, 0, 1)
+SPLIT_HEADS = {"granite G48": (48, 1, 128), "minitron G3": (24, 8, 128),
+               "hymba G5": (25, 5, 64)}
+
+
+def _mamba_step_plain(x1, conv, h, *args, live=None):
+    """The Mamba step wrapper's contract (conv and h advanced in place,
+    dead rows unchanged) on its plain version."""
+    from repro_torch.kernels.mamba_scan.ref import mamba_step_ref
+    out, new_conv, new_h = mamba_step_ref(x1, conv, h, *args, live=live)
+    conv.copy_(new_conv)
+    h.copy_(new_h)
+    return out
+
+
+def _plain_versions():
+    """(module, attribute, plain function) of each kernel's call site on the
+    model's path: the attention module binds the two attention wrappers by
+    name, the SSM module calls the Mamba wrappers through their module."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.kernels.ragged_decode.ref import \
+        ragged_decode_attention_ref
+    from repro_torch.models import attention as A
+    return {"flash_attention": (A, "flash_attention", flash_attention_ref),
+            "ragged_decode": (A, "ragged_decode_attention",
+                              ragged_decode_attention_ref),
+            "mamba_step": (ms, "mamba_step", _mamba_step_plain),
+            "mamba_scan": (ms, "mamba_scan", mamba_scan_ref)}
+
+
+@contextlib.contextmanager
+def plain(names: Sequence[str]):
+    """Inside the block the kernels ``names`` run their plain versions on
+    the model's kernel path; the others launch as ever."""
+    swaps = [_plain_versions()[n] for n in names]
+    kept = [getattr(mod, attr) for mod, attr, _ in swaps]
+    try:
+        for mod, attr, fn in swaps:
+            setattr(mod, attr, fn)
+        yield
+    finally:
+        for (mod, attr, _), fn in zip(swaps, kept):
+            setattr(mod, attr, fn)
+
+
+def rounding_paths(kernels: Sequence[str]) -> Dict[str, tuple]:
+    """name -> (use_kernels, kernels on their plain versions) of each bf16
+    path of the probe, for the model's ``kernels``."""
+    paths = {"kernels": (True, ()), "plain path": (False, ()),
+             "kernels on plain versions": (True, tuple(kernels))}
+    for k in kernels:
+        paths[f"all but {k}"] = (True, (k,))
+    for k in kernels:
+        paths[f"{k} alone"] = (True, tuple(x for x in kernels if x != k))
+    return paths
+
+
+def model_kernels(cfg) -> List[str]:
+    """The kernels a model's serving path runs."""
+    out = []
+    if not cfg.attention_free:
+        out += ["flash_attention", "ragged_decode"]
+    if cfg.attention_free or cfg.hybrid_parallel:
+        out += ["mamba_step", "mamba_scan"]
+    return out
+
+
+def _rel(a, ref) -> float:
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def rounding(arch: str, seeds: Sequence[int], S: int, device,
+             reduced: bool = False) -> dict:
+    """The rounding probe (module docstring) for each seed; returns
+    {seed: {path: {"from_fp32": per position, "from_plain": per position
+    (from the bf16 plain path), "largest": the largest from fp32, "ratio":
+    that over the bf16 plain path's}}}."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.model import build_model
+    cfg = (get_reduced if reduced else get_config)(arch)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    model = build_model(cfg, device)
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), device)
+    paths = rounding_paths(model_kernels(cfg))
+    V = cfg.vocab_size
+    out = {}
+    for seed in seeds:
+        params = model.init(torch.Generator(device=device).manual_seed(seed))
+        p32 = fp32_copy(params)
+        gen = torch.Generator(device=device).manual_seed(PROMPT_SEED)
+        toks = torch.randint(1, V, (1, S), generator=gen, device=device,
+                             dtype=torch.int32)
+        runs = [(name, model, params, kern, off)
+                for name, (kern, off) in paths.items()]
+        runs.append(("fp32 plain path", m32, p32, False, ()))
+        caches = [m.init_cache(1, S + STEPS + 3) for _, m, _, _, _ in runs]
+        logits = [None] * len(runs)
+        rows = []
+        for step in range(STEPS + 1):
+            if step:
+                nxt = logits[-1].argmax(-1).to(torch.int32)[:, None]
+            for i, (_, m, p, kern, off) in enumerate(runs):
+                with plain(off):
+                    if step == 0:
+                        logits[i], caches[i] = m.prefill(
+                            p, {"tokens": toks}, caches[i], use_kernels=kern)
+                    else:
+                        logits[i], caches[i] = m.decode_step(
+                            p, caches[i], nxt, use_kernels=kern)
+            rows.append([x.float()[..., :V] for x in logits])
+        plain_i = list(paths).index("plain path")
+        res = {}
+        for i, (name, *_) in enumerate(runs[:-1]):
+            res[name] = {"from_fp32": [_rel(r[i], r[-1]) for r in rows],
+                         "from_plain": [_rel(r[i], r[plain_i])
+                                        for r in rows]}
+            res[name]["largest"] = max(res[name]["from_fp32"])
+        floor = res["plain path"]["largest"]
+        for r in res.values():
+            r["ratio"] = r["largest"] / floor
+        out[seed] = res
+        del params, p32, caches, logits, rows
+    return out
+
+
+def fp32_copy(tree):
+    """An fp32 copy of a param tree."""
+    if isinstance(tree, dict):
+        return {k: fp32_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [fp32_copy(v) for v in tree]
+    return tree.float()
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Mean device ms of ``fn`` over ``reps`` launches timed with CUDA
+    events, each after a 256 MB write that evicts the L2, queued behind a
+    sleep that outlasts the host's enqueue (``chip_smoke.time_ms``)."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((reps * (host_s + 2e-4) + 5e-3) * 1.98e9))
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def ragged_splits(device) -> dict:
+    """The split-target sweep (module docstring); returns {head shape:
+    {target: [ms of each turn], ...}} and each shape's plan per target."""
+    from repro_torch.kernels.ragged_decode import ops as rd
+    if device.type != "cuda":
+        raise ValueError("ragged-splits times the kernel: it needs a CUDA "
+                         "card")
+    gen = torch.Generator(device=device).manual_seed(1)
+    T = -(-max(SPLIT_LENGTHS) // 32) * 32
+    lens = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=device)
+    live = torch.tensor(SPLIT_LIVE, dtype=torch.bool, device=device)
+    cases = {}
+    for name, (Hq, Hkv, D) in SPLIT_HEADS.items():
+        q, k, v = (torch.randn((8, n, h, D), generator=gen, device=device)
+                   .to(torch.bfloat16) for n, h in ((1, Hq), (2048, Hkv),
+                                                    (2048, Hkv)))
+        cases[name] = (q, k[:, :T], v[:, :T])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    keep = rd._BLOCKS_PER_SM
+    times: Dict[str, Dict[int, list]] = {n: {} for n in cases}
+    plans: Dict[str, Dict[int, list]] = {n: {} for n in cases}
+    try:
+        for _ in range(2):
+            for target in SPLIT_TARGETS:
+                rd._BLOCKS_PER_SM = target
+                for name, (q, k, v) in cases.items():
+                    times[name].setdefault(target, []).append(time_ms(
+                        lambda: rd.ragged_decode_attention(q, k, v, lens,
+                                                           live=live)))
+                    Hq, Hkv, _ = SPLIT_HEADS[name]
+                    chunk, n = rd.split_plan(8, Hq, Hkv, T, sms)
+                    groups = rd.head_groups(Hq // Hkv)[0]
+                    plans[name][target] = [chunk, 8 * Hkv * groups * n]
+    finally:
+        rd._BLOCKS_PER_SM = keep
+    return {"ms": times, "chunk_and_blocks": plans}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("probe", choices=("rounding", "ragged-splits"))
+    ap.add_argument("--arch", default="hymba-1.5b")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--prompt", type=int, default=1100)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    doc = {"probe": args.probe,
+           "card": card_line() if device.type == "cuda" else "cpu"}
+    if args.probe == "rounding":
+        res = rounding(args.arch, args.seeds, args.prompt, device,
+                       args.reduced)
+        for seed, paths in res.items():
+            for name, r in paths.items():
+                print(f"{args.arch} seed {seed} {name}: largest distance "
+                      f"from the fp32 plain path {r['largest']:.4e}, "
+                      f"{r['ratio']:.4f}x the bf16 floor; by position "
+                      f"from fp32 " + " ".join(
+                          f"{x:.3e}" for x in r["from_fp32"])
+                      + "; from the bf16 plain path " + " ".join(
+                          f"{x:.3e}" for x in r["from_plain"]), flush=True)
+        doc.update(arch=args.arch, prompt=args.prompt, reduced=args.reduced,
+                   seeds={str(s): p for s, p in res.items()})
+    else:
+        res = ragged_splits(device)
+        for name, per in res["ms"].items():
+            for target, t in per.items():
+                chunk, blocks = res["chunk_and_blocks"][name][target]
+                print(f"ragged_decode split target {target} blocks/SM, "
+                      f"{name}: chunk {chunk}, {blocks} blocks; ms "
+                      + ", ".join(f"{x:.4f}" for x in t), flush=True)
+        doc.update(res)
+    print(json.dumps(doc), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

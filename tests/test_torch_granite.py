@@ -246,14 +246,18 @@ def test_head_groups_tickets_and_split_plan_count_the_groups():
     assert rd.ticket_count(8, 24, 8) == 64
     assert rd.ticket_count(8, 25, 5) == 40
     groups = head_groups(48)[0]
-    chunk, n = rd.split_plan(8, 1, 2048, 132, groups)
-    one_chunk, one_n = rd.split_plan(8, 1, 2048, 132)
+    chunk, n = rd.split_plan(8, 48, 1, 2048, 132)
+    one_chunk, one_n = rd.split_plan(8, 8, 1, 2048, 132)     # one group
     blocks = 8 * 1 * groups * n
     assert chunk % 32 == 0 and (n - 1) * chunk < 2048 <= n * chunk
     assert 8 * 132 <= blocks <= 2 * 8 * 132
     assert 8 * one_n <= 2 * 8 * 132 and n < one_n
-    # one group: the plan is the one before the groups
-    assert rd.split_plan(8, 8, 1056, 132, 1) == rd.split_plan(8, 8, 1056, 132)
+    # G of 8 or less is one group: the plan depends on Hkv alone
+    assert rd.split_plan(8, 24, 8, 1056, 132) == \
+        rd.split_plan(8, 8, 8, 1056, 132) == rd.split_plan(8, 64, 8, 1056, 132)
+    # G = 9 is two groups: fewer splits than G = 8, one group
+    assert rd.split_plan(8, 18, 2, 2048, 132)[1] < \
+        rd.split_plan(8, 16, 2, 2048, 132)[1]
 
 
 def test_wrapper_takes_plain_on_cpu_at_g48():

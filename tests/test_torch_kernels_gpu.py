@@ -53,11 +53,11 @@ def cuda():
 
 def _decode_shape(case, chunk_of):
     """(Hq, Hkv, T, lengths, live) of a ragged decode case; ``chunk_of(B,
-    Hkv, T)`` is the kernel's chunk for that view."""
+    Hq, Hkv, T)`` is the kernel's chunk for that view."""
     if case == "mixed":                 # tile-edge lengths, one dead slot
         return 24, 8, 320, [1, 63, 64, 65, 300, 200], [1, 1, 1, 1, 1, 0]
     if case == "chunk_edges":           # T no multiple of the chunk
-        c = chunk_of(6, 8, 300)
+        c = chunk_of(6, 24, 8, 300)
         lens = [c - 1, c, c + 1, 1, 300, min(2 * c + 5, 300)]
         return 24, 8, 300, lens, [1, 1, 1, 1, 1, 0]
     if case == "all_dead":
@@ -90,7 +90,7 @@ def test_ragged_decode_kernel_on_gpu(cuda, dtype, window, cap, glob, case):
     engine passes them."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     Hq, Hkv, T, lengths, alive = _decode_shape(
-        case, lambda B, H, T: rd.split_plan(B, H, T, sms)[0])
+        case, lambda B, Hq, Hkv, T: rd.split_plan(B, Hq, Hkv, T, sms)[0])
     B, D = len(lengths), 128
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((B, 1, Hq, D), generator=gen, device=cuda).to(dtype)

@@ -102,12 +102,12 @@ def test_split_plan_fills_the_card_from_host_ints():
     """The serving shape (8 slots, 8 KV heads, kv_bound 1056, 132 SMs)
     launches more than B * Hkv blocks; chunks are multiples of 32 that
     cover T; B = 1 at T = 2048 gives many splits."""
-    chunk, n = rd.split_plan(8, 8, 1056, 132)
+    chunk, n = rd.split_plan(8, 24, 8, 1056, 132)
     assert chunk % 32 == 0 and (n - 1) * chunk < 1056 <= n * chunk
     assert 8 * 8 * n > 2 * 132
-    chunk, n = rd.split_plan(1, 8, 2048, 132)
+    chunk, n = rd.split_plan(1, 24, 8, 2048, 132)
     assert n >= 32 and n * chunk >= 2048
-    assert rd.split_plan(1, 1, 1, 132) == (32, 1)
+    assert rd.split_plan(1, 1, 1, 1, 132) == (32, 1)
 
 
 def test_ragged_decode_wrapper_takes_plain_on_cpu():
