@@ -145,6 +145,29 @@
    The kernel phase holds the Mamba step at hymba's widths (x_proj and
    dt_proj on the CUDA-core product, checked) in bf16 and fp32 with a dead
    slot, and the scan at d_in 3200 up to S 1500.
+13. Training phase: full-width minitron-4b (32 layers, fp32 master
+   weights from seed 0, bf16 activations, AdamW, remat; B 4 x S 1024 from
+   the port's ``SyntheticLM``), on the card the serving phases left empty:
+   one forward and backward on the kernel path against the plain path
+   from the same params and batch (loss within 2e-2 relative, each
+   gradient leaf within 5e-2 in relative norm), the same at the published
+   widths cut to 4 layers in fp32 (1e-4, 1e-3), then 8 steps of
+   ``make_train_step`` (lr 3e-4, warmup 2): every loss and grad norm
+   finite and the last loss below step 1's.  Logs step ms (median of
+   steps 3-7), tokens/s, the share of 989 TFLOP/s, the optimizer's ms
+   (CUDA events), peak memory (under 78 GiB) and the launches of the flash
+   forward with lse and the flash backward (32 of the backward per step).
+   The kernel phase holds the forward's lse and the backward kernel to
+   their plain versions at minitron's training shape, granite's 48 heads
+   on 1, llama-100m's D 64 (causal and bidirectional) and S 1000, in bf16
+   and fp32, and times each beside its bound and SDPA's forward plus
+   backward.
+14. Trainer phase: llama-100m through ``launch/train.py``'s restart loop
+   in process, 30 steps at S 256, B 8, with checkpoints in a temporary
+   directory under ``build/``: once uninterrupted, once preempted by a
+   flag file at step 10 and resumed from its checkpoint; the resumed
+   run's losses must equal the uninterrupted run's within 1e-3 relative,
+   and its last loss must be below its first.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -2844,6 +2867,415 @@ def run_hymba_phase(torch):
     return graph["launches"]
 
 
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel, minitron-4b, the trainer's loop
+# ---------------------------------------------------------------------------
+
+# flash backward cases: (label, B, S, Hq, Hkv, D, causal) - minitron-4b's
+# heads at its training batch, granite's multi-query heads, llama-100m's
+# head dim 64 (causal, and bidirectional), and a length that is no multiple
+# of the tile
+BWD_CASES = (("minitron", 4, 1024, 24, 8, 128, True),
+             ("granite MQA", 1, 1024, 48, 1, 128, True),
+             ("llama-100m", 8, 256, 10, 5, 64, True),
+             ("llama-100m bidirectional", 8, 256, 10, 5, 64, False),
+             ("S1000", 1, 1000, 24, 8, 128, True))
+# training checks, kernel path vs plain path from the same params and
+# batch: (loss relative, each gradient leaf's relative norm).  bf16: the
+# two round p, ds and every activation at other points over 32 layers;
+# fp32: summation order only
+TRAIN_TOL = {"bfloat16": (2e-2, 5e-2), "float32": (1e-4, 1e-3)}
+TRAIN_B, TRAIN_S = 4, 1024
+TRAIN_STEPS = 8
+TRAINER_ARGS = ["--arch", "llama-100m", "--steps", "30", "--seq-len", "256",
+                "--global-batch", "8", "--device", "cuda"]
+TRAINER_PREEMPT_AT = 10
+
+
+def attended_pairs(B: int, S: int, H: int, causal: bool) -> int:
+    return B * H * (S * (S + 1) // 2 if causal else S * S)
+
+
+def run_flash_bwd_phase(torch, gen, reps: int):
+    """The forward kernel's lse and the backward kernel against their
+    plain versions on the same inputs at ``BWD_CASES`` (bf16 and fp32: the
+    plain backward gets the kernel's out and lse), then timed at each
+    case's shape in bf16: the backward beside its bound (10 D flops per
+    attended pair at the bf16 peak), the plain backward and SDPA's forward
+    plus backward; the forward with lse beside its bound and SDPA's
+    forward.  Returns the kernels' entries (minitron's times)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref)
+    worst = {"lse": 0.0, "bwd": 0.0}
+    times = {}
+    for label, B, S, Hq, Hkv, D, causal in BWD_CASES:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, dout = (torch.randn((B, S, Hq, D), generator=gen,
+                                   device="cuda").to(dt) for _ in range(2))
+            k, v = (torch.randn((B, S, Hkv, D), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+            out_r, lse_r = flash_attention_lse_ref(q, k, v, causal=causal)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=causal)
+            want = flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                           causal=causal)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            errs = {"out": (out.float() - out_r.float()).abs().max().item(),
+                    "lse": (lse - lse_r).abs().max().item()}
+            errs.update({n: (a.float() - b.float()).abs().max().item()
+                         for n, a, b in zip(("dq", "dk", "dv"), got, want)})
+            ok = (agree(out, out_r, tol) and errs["lse"] <= tol
+                  and all(agree(a, b, tol) for a, b in zip(got, want)))
+            log(f"flash backward {label} (B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, "
+                f"D {D}, causal {causal}) {dtype}: max_abs_err "
+                + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f"; tol {tol:.0e} abs + rel (lse abs)")
+            require(ok and all(math.isfinite(e) for e in errs.values()),
+                    f"flash backward {label} {dtype} disagrees with its "
+                    f"plain version")
+            if dtype == "bfloat16":
+                worst["lse"] = max(worst["lse"], errs["out"], errs["lse"])
+                worst["bwd"] = max(worst["bwd"], errs["dq"], errs["dk"],
+                                   errs["dv"])
+                times[label] = time_flash_training(
+                    torch, fa, (q, k, v, out, dout, lse), causal, reps,
+                    flash_attention_bwd_ref, flash_attention_lse_ref)
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    t = times["minitron"]
+    return {
+        "flash_attention_lse": dict(
+            name="flash_attention_lse", route="cuda",
+            source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:85",
+            max_abs_err=worst["lse"], ms=t["fwd"], plain_ms=t["fwd_plain"],
+            bound_ms=t["fwd_bound"][0], bound_by=t["fwd_bound"][1],
+            library_ms=t["sdpa_fwd"]),
+        "flash_attention_bwd": dict(
+            name="flash_attention_bwd", route="cuda",
+            source=src + "flash_attention_bwd.cu",
+            replaces="src/repro/models/layers.py:222",
+            max_abs_err=worst["bwd"], ms=t["bwd"], plain_ms=t["bwd_plain"],
+            bound_ms=t["bwd_bound"][0], bound_by=t["bwd_bound"][1],
+            library_ms=t["sdpa_fwd_bwd"])}
+
+
+def time_flash_training(torch, fa, tensors, causal, reps, bwd_ref, lse_ref):
+    """Device times (ms) of one case: the forward with lse and the backward
+    kernels, their plain versions, SDPA's forward and its forward plus
+    backward (GQA by ``enable_gqa``), and the bounds."""
+    F = torch.nn.functional
+    q, k, v, out, dout, lse = tensors
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    es = q.element_size()
+    pairs = attended_pairs(B, S, Hq, causal)
+    qkv_bytes = (q.numel() + k.numel() + v.numel()) * es
+    r = dict(
+        fwd=time_ms(torch, lambda: fa.flash_attention_lse(
+            q, k, v, causal=causal), reps),
+        fwd_plain=time_ms(torch, lambda: lse_ref(q, k, v, causal=causal),
+                          max(reps // 4, 3)),
+        bwd=time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, out, dout, lse, causal=causal), reps),
+        bwd_plain=time_ms(torch, lambda: bwd_ref(
+            q, k, v, out, dout, lse, causal=causal), max(reps // 4, 3)),
+        fwd_bound=bound(qkv_bytes + out.numel() * es + lse.numel() * 4,
+                        4 * D * pairs, "bfloat16"),
+        bwd_bound=bound(2 * qkv_bytes + 2 * out.numel() * es
+                        + lse.numel() * 4, 10 * D * pairs, "bfloat16"))
+    qh, kh, vh, dh = (t.transpose(1, 2).detach().clone().requires_grad_(
+        t is not dout) for t in (q, k, v, dout))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                           enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        for t in (qh, kh, vh):
+            t.grad = None
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                       enable_gqa=True).backward(dh)
+
+    r["sdpa_fwd"] = time_ms(torch, sdpa_fwd, reps)
+    r["sdpa_fwd_bwd"] = time_ms(torch, sdpa_fwd_bwd, reps)
+    kinds = cuda_launches(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out, dout, lse, causal=causal))
+    log(f"flash training timing (B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, "
+        f"causal {causal}, bf16, {pairs} attended pairs): backward "
+        f"{r['bwd']:.4f} ms (bound {r['bwd_bound'][0]:.4f} ms, "
+        f"{r['bwd_bound'][1]}; {10 * D * pairs / r['bwd'] / 1e9:.1f} "
+        f"TFLOP/s at 10 D per pair), plain {r['bwd_plain']:.4f} ms; forward "
+        f"with lse {r['fwd']:.4f} ms (bound {r['fwd_bound'][0]:.4f} ms), "
+        f"plain {r['fwd_plain']:.4f} ms; ours forward + backward "
+        f"{r['fwd'] + r['bwd']:.4f} ms against sdpa {r['sdpa_fwd_bwd']:.4f} "
+        f"ms (sdpa forward {r['sdpa_fwd']:.4f} ms); CUDA launches per "
+        f"backward call {sum(kinds.values())} {kinds} ({card_line()})")
+    return r
+
+
+def loss_and_grads(torch, model, params, batch, use_kernels: bool):
+    """One forward and backward: (loss, [fp32 gradient per leaf])."""
+    from repro_torch.optim import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(True)
+    loss, _ = model.loss(params, batch, use_kernels=use_kernels)
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    torch.cuda.synchronize()
+    return loss.item(), grads
+
+
+def train_path_check(torch, model, params, batch, dtype: str, label: str):
+    """Kernel path against plain path from the same params and batch: the
+    loss within TRAIN_TOL's first, each gradient leaf's relative norm
+    within its second."""
+    loss_k, g_k = loss_and_grads(torch, model, params, batch, True)
+    loss_p, g_p = loss_and_grads(torch, model, params, batch, False)
+    loss_tol, grad_tol = TRAIN_TOL[dtype]
+    rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+           for a, b in zip(g_k, g_p)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"{label}: loss kernel {loss_k:.6f} plain {loss_p:.6f} (relative "
+        f"{loss_rel:.3e}, tol {loss_tol:.0e}); gradient leaves {len(rel)}, "
+        f"largest relative norm {rel[worst]:.3e} (leaf {worst}), median "
+        f"{sorted(rel)[len(rel) // 2]:.3e}, tol {grad_tol:.0e}")
+    require(math.isfinite(loss_k) and loss_rel <= loss_tol
+            and max(rel) <= grad_tol,
+            f"{label}: kernel path disagrees with the plain path")
+    return g_k, g_p
+
+
+def training_flops(model, params, T: int, B: int, S: int) -> float:
+    """Model FLOPs of one remat training step: 8 N T for the weight
+    products (6 N T forward and backward, 2 N T the remat forward; N the
+    layers' matrices and the LM head), 16 D per attended pair per layer for
+    attention (forward, remat forward, backward)."""
+    from repro_torch.optim import tree_leaves
+    cfg = model.cfg
+    n_mm = sum(p.numel() for lp in params["decoder"]["layers"]
+               for p in tree_leaves(lp) if p.ndim >= 2)
+    n_mm += params["lm_head"].numel() if "lm_head" in params else \
+        params["embed"].numel()
+    pairs = attended_pairs(B, S, cfg.num_heads, True)
+    return (8.0 * n_mm * T
+            + 16.0 * cfg.resolved_head_dim * pairs * cfg.num_layers)
+
+
+def run_training_phase(torch):
+    """Full-width minitron-4b training on one card (fp32 masters, bf16
+    activations, AdamW, remat, B 4 x S 1024 from the port's SyntheticLM):
+    (a) kernel vs plain path at 32 layers in bf16, (b) at 4 layers in fp32,
+    (c) 8 steps of make_train_step on the kernel path, timed.  Returns the
+    kernels' launches over (c)."""
+    import dataclasses
+    import gc
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import Optimizer, make_optimizer, tree_leaves
+    from repro_torch.train import TrainConfig, make_train_step
+
+    card = card_line()
+    cfg = get_config("minitron-4b")
+    pipe = make_pipeline(cfg, TRAIN_S, TRAIN_B, seed=0)
+
+    def batch_of(step):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in pipe.batch(step).items()}
+
+    # (b) first, at 4 layers in fp32, on the empty card
+    cfg4 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    model = build_model(cfg4, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=cfg4.param_dtype)
+    train_path_check(torch, model, params, batch_of(0), "float32",
+                     "training check minitron-4b widths, 4 layers, fp32")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=cfg.param_dtype)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(params))
+    log(f"minitron-4b training: {n / 1e9:.3f} B params as fp32 masters in "
+        f"{time.perf_counter() - t0:.2f} s; bf16 activations, AdamW, remat, "
+        f"B {TRAIN_B} x S {TRAIN_S}")
+    g = train_path_check(torch, model, params, batch_of(0), "bfloat16",
+                         f"training check minitron-4b, {cfg.num_layers} "
+                         f"layers, bf16")
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the kernel path's steps, the optimizer timed by CUDA events
+    opt = make_optimizer(cfg.optimizer)
+    opt_ms = []
+
+    def timed_update(grads, state, params_, lr):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = opt.update(grads, state, params_, lr)
+        e.record()
+        opt_ms.append((s, e))
+        return out
+
+    tc = TrainConfig(steps=TRAIN_STEPS, lr=3e-4, warmup=2)
+    step_fn = make_train_step(model, Optimizer(opt.init, timed_update), tc)
+    opt_state = opt.init(params)
+    batches = [batch_of(s) for s in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names = ("flash_attention_lse", "flash_attention_bwd")
+    reset_counts(names)
+    rows = []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, step,
+                                       batches[step])
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0, m["loss"].item(),
+                     m["grad_norm"].item(), m["lr"]))
+    counts = read_counts(names)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for step, (sec, loss, gn, lr) in enumerate(rows):
+        log(f"  step {step}: {sec * 1e3:.1f} ms, loss {loss:.5f}, grad norm "
+            f"{gn:.4f}, lr {lr:.3e}, optimizer "
+            f"{opt_ms[step][0].elapsed_time(opt_ms[step][1]):.2f} ms")
+    step_s = statistics.median(r[0] for r in rows[3:8])
+    opt_med = statistics.median(s.elapsed_time(e) for s, e in opt_ms[3:8])
+    flops = training_flops(model, params, TRAIN_B * TRAIN_S, TRAIN_B,
+                           TRAIN_S)
+    log(f"minitron-4b training ({cfg.num_layers} layers, B {TRAIN_B} x S "
+        f"{TRAIN_S}, fp32 "
+        f"masters, bf16, AdamW, remat): step {step_s * 1e3:.1f} ms (median "
+        f"of steps 3-7), {TRAIN_B * TRAIN_S / step_s:.0f} tokens/s, "
+        f"{flops / 1e12:.1f} TFLOP per step = {flops / step_s / 1e12:.1f} "
+        f"TFLOP/s, {flops / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
+        f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms); optimizer "
+        f"{opt_med:.2f} ms; peak memory {peak:.2f} GiB; launches {counts} "
+        f"({card})")
+    profile_training_step(torch, lambda: step_fn(
+        params, opt_state, TRAIN_STEPS, batches[0]), step_s)
+    require(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
+            "minitron-4b training: a loss or grad norm is not finite")
+    require(rows[-1][1] < rows[1][1],
+            f"minitron-4b training: the last loss {rows[-1][1]:.5f} is not "
+            f"below step 1's {rows[1][1]:.5f}")
+    require(peak < 78, f"minitron-4b training: peak memory {peak:.2f} GiB")
+    L = cfg.num_layers
+    require(counts["flash_attention_bwd"] == L * TRAIN_STEPS
+            and counts["flash_attention_lse"] >= L * TRAIN_STEPS,
+            f"minitron-4b training launched {counts}")
+    del model, params, opt_state, batches, step_fn
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_training_step(torch, run, wall: float) -> None:
+    """Profile one training step ``run()`` (device activity only) and log
+    its device time by kind and the busy share of the unprofiled step's
+    ``wall`` (s): the union of the kernels' intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kinds = {"flash backward": ("flash_bwd",),
+             "flash forward": ("flash_attention_mma",),
+             "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "xmma", "cutlass"),
+             "other (elementwise, reductions, optimizer)": ("",)}
+    ms = dict.fromkeys(kinds, 0.0)
+    spans = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        low = ev.name.lower()
+        kind = next(k for k, pats in kinds.items()
+                    if any(pat in low for pat in pats))
+        ms[kind] += (ev.time_range.end - ev.time_range.start) / 1e3
+    union, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    if not spans:
+        log("training step profile: the profiler recorded no device time "
+            "(busy share not measured)")
+        return
+    log(f"training step profile: device busy (union of kernel intervals) "
+        f"{union / 1e3:.1f} ms of the unprofiled {wall * 1e3:.1f} ms step "
+        f"(busy share {union / 1e3 / (wall * 1e3):.3f}); by kind (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+        + f" ({card_line()})")
+
+
+def run_trainer_phase(torch):
+    """llama-100m through the launcher's restart loop in process: 30 steps
+    at S 256, B 8 with checkpoints in a temporary directory; once
+    uninterrupted, once with a preemption flag file written at step 10 and
+    a resume from its checkpoint.  The resumed run's losses must equal the
+    uninterrupted run's within 1e-3 relative, and its last loss must be
+    below its first."""
+    import tempfile
+    from repro_torch.launch import train as launch_train
+
+    names = ("flash_attention_lse", "flash_attention_bwd")
+    runs = []
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        for preempt in (False, True):
+            losses = {}
+            flag = Path(d) / "preempt"
+
+            def on_step(step, m, preempt=preempt, losses=losses):
+                losses.setdefault(step, m["loss"])
+                if preempt and step == TRAINER_PREEMPT_AT:
+                    flag.write_text("preempt")
+
+            reset_counts(names)
+            args = TRAINER_ARGS + ["--ckpt-dir", str(Path(d) / f"ck{preempt}")]
+            if preempt:
+                args += ["--preempt-file", str(flag)]
+            rc = launch_train.main(args, on_step=on_step)
+            counts = read_counts(names)
+            require(rc == 0, f"train launcher returned {rc}")
+            runs.append((losses, counts))
+    (whole, c0), (resumed, c1) = runs
+    steps = sorted(resumed)
+    rel = max(abs(resumed[s] - whole[s]) / abs(whole[s]) for s in steps)
+    log(f"trainer phase llama-100m (launcher loop, 30 steps, S 256, B 8, "
+        f"preempted after step {TRAINER_PREEMPT_AT}, resumed from its "
+        f"checkpoint): losses first {resumed[0]:.4f} last {resumed[29]:.4f}; "
+        f"largest relative distance from the uninterrupted run {rel:.3e} "
+        f"(tol 1e-3); launches uninterrupted {c0}, resumed {c1}; "
+        f"{time.perf_counter() - t0:.1f} s with checkpoints")
+    require(steps == list(range(30)) and sorted(whole) == steps,
+            "trainer phase: steps missing")
+    require(rel <= 1e-3, "trainer phase: the resumed run's losses differ")
+    require(resumed[29] < resumed[0], "trainer phase: the loss did not fall")
+    require(min(c0.values()) > 0 and min(c1.values()) > 0,
+            "trainer phase: a training kernel never launched")
+
+
 def encoder_jobs(cfg):
     """The encoder phase's 16 jobs of 64-2048 tokens, from seed 1."""
     import numpy as np
@@ -3631,6 +4063,8 @@ def main() -> int:
     start = time.perf_counter()
     phase_s = lambda: f"{time.perf_counter() - start:.1f} s"
     kernels = run_kernel_phase(torch)
+    kernels.update(run_flash_bwd_phase(
+        torch, torch.Generator(device="cuda").manual_seed(4), 10))
     kernels.update(run_ssm_kernel_phase(torch))
     log(f"kernel phases done at {phase_s()} after the build")
     paper_kernels, launches = run_paper_kernel_phase(torch)
@@ -3706,6 +4140,13 @@ def main() -> int:
     log(f"granite phase done at {phase_s()}")
     run_hymba_phase(torch)
     log(f"hymba phase done at {phase_s()}")
+
+    # training: full-width minitron-4b on the empty card, then the
+    # launcher's loop with a preemption and a resume
+    launches.update(run_training_phase(torch))
+    log(f"training phase done at {phase_s()}")
+    run_trainer_phase(torch)
+    log(f"trainer phase done at {phase_s()}")
 
     entries = []
     for name, entry in kernels.items():

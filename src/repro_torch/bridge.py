@@ -11,9 +11,10 @@ expert axis (``w_up (E, d, f)``) and keeps every layout as it is
 ``lm_head (d, padded_vocab)``, ``in_proj (d, 2 d_in)``), so nothing is
 transposed.  A hybrid layer carries both blocks, ``attn`` and ``ssm``, and
 their output norms, ``attn_out_norm`` and ``ssm_out_norm``.
-Weights are cast once to the activation dtype; norm parameters and the
-Mamba block's conv_w, conv_b, dt_bias, A_log and D stay fp32, as the
-reference holds them in fp32 and casts each to fp32 at use.
+Weights are cast once to the activation dtype (or to ``dtype``: fp32
+masters for training); norm parameters and the Mamba block's conv_w,
+conv_b, dt_bias, A_log and D stay fp32, as the reference holds them in
+fp32 and casts each to fp32 at use.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import check_supported
 
@@ -43,11 +44,14 @@ def _convert(tree, path, *, dtype, device):
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
-                    device: DeviceLike = None) -> Dict[str, Any]:
-    """Reference param tree of numpy arrays -> port params on ``device``."""
+                    device: DeviceLike = None, dtype=None) -> Dict[str, Any]:
+    """Reference param tree of numpy arrays -> port params on ``device``,
+    weights in ``dtype`` (a torch dtype or its name; None: the activation
+    dtype)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    dt = cfg.activation_dtype
+    dt = (cfg.activation_dtype if dtype is None else dtype
+          if isinstance(dtype, torch.dtype) else torch_dtype(dtype))
     dec = np_tree["decoder"]
     prologue = [_convert(lp, ("layers",), dtype=dt, device=dev)
                 for lp in dec.get("prologue", ())]

@@ -17,6 +17,13 @@
 // take the padding as a template flag (KV), so that the launches without
 // it compile to the code they had before it (each row's length is S).
 //
+// Training also takes the log-sum-exp of each query row's scaled scores,
+// lse (B, S, Hq) in fp32 and natural units, m + log(max(l, 1e-30)) as the
+// reference's _flash_fwd_pass saves it for its backward.  It is a template
+// flag too (LSE): the launches without it compile to the code they had.
+// The bf16 kernel runs its softmax in the log2 domain (scores times
+// scale * log2 e), so there lse = (m2 + log2 l) * ln 2.
+//
 // Bound on the H100: operations (4 * D flops per attended (query, key)
 // pair, on the tensor cores for bf16), against bytes that are read once.
 //
@@ -97,6 +104,7 @@ struct FlashArgs {
   float logit_cap, scale;
   const int* kv_len;   // (B,) valid keys per row, or null: all S
   float empty_den;     // a length-0 row's divisor (see the top)
+  float* lse;          // (B, S, Hq) fp32, written where LSE
 };
 
 // Valid keys of row b: kv_len[b] clamped to [0, S], or S without padding.
@@ -105,7 +113,8 @@ __device__ inline int row_keys(const FlashArgs& a, int b) {
   return KV ? min(max(a.kv_len[b], 0), a.S) : a.S;
 }
 
-template <typename T, bool KV, int kMaxWC>   // output words per thread
+template <typename T, bool KV, int kMaxWC,   // output words per thread
+          bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt(FlashArgs a) {
   constexpr int E = Word<T>::N;
@@ -250,6 +259,9 @@ flash_attention_simt(FlashArgs a) {
     const int qpos = q_lo + ty * kRows + i;
     if (qpos < a.S) {
       const float d = uniform ? a.empty_den : fmaxf(l[i], 1e-30f);
+      if constexpr (LSE) {
+        if (tx == 0) a.lse[(b * a.S + qpos) * a.Hq + h] = m[i] + logf(d);
+      }
       uint32_t* orow = reinterpret_cast<uint32_t*>(
           static_cast<T*>(a.out) + b * a.o_sb + qpos * a.o_ss + h * a.o_sh);
 #pragma unroll
@@ -375,7 +387,7 @@ __device__ inline void load_a(uint32_t (&r)[4], const __nv_bfloat16* base,
                      (lane >> 4) * 8);
 }
 
-template <int DP, bool KV>
+template <int DP, bool KV, bool LSE>
 __global__ void __launch_bounds__(MmaTile<DP>::kThreads)
 flash_attention_mma(FlashArgs a) {
   using M = MmaTile<DP>;
@@ -613,6 +625,11 @@ flash_attention_mma(FlashArgs a) {
   for (int r = 0; r < 2; ++r) {
     const float inv = 1.f / (uniform ? a.empty_den : fmaxf(group_sum<4>(l[r]), 1e-30f));
     const int qpos = row0 + r * 8;
+    if constexpr (LSE) {
+      constexpr float kLn2 = 0.6931471805599453f;
+      if (t == 0 && qpos < a.S)
+        a.lse[(b * a.S + qpos) * a.Hq + h] = (m[r] - log2f(inv)) * kLn2;
+    }
     if (qpos < a.S) {
       bf16* orow = static_cast<bf16*>(a.out) + b * a.o_sb + qpos * a.o_ss + h * a.o_sh;
 #pragma unroll
@@ -630,8 +647,9 @@ flash_attention_mma(FlashArgs a) {
 template <int DP>
 cudaError_t launch_mma(const FlashArgs& a, int B, cudaStream_t stream) {
   using M = MmaTile<DP>;
-  auto kernel = a.kv_len ? &flash_attention_mma<DP, true>
-                         : &flash_attention_mma<DP, false>;
+  auto kernel = a.kv_len ? &flash_attention_mma<DP, true, false>
+               : a.lse  ? &flash_attention_mma<DP, false, true>
+                        : &flash_attention_mma<DP, false, false>;
   cudaError_t err = allow_smem(kernel, M::kSmem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * a.Hq, (a.S + M::kBQ - 1) / M::kBQ);
@@ -644,8 +662,9 @@ cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
   const int pitch = a.D + 1;
   const size_t bytes = 4 * (static_cast<size_t>(kBQ + 2 * kBK) * pitch +
                             static_cast<size_t>(kBQ) * (kBK + 1));
-  auto kernel = a.kv_len ? &flash_attention_simt<float, true, kMaxWC>
-                         : &flash_attention_simt<float, false, kMaxWC>;
+  auto kernel = a.kv_len ? &flash_attention_simt<float, true, kMaxWC, false>
+               : a.lse  ? &flash_attention_simt<float, false, kMaxWC, true>
+                        : &flash_attention_simt<float, false, kMaxWC, false>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * a.Hq, (a.S + kBQ - 1) / kBQ);
@@ -653,27 +672,9 @@ cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace repro
-
-// Plain C entry point.  q: (B, S, Hq, D), k, v: (B, S, Hkv, D), out:
-// (B, S, Hq, D), each with its (batch, seq, head) strides and a unit
-// stride on D; kv_len: (B,) int32 on the device, or null.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int flash_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int S,
-    int Hq, int Hkv, int D, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-    long long o_sh, int causal, int window, int glob, float logit_cap,
-    const int* kv_len, float empty_den, int dtype, void* stream) {
-  using namespace repro;
-  FlashArgs a{q, k, v, out, S, Hq, Hkv, D,
-              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-              o_sb, o_ss, o_sh, causal, window, glob, logit_cap,
-              1.0f / sqrtf(static_cast<float>(D)), kv_len, empty_den};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || S == 0) return 0;
+// Launch the kernel for `a`'s dtype and head dim.
+int dispatch(const FlashArgs& a, int B, int dtype, cudaStream_t s) {
+  if (B == 0 || a.S == 0) return 0;
   if (dtype == kBF16) {
     const int D = a.D;
     if (D <= 16) return static_cast<int>(launch_mma<16>(a, B, s));
@@ -690,4 +691,44 @@ extern "C" int flash_attention(
     if (a.D <= 256) return static_cast<int>(launch_simt<32>(a, B, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+}  // namespace repro
+
+// Plain C entry points.  q: (B, S, Hq, D), k, v: (B, S, Hkv, D), out:
+// (B, S, Hq, D), each with its (batch, seq, head) strides and a unit
+// stride on D; kv_len: (B,) int32 on the device, or null.  Each returns
+// cudaGetLastError() after the launch.
+extern "C" int flash_attention(
+    const void* q, const void* k, const void* v, void* out, int B, int S,
+    int Hq, int Hkv, int D, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+    long long o_sh, int causal, int window, int glob, float logit_cap,
+    const int* kv_len, float empty_den, int dtype, void* stream) {
+  using namespace repro;
+  FlashArgs a{q, k, v, out, S, Hq, Hkv, D,
+              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+              o_sb, o_ss, o_sh, causal, window, glob, logit_cap,
+              1.0f / sqrtf(static_cast<float>(D)), kv_len, empty_den,
+              nullptr};
+  return dispatch(a, B, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The same without key padding, writing lse: a contiguous (B, S, Hq) fp32
+// tensor (the training forward).
+extern "C" int flash_attention_lse(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int B, int S, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, int causal, int window, int glob,
+    float logit_cap, int dtype, void* stream) {
+  using namespace repro;
+  FlashArgs a{q, k, v, out, S, Hq, Hkv, D,
+              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+              o_sb, o_ss, o_sh, causal, window, glob, logit_cap,
+              1.0f / sqrtf(static_cast<float>(D)), nullptr, 0.f, lse};
+  return dispatch(a, B, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -20,6 +20,14 @@ the kernel or raises.  Each launch adds one to one counter:
 instance, ``launches`` up to 128, ``d192_launches`` above 128 up to 192
 and ``d256_launches`` above that.  ``grid`` gives the blocks one call
 launches.
+
+Training: where autograd records the call (grad mode on and q, k or v
+requiring grad), a CUDA call runs ``FlashAttentionFn``.  Its forward
+launches the same kernel with the log-sum-exp output (``lse_launches``);
+its backward launches the backward kernel (csrc/flash_attention_bwd.cu,
+``bwd_launches``), which takes causal or bidirectional GQA up to head dim
+128 and raises on a window, a logit cap and key padding.  On a CPU tensor
+the plain version carries its own gradient (``layers.blockwise_attention``).
 """
 from __future__ import annotations
 
@@ -29,17 +37,22 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_lse_ref,
+                                                     flash_attention_ref)
 
 launches = 0
 masked_launches = 0
 d192_launches = 0
 d256_launches = 0
+lse_launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
 _ROW_BYTES = 16               # a row is a whole number of 16-byte chunks
 _BQ = 64                      # query rows per block, both kernels
+_MAX_BWD_D = 128
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -50,6 +63,24 @@ def _fn():
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                    _I, _I, _I, _F, _P, _F, _I, _P]
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _lse_fn():
+    fn = _build.load_library().flash_attention_lse
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                   _I, _I, _I, _F, _I, _P]
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_fn():
+    fn = _build.load_library().flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P] * 9 + [_I] * 7 + [_P]
     return fn
 
 
@@ -117,6 +148,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    logit_cap=logit_cap, is_global=is_global,
                                    kv_len=kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _check_bwd(q, window, logit_cap, is_global, kv_len)
+        return FlashAttentionFn.apply(q, k, v, bool(causal))
     _check(q, k, v, kv_len, window, is_global)
     B, S, Hq, D = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -141,3 +176,99 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     else:
         launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# training: the forward with its log-sum-exp, and the backward kernel
+# ---------------------------------------------------------------------------
+
+def _check_bwd(q, window, logit_cap, is_global, kv_len):
+    """Raise on what the backward kernel does not take."""
+    D = q.shape[-1]
+    if window and not is_global:
+        raise NotImplementedError("flash backward: a sliding window is not "
+                                  "supported by the kernel")
+    if logit_cap > 0.0:
+        raise NotImplementedError("flash backward: a logit cap is not "
+                                  "supported by the kernel")
+    if kv_len is not None:
+        raise NotImplementedError("flash backward: key padding (kv_len) is "
+                                  "not supported by the kernel")
+    if D > _MAX_BWD_D:
+        raise NotImplementedError(f"flash backward: head_dim {D} > "
+                                  f"{_MAX_BWD_D} is not supported by the "
+                                  "kernel")
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True):
+    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (out (B, S, Hq, D), lse
+    (B, S, Hq) fp32): the flash kernel with its log-sum-exp output, natural
+    units of the scaled scores.  A CPU tensor takes the plain version."""
+    global lse_launches
+    if q.device.type == "cpu":
+        return flash_attention_lse_ref(q, k, v, causal=causal)
+    _check(q, k, v, None, 0, None)
+    B, S, Hq, D = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lse_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), B, S, Hq, k.shape[2], D,
+                    q.stride(0), q.stride(1), q.stride(2),
+                    k.stride(0), k.stride(1), k.stride(2),
+                    v.stride(0), v.stride(1), v.stride(2),
+                    out.stride(0), out.stride(1), out.stride(2),
+                    int(bool(causal)), 0, 0, 0.0, _DTYPES[q.dtype], stream)
+    _build.check(err, "flash_attention_lse")
+    lse_launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
+    """Gradients (dq, dk, dv) of the flash attention whose forward gave
+    ``out`` and ``lse``, for the output gradient ``dout``.  ``delta =
+    rowsum(dout * out)`` in fp32 is stock torch; the kernel does the rest.
+    A CPU tensor takes the plain version."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                       causal=causal)
+    _check(q, k, v, None, 0, None)
+    _check_bwd(q, 0, 0.0, None, None)
+    B, S, Hq, D = q.shape
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout.to(q.dtype)))
+    lse = lse.contiguous()
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, S, Hq):
+        raise ValueError(f"lse must be ({B}, {S}, {Hq}) float32, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    delta = (dout.float() * out.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    B, S, Hq, k.shape[2], D, int(bool(causal)),
+                    _DTYPES[q.dtype], stream)
+    _build.check(err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient on the card: the forward kernel
+    with its log-sum-exp, then the backward kernel; saves (q, k, v, out,
+    lse) as the reference's ``_flash_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None

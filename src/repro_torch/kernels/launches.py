@@ -17,6 +17,8 @@ COUNTERS = {"ragged_decode": (_rd, "launches"),
             "flash_attention_kv_len": (_fa, "masked_launches"),
             "flash_attention_d192": (_fa, "d192_launches"),
             "flash_attention_d256": (_fa, "d256_launches"),
+            "flash_attention_lse": (_fa, "lse_launches"),
+            "flash_attention_bwd": (_fa, "bwd_launches"),
             "mamba_step": (_ms, "step_launches"),
             "mamba_scan": (_ms, "scan_launches"),
             "flex_mm": (_fm, "launches"),

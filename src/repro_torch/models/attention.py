@@ -63,23 +63,27 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device) -> Params
 
 
 def _proj(x, w):
-    """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd)."""
+    """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd).  Weights are cast to
+    x's dtype at use, as the reference does (fp32 training masters); at
+    serving they already are, and ``.to`` returns them as they are."""
     d, h, hd = w.shape
-    return (x @ w.reshape(d, h * hd)).reshape(*x.shape[:-1], h, hd)
+    return (x @ w.reshape(d, h * hd).to(x.dtype)).reshape(*x.shape[:-1], h,
+                                                          hd)
 
 
 def _out(o, wo):
     """o (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d)."""
     h, hd, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    return o.reshape(*o.shape[:-2], h * hd) @ wo.reshape(h * hd, d).to(
+        o.dtype)
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x, positions):
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)

@@ -1,6 +1,6 @@
 """Core layers of the port: norms, activations, RoPE, plain attention.
 
-Port of ``repro.models.layers`` (forward only).  Each function keeps the
+Port of ``repro.models.layers``.  Each function keeps the
 reference's arithmetic: reductions and softmax in fp32, operands of the two
 attention products in the input dtype with fp32 accumulation, the same mask
 order and the same finite ``NEG_INF`` fill.  ``blockwise_attention`` and
@@ -108,28 +108,15 @@ def _block_mask(qpos, kpos, valid_len, *, causal, window, is_global):
     return mask
 
 
-def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
-                        window: int = 0, kv_len=None, block_size: int = 512,
-                        logit_cap: float = 0.0, is_global=None):
-    """Flash-attention algorithm in plain PyTorch, forward only.
-
-    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0.  A loop over
-    KV blocks of ``block_size`` with a running max and sum in fp32; scores
-    in fp32, ``p`` cast to the value dtype before P.V, output in q's dtype.
-    kv_len: optional scalar or per-row (B,) valid KV length.
-    """
+def _flash_fwd_pass(q, k, v, *, causal, window, block_size, logit_cap,
+                    q_offset, valid_len, is_global):
+    """The forward loop over KV blocks (k, v padded to whole blocks):
+    (out in q's dtype, lse (B, Sq, Hq) fp32)."""
     B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     groups = Hq // Hkv
-    block_size = min(block_size, Skv)
-    nblk = -(-Skv // block_size)
-    pad = nblk * block_size - Skv
-    if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nblk = k.shape[1] // block_size
     dev = q.device
-    valid_len = torch.as_tensor(Skv if kv_len is None else kv_len,
-                                dtype=torch.int64, device=dev)
     scale = 1.0 / math.sqrt(D)
     qpos = torch.arange(Sq, device=dev) + q_offset
     qf = q.float()
@@ -154,7 +141,139 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
             "bqhk,bkhd->bqhd", p.to(v.dtype).float(), vexp.float())
         l = l * resc + p.sum(dim=-1)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    lsafe = torch.clamp(l, min=1e-30)
+    return (acc / lsafe[..., None]).to(q.dtype), m + torch.log(lsafe)
+
+
+def _flash_bwd_pass(q, k, v, out, dout, lse, *, causal, window, block_size,
+                    logit_cap, q_offset, valid_len, is_global):
+    """Port of the reference's ``_flash_bwd``: the block scores recomputed
+    from (q, k, v, lse), the GQA groups summed back onto their KV heads.
+    k and v are padded to whole blocks; returns (dq, dk, dv) in the
+    input dtypes."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    groups = Hq // Hkv
+    nblk = k.shape[1] // block_size
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+    qpos = torch.arange(Sq, device=dev) + q_offset
+    qf, doutf = q.float(), dout.float()
+    delta = torch.sum(doutf * out.float(), dim=-1)              # (B,Sq,Hq)
+    dq = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for i in range(nblk):
+        sl = slice(i * block_size, (i + 1) * block_size)
+        kpos = i * block_size + torch.arange(block_size, device=dev)
+        kexp = k[:, sl].repeat_interleave(groups, dim=2).float()
+        vexp = v[:, sl].repeat_interleave(groups, dim=2).float()
+        s_raw = torch.einsum("bqhd,bkhd->bqhk", qf, kexp) * scale
+        s = logit_cap * torch.tanh(s_raw / logit_cap) if logit_cap > 0.0 \
+            else s_raw
+        mask = _block_mask(qpos, kpos, valid_len, causal=causal,
+                           window=window, is_global=is_global)
+        s = torch.where(mask[:, :, None, :], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                       # (B,Sq,Hq,blk)
+        dv_h = torch.einsum("bqhk,bqhd->bkhd", p.to(v.dtype).float(), doutf)
+        dp = torch.einsum("bqhd,bkhd->bqhk", doutf, vexp)
+        ds = p * (dp - delta[..., None])
+        if logit_cap > 0.0:
+            ds = ds * (1.0 - torch.square(torch.tanh(s_raw / logit_cap)))
+        ds = torch.where(mask[:, :, None, :], ds, 0.0)
+        dsc = ds.to(k.dtype).float()
+        dq = dq + torch.einsum("bqhk,bkhd->bqhd", dsc, kexp) * scale
+        dk_h = torch.einsum("bqhk,bqhd->bkhd", dsc, qf) * scale
+        # fold GQA: sum the query-head groups back onto their kv heads
+        dks.append(dk_h.reshape(B, block_size, Hkv, groups, D).sum(3))
+        dvs.append(dv_h.reshape(B, block_size, Hkv, groups, D).sum(3))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """``blockwise_attention`` with the reference's custom VJP: the forward
+    saves (q, k, v, out, lse), the backward recomputes the block scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_len, kw):
+        out, lse = _flash_fwd_pass(q, k, v, valid_len=valid_len, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, valid_len)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, valid_len = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_pass(q, k, v, out, dout, lse,
+                                     valid_len=valid_len, **ctx.kw)
+        return dq, dk, dv, None, None
+
+
+def _flash_setup(k, v, kv_len, block_size, dev):
+    """(k, v padded to whole blocks, block size, valid length tensor)."""
+    Skv = k.shape[1]
+    block_size = min(block_size, Skv)
+    pad = -(-Skv // block_size) * block_size - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    valid_len = torch.as_tensor(Skv if kv_len is None else kv_len,
+                                dtype=torch.int64, device=dev)
+    return k, v, block_size, valid_len
+
+
+def blockwise_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                        window: int = 0, kv_len=None, block_size: int = 512,
+                        logit_cap: float = 0.0, is_global=None):
+    """Flash-attention algorithm in plain PyTorch, forward and backward.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0.  A loop over
+    KV blocks of ``block_size`` with a running max and sum in fp32; scores
+    in fp32, ``p`` cast to the value dtype before P.V, output in q's dtype.
+    kv_len: optional scalar or per-row (B,) valid KV length.  Where autograd
+    records the call, the gradient is the reference's flash backward
+    (``_flash_bwd``: saves (q, k, v, out, lse) and recomputes the scores).
+    """
+    k, v, block_size, valid_len = _flash_setup(k, v, kv_len, block_size,
+                                               q.device)
+    kw = dict(causal=causal, window=window, block_size=block_size,
+              logit_cap=logit_cap, q_offset=q_offset, is_global=is_global)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, valid_len, kw)
+    return _flash_fwd_pass(q, k, v, valid_len=valid_len, **kw)[0]
+
+
+def flash_forward(q, k, v, *, causal: bool, q_offset: int = 0,
+                  window: int = 0, kv_len=None, block_size: int = 512,
+                  logit_cap: float = 0.0, is_global=None):
+    """``blockwise_attention``'s forward with its log-sum-exp: (out, lse
+    (B, Sq, Hq) fp32, natural units of the scaled scores), the reference's
+    ``_flash_fwd_pass``."""
+    k, v, block_size, valid_len = _flash_setup(k, v, kv_len, block_size,
+                                               q.device)
+    return _flash_fwd_pass(q, k, v, causal=causal, window=window,
+                           block_size=block_size, logit_cap=logit_cap,
+                           q_offset=q_offset, valid_len=valid_len,
+                           is_global=is_global)
+
+
+def flash_backward(q, k, v, out, dout, lse, *, causal: bool,
+                   q_offset: int = 0, window: int = 0, kv_len=None,
+                   block_size: int = 512, logit_cap: float = 0.0,
+                   is_global=None):
+    """(dq, dk, dv) of ``blockwise_attention`` from a forward's ``out`` and
+    ``lse`` and the output gradient ``dout``: the reference's
+    ``_flash_bwd`` on given inputs (the flash backward kernel's plain
+    version)."""
+    Skv = k.shape[1]
+    kp, vp, block_size, valid_len = _flash_setup(k, v, kv_len, block_size,
+                                                 q.device)
+    dq, dk, dv = _flash_bwd_pass(
+        q, kp, vp, out, dout, lse, causal=causal, window=window,
+        block_size=block_size, logit_cap=logit_cap, q_offset=q_offset,
+        valid_len=valid_len, is_global=is_global)
+    return dq, dk[:, :Skv], dv[:, :Skv]
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,

@@ -6,11 +6,18 @@ for dense and MoE decoders (GQA or MLA attention, with DeepSeek's
 first-k-dense prologue), attention-free Mamba decoders, hybrid decoders
 (attention beside Mamba in every layer) and dense GQA encoder-decoders (whose audio frontend is a stub: token embeddings or
 precomputed frame embeddings enter the encoder through ``frame_norm``).
-Weights are cast once, at load, to the
+For serving, weights are cast once, at load, to the
 activation dtype: the same values as the reference's per-use
 ``.astype(x.dtype)`` at half the memory of fp32.  Norm parameters and the
 Mamba block's conv_w, conv_b, dt_bias, A_log and D stay fp32, as the
-reference computes with them in fp32.
+reference computes with them in fp32.  Training keeps fp32 masters
+(``init(generator, dtype=cfg.param_dtype)``), which the layers cast to the
+activation dtype at use, as the reference does.
+
+``loss(params, batch)`` is the training objective, the reference's
+``Model.loss``, for dense decoder-only archs (minitron, qwen2.5, granite,
+chameleon, qwen1.5); the other families raise, naming the ROADMAP item
+that brings their training.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -36,11 +43,14 @@ class Model:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------
-    def init(self, generator: torch.Generator) -> PyTree:
-        """Random weights from ``generator`` (on this model's device), in
-        the activation dtype, with the reference's init scales."""
+    def init(self, generator: torch.Generator, dtype=None) -> PyTree:
+        """Random weights from ``generator`` (on this model's device), with
+        the reference's init scales, in ``dtype`` (a torch dtype or its
+        name, as ``cfg.param_dtype``; None: the activation dtype, for
+        serving)."""
         cfg, dev = self.cfg, self.device
-        dt = cfg.activation_dtype
+        dt = (cfg.activation_dtype if dtype is None else dtype
+              if isinstance(dtype, torch.dtype) else torch_dtype(dtype))
         std = cfg.d_model ** -0.5
 
         def normal(shape):
@@ -89,6 +99,33 @@ class Model:
         pos = torch.arange(S, device=x.device).expand(B, S)
         return T.encoder_fwd(params["encoder"], cfg, x, pos, kv_len=src_len,
                              use_kernels=use_kernels)
+
+    # ------------------------------------------------------------------
+    def loss(self, params, batch, *, use_kernels: bool = True):
+        """batch: {tokens, labels} (B, S) int -> (loss, {"xent", "aux"}).
+
+        Labels below 0 are masked out.  The dense archs have no auxiliary
+        loss (aux 0; the reference adds 0.01 aux for MoE).  The decoder
+        runs with per-layer remat when ``cfg.remat``; the cross-entropy is
+        chunked (``transformer.chunked_softmax_xent``).  ``use_kernels``:
+        attention through the flash kernels and their backward on the card
+        (the plain versions on a CPU tensor either way)."""
+        cfg = self.cfg
+        check_trainable(cfg)
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        pos = torch.arange(S, device=x.device).expand(B, S)
+        x = T.decoder_fwd(params["decoder"], cfg, x, pos,
+                          use_kernels=use_kernels, remat=cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        xent = T.chunked_softmax_xent(x, self._head(params),
+                                      torch.clamp(labels, min=0), mask,
+                                      logit_softcap=cfg.logit_softcap)
+        return xent, {"xent": xent, "aux": aux}
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *, src_len: int = 0):
@@ -197,6 +234,21 @@ class Model:
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         logits = self._mask_pad(x[:, 0] @ self._head(params))
         return logits, cache
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for the families whose training the port does not have yet,
+    naming the ROADMAP item that brings each."""
+    later = None
+    if cfg.moe is not None or cfg.mla is not None:
+        later = "MoE and MLA training (ROADMAP queue 1, item 1 (a))"
+    elif cfg.ssm is not None or cfg.hybrid_parallel:
+        later = "SSM and hybrid training (ROADMAP queue 1, item 1 (b))"
+    elif cfg.is_encdec:
+        later = "enc-dec training (ROADMAP queue 1, item 1 (c))"
+    if later:
+        raise NotImplementedError(f"{cfg.name}: the port trains dense "
+                                  f"decoder-only archs; {later} comes later")
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:

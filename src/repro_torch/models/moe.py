@@ -50,13 +50,14 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int, *, dtype,
 
 
 def ffn_apply(p: Params, cfg: ModelConfig, x):
+    """Weights cast to x's dtype at use, as in ``attention._proj``."""
     act = L.activation(cfg.act)
-    up = x @ p["w_up"]
+    up = x @ p["w_up"].to(x.dtype)
     if cfg.glu:
-        h = act(x @ p["w_gate"]) * up
+        h = act(x @ p["w_gate"].to(x.dtype)) * up
     else:
         h = act(up)
-    return h @ p["w_down"]
+    return h @ p["w_down"].to(x.dtype)
 
 
 def _expert_ffn(p: Params, cfg: ModelConfig, x):

@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -294,13 +295,24 @@ def _global(cfg: ModelConfig, i: int) -> bool:
 
 
 def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
-                use_kernels: bool = True, moe_dispatch: str = "einsum"):
-    """Full-sequence causal decoder pass without a cache (the embedding
-    stacks of decoder-only archs)."""
+                use_kernels: bool = True, moe_dispatch: str = "einsum",
+                remat: bool = False):
+    """Full-sequence causal decoder pass without a cache (training, and the
+    embedding stacks of decoder-only archs).  With ``remat`` and autograd
+    recording, each layer is checkpointed (non-reentrant): its backward
+    recomputes the layer from its input, as the reference's scan body
+    under ``jax.checkpoint(nothing_saveable)`` does."""
+    def layer(lp, i, h):
+        return _layer_fwd(lp, cfg, h, positions, causal=True,
+                          is_global=_global(cfg, i), kv_len=None,
+                          use_kernels=use_kernels, moe_dispatch=moe_dispatch)
+
+    remat = remat and torch.is_grad_enabled()
     for i, lp in enumerate(params["prologue"] + params["layers"]):
-        x = _layer_fwd(lp, cfg, x, positions, causal=True,
-                       is_global=_global(cfg, i), kv_len=None,
-                       use_kernels=use_kernels, moe_dispatch=moe_dispatch)
+        if remat:
+            x = checkpoint(layer, lp, i, x, use_reentrant=False)
+        else:
+            x = layer(lp, i, x)
     return x
 
 
@@ -364,3 +376,38 @@ def encoder_fwd(params, cfg: ModelConfig, x, positions, *, kv_len=None,
         x = _layer_fwd(lp, cfg, x, positions, causal=False, is_global=False,
                        kv_len=kv_len, use_kernels=use_kernels)
     return L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(xb, w_head, lb, mb, logit_softcap: float):
+    """Summed masked NLL of one sequence chunk: logits in the activation
+    dtype, then fp32; the gold logit by a gather (the reference's one-hot
+    contraction picks the same value)."""
+    logits = (xb @ w_head.to(xb.dtype)).float()
+    if logit_softcap > 0.0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mb)
+
+
+def chunked_softmax_xent(x, w_head, labels, mask, *, chunk: int = 512,
+                         logit_softcap: float = 0.0):
+    """Mean cross-entropy over a huge vocabulary without materializing
+    (B, S, V): x (B, S, d), w_head (d, V), labels and mask (B, S).  Only
+    one chunk's (B, chunk, V) logits exist at a time; under autograd each
+    chunk is checkpointed, so the backward recomputes its logits instead
+    of keeping them (about 2.1 GB per chunk of fp32 logits at vocab 256000
+    and B 4), as the reference checkpoints its scan body."""
+    S = x.shape[1]
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        args = (x[:, c0:c0 + chunk], w_head, labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk], logit_softcap)
+        tot = tot + (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                     if remat else _xent_chunk(*args))
+    return tot / torch.clamp(mask.sum(), min=1.0)

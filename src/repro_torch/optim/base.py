@@ -1,0 +1,274 @@
+"""Optimizers of the port (``repro.optim.base``): AdamW, factored
+Adafactor, global-norm clipping and the cosine schedule, with the
+reference's formulas.  ``make_optimizer(cfg)`` picks AdamW (the default)
+or Adafactor (qwen1.5-110b, arctic-480b).
+
+Parameters are the port's tree: dicts, and lists of per-layer dicts.  The
+reference stacks its scanned layers' leaves on a leading layer axis, and
+its rules read the stacked shape, so here the leaves of a list under the
+key ``layers`` (the decoder's and an encoder's scanned stacks) form one
+group per leaf path, counted as their stack:
+
+- AdamW decays a leaf whose stacked rank is at least 2 (``ndim + 1`` for
+  a stacked leaf): a layer's norm scale and bias are decayed, the final
+  norm's are not, as in the reference.
+- Adafactor factors a stacked leaf over the stack of its per-layer copies:
+  a stacked (L, d) leaf keeps a row statistic (L,) and a column statistic
+  (d,) that is a mean over the layers, and the update-clip RMS is taken
+  over the whole stack.
+
+The prologue (a list under another key) is unstacked, as in the reference.
+Updates run IN PLACE on the parameters and their states, one leaf at a
+time and in bounded chunks (AdamW), so a full-width model trains with no
+second copy of a parameter; ``torch.optim`` is not used, since its state
+layout and decay rule are not the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Iterator, List, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import torch_dtype
+
+PyTree = Any
+_CHUNK = 1 << 26        # AdamW's elements per in-place pass (256 MB fp32)
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[PyTree], PyTree]
+    update: Callable[..., Tuple[PyTree, PyTree]]   # (grads, state, params, lr)
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree: PyTree) -> List[torch.Tensor]:
+    """Tensors of a tree of dicts and lists, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree: PyTree) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    else:
+        yield path
+
+
+def leaf_groups(tree: PyTree, path=()) -> Iterator[Tuple[str, List, bool]]:
+    """(name, tensors, stacked) per group: one stacked group per leaf path
+    of a list under ``layers`` (its per-layer tensors in layer order),
+    one unstacked group per other leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_groups(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        if path and path[-1] == "layers" and tree:
+            for sub in _paths(tree[0]):
+                yield (".".join(map(str, path + sub)),
+                       [_at(layer, sub) for layer in tree], True)
+        else:
+            for i, v in enumerate(tree):
+                yield from leaf_groups(v, path + (i,))
+    else:
+        yield ".".join(map(str, path)), [tree], False
+
+
+# ---------------------------------------------------------------------------
+# gradient utilities
+# ---------------------------------------------------------------------------
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor)."""
+    leaves = tree_leaves(tree)
+    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_by_global_norm(tree: PyTree, max_norm: float
+                        ) -> Tuple[PyTree, torch.Tensor]:
+    """Scale every leaf IN PLACE by min(1, max_norm / norm); returns
+    (tree, norm before clipping)."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    # a bf16 leaf is scaled in fp32 and rounded, as the reference does
+    torch._foreach_mul_(tree_leaves(tree), scale)
+    return tree, norm
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    state_dtype: str = "float32"       # bf16 states halve their memory
+
+
+def _flat_chunks(*ts):
+    """Matching 1-D views of at most ``_CHUNK`` elements of each tensor."""
+    flat = [t.view(-1) for t in ts]
+    n = flat[0].numel()
+    for lo in range(0, n, _CHUNK):
+        yield [f[lo:lo + _CHUNK] for f in flat]
+
+
+def adamw(cfg: AdamWConfig = AdamWConfig()) -> Optimizer:
+    sdt = torch_dtype(cfg.state_dtype)
+
+    def init(params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=sdt, device=p.device)
+        dev = tree_leaves(params)[0].device
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(grads, state, params, lr):
+        state["count"].add_(1)
+        count = state["count"].float()
+        b1c = 1.0 - cfg.b1 ** count
+        b2c = 1.0 - cfg.b2 ** count
+        groups = zip(leaf_groups(grads), leaf_groups(state["m"]),
+                     leaf_groups(state["v"]), leaf_groups(params))
+        with torch.no_grad():
+            for (_, gs, stacked), (_, ms, _), (_, vs, _), (_, ps, _) \
+                    in groups:
+                for g, m, v, p in zip(gs, ms, vs, ps):
+                    decay = p.ndim + int(stacked) >= 2
+                    for gc, mc, vc, pc in _flat_chunks(g, m, v, p):
+                        g32 = gc.float()
+                        # fp32 states and params update in place (.float()
+                        # is then the tensor itself); others via a copy
+                        m32 = mc.float().mul_(cfg.b1).add_(g32,
+                                                           alpha=1 - cfg.b1)
+                        v32 = vc.float().mul_(cfg.b2).addcmul_(
+                            g32, g32, value=1 - cfg.b2)
+                        step = (m32 / b1c).div_(
+                            torch.sqrt(v32 / b2c).add_(cfg.eps))
+                        if decay:   # decoupled weight decay on matrices
+                            step.add_(pc.float(), alpha=cfg.weight_decay)
+                        p32 = pc.float().sub_(step, alpha=lr)
+                        for dst, src in ((mc, m32), (vc, v32), (pc, p32)):
+                            if dst is not src:
+                                dst.copy_(src)
+        return params, state
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment, beta1 = 0)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AdafactorConfig:
+    decay: float = 0.8          # t^-decay running-average schedule
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+    weight_decay: float = 0.0
+
+
+def adafactor(cfg: AdafactorConfig = AdafactorConfig()) -> Optimizer:
+    """State per group, keyed by its dotted path: a stacked group's
+    statistics are those of the reference's stacked leaf."""
+
+    def init(params):
+        state, dev = {}, None
+        for name, ts, stacked in leaf_groups(params):
+            shape = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)
+            dev = ts[0].device
+            z = lambda s: torch.zeros(s, dtype=torch.float32, device=dev)
+            if len(shape) >= 2:
+                state[name] = {"vr": z(shape[:-1]),
+                               "vc": z(shape[:-2] + shape[-1:])}
+            else:
+                state[name] = {"v": z(shape)}
+        return {"v": state,
+                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(grads, state, params, lr):
+        state["count"].add_(1)
+        beta = 1.0 - state["count"].float() ** (-cfg.decay)
+        with torch.no_grad():
+            for (name, gs, stacked), (_, ps, _) in zip(leaf_groups(grads),
+                                                       leaf_groups(params)):
+                v = state["v"][name]
+                g32 = (torch.stack(gs) if stacked else gs[0]).float()
+                p32 = (torch.stack(ps) if stacked else ps[0]).float()
+                g2 = torch.square(g32) + cfg.eps
+                if p32.ndim >= 2:
+                    vr = beta * v["vr"] + (1 - beta) * g2.mean(dim=-1)
+                    vc = beta * v["vc"] + (1 - beta) * g2.mean(dim=-2)
+                    rfac = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True)
+                                       + cfg.eps)
+                    cfac = torch.rsqrt(vc + cfg.eps)
+                    step = g32 * rfac[..., None] * cfac[..., None, :]
+                    v["vr"].copy_(vr)
+                    v["vc"].copy_(vc)
+                else:
+                    vv = beta * v["v"] + (1 - beta) * g2
+                    step = g32 * torch.rsqrt(vv + cfg.eps)
+                    v["v"].copy_(vv)
+                # update clipping (rms of the step <= threshold)
+                rms = torch.sqrt(torch.mean(torch.square(step)) + 1e-30)
+                step = step / torch.clamp(rms / cfg.clip_threshold, min=1.0)
+                if cfg.weight_decay and p32.ndim >= 2:
+                    step = step + cfg.weight_decay * p32
+                newp = p32 - lr * step
+                for i, p in enumerate(ps):
+                    p.copy_(newp[i] if stacked else newp)
+        return params, state
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# LR schedules
+# ---------------------------------------------------------------------------
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    final_frac: float = 0.1) -> Callable[[int], float]:
+    """step -> lr: linear warmup from 0, then a cosine down to
+    ``final_frac * base_lr`` at ``total``.  0 at step 0."""
+    def lr(step) -> float:
+        step = float(step)
+        if step < warmup:
+            return base_lr * min(1.0, step / max(warmup, 1))
+        prog = min(max((step - warmup) / max(total - warmup, 1), 0.0), 1.0)
+        return base_lr * (final_frac + (1 - final_frac) * 0.5
+                          * (1 + math.cos(math.pi * prog)))
+
+    return lr
+
+
+def make_optimizer(name: str, **kwargs) -> Optimizer:
+    if name == "adamw":
+        return adamw(AdamWConfig(**kwargs))
+    if name == "adafactor":
+        return adafactor(AdafactorConfig(**kwargs))
+    raise ValueError(name)

@@ -1,0 +1,189 @@
+"""The port's flash attention with a gradient against the reference's
+``layers.blockwise_attention`` custom VJP.
+
+The plain autograd Function (``repro_torch.models.layers.blockwise_attention``
+and ``flash_forward`` / ``flash_backward``) gets the same numpy-seeded q, k,
+v and output gradient as the reference: ``out`` and ``lse`` against
+``_flash_fwd_pass``, and (dq, dk, dv) against ``jax.vjp`` of
+``blockwise_attention``, over the whole contract (causal, bidirectional,
+GQA, multi-query, S no multiple of the block, a window with a global
+layer, a logit cap, per-row key lengths).  fp32: within 1e-5 of each
+tensor's largest magnitude (summation order only); bf16: within 2e-2 (the
+two round p and ds to bf16 at the same points, but sum in other orders).
+
+On the CPU the kernel wrappers (``flash_attention_lse``,
+``flash_attention_bwd``, and ``flash_attention`` under autograd) take
+these plain versions; the GPU tests hold the kernels to them.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+
+FP32_TOL = 1e-5
+BF16_TOL = 2e-2
+
+# (name, B, S, Hq, Hkv, D, kwargs of blockwise_attention)
+CASES = [
+    ("causal", 2, 32, 4, 2, 16, dict(causal=True)),
+    ("bidirectional", 2, 32, 4, 2, 16, dict(causal=False)),
+    ("mqa", 1, 32, 4, 1, 16, dict(causal=True)),
+    ("ragged_blocks", 1, 40, 4, 2, 8, dict(causal=True, block_size=16)),
+    ("window", 1, 40, 4, 2, 8, dict(causal=True, window=12,
+                                    block_size=16)),
+    ("window_global", 1, 40, 4, 2, 8, dict(causal=True, window=12,
+                                           block_size=16, is_global=True)),
+    ("logit_cap", 2, 32, 4, 2, 16, dict(causal=True, logit_cap=5.0)),
+    ("kv_len", 2, 40, 4, 2, 8, dict(causal=False, block_size=16,
+                                    kv_len=np.array([40, 23], np.int32))),
+    ("q_offset", 1, 24, 4, 2, 8, dict(causal=True, q_offset=8,
+                                      block_size=16)),
+]
+
+
+def _inputs(B, S, Hq, Hkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    g = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    return q, k, v, g
+
+
+def _jax_kw(kw):
+    out = dict(kw)
+    if "kv_len" in out:
+        out["kv_len"] = jnp.asarray(out["kv_len"])
+    return out
+
+
+def _torch_kw(kw):
+    out = dict(kw)
+    if "kv_len" in out:
+        out["kv_len"] = torch.as_tensor(out["kv_len"])
+    return out
+
+
+def _close(got, want, tol):
+    got = np.asarray(got.float() if hasattr(got, "float") else got,
+                     np.float32)
+    want = np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-6)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (err, scale)
+
+
+def _reference(q, k, v, g, kw, dtype):
+    jq, jk, jv, jg = (jnp.asarray(a, dtype) for a in (q, k, v, g))
+    jkw = _jax_kw(kw)
+
+    def fwd_bwd(a, b, c, g):
+        out, vjp = jax.vjp(
+            lambda a, b, c: JL.blockwise_attention(a, b, c, **jkw), a, b, c)
+        return (out,) + vjp(g)
+
+    out, dq, dk, dv = jax.jit(fwd_bwd)(jq, jk, jv, jg)
+    # lse from the reference's forward pass on whole blocks
+    Skv = k.shape[1]
+    bs = min(kw.get("block_size", 512), Skv)
+    pad = -(-Skv // bs) * bs - Skv
+    kp = jnp.pad(jk, ((0, 0), (0, pad), (0, 0), (0, 0)))
+    vp = jnp.pad(jv, ((0, 0), (0, pad), (0, 0), (0, 0)))
+    valid = jnp.asarray(Skv if "kv_len" not in kw else jkw["kv_len"])
+    is_global = kw.get("is_global")
+    _, lse = JL._flash_fwd_pass(
+        kw["causal"], kw.get("window", 0), bs, kw.get("logit_cap", 0.0),
+        jq, kp, vp, jnp.asarray(kw.get("q_offset", 0)), valid,
+        None if is_global is None else jnp.asarray(is_global))
+    return [np.asarray(jnp.asarray(t, jnp.float32))
+            for t in (out, lse, dq, dk, dv)]
+
+
+def _port(q, k, v, g, kw, dtype):
+    tq, tk, tv = (torch.tensor(a).to(dtype).requires_grad_(True)
+                  for a in (q, k, v))
+    tkw = _torch_kw(kw)
+    out = L.blockwise_attention(tq, tk, tv, **tkw)
+    out.backward(torch.tensor(g).to(dtype))
+    with torch.no_grad():
+        _, lse = L.flash_forward(tq, tk, tv, **tkw)
+    return out.detach(), lse, tq.grad, tk.grad, tv.grad
+
+
+@pytest.mark.parametrize("name,B,S,Hq,Hkv,D,kw", CASES,
+                         ids=[c[0] for c in CASES])
+def test_plain_flash_grads_match_reference_fp32(name, B, S, Hq, Hkv, D, kw):
+    q, k, v, g = _inputs(B, S, Hq, Hkv, D)
+    want = _reference(q, k, v, g, kw, jnp.float32)
+    got = _port(q, k, v, g, kw, torch.float32)
+    for what, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        if what == "lse" and "kv_len" in kw:
+            # a row's padded keys are -1e30 scores on both sides; compare
+            # its valid rows' lse only where they are finite sums
+            b = np.where(b < -1e29, 0.0, b)
+            a = torch.where(a < -1e29, 0.0, a)
+        _close(a, b, FP32_TOL)
+
+
+@pytest.mark.parametrize("name", ["causal", "mqa", "ragged_blocks"])
+def test_plain_flash_grads_match_reference_bf16(name):
+    _, B, S, Hq, Hkv, D, kw = next(c for c in CASES if c[0] == name)
+    q, k, v, g = _inputs(B, S, Hq, Hkv, D, seed=1)
+    want = _reference(q, k, v, g, kw, jnp.bfloat16)
+    got = _port(q, k, v, g, kw, torch.bfloat16)
+    for a, b in zip(got, want):
+        _close(a, b, BF16_TOL)
+
+
+def test_blockwise_forward_unchanged_without_grad():
+    """No autograd: the same forward numbers as with it."""
+    q, k, v, _ = _inputs(2, 40, 4, 2, 8, seed=2)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    with torch.no_grad():
+        plain = L.blockwise_attention(tq, tk, tv, causal=True, block_size=16)
+    graded = L.blockwise_attention(tq.requires_grad_(True), tk, tv,
+                                   causal=True, block_size=16)
+    assert torch.equal(plain, graded.detach())
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    """The kernel wrappers on CPU tensors: ``flash_attention`` under
+    autograd, ``flash_attention_lse`` and ``flash_attention_bwd`` give the
+    plain Function's numbers, and launch nothing."""
+    q, k, v, g = _inputs(1, 40, 4, 2, 16, seed=3)
+    tg = torch.tensor(g)
+    before = (fa.lse_launches, fa.bwd_launches, fa.launches)
+    grads = []
+    for fn in (fa.flash_attention, lambda a, b, c, **kw:
+               L.blockwise_attention(a, b, c, **kw)):
+        tq, tk, tv = (torch.tensor(a).requires_grad_(True) for a in (q, k, v))
+        fn(tq, tk, tv, causal=True).backward(tg)
+        grads.append((tq.grad, tk.grad, tv.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    out, lse = fa.flash_attention_lse(tq, tk, tv, causal=True)
+    dq, dk, dv = fa.flash_attention_bwd(tq, tk, tv, out, tg, lse,
+                                        causal=True)
+    for a, b in zip((dq, dk, dv), grads[0]):
+        assert torch.equal(a, b)
+    assert (fa.lse_launches, fa.bwd_launches, fa.launches) == before
+
+
+def test_kernel_contract_raises_before_launch():
+    q = torch.zeros((1, 8, 2, 16), requires_grad=True)
+    for kw in (dict(window=4), dict(logit_cap=5.0),
+               dict(kv_len=torch.ones(1, dtype=torch.int32))):
+        with pytest.raises(NotImplementedError):
+            fa._check_bwd(q, kw.get("window", 0), kw.get("logit_cap", 0.0),
+                          None, kw.get("kv_len"))
+    fa._check_bwd(q, 4, 0.0, True, None)      # a global layer: no window
+    with pytest.raises(NotImplementedError):
+        fa._check_bwd(torch.zeros((1, 8, 2, 192)), 0, 0.0, None, None)

@@ -181,6 +181,86 @@ def test_flash_kernel_mla_head_dims_on_gpu(cuda, dtype, S, case, D):
         assert bool((got[..., 128:] == 0).all())
 
 
+# flash backward shapes: (label, B, S, Hq, Hkv, D) - minitron-4b's heads at
+# its training batch, granite's multi-query heads, llama-100m's D 64 and a
+# length that is no multiple of the tile
+BWD_SHAPES = (("minitron", 4, 1024, 24, 8, 128), ("granite", 1, 1024, 48, 1, 128),
+              ("llama-100m", 8, 256, 10, 5, 64), ("S1000", 1, 1000, 24, 8, 128))
+
+
+def _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, dout = (torch.randn((B, S, Hq, D), generator=gen, device=cuda).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    return q, k, v, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=[s[0] for s in BWD_SHAPES])
+def test_flash_backward_kernel_on_gpu(cuda, dtype, causal, shape):
+    """The forward's lse and the backward kernel's (dq, dk, dv) against
+    their plain versions on the same (q, k, v, out, dout, lse); each
+    launch counts once."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref)
+    _, B, S, Hq, Hkv, D = shape
+    q, k, v, dout = _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, S + D)
+    before = (fa.lse_launches, fa.bwd_launches)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    out_r, lse_r = flash_attention_lse_ref(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.lse_launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    tol = GPU_TOL[dtype]
+    assert _agree(out, out_r, tol)
+    assert (lse - lse_r).abs().max().item() <= tol
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _agree(a, b, tol), (name, (a.float() - b.float()).abs().max())
+
+
+@pytest.mark.gpu
+def test_flash_autograd_on_gpu_matches_plain(cuda):
+    """``flash_attention`` under autograd on the card (the kernel Function)
+    against the plain Function's gradients, bf16 at minitron's heads."""
+    from repro_torch.models.layers import blockwise_attention
+    q, k, v, dout = _bwd_inputs(cuda, 2, 300, 24, 8, 128, torch.bfloat16, 7)
+    grads = []
+    for fn in (fa.flash_attention, blockwise_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves, causal=True).backward(dout)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert _agree(a, b, GPU_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_flash_backward_is_deterministic(cuda):
+    q, k, v, dout = _bwd_inputs(cuda, 2, 200, 48, 1, 128, torch.bfloat16, 3)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    b = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_flash_backward_raises_on_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 64, 4, 128), device=cuda, requires_grad=True)
+    k = torch.zeros((1, 64, 2, 128), device=cuda, requires_grad=True)
+    for kw in (dict(window=16), dict(logit_cap=5.0),
+               dict(kv_len=torch.ones(1, dtype=torch.int32, device=cuda))):
+        with pytest.raises(NotImplementedError):
+            fa.flash_attention(q, k, k, **kw)
+    q2 = torch.zeros((1, 64, 4, 192), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q2, q2[:, :, :2], q2[:, :, :2])
+
+
 def _kv_case(cuda, B, S, D, dtype, lens):
     """(q, k, v, kv_len) of a key-padded flash case: H = 16 heads (G = 1,
     seamless-m4t's attention), ``lens`` the valid keys per row."""

@@ -167,7 +167,8 @@ def test_flash_wrapper_takes_plain_on_cpu():
 def test_build_lists_sources_and_raises_without_nvcc(monkeypatch, tmp_path):
     names = sorted(p.name for p in _build.sources())
     assert names == ["common.cu", "filco_mm.cu", "flash_attention.cu",
-                     "mamba_scan.cu", "ragged_decode.cu"]
+                     "flash_attention_bwd.cu", "mamba_scan.cu",
+                     "ragged_decode.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
     assert _build.library_path().name.startswith("librepro_torch_kernels-")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
