@@ -160,8 +160,10 @@
    The kernel phase holds the forward's lse and the backward kernel to
    their plain versions at minitron's training shape, granite's 48 heads
    on 1, llama-100m's D 64 (causal and bidirectional) and S 1000, in bf16
-   and fp32, and times each beside its bound and SDPA's forward plus
-   backward.
+   and fp32, and times each in bf16 beside its bound and SDPA's forward
+   plus backward, with the backward's head split (``bwd_plan``), grids
+   and TFLOP/s; the fp32 backward is timed at minitron's and granite's
+   shapes.
 14. Trainer phase: llama-100m through ``launch/train.py``'s restart loop
    in process, 30 steps at S 256, B 8, with checkpoints in a temporary
    directory under ``build/``: once uninterrupted, once preempted by a
@@ -2903,7 +2905,10 @@ def run_flash_bwd_phase(torch, gen, reps: int):
     case's shape in bf16: the backward beside its bound (10 D flops per
     attended pair at the bf16 peak), the plain backward and SDPA's forward
     plus backward; the forward with lse beside its bound and SDPA's
-    forward.  Returns the kernels' entries (minitron's times)."""
+    forward.  Returns the kernels' entries (minitron's times; the
+    backward's also granite's multi-query time, bound and SDPA time as
+    ``mqa_ms``, ``mqa_bound_ms`` and ``mqa_library_ms``, and both shapes'
+    fp32 times as ``fp32_ms`` and ``mqa_fp32_ms``)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_lse_ref)
@@ -2944,8 +2949,20 @@ def run_flash_bwd_phase(torch, gen, reps: int):
                 times[label] = time_flash_training(
                     torch, fa, (q, k, v, out, dout, lse), causal, reps,
                     flash_attention_bwd_ref, flash_attention_lse_ref)
+            elif label in ("minitron", "granite MQA"):
+                # fp32 stays on the CUDA cores (TF32 would change its sums)
+                ms = time_ms(torch, lambda: fa.flash_attention_bwd(
+                    q, k, v, out, dout, lse, causal=causal), 3)
+                pairs = attended_pairs(B, S, Hq, causal)
+                times[label]["bwd_fp32"] = ms
+                log(f"flash backward {label} fp32 (CUDA cores): {ms:.4f} ms, "
+                    f"{10 * D * pairs / ms / 1e9:.1f} TFLOP/s at 10 D per "
+                    f"pair ({card_line()})")
     src = "src/repro_torch/kernels/flash_attention/csrc/"
-    t = times["minitron"]
+    t, mqa = times["minitron"], times["granite MQA"]
+    log(f"flash backward granite MQA: {mqa['bwd']:.4f} ms against its bound "
+        f"{mqa['bwd_bound'][0]:.4f} ms and SDPA forward + backward "
+        f"{mqa['sdpa_fwd_bwd']:.4f} ms ({card_line()})")
     return {
         "flash_attention_lse": dict(
             name="flash_attention_lse", route="cuda",
@@ -2960,7 +2977,10 @@ def run_flash_bwd_phase(torch, gen, reps: int):
             replaces="src/repro/models/layers.py:222",
             max_abs_err=worst["bwd"], ms=t["bwd"], plain_ms=t["bwd_plain"],
             bound_ms=t["bwd_bound"][0], bound_by=t["bwd_bound"][1],
-            library_ms=t["sdpa_fwd_bwd"])}
+            library_ms=t["sdpa_fwd_bwd"], mqa_ms=mqa["bwd"],
+            mqa_bound_ms=mqa["bwd_bound"][0],
+            mqa_library_ms=mqa["sdpa_fwd_bwd"], fp32_ms=t["bwd_fp32"],
+            mqa_fp32_ms=mqa["bwd_fp32"])}
 
 
 def time_flash_training(torch, fa, tensors, causal, reps, bwd_ref, lse_ref):
@@ -3005,11 +3025,20 @@ def time_flash_training(torch, fa, tensors, causal, reps, bwd_ref, lse_ref):
     r["sdpa_fwd_bwd"] = time_ms(torch, sdpa_fwd_bwd, reps)
     kinds = cuda_launches(torch, lambda: fa.flash_attention_bwd(
         q, k, v, out, dout, lse, causal=causal))
+    # the backward's grids: dK/dV blocks split over the group's heads,
+    # the fold's blocks where it splits, dQ blocks
+    n_split = fa.bwd_plan(B, S, Hq, Hkv, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    tiles = -(-S // 64)
+    fold = -(-2 * B * S * Hkv * D // 4 // 256) if n_split > 1 else 0
     log(f"flash training timing (B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, "
         f"causal {causal}, bf16, {pairs} attended pairs): backward "
         f"{r['bwd']:.4f} ms (bound {r['bwd_bound'][0]:.4f} ms, "
         f"{r['bwd_bound'][1]}; {10 * D * pairs / r['bwd'] / 1e9:.1f} "
-        f"TFLOP/s at 10 D per pair), plain {r['bwd_plain']:.4f} ms; forward "
+        f"TFLOP/s at 10 D per pair, {14 * D * pairs / r['bwd'] / 1e9:.1f} "
+        f"at the 14 D it computes; n_split {n_split}, blocks dK/dV "
+        f"{B * Hkv * tiles * n_split}, fold {fold}, dQ {B * Hq * tiles}), "
+        f"plain {r['bwd_plain']:.4f} ms; forward "
         f"with lse {r['fwd']:.4f} ms (bound {r['fwd_bound'][0]:.4f} ms), "
         f"plain {r['fwd_plain']:.4f} ms; ours forward + backward "
         f"{r['fwd'] + r['bwd']:.4f} ms against sdpa {r['sdpa_fwd_bwd']:.4f} "
@@ -3198,6 +3227,8 @@ def profile_training_step(torch, run, wall: float) -> None:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    # the backward's kernels, its split fold (flash_bwd_fold) included,
+    # all carry the flash_bwd prefix
     kinds = {"flash backward": ("flash_bwd",),
              "flash forward": ("flash_attention_mma",),
              "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "xmma", "cutlass"),

@@ -24,10 +24,17 @@ launches.
 Training: where autograd records the call (grad mode on and q, k or v
 requiring grad), a CUDA call runs ``FlashAttentionFn``.  Its forward
 launches the same kernel with the log-sum-exp output (``lse_launches``);
-its backward launches the backward kernel (csrc/flash_attention_bwd.cu,
-``bwd_launches``), which takes causal or bidirectional GQA up to head dim
-128 and raises on a window, a logit cap and key padding.  On a CPU tensor
-the plain version carries its own gradient (``layers.blockwise_attention``).
+its backward launches the backward kernels (csrc/flash_attention_bwd.cu,
+``bwd_launches`` per call), which take causal or bidirectional GQA up to
+head dim 128 and raise on a window, a logit cap and key padding.  bf16
+runs on the tensor cores, fp32 on the CUDA cores.  ``bwd_plan`` splits a
+KV head's query heads over ``n_split`` dK/dV blocks where the (batch, KV
+head, key tile) blocks alone would leave the card half idle; the splits'
+fp32 partials are folded in split order by a third launch, so the result
+stays bitwise repeatable.
+``flash_attention_bwd_split_ref`` in ``ref.py`` is that fold in plain
+PyTorch.  On a CPU tensor the plain version carries its own gradient
+(``layers.blockwise_attention``).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ _MAX_D = 256
 _ROW_BYTES = 16               # a row is a whole number of 16-byte chunks
 _BQ = 64                      # query rows per block, both kernels
 _MAX_BWD_D = 128
+_BWD_BLOCKS_PER_SM = 2        # dK/dV blocks per SM that bwd_plan aims at
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -80,7 +88,7 @@ def _lse_fn():
 def _bwd_fn():
     fn = _build.load_library().flash_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+    fn.argtypes = [_P] * 11 + [_I] * 8 + [_P]
     return fn
 
 
@@ -224,11 +232,24 @@ def flash_attention_lse(q, k, v, *, causal: bool = True):
     return out, lse
 
 
+def bwd_plan(B: int, S: int, Hq: int, Hkv: int, sms: int) -> int:
+    """The backward's ``n_split``: the least divisor of G = Hq / Hkv that
+    gives the dK/dV launch, ``B * Hkv * ceil(S / 64) * n_split`` blocks, at
+    least ``_BWD_BLOCKS_PER_SM`` blocks per SM on a card of ``sms`` SMs, or
+    G where none does.  Host ints only."""
+    G = Hq // Hkv
+    blocks = B * Hkv * -(-S // _BQ)
+    if blocks == 0:
+        return 1
+    return next((n for n in range(1, G + 1) if G % n == 0
+                 and blocks * n >= _BWD_BLOCKS_PER_SM * sms), G)
+
+
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
     """Gradients (dq, dk, dv) of the flash attention whose forward gave
-    ``out`` and ``lse``, for the output gradient ``dout``.  ``delta =
-    rowsum(dout * out)`` in fp32 is stock torch; the kernel does the rest.
-    A CPU tensor takes the plain version."""
+    ``out`` and ``lse``, for the output gradient ``dout``; the dQ kernel
+    also computes ``delta = rowsum(dout * out)`` in fp32, for the dK/dV
+    kernel.  A CPU tensor takes the plain version."""
     global bwd_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, lse,
@@ -236,18 +257,28 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
     _check(q, k, v, None, 0, None)
     _check_bwd(q, 0, 0.0, None, None)
     B, S, Hq, D = q.shape
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout.to(q.dtype)))
+    Hkv = k.shape[2]
+    q, k, v, dout, out = (t.contiguous() for t in (
+        q, k, v, dout.to(q.dtype), out.to(q.dtype)))
     lse = lse.contiguous()
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, S, Hq):
         raise ValueError(f"lse must be ({B}, {S}, {Hq}) float32, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    delta = (dout.float() * out.float()).sum(-1)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
+    delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    n_split = bwd_plan(B, S, Hq, Hkv, _build.sm_count(q.device.index or 0))
+    partial = (torch.empty((2, n_split, B, S, Hkv, D), dtype=torch.float32,
+                           device=q.device) if n_split > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    B, S, Hq, k.shape[2], D, int(bool(causal)),
+                    None if partial is None else partial.data_ptr(),
+                    B, S, Hq, Hkv, D, int(bool(causal)), n_split,
                     _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_bwd")
     bwd_launches += 1

@@ -146,11 +146,12 @@ def _flash_fwd_pass(q, k, v, *, causal, window, block_size, logit_cap,
 
 
 def _flash_bwd_pass(q, k, v, out, dout, lse, *, causal, window, block_size,
-                    logit_cap, q_offset, valid_len, is_global):
+                    logit_cap, q_offset, valid_len, is_global,
+                    kv_grad_dtype=None):
     """Port of the reference's ``_flash_bwd``: the block scores recomputed
     from (q, k, v, lse), the GQA groups summed back onto their KV heads.
     k and v are padded to whole blocks; returns (dq, dk, dv) in the
-    input dtypes."""
+    input dtypes, or dk and dv in ``kv_grad_dtype`` where given."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     groups = Hq // Hkv
@@ -186,8 +187,8 @@ def _flash_bwd_pass(q, k, v, out, dout, lse, *, causal, window, block_size,
         # fold GQA: sum the query-head groups back onto their kv heads
         dks.append(dk_h.reshape(B, block_size, Hkv, groups, D).sum(3))
         dvs.append(dv_h.reshape(B, block_size, Hkv, groups, D).sum(3))
-    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
-            torch.cat(dvs, 1).to(v.dtype))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(kv_grad_dtype or k.dtype),
+            torch.cat(dvs, 1).to(kv_grad_dtype or v.dtype))
 
 
 class _Flash(torch.autograd.Function):
@@ -261,18 +262,19 @@ def flash_forward(q, k, v, *, causal: bool, q_offset: int = 0,
 def flash_backward(q, k, v, out, dout, lse, *, causal: bool,
                    q_offset: int = 0, window: int = 0, kv_len=None,
                    block_size: int = 512, logit_cap: float = 0.0,
-                   is_global=None):
+                   is_global=None, kv_grad_dtype=None):
     """(dq, dk, dv) of ``blockwise_attention`` from a forward's ``out`` and
     ``lse`` and the output gradient ``dout``: the reference's
     ``_flash_bwd`` on given inputs (the flash backward kernel's plain
-    version)."""
+    version); dk and dv in ``kv_grad_dtype`` where given, unrounded."""
     Skv = k.shape[1]
     kp, vp, block_size, valid_len = _flash_setup(k, v, kv_len, block_size,
                                                  q.device)
     dq, dk, dv = _flash_bwd_pass(
         q, kp, vp, out, dout, lse, causal=causal, window=window,
         block_size=block_size, logit_cap=logit_cap, q_offset=q_offset,
-        valid_len=valid_len, is_global=is_global)
+        valid_len=valid_len, is_global=is_global,
+        kv_grad_dtype=kv_grad_dtype)
     return dq, dk[:, :Skv], dv[:, :Skv]
 
 

@@ -187,3 +187,93 @@ def test_kernel_contract_raises_before_launch():
     fa._check_bwd(q, 4, 0.0, True, None)      # a global layer: no window
     with pytest.raises(NotImplementedError):
         fa._check_bwd(torch.zeros((1, 8, 2, 192)), 0, 0.0, None, None)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's split of a KV head's query heads (ops.bwd_plan) and
+# its fold of the fp32 partials (ref.flash_attention_bwd_split_ref)
+# ---------------------------------------------------------------------------
+
+def _bwd_cases():
+    """``chip_smoke.BWD_CASES``: the shapes the card runs the kernel at."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.BWD_CASES
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("case", _bwd_cases(), ids=lambda c: c[0])
+def test_bwd_plan_fills_the_card(case):
+    label, B, S, Hq, Hkv, D, causal = case
+    G = Hq // Hkv
+    n = fa.bwd_plan(B, S, Hq, Hkv, H100_SMS)
+    assert G % n == 0
+    blocks = B * Hkv * -(-S // 64)
+    target = fa._BWD_BLOCKS_PER_SM * H100_SMS
+    # the target met, or every head split off; by the least such divisor
+    assert blocks * n >= target or n == G
+    assert all(blocks * m < target for m in range(1, n) if G % m == 0)
+    if label == "minitron":
+        assert n == 1                         # 4 x 8 x 16 = 512 blocks
+    if label == "granite MQA":
+        assert n > 1                          # 16 blocks unsplit
+
+
+def test_bwd_plan_edges():
+    assert fa.bwd_plan(0, 1024, 8, 8, H100_SMS) == 1
+    assert fa.bwd_plan(1, 64, 8, 8, H100_SMS) == 1      # G = 1
+    assert fa.bwd_plan(1, 64, 48, 1, H100_SMS) == 48    # never enough
+
+
+# (G label, B, S, Hq, Hkv, D)
+SPLIT_SHAPES = [("G4", 2, 40, 8, 2, 16), ("G12", 1, 40, 12, 1, 8)]
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=[s[0] for s in SPLIT_SHAPES])
+def test_split_plain_version_matches_unsplit_and_reference(shape, n_split):
+    """The fold of the split partials against the unsplit plain backward
+    and the reference's ``jax.vjp`` of ``blockwise_attention``, given the
+    reference's own out and lse; fp32 within 1e-5 (summation order)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_bwd_split_ref)
+    _, B, S, Hq, Hkv, D = shape
+    q, k, v, g = _inputs(B, S, Hq, Hkv, D, seed=5 + n_split)
+    kw = dict(causal=True)
+    out, lse, dq, dk, dv = _reference(q, k, v, g, kw, jnp.float32)
+    tq, tk, tv, tg, tout, tlse = (torch.tensor(a) for a in
+                                  (q, k, v, g, out, lse))
+    got = flash_attention_bwd_split_ref(tq, tk, tv, tout, tg, tlse,
+                                        causal=True, n_split=n_split)
+    plain = flash_attention_bwd_ref(tq, tk, tv, tout, tg, tlse, causal=True)
+    for a, b, want in zip(got, plain, (dq, dk, dv)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        _close(a, b.numpy(), FP32_TOL)
+        _close(a, want, FP32_TOL)
+
+
+def test_split_plain_version_rounds_once():
+    """bf16: the partials stay fp32 and the fold rounds once, so n_split
+    1 gives the unsplit plain version bit for bit, and a split differs
+    from it only by the fp32 summation order."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_bwd_split_ref)
+    q, k, v, g = (torch.tensor(a).bfloat16()
+                  for a in _inputs(1, 40, 12, 1, 8, seed=9))
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    plain = flash_attention_bwd_ref(q, k, v, out, g, lse, causal=True)
+    one = flash_attention_bwd_split_ref(q, k, v, out, g, lse, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(one, plain))
+    four = flash_attention_bwd_split_ref(q, k, v, out, g, lse, causal=True,
+                                         n_split=4)
+    assert torch.equal(four[0], plain[0])
+    for a, b in zip(four[1:], plain[1:]):
+        _close(a, b.float().numpy(), BF16_TOL)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_split_ref(q, k, v, out, g, lse, n_split=5)

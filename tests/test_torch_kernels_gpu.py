@@ -182,10 +182,12 @@ def test_flash_kernel_mla_head_dims_on_gpu(cuda, dtype, S, case, D):
 
 
 # flash backward shapes: (label, B, S, Hq, Hkv, D) - minitron-4b's heads at
-# its training batch, granite's multi-query heads, llama-100m's D 64 and a
-# length that is no multiple of the tile
+# its training batch, granite's multi-query heads, llama-100m's D 64, a
+# length that is no multiple of the tile, and the small head dims (24 pads
+# to the tensor-core kernel's 32, 16 is its least)
 BWD_SHAPES = (("minitron", 4, 1024, 24, 8, 128), ("granite", 1, 1024, 48, 1, 128),
-              ("llama-100m", 8, 256, 10, 5, 64), ("S1000", 1, 1000, 24, 8, 128))
+              ("llama-100m", 8, 256, 10, 5, 64), ("S1000", 1, 1000, 24, 8, 128),
+              ("D24", 2, 130, 6, 2, 24), ("D16", 1, 200, 4, 1, 16))
 
 
 def _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, seed):
@@ -246,6 +248,70 @@ def test_flash_backward_is_deterministic(cuda):
     a = fa.flash_attention_bwd(q, k, v, out, dout, lse)
     b = fa.flash_attention_bwd(q, k, v, out, dout, lse)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _kernels_of(fn):
+    """The names of the device kernels one call of ``fn`` launches, as
+    the profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_split_is_deterministic(cuda, dtype):
+    """Granite's 48 query heads on 1 KV head at B 1, S 1024: the plan
+    splits the group over dK/dV blocks, a third launch folds the fp32
+    partials; repeated calls are bitwise equal, and agree with the plain
+    split and the plain unsplit backward."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_bwd_split_ref)
+    q, k, v, dout = _bwd_inputs(cuda, 1, 1024, 48, 1, 128, dtype, 11)
+    n_split = fa.bwd_plan(1, 1024, 48, 1, _build.sm_count(cuda.index or 0))
+    assert n_split > 1 and 48 % n_split == 0
+    out, lse = fa.flash_attention_lse(q, k, v)
+    got = []
+    names = _kernels_of(lambda: got.append(
+        fa.flash_attention_bwd(q, k, v, out, dout, lse)))
+    assert len(names) == 3, names
+    assert any("flash_bwd_fold" in n for n in names), names
+    b = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got[0], b))
+    split = flash_attention_bwd_split_ref(q, k, v, out, dout, lse,
+                                          n_split=n_split)
+    plain = flash_attention_bwd_ref(q, k, v, out, dout, lse)
+    for x, w1, w2 in zip(b, split, plain):
+        assert _agree(x, w1, GPU_TOL[dtype])
+        assert _agree(x, w2, GPU_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_backward_bf16_takes_the_tensor_cores(cuda):
+    """At minitron's training shape a call is two launches, no split: the
+    tensor-core instances in bf16, the CUDA-core ones in fp32; repeated
+    calls are bitwise equal."""
+    from repro_torch.kernels import _build
+    B, S, Hq, Hkv, D = 4, 1024, 24, 8, 128
+    assert fa.bwd_plan(B, S, Hq, Hkv, _build.sm_count(cuda.index or 0)) == 1
+    for dtype, kind in ((torch.bfloat16, "mma<128>"), (torch.float32, "simt<8>")):
+        q, k, v, dout = _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, 12)
+        out, lse = fa.flash_attention_lse(q, k, v)
+        names = _kernels_of(lambda: fa.flash_attention_bwd(q, k, v, out,
+                                                           dout, lse))
+        assert len(names) == 2, names
+        for kernel in (f"flash_bwd_dq_{kind}", f"flash_bwd_dkdv_{kind}"):
+            assert any(kernel in n for n in names), names
+        a = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+        b = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.gpu
