@@ -163,8 +163,25 @@
    and fp32, and times each in bf16 beside its bound and SDPA's forward
    plus backward, with the backward's head split (``bwd_plan``), grids
    and TFLOP/s; the fp32 backward is timed at minitron's and granite's
-   shapes.
-14. Trainer phase: llama-100m through ``launch/train.py``'s restart loop
+   shapes.  It does the same at deepseek-v2-lite's MLA training shape (B
+   4, S 1024, 16 heads on 16, q/k head dim 192, causal), where the
+   backward runs its eight-warp instances.
+14. MoE and MLA training phase: full-width deepseek-v2-lite-16b (fp32
+   masters from seed 0, bf16 activations, AdamW, remat, the einsum
+   dispatch; B 4 x S 1024 of ``SyntheticLM``) cut to ``DS_TRAIN_LAYERS``
+   of 27 layers (the dense layer and the rest MoE), after minitron's: the
+   kernel path against the plain path at 2 layers in fp32 (1e-4, 1e-3)
+   and at the cut in bf16 (2e-2, 5e-2), each with the router pinned to
+   the plain path's experts in the forward and in the remat recompute
+   (the unpinned distances and routing partings logged), then 8 steps of
+   ``make_train_step``: losses and grad norms finite, the last loss below
+   step 1's, peak memory under 78 GiB, the flash kernels at head dim 192
+   launched every layer of every step.  Logs step ms, tokens/s, the share
+   of 989 TFLOP/s counting the experts the model routes to (and the
+   FLOPs the einsum dispatch executes), the optimizer's ms and the step
+   by kind (flash, cuBLAS, the MoE dispatch from one layer timed alone,
+   AdamW, other).
+15. Trainer phase: llama-100m through ``launch/train.py``'s restart loop
    in process, 30 steps at S 256, B 8, with checkpoints in a temporary
    directory under ``build/``: once uninterrupted, once preempted by a
    flag file at step 10 and resumed from its checkpoint; the resumed
@@ -188,6 +205,7 @@ does the same for the causal flash kernel (its flash_attention.cu) at a
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -2244,64 +2262,86 @@ def routing_partings(torch, run, n_moe: int):
     return result, decisions, partings
 
 
+@contextlib.contextmanager
+def routing_pin(picks: dict, mode: str):
+    """A context in which every MoE layer's routing is recorded into,
+    pinned to, or compared with ``picks``, keyed by the layer's router
+    tensor: the serving check pins each position's forward to the plain
+    path's experts, the training checks pin the forward and the remat
+    recompute inside the backward alike.  "record": the layer's first
+    routing in the context stores its top-k experts; "pin": every routing
+    of the layer takes the stored experts, gates renormalised from its own
+    probabilities; "free": the layer routes as its own.  In "pin" and
+    "free" the context's value counts, over each layer's first routing,
+    the (token, layer) picks and those whose own top-k set parts from the
+    stored one."""
+    from repro_torch.models import moe as M
+    routing = M._routing
+    st = {"picks": 0, "parted": 0}
+    first = set()
+
+    def routed(p, mo, xg):
+        gates, idx, probs = routing(p, mo, xg)
+        key = p["router"].data_ptr()
+        if mode == "record":
+            picks.setdefault(key, idx)
+            return gates, idx, probs
+        want = picks[key]
+        if key not in first:
+            first.add(key)
+            differ = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+            st["picks"] += differ.numel()
+            st["parted"] += int(differ.sum().item())
+        if mode == "free":
+            return gates, idx, probs
+        g = probs.gather(-1, want)
+        return g / g.sum(-1, keepdim=True), want, probs
+
+    M._routing = routed
+    try:
+        yield st
+    finally:
+        M._routing = routing
+
+
 def moe_reference_check(torch, path_a, path_b, *, tol, label, n_moe,
                         S: int = 100, steps: int = 5):
     """Path a (kernels) against path b (plain) on one S-token prompt (seed
     2) and ``steps`` decode steps, each fed b's argmax, with the router
-    pinned: at each position b runs first and records its top-k experts
-    per MoE layer, then a routes to those experts, its gates renormalised
-    from its own probabilities.  a's logits must lie within ``tol`` of b's
-    (relative to max|b|), the argmax parting only where b's top-2 margin
-    is below min(tol, ARGMAX_MARGIN) (counted).  Where a's own top-k would
-    have parted from b's is counted and logged, not failed: a near-tie
-    among the experts flips under rounding at other points, and a flip
-    moves a token's output by a whole expert.  The unpinned run (each
-    path its own routing, ``path_logits``) is logged beside, not failed.
-    Returns the largest pinned relative difference."""
-    from repro_torch.models import moe as M
-    routing = M._routing
-    st = {"rec": [], "i": 0, "picks": 0, "parted": 0}
-
-    def record(p, mo, xg):
-        out = routing(p, mo, xg)
-        st["rec"].append(out[1])
-        return out
-
-    def pinned(p, mo, xg):
-        _, idx, probs = routing(p, mo, xg)
-        want = st["rec"][st["i"]]
-        st["i"] += 1
-        differ = (idx.sort(-1).values != want.sort(-1).values).any(-1)
-        st["picks"] += differ.numel()
-        st["parted"] += int(differ.sum().item())
-        gates = probs.gather(-1, want)
-        return gates / gates.sum(-1, keepdim=True), want, probs
-
+    pinned (``routing_pin``): at each position b runs first and records its
+    top-k experts per MoE layer, then a routes to those experts, its gates
+    renormalised from its own probabilities.  a's logits must lie within
+    ``tol`` of b's (relative to max|b|), the argmax parting only where b's
+    top-2 margin is below min(tol, ARGMAX_MARGIN) (counted).  Where a's
+    own top-k would have parted from b's is counted and logged, not
+    failed: a near-tie among the experts flips under rounding at other
+    points, and a flip moves a token's output by a whole expert.  The
+    unpinned run (each path its own routing, ``path_logits``) is logged
+    beside, not failed.  Returns the largest pinned relative difference."""
     (ma, pa, ka), (mb, pb, kb) = path_a, path_b
     gen = torch.Generator(device="cuda").manual_seed(2)
     toks = torch.randint(1, mb.cfg.vocab_size, (1, S), generator=gen,
                          device="cuda", dtype=torch.int32)
     ca, cb = ma.init_cache(1, S + steps + 3), mb.init_cache(1, S + steps + 3)
     worst, parted = 0.0, 0
+    picks_run = parted_run = 0
     nxt = None
     for step in range(steps + 1):
-        st["rec"], st["i"] = [], 0
-        try:
-            M._routing = record
+        picks = {}
+        with routing_pin(picks, "record"):
             if nxt is None:
                 lb, cb = mb.prefill(pb, {"tokens": toks}, cb, use_kernels=kb)
             else:
                 lb, cb = mb.decode_step(pb, cb, nxt, use_kernels=kb)
-            M._routing = pinned
+        with routing_pin(picks, "pin") as st:
             if nxt is None:
                 la, ca = ma.prefill(pa, {"tokens": toks}, ca, use_kernels=ka)
             else:
                 la, ca = ma.decode_step(pa, ca, nxt, use_kernels=ka)
-        finally:
-            M._routing = routing
-        require(st["i"] == len(st["rec"]) == n_moe,
-                f"{label}: {st['i']} pinned of {len(st['rec'])} recorded "
-                f"routings, want {n_moe}")
+        require(len(picks) == n_moe and st["picks"] > 0,
+                f"{label}: {len(picks)} recorded routings, want {n_moe}")
+        picks_run += st["picks"]
+        parted_run += st["parted"]
         a, b = la.float(), lb.float()
         rel = rel_err(a, b)
         same, margin, ok = argmax_check(a, b, min(tol, ARGMAX_MARGIN))
@@ -2319,7 +2359,7 @@ def moe_reference_check(torch, path_a, path_b, *, tol, label, n_moe,
     free_rel = max(rel_err(a, b) for a, b in free)
     log(f"{label}: largest {worst:.3e} with the routing pinned; argmax "
         f"partings {parted} of {steps + 1} positions; a's own top-k parted "
-        f"from b's at {st['parted']} of {st['picks']} (token, layer) picks "
+        f"from b's at {parted_run} of {picks_run} (token, layer) picks "
         f"over the run; unpinned (each path its own routing): largest {free_rel:.3e}, routing parted at "
         f"{free_parted} of {decisions} picks (logged, not failed)")
     return worst
@@ -2875,13 +2915,15 @@ def run_hymba_phase(torch):
 
 # flash backward cases: (label, B, S, Hq, Hkv, D, causal) - minitron-4b's
 # heads at its training batch, granite's multi-query heads, llama-100m's
-# head dim 64 (causal, and bidirectional), and a length that is no multiple
-# of the tile
+# head dim 64 (causal, and bidirectional), a length that is no multiple
+# of the tile, and deepseek-v2-lite's MLA at its training batch (16 heads,
+# K and V expanded to all of them; q/k head dim 192, V padded to it)
 BWD_CASES = (("minitron", 4, 1024, 24, 8, 128, True),
              ("granite MQA", 1, 1024, 48, 1, 128, True),
              ("llama-100m", 8, 256, 10, 5, 64, True),
              ("llama-100m bidirectional", 8, 256, 10, 5, 64, False),
-             ("S1000", 1, 1000, 24, 8, 128, True))
+             ("S1000", 1, 1000, 24, 8, 128, True),
+             ("MLA", 4, 1024, 16, 16, 192, True))
 # training checks, kernel path vs plain path from the same params and
 # batch: (loss relative, each gradient leaf's relative norm).  bf16: the
 # two round p, ds and every activation at other points over 32 layers;
@@ -2905,14 +2947,15 @@ def run_flash_bwd_phase(torch, gen, reps: int):
     case's shape in bf16: the backward beside its bound (10 D flops per
     attended pair at the bf16 peak), the plain backward and SDPA's forward
     plus backward; the forward with lse beside its bound and SDPA's
-    forward.  Returns the kernels' entries (minitron's times; the
-    backward's also granite's multi-query time, bound and SDPA time as
-    ``mqa_ms``, ``mqa_bound_ms`` and ``mqa_library_ms``, and both shapes'
-    fp32 times as ``fp32_ms`` and ``mqa_fp32_ms``)."""
+    forward.  Returns the kernels' entries: up to head dim 128 minitron's
+    times (the backward's also granite's multi-query time, bound and SDPA
+    time as ``mqa_ms``, ``mqa_bound_ms`` and ``mqa_library_ms``, and both
+    shapes' fp32 times as ``fp32_ms`` and ``mqa_fp32_ms``), and at head
+    dim 192 (the ``_d192`` entries) MLA's, its fp32 time as ``fp32_ms``."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_lse_ref)
-    worst = {"lse": 0.0, "bwd": 0.0}
+    worst = dict.fromkeys(("lse", "bwd", "lse_d192", "bwd_d192"), 0.0)
     times = {}
     for label, B, S, Hq, Hkv, D, causal in BWD_CASES:
         for dtype in ("bfloat16", "float32"):
@@ -2943,13 +2986,15 @@ def run_flash_bwd_phase(torch, gen, reps: int):
                     f"flash backward {label} {dtype} disagrees with its "
                     f"plain version")
             if dtype == "bfloat16":
-                worst["lse"] = max(worst["lse"], errs["out"], errs["lse"])
-                worst["bwd"] = max(worst["bwd"], errs["dq"], errs["dk"],
-                                   errs["dv"])
+                sfx = "_d192" if D > 128 else ""
+                worst["lse" + sfx] = max(worst["lse" + sfx], errs["out"],
+                                         errs["lse"])
+                worst["bwd" + sfx] = max(worst["bwd" + sfx], errs["dq"],
+                                         errs["dk"], errs["dv"])
                 times[label] = time_flash_training(
                     torch, fa, (q, k, v, out, dout, lse), causal, reps,
                     flash_attention_bwd_ref, flash_attention_lse_ref)
-            elif label in ("minitron", "granite MQA"):
+            elif label in ("minitron", "granite MQA", "MLA"):
                 # fp32 stays on the CUDA cores (TF32 would change its sums)
                 ms = time_ms(torch, lambda: fa.flash_attention_bwd(
                     q, k, v, out, dout, lse, causal=causal), 3)
@@ -2959,11 +3004,26 @@ def run_flash_bwd_phase(torch, gen, reps: int):
                     f"{10 * D * pairs / ms / 1e9:.1f} TFLOP/s at 10 D per "
                     f"pair ({card_line()})")
     src = "src/repro_torch/kernels/flash_attention/csrc/"
-    t, mqa = times["minitron"], times["granite MQA"]
+    t, mqa, mla = times["minitron"], times["granite MQA"], times["MLA"]
     log(f"flash backward granite MQA: {mqa['bwd']:.4f} ms against its bound "
         f"{mqa['bwd_bound'][0]:.4f} ms and SDPA forward + backward "
         f"{mqa['sdpa_fwd_bwd']:.4f} ms ({card_line()})")
     return {
+        "flash_attention_lse_d192": dict(
+            name="flash_attention_lse_d192", route="cuda",
+            source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:85",
+            max_abs_err=worst["lse_d192"], ms=mla["fwd"],
+            plain_ms=mla["fwd_plain"], bound_ms=mla["fwd_bound"][0],
+            bound_by=mla["fwd_bound"][1], library_ms=mla["sdpa_fwd"]),
+        "flash_attention_bwd_d192": dict(
+            name="flash_attention_bwd_d192", route="cuda",
+            source=src + "flash_attention_bwd.cu",
+            replaces="src/repro/models/layers.py:222",
+            max_abs_err=worst["bwd_d192"], ms=mla["bwd"],
+            plain_ms=mla["bwd_plain"], bound_ms=mla["bwd_bound"][0],
+            bound_by=mla["bwd_bound"][1], library_ms=mla["sdpa_fwd_bwd"],
+            fp32_ms=mla["bwd_fp32"]),
         "flash_attention_lse": dict(
             name="flash_attention_lse", route="cuda",
             source=src + "flash_attention.cu",
@@ -3028,7 +3088,7 @@ def time_flash_training(torch, fa, tensors, causal, reps, bwd_ref, lse_ref):
     # the backward's grids: dK/dV blocks split over the group's heads,
     # the fold's blocks where it splits, dQ blocks
     n_split = fa.bwd_plan(B, S, Hq, Hkv, torch.cuda.get_device_properties(
-        0).multi_processor_count)
+        0).multi_processor_count, D)
     tiles = -(-S // 64)
     fold = -(-2 * B * S * Hkv * D // 4 // 256) if n_split > 1 else 0
     log(f"flash training timing (B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, "
@@ -3064,15 +3124,19 @@ def loss_and_grads(torch, model, params, batch, use_kernels: bool):
     return loss.item(), grads
 
 
-def train_path_check(torch, model, params, batch, dtype: str, label: str):
-    """Kernel path against plain path from the same params and batch: the
-    loss within TRAIN_TOL's first, each gradient leaf's relative norm
-    within its second."""
-    loss_k, g_k = loss_and_grads(torch, model, params, batch, True)
-    loss_p, g_p = loss_and_grads(torch, model, params, batch, False)
+def grad_distances(g_a, g_b):
+    """Each gradient leaf's relative norm |a - b| / |b|."""
+    return [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+            for a, b in zip(g_a, g_b)]
+
+
+def hold_grads(kernel, plain, dtype: str, label: str):
+    """The kernel path's (loss, grads) against the plain path's: the loss
+    within TRAIN_TOL's first, each gradient leaf's relative norm within
+    its second."""
+    (loss_k, g_k), (loss_p, g_p) = kernel, plain
     loss_tol, grad_tol = TRAIN_TOL[dtype]
-    rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
-           for a, b in zip(g_k, g_p)]
+    rel = grad_distances(g_k, g_p)
     worst = max(range(len(rel)), key=rel.__getitem__)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     log(f"{label}: loss kernel {loss_k:.6f} plain {loss_p:.6f} (relative "
@@ -3082,23 +3146,51 @@ def train_path_check(torch, model, params, batch, dtype: str, label: str):
     require(math.isfinite(loss_k) and loss_rel <= loss_tol
             and max(rel) <= grad_tol,
             f"{label}: kernel path disagrees with the plain path")
-    return g_k, g_p
+
+
+def train_path_check(torch, model, params, batch, dtype: str, label: str):
+    """Kernel path against plain path from the same params and batch, held
+    by ``hold_grads``."""
+    kernel = loss_and_grads(torch, model, params, batch, True)
+    plain = loss_and_grads(torch, model, params, batch, False)
+    hold_grads(kernel, plain, dtype, label)
+    return kernel[1], plain[1]
 
 
 def training_flops(model, params, T: int, B: int, S: int) -> float:
     """Model FLOPs of one remat training step: 8 N T for the weight
     products (6 N T forward and backward, 2 N T the remat forward; N the
-    layers' matrices and the LM head), 16 D per attended pair per layer for
-    attention (forward, remat forward, backward)."""
+    matrices a token passes through: the layers' and the LM head, of an MoE
+    layer's routed experts top_k of E, as the model routes, its router and
+    shared experts whole), 8 (Dqk + Dv) per attended pair per layer for
+    attention (forward, remat forward, backward; 16 D where both are D)."""
     from repro_torch.optim import tree_leaves
     cfg = model.cfg
-    n_mm = sum(p.numel() for lp in params["decoder"]["layers"]
-               for p in tree_leaves(lp) if p.ndim >= 2)
+    layers = params["decoder"]["prologue"] + params["decoder"]["layers"]
+
+    def matrices(tree, share=1.0):
+        return share * sum(p.numel() for p in tree_leaves(tree)
+                           if p.ndim >= 2)
+
+    n_mm = 0.0
+    for lp in layers:
+        for key, sub in lp.items():
+            if key == "moe":
+                mo = cfg.moe
+                n_mm += sum(matrices(t, mo.top_k / mo.num_experts
+                                     if k == "experts" else 1.0)
+                            for k, t in sub.items())
+            else:
+                n_mm += matrices(sub)
     n_mm += params["lm_head"].numel() if "lm_head" in params else \
         params["embed"].numel()
+    if cfg.mla is not None:
+        dqk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        dv = cfg.mla.v_head_dim
+    else:
+        dqk = dv = cfg.resolved_head_dim
     pairs = attended_pairs(B, S, cfg.num_heads, True)
-    return (8.0 * n_mm * T
-            + 16.0 * cfg.resolved_head_dim * pairs * cfg.num_layers)
+    return 8.0 * n_mm * T + 8.0 * (dqk + dv) * pairs * len(layers)
 
 
 def run_training_phase(torch):
@@ -3217,10 +3309,277 @@ def run_training_phase(torch):
     return counts
 
 
-def profile_training_step(torch, run, wall: float) -> None:
+# deepseek-v2-lite-16b training: the layer cut (the dense prologue layer
+# and DS_TRAIN_LAYERS - 1 MoE layers) whose fp32 params, grads and AdamW
+# moments (16 bytes a parameter, 68.5 GiB at 8) and the step's transients
+# stay under 78 GiB; the full 27 layers would need about 250 GB
+DS_TRAIN_LAYERS = 8
+DS_CHECK_LAYERS = 2                 # the fp32 check: dense + one MoE layer
+DS_TRAIN_KERNELS = ("flash_attention_lse_d192", "flash_attention_bwd_d192")
+
+
+def moe_train_check(torch, model, params, batch, dtype: str, label: str):
+    """Kernel path against plain path from the same params and batch, the
+    routing pinned to the plain path's experts in the forward and in the
+    remat recompute, held by ``hold_grads``.  Then the kernel path
+    unpinned (its own routing) against the same plain run, logged and not
+    failed, with its routing partings."""
+    picks = {}
+    with routing_pin(picks, "record"):
+        loss_p, g_p = loss_and_grads(torch, model, params, batch, False)
+    dec = params["decoder"]
+    n_moe = sum("moe" in lp for lp in dec["prologue"] + dec["layers"])
+    require(len(picks) == n_moe, f"{label}: {len(picks)} of {n_moe} MoE "
+            f"layers routed")
+    with routing_pin(picks, "pin") as st:
+        kernel = loss_and_grads(torch, model, params, batch, True)
+    hold_grads(kernel, (loss_p, g_p), dtype,
+               f"{label} (routing pinned to the plain path's experts, "
+               f"forward and remat recompute; the kernel path's own top-k "
+               f"would have parted at {st['parted']} of {st['picks']} "
+               f"(token, layer) picks)")
+    del kernel
+    with routing_pin(picks, "free") as st:
+        loss_u, g_u = loss_and_grads(torch, model, params, batch, True)
+    free = grad_distances(g_u, g_p)
+    del g_u, g_p
+    log(f"{label} unpinned (each path its own routing; logged, not failed): "
+        f"loss relative {abs(loss_u - loss_p) / abs(loss_p):.3e}, largest "
+        f"leaf relative norm {max(free):.3e}, median "
+        f"{sorted(free)[len(free) // 2]:.3e}; routing parted at "
+        f"{st['parted']} of {st['picks']} picks")
+
+
+def moe_dispatch_ms(torch, model, lp, B: int, S: int):
+    """Device ms of one MoE layer's pieces at the training step's shapes
+    (bf16 activations, the layer's fp32 masters): the whole ``moe_apply``,
+    its routed experts' products and its shared experts, each forward alone
+    and forward plus backward.  Returns (dispatch forward, dispatch forward
+    + backward): the layer less its experts, i.e. the router, capacity
+    positions, one-hot dispatch and combine."""
+    from repro_torch.models import moe as M
+    from repro_torch.optim import tree_leaves
+    cfg = model.cfg
+    mo = cfg.moe
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    E, C = mo.num_experts, M.capacity(mo, S)
+
+    def act(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_(True)
+
+    h, xe = act((B, S, cfg.d_model)), act((E, B * C, cfg.d_model))
+    gy = torch.randn((B, S, cfg.d_model), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    ge = torch.randn((E, B * C, cfg.d_model), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    leaves = tree_leaves(lp["moe"])
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def moe_fb():
+        y, aux = M.moe_apply(lp["moe"], cfg, h)
+        torch.autograd.backward([y, aux], [gy, torch.full_like(aux, 0.01)])
+
+    pieces = {
+        "moe": (lambda: M.moe_apply(lp["moe"], cfg, h), moe_fb),
+        "experts": (lambda: M._expert_ffn(lp["moe"]["experts"], cfg, xe),
+                    lambda: M._expert_ffn(lp["moe"]["experts"], cfg,
+                                          xe).backward(ge)),
+        "shared": (lambda: M.ffn_apply(lp["moe"]["shared"], cfg, h),
+                   lambda: M.ffn_apply(lp["moe"]["shared"], cfg,
+                                       h).backward(gy))}
+    ms = {}
+    try:
+        for name, (fwd, fwd_bwd) in pieces.items():
+            with torch.no_grad():
+                f = time_ms(torch, fwd, 5, 2)
+            fb = time_ms(torch, fwd_bwd, 5, 2)
+            ms[name] = (f, fb)
+    finally:
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(False)
+    disp = [ms["moe"][i] - ms["experts"][i] - ms["shared"][i]
+            for i in range(2)]
+    log(f"deepseek MoE layer at B {B} x S {S} (bf16, capacity {C} per "
+        f"expert and row): forward / forward + backward ms: whole "
+        f"{ms['moe'][0]:.3f} / {ms['moe'][1]:.3f}, routed experts "
+        f"{ms['experts'][0]:.3f} / {ms['experts'][1]:.3f}, shared "
+        f"{ms['shared'][0]:.3f} / {ms['shared'][1]:.3f}; the dispatch "
+        f"(router, capacity, one-hots, dispatch and combine einsums) "
+        f"{disp[0]:.3f} / {disp[1]:.3f}")
+    return disp[0], disp[1]
+
+
+def run_deepseek_training_phase(torch):
+    """Full-width deepseek-v2-lite-16b training on one card (fp32 masters,
+    bf16 activations, AdamW, remat, the einsum dispatch, B 4 x S 1024 from
+    the port's SyntheticLM) at a layer cut, ``DS_TRAIN_LAYERS`` of 27: (a)
+    kernel vs plain path at ``DS_CHECK_LAYERS`` layers in fp32, (b) at the
+    cut in bf16, both with the routing pinned to the plain path's experts
+    (the unpinned distances and the routing partings logged), (c) 8 steps
+    of make_train_step on the kernel path, timed: step ms, tokens/s, the
+    share of 989 TFLOP/s with the routed experts' FLOPs (and the FLOPs the
+    einsum dispatch executes), the optimizer's ms, peak memory and a
+    profile by kind beside the dispatch's share.  Returns the D 192 flash
+    kernels' launches over (c)."""
+    import dataclasses
+    import gc
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import moe as M
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import Optimizer, make_optimizer, tree_leaves
+    from repro_torch.train import TrainConfig, make_train_step
+
+    card = card_line()
+    full = get_config("deepseek-v2-lite-16b")
+    pipe = make_pipeline(full, TRAIN_S, TRAIN_B, seed=0)
+
+    def batch_of(step):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in pipe.batch(step).items()}
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (a) fp32 at 2 layers, on the empty card
+    cfg2 = dataclasses.replace(full, num_layers=DS_CHECK_LAYERS,
+                               dtype="float32")
+    model = build_model(cfg2, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=cfg2.param_dtype)
+    moe_train_check(torch, model, params, batch_of(0), "float32",
+                    f"training check deepseek-v2-lite-16b widths, "
+                    f"{DS_CHECK_LAYERS} layers, fp32")
+    del model, params
+    free()
+
+    # (b) bf16 at the cut
+    cfg = dataclasses.replace(full, num_layers=DS_TRAIN_LAYERS)
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=cfg.param_dtype)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(params))
+    log(f"deepseek-v2-lite-16b training: cut to {DS_TRAIN_LAYERS} of "
+        f"{full.num_layers} layers (the dense layer and "
+        f"{DS_TRAIN_LAYERS - 1} MoE layers), {n / 1e9:.3f} B params as fp32 "
+        f"masters ({16 * n / 2**30:.1f} GiB with grads and AdamW moments) in "
+        f"{time.perf_counter() - t0:.2f} s; bf16 activations, AdamW, remat, "
+        f"einsum dispatch, B {TRAIN_B} x S {TRAIN_S}")
+    moe_train_check(torch, model, params, batch_of(0), "bfloat16",
+                    f"training check deepseek-v2-lite-16b, {DS_TRAIN_LAYERS} "
+                    f"layers, bf16")
+    free()
+
+    # (c) the kernel path's steps, the optimizer timed by CUDA events
+    opt = make_optimizer(cfg.optimizer)
+    opt_ms = []
+
+    def timed_update(grads, state, params_, lr):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = opt.update(grads, state, params_, lr)
+        e.record()
+        opt_ms.append((s, e))
+        return out
+
+    tc = TrainConfig(steps=TRAIN_STEPS, lr=3e-4, warmup=2)
+    step_fn = make_train_step(model, Optimizer(opt.init, timed_update), tc)
+    opt_state = opt.init(params)
+    batches = [batch_of(s) for s in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(DS_TRAIN_KERNELS)
+    rows = []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, step,
+                                       batches[step])
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0, m["loss"].item(),
+                     m["grad_norm"].item(), m["lr"], m["aux"].item()))
+    counts = read_counts(DS_TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for step, (sec, loss, gn, lr, aux) in enumerate(rows):
+        log(f"  step {step}: {sec * 1e3:.1f} ms, loss {loss:.5f} (aux "
+            f"{aux:.5f}), grad norm {gn:.4f}, lr {lr:.3e}, optimizer "
+            f"{opt_ms[step][0].elapsed_time(opt_ms[step][1]):.2f} ms")
+    step_s = statistics.median(r[0] for r in rows[3:8])
+    opt_med = statistics.median(s.elapsed_time(e) for s, e in opt_ms[3:8])
+    T = TRAIN_B * TRAIN_S
+    flops = training_flops(model, params, T, TRAIN_B, TRAIN_S)
+    # what the einsum dispatch executes besides: every expert on its
+    # capacity rows (E x C per batch row, not top_k per token) and the
+    # dispatch and combine products (2 forward, 2 in the remat forward,
+    # 3 in the backward: 7 of 2 T E C d each)
+    mo = cfg.moe
+    C = M.capacity(mo, TRAIN_S)
+    n_moe = len(params["decoder"]["layers"])
+    experts = sum(p.numel() for lp in params["decoder"]["layers"]
+                  for p in tree_leaves(lp["moe"]["experts"]))
+    executed = (flops + 8.0 * experts * (TRAIN_B * C - T * mo.top_k
+                                         / mo.num_experts)
+                + n_moe * 7 * 2.0 * T * mo.num_experts * C * cfg.d_model)
+    log(f"deepseek-v2-lite-16b training ({DS_TRAIN_LAYERS} of "
+        f"{full.num_layers} layers, B {TRAIN_B} x S {TRAIN_S}, fp32 masters, "
+        f"bf16, AdamW, remat, einsum dispatch): step {step_s * 1e3:.1f} ms "
+        f"(median of steps 3-7), {T / step_s:.0f} tokens/s, "
+        f"{flops / 1e12:.1f} TFLOP per step counting the routed experts "
+        f"(top-{mo.top_k} of {mo.num_experts} and {mo.num_shared_experts} "
+        f"shared) = {flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
+        f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms); the einsum dispatch "
+        f"executes {executed / 1e12:.1f} TFLOP ({executed / flops:.2f}x: "
+        f"every expert on its {C} capacity rows a batch row, and the "
+        f"one-hot dispatch and combine products), "
+        f"{executed / step_s / BF16_FLOPS:.3f} of the peak; optimizer "
+        f"{opt_med:.2f} ms; peak memory {peak:.2f} GiB; launches {counts} "
+        f"({card})")
+    ms = profile_training_step(torch, lambda: step_fn(
+        params, opt_state, TRAIN_STEPS, batches[0]), step_s)
+    disp_f, disp_fb = moe_dispatch_ms(torch, model,
+                                      params["decoder"]["layers"][0],
+                                      TRAIN_B, TRAIN_S)
+    dispatch = n_moe * (disp_f + disp_fb)
+    if ms is not None:
+        other = "other (elementwise, reductions, optimizer)"
+        log(f"deepseek-v2-lite-16b training step by kind (ms): flash "
+            f"forward {ms['flash forward']:.1f}, flash backward "
+            f"{ms['flash backward']:.1f}, cuBLAS "
+            f"{ms['matmul (cuBLAS)']:.1f}, of which and of other the MoE "
+            f"dispatch (router, capacity, one-hot dispatch and combine; one "
+            f"layer's forward + forward and backward timed alone x "
+            f"{n_moe} layers) {dispatch:.1f}, AdamW (CUDA events) "
+            f"{opt_med:.1f}, other less AdamW {ms[other] - opt_med:.1f} "
+            f"({card})")
+    require(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
+            "deepseek training: a loss or grad norm is not finite")
+    require(rows[-1][1] < rows[1][1],
+            f"deepseek training: the last loss {rows[-1][1]:.5f} is not "
+            f"below step 1's {rows[1][1]:.5f}")
+    require(peak < 78, f"deepseek training: peak memory {peak:.2f} GiB")
+    require(DS_TRAIN_LAYERS >= 6, "deepseek training: the cut is under 6")
+    require(counts["flash_attention_bwd_d192"] == DS_TRAIN_LAYERS * TRAIN_STEPS
+            and counts["flash_attention_lse_d192"]
+            >= DS_TRAIN_LAYERS * TRAIN_STEPS,
+            f"deepseek training launched {counts}")
+    del model, params, opt_state, batches, step_fn
+    free()
+    return counts
+
+
+def profile_training_step(torch, run, wall: float):
     """Profile one training step ``run()`` (device activity only) and log
     its device time by kind and the busy share of the unprofiled step's
-    ``wall`` (s): the union of the kernels' intervals."""
+    ``wall`` (s): the union of the kernels' intervals.  Returns the ms by
+    kind (None where the profiler recorded no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3250,12 +3609,13 @@ def profile_training_step(torch, run, wall: float) -> None:
     if not spans:
         log("training step profile: the profiler recorded no device time "
             "(busy share not measured)")
-        return
+        return None
     log(f"training step profile: device busy (union of kernel intervals) "
         f"{union / 1e3:.1f} ms of the unprofiled {wall * 1e3:.1f} ms step "
         f"(busy share {union / 1e3 / (wall * 1e3):.3f}); by kind (ms): "
         + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
         + f" ({card_line()})")
+    return ms
 
 
 def run_trainer_phase(torch):
@@ -4176,6 +4536,8 @@ def main() -> int:
     # launcher's loop with a preemption and a resume
     launches.update(run_training_phase(torch))
     log(f"training phase done at {phase_s()}")
+    launches.update(run_deepseek_training_phase(torch))
+    log(f"deepseek training phase done at {phase_s()}")
     run_trainer_phase(torch)
     log(f"trainer phase done at {phase_s()}")
 

@@ -9,8 +9,9 @@
 // dq (B, S, Hq, D) and k, v, dk, dv (B, S, Hkv, D), contiguous in the JAX
 // layout; GQA by head index (kv head = h / G, multi-query included);
 // causal or bidirectional; S that is not a multiple of the tile; head dims
-// up to 128 whose rows are whole 16-byte chunks; fp32 or bf16.  The
-// wrapper raises on a window, a logit cap and key padding.
+// up to 192 whose rows are whole 16-byte chunks (192: MLA's q/k head dim,
+// V zero-padded to it); fp32 or bf16.  The wrapper raises on a window, a
+// logit cap and key padding.
 //
 // Arithmetic, as the reference's: s = scale * q.k in fp32; p = exp(s -
 // lse); dv += p^T . dout with p rounded to v's dtype; dp = dout . v^T;
@@ -64,7 +65,9 @@
 //   smaller head dims), so that S^T and dP^T add 32 fp32.
 // - Shared rows are padded by 16 bytes (a pitch of DP + 8 bf16), so that
 //   ldmatrix reads are free of bank conflicts; head dims are zero-padded to
-//   16, 32, 64 or 128.  Only tiles that cross the diagonal or S are masked,
+//   16, 32, 64 or 128 (192 in the eight-warp kernels of head dims above
+//   128, whose design is described at them).  Only tiles that cross the
+//   diagonal or S are masked,
 //   by a second copy of the tile body.  The heaviest causal tiles start
 //   first: key tile 0 in dK/dV (every query tile sees it), the last query
 //   tile in dQ.
@@ -73,7 +76,8 @@
 // would change fp32 numerics, as the forward keeps fp32.  Blocks of 256
 // threads, the same grids; tiles sit in shared memory as fp32 rows padded
 // by one word, each thread holds a 4 x 4 tile of the scores and a
-// 4 x (D / 16) tile of its accumulators.
+// 4 x (D / 16) tile of its accumulators (at D 192 the dK/dV block's shared
+// memory is 231,424 bytes, just under the 232,448 a block may have).
 #include "../../common/csrc/common.cuh"
 
 namespace repro {
@@ -877,6 +881,492 @@ flash_bwd_dq_mma(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at head dims above 128 (MLA's q/k head dim, 192): eight warps
+// ---------------------------------------------------------------------------
+//
+// At DP 192 the four-warp layout above would hold 192 fp32 of dK and dV a
+// lane and spill, and its six tiles (154 KB) leave room for one block per
+// SM, four warps.  So a block here has eight warps, and each pair of warps
+// (w, w + 4) shares 16 rows of the block's 64-row tile:
+//
+// - dK/dV: the pair splits the head dim's columns, so each lane holds 96
+//   fp32 of dK and dV.  Per step of 32 queries, warp w + 4h forms S^T and
+//   dP^T for its 16 keys and the step's queries 16 h .. 16 h + 15 (no
+//   product is computed twice), rounds P^T and dS^T to bf16 and writes
+//   them to a shared exchange tile; after a barrier of the pair, each
+//   warp reads the whole step's P^T and dS^T as A operands by ldmatrix
+//   (the values acc_to_a would give) and updates its columns of dV and
+//   dK.  The exchange tile is double-buffered, so one pair barrier a step
+//   suffices.
+// - dQ: the pair splits each 64-key tile, keys 32 h .. 32 h + 31 to warp
+//   w + 4h, so each lane holds 96 fp32 of its partial dQ over all its
+//   columns.  After the key loop, warps 4-7 leave their partials in the
+//   freed ring and warps 0-3 add them, in that fixed order, and store.
+//
+// Same arithmetic as the four-warp kernels per element (p in fp32, P^T
+// and dS^T rounded to bf16 before their products, sums in fp32), same
+// grids, the same split and fold.  Shared memory: 175,104 bytes for
+// dK/dV, 153,600 for dQ; one block of eight warps per SM.
+
+constexpr int kWideThreads = 256;     // 8 warps: 4 row groups x 2 halves
+
+template <int DP>
+struct WideTile {
+  static constexpr int kPitch = DP + 8;
+  static constexpr int kChunks = DP / 8;
+  static constexpr int kTile = kT * kPitch;
+  static constexpr int kQS = 32;                  // dK/dV queries per step
+  static constexpr int kXPitch = kQS + 8;         // exchange tile pitch
+  static constexpr int kXTile = kT * kXPitch;
+  static constexpr int kCols = DP / 2;            // dK/dV columns per warp
+  static constexpr int kKS = kT / 2;              // dQ keys per warp per tile
+  // K, V, a two-stage ring of (Q, dO), each stage's lse and delta, and
+  // two buffers of (P^T, dS^T)
+  static constexpr size_t kSmemDkdv = 6 * kTile * sizeof(bf16) +
+                                      2 * 2 * kT * sizeof(float) +
+                                      2 * 2 * kXTile * sizeof(bf16);
+  // Q, dO and a two-stage ring of (K, V)
+  static constexpr size_t kSmemDq = 6 * kTile * sizeof(bf16);
+  static_assert((kT * kChunks) % kWideThreads == 0, "whole chunks a thread");
+  static_assert(kCols % 16 == 0 && kT % kQS == 0, "whole fragments");
+  static_assert(4 * (DP / 8) * 4 * 32 * sizeof(float) <=
+                    4 * kTile * sizeof(bf16),
+                "the dQ partials of warps 4-7 fit the ring");
+};
+
+// One 64-row tile from `src` (its row 0, rows `row_bytes` apart) into a
+// padded shared tile by cp.async, 16 bytes a copy, chunk c = tid + i *
+// kWideThreads; rows at or past `valid_rows` and chunks at or past
+// `chunks` are zero-filled and read nothing (`safe` is any valid address).
+template <int DP>
+__device__ inline void wide_issue(bf16* dst, const char* src,
+                                  long long row_bytes, int valid_rows,
+                                  int chunks, const void* safe, int tid) {
+  using M = WideTile<DP>;
+#pragma unroll
+  for (int i = 0; i < kT * M::kChunks / kWideThreads; ++i) {
+    const int c = tid + i * kWideThreads;
+    const int r = c / M::kChunks;
+    const int ch = c - r * M::kChunks;
+    const bool ok = ch < chunks && r < valid_rows;
+    cp_async16(dst + r * M::kPitch + ch * 8,
+               ok ? src + r * row_bytes + ch * 16 : safe, ok);
+  }
+}
+
+// The barrier of warps w and w + 4 (64 threads), named barrier 1 + w % 4.
+__device__ inline void pair_sync(int warp) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(1 + (warp & 3)), "r"(64)
+               : "memory");
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dkdv_mma8(BwdArgs a) {
+  using M = WideTile<DP>;
+  constexpr int kPitch = M::kPitch, kTile = M::kTile, kQS = M::kQS;
+  constexpr int kXP = M::kXPitch, kXTile = M::kXTile;
+  constexpr int kND = M::kCols / 8;            // dK / dV n-tiles per warp
+  const int split = blockIdx.x % a.n_split;
+  const int bk = blockIdx.x / a.n_split;
+  const int b = bk / a.Hkv;
+  const int hk = bk - b * a.Hkv;
+  const int G = a.Hq / a.Hkv;
+  const int gs = G / a.n_split;
+  const int k_lo = blockIdx.y * kT;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wrow = (warp & 3) * 16;            // this pair's keys
+  const int half = warp >> 2;                  // queries of a step, columns
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  extern __shared__ uint4 smem_bwd_mma[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_bwd_mma);
+  bf16* sV = sK + kTile;
+  bf16* ring = sV + kTile;                     // stage: Q tile, dO tile
+  float* ring_f = reinterpret_cast<float*>(ring + 4 * kTile);  // lse, delta
+  bf16* sX = reinterpret_cast<bf16*>(ring_f + 2 * 2 * kT);     // P^T, dS^T
+
+  const int nqt = (a.S + kT - 1) / kT;
+  const int qt0 = a.causal ? blockIdx.y : 0;
+  const int n_qt = nqt - qt0;
+  const int n_it = gs * n_qt;
+  const long long es = sizeof(bf16);
+  const long long kv_row = static_cast<long long>(a.Hkv) * a.D * es;
+  const long long q_row = static_cast<long long>(a.Hq) * a.D * es;
+  const int chunks = a.D / 8;
+  const long long kv_off = (static_cast<long long>(b) * a.S + k_lo) * kv_row +
+                           hk * a.D * es;
+  wide_issue<DP>(sK, static_cast<const char*>(a.k) + kv_off, kv_row,
+                 a.S - k_lo, chunks, a.k, tid);
+  wide_issue<DP>(sV, static_cast<const char*>(a.v) + kv_off, kv_row,
+                 a.S - k_lo, chunks, a.v, tid);
+
+  auto load_stage = [&](int it) {
+    const int j = it / n_qt;
+    const int q_lo = (qt0 + it - j * n_qt) * kT;
+    const int h = hk * G + split * gs + j;
+    bf16* dst = ring + (it % 2) * 2 * kTile;
+    const long long off = (static_cast<long long>(b) * a.S + q_lo) * q_row +
+                          h * a.D * es;
+    wide_issue<DP>(dst, static_cast<const char*>(a.q) + off, q_row,
+                   a.S - q_lo, chunks, a.q, tid);
+    wide_issue<DP>(dst + kTile, static_cast<const char*>(a.dout) + off, q_row,
+                   a.S - q_lo, chunks, a.dout, tid);
+    // threads 0-63 copy the tile's lse, 64-127 its delta
+    if (tid < 2 * kT) {
+      const int r = tid & (kT - 1);
+      const bool ok = q_lo + r < a.S;
+      const float* src = tid < kT ? a.lse : a.delta;
+      cp_async4(ring_f + (it % 2) * 2 * kT + tid,
+                ok ? src + (static_cast<long long>(b) * a.S + q_lo + r) * a.Hq + h
+                   : src,
+                ok);
+    }
+  };
+  if (n_it > 0) load_stage(0);
+  cp_async_commit();   // K, V and stage 0
+
+  float dk[kND][4], dv[kND][4];
+#pragma unroll
+  for (int j = 0; j < kND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const float qk_scale = a.scale * kLog2e;
+  int xb = 0;                                  // exchange buffer parity
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // stage it landed; every warp is done with it - 1
+    if (it + 1 < n_it) load_stage(it + 1);
+    cp_async_commit();
+
+    const int q_lo = (qt0 + it % n_qt) * kT;
+    const bf16* sQ = ring + (it % 2) * 2 * kTile;
+    const bf16* sO = sQ + kTile;
+    const float* sL = ring_f + (it % 2) * 2 * kT;
+    const float* sD = sL + kT;
+    auto tile = [&](auto mask_tag) {
+      constexpr bool MASK = decltype(mask_tag)::value;
+#pragma unroll 1
+      for (int qs = 0; qs < kT; qs += kQS) {
+        // S^T = K.Q^T and dP^T = V.dO^T: this pair's 16 keys x this
+        // warp's 16 queries of the step
+        const int q0 = qs + half * 16;
+        float st[2][4], dpt[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < DP / 16; ++kd) {
+          uint32_t ka[4], va[4], qb[4], ob[4];
+          load_a<kPitch>(ka, sK + wrow * kPitch, kd * 16, lane);
+          load_a<kPitch>(va, sV + wrow * kPitch, kd * 16, lane);
+          load_b<kPitch>(qb, sQ, q0, kd * 16, lane);
+          load_b<kPitch>(ob, sO, q0, kd * 16, lane);
+          mma_bf16(st[0], ka, qb[0], qb[1]);
+          mma_bf16(st[1], ka, qb[2], qb[3]);
+          mma_bf16(dpt[0], va, ob[0], ob[1]);
+          mma_bf16(dpt[1], va, ob[2], ob[3]);
+        }
+        // P^T and dS^T as in the four-warp kernel, rounded to bf16 into
+        // the exchange tile at (key, query of the step)
+        bf16* xP = sX + xb * 2 * kXTile;
+        bf16* xS = xP + kXTile;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = q0 + j * 8 + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(sL + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(sD + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float nl = -((e & 1) ? l2.y : l2.x) * kLog2e;
+            const float dl = (e & 1) ? d2.y : d2.x;
+            float p = fast_exp2(fmaf(st[j][e], qk_scale, nl));
+            if constexpr (MASK) {
+              const int kpos = k_lo + wrow + g + (e >> 1) * 8;
+              const int qpos = q_lo + c + (e & 1);
+              const bool ok = (qpos < a.S) & (!a.causal | (kpos <= qpos));
+              p = ok ? p : 0.f;
+            }
+            st[j][e] = p;
+            dpt[j][e] = p * (dpt[j][e] - dl);
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = (wrow + g + r * 8) * kXP + half * 16 + j * 8 + 2 * t;
+            *reinterpret_cast<uint32_t*>(xP + x) =
+                pack_bf16(st[j][2 * r], st[j][2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(xS + x) =
+                pack_bf16(dpt[j][2 * r], dpt[j][2 * r + 1]);
+          }
+        }
+        pair_sync(warp);   // the pair's P^T and dS^T for the step are in
+        // dV += P^T.dO and dK += dS^T.Q over the step, this warp's columns
+#pragma unroll
+        for (int kk = 0; kk < kQS / 16; ++kk) {
+          uint32_t pa[4], sa[4];
+          load_a<kXP>(pa, xP + wrow * kXP, kk * 16, lane);
+          load_a<kXP>(sa, xS + wrow * kXP, kk * 16, lane);
+#pragma unroll
+          for (int n = 0; n < M::kCols / 16; ++n) {
+            const int col = half * M::kCols + n * 16;
+            uint32_t ob[4], qb[4];
+            load_b_trans<kPitch>(ob, sO, qs + kk * 16, col, lane);
+            load_b_trans<kPitch>(qb, sQ, qs + kk * 16, col, lane);
+            mma_bf16(dv[2 * n], pa, ob[0], ob[1]);
+            mma_bf16(dv[2 * n + 1], pa, ob[2], ob[3]);
+            mma_bf16(dk[2 * n], sa, qb[0], qb[1]);
+            mma_bf16(dk[2 * n + 1], sa, qb[2], qb[3]);
+          }
+        }
+        xb ^= 1;   // the other buffer next: this one may still be read
+      }
+    };
+    if ((a.causal && k_lo + kT - 1 > q_lo) || q_lo + kT > a.S) {
+      tile(Flag<true>());
+    } else {
+      tile(Flag<false>());
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = k_lo + wrow + g + r * 8;
+    if (kpos < a.S) {
+#pragma unroll
+      for (int j = 0; j < kND; ++j) {
+        const int d = half * M::kCols + j * 8 + 2 * t;
+        if (d < a.D) {
+          if (a.n_split == 1) {
+            const long long idx =
+                ((static_cast<long long>(b) * a.S + kpos) * a.Hkv + hk) * a.D + d;
+            *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.dk) + idx) =
+                pack_bf16(dk[j][2 * r] * a.scale, dk[j][2 * r + 1] * a.scale);
+            *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.dv) + idx) =
+                pack_bf16(dv[j][2 * r], dv[j][2 * r + 1]);
+          } else {
+            store_partial(a, split, b, hk, kpos, d, dk[j][2 * r] * a.scale,
+                          dk[j][2 * r + 1] * a.scale, dv[j][2 * r],
+                          dv[j][2 * r + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWideThreads)
+flash_bwd_dq_mma8(BwdArgs a) {
+  using M = WideTile<DP>;
+  constexpr int kPitch = M::kPitch, kTile = M::kTile, kKS = M::kKS;
+  constexpr int kNS = kKS / 8;                 // score n-tiles per warp
+  constexpr int kND = DP / 8;                  // dQ n-tiles
+  const int bh = blockIdx.x;
+  const int b = bh / a.Hq;
+  const int h = bh - b * a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * kT;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wrow = (warp & 3) * 16;            // this pair's queries
+  const int k0 = (warp >> 2) * kKS;            // this warp's keys of a tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  extern __shared__ uint4 smem_bwd_mma[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_bwd_mma);
+  bf16* sO = sQ + kTile;
+  bf16* ring = sO + kTile;                     // stage: K tile, V tile
+
+  const int nkt = (a.S + kT - 1) / kT;
+  const int n_it = a.causal ? min(nkt, q_lo / kT + 1) : nkt;
+  const long long es = sizeof(bf16);
+  const long long kv_row = static_cast<long long>(a.Hkv) * a.D * es;
+  const long long q_row = static_cast<long long>(a.Hq) * a.D * es;
+  const int chunks = a.D / 8;
+  const long long q_off = (static_cast<long long>(b) * a.S + q_lo) * q_row +
+                          h * a.D * es;
+  wide_issue<DP>(sQ, static_cast<const char*>(a.q) + q_off, q_row, a.S - q_lo,
+                 chunks, a.q, tid);
+  wide_issue<DP>(sO, static_cast<const char*>(a.dout) + q_off, q_row,
+                 a.S - q_lo, chunks, a.dout, tid);
+  const char* kb = static_cast<const char*>(a.k) + static_cast<long long>(b) * a.S * kv_row +
+                   hk * a.D * es;
+  const char* vb = static_cast<const char*>(a.v) + static_cast<long long>(b) * a.S * kv_row +
+                   hk * a.D * es;
+  auto load_stage = [&](int it) {
+    bf16* dst = ring + (it % 2) * 2 * kTile;
+    const int k_lo = it * kT;
+    wide_issue<DP>(dst, kb + k_lo * kv_row, kv_row, a.S - k_lo, chunks, a.k,
+                   tid);
+    wide_issue<DP>(dst + kTile, vb + k_lo * kv_row, kv_row, a.S - k_lo,
+                   chunks, a.v, tid);
+  };
+  if (n_it > 0) load_stage(0);
+  cp_async_commit();   // Q, dO and stage 0
+
+  // delta of the tile's rows from global memory: four threads a row, each
+  // a quarter of its 16-byte chunks, summed over the four; for this block
+  // and the dK/dV launch
+  __shared__ float s_delta[kT];
+  {
+    const int r = tid >> 2;
+    const int part = tid & 3;
+    const int qpos = q_lo + r;
+    const long long idx = (static_cast<long long>(b) * a.S + qpos) * a.Hq + h;
+    float dl = 0.f;
+    if (qpos < a.S) {
+#pragma unroll
+      for (int i = 0; i < M::kChunks / 4; ++i) {
+        const int ch = part * (M::kChunks / 4) + i;
+        if (ch < chunks) {
+          const long long off = idx * a.D + ch * 8;
+          uint4 x = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.dout) + off);
+          uint4 y = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.out) + off);
+          const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+          const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 fx = __bfloat1622float2(xp[j]);
+            const float2 fy = __bfloat1622float2(yp[j]);
+            dl = fmaf(fx.x, fy.x, dl);
+            dl = fmaf(fx.y, fy.y, dl);
+          }
+        }
+      }
+    }
+    dl = group_sum<4>(dl);
+    if (part == 0) {
+      s_delta[r] = dl;
+      if (qpos < a.S) a.delta[idx] = dl;
+    }
+  }
+  __syncthreads();
+  float nl[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q_lo + wrow + g + r * 8;
+    const long long idx = (static_cast<long long>(b) * a.S + qpos) * a.Hq + h;
+    nl[r] = qpos < a.S ? -a.lse[idx] * kLog2e : 0.f;
+    dl[r] = s_delta[wrow + g + r * 8];
+  }
+  float dq[kND][4];
+#pragma unroll
+  for (int j = 0; j < kND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+  const float qk_scale = a.scale * kLog2e;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // stage it landed; every warp is done with it - 1
+    if (it + 1 < n_it) load_stage(it + 1);
+    cp_async_commit();
+
+    const int k_lo = it * kT;
+    const bf16* sK = ring + (it % 2) * 2 * kTile;
+    const bf16* sV = sK + kTile;
+    auto tile = [&](auto mask_tag) {
+      constexpr bool MASK = decltype(mask_tag)::value;
+      // S = Q.K^T and dP = dO.V^T: 16 queries x this warp's 32 keys
+      float s[kNS][4], dp[kNS][4];
+#pragma unroll
+      for (int j = 0; j < kNS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < DP / 16; ++kd) {
+        uint32_t qa[4], oa[4];
+        load_a<kPitch>(qa, sQ + wrow * kPitch, kd * 16, lane);
+        load_a<kPitch>(oa, sO + wrow * kPitch, kd * 16, lane);
+#pragma unroll
+        for (int nb = 0; nb < kKS / 16; ++nb) {
+          uint32_t kf[4], vf[4];
+          load_b<kPitch>(kf, sK, k0 + nb * 16, kd * 16, lane);
+          load_b<kPitch>(vf, sV, k0 + nb * 16, kd * 16, lane);
+          mma_bf16(s[2 * nb], qa, kf[0], kf[1]);
+          mma_bf16(s[2 * nb + 1], qa, kf[2], kf[3]);
+          mma_bf16(dp[2 * nb], oa, vf[0], vf[1]);
+          mma_bf16(dp[2 * nb + 1], oa, vf[2], vf[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = fast_exp2(fmaf(s[j][e], qk_scale, nl[e >> 1]));
+          if constexpr (MASK) {
+            const int qpos = q_lo + wrow + g + (e >> 1) * 8;
+            const int kpos = k_lo + k0 + j * 8 + 2 * t + (e & 1);
+            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos));
+            p = ok ? p : 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
+        }
+      }
+      // dQ += dS.K over this warp's keys, dS rounded to bf16
+#pragma unroll
+      for (int kk = 0; kk < kKS / 16; ++kk) {
+        uint32_t sa[4];
+        acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < DP / 16; ++n) {
+          uint32_t kf[4];
+          load_b_trans<kPitch>(kf, sK, k0 + kk * 16, n * 16, lane);
+          mma_bf16(dq[2 * n], sa, kf[0], kf[1]);
+          mma_bf16(dq[2 * n + 1], sa, kf[2], kf[3]);
+        }
+      }
+    };
+    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.S) {
+      tile(Flag<true>());
+    } else {
+      tile(Flag<false>());
+    }
+  }
+
+  // warps 4-7 leave their partial dQ in the ring (every copy has landed
+  // and every warp is past its last read of it), warps 0-3 add it
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring) + (warp & 3) * (kND * 4 * 32);
+  if (warp >= 4) {
+#pragma unroll
+    for (int j = 0; j < kND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(j * 4 + e) * 32 + lane] = dq[j][e];
+  }
+  __syncthreads();
+  if (warp >= 4) return;
+#pragma unroll
+  for (int j = 0; j < kND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] += red[(j * 4 + e) * 32 + lane];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q_lo + wrow + g + r * 8;
+    if (qpos < a.S) {
+      bf16* row = static_cast<bf16*>(a.dq) +
+                  ((static_cast<long long>(b) * a.S + qpos) * a.Hq + h) * a.D;
+#pragma unroll
+      for (int j = 0; j < kND; ++j) {
+        const int d = j * 8 + 2 * t;
+        if (d < a.D) {
+          *reinterpret_cast<uint32_t*>(row + d) =
+              pack_bf16(dq[j][2 * r] * a.scale, dq[j][2 * r + 1] * a.scale);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the fold of the split partials, both dtypes
 // ---------------------------------------------------------------------------
 
@@ -939,6 +1429,25 @@ cudaError_t launch_simt(const BwdArgs& a, cudaStream_t stream) {
 }
 
 template <int DP>
+cudaError_t launch_mma8(const BwdArgs& a, cudaStream_t stream) {
+  using M = WideTile<DP>;
+  const int nt = (a.S + kT - 1) / kT;
+  cudaError_t err = allow_smem(&flash_bwd_dkdv_mma8<DP>, M::kSmemDkdv);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(&flash_bwd_dq_mma8<DP>, M::kSmemDq);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_mma8<DP><<<dim3(a.B * a.Hq, nt), kWideThreads, M::kSmemDq,
+                          stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_mma8<DP><<<dim3(a.B * a.Hkv * a.n_split, nt), kWideThreads,
+                            M::kSmemDkdv, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_fold<bf16>(a, stream);
+}
+
+template <int DP>
 cudaError_t launch_mma(const BwdArgs& a, cudaStream_t stream) {
   using M = BwdTile<DP>;
   const int nt = (a.S + kT - 1) / kT;
@@ -975,7 +1484,7 @@ extern "C" int flash_attention_bwd(
             Hkv, D, causal, n_split, 1.0f / sqrtf(static_cast<float>(D))};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0) return 0;
-  if (D <= 0 || D > 128 || Hkv <= 0 || Hq % Hkv || n_split <= 0 ||
+  if (D <= 0 || D > 192 || Hkv <= 0 || Hq % Hkv || n_split <= 0 ||
       (Hq / Hkv) % n_split || (n_split > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16) {
@@ -983,12 +1492,14 @@ extern "C" int flash_attention_bwd(
     if (D <= 16) return static_cast<int>(launch_mma<16>(a, s));
     if (D <= 32) return static_cast<int>(launch_mma<32>(a, s));
     if (D <= 64) return static_cast<int>(launch_mma<64>(a, s));
-    return static_cast<int>(launch_mma<128>(a, s));
+    if (D <= 128) return static_cast<int>(launch_mma<128>(a, s));
+    return static_cast<int>(launch_mma8<192>(a, s));
   }
   if (dtype == kF32) {
     if (D % 4) return static_cast<int>(cudaErrorInvalidValue);
     if (D <= 64) return static_cast<int>(launch_simt<4>(a, s));
-    return static_cast<int>(launch_simt<8>(a, s));
+    if (D <= 128) return static_cast<int>(launch_simt<8>(a, s));
+    return static_cast<int>(launch_simt<12>(a, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

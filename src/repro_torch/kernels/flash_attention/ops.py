@@ -23,15 +23,18 @@ launches.
 
 Training: where autograd records the call (grad mode on and q, k or v
 requiring grad), a CUDA call runs ``FlashAttentionFn``.  Its forward
-launches the same kernel with the log-sum-exp output (``lse_launches``);
-its backward launches the backward kernels (csrc/flash_attention_bwd.cu,
-``bwd_launches`` per call), which take causal or bidirectional GQA up to
-head dim 128 and raise on a window, a logit cap and key padding.  bf16
-runs on the tensor cores, fp32 on the CUDA cores.  ``bwd_plan`` splits a
-KV head's query heads over ``n_split`` dK/dV blocks where the (batch, KV
-head, key tile) blocks alone would leave the card half idle; the splits'
-fp32 partials are folded in split order by a third launch, so the result
-stays bitwise repeatable.
+launches the same kernel with the log-sum-exp output (``lse_launches``
+up to head dim 128, ``lse_d192_launches`` above); its backward launches
+the backward kernels (csrc/flash_attention_bwd.cu; ``bwd_launches`` per
+call up to head dim 128, ``bwd_d192_launches`` above, to 192: MLA's
+q/k head dim), which take causal or bidirectional GQA and raise on a
+window, a logit cap, key padding and head dims above 192, each naming
+the ROADMAP item that lifts it.  bf16 runs on the tensor cores (four
+warps a block up to 128, eight at 192), fp32 on the CUDA cores.
+``bwd_plan`` splits a KV head's query heads over ``n_split`` dK/dV
+blocks where the (batch, KV head, key tile) blocks alone would leave
+the card half idle; the splits' fp32 partials are folded in split order
+by a third launch, so the result stays bitwise repeatable.
 ``flash_attention_bwd_split_ref`` in ``ref.py`` is that fold in plain
 PyTorch.  On a CPU tensor the plain version carries its own gradient
 (``layers.blockwise_attention``).
@@ -53,14 +56,19 @@ masked_launches = 0
 d192_launches = 0
 d256_launches = 0
 lse_launches = 0
+lse_d192_launches = 0
 bwd_launches = 0
+bwd_d192_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
 _ROW_BYTES = 16               # a row is a whole number of 16-byte chunks
 _BQ = 64                      # query rows per block, both kernels
-_MAX_BWD_D = 128
-_BWD_BLOCKS_PER_SM = 2        # dK/dV blocks per SM that bwd_plan aims at
+_MAX_BWD_D = 192
+_BWD_NARROW_D = 128           # above it the backward's 8-warp instances
+# dK/dV blocks per SM that bwd_plan aims at: two 4-warp blocks fit an SM
+# up to head dim 128, one 8-warp block at 192 (175 KB of shared memory)
+_BWD_BLOCKS_PER_SM = 2
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -191,28 +199,34 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 # ---------------------------------------------------------------------------
 
 def _check_bwd(q, window, logit_cap, is_global, kv_len):
-    """Raise on what the backward kernel does not take."""
+    """Raise on what the backward kernel does not take, naming the ROADMAP
+    item that brings it."""
     D = q.shape[-1]
     if window and not is_global:
-        raise NotImplementedError("flash backward: a sliding window is not "
-                                  "supported by the kernel")
+        raise NotImplementedError(
+            "flash backward: a sliding window is not supported by the "
+            "kernel; it comes with SSM and hybrid training (ROADMAP queue "
+            "1, item 1 (b))")
     if logit_cap > 0.0:
-        raise NotImplementedError("flash backward: a logit cap is not "
-                                  "supported by the kernel")
+        raise NotImplementedError(
+            "flash backward: a logit cap is not supported by the kernel "
+            "(ROADMAP queue 2 (a); no registered arch trains with one)")
     if kv_len is not None:
-        raise NotImplementedError("flash backward: key padding (kv_len) is "
-                                  "not supported by the kernel")
+        raise NotImplementedError(
+            "flash backward: key padding (kv_len) is not supported by the "
+            "kernel; it comes with enc-dec training (ROADMAP queue 1, item "
+            "1 (c))")
     if D > _MAX_BWD_D:
-        raise NotImplementedError(f"flash backward: head_dim {D} > "
-                                  f"{_MAX_BWD_D} is not supported by the "
-                                  "kernel")
+        raise NotImplementedError(
+            f"flash backward: head_dim {D} > {_MAX_BWD_D} is not supported "
+            "by the kernel (ROADMAP queue 2 (a))")
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True):
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (out (B, S, Hq, D), lse
     (B, S, Hq) fp32): the flash kernel with its log-sum-exp output, natural
     units of the scaled scores.  A CPU tensor takes the plain version."""
-    global lse_launches
+    global lse_launches, lse_d192_launches
     if q.device.type == "cpu":
         return flash_attention_lse_ref(q, k, v, causal=causal)
     _check(q, k, v, None, 0, None)
@@ -228,21 +242,27 @@ def flash_attention_lse(q, k, v, *, causal: bool = True):
                     out.stride(0), out.stride(1), out.stride(2),
                     int(bool(causal)), 0, 0, 0.0, _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_lse")
-    lse_launches += 1
+    if D > _BWD_NARROW_D:
+        lse_d192_launches += 1
+    else:
+        lse_launches += 1
     return out, lse
 
 
-def bwd_plan(B: int, S: int, Hq: int, Hkv: int, sms: int) -> int:
+def bwd_plan(B: int, S: int, Hq: int, Hkv: int, sms: int,
+             D: int = 128) -> int:
     """The backward's ``n_split``: the least divisor of G = Hq / Hkv that
     gives the dK/dV launch, ``B * Hkv * ceil(S / 64) * n_split`` blocks, at
-    least ``_BWD_BLOCKS_PER_SM`` blocks per SM on a card of ``sms`` SMs, or
-    G where none does.  Host ints only."""
+    least as many blocks per SM as fit one (``_BWD_BLOCKS_PER_SM`` up to
+    head dim 128, one above) on a card of ``sms`` SMs, or G where none
+    does.  Host ints only."""
     G = Hq // Hkv
     blocks = B * Hkv * -(-S // _BQ)
     if blocks == 0:
         return 1
+    per_sm = _BWD_BLOCKS_PER_SM if D <= _BWD_NARROW_D else 1
     return next((n for n in range(1, G + 1) if G % n == 0
-                 and blocks * n >= _BWD_BLOCKS_PER_SM * sms), G)
+                 and blocks * n >= per_sm * sms), G)
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
@@ -250,7 +270,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
     ``out`` and ``lse``, for the output gradient ``dout``; the dQ kernel
     also computes ``delta = rowsum(dout * out)`` in fp32, for the dK/dV
     kernel.  A CPU tensor takes the plain version."""
-    global bwd_launches
+    global bwd_launches, bwd_d192_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, lse,
                                        causal=causal)
@@ -269,7 +289,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
                          f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    n_split = bwd_plan(B, S, Hq, Hkv, _build.sm_count(q.device.index or 0))
+    n_split = bwd_plan(B, S, Hq, Hkv, _build.sm_count(q.device.index or 0),
+                       D)
     partial = (torch.empty((2, n_split, B, S, Hkv, D), dtype=torch.float32,
                            device=q.device) if n_split > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -281,7 +302,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
                     B, S, Hq, Hkv, D, int(bool(causal)), n_split,
                     _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_bwd")
-    bwd_launches += 1
+    if D > _BWD_NARROW_D:
+        bwd_d192_launches += 1
+    else:
+        bwd_launches += 1
     return dq, dk, dv
 
 

@@ -18,7 +18,9 @@ COUNTERS = {"ragged_decode": (_rd, "launches"),
             "flash_attention_d192": (_fa, "d192_launches"),
             "flash_attention_d256": (_fa, "d256_launches"),
             "flash_attention_lse": (_fa, "lse_launches"),
+            "flash_attention_lse_d192": (_fa, "lse_d192_launches"),
             "flash_attention_bwd": (_fa, "bwd_launches"),
+            "flash_attention_bwd_d192": (_fa, "bwd_d192_launches"),
             "mamba_step": (_ms, "step_launches"),
             "mamba_scan": (_ms, "scan_launches"),
             "flex_mm": (_fm, "launches"),

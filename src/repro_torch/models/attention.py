@@ -269,7 +269,8 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
 def _mla_q(p: Params, cfg: ModelConfig, x, positions):
     m = cfg.mla
     if m.q_lora_rank:
-        cq = L.rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+        cq = L.rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"],
+                        cfg.norm_eps)
         q = _proj(cq, p["w_uq"])
     else:
         q = _proj(x, p["w_q"])
@@ -278,8 +279,9 @@ def _mla_q(p: Params, cfg: ModelConfig, x, positions):
 
 
 def _mla_latents(p: Params, cfg: ModelConfig, x, positions):
-    ckv = L.rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
-    kr = L.apply_rope((x @ p["w_kr"])[:, :, None, :], positions,
+    ckv = L.rms_norm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"],
+                     cfg.norm_eps)
+    kr = L.apply_rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :], positions,
                       cfg.rope_theta)[:, :, 0]
     return ckv, kr
 
@@ -287,7 +289,10 @@ def _mla_latents(p: Params, cfg: ModelConfig, x, positions):
 def _mla_attend(p: Params, cfg: ModelConfig, x, positions, ckv, kr, *,
                 use_kernels: bool):
     """Causal attention over the latents expanded to per-head K and V: the
-    flash kernel at the qk head dim, V zero-padded to it."""
+    flash kernel at the qk head dim, V zero-padded to it.  Under autograd
+    the kernel path's backward runs at that head dim too; the pad's
+    backward drops the padded columns' gradient, which the slice after
+    the attention makes zero."""
     m = cfg.mla
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     k_nope = _proj(ckv, p["w_uk"])

@@ -15,9 +15,11 @@ reference computes with them in fp32.  Training keeps fp32 masters
 activation dtype at use, as the reference does.
 
 ``loss(params, batch)`` is the training objective, the reference's
-``Model.loss``, for dense decoder-only archs (minitron, qwen2.5, granite,
-chameleon, qwen1.5); the other families raise, naming the ROADMAP item
-that brings their training.
+``Model.loss``: the cross-entropy plus ``aux_weight`` times the MoE
+layers' load-balance loss, for decoder-only archs with GQA or MLA
+attention and dense or MoE FFNs (minitron, qwen2.5, granite, chameleon,
+qwen1.5, deepseek-v2-lite, arctic); SSM, hybrid and enc-dec archs raise,
+naming the ROADMAP item that brings their training.
 """
 from __future__ import annotations
 
@@ -101,31 +103,35 @@ class Model:
                              use_kernels=use_kernels)
 
     # ------------------------------------------------------------------
-    def loss(self, params, batch, *, use_kernels: bool = True):
-        """batch: {tokens, labels} (B, S) int -> (loss, {"xent", "aux"}).
+    def loss(self, params, batch, *, use_kernels: bool = True,
+             moe_dispatch: str = "einsum", aux_weight: float = 0.01):
+        """batch: {tokens, labels} (B, S) int -> (xent + aux_weight * aux,
+        {"xent", "aux"}).
 
-        Labels below 0 are masked out.  The dense archs have no auxiliary
-        loss (aux 0; the reference adds 0.01 aux for MoE).  The decoder
-        runs with per-layer remat when ``cfg.remat``; the cross-entropy is
-        chunked (``transformer.chunked_softmax_xent``).  ``use_kernels``:
-        attention through the flash kernels and their backward on the card
-        (the plain versions on a CPU tensor either way)."""
+        Labels below 0 are masked out.  ``aux`` is the MoE layers'
+        load-balance loss summed over the layers (0 for dense archs).  The
+        decoder runs with per-layer remat when ``cfg.remat``; the
+        cross-entropy is chunked (``transformer.chunked_softmax_xent``).
+        ``use_kernels``: attention through the flash kernels and their
+        backward on the card (the plain versions on a CPU tensor either
+        way); ``moe_dispatch``: "einsum" (the reference's default) or
+        "gather"."""
         cfg = self.cfg
         check_trainable(cfg)
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
         pos = torch.arange(S, device=x.device).expand(B, S)
-        x = T.decoder_fwd(params["decoder"], cfg, x, pos,
-                          use_kernels=use_kernels, remat=cfg.remat)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = T.decoder_fwd(params["decoder"], cfg, x, pos,
+                               use_kernels=use_kernels,
+                               moe_dispatch=moe_dispatch, remat=cfg.remat)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         labels = batch["labels"]
         mask = (labels >= 0).float()
         xent = T.chunked_softmax_xent(x, self._head(params),
                                       torch.clamp(labels, min=0), mask,
                                       logit_softcap=cfg.logit_softcap)
-        return xent, {"xent": xent, "aux": aux}
+        return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *, src_len: int = 0):
@@ -211,8 +217,8 @@ class Model:
         B, S = tokens.shape
         x = self._embed(params, tokens)
         pos = torch.arange(S, device=x.device).expand(B, S)
-        x = T.decoder_fwd(params["decoder"], cfg, x, pos,
-                          use_kernels=use_kernels)
+        x, _ = T.decoder_fwd(params["decoder"], cfg, x, pos,
+                             use_kernels=use_kernels)
         return L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
 
     @torch.no_grad()
@@ -240,15 +246,14 @@ def check_trainable(cfg: ModelConfig) -> None:
     """Raise for the families whose training the port does not have yet,
     naming the ROADMAP item that brings each."""
     later = None
-    if cfg.moe is not None or cfg.mla is not None:
-        later = "MoE and MLA training (ROADMAP queue 1, item 1 (a))"
-    elif cfg.ssm is not None or cfg.hybrid_parallel:
+    if cfg.ssm is not None or cfg.hybrid_parallel:
         later = "SSM and hybrid training (ROADMAP queue 1, item 1 (b))"
     elif cfg.is_encdec:
         later = "enc-dec training (ROADMAP queue 1, item 1 (c))"
     if later:
-        raise NotImplementedError(f"{cfg.name}: the port trains dense "
-                                  f"decoder-only archs; {later} comes later")
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains decoder-only archs with GQA or "
+            f"MLA attention and dense or MoE FFNs; {later} comes later")
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:

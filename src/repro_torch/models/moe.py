@@ -14,6 +14,12 @@ Nothing here waits on the host (no ``nonzero``, boolean indexing,
 ``F.one_hot``'s range check or ``.item()``): one-hots compare against an
 ``arange``, so a decode step through an MoE layer captures as a CUDA
 graph.
+
+Under autograd (training) the gradient reaches the router through the
+normalised gate values in ``combine`` (or the gather path's weights) and
+through the aux loss's mean probabilities; the capacity positions, the
+keep mask and ``dispatch = (combine > 0)`` are integer or boolean and
+carry none, as under ``jax.grad`` of the reference.
 """
 from __future__ import annotations
 
@@ -61,14 +67,15 @@ def ffn_apply(p: Params, cfg: ModelConfig, x):
 
 
 def _expert_ffn(p: Params, cfg: ModelConfig, x):
-    """x: (E, rows, d), batched over the stacked weights' expert axis."""
+    """x: (E, rows, d), batched over the stacked weights' expert axis;
+    weights cast to x's dtype at use, as in ``ffn_apply``."""
     act = L.activation(cfg.act)
-    up = torch.bmm(x, p["w_up"])
+    up = torch.bmm(x, p["w_up"].to(x.dtype))
     if cfg.glu:
-        h = act(torch.bmm(x, p["w_gate"])) * up
+        h = act(torch.bmm(x, p["w_gate"].to(x.dtype))) * up
     else:
         h = act(up)
-    return torch.bmm(h, p["w_down"])
+    return torch.bmm(h, p["w_down"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

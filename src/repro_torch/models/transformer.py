@@ -94,16 +94,18 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device,
 
 
 def _ffn(p, cfg: ModelConfig, x, moe_dispatch: str = "einsum"):
-    """The FFN sublayer: dense, or MoE (its aux loss is for training and
-    is dropped here)."""
+    """The FFN sublayer: dense, or MoE.  Returns (x, aux): the MoE layer's
+    load-balance loss (fp32, 0-d), None for a dense or FFN-less layer.
+    Training sums it (``decoder_fwd``); serving drops it."""
+    aux = None
     if "moe" in p:
         h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
-        y, _ = M.moe_apply(p["moe"], cfg, h2, dispatch_impl=moe_dispatch)
+        y, aux = M.moe_apply(p["moe"], cfg, h2, dispatch_impl=moe_dispatch)
         x = x + y
     elif "ffn" in p:
         h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
         x = x + M.ffn_apply(p["ffn"], cfg, h2)
-    return x
+    return x, aux
 
 
 def _hybrid(p, cfg: ModelConfig, a, s):
@@ -125,8 +127,9 @@ def _ssm_fwd(p, cfg: ModelConfig, h, use_kernels: bool):
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, causal: bool,
                is_global: bool, kv_len, use_kernels: bool,
                moe_dispatch: str = "einsum"):
-    """Residual layer without a cache (encoders, embedding stacks).  An SSM
-    layer folds the sequence from a zero state, as its prefill does."""
+    """Residual layer without a cache (training, encoders, embedding
+    stacks): (x, aux) as ``_ffn`` gives them.  An SSM layer folds the
+    sequence from a zero state, as its prefill does."""
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     if cfg.hybrid_parallel:
         a = A.gqa_fwd(p["attn"], cfg, h, positions, causal=causal,
@@ -181,7 +184,7 @@ def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
         Ss = enc_out.shape[1]
         cache["cross"]["k"][:, :Ss] = ck.to(cache["cross"]["k"].dtype)
         cache["cross"]["v"][:, :Ss] = cv.to(cache["cross"]["v"].dtype)
-    return _ffn(p, cfg, x, moe_dispatch), cache
+    return _ffn(p, cfg, x, moe_dispatch)[0], cache
 
 
 def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
@@ -212,7 +215,7 @@ def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
     x1 = _cross(p, cfg, x1 + y, lambda hc: A.cross_step(
         p["cross"], cfg, hc, cache["cross"]["k"], cache["cross"]["v"],
         src_len, use_kernels=use_kernels, src_bound=src_bound, live=live))
-    return _ffn(p, cfg, x1, moe_dispatch), cache
+    return _ffn(p, cfg, x1, moe_dispatch)[0], cache
 
 
 def _prologue_plan(cfg: ModelConfig) -> Tuple[int, int]:
@@ -298,22 +301,28 @@ def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
                 use_kernels: bool = True, moe_dispatch: str = "einsum",
                 remat: bool = False):
     """Full-sequence causal decoder pass without a cache (training, and the
-    embedding stacks of decoder-only archs).  With ``remat`` and autograd
-    recording, each layer is checkpointed (non-reentrant): its backward
-    recomputes the layer from its input, as the reference's scan body
-    under ``jax.checkpoint(nothing_saveable)`` does."""
+    embedding stacks of decoder-only archs): (x, aux), aux the MoE layers'
+    load-balance losses summed over the prologue and the layers in order
+    (fp32, 0 without MoE), as the reference's.  With ``remat`` and
+    autograd recording, each layer is checkpointed (non-reentrant; the
+    layer function returns both values): its backward recomputes the
+    layer from its input, as the reference's scan body under
+    ``jax.checkpoint(nothing_saveable)`` does."""
     def layer(lp, i, h):
         return _layer_fwd(lp, cfg, h, positions, causal=True,
                           is_global=_global(cfg, i), kv_len=None,
                           use_kernels=use_kernels, moe_dispatch=moe_dispatch)
 
     remat = remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["prologue"] + params["layers"]):
         if remat:
-            x = checkpoint(layer, lp, i, x, use_reentrant=False)
+            x, aux = checkpoint(layer, lp, i, x, use_reentrant=False)
         else:
-            x = layer(lp, i, x)
-    return x
+            x, aux = layer(lp, i, x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def decoder_prefill(params, cfg: ModelConfig, x, positions, cache, *,
@@ -373,8 +382,9 @@ def encoder_fwd(params, cfg: ModelConfig, x, positions, *, kv_len=None,
     padding, so the valid rows of the output do not depend on the padded
     length (None: every row is all valid)."""
     for lp in params["layers"]:
-        x = _layer_fwd(lp, cfg, x, positions, causal=False, is_global=False,
-                       kv_len=kv_len, use_kernels=use_kernels)
+        x, _ = _layer_fwd(lp, cfg, x, positions, causal=False,
+                          is_global=False, kv_len=kv_len,
+                          use_kernels=use_kernels)
     return L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
 
 

@@ -51,8 +51,10 @@ def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
     ``cfg.microbatches`` > 1 the batch's leading dim is split and the
     microbatches' fp32 gradients are summed in ``.grad`` and divided by
     their count (bitwise the reference's sum of g / n for a power-of-two
-    count; fp32 parameters only).  The lr of step 0 is 0, as the
-    reference's cosine schedule gives: its first step moves nothing."""
+    count; fp32 parameters only), and the metrics' xent and aux are the
+    microbatches' means (the reference reports aux 0 there).  The lr of
+    step 0 is 0, as the reference's cosine schedule gives: its first step
+    moves nothing."""
     lr_fn = optim.cosine_schedule(cfg.lr, cfg.warmup, cfg.steps)
     n_mb = cfg.microbatches
 
@@ -67,17 +69,19 @@ def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
         try:
             if n_mb > 1:
                 rows = batch["tokens"].shape[0] // n_mb
-                loss = torch.zeros((), dtype=torch.float32,
+                zero = torch.zeros((), dtype=torch.float32,
                                    device=leaves[0].device)
+                loss, metrics = zero, {"xent": zero, "aux": zero}
                 for i in range(n_mb):
                     mb = {k: v[i * rows:(i + 1) * rows]
                           for k, v in batch.items()}
-                    lmb, _ = model.loss(params, mb)
+                    lmb, mmb = model.loss(params, mb)
                     lmb.backward()
                     loss = loss + lmb.detach() / n_mb
+                    metrics = {k: v + mmb[k].detach() / n_mb
+                               for k, v in metrics.items()}
                 for p in leaves:
                     p.grad.div_(n_mb)
-                metrics = {"xent": loss, "aux": torch.zeros_like(loss)}
             else:
                 loss, metrics = model.loss(params, batch)
                 loss.backward()

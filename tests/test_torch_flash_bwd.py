@@ -185,8 +185,9 @@ def test_kernel_contract_raises_before_launch():
             fa._check_bwd(q, kw.get("window", 0), kw.get("logit_cap", 0.0),
                           None, kw.get("kv_len"))
     fa._check_bwd(q, 4, 0.0, True, None)      # a global layer: no window
-    with pytest.raises(NotImplementedError):
-        fa._check_bwd(torch.zeros((1, 8, 2, 192)), 0, 0.0, None, None)
+    fa._check_bwd(torch.zeros((1, 8, 2, 192)), 0, 0.0, None, None)  # MLA
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fa._check_bwd(torch.zeros((1, 8, 2, 256)), 0, 0.0, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -212,10 +213,12 @@ H100_SMS = 132
 def test_bwd_plan_fills_the_card(case):
     label, B, S, Hq, Hkv, D, causal = case
     G = Hq // Hkv
-    n = fa.bwd_plan(B, S, Hq, Hkv, H100_SMS)
+    n = fa.bwd_plan(B, S, Hq, Hkv, H100_SMS, D)
     assert G % n == 0
     blocks = B * Hkv * -(-S // 64)
-    target = fa._BWD_BLOCKS_PER_SM * H100_SMS
+    # one 8-warp dK/dV block fits an SM above head dim 128, two below
+    per_sm = fa._BWD_BLOCKS_PER_SM if D <= 128 else 1
+    target = per_sm * H100_SMS
     # the target met, or every head split off; by the least such divisor
     assert blocks * n >= target or n == G
     assert all(blocks * m < target for m in range(1, n) if G % m == 0)
@@ -223,6 +226,8 @@ def test_bwd_plan_fills_the_card(case):
         assert n == 1                         # 4 x 8 x 16 = 512 blocks
     if label == "granite MQA":
         assert n > 1                          # 16 blocks unsplit
+    if label == "MLA":
+        assert n == 1                         # G = 1: 1024 blocks
 
 
 def test_bwd_plan_edges():

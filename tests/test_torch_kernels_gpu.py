@@ -183,11 +183,23 @@ def test_flash_kernel_mla_head_dims_on_gpu(cuda, dtype, S, case, D):
 
 # flash backward shapes: (label, B, S, Hq, Hkv, D) - minitron-4b's heads at
 # its training batch, granite's multi-query heads, llama-100m's D 64, a
-# length that is no multiple of the tile, and the small head dims (24 pads
-# to the tensor-core kernel's 32, 16 is its least)
+# length that is no multiple of the tile, the small head dims (24 pads
+# to the tensor-core kernel's 32, 16 is its least), and above 128 the
+# eight-warp instances: deepseek-v2-lite's MLA at its training batch (q/k
+# head dim 192, 16 heads on 16), a group of 8 on one KV head at 192 (the
+# plan splits it) and 136 (zero-padded to 192)
 BWD_SHAPES = (("minitron", 4, 1024, 24, 8, 128), ("granite", 1, 1024, 48, 1, 128),
               ("llama-100m", 8, 256, 10, 5, 64), ("S1000", 1, 1000, 24, 8, 128),
-              ("D24", 2, 130, 6, 2, 24), ("D16", 1, 200, 4, 1, 16))
+              ("D24", 2, 130, 6, 2, 24), ("D16", 1, 200, 4, 1, 16),
+              ("MLA", 4, 1024, 16, 16, 192), ("D192 G8", 1, 200, 8, 1, 192),
+              ("D136", 1, 130, 4, 2, 136))
+
+
+def _bwd_counters(D):
+    """The wrapper's (lse, backward) launch counters at head dim D."""
+    if D > 128:
+        return fa.lse_d192_launches, fa.bwd_d192_launches
+    return fa.lse_launches, fa.bwd_launches
 
 
 def _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, seed):
@@ -211,13 +223,13 @@ def test_flash_backward_kernel_on_gpu(cuda, dtype, causal, shape):
         flash_attention_bwd_ref, flash_attention_lse_ref)
     _, B, S, Hq, Hkv, D = shape
     q, k, v, dout = _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, S + D)
-    before = (fa.lse_launches, fa.bwd_launches)
+    before = _bwd_counters(D)
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
     out_r, lse_r = flash_attention_lse_ref(q, k, v, causal=causal)
     got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
     want = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal)
     torch.cuda.synchronize()
-    assert (fa.lse_launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert _bwd_counters(D) == (before[0] + 1, before[1] + 1)
     tol = GPU_TOL[dtype]
     assert _agree(out, out_r, tol)
     assert (lse - lse_r).abs().max().item() <= tol
@@ -239,6 +251,69 @@ def test_flash_autograd_on_gpu_matches_plain(cuda):
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         assert _agree(a, b, GPU_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_flash_autograd_at_mla_head_dim_matches_plain(cuda):
+    """MLA's attention under autograd on the card: q and k at head dim
+    192, v zero-padded from 128, the output sliced back to 128 (as
+    ``attention._mla_attend`` does), through the kernel Function and the
+    plain one; bf16 gradients agree, and the pad's columns of dv are
+    zero in both."""
+    from repro_torch.models.layers import blockwise_attention
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k = (torch.randn((2, 300, 16, 192), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    v, dout = (torch.randn((2, 300, 16, 128), generator=gen,
+                           device=cuda).to(torch.bfloat16) for _ in range(2))
+    grads = []
+    before = fa.bwd_d192_launches
+    for fn in (fa.flash_attention, blockwise_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        vpad = torch.nn.functional.pad(leaves[2], (0, 64))
+        fn(leaves[0], leaves[1], vpad, causal=True)[..., :128].backward(dout)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert fa.bwd_d192_launches == before + 1
+    for a, b in zip(*grads):
+        assert _agree(a, b, GPU_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4, 1024, 16, 16), (1, 200, 8, 1)],
+                         ids=["MLA", "G8 split"])
+def test_flash_backward_d192_is_deterministic(cuda, dtype, shape):
+    """At head dim 192, repeated calls are bitwise equal: MLA's training
+    shape, and a group of 8 on one KV head whose plan splits it over
+    dK/dV blocks and folds the partials."""
+    B, S, Hq, Hkv = shape
+    q, k, v, dout = _bwd_inputs(cuda, B, S, Hq, Hkv, 192, dtype, 13)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    runs = [fa.flash_attention_bwd(q, k, v, out, dout, lse) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], other))
+
+
+@pytest.mark.gpu
+def test_flash_backward_d192_takes_the_tensor_cores(cuda):
+    """At MLA's training shape a call is two launches (G = 1: no split):
+    the eight-warp tensor-core instances in bf16, the CUDA-core ones of
+    twelve columns a thread in fp32."""
+    from repro_torch.kernels import _build
+    B, S, Hq, Hkv, D = 4, 1024, 16, 16, 192
+    assert fa.bwd_plan(B, S, Hq, Hkv, _build.sm_count(cuda.index or 0),
+                       D) == 1
+    for dtype, kind in ((torch.bfloat16, "mma8<192>"),
+                        (torch.float32, "simt<12>")):
+        q, k, v, dout = _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, 14)
+        out, lse = fa.flash_attention_lse(q, k, v)
+        names = _kernels_of(lambda: fa.flash_attention_bwd(q, k, v, out,
+                                                           dout, lse))
+        assert len(names) == 2, names
+        for kernel in (f"flash_bwd_dq_{kind}", f"flash_bwd_dkdv_{kind}"):
+            assert any(kernel in n for n in names), names
 
 
 @pytest.mark.gpu
@@ -322,8 +397,8 @@ def test_flash_backward_raises_on_what_it_does_not_take(cuda):
                dict(kv_len=torch.ones(1, dtype=torch.int32, device=cuda))):
         with pytest.raises(NotImplementedError):
             fa.flash_attention(q, k, k, **kw)
-    q2 = torch.zeros((1, 64, 4, 192), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
+    q2 = torch.zeros((1, 64, 4, 256), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         fa.flash_attention(q2, q2[:, :, :2], q2[:, :, :2])
 
 
