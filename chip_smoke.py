@@ -181,7 +181,28 @@
    FLOPs the einsum dispatch executes), the optimizer's ms and the step
    by kind (flash, cuBLAS, the MoE dispatch from one layer timed alone,
    AdamW, other).
-15. Trainer phase: llama-100m through ``launch/train.py``'s restart loop
+15. SSM and hybrid training phases: full-width hymba-1.5b (32 layers,
+   1.66 B params as fp32 masters, bf16 activations, AdamW, remat) at B 2
+   x S 2048, past its window of 1024 so that the window masks keys, and
+   falcon-mamba-7b at its published widths cut to 32 of 64 layers (58.1 GiB of masters, grads and moments) at B 4 x S
+   1024: the kernel path against the plain path at a few layers in fp32
+   (hymba: a global layer and two windowed ones) and at the phase's depth
+   in bf16 (``TRAIN_TOL``), then 8 steps of ``make_train_step``: losses
+   and grad norms finite, the last loss below the first and step 1's,
+   peak memory under 78 GiB, the scan's training forward and its backward
+   kernel launched every layer of every step, hymba's windowed flash
+   backward on every sliding layer.  Logs step ms, tokens/s, the share of
+   989 TFLOP/s, the optimizer's ms, peak memory and the step by kind.
+   The kernel phase holds the scan with its boundary states (its y
+   bitwise the serving instance's) and the scan's backward kernel to the
+   plain pair at falcon's layer (B 4, S 1024, d_in 8192) and hymba's (B
+   2, S 2048, d_in 3200), bf16 and fp32, and times both beside their
+   bounds; it holds the windowed flash forward with lse and backward at
+   hymba's training shape (B 2, S 2048, 25 on 5, D 64, window 1024) and
+   times them beside the bound over the window's attended pairs, SDPA's
+   forward and backward under the same mask, and the same backward on a
+   global layer.
+16. Trainer phase: llama-100m through ``launch/train.py``'s restart loop
    in process, 30 steps at S 256, B 8, with checkpoints in a temporary
    directory under ``build/``: once uninterrupted, once preempted by a
    flag file at step 10 and resumed from its checkpoint; the resumed
@@ -196,12 +217,17 @@ outside a checkout of the repository, or when any phase fails.
 
 builds the kernels and only times the selective scan of each other
 checkout DIR (its own mamba_scan.cu, e.g. the parent commit unpacked with
-``git archive``) beside this checkout's, in turns on one card.
+``git archive``) beside this checkout's, in turns on one card; each
+other checkout's y and last state must equal this checkout's serving
+instance's bitwise, and this checkout's training instance (boundary
+states on) gives the same y.
 
     python3 chip_smoke.py --flash-baseline DIR [DIR ...]
 
 does the same for the causal flash kernel (its flash_attention.cu) at a
-1024-token prompt, B = 1 and 4; outputs must be bitwise equal.
+1024-token prompt, B = 1 and 4, and for its backward without a window
+(flash_attention_bwd.cu) at minitron's and granite's training shapes;
+outputs must be bitwise equal.
 """
 from __future__ import annotations
 
@@ -239,9 +265,11 @@ LOGIT_REL_TOL = 5e-2
 # falcon-mamba-7b in bf16 is held to its own rounding floor, measured in
 # the same run on the same weights: the kernel path's distance from the
 # fp32 plain path may exceed the bf16 plain path's distance from it by at
-# most this share.  Both are bf16 roundings at the same points, differing
-# in summation order only, so their distances from fp32 are two draws from
-# one spread (the floor moved by +-8% from step to step on an H100).
+# most this share (serving: the logits; training, ssm_floor_check: the
+# gradient leaves' rms distance).  Both are bf16 roundings at the same
+# points, differing in summation order only, so their distances from fp32
+# are two draws from one spread (the floor moved by +-8% from step to
+# step on an H100).
 SSM_FLOOR_MARGIN = 0.25
 # a path's argmax may differ from its reference's only where the
 # reference's top-2 margin, relative to its largest |logit|, is below this
@@ -1070,11 +1098,22 @@ def build_other_scan(checkout: Path):
     log_scan_build(out.stdout + out.stderr, str(checkout))
     fn = ctypes.CDLL(str(lib_path)).mamba_scan
     fn.restype = ctypes.c_int
-    planned = "int channels, int dtype" in src.read_text()
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 8 + [ctypes.c_int] * (
-                       2 if planned else 1) + [ctypes.c_void_p])
-    return fn if planned else (lambda *a: fn(*a[:20], *a[21:]))
+    text = src.read_text()
+    planned = "int channels, int dtype" in text
+    bounded = "void* h_last, void* bounds" in text
+    fn.argtypes = ([ctypes.c_void_p] * (9 if bounded else 8)
+                   + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
+                   + [ctypes.c_int] * (2 if planned else 1)
+                   + [ctypes.c_void_p])
+    if bounded:
+        return fn
+
+    def adapted(*a):
+        # this checkout's arguments less the boundary pointer (a[8]) and,
+        # for a scan without a plan, the channels per block
+        a = a[:8] + a[9:]
+        return fn(*a) if planned else fn(*a[:20], *a[21:])
+    return adapted
 
 
 def run_scan_compare(torch, others, reps: int = 20):
@@ -1082,7 +1121,9 @@ def run_scan_compare(torch, others, reps: int = 20):
     (DIR: its root) beside this checkout's, timed by ``scan_sweep`` on one
     card in turns (the others, this checkout twice, the others), each
     first compared with the plain version at S = 1024 (this checkout's
-    must agree)."""
+    must agree) and with this checkout's serving instance, which every
+    other checkout's output must equal bitwise, as this checkout's
+    training instance (boundary states on) must."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
@@ -1095,6 +1136,14 @@ def run_scan_compare(torch, others, reps: int = 20):
     x, delta, bm, cm = scan_inputs(torch, gen, 1024, d_in, R, N,
                                    torch.bfloat16)
     want = mamba_scan_ref(x, delta, bm, cm, a_log, d_vec)
+    mine = ms.mamba_scan(x, delta, bm, cm, a_log, d_vec)
+    trained = ms.mamba_scan(x, delta, bm, cm, a_log, d_vec, bounds=True)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(mine, trained[:2])),
+            "this checkout's scan with boundary states differs from its "
+            "serving instance")
+    log("this checkout: the training instance's y and last state equal "
+        "the serving instance's bitwise")
     olds = [(str(o), build_other_scan(o)) for o in others]
     this = [("this checkout", new)]
     try:
@@ -1104,10 +1153,12 @@ def run_scan_compare(torch, others, reps: int = 20):
             torch.cuda.synchronize()
             err = max((g - w).abs().max().item() for g, w in zip(got, want))
             ok = all(agree(g, w, TOL["float32"]) for g, w in zip(got, want))
-            # another checkout may be a probe that computes something else
-            require(ok or fn is not new,
-                    f"{label}: scan disagrees with its plain version")
-            log(f"{label}: S=1024 max_abs_err {err:.3e}, agrees {ok}")
+            same = all(torch.equal(g, w) for g, w in zip(got, mine))
+            require(ok, f"{label}: scan disagrees with its plain version")
+            log(f"{label}: S=1024 max_abs_err {err:.3e}, agrees {ok}, "
+                f"bitwise equal to this checkout's serving scan {same}")
+            require(same, f"{label}: scan differs from this checkout's "
+                    f"serving instance")
             scan_sweep(torch, gen, d_in, R, N, reps, label=label,
                        show_plan=fn is new)
     finally:
@@ -1137,6 +1188,73 @@ def build_other_flash(checkout: Path):
     fn.argtypes = ([P] * 4 + [I] * 5 + [L] * 12 + [I] * 3 + [F]
                    + ([P, F] if padded else []) + [I, P])
     return fn if padded else (lambda *a: fn(*a[:25], *a[27:]))
+
+
+def build_other_flash_bwd(checkout: Path):
+    """Another checkout's flash backward (its flash_attention_bwd.cu and
+    common.cu, built into build/other/<name>/) as a function with this
+    checkout's C signature; a backward whose C function takes no window
+    drops it (the comparison passes none)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    kdir = checkout.resolve() / "src" / "repro_torch" / "kernels"
+    src = kdir / "flash_attention" / "csrc" / "flash_attention_bwd.cu"
+    lib_path = ROOT / "build" / "other" / checkout.name / "libflash_bwd.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS,
+                    "-shared", "-o", str(lib_path), str(src),
+                    str(kdir / "common" / "csrc" / "common.cu")],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib_path)).flash_attention_bwd
+    fn.restype = ctypes.c_int
+    windowed = "int window, int glob" in src.read_text()
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (
+        10 if windowed else 8) + [ctypes.c_void_p])
+    # this checkout's arguments: ..., causal (a[16]), window, glob, n_split
+    return fn if windowed else (lambda *a: fn(*a[:17], *a[19:]))
+
+
+def run_flash_bwd_compare(torch, others, reps: int = 20):
+    """The flash backward of each other checkout beside this checkout's
+    without a window, at minitron-4b's training shape (B 4, S 1024, 24 on
+    8, D 128) and granite's multi-query one (B 1, 48 on 1: the split and
+    its fold), bf16, in turns; each output must equal this checkout's
+    bitwise."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    orig = fa._bwd_fn
+    new = orig()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    olds = [(str(o), build_other_flash_bwd(o)) for o in others]
+    this = [("this checkout", new)]
+    try:
+        for B, Hq, Hkv in ((4, 24, 8), (1, 48, 1)):
+            q, dout = (torch.randn((B, 1024, Hq, 128), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(2))
+            k, v = (torch.randn((B, 1024, Hkv, 128), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+            out, lse = fa.flash_attention_lse(q, k, v)
+            fa._bwd_fn = lambda: new
+            want = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+            times = {}
+            for label, fn in olds + this + this + olds:
+                fa._bwd_fn = lambda fn=fn: fn
+                got = fa.flash_attention_bwd(q, k, v, out, dout, lse)
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        f"{label}: flash backward differs from this "
+                        f"checkout's")
+                times.setdefault(label, []).append(time_ms(
+                    torch, lambda: fa.flash_attention_bwd(
+                        q, k, v, out, dout, lse), reps))
+            log(f"flash backward causal S=1024 B={B} Hq={Hq} Hkv={Hkv} D=128 "
+                f"bf16, no window, bitwise equal; ms per turn: "
+                + "; ".join(f"{lab} {[round(t, 5) for t in ts]}"
+                            for lab, ts in times.items())
+                + f" ({card_line()})")
+    finally:
+        fa._bwd_fn = orig
 
 
 def run_flash_compare(torch, others, reps: int = 50):
@@ -3107,6 +3225,296 @@ def time_flash_training(torch, fa, tensors, causal, reps, bwd_ref, lse_ref):
     return r
 
 
+# ---------------------------------------------------------------------------
+# SSM and hybrid training: the scan's training kernels, the windowed flash
+# ---------------------------------------------------------------------------
+
+# the scan's training kernels at each model's training layer: (label, B,
+# S, d_in, N)
+SCAN_TRAIN_CASES = (("falcon-mamba-7b", 4, 1024, 8192, 16),
+                    ("hymba-1.5b", 2, 2048, 3200, 16))
+# hymba-1.5b's attention at its training shape: B, S, Hq, Hkv, D, window
+HYMBA_FLASH = (2, 2048, 25, 5, 64, 1024)
+
+
+def scan_train_work(B: int, S: int, D: int, N: int, es: int):
+    """(forward bytes, backward bytes, exponentials, forward flops,
+    backward flops) of the scan's training pair.  The forward reads x, dt,
+    B, C, A_log and D and writes y, the last state and the boundary
+    states; the backward reads x, dt, B, C, A_log, D, the boundaries and
+    gy and writes dx, ddt, dB, dC, dA and dD.  One exponential per
+    state-step (the backward needs a_t once; the kernel takes it twice,
+    once to recompute the state and once to carry g); six flops per
+    state-step and three per output forward, 18 and 7 backward."""
+    n = B * S * D
+    bc = 2 * B * S * N * es
+    par = 4 * D * (N + 1)
+    bnd = 4 * -(-S // 32) * B * D * N
+    fwd = n * es + n * 4 + bc + par + n * 4 + 4 * B * D * N + bnd
+    bwd = n * es + n * 4 + bc + par + bnd + n * 4 + n * es + n * 4 + bc + par
+    return fwd, bwd, n * N, 6 * n * N + 3 * n, 18 * n * N + 7 * n
+
+
+def close_scaled(got, want, tol: float) -> bool:
+    """max |got - want| within tol of want's largest magnitude, got finite:
+    sums over thousands of channels or steps cancel, so an element's own
+    size is no scale for its error."""
+    g, w = got.float(), want.float()
+    scale = max(w.abs().max().item(), 1e-6)
+    return bool((g - w).abs().max().item() <= tol * scale
+                and g.isfinite().all().item())
+
+
+def run_scan_train_phase(torch, reps: int = 10):
+    """The scan's training forward (boundary states on) and its backward
+    kernel against the plain pair at ``SCAN_TRAIN_CASES``, bf16 and fp32
+    (the forward's y must equal the serving instance's bitwise), then both
+    timed in bf16 beside their bounds and the plain pair.  Returns the two
+    kernels' entries, falcon's layer as the main numbers and hymba's as
+    ``hymba_*``."""
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_fwd_ref,
+                                                    softplus)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    card = card_line()
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    names = ("dx", "ddt", "db", "dc", "dA", "dD")
+    for label, B, S_len, D, N in SCAN_TRAIN_CASES:
+        a_log, d_vec = scan_params(torch, D, N)
+        for dtype in ("bfloat16", "float32"):
+            dt_ = getattr(torch, dtype)
+            x = torch.randn((B, S_len, D), generator=gen,
+                            device="cuda").to(dt_)
+            delta = softplus(torch.randn((B, S_len, D), generator=gen,
+                                         device="cuda") - 4.0)
+            R = 256
+            dbc = torch.randn((B, S_len, R + 2 * N), generator=gen,
+                              device="cuda").to(dt_)
+            bm, cm = dbc[..., R:R + N], dbc[..., R + N:]
+            gy = torch.randn((B, S_len, D), generator=gen, device="cuda")
+            ins = (x, delta, bm, cm, a_log, d_vec)
+            y, h, bnd = ms.mamba_scan(*ins, bounds=True)
+            y_s, h_s = ms.mamba_scan(*ins)
+            y_r, bnd_r = selective_scan_fwd_ref(*ins)
+            got = ms.mamba_scan_bwd(*ins, bnd, gy)
+            want = selective_scan_bwd_ref(*ins, bnd, gy)
+            torch.cuda.synchronize()
+            require(torch.equal(y, y_s) and torch.equal(h, h_s),
+                    f"scan training forward {label} {dtype}: y differs from "
+                    f"the serving instance's")
+            fwd_err = max((y - y_r).abs().max().item(),
+                          (bnd - bnd_r).abs().max().item())
+            errs = [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want)]
+            tols = [TOL[dtype] if g.dtype == torch.bfloat16 else 1e-4
+                    for g in got]
+            ok = (agree(y, y_r, 1e-4) and agree(bnd, bnd_r, 1e-4)
+                  and all(close_scaled(g, w, t)
+                          for g, w, t in zip(got, want, tols)))
+            log(f"scan training {label} (B {B}, S {S_len}, d_in {D}, N {N}) "
+                f"{dtype}: forward max_abs_err {fwd_err:.3e} (y bitwise the "
+                f"serving instance's); backward max_abs_err "
+                + " ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+                + "; tol 1e-4 (fp32 outputs) or the dtype's of the tensor's "
+                  "largest magnitude")
+            require(ok, f"scan training {label} {dtype} disagrees with the "
+                    f"plain pair")
+            if dtype == "bfloat16":
+                worst["fwd"] = max(worst["fwd"], fwd_err)
+                worst["bwd"] = max(worst["bwd"], *errs)
+                fb, bb, exps, ff, bf = scan_train_work(B, S_len, D, N, 2)
+                t = dict(
+                    fwd=time_ms(torch, lambda: ms.mamba_scan(
+                        *ins, bounds=True), reps),
+                    fwd_plain=time_ms(torch, lambda: selective_scan_fwd_ref(
+                        *ins), 3),
+                    bwd=time_ms(torch, lambda: ms.mamba_scan_bwd(
+                        *ins, bnd, gy), reps),
+                    bwd_plain=time_ms(torch, lambda: selective_scan_bwd_ref(
+                        *ins, bnd, gy), 3),
+                    serve=time_ms(torch, lambda: ms.mamba_scan(*ins), reps),
+                    fwd_bound=bound(fb, ff, "float32", exps=exps),
+                    bwd_bound=bound(bb, bf, "float32", exps=exps))
+                blocks = B * -(-D // ms.bwd_channels(N))
+                log(f"scan training timing {label} (B {B}, S {S_len}, d_in "
+                    f"{D}, N {N}, bf16): forward with boundary states "
+                    f"{t['fwd']:.4f} ms (serving instance {t['serve']:.4f} "
+                    f"ms; bound {t['fwd_bound'][0]:.4f} ms, "
+                    f"{t['fwd_bound'][1]}, {fb / 1e6:.1f} MB), plain "
+                    f"{t['fwd_plain']:.4f} ms; backward {t['bwd']:.4f} ms "
+                    f"(bound {t['bwd_bound'][0]:.4f} ms, {t['bwd_bound'][1]}: "
+                    f"{bb / 1e6:.1f} MB = {bb / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+                    f"{exps / 1e6:.0f} M exponentials = "
+                    f"{exps / (SFU_EXP_PER_S + FMA_EXP_PER_S) * 1e3:.4f} ms, "
+                    f"{bf / 1e9:.2f} GFLOP fp32 = {bf / F32_FLOPS * 1e3:.4f} "
+                    f"ms; {bb / t['bwd'] / 1e9:.3f} TB/s; {blocks} blocks of "
+                    f"{ms._BWD_THREADS} threads, {ms.bwd_channels(N)} "
+                    f"channels each, and a fold launch), plain "
+                    f"{t['bwd_plain']:.4f} ms; library none: no PyTorch call "
+                    f"computes the selective scan or its gradient ({card})")
+                times[label] = t
+            del x, delta, dbc, gy, got, want, bnd, bnd_r, y, y_s, y_r
+        torch.cuda.empty_cache()
+    log_scan_build()
+    src = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
+    f, h = times["falcon-mamba-7b"], times["hymba-1.5b"]
+    return {
+        "mamba_scan_train": dict(
+            name="mamba_scan_train", route="cuda", source=src,
+            replaces="src/repro/kernels/mamba_scan/kernel.py:165",
+            max_abs_err=worst["fwd"], ms=f["fwd"], plain_ms=f["fwd_plain"],
+            bound_ms=f["fwd_bound"][0], bound_by=f["fwd_bound"][1],
+            library_ms=None, hymba_ms=h["fwd"],
+            hymba_bound_ms=h["fwd_bound"][0]),
+        "mamba_scan_bwd": dict(
+            name="mamba_scan_bwd", route="cuda", source=src,
+            replaces="src/repro/models/ssm.py:277",
+            max_abs_err=worst["bwd"], ms=f["bwd"], plain_ms=f["bwd_plain"],
+            bound_ms=f["bwd_bound"][0], bound_by=f["bwd_bound"][1],
+            library_ms=None, hymba_ms=h["bwd"],
+            hymba_bound_ms=h["bwd_bound"][0])}
+
+
+def window_pairs(B: int, S: int, H: int, window: int) -> int:
+    """Attended (query, key) pairs of causal attention under a sliding
+    window: query i sees min(i + 1, window) keys."""
+    W = min(window, S)
+    return B * H * (W * (W + 1) // 2 + (S - W) * W)
+
+
+def run_window_flash_phase(torch, reps: int = 10):
+    """The windowed flash forward with lse and backward against their plain
+    versions at hymba-1.5b's training shape (``HYMBA_FLASH``), bf16 and
+    fp32, on a sliding and on a global layer, then timed in bf16 beside
+    the bound over the window's attended pairs, the plain versions, SDPA's
+    forward and its forward plus backward under the same boolean mask,
+    and the same backward on a global layer (causal, no window).  Returns
+    the two windowed kernels' entries."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref)
+    F = torch.nn.functional
+    B, S_len, Hq, Hkv, D, W = HYMBA_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    card = card_line()
+    worst = {"lse": 0.0, "bwd": 0.0}
+    for dtype in ("bfloat16", "float32"):
+        dt_ = getattr(torch, dtype)
+        q, dout = (torch.randn((B, S_len, Hq, D), generator=gen,
+                               device="cuda").to(dt_) for _ in range(2))
+        k, v = (torch.randn((B, S_len, Hkv, D), generator=gen,
+                            device="cuda").to(dt_) for _ in range(2))
+        for glob in (False, True):
+            kw = dict(causal=True, window=W, is_global=glob)
+            out, lse = fa.flash_attention_lse(q, k, v, **kw)
+            out_r, lse_r = flash_attention_lse_ref(q, k, v, **kw)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            want = flash_attention_bwd_ref(q, k, v, out, dout, lse, **kw)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            errs = {"out": (out.float() - out_r.float()).abs().max().item(),
+                    "lse": (lse - lse_r).abs().max().item()}
+            errs.update({n: (a.float() - b.float()).abs().max().item()
+                         for n, a, b in zip(("dq", "dk", "dv"), got, want)})
+            ok = (agree(out, out_r, tol) and errs["lse"] <= tol
+                  and all(agree(a, b, tol) for a, b in zip(got, want)))
+            log(f"flash window {W} (B {B}, S {S_len}, Hq {Hq}, Hkv {Hkv}, D "
+                f"{D}, global {glob}) {dtype}: max_abs_err "
+                + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f"; tol {tol:.0e} abs + rel (lse abs)")
+            require(ok, f"windowed flash {dtype} global {glob} disagrees "
+                    f"with its plain versions")
+            if dtype == "bfloat16" and not glob:
+                worst["lse"] = max(worst["lse"], errs["out"], errs["lse"])
+                worst["bwd"] = max(worst["bwd"], errs["dq"], errs["dk"],
+                                   errs["dv"])
+        if dtype == "bfloat16":
+            bf16 = (q, k, v, dout)
+    q, k, v, dout = bf16
+    kw = dict(causal=True, window=W, is_global=False)
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    pairs = window_pairs(B, S_len, Hq, W)
+    full = attended_pairs(B, S_len, Hq, True)
+    es = q.element_size()
+    qkv = (q.numel() + k.numel() + v.numel()) * es
+    t = dict(
+        fwd=time_ms(torch, lambda: fa.flash_attention_lse(q, k, v, **kw),
+                    reps),
+        fwd_plain=time_ms(torch, lambda: flash_attention_lse_ref(
+            q, k, v, **kw), 3),
+        bwd=time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, out, dout, lse, **kw), reps),
+        bwd_plain=time_ms(torch, lambda: flash_attention_bwd_ref(
+            q, k, v, out, dout, lse, **kw), 3),
+        fwd_bound=bound(qkv + out.numel() * es + lse.numel() * 4,
+                        4 * D * pairs, "bfloat16"),
+        bwd_bound=bound(2 * qkv + 2 * out.numel() * es + lse.numel() * 4,
+                        10 * D * pairs, "bfloat16"))
+    out_g, lse_g = fa.flash_attention_lse(q, k, v, causal=True)
+    t["bwd_global"] = time_ms(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out_g, dout, lse_g, causal=True), reps)
+    t["bwd_global_bound"] = bound(
+        2 * qkv + 2 * out.numel() * es + lse.numel() * 4, 10 * D * full,
+        "bfloat16")
+    qpos = torch.arange(S_len, device="cuda")
+    mask = ((qpos[None, :] <= qpos[:, None])
+            & (qpos[None, :] > qpos[:, None] - W))
+    qh, kh, vh, dh = (x.transpose(1, 2).detach().clone().requires_grad_(
+        x is not dout) for x in (q, k, v, dout))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                           enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        for x in (qh, kh, vh):
+            x.grad = None
+        F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                       enable_gqa=True).backward(dh)
+
+    t["sdpa_fwd"] = time_ms(torch, sdpa_fwd, reps)
+    t["sdpa_fwd_bwd"] = time_ms(torch, sdpa_fwd_bwd, reps)
+    kinds = cuda_launches(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out, dout, lse, **kw))
+    log(f"flash window timing (hymba-1.5b training: B {B}, S {S_len}, "
+        f"Hq {Hq}, Hkv {Hkv}, D {D}, window {W}, bf16; {pairs} attended "
+        f"pairs in the window of {full} causal): backward {t['bwd']:.4f} "
+        f"ms (bound {t['bwd_bound'][0]:.4f} ms, {t['bwd_bound'][1]}; "
+        f"{10 * D * pairs / t['bwd'] / 1e9:.1f} TFLOP/s at 10 D per "
+        f"pair), plain {t['bwd_plain']:.4f} ms; the same backward on a "
+        f"global layer {t['bwd_global']:.4f} ms (bound "
+        f"{t['bwd_global_bound'][0]:.4f} ms); forward with lse "
+        f"{t['fwd']:.4f} ms (bound {t['fwd_bound'][0]:.4f} ms), plain "
+        f"{t['fwd_plain']:.4f} ms; ours forward + backward "
+        f"{t['fwd'] + t['bwd']:.4f} ms against SDPA under the same mask "
+        f"{t['sdpa_fwd_bwd']:.4f} ms (SDPA forward {t['sdpa_fwd']:.4f} "
+        f"ms); n_split {fa.bwd_plan(B, S_len, Hq, Hkv, 132, D)}, CUDA "
+        f"launches per backward call {sum(kinds.values())} {kinds} "
+        f"({card})")
+    del qh, kh, vh, dh, mask
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention_lse_window": dict(
+            name="flash_attention_lse_window", route="cuda",
+            source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:85",
+            max_abs_err=worst["lse"], ms=t["fwd"], plain_ms=t["fwd_plain"],
+            bound_ms=t["fwd_bound"][0], bound_by=t["fwd_bound"][1],
+            library_ms=t["sdpa_fwd"]),
+        "flash_attention_bwd_window": dict(
+            name="flash_attention_bwd_window", route="cuda",
+            source=src + "flash_attention_bwd.cu",
+            replaces="src/repro/models/layers.py:222",
+            max_abs_err=worst["bwd"], ms=t["bwd"], plain_ms=t["bwd_plain"],
+            bound_ms=t["bwd_bound"][0], bound_by=t["bwd_bound"][1],
+            library_ms=t["sdpa_fwd_bwd"], global_ms=t["bwd_global"],
+            global_bound_ms=t["bwd_global_bound"][0])}
+
+
 def loss_and_grads(torch, model, params, batch, use_kernels: bool):
     """One forward and backward: (loss, [fp32 gradient per leaf])."""
     from repro_torch.optim import tree_leaves
@@ -3163,7 +3571,9 @@ def training_flops(model, params, T: int, B: int, S: int) -> float:
     matrices a token passes through: the layers' and the LM head, of an MoE
     layer's routed experts top_k of E, as the model routes, its router and
     shared experts whole), 8 (Dqk + Dv) per attended pair per layer for
-    attention (forward, remat forward, backward; 16 D where both are D)."""
+    attention (forward, remat forward, backward; 16 D where both are D),
+    over the window's pairs on sliding layers and none on attention-free
+    ones.  A Mamba block's scan is elementwise and not counted."""
     from repro_torch.optim import tree_leaves
     cfg = model.cfg
     layers = params["decoder"]["prologue"] + params["decoder"]["layers"]
@@ -3189,8 +3599,15 @@ def training_flops(model, params, T: int, B: int, S: int) -> float:
         dv = cfg.mla.v_head_dim
     else:
         dqk = dv = cfg.resolved_head_dim
-    pairs = attended_pairs(B, S, cfg.num_heads, True)
-    return 8.0 * n_mm * T + 8.0 * (dqk + dv) * pairs * len(layers)
+    pairs = 0
+    for i, lp in enumerate(layers):
+        if "attn" not in lp:          # attention-free Mamba
+            continue
+        sliding = (cfg.attn_type == "sliding"
+                   and i not in cfg.global_attn_layers)
+        pairs += (window_pairs(B, S, cfg.num_heads, cfg.window_size)
+                  if sliding else attended_pairs(B, S, cfg.num_heads, True))
+    return 8.0 * n_mm * T + 8.0 * (dqk + dv) * pairs
 
 
 def run_training_phase(torch):
@@ -3575,6 +3992,207 @@ def run_deepseek_training_phase(torch):
     return counts
 
 
+# SSM and hybrid training: hymba-1.5b at full width and depth, B 2 x S 2048
+# (past its window of 1024: the window masks keys), the fp32 check at 3
+# layers (global layer 0 and two windowed ones); falcon-mamba-7b at its
+# published widths cut to 32 of 64 layers (fp32 masters, grads
+# and AdamW moments, 16 bytes a parameter: 58.1 GiB at 32; the full 64
+# would need 116 GB), B 4 x S 1024, the fp32 check at 2 layers
+SSM_TRAIN = {"hymba-1.5b": dict(B=2, S=2048, layers=None, check=3),
+             "falcon-mamba-7b": dict(B=4, S=1024, layers=32, check=2)}
+SSM_TRAIN_KERNELS = ("mamba_scan_train", "mamba_scan_bwd",
+                     "flash_attention_lse_window",
+                     "flash_attention_bwd_window", "flash_attention_lse",
+                     "flash_attention_bwd")
+
+
+def ssm_floor_check(torch, model, params, batch, label: str):
+    """The bf16 kernel path of an SSM or hybrid model held to the model's
+    own bf16 rounding floor, measured in the same run on the same params
+    and batch, as the serving checks hold falcon's and hymba's logits
+    (``SSM_FLOOR_MARGIN``): each gradient leaf's relative norm distance
+    from the fp32 plain path (the same fp32 masters, fp32 activations),
+    for the kernel path and for the bf16 plain path; the kernel path's
+    root mean square over the leaves may exceed the plain path's by at
+    most the margin (a mean over hundreds of leaves, where the largest
+    leaf is one draw of chaotic rounding: hymba's dt_proj read 6.4e-2
+    kernel vs plain at 32 layers), and its loss is within
+    ``TRAIN_TOL``'s of the plain path's.  Logs the largest and median
+    leaf of each and the kernel path's distance from the plain path."""
+    import dataclasses
+    from repro_torch.models.model import build_model
+    m32 = build_model(dataclasses.replace(model.cfg, dtype="float32"), "cuda")
+    loss32, g32 = loss_and_grads(torch, m32, params, batch, False)
+    loss_k, g_k = loss_and_grads(torch, model, params, batch, True)
+    d_k = grad_distances(g_k, g32)
+    g_k = [g.cpu() for g in g_k]        # held on the host for the log
+    loss_p, g_p = loss_and_grads(torch, model, params, batch, False)
+    d_p = grad_distances(g_p, g32)
+    del g32
+    d_kp = [((a.to(b.device) - b).norm() / b.norm().clamp(min=1e-30)).item()
+            for a, b in zip(g_k, g_p)]
+    del g_k, g_p
+
+    def rms(d):
+        return math.sqrt(sum(x * x for x in d) / len(d))
+
+    def spread(d):
+        worst = max(range(len(d)), key=d.__getitem__)
+        return (f"largest {d[worst]:.3e} (leaf {worst}), median "
+                f"{sorted(d)[len(d) // 2]:.3e}, rms {rms(d):.3e}")
+
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    limit = (1 + SSM_FLOOR_MARGIN) * rms(d_p)
+    log(f"{label}: loss kernel {loss_k:.6f} plain {loss_p:.6f} fp32 plain "
+        f"{loss32:.6f} (kernel vs plain relative {loss_rel:.3e}, tol "
+        f"{TRAIN_TOL['bfloat16'][0]:.0e}); {len(d_k)} gradient leaves' "
+        f"distance from fp32: kernel {spread(d_k)}; plain (the floor) "
+        f"{spread(d_p)}; kernel rms {rms(d_k) / rms(d_p):.3f}x the floor's "
+        f"(limit {1 + SSM_FLOOR_MARGIN:.2f}x = {limit:.3e}); kernel vs "
+        f"plain {spread(d_kp)}")
+    require(math.isfinite(loss_k) and loss_rel <= TRAIN_TOL["bfloat16"][0]
+            and rms(d_k) <= limit,
+            f"{label}: kernel path beyond the bf16 floor")
+
+
+def run_ssm_training_phase(torch, arch: str):
+    """Training of an SSM or hybrid model on one card (fp32 masters, bf16
+    activations, AdamW, remat, ``SSM_TRAIN[arch]``'s batch from the port's
+    SyntheticLM): (a) kernel vs plain path at the published widths cut to
+    a few layers in fp32 (``hold_grads``), (b) at the phase's depth in
+    bf16, held to the model's own rounding floor (``ssm_floor_check``),
+    (c) 8 steps of make_train_step on the kernel path,
+    timed: step ms, tokens/s, the share of 989 TFLOP/s, the optimizer's
+    ms, peak memory, the step by kind.  Returns the launches over (c) of
+    the scan's training kernels and, on a hybrid, the windowed flash
+    kernels."""
+    import dataclasses
+    import gc
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import Optimizer, make_optimizer, tree_leaves
+    from repro_torch.train import TrainConfig, make_train_step
+
+    card = card_line()
+    plan = SSM_TRAIN[arch]
+    B, S_len = plan["B"], plan["S"]
+    full = get_config(arch)
+    L = plan["layers"] or full.num_layers
+    pipe = make_pipeline(full, S_len, B, seed=0)
+
+    def batch_of(step):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in pipe.batch(step).items()}
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (a) fp32 at a few layers, on the empty card
+    cfg_c = dataclasses.replace(full, num_layers=plan["check"],
+                                dtype="float32")
+    model = build_model(cfg_c, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=cfg_c.param_dtype)
+    sliding = [i for i in range(cfg_c.num_layers)
+               if full.attn_type == "sliding"
+               and i not in full.global_attn_layers]
+    train_path_check(torch, model, params, batch_of(0), "float32",
+                     f"training check {arch} widths, {plan['check']} layers "
+                     f"(windowed: {sliding}), fp32")
+    del model, params
+    free()
+
+    # (b) bf16 at the phase's depth
+    cfg = dataclasses.replace(full, num_layers=L)
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=cfg.param_dtype)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(params))
+    cut = f"cut to {L} of {full.num_layers} layers" if L < full.num_layers \
+        else f"all {L} layers"
+    log(f"{arch} training: {cut}, {n / 1e9:.3f} B params as fp32 masters "
+        f"({16 * n / 2**30:.1f} GiB with grads and AdamW moments) in "
+        f"{time.perf_counter() - t0:.2f} s; bf16 activations, AdamW, remat, "
+        f"B {B} x S {S_len}")
+    ssm_floor_check(torch, model, params, batch_of(0),
+                    f"training check {arch}, {L} layers, bf16")
+    free()
+
+    # (c) the kernel path's steps, the optimizer timed by CUDA events
+    opt = make_optimizer(cfg.optimizer)
+    opt_ms = []
+
+    def timed_update(grads, state, params_, lr):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = opt.update(grads, state, params_, lr)
+        e.record()
+        opt_ms.append((s, e))
+        return out
+
+    tc = TrainConfig(steps=TRAIN_STEPS, lr=3e-4, warmup=2)
+    step_fn = make_train_step(model, Optimizer(opt.init, timed_update), tc)
+    opt_state = opt.init(params)
+    batches = [batch_of(s) for s in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(SSM_TRAIN_KERNELS)
+    rows = []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, step,
+                                       batches[step])
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0, m["loss"].item(),
+                     m["grad_norm"].item(), m["lr"]))
+    counts = read_counts(SSM_TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for step, (sec, loss, gn, lr) in enumerate(rows):
+        log(f"  step {step}: {sec * 1e3:.1f} ms, loss {loss:.5f}, grad norm "
+            f"{gn:.4f}, lr {lr:.3e}, optimizer "
+            f"{opt_ms[step][0].elapsed_time(opt_ms[step][1]):.2f} ms")
+    step_s = statistics.median(r[0] for r in rows[3:8])
+    opt_med = statistics.median(s.elapsed_time(e) for s, e in opt_ms[3:8])
+    T = B * S_len
+    flops = training_flops(model, params, T, B, S_len)
+    log(f"{arch} training ({cut}, B {B} x S {S_len}, fp32 masters, bf16, "
+        f"AdamW, remat): step {step_s * 1e3:.1f} ms (median of steps 3-7), "
+        f"{T / step_s:.0f} tokens/s, {flops / 1e12:.1f} TFLOP per step "
+        f"(weight products and attention; the scan not counted) = "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
+        f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms); optimizer "
+        f"{opt_med:.2f} ms; peak memory {peak:.2f} GiB; launches {counts} "
+        f"({card})")
+    profile_training_step(torch, lambda: step_fn(
+        params, opt_state, TRAIN_STEPS, batches[0]), step_s)
+    require(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
+            f"{arch} training: a loss or grad norm is not finite")
+    require(rows[-1][1] < min(rows[0][1], rows[1][1]),
+            f"{arch} training: the last loss {rows[-1][1]:.5f} is not below "
+            f"the first {rows[0][1]:.5f} and step 1's {rows[1][1]:.5f}")
+    require(peak < 78, f"{arch} training: peak memory {peak:.2f} GiB")
+    n_win = sum(1 for i in range(L) if full.attn_type == "sliding"
+                and i not in full.global_attn_layers)
+    n_glob = L - n_win if full.hybrid_parallel else 0
+    steps = TRAIN_STEPS
+    require(counts["mamba_scan_bwd"] == L * steps
+            and counts["mamba_scan_train"] >= L * steps
+            and counts["flash_attention_bwd_window"] == n_win * steps
+            and counts["flash_attention_lse_window"] >= n_win * steps
+            and counts["flash_attention_bwd"] == n_glob * steps,
+            f"{arch} training launched {counts}")
+    del model, params, opt_state, batches, step_fn
+    free()
+    return {k: counts[k] for k in SSM_TRAIN_KERNELS[:4]}
+
+
 def profile_training_step(torch, run, wall: float):
     """Profile one training step ``run()`` (device activity only) and log
     its device time by kind and the busy share of the unprofiled step's
@@ -3590,6 +4208,8 @@ def profile_training_step(torch, run, wall: float):
     # all carry the flash_bwd prefix
     kinds = {"flash backward": ("flash_bwd",),
              "flash forward": ("flash_attention_mma",),
+             "scan backward": ("mamba_scan_bwd",),
+             "scan forward": ("mamba_scan_kernel",),
              "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "xmma", "cutlass"),
              "other (elementwise, reductions, optimizer)": ("",)}
     ms = dict.fromkeys(kinds, 0.0)
@@ -4439,8 +5059,10 @@ def main() -> int:
                 log(f"  {entry} {line.strip()}")
 
     if "--flash-baseline" in sys.argv:
-        run_flash_compare(torch, [Path(p) for p in sys.argv[sys.argv.index(
-            "--flash-baseline") + 1:]])
+        others = [Path(p) for p in sys.argv[sys.argv.index(
+            "--flash-baseline") + 1:]]
+        run_flash_compare(torch, others)
+        run_flash_bwd_compare(torch, others)
         print(card_line(), flush=True)
         return 0
 
@@ -4457,6 +5079,8 @@ def main() -> int:
     kernels.update(run_flash_bwd_phase(
         torch, torch.Generator(device="cuda").manual_seed(4), 10))
     kernels.update(run_ssm_kernel_phase(torch))
+    kernels.update(run_scan_train_phase(torch))
+    kernels.update(run_window_flash_phase(torch))
     log(f"kernel phases done at {phase_s()} after the build")
     paper_kernels, launches = run_paper_kernel_phase(torch)
     kernels.update(paper_kernels)
@@ -4538,6 +5162,11 @@ def main() -> int:
     log(f"training phase done at {phase_s()}")
     launches.update(run_deepseek_training_phase(torch))
     log(f"deepseek training phase done at {phase_s()}")
+    # SSM and hybrid training: hymba-1.5b whole, falcon-mamba-7b at its cut
+    for arch in SSM_TRAIN:
+        for name, n in run_ssm_training_phase(torch, arch).items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"{arch} training phase done at {phase_s()}")
     run_trainer_phase(torch)
     log(f"trainer phase done at {phase_s()}")
 

@@ -8,10 +8,19 @@
 // forward; this file is the backward's counterpart.  Contract: q, dout,
 // dq (B, S, Hq, D) and k, v, dk, dv (B, S, Hkv, D), contiguous in the JAX
 // layout; GQA by head index (kv head = h / G, multi-query included);
-// causal or bidirectional; S that is not a multiple of the tile; head dims
-// up to 192 whose rows are whole 16-byte chunks (192: MLA's q/k head dim,
-// V zero-padded to it); fp32 or bf16.  The wrapper raises on a window, a
-// logit cap and key padding.
+// causal or bidirectional; a sliding window (key j seen from query i
+// where j > i - window, the reference's mask) with the global-layer
+// bypass; S that is not a multiple of the tile; head dims up to 192 whose
+// rows are whole 16-byte chunks (192: MLA's q/k head dim, V zero-padded to
+// it); fp32 or bf16.  The wrapper raises on a logit cap and key padding.
+//
+// The window (hymba's sliding layers): each block's tile loop runs over
+// only the tiles that hold a pair inside the window (the dK/dV block's
+// query tiles end where its last key leaves every query's window, the dQ
+// block's key tiles begin where its first query's window begins), and the
+// tiles that the window's edge cuts are masked like the diagonal's.  With
+// no window (or a global layer) the loops and masks are as before, and
+// the results bitwise so.
 //
 // Arithmetic, as the reference's: s = scale * q.k in fp32; p = exp(s -
 // lse); dv += p^T . dout with p rounded to v's dtype; dp = dout . v^T;
@@ -99,7 +108,28 @@ struct BwdArgs {
   float* partial;       // (2, n_split, B, S, Hkv, D) fp32 where n_split > 1
   int B, S, Hq, Hkv, D, causal, n_split;
   float scale;
+  int window;           // 0: none (or a global layer)
 };
+
+// the end of the query tiles that see key tile k_lo: a query at most
+// window - 1 past a key sees it
+__device__ inline int window_qt_end(const BwdArgs& a, int k_lo, int nqt) {
+  return a.window ? min(nqt, (k_lo + kT + a.window - 2) / kT + 1) : nqt;
+}
+
+// the first key tile that query tile q_lo sees
+__device__ inline int window_kt_begin(const BwdArgs& a, int q_lo) {
+  return a.window ? max(0, q_lo - a.window + 1) / kT : 0;
+}
+
+// whether the tile pair holds a (query, key) pair outside the window
+__device__ inline bool window_cuts(const BwdArgs& a, int q_lo, int k_lo) {
+  return a.window && k_lo + a.window <= q_lo + kT - 1;
+}
+
+__device__ inline bool in_window(const BwdArgs& a, int qpos, int kpos) {
+  return (a.window == 0) | (kpos > qpos - a.window);
+}
 
 template <typename T> __device__ inline T from_f(float x);
 template <> __device__ inline float from_f<float>(float x) { return x; }
@@ -217,9 +247,10 @@ flash_bwd_dkdv_simt(BwdArgs a) {
 
   const int nqt = (a.S + kT - 1) / kT;
   const int qt0 = a.causal ? blockIdx.y : 0;    // tiles at or below the diagonal
+  const int qt_end = window_qt_end(a, k_lo, nqt);
   for (int g = split * gs; g < (split + 1) * gs; ++g) {
     const int h = hk * G + g;
-    for (int qt = qt0; qt < nqt; ++qt) {
+    for (int qt = qt0; qt < qt_end; ++qt) {
       const int q_lo = qt * kT;
       const int qvalid = min(kT, a.S - q_lo);
       const long long q_off = (static_cast<long long>(b) * a.S + q_lo) * q_row + h * D;
@@ -244,7 +275,8 @@ flash_bwd_dkdv_simt(BwdArgs a) {
         for (int c = 0; c < kC; ++c) {
           const int qc = tx + 16 * c;
           const int qpos = q_lo + qc;
-          const bool ok = kr < kvalid && qc < qvalid && (!a.causal || kpos <= qpos);
+          const bool ok = kr < kvalid && qc < qvalid &&
+                          (!a.causal || kpos <= qpos) && in_window(a, qpos, kpos);
           const float p = ok ? expf(s[i][c] * a.scale - Ls[qc]) : 0.f;
           Ps[kr * kPP + qc] = p;
           Ss[kr * kPP + qc] = ok ? p * (dp[i][c] - Dl[qc]) : 0.f;
@@ -352,7 +384,7 @@ flash_bwd_dq_simt(BwdArgs a) {
 
   const int nkt = (a.S + kT - 1) / kT;
   const int kt_end = a.causal ? min(nkt, blockIdx.y + 1) : nkt;
-  for (int kt = 0; kt < kt_end; ++kt) {
+  for (int kt = window_kt_begin(a, q_lo); kt < kt_end; ++kt) {
     const int k_lo = kt * kT;
     const int kvalid = min(kT, a.S - k_lo);
     const long long kv_off = (static_cast<long long>(b) * a.S + k_lo) * kv_row + hk * D;
@@ -371,7 +403,8 @@ flash_bwd_dq_simt(BwdArgs a) {
       for (int c = 0; c < kC; ++c) {
         const int kc = tx + 16 * c;
         const int kpos = k_lo + kc;
-        const bool ok = qr < qvalid && kc < kvalid && (!a.causal || kpos <= qpos);
+        const bool ok = qr < qvalid && kc < kvalid &&
+                        (!a.causal || kpos <= qpos) && in_window(a, qpos, kpos);
         const float p = ok ? expf(s[i][c] * a.scale - Ls[qr]) : 0.f;
         Ss[qr * kPP + kc] = ok ? p * (dp[i][c] - Dl[qr]) : 0.f;
       }
@@ -545,7 +578,7 @@ flash_bwd_dkdv_mma(BwdArgs a) {
 
   const int nqt = (a.S + kT - 1) / kT;
   const int qt0 = a.causal ? blockIdx.y : 0;   // tiles at or below the diagonal
-  const int n_qt = nqt - qt0;
+  const int n_qt = window_qt_end(a, k_lo, nqt) - qt0;
   const int n_it = gs * n_qt;                  // (head, query tile) pairs
   const long long es = sizeof(bf16);
   const long long kv_row = static_cast<long long>(a.Hkv) * a.D * es;
@@ -637,7 +670,8 @@ flash_bwd_dkdv_mma(BwdArgs a) {
             if constexpr (MASK) {
               const int kpos = k_lo + wrow + g + (e >> 1) * 8;
               const int qpos = q_lo + c + (e & 1);
-              const bool ok = (qpos < a.S) & (!a.causal | (kpos <= qpos));
+              const bool ok = (qpos < a.S) & (!a.causal | (kpos <= qpos)) &
+                              in_window(a, qpos, kpos);
               p = ok ? p : 0.f;
             }
             st[j][e] = p;
@@ -664,7 +698,8 @@ flash_bwd_dkdv_mma(BwdArgs a) {
       }
     };
     // only tiles that cross the diagonal or S are masked
-    if ((a.causal && k_lo + kT - 1 > q_lo) || q_lo + kT > a.S) {
+    if ((a.causal && k_lo + kT - 1 > q_lo) || q_lo + kT > a.S ||
+        window_cuts(a, q_lo, k_lo)) {
       tile(Flag<true>());
     } else {
       tile(Flag<false>());
@@ -723,7 +758,8 @@ flash_bwd_dq_mma(BwdArgs a) {
   bf16* ring = sO + kTile;                     // stage: K tile, V tile
 
   const int nkt = (a.S + kT - 1) / kT;
-  const int n_it = a.causal ? min(nkt, q_lo / kT + 1) : nkt;
+  const int kt0 = window_kt_begin(a, q_lo);     // the window's first key tile
+  const int n_it = (a.causal ? min(nkt, q_lo / kT + 1) : nkt) - kt0;
   const long long es = sizeof(bf16);
   const long long kv_row = static_cast<long long>(a.Hkv) * a.D * es;
   const long long q_row = static_cast<long long>(a.Hq) * a.D * es;
@@ -738,7 +774,7 @@ flash_bwd_dq_mma(BwdArgs a) {
                    hk * a.D * es;
   auto load_stage = [&](int it) {
     bf16* dst = ring + (it % 2) * 2 * kTile;
-    const int k_lo = it * kT;
+    const int k_lo = (kt0 + it) * kT;
     copy.issue(dst, kb + k_lo * kv_row, kv_row, a.S - k_lo, a.k);
     copy.issue(dst + kTile, vb + k_lo * kv_row, kv_row, a.S - k_lo, a.v);
   };
@@ -798,7 +834,7 @@ flash_bwd_dq_mma(BwdArgs a) {
     if (it + 1 < n_it) load_stage(it + 1);
     cp_async_commit();
 
-    const int k_lo = it * kT;
+    const int k_lo = (kt0 + it) * kT;
     const bf16* sK = ring + (it % 2) * 2 * kTile;
     const bf16* sV = sK + kTile;
     auto tile = [&](auto mask_tag) {
@@ -834,7 +870,8 @@ flash_bwd_dq_mma(BwdArgs a) {
           if constexpr (MASK) {
             const int qpos = q_lo + wrow + g + (e >> 1) * 8;
             const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
-            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos));
+            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos)) &
+                            in_window(a, qpos, kpos);
             p = ok ? p : 0.f;
           }
           dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
@@ -855,7 +892,8 @@ flash_bwd_dq_mma(BwdArgs a) {
       }
     };
     // only tiles that cross the diagonal or S are masked
-    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.S) {
+    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.S ||
+        window_cuts(a, q_lo, k_lo)) {
       tile(Flag<true>());
     } else {
       tile(Flag<false>());
@@ -991,7 +1029,7 @@ flash_bwd_dkdv_mma8(BwdArgs a) {
 
   const int nqt = (a.S + kT - 1) / kT;
   const int qt0 = a.causal ? blockIdx.y : 0;
-  const int n_qt = nqt - qt0;
+  const int n_qt = window_qt_end(a, k_lo, nqt) - qt0;
   const int n_it = gs * n_qt;
   const long long es = sizeof(bf16);
   const long long kv_row = static_cast<long long>(a.Hkv) * a.D * es;
@@ -1089,7 +1127,8 @@ flash_bwd_dkdv_mma8(BwdArgs a) {
             if constexpr (MASK) {
               const int kpos = k_lo + wrow + g + (e >> 1) * 8;
               const int qpos = q_lo + c + (e & 1);
-              const bool ok = (qpos < a.S) & (!a.causal | (kpos <= qpos));
+              const bool ok = (qpos < a.S) & (!a.causal | (kpos <= qpos)) &
+                              in_window(a, qpos, kpos);
               p = ok ? p : 0.f;
             }
             st[j][e] = p;
@@ -1126,7 +1165,8 @@ flash_bwd_dkdv_mma8(BwdArgs a) {
         xb ^= 1;   // the other buffer next: this one may still be read
       }
     };
-    if ((a.causal && k_lo + kT - 1 > q_lo) || q_lo + kT > a.S) {
+    if ((a.causal && k_lo + kT - 1 > q_lo) || q_lo + kT > a.S ||
+        window_cuts(a, q_lo, k_lo)) {
       tile(Flag<true>());
     } else {
       tile(Flag<false>());
@@ -1185,7 +1225,8 @@ flash_bwd_dq_mma8(BwdArgs a) {
   bf16* ring = sO + kTile;                     // stage: K tile, V tile
 
   const int nkt = (a.S + kT - 1) / kT;
-  const int n_it = a.causal ? min(nkt, q_lo / kT + 1) : nkt;
+  const int kt0 = window_kt_begin(a, q_lo);     // the window's first key tile
+  const int n_it = (a.causal ? min(nkt, q_lo / kT + 1) : nkt) - kt0;
   const long long es = sizeof(bf16);
   const long long kv_row = static_cast<long long>(a.Hkv) * a.D * es;
   const long long q_row = static_cast<long long>(a.Hq) * a.D * es;
@@ -1202,7 +1243,7 @@ flash_bwd_dq_mma8(BwdArgs a) {
                    hk * a.D * es;
   auto load_stage = [&](int it) {
     bf16* dst = ring + (it % 2) * 2 * kTile;
-    const int k_lo = it * kT;
+    const int k_lo = (kt0 + it) * kT;
     wide_issue<DP>(dst, kb + k_lo * kv_row, kv_row, a.S - k_lo, chunks, a.k,
                    tid);
     wide_issue<DP>(dst + kTile, vb + k_lo * kv_row, kv_row, a.S - k_lo,
@@ -1269,7 +1310,7 @@ flash_bwd_dq_mma8(BwdArgs a) {
     if (it + 1 < n_it) load_stage(it + 1);
     cp_async_commit();
 
-    const int k_lo = it * kT;
+    const int k_lo = (kt0 + it) * kT;
     const bf16* sK = ring + (it % 2) * 2 * kTile;
     const bf16* sV = sK + kTile;
     auto tile = [&](auto mask_tag) {
@@ -1304,7 +1345,8 @@ flash_bwd_dq_mma8(BwdArgs a) {
           if constexpr (MASK) {
             const int qpos = q_lo + wrow + g + (e >> 1) * 8;
             const int kpos = k_lo + k0 + j * 8 + 2 * t + (e & 1);
-            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos));
+            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos)) &
+                            in_window(a, qpos, kpos);
             p = ok ? p : 0.f;
           }
           dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
@@ -1324,7 +1366,8 @@ flash_bwd_dq_mma8(BwdArgs a) {
         }
       }
     };
-    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.S) {
+    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.S ||
+        window_cuts(a, q_lo, k_lo)) {
       tile(Flag<true>());
     } else {
       tile(Flag<false>());
@@ -1470,7 +1513,8 @@ cudaError_t launch_mma(const BwdArgs& a, cudaStream_t stream) {
 
 // Plain C entry point.  q, dout, out, dq: contiguous (B, S, Hq, D); k, v,
 // dk, dv: contiguous (B, S, Hkv, D); lse: contiguous (B, S, Hq) fp32, and
-// delta fp32 scratch of the same size; n_split: a divisor of Hq / Hkv, and
+// delta fp32 scratch of the same size; window: the sliding window (0:
+// none), ignored where glob; n_split: a divisor of Hq / Hkv, and
 // with n_split > 1 partial: fp32 scratch of 2 * n_split * B * S * Hkv * D.
 // Launches the dQ kernel, the dK/dV kernel, then the fold where n_split >
 // 1, on `stream`; returns cudaGetLastError() after them.
@@ -1478,10 +1522,11 @@ extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* out, const float* lse, float* delta, void* dq, void* dk,
     void* dv, float* partial, int B, int S, int Hq, int Hkv, int D,
-    int causal, int n_split, int dtype, void* stream) {
+    int causal, int window, int glob, int n_split, int dtype, void* stream) {
   using namespace repro;
   BwdArgs a{q, k, v, dout, out, lse, delta, dq, dk, dv, partial, B, S, Hq,
-            Hkv, D, causal, n_split, 1.0f / sqrtf(static_cast<float>(D))};
+            Hkv, D, causal, n_split, 1.0f / sqrtf(static_cast<float>(D)),
+            window > 0 && !glob ? window : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0) return 0;
   if (D <= 0 || D > 192 || Hkv <= 0 || Hq % Hkv || n_split <= 0 ||

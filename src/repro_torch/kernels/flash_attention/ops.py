@@ -24,13 +24,16 @@ launches.
 Training: where autograd records the call (grad mode on and q, k or v
 requiring grad), a CUDA call runs ``FlashAttentionFn``.  Its forward
 launches the same kernel with the log-sum-exp output (``lse_launches``
-up to head dim 128, ``lse_d192_launches`` above); its backward launches
-the backward kernels (csrc/flash_attention_bwd.cu; ``bwd_launches`` per
-call up to head dim 128, ``bwd_d192_launches`` above, to 192: MLA's
-q/k head dim), which take causal or bidirectional GQA and raise on a
-window, a logit cap, key padding and head dims above 192, each naming
-the ROADMAP item that lifts it.  bf16 runs on the tensor cores (four
-warps a block up to 128, eight at 192), fp32 on the CUDA cores.
+up to head dim 128, ``lse_d192_launches`` above, ``lse_window_launches``
+with a sliding window); its backward launches the backward kernels
+(csrc/flash_attention_bwd.cu; ``bwd_launches`` per call up to head dim
+128, ``bwd_d192_launches`` above, to 192: MLA's q/k head dim,
+``bwd_window_launches`` with a sliding window), which take causal or
+bidirectional GQA and a sliding window with the global-layer bypass
+(hymba), and raise on a logit cap, key padding and head dims above 192,
+each naming the ROADMAP item that lifts it.  bf16 runs on the tensor
+cores (four warps a block up to 128, eight at 192), fp32 on the CUDA
+cores.
 ``bwd_plan`` splits a KV head's query heads over ``n_split`` dK/dV
 blocks where the (batch, KV head, key tile) blocks alone would leave
 the card half idle; the splits' fp32 partials are folded in split order
@@ -57,8 +60,10 @@ d192_launches = 0
 d256_launches = 0
 lse_launches = 0
 lse_d192_launches = 0
+lse_window_launches = 0
 bwd_launches = 0
 bwd_d192_launches = 0
+bwd_window_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
@@ -96,7 +101,7 @@ def _lse_fn():
 def _bwd_fn():
     fn = _build.load_library().flash_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 11 + [_I] * 10 + [_P]
     return fn
 
 
@@ -166,8 +171,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        _check_bwd(q, window, logit_cap, is_global, kv_len)
-        return FlashAttentionFn.apply(q, k, v, bool(causal))
+        _check_bwd(q, logit_cap, kv_len)
+        return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
+                                      is_global)
     _check(q, k, v, kv_len, window, is_global)
     B, S, Hq, D = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -198,15 +204,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 # training: the forward with its log-sum-exp, and the backward kernel
 # ---------------------------------------------------------------------------
 
-def _check_bwd(q, window, logit_cap, is_global, kv_len):
+def _check_bwd(q, logit_cap, kv_len):
     """Raise on what the backward kernel does not take, naming the ROADMAP
-    item that brings it."""
+    item that brings it (a sliding window it takes)."""
     D = q.shape[-1]
-    if window and not is_global:
-        raise NotImplementedError(
-            "flash backward: a sliding window is not supported by the "
-            "kernel; it comes with SSM and hybrid training (ROADMAP queue "
-            "1, item 1 (b))")
     if logit_cap > 0.0:
         raise NotImplementedError(
             "flash backward: a logit cap is not supported by the kernel "
@@ -222,14 +223,23 @@ def _check_bwd(q, window, logit_cap, is_global, kv_len):
             "by the kernel (ROADMAP queue 2 (a))")
 
 
-def flash_attention_lse(q, k, v, *, causal: bool = True):
+def _windowed(window, is_global) -> bool:
+    """Whether the mask has a sliding window: one given, and the layer not
+    global."""
+    return bool(window) and not bool(is_global)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        is_global=None):
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (out (B, S, Hq, D), lse
     (B, S, Hq) fp32): the flash kernel with its log-sum-exp output, natural
-    units of the scaled scores.  A CPU tensor takes the plain version."""
-    global lse_launches, lse_d192_launches
+    units of the scaled scores; ``window`` as ``flash_attention`` takes
+    it.  A CPU tensor takes the plain version."""
+    global lse_launches, lse_d192_launches, lse_window_launches
     if q.device.type == "cpu":
-        return flash_attention_lse_ref(q, k, v, causal=causal)
-    _check(q, k, v, None, 0, None)
+        return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
+                                       is_global=is_global)
+    _check(q, k, v, None, window, is_global)
     B, S, Hq, D = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
@@ -240,9 +250,12 @@ def flash_attention_lse(q, k, v, *, causal: bool = True):
                     k.stride(0), k.stride(1), k.stride(2),
                     v.stride(0), v.stride(1), v.stride(2),
                     out.stride(0), out.stride(1), out.stride(2),
-                    int(bool(causal)), 0, 0, 0.0, _DTYPES[q.dtype], stream)
+                    int(bool(causal)), int(window), int(bool(is_global)),
+                    0.0, _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_lse")
-    if D > _BWD_NARROW_D:
+    if _windowed(window, is_global):
+        lse_window_launches += 1
+    elif D > _BWD_NARROW_D:
         lse_d192_launches += 1
     else:
         lse_launches += 1
@@ -265,17 +278,20 @@ def bwd_plan(B: int, S: int, Hq: int, Hkv: int, sms: int,
                  and blocks * n >= per_sm * sms), G)
 
 
-def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: int = 0, is_global=None):
     """Gradients (dq, dk, dv) of the flash attention whose forward gave
     ``out`` and ``lse``, for the output gradient ``dout``; the dQ kernel
     also computes ``delta = rowsum(dout * out)`` in fp32, for the dK/dV
-    kernel.  A CPU tensor takes the plain version."""
-    global bwd_launches, bwd_d192_launches
+    kernel.  ``window``: the sliding window, bypassed where ``is_global``.
+    A CPU tensor takes the plain version."""
+    global bwd_launches, bwd_d192_launches, bwd_window_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, lse,
-                                       causal=causal)
-    _check(q, k, v, None, 0, None)
-    _check_bwd(q, 0, 0.0, None, None)
+                                       causal=causal, window=window,
+                                       is_global=is_global)
+    _check(q, k, v, None, window, is_global)
+    _check_bwd(q, 0.0, None)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     q, k, v, dout, out = (t.contiguous() for t in (
@@ -299,10 +315,12 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
                     delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     None if partial is None else partial.data_ptr(),
-                    B, S, Hq, Hkv, D, int(bool(causal)), n_split,
-                    _DTYPES[q.dtype], stream)
+                    B, S, Hq, Hkv, D, int(bool(causal)), int(window),
+                    int(bool(is_global)), n_split, _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_bwd")
-    if D > _BWD_NARROW_D:
+    if _windowed(window, is_global):
+        bwd_window_launches += 1
+    elif D > _BWD_NARROW_D:
         bwd_d192_launches += 1
     else:
         bwd_launches += 1
@@ -311,19 +329,20 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True):
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with a gradient on the card: the forward kernel
-    with its log-sum-exp, then the backward kernel; saves (q, k, v, out,
-    lse) as the reference's ``_flash_fwd`` does."""
+    with its log-sum-exp, then the backward kernel, under the same mask
+    (causal, sliding window, global bypass); saves (q, k, v, out, lse) as
+    the reference's ``_flash_fwd`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_lse(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal, window=0, is_global=None):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                       is_global=is_global)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.mask = dict(causal=causal, window=window, is_global=is_global)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
-                                         causal=ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.mask)
+        return dq, dk, dv, None, None, None

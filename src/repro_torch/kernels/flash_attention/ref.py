@@ -27,15 +27,20 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                                kv_len=kv_len)
 
 
-def flash_attention_lse_ref(q, k, v, *, causal: bool = True):
-    """(out (B, S, Hq, D), lse (B, S, Hq) fp32)."""
-    return flash_forward(q, k, v, causal=causal)
+def flash_attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                            is_global=None):
+    """(out (B, S, Hq, D), lse (B, S, Hq) fp32); ``window`` and
+    ``is_global`` as ``flash_attention_ref`` takes them."""
+    return flash_forward(q, k, v, causal=causal, window=window,
+                         is_global=is_global)
 
 
-def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True):
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
+                            window: int = 0, is_global=None):
     """(dq, dk, dv) for the output gradient ``dout`` of the attention
-    whose forward gave ``out`` and ``lse``."""
-    return flash_backward(q, k, v, out, dout, lse, causal=causal)
+    whose forward gave ``out`` and ``lse``, under the same mask."""
+    return flash_backward(q, k, v, out, dout, lse, causal=causal,
+                          window=window, is_global=is_global)
 
 
 def flash_attention_bwd_split_ref(q, k, v, out, dout, lse, *,

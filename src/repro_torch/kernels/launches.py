@@ -21,8 +21,12 @@ COUNTERS = {"ragged_decode": (_rd, "launches"),
             "flash_attention_lse_d192": (_fa, "lse_d192_launches"),
             "flash_attention_bwd": (_fa, "bwd_launches"),
             "flash_attention_bwd_d192": (_fa, "bwd_d192_launches"),
+            "flash_attention_lse_window": (_fa, "lse_window_launches"),
+            "flash_attention_bwd_window": (_fa, "bwd_window_launches"),
             "mamba_step": (_ms, "step_launches"),
             "mamba_scan": (_ms, "scan_launches"),
+            "mamba_scan_train": (_ms, "scan_train_launches"),
+            "mamba_scan_bwd": (_ms, "scan_bwd_launches"),
             "flex_mm": (_fm, "launches"),
             "static_mm": (_fm, "static_launches")}
 

@@ -76,7 +76,43 @@
 //     fill the card, and carrying a state across blocks would cost a
 //     second exponential per state-step.
 //   It takes any S and also returns the last state, which the prefill
-//   stores in the cache.  No atomics: bit-equal from run to run.
+//   stores in the cache.  No atomics: bit-equal from run to run.  The
+//   training forward is the same kernel instantiated with kBounds: it also
+//   writes the state at the start of every kBwdChunk steps, (nchunk, B, D,
+//   N) fp32, the residual of the backward below (the reference's _fss_fwd
+//   saves the same).  The stores add no arithmetic, so its y is bitwise
+//   the serving instance's, and the serving instance is unchanged.
+//
+// * mamba_scan_bwd / mamba_scan_bwd_kernel, the scan's gradient.  Replaces
+//   no Pallas kernel: the reference's backward is the custom VJP
+//   _fss_bwd (src/repro/models/ssm.py), in jnp, which recomputes each
+//   chunk's states from its saved boundary and runs the reverse affine
+//   scan g_t = gy_t C_t + a_{t+1} g_{t+1} (g = dL/dh_t, a_t = exp(dt_t A))
+//   for dx, ddt, dB, dC, dA and dD.  It is the training path's hot loop, so
+//   it is a kernel: a materialised (B, S, d_in, N) fp32 state would be 2.1
+//   GB per layer at falcon-mamba-7b's widths (B 4, S 1024).  Bound on the
+//   H100: at those widths the bytes (x, dt, gy and the boundaries read,
+//   dx and ddt written: about 0.17 ms) and the exponentials (two per
+//   state-step, one to recompute the state and one to carry g) weigh
+//   about alike.  The design, simple first:
+//   - a block of 128 threads takes one row and 128 / (N / 4) channels, 4
+//     states a lane as in the forward, and walks the chunks in reverse;
+//   - per chunk it stages dt, x, gy, B and C in fp32 into shared memory,
+//     recomputes the chunk's states from its boundary with the forward's
+//     arithmetic (bitwise the forward's states), keeping each step's
+//     state in shared memory (32 steps x 16 bytes a lane: 64 KB), then
+//     sweeps back in registers, g carried across chunks;
+//   - dx and ddt are per channel: a channel's lanes sum their states by
+//     xor shuffles, and the chunk's values leave coalesced from shared
+//     memory;
+//   - dB and dC at (b, t, n) are sums over all d_in channels, so they
+//     cross blocks: each warp sums its channels by halving xor exchanges
+//     (7 shuffles a step for 8 values), the block its warps in order, and
+//     writes fp32 partials per block; dA (d_in, N) and dD (d_in,) are
+//     sums over rows and steps, kept in registers and written per row;
+//   - a second launch, mamba_scan_bwd_fold, adds the partials in block
+//     order (and rows in order) and rounds once.  No atomics, so repeats
+//     are bitwise equal.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
@@ -808,6 +844,10 @@ constexpr int kScanStates = 4;         // of a channel's states per lane
 constexpr int kScanGroup = 16;         // time steps a lane takes per group
 constexpr int kScanPad = 16;           // a tile's steps round up to this
 constexpr int kScanMaxChannels = 64;   // channels per block, at most
+constexpr int kBwdChunk = 32;          // steps between saved states
+constexpr int kBwdThreads = 128;       // threads of a backward block
+static_assert(kBwdChunk % kScanGroup == 0 && kScanTile % kBwdChunk == 0,
+              "a saved state starts a group of steps");
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct ScanArgs {
@@ -823,6 +863,7 @@ struct ScanArgs {
   long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
   int vx, vdt, vb, vc;  // bytes per copy of each input's rows: 16, 8, 4, 2
   int tmx, tmdt, tmb, tmc;   // 1: the input comes by its tensor map
+  float* bounds;        // (nchunk, B, D, N) contiguous: the kBounds instance
 };
 
 // the four inputs' tensor maps (x, dt, B, C), where ScanArgs says so
@@ -983,11 +1024,13 @@ constexpr size_t scan_smem(int channels) {
 // One block scans `channels` channels of one row over all S steps.  Its
 // consumer warps hold a channel's N states on G = N / K consecutive lanes,
 // K = 4 in registers each (state n = g K + k on lane g); one more warp, the
-// producer, stages the tiles.
-template <typename T, int N>
+// producer, stages the tiles.  kBounds: also write the state before every
+// kBwdChunk-th step to a.bounds.
+template <typename T, int N, bool kBounds>
 __global__ void __launch_bounds__(kScanMaxChannels * N / kScanStates + 32, 1)
 mamba_scan_kernel(const ScanArgs a, const __grid_constant__ ScanMaps maps) {
   constexpr int K = kScanStates;
+  static_assert(K == 4, "a lane's states are one float4 of a.bounds");
   constexpr int G = N / K;
   constexpr int U = kScanGroup;
   constexpr int V = U / G;             // steps of a group a lane stores
@@ -1119,6 +1162,15 @@ mamba_scan_kernel(const ScanArgs a, const __grid_constant__ ScanMaps maps) {
     const T* xt = xs + slot * kScanTile * CH + cl;
     const float* dtt = dts + slot * kScanTile * CH + cl;
     for (int t = 0; t < padded; t += U) {
+      if constexpr (kBounds) {
+        const int step = t0 + t;
+        if (step % kBwdChunk == 0 && active && step < a.S) {
+          *reinterpret_cast<float4*>(
+              a.bounds + ((static_cast<long long>(step / kBwdChunk) *
+                               gridDim.y + b) * a.D + c) * N + g * K) =
+              make_float4(h[0], h[1], h[2], h[3]);
+        }
+      }
       // a group of U steps: only the h FMAs wait on the step before, so
       // the loads and exponentials of later steps need not wait
       float part[U];
@@ -1217,7 +1269,7 @@ bool tile_map(CUtensorMap* m, const void* base, int es, int width, int S,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int N>
+template <typename T, int N, bool kBounds>
 cudaError_t scan(ScanArgs a, int B, cudaStream_t s) {
   constexpr int es = static_cast<int>(sizeof(T));
   a.vx = copy_bytes(a.x, a.x_sb, a.x_ss, es, a.channels * es);
@@ -1231,19 +1283,332 @@ cudaError_t scan(ScanArgs a, int B, cudaStream_t s) {
   a.tmb = tile_map(&maps.b, a.bm, es, N, a.S, B, a.b_ss, a.b_sb, N);
   a.tmc = tile_map(&maps.c, a.cm, es, N, a.S, B, a.c_ss, a.c_sb, N);
   const size_t smem = scan_smem<T, N>(a.channels);
-  REPRO_TRY(allow_smem(mamba_scan_kernel<T, N>, smem));
+  REPRO_TRY(allow_smem(mamba_scan_kernel<T, N, kBounds>, smem));
   const dim3 grid((a.D + a.channels - 1) / a.channels, B);
-  mamba_scan_kernel<T, N>
+  mamba_scan_kernel<T, N, kBounds>
       <<<grid, a.channels * N / kScanStates + 32, smem, s>>>(a, maps);
   return cudaGetLastError();
+}
+
+template <typename T, int N>
+cudaError_t scan_either(const ScanArgs& a, int B, cudaStream_t s) {
+  return a.bounds == nullptr ? scan<T, N, false>(a, B, s)
+                             : scan<T, N, true>(a, B, s);
 }
 
 template <typename T>
 cudaError_t scan_for_n(const ScanArgs& a, int B, int N, cudaStream_t s) {
   switch (N) {
-    case 4: return scan<T, 4>(a, B, s);
-    case 8: return scan<T, 8>(a, B, s);
-    case 16: return scan<T, 16>(a, B, s);
+    case 4: return scan_either<T, 4>(a, B, s);
+    case 8: return scan_either<T, 8>(a, B, s);
+    case 16: return scan_either<T, 16>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the scan's backward (training)
+// ---------------------------------------------------------------------------
+
+struct ScanBwdArgs {
+  const void* x;        // (B, S, D), strides (x_sb, x_ss, 1)
+  const float* dt;      // (B, S, D), strides (dt_sb, dt_ss, 1)
+  const void* bm;       // (B, S, N), strides (b_sb, b_ss, 1)
+  const void* cm;       // (B, S, N), strides (c_sb, c_ss, 1)
+  const float* a_log;   // (D, N)
+  const float* d;       // (D,)
+  const float* bounds;  // (nchunk, B, D, N): the forward's saved states
+  const float* gy;      // (B, S, D) contiguous
+  void* dx;             // (B, S, D) contiguous, x's dtype
+  float* ddt;           // (B, S, D) contiguous
+  void* db;             // (B, S, N) contiguous, B's dtype
+  void* dc;             // (B, S, N) contiguous
+  float* da;            // (D, N): with respect to A = -exp(A_log)
+  float* dd;            // (D,)
+  float* part;          // (B, blocks, S, 2N): a block's dB then dC
+  float* dpart;         // (B, D, N + 1): a row's dA then dD
+  int B, S, D;
+  long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
+};
+
+// v[U] summed over the lanes that differ in lane bits O, O / 2, ..., by
+// halving exchanges: a lane keeps the upper half of the values where it
+// has the offset's bit, so after log2(U) of them v[0] holds the sum of
+// value j = the lane's bits at those offsets, read high to low.
+template <int U, int O>
+__device__ inline void scatter_lanes(float (&v)[U], int lane) {
+  if constexpr (U > 1) {
+    constexpr int H = U / 2;
+    const bool hi = (lane & O) != 0;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float send = hi ? v[j] : v[j + H];
+      const float keep = hi ? v[j + H] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    scatter_lanes<H, O / 2>(reinterpret_cast<float(&)[H]>(v), lane);
+  }
+}
+
+// shared memory of a backward block of N states (floats): the chunk's
+// states [step][thread] (float4 a lane), the warps' dB/dC sums
+// [warp][step][2N], dt, x, gy, dx and ddt [step][channel], B then C
+// [step][2N]
+template <int N>
+constexpr size_t scan_bwd_smem() {
+  constexpr int CH = kBwdThreads * kScanStates / N;
+  return sizeof(float) * (static_cast<size_t>(kBwdChunk) * kBwdThreads * 4 +
+                          (kBwdThreads / 32) * kBwdChunk * 2 * N +
+                          5 * kBwdChunk * CH + kBwdChunk * 2 * N);
+}
+
+// One block: row blockIdx.y, channels [blockIdx.x CH, + CH), CH = 128 /
+// G, a channel's N states on G = N / 4 consecutive lanes as in the
+// forward.  Walks the chunks in reverse.
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads)
+mamba_scan_bwd_kernel(const ScanBwdArgs a) {
+  constexpr int K = kScanStates;
+  constexpr int G = N / K;
+  constexpr int CH = kBwdThreads / G;
+  constexpr int L = kBwdChunk;
+  constexpr int W = kBwdThreads / 32;
+  constexpr int N2 = 2 * N;
+  static_assert(K == 4 && G <= 4, "N: 4, 8, 16");
+  extern __shared__ __align__(16) unsigned char scan_bwd_raw[];
+  float4* st = reinterpret_cast<float4*>(scan_bwd_raw);     // [L][threads]
+  float* red = reinterpret_cast<float*>(st + L * kBwdThreads);  // [W][L][2N]
+  float* dts = red + W * L * N2;                            // [L][CH]
+  float* xs = dts + L * CH;
+  float* gys = xs + L * CH;
+  float* dxs = gys + L * CH;
+  float* ddts = dxs + L * CH;
+  float* bcs = ddts + L * CH;                               // [L][2N]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int b = blockIdx.y;
+  const int blk = blockIdx.x;
+  const int c0 = blk * CH;
+  const int cl = tid / G;
+  const int g = tid - cl * G;
+  const int c = c0 + cl;
+  const bool active = c < a.D;
+  // A natural (ddt, dA) and prescaled by log2 e (the exponentials), as
+  // the forward takes it
+  float An[K], A2[K], gc[K], dA[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    An[k] = active ? -expf(a.a_log[static_cast<long long>(c) * N + g * K + k])
+                   : 0.f;
+    A2[k] = active ? An[k] * kLog2e : 0.f;
+    gc[k] = 0.f;      // a_{t+1} g_{t+1}, carried in from the step after
+    dA[k] = 0.f;
+  }
+  const float dv = active ? a.d[c] : 0.f;
+  float dD = 0.f;
+  // the lane's dB/dC sum after scatter_lanes<8, 16>: value j = lane bits
+  // 4, 3, 2; the lanes that differ in bits 1 .. G hold the same sum, and
+  // the one with those bits clear writes it
+  const int vj = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
+                 ((lane >> 2) & 1);
+  const int n2 = (vj < 4 ? 0 : N) + g * K + (vj & 3);
+  const bool rep = (lane & (3 & ~(G - 1))) == 0;
+  const T* xg = static_cast<const T*>(a.x) + b * a.x_sb + c0;
+  const float* dtg = a.dt + b * a.dt_sb + c0;
+  const float* gyg = a.gy + static_cast<long long>(b) * a.S * a.D + c0;
+  const T* bg = static_cast<const T*>(a.bm) + b * a.b_sb;
+  const T* cg = static_cast<const T*>(a.cm) + b * a.c_sb;
+  const int nchunk = (a.S + L - 1) / L;
+
+  for (int k = nchunk - 1; k >= 0; --k) {
+    const int t0 = k * L;
+    const int rows = min(L, a.S - t0);
+    __syncthreads();   // the chunk after this one is written out
+    // steps past S and channels past d_in stage as zeros: dt = 0 leaves
+    // h and g as they are (2^0 h + 0) and adds nothing to any sum
+    for (int i = tid; i < L * CH; i += kBwdThreads) {
+      const int t = i / CH;
+      const int j = i - t * CH;
+      const bool ok = t < rows && c0 + j < a.D;
+      const long long s = t0 + t;
+      dts[i] = ok ? dtg[s * a.dt_ss + j] : 0.f;
+      xs[i] = ok ? to_f<T>(xg[s * a.x_ss + j]) : 0.f;
+      gys[i] = ok ? gyg[s * a.D + j] : 0.f;
+    }
+    for (int i = tid; i < L * N; i += kBwdThreads) {
+      const int t = i / N;
+      const int n = i - t * N;
+      const bool ok = t < rows;
+      const long long s = t0 + t;
+      bcs[t * N2 + n] = ok ? to_f<T>(bg[s * a.b_ss + n]) : 0.f;
+      bcs[t * N2 + N + n] = ok ? to_f<T>(cg[s * a.c_ss + n]) : 0.f;
+    }
+    __syncthreads();
+
+    // the chunk's states from its boundary, the forward's arithmetic
+    float h[K] = {0.f, 0.f, 0.f, 0.f};
+    if (active) {
+      const float4 h4 = *reinterpret_cast<const float4*>(
+          a.bounds + ((static_cast<long long>(k) * a.B + b) * a.D + c) * N +
+          g * K);
+      h[0] = h4.x;
+      h[1] = h4.y;
+      h[2] = h4.z;
+      h[3] = h4.w;
+    }
+#pragma unroll 4
+    for (int t = 0; t < L; ++t) {
+      st[t * kBwdThreads + tid] = make_float4(h[0], h[1], h[2], h[3]);
+      const float dtv = dts[t * CH + cl];
+      const float dx = dtv * xs[t * CH + cl];
+      const float4 b4 = *reinterpret_cast<const float4*>(bcs + t * N2 + g * K);
+      const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        h[j] = fmaf(ex2_approx(dtv * A2[j]), h[j], dx * bb[j]);
+      }
+    }
+
+    // back through the chunk: hn = h_t, hp = h_{t-1}
+    float hn[K] = {h[0], h[1], h[2], h[3]};
+#pragma unroll 2
+    for (int t = L - 1; t >= 0; --t) {
+      const float4 hp4 = st[t * kBwdThreads + tid];
+      const float hp[4] = {hp4.x, hp4.y, hp4.z, hp4.w};
+      const float dtv = dts[t * CH + cl];
+      const float xv = xs[t * CH + cl];
+      const float gyv = gys[t * CH + cl];
+      const float dx = dtv * xv;
+      const float4 b4 = *reinterpret_cast<const float4*>(bcs + t * N2 + g * K);
+      const float4 c4 =
+          *reinterpret_cast<const float4*>(bcs + t * N2 + N + g * K);
+      const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+      float sgb = 0.f;     // sum_n g B
+      float sdd = 0.f;     // sum_n g h_{t-1} a_t A
+      float v[2 * K];      // dB then dC terms of this lane's states
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const float da = ex2_approx(dtv * A2[j]);
+        gc[j] = fmaf(gyv, cc[j], gc[j]);                 // g_t
+        sgb = fmaf(gc[j], bb[j], sgb);
+        const float e = gc[j] * hp[j] * da;
+        sdd = fmaf(e, An[j], sdd);
+        dA[j] = fmaf(e, dtv, dA[j]);
+        v[j] = gc[j] * dx;
+        v[K + j] = gyv * hn[j];
+        gc[j] *= da;                                     // into step t - 1
+        hn[j] = hp[j];
+      }
+      sgb = group_sum<G>(sgb);
+      sdd = group_sum<G>(sdd);
+      if (g == 0) {
+        dxs[t * CH + cl] = fmaf(dtv, sgb, dv * gyv);
+        ddts[t * CH + cl] = fmaf(xv, sgb, sdd);
+        dD = fmaf(gyv, xv, dD);
+      }
+      scatter_lanes<2 * K, 16>(v, lane);
+#pragma unroll
+      for (int o = 2; o >= G; o >>= 1) {
+        v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+      }
+      if (rep) red[(warp * L + t) * N2 + n2] = v[0];
+    }
+    __syncthreads();
+
+    // the block's dB/dC of the chunk (its warps in order) and its dx, ddt
+    float* pb = a.part + ((static_cast<long long>(b) * gridDim.x + blk) * a.S +
+                          t0) * N2;
+    for (int i = tid; i < rows * N2; i += kBwdThreads) {
+      float sum = red[i];
+#pragma unroll
+      for (int w = 1; w < W; ++w) sum += red[w * L * N2 + i];
+      pb[i] = sum;
+    }
+    T* dxg = static_cast<T*>(a.dx) + (static_cast<long long>(b) * a.S + t0) *
+                                         a.D + c0;
+    float* ddtg = a.ddt + (static_cast<long long>(b) * a.S + t0) * a.D + c0;
+    for (int i = tid; i < rows * CH; i += kBwdThreads) {
+      const int t = i / CH;
+      const int j = i - t * CH;
+      if (c0 + j < a.D) {
+        dxg[static_cast<long long>(t) * a.D + j] = from_f<T>(dxs[i]);
+        ddtg[static_cast<long long>(t) * a.D + j] = ddts[i];
+      }
+    }
+  }
+  if (active) {
+    float* p = a.dpart + (static_cast<long long>(b) * a.D + c) * (N + 1);
+#pragma unroll
+    for (int k = 0; k < K; ++k) p[g * K + k] = dA[k];
+    if (g == 0) p[N] = dD;
+  }
+}
+
+constexpr int kBwdFoldThreads = 256;
+
+// dB, dC: the blocks' partials summed in block order; dA, dD: the rows'
+// partials summed in row order; each rounded once.
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdFoldThreads)
+mamba_scan_bwd_fold(const ScanBwdArgs a, int blocks) {
+  constexpr int N2 = 2 * N;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kBwdFoldThreads + threadIdx.x;
+  const long long nbc = static_cast<long long>(a.B) * a.S * N2;
+  if (i < nbc) {
+    const long long bs = i / N2;
+    const int n2 = static_cast<int>(i - bs * N2);
+    const long long b = bs / a.S;
+    const long long s = bs - b * a.S;
+    const float* p = a.part + (b * blocks * a.S + s) * N2 + n2;
+    const long long stride = static_cast<long long>(a.S) * N2;
+    float sum = 0.f;
+    for (int k = 0; k < blocks; ++k) sum += p[k * stride];
+    T* dst = static_cast<T*>(n2 < N ? a.db : a.dc);
+    dst[bs * N + (n2 < N ? n2 : n2 - N)] = from_f<T>(sum);
+    return;
+  }
+  const long long j = i - nbc;
+  if (j >= static_cast<long long>(a.D) * (N + 1)) return;
+  float sum = 0.f;
+  for (int b = 0; b < a.B; ++b) {
+    sum += a.dpart[static_cast<long long>(b) * a.D * (N + 1) + j];
+  }
+  const long long ch = j / (N + 1);
+  const int n = static_cast<int>(j - ch * (N + 1));
+  if (n < N) {
+    a.da[ch * N + n] = sum;
+  } else {
+    a.dd[ch] = sum;
+  }
+}
+
+template <typename T, int N>
+cudaError_t scan_bwd(const ScanBwdArgs& a, cudaStream_t s) {
+  constexpr int CH = kBwdThreads * kScanStates / N;
+  const size_t smem = scan_bwd_smem<N>();
+  REPRO_TRY(allow_smem(mamba_scan_bwd_kernel<T, N>, smem));
+  const int blocks = (a.D + CH - 1) / CH;
+  mamba_scan_bwd_kernel<T, N>
+      <<<dim3(blocks, a.B), kBwdThreads, smem, s>>>(a);
+  REPRO_TRY(cudaGetLastError());
+  const long long n = static_cast<long long>(a.B) * a.S * 2 * N +
+                      static_cast<long long>(a.D) * (N + 1);
+  mamba_scan_bwd_fold<T, N><<<static_cast<int>(
+      (n + kBwdFoldThreads - 1) / kBwdFoldThreads), kBwdFoldThreads, 0, s>>>(
+      a, blocks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t scan_bwd_for_n(const ScanBwdArgs& a, int N, cudaStream_t s) {
+  switch (N) {
+    case 4: return scan_bwd<T, 4>(a, s);
+    case 8: return scan_bwd<T, 8>(a, s);
+    case 16: return scan_bwd<T, 16>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1297,12 +1662,15 @@ extern "C" int mamba_step(
 // mamba_scan: x (B, S, D) in the activation dtype, strides (x_sb, x_ss, 1);
 // dt (B, S, D) fp32, strides (dt_sb, dt_ss, 1); b, c (B, S, N) in the
 // activation dtype, strides (sb, ss, 1); a_log (D, N) and d (D,) fp32 ->
-// y (B, S, D) fp32 and h_last (B, D, N) fp32, both contiguous.  channels:
-// per block, a multiple of 8 up to 64 that makes whole warps of N / 4
-// lanes per channel (the wrapper's scan_plan()).
+// y (B, S, D) fp32 and h_last (B, D, N) fp32, both contiguous, and where
+// bounds is not null the state before every 32nd step (kBwdChunk),
+// (ceil(S / 32), B, D, N) fp32 contiguous (training).  channels: per
+// block, a multiple of 8 up to 64 that makes whole warps of N / 4 lanes
+// per channel (the wrapper's scan_plan()).
 extern "C" int mamba_scan(
     const void* x, const void* dt, const void* b, const void* c,
-    const void* a_log, const void* d, void* y, void* h_last, int B, int S,
+    const void* a_log, const void* d, void* y, void* h_last, void* bounds,
+    int B, int S,
     int D, int N, long long x_sb, long long x_ss, long long dt_sb,
     long long dt_ss, long long b_sb, long long b_ss, long long c_sb,
     long long c_ss, int channels, int dtype, void* stream) {
@@ -1317,11 +1685,42 @@ extern "C" int mamba_scan(
              static_cast<const float*>(a_log), static_cast<const float*>(d),
              static_cast<float*>(y), static_cast<float*>(h_last), S, D,
              channels, x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss,
-             0, 0, 0, 0, 0, 0, 0, 0};
+             0, 0, 0, 0, 0, 0, 0, 0, static_cast<float*>(bounds)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
     return static_cast<int>(scan_for_n<__nv_bfloat16>(a, B, N, s));
   }
   if (dtype == kF32) return static_cast<int>(scan_for_n<float>(a, B, N, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// mamba_scan_bwd: the gradient of mamba_scan's y for gy (B, S, D) fp32
+// contiguous, from the forward's inputs (as mamba_scan takes them) and its
+// bounds -> dx (B, S, D) in x's dtype, ddt (B, S, D) fp32, db and dc (B,
+// S, N) in b's dtype, da (D, N) fp32 (with respect to A = -exp(A_log)) and
+// dd (D,) fp32, all contiguous.  part: fp32 scratch of B * ceil(D / CH) *
+// S * 2N, CH = 128 / (N / 4) channels a block; dpart: fp32 scratch of B *
+// D * (N + 1).  Two launches.
+extern "C" int mamba_scan_bwd(
+    const void* x, const void* dt, const void* b, const void* c,
+    const void* a_log, const void* d, const void* bounds, const void* gy,
+    void* dx, void* ddt, void* db, void* dc, void* da, void* dd, void* part,
+    void* dpart, int B, int S, int D, int N, long long x_sb, long long x_ss,
+    long long dt_sb, long long dt_ss, long long b_sb, long long b_ss,
+    long long c_sb, long long c_ss, int dtype, void* stream) {
+  using namespace repro;
+  if (B == 0 || S == 0 || D == 0) return 0;
+  ScanBwdArgs a{x, static_cast<const float*>(dt), b, c,
+                static_cast<const float*>(a_log), static_cast<const float*>(d),
+                static_cast<const float*>(bounds),
+                static_cast<const float*>(gy), dx, static_cast<float*>(ddt),
+                db, dc, static_cast<float*>(da), static_cast<float*>(dd),
+                static_cast<float*>(part), static_cast<float*>(dpart), B, S,
+                D, x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    return static_cast<int>(scan_bwd_for_n<__nv_bfloat16>(a, N, s));
+  }
+  if (dtype == kF32) return static_cast<int>(scan_bwd_for_n<float>(a, N, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

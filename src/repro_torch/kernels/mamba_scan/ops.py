@@ -17,9 +17,19 @@ block: a producer warp keeps 64-step tiles of x, dt, B and C in flight
 a channel's states per lane in registers, each exponential one MUFU.EX2;
 ``scan_plan()`` spreads the channels evenly over the card from host ints.
 
+Training: ``SelectiveScanFn`` is the reference's ``fused_selective_scan``
+custom VJP (``models/ssm.py:_fss_fwd`` / ``_fss_bwd``).  Its forward
+launches the scan with its boundary output (the state before every
+``SCAN_CHUNK``-th step, ``scan_train_launches``), and its backward
+``mamba_scan_bwd`` (``scan_bwd_launches``): a kernel that recomputes each
+chunk's states from its boundary and sweeps it back for (dx, ddt, dB, dC,
+dA, dD), with a second launch that folds the blocks' partials of the
+cross-channel sums in a fixed order (csrc/mamba_scan.cu has the design).
+
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``step_launches`` and ``scan_launches`` count the
-calls that launched a kernel.
+the kernel or raises.  ``step_launches``, ``scan_launches``,
+``scan_train_launches`` and ``scan_bwd_launches`` count the calls that
+launched a kernel.
 """
 from __future__ import annotations
 
@@ -30,10 +40,15 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref, mamba_step_ref
+from repro_torch.kernels.mamba_scan.ref import (SCAN_CHUNK, mamba_scan_ref,
+                                                mamba_step_ref,
+                                                selective_scan_bwd_ref,
+                                                selective_scan_fwd_ref)
 
 step_launches = 0
 scan_launches = 0
+scan_train_launches = 0
+scan_bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _STATE_DIMS = (4, 8, 16)      # N the kernels are compiled for
@@ -52,6 +67,7 @@ _FMA, _MMA = 0, 1             # csrc Route
 overlap = True                # launch the step's kernels overlapped (PDL)
 _SCAN_STATES = 4              # states a scan lane holds (csrc kScanStates)
 _SCAN_CHANNELS = tuple(range(8, 65, 8))   # csrc kScanMaxChannels = 64
+_BWD_THREADS = 128            # threads of a backward block (csrc kBwdThreads)
 
 
 @functools.lru_cache(maxsize=1)
@@ -66,7 +82,15 @@ def _step_fn():
 def _scan_fn():
     fn = _build.load_library().mamba_scan
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 8 + [_I] * 4 + [_L] * 8 + [_I] * 2 + [_P]
+    fn.argtypes = [_P] * 9 + [_I] * 4 + [_L] * 8 + [_I] * 2 + [_P]
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _scan_bwd_fn():
+    fn = _build.load_library().mamba_scan_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P] * 16 + [_I] * 4 + [_L] * 8 + [_I, _P]
     return fn
 
 
@@ -275,42 +299,141 @@ def mamba_step(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
     return out
 
 
-def mamba_scan(x, dt, b, c, a_log, d):
-    """Selective scan of a prefill from a zero state.  x: (B, S, D) in the
-    activation dtype; dt: (B, S, D) fp32, already softplus'd; b, c: (B, S,
-    N) in the activation dtype (strided views are taken as they are);
-    a_log: (D, N) and d: (D,) fp32 -> (y (B, S, D) fp32, h_last (B, D, N)
-    fp32).  Any S."""
-    global scan_launches
-    if x.device.type == "cpu":
-        return mamba_scan_ref(x, dt, b, c, a_log, d)
+def _check_scan(x, dt, b, c, a_log, d, what: str):
     B, S, D = x.shape
     N = b.shape[-1]
-    dev = x.device
-    _need(all(t.device == dev for t in (dt, b, c, a_log, d)),
-          "mamba_scan: every tensor must lie on one CUDA device")
+    _need(all(t.device == x.device for t in (dt, b, c, a_log, d)),
+          f"{what}: every tensor must lie on one CUDA device")
     _need(x.dtype in _DTYPES and b.dtype == c.dtype == x.dtype
           and dt.dtype == a_log.dtype == d.dtype == torch.float32,
-          f"mamba_scan takes x, b, c of float32 or bfloat16 and dt, A_log, "
+          f"{what} takes x, b, c of float32 or bfloat16 and dt, A_log, "
           f"D in fp32, got {x.dtype}, {b.dtype}, {c.dtype}, {dt.dtype}, "
           f"{a_log.dtype}, {d.dtype}", TypeError)
     _need(N in _STATE_DIMS, f"state_dim {N} is not one of {_STATE_DIMS}")
     _need(dt.shape == (B, S, D) and b.shape == c.shape == (B, S, N)
           and a_log.shape == (D, N) and d.shape == (D,),
-          "mamba_scan: shapes disagree")
+          f"{what}: shapes disagree")
     _need(all(t.stride(-1) == 1 for t in (x, dt, b, c))
           and a_log.is_contiguous() and d.is_contiguous(),
-          "mamba_scan needs a unit stride on the last axis")
+          f"{what} needs a unit stride on the last axis")
+
+
+def mamba_scan(x, dt, b, c, a_log, d, *, bounds: bool = False):
+    """Selective scan of a prefill from a zero state.  x: (B, S, D) in the
+    activation dtype; dt: (B, S, D) fp32, already softplus'd; b, c: (B, S,
+    N) in the activation dtype (strided views are taken as they are);
+    a_log: (D, N) and d: (D,) fp32 -> (y (B, S, D) fp32, h_last (B, D, N)
+    fp32).  Any S.  With ``bounds`` (training) a third output, the state
+    before every ``SCAN_CHUNK``-th step, (ceil(S / SCAN_CHUNK), B, D, N)
+    fp32, from the kernel's training instance (``scan_train_launches``);
+    a CPU tensor then takes ``selective_scan_fwd_ref``."""
+    global scan_launches, scan_train_launches
+    if x.device.type == "cpu":
+        y, h_last = mamba_scan_ref(x, dt, b, c, a_log, d)
+        if bounds:
+            return (y, h_last,
+                    selective_scan_fwd_ref(x, dt, b, c, a_log, d)[1])
+        return y, h_last
+    B, S, D = x.shape
+    N = b.shape[-1]
+    dev = x.device
+    _check_scan(x, dt, b, c, a_log, d, "mamba_scan")
     y = torch.empty((B, S, D), dtype=torch.float32, device=dev)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    bnd = (torch.empty((_ceil(S, SCAN_CHUNK), B, D, N), dtype=torch.float32,
+                       device=dev) if bounds else None)
     p = scan_plan(B, D, N, _build.sm_count(dev.index or 0))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _scan_fn()(
         x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
         a_log.data_ptr(), d.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+        None if bnd is None else bnd.data_ptr(),
         B, S, D, N, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
         b.stride(0), b.stride(1), c.stride(0), c.stride(1), p.channels,
         _DTYPES[x.dtype], stream)
     _build.check(err, "mamba_scan")
-    scan_launches += 1
-    return y, h_last
+    if bnd is None:
+        scan_launches += 1
+        return y, h_last
+    scan_train_launches += 1
+    return y, h_last, bnd
+
+
+def bwd_channels(N: int) -> int:
+    """Channels of one backward block: 128 threads, N / 4 lanes a
+    channel."""
+    return _BWD_THREADS * _SCAN_STATES // N
+
+
+def mamba_scan_bwd(x, dt, b, c, a_log, d, bounds, gy):
+    """The gradients of ``mamba_scan``'s y for ``gy`` (B, S, D), from the
+    forward's inputs and its ``bounds``: (dx (B, S, D) in x's dtype, ddt
+    (B, S, D) fp32, dB and dC (B, S, N) contiguous in b's dtype, dA (D, N)
+    fp32 with respect to A = -exp(A_log), dD (D,) fp32).  A CPU tensor
+    takes ``selective_scan_bwd_ref``."""
+    global scan_bwd_launches
+    if x.device.type == "cpu":
+        return selective_scan_bwd_ref(x, dt, b, c, a_log, d, bounds, gy)
+    B, S, D = x.shape
+    N = b.shape[-1]
+    dev = x.device
+    _check_scan(x, dt, b, c, a_log, d, "mamba_scan_bwd")
+    gy = gy.to(torch.float32).contiguous()
+    _need(gy.shape == (B, S, D) and gy.device == dev,
+          f"mamba_scan_bwd: gy {tuple(gy.shape)} must be x's {(B, S, D)}")
+    _need(bounds.shape == (_ceil(S, SCAN_CHUNK), B, D, N)
+          and bounds.dtype == torch.float32 and bounds.is_contiguous()
+          and bounds.device == dev,
+          f"mamba_scan_bwd: bounds {tuple(bounds.shape)} {bounds.dtype} "
+          f"are not the forward's")
+    blocks = _ceil(D, bwd_channels(N))
+    dx = torch.empty((B, S, D), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, S, D), dtype=torch.float32, device=dev)
+    db = torch.empty((B, S, N), dtype=b.dtype, device=dev)
+    dc = torch.empty((B, S, N), dtype=c.dtype, device=dev)
+    da = torch.empty((D, N), dtype=torch.float32, device=dev)
+    dd = torch.empty((D,), dtype=torch.float32, device=dev)
+    part = torch.empty((B, blocks, S, 2 * N), dtype=torch.float32,
+                       device=dev)
+    dpart = torch.empty((B, D, N + 1), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _scan_bwd_fn()(
+        x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
+        a_log.data_ptr(), d.data_ptr(), bounds.data_ptr(), gy.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        da.data_ptr(), dd.data_ptr(), part.data_ptr(), dpart.data_ptr(),
+        B, S, D, N, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+        b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+        _DTYPES[x.dtype], stream)
+    _build.check(err, "mamba_scan_bwd")
+    scan_bwd_launches += 1
+    return dx, ddt, db, dc, da, dd
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The selective scan with its gradient, the reference's
+    ``fused_selective_scan``: (x, dt, b, c, a_log, d) -> y (B, S, D) fp32,
+    saving the inputs and the boundary states.  ``plain`` (or a CPU
+    tensor) runs the plain pair, ``selective_scan_fwd_ref`` and
+    ``selective_scan_bwd_ref``; else the kernels.  The gradient for
+    ``a_log`` is dA A (A = -exp(A_log)); b and c may be strided views
+    (of the x_proj output), their gradients come back contiguous."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b, c, a_log, d, plain=False):
+        ctx.plain = plain or x.device.type == "cpu"
+        if ctx.plain:
+            y, bnd = selective_scan_fwd_ref(x, dt, b, c, a_log, d)
+        else:
+            y, _, bnd = mamba_scan(x, dt, b, c, a_log, d, bounds=True)
+        ctx.save_for_backward(x, dt, b, c, a_log, d, bnd)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, dt, b, c, a_log, d, bnd = ctx.saved_tensors
+        bwd = selective_scan_bwd_ref if ctx.plain else mamba_scan_bwd
+        dx, ddt, db, dc, da, dd = bwd(x, dt, b, c, a_log, d, bnd, gy)
+        a = -torch.exp(a_log.float())
+        return dx, ddt, db, dc, (da * a).to(a_log.dtype), dd.to(d.dtype), \
+            None

@@ -17,6 +17,13 @@ chunk by chunk with the state carried, each chunk stepped in time order
 (the associative scan inside a chunk sums in another order only).
 ``mamba_scan_spec`` is the same function in the CUDA scan's order of
 arithmetic, for the tests.
+
+``selective_scan_fwd_ref`` and ``selective_scan_bwd_ref`` are the training
+pair, the reference's ``fused_selective_scan`` custom VJP
+(``repro.models.ssm._fss_fwd`` / ``_fss_bwd``): the forward's y with the
+state at the start of every ``chunk`` steps (the only residual besides the
+inputs), and the backward that recomputes each chunk's states from its
+boundary, then sweeps it in reverse for (dx, ddt, dB, dC, dA, dD).
 """
 from __future__ import annotations
 
@@ -24,6 +31,9 @@ import torch
 import torch.nn.functional as F
 
 LOG2E = 1.4426950408889634
+# steps between the boundary states the training forward saves (the CUDA
+# backward's kBwdChunk: one chunk's states fit a block's shared memory)
+SCAN_CHUNK = 32
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -165,3 +175,82 @@ def mamba_scan_spec(x, dt, b, c, a_log, d, *, states_per_lane: int = 4):
             o //= 2
         y[:, t] = part[..., 0]
     return y, h
+
+
+def selective_scan_fwd_ref(x, dt, b, c, a_log, d, *, chunk: int = SCAN_CHUNK):
+    """The training forward: ``mamba_scan_ref``'s y, and the state at the
+    start of each chunk of ``chunk`` steps, ``bounds`` (nchunk, B, D, N)
+    fp32 (``bounds[0]`` the zero state), as the reference's ``_fss_fwd``
+    saves them.  Any S: the last chunk may be short."""
+    f32 = torch.float32
+    B, S, D = x.shape
+    a = -torch.exp(a_log.to(f32))
+    x32, dt32, b32, c32 = x.to(f32), dt.to(f32), b.to(f32), c.to(f32)
+    h = torch.zeros((B, D, a.shape[1]), dtype=f32, device=x.device)
+    ys, bounds = [], []
+    for s0 in range(0, S, chunk):
+        bounds.append(h)
+        sl = slice(s0, min(S, s0 + chunk))
+        delta_a = torch.exp(dt32[:, sl, :, None] * a)
+        delta_bx = (dt32[:, sl] * x32[:, sl])[..., None] * \
+            b32[:, sl, None, :]
+        hs = []
+        for t in range(delta_a.shape[1]):
+            h = delta_a[:, t] * h + delta_bx[:, t]
+            hs.append(h)
+        ys.append(torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1),
+                               c32[:, sl]))
+    y = torch.cat(ys, dim=1) + d.to(f32) * x32
+    return y, torch.stack(bounds)
+
+
+def selective_scan_bwd_ref(x, dt, b, c, a_log, d, bounds, gy, *,
+                           chunk: int = SCAN_CHUNK):
+    """The gradients of ``selective_scan_fwd_ref``'s y for the output
+    gradient ``gy`` (B, S, D), from its ``bounds``: (dx, ddt, dB, dC, dA,
+    dD), dA with respect to A = -exp(A_log), as the reference's
+    ``_fss_bwd`` gives them.  Chunk by chunk in reverse, each chunk's
+    states are recomputed from its boundary, then the reverse scan g_t =
+    gy_t C_t + a_{t+1} g_{t+1} (g = dL/dh_t, a_t = exp(dt_t A)) runs
+    through it, the carry a g passing into the chunk before.  Sums in
+    fp32; dx, dB and dC come back in the dtypes of x, b and c, the rest
+    in fp32."""
+    f32 = torch.float32
+    B, S, D = x.shape
+    N = b.shape[-1]
+    a = -torch.exp(a_log.to(f32))
+    x32, dt32, b32, c32, gy32 = (t.to(f32) for t in (x, dt, b, c, gy))
+    dx = torch.empty((B, S, D), dtype=f32, device=x.device)
+    ddt = torch.empty_like(dx)
+    db = torch.empty((B, S, N), dtype=f32, device=x.device)
+    dc = torch.empty_like(db)
+    da_sum = torch.zeros((D, N), dtype=f32, device=x.device)
+    g = torch.zeros((B, D, N), dtype=f32, device=x.device)
+    for k in reversed(range(bounds.shape[0])):
+        sl = slice(k * chunk, min(S, (k + 1) * chunk))
+        dtk, xk, bk, ck, gk = (t[:, sl] for t in (dt32, x32, b32, c32, gy32))
+        delta_a = torch.exp(dtk[..., None] * a)             # (B, c, D, N)
+        delta_bx = (dtk * xk)[..., None] * bk[:, :, None, :]
+        h = bounds[k].to(f32)
+        h_prev = []
+        for t in range(delta_a.shape[1]):
+            h_prev.append(h)
+            h = delta_a[:, t] * h + delta_bx[:, t]
+        h_prev = torch.stack(h_prev, dim=1)                 # h_{t-1}
+        h_all = torch.cat([h_prev[:, 1:], h[:, None]], dim=1)
+        gs = [None] * delta_a.shape[1]
+        for t in reversed(range(delta_a.shape[1])):
+            g = gk[:, t, :, None] * ck[:, t, None, :] + g
+            gs[t] = g
+            g = delta_a[:, t] * g
+        gt = torch.stack(gs, dim=1)                         # (B, c, D, N)
+        dda = gt * h_prev
+        gb = torch.sum(gt * bk[:, :, None, :], dim=-1)
+        ddt[:, sl] = torch.sum(dda * (a * delta_a), dim=-1) + gb * xk
+        dx[:, sl] = gb * dtk + d.to(f32) * gk
+        db[:, sl] = torch.sum(gt * (dtk * xk)[..., None], dim=2)
+        dc[:, sl] = torch.einsum("bsd,bsdn->bsn", gk, h_all)
+        da_sum = da_sum + torch.sum(dda * dtk[..., None] * delta_a,
+                                    dim=(0, 1))
+    dd = torch.sum(gy32 * x32, dim=(0, 1))
+    return (dx.to(x.dtype), ddt, db.to(b.dtype), dc.to(c.dtype), da_sum, dd)

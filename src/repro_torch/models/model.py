@@ -18,8 +18,9 @@ activation dtype at use, as the reference does.
 ``Model.loss``: the cross-entropy plus ``aux_weight`` times the MoE
 layers' load-balance loss, for decoder-only archs with GQA or MLA
 attention and dense or MoE FFNs (minitron, qwen2.5, granite, chameleon,
-qwen1.5, deepseek-v2-lite, arctic); SSM, hybrid and enc-dec archs raise,
-naming the ROADMAP item that brings their training.
+qwen1.5, deepseek-v2-lite, arctic), attention-free Mamba (falcon-mamba)
+and hybrid (hymba: sliding-window attention beside Mamba); enc-dec archs
+raise, naming the ROADMAP item that brings their training.
 """
 from __future__ import annotations
 
@@ -113,8 +114,9 @@ class Model:
         decoder runs with per-layer remat when ``cfg.remat``; the
         cross-entropy is chunked (``transformer.chunked_softmax_xent``).
         ``use_kernels``: attention through the flash kernels and their
-        backward on the card (the plain versions on a CPU tensor either
-        way); ``moe_dispatch``: "einsum" (the reference's default) or
+        backward, and the Mamba blocks' scan through the scan kernel with
+        its boundary states and the scan's backward kernel, on the card
+        (the plain versions on a CPU tensor either way); ``moe_dispatch``: "einsum" (the reference's default) or
         "gather"."""
         cfg = self.cfg
         check_trainable(cfg)
@@ -244,16 +246,13 @@ class Model:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for the families whose training the port does not have yet,
-    naming the ROADMAP item that brings each."""
-    later = None
-    if cfg.ssm is not None or cfg.hybrid_parallel:
-        later = "SSM and hybrid training (ROADMAP queue 1, item 1 (b))"
-    elif cfg.is_encdec:
-        later = "enc-dec training (ROADMAP queue 1, item 1 (c))"
-    if later:
+    naming the ROADMAP item that brings each: enc-dec."""
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains decoder-only archs with GQA or "
-            f"MLA attention and dense or MoE FFNs; {later} comes later")
+            f"{cfg.name}: the port trains decoder-only archs (GQA or MLA "
+            f"attention, dense or MoE FFNs, attention-free Mamba and hybrid "
+            f"attention beside Mamba); enc-dec training comes later "
+            f"(ROADMAP queue 1, item 1 (c))")
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:

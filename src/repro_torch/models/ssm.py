@@ -1,12 +1,16 @@
-"""Mamba-1 selective SSM block of the port (``repro.models.ssm``, the
-serving paths; the training forward ``mamba_fwd`` belongs to the training
-slice).
+"""Mamba-1 selective SSM block of the port (``repro.models.ssm``).
 
-Decode is O(1) per token: a conv-window shift and one state update.  With
-``use_kernels`` the step runs the hand-written CUDA step kernel and the
-prefill the selective-scan kernel (``repro_torch.kernels.mamba_scan``); on
-CPU tensors each wrapper runs its plain version.  The cache,
-``{"conv": (B, w-1, d_in), "h": (B, d_in, N) fp32}``, is updated IN PLACE.
+``mamba_fwd`` is the full-sequence block without a cache (training, and
+the embedding stacks): under autograd its scan is the reference's
+``fused_selective_scan`` custom VJP (``fused_selective_scan`` here, the
+scan kernel with its boundary states forward and the scan's backward
+kernel back; see ``kernels/mamba_scan/ops.py:SelectiveScanFn``), without
+autograd the prefill's scan.  Decode is O(1) per token: a conv-window
+shift and one state update.  With ``use_kernels`` the step runs the
+hand-written CUDA step kernel and the prefill the selective-scan kernel
+(``repro_torch.kernels.mamba_scan``); on CPU tensors each wrapper runs its
+plain version.  The serving cache, ``{"conv": (B, w-1, d_in), "h": (B,
+d_in, N) fp32}``, is updated IN PLACE; ``mamba_fwd`` writes no cache.
 """
 from __future__ import annotations
 
@@ -79,6 +83,40 @@ def _conv_causal(x, w, b):
     for i in range(W):
         out = out + xp[:, i:i + S].float() * w[i].float()
     return (out + b.float()).to(x.dtype)
+
+
+def fused_selective_scan(x, dt, b, c, a_log, d, *, use_kernels: bool = True):
+    """y (B, S, D) fp32 of the selective scan from a zero state (the
+    reference's ``fused_selective_scan``, chunk-boundary states saved and
+    recomputed in the backward).  Where autograd records the call it runs
+    ``SelectiveScanFn`` (the kernels on the card with ``use_kernels``, the
+    plain pair otherwise or on the CPU); else the prefill's scan."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, b, c, a_log, d)):
+        return ops.SelectiveScanFn.apply(x, dt, b, c, a_log, d,
+                                         not use_kernels)
+    scan = ops.mamba_scan if use_kernels else mamba_scan_ref
+    return scan(x, dt, b, c, a_log, d)[0]
+
+
+def mamba_fwd(p: Params, cfg: ModelConfig, x, *, use_kernels: bool = True):
+    """Full-sequence Mamba block from a zero state, without a cache.  x:
+    (B, S, d) -> (B, S, d).  Weights are cast to x's dtype at use (fp32
+    training masters); without autograd the arithmetic is
+    ``mamba_prefill``'s."""
+    d_in, dt_rank, n, w = dims(cfg)
+    act = x.dtype
+    xz = x @ p["in_proj"].to(act)
+    x_part, z = xz.chunk(2, dim=-1)
+    x_conv = F.silu(_conv_causal(x_part, p["conv_w"], p["conv_b"]))
+    dbc = x_conv @ p["x_proj"].to(act)
+    dt_raw, b_ssm, c_ssm = torch.split(dbc, [dt_rank, n, n], dim=-1)
+    dt = softplus((dt_raw @ p["dt_proj"].to(act)).float()
+                  + p["dt_bias"].float())
+    y = fused_selective_scan(x_conv, dt, b_ssm, c_ssm, p["A_log"], p["D"],
+                             use_kernels=use_kernels)
+    y = (y * F.silu(z.float())).to(act)
+    return y @ p["out_proj"].to(act)
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> Params:

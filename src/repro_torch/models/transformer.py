@@ -22,8 +22,8 @@ A hybrid layer (``cfg.hybrid_parallel``) runs GQA attention and a Mamba
 block on the same normed input and adds ``0.5 * (rmsnorm(a) +
 rmsnorm(s))`` to the residual, each output under its own RMSNorm
 (``attn_out_norm``, ``ssm_out_norm``); sliding-window layers but the
-``global_attn_layers`` ones.  Without a cache its Mamba block folds the
-sequence from a zero state, as an SSM layer's does.
+``global_attn_layers`` ones.  Without a cache its Mamba block runs
+``ssm.mamba_fwd`` from a zero state, as an SSM layer's does.
 """
 from __future__ import annotations
 
@@ -116,28 +116,22 @@ def _hybrid(p, cfg: ModelConfig, a, s):
     return 0.5 * (a + s)
 
 
-def _ssm_fwd(p, cfg: ModelConfig, h, use_kernels: bool):
-    """A Mamba block over a whole sequence from a zero state, as its
-    prefill folds it."""
-    scratch = S.mamba_cache_init(cfg, h.shape[0], h.dtype, h.device)
-    return S.mamba_prefill(p["ssm"], cfg, h, scratch,
-                           use_kernels=use_kernels)[0]
-
-
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, causal: bool,
                is_global: bool, kv_len, use_kernels: bool,
                moe_dispatch: str = "einsum"):
     """Residual layer without a cache (training, encoders, embedding
-    stacks): (x, aux) as ``_ffn`` gives them.  An SSM layer folds the
-    sequence from a zero state, as its prefill does."""
+    stacks): (x, aux) as ``_ffn`` gives them.  An SSM layer runs
+    ``ssm.mamba_fwd`` from a zero state (its scan's backward under
+    autograd)."""
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     if cfg.hybrid_parallel:
         a = A.gqa_fwd(p["attn"], cfg, h, positions, causal=causal,
                       is_global=is_global, kv_len=kv_len,
                       use_kernels=use_kernels)
-        y = _hybrid(p, cfg, a, _ssm_fwd(p, cfg, h, use_kernels))
+        y = _hybrid(p, cfg, a, S.mamba_fwd(p["ssm"], cfg, h,
+                                           use_kernels=use_kernels))
     elif "ssm" in p:
-        y = _ssm_fwd(p, cfg, h, use_kernels)
+        y = S.mamba_fwd(p["ssm"], cfg, h, use_kernels=use_kernels)
     elif cfg.mla is not None:
         y = A.mla_fwd(p["attn"], cfg, h, positions, use_kernels=use_kernels)
     else:

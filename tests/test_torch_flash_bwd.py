@@ -179,15 +179,14 @@ def test_cpu_wrappers_take_the_plain_versions():
 
 def test_kernel_contract_raises_before_launch():
     q = torch.zeros((1, 8, 2, 16), requires_grad=True)
-    for kw in (dict(window=4), dict(logit_cap=5.0),
+    for kw in (dict(logit_cap=5.0),
                dict(kv_len=torch.ones(1, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError):
-            fa._check_bwd(q, kw.get("window", 0), kw.get("logit_cap", 0.0),
-                          None, kw.get("kv_len"))
-    fa._check_bwd(q, 4, 0.0, True, None)      # a global layer: no window
-    fa._check_bwd(torch.zeros((1, 8, 2, 192)), 0, 0.0, None, None)  # MLA
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fa._check_bwd(q, kw.get("logit_cap", 0.0), kw.get("kv_len"))
+    fa._check_bwd(q, 0.0, None)         # a sliding window goes through
+    fa._check_bwd(torch.zeros((1, 8, 2, 192)), 0.0, None)  # MLA
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa._check_bwd(torch.zeros((1, 8, 2, 256)), 0, 0.0, None, None)
+        fa._check_bwd(torch.zeros((1, 8, 2, 256)), 0.0, None)
 
 
 # ---------------------------------------------------------------------------

@@ -393,13 +393,90 @@ def test_flash_backward_bf16_takes_the_tensor_cores(cuda):
 def test_flash_backward_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros((1, 64, 4, 128), device=cuda, requires_grad=True)
     k = torch.zeros((1, 64, 2, 128), device=cuda, requires_grad=True)
-    for kw in (dict(window=16), dict(logit_cap=5.0),
+    for kw in (dict(logit_cap=5.0),
                dict(kv_len=torch.ones(1, dtype=torch.int32, device=cuda))):
         with pytest.raises(NotImplementedError):
             fa.flash_attention(q, k, k, **kw)
     q2 = torch.zeros((1, 64, 4, 256), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fa.flash_attention(q2, q2[:, :, :2], q2[:, :, :2])
+
+
+# windowed backward cases: (label, Hq, Hkv, D) - hymba's heads (the
+# four-warp instance at head dim 64), head dim 128, the eight-warp
+# instance at 192, and multi-query at 16
+WINDOW_BWD_SHAPES = (("hymba", 25, 5, 64), ("D128", 8, 2, 128),
+                     ("D192", 4, 4, 192), ("D16 MQA", 4, 1, 16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [65, 300, 1100, 2048])
+@pytest.mark.parametrize("window", [64, 100, 1024])
+@pytest.mark.parametrize("glob", [False, True])
+@pytest.mark.parametrize("shape", WINDOW_BWD_SHAPES,
+                         ids=[s[0] for s in WINDOW_BWD_SHAPES])
+def test_flash_backward_window_on_gpu(cuda, dtype, S, window, glob, shape):
+    """The forward's lse and the backward kernel under a sliding window
+    (causal; a global layer bypasses it) against their plain versions;
+    a windowed call counts on the window counters, a global one on the
+    head dim's."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref)
+    _, Hq, Hkv, D = shape
+    q, k, v, dout = _bwd_inputs(cuda, 1, S, Hq, Hkv, D, dtype, S + window)
+    kw = dict(causal=True, window=window, is_global=glob)
+    before = (fa.lse_window_launches, fa.bwd_window_launches,
+              *_bwd_counters(D))
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    out_r, lse_r = flash_attention_lse_ref(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    after = (fa.lse_window_launches, fa.bwd_window_launches,
+             *_bwd_counters(D))
+    bump = (0, 0, 1, 1) if glob else (1, 1, 0, 0)
+    assert tuple(a - b for a, b in zip(after, before)) == bump
+    tol = GPU_TOL[dtype]
+    assert _agree(out, out_r, tol)
+    assert (lse - lse_r).abs().max().item() <= tol
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _agree(a, b, tol), (name, (a.float() - b.float()).abs().max())
+
+
+@pytest.mark.gpu
+def test_flash_autograd_window_on_gpu_matches_plain(cuda):
+    """hymba's sliding-window attention under autograd on the card (the
+    kernel Function) against the plain Function, bf16, S 2048 past its
+    window of 1024."""
+    from repro_torch.models.layers import blockwise_attention
+    q, k, v, dout = _bwd_inputs(cuda, 1, 2048, 25, 5, 64, torch.bfloat16, 6)
+    grads = []
+    before = fa.bwd_window_launches
+    for fn in (fa.flash_attention, blockwise_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves, causal=True, window=1024, is_global=False).backward(dout)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert fa.bwd_window_launches == before + 1
+    for a, b in zip(*grads):
+        assert _agree(a, b, GPU_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_flash_backward_window_is_deterministic(cuda, dtype, window):
+    """Repeated windowed and unwindowed backward calls at hymba's training
+    shape (B 2, S 2048) are bitwise equal."""
+    q, k, v, dout = _bwd_inputs(cuda, 2, 2048, 25, 5, 64, dtype, 15)
+    out, lse = fa.flash_attention_lse(q, k, v, window=window)
+    runs = [fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], other))
 
 
 def _kv_case(cuda, B, S, D, dtype, lens):
@@ -737,6 +814,99 @@ def test_mamba_scan_kernel_is_deterministic(cuda, dtype, R):
     y2, h2 = ms.mamba_scan(*ins)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def _close_scaled(got, want, tol):
+    """max |got - want| within tol of want's largest magnitude, and got
+    finite: sums over thousands of channels or steps cancel, so an
+    element's own size is no scale for its error."""
+    g, w = got.float(), want.float()
+    scale = max(w.abs().max().item(), 1e-6)
+    return bool((g - w).abs().max().item() <= tol * scale
+                and g.isfinite().all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 33, 1000])
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("B,D", [(1, 80), (2, 3200)])
+@pytest.mark.parametrize("R", [6, 256])
+def test_mamba_scan_bwd_kernel_on_gpu(cuda, dtype, S, N, B, D, R):
+    """The training forward (the scan with its boundary states) and the
+    scan's backward against the plain pair: the training instance's y and
+    last state equal the serving instance's bitwise, its bounds agree
+    with the plain forward's, and (dx, ddt, dB, dC, dA, dD) with the plain
+    backward's on the kernel's bounds; fp32 sums in both, bf16 outputs
+    held to a few bf16 ulps of the tensor's scale."""
+    from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_fwd_ref)
+    ins = _scan_case(cuda, dtype, B, S, D, N, R)
+    gy = torch.randn((B, S, D), generator=torch.Generator(
+        device=cuda).manual_seed(S), device=cuda)
+    before = (ms.scan_launches, ms.scan_train_launches, ms.scan_bwd_launches)
+    y, h, bounds = ms.mamba_scan(*ins, bounds=True)
+    y_s, h_s = ms.mamba_scan(*ins)
+    got = ms.mamba_scan_bwd(*ins, bounds, gy)
+    want_y, want_b = selective_scan_fwd_ref(*ins)
+    want = selective_scan_bwd_ref(*ins, bounds, gy)
+    torch.cuda.synchronize()
+    assert (ms.scan_launches, ms.scan_train_launches,
+            ms.scan_bwd_launches) == tuple(n + 1 for n in before)
+    assert torch.equal(y, y_s) and torch.equal(h, h_s)
+    assert bounds.shape == want_b.shape
+    assert _agree(y, want_y, 1e-4) and _agree(bounds, want_b, 1e-4)
+    for name, g, w in zip(("dx", "ddt", "db", "dc", "dA", "dD"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = GPU_TOL[dtype] if g.dtype == torch.bfloat16 else 1e-4
+        assert _close_scaled(g, w, tol), (name, (g.float() - w.float())
+                                          .abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_scan_bwd_is_deterministic(cuda, dtype):
+    """No atomics: the backward at falcon-mamba-7b's training layer (B 4,
+    S 1024, d_in 8192, N 16) repeats bitwise, as the forward's boundary
+    states do."""
+    ins = _scan_case(cuda, dtype, 4, 1024, 8192, 16, 256)
+    gy = torch.randn((4, 1024, 8192), generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    fwd = [ms.mamba_scan(*ins, bounds=True) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    runs = [ms.mamba_scan_bwd(*ins, fwd[0][2], gy) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.gpu
+def test_selective_scan_autograd_on_gpu_matches_plain(cuda):
+    """``ssm.fused_selective_scan`` under autograd on the card (the
+    kernels) against the same Function's plain pair (``use_kernels``
+    False), bf16 at hymba's widths; B and C as views of one dbc."""
+    from repro_torch.models import ssm as S
+    ins = _scan_case(cuda, torch.bfloat16, 2, 300, 3200, 16, 100)
+    x, dt, _, _, a_log, d = ins
+    dbc = ins[2]._base
+    gy = torch.randn((2, 300, 3200), generator=torch.Generator(
+        device=cuda).manual_seed(4), device=cuda)
+    grads = []
+    before = ms.scan_bwd_launches
+    for use_kernels in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, dbc, a_log,
+                                                           d)]
+        y = S.fused_selective_scan(leaves[0], leaves[1],
+                                   leaves[2][..., 100:116],
+                                   leaves[2][..., 116:], leaves[3],
+                                   leaves[4], use_kernels=use_kernels)
+        y.backward(gy)
+        grads.append([y.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert ms.scan_bwd_launches == before + 1
+    for a, b in zip(*grads):
+        tol = GPU_TOL[torch.bfloat16] if a.dtype == torch.bfloat16 else 1e-4
+        assert _close_scaled(a, b, tol)
 
 
 @pytest.mark.gpu
