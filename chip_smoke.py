@@ -187,7 +187,8 @@
    falcon-mamba-7b at its published widths cut to 32 of 64 layers (58.1 GiB of masters, grads and moments) at B 4 x S
    1024: the kernel path against the plain path at a few layers in fp32
    (hymba: a global layer and two windowed ones) and at the phase's depth
-   in bf16 (``TRAIN_TOL``), then 8 steps of ``make_train_step``: losses
+   in bf16 (``TRAIN_TOL``), then 8 steps of ``make_train_step`` (2 of
+   warmup to lr 3e-4, falcon's to 1e-4: ``SSM_TRAIN``): losses
    and grad norms finite, the last loss below the first and step 1's,
    peak memory under 78 GiB, the scan's training forward and its backward
    kernel launched every layer of every step, hymba's windowed flash
@@ -197,7 +198,10 @@
    bitwise the serving instance's) and the scan's backward kernel to the
    plain pair at falcon's layer (B 4, S 1024, d_in 8192) and hymba's (B
    2, S 2048, d_in 3200), bf16 and fp32, and times both beside their
-   bounds; it holds the windowed flash forward with lse and backward at
+   bounds, logging the backward's plan, the warps an SM holds (the
+   occupancy calculator's, which must be the plan's), its shared memory,
+   registers and spills (none allowed) and its dB/dC partial bytes; it
+   holds the windowed flash forward with lse and backward at
    hymba's training shape (B 2, S 2048, 25 on 5, D 64, window 1024) and
    times them beside the bound over the window's attended pairs, SDPA's
    forward and backward under the same mask, and the same backward on a
@@ -220,7 +224,10 @@ checkout DIR (its own mamba_scan.cu, e.g. the parent commit unpacked with
 ``git archive``) beside this checkout's, in turns on one card; each
 other checkout's y and last state must equal this checkout's serving
 instance's bitwise, and this checkout's training instance (boundary
-states on) gives the same y.
+states on) gives the same y.  Then, at falcon-mamba-7b's and hymba-1.5b's
+training layers, each other checkout's training forward must equal this
+checkout's bitwise and its ``mamba_scan_bwd`` this checkout's within the
+kernel tolerance, and both backwards are timed in turns.
 
     python3 chip_smoke.py --flash-baseline DIR [DIR ...]
 
@@ -1071,20 +1078,25 @@ def log_scan_build(text: str = None, label: str = "mamba_scan") -> None:
     for line in text.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            entry = name if "mamba_scan_kernel" in name else None
+            kind = next((k for k in ("mamba_scan_kernel",
+                                     "mamba_scan_bwd_kernel") if k in name),
+                        None)
+            entry = (name, kind) if kind else None
         elif entry and "spill" in line:
             spill = line.strip()
         elif entry and "registers" in line:
-            tmpl = entry[entry.index("mamba_scan_kernel") + 17:]
+            name, kind = entry
+            tmpl = kind + name[name.index(kind) + len(kind):]
             log(f"{label} build {tmpl}: {line.split(':', 1)[1].strip()}; "
                 f"{spill}")
             entry = None
 
 
 def build_other_scan(checkout: Path):
-    """Another checkout's scan (its mamba_scan.cu and common.cu, built into
-    build/other/<name>/) as a function with this checkout's C signature;
-    a scan whose C function takes no channels per block ignores them."""
+    """Another checkout's scan kernels (its mamba_scan.cu and common.cu,
+    built into build/other/<name>/): (the scan as a function with this
+    checkout's C signature, the library, its mamba_scan.cu's text); a scan
+    whose C function takes no channels per block ignores them."""
     import ctypes
     from repro_torch.kernels import _build
     kdir = checkout.resolve() / "src" / "repro_torch" / "kernels"
@@ -1096,7 +1108,8 @@ def build_other_scan(checkout: Path):
                           str(kdir / "common" / "csrc" / "common.cu")],
                          check=True, capture_output=True, text=True)
     log_scan_build(out.stdout + out.stderr, str(checkout))
-    fn = ctypes.CDLL(str(lib_path)).mamba_scan
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.mamba_scan
     fn.restype = ctypes.c_int
     text = src.read_text()
     planned = "int channels, int dtype" in text
@@ -1106,13 +1119,36 @@ def build_other_scan(checkout: Path):
                    + [ctypes.c_int] * (2 if planned else 1)
                    + [ctypes.c_void_p])
     if bounded:
-        return fn
+        return fn, lib, text
 
     def adapted(*a):
         # this checkout's arguments less the boundary pointer (a[8]) and,
         # for a scan without a plan, the channels per block
         a = a[:8] + a[9:]
         return fn(*a) if planned else fn(*a[:20], *a[21:])
+    return adapted, lib, text
+
+
+def other_scan_bwd(torch, lib, text: str):
+    """Another checkout's ``mamba_scan_bwd`` as a function with this
+    checkout's C signature.  One without a cluster argument (one dB/dC
+    partial per block of 128 states) gets a partial buffer of its own
+    size."""
+    import ctypes
+    fn = lib.mamba_scan_bwd
+    fn.restype = ctypes.c_int
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    planned = "int cluster, int dtype" in text
+    fn.argtypes = [P] * 16 + [I] * 4 + [L] * 8 + [I] * (2 if planned else 1) \
+        + [P]
+    if planned:
+        return fn
+
+    def adapted(*a):
+        B, S_len, D, N = a[16:20]
+        part = torch.empty((B, -(-D // (128 * 4 // N)), S_len, 2 * N),
+                           dtype=torch.float32, device="cuda")
+        return fn(*a[:14], part.data_ptr(), *a[15:28], *a[29:])
     return adapted
 
 
@@ -1144,7 +1180,8 @@ def run_scan_compare(torch, others, reps: int = 20):
             "serving instance")
     log("this checkout: the training instance's y and last state equal "
         "the serving instance's bitwise")
-    olds = [(str(o), build_other_scan(o)) for o in others]
+    built = [(str(o), build_other_scan(o)) for o in others]
+    olds = [(label, b[0]) for label, b in built]
     this = [("this checkout", new)]
     try:
         for label, fn in olds + this + this + olds:
@@ -1163,6 +1200,89 @@ def run_scan_compare(torch, others, reps: int = 20):
                        show_plan=fn is new)
     finally:
         ms._scan_fn = orig
+    del x, delta, bm, cm, want, mine, trained
+    run_scan_bwd_compare(torch, [
+        (label, b[0], other_scan_bwd(torch, b[1], b[2]))
+        for label, b in built], reps)
+
+
+def scan_grads_close(got, want) -> bool:
+    """The scan backward's six outputs, each within the kernel tolerance
+    of its largest magnitude: bf16 ones at ``TOL``'s, fp32 ones at 1e-4."""
+    return all(close_scaled(g, w, TOL["bfloat16"] if g.element_size() == 2
+                            else 1e-4) for g, w in zip(got, want))
+
+
+def run_scan_bwd_compare(torch, others, reps: int = 20):
+    """The scan's training pair of each other checkout beside this
+    checkout's at ``SCAN_TRAIN_CASES`` in bf16: its training forward's y,
+    last state and boundary states must equal this checkout's bitwise;
+    its backward's six outputs are held to this checkout's within the
+    kernel tolerance (the dB/dC fold order may differ), this checkout's to
+    the plain pair; then both backwards are timed in turns (the others,
+    this checkout twice, the others) and the ratio logged."""
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
+                                                    softplus)
+    orig = (ms._scan_fn, ms._scan_bwd_fn)
+    this = [("this checkout", orig[0](), orig[1]())]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    card = card_line()
+    try:
+        for case, B, S_len, D, N in SCAN_TRAIN_CASES:
+            a_log, d_vec = scan_params(torch, D, N)
+            x = torch.randn((B, S_len, D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            delta = softplus(torch.randn((B, S_len, D), generator=gen,
+                                         device="cuda") - 4.0)
+            R = 256
+            dbc = torch.randn((B, S_len, R + 2 * N), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            gy = torch.randn((B, S_len, D), generator=gen, device="cuda")
+            ins = (x, delta, dbc[..., R:R + N], dbc[..., R + N:], a_log,
+                   d_vec)
+            fwd = ms.mamba_scan(*ins, bounds=True)
+            mine = ms.mamba_scan_bwd(*ins, fwd[2], gy)
+            want = selective_scan_bwd_ref(*ins, fwd[2], gy)
+            torch.cuda.synchronize()
+            require(scan_grads_close(mine, want),
+                    f"this checkout's scan backward {case} disagrees with "
+                    f"the plain version")
+            p = ms.bwd_plan(B, D, N, torch.bfloat16)
+            times = {}
+            for label, fwd_fn, bwd_fn in others + this + this + others:
+                ms._scan_fn = lambda fn=fwd_fn: fn
+                ms._scan_bwd_fn = lambda fn=bwd_fn: fn
+                got_f = ms.mamba_scan(*ins, bounds=True)
+                got = ms.mamba_scan_bwd(*ins, fwd[2], gy)
+                torch.cuda.synchronize()
+                require(all(torch.equal(g, w) for g, w in zip(got_f, fwd)),
+                        f"{label}: training scan {case} differs from this "
+                        f"checkout's bitwise")
+                errs = [(g.float() - w.float()).abs().max().item()
+                        for g, w in zip(got, mine)]
+                require(scan_grads_close(got, mine),
+                        f"{label}: scan backward {case} disagrees with this "
+                        f"checkout's")
+                t = time_ms(torch, lambda: ms.mamba_scan_bwd(
+                    *ins, fwd[2], gy), reps)
+                times.setdefault(label, []).append(t)
+                log(f"{label}: scan backward {case} (B {B}, S {S_len}, d_in "
+                    f"{D}, N {N}, bf16) {t:.4f} ms; training forward bitwise "
+                    f"this checkout's; backward vs this checkout's max_abs "
+                    + " ".join(f"{n} {e:.3e}" for n, e in zip(
+                        ("dx", "ddt", "db", "dc", "dA", "dD"), errs)))
+            mean = {k: sum(v) / len(v) for k, v in times.items()}
+            log(f"scan backward {case}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in mean.items())
+                + "; this checkout / each other: " + ", ".join(
+                    f"{mean['this checkout'] / v:.3f}" for k, v in
+                    mean.items() if k != "this checkout")
+                + f"; plan {p._asdict()} ({card})")
+            del x, delta, dbc, gy, fwd, mine, want
+            torch.cuda.empty_cache()
+    finally:
+        ms._scan_fn, ms._scan_bwd_fn = orig
 
 
 def build_other_flash(checkout: Path):
@@ -3337,7 +3457,25 @@ def run_scan_train_phase(torch, reps: int = 10):
                     serve=time_ms(torch, lambda: ms.mamba_scan(*ins), reps),
                     fwd_bound=bound(fb, ff, "float32", exps=exps),
                     bwd_bound=bound(bb, bf, "float32", exps=exps))
-                blocks = B * -(-D // ms.bwd_channels(N))
+                p = ms.bwd_plan(B, D, N, torch.bfloat16)
+                occ = ms.bwd_occupancy(N, p.cluster, torch.bfloat16)
+                part_mb = B * p.clusters * S_len * 2 * N * 4 / 1e6
+                parent_mb = B * -(-D // 32) * S_len * 2 * N * 4 / 1e6
+                log(f"scan backward plan {label}: {p._asdict()}; resident "
+                    f"{occ['blocks_per_sm']} blocks = "
+                    f"{occ['blocks_per_sm'] * ms._BWD_THREADS // 32} warps "
+                    f"an SM (occupancy calculator; plan {p.warps}), "
+                    f"{occ['clusters']} clusters of {p.cluster} at once; "
+                    f"{occ['smem']} B shared memory a block, "
+                    f"{occ['registers']} registers, {occ['local_bytes']} B "
+                    f"local (spill) a thread; dB/dC partials {part_mb:.1f} MB "
+                    f"written and read ({parent_mb:.1f} MB at one partial "
+                    f"per 32-channel block)")
+                require(occ["blocks_per_sm"] == p.resident
+                        and occ["local_bytes"] == 0,
+                        f"scan backward {label}: residency or spills differ "
+                        f"from the plan")
+                blocks = B * p.grid_x
                 log(f"scan training timing {label} (B {B}, S {S_len}, d_in "
                     f"{D}, N {N}, bf16): forward with boundary states "
                     f"{t['fwd']:.4f} ms (serving instance {t['serve']:.4f} "
@@ -3350,8 +3488,9 @@ def run_scan_train_phase(torch, reps: int = 10):
                     f"{exps / (SFU_EXP_PER_S + FMA_EXP_PER_S) * 1e3:.4f} ms, "
                     f"{bf / 1e9:.2f} GFLOP fp32 = {bf / F32_FLOPS * 1e3:.4f} "
                     f"ms; {bb / t['bwd'] / 1e9:.3f} TB/s; {blocks} blocks of "
-                    f"{ms._BWD_THREADS} threads, {ms.bwd_channels(N)} "
-                    f"channels each, and a fold launch), plain "
+                    f"{ms._BWD_THREADS} threads, {p.channels} channels "
+                    f"each, in clusters of {p.cluster}, and a fold launch), "
+                    f"plain "
                     f"{t['bwd_plain']:.4f} ms; library none: no PyTorch call "
                     f"computes the selective scan or its gradient ({card})")
                 times[label] = t
@@ -3998,8 +4137,13 @@ def run_deepseek_training_phase(torch):
 # published widths cut to 32 of 64 layers (fp32 masters, grads
 # and AdamW moments, 16 bytes a parameter: 58.1 GiB at 32; the full 64
 # would need 116 GB), B 4 x S 1024, the fp32 check at 2 layers
-SSM_TRAIN = {"hymba-1.5b": dict(B=2, S=2048, layers=None, check=3),
-             "falcon-mamba-7b": dict(B=4, S=1024, layers=32, check=2)}
+# lr: falcon-mamba-7b's 8 steps at 3e-4 spike (loss 18 at step 2) into a
+# run whose last loss depends on the order of the scan backward's fp32
+# sums (launch/kernel_probe.py train-spread): at 1e-4 every valid
+# backward ends within 0.1 of the others; hymba-1.5b's agree at 3e-4
+SSM_TRAIN = {"hymba-1.5b": dict(B=2, S=2048, layers=None, check=3, lr=3e-4),
+             "falcon-mamba-7b": dict(B=4, S=1024, layers=32, check=2,
+                                     lr=1e-4)}
 SSM_TRAIN_KERNELS = ("mamba_scan_train", "mamba_scan_bwd",
                      "flash_attention_lse_window",
                      "flash_attention_bwd_window", "flash_attention_lse",
@@ -4061,7 +4205,8 @@ def run_ssm_training_phase(torch, arch: str):
     SyntheticLM): (a) kernel vs plain path at the published widths cut to
     a few layers in fp32 (``hold_grads``), (b) at the phase's depth in
     bf16, held to the model's own rounding floor (``ssm_floor_check``),
-    (c) 8 steps of make_train_step on the kernel path,
+    (c) 8 steps of make_train_step on the kernel path (2 of warmup to
+    ``SSM_TRAIN[arch]["lr"]``),
     timed: step ms, tokens/s, the share of 989 TFLOP/s, the optimizer's
     ms, peak memory, the step by kind.  Returns the launches over (c) of
     the scan's training kernels and, on a hybrid, the windowed flash
@@ -4136,7 +4281,7 @@ def run_ssm_training_phase(torch, arch: str):
         opt_ms.append((s, e))
         return out
 
-    tc = TrainConfig(steps=TRAIN_STEPS, lr=3e-4, warmup=2)
+    tc = TrainConfig(steps=TRAIN_STEPS, lr=plan["lr"], warmup=2)
     step_fn = make_train_step(model, Optimizer(opt.init, timed_update), tc)
     opt_state = opt.init(params)
     batches = [batch_of(s) for s in range(TRAIN_STEPS)]
@@ -4162,7 +4307,8 @@ def run_ssm_training_phase(torch, arch: str):
     T = B * S_len
     flops = training_flops(model, params, T, B, S_len)
     log(f"{arch} training ({cut}, B {B} x S {S_len}, fp32 masters, bf16, "
-        f"AdamW, remat): step {step_s * 1e3:.1f} ms (median of steps 3-7), "
+        f"AdamW at lr {plan['lr']:g}, remat): step {step_s * 1e3:.1f} ms "
+        f"(median of steps 3-7), "
         f"{T / step_s:.0f} tokens/s, {flops / 1e12:.1f} TFLOP per step "
         f"(weight products and attention; the scan not counted) = "
         f"{flops / step_s / 1e12:.1f} TFLOP/s, "

@@ -91,28 +91,56 @@
 //   for dx, ddt, dB, dC, dA and dD.  It is the training path's hot loop, so
 //   it is a kernel: a materialised (B, S, d_in, N) fp32 state would be 2.1
 //   GB per layer at falcon-mamba-7b's widths (B 4, S 1024).  Bound on the
-//   H100: at those widths the bytes (x, dt, gy and the boundaries read,
-//   dx and ddt written: about 0.17 ms) and the exponentials (two per
-//   state-step, one to recompute the state and one to carry g) weigh
-//   about alike.  The design, simple first:
-//   - a block of 128 threads takes one row and 128 / (N / 4) channels, 4
-//     states a lane as in the forward, and walks the chunks in reverse;
-//   - per chunk it stages dt, x, gy, B and C in fp32 into shared memory,
-//     recomputes the chunk's states from its boundary with the forward's
-//     arithmetic (bitwise the forward's states), keeping each step's
-//     state in shared memory (32 steps x 16 bytes a lane: 64 KB), then
-//     sweeps back in registers, g carried across chunks;
+//   H100: the bytes (x, dt, gy, B, C and the boundaries read, dx, ddt, dB
+//   and dC written: 0.18 ms at those widths).  What holds it back is
+//   latency, not work: each step ends in chains of shuffles, so it needs
+//   many warps (a step's state kept in shared memory would cost them),
+//   inputs that arrive before the sweep needs them, and few fp32 dB/dC
+//   partials (one per block of 32 channels would be 134 MB written and
+//   read again).  By its instruction count the sweep issues at about half
+//   the SM's rate (an estimate): 128 registers leave little room to
+//   overlap steps.
+//   The design (each choice measured against the others on the card):
+//   - a block of 256 threads takes one row and 1024 / N channels (64 at N
+//     = 16), 4 of a channel's states a lane as in the forward (2 a lane
+//     measured slower: twice the per-lane work of each step); it walks the
+//     chunks in reverse, g carried in registers across them;
+//   - no per-step state in shared memory: a first pass from the chunk's
+//     boundary, with the forward's arithmetic (bitwise the forward's
+//     states), keeps only the state that starts each 8-step sub-chunk;
+//     each sub-chunk, the last first, is recomputed into registers (h_{t-1}
+//     of its steps, 32 registers) and swept back, the sweep taking a_t
+//     anew: 2.75 exponentials a state-step, which cost less than the 32
+//     registers that keeping a_t took (the special-function units are not
+//     what binds).  So a block needs 96 KB (bf16; 12 KB a warp) and an SM
+//     holds 2 of them, 16 warps; the launch bounds ask the registers for
+//     the same count (128 a thread);
+//   - chunk k - 1's dt, gy, x, B, C and boundary states arrive by cp.async
+//     from all threads into the second of two stages while chunk k sweeps;
+//     only a block's first chunk waits on device memory;
 //   - dx and ddt are per channel: a channel's lanes sum their states by
-//     xor shuffles, and the chunk's values leave coalesced from shared
-//     memory;
-//   - dB and dC at (b, t, n) are sums over all d_in channels, so they
-//     cross blocks: each warp sums its channels by halving xor exchanges
-//     (7 shuffles a step for 8 values), the block its warps in order, and
-//     writes fp32 partials per block; dA (d_in, N) and dD (d_in,) are
-//     sums over rows and steps, kept in registers and written per row;
-//   - a second launch, mamba_scan_bwd_fold, adds the partials in block
-//     order (and rows in order) and rounds once.  No atomics, so repeats
-//     are bitwise equal.
+//     xor shuffles and its lane 0 stores both, by predicated stores (no
+//     branch splits the unrolled sweep), and the warps' dB/dC sums go to
+//     a static shared array the sweep's loads cannot alias;
+//   - dB and dC at (b, t, n) are sums over all d_in channels: each warp
+//     sums its channels by halving xor exchanges (7 shuffles a step for 8
+//     values), the block its warps in order, then a thread-block cluster
+//     along the channels adds its blocks' sums in rank order through
+//     distributed shared memory and writes one fp32 partial per cluster.
+//     The block's sums are double-buffered and the cluster folds chunk k
+//     after the block has swept chunk k - 1: one split barrier a chunk
+//     whose wait finds every block long arrived;
+//   - a second launch, mamba_scan_bwd_fold, adds the clusters' partials in
+//     cluster order (and rows in order) and rounds once; dA (d_in, N) and
+//     dD (d_in,) are kept in registers and written per row.  No atomics,
+//     so repeats are bitwise equal;
+//   - the wrapper's scan_bwd_plan() picks the cluster from host ints: the
+//     largest (up to 8) that keeps the grid in as few waves of clusters as
+//     of single blocks, with the card's count of resident clusters (a
+//     cluster stays within a GPC, so clusters of 4 or 8 hold fewer blocks
+//     at once).  At falcon-mamba-7b's layer that is 2 (8 would take a
+//     third wave): 34 MB of partials; at hymba-1.5b's, 8.
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
@@ -122,6 +150,8 @@
 
 namespace repro {
 namespace {
+
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
 // scalar helpers
@@ -845,10 +875,11 @@ constexpr int kScanGroup = 16;         // time steps a lane takes per group
 constexpr int kScanPad = 16;           // a tile's steps round up to this
 constexpr int kScanMaxChannels = 64;   // channels per block, at most
 constexpr int kBwdChunk = 32;          // steps between saved states
-constexpr int kBwdThreads = 128;       // threads of a backward block
+constexpr int kBwdThreads = 256;       // threads of a backward block
 static_assert(kBwdChunk % kScanGroup == 0 && kScanTile % kBwdChunk == 0,
               "a saved state starts a group of steps");
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct ScanArgs {
   const void* x;        // (B, S, D), strides (x_sb, x_ss, 1)
@@ -1310,6 +1341,20 @@ cudaError_t scan_for_n(const ScanArgs& a, int B, int N, cudaStream_t s) {
 // the scan's backward (training)
 // ---------------------------------------------------------------------------
 
+constexpr int kBwdSub = 8;          // steps of a sub-chunk held in registers
+constexpr int kBwdStages = 2;       // chunks staged: one swept, one landing
+constexpr int kBwdMaxCluster = 8;   // blocks whose dB/dC one partial holds
+constexpr int kBwdMaxWarps = 16;    // an SM holds, at most: 128 registers
+constexpr int kSmSmem = 233472;     // shared memory of an H100 SM (228 KB)
+constexpr int kBlockSmem = 1024;    // reserved by the hardware per block
+static_assert(kBwdChunk % kBwdSub == 0, "sub-chunks tile a chunk");
+
+// channels of a backward block: 256 threads, N / 4 lanes a channel
+template <int N>
+__host__ __device__ constexpr int bwd_channels() {
+  return kBwdThreads * kScanStates / N;
+}
+
 struct ScanBwdArgs {
   const void* x;        // (B, S, D), strides (x_sb, x_ss, 1)
   const float* dt;      // (B, S, D), strides (dt_sb, dt_ss, 1)
@@ -1325,10 +1370,11 @@ struct ScanBwdArgs {
   void* dc;             // (B, S, N) contiguous
   float* da;            // (D, N): with respect to A = -exp(A_log)
   float* dd;            // (D,)
-  float* part;          // (B, blocks, S, 2N): a block's dB then dC
+  float* part;          // (B, clusters, S, 2N): a cluster's dB then dC
   float* dpart;         // (B, D, N + 1): a row's dA then dD
   int B, S, D;
   long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
+  int vx, vdt, vgy, vb, vc;  // bytes per copy of each staged input's rows
 };
 
 // v[U] summed over the lanes that differ in lane bits O, O / 2, ..., by
@@ -1350,195 +1396,374 @@ __device__ inline void scatter_lanes(float (&v)[U], int lane) {
   }
 }
 
-// shared memory of a backward block of N states (floats): the chunk's
-// states [step][thread] (float4 a lane), the warps' dB/dC sums
-// [warp][step][2N], dt, x, gy, dx and ddt [step][channel], B then C
-// [step][2N]
-template <int N>
-constexpr size_t scan_bwd_smem() {
-  constexpr int CH = kBwdThreads * kScanStates / N;
-  return sizeof(float) * (static_cast<size_t>(kBwdChunk) * kBwdThreads * 4 +
-                          (kBwdThreads / 32) * kBwdChunk * 2 * N +
-                          5 * kBwdChunk * CH + kBwdChunk * 2 * N);
+// 4 consecutive floats of shared memory (16-byte aligned) at once
+__device__ inline void load4(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
 }
 
-// One block: row blockIdx.y, channels [blockIdx.x CH, + CH), CH = 128 /
-// G, a channel's N states on G = N / 4 consecutive lanes as in the
-// forward.  Walks the chunks in reverse.
+// store v at p (shared, or global bf16) where ok, as one predicated
+// instruction: no branch splits the unrolled sweep
+__device__ inline void st_shared_if(float* p, float v, bool ok) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n"
+      " @q st.shared.f32 [%0], %1;\n}\n"
+      :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "f"(v),
+         "r"(static_cast<int>(ok)) : "memory");
+}
+
+__device__ inline void store_if(__nv_bfloat16* p, float v, bool ok) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n"
+      " @q st.global.b16 [%0], %1;\n}\n"
+      :: "l"(p), "h"(__bfloat16_as_ushort(__float2bfloat16(v))),
+         "r"(static_cast<int>(ok)) : "memory");
+}
+
+// the two halves of a thread-block cluster's barrier: the block's writes
+// before arrive are visible to the cluster's reads after the matching wait
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every cp.async group of this thread but the newest has landed
+__device__ inline void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One stage of a backward block (bytes): a chunk's dt and gy [step][channel]
+// and boundary states [channel][N] in fp32, then x [step][channel] and B,
+// C [step][N] in the input dtype.  Every region is 16-byte aligned.
 template <typename T, int N>
-__global__ void __launch_bounds__(kBwdThreads)
+__host__ __device__ constexpr size_t bwd_stage_bytes() {
+  constexpr int CH = bwd_channels<N>();
+  return sizeof(float) * (2 * kBwdChunk * CH + CH * N) +
+         sizeof(T) * (kBwdChunk * CH + 2 * kBwdChunk * N);
+}
+
+// Dynamic shared memory of a backward block: kBwdStages stages, then B
+// and C of the chunk being swept in fp32 [step][B then C] and the block's
+// dB/dC sums, two chunks [2][step][2N] (the cluster reads one while the
+// block sweeps the next).  The warps' sums [warp][step][2N] are a static
+// array of their own, so that the compiler sees that the sweep's stores
+// there never alias its loads.
+template <typename T, int N>
+__host__ __device__ constexpr size_t scan_bwd_smem() {
+  return kBwdStages * bwd_stage_bytes<T, N>() +
+         sizeof(float) * kBwdChunk * 2 * N * (1 + 2);
+}
+
+template <int N>
+__host__ __device__ constexpr size_t scan_bwd_static_smem() {
+  return sizeof(float) * (kBwdThreads / 32) * kBwdChunk * 2 * N;
+}
+
+// Blocks an SM holds by shared memory (at most 16 warps), which the
+// launch bounds then ask of the registers too: every register that does
+// not cost a block is the sweep's (ops.bwd_resident mirrors this).  At N
+// < 16 a block holds 128 or 256 channels, and one block an SM keeps the
+// sweep out of local memory (two spill at 128 registers).
+template <typename T, int N>
+__host__ __device__ constexpr int bwd_blocks_per_sm() {
+  constexpr int cap = N == 16 ? kBwdMaxWarps * 32 / kBwdThreads : 1;
+  constexpr int by_smem = kSmSmem / static_cast<int>(
+      scan_bwd_smem<T, N>() + scan_bwd_static_smem<N>() + kBlockSmem);
+  return by_smem < cap ? by_smem : cap;
+}
+
+// One block: row blockIdx.y, channels [blockIdx.x CH, + CH), CH = 1024 / N,
+// a channel's N states on G = N / 4 consecutive lanes, 4 in registers
+// each.  Walks the chunks in reverse; a cluster of blocks along the
+// channels folds its dB/dC into one partial.  Blocks past d_in (padding
+// the grid to whole clusters) only join the cluster's barriers and folds.
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads, bwd_blocks_per_sm<T, N>())
 mamba_scan_bwd_kernel(const ScanBwdArgs a) {
   constexpr int K = kScanStates;
   constexpr int G = N / K;
-  constexpr int CH = kBwdThreads / G;
+  constexpr int CH = bwd_channels<N>();
   constexpr int L = kBwdChunk;
+  constexpr int U = kBwdSub;
+  constexpr int NS = L / U;
   constexpr int W = kBwdThreads / 32;
   constexpr int N2 = 2 * N;
-  static_assert(K == 4 && G <= 4, "N: 4, 8, 16");
+  static_assert(K == 4 && N % K == 0 && G <= 4, "N: 4, 8, 16");
   extern __shared__ __align__(16) unsigned char scan_bwd_raw[];
-  float4* st = reinterpret_cast<float4*>(scan_bwd_raw);     // [L][threads]
-  float* red = reinterpret_cast<float*>(st + L * kBwdThreads);  // [W][L][2N]
-  float* dts = red + W * L * N2;                            // [L][CH]
-  float* xs = dts + L * CH;
-  float* gys = xs + L * CH;
-  float* dxs = gys + L * CH;
-  float* ddts = dxs + L * CH;
-  float* bcs = ddts + L * CH;                               // [L][2N]
+  __shared__ __align__(16) float red[W * L * N2];   // [W][L][2N]
+  constexpr size_t SB = bwd_stage_bytes<T, N>();
+  const auto dts = [&](int s) {
+    return reinterpret_cast<float*>(scan_bwd_raw + s * SB);
+  };
+  const auto gys = [&](int s) { return dts(s) + L * CH; };
+  const auto bnds = [&](int s) { return dts(s) + 2 * L * CH; };
+  const auto xs = [&](int s) {
+    return reinterpret_cast<T*>(dts(s) + 2 * L * CH + CH * N);
+  };
+  const auto bms = [&](int s) { return xs(s) + L * CH; };
+  const auto cms = [&](int s) { return xs(s) + L * CH + L * N; };
+  float* bcf = reinterpret_cast<float*>(scan_bwd_raw + kBwdStages * SB);
+  float* blk = bcf + L * N2;                 // [2][L][2N]
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.y;
-  const int blk = blockIdx.x;
-  const int c0 = blk * CH;
+  const int c0 = blockIdx.x * CH;
+  const bool idle = c0 >= a.D;
+  const int cv = min(CH, a.D - c0);
   const int cl = tid / G;
   const int g = tid - cl * G;
   const int c = c0 + cl;
   const bool active = c < a.D;
-  // A natural (ddt, dA) and prescaled by log2 e (the exponentials), as
-  // the forward takes it
-  float An[K], A2[K], gc[K], dA[K];
+  // A prescaled by log2 e, as the forward takes it (the exponentials; ddt
+  // sums g h_{t-1} a_t A as ln 2 times the sum with A log2 e)
+  float A2[K], gc[K], dA[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    An[k] = active ? -expf(a.a_log[static_cast<long long>(c) * N + g * K + k])
+    A2[k] = active ? -expf(a.a_log[static_cast<long long>(c) * N + g * K +
+                                   k]) * kLog2e
                    : 0.f;
-    A2[k] = active ? An[k] * kLog2e : 0.f;
     gc[k] = 0.f;      // a_{t+1} g_{t+1}, carried in from the step after
     dA[k] = 0.f;
   }
   const float dv = active ? a.d[c] : 0.f;
-  float dD = 0.f;
+  float dD = 0.f;       // the channel's sum on its lane 0
   // the lane's dB/dC sum after scatter_lanes<8, 16>: value j = lane bits
-  // 4, 3, 2; the lanes that differ in bits 1 .. G hold the same sum, and
-  // the one with those bits clear writes it
+  // 4, 3, 2; the lanes that differ in the channel bits below those hold
+  // the same sum once added, and the one with them clear writes it
   const int vj = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
                  ((lane >> 2) & 1);
-  const int n2 = (vj < 4 ? 0 : N) + g * K + (vj & 3);
+  const int n2 = (vj < K ? 0 : N) + g * K + (vj & (K - 1));
   const bool rep = (lane & (3 & ~(G - 1))) == 0;
-  const T* xg = static_cast<const T*>(a.x) + b * a.x_sb + c0;
-  const float* dtg = a.dt + b * a.dt_sb + c0;
-  const float* gyg = a.gy + static_cast<long long>(b) * a.S * a.D + c0;
-  const T* bg = static_cast<const T*>(a.bm) + b * a.b_sb;
-  const T* cg = static_cast<const T*>(a.cm) + b * a.c_sb;
   const int nchunk = (a.S + L - 1) / L;
+  const int clusters = gridDim.x / csize;
 
-  for (int k = nchunk - 1; k >= 0; --k) {
+  // Chunk k's inputs into stage k % 2 by cp.async from all threads (plain
+  // loads for 2-byte aligned bf16 rows).  Steps past S and channels past
+  // d_in stage as zeros: dt = 0 leaves h and g as they are (2^0 h + 0)
+  // and adds nothing to any sum.
+  const auto load_chunk = [&](int k) {
+    const int s = k & 1;
     const int t0 = k * L;
     const int rows = min(L, a.S - t0);
-    __syncthreads();   // the chunk after this one is written out
-    // steps past S and channels past d_in stage as zeros: dt = 0 leaves
-    // h and g as they are (2^0 h + 0) and adds nothing to any sum
-    for (int i = tid; i < L * CH; i += kBwdThreads) {
-      const int t = i / CH;
-      const int j = i - t * CH;
-      const bool ok = t < rows && c0 + j < a.D;
-      const long long s = t0 + t;
-      dts[i] = ok ? dtg[s * a.dt_ss + j] : 0.f;
-      xs[i] = ok ? to_f<T>(xg[s * a.x_ss + j]) : 0.f;
-      gys[i] = ok ? gyg[s * a.D + j] : 0.f;
-    }
-    for (int i = tid; i < L * N; i += kBwdThreads) {
-      const int t = i / N;
-      const int n = i - t * N;
-      const bool ok = t < rows;
-      const long long s = t0 + t;
-      bcs[t * N2 + n] = ok ? to_f<T>(bg[s * a.b_ss + n]) : 0.f;
-      bcs[t * N2 + N + n] = ok ? to_f<T>(cg[s * a.c_ss + n]) : 0.f;
-    }
-    __syncthreads();
+    stage_rows(dts(s), CH, a.dt + b * a.dt_sb + t0 * a.dt_ss + c0, a.dt_ss,
+               L, rows, CH, cv, a.vdt, tid, kBwdThreads);
+    stage_rows(gys(s), CH,
+               a.gy + (static_cast<long long>(b) * a.S + t0) * a.D + c0,
+               static_cast<long long>(a.D), L, rows, CH, cv, a.vgy, tid,
+               kBwdThreads);
+    stage_rows(bnds(s), CH * N,
+               a.bounds + ((static_cast<long long>(k) * a.B + b) * a.D + c0) *
+                              N,
+               0LL, 1, 1, CH * N, cv * N, 16, tid, kBwdThreads);
+    stage_rows(xs(s), CH,
+               static_cast<const T*>(a.x) + b * a.x_sb + t0 * a.x_ss + c0,
+               a.x_ss, L, rows, CH, cv, a.vx, tid, kBwdThreads);
+    stage_rows(bms(s), N,
+               static_cast<const T*>(a.bm) + b * a.b_sb + t0 * a.b_ss,
+               a.b_ss, L, rows, N, N, a.vb, tid, kBwdThreads);
+    stage_rows(cms(s), N,
+               static_cast<const T*>(a.cm) + b * a.c_sb + t0 * a.c_ss,
+               a.c_ss, L, rows, N, N, a.vc, tid, kBwdThreads);
+  };
 
-    // the chunk's states from its boundary, the forward's arithmetic
-    float h[K] = {0.f, 0.f, 0.f, 0.f};
-    if (active) {
-      const float4 h4 = *reinterpret_cast<const float4*>(
-          a.bounds + ((static_cast<long long>(k) * a.B + b) * a.D + c) * N +
-          g * K);
-      h[0] = h4.x;
-      h[1] = h4.y;
-      h[2] = h4.z;
-      h[3] = h4.w;
-    }
-#pragma unroll 4
-    for (int t = 0; t < L; ++t) {
-      st[t * kBwdThreads + tid] = make_float4(h[0], h[1], h[2], h[3]);
-      const float dtv = dts[t * CH + cl];
-      const float dx = dtv * xs[t * CH + cl];
-      const float4 b4 = *reinterpret_cast<const float4*>(bcs + t * N2 + g * K);
-      const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+  // the cluster's dB/dC of chunk kf from its blocks' sums (blk[kf % 2])
+  // through distributed shared memory: rank r adds entries r 256 + tid,
+  // ... of every block, in rank order, and writes the cluster's partial
+  const auto cluster_fold = [&](int kf) {
+    const int rows = min(L, a.S - kf * L);
+    const float* bk = blk + (kf & 1) * L * N2;
+    float* pc = a.part + ((static_cast<long long>(b) * clusters +
+                           blockIdx.x / csize) * a.S + kf * L) * N2;
+    for (int i = rank * kBwdThreads + tid; i < rows * N2;
+         i += csize * kBwdThreads) {
+      float v[kBwdMaxCluster];
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        h[j] = fmaf(ex2_approx(dtv * A2[j]), h[j], dx * bb[j]);
+      for (int q = 0; q < kBwdMaxCluster; ++q) {
+        v[q] = q < csize ? *cluster.map_shared_rank(bk + i, q) : 0.f;
       }
+      float sum = v[0];
+#pragma unroll
+      for (int q = 1; q < kBwdMaxCluster; ++q) {
+        if (q < csize) sum += v[q];
+      }
+      pc[i] = sum;
     }
+  };
 
-    // back through the chunk: hn = h_t, hp = h_{t-1}
-    float hn[K] = {h[0], h[1], h[2], h[3]};
-#pragma unroll 2
-    for (int t = L - 1; t >= 0; --t) {
-      const float4 hp4 = st[t * kBwdThreads + tid];
-      const float hp[4] = {hp4.x, hp4.y, hp4.z, hp4.w};
-      const float dtv = dts[t * CH + cl];
-      const float xv = xs[t * CH + cl];
-      const float gyv = gys[t * CH + cl];
-      const float dx = dtv * xv;
-      const float4 b4 = *reinterpret_cast<const float4*>(bcs + t * N2 + g * K);
-      const float4 c4 =
-          *reinterpret_cast<const float4*>(bcs + t * N2 + N + g * K);
-      const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-      const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
-      float sgb = 0.f;     // sum_n g B
-      float sdd = 0.f;     // sum_n g h_{t-1} a_t A
-      float v[2 * K];      // dB then dC terms of this lane's states
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const float da = ex2_approx(dtv * A2[j]);
-        gc[j] = fmaf(gyv, cc[j], gc[j]);                 // g_t
-        sgb = fmaf(gc[j], bb[j], sgb);
-        const float e = gc[j] * hp[j] * da;
-        sdd = fmaf(e, An[j], sdd);
-        dA[j] = fmaf(e, dtv, dA[j]);
-        v[j] = gc[j] * dx;
-        v[K + j] = gyv * hn[j];
-        gc[j] *= da;                                     // into step t - 1
-        hn[j] = hp[j];
-      }
-      sgb = group_sum<G>(sgb);
-      sdd = group_sum<G>(sdd);
-      if (g == 0) {
-        dxs[t * CH + cl] = fmaf(dtv, sgb, dv * gyv);
-        ddts[t * CH + cl] = fmaf(xv, sgb, sdd);
-        dD = fmaf(gyv, xv, dD);
-      }
-      scatter_lanes<2 * K, 16>(v, lane);
-#pragma unroll
-      for (int o = 2; o >= G; o >>= 1) {
-        v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
-      }
-      if (rep) red[(warp * L + t) * N2 + n2] = v[0];
-    }
-    __syncthreads();
-
-    // the block's dB/dC of the chunk (its warps in order) and its dx, ddt
-    float* pb = a.part + ((static_cast<long long>(b) * gridDim.x + blk) * a.S +
-                          t0) * N2;
-    for (int i = tid; i < rows * N2; i += kBwdThreads) {
-      float sum = red[i];
-#pragma unroll
-      for (int w = 1; w < W; ++w) sum += red[w * L * N2 + i];
-      pb[i] = sum;
-    }
-    T* dxg = static_cast<T*>(a.dx) + (static_cast<long long>(b) * a.S + t0) *
-                                         a.D + c0;
-    float* ddtg = a.ddt + (static_cast<long long>(b) * a.S + t0) * a.D + c0;
-    for (int i = tid; i < rows * CH; i += kBwdThreads) {
-      const int t = i / CH;
-      const int j = i - t * CH;
-      if (c0 + j < a.D) {
-        dxg[static_cast<long long>(t) * a.D + j] = from_f<T>(dxs[i]);
-        ddtg[static_cast<long long>(t) * a.D + j] = ddts[i];
-      }
-    }
+  if (idle) {
+    for (int i = tid; i < 2 * L * N2; i += kBwdThreads) blk[i] = 0.f;
+  } else {
+    load_chunk(nchunk - 1);
   }
+  cp_async_commit();
+  if (!idle && nchunk >= 2) load_chunk(nchunk - 2);
+  cp_async_commit();
+
+  for (int k = nchunk - 1; k >= 0; --k) {
+    const int s = k & 1;
+    const int t0 = k * L;
+    const int rows = min(L, a.S - t0);
+    cp_async_wait_all_but_one();     // chunk k landed; chunk k - 1 may not
+    __syncthreads();
+    if (!idle) {
+      for (int i = tid; i < L * N; i += kBwdThreads) {
+        const int t = i / N;
+        const int n = i - t * N;
+        bcf[t * N2 + n] = to_f<T>(bms(s)[i]);
+        bcf[t * N2 + N + n] = to_f<T>(cms(s)[i]);
+      }
+      __syncthreads();
+      const float* dtc = dts(s) + cl;
+      const float* gyc = gys(s) + cl;
+      const T* xc = xs(s) + cl;
+      const float* h0 = bnds(s) + cl * N + g * K;
+      const long long o0 = (static_cast<long long>(b) * a.S + t0) * a.D + c;
+      // pass 1: from the chunk's boundary with the forward's arithmetic
+      // (bitwise the forward's states), the state that starts each
+      // sub-chunk but the first, hq[j - 1] for sub-chunk j
+      float hq[NS - 1][K];
+      {
+        float h[K];
+        load4(h0, h);
+#pragma unroll 1
+        for (int j = 0; j < NS - 1; ++j) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int t = j * U + u;
+            const float dtv = dtc[t * CH];
+            const float dx = dtv * to_f<T>(xc[t * CH]);
+            float bb[K];
+            load4(bcf + t * N2 + g * K, bb);
+#pragma unroll
+            for (int q = 0; q < K; ++q) {
+              h[q] = fmaf(ex2_approx(dtv * A2[q]), h[q], dx * bb[q]);
+            }
+          }
+          // shift in: after the last pass hq[i] starts sub-chunk i + 1
+#pragma unroll
+          for (int i = 0; i < NS - 2; ++i) {
+#pragma unroll
+            for (int q = 0; q < K; ++q) hq[i][q] = hq[i + 1][q];
+          }
+#pragma unroll
+          for (int q = 0; q < K; ++q) hq[NS - 2][q] = h[q];
+        }
+      }
+      // the sub-chunks in reverse: each recomputed from its start into
+      // registers (h_{t-1} of its steps), then swept back, a_t taken anew
+#pragma unroll 1
+      for (int j = NS - 1; j >= 0; --j) {
+        float h[K];
+        if (j > 0) {
+#pragma unroll
+          for (int q = 0; q < K; ++q) h[q] = hq[NS - 2][q];
+#pragma unroll
+          for (int i = NS - 2; i > 0; --i) {
+#pragma unroll
+            for (int q = 0; q < K; ++q) hq[i][q] = hq[i - 1][q];
+          }
+        } else {
+          load4(h0, h);
+        }
+        float hp[U][K];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int t = j * U + u;
+          const float dtv = dtc[t * CH];
+          const float dx = dtv * to_f<T>(xc[t * CH]);
+          float bb[K];
+          load4(bcf + t * N2 + g * K, bb);
+#pragma unroll
+          for (int q = 0; q < K; ++q) {
+            hp[u][q] = h[q];
+            h[q] = fmaf(ex2_approx(dtv * A2[q]), h[q], dx * bb[q]);
+          }
+        }
+        // back through the sub-chunk: h = h_t, hp[u] = h_{t-1}
+#pragma unroll
+        for (int u = U - 1; u >= 0; --u) {
+          const int t = j * U + u;
+          const float dtv = dtc[t * CH];
+          const float xv = to_f<T>(xc[t * CH]);
+          const float gyv = gyc[t * CH];
+          const float dx = dtv * xv;
+          float bb[K], cc[K];
+          load4(bcf + t * N2 + g * K, bb);
+          load4(bcf + t * N2 + N + g * K, cc);
+          float sgb = 0.f;     // sum_n g B
+          float sdd = 0.f;     // sum_n g h_{t-1} a_t A log2 e
+          float v[2 * K];      // dB then dC terms of this lane's states
+#pragma unroll
+          for (int q = 0; q < K; ++q) {
+            const float at = ex2_approx(dtv * A2[q]);
+            gc[q] = fmaf(gyv, cc[q], gc[q]);               // g_t
+            sgb = fmaf(gc[q], bb[q], sgb);
+            const float e = gc[q] * hp[u][q] * at;
+            sdd = fmaf(e, A2[q], sdd);
+            dA[q] = fmaf(e, dtv, dA[q]);
+            v[q] = gc[q] * dx;
+            v[K + q] = gyv * h[q];
+            gc[q] *= at;                                   // into step t - 1
+            h[q] = hp[u][q];
+          }
+          sgb = group_sum<G>(sgb);
+          sdd = group_sum<G>(sdd);
+          // lane 0 of the channel writes dx and ddt; dD is its own sum
+          const bool own = g == 0 && active && t < rows;
+          store_if(static_cast<T*>(a.dx) + o0 + t * a.D,
+                   fmaf(dtv, sgb, dv * gyv), own);
+          store_if(a.ddt + o0 + t * a.D, fmaf(xv, sgb, kLn2 * sdd), own);
+          dD = fmaf(gyv, xv, dD);
+          scatter_lanes<2 * K, 16>(v, lane);
+#pragma unroll
+          for (int o = 2; o >= G; o >>= 1) {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+          }
+          st_shared_if(red + (warp * L + t) * N2 + n2, v[0], rep);
+        }
+      }
+    }
+    __syncthreads();   // the warps' sums are in; stage s and bcf are free
+    if (!idle && k >= 2) load_chunk(k - 2);
+    cp_async_commit();
+    // the cluster's fold of the chunk after this one: every block arrived
+    // there a sweep ago, so the wait is short, and it frees that chunk's
+    // buffer of sums (the same as this chunk's) in every block
+    if (k < nchunk - 1) {
+      cluster_wait();
+      cluster_fold(k + 1);
+    }
+    // the block's dB/dC of the chunk, its warps in order
+    if (!idle) {
+      float* bk = blk + s * L * N2;
+      for (int i = tid; i < rows * N2; i += kBwdThreads) {
+        float sum = red[i];
+#pragma unroll
+        for (int w = 1; w < W; ++w) sum += red[w * L * N2 + i];
+        bk[i] = sum;
+      }
+    }
+    cluster_arrive();
+  }
+  cluster_wait();
+  cluster_fold(0);
+  cluster_arrive();    // no block leaves while another reads its sums
+  cluster_wait();
   if (active) {
     float* p = a.dpart + (static_cast<long long>(b) * a.D + c) * (N + 1);
 #pragma unroll
@@ -1549,11 +1774,11 @@ mamba_scan_bwd_kernel(const ScanBwdArgs a) {
 
 constexpr int kBwdFoldThreads = 256;
 
-// dB, dC: the blocks' partials summed in block order; dA, dD: the rows'
-// partials summed in row order; each rounded once.
+// dB, dC: the clusters' partials summed in cluster order; dA, dD: the
+// rows' partials summed in row order; each rounded once.
 template <typename T, int N>
 __global__ void __launch_bounds__(kBwdFoldThreads)
-mamba_scan_bwd_fold(const ScanBwdArgs a, int blocks) {
+mamba_scan_bwd_fold(const ScanBwdArgs a, int clusters) {
   constexpr int N2 = 2 * N;
   const long long i =
       static_cast<long long>(blockIdx.x) * kBwdFoldThreads + threadIdx.x;
@@ -1563,10 +1788,10 @@ mamba_scan_bwd_fold(const ScanBwdArgs a, int blocks) {
     const int n2 = static_cast<int>(i - bs * N2);
     const long long b = bs / a.S;
     const long long s = bs - b * a.S;
-    const float* p = a.part + (b * blocks * a.S + s) * N2 + n2;
+    const float* p = a.part + (b * clusters * a.S + s) * N2 + n2;
     const long long stride = static_cast<long long>(a.S) * N2;
     float sum = 0.f;
-    for (int k = 0; k < blocks; ++k) sum += p[k * stride];
+    for (int k = 0; k < clusters; ++k) sum += p[k * stride];
     T* dst = static_cast<T*>(n2 < N ? a.db : a.dc);
     dst[bs * N + (n2 < N ? n2 : n2 - N)] = from_f<T>(sum);
     return;
@@ -1586,29 +1811,91 @@ mamba_scan_bwd_fold(const ScanBwdArgs a, int blocks) {
   }
 }
 
+// the dynamic shared memory, allowed whatever its size: with the static
+// array the block may pass 48 KB in all
 template <typename T, int N>
-cudaError_t scan_bwd(const ScanBwdArgs& a, cudaStream_t s) {
-  constexpr int CH = kBwdThreads * kScanStates / N;
-  const size_t smem = scan_bwd_smem<N>();
-  REPRO_TRY(allow_smem(mamba_scan_bwd_kernel<T, N>, smem));
+cudaError_t bwd_allow_smem() {
+  return cudaFuncSetAttribute(mamba_scan_bwd_kernel<T, N>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(scan_bwd_smem<T, N>()));
+}
+
+// the launch of mamba_scan_bwd_kernel<T, N> in clusters of `cluster`
+// blocks along the channels
+template <typename T, int N>
+cudaLaunchConfig_t bwd_config(int grid_x, int B, int cluster,
+                              cudaLaunchAttribute* attr, cudaStream_t s) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_x, B);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = scan_bwd_smem<T, N>();
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T, int N>
+cudaError_t scan_bwd(ScanBwdArgs a, int cluster, cudaStream_t s) {
+  constexpr int CH = bwd_channels<N>();
+  constexpr int es = static_cast<int>(sizeof(T));
+  a.vx = copy_bytes(a.x, a.x_sb, a.x_ss, es, CH * es);
+  a.vdt = copy_bytes(a.dt, a.dt_sb, a.dt_ss, 4, CH * 4);
+  a.vgy = copy_bytes(a.gy, static_cast<long long>(a.S) * a.D, a.D, 4, CH * 4);
+  a.vb = copy_bytes(a.bm, a.b_sb, a.b_ss, es, N * es);
+  a.vc = copy_bytes(a.cm, a.c_sb, a.c_ss, es, N * es);
+  REPRO_TRY((bwd_allow_smem<T, N>()));
   const int blocks = (a.D + CH - 1) / CH;
-  mamba_scan_bwd_kernel<T, N>
-      <<<dim3(blocks, a.B), kBwdThreads, smem, s>>>(a);
-  REPRO_TRY(cudaGetLastError());
+  const int grid_x = (blocks + cluster - 1) / cluster * cluster;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      bwd_config<T, N>(grid_x, a.B, cluster, attr, s);
+  REPRO_TRY(cudaLaunchKernelEx(&cfg, mamba_scan_bwd_kernel<T, N>, a));
   const long long n = static_cast<long long>(a.B) * a.S * 2 * N +
                       static_cast<long long>(a.D) * (N + 1);
   mamba_scan_bwd_fold<T, N><<<static_cast<int>(
       (n + kBwdFoldThreads - 1) / kBwdFoldThreads), kBwdFoldThreads, 0, s>>>(
-      a, blocks);
+      a, grid_x / cluster);
   return cudaGetLastError();
 }
 
+// What the card makes of mamba_scan_bwd_kernel<T, N>: out[0] blocks an SM
+// holds, out[1] its shared memory (bytes, static and dynamic), out[2]
+// registers a thread, out[3] local memory a thread (bytes; spills),
+// out[4] clusters of `cluster` blocks the card holds at once.
+template <typename T, int N>
+cudaError_t scan_bwd_query(int cluster, int* out) {
+  const auto kernel = mamba_scan_bwd_kernel<T, N>;
+  const size_t smem = scan_bwd_smem<T, N>();
+  REPRO_TRY((bwd_allow_smem<T, N>()));
+  REPRO_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], kernel, kBwdThreads, smem));
+  cudaFuncAttributes fa;
+  REPRO_TRY(cudaFuncGetAttributes(&fa, kernel));
+  out[1] = static_cast<int>(smem + fa.sharedSizeBytes);
+  out[2] = fa.numRegs;
+  out[3] = static_cast<int>(fa.localSizeBytes);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      bwd_config<T, N>(cluster, 1, cluster, attr, nullptr);
+  return cudaOccupancyMaxActiveClusters(&out[4], kernel, &cfg);
+}
+
+// a launch (a not null) or a query (out) of the instance for N
 template <typename T>
-cudaError_t scan_bwd_for_n(const ScanBwdArgs& a, int N, cudaStream_t s) {
+cudaError_t scan_bwd_for(const ScanBwdArgs* a, int N, int cluster, int* out,
+                         cudaStream_t s) {
   switch (N) {
-    case 4: return scan_bwd<T, 4>(a, s);
-    case 8: return scan_bwd<T, 8>(a, s);
-    case 16: return scan_bwd<T, 16>(a, s);
+    case 4: return a ? scan_bwd<T, 4>(*a, cluster, s)
+                     : scan_bwd_query<T, 4>(cluster, out);
+    case 8: return a ? scan_bwd<T, 8>(*a, cluster, s)
+                     : scan_bwd_query<T, 8>(cluster, out);
+    case 16: return a ? scan_bwd<T, 16>(*a, cluster, s)
+                      : scan_bwd_query<T, 16>(cluster, out);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1698,29 +1985,58 @@ extern "C" int mamba_scan(
 // contiguous, from the forward's inputs (as mamba_scan takes them) and its
 // bounds -> dx (B, S, D) in x's dtype, ddt (B, S, D) fp32, db and dc (B,
 // S, N) in b's dtype, da (D, N) fp32 (with respect to A = -exp(A_log)) and
-// dd (D,) fp32, all contiguous.  part: fp32 scratch of B * ceil(D / CH) *
-// S * 2N, CH = 128 / (N / 4) channels a block; dpart: fp32 scratch of B *
-// D * (N + 1).  Two launches.
+// dd (D,) fp32, all contiguous.  A block takes CH = 1024 / N channels;
+// cluster: blocks (1 to 8) whose dB/dC sums one partial holds, the grid
+// ceil(ceil(D / CH) / cluster) clusters a row (the wrapper's
+// scan_bwd_plan()).  part: fp32 scratch of B * clusters * S * 2N; dpart:
+// fp32 scratch of B * D * (N + 1).  Two launches.
 extern "C" int mamba_scan_bwd(
     const void* x, const void* dt, const void* b, const void* c,
     const void* a_log, const void* d, const void* bounds, const void* gy,
     void* dx, void* ddt, void* db, void* dc, void* da, void* dd, void* part,
     void* dpart, int B, int S, int D, int N, long long x_sb, long long x_ss,
     long long dt_sb, long long dt_ss, long long b_sb, long long b_ss,
-    long long c_sb, long long c_ss, int dtype, void* stream) {
+    long long c_sb, long long c_ss, int cluster, int dtype, void* stream) {
   using namespace repro;
   if (B == 0 || S == 0 || D == 0) return 0;
+  if (cluster < 1 || cluster > kBwdMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   ScanBwdArgs a{x, static_cast<const float*>(dt), b, c,
                 static_cast<const float*>(a_log), static_cast<const float*>(d),
                 static_cast<const float*>(bounds),
                 static_cast<const float*>(gy), dx, static_cast<float*>(ddt),
                 db, dc, static_cast<float*>(da), static_cast<float*>(dd),
                 static_cast<float*>(part), static_cast<float*>(dpart), B, S,
-                D, x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
+                D, x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss,
+                0, 0, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    return static_cast<int>(scan_bwd_for_n<__nv_bfloat16>(a, N, s));
+    return static_cast<int>(
+        scan_bwd_for<__nv_bfloat16>(&a, N, cluster, nullptr, s));
   }
-  if (dtype == kF32) return static_cast<int>(scan_bwd_for_n<float>(a, N, s));
+  if (dtype == kF32) {
+    return static_cast<int>(scan_bwd_for<float>(&a, N, cluster, nullptr, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// mamba_scan_bwd_occupancy: for the instance mamba_scan_bwd launches at
+// (N, dtype), out[5] = blocks an SM holds, shared memory a block (bytes),
+// registers a thread, local memory a thread (bytes), and clusters of
+// `cluster` blocks the card holds at once.
+extern "C" int mamba_scan_bwd_occupancy(int N, int cluster, int dtype,
+                                        int* out) {
+  using namespace repro;
+  if (cluster < 1 || cluster > kBwdMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == kBF16) {
+    return static_cast<int>(
+        scan_bwd_for<__nv_bfloat16>(nullptr, N, cluster, out, 0));
+  }
+  if (dtype == kF32) {
+    return static_cast<int>(scan_bwd_for<float>(nullptr, N, cluster, out, 0));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

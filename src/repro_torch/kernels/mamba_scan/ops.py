@@ -21,10 +21,17 @@ Training: ``SelectiveScanFn`` is the reference's ``fused_selective_scan``
 custom VJP (``models/ssm.py:_fss_fwd`` / ``_fss_bwd``).  Its forward
 launches the scan with its boundary output (the state before every
 ``SCAN_CHUNK``-th step, ``scan_train_launches``), and its backward
-``mamba_scan_bwd`` (``scan_bwd_launches``): a kernel that recomputes each
-chunk's states from its boundary and sweeps it back for (dx, ddt, dB, dC,
-dA, dD), with a second launch that folds the blocks' partials of the
-cross-channel sums in a fixed order (csrc/mamba_scan.cu has the design).
+``mamba_scan_bwd`` (``scan_bwd_launches``): blocks of 256 threads, 4
+of a channel's states a lane, walk the chunks in reverse; each chunk's
+inputs arrive by ``cp.async`` while the chunk before sweeps, its states
+are recomputed from the saved boundary into registers one 8-step
+sub-chunk at a time and swept back for (dx, ddt, dB, dC, dA, dD).  dB
+and dC sum over every channel: a thread-block cluster of up to 8 blocks
+along the channels adds its blocks' sums through distributed shared
+memory, and a second launch adds the clusters' partials in a fixed order
+(csrc/mamba_scan.cu has the design).  ``scan_bwd_plan()`` picks the
+cluster and the grid from host ints and mirrors the kernel's shared
+memory and residency.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel or raises.  ``step_launches``, ``scan_launches``,
@@ -67,7 +74,12 @@ _FMA, _MMA = 0, 1             # csrc Route
 overlap = True                # launch the step's kernels overlapped (PDL)
 _SCAN_STATES = 4              # states a scan lane holds (csrc kScanStates)
 _SCAN_CHANNELS = tuple(range(8, 65, 8))   # csrc kScanMaxChannels = 64
-_BWD_THREADS = 128            # threads of a backward block (csrc kBwdThreads)
+_BWD_THREADS = 256            # threads of a backward block (csrc kBwdThreads)
+_BWD_SUB = 8                  # steps a sub-chunk holds in registers (kBwdSub)
+_BWD_STAGES = 2               # chunks a backward block stages (kBwdStages)
+_BWD_MAX_CLUSTER = 8          # blocks a cluster, at most (kBwdMaxCluster)
+_BWD_MAX_WARPS = 16           # backward warps an SM holds, at most
+_CLUSTERS = (1, 2, 4, 8)      # cluster sizes a backward launch may take
 
 
 @functools.lru_cache(maxsize=1)
@@ -90,7 +102,15 @@ def _scan_fn():
 def _scan_bwd_fn():
     fn = _build.load_library().mamba_scan_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 16 + [_I] * 4 + [_L] * 8 + [_I, _P]
+    fn.argtypes = [_P] * 16 + [_I] * 4 + [_L] * 8 + [_I] * 2 + [_P]
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _scan_bwd_occupancy_fn():
+    fn = _build.load_library().mamba_scan_bwd_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I] * 3 + [_P]
     return fn
 
 
@@ -359,18 +379,129 @@ def mamba_scan(x, dt, b, c, a_log, d, *, bounds: bool = False):
     return y, h_last, bnd
 
 
-def bwd_channels(N: int) -> int:
-    """Channels of one backward block: 128 threads, N / 4 lanes a
-    channel."""
-    return _BWD_THREADS * _SCAN_STATES // N
+class ScanBwdPlan(NamedTuple):
+    """How one scan backward is cut: ``channels`` per block (4 of a
+    channel's N states a lane, 256 lanes), ``blocks`` per row that hold
+    channels, ``cluster`` blocks a thread-block cluster, the row's
+    ``grid_x`` blocks (whole clusters; those past d_in idle),
+    ``clusters`` per row (the partials' axis), ``sub`` steps a sub-chunk,
+    the block's ``smem`` bytes, the ``resident`` blocks and ``warps`` an
+    SM holds, and the ``waves`` of clusters the grid takes."""
+    channels: int
+    blocks: int
+    cluster: int
+    grid_x: int
+    clusters: int
+    sub: int
+    smem: int
+    resident: int
+    warps: int
+    waves: int
+
+
+def scan_bwd_smem(N: int, es: int) -> int:
+    """Shared memory of a backward block (csrc scan_bwd_smem(), dynamic,
+    and scan_bwd_static_smem()): two stages of a chunk's dt, gy, boundary
+    states (fp32), x, B and C (``es`` bytes); B and C in fp32; the
+    block's (two chunks) and the warps' dB/dC sums."""
+    ch = _BWD_THREADS * _SCAN_STATES // N
+    stage = (4 * (2 * SCAN_CHUNK * ch + ch * N)
+             + es * (SCAN_CHUNK * ch + 2 * SCAN_CHUNK * N))
+    return (_BWD_STAGES * stage
+            + 4 * SCAN_CHUNK * 2 * N * (1 + 2 + _BWD_THREADS // 32))
+
+
+def bwd_resident(N: int, es: int) -> int:
+    """Backward blocks one SM holds: as many as the shared memory takes,
+    at most 16 warps, and one at N < 16 (csrc bwd_blocks_per_sm()).  The
+    launch bounds ask the registers for the same count, so they never
+    bind first."""
+    cap = _BWD_MAX_WARPS * 32 // _BWD_THREADS if N == 16 else 1
+    return min(cap, _SM_SMEM // (scan_bwd_smem(N, es) + _BLOCK_SMEM))
+
+
+def _cluster_slots(slots: int, c: int) -> int:
+    """Clusters of ``c`` blocks the card holds at once, out of ``slots``
+    blocks, where the card was not asked: a cluster lies within one GPC,
+    and clusters of 4 or more lose about 1/16 of the slots to the GPCs'
+    edges (an H100 holds 124 of 4 and 62 of 8 in 528 slots, 62 and 30 in
+    264)."""
+    return slots // c if c <= 2 else slots * 15 // 16 // c
+
+
+@functools.lru_cache(maxsize=None)
+def scan_bwd_plan(B: int, D: int, N: int, sms: int = 132, es: int = 2,
+                  cluster_slots: tuple = None) -> ScanBwdPlan:
+    """The scan backward's plan for B rows of D channels and N states on
+    ``sms`` SMs, inputs of ``es`` bytes, from host ints alone: blocks of
+    1024 / N channels; the largest cluster (8, 4, 2 or 1 blocks, or all
+    of a row's blocks where they are fewer than 8) that keeps the grid
+    in as few waves as single blocks take, so that the fold costs no
+    tail; the row padded to whole clusters.  ``cluster_slots``: clusters
+    of 1, 2, 4 and 8 blocks the card holds at once (``bwd_cluster_slots``),
+    else ``_cluster_slots``' estimate.
+    At falcon-mamba-7b's training layer (4, 8192, 16): 128 blocks of 64
+    channels a row, 2 waves of single blocks on 264 slots; clusters of 8
+    or 4 would take 3, so clusters of 2: 64 partials a row.  At
+    hymba-1.5b's (2, 3200, 16): 50 blocks a row in one wave, clusters of
+    8, padded to 56: 7 partials a row."""
+    ch = _BWD_THREADS * _SCAN_STATES // N
+    blocks = _ceil(D, ch)
+    resident = bwd_resident(N, es)
+    slots = sms * resident
+    waves = _ceil(B * blocks, slots)
+    for c in sorted({min(_BWD_MAX_CLUSTER, blocks), 4, 2, 1}, reverse=True):
+        held = (cluster_slots[_CLUSTERS.index(c)]
+                if cluster_slots and c in _CLUSTERS
+                else _cluster_slots(slots, c))
+        if c <= blocks and _ceil(B * _ceil(blocks, c), held) <= waves:
+            break
+    clusters = _ceil(blocks, c)
+    return ScanBwdPlan(ch, blocks, c, clusters * c, clusters, _BWD_SUB,
+                       scan_bwd_smem(N, es), resident,
+                       resident * _BWD_THREADS // 32, waves)
+
+
+def bwd_occupancy(N: int, cluster: int, dtype) -> dict:
+    """What the card makes of the backward instance at (N, ``dtype``):
+    ``blocks_per_sm`` (the occupancy calculator's), ``smem`` bytes a
+    block, ``registers`` and ``local_bytes`` (spills) a thread, and
+    ``clusters`` of ``cluster`` blocks the card holds at once."""
+    out = (ctypes.c_int * 5)()
+    err = _scan_bwd_occupancy_fn()(N, cluster, _DTYPES[dtype],
+                                   ctypes.addressof(out))
+    _build.check(err, "mamba_scan_bwd_occupancy")
+    return dict(zip(("blocks_per_sm", "smem", "registers", "local_bytes",
+                     "clusters"), out))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_cluster_slots(N: int, dtype) -> tuple:
+    """Clusters of 1, 2, 4 and 8 blocks of the backward instance at (N,
+    ``dtype``) that the card holds at once (the occupancy calculator's)."""
+    return tuple(bwd_occupancy(N, c, dtype)["clusters"] for c in _CLUSTERS)
+
+
+def bwd_plan(B: int, D: int, N: int, dtype, device=None) -> ScanBwdPlan:
+    """``scan_bwd_plan`` for a launch on CUDA ``device`` (default the
+    current one) with its SM count and cluster slots."""
+    index = torch.device(device or "cuda").index
+    index = torch.cuda.current_device() if index is None else index
+    return scan_bwd_plan(B, D, N, _build.sm_count(index),
+                         dtype.itemsize,
+                         bwd_cluster_slots(N, dtype))
 
 
 def mamba_scan_bwd(x, dt, b, c, a_log, d, bounds, gy):
     """The gradients of ``mamba_scan``'s y for ``gy`` (B, S, D), from the
     forward's inputs and its ``bounds``: (dx (B, S, D) in x's dtype, ddt
     (B, S, D) fp32, dB and dC (B, S, N) contiguous in b's dtype, dA (D, N)
-    fp32 with respect to A = -exp(A_log), dD (D,) fp32).  A CPU tensor
-    takes ``selective_scan_bwd_ref``."""
+    fp32 with respect to A = -exp(A_log), dD (D,) fp32).  A CUDA tensor
+    launches the kernel on ``scan_bwd_plan``'s grid, (grid_x, B) blocks
+    of 256 threads in clusters of ``cluster``, with fp32 scratch of the
+    clusters' dB/dC partials (B, clusters, S, 2N) and the rows' dA/dD (B,
+    D, N + 1), then the launch that folds them.  A CPU tensor takes
+    ``selective_scan_bwd_ref``."""
     global scan_bwd_launches
     if x.device.type == "cpu":
         return selective_scan_bwd_ref(x, dt, b, c, a_log, d, bounds, gy)
@@ -386,14 +517,14 @@ def mamba_scan_bwd(x, dt, b, c, a_log, d, bounds, gy):
           and bounds.device == dev,
           f"mamba_scan_bwd: bounds {tuple(bounds.shape)} {bounds.dtype} "
           f"are not the forward's")
-    blocks = _ceil(D, bwd_channels(N))
+    p = bwd_plan(B, D, N, x.dtype, dev)
     dx = torch.empty((B, S, D), dtype=x.dtype, device=dev)
     ddt = torch.empty((B, S, D), dtype=torch.float32, device=dev)
     db = torch.empty((B, S, N), dtype=b.dtype, device=dev)
     dc = torch.empty((B, S, N), dtype=c.dtype, device=dev)
     da = torch.empty((D, N), dtype=torch.float32, device=dev)
     dd = torch.empty((D,), dtype=torch.float32, device=dev)
-    part = torch.empty((B, blocks, S, 2 * N), dtype=torch.float32,
+    part = torch.empty((B, p.clusters, S, 2 * N), dtype=torch.float32,
                        device=dev)
     dpart = torch.empty((B, D, N + 1), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -403,7 +534,7 @@ def mamba_scan_bwd(x, dt, b, c, a_log, d, bounds, gy):
         dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
         da.data_ptr(), dd.data_ptr(), part.data_ptr(), dpart.data_ptr(),
         B, S, D, N, x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-        b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+        b.stride(0), b.stride(1), c.stride(0), c.stride(1), p.cluster,
         _DTYPES[x.dtype], stream)
     _build.check(err, "mamba_scan_bwd")
     scan_bwd_launches += 1

@@ -24,6 +24,9 @@ pair, the reference's ``fused_selective_scan`` custom VJP
 state at the start of every ``chunk`` steps (the only residual besides the
 inputs), and the backward that recomputes each chunk's states from its
 boundary, then sweeps it in reverse for (dx, ddt, dB, dC, dA, dD).
+``selective_scan_bwd_split_ref`` is that backward in the CUDA kernel's
+order (sub-chunks recomputed from their starts; dB and dC folded by
+block, cluster, then cluster partials), for the tests.
 """
 from __future__ import annotations
 
@@ -254,3 +257,85 @@ def selective_scan_bwd_ref(x, dt, b, c, a_log, d, bounds, gy, *,
                                     dim=(0, 1))
     dd = torch.sum(gy32 * x32, dim=(0, 1))
     return (dx.to(x.dtype), ddt, db.to(b.dtype), dc.to(c.dtype), da_sum, dd)
+
+
+def selective_scan_bwd_split_ref(x, dt, b, c, a_log, d, bounds, gy, *,
+                                 channels: int, cluster: int, sub: int = 8,
+                                 chunk: int = SCAN_CHUNK):
+    """``selective_scan_bwd_ref`` in the CUDA backward's order, for the
+    tests (``ops.scan_bwd_plan`` gives ``channels`` and ``cluster``).
+    Each chunk's states come from its boundary one ``sub``-step
+    sub-chunk at a time: a first pass keeps the state that starts each
+    sub-chunk, then each sub-chunk, the last first, is recomputed (h_{t-1}
+    and a_t = 2^(dt (A log2 e)), as the kernel takes it) and swept back.
+    dB and dC at (b, t) are summed in fp32 over each block's ``channels``
+    channels, over the blocks of a cluster of ``cluster`` in rank order,
+    then over the clusters in order (the fold launch); channels past D,
+    up to whole clusters, count as zeros.  dA and dD are summed per row,
+    then over the rows in order.  Same arguments and results."""
+    f32 = torch.float32
+    B, S, D = x.shape
+    N = b.shape[-1]
+    nclus = -(-(-(-D // channels)) // cluster)
+    pad = nclus * cluster * channels - D
+    widen = lambda t: torch.nn.functional.pad(t.to(f32), (0, pad))
+    a = -torch.exp(a_log.to(f32))
+    a2 = a * torch.tensor(LOG2E, dtype=f32)
+    a, a2 = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (a, a2))
+    x32, dt32, gy32, dv = widen(x), widen(dt), widen(gy), widen(d)
+    b32, c32 = b.to(f32), c.to(f32)
+    bnd = torch.nn.functional.pad(bounds.to(f32), (0, 0, 0, pad))
+    Dp = D + pad
+    dx = torch.empty((B, S, Dp), dtype=f32, device=x.device)
+    ddt = torch.empty_like(dx)
+    part = torch.empty((B, nclus, S, 2 * N), dtype=f32, device=x.device)
+    da_rows = torch.zeros((B, Dp, N), dtype=f32, device=x.device)
+    dd_rows = torch.zeros((B, Dp), dtype=f32, device=x.device)
+    g = torch.zeros((B, Dp, N), dtype=f32, device=x.device)
+
+    def step(h, t):
+        at = torch.exp2(dt32[:, t, :, None] * a2)
+        return at, at * h + (dt32[:, t] * x32[:, t])[..., None] * \
+            b32[:, t, None, :]
+
+    for k in reversed(range(bnd.shape[0])):
+        t0 = k * chunk
+        subs = [range(s0, min(S, s0 + sub))
+                for s0 in range(t0, min(S, t0 + chunk), sub)]
+        starts, h = [], bnd[k]
+        for ts in subs:
+            starts.append(h)
+            for t in ts:
+                h = step(h, t)[1]
+        for ts, h in reversed(list(zip(subs, starts))):
+            hp, av = [], []
+            for t in ts:
+                hp.append(h)
+                at, h = step(h, t)
+                av.append(at)
+            for i, t in reversed(list(enumerate(ts))):
+                g = gy32[:, t, :, None] * c32[:, t, None, :] + g
+                e = g * hp[i] * av[i]
+                gb = torch.sum(g * b32[:, t, None, :], dim=-1)
+                ddt[:, t] = x32[:, t] * gb + torch.sum(e * a, dim=-1)
+                dx[:, t] = dt32[:, t] * gb + dv * gy32[:, t]
+                da_rows += e * dt32[:, t, :, None]
+                dd_rows += gy32[:, t] * x32[:, t]
+                v = torch.cat([g * (dt32[:, t] * x32[:, t])[..., None],
+                               gy32[:, t, :, None] * h], dim=-1)
+                v = v.view(B, nclus, cluster, channels, 2 * N).sum(dim=3)
+                s = v[:, :, 0]
+                for q in range(1, cluster):
+                    s = s + v[:, :, q]
+                part[:, :, t] = s
+                g = av[i] * g
+                h = hp[i]
+    dbc = part[:, 0]
+    for q in range(1, nclus):
+        dbc = dbc + part[:, q]
+    da, dd = da_rows[0], dd_rows[0]
+    for r in range(1, B):
+        da, dd = da + da_rows[r], dd + dd_rows[r]
+    return (dx[..., :D].to(x.dtype), ddt[..., :D].contiguous(),
+            dbc[..., :N].to(b.dtype), dbc[..., N:].to(c.dtype), da[:D],
+            dd[:D])

@@ -28,6 +28,28 @@ on 1 KV head, D 128), minitron-4b's (24 on 8) and hymba-1.5b's (25 on 5,
 D 64) heads: 8 slots of 1000-1 live rows, one dead, bf16, two turns over
 the targets, the L2 flushed before each launch.  Needs a CUDA card.
 
+    python -m repro_torch.launch.kernel_probe scan-clusters
+
+times the scan's backward (``mamba_scan_bwd``, bf16) at falcon-mamba-7b's
+and hymba-1.5b's training layers with its dB/dC fold in thread-block
+clusters of 1, 2, 4 and 8 blocks, two turns, beside the clusters of each
+size the card holds at once and the waves of clusters the grid takes;
+the plan (``scan_bwd_plan``) picks the largest size that adds no wave.
+Outputs at every size are held to the plan's within the kernel
+tolerance.  Needs a CUDA card.
+
+    python -m repro_torch.launch.kernel_probe train-spread \
+        [--arch falcon-mamba-7b] [--lr 3e-4]
+
+trains the model as ``chip_smoke.py``'s SSM training phase does (falcon-
+mamba-7b cut to 32 layers at B 4 x S 1024, hymba-1.5b whole at B 2 x S
+2048; fp32 masters, bf16, AdamW, 8 steps, 2 of warmup to ``--lr``) once
+for each of several scan backwards that differ only in the order of
+their fp32 sums: the kernel as planned, its dB/dC fold in clusters of 1
+and of 8, and the plain backward.  Prints each run's losses and grad
+norms, and whether its last loss is below its first and step 1's (the
+phase's check).  Needs a CUDA card.
+
 Prints one JSON object on its last line.
 """
 from __future__ import annotations
@@ -51,6 +73,13 @@ SPLIT_LENGTHS = (1000, 517, 129, 1, 64, 999, 700, 333)
 SPLIT_LIVE = (1, 1, 1, 1, 1, 1, 0, 1)
 SPLIT_HEADS = {"granite G48": (48, 1, 128), "minitron G3": (24, 8, 128),
                "hymba G5": (25, 5, 64)}
+# the scan's training layers (chip_smoke.SCAN_TRAIN_CASES): B, S, d_in, N
+SCAN_LAYERS = {"falcon-mamba-7b": (4, 1024, 8192, 16),
+               "hymba-1.5b": (2, 2048, 3200, 16)}
+SCAN_CLUSTERS = (1, 2, 4, 8)
+# chip_smoke.SSM_TRAIN: B, S, layers (None: all); chip_smoke.TRAIN_STEPS
+TRAIN_SPREAD = {"falcon-mamba-7b": (4, 1024, 32), "hymba-1.5b": (2, 2048, None)}
+TRAIN_STEPS = 8
 
 
 def _mamba_step_plain(x1, conv, h, *args, live=None):
@@ -256,9 +285,132 @@ def ragged_splits(device) -> dict:
     return {"ms": times, "chunk_and_blocks": plans}
 
 
+def scan_clusters(device) -> dict:
+    """The cluster sweep of the scan's backward (module docstring);
+    returns {layer: {"ms": {size: [ms of each turn]}, "held": clusters of
+    each size the card holds, "waves": {size: waves}, "plan": the plan's
+    size}}."""
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import softplus
+    if device.type != "cuda":
+        raise ValueError("scan-clusters times the kernel: it needs a CUDA "
+                         "card")
+    gen = torch.Generator(device=device).manual_seed(12)
+    plan_of = ms.bwd_plan
+    out = {}
+    try:
+        for name, (B, S, D, N) in SCAN_LAYERS.items():
+            a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                           device=device)).expand(D, N)
+            a_log = a_log.contiguous()
+            d = torch.ones(D, dtype=torch.float32, device=device)
+            x = torch.randn((B, S, D), generator=gen, device=device)
+            dt = softplus(torch.randn((B, S, D), generator=gen,
+                                      device=device) - 4.0)
+            dbc = torch.randn((B, S, 256 + 2 * N), generator=gen,
+                              device=device).to(torch.bfloat16)
+            gy = torch.randn((B, S, D), generator=gen, device=device)
+            ins = (x.to(torch.bfloat16), dt, dbc[..., 256:256 + N],
+                   dbc[..., 256 + N:], a_log, d)
+            bounds = ms.mamba_scan(*ins, bounds=True)[2]
+            p = plan_of(B, D, N, torch.bfloat16, device)
+            want = ms.mamba_scan_bwd(*ins, bounds, gy)
+            held = ms.bwd_cluster_slots(N, torch.bfloat16)
+            res = {"ms": {}, "held": dict(zip(SCAN_CLUSTERS, held)),
+                   "waves": {}, "plan": p.cluster}
+            for turn in range(2):
+                for c in SCAN_CLUSTERS:
+                    per_row = -(-p.blocks // c)
+                    ms.bwd_plan = (lambda *a, c=c, n=per_row, **k: plan_of(
+                        *a, **k)._replace(cluster=c, grid_x=n * c,
+                                          clusters=n))
+                    got = ms.mamba_scan_bwd(*ins, bounds, gy)
+                    for g, w in zip(got, want):
+                        tol = 2e-2 if g.dtype == torch.bfloat16 else 1e-4
+                        err = (g.float() - w.float()).abs().max().item()
+                        if err > tol * max(w.float().abs().max().item(),
+                                           1e-6):
+                            raise RuntimeError(
+                                f"scan backward {name} in clusters of {c} "
+                                f"differs from the plan's by {err:.3e}")
+                    res["ms"].setdefault(c, []).append(time_ms(
+                        lambda: ms.mamba_scan_bwd(*ins, bounds, gy), 20))
+                    res["waves"][c] = -(-B * per_row // held[
+                        SCAN_CLUSTERS.index(c)])
+            out[name] = res
+            del x, dt, dbc, gy, ins, bounds, want
+    finally:
+        ms.bwd_plan = plan_of
+    return out
+
+
+def train_spread(arch: str, lr: float, device) -> dict:
+    """The training runs of the module docstring's train-spread; returns
+    {backward: {"loss": [...], "grad_norm": [...], "falls": bool}}."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainConfig, make_train_step
+    if device.type != "cuda":
+        raise ValueError("train-spread trains at full width: it needs a "
+                         "CUDA card")
+    B, S, layers = TRAIN_SPREAD[arch]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    pipe = make_pipeline(full, S, B, seed=0)
+    batches = [{k: torch.as_tensor(v, device=device)
+                for k, v in pipe.batch(s).items()}
+               for s in range(TRAIN_STEPS)]
+    plan_of, bwd_of = ms.bwd_plan, ms.mamba_scan_bwd
+
+    def clusters_of(c):
+        def plan(*a, **k):
+            p = plan_of(*a, **k)
+            n = -(-p.blocks // c)
+            return p._replace(cluster=c, grid_x=n * c, clusters=n)
+        return plan
+
+    runs = {"the kernel as planned": {},
+            "clusters of 1": {"bwd_plan": clusters_of(1)},
+            "clusters of 8": {"bwd_plan": clusters_of(8)},
+            "the plain backward": {"mamba_scan_bwd": selective_scan_bwd_ref}}
+    out = {}
+    try:
+        for name, swaps in runs.items():
+            ms.bwd_plan, ms.mamba_scan_bwd = plan_of, bwd_of
+            for attr, fn in swaps.items():
+                setattr(ms, attr, fn)
+            model = build_model(cfg, device)
+            params = model.init(torch.Generator(device=device).manual_seed(0),
+                                dtype=cfg.param_dtype)
+            opt = make_optimizer(cfg.optimizer)
+            step_fn = make_train_step(model, opt, TrainConfig(
+                steps=TRAIN_STEPS, lr=lr, warmup=2))
+            state = opt.init(params)
+            loss, norm = [], []
+            for step, batch in enumerate(batches):
+                params, state, m = step_fn(params, state, step, batch)
+                loss.append(m["loss"].item())
+                norm.append(m["grad_norm"].item())
+            out[name] = {"loss": loss, "grad_norm": norm,
+                         "falls": loss[-1] < min(loss[0], loss[1])}
+            del model, params, state, step_fn, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        ms.bwd_plan, ms.mamba_scan_bwd = plan_of, bwd_of
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=("rounding", "ragged-splits"))
+    ap.add_argument("probe", choices=("rounding", "ragged-splits",
+                                      "scan-clusters", "train-spread"))
+    ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--prompt", type=int, default=1100)
@@ -285,6 +437,26 @@ def main(argv=None) -> int:
                           f"{x:.3e}" for x in r["from_plain"]), flush=True)
         doc.update(arch=args.arch, prompt=args.prompt, reduced=args.reduced,
                    seeds={str(s): p for s, p in res.items()})
+    elif args.probe == "train-spread":
+        res = train_spread(args.arch, args.lr, device)
+        for name, r in res.items():
+            print(f"{args.arch} lr {args.lr:g}, {name}: losses "
+                  + " ".join(f"{x:.5f}" for x in r["loss"])
+                  + "; grad norms " + " ".join(
+                      f"{x:.2f}" for x in r["grad_norm"])
+                  + f"; last below the first and step 1's: {r['falls']}",
+                  flush=True)
+        doc.update(arch=args.arch, lr=args.lr, runs=res)
+    elif args.probe == "scan-clusters":
+        res = scan_clusters(device)
+        for name, r in res.items():
+            for c, t in r["ms"].items():
+                print(f"mamba_scan_bwd {name} in clusters of {c}: "
+                      f"{r['held'][c]} held at once, {r['waves'][c]} waves; "
+                      f"ms " + ", ".join(f"{x:.4f}" for x in t)
+                      + (" (the plan's)" if c == r["plan"] else ""),
+                      flush=True)
+        doc.update(layers=res)
     else:
         res = ragged_splits(device)
         for name, per in res["ms"].items():

@@ -65,3 +65,13 @@ def test_rounding_probe_on_cpu_agrees_on_every_path():
 def test_ragged_splits_needs_a_card():
     with pytest.raises(ValueError):
         kp.ragged_splits(torch.device("cpu"))
+
+
+def test_scan_clusters_needs_a_card():
+    with pytest.raises(ValueError, match="CUDA card"):
+        kp.scan_clusters(torch.device("cpu"))
+
+
+def test_train_spread_needs_a_card():
+    with pytest.raises(ValueError, match="CUDA card"):
+        kp.train_spread("falcon-mamba-7b", 3e-4, torch.device("cpu"))

@@ -828,9 +828,9 @@ def _close_scaled(got, want, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("S", [1, 33, 1000])
+@pytest.mark.parametrize("S", [1, 33, 45, 1000])
 @pytest.mark.parametrize("N", [4, 8, 16])
-@pytest.mark.parametrize("B,D", [(1, 80), (2, 3200)])
+@pytest.mark.parametrize("B,D", [(1, 80), (2, 3200), (3, 5900)])
 @pytest.mark.parametrize("R", [6, 256])
 def test_mamba_scan_bwd_kernel_on_gpu(cuda, dtype, S, N, B, D, R):
     """The training forward (the scan with its boundary states) and the
@@ -838,7 +838,11 @@ def test_mamba_scan_bwd_kernel_on_gpu(cuda, dtype, S, N, B, D, R):
     last state equal the serving instance's bitwise, its bounds agree
     with the plain forward's, and (dx, ddt, dB, dC, dA, dD) with the plain
     backward's on the kernel's bounds; fp32 sums in both, bf16 outputs
-    held to a few bf16 ulps of the tensor's scale."""
+    held to a few bf16 ulps of the tensor's scale.  The plan's edges: S
+    = 45 ends in a part of an 8-step sub-chunk; at N 16, (3, 5900) has
+    93 blocks a row, its last block part full and the row padded by 3
+    idle blocks to whole clusters of 8, (2, 3200) 50 padded by 6, and
+    (1, 80) 2 blocks in one cluster of 2."""
     from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
                                                     selective_scan_fwd_ref)
     ins = _scan_case(cuda, dtype, B, S, D, N, R)
@@ -865,12 +869,14 @@ def test_mamba_scan_bwd_kernel_on_gpu(cuda, dtype, S, N, B, D, R):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_mamba_scan_bwd_is_deterministic(cuda, dtype):
+@pytest.mark.parametrize("B,S,D", [(4, 1024, 8192), (2, 2048, 3200)],
+                         ids=["falcon", "hymba"])
+def test_mamba_scan_bwd_is_deterministic(cuda, dtype, B, S, D):
     """No atomics: the backward at falcon-mamba-7b's training layer (B 4,
-    S 1024, d_in 8192, N 16) repeats bitwise, as the forward's boundary
-    states do."""
-    ins = _scan_case(cuda, dtype, 4, 1024, 8192, 16, 256)
-    gy = torch.randn((4, 1024, 8192), generator=torch.Generator(
+    S 1024, d_in 8192, N 16) and hymba-1.5b's (B 2, S 2048, d_in 3200)
+    repeats bitwise, as the forward's boundary states do."""
+    ins = _scan_case(cuda, dtype, B, S, D, 16, 256)
+    gy = torch.randn((B, S, D), generator=torch.Generator(
         device=cuda).manual_seed(3), device=cuda)
     fwd = [ms.mamba_scan(*ins, bounds=True) for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*fwd))
@@ -878,6 +884,23 @@ def test_mamba_scan_bwd_is_deterministic(cuda, dtype):
     torch.cuda.synchronize()
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,D", [(4, 8192), (2, 3200), (1, 80)],
+                         ids=["falcon", "hymba", "narrow"])
+def test_mamba_scan_bwd_residency_is_the_plan(cuda, dtype, B, D):
+    """The occupancy calculator's blocks per SM for the instance the
+    wrapper launches equal ``scan_bwd_plan``'s (its shared memory binds),
+    with no local memory (no spill) and at least one cluster resident."""
+    p = ms.bwd_plan(B, D, 16, dtype, cuda)
+    occ = ms.bwd_occupancy(16, p.cluster, dtype)
+    assert occ["smem"] == p.smem
+    assert occ["blocks_per_sm"] == p.resident, (occ, p)
+    assert occ["blocks_per_sm"] * ms._BWD_THREADS // 32 == p.warps
+    assert occ["local_bytes"] == 0, occ
+    assert occ["clusters"] >= 1, occ
 
 
 @pytest.mark.gpu
