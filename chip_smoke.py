@@ -206,7 +206,28 @@
    times them beside the bound over the window's attended pairs, SDPA's
    forward and backward under the same mask, and the same backward on a
    global layer.
-16. Trainer phase: llama-100m through ``launch/train.py``'s restart loop
+16. Enc-dec training phase: full-width, full-depth seamless-m4t-medium
+   (12 encoder and 12 decoder layers, 0.877 B params as fp32 masters from
+   seed 0, bf16 activations, AdamW, remat; B 4 x S 1024 tokens of
+   ``SyntheticLM`` with its (B, 1024, 1024) frames from
+   ``batch_with_frames``): the kernel path against the plain path at 2 +
+   2 layers in fp32 (1e-4, 1e-3) and at full depth in bf16 (2e-2, 5e-2),
+   then 8 steps through ``Trainer.fit`` (lr 3e-4, warmup 2, no
+   checkpoint) and 2 more over frames of 1536 rows, so that the
+   cross-attention runs more keys than queries: losses and grad norms
+   finite, the last of the 8 below step 1's, peak memory under 78 GiB,
+   every attention on a flash kernel forward with lse and backward (the
+   encoder's and the cross-attention bidirectional, ``_bidir`` and over
+   the longer frames ``_cross``; the decoder's causal), each backward
+   launched once a layer a step.  Logs step ms, tokens/s, the share of
+   989 TFLOP/s (the encoder, the cross K/V and their pairs counted over
+   the frames), the host's batch time, peak memory and the step by kind.
+   The kernel phase holds the flash forward (without and with lse) and
+   backward bidirectional at seamless's training shape (B 4, 1024 on
+   1024, 16 on 16, D 64) and over keys of another length (Skv 1536 and
+   600 for 1024 queries, 256 for 1000) in bf16 and fp32, and times each
+   beside its bound and SDPA's forward plus backward.
+17. Trainer phase: llama-100m through ``launch/train.py``'s restart loop
    in process, 30 steps at S 256, B 8, with checkpoints in a temporary
    directory under ``build/``: once uninterrupted, once preempted by a
    flag file at step 10 and resumed from its checkpoint; the resumed
@@ -231,8 +252,9 @@ kernel tolerance, and both backwards are timed in turns.
 
     python3 chip_smoke.py --flash-baseline DIR [DIR ...]
 
-does the same for the causal flash kernel (its flash_attention.cu) at a
-1024-token prompt, B = 1 and 4, and for its backward without a window
+does the same for the flash kernel (its flash_attention.cu) at a
+1024-token prompt, causal at B = 1 and 4 and bidirectional at B = 4, and
+for its backward without a window
 (flash_attention_bwd.cu) at minitron's and granite's training shapes;
 outputs must be bitwise equal.
 """
@@ -1288,8 +1310,9 @@ def run_scan_bwd_compare(torch, others, reps: int = 20):
 def build_other_flash(checkout: Path):
     """Another checkout's flash kernel (its flash_attention.cu and
     common.cu, built into build/other/<name>/) as a function with this
-    checkout's C signature; a kernel whose C function takes no key
-    padding drops it (its callers pass none)."""
+    checkout's C signature; a kernel whose C function takes no key length
+    apart from S (``Skv``) or no key padding drops them (its callers pass
+    Skv = S and no padding)."""
     import ctypes
     from repro_torch.kernels import _build
     kdir = checkout.resolve() / "src" / "repro_torch" / "kernels"
@@ -1302,19 +1325,28 @@ def build_other_flash(checkout: Path):
                    check=True, capture_output=True, text=True)
     fn = ctypes.CDLL(str(lib_path)).flash_attention
     fn.restype = ctypes.c_int
-    padded = "const int* kv_len" in src.read_text()
+    text = src.read_text()
+    padded = "const int* kv_len" in text
+    skv = "int Skv" in text
     P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
-    fn.argtypes = ([P] * 4 + [I] * 5 + [L] * 12 + [I] * 3 + [F]
-                   + ([P, F] if padded else []) + [I, P])
-    return fn if padded else (lambda *a: fn(*a[:25], *a[27:]))
+    fn.argtypes = ([P] * 4 + [I] * (6 if skv else 5) + [L] * 12 + [I] * 3
+                   + [F] + ([P, F] if padded else []) + [I, P])
+
+    def call(*a):
+        # this checkout's arguments: ..., B, S, Skv (a[6]), Hq, ...
+        if not skv:
+            a = a[:6] + a[7:]
+        return fn(*a) if padded else fn(*a[:25], *a[27:])
+    return call
 
 
 def build_other_flash_bwd(checkout: Path):
     """Another checkout's flash backward (its flash_attention_bwd.cu and
     common.cu, built into build/other/<name>/) as a function with this
-    checkout's C signature; a backward whose C function takes no window
-    drops it (the comparison passes none)."""
+    checkout's C signature; a backward whose C function takes no key
+    length apart from S (``Skv``) or no window drops them (the comparison
+    passes Skv = S and no window)."""
     import ctypes
     from repro_torch.kernels import _build
     kdir = checkout.resolve() / "src" / "repro_torch" / "kernels"
@@ -1327,11 +1359,19 @@ def build_other_flash_bwd(checkout: Path):
                    check=True, capture_output=True, text=True)
     fn = ctypes.CDLL(str(lib_path)).flash_attention_bwd
     fn.restype = ctypes.c_int
-    windowed = "int window, int glob" in src.read_text()
+    text = src.read_text()
+    windowed = "int window, int glob" in text
+    skv = "int Skv" in text
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (
-        10 if windowed else 8) + [ctypes.c_void_p])
-    # this checkout's arguments: ..., causal (a[16]), window, glob, n_split
-    return fn if windowed else (lambda *a: fn(*a[:17], *a[19:]))
+        8 + 2 * windowed + skv) + [ctypes.c_void_p])
+
+    def call(*a):
+        # this checkout's arguments: ..., B, S, Skv (a[13]), Hq, Hkv, D,
+        # causal, window, glob, n_split, dtype, stream
+        if not skv:
+            a = a[:13] + a[14:]
+        return fn(*a) if windowed else fn(*a[:17], *a[19:])
+    return call
 
 
 def run_flash_bwd_compare(torch, others, reps: int = 20):
@@ -1380,9 +1420,10 @@ def run_flash_bwd_compare(torch, others, reps: int = 20):
 def run_flash_compare(torch, others, reps: int = 50):
     """``--flash-baseline DIR [DIR ...]``: the causal flash kernel of each
     other checkout (DIR: its root) beside this checkout's, at a 1024-token
-    prompt (minitron-4b's heads, bf16) for B = 1 and 4, on one card in
-    turns (the others, this checkout twice, the others, this checkout);
-    each output must equal this checkout's bitwise."""
+    prompt (minitron-4b's heads, bf16) for B = 1 and 4, and bidirectional
+    at B = 4, on one card in turns (the others, this checkout twice, the
+    others, this checkout); each output must equal this checkout's
+    bitwise."""
     from repro_torch.kernels.flash_attention import ops as fa
     orig = fa._fn
     new = orig()
@@ -1390,26 +1431,29 @@ def run_flash_compare(torch, others, reps: int = 50):
     olds = [(str(o), build_other_flash(o)) for o in others]
     this = [("this checkout", new)]
     try:
-        for B in (1, 4):
+        for B, causal in ((1, True), (4, True), (4, False)):
             q = torch.randn((B, 1024, 24, 128), generator=gen,
                             device="cuda").to(torch.bfloat16)
             k, v = (torch.randn((B, 1024, 8, 128), generator=gen,
                                 device="cuda").to(torch.bfloat16)
                     for _ in range(2))
             fa._fn = lambda: new
-            want = fa.flash_attention(q, k, v)
+            want = fa.flash_attention(q, k, v, causal=causal)
             times = {}
             for label, fn in olds + this + this + olds + this:
                 fa._fn = lambda fn=fn: fn
-                got = fa.flash_attention(q, k, v)
+                got = fa.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 require(torch.equal(got, want),
-                        f"{label}: causal flash differs from this checkout's")
+                        f"{label}: flash (causal {causal}) differs from "
+                        f"this checkout's")
                 times.setdefault(label, []).append(time_ms(
-                    torch, lambda: fa.flash_attention(q, k, v), reps))
-            log(f"flash causal S=1024 B={B} Hq=24 Hkv=8 D=128 bf16, ms per "
-                f"turn: " + "; ".join(f"{lab} {[round(t, 5) for t in ts]}"
-                                      for lab, ts in times.items())
+                    torch, lambda: fa.flash_attention(q, k, v,
+                                                      causal=causal), reps))
+            log(f"flash causal {causal} S=1024 B={B} Hq=24 Hkv=8 D=128 "
+                f"bf16, ms per turn: "
+                + "; ".join(f"{lab} {[round(t, 5) for t in ts]}"
+                            for lab, ts in times.items())
                 + f" ({card_line()})")
     finally:
         fa._fn = orig
@@ -3167,6 +3211,16 @@ BWD_CASES = (("minitron", 4, 1024, 24, 8, 128, True),
 # two round p, ds and every activation at other points over 32 layers;
 # fp32: summation order only
 TRAIN_TOL = {"bfloat16": (2e-2, 5e-2), "float32": (1e-4, 1e-3)}
+# bidirectional flash training cases over keys of another length, at
+# seamless-m4t-medium's heads (16 on 16, D 64): (label, B, Sq, Skv, Hq,
+# Hkv, D) - its training shape (the encoder's self-attention and the
+# decoder's cross-attention over frames of the token length), a longer
+# source, a source that is no multiple of the tile, a query length that
+# is none with a short source
+CROSS_CASES = (("seamless", 4, 1024, 1024, 16, 16, 64),
+               ("Skv 1536", 4, 1024, 1536, 16, 16, 64),
+               ("Skv 600", 4, 1024, 600, 16, 16, 64),
+               ("Sq 1000 Skv 256", 4, 1000, 256, 16, 16, 64))
 TRAIN_B, TRAIN_S = 4, 1024
 TRAIN_STEPS = 8
 TRAINER_ARGS = ["--arch", "llama-100m", "--steps", "30", "--seq-len", "256",
@@ -3174,8 +3228,12 @@ TRAINER_ARGS = ["--arch", "llama-100m", "--steps", "30", "--seq-len", "256",
 TRAINER_PREEMPT_AT = 10
 
 
-def attended_pairs(B: int, S: int, H: int, causal: bool) -> int:
-    return B * H * (S * (S + 1) // 2 if causal else S * S)
+def attended_pairs(B: int, S: int, H: int, causal: bool,
+                   Skv: int = None) -> int:
+    """(query, key) pairs of B x H heads of S queries, over Skv keys where
+    bidirectional (None: S)."""
+    return B * H * (S * (S + 1) // 2 if causal
+                    else S * (S if Skv is None else Skv))
 
 
 def run_flash_bwd_phase(torch, gen, reps: int):
@@ -3189,7 +3247,10 @@ def run_flash_bwd_phase(torch, gen, reps: int):
     times (the backward's also granite's multi-query time, bound and SDPA
     time as ``mqa_ms``, ``mqa_bound_ms`` and ``mqa_library_ms``, and both
     shapes' fp32 times as ``fp32_ms`` and ``mqa_fp32_ms``), and at head
-    dim 192 (the ``_d192`` entries) MLA's, its fp32 time as ``fp32_ms``."""
+    dim 192 (the ``_d192`` entries) MLA's, its fp32 time as ``fp32_ms``.
+    Then ``run_cross_flash_cases``: the bidirectional entries (``_bidir``,
+    seamless's shape) and those over keys of another length
+    (``_cross``)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_lse_ref)
@@ -3242,6 +3303,7 @@ def run_flash_bwd_phase(torch, gen, reps: int):
                     f"{10 * D * pairs / ms / 1e9:.1f} TFLOP/s at 10 D per "
                     f"pair ({card_line()})")
     src = "src/repro_torch/kernels/flash_attention/csrc/"
+    entries = run_cross_flash_cases(torch, gen, reps, src)
     t, mqa, mla = times["minitron"], times["granite MQA"], times["MLA"]
     log(f"flash backward granite MQA: {mqa['bwd']:.4f} ms against its bound "
         f"{mqa['bwd_bound'][0]:.4f} ms and SDPA forward + backward "
@@ -3278,19 +3340,102 @@ def run_flash_bwd_phase(torch, gen, reps: int):
             library_ms=t["sdpa_fwd_bwd"], mqa_ms=mqa["bwd"],
             mqa_bound_ms=mqa["bwd_bound"][0],
             mqa_library_ms=mqa["sdpa_fwd_bwd"], fp32_ms=t["bwd_fp32"],
-            mqa_fp32_ms=mqa["bwd_fp32"])}
+            mqa_fp32_ms=mqa["bwd_fp32"]), **entries}
+
+
+def run_cross_flash_cases(torch, gen, reps: int, src: str):
+    """``CROSS_CASES``, bidirectional: the forward without and with lse and
+    the backward kernels against their plain versions on the same inputs
+    in bf16 and fp32 (the plain backward gets the kernel's out and lse),
+    each case timed in bf16 beside its bound and SDPA's forward plus
+    backward (``is_causal=False``), the fp32 backward at seamless's shape.
+    Returns the entries of the bidirectional instances (``_bidir``:
+    seamless's shape, Skv = Sq) and of those over keys of another length
+    (``_cross``: Skv 1536's times; each case's are logged)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_lse_ref, flash_attention_ref)
+    worst = dict.fromkeys(("lse_bidir", "bwd_bidir", "lse_cross",
+                           "bwd_cross"), 0.0)
+    times = {}
+    for label, B, Sq, Skv, Hq, Hkv, D in CROSS_CASES:
+        kind = "_bidir" if Skv == Sq else "_cross"
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, dout = (torch.randn((B, Sq, Hq, D), generator=gen,
+                                   device="cuda").to(dt) for _ in range(2))
+            k, v = (torch.randn((B, Skv, Hkv, D), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            plain_fwd = fa.flash_attention(q, k, v, causal=False)
+            out, lse = fa.flash_attention_lse(q, k, v, causal=False)
+            out_r, lse_r = flash_attention_lse_ref(q, k, v, causal=False)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=False)
+            want = flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                           causal=False)
+            fwd_r = flash_attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            errs = {"fwd": (plain_fwd.float() - fwd_r.float()).abs().max(
+                    ).item(),
+                    "out": (out.float() - out_r.float()).abs().max().item(),
+                    "lse": (lse - lse_r).abs().max().item()}
+            errs.update({n: (a.float() - b.float()).abs().max().item()
+                         for n, a, b in zip(("dq", "dk", "dv"), got, want)})
+            ok = (agree(plain_fwd, fwd_r, tol) and agree(out, out_r, tol)
+                  and errs["lse"] <= tol
+                  and all(agree(a, b, tol) for a, b in zip(got, want)))
+            log(f"flash bidirectional {label} (B {B}, Sq {Sq}, Skv {Skv}, "
+                f"Hq {Hq}, Hkv {Hkv}, D {D}) {dtype}: max_abs_err "
+                + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f"; tol {tol:.0e} abs + rel (lse abs)")
+            require(ok and all(math.isfinite(e) for e in errs.values()),
+                    f"flash bidirectional {label} {dtype} disagrees with "
+                    f"its plain version")
+            if dtype == "bfloat16":
+                worst["lse" + kind] = max(worst["lse" + kind], errs["fwd"],
+                                          errs["out"], errs["lse"])
+                worst["bwd" + kind] = max(worst["bwd" + kind], errs["dq"],
+                                          errs["dk"], errs["dv"])
+                times[label] = time_flash_training(
+                    torch, fa, (q, k, v, out, dout, lse), False, reps,
+                    flash_attention_bwd_ref, flash_attention_lse_ref)
+            elif label == "seamless":
+                ms = time_ms(torch, lambda: fa.flash_attention_bwd(
+                    q, k, v, out, dout, lse, causal=False), 3)
+                log(f"flash bidirectional {label} backward fp32 (CUDA "
+                    f"cores): {ms:.4f} ms ({card_line()})")
+    entries = {}
+    for kind, label in (("_bidir", "seamless"), ("_cross", "Skv 1536")):
+        t = times[label]
+        entries["flash_attention_lse" + kind] = dict(
+            name="flash_attention_lse" + kind, route="cuda",
+            source=src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:85",
+            max_abs_err=worst["lse" + kind], ms=t["fwd"],
+            plain_ms=t["fwd_plain"], bound_ms=t["fwd_bound"][0],
+            bound_by=t["fwd_bound"][1], library_ms=t["sdpa_fwd"])
+        entries["flash_attention_bwd" + kind] = dict(
+            name="flash_attention_bwd" + kind, route="cuda",
+            source=src + "flash_attention_bwd.cu",
+            replaces="src/repro/models/layers.py:222",
+            max_abs_err=worst["bwd" + kind], ms=t["bwd"],
+            plain_ms=t["bwd_plain"], bound_ms=t["bwd_bound"][0],
+            bound_by=t["bwd_bound"][1], library_ms=t["sdpa_fwd_bwd"])
+    return entries
 
 
 def time_flash_training(torch, fa, tensors, causal, reps, bwd_ref, lse_ref):
     """Device times (ms) of one case: the forward with lse and the backward
     kernels, their plain versions, SDPA's forward and its forward plus
-    backward (GQA by ``enable_gqa``), and the bounds."""
+    backward (GQA by ``enable_gqa``), and the bounds.  k and v may hold
+    another number of keys than q of queries where bidirectional."""
     F = torch.nn.functional
     q, k, v, out, dout, lse = tensors
     B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
     es = q.element_size()
-    pairs = attended_pairs(B, S, Hq, causal)
+    pairs = attended_pairs(B, S, Hq, causal, Skv)
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * es
     r = dict(
         fwd=time_ms(torch, lambda: fa.flash_attention_lse(
@@ -3325,17 +3470,19 @@ def time_flash_training(torch, fa, tensors, causal, reps, bwd_ref, lse_ref):
         q, k, v, out, dout, lse, causal=causal))
     # the backward's grids: dK/dV blocks split over the group's heads,
     # the fold's blocks where it splits, dQ blocks
-    n_split = fa.bwd_plan(B, S, Hq, Hkv, torch.cuda.get_device_properties(
+    n_split = fa.bwd_plan(B, Skv, Hq, Hkv, torch.cuda.get_device_properties(
         0).multi_processor_count, D)
-    tiles = -(-S // 64)
-    fold = -(-2 * B * S * Hkv * D // 4 // 256) if n_split > 1 else 0
-    log(f"flash training timing (B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, "
+    q_tiles, k_tiles = -(-S // 64), -(-Skv // 64)
+    fold = -(-2 * B * Skv * Hkv * D // 4 // 256) if n_split > 1 else 0
+    log(f"flash training timing (B {B}, S {S}, Skv {Skv}, Hq {Hq}, Hkv "
+        f"{Hkv}, D {D}, "
         f"causal {causal}, bf16, {pairs} attended pairs): backward "
         f"{r['bwd']:.4f} ms (bound {r['bwd_bound'][0]:.4f} ms, "
         f"{r['bwd_bound'][1]}; {10 * D * pairs / r['bwd'] / 1e9:.1f} "
         f"TFLOP/s at 10 D per pair, {14 * D * pairs / r['bwd'] / 1e9:.1f} "
         f"at the 14 D it computes; n_split {n_split}, blocks dK/dV "
-        f"{B * Hkv * tiles * n_split}, fold {fold}, dQ {B * Hq * tiles}), "
+        f"{B * Hkv * k_tiles * n_split}, fold {fold}, dQ "
+        f"{B * Hq * q_tiles}), "
         f"plain {r['bwd_plain']:.4f} ms; forward "
         f"with lse {r['fwd']:.4f} ms (bound {r['fwd_bound'][0]:.4f} ms), "
         f"plain {r['fwd_plain']:.4f} ms; ours forward + backward "
@@ -3704,7 +3851,8 @@ def train_path_check(torch, model, params, batch, dtype: str, label: str):
     return kernel[1], plain[1]
 
 
-def training_flops(model, params, T: int, B: int, S: int) -> float:
+def training_flops(model, params, T: int, B: int, S: int,
+                   S_src: int = 0) -> float:
     """Model FLOPs of one remat training step: 8 N T for the weight
     products (6 N T forward and backward, 2 N T the remat forward; N the
     matrices a token passes through: the layers' and the LM head, of an MoE
@@ -3712,7 +3860,11 @@ def training_flops(model, params, T: int, B: int, S: int) -> float:
     shared experts whole), 8 (Dqk + Dv) per attended pair per layer for
     attention (forward, remat forward, backward; 16 D where both are D),
     over the window's pairs on sliding layers and none on attention-free
-    ones.  A Mamba block's scan is elementwise and not counted."""
+    ones.  A Mamba block's scan is elementwise and not counted.  An
+    enc-dec model over ``S_src`` source frames a row adds 8 N_src B S_src
+    (N_src: the encoder layers' matrices and the cross layers' K and V
+    projections, which the source frames pass through), S_src^2 pairs a
+    head in each encoder layer and S S_src in each cross layer."""
     from repro_torch.optim import tree_leaves
     cfg = model.cfg
     layers = params["decoder"]["prologue"] + params["decoder"]["layers"]
@@ -3721,7 +3873,7 @@ def training_flops(model, params, T: int, B: int, S: int) -> float:
         return share * sum(p.numel() for p in tree_leaves(tree)
                            if p.ndim >= 2)
 
-    n_mm = 0.0
+    n_mm = n_src = 0.0
     for lp in layers:
         for key, sub in lp.items():
             if key == "moe":
@@ -3729,6 +3881,10 @@ def training_flops(model, params, T: int, B: int, S: int) -> float:
                 n_mm += sum(matrices(t, mo.top_k / mo.num_experts
                                      if k == "experts" else 1.0)
                             for k, t in sub.items())
+            elif key == "cross":
+                kv = {k: t for k, t in sub.items() if k in ("wk", "wv")}
+                n_src += matrices(kv)
+                n_mm += matrices(sub) - matrices(kv)
             else:
                 n_mm += matrices(sub)
     n_mm += params["lm_head"].numel() if "lm_head" in params else \
@@ -3746,7 +3902,14 @@ def training_flops(model, params, T: int, B: int, S: int) -> float:
                    and i not in cfg.global_attn_layers)
         pairs += (window_pairs(B, S, cfg.num_heads, cfg.window_size)
                   if sliding else attended_pairs(B, S, cfg.num_heads, True))
-    return 8.0 * n_mm * T + 8.0 * (dqk + dv) * pairs
+        if "cross" in lp:
+            pairs += attended_pairs(B, S, cfg.num_heads, False, S_src)
+    if cfg.is_encdec:
+        enc = params["encoder"]["layers"]
+        n_src += sum(matrices(lp) for lp in enc)
+        pairs += len(enc) * attended_pairs(B, S_src, cfg.num_heads, False)
+    return (8.0 * n_mm * T + 8.0 * n_src * B * S_src
+            + 8.0 * (dqk + dv) * pairs)
 
 
 def run_training_phase(torch):
@@ -4337,6 +4500,194 @@ def run_ssm_training_phase(torch, arch: str):
     del model, params, opt_state, batches, step_fn
     free()
     return {k: counts[k] for k in SSM_TRAIN_KERNELS[:4]}
+
+
+# seamless-m4t-medium training: the frames' length of the cross-length
+# leg (the decoder's cross-attention over more keys than queries), its
+# steps, the fp32 check's depth (encoder and decoder layers), and the
+# kernels its path launches
+ENCDEC_CROSS_SRC = 1536
+ENCDEC_CROSS_STEPS = 2
+ENCDEC_CHECK_LAYERS = 2
+ENCDEC_TRAIN_KERNELS = ("flash_attention_lse_bidir",
+                        "flash_attention_bwd_bidir",
+                        "flash_attention_lse_cross",
+                        "flash_attention_bwd_cross",
+                        "flash_attention_lse", "flash_attention_bwd")
+
+
+class SourceFrames:
+    """A pipeline whose batches carry frames of ``S_src`` rows a sequence
+    (a numpy normal seeded by the step) beside the tokens of ``pipe``:
+    enc-dec training over sources of another length than the tokens
+    (``Trainer.fit`` takes a batch's own frames)."""
+
+    def __init__(self, pipe, S_src: int, d_model: int):
+        self.pipe, self.S_src, self.d_model = pipe, S_src, d_model
+
+    def batch(self, step: int):
+        import numpy as np
+        out = self.pipe.batch(step)
+        out["frames"] = np.random.default_rng(step).standard_normal(
+            (out["tokens"].shape[0], self.S_src, self.d_model),
+            dtype=np.float32)
+        return out
+
+
+def run_encdec_training_phase(torch):
+    """Full-width, full-depth seamless-m4t-medium training on one card
+    (12 encoder and 12 decoder layers, fp32 masters from seed 0, bf16
+    activations, AdamW, remat; B 4 x S 1024 tokens of the port's
+    SyntheticLM with its (B, 1024, 1024) frames from ``batch_with_frames``):
+    (b) kernel vs plain path at 2 + 2 layers in fp32 and (a) at full depth
+    in bf16 (``hold_grads``), (c) 8 steps through ``Trainer.fit`` on the
+    kernel path (lr 3e-4, warmup 2, no checkpoint), timed per step, then
+    ``ENCDEC_CROSS_STEPS`` more over frames of ``ENCDEC_CROSS_SRC`` rows,
+    so that the cross-attention runs Skv != Sq; one more step profiled by
+    kind.  Every attention runs a flash kernel forward with lse and
+    backward: the encoder's self-attention and the decoder's
+    cross-attention bidirectional (``_bidir``; ``_cross`` over the longer
+    frames), the decoder's self-attention causal.  Returns the launches of
+    ``ENCDEC_TRAIN_KERNELS`` over (c) and the cross-length steps."""
+    import dataclasses
+    import gc
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer
+
+    card = card_line()
+    full = get_config("seamless-m4t-medium")
+    pipe = make_pipeline(full, TRAIN_S, TRAIN_B, seed=0)
+
+    def batch_of(step):
+        return {k: torch.as_tensor(v, device="cuda") for k, v in
+                pipe.batch_with_frames(step, full.d_model).items()}
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (b) fp32 at 2 encoder and 2 decoder layers, on the empty card
+    L_c = ENCDEC_CHECK_LAYERS
+    cfg_c = dataclasses.replace(full, num_layers=L_c, encoder_layers=L_c,
+                                dtype="float32")
+    model = build_model(cfg_c, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=cfg_c.param_dtype)
+    train_path_check(torch, model, params, batch_of(0), "float32",
+                     f"training check seamless-m4t-medium widths, {L_c} "
+                     f"encoder + {L_c} decoder layers, fp32")
+    del model, params
+    free()
+
+    # (a) bf16 at full depth
+    model = build_model(full, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=full.param_dtype)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in tree_leaves(params))
+    log(f"seamless-m4t-medium training: {full.encoder_layers} encoder + "
+        f"{full.num_layers} decoder layers, {n / 1e9:.3f} B params as fp32 "
+        f"masters ({16 * n / 2**30:.1f} GiB with grads and AdamW moments) "
+        f"in {time.perf_counter() - t0:.2f} s; bf16 activations, AdamW, "
+        f"remat, B {TRAIN_B} x S {TRAIN_S} tokens, frames (B, {TRAIN_S}, "
+        f"{full.d_model})")
+    g = train_path_check(torch, model, params, batch_of(0), "bfloat16",
+                         f"training check seamless-m4t-medium, "
+                         f"{full.encoder_layers} + {full.num_layers} layers, "
+                         f"bf16")
+    del g
+    free()
+
+    # (c) Trainer.fit's steps, each timed from the last one's end (the
+    # hook reads the step's metrics, which waits for the card)
+    marks = []
+
+    def on_step(step, m):
+        marks.append((time.perf_counter(), step, m))
+
+    steps = TRAIN_STEPS
+    tc = TrainConfig(steps=steps, lr=3e-4, warmup=2, log_every=1,
+                     checkpoint_every=0,
+                     ckpt_dir=str(ROOT / "build" / "encdec_ckpt"))
+    trainer = Trainer(model, tc, pipeline=pipe, device="cuda",
+                      on_step=on_step)
+    opt_state = trainer.opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ENCDEC_TRAIN_KERNELS)
+    t0 = time.perf_counter()
+    out = trainer.fit(params, opt_state, 0, steps)
+    trainer.pipeline = SourceFrames(pipe, ENCDEC_CROSS_SRC, full.d_model)
+    t1 = time.perf_counter()
+    cross = trainer.fit(out["params"], out["opt_state"], steps,
+                        steps + ENCDEC_CROSS_STEPS)
+    counts = read_counts(ENCDEC_TRAIN_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = []
+    for i, (t, step, m) in enumerate(marks):
+        start = t0 if i == 0 else t1 if i == steps else marks[i - 1][0]
+        rows.append((t - start, m["loss"], m["grad_norm"], m["lr"]))
+        src = ENCDEC_CROSS_SRC if i >= steps else TRAIN_S
+        log(f"  step {step} (frames of {src}): {(t - start) * 1e3:.1f} ms, "
+            f"loss {m['loss']:.5f}, grad norm {m['grad_norm']:.4f}, lr "
+            f"{m['lr']:.3e}")
+    step_s = statistics.median(r[0] for r in rows[3:steps])
+    t_data = time.perf_counter()
+    pipe.batch_with_frames(steps, full.d_model)
+    t_data = time.perf_counter() - t_data
+    T = TRAIN_B * TRAIN_S
+    flops = training_flops(model, out["params"], T, TRAIN_B, TRAIN_S,
+                           S_src=TRAIN_S)
+    log(f"seamless-m4t-medium training ({full.encoder_layers} + "
+        f"{full.num_layers} layers, B {TRAIN_B} x S {TRAIN_S}, frames of "
+        f"{TRAIN_S}, fp32 masters, bf16, AdamW, remat, Trainer.fit): step "
+        f"{step_s * 1e3:.1f} ms (median of steps 3-{steps - 1}), "
+        f"{T / step_s:.0f} tokens/s (and as many source frames), "
+        f"{flops / 1e12:.1f} TFLOP per step (encoder, decoder, cross and "
+        f"attention) = {flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
+        f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms); the host's batch "
+        f"(tokens and frames, in the step) {t_data * 1e3:.1f} ms; peak "
+        f"memory {peak:.2f} GiB; launches over {steps} + "
+        f"{ENCDEC_CROSS_STEPS} steps {counts} ({card})")
+    params, opt_state = cross["params"], cross["opt_state"]
+    trainer.pipeline = pipe
+    profile_training_step(torch, lambda: trainer.fit(
+        params, opt_state, steps + ENCDEC_CROSS_STEPS,
+        steps + ENCDEC_CROSS_STEPS + 1), step_s)
+    require(out["status"] == cross["status"] == "completed"
+            and len(rows) == steps + ENCDEC_CROSS_STEPS,
+            f"seamless-m4t-medium training: {len(rows)} steps, status "
+            f"{out['status']}, {cross['status']}")
+    require(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
+            "seamless-m4t-medium training: a loss or grad norm is not "
+            "finite")
+    require(rows[steps - 1][1] < rows[1][1],
+            f"seamless-m4t-medium training: the last loss "
+            f"{rows[steps - 1][1]:.5f} is not below step 1's "
+            f"{rows[1][1]:.5f}")
+    require(peak < 78, f"seamless-m4t-medium training: peak memory "
+            f"{peak:.2f} GiB")
+    Le, Ld, n_all = full.encoder_layers, full.num_layers, steps + \
+        ENCDEC_CROSS_STEPS
+    want_bwd = {"flash_attention_bwd_bidir": Le * n_all + Ld * steps,
+                "flash_attention_bwd_cross": Ld * ENCDEC_CROSS_STEPS,
+                "flash_attention_bwd": Ld * n_all}
+    require(all(counts[k] == v for k, v in want_bwd.items())
+            and all(counts[k.replace("_bwd", "_lse")] >= 2 * v
+                    for k, v in want_bwd.items()),
+            f"seamless-m4t-medium training launched {counts}, backward "
+            f"launches wanted {want_bwd}, the forward's twice as many "
+            f"(remat)")
+    del model, params, opt_state, out, cross, trainer
+    free()
+    return counts
 
 
 def profile_training_step(torch, run, wall: float):
@@ -5313,6 +5664,10 @@ def main() -> int:
         for name, n in run_ssm_training_phase(torch, arch).items():
             launches[name] = launches.get(name, 0) + n
         log(f"{arch} training phase done at {phase_s()}")
+    # enc-dec training: full-width, full-depth seamless-m4t-medium
+    for name, n in run_encdec_training_phase(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"seamless-m4t-medium training phase done at {phase_s()}")
     run_trainer_phase(torch)
     log(f"trainer phase done at {phase_s()}")
 

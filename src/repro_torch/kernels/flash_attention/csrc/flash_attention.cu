@@ -3,10 +3,16 @@
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention / _flash_kernel), and covers the wider contract of the
 // reference's layers.blockwise_attention: q (B, S, Hq, D) and k, v
-// (B, S, Hkv, D) in the JAX layout, GQA by head index (kv head = h / G),
+// (B, Skv, Hkv, D) in the JAX layout, GQA by head index (kv head = h / G),
 // causal or bidirectional, a sliding window with a global-layer bypass, the
-// logit soft-cap, S that is not a multiple of the tile, and per-row key
-// padding: with kv_len, key j of row b counts only where j < kv_len[b].
+// logit soft-cap, lengths that are not a multiple of the tile, and per-row
+// key padding: with kv_len, key j of row b counts only where j < kv_len[b].
+// Skv differs from S only where the mask is bidirectional, has no window
+// and no key padding (cross-attention over an encoder output; the wrapper
+// raises otherwise): the query side (tiles, rows, lse) runs over S, the
+// key side (tile loop, last-tile mask) over Skv.  Both kernels take it as
+// a template flag (XKV): the launches with Skv = S compile to the code
+// they had before it (a runtime Skv cost them 1-2% on an H100).
 //
 // Key padding ends each block's key loop at its row's last valid tile, so
 // a short row of a long bucket reads and multiplies only its own keys.  A
@@ -95,26 +101,27 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* out;
-  int S, Hq, Hkv, D;
+  int S, Skv, Hq, Hkv, D;   // S queries, Skv keys
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   int causal, window, glob;
   float logit_cap, scale;
-  const int* kv_len;   // (B,) valid keys per row, or null: all S
+  const int* kv_len;   // (B,) valid keys per row (Skv = S), or null
   float empty_den;     // a length-0 row's divisor (see the top)
   float* lse;          // (B, S, Hq) fp32, written where LSE
 };
 
-// Valid keys of row b: kv_len[b] clamped to [0, S], or S without padding.
-template <bool KV>
+// Valid keys of row b: kv_len[b] clamped to [0, S], or all keys (S, or
+// Skv where XKV) without padding.
+template <bool KV, bool XKV>
 __device__ inline int row_keys(const FlashArgs& a, int b) {
-  return KV ? min(max(a.kv_len[b], 0), a.S) : a.S;
+  return KV ? min(max(a.kv_len[b], 0), a.S) : XKV ? a.Skv : a.S;
 }
 
 template <typename T, bool KV, int kMaxWC,   // output words per thread
-          bool LSE>
+          bool LSE, bool XKV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt(FlashArgs a) {
   constexpr int E = Word<T>::N;
@@ -155,7 +162,7 @@ flash_attention_simt(FlashArgs a) {
 
   const int q_hi = min(q_lo + kBQ, a.S) - 1;
   // a length-0 row attends every key alike, as the plain version does
-  const int nk = row_keys<KV>(a, b);
+  const int nk = row_keys<KV, XKV>(a, b);
   const bool uniform = KV && nk == 0;
   const int kend = uniform ? a.S : nk;
   const int kt_end = (a.causal && !uniform) ? min(q_hi / kBK + 1, (kend + kBK - 1) / kBK)
@@ -387,7 +394,7 @@ __device__ inline void load_a(uint32_t (&r)[4], const __nv_bfloat16* base,
                      (lane >> 4) * 8);
 }
 
-template <int DP, bool KV, bool LSE>
+template <int DP, bool KV, bool LSE, bool XKV>
 __global__ void __launch_bounds__(MmaTile<DP>::kThreads)
 flash_attention_mma(FlashArgs a) {
   using M = MmaTile<DP>;
@@ -416,7 +423,7 @@ flash_attention_mma(FlashArgs a) {
 
   const int q_hi = min(q_lo + kBQ, a.S) - 1;
   // a length-0 row attends every key alike, as the plain version does
-  const int nk = row_keys<KV>(a, b);
+  const int nk = row_keys<KV, XKV>(a, b);
   const bool uniform = KV && nk == 0;
   const int kend = uniform ? a.S : nk;
   const int kt_end = (a.causal && !uniform) ? min(q_hi / kBK + 1, (kend + kBK - 1) / kBK)
@@ -647,9 +654,12 @@ flash_attention_mma(FlashArgs a) {
 template <int DP>
 cudaError_t launch_mma(const FlashArgs& a, int B, cudaStream_t stream) {
   using M = MmaTile<DP>;
-  auto kernel = a.kv_len ? &flash_attention_mma<DP, true, false>
-               : a.lse  ? &flash_attention_mma<DP, false, true>
-                        : &flash_attention_mma<DP, false, false>;
+  const bool xkv = a.Skv != a.S;
+  auto kernel = a.kv_len ? &flash_attention_mma<DP, true, false, false>
+               : a.lse  ? (xkv ? &flash_attention_mma<DP, false, true, true>
+                               : &flash_attention_mma<DP, false, true, false>)
+                        : (xkv ? &flash_attention_mma<DP, false, false, true>
+                               : &flash_attention_mma<DP, false, false, false>);
   cudaError_t err = allow_smem(kernel, M::kSmem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * a.Hq, (a.S + M::kBQ - 1) / M::kBQ);
@@ -662,9 +672,13 @@ cudaError_t launch_simt(const FlashArgs& a, int B, cudaStream_t stream) {
   const int pitch = a.D + 1;
   const size_t bytes = 4 * (static_cast<size_t>(kBQ + 2 * kBK) * pitch +
                             static_cast<size_t>(kBQ) * (kBK + 1));
-  auto kernel = a.kv_len ? &flash_attention_simt<float, true, kMaxWC, false>
-               : a.lse  ? &flash_attention_simt<float, false, kMaxWC, true>
-                        : &flash_attention_simt<float, false, kMaxWC, false>;
+  using F = float;
+  const bool xkv = a.Skv != a.S;
+  auto kernel = a.kv_len ? &flash_attention_simt<F, true, kMaxWC, false, false>
+               : a.lse  ? (xkv ? &flash_attention_simt<F, false, kMaxWC, true, true>
+                               : &flash_attention_simt<F, false, kMaxWC, true, false>)
+                        : (xkv ? &flash_attention_simt<F, false, kMaxWC, false, true>
+                               : &flash_attention_simt<F, false, kMaxWC, false, false>);
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * a.Hq, (a.S + kBQ - 1) / kBQ);
@@ -696,19 +710,20 @@ int dispatch(const FlashArgs& a, int B, int dtype, cudaStream_t s) {
 }  // namespace
 }  // namespace repro
 
-// Plain C entry points.  q: (B, S, Hq, D), k, v: (B, S, Hkv, D), out:
+// Plain C entry points.  q: (B, S, Hq, D), k, v: (B, Skv, Hkv, D), out:
 // (B, S, Hq, D), each with its (batch, seq, head) strides and a unit
-// stride on D; kv_len: (B,) int32 on the device, or null.  Each returns
-// cudaGetLastError() after the launch.
+// stride on D; Skv = S where causal, windowed or key-padded; kv_len: (B,)
+// int32 on the device, or null.  Each returns cudaGetLastError() after
+// the launch.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int S,
-    int Hq, int Hkv, int D, long long q_sb, long long q_ss, long long q_sh,
+    int Skv, int Hq, int Hkv, int D, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, int causal, int window, int glob, float logit_cap,
     const int* kv_len, float empty_den, int dtype, void* stream) {
   using namespace repro;
-  FlashArgs a{q, k, v, out, S, Hq, Hkv, D,
+  FlashArgs a{q, k, v, out, S, Skv, Hq, Hkv, D,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
               o_sb, o_ss, o_sh, causal, window, glob, logit_cap,
               1.0f / sqrtf(static_cast<float>(D)), kv_len, empty_den,
@@ -720,13 +735,13 @@ extern "C" int flash_attention(
 // tensor (the training forward).
 extern "C" int flash_attention_lse(
     const void* q, const void* k, const void* v, void* out, float* lse,
-    int B, int S, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
+    int B, int S, int Skv, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, int glob,
     float logit_cap, int dtype, void* stream) {
   using namespace repro;
-  FlashArgs a{q, k, v, out, S, Hq, Hkv, D,
+  FlashArgs a{q, k, v, out, S, Skv, Hq, Hkv, D,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
               o_sb, o_ss, o_sh, causal, window, glob, logit_cap,
               1.0f / sqrtf(static_cast<float>(D)), nullptr, 0.f, lse};

@@ -6,11 +6,14 @@
 // of storing the probabilities.  The Pallas kernel
 // src/repro/kernels/flash_attention/kernel.py implements that contract's
 // forward; this file is the backward's counterpart.  Contract: q, dout,
-// dq (B, S, Hq, D) and k, v, dk, dv (B, S, Hkv, D), contiguous in the JAX
+// dq (B, S, Hq, D) and k, v, dk, dv (B, Skv, Hkv, D), contiguous in the JAX
 // layout; GQA by head index (kv head = h / G, multi-query included);
 // causal or bidirectional; a sliding window (key j seen from query i
 // where j > i - window, the reference's mask) with the global-layer
-// bypass; S that is not a multiple of the tile; head dims up to 192 whose
+// bypass; Skv apart from S where the mask is bidirectional without a
+// window (cross-attention: query tiles, rows, lse and delta run over S,
+// key tiles, the last key tile's mask and dK/dV over Skv); lengths that
+// are not a multiple of the tile; head dims up to 192 whose
 // rows are whole 16-byte chunks (192: MLA's q/k head dim, V zero-padded to
 // it); fp32 or bf16.  The wrapper raises on a logit cap and key padding.
 //
@@ -47,7 +50,7 @@
 //   dK and dV stays in registers.  With n_split > 1 (the wrapper's
 //   bwd_plan: too few (batch, kv head, key tile) blocks to fill the card,
 //   as under multi-query attention) each split writes fp32 partials to a
-//   scratch of (n_split, B, S, Hkv, D) for each of dK and dV, and a third
+//   scratch of (n_split, B, Skv, Hkv, D) for each of dK and dV, and a third
 //   launch, flash_bwd_fold, sums them in split order and rounds once.
 //
 // bf16 (flash_bwd_*_mma): FlashAttention-2's backward with mma.sync
@@ -105,8 +108,8 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  float* partial;       // (2, n_split, B, S, Hkv, D) fp32 where n_split > 1
-  int B, S, Hq, Hkv, D, causal, n_split;
+  float* partial;       // (2, n_split, B, Skv, Hkv, D) fp32 where n_split > 1
+  int B, S, Skv, Hq, Hkv, D, causal, n_split;   // S queries, Skv keys
   float scale;
   int window;           // 0: none (or a global layer)
 };
@@ -142,9 +145,9 @@ template <> __device__ inline __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 __device__ inline void store_partial(const BwdArgs& a, int split, int b,
                                      int hk, int row, int d, float k0,
                                      float k1, float v0, float v1) {
-  const long long n = static_cast<long long>(a.B) * a.S * a.Hkv * a.D;
+  const long long n = static_cast<long long>(a.B) * a.Skv * a.Hkv * a.D;
   float* pk = a.partial + split * n +
-              ((static_cast<long long>(b) * a.S + row) * a.Hkv + hk) * a.D + d;
+              ((static_cast<long long>(b) * a.Skv + row) * a.Hkv + hk) * a.D + d;
   *reinterpret_cast<float2*>(pk) = make_float2(k0, k1);
   *reinterpret_cast<float2*>(pk + a.n_split * n) = make_float2(v0, v1);
 }
@@ -234,8 +237,8 @@ flash_bwd_dkdv_simt(BwdArgs a) {
 
   const long long kv_row = static_cast<long long>(a.Hkv) * D;
   const long long q_row = static_cast<long long>(a.Hq) * D;
-  const int kvalid = min(kT, a.S - k_lo);
-  const long long kv_off = (static_cast<long long>(b) * a.S + k_lo) * kv_row + hk * D;
+  const int kvalid = min(kT, a.Skv - k_lo);
+  const long long kv_off = (static_cast<long long>(b) * a.Skv + k_lo) * kv_row + hk * D;
   load_tile(Ks, static_cast<const float*>(a.k) + kv_off, kv_row, kvalid, D, tid);
   load_tile(Vs, static_cast<const float*>(a.v) + kv_off, kv_row, kvalid, D, tid);
 
@@ -310,7 +313,7 @@ flash_bwd_dkdv_simt(BwdArgs a) {
   }
 
   // a thread's columns are tx + 16 j: one value at a time
-  const long long n = static_cast<long long>(a.B) * a.S * a.Hkv * D;
+  const long long n = static_cast<long long>(a.B) * a.Skv * a.Hkv * D;
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     const int kr = ty * kR + i;
@@ -382,12 +385,12 @@ flash_bwd_dq_simt(BwdArgs a) {
 #pragma unroll
     for (int j = 0; j < kJ; ++j) dq[i][j] = 0.f;
 
-  const int nkt = (a.S + kT - 1) / kT;
+  const int nkt = (a.Skv + kT - 1) / kT;
   const int kt_end = a.causal ? min(nkt, blockIdx.y + 1) : nkt;
   for (int kt = window_kt_begin(a, q_lo); kt < kt_end; ++kt) {
     const int k_lo = kt * kT;
-    const int kvalid = min(kT, a.S - k_lo);
-    const long long kv_off = (static_cast<long long>(b) * a.S + k_lo) * kv_row + hk * D;
+    const int kvalid = min(kT, a.Skv - k_lo);
+    const long long kv_off = (static_cast<long long>(b) * a.Skv + k_lo) * kv_row + hk * D;
     __syncthreads();   // the previous tile's readers are done
     load_tile(Ks, static_cast<const float*>(a.k) + kv_off, kv_row, kvalid, D, tid);
     load_tile(Vs, static_cast<const float*>(a.v) + kv_off, kv_row, kvalid, D, tid);
@@ -584,10 +587,10 @@ flash_bwd_dkdv_mma(BwdArgs a) {
   const long long kv_row = static_cast<long long>(a.Hkv) * a.D * es;
   const long long q_row = static_cast<long long>(a.Hq) * a.D * es;
   const RowCopy<DP> copy(tid, a.D / 8);
-  const long long kv_off = (static_cast<long long>(b) * a.S + k_lo) * kv_row +
+  const long long kv_off = (static_cast<long long>(b) * a.Skv + k_lo) * kv_row +
                            hk * a.D * es;
-  copy.issue(sK, static_cast<const char*>(a.k) + kv_off, kv_row, a.S - k_lo, a.k);
-  copy.issue(sV, static_cast<const char*>(a.v) + kv_off, kv_row, a.S - k_lo, a.v);
+  copy.issue(sK, static_cast<const char*>(a.k) + kv_off, kv_row, a.Skv - k_lo, a.k);
+  copy.issue(sV, static_cast<const char*>(a.v) + kv_off, kv_row, a.Skv - k_lo, a.v);
 
   // stage it % 2 holds head split * gs + it / n_qt, query tile qt0 + it % n_qt
   auto load_stage = [&](int it) {
@@ -709,14 +712,14 @@ flash_bwd_dkdv_mma(BwdArgs a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kpos = k_lo + wrow + g + r * 8;
-    if (kpos < a.S) {
+    if (kpos < a.Skv) {
 #pragma unroll
       for (int j = 0; j < kND; ++j) {
         const int d = j * 8 + 2 * t;
         if (d < a.D) {
           if (a.n_split == 1) {
             const long long idx =
-                ((static_cast<long long>(b) * a.S + kpos) * a.Hkv + hk) * a.D + d;
+                ((static_cast<long long>(b) * a.Skv + kpos) * a.Hkv + hk) * a.D + d;
             *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.dk) + idx) =
                 pack_bf16(dk[j][2 * r] * a.scale, dk[j][2 * r + 1] * a.scale);
             *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.dv) + idx) =
@@ -757,7 +760,7 @@ flash_bwd_dq_mma(BwdArgs a) {
   bf16* sO = sQ + kTile;
   bf16* ring = sO + kTile;                     // stage: K tile, V tile
 
-  const int nkt = (a.S + kT - 1) / kT;
+  const int nkt = (a.Skv + kT - 1) / kT;
   const int kt0 = window_kt_begin(a, q_lo);     // the window's first key tile
   const int n_it = (a.causal ? min(nkt, q_lo / kT + 1) : nkt) - kt0;
   const long long es = sizeof(bf16);
@@ -768,15 +771,15 @@ flash_bwd_dq_mma(BwdArgs a) {
                           h * a.D * es;
   copy.issue(sQ, static_cast<const char*>(a.q) + q_off, q_row, a.S - q_lo, a.q);
   copy.issue(sO, static_cast<const char*>(a.dout) + q_off, q_row, a.S - q_lo, a.dout);
-  const char* kb = static_cast<const char*>(a.k) + static_cast<long long>(b) * a.S * kv_row +
+  const char* kb = static_cast<const char*>(a.k) + static_cast<long long>(b) * a.Skv * kv_row +
                    hk * a.D * es;
-  const char* vb = static_cast<const char*>(a.v) + static_cast<long long>(b) * a.S * kv_row +
+  const char* vb = static_cast<const char*>(a.v) + static_cast<long long>(b) * a.Skv * kv_row +
                    hk * a.D * es;
   auto load_stage = [&](int it) {
     bf16* dst = ring + (it % 2) * 2 * kTile;
     const int k_lo = (kt0 + it) * kT;
-    copy.issue(dst, kb + k_lo * kv_row, kv_row, a.S - k_lo, a.k);
-    copy.issue(dst + kTile, vb + k_lo * kv_row, kv_row, a.S - k_lo, a.v);
+    copy.issue(dst, kb + k_lo * kv_row, kv_row, a.Skv - k_lo, a.k);
+    copy.issue(dst + kTile, vb + k_lo * kv_row, kv_row, a.Skv - k_lo, a.v);
   };
   if (n_it > 0) load_stage(0);
   cp_async_commit();   // Q, dO and stage 0
@@ -870,7 +873,7 @@ flash_bwd_dq_mma(BwdArgs a) {
           if constexpr (MASK) {
             const int qpos = q_lo + wrow + g + (e >> 1) * 8;
             const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
-            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos)) &
+            const bool ok = (kpos < a.Skv) & (!a.causal | (kpos <= qpos)) &
                             in_window(a, qpos, kpos);
             p = ok ? p : 0.f;
           }
@@ -892,7 +895,7 @@ flash_bwd_dq_mma(BwdArgs a) {
       }
     };
     // only tiles that cross the diagonal or S are masked
-    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.S ||
+    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.Skv ||
         window_cuts(a, q_lo, k_lo)) {
       tile(Flag<true>());
     } else {
@@ -1035,12 +1038,12 @@ flash_bwd_dkdv_mma8(BwdArgs a) {
   const long long kv_row = static_cast<long long>(a.Hkv) * a.D * es;
   const long long q_row = static_cast<long long>(a.Hq) * a.D * es;
   const int chunks = a.D / 8;
-  const long long kv_off = (static_cast<long long>(b) * a.S + k_lo) * kv_row +
+  const long long kv_off = (static_cast<long long>(b) * a.Skv + k_lo) * kv_row +
                            hk * a.D * es;
   wide_issue<DP>(sK, static_cast<const char*>(a.k) + kv_off, kv_row,
-                 a.S - k_lo, chunks, a.k, tid);
+                 a.Skv - k_lo, chunks, a.k, tid);
   wide_issue<DP>(sV, static_cast<const char*>(a.v) + kv_off, kv_row,
-                 a.S - k_lo, chunks, a.v, tid);
+                 a.Skv - k_lo, chunks, a.v, tid);
 
   auto load_stage = [&](int it) {
     const int j = it / n_qt;
@@ -1176,14 +1179,14 @@ flash_bwd_dkdv_mma8(BwdArgs a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kpos = k_lo + wrow + g + r * 8;
-    if (kpos < a.S) {
+    if (kpos < a.Skv) {
 #pragma unroll
       for (int j = 0; j < kND; ++j) {
         const int d = half * M::kCols + j * 8 + 2 * t;
         if (d < a.D) {
           if (a.n_split == 1) {
             const long long idx =
-                ((static_cast<long long>(b) * a.S + kpos) * a.Hkv + hk) * a.D + d;
+                ((static_cast<long long>(b) * a.Skv + kpos) * a.Hkv + hk) * a.D + d;
             *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.dk) + idx) =
                 pack_bf16(dk[j][2 * r] * a.scale, dk[j][2 * r + 1] * a.scale);
             *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.dv) + idx) =
@@ -1224,7 +1227,7 @@ flash_bwd_dq_mma8(BwdArgs a) {
   bf16* sO = sQ + kTile;
   bf16* ring = sO + kTile;                     // stage: K tile, V tile
 
-  const int nkt = (a.S + kT - 1) / kT;
+  const int nkt = (a.Skv + kT - 1) / kT;
   const int kt0 = window_kt_begin(a, q_lo);     // the window's first key tile
   const int n_it = (a.causal ? min(nkt, q_lo / kT + 1) : nkt) - kt0;
   const long long es = sizeof(bf16);
@@ -1237,16 +1240,16 @@ flash_bwd_dq_mma8(BwdArgs a) {
                  chunks, a.q, tid);
   wide_issue<DP>(sO, static_cast<const char*>(a.dout) + q_off, q_row,
                  a.S - q_lo, chunks, a.dout, tid);
-  const char* kb = static_cast<const char*>(a.k) + static_cast<long long>(b) * a.S * kv_row +
+  const char* kb = static_cast<const char*>(a.k) + static_cast<long long>(b) * a.Skv * kv_row +
                    hk * a.D * es;
-  const char* vb = static_cast<const char*>(a.v) + static_cast<long long>(b) * a.S * kv_row +
+  const char* vb = static_cast<const char*>(a.v) + static_cast<long long>(b) * a.Skv * kv_row +
                    hk * a.D * es;
   auto load_stage = [&](int it) {
     bf16* dst = ring + (it % 2) * 2 * kTile;
     const int k_lo = (kt0 + it) * kT;
-    wide_issue<DP>(dst, kb + k_lo * kv_row, kv_row, a.S - k_lo, chunks, a.k,
+    wide_issue<DP>(dst, kb + k_lo * kv_row, kv_row, a.Skv - k_lo, chunks, a.k,
                    tid);
-    wide_issue<DP>(dst + kTile, vb + k_lo * kv_row, kv_row, a.S - k_lo,
+    wide_issue<DP>(dst + kTile, vb + k_lo * kv_row, kv_row, a.Skv - k_lo,
                    chunks, a.v, tid);
   };
   if (n_it > 0) load_stage(0);
@@ -1345,7 +1348,7 @@ flash_bwd_dq_mma8(BwdArgs a) {
           if constexpr (MASK) {
             const int qpos = q_lo + wrow + g + (e >> 1) * 8;
             const int kpos = k_lo + k0 + j * 8 + 2 * t + (e & 1);
-            const bool ok = (kpos < a.S) & (!a.causal | (kpos <= qpos)) &
+            const bool ok = (kpos < a.Skv) & (!a.causal | (kpos <= qpos)) &
                             in_window(a, qpos, kpos);
             p = ok ? p : 0.f;
           }
@@ -1366,7 +1369,7 @@ flash_bwd_dq_mma8(BwdArgs a) {
         }
       }
     };
-    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.S ||
+    if ((a.causal && k_lo + kT - 1 > q_lo) || k_lo + kT > a.Skv ||
         window_cuts(a, q_lo, k_lo)) {
       tile(Flag<true>());
     } else {
@@ -1420,7 +1423,7 @@ constexpr int kFoldThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kFoldThreads)
 flash_bwd_fold(BwdArgs a) {
-  const long long n = static_cast<long long>(a.B) * a.S * a.Hkv * a.D;
+  const long long n = static_cast<long long>(a.B) * a.Skv * a.Hkv * a.D;
   const long long i4 = static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
   if (i4 >= n / 2) return;                 // n / 4 quads for each of dk, dv
   const int which = i4 >= n / 4;           // 0: dk, 1: dv
@@ -1444,7 +1447,7 @@ flash_bwd_fold(BwdArgs a) {
 template <typename T>
 cudaError_t launch_fold(const BwdArgs& a, cudaStream_t stream) {
   if (a.n_split == 1) return cudaSuccess;
-  const long long quads = static_cast<long long>(a.B) * a.S * a.Hkv * a.D / 2;
+  const long long quads = static_cast<long long>(a.B) * a.Skv * a.Hkv * a.D / 2;
   const int blocks = static_cast<int>((quads + kFoldThreads - 1) / kFoldThreads);
   flash_bwd_fold<T><<<blocks, kFoldThreads, 0, stream>>>(a);
   return cudaGetLastError();
@@ -1453,7 +1456,7 @@ cudaError_t launch_fold(const BwdArgs& a, cudaStream_t stream) {
 template <int kJ>
 cudaError_t launch_simt(const BwdArgs& a, cudaStream_t stream) {
   const int P = a.D + 1;
-  const int nt = (a.S + kT - 1) / kT;
+  const int nq = (a.S + kT - 1) / kT, nk = (a.Skv + kT - 1) / kT;
   const size_t dkdv_bytes =
       sizeof(float) * (4 * kT * P + 2 * kT * kPP + 2 * kT);
   const size_t dq_bytes = sizeof(float) * (4 * kT * P + kT * kPP + 2 * kT);
@@ -1461,10 +1464,10 @@ cudaError_t launch_simt(const BwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   err = allow_smem(&flash_bwd_dq_simt<kJ>, dq_bytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_simt<kJ><<<dim3(a.B * a.Hq, nt), kSimtThreads, dq_bytes, stream>>>(a);
+  flash_bwd_dq_simt<kJ><<<dim3(a.B * a.Hq, nq), kSimtThreads, dq_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_simt<kJ><<<dim3(a.B * a.Hkv * a.n_split, nt), kSimtThreads,
+  flash_bwd_dkdv_simt<kJ><<<dim3(a.B * a.Hkv * a.n_split, nk), kSimtThreads,
                             dkdv_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1474,16 +1477,16 @@ cudaError_t launch_simt(const BwdArgs& a, cudaStream_t stream) {
 template <int DP>
 cudaError_t launch_mma8(const BwdArgs& a, cudaStream_t stream) {
   using M = WideTile<DP>;
-  const int nt = (a.S + kT - 1) / kT;
+  const int nq = (a.S + kT - 1) / kT, nk = (a.Skv + kT - 1) / kT;
   cudaError_t err = allow_smem(&flash_bwd_dkdv_mma8<DP>, M::kSmemDkdv);
   if (err != cudaSuccess) return err;
   err = allow_smem(&flash_bwd_dq_mma8<DP>, M::kSmemDq);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_mma8<DP><<<dim3(a.B * a.Hq, nt), kWideThreads, M::kSmemDq,
+  flash_bwd_dq_mma8<DP><<<dim3(a.B * a.Hq, nq), kWideThreads, M::kSmemDq,
                           stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_mma8<DP><<<dim3(a.B * a.Hkv * a.n_split, nt), kWideThreads,
+  flash_bwd_dkdv_mma8<DP><<<dim3(a.B * a.Hkv * a.n_split, nk), kWideThreads,
                             M::kSmemDkdv, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1493,15 +1496,15 @@ cudaError_t launch_mma8(const BwdArgs& a, cudaStream_t stream) {
 template <int DP>
 cudaError_t launch_mma(const BwdArgs& a, cudaStream_t stream) {
   using M = BwdTile<DP>;
-  const int nt = (a.S + kT - 1) / kT;
+  const int nq = (a.S + kT - 1) / kT, nk = (a.Skv + kT - 1) / kT;
   cudaError_t err = allow_smem(&flash_bwd_dkdv_mma<DP>, M::kSmem);
   if (err != cudaSuccess) return err;
   err = allow_smem(&flash_bwd_dq_mma<DP>, M::kSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_mma<DP><<<dim3(a.B * a.Hq, nt), kMmaThreads, M::kSmem, stream>>>(a);
+  flash_bwd_dq_mma<DP><<<dim3(a.B * a.Hq, nq), kMmaThreads, M::kSmem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_mma<DP><<<dim3(a.B * a.Hkv * a.n_split, nt), kMmaThreads,
+  flash_bwd_dkdv_mma<DP><<<dim3(a.B * a.Hkv * a.n_split, nk), kMmaThreads,
                            M::kSmem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1512,23 +1515,24 @@ cudaError_t launch_mma(const BwdArgs& a, cudaStream_t stream) {
 }  // namespace repro
 
 // Plain C entry point.  q, dout, out, dq: contiguous (B, S, Hq, D); k, v,
-// dk, dv: contiguous (B, S, Hkv, D); lse: contiguous (B, S, Hq) fp32, and
-// delta fp32 scratch of the same size; window: the sliding window (0:
-// none), ignored where glob; n_split: a divisor of Hq / Hkv, and
-// with n_split > 1 partial: fp32 scratch of 2 * n_split * B * S * Hkv * D.
+// dk, dv: contiguous (B, Skv, Hkv, D), Skv = S where causal or windowed;
+// lse: contiguous (B, S, Hq) fp32, and delta fp32 scratch of the same
+// size; window: the sliding window (0: none), ignored where glob; n_split:
+// a divisor of Hq / Hkv, and with n_split > 1 partial: fp32 scratch of
+// 2 * n_split * B * Skv * Hkv * D.
 // Launches the dQ kernel, the dK/dV kernel, then the fold where n_split >
 // 1, on `stream`; returns cudaGetLastError() after them.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* out, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, float* partial, int B, int S, int Hq, int Hkv, int D,
+    void* dv, float* partial, int B, int S, int Skv, int Hq, int Hkv, int D,
     int causal, int window, int glob, int n_split, int dtype, void* stream) {
   using namespace repro;
-  BwdArgs a{q, k, v, dout, out, lse, delta, dq, dk, dv, partial, B, S, Hq,
-            Hkv, D, causal, n_split, 1.0f / sqrtf(static_cast<float>(D)),
+  BwdArgs a{q, k, v, dout, out, lse, delta, dq, dk, dv, partial, B, S, Skv,
+            Hq, Hkv, D, causal, n_split, 1.0f / sqrtf(static_cast<float>(D)),
             window > 0 && !glob ? window : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || S == 0) return 0;
+  if (B == 0 || S == 0 || Skv == 0) return 0;
   if (D <= 0 || D > 192 || Hkv <= 0 || Hq % Hkv || n_split <= 0 ||
       (Hq / Hkv) % n_split || (n_split > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -2,12 +2,16 @@
 
 Replaces the Pallas kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention`` / ``_flash_kernel``) and covers the contract of the
-reference's ``layers.blockwise_attention`` that ``gqa_prefill`` and the
-encoders' ``gqa_fwd`` run: GQA by head index, causal or bidirectional,
-sliding window with a global-layer bypass, logit soft-cap, lengths that
-are not a multiple of the tile, and per-row key padding (``kv_len``: key
-``j`` of row ``b`` counts only where ``j < kv_len[b]``; each row's key loop
-ends at its last valid tile).
+reference's ``layers.blockwise_attention`` that ``gqa_prefill``, the
+encoders' ``gqa_fwd`` and training's ``cross_fwd`` run: GQA by head index,
+causal or bidirectional, sliding window with a global-layer bypass, logit
+soft-cap, lengths that are not a multiple of the tile, per-row key padding
+(``kv_len``: key ``j`` of row ``b`` counts only where ``j < kv_len[b]``;
+each row's key loop ends at its last valid tile), and keys of another
+length than the queries (k, v (B, Skv, Hkv, D): cross-attention over an
+encoder output) where the mask is bidirectional without a window or key
+padding; causal or windowed calls with Skv != S raise, as the reference
+asks for neither without a ``q_offset``, which the kernels do not take.
 On the H100 the kernel is bound by operations.  bf16 runs on the tensor
 cores (mma.sync, K and V staged by cp.async, the softmax in registers);
 fp32 keeps a CUDA-core kernel, since TF32 would change its numerics.  Both
@@ -23,17 +27,19 @@ launches.
 
 Training: where autograd records the call (grad mode on and q, k or v
 requiring grad), a CUDA call runs ``FlashAttentionFn``.  Its forward
-launches the same kernel with the log-sum-exp output (``lse_launches``
-up to head dim 128, ``lse_d192_launches`` above, ``lse_window_launches``
-with a sliding window); its backward launches the backward kernels
-(csrc/flash_attention_bwd.cu; ``bwd_launches`` per call up to head dim
-128, ``bwd_d192_launches`` above, to 192: MLA's q/k head dim,
-``bwd_window_launches`` with a sliding window), which take causal or
-bidirectional GQA and a sliding window with the global-layer bypass
-(hymba), and raise on a logit cap, key padding and head dims above 192,
-each naming the ROADMAP item that lifts it.  bf16 runs on the tensor
-cores (four warps a block up to 128, eight at 192), fp32 on the CUDA
-cores.
+launches the same kernel with the log-sum-exp output, its backward the
+backward kernels (csrc/flash_attention_bwd.cu), which take causal or
+bidirectional GQA, Skv apart from S where bidirectional, and a sliding
+window with the global-layer bypass (hymba), and raise on a logit cap,
+key padding and head dims above 192, each naming the ROADMAP item that
+lifts it.  Each call counts once, by its mask (``_train_kind``): with a
+sliding window ``lse_window_launches`` / ``bwd_window_launches``, else
+above head dim 128 (to 192: MLA's q/k head dim) ``lse_d192_launches`` /
+``bwd_d192_launches``, else with Skv != S (cross-attention)
+``lse_cross_launches`` / ``bwd_cross_launches``, else bidirectional
+``lse_bidir_launches`` / ``bwd_bidir_launches``, else causal
+``lse_launches`` / ``bwd_launches``.  bf16 runs on the tensor cores
+(four warps a block up to 128, eight at 192), fp32 on the CUDA cores.
 ``bwd_plan`` splits a KV head's query heads over ``n_split`` dK/dV
 blocks where the (batch, KV head, key tile) blocks alone would leave
 the card half idle; the splits' fp32 partials are folded in split order
@@ -61,9 +67,13 @@ d256_launches = 0
 lse_launches = 0
 lse_d192_launches = 0
 lse_window_launches = 0
+lse_bidir_launches = 0
+lse_cross_launches = 0
 bwd_launches = 0
 bwd_d192_launches = 0
 bwd_window_launches = 0
+bwd_bidir_launches = 0
+bwd_cross_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
@@ -81,7 +91,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 def _fn():
     fn = _build.load_library().flash_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                    _I, _I, _I, _F, _P, _F, _I, _P]
     return fn
@@ -91,7 +101,7 @@ def _fn():
 def _lse_fn():
     fn = _build.load_library().flash_attention_lse
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                    _I, _I, _I, _F, _I, _P]
     return fn
@@ -101,7 +111,7 @@ def _lse_fn():
 def _bwd_fn():
     fn = _build.load_library().flash_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 11 + [_I] * 10 + [_P]
+    fn.argtypes = [_P] * 11 + [_I] * 11 + [_P]
     return fn
 
 
@@ -112,13 +122,19 @@ def head_dim_supported(D: int, dtype) -> bool:
     return 0 < D <= _MAX_D and (D * size) % _ROW_BYTES == 0
 
 
-def _check(q, k, v, kv_len, window, is_global):
+def _check(q, k, v, kv_len, window, is_global, causal):
     """Raise on what the kernel does not take."""
     B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != D:
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)} do not match (prefill: one S)")
+                         f"v {tuple(v.shape)} do not match")
+    if Skv != S and (causal or _windowed(window, is_global)
+                     or kv_len is not None):
+        raise ValueError(
+            f"{Skv} keys for {S} queries: the kernel takes Skv != S only "
+            f"bidirectional without a sliding window or key padding (a "
+            f"causal or windowed mask would need a q_offset)")
     if not (q.device == k.device == v.device) or q.device.type != "cuda":
         raise ValueError("q, k and v must lie on one CUDA device")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
@@ -162,8 +178,9 @@ def empty_row_divisor(S: int, block_size: int = 512) -> float:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     logit_cap: float = 0.0, is_global=None, kv_len=None):
-    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D).
-    kv_len: optional (B,) int32 valid keys per row, on q's device."""
+    """q: (B, S, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, S, Hq, D), Skv = S
+    where causal, windowed or key-padded.  kv_len: optional (B,) int32
+    valid keys per row, on q's device."""
     global launches, masked_launches, d192_launches, d256_launches
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -174,12 +191,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         _check_bwd(q, logit_cap, kv_len)
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
                                       is_global)
-    _check(q, k, v, kv_len, window, is_global)
+    _check(q, k, v, kv_len, window, is_global, causal)
     B, S, Hq, D = q.shape
+    Skv = k.shape[1]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, Hq, k.shape[2], D,
+                B, S, Skv, Hq, k.shape[2], D,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
@@ -215,8 +233,8 @@ def _check_bwd(q, logit_cap, kv_len):
     if kv_len is not None:
         raise NotImplementedError(
             "flash backward: key padding (kv_len) is not supported by the "
-            "kernel; it comes with enc-dec training (ROADMAP queue 1, item "
-            "1 (c))")
+            "kernel (ROADMAP queue 2 (a)); no reference training path pads "
+            "keys: enc-dec training attends exact-length encoder outputs")
     if D > _MAX_BWD_D:
         raise NotImplementedError(
             f"flash backward: head_dim {D} > {_MAX_BWD_D} is not supported "
@@ -229,23 +247,34 @@ def _windowed(window, is_global) -> bool:
     return bool(window) and not bool(is_global)
 
 
+def _train_kind(q, k, causal, window, is_global) -> str:
+    """The suffix of the training counters a call adds to (see the top):
+    "_window", "_d192", "_cross", "_bidir" or ""."""
+    if _windowed(window, is_global):
+        return "_window"
+    if q.shape[-1] > _BWD_NARROW_D:
+        return "_d192"
+    if k.shape[1] != q.shape[1]:
+        return "_cross"
+    return "" if causal else "_bidir"
+
+
 def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
                         is_global=None):
-    """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (out (B, S, Hq, D), lse
+    """q: (B, S, Hq, D); k, v: (B, Skv, Hkv, D) -> (out (B, S, Hq, D), lse
     (B, S, Hq) fp32): the flash kernel with its log-sum-exp output, natural
-    units of the scaled scores; ``window`` as ``flash_attention`` takes
-    it.  A CPU tensor takes the plain version."""
-    global lse_launches, lse_d192_launches, lse_window_launches
+    units of the scaled scores; ``window`` and Skv as ``flash_attention``
+    takes them.  A CPU tensor takes the plain version."""
     if q.device.type == "cpu":
         return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
                                        is_global=is_global)
-    _check(q, k, v, None, window, is_global)
+    _check(q, k, v, None, window, is_global, causal)
     B, S, Hq, D = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lse_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), B, S, Hq, k.shape[2], D,
+                    lse.data_ptr(), B, S, k.shape[1], Hq, k.shape[2], D,
                     q.stride(0), q.stride(1), q.stride(2),
                     k.stride(0), k.stride(1), k.stride(2),
                     v.stride(0), v.stride(1), v.stride(2),
@@ -253,24 +282,20 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
                     int(bool(causal)), int(window), int(bool(is_global)),
                     0.0, _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_lse")
-    if _windowed(window, is_global):
-        lse_window_launches += 1
-    elif D > _BWD_NARROW_D:
-        lse_d192_launches += 1
-    else:
-        lse_launches += 1
+    globals()["lse" + _train_kind(q, k, causal, window, is_global)
+              + "_launches"] += 1
     return out, lse
 
 
-def bwd_plan(B: int, S: int, Hq: int, Hkv: int, sms: int,
+def bwd_plan(B: int, Skv: int, Hq: int, Hkv: int, sms: int,
              D: int = 128) -> int:
     """The backward's ``n_split``: the least divisor of G = Hq / Hkv that
-    gives the dK/dV launch, ``B * Hkv * ceil(S / 64) * n_split`` blocks, at
-    least as many blocks per SM as fit one (``_BWD_BLOCKS_PER_SM`` up to
-    head dim 128, one above) on a card of ``sms`` SMs, or G where none
-    does.  Host ints only."""
+    gives the dK/dV launch, ``B * Hkv * ceil(Skv / 64) * n_split`` blocks
+    (Skv: the key length), at least as many blocks per SM as fit one
+    (``_BWD_BLOCKS_PER_SM`` up to head dim 128, one above) on a card of
+    ``sms`` SMs, or G where none does.  Host ints only."""
     G = Hq // Hkv
-    blocks = B * Hkv * -(-S // _BQ)
+    blocks = B * Hkv * -(-Skv // _BQ)
     if blocks == 0:
         return 1
     per_sm = _BWD_BLOCKS_PER_SM if D <= _BWD_NARROW_D else 1
@@ -283,17 +308,17 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     """Gradients (dq, dk, dv) of the flash attention whose forward gave
     ``out`` and ``lse``, for the output gradient ``dout``; the dQ kernel
     also computes ``delta = rowsum(dout * out)`` in fp32, for the dK/dV
-    kernel.  ``window``: the sliding window, bypassed where ``is_global``.
-    A CPU tensor takes the plain version."""
-    global bwd_launches, bwd_d192_launches, bwd_window_launches
+    kernel.  ``window``: the sliding window, bypassed where ``is_global``;
+    k and v of Skv keys as the forward takes them.  A CPU tensor takes the
+    plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, lse,
                                        causal=causal, window=window,
                                        is_global=is_global)
-    _check(q, k, v, None, window, is_global)
+    _check(q, k, v, None, window, is_global, causal)
     _check_bwd(q, 0.0, None)
     B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
     q, k, v, dout, out = (t.contiguous() for t in (
         q, k, v, dout.to(q.dtype), out.to(q.dtype)))
     lse = lse.contiguous()
@@ -305,9 +330,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                          f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    n_split = bwd_plan(B, S, Hq, Hkv, _build.sm_count(q.device.index or 0),
-                       D)
-    partial = (torch.empty((2, n_split, B, S, Hkv, D), dtype=torch.float32,
+    n_split = bwd_plan(B, Skv, Hq, Hkv,
+                       _build.sm_count(q.device.index or 0), D)
+    partial = (torch.empty((2, n_split, B, Skv, Hkv, D), dtype=torch.float32,
                            device=q.device) if n_split > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -315,15 +340,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                     delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     None if partial is None else partial.data_ptr(),
-                    B, S, Hq, Hkv, D, int(bool(causal)), int(window),
+                    B, S, Skv, Hq, Hkv, D, int(bool(causal)), int(window),
                     int(bool(is_global)), n_split, _DTYPES[q.dtype], stream)
     _build.check(err, "flash_attention_bwd")
-    if _windowed(window, is_global):
-        bwd_window_launches += 1
-    elif D > _BWD_NARROW_D:
-        bwd_d192_launches += 1
-    else:
-        bwd_launches += 1
+    globals()["bwd" + _train_kind(q, k, causal, window, is_global)
+              + "_launches"] += 1
     return dq, dk, dv
 
 

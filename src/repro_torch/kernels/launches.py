@@ -23,6 +23,10 @@ COUNTERS = {"ragged_decode": (_rd, "launches"),
             "flash_attention_bwd_d192": (_fa, "bwd_d192_launches"),
             "flash_attention_lse_window": (_fa, "lse_window_launches"),
             "flash_attention_bwd_window": (_fa, "bwd_window_launches"),
+            "flash_attention_lse_bidir": (_fa, "lse_bidir_launches"),
+            "flash_attention_bwd_bidir": (_fa, "bwd_bidir_launches"),
+            "flash_attention_lse_cross": (_fa, "lse_cross_launches"),
+            "flash_attention_bwd_cross": (_fa, "bwd_cross_launches"),
             "mamba_step": (_ms, "step_launches"),
             "mamba_scan": (_ms, "scan_launches"),
             "mamba_scan_train": (_ms, "scan_train_launches"),

@@ -6,10 +6,12 @@ Parameters keep the reference's einsum layouts, ``wq/wk/wv (d, H, hd)`` and
 reshape them to matrices at use (views, no copies).  Cache per layer:
 ``{"k": (B, T, Hkv, D), "v": (B, T, Hkv, D)}``, updated IN PLACE.
 
-With ``use_kernels``, full-sequence attention (prefill, encoders) goes
-through the flash kernel's wrapper and decode attention, self and cross,
-through the ragged decode kernel's; on CPU tensors each wrapper runs its
-plain version.  Cross-attention over a full sequence stays stock torch, as
+With ``use_kernels``, full-sequence attention (prefill, encoders, and
+unmasked cross-attention over a whole encoder output, as training runs
+it) goes through the flash kernel's wrapper and decode attention, self
+and cross, through the ragged decode kernel's; on CPU tensors each
+wrapper runs its plain version.  Cross-attention over a right-padded
+encoder output (a serving prefill's ``src_len``) stays stock torch, as
 the reference computes it outside any kernel.
 
 MLA (DeepSeek-V2's multi-head latent attention) caches the compressed
@@ -184,17 +186,24 @@ def cross_kv(p: Params, cfg: ModelConfig, enc_out):
     return k, v
 
 
-def cross_fwd(p: Params, cfg: ModelConfig, x, enc_out, src_len=None):
-    """Cross-attention of x (B, Sq, d) over the encoder output (prefill).
+def cross_fwd(p: Params, cfg: ModelConfig, x, enc_out, src_len=None, *,
+              use_kernels: bool = False):
+    """Cross-attention of x (B, Sq, d) over the encoder output (training,
+    prefill).
 
     src_len: optional scalar or (B,) valid source lengths of a right-padded
     encoder output: keys at or past it are masked out of the softmax.  The
     masked path is the reference's einsum form (scores (B, Hq, Sq, S_src),
     small for the decoder prompts a serving prefill runs); without it the
-    plain blockwise attention runs, as in the reference."""
+    bidirectional blockwise attention runs, as in the reference: with
+    ``use_kernels`` through the flash kernel's wrapper (Skv = S_src apart
+    from Sq; under autograd its forward with lse and backward kernels),
+    else the plain version."""
     q = _cross_q(p, cfg, x)
     k, v = cross_kv(p, cfg, enc_out)
-    if src_len is None:
+    if src_len is None and use_kernels:
+        o = flash_attention(q, k, v, causal=False)
+    elif src_len is None:
         o = L.blockwise_attention(q, k, v, causal=False)
     else:
         B, Sq, Hq, D = q.shape

@@ -16,11 +16,13 @@ activation dtype at use, as the reference does.
 
 ``loss(params, batch)`` is the training objective, the reference's
 ``Model.loss``: the cross-entropy plus ``aux_weight`` times the MoE
-layers' load-balance loss, for decoder-only archs with GQA or MLA
-attention and dense or MoE FFNs (minitron, qwen2.5, granite, chameleon,
-qwen1.5, deepseek-v2-lite, arctic), attention-free Mamba (falcon-mamba)
-and hybrid (hymba: sliding-window attention beside Mamba); enc-dec archs
-raise, naming the ROADMAP item that brings their training.
+layers' load-balance loss, for every registered family: decoder-only
+archs with GQA or MLA attention and dense or MoE FFNs (minitron, qwen2.5,
+granite, chameleon, qwen1.5, deepseek-v2-lite, arctic), attention-free
+Mamba (falcon-mamba), hybrid (hymba: sliding-window attention beside
+Mamba), and the encoder-decoder (seamless-m4t: the encoder over
+``batch["frames"]``, of any length, and the decoder's cross-attention
+over its output).
 """
 from __future__ import annotations
 
@@ -92,26 +94,30 @@ class Model:
     def _embed(self, params, tokens):
         return params["embed"][tokens.long()].to(self.cfg.activation_dtype)
 
-    def _encode(self, params, frames, src_len=None, use_kernels: bool = True):
+    def _encode(self, params, frames, src_len=None, use_kernels: bool = True,
+                remat: bool = False):
         """Bidirectional encoder over frame embeddings (B, S, d); src_len:
-        optional (B,) int32 valid frame counts of right-padded rows."""
+        optional (B,) int32 valid frame counts of right-padded rows;
+        ``remat``: per-layer checkpoints under autograd (training)."""
         cfg = self.cfg
         x = L.apply_norm(cfg.norm, params["frame_norm"],
                          frames.to(cfg.activation_dtype), cfg.norm_eps)
         B, S = x.shape[0], x.shape[1]
         pos = torch.arange(S, device=x.device).expand(B, S)
         return T.encoder_fwd(params["encoder"], cfg, x, pos, kv_len=src_len,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, remat=remat)
 
     # ------------------------------------------------------------------
     def loss(self, params, batch, *, use_kernels: bool = True,
              moe_dispatch: str = "einsum", aux_weight: float = 0.01):
-        """batch: {tokens, labels} (B, S) int -> (xent + aux_weight * aux,
-        {"xent", "aux"}).
+        """batch: {tokens, labels} (B, S) int, and for enc-dec archs
+        frames (B, S_src, d) -> (xent + aux_weight * aux, {"xent", "aux"}).
 
         Labels below 0 are masked out.  ``aux`` is the MoE layers'
-        load-balance loss summed over the layers (0 for dense archs).  The
-        decoder runs with per-layer remat when ``cfg.remat``; the
+        load-balance loss summed over the layers (0 for dense archs).  An
+        enc-dec arch encodes the frames (any S_src) and its decoder's
+        cross layers attend the encoder output.  The encoder and the
+        decoder run with per-layer remat when ``cfg.remat``; the
         cross-entropy is chunked (``transformer.chunked_softmax_xent``).
         ``use_kernels``: attention through the flash kernels and their
         backward, and the Mamba blocks' scan through the scan kernel with
@@ -119,14 +125,18 @@ class Model:
         (the plain versions on a CPU tensor either way); ``moe_dispatch``: "einsum" (the reference's default) or
         "gather"."""
         cfg = self.cfg
-        check_trainable(cfg)
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
         pos = torch.arange(S, device=x.device).expand(B, S)
+        enc_out = None
+        if cfg.is_encdec:
+            enc_out = self._encode(params, batch["frames"],
+                                   use_kernels=use_kernels, remat=cfg.remat)
         x, aux = T.decoder_fwd(params["decoder"], cfg, x, pos,
                                use_kernels=use_kernels,
-                               moe_dispatch=moe_dispatch, remat=cfg.remat)
+                               moe_dispatch=moe_dispatch, remat=cfg.remat,
+                               enc_out=enc_out)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         labels = batch["labels"]
         mask = (labels >= 0).float()
@@ -242,17 +252,6 @@ class Model:
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         logits = self._mask_pad(x[:, 0] @ self._head(params))
         return logits, cache
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for the families whose training the port does not have yet,
-    naming the ROADMAP item that brings each: enc-dec."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains decoder-only archs (GQA or MLA "
-            f"attention, dense or MoE FFNs, attention-free Mamba and hybrid "
-            f"attention beside Mamba); enc-dec training comes later "
-            f"(ROADMAP queue 1, item 1 (c))")
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:

@@ -118,11 +118,12 @@ def _hybrid(p, cfg: ModelConfig, a, s):
 
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, causal: bool,
                is_global: bool, kv_len, use_kernels: bool,
-               moe_dispatch: str = "einsum"):
+               moe_dispatch: str = "einsum", enc_out=None):
     """Residual layer without a cache (training, encoders, embedding
     stacks): (x, aux) as ``_ffn`` gives them.  An SSM layer runs
     ``ssm.mamba_fwd`` from a zero state (its scan's backward under
-    autograd)."""
+    autograd).  An enc-dec decoder layer attends ``enc_out`` (B, S_src, d)
+    in its cross sublayer, between the mixer and the FFN."""
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     if cfg.hybrid_parallel:
         a = A.gqa_fwd(p["attn"], cfg, h, positions, causal=causal,
@@ -138,7 +139,9 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, causal: bool,
         y = A.gqa_fwd(p["attn"], cfg, h, positions, causal=causal,
                       is_global=is_global, kv_len=kv_len,
                       use_kernels=use_kernels)
-    return _ffn(p, cfg, x + y, moe_dispatch)
+    x = _cross(p, cfg, x + y, lambda hc: A.cross_fwd(
+        p["cross"], cfg, hc, enc_out, use_kernels=use_kernels))
+    return _ffn(p, cfg, x, moe_dispatch)
 
 
 def _cross(p, cfg: ModelConfig, x, fn):
@@ -293,27 +296,31 @@ def _global(cfg: ModelConfig, i: int) -> bool:
 
 def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
                 use_kernels: bool = True, moe_dispatch: str = "einsum",
-                remat: bool = False):
+                remat: bool = False, enc_out=None):
     """Full-sequence causal decoder pass without a cache (training, and the
     embedding stacks of decoder-only archs): (x, aux), aux the MoE layers'
     load-balance losses summed over the prologue and the layers in order
-    (fp32, 0 without MoE), as the reference's.  With ``remat`` and
+    (fp32, 0 without MoE), as the reference's.  ``enc_out``: the encoder
+    output an enc-dec decoder's cross layers attend.  With ``remat`` and
     autograd recording, each layer is checkpointed (non-reentrant; the
-    layer function returns both values): its backward recomputes the
-    layer from its input, as the reference's scan body under
-    ``jax.checkpoint(nothing_saveable)`` does."""
-    def layer(lp, i, h):
+    layer function returns both values, and takes ``enc_out`` as an
+    argument, so that its cross K/V gradient reaches the encoder): its
+    backward recomputes the layer from its input, as the reference's scan
+    body under ``jax.checkpoint(nothing_saveable)`` does."""
+    def layer(lp, i, h, enc):
         return _layer_fwd(lp, cfg, h, positions, causal=True,
                           is_global=_global(cfg, i), kv_len=None,
-                          use_kernels=use_kernels, moe_dispatch=moe_dispatch)
+                          use_kernels=use_kernels, moe_dispatch=moe_dispatch,
+                          enc_out=enc)
 
     remat = remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["prologue"] + params["layers"]):
         if remat:
-            x, aux = checkpoint(layer, lp, i, x, use_reentrant=False)
+            x, aux = checkpoint(layer, lp, i, x, enc_out,
+                                use_reentrant=False)
         else:
-            x, aux = layer(lp, i, x)
+            x, aux = layer(lp, i, x, enc_out)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -370,15 +377,22 @@ def encoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
 
 
 def encoder_fwd(params, cfg: ModelConfig, x, positions, *, kv_len=None,
-                use_kernels: bool = True):
+                use_kernels: bool = True, remat: bool = False):
     """Bidirectional encoder stack.  kv_len: optional (B,) int32 valid
     lengths of right-padded rows; each row's attention masks its own key
     padding, so the valid rows of the output do not depend on the padded
-    length (None: every row is all valid)."""
-    for lp in params["layers"]:
-        x, _ = _layer_fwd(lp, cfg, x, positions, causal=False,
+    length (None: every row is all valid, as training runs it).  With
+    ``remat`` and autograd recording, each layer is checkpointed as in
+    ``decoder_fwd``."""
+    def layer(lp, h):
+        return _layer_fwd(lp, cfg, h, positions, causal=False,
                           is_global=False, kv_len=kv_len,
-                          use_kernels=use_kernels)
+                          use_kernels=use_kernels)[0]
+
+    remat = remat and torch.is_grad_enabled()
+    for lp in params["layers"]:
+        x = (checkpoint(layer, lp, x, use_reentrant=False) if remat
+             else layer(lp, x))
     return L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
 
 

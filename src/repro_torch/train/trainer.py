@@ -38,7 +38,7 @@ class TrainConfig:
     grad_clip: float = 1.0
     microbatches: int = 1            # gradient accumulation
     log_every: int = 10
-    checkpoint_every: int = 50
+    checkpoint_every: int = 50       # 0: none but a preemption's
     ckpt_dir: str = "repro_torch_ckpt"
     seed: int = 0
 
@@ -47,14 +47,14 @@ def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
                     ) -> Callable:
     """(params, opt_state, step, batch) -> (params, opt_state, metrics).
 
-    ``batch``: {tokens, labels} (B, S) on the model's device.  With
-    ``cfg.microbatches`` > 1 the batch's leading dim is split and the
-    microbatches' fp32 gradients are summed in ``.grad`` and divided by
-    their count (bitwise the reference's sum of g / n for a power-of-two
-    count; fp32 parameters only), and the metrics' xent and aux are the
-    microbatches' means (the reference reports aux 0 there).  The lr of
-    step 0 is 0, as the reference's cosine schedule gives: its first step
-    moves nothing."""
+    ``batch``: {tokens, labels} (B, S), and frames (B, S_src, d) for
+    enc-dec archs, on the model's device.  With ``cfg.microbatches`` > 1
+    every key's leading dim is split and the microbatches' fp32 gradients
+    are summed in ``.grad`` and divided by their count (bitwise the
+    reference's sum of g / n for a power-of-two count; fp32 parameters
+    only), and the metrics are the reference's: xent the microbatches'
+    mean loss, aux 0.  The lr of step 0 is 0, as the reference's cosine
+    schedule gives: its first step moves nothing."""
     lr_fn = optim.cosine_schedule(cfg.lr, cfg.warmup, cfg.steps)
     n_mb = cfg.microbatches
 
@@ -71,17 +71,16 @@ def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
                 rows = batch["tokens"].shape[0] // n_mb
                 zero = torch.zeros((), dtype=torch.float32,
                                    device=leaves[0].device)
-                loss, metrics = zero, {"xent": zero, "aux": zero}
+                loss = zero
                 for i in range(n_mb):
                     mb = {k: v[i * rows:(i + 1) * rows]
                           for k, v in batch.items()}
-                    lmb, mmb = model.loss(params, mb)
+                    lmb, _ = model.loss(params, mb)
                     lmb.backward()
                     loss = loss + lmb.detach() / n_mb
-                    metrics = {k: v + mmb[k].detach() / n_mb
-                               for k, v in metrics.items()}
                 for p in leaves:
                     p.grad.div_(n_mb)
+                metrics = {"xent": loss, "aux": zero}
             else:
                 loss, metrics = model.loss(params, batch)
                 loss.backward()
@@ -151,6 +150,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def fit(self, params=None, opt_state=None, start_step: int = 0,
             steps: Optional[int] = None) -> Dict[str, Any]:
+        """Run steps ``start_step`` .. ``steps`` (default ``cfg.steps``).
+        The pipeline's batch of each step goes to the device; an enc-dec
+        arch's gets frames from ``batch_with_frames`` where it has none, as
+        the reference's loop gives them."""
         if params is None:
             params, opt_state, start_step = self.restore_or_init(
                 self.cfg.seed)
@@ -159,8 +162,12 @@ class Trainer:
         status = "completed"
         while step < total:
             t0 = time.monotonic()
+            host = self.pipeline.batch(step)
+            if self.model.cfg.is_encdec and "frames" not in host:
+                host = self.pipeline.batch_with_frames(
+                    step, self.model.cfg.d_model)
             batch = {k: torch.as_tensor(v, device=self.device)
-                     for k, v in self.pipeline.batch(step).items()}
+                     for k, v in host.items()}
             params, opt_state, metrics = self._step(params, opt_state, step,
                                                     batch)
             dur = time.monotonic() - t0
@@ -174,8 +181,8 @@ class Trainer:
                 if self.on_step is not None:
                     self.on_step(step, m)
             step += 1
-            want_ckpt = (step % self.cfg.checkpoint_every == 0
-                         or step == total)
+            every = self.cfg.checkpoint_every
+            want_ckpt = every > 0 and (step % every == 0 or step == total)
             if self.guard.check() or \
                action == fault.ACTION_CHECKPOINT_AND_RESHARD:
                 ckpt_lib.save(self.cfg.ckpt_dir, step,

@@ -7,9 +7,11 @@ v and output gradient as the reference: ``out`` and ``lse`` against
 ``_flash_fwd_pass``, and (dq, dk, dv) against ``jax.vjp`` of
 ``blockwise_attention``, over the whole contract (causal, bidirectional,
 GQA, multi-query, S no multiple of the block, a window with a global
-layer, a logit cap, per-row key lengths).  fp32: within 1e-5 of each
-tensor's largest magnitude (summation order only); bf16: within 2e-2 (the
-two round p and ds to bf16 at the same points, but sum in other orders).
+layer, a logit cap, per-row key lengths), and bidirectional attention
+over keys of another length than the queries (cross-attention, Skv !=
+Sq).  fp32: within 1e-5 of each tensor's largest magnitude (summation
+order only); bf16: within 2e-2 (the two round p and ds to bf16 at the
+same points, but sum in other orders).
 
 On the CPU the kernel wrappers (``flash_attention_lse``,
 ``flash_attention_bwd``, and ``flash_attention`` under autograd) take
@@ -48,11 +50,14 @@ CASES = [
 ]
 
 
-def _inputs(B, S, Hq, Hkv, D, seed=0):
+def _inputs(B, S, Hq, Hkv, D, seed=0, Skv=None):
+    """q and the output gradient (B, S, Hq, D), k and v (B, Skv, Hkv, D)
+    (Skv None: S)."""
     rng = np.random.default_rng(seed)
+    Skv = S if Skv is None else Skv
     q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
-    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
-    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    k = rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)
     g = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
     return q, k, v, g
 
@@ -140,6 +145,95 @@ def test_plain_flash_grads_match_reference_bf16(name):
     got = _port(q, k, v, g, kw, torch.bfloat16)
     for a, b in zip(got, want):
         _close(a, b, BF16_TOL)
+
+
+# bidirectional attention over keys of another length (cross-attention):
+# (name, B, Sq, Skv, Hq, Hkv, D, kwargs of blockwise_attention)
+CROSS_CASES = [
+    ("longer_keys", 2, 24, 40, 4, 2, 16, dict(causal=False)),
+    ("shorter_keys", 1, 40, 16, 4, 4, 8, dict(causal=False, block_size=16)),
+    ("mqa_ragged_blocks", 1, 33, 70, 4, 1, 8, dict(causal=False,
+                                                  block_size=32)),
+]
+
+
+@pytest.mark.parametrize("name,B,Sq,Skv,Hq,Hkv,D,kw", CROSS_CASES,
+                         ids=[c[0] for c in CROSS_CASES])
+def test_plain_flash_cross_lengths_match_reference_fp32(name, B, Sq, Skv, Hq,
+                                                        Hkv, D, kw):
+    """Skv != Sq: out, lse and (dq, dk, dv) of the plain Function against
+    the reference's ``_flash_fwd_pass`` and ``jax.vjp`` of
+    ``blockwise_attention``."""
+    q, k, v, g = _inputs(B, Sq, Hq, Hkv, D, seed=Skv, Skv=Skv)
+    want = _reference(q, k, v, g, kw, jnp.float32)
+    got = _port(q, k, v, g, kw, torch.float32)
+    for what, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        assert tuple(a.shape) == b.shape, what
+        _close(a, b, FP32_TOL)
+
+
+@pytest.mark.parametrize("name", ["longer_keys", "shorter_keys"])
+def test_plain_flash_cross_lengths_match_reference_bf16(name):
+    _, B, Sq, Skv, Hq, Hkv, D, kw = next(c for c in CROSS_CASES
+                                         if c[0] == name)
+    q, k, v, g = _inputs(B, Sq, Hq, Hkv, D, seed=Sq, Skv=Skv)
+    want = _reference(q, k, v, g, kw, jnp.bfloat16)
+    got = _port(q, k, v, g, kw, torch.bfloat16)
+    for a, b in zip(got, want):
+        _close(a, b, BF16_TOL)
+
+
+def test_cpu_wrappers_take_cross_lengths():
+    """On CPU tensors the wrappers at Skv != Sq give the plain Function's
+    numbers (under autograd, and the lse forward with the backward on its
+    out and lse), the split fold matches the unsplit plain backward, and
+    nothing launches."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_bwd_split_ref)
+    q, k, v, g = (torch.tensor(a) for a in
+                  _inputs(2, 24, 4, 2, 16, seed=4, Skv=40))
+    before = dict(fa.__dict__)
+    grads = []
+    for fn in (fa.flash_attention, L.blockwise_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves, causal=False).backward(g)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=False)
+    assert lse.shape == (2, 24, 4)
+    got = fa.flash_attention_bwd(q, k, v, out, g, lse, causal=False)
+    for a, b in zip(got, grads[0]):
+        assert torch.equal(a, b)
+    plain = flash_attention_bwd_ref(q, k, v, out, g, lse, causal=False)
+    split = flash_attention_bwd_split_ref(q, k, v, out, g, lse,
+                                          causal=False, n_split=2)
+    for a, b in zip(split, plain):
+        _close(a, b.numpy(), FP32_TOL)
+    assert {n: fa.__dict__[n] for n in before if n.endswith("launches")} \
+        == {n: v for n, v in before.items() if n.endswith("launches")}
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=False, window=8),
+                                dict(causal=False, kv_len=True)],
+                         ids=["causal", "window", "kv_len"])
+def test_kernel_contract_cross_lengths(kw):
+    """The kernels take Skv != Sq only bidirectional without a window or
+    key padding (the check runs before any launch; a global layer's
+    window is no window); Skv = S takes every mask."""
+    q = torch.zeros((1, 24, 4, 16))
+    k = torch.zeros((1, 40, 2, 16))
+    kv_len = torch.full((1,), 30, dtype=torch.int32) if "kv_len" in kw \
+        else None
+    with pytest.raises(ValueError, match="Skv != S"):
+        fa._check(q, k, k, kv_len, kw.get("window", 0), None, kw["causal"])
+    # past the length check, the device check raises on CPU tensors
+    for args in ((q, k, k, None, kw.get("window", 0), True, False),
+                 (q, k[:, :24], k[:, :24], kv_len, kw.get("window", 0), None,
+                  kw["causal"])):
+        with pytest.raises(ValueError, match="CUDA"):
+            fa._check(*args)
 
 
 def test_blockwise_forward_unchanged_without_grad():

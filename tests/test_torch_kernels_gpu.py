@@ -195,18 +195,23 @@ BWD_SHAPES = (("minitron", 4, 1024, 24, 8, 128), ("granite", 1, 1024, 48, 1, 128
               ("D136", 1, 130, 4, 2, 136))
 
 
-def _bwd_counters(D):
-    """The wrapper's (lse, backward) launch counters at head dim D."""
+def _bwd_counters(D, causal=True):
+    """The wrapper's (lse, backward) launch counters at head dim D, for a
+    call without a window and with Skv = S."""
     if D > 128:
         return fa.lse_d192_launches, fa.bwd_d192_launches
+    if not causal:
+        return fa.lse_bidir_launches, fa.bwd_bidir_launches
     return fa.lse_launches, fa.bwd_launches
 
 
-def _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, seed):
+def _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, seed, Skv=None):
+    """q and dout (B, S, Hq, D), k and v (B, Skv, Hkv, D) (Skv None: S)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
+    Skv = S if Skv is None else Skv
     q, dout = (torch.randn((B, S, Hq, D), generator=gen, device=cuda).to(dtype)
                for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((B, Skv, Hkv, D), generator=gen, device=cuda).to(dtype)
             for _ in range(2))
     return q, k, v, dout
 
@@ -223,19 +228,109 @@ def test_flash_backward_kernel_on_gpu(cuda, dtype, causal, shape):
         flash_attention_bwd_ref, flash_attention_lse_ref)
     _, B, S, Hq, Hkv, D = shape
     q, k, v, dout = _bwd_inputs(cuda, B, S, Hq, Hkv, D, dtype, S + D)
-    before = _bwd_counters(D)
+    before = _bwd_counters(D, causal)
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
     out_r, lse_r = flash_attention_lse_ref(q, k, v, causal=causal)
     got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
     want = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal)
     torch.cuda.synchronize()
-    assert _bwd_counters(D) == (before[0] + 1, before[1] + 1)
+    assert _bwd_counters(D, causal) == (before[0] + 1, before[1] + 1)
     tol = GPU_TOL[dtype]
     assert _agree(out, out_r, tol)
     assert (lse - lse_r).abs().max().item() <= tol
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert _agree(a, b, tol), (name, (a.float() - b.float()).abs().max())
+
+
+# bidirectional attention over keys of another length (cross-attention):
+# (label, B, Sq, Skv, Hq, Hkv, D) - more keys than queries and fewer, key
+# lengths that are no multiple of the tile, multi-query (the backward's
+# split and fold), the small head dims, and the eight-warp backward at 192
+CROSS_SHAPES = (("longer keys", 2, 200, 1100, 16, 16, 64),
+                ("shorter keys", 1, 1000, 256, 8, 2, 128),
+                ("MQA", 1, 65, 600, 48, 1, 64),
+                ("D24", 1, 130, 70, 6, 2, 24),
+                ("D192", 1, 200, 330, 4, 4, 192))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", CROSS_SHAPES, ids=[s[0] for s in CROSS_SHAPES])
+def test_flash_kernels_cross_lengths_on_gpu(cuda, dtype, shape):
+    """Skv != Sq, bidirectional: the forward without and with lse and the
+    backward kernels against their plain versions on the same inputs (the
+    backward where it splits also against the plain split); the training
+    calls count on the cross counters (at head dim 192 on its own)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_bwd_split_ref,
+        flash_attention_lse_ref)
+    _, B, Sq, Skv, Hq, Hkv, D = shape
+    q, k, v, dout = _bwd_inputs(cuda, B, Sq, Hq, Hkv, D, dtype, Sq + Skv,
+                                Skv=Skv)
+    tol = GPU_TOL[dtype]
+    counters = ((lambda: (fa.lse_d192_launches, fa.bwd_d192_launches))
+                if D > 128 else
+                (lambda: (fa.lse_cross_launches, fa.bwd_cross_launches)))
+    before = counters()
+    plain_fwd = fa.flash_attention(q, k, v, causal=False)
+    assert _agree(plain_fwd, flash_attention_ref(q, k, v, causal=False), tol)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=False)
+    out_r, lse_r = flash_attention_lse_ref(q, k, v, causal=False)
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=False)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=False)
+    torch.cuda.synchronize()
+    assert counters() == (before[0] + 1, before[1] + 1)
+    assert lse.shape == (B, Sq, Hq)
+    assert _agree(out, out_r, tol)
+    assert (lse - lse_r).abs().max().item() <= tol
+    n_split = fa.bwd_plan(B, Skv, Hq, Hkv, _build.sm_count(cuda.index or 0),
+                          D)
+    split = flash_attention_bwd_split_ref(q, k, v, out, dout, lse,
+                                          causal=False, n_split=n_split)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, split):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert _agree(a, b, tol), (name, (a.float() - b.float()).abs().max())
+        assert _agree(a, c, tol), name
+
+
+@pytest.mark.gpu
+def test_flash_autograd_cross_lengths_matches_plain(cuda):
+    """Cross-attention under autograd on the card (the kernel Function,
+    Sq 300 over Skv 1100 keys) against the plain Function's gradients."""
+    from repro_torch.models.layers import blockwise_attention
+    q, k, v, dout = _bwd_inputs(cuda, 2, 300, 16, 16, 64, torch.bfloat16, 8,
+                                Skv=1100)
+    grads = []
+    for fn in (fa.flash_attention, blockwise_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves, causal=False).backward(dout)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert a.shape == b.shape and _agree(a, b, GPU_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_flash_cross_lengths_raise_where_causal_or_windowed(cuda):
+    """Skv != Sq with a causal mask or a sliding window raises before any
+    launch, in each wrapper, and with key padding in the forward."""
+    q, k, v, dout = _bwd_inputs(cuda, 1, 64, 4, 2, 64, torch.bfloat16, 1,
+                                Skv=128)
+    lse = torch.zeros((1, 64, 4), device=cuda)
+    for kw in (dict(causal=True), dict(causal=False, window=32)):
+        with pytest.raises(ValueError, match="Skv != S"):
+            fa.flash_attention(q, k, v, **kw)
+        with pytest.raises(ValueError, match="Skv != S"):
+            fa.flash_attention_lse(q, k, v, **kw)
+        with pytest.raises(ValueError, match="Skv != S"):
+            fa.flash_attention_bwd(q, k, v, q, dout, lse, **kw)
+        with pytest.raises(ValueError, match="Skv != S"):
+            fa.flash_attention(q.requires_grad_(True), k, v, **kw)
+        q.requires_grad_(False)
+    with pytest.raises(ValueError, match="Skv != S"):
+        fa.flash_attention(q, k, v, causal=False, kv_len=torch.full(
+            (1,), 100, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.gpu

@@ -14,10 +14,11 @@ configs with the JAX init's fp32 weights carried over by
   within 1e-6, so that a missing decay of the stacked per-layer scales
   (1e-4 per step at this lr) would show; the same with Adafactor on
   qwen1.5-reduced (its full config's optimizer), and with 2 microbatches
-  against the reference's 2 microbatches.
-- The family the port does not train yet (enc-dec) raises, naming the
-  ROADMAP item that brings it (SSM and hybrid training:
-  ``test_torch_train_ssm.py``).
+  against the reference's 2 microbatches; the steps' metrics (xent, aux)
+  against the reference's.
+(MoE and MLA, SSM and hybrid, and enc-dec training have files of their
+own: ``test_torch_train_moe.py``, ``test_torch_train_ssm.py`` and
+``test_torch_train_encdec.py``.)
 """
 import dataclasses
 
@@ -164,15 +165,19 @@ def _train_both(arch, steps=3, microbatches=1, **over):
                                  for k, v in batch.items()})
         losses.append((float(jm_["loss"]), float(tm_["loss"]),
                        float(jm_["grad_norm"]), float(tm_["grad_norm"]),
-                       float(jm_["lr"]), tm_["lr"]))
+                       float(jm_["lr"]), tm_["lr"],
+                       {k: (float(jm_[k]), float(tm_[k]))
+                        for k in ("xent", "aux")}))
     return jp, tp, losses
 
 
 def _check_trained(jp, tp, losses):
-    for jl, tl, jg, tg, jlr, tlr in losses:
+    for jl, tl, jg, tg, jlr, tlr, metrics in losses:
         assert abs(jl - tl) <= LOSS_FP32_TOL * abs(jl)
         assert abs(jg - tg) <= 1e-4 * abs(jg)
         assert abs(jlr - tlr) <= 1e-6 * max(abs(jlr), 1e-12)
+        for name, (want, got) in metrics.items():
+            assert abs(got - want) <= LOSS_FP32_TOL * abs(want), name
     assert losses[0][4] == 0.0                   # step 0 moves nothing
     for name, t, want in _pairs(tp, jp):
         tol = NORM_TOL if name.endswith(("scale", "bias", "q_norm",
@@ -195,13 +200,9 @@ def test_train_steps_match_reference_adafactor():
 
 
 def test_microbatches_match_reference():
+    """Two microbatches: the reference's metrics, xent the step's loss and
+    aux 0."""
     jp, tp, losses = _train_both("minitron-4b", steps=2, microbatches=2)
     _check_trained(jp, tp, losses)
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
-def test_untrained_families_raise(arch):
-    tm = Model(TC.get_reduced(arch), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                     "labels": torch.zeros((1, 4), dtype=torch.int32)})
+    for _, tl, _, _, _, _, metrics in losses:
+        assert metrics["xent"][1] == tl and metrics["aux"] == (0.0, 0.0)

@@ -19,8 +19,9 @@ dtype=float32)`` (the training masters).
 - The plain flash backward at MLA's shapes (q and k at head dim 192, v
   zero-padded from 128) against ``jax.vjp`` of the reference's
   ``blockwise_attention``, fp32 within 1e-5.
-- The train step reports the model's aux (with microbatches, their mean),
-  and the launcher trains both configs on the CPU.
+- The train step reports the model's aux; with microbatches it reports
+  the reference's metrics (xent the step's loss, aux 0).  The launcher
+  trains both configs on the CPU.
 """
 import dataclasses
 
@@ -196,22 +197,29 @@ def test_train_steps_match_reference(arch, optimizer):
 
 
 def test_train_step_reports_the_aux_loss():
-    """The step's metrics carry the model's aux (not zeros), with and
-    without microbatches (then the microbatches' mean)."""
+    """The step's metrics carry the model's aux (not zeros) without
+    microbatches; with them they are the reference's: xent the step's
+    loss (the microbatches' mean loss) and aux 0."""
     _, _, tm, tp = _pair("deepseek-v2-lite-16b")
     batch = {k: torch.as_tensor(v) for k, v in _batch(tm.cfg, B=4).items()}
     with torch.no_grad():
         _, whole = tm.loss(tp, batch)
-        halves = [tm.loss(tp, {k: v[i:i + 2] for k, v in batch.items()})[1]
+        halves = [tm.loss(tp, {k: v[i:i + 2] for k, v in batch.items()})[0]
                   for i in (0, 2)]
     opt = make_optimizer("adamw")
-    for n_mb, want in ((1, whole["aux"]),
-                       (2, (halves[0]["aux"] + halves[1]["aux"]) / 2)):
+    for n_mb in (1, 2):
         step = make_train_step(tm, opt, TrainConfig(microbatches=n_mb))
         snapshot = [t.clone() for t in tree_leaves(tp)]
         _, _, m = step(tp, opt.init(tp), 0, batch)
-        assert float(m["aux"]) > 0.0
-        assert abs(float(m["aux"]) - float(want)) <= 1e-6 * float(want)
+        if n_mb == 1:
+            want = float(whole["aux"])
+            assert float(m["aux"]) > 0.0
+            assert abs(float(m["aux"]) - want) <= 1e-6 * want
+        else:
+            want = float(halves[0] + halves[1]) / 2
+            assert abs(float(m["loss"]) - want) <= 1e-6 * abs(want)
+            assert float(m["xent"]) == float(m["loss"])
+            assert float(m["aux"]) == 0.0
         for t, s in zip(tree_leaves(tp), snapshot):   # lr 0 at step 0
             assert torch.equal(t, s)
 

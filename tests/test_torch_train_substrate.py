@@ -254,6 +254,24 @@ def test_trainer_preemption_checkpoints_and_resumes(tmp_path):
         assert seen[s] == pytest.approx(whole[s], rel=1e-6)
 
 
+def test_trainer_checkpoint_every_zero(tmp_path):
+    """checkpoint_every 0: no periodic or final checkpoint, but a
+    preemption still writes one."""
+    cfg = get_reduced("minitron-4b")
+    model = build_model(cfg, "cpu")
+    pipe = make_pipeline(cfg, seq_len=16, global_batch=2)
+    tc = TrainConfig(steps=3, lr=1e-3, warmup=1, checkpoint_every=0,
+                     ckpt_dir=str(tmp_path / "a"))
+    out = Trainer(model, tc, pipeline=pipe, device="cpu").fit()
+    assert out["status"] == "completed" and out["step"] == 3
+    assert ck.latest_step(tc.ckpt_dir) is None
+    tr = Trainer(model, tc, pipeline=pipe, device="cpu")
+    tr.guard.check = lambda: True
+    out = tr.fit()
+    assert out["status"] == "preempted"
+    assert ck.latest_step(tc.ckpt_dir) == out["step"] == 1
+
+
 def test_trainer_device_rules():
     model = build_model(get_reduced("minitron-4b"), "cpu")
     with pytest.raises(ValueError):
