@@ -233,6 +233,29 @@
    flag file at step 10 and resumed from its checkpoint; the resumed
    run's losses must equal the uninterrupted run's within 1e-3 relative,
    and its last loss must be below its first.
+18. Scaling phase: the launcher's ``scaling_curve`` in process at the
+   reference's bench widths (d 2048, 4 layers, d_ff 8192, fp32, 16 on 8
+   heads of 128) over grants of 1, 2, 4 and 8 of 8 CUs, 4 slots a CU:
+   tokens/s, step ms and slots by CUs and ``monotone`` are logged (a
+   reading of the card, not a gate); every timed window's captures must
+   be 0 and both attention kernels must launch.
+19. DSE smoke phase: the launcher's ``dse_smoke`` in process, the kernels
+   on: minitron-4b whole (slot_cap 4, 16 requests) and qwen2.5-32b at its
+   published widths cut to 16 of 64 layers (6 requests), random bf16
+   weights, 8 CUs; logs Stage 1's pick behind each recomposition (dp
+   included), the design points, ``dp_picked`` and ``ok`` (one card
+   prices no tensor parallelism, so no ``dp > 1`` is expected; not
+   gates).  Requires every stream complete, every applied delta Stage
+   1's, 0 captures on the serving path and each tenant's streams equal
+   to a lone engine's but at counted near-ties; then the same smoke
+   ``--reduced``.
+20. dp bench phase: the launcher's ``dp_bench`` in process (d 512, 6
+   layers, ``max_len`` 4096, fp32, a 4-CU grant, 16 requests): chosen and
+   forced points, both rates and the speedup logged (not gates); 0
+   captures in the timed windows, every request complete and equal in
+   both arms.  The kernel phase holds ragged decode and flash at these
+   phases' shapes (16 on 8 and 4 on 2 in fp32, KV up to 4096; qwen's 40
+   on 8 in bf16) and times the fp32 ones.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -2154,7 +2177,7 @@ def top2_margin(model, logits) -> float:
     return (top2[0] - top2[1]).item() / real.abs().max().item()
 
 
-def lone_streams(torch, srv, tenant, prompts):
+def lone_streams(torch, srv, tenant, prompts, new: int = FABRIC_NEW):
     """``prompts`` served by a lone engine of ``tenant`` (its class, its
     weights, its initial ServeConfig), warmed first."""
     from repro_torch.workloads.base import build_engine
@@ -2162,9 +2185,35 @@ def lone_streams(torch, srv, tenant, prompts):
     eng = build_engine(srv.classes[tenant], grp._model, grp.params,
                        srv.specs[tenant].serve)
     eng.warm_compile(None)
-    rids = [eng.submit(p, max_new_tokens=FABRIC_NEW) for p in prompts]
+    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
     res = eng.run_to_completion(1000)
     return [res[r] for r in rids]
+
+
+def lone_near_ties(torch, srv, tenant, prompts, streams, new: int,
+                   label: str) -> int:
+    """Hold ``streams`` (``tenant``'s, in the order of ``prompts``) to a
+    lone engine's on the same prompts and weights: where one parts, the
+    lone path's top-2 margin there must be under ``ARGMAX_MARGIN``.
+    Returns the near-ties counted."""
+    lone = lone_streams(torch, srv, tenant, prompts, new)
+    grp = srv.engines[tenant]
+    near_ties = 0
+    for i, (got, want) in enumerate(zip(streams, lone)):
+        if got == want:
+            continue
+        p = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        margin = first_token_margin(torch, grp._model, grp.params,
+                                    prompts[i], want[:p])
+        near_ties += 1
+        log(f"{label} {tenant} request {i}: parts from the lone engine at "
+            f"token {p} ({got[p]} vs {want[p]}); the lone path's top-2 "
+            f"margin there {margin:.3e} (near-tie below "
+            f"{ARGMAX_MARGIN:.0e})")
+        require(margin < ARGMAX_MARGIN,
+                f"{label} {tenant} request {i} parts from the lone engine "
+                "away from a near-tie")
+    return near_ties
 
 
 def run_fabric_phase(torch):
@@ -2247,23 +2296,8 @@ def run_fabric_phase(torch):
         require(len(st) == 8 and all(len(x) == FABRIC_NEW for x in st)
                 and all(0 <= v < vocab for x in st for v in x),
                 f"fabric {t}: streams incomplete or out of the vocabulary")
-        prompts = traffic[t][1]
-        lone = lone_streams(torch, srv, t, prompts)
-        grp = srv.engines[t]
-        for i, (got, want) in enumerate(zip(st, lone)):
-            if got == want:
-                continue
-            p = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
-            margin = first_token_margin(torch, grp._model, grp.params,
-                                        prompts[i], want[:p])
-            near_ties += 1
-            log(f"fabric {t} request {i}: parts from the lone engine at "
-                f"token {p} ({got[p]} vs {want[p]}); the lone path's top-2 "
-                f"margin there {margin:.3e} (near-tie below "
-                f"{ARGMAX_MARGIN:.0e})")
-            require(margin < ARGMAX_MARGIN,
-                    f"fabric {t} request {i} parts from the lone engine "
-                    "away from a near-tie")
+        near_ties += lone_near_ties(torch, srv, t, traffic[t][1], st,
+                                    FABRIC_NEW, "fabric")
     log(f"fabric: streams equal the lone engines' but for {near_ties} "
         "near-tie(s)")
     params = {t: g.params for t, g in srv.engines.items()}
@@ -5516,6 +5550,273 @@ def run_paper_path_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the launcher's --scaling-curve, --dse-smoke and --dp-bench, in process
+# ---------------------------------------------------------------------------
+
+# the bench shapes the three modes give the attention kernels that the
+# kernel phase does not hold otherwise: (label, Hq, Hkv, D, dtype), then
+# the decode lengths (a dead slot each) and the prefill lengths
+BENCH_DECODE = (("scaling d2048", 16, 8, 128, "float32",
+                 [(i * 37) % 128 + 1 for i in range(32)], 128),
+                ("dp bench d512", 4, 2, 128, "float32",
+                 [4096, 17, 1000, 1], 4096),
+                ("dse qwen2.5-32b", 40, 8, 128, "bfloat16",
+                 [48, 9, 30, 1, 17, 40], 48))
+BENCH_FLASH = (("scaling d2048", 16, 8, 128, "float32"),
+               ("dp bench d512", 4, 2, 128, "float32"),
+               ("dse qwen2.5-32b", 40, 8, 128, "bfloat16"))
+BENCH_PREFILL = (32, 65)
+BENCH_KERNELS = ("ragged_decode", "flash_attention")
+# phase 18: the reference's bench widths (d 2048, 4 layers, d_ff 8192,
+# fp32) over grants of 1, 2, 4 and 8 of the card's 8 CUs
+SCALE_ARGS = ["--scaling-curve", "--device", "cuda", "--num-cus", "8",
+              "--scale-sizes", "1", "2", "4", "8"]
+# phase 19: minitron-4b whole and qwen2.5-32b cut to 16 of 64 layers
+DSE_ARGS = ["--dse-smoke", "--device", "cuda", "--num-cus", "8",
+            "--layers", "qwen2.5-32b=16"]
+DSE_NEW = 10
+# phase 20: the reference's dp bench (d 512, 6 layers, max_len 4096)
+DP_ARGS = ["--dp-bench", "--device", "cuda", "--num-cus", "8"]
+
+
+def gqa_sdpa(torch, q, k, v, **kw):
+    """SDPA on (B, S, H, D) tensors with K and V repeated to q's heads
+    (outside the call that is timed)."""
+    F = torch.nn.functional
+    rep = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vh = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw)
+
+
+def run_bench_kernel_checks(torch, reps: int = 20):
+    """Ragged decode and causal flash against their plain versions at the
+    shapes phases 18-20 give them and the kernel phase does not hold
+    otherwise: 16 query heads on 8 and 4 on 2 (D 128, fp32; decode over
+    KV up to 4096, a dead slot) and qwen2.5-32b's 40 on 8 in bf16.  The
+    prefills are B 1 at S 32 (the prefill bucket) and 65.  Each fp32 case
+    (flash at S 32) is timed beside its plain version, SDPA on the same
+    mask and its bound."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_decode.ref import \
+        ragged_decode_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    card = card_line()
+
+    def timed(label, fn, plain, lib, nbytes, flops, dtype):
+        ms = time_ms(torch, fn, reps)
+        plain_ms = time_ms(torch, plain, max(reps // 4, 3))
+        lib_ms = time_ms(torch, lib, reps)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        log(f"{label} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) ({card})")
+    for label, Hq, Hkv, D, dtype, lengths, T_full in BENCH_DECODE:
+        live = [1] * len(lengths)
+        live[len(lengths) // 2] = 0
+        q, k, v, lens, livet = decode_case(
+            torch, gen, lengths=lengths, live=live, T_full=T_full,
+            dtype=dtype, Hq=Hq, Hkv=Hkv, D=D)
+        got = rd.ragged_decode_attention(q, k, v, lens, live=livet)
+        want = ragged_decode_attention_ref(q, k, v, lens, live=livet)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        dead_zero = bool((got[len(lengths) // 2] == 0).all().item())
+        log(f"ragged_decode {label} (B {q.shape[0]}, Hq {Hq}, Hkv {Hkv}, "
+            f"D {D}, T {k.shape[1]}) {dtype}: max_abs_err={err:.3e} "
+            f"tol={TOL[dtype]:.0e} dead_row_zero={dead_zero}")
+        require(err <= TOL[dtype] and dead_zero and math.isfinite(err),
+                f"ragged_decode {label} {dtype} disagrees with its plain "
+                "version")
+        if dtype == "float32":
+            live_len = sum(n for n, a in zip(lengths, live) if a)
+            B, T = q.shape[0], k.shape[1]
+            mask = (torch.arange(T, device="cuda")[None, :]
+                    < lens[:, None])[:, None, None, :]
+            timed(f"ragged_decode {label} (B {B}, T {T}, live KV rows "
+                  f"{live_len}) fp32",
+                  lambda: rd.ragged_decode_attention(q, k, v, lens,
+                                                     live=livet),
+                  lambda: ragged_decode_attention_ref(q, k, v, lens,
+                                                      live=livet),
+                  gqa_sdpa(torch, q, k, v, attn_mask=mask),
+                  2 * live_len * Hkv * D * 4 + 2 * B * Hq * D * 4 + 8 * B,
+                  4 * live_len * Hq * D, dtype)
+    for label, Hq, Hkv, D, dtype in BENCH_FLASH:
+        for S in BENCH_PREFILL:
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.randn((1, S, h, D), generator=gen,
+                                   device="cuda").to(dt)
+                       for h in (Hq, Hkv, Hkv))
+            got = fa.flash_attention(q, k, v, causal=True)
+            want = flash_attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            log(f"flash_attention {label} (Hq {Hq}, Hkv {Hkv}, D {D}) S={S} "
+                f"{dtype} causal: max_abs_err={err:.3e} "
+                f"tol={TOL[dtype]:.0e}")
+            require(err <= TOL[dtype] and math.isfinite(err),
+                    f"flash_attention {label} S={S} {dtype} disagrees with "
+                    "its plain version")
+            if dtype == "float32" and S == BENCH_PREFILL[0]:
+                timed(f"flash_attention {label} S={S} fp32 causal",
+                      lambda: fa.flash_attention(q, k, v, causal=True),
+                      lambda: flash_attention_ref(q, k, v, causal=True),
+                      gqa_sdpa(torch, q, k, v, is_causal=True),
+                      (2 * q.numel() + k.numel() + v.numel()) * 4,
+                      4 * D * Hq * S * (S + 1) // 2, dtype)
+
+
+def run_scaling_phase(torch):
+    """The launcher's ``scaling_curve`` in process at the reference's
+    bench widths, over grants of 1, 2, 4 and 8 of 8 CUs (4 slots a CU):
+    logs tokens/s, step ms and slots by CUs and ``monotone`` (a reading of
+    the card, not a gate); every window's captures must be 0 and both
+    attention kernels must launch, in fp32."""
+    from repro_torch.launch import serve as launcher
+    args = launcher.parser().parse_args(SCALE_ARGS)
+    card = card_line()
+    reset_counts(BENCH_KERNELS)
+    t0 = time.perf_counter()
+    doc = launcher.scaling_curve(args)
+    wall = time.perf_counter() - t0
+    launches = read_counts(BENCH_KERNELS)
+    log(f"scaling curve ({doc['bench_model']}, fp32, {doc['measured_steps']}"
+        f" steps a window, best of 2): slots_by_cus {doc['slots_by_cus']}, "
+        f"tokens_per_s_by_cus {doc['tokens_per_s_by_cus']}, step_ms_by_cus "
+        f"{doc['step_ms_by_cus']}, monotone {doc['monotone']}, captures in "
+        f"the windows {doc['captures_in_windows']}; launches {launches}; "
+        f"{wall:.1f} s ({card})")
+    require(list(doc["slots_by_cus"]) == ["1", "2", "4", "8"],
+            f"scaling curve sizes {doc['slots_by_cus']}")
+    require(all(v > 0 and math.isfinite(v)
+                for v in doc["tokens_per_s_by_cus"].values()),
+            "scaling curve: a size served nothing")
+    require(set(doc["captures_in_windows"].values()) == {0},
+            f"captures in timed windows: {doc['captures_in_windows']}")
+    for k in BENCH_KERNELS:
+        require(launches[k] > 0, f"{k} never launched in the scaling curve")
+    return launches
+
+
+def dse_smoke_streams(torch, srv, submitted, label: str) -> int:
+    """Each tenant's streams of a DSE smoke against a lone engine's on the
+    same prompts and weights, but at counted near-ties."""
+    res = srv.results()
+    ties = 0
+    for t in srv.engines:
+        mine = [(r, p) for tt, r, p in submitted if tt == t]
+        streams = [res[t][r] for r, _ in mine]
+        vocab = srv.cfgs[t].vocab_size
+        require(all(len(x) == DSE_NEW and all(0 <= v < vocab for v in x)
+                    for x in streams),
+                f"{label} {t}: streams incomplete or out of the vocabulary")
+        ties += lone_near_ties(torch, srv, t, [p for _, p in mine], streams,
+                               DSE_NEW, label)
+    return ties
+
+
+def run_dse_smoke_phase(torch):
+    """The launcher's ``dse_smoke`` in process, the kernels on: tenant a
+    minitron-4b whole (slot_cap 4, 16 requests), tenant b qwen2.5-32b at
+    its published widths cut to 16 of 64 layers (6 requests), random bf16
+    weights, on 8 CUs.  Logs Stage 1's pick behind each recomposition (dp
+    included), the design points, the applied deltas, ``dp_picked`` and
+    ``ok`` (readings of the H100's prices: one card prices no tensor
+    parallelism, so the reference's dp > 1 is not expected).  Requires
+    every stream complete, every applied delta Stage 1's, 0 captures on
+    the serving path after warming, both attention kernels launched and
+    each tenant's streams equal to a lone engine's but at counted
+    near-ties.  Then the same smoke ``--reduced`` (the reference's run)."""
+    import gc
+
+    from repro_torch.launch import serve as launcher
+    card = card_line()
+    total = dict.fromkeys(BENCH_KERNELS, 0)
+    for argv, label in ((DSE_ARGS, "dse smoke"),
+                        (DSE_ARGS[:-2] + ["--reduced"], "dse smoke reduced")):
+        args = launcher.parser().parse_args(argv)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(BENCH_KERNELS)
+        t0 = time.perf_counter()
+        srv, doc, submitted = launcher.dse_smoke(args)
+        wall = time.perf_counter() - t0
+        launches = read_counts(BENCH_KERNELS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{label}: tenants {doc['tenants']} at {doc['layers']} layers, "
+            f"{doc['decode_steps']} steps in {doc['wall_s']} s of serving "
+            f"({wall:.1f} s with the build and warming); peak memory "
+            f"{peak:.2f} GiB ({card})")
+        for pick in doc["stage1_picks"]:
+            log(f"{label} Stage 1 pick at step {pick['step']} "
+                f"({pick['reason']}): {pick['points']}")
+        log(f"{label}: events {doc['events']}")
+        log(f"{label}: design_points {doc['design_points']}, applied_deltas "
+            f"{doc['applied_deltas']}, nondefault {doc['nondefault']}, "
+            f"dp_picked {doc['dp_picked']}, complete {doc['complete']}, ok "
+            f"{doc['ok']}, deltas from Stage 1 {doc['deltas_from_stage1']}, "
+            f"captures on the serving path {doc['serving_captures']}, "
+            f"launches {launches}")
+        require(doc["complete"], f"{label}: a stream did not complete")
+        require(doc["deltas_from_stage1"],
+                f"{label}: an applied delta was not Stage 1's pick")
+        require(set(doc["serving_captures"].values()) == {0},
+                f"{label}: captures on the serving path "
+                f"{doc['serving_captures']}")
+        for k in BENCH_KERNELS:
+            require(launches[k] > 0, f"{k} never launched in the {label}")
+            total[k] += launches[k]
+        ties = dse_smoke_streams(torch, srv, submitted, label)
+        log(f"{label}: streams equal the lone engines' but for {ties} "
+            "near-tie(s)")
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def run_dp_bench_phase(torch):
+    """The launcher's ``dp_bench`` in process: Stage 1's chosen replica
+    tiling of a 4-CU grant (slot_cap 4, 16 requests) against the same
+    grant forced to one engine, fp32, d 512, 6 layers, max_len 4096.
+    Logs both points, both rates and the speedup (readings of the card,
+    not gates); requires 0 captures in the timed windows, every request
+    complete and the same in both arms, and both attention kernels
+    launched."""
+    import gc
+
+    from repro_torch.launch import serve as launcher
+    args = launcher.parser().parse_args(DP_ARGS)
+    card = card_line()
+    reset_counts(BENCH_KERNELS)
+    t0 = time.perf_counter()
+    doc, _ = launcher.dp_bench(args)
+    wall = time.perf_counter() - t0
+    launches = read_counts(BENCH_KERNELS)
+    log(f"dp bench ({doc['bench_model']}, grant {doc['grant_cus']} CUs, "
+        f"queue {doc['queue']}, slot_cap {doc['slot_cap']}): chosen "
+        f"{doc['chosen']}, forced {doc['forced']} (as Stage 1 priced them; "
+        f"applied dp {doc['applied_dp']}); tokens/s dp "
+        f"{doc['tokens_per_s_dp']}, dp1 {doc['tokens_per_s_dp1']}, speedup "
+        f"{doc['speedup']}, ok {doc['ok']}; captures in the windows "
+        f"{doc['captures_in_windows']}; streams equal "
+        f"{doc['streams_equal']}; launches {launches}; {wall:.1f} s "
+        f"({card})")
+    require(set(doc["captures_in_windows"].values()) == {0},
+            f"dp bench: captures in timed windows "
+            f"{doc['captures_in_windows']}")
+    require(doc["complete"], "dp bench: a request did not complete")
+    require(doc["streams_equal"], "dp bench: the arms' streams differ")
+    for k in BENCH_KERNELS:
+        require(launches[k] > 0, f"{k} never launched in the dp bench")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -5573,6 +5874,7 @@ def main() -> int:
     start = time.perf_counter()
     phase_s = lambda: f"{time.perf_counter() - start:.1f} s"
     kernels = run_kernel_phase(torch)
+    run_bench_kernel_checks(torch)
     kernels.update(run_flash_bwd_phase(
         torch, torch.Generator(device="cuda").manual_seed(4), 10))
     kernels.update(run_ssm_kernel_phase(torch))
@@ -5670,6 +5972,14 @@ def main() -> int:
     log(f"seamless-m4t-medium training phase done at {phase_s()}")
     run_trainer_phase(torch)
     log(f"trainer phase done at {phase_s()}")
+
+    # the launcher's scaling curve, DSE smoke and dp bench
+    t_modes = time.perf_counter()
+    for run in (run_scaling_phase, run_dse_smoke_phase, run_dp_bench_phase):
+        for name, n in run(torch).items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"{run.__name__[4:]} done at {phase_s()}")
+    log(f"phases 18-20 took {time.perf_counter() - t_modes:.1f} s")
 
     entries = []
     for name, entry in kernels.items():

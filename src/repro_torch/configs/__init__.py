@@ -13,8 +13,11 @@ from __future__ import annotations
 import importlib
 from typing import Dict, Tuple
 
-from repro_torch.configs.base import (MLAConfig, MoEConfig, ModelConfig,
-                                      SSMConfig, torch_dtype)
+from repro_torch.configs.base import (ALL_CELLS, CELLS_BY_NAME, DECODE_32K,
+                                      LONG_500K, PREFILL_32K, TRAIN_4K,
+                                      MLAConfig, MoEConfig, ModelConfig,
+                                      ShapeCell, SSMConfig, cells_for,
+                                      torch_dtype)
 
 _MODULES: Dict[str, str] = {
     "minitron-4b": "minitron_4b",
@@ -47,5 +50,7 @@ def get_reduced(arch: str) -> ModelConfig:
     return _load(arch).REDUCED
 
 
-__all__ = ["ARCH_IDS", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig",
+__all__ = ["ALL_CELLS", "ARCH_IDS", "CELLS_BY_NAME", "DECODE_32K",
+           "LONG_500K", "MLAConfig", "MoEConfig", "ModelConfig",
+           "PREFILL_32K", "SSMConfig", "ShapeCell", "TRAIN_4K", "cells_for",
            "get_config", "get_reduced", "torch_dtype"]

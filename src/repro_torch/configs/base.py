@@ -119,6 +119,14 @@ class ModelConfig:
         return self.attn_type == "none"
 
     @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing (SSM or sliding-window everywhere)."""
+        if self.ssm is not None and (self.attn_type == "none"
+                                     or self.hybrid_parallel):
+            return True
+        return self.attn_type == "sliding"
+
+    @property
     def activation_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
@@ -178,3 +186,30 @@ class ModelConfig:
                                             + ffn_mult * d * self.d_ff)
             total += self.num_layers * (d * nq * hd + 2 * d * nkv * hd + nq * hd * d)
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+    # decode/long cells: kv_len = seq_len (cache length), one new token.
+
+
+TRAIN_4K = ShapeCell("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeCell("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeCell("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeCell("long_500k", 524288, 1, "decode")
+
+ALL_CELLS = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+CELLS_BY_NAME = {c.name: c for c in ALL_CELLS}
+
+
+def cells_for(config: ModelConfig) -> Tuple[ShapeCell, ...]:
+    """The shape cells an architecture runs: long_500k only for the
+    sub-quadratic archs (``supports_long_context``)."""
+    cells = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if config.supports_long_context:
+        cells.append(LONG_500K)
+    return tuple(cells)

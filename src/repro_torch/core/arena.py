@@ -5,13 +5,16 @@ FILCO's Flexible Memory Unit as a software-managed buffer pool: a 1-D
 arena whose regions are reinterpreted as 2-D views of any shape and role,
 so storage is size-limited, never shape-limited.  The serving engine uses
 it for KV admission accounting: the slot-granular ``FlexArena`` or the
-fixed-page ``PagedArena`` over it.  Pure Python; the reference's
-device-side view helpers are not part of the port.
+fixed-page ``PagedArena`` over it.  The arenas are pure Python; the
+device-side view ops at the end (``store_view``, ``load_view``,
+``load_padded``) read and write a view's window of a flat torch buffer.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 ROLE_WEIGHT = "weight"
 ROLE_ACT = "activation"
@@ -266,3 +269,31 @@ class PagedArena:
                 raise AssertionError(
                     f"table {t.table_id}: rows {t.rows} vs "
                     f"{len(t.pages)} pages")
+
+
+# ---------------------------------------------------------------------------
+# device-side view ops on a flat buffer
+# ---------------------------------------------------------------------------
+
+def store_view(arena_buf: torch.Tensor, view: View,
+               matrix: torch.Tensor) -> torch.Tensor:
+    """Write a (rows, cols) matrix into the flat arena at the view window,
+    in place (cast to the buffer's dtype); returns the buffer."""
+    arena_buf.narrow(0, view.offset, view.size).copy_(matrix.reshape(-1))
+    return arena_buf
+
+
+def load_view(arena_buf: torch.Tensor, view: View) -> torch.Tensor:
+    """The view window as a (rows, cols) matrix (a view of the buffer)."""
+    return arena_buf.narrow(0, view.offset, view.size).view(view.rows,
+                                                            view.cols)
+
+
+def load_padded(arena_buf: torch.Tensor, view: View,
+                padded_shape: Tuple[int, int]) -> torch.Tensor:
+    """A view read into a zero-padded (max-shape) matrix: the handoff
+    format of the ``filco_mm`` kernel (padded operands + runtime valid
+    dims)."""
+    pr, pc = padded_shape
+    return torch.nn.functional.pad(load_view(arena_buf, view),
+                                   (0, pc - view.cols, 0, pr - view.rows))

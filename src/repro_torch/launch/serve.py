@@ -47,6 +47,31 @@ warm-compile spans and every class has decode-step latencies) and
 ``--slo-smoke`` (a flash crowd on an oversubscribed paged arena preempts,
 and every stream equals a slot-granular replay of the same schedule).
 
+The reference's serving evidence for the paper's claim, one JSON document
+each (the functions ``scaling_curve``, ``dse_smoke`` and ``dp_bench``
+return it):
+
+    python -m repro_torch.launch.serve --scaling-curve [--scale-steps 10]
+    python -m repro_torch.launch.serve --dse-smoke [--reduced] \
+        [--layers qwen2.5-32b=16]
+    python -m repro_torch.launch.serve --dp-bench
+
+``--scaling-curve`` measures decode tokens/s and step ms of a dense bench
+model (``bench_config``: ``--scale-dmodel``, ``--scale-layers``,
+``--scale-dff``, fp32) at each ``--scale-sizes`` grant of the card's
+``--num-cus`` CUs, with ``--scale-slots-per-cu`` slots per CU.
+``--dse-smoke`` serves two tenants (minitron-4b batch-capped at 4 slots
+with 16 requests, qwen2.5-32b with 6) under the two-stage policy and
+reports the design points Stage 1 picked and the fabric applied (exit 1
+unless a non-default point with ``dp > 1`` was applied and every stream
+completed, the reference's test).  ``--dp-bench`` times Stage 1's chosen
+replica tiling of a 4-CU grant against the same grant forced to one
+engine.  One card has no tensor parallelism: the documents keep the
+reference's keys and ``tp`` reads false; the CUs are logical shares
+(``CUComposer``), replicas are co-resident engines on shared weights,
+each on its own CUDA stream, every engine is warmed before a timed
+window, and every window ends on a device sync.
+
 Every mode runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -64,9 +89,13 @@ import torch
 
 from repro_torch.common.platform import H100_SXM, per_cu
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.composer import CUComposer
 from repro_torch.models.model import build_model
-from repro_torch.serve import (AnalyticalPolicy, ComposedServer, SLOTarget,
-                               ServeConfig, TenantSpec, arrival_schedule)
+from repro_torch.serve import (AnalyticalPolicy, ComposedServer,
+                               ReplicaGroup, SLOTarget, ServeConfig,
+                               TenantDesignSpace, TenantSpec,
+                               arrival_schedule)
 from repro_torch.workloads import (DECODE, ENCODER, SSM, DecodeEngine,
                                    SSMEngine, workload_class_of)
 
@@ -438,6 +467,327 @@ def run_slo_smoke(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# tokens/s by CU count: the measured scaling curve
+# ---------------------------------------------------------------------------
+
+def bench_config(d_model: int, layers: int, d_ff: int) -> ModelConfig:
+    """The reference's dense decode-bench model: fp32, head dim 128, half
+    as many KV heads as query heads, vocab 2048."""
+    heads = max(d_model // 128, 1)
+    return ModelConfig(
+        name=f"serve-bench-d{d_model}-L{layers}", family="dense",
+        num_layers=layers, d_model=d_model, num_heads=heads,
+        num_kv_heads=max(heads // 2, 1), d_ff=d_ff, vocab_size=2048,
+        head_dim=128, attn_type="full", dtype="float32", remat=False)
+
+
+def _bench_model(cfg: ModelConfig, args):
+    model = build_model(cfg, args.device)
+    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    return model, model.init(gen)
+
+
+def scaling_curve(args) -> dict:
+    """Steady-state decode tokens/s at each grant size of ``--scale-sizes``
+    (sizes above ``--num-cus`` are dropped): CUs granted by the policy
+    buy throughput.
+
+    A grant of ``k`` CUs holds ``k * --scale-slots-per-cu`` decode slots,
+    and that is all it is here: on one card a grant is a share and no SM
+    is partitioned, so the engine runs on the whole card and the curve
+    measures slots rising with the grant; decode
+    at small batch is weights-bound, so step ms stays about flat while
+    tokens/s follows the slots.  Each engine is warmed (``warm_compile``
+    and the reference's 3 steps) before its windows; each of the two
+    windows of ``--scale-steps`` steps ends on a device sync, and the
+    best is kept.  ``captures_in_windows`` counts graph captures inside
+    the windows (0 when warming covered them)."""
+    cfg = bench_config(args.scale_dmodel, args.scale_layers, args.scale_dff)
+    model, params = _bench_model(cfg, args)
+    sizes = [s for s in args.scale_sizes if s <= args.num_cus]
+    M = args.scale_steps
+    curve, lat, slots, captures = {}, {}, {}, {}
+    for size in sizes:
+        B = args.scale_slots_per_cu * size
+        eng = DecodeEngine(model, params, ServeConfig(
+            max_slots=B, max_len=args.max_len, eos_id=-1))
+        eng.warm_compile(None)
+        rng = np.random.default_rng(args.seed)
+        for _ in range(B):
+            eng.submit(rng.integers(1, cfg.vocab_size, size=16),
+                       max_new_tokens=3 * M + 8)
+        for _ in range(3):                    # prefill + the first steps
+            eng.step()
+        eng.warm_compile(None)                # the bounds about to dispatch
+        eng.sync()
+        before = eng.graph_captures
+        best, steps_ms = 0.0, []
+        for _ in range(2):                    # best-of-2 absorbs host jitter
+            t0 = time.perf_counter()
+            for _ in range(M):
+                s0 = time.perf_counter()
+                eng.step()
+                steps_ms.append((time.perf_counter() - s0) * 1e3)
+            eng.sync()
+            best = max(best, B * M / (time.perf_counter() - t0))
+        curve[size], slots[size] = round(best, 2), B
+        captures[size] = eng.graph_captures - before
+        arr = np.asarray(steps_ms)
+        lat[size] = {"p50": round(float(np.percentile(arr, 50)), 2),
+                     "p95": round(float(np.percentile(arr, 95)), 2)}
+        del eng
+    monotone = all(curve[a] < curve[b] for a, b in zip(sizes, sizes[1:]))
+    return {
+        "device": _device_name(model.device), "num_cus": args.num_cus,
+        "bench_model": cfg.name, "measured_steps": M, "tp": False,
+        "slots_by_cus": {str(s): slots[s] for s in sizes},
+        "tokens_per_s_by_cus": {str(s): curve[s] for s in sizes},
+        "step_ms_by_cus": {str(s): lat[s] for s in sizes},
+        "captures_in_windows": {str(s): captures[s] for s in sizes},
+        "monotone": monotone,
+    }
+
+
+def run_scaling(args) -> int:
+    print(json.dumps(scaling_curve(args), indent=1))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# DSE smoke: Stage 1 must pick a non-default design point, applied live
+# ---------------------------------------------------------------------------
+
+def _stage1_log(policy: AnalyticalPolicy, server: ComposedServer) -> list:
+    """Record every ``policy.decide`` of ``server`` as {"event": the index
+    its recomposition event would take, "points": the per-tenant points};
+    the list fills as the server runs."""
+    log, decide = [], policy.decide
+
+    def recorded(observations, cfgs, current, num_cus):
+        points, reason = decide(observations, cfgs, current, num_cus)
+        log.append({"event": len(server.events), "reason": reason,
+                    "points": {t: {"cus": p.cus, "tp": p.tp,
+                                   "slots": p.slots, "dp": p.dp}
+                               for t, p in points.items()}})
+        return points, reason
+
+    policy.decide = recorded
+    return log
+
+
+def _delta_chosen(delta: dict, pick: dict) -> bool:
+    """An applied knob delta is Stage 1's pick: the same ``dp``, and the
+    same slots or more (a shrink clamps at the live occupancy)."""
+    return (delta.get("dp", pick["dp"]) == pick["dp"]
+            and delta.get("slots", pick["slots"]) >= (pick["slots"] or 0)
+            and "tp" not in delta)
+
+
+def dse_smoke(args, policy=None):
+    """Two tenants under the two-stage policy: tenant "a" (minitron-4b,
+    its batch capped at 4 slots per engine, 16 requests) and "b"
+    (qwen2.5-32b, 6 requests), 2 slots and ``max_len`` 48 each, 8-token
+    prompts, 10 new tokens, a decision every 3 steps; ``--reduced`` and
+    ``--layers`` cut the configs.  Returns ``(server, document,
+    submitted)``: the document holds the reference's fields
+    (``design_points``, ``applied_deltas``, ``nondefault``, ``dp_picked``,
+    ``complete``, ``ok``), Stage 1's pick behind each recomposition
+    (``stage1_picks``), whether every applied delta was Stage 1's
+    (``deltas_from_stage1``) and the captures on the serving path after
+    warming; ``submitted`` is (tenant, rid, prompt) per request.
+    ``policy`` replaces the default ``AnalyticalPolicy`` on
+    ``per_cu(H100_SXM, --num-cus)``."""
+    if args.num_cus < 4:
+        raise ValueError(f"dse-smoke needs >= 4 CUs, got {args.num_cus}")
+    cuts = _layer_cuts(args)
+    sc = ServeConfig(max_slots=2, max_len=48, eos_id=-1)
+    # a: batch capped at 4 slots per engine, so a deep queue on a wide
+    # grant is servable only by replica tiling (the dp axis)
+    sc_a = dataclasses.replace(sc, slot_cap=4)
+    tenants = [TenantSpec("a", "minitron-4b", reduced=args.reduced,
+                          serve=sc_a, layers=cuts.get("minitron-4b", 0)),
+               TenantSpec("b", "qwen2.5-32b", reduced=args.reduced, seed=1,
+                          serve=sc, layers=cuts.get("qwen2.5-32b", 0))]
+    if policy is None:
+        policy = AnalyticalPolicy(per_cu(H100_SXM, args.num_cus))
+    server = ComposedServer(tenants, num_cus=args.num_cus,
+                            device=args.device, policy=policy,
+                            decide_every=3)
+    for eng in server.engines.values():
+        eng.warm_compile(None)
+    decisions = _stage1_log(policy, server)
+    rng = np.random.default_rng(args.seed)
+    submitted = []
+    for t, n in (("a", 16), ("b", 6)):     # queue depth >> default slots
+        vocab = server.cfgs[t].vocab_size
+        for _ in range(n):
+            prompt = rng.integers(1, vocab, size=8)
+            submitted.append((t, server.submit(t, prompt, max_new_tokens=10),
+                              prompt))
+    t0 = time.monotonic()
+    try:
+        out = server.drain(max_steps=500)
+    finally:
+        del policy.decide                  # the policy's own method again
+    if server.device.type == "cuda":
+        torch.cuda.synchronize(server.device)
+    dt = time.monotonic() - t0
+    stats = server.stats()
+    events = list(server.events)
+    applied = {t: d for e in events for t, d in e.design.items()}
+    nondefault = {
+        t: d for t, d in stats["design_points"].items()
+        if d["slots"] != sc.max_slots
+        or (d["tp"] is not None and 0 < d["tp"] < d["cus"])}
+    # dp > 1 is a steady-load design: once the fleet drains the policy
+    # folds "a" back to one engine, so look over the event history
+    dp_picked = any(e.design.get("a", {}).get("dp", 1) > 1
+                    and e.sizes_after.get("a", 0) >= 4 for e in events)
+    complete = all(len(toks) == 10
+                   for streams in out.values() for toks in streams.values())
+    picks = []
+    for i, e in enumerate(events):
+        pick = [d for d in decisions if d["event"] == i][-1]
+        picks.append({"step": e.step, "reason": e.reason,
+                      "points": pick["points"]})
+    from_stage1 = all(_delta_chosen(d, pick["points"][t])
+                      for e, pick in zip(events, picks)
+                      for t, d in e.design.items())
+    ok = bool(nondefault) and bool(applied) and dp_picked and complete
+    doc = {"device": _device_name(server.device),
+           "tenants": {t: spec.arch for t, spec in server.specs.items()},
+           "reduced": args.reduced,
+           "layers": {t: server.cfgs[t].num_layers for t in server.cfgs},
+           "num_cus": args.num_cus, "decode_steps": stats["steps"],
+           "wall_s": round(dt, 3),
+           "design_points": stats["design_points"],
+           "applied_deltas": applied,
+           "nondefault": sorted(nondefault),
+           "dp_picked": dp_picked, "complete": complete, "ok": ok,
+           "stage1_picks": picks, "deltas_from_stage1": from_stage1,
+           "serving_captures": stats["serving_captures"],
+           "tokens_emitted": stats["tokens_emitted"],
+           "events": [{"step": e.step, "reason": e.reason,
+                       "sizes": e.sizes_after, "design": e.design}
+                      for e in events]}
+    return server, doc, submitted
+
+
+def run_dse_smoke(args) -> int:
+    if args.num_cus < 4:
+        print("dse-smoke needs >= 4 CUs (--num-cus)")
+        return 2
+    _, doc, _ = dse_smoke(args)
+    print(json.dumps(doc, default=list))
+    if not doc["ok"]:
+        print("DSE smoke FAILED: Stage 1 never picked (or the fabric never "
+              "applied) a non-default design point with dp > 1",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# dp bench: Stage-1-chosen replica tiling vs the same grant forced to dp=1
+# ---------------------------------------------------------------------------
+
+def dp_bench(args, policy=None):
+    """Steady-state decode tokens/s on one 4-CU grant: Stage 1's chosen
+    design against the same search with the tenant pinned to a single
+    engine (``dp_cap=1``).  The engine's batch is capped (``slot_cap``
+    4), so the single engine never widens its batch while the replica
+    arm decodes ``dp`` capped batches at once: co-resident engines on the
+    shared weights, each on its own CUDA stream.
+
+    Stage 1 searches the reference's design space, which prices tensor
+    parallelism; one card runs none, so each arm applies its point's
+    ``dp`` and ``slots`` (``chosen``/``forced`` report the points as
+    priced).  Both arms are built, warmed and then timed in turns, best of
+    3 windows of ``--scale-steps`` steps each, every window ending on a
+    device sync; then both run to completion.  Returns ``(document,
+    results)``: ``results`` maps "dp" and "dp1" to each arm's {rid:
+    tokens}, the same requests in the same order."""
+    if args.num_cus < 4:
+        raise ValueError(f"dp-bench needs >= 4 CUs, got {args.num_cus}")
+    # deep-narrow at a long context, the reference's regime; the fixed
+    # max_len (not --max-len) is part of the benchmark
+    cfg = bench_config(512, 6, 4096)
+    model, params = _bench_model(cfg, args)
+    comp = CUComposer(args.num_cus, model.device)
+    grant, queue, M, reps = 4, 16, args.scale_steps, 3
+    sc = ServeConfig(max_slots=4, max_len=4096, eos_id=-1, slot_cap=4)
+    pol = (policy if policy is not None
+           else AnalyticalPolicy(per_cu(H100_SXM, args.num_cus)))
+
+    def arm(dp_cap):
+        space = TenantDesignSpace(wclass=DECODE, max_len=sc.max_len,
+                                  base_slots=sc.max_slots,
+                                  slot_cap=sc.slot_cap, dp_cap=dp_cap)
+        best = pol.stage1.best(cfg, space, queue, grant)
+        grp = ReplicaGroup(DECODE, model, params, sc,
+                           sub=comp.submesh(range(grant), f"dpb{dp_cap}"))
+        grp.apply(None, dataclasses.replace(best, tp=None))
+        grp.warm_compile(None)
+        rng = np.random.default_rng(args.seed)
+        for _ in range(queue):
+            grp.submit(rng.integers(1, cfg.vocab_size, size=16),
+                       max_new_tokens=reps * M + 8)
+        for _ in range(3):                  # prefill + the first steps
+            grp.step()
+        grp.warm_compile(None)              # the bounds about to dispatch
+        grp.sync()
+        return best, grp
+
+    chosen, grp_dp = arm(dp_cap=64)
+    forced, grp_one = arm(dp_cap=1)
+    toks = {"dp": 0.0, "dp1": 0.0}
+    captures = {"dp": 0, "dp1": 0}
+    for _ in range(reps):
+        for grp, which in ((grp_dp, "dp"), (grp_one, "dp1")):
+            before = grp.graph_captures
+            n, t0 = 0, time.perf_counter()
+            for _ in range(M):
+                n += len(grp.step())
+            grp.sync()
+            toks[which] = max(toks[which],
+                              round(n / (time.perf_counter() - t0), 2))
+            captures[which] += grp.graph_captures - before
+    results = {"dp": grp_dp.run_to_completion(2000),
+               "dp1": grp_one.run_to_completion(2000)}
+    complete = all(len(v) == reps * M + 8
+                   for res in results.values() for v in res.values())
+    ok = (chosen.dp or 1) > 1 and (forced.dp or 1) == 1 \
+        and toks["dp"] > toks["dp1"]
+    doc = {
+        "device": _device_name(model.device), "num_cus": comp.num_cus,
+        "bench_model": cfg.name, "grant_cus": grant, "queue": queue,
+        "measured_steps": M, "timed_reps": reps, "slot_cap": sc.slot_cap,
+        "tp": False,
+        "chosen": {"dp": chosen.dp, "tp": chosen.tp, "slots": chosen.slots},
+        "forced": {"dp": forced.dp, "tp": forced.tp, "slots": forced.slots},
+        "applied_dp": {"dp": grp_dp.dp, "dp1": grp_one.dp},
+        "tokens_per_s_dp": toks["dp"], "tokens_per_s_dp1": toks["dp1"],
+        "speedup": round(toks["dp"] / max(toks["dp1"], 1e-9), 3),
+        "captures_in_windows": captures, "complete": complete,
+        "streams_equal": results["dp"] == results["dp1"], "ok": ok,
+    }
+    return doc, results
+
+
+def run_dp_bench(args) -> int:
+    if args.num_cus < 4:
+        print("dp-bench needs >= 4 CUs (--num-cus)")
+        return 2
+    doc, _ = dp_bench(args)
+    print(json.dumps(doc))
+    if not doc["ok"]:
+        print("dp bench FAILED: Stage 1 did not pick dp > 1, or replica "
+              "tiling did not beat the single-engine arm", file=sys.stderr)
+        return 1
+    return 0
+
+
 def run_single(args) -> int:
     cfg = get_reduced(args.arch[0]) if args.reduced else \
         get_config(args.arch[0])
@@ -547,6 +897,23 @@ def parser() -> argparse.ArgumentParser:
                     help="require a flash crowd on an oversubscribed paged "
                          "arena to preempt, with streams equal to a "
                          "slot-granular replay")
+    ap.add_argument("--scaling-curve", action="store_true",
+                    help="measure decode tokens/s at each --scale-sizes "
+                         "grant of the card's CUs")
+    ap.add_argument("--scale-sizes", type=int, nargs="+", default=[1, 2, 4])
+    ap.add_argument("--scale-steps", type=int, default=10)
+    ap.add_argument("--scale-slots-per-cu", type=int, default=4,
+                    help="decode slots per granted CU")
+    ap.add_argument("--scale-dmodel", type=int, default=2048)
+    ap.add_argument("--scale-layers", type=int, default=4)
+    ap.add_argument("--scale-dff", type=int, default=8192)
+    ap.add_argument("--dse-smoke", action="store_true",
+                    help="require the two-stage policy to pick and apply a "
+                         "non-default design point (dp > 1 for the "
+                         "batch-capped tenant)")
+    ap.add_argument("--dp-bench", action="store_true",
+                    help="time Stage 1's replica tiling (dp > 1) against "
+                         "the same grant forced to one engine")
     return ap
 
 
@@ -557,6 +924,12 @@ def main(argv=None) -> int:
         return run_obs_smoke(args)
     if args.slo_smoke:
         return run_slo_smoke(args)
+    if args.dse_smoke:
+        return run_dse_smoke(args)
+    if args.dp_bench:
+        return run_dp_bench(args)
+    if args.scaling_curve:
+        return run_scaling(args)
     if args.scenario == "mixed" or args.scenario in TRAFFIC_SCENARIOS:
         if not args.fabric:
             ap.error(f"--scenario {args.scenario} requires --fabric")
@@ -566,7 +939,8 @@ def main(argv=None) -> int:
         return run_fabric(args)
     if not args.arch:
         ap.error("--arch is required (except with --scenario mixed or a "
-                 "traffic scenario, --obs-smoke and --slo-smoke)")
+                 "traffic scenario, the smokes, --dp-bench and "
+                 "--scaling-curve)")
     if args.fabric:
         return run_fabric(args)
     if len(args.arch) != 1:

@@ -52,6 +52,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.workloads.encoder\n"
             "import repro_torch.workloads.encdec\n"
             "import repro_torch.configs.seamless_m4t_medium\n"
+            "import repro_torch.core.gpu_modes, repro_torch.core.arena\n"
+            "import repro_torch.launch.quickstart\n"
+            "import repro_torch.launch.multi_tenant_serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n"
