@@ -256,6 +256,21 @@
    both arms.  The kernel phase holds ragged decode and flash at these
    phases' shapes (16 on 8 and 4 on 2 in fp32, KV up to 4096; qwen's 40
    on 8 in bf16) and times the fp32 ones.
+21. Analysis phase (``repro_torch.analysis``, ``launch/dryrun.py``): the
+   dry run of all 32 arch x cell pairs on ``meta`` tensors (six worker
+   processes, after the card's last timed phase), one line
+   each (peak GiB, fit in 78 GiB, compute and memory ms on the
+   H100, the dominant term) and the grid's seconds; then the dry run at
+   the shapes the card ran: minitron-4b training (B 4 x S 1024) whose
+   predicted peak must be within 15% of the training phase's, its counted
+   FLOPs within 2% of the remat step's count (as torch runs it: the
+   checkpoints' early stop) and its fit mark the card's; minitron-4b
+   serving (8 slots, ``max_len`` 2048) whose peak must be within 15% of
+   the serving phase's; each measured step beside the derived bound.
+   The training phase's profile of one step (``breakdown.profile_step``)
+   splits "other" by the aten operation that launched each kernel and
+   the port's function that called it; its classes must sum to the
+   device total within 1%.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -286,25 +301,26 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
-TF32_FLOPS = 495e12                # dense TF32 tensor-core peak
-F32_FLOPS = 67e12                  # fp32 outside the tensor cores
-# exponentials on the special-function units: 16 per clock per SM at
-# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
-# instruction throughput), 132 SMs at the H100 SXM's 1980 MHz boost clock
-SFU_EXP_PER_S = 132 * 16 * 1.98e9
-# exponentials evaluated beside them on the FP32 pipe (128 lanes per SM),
-# as range reduction plus a polynomial: about 8 FP32 instructions each.
-# The bound counts both, so that it is the least time; the SFU-only figure
-# is logged beside it
-FMA_EXP_PER_S = 132 * 128 * 1.98e9 / 8
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the card's rates, the kernels' bounds and work, the remat step's FLOP
+    # count: one set of numbers with the port's analysis layer
+    from repro_torch.analysis.roofline import (BF16_FLOPS, F32_FLOPS,
+                                               FMA_EXP_PER_S, HBM_BYTES_PER_S,
+                                               SFU_EXP_PER_S, TF32_FLOPS,
+                                               attended_pairs, kernel_bound,
+                                               model_flops_for,
+                                               scan_train_work, scan_work,
+                                               training_flops, window_pairs)
+except ImportError:         # not a checkout: main() says so and exits 2
+    pass
 # bf16 kernel vs plain version: outputs are O(1) weighted means of bf16
 # values; the two round p and the running sums at different points, so
 # they may differ by a few bf16 ulps (2**-8 relative).  fp32: summation
@@ -339,6 +355,12 @@ SWEEP_RAGGED = (1040, 1032, 2040)
 PAPER_WORKLOAD = "BERT-128"
 MAMBA_ORDER = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
                "dt_bias", "A_log", "D", "out_proj")
+
+
+# what the phases measured that the analysis phase holds its dry run to:
+# "<arch> serving" {peak_gib, p50_ms}, "minitron-4b training" {peak_gib,
+# step_s, flops (executed, as torch runs the remat step), split}
+MEASURED: dict = {}
 
 
 def log(*parts) -> None:
@@ -396,22 +418,6 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
-
-
-def bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0,
-          tf32x3: bool = False):
-    """Least time in ms for ``nbytes`` of traffic, ``flops`` at the peak of
-    ``dtype`` and ``exps`` exponentials on the special-function units and
-    the FP32 pipe together, and which of bytes or operations binds.  With
-    ``tf32x3`` an fp32 product is three TF32 tensor-core products (the
-    filco_mm kernel's fp32 arithmetic): 3 x ``flops`` at the TF32 peak."""
-    peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
-    if tf32x3 and dtype == "float32":
-        flops, peak = 3 * flops, TF32_FLOPS
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(flops / peak, exps / (SFU_EXP_PER_S + FMA_EXP_PER_S))
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def agree(got, want, tol: float) -> bool:
@@ -584,7 +590,7 @@ def run_kernel_phase(torch, reps: int = 20):
     es = q.element_size()
     nbytes = (2 * live_len * Hkv * D * es + 2 * B * Hq * D * es + 8 * B)
     flops = 4 * live_len * Hq * D
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    b_ms, b_by = kernel_bound(nbytes, flops, "bfloat16")
     T = k.shape[1]
     chunk, n_split = rd.split_plan(
         B, Hq, Hkv, T,
@@ -646,7 +652,7 @@ def run_kernel_phase(torch, reps: int = 20):
             es = q.element_size()
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
             flops = 4 * 128 * 24 * S * (S + 1) // 2
-            b_ms, b_by = bound(nbytes, flops, dtype)
+            b_ms, b_by = kernel_bound(nbytes, flops, dtype)
             timing[S] = (ms, plain_ms, lib_ms, b_ms, b_by)
             kinds = cuda_launches(torch, lambda: fa.flash_attention(q, k, v))
             # four sequences per launch: the time per sequence against B = 1
@@ -781,7 +787,7 @@ def run_group_decode_phase(torch, gen, reps: int):
     es = q.element_size()
     nbytes = 2 * live_len * Hkv * D * es + 2 * B * Hq * D * es + 4 * B
     flops = 4 * live_len * Hq * D
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    b_ms, b_by = kernel_bound(nbytes, flops, "bfloat16")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     groups, gsize = rd.head_groups(Hq // Hkv)
     chunk, n_split = rd.split_plan(B, Hq, Hkv, T, sms)
@@ -887,7 +893,7 @@ def run_masked_flash_phase(torch, gen, reps: int):
     # q read and out written whole; K and V read only where valid
     nbytes = 2 * B * S * H * D * es + 2 * valid * H * D * es + 4 * B
     flops = 4 * D * H * S * valid          # every query row, valid keys
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    b_ms, b_by = kernel_bound(nbytes, flops, "bfloat16")
     kinds = cuda_launches(torch, lambda: fa.flash_attention(
         q, k, v, causal=False, kv_len=lens))
     log(f"flash_attention kv_len timing (B={B} S={S} H={H} D={D} bf16 "
@@ -967,7 +973,7 @@ def run_mla_flash_phase(torch, gen, reps: int):
         es = q.element_size()
         nbytes = 4 * q.numel() * es             # q, k, v read; out written
         flops = 4 * D * H * S * (S + 1) // 2
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        b_ms, b_by = kernel_bound(nbytes, flops, "bfloat16")
         ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1065,16 +1071,6 @@ def scan_inputs(torch, gen, S: int, d_in: int, R: int, N: int, dtype):
     return x, delta, dbc[..., R:R + N], dbc[..., R + N:]
 
 
-def scan_work(S: int, d_in: int, N: int, es: int):
-    """(bytes, exponentials, flops) of one B = 1 scan: x, dt, B, C, A_log
-    and D read once, y and the last state written once; one exponential
-    per state-step and per A; six flops per state-step, three per output."""
-    n_io = S * d_in
-    nbytes = (n_io * es + n_io * 4 + 2 * S * N * es + 4 * d_in * (N + 1)
-              + n_io * 4 + 4 * d_in * N)
-    return nbytes, n_io * N + d_in * N, 6 * n_io * N + 3 * n_io
-
-
 def scan_sweep(torch, gen, d_in: int, R: int, N: int, reps: int,
                label: str = "mamba_scan", show_plan: bool = True):
     """Times the scan at B = 1, bf16, for each S of ``SCAN_SWEEP`` and logs
@@ -1091,8 +1087,8 @@ def scan_sweep(torch, gen, d_in: int, R: int, N: int, reps: int,
                                        torch.bfloat16)
         t = time_ms(torch, lambda: ms.mamba_scan(x, delta, bm, cm, a_log,
                                                  d_vec), reps)
-        nbytes, exps, flops = scan_work(S, d_in, N, 2)
-        b_ms, b_by = bound(nbytes, flops, "float32", exps=exps)
+        nbytes, exps, flops = scan_work(1, S, d_in, N, 2)
+        b_ms, b_by = kernel_bound(nbytes, flops, "float32", exps=exps)
         log(f"{label} S={S} (B=1, d_in={d_in}, N={N}, bf16): {t:.4f} ms, "
             f"{nbytes / t / 1e9:.3f} TB/s of {nbytes / 1e6:.1f} MB, "
             f"{exps / t / 1e9:.3f} T exp/s = "
@@ -1586,8 +1582,8 @@ def run_ssm_kernel_phase(torch, reps: int = 20):
             nbytes = (products * es + fp32_params * 4 + 2 * B * d_model * es
                       + 2 * nlive * state + 4 * B)
             flops = 2 * nlive * products
-            b_ms, b_by = bound(nbytes, flops, dtype,
-                               exps=nlive * d_in * (N + 3))
+            b_ms, b_by = kernel_bound(nbytes, flops, dtype,
+                                      exps=nlive * d_in * (N + 3))
             log(f"mamba_step timing (falcon-mamba-7b widths, bf16, {nlive} "
                 f"live of {B} slots, one layer): kernel {ms_:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
@@ -1900,6 +1896,8 @@ def run_serving_phase(torch, model, params, engine_cls, scfg, *, per_step,
     runs = [serving_run(torch, engine_cls, model, params, scfg, prompts,
                         new, kernels, graphs)
             for graphs in (True, False, True, False)]
+    MEASURED[f"{name} serving"] = dict(
+        peak_gib=max(r["peak_gib"] for r in runs), p50_ms=runs[0]["p50"])
     L = cfg.num_layers
     card = card_line()
     for run in runs:
@@ -2759,7 +2757,7 @@ def deepseek_step_breakdown(torch, model, params, scfg, reps: int = 10):
     wbytes = (param_bytes(dec) + param_bytes(params["lm_head"]))
     lat = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
     kbytes = 8 * 900 * lat * 2 * cfg.num_layers
-    b_ms, _ = bound(wbytes + kbytes, 0.0, "bfloat16")
+    b_ms, _ = kernel_bound(wbytes + kbytes, 0.0, "bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(4)
     h = torch.randn((8, 1, cfg.d_model), generator=gen,
                     device="cuda").to(torch.bfloat16)
@@ -3087,7 +3085,7 @@ def step_vs_bound(torch, model, params, state_bytes: int = 0):
     es = params["embed"].element_size()
     kbytes = (8 * 900 * 2 * cfg.num_kv_heads * cfg.resolved_head_dim * es
               * cfg.num_layers)
-    b_ms, _ = bound(wbytes + kbytes + state_bytes, 0.0, "bfloat16")
+    b_ms, _ = kernel_bound(wbytes + kbytes + state_bytes, 0.0, "bfloat16")
     log(f"{cfg.name} decode step (graph, 8 slots at 900 rows, bound 928): "
         f"{step_ms:.3f} ms, bound {b_ms:.3f} ms (bytes: {wbytes / 1e9:.2f} "
         f"GB of weights, {kbytes / 1e9:.3f} GB of KV, "
@@ -3260,14 +3258,6 @@ TRAIN_STEPS = 8
 TRAINER_ARGS = ["--arch", "llama-100m", "--steps", "30", "--seq-len", "256",
                 "--global-batch", "8", "--device", "cuda"]
 TRAINER_PREEMPT_AT = 10
-
-
-def attended_pairs(B: int, S: int, H: int, causal: bool,
-                   Skv: int = None) -> int:
-    """(query, key) pairs of B x H heads of S queries, over Skv keys where
-    bidirectional (None: S)."""
-    return B * H * (S * (S + 1) // 2 if causal
-                    else S * (S if Skv is None else Skv))
 
 
 def run_flash_bwd_phase(torch, gen, reps: int):
@@ -3480,10 +3470,12 @@ def time_flash_training(torch, fa, tensors, causal, reps, bwd_ref, lse_ref):
             q, k, v, out, dout, lse, causal=causal), reps),
         bwd_plain=time_ms(torch, lambda: bwd_ref(
             q, k, v, out, dout, lse, causal=causal), max(reps // 4, 3)),
-        fwd_bound=bound(qkv_bytes + out.numel() * es + lse.numel() * 4,
-                        4 * D * pairs, "bfloat16"),
-        bwd_bound=bound(2 * qkv_bytes + 2 * out.numel() * es
-                        + lse.numel() * 4, 10 * D * pairs, "bfloat16"))
+        fwd_bound=kernel_bound(
+            qkv_bytes + out.numel() * es + lse.numel() * 4, 4 * D * pairs,
+            "bfloat16"),
+        bwd_bound=kernel_bound(
+            2 * qkv_bytes + 2 * out.numel() * es + lse.numel() * 4,
+            10 * D * pairs, "bfloat16"))
     qh, kh, vh, dh = (t.transpose(1, 2).detach().clone().requires_grad_(
         t is not dout) for t in (q, k, v, dout))
 
@@ -3536,24 +3528,6 @@ SCAN_TRAIN_CASES = (("falcon-mamba-7b", 4, 1024, 8192, 16),
                     ("hymba-1.5b", 2, 2048, 3200, 16))
 # hymba-1.5b's attention at its training shape: B, S, Hq, Hkv, D, window
 HYMBA_FLASH = (2, 2048, 25, 5, 64, 1024)
-
-
-def scan_train_work(B: int, S: int, D: int, N: int, es: int):
-    """(forward bytes, backward bytes, exponentials, forward flops,
-    backward flops) of the scan's training pair.  The forward reads x, dt,
-    B, C, A_log and D and writes y, the last state and the boundary
-    states; the backward reads x, dt, B, C, A_log, D, the boundaries and
-    gy and writes dx, ddt, dB, dC, dA and dD.  One exponential per
-    state-step (the backward needs a_t once; the kernel takes it twice,
-    once to recompute the state and once to carry g); six flops per
-    state-step and three per output forward, 18 and 7 backward."""
-    n = B * S * D
-    bc = 2 * B * S * N * es
-    par = 4 * D * (N + 1)
-    bnd = 4 * -(-S // 32) * B * D * N
-    fwd = n * es + n * 4 + bc + par + n * 4 + 4 * B * D * N + bnd
-    bwd = n * es + n * 4 + bc + par + bnd + n * 4 + n * es + n * 4 + bc + par
-    return fwd, bwd, n * N, 6 * n * N + 3 * n, 18 * n * N + 7 * n
 
 
 def close_scaled(got, want, tol: float) -> bool:
@@ -3636,8 +3610,8 @@ def run_scan_train_phase(torch, reps: int = 10):
                     bwd_plain=time_ms(torch, lambda: selective_scan_bwd_ref(
                         *ins, bnd, gy), 3),
                     serve=time_ms(torch, lambda: ms.mamba_scan(*ins), reps),
-                    fwd_bound=bound(fb, ff, "float32", exps=exps),
-                    bwd_bound=bound(bb, bf, "float32", exps=exps))
+                    fwd_bound=kernel_bound(fb, ff, "float32", exps=exps),
+                    bwd_bound=kernel_bound(bb, bf, "float32", exps=exps))
                 p = ms.bwd_plan(B, D, N, torch.bfloat16)
                 occ = ms.bwd_occupancy(N, p.cluster, torch.bfloat16)
                 part_mb = B * p.clusters * S_len * 2 * N * 4 / 1e6
@@ -3695,13 +3669,6 @@ def run_scan_train_phase(torch, reps: int = 10):
             bound_ms=f["bwd_bound"][0], bound_by=f["bwd_bound"][1],
             library_ms=None, hymba_ms=h["bwd"],
             hymba_bound_ms=h["bwd_bound"][0])}
-
-
-def window_pairs(B: int, S: int, H: int, window: int) -> int:
-    """Attended (query, key) pairs of causal attention under a sliding
-    window: query i sees min(i + 1, window) keys."""
-    W = min(window, S)
-    return B * H * (W * (W + 1) // 2 + (S - W) * W)
 
 
 def run_window_flash_phase(torch, reps: int = 10):
@@ -3768,14 +3735,15 @@ def run_window_flash_phase(torch, reps: int = 10):
             q, k, v, out, dout, lse, **kw), reps),
         bwd_plain=time_ms(torch, lambda: flash_attention_bwd_ref(
             q, k, v, out, dout, lse, **kw), 3),
-        fwd_bound=bound(qkv + out.numel() * es + lse.numel() * 4,
-                        4 * D * pairs, "bfloat16"),
-        bwd_bound=bound(2 * qkv + 2 * out.numel() * es + lse.numel() * 4,
-                        10 * D * pairs, "bfloat16"))
+        fwd_bound=kernel_bound(qkv + out.numel() * es + lse.numel() * 4,
+                               4 * D * pairs, "bfloat16"),
+        bwd_bound=kernel_bound(
+            2 * qkv + 2 * out.numel() * es + lse.numel() * 4,
+            10 * D * pairs, "bfloat16"))
     out_g, lse_g = fa.flash_attention_lse(q, k, v, causal=True)
     t["bwd_global"] = time_ms(torch, lambda: fa.flash_attention_bwd(
         q, k, v, out_g, dout, lse_g, causal=True), reps)
-    t["bwd_global_bound"] = bound(
+    t["bwd_global_bound"] = kernel_bound(
         2 * qkv + 2 * out.numel() * es + lse.numel() * 4, 10 * D * full,
         "bfloat16")
     qpos = torch.arange(S_len, device="cuda")
@@ -3885,65 +3853,24 @@ def train_path_check(torch, model, params, batch, dtype: str, label: str):
     return kernel[1], plain[1]
 
 
-def training_flops(model, params, T: int, B: int, S: int,
-                   S_src: int = 0) -> float:
-    """Model FLOPs of one remat training step: 8 N T for the weight
-    products (6 N T forward and backward, 2 N T the remat forward; N the
-    matrices a token passes through: the layers' and the LM head, of an MoE
-    layer's routed experts top_k of E, as the model routes, its router and
-    shared experts whole), 8 (Dqk + Dv) per attended pair per layer for
-    attention (forward, remat forward, backward; 16 D where both are D),
-    over the window's pairs on sliding layers and none on attention-free
-    ones.  A Mamba block's scan is elementwise and not counted.  An
-    enc-dec model over ``S_src`` source frames a row adds 8 N_src B S_src
-    (N_src: the encoder layers' matrices and the cross layers' K and V
-    projections, which the source frames pass through), S_src^2 pairs a
-    head in each encoder layer and S S_src in each cross layer."""
-    from repro_torch.optim import tree_leaves
-    cfg = model.cfg
-    layers = params["decoder"]["prologue"] + params["decoder"]["layers"]
-
-    def matrices(tree, share=1.0):
-        return share * sum(p.numel() for p in tree_leaves(tree)
-                           if p.ndim >= 2)
-
-    n_mm = n_src = 0.0
-    for lp in layers:
-        for key, sub in lp.items():
-            if key == "moe":
-                mo = cfg.moe
-                n_mm += sum(matrices(t, mo.top_k / mo.num_experts
-                                     if k == "experts" else 1.0)
-                            for k, t in sub.items())
-            elif key == "cross":
-                kv = {k: t for k, t in sub.items() if k in ("wk", "wv")}
-                n_src += matrices(kv)
-                n_mm += matrices(sub) - matrices(kv)
-            else:
-                n_mm += matrices(sub)
-    n_mm += params["lm_head"].numel() if "lm_head" in params else \
-        params["embed"].numel()
-    if cfg.mla is not None:
-        dqk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
-        dv = cfg.mla.v_head_dim
-    else:
-        dqk = dv = cfg.resolved_head_dim
-    pairs = 0
-    for i, lp in enumerate(layers):
-        if "attn" not in lp:          # attention-free Mamba
-            continue
-        sliding = (cfg.attn_type == "sliding"
-                   and i not in cfg.global_attn_layers)
-        pairs += (window_pairs(B, S, cfg.num_heads, cfg.window_size)
-                  if sliding else attended_pairs(B, S, cfg.num_heads, True))
-        if "cross" in lp:
-            pairs += attended_pairs(B, S, cfg.num_heads, False, S_src)
-    if cfg.is_encdec:
-        enc = params["encoder"]["layers"]
-        n_src += sum(matrices(lp) for lp in enc)
-        pairs += len(enc) * attended_pairs(B, S_src, cfg.num_heads, False)
-    return (8.0 * n_mm * T + 8.0 * n_src * B * S_src
-            + 8.0 * (dqk + dv) * pairs)
+def step_flops(model, params, B: int, S: int, step_s: float,
+               S_src: int = 0) -> tuple:
+    """A training phase's FLOPs and their rate line: what the step
+    executes (``training_flops(..., early_stop=True)``: the remat step as
+    torch runs it, each checkpoint stopping its recompute at its last saved
+    tensor) with its TFLOP/s, share of the bf16 peak and bound, and the
+    model FLOPs (``model_flops_for``: 6 N T, N the active parameters) with
+    their share of the peak (MFU).  Returns (executed, text)."""
+    from repro_torch.configs.base import ShapeCell
+    executed = training_flops(model, params, B * S, B, S, S_src=S_src,
+                              early_stop=True)
+    mf = model_flops_for(model.cfg, ShapeCell("train", S, B, "train"))
+    return executed, (
+        f"{executed / 1e12:.1f} TFLOP executed per step = "
+        f"{executed / step_s / 1e12:.1f} TFLOP/s, "
+        f"{executed / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
+        f"(bound {executed / BF16_FLOPS * 1e3:.1f} ms); model FLOPs (6 N T) "
+        f"{mf / 1e12:.1f} TFLOP, MFU {mf / step_s / BF16_FLOPS:.3f}")
 
 
 def run_training_phase(torch):
@@ -4032,19 +3959,18 @@ def run_training_phase(torch):
             f"{opt_ms[step][0].elapsed_time(opt_ms[step][1]):.2f} ms")
     step_s = statistics.median(r[0] for r in rows[3:8])
     opt_med = statistics.median(s.elapsed_time(e) for s, e in opt_ms[3:8])
-    flops = training_flops(model, params, TRAIN_B * TRAIN_S, TRAIN_B,
-                           TRAIN_S)
+    flops, rate = step_flops(model, params, TRAIN_B, TRAIN_S, step_s)
     log(f"minitron-4b training ({cfg.num_layers} layers, B {TRAIN_B} x S "
         f"{TRAIN_S}, fp32 "
         f"masters, bf16, AdamW, remat): step {step_s * 1e3:.1f} ms (median "
         f"of steps 3-7), {TRAIN_B * TRAIN_S / step_s:.0f} tokens/s, "
-        f"{flops / 1e12:.1f} TFLOP per step = {flops / step_s / 1e12:.1f} "
-        f"TFLOP/s, {flops / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
-        f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms); optimizer "
+        f"{rate}; optimizer "
         f"{opt_med:.2f} ms; peak memory {peak:.2f} GiB; launches {counts} "
         f"({card})")
-    profile_training_step(torch, lambda: step_fn(
-        params, opt_state, TRAIN_STEPS, batches[0]), step_s)
+    split = profiled_step(lambda: step_fn(
+        params, opt_state, TRAIN_STEPS, batches[0]), step_s, stacks=True)
+    MEASURED["minitron-4b training"] = dict(
+        peak_gib=peak, step_s=step_s, flops=flops, split=split)
     require(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
             "minitron-4b training: a loss or grad norm is not finite")
     require(rows[-1][1] < rows[1][1],
@@ -4267,7 +4193,7 @@ def run_deepseek_training_phase(torch):
     step_s = statistics.median(r[0] for r in rows[3:8])
     opt_med = statistics.median(s.elapsed_time(e) for s, e in opt_ms[3:8])
     T = TRAIN_B * TRAIN_S
-    flops = training_flops(model, params, T, TRAIN_B, TRAIN_S)
+    flops, rate = step_flops(model, params, TRAIN_B, TRAIN_S, step_s)
     # what the einsum dispatch executes besides: every expert on its
     # capacity rows (E x C per batch row, not top_k per token) and the
     # dispatch and combine products (2 forward, 2 in the remat forward,
@@ -4283,26 +4209,23 @@ def run_deepseek_training_phase(torch):
     log(f"deepseek-v2-lite-16b training ({DS_TRAIN_LAYERS} of "
         f"{full.num_layers} layers, B {TRAIN_B} x S {TRAIN_S}, fp32 masters, "
         f"bf16, AdamW, remat, einsum dispatch): step {step_s * 1e3:.1f} ms "
-        f"(median of steps 3-7), {T / step_s:.0f} tokens/s, "
-        f"{flops / 1e12:.1f} TFLOP per step counting the routed experts "
-        f"(top-{mo.top_k} of {mo.num_experts} and {mo.num_shared_experts} "
-        f"shared) = {flops / step_s / 1e12:.1f} TFLOP/s, "
-        f"{flops / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
-        f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms); the einsum dispatch "
+        f"(median of steps 3-7), {T / step_s:.0f} tokens/s, counting the "
+        f"routed experts (top-{mo.top_k} of {mo.num_experts} and "
+        f"{mo.num_shared_experts} shared): {rate}; the einsum dispatch "
         f"executes {executed / 1e12:.1f} TFLOP ({executed / flops:.2f}x: "
         f"every expert on its {C} capacity rows a batch row, and the "
         f"one-hot dispatch and combine products), "
         f"{executed / step_s / BF16_FLOPS:.3f} of the peak; optimizer "
         f"{opt_med:.2f} ms; peak memory {peak:.2f} GiB; launches {counts} "
         f"({card})")
-    ms = profile_training_step(torch, lambda: step_fn(
+    split = profiled_step(lambda: step_fn(
         params, opt_state, TRAIN_STEPS, batches[0]), step_s)
     disp_f, disp_fb = moe_dispatch_ms(torch, model,
                                       params["decoder"]["layers"][0],
                                       TRAIN_B, TRAIN_S)
     dispatch = n_moe * (disp_f + disp_fb)
-    if ms is not None:
-        other = "other (elementwise, reductions, optimizer)"
+    if split is not None:
+        ms, other = split["classes"], "other"
         log(f"deepseek-v2-lite-16b training step by kind (ms): flash "
             f"forward {ms['flash forward']:.1f}, flash backward "
             f"{ms['flash backward']:.1f}, cuBLAS "
@@ -4502,18 +4425,15 @@ def run_ssm_training_phase(torch, arch: str):
     step_s = statistics.median(r[0] for r in rows[3:8])
     opt_med = statistics.median(s.elapsed_time(e) for s, e in opt_ms[3:8])
     T = B * S_len
-    flops = training_flops(model, params, T, B, S_len)
+    _, rate = step_flops(model, params, B, S_len, step_s)
     log(f"{arch} training ({cut}, B {B} x S {S_len}, fp32 masters, bf16, "
         f"AdamW at lr {plan['lr']:g}, remat): step {step_s * 1e3:.1f} ms "
         f"(median of steps 3-7), "
-        f"{T / step_s:.0f} tokens/s, {flops / 1e12:.1f} TFLOP per step "
-        f"(weight products and attention; the scan not counted) = "
-        f"{flops / step_s / 1e12:.1f} TFLOP/s, "
-        f"{flops / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
-        f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms); optimizer "
+        f"{T / step_s:.0f} tokens/s, weight products and attention (the "
+        f"scan not counted): {rate}; optimizer "
         f"{opt_med:.2f} ms; peak memory {peak:.2f} GiB; launches {counts} "
         f"({card})")
-    profile_training_step(torch, lambda: step_fn(
+    profiled_step(lambda: step_fn(
         params, opt_state, TRAIN_STEPS, batches[0]), step_s)
     require(all(math.isfinite(r[1]) and math.isfinite(r[2]) for r in rows),
             f"{arch} training: a loss or grad norm is not finite")
@@ -4676,23 +4596,20 @@ def run_encdec_training_phase(torch):
     pipe.batch_with_frames(steps, full.d_model)
     t_data = time.perf_counter() - t_data
     T = TRAIN_B * TRAIN_S
-    flops = training_flops(model, out["params"], T, TRAIN_B, TRAIN_S,
-                           S_src=TRAIN_S)
+    _, rate = step_flops(model, out["params"], TRAIN_B, TRAIN_S, step_s,
+                            S_src=TRAIN_S)
     log(f"seamless-m4t-medium training ({full.encoder_layers} + "
         f"{full.num_layers} layers, B {TRAIN_B} x S {TRAIN_S}, frames of "
         f"{TRAIN_S}, fp32 masters, bf16, AdamW, remat, Trainer.fit): step "
         f"{step_s * 1e3:.1f} ms (median of steps 3-{steps - 1}), "
         f"{T / step_s:.0f} tokens/s (and as many source frames), "
-        f"{flops / 1e12:.1f} TFLOP per step (encoder, decoder, cross and "
-        f"attention) = {flops / step_s / 1e12:.1f} TFLOP/s, "
-        f"{flops / step_s / BF16_FLOPS:.3f} of {BF16_FLOPS / 1e12:.0f} "
-        f"(bound {flops / BF16_FLOPS * 1e3:.1f} ms); the host's batch "
+        f"encoder, decoder, cross and attention: {rate}; the host's batch "
         f"(tokens and frames, in the step) {t_data * 1e3:.1f} ms; peak "
         f"memory {peak:.2f} GiB; launches over {steps} + "
         f"{ENCDEC_CROSS_STEPS} steps {counts} ({card})")
     params, opt_state = cross["params"], cross["opt_state"]
     trainer.pipeline = pipe
-    profile_training_step(torch, lambda: trainer.fit(
+    profiled_step(lambda: trainer.fit(
         params, opt_state, steps + ENCDEC_CROSS_STEPS,
         steps + ENCDEC_CROSS_STEPS + 1), step_s)
     require(out["status"] == cross["status"] == "completed"
@@ -4724,49 +4641,131 @@ def run_encdec_training_phase(torch):
     return counts
 
 
-def profile_training_step(torch, run, wall: float):
-    """Profile one training step ``run()`` (device activity only) and log
-    its device time by kind and the busy share of the unprofiled step's
-    ``wall`` (s): the union of the kernels' intervals.  Returns the ms by
-    kind (None where the profiler recorded no device time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    # the backward's kernels, its split fold (flash_bwd_fold) included,
-    # all carry the flash_bwd prefix
-    kinds = {"flash backward": ("flash_bwd",),
-             "flash forward": ("flash_attention_mma",),
-             "scan backward": ("mamba_scan_bwd",),
-             "scan forward": ("mamba_scan_kernel",),
-             "matmul (cuBLAS)": ("gemm", "gemv", "nvjet", "xmma", "cutlass"),
-             "other (elementwise, reductions, optimizer)": ("",)}
-    ms = dict.fromkeys(kinds, 0.0)
-    spans = []
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        spans.append((ev.time_range.start, ev.time_range.end))
-        low = ev.name.lower()
-        kind = next(k for k, pats in kinds.items()
-                    if any(pat in low for pat in pats))
-        ms[kind] += (ev.time_range.end - ev.time_range.start) / 1e3
-    union, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        union += max(0.0, b - max(a, end))
-        end = max(end, b)
-    if not spans:
-        log("training step profile: the profiler recorded no device time "
-            "(busy share not measured)")
-        return None
-    log(f"training step profile: device busy (union of kernel intervals) "
-        f"{union / 1e3:.1f} ms of the unprofiled {wall * 1e3:.1f} ms step "
-        f"(busy share {union / 1e3 / (wall * 1e3):.3f}); by kind (ms): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
-        + f" ({card_line()})")
-    return ms
+def profiled_step(run, wall: float, label: str = "training step",
+                  stacks: bool = False):
+    """``breakdown.profile_step`` of one step ``run()`` against the
+    unprofiled step's ``wall`` (s), logged with the card; returns its split
+    (None where the profiler recorded no device time).  ``stacks``: split
+    "other" by the port's functions too (the analysis phase's minitron-4b
+    step; it slows a host-bound step's profile by tens of seconds)."""
+    from repro_torch.analysis import breakdown
+    split = breakdown.profile_step(run, wall_s=wall, stacks=stacks)
+    if split is None:
+        log(f"{label} profile: the profiler recorded no device time (busy "
+            f"share not measured)")
+    else:
+        log(f"{label} profile: {breakdown.format_split(split)} "
+            f"({card_line()})")
+    return split
+
+
+# the analysis phase's limits: the 32-cell grid's wall seconds (logged, not
+# a gate) over its worker processes, the predicted peak against the measured one, the counted FLOPs
+# against the remat step's count, the split's classes against its total
+GRID_S_BUDGET = 60
+GRID_WORKERS = 6
+PEAK_TOL = 0.15
+FLOP_TOL = 0.02
+SPLIT_TOL = 0.01
+
+
+def dry_run_grid():
+    """``launch/dryrun.py``'s 32 cells (``run_cell`` on ``meta`` tensors, no
+    device) in a pool of ``GRID_WORKERS`` spawned processes, the train
+    cells first (the longest); run after the card's last timed phase, so
+    that no host-timed number runs beside it.  Returns (the results in
+    ``cell_list`` order, the grid's wall seconds)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import CELLS_BY_NAME
+    from repro_torch.launch import dryrun
+
+    cells = sorted(dryrun.cell_list(),
+                   key=lambda c: CELLS_BY_NAME[c[1]].kind != "train")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(GRID_WORKERS, mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        done = dict(zip(cells, pool.map(dryrun.run_cell, *zip(*cells))))
+    return ([done[c] for c in dryrun.cell_list()],
+            time.perf_counter() - t0)
+
+
+def run_analysis_phase(torch):
+    """(a) The dry run's 32 cells (``dry_run_grid``), one line each; (b) the dry run at minitron-4b's
+    training and serving shapes, in process, held to what the training
+    and serving phases measured (``MEASURED``); (c) the training step's
+    split by class (its profile in the training phase)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+
+    card = card_line()
+    grid, wall_s = dry_run_grid()
+    for res in grid:
+        log(f"dry run {res['arch']} {res['cell']}: {dryrun.summary(res)}")
+    grid_s = sum(r["trace_s"] for r in grid)
+    fit = [f"{r['arch']} {r['cell']}" for r in grid if r["fits_hbm"]]
+    log(f"dry-run grid: {len(grid)} cells in {wall_s:.1f} s (budget "
+        f"{GRID_S_BUDGET} s; {grid_s:.1f} s of tracing over {GRID_WORKERS} "
+        f"workers); {len(fit)} fit in {dryrun.FIT_BYTES / 2**30:.0f} GiB: "
+        f"{fit} ({card})")
+    require(len(grid) == 32, f"the dry-run grid has {len(grid)} cells")
+
+    meas = MEASURED["minitron-4b training"]
+    res = dryrun.run_cell("minitron-4b", ShapeCell(
+        f"train_b{TRAIN_B}_s{TRAIN_S}", TRAIN_S, TRAIN_B, "train"))
+    pred = res["peak_bytes_per_device"] / 2**30
+    counted = res["hlo_flops_per_device"]
+    r = res["roofline"]
+    bound_s = max(r["compute_s"], r["memory_s"])
+    log(f"dry run minitron-4b training B {TRAIN_B} x S {TRAIN_S}: predicted "
+        f"peak {pred:.2f} GiB, measured {meas['peak_gib']:.2f} GiB "
+        f"({pred / meas['peak_gib']:.3f}x, tol {PEAK_TOL}); counted "
+        f"{counted / 1e12:.2f} TFLOP against the remat step's "
+        f"{meas['flops'] / 1e12:.2f} as torch runs it "
+        f"({counted / meas['flops']:.4f}x, tol {FLOP_TOL}); "
+        f"{res['hlo_bytes_per_device'] / 1e12:.3f} TB counted; bound "
+        f"{bound_s * 1e3:.1f} ms ({r['dominant']}: compute "
+        f"{r['compute_s'] * 1e3:.1f}, memory {r['memory_s'] * 1e3:.1f}); "
+        f"measured step {meas['step_s'] * 1e3:.1f} ms = "
+        f"{meas['step_s'] / bound_s:.2f}x the bound; fits "
+        f"{res['fits_hbm']} ({card})")
+    require(abs(pred / meas["peak_gib"] - 1) <= PEAK_TOL,
+            "minitron-4b training: the predicted peak is off")
+    require(abs(counted / meas["flops"] - 1) <= FLOP_TOL,
+            "minitron-4b training: the counted FLOPs are off")
+    require(res["fits_hbm"] == (meas["peak_gib"] * 2**30
+                                <= dryrun.FIT_BYTES),
+            "minitron-4b training: the fit marks disagree")
+
+    meas_s = MEASURED["minitron-4b serving"]
+    res = dryrun.run_cell("minitron-4b", ShapeCell("serve_8x2048", 2048, 8,
+                                                   "decode"))
+    pred = res["peak_bytes_per_device"] / 2**30
+    r = res["roofline"]
+    bound_s = max(r["compute_s"], r["memory_s"])
+    log(f"dry run minitron-4b serving (8 slots, max_len 2048, a decode step "
+        f"over the whole cache): predicted peak {pred:.2f} GiB, measured "
+        f"{meas_s['peak_gib']:.2f} GiB ({pred / meas_s['peak_gib']:.3f}x, "
+        f"tol {PEAK_TOL}); bound {bound_s * 1e3:.3f} ms ({r['dominant']}); "
+        f"measured decode p50 {meas_s['p50_ms']:.3f} ms (graphs, KV up to "
+        f"the covering bound) = {meas_s['p50_ms'] / (bound_s * 1e3):.2f}x "
+        f"the bound ({card})")
+    require(abs(pred / meas_s["peak_gib"] - 1) <= PEAK_TOL,
+            "minitron-4b serving: the predicted peak is off")
+
+    split = meas["split"]
+    require(split is not None, "minitron-4b training: no profile split")
+    parts = sum(split["classes"].values())
+    log(f"minitron-4b training step by class: classes {parts:.2f} ms of "
+        f"the device total {split['device_ms']:.2f} ms; other "
+        f"{split['classes']['other']:.1f} ms by class: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split["other"].items())
+        + f" ({card})")
+    require(abs(parts / split["device_ms"] - 1) <= SPLIT_TOL,
+            "the training step's classes do not sum to its device total")
+    require(abs(sum(split["other"].values()) / split["classes"]["other"]
+                - 1) <= SPLIT_TOL,
+            "the training step's other classes do not sum to its other")
 
 
 def run_trainer_phase(torch):
@@ -5354,12 +5353,12 @@ def run_paper_kernel_phase(torch, reps: int = 20):
             # inputs' valid regions read once, the whole buffer written;
             # fp32 on the tensor cores as 3xTF32, the CUDA-core bound beside
             nbytes, flops = (m * k + k * n + X * X) * es, 2 * m * k * n
-            b_ms, b_by = bound(nbytes, flops, dtype, tf32x3=True)
+            b_ms, b_by = kernel_bound(nbytes, flops, dtype, tf32x3=True)
             by, cc = b_by, ""
             if dtype == "float32":
                 by += ", 3xTF32" if b_by == "operations" else ""
                 cc = (f"; CUDA-core fp32 bound "
-                      f"{bound(nbytes, flops, dtype)[0]:.4f} ms")
+                      f"{kernel_bound(nbytes, flops, dtype)[0]:.4f} ms")
             atoms = fm.atoms_issued_flexible(m, k, n, buf=(X, X, X))
             log(f"filco_mm sweep {dtype} buffer {X}^3 dims {mkn}: flex_mm "
                 f"{ms_:.4f} ms, static_mm {static_ms:.4f} ms (whole "
@@ -5424,7 +5423,7 @@ def run_paper_shape_table(torch, dims, reps: int = 20):
                 f"version")
         ms_ = time_ms(torch, lambda: fm.flex_mm(a, b, d, out=out), reps)
         lib_ms = time_ms(torch, lambda: torch.matmul(a, b), reps)
-        b_ms, b_by = bound(4 * (m * k + k * n + m * n), 2 * m * k * n,
+        b_ms, b_by = kernel_bound(4 * (m * k + k * n + m * n), 2 * m * k * n,
                            "float32", tf32x3=True)
         bm, bn, bk, splits = fm.plan(m, k, n)
         gx, gy, _ = fm.grid(m, n, bm, bn, splits)
@@ -5496,7 +5495,7 @@ def run_paper_path_phase(torch):
         issued += 2 * fm.atoms_issued_flexible(m, k, n) * bm * bk * bn
         gx, gy, _ = fm.grid(m, n, bm, bn, splits)
         blocks.append(gx * gy * splits)
-    b_ms, b_by = bound(nbytes, flops, "float32", tf32x3=True)
+    b_ms, b_by = kernel_bound(nbytes, flops, "float32", tf32x3=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log(f"paper path {wl.name}: the passes move {nbytes / 1e9:.3f} GB and "
         f"make {flops / 1e9:.2f} GFLOP, bound {b_ms:.4f} ms ({b_by}; as "
@@ -5611,7 +5610,7 @@ def run_bench_kernel_checks(torch, reps: int = 20):
         ms = time_ms(torch, fn, reps)
         plain_ms = time_ms(torch, plain, max(reps // 4, 3))
         lib_ms = time_ms(torch, lib, reps)
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        b_ms, b_by = kernel_bound(nbytes, flops, dtype)
         log(f"{label} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) ({card})")
     for label, Hq, Hkv, D, dtype, lengths, T_full in BENCH_DECODE:
@@ -5826,7 +5825,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 3
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models.model import build_model
@@ -5980,6 +5978,8 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
         log(f"{run.__name__[4:]} done at {phase_s()}")
     log(f"phases 18-20 took {time.perf_counter() - t_modes:.1f} s")
+    run_analysis_phase(torch)
+    log(f"analysis phase done at {phase_s()}")
 
     entries = []
     for name, entry in kernels.items():

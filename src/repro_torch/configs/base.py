@@ -187,6 +187,17 @@ class ModelConfig:
             total += self.num_layers * (d * nq * hd + 2 * d * nkv * hd + nq * hd * d)
         return total
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: routed top-k only)."""
+        if self.moe is None:
+            return self.param_count()
+        mo = self.moe
+        ffn_mult = 3 if self.glu else 2
+        per_expert = ffn_mult * self.d_model * mo.expert_d_ff
+        routed_all = self.num_layers * mo.num_experts * per_expert
+        routed_active = self.num_layers * mo.top_k * per_expert
+        return self.param_count() - routed_all + routed_active
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:

@@ -18,7 +18,9 @@ the tickets at zero.  ``flex_mm_3xtf32_ref`` in ``ref.py`` is the kernel's
 fp32 arithmetic in plain PyTorch.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``launches`` and ``static_launches`` count the calls
+the kernel or raises; a ``meta`` tensor (the dry run) gives the output and
+reports the kernel's work to ``repro_torch.analysis.opcount``.
+``launches`` and ``static_launches`` count the calls
 that launched a kernel.
 """
 from __future__ import annotations
@@ -204,6 +206,23 @@ def _launch(fn, head, a_buf, b_buf, out, what):
     _build.check(err, what)
 
 
+def _meta(name, a_buf, b_buf, out):
+    """A call on ``meta`` tensors: the output (``out`` or a new one) and
+    the kernel's work to the active ``repro_torch.analysis.opcount``
+    counter (raises outside one).  The valid dims are device data, unknown
+    there: the whole buffer counts."""
+    from repro_torch.analysis import opcount, roofline
+    (Mx, Kx), Nx = a_buf.shape, b_buf.shape[1]
+    if b_buf.shape[0] != Kx:
+        raise ValueError(f"{name}: a (Mx, Kx) and b (Kx, Nx) expected, got "
+                         f"{tuple(a_buf.shape)} and {tuple(b_buf.shape)}")
+    nbytes, flops = roofline.mm_work(Mx, Kx, Nx, a_buf.element_size())
+    opcount.kernel(name, flops, nbytes)
+    if out is None:
+        out = torch.empty((Mx, Nx), dtype=a_buf.dtype, device=a_buf.device)
+    return out
+
+
 def flex_mm(a_buf, b_buf, dims, *, out=None):
     """a_buf: (Mx, Kx); b_buf: (Kx, Nx); dims: int32 (3,) [m, k, n] on the
     same device -> (Mx, Nx) in a_buf's dtype: out[:m, :n] = a[:m, :k] @
@@ -214,6 +233,8 @@ def flex_mm(a_buf, b_buf, dims, *, out=None):
     if a_buf.device.type == "cpu":
         res = flex_mm_ref(a_buf, b_buf, dims)
         return res if out is None else out.copy_(res)
+    if a_buf.device.type == "meta":
+        return _meta("flex_mm", a_buf, b_buf, out)
     out = _check("flex_mm", a_buf, b_buf, out, (dims,))
     if not (dims.dtype == torch.int32 and dims.shape == (3,)
             and dims.stride(0) == 1):
@@ -231,6 +252,8 @@ def static_mm(a_buf, b_buf):
     global static_launches
     if a_buf.device.type == "cpu":
         return static_mm_ref(a_buf, b_buf)
+    if a_buf.device.type == "meta":
+        return _meta("static_mm", a_buf, b_buf, None)
     out = _check("static_mm", a_buf, b_buf, None)
     _launch(_static_fn(), (a_buf.data_ptr(), b_buf.data_ptr(),
                            out.data_ptr()), a_buf, b_buf, out, "static_mm")

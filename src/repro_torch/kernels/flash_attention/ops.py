@@ -19,7 +19,9 @@ skip the key tiles above the diagonal or outside the window
 (csrc/flash_attention.cu has the design).
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  Each launch adds one to one counter:
+the kernel or raises; a ``meta`` tensor (the dry run) gives the outputs'
+shapes and reports the kernel's work to ``repro_torch.analysis.opcount``,
+by the formula of its bound.  Each launch adds one to one counter:
 ``masked_launches`` with key padding, else by the head dim's kernel
 instance, ``launches`` up to 128, ``d192_launches`` above 128 up to 192
 and ``d256_launches`` above that.  ``grid`` gives the blocks one call
@@ -122,8 +124,8 @@ def head_dim_supported(D: int, dtype) -> bool:
     return 0 < D <= _MAX_D and (D * size) % _ROW_BYTES == 0
 
 
-def _check(q, k, v, kv_len, window, is_global, causal):
-    """Raise on what the kernel does not take."""
+def _check_shapes(q, k, v, kv_len, window, is_global, causal):
+    """Raise on the shapes, masks and dtypes the kernel does not take."""
     B, S, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
@@ -135,17 +137,27 @@ def _check(q, k, v, kv_len, window, is_global, causal):
             f"{Skv} keys for {S} queries: the kernel takes Skv != S only "
             f"bidirectional without a sliding window or key padding (a "
             f"causal or windowed mask would need a q_offset)")
-    if not (q.device == k.device == v.device) or q.device.type != "cuda":
-        raise ValueError("q, k and v must lie on one CUDA device")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"kernel takes float32 or bfloat16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    size = q.element_size()
     if not head_dim_supported(D, q.dtype):
         raise ValueError(f"head_dim {D} of {q.dtype}: the kernel takes up to "
                          f"{_MAX_D}, a multiple of {_ROW_BYTES} bytes")
+    if kv_len is not None and window and not is_global:
+        # a query row past its length may then see no key at all
+        raise ValueError("kv_len with a sliding window is not supported by "
+                         "the kernel")
+
+
+def _check(q, k, v, kv_len, window, is_global, causal):
+    """Raise on what the kernel does not take."""
+    _check_shapes(q, k, v, kv_len, window, is_global, causal)
+    B = q.shape[0]
+    if not (q.device == k.device == v.device) or q.device.type != "cuda":
+        raise ValueError("q, k and v must lie on one CUDA device")
+    size = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
                 (s * size) % 16 for s in t.stride()[:-1]):
@@ -157,10 +169,6 @@ def _check(q, k, v, kv_len, window, is_global, causal):
             raise ValueError(f"kv_len must be a contiguous ({B},) int32 "
                              f"tensor on {q.device}, got {kv_len.dtype} "
                              f"{tuple(kv_len.shape)} on {kv_len.device}")
-        if window and not is_global:
-            # a query row past its length may then see no key at all
-            raise ValueError("kv_len with a sliding window is not "
-                             "supported by the kernel")
 
 
 def grid(B: int, S: int, Hq: int):
@@ -174,6 +182,27 @@ def empty_row_divisor(S: int, block_size: int = 512) -> float:
     keys with ``bs = min(block_size, S)``."""
     bs = min(block_size, S)
     return float(-(-S // bs) * bs)
+
+
+def _meta(name, q, k, v, *, causal, window, is_global, kv_len=None,
+          lse: bool = False):
+    """A call on ``meta`` tensors: the kernel's outputs (shapes and dtypes
+    only) and its work, by its bound's formula, to the active
+    ``repro_torch.analysis.opcount`` counter; raises outside one.  Key
+    padding is unknown on meta tensors: every key counts."""
+    from repro_torch.analysis import opcount, roofline
+    _check_shapes(q, k, v, kv_len, window, is_global, causal)
+    B, S, Hq, D = q.shape
+    pairs = roofline.flash_pairs(B, S, k.shape[1], Hq, causal, window,
+                                 is_global)
+    nbytes, flops = roofline.flash_work(q.numel(), k.numel() + v.numel(), D,
+                                        pairs, q.element_size(),
+                                        B * S * Hq if lse else 0)
+    opcount.kernel(name, flops, nbytes)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if not lse:
+        return out
+    return out, torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -191,6 +220,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         _check_bwd(q, logit_cap, kv_len)
         return FlashAttentionFn.apply(q, k, v, bool(causal), int(window),
                                       is_global)
+    if q.device.type == "meta":
+        D = q.shape[-1]
+        name = ("flash_attention_kv_len" if kv_len is not None
+                else "flash_attention_d256" if D > 192
+                else "flash_attention_d192" if D > 128
+                else "flash_attention")
+        return _meta(name, q, k, v, causal=causal, window=window,
+                     is_global=is_global, kv_len=kv_len)
     _check(q, k, v, kv_len, window, is_global, causal)
     B, S, Hq, D = q.shape
     Skv = k.shape[1]
@@ -268,6 +305,11 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
                                        is_global=is_global)
+    if q.device.type == "meta":
+        return _meta("flash_attention_lse"
+                     + _train_kind(q, k, causal, window, is_global), q, k, v,
+                     causal=causal, window=window, is_global=is_global,
+                     lse=True)
     _check(q, k, v, None, window, is_global, causal)
     B, S, Hq, D = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -315,6 +357,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         return flash_attention_bwd_ref(q, k, v, out, dout, lse,
                                        causal=causal, window=window,
                                        is_global=is_global)
+    if q.device.type == "meta":
+        return _meta_bwd(q, k, v, causal=causal, window=window,
+                         is_global=is_global)
     _check(q, k, v, None, window, is_global, causal)
     _check_bwd(q, 0.0, None)
     B, S, Hq, D = q.shape
@@ -346,6 +391,25 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     globals()["bwd" + _train_kind(q, k, causal, window, is_global)
               + "_launches"] += 1
     return dq, dk, dv
+
+
+def _meta_bwd(q, k, v, *, causal, window, is_global):
+    """``flash_attention_bwd`` on ``meta`` tensors: (dq, dk, dv) of q's,
+    k's and v's shapes and its work to the active counter (see ``_meta``)."""
+    from repro_torch.analysis import opcount, roofline
+    _check_shapes(q, k, v, None, window, is_global, causal)
+    _check_bwd(q, 0.0, None)
+    B, S, Hq, D = q.shape
+    pairs = roofline.flash_pairs(B, S, k.shape[1], Hq, causal, window,
+                                 is_global)
+    nbytes, flops = roofline.flash_bwd_work(
+        q.numel(), k.numel() + v.numel(), D, pairs, q.element_size(),
+        B * S * Hq)
+    opcount.kernel("flash_attention_bwd"
+                   + _train_kind(q, k, causal, window, is_global),
+                   flops, nbytes)
+    return tuple(torch.empty(t.shape, dtype=q.dtype, device=q.device)
+                 for t in (q, k, v))
 
 
 class FlashAttentionFn(torch.autograd.Function):

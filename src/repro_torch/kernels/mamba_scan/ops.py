@@ -34,7 +34,10 @@ cluster and the grid from host ints and mirrors the kernel's shared
 memory and residency.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``step_launches``, ``scan_launches``,
+the kernel or raises; a ``meta`` tensor (the dry run) gives the outputs'
+shapes and reports the kernel's work, by the formula of its bound, to
+``repro_torch.analysis.opcount`` (the step: every slot live).
+``step_launches``, ``scan_launches``,
 ``scan_train_launches`` and ``scan_bwd_launches`` count the calls that
 launched a kernel.
 """
@@ -270,6 +273,14 @@ def mamba_step(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
         conv.copy_(new_conv)
         h.copy_(new_h)
         return out
+    if x1.device.type == "meta":
+        from repro_torch.analysis import opcount, roofline
+        B, _, d_model = x1.shape
+        nbytes, flops, _ = roofline.mamba_step_work(
+            B, d_model, h.shape[1], dt_proj.shape[0], h.shape[2],
+            conv.shape[1] + 1, x1.element_size(), B)
+        opcount.kernel("mamba_step", flops, nbytes)
+        return torch.empty((B, 1, d_model), dtype=x1.dtype, device=x1.device)
     B, _, d_model = x1.shape
     live_i = (torch.ones(B, dtype=torch.int32, device=x1.device)
               if live is None
@@ -362,6 +373,16 @@ def mamba_scan(x, dt, b, c, a_log, d, *, bounds: bool = False):
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=dev)
     bnd = (torch.empty((_ceil(S, SCAN_CHUNK), B, D, N), dtype=torch.float32,
                        device=dev) if bounds else None)
+    if dev.type == "meta":
+        from repro_torch.analysis import opcount, roofline
+        es = x.element_size()
+        if bounds:
+            fwd, _, _, flops, _ = roofline.scan_train_work(B, S, D, N, es)
+            opcount.kernel("mamba_scan_train", flops, fwd)
+            return y, h_last, bnd
+        nbytes, _, flops = roofline.scan_work(B, S, D, N, es)
+        opcount.kernel("mamba_scan", flops, nbytes)
+        return y, h_last
     p = scan_plan(B, D, N, _build.sm_count(dev.index or 0))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _scan_fn()(
@@ -517,13 +538,19 @@ def mamba_scan_bwd(x, dt, b, c, a_log, d, bounds, gy):
           and bounds.device == dev,
           f"mamba_scan_bwd: bounds {tuple(bounds.shape)} {bounds.dtype} "
           f"are not the forward's")
-    p = bwd_plan(B, D, N, x.dtype, dev)
     dx = torch.empty((B, S, D), dtype=x.dtype, device=dev)
     ddt = torch.empty((B, S, D), dtype=torch.float32, device=dev)
     db = torch.empty((B, S, N), dtype=b.dtype, device=dev)
     dc = torch.empty((B, S, N), dtype=c.dtype, device=dev)
     da = torch.empty((D, N), dtype=torch.float32, device=dev)
     dd = torch.empty((D,), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        from repro_torch.analysis import opcount, roofline
+        _, nbytes, _, _, flops = roofline.scan_train_work(
+            B, S, D, N, x.element_size())
+        opcount.kernel("mamba_scan_bwd", flops, nbytes)
+        return dx, ddt, db, dc, da, dd
+    p = bwd_plan(B, D, N, x.dtype, dev)
     part = torch.empty((B, p.clusters, S, 2 * N), dtype=torch.float32,
                        device=dev)
     dpart = torch.empty((B, D, N + 1), dtype=torch.float32, device=dev)

@@ -18,8 +18,10 @@ clamped to [1, T] on the card) and ``live`` (bool or integer) as the
 engine hands them over, and keeps its merge tickets, ``ticket_count`` of
 them, in a buffer zeroed once per device and stream (a CUDA graph's
 capture gets one of its own, ``use_tickets``).  A CPU tensor takes the
-plain version (``ref.py``); a CUDA tensor launches the kernel or raises.
-``launches`` counts wrapper calls that launched the kernel.
+plain version (``ref.py``); a CUDA tensor launches the kernel or raises;
+a ``meta`` tensor (the dry run) gives the output's shape and reports the
+kernel's work to ``repro_torch.analysis.opcount``.  ``launches`` counts
+wrapper calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -155,6 +157,23 @@ def _per_row(x, B: int, device, sizes, what: str):
     return x, sizes[x.dtype], stride
 
 
+def _meta(q, k, v):
+    """A call on ``meta`` tensors: the output's shape and dtype, and the
+    kernel's work by its bound's formula to the active
+    ``repro_torch.analysis.opcount`` counter (raises outside one).  The
+    lengths are unknown there: every slot is live over the whole view."""
+    from repro_torch.analysis import opcount, roofline
+    B, _, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not match")
+    nbytes, flops = roofline.ragged_decode_work(B, Hq, Hkv, D,
+                                                q.element_size(), B * T)
+    opcount.kernel("ragged_decode", flops, nbytes)
+    return torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+
+
 def ragged_decode_attention(q, k, v, lengths, *, window: int = 0,
                             logit_cap: float = 0.0, is_global=None,
                             live=None):
@@ -166,6 +185,8 @@ def ragged_decode_attention(q, k, v, lengths, *, window: int = 0,
         return ragged_decode_attention_ref(
             q, k, v, lengths, window=window, logit_cap=logit_cap,
             is_global=is_global, live=live)
+    if q.device.type == "meta":
+        return _meta(q, k, v)
     q1 = q[:, 0]
     _check(q1, k, v)
     B, Hq, D = q1.shape

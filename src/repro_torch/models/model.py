@@ -45,7 +45,9 @@ class Model:
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         T.check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # "meta": shapes without data, the dry run's (launch/dryrun.py)
+        meta = device is not None and torch.device(device).type == "meta"
+        self.device = torch.device("meta") if meta else resolve_device(device)
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator, dtype=None) -> PyTree:

@@ -305,11 +305,17 @@ def test_plan_fills_the_card_at_every_bert128_pass(mkn):
 
 
 def test_wrapper_raises_on_a_non_cpu_tensor_it_cannot_run():
-    """Only a CPU tensor takes the plain version: any other device goes to
-    the kernel's checks, which refuse what is not on a CUDA device."""
+    """Only a CPU tensor takes the plain version: a ``meta`` tensor (the
+    dry run's) has no data to run on, and is taken only under an
+    ``opcount`` counter, which gets the work and an output of the shape;
+    outside one it raises."""
+    from repro_torch.analysis import opcount
     a = torch.empty((4, 4), device="meta")
     dims = torch.empty(3, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="CUDA device"):
+    with pytest.raises(RuntimeError, match="outside an OpCounter"):
         fm.flex_mm(a, a, dims)
-    with pytest.raises(ValueError, match="CUDA device"):
+    with pytest.raises(RuntimeError, match="outside an OpCounter"):
         fm.static_mm(a, a)
+    out, cost = opcount.count(fm.static_mm, a, a)
+    assert out.shape == (4, 4) and out.device.type == "meta"
+    assert cost.kernels == {"static_mm": [1, 2 * 4 ** 3, 3 * 16 * 4]}

@@ -21,6 +21,12 @@ on the CPU, against the reference launcher (``repro.launch.serve``).
 3. ``--scaling-curve`` at ``--scale-steps 2 --device cpu``: the reference's
    keys, 4 slots per CU, sizes above ``--num-cus`` dropped, ``tp`` false.
 4. The parser's new flags have the reference's defaults.
+
+The module runs its port's runs on one torch thread, and the reference's
+subprocess on one XLA thread: under a parallel test run, every worker's
+threads spinning on the same cores slowed ``dp_bench`` from 3 s to 112 s
+and the reference's subprocess from 40 s to over 150 s.  No compared field
+depends on the thread count.
 """
 import dataclasses
 import json
@@ -58,7 +64,9 @@ DP_KEYS = {"bench_model", "grant_cus", "queue", "measured_steps",
 
 _JAX_DSE_SMOKE = """
 import os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           "--xla_cpu_multi_thread_eigen=false "
+                           "intra_op_parallelism_threads=1")
 import sys
 sys.path.insert(0, "src")
 import contextlib
@@ -80,6 +88,15 @@ for name, cls in (("shipped", shipped),
     out[name] = {"rc": rc, "doc": doc}
 print(json.dumps(out))
 """
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's port runs on one torch thread (see the top)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
