@@ -271,6 +271,19 @@
    splits "other" by the aten operation that launched each kernel and
    the port's function that called it; its classes must sum to the
    device total within 1%.
+22. Sharded training phase (``repro_torch.distribution``,
+   ``Trainer(model, cfg, mesh, rules)``; runs before the analysis phase):
+   two steps of ``setup_sharded_state``'s DTensors under
+   ``train_rules()`` at world 1 under NCCL, full-width minitron-4b on a
+   (1, 1) mesh at B 4 x S 1024, held against the unsharded Trainer's two
+   steps from the same seed through host copies: bitwise expected (else
+   within the training tolerances); both step times.  The flash forward
+   with lse and the backward run on the rank's local shard; their
+   launches join the kernels line.  (Ranks sharing the card would need
+   gloo with CUDA tensors, which crashes in a mesh's all-gather.)  The
+   SSM reference checks (phases 4 and 12) pose the bf16 floor
+   on its spread: the median over five plain paths whose bf16 products
+   sum in K blocks of 128-2048 (``k_blocked_products``).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -4817,6 +4830,180 @@ def run_trainer_phase(torch):
             "trainer phase: a training kernel never launched")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the sharded train step (repro_torch.distribution, Trainer(mesh))
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 2         # lr is 0 at step 0: the second step moves the params
+SHARD_KERNELS = ("flash_attention_lse", "flash_attention_bwd")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_train_config():
+    from repro_torch.train import TrainConfig
+
+    return TrainConfig(steps=TRAIN_STEPS, lr=3e-4, warmup=2,
+                       checkpoint_every=0)
+
+
+def trainer_steps(torch, trainer, batches):
+    """``SHARD_STEPS`` steps of ``trainer``'s step from its seed-0 state:
+    (params, [(seconds, loss, grad norm)], the counters' launches)."""
+    params, opt_state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    reset_counts(SHARD_KERNELS)
+    rows = []
+    for step in range(SHARD_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = trainer._step(params, opt_state, step,
+                                             trainer._to_device(
+                                                 batches[step]))
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0, m["loss"].item(),
+                     m["grad_norm"].item()))
+    counts = read_counts(SHARD_KERNELS)
+    del opt_state
+    return params, rows, counts
+
+
+def host_leaves(params, path=()):
+    """{path: leaf whole on the host} of a parameter tree (a DTensor
+    gathered)."""
+    if isinstance(params, dict):
+        return {k: v for key, sub in params.items()
+                for k, v in host_leaves(sub, path + (str(key),)).items()}
+    if isinstance(params, list):
+        return {k: v for i, sub in enumerate(params)
+                for k, v in host_leaves(sub, path + (str(i),)).items()}
+    t = params.full_tensor() if hasattr(params, "full_tensor") else params
+    return {"/".join(path): t.detach().cpu()}
+
+
+def hold_sharded(label, rows, leaves, ref_rows, ref_leaves):
+    """A sharded run against the unsharded one: bitwise, else the loss and
+    grad norm within TRAIN_TOL's first and each leaf's relative norm
+    within its second, the first leaf that differs named."""
+    loss_tol, leaf_tol = TRAIN_TOL["bfloat16"]
+    require(sorted(leaves) == sorted(ref_leaves),
+            f"{label}: the parameter trees differ")
+    differ = [k for k in ref_leaves if not (
+        leaves[k].dtype == ref_leaves[k].dtype
+        and leaves[k].equal(ref_leaves[k]))]
+    rel = {k: ((leaves[k].float() - b.float()).norm()
+               / b.float().norm().clamp(min=1e-30)).item()
+           for k, b in ref_leaves.items()}
+    metrics = [(abs(r[1] - q[1]) / abs(q[1]), abs(r[2] - q[2]) / abs(q[2]))
+               for r, q in zip(rows, ref_rows)]
+    same = not differ and all(r[1:] == q[1:] for r, q in zip(rows, ref_rows))
+    worst = max(rel, key=rel.get)
+    log(f"{label}: losses {[r[1] for r in rows]} against unsharded "
+        f"{[q[1] for q in ref_rows]}; grad norms {[r[2] for r in rows]} "
+        f"against {[q[2] for q in ref_rows]}; parameters after "
+        f"{SHARD_STEPS} steps: {len(rel) - len(differ)} of {len(rel)} "
+        f"leaves bitwise equal" + (
+            f", first other leaf {differ[0]}; largest relative norm "
+            f"{rel[worst]:.3e} ({worst}, tol {leaf_tol:.0e})"
+            if differ else "") + f"; bitwise {same}")
+    require(same or (max(m for pair in metrics for m in pair) <= loss_tol
+                     and rel[worst] <= leaf_tol),
+            f"{label}: the sharded step disagrees with the unsharded one")
+    return same
+
+
+def shard_inputs():
+    """minitron-4b and its ``SHARD_STEPS`` batches of the training phase's
+    B x S, on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+
+    cfg = get_config("minitron-4b")
+    pipe = make_pipeline(cfg, TRAIN_S, TRAIN_B, seed=0)
+    return cfg, [pipe.batch(s) for s in range(SHARD_STEPS)]
+
+
+def unsharded_run(torch):
+    """The unsharded Trainer's ``SHARD_STEPS`` steps: (rows, host leaves,
+    counts), the card left empty."""
+    import gc
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train import Trainer
+
+    cfg, batches = shard_inputs()
+    trainer = Trainer(build_model(cfg, "cuda"), shard_train_config(),
+                      device="cuda")
+    params, rows, counts = trainer_steps(torch, trainer, batches)
+    leaves = host_leaves(params)
+    del params, trainer
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows, leaves, counts
+
+
+def run_sharded_training_phase(torch):
+    """The sharded train step on the card (``Trainer(model, cfg, mesh,
+    rules)``, ``setup_sharded_state``, ``train_rules()``: FSDP over data,
+    heads, MLP and vocab over model, sequence-parallel residuals) at world
+    1 under NCCL: full-width minitron-4b on a (1, 1) mesh at the training
+    phase's B x S, held against the unsharded Trainer's ``SHARD_STEPS``
+    steps from the same seed through host copies (the two runs do not fit
+    the card together); bitwise expected, else within TRAIN_TOL.  The
+    flash forward with lse and the backward run on the rank's local
+    shard.  Several ranks cannot share the one card: NCCL takes one rank a
+    device, and gloo with CUDA tensors crashes in the all-gather and
+    reduce-scatter the step issues on a mesh's dims (``python -m
+    repro_torch.launch.kernel_probe collectives``).  Returns the flash
+    launches."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distribution import train_rules
+    from repro_torch.models.model import build_model
+    from repro_torch.train import Trainer
+
+    card = card_line()
+    cfg, batches = shard_inputs()
+    L = cfg.num_layers
+    ref_rows, ref_leaves, ref_counts = unsharded_run(torch)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(build_model(cfg, "cuda"), shard_train_config(),
+                          mesh, train_rules(), device="cuda")
+        params, rows, counts = trainer_steps(torch, trainer, batches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        leaves = host_leaves(params)
+        del params, trainer
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sharded training minitron-4b, {L} layers, world 1 (NCCL), mesh "
+        f"(1, 1) data x model, train_rules(), B {TRAIN_B} x S {TRAIN_S}: "
+        f"step times sharded {[round(r[0] * 1e3, 1) for r in rows]} ms "
+        f"against unsharded {[round(r[0] * 1e3, 1) for r in ref_rows]} ms; "
+        f"peak {peak:.2f} GiB; launches sharded {counts}, unsharded "
+        f"{ref_counts} ({card})")
+    hold_sharded("sharded training", rows, leaves, ref_rows, ref_leaves)
+    require(counts == ref_counts
+            and counts["flash_attention_bwd"] == L * SHARD_STEPS,
+            f"sharded training: launches {counts}")
+    return counts
+
+
 def encoder_jobs(cfg):
     """The encoder phase's 16 jobs of 64-2048 tokens, from seed 1."""
     import numpy as np
@@ -5152,27 +5339,69 @@ def run_migration_phase(torch, model, params, scfg):
 def path_logits(torch, paths, *, steps: int = 5, S: int = 100):
     """fp32 logits of each path on one S-token prompt and after each of
     ``steps`` decode steps, every path fed the last path's argmax.  A path
-    is (model, params, use_kernels).  Returns, per position, the list of
-    the paths' logits over the vocabulary only: the padding columns hold
-    -1e30 (hymba pads 32001 to 32256), which would swamp a comparison
-    relative to the largest |logit|."""
+    is (model, params, use_kernels), or (model, params, use_kernels, ctx)
+    with ``ctx()`` a context its calls run in.  Returns, per position, the
+    list of the paths' logits over the vocabulary only: the padding
+    columns hold -1e30 (hymba pads 32001 to 32256), which would swamp a
+    comparison relative to the largest |logit|."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     V = paths[0][0].cfg.vocab_size
     toks = torch.randint(1, V, (1, S), generator=gen, device="cuda",
                          dtype=torch.int32)
-    caches = [m.init_cache(1, S + steps + 3) for m, _, _ in paths]
+    caches = [path[0].init_cache(1, S + steps + 3) for path in paths]
+    ctx = [path[3] if len(path) > 3 else contextlib.nullcontext
+           for path in paths]
     logits = [None] * len(paths)
-    for i, (m, p, kern) in enumerate(paths):
-        logits[i], caches[i] = m.prefill(p, {"tokens": toks}, caches[i],
-                                         use_kernels=kern)
+    for i, (m, p, kern, *_) in enumerate(paths):
+        with ctx[i]():
+            logits[i], caches[i] = m.prefill(p, {"tokens": toks}, caches[i],
+                                             use_kernels=kern)
     out = [[x.float()[..., :V] for x in logits]]
     for _ in range(steps):
         nxt = logits[-1].argmax(-1).to(torch.int32)[:, None]
-        for i, (m, p, kern) in enumerate(paths):
-            logits[i], caches[i] = m.decode_step(p, caches[i], nxt,
-                                                 use_kernels=kern)
+        for i, (m, p, kern, *_) in enumerate(paths):
+            with ctx[i]():
+                logits[i], caches[i] = m.decode_step(p, caches[i], nxt,
+                                                     use_kernels=kern)
         out.append([x.float()[..., :V] for x in logits])
     return out
+
+
+# the bf16 rounding floor's spread: plain paths whose bf16 products sum
+# their inner dim in blocks of these sizes (k_blocked_products)
+FLOOR_BLOCKS = (128, 256, 512, 1024, 2048)
+
+
+def k_blocked_products(torch, kb: int):
+    """A context factory: inside, every bf16 product ``a @ b`` with a 2-D
+    ``b`` sums its inner dim K in blocks of ``kb`` (K zero-padded to
+    whole blocks): each block's product exact in fp32 (bf16 operands,
+    TF32 off), the blocks' fp32 partials summed, the sum rounded to bf16
+    once.  That is the product's value under another summation order than
+    cuBLAS's, as valid as the kernels' own (fp32 accumulation of bf16
+    operands), so a plain path under it is one more draw of the model's
+    bf16 rounding."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class Blocked(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            # ``a @ b`` arrives as Tensor.matmul
+            if func in (torch.Tensor.matmul, torch.Tensor.__matmul__,
+                        torch.matmul) and len(args) == 2 and not kwargs:
+                a, b = args
+                if a.dtype == b.dtype == torch.bfloat16 and b.ndim == 2:
+                    K, N = b.shape
+                    nb = -(-K // kb)
+                    pad = nb * kb - K
+                    a32 = F.pad(a.float(), (0, pad)).unflatten(-1, (nb, kb))
+                    b32 = F.pad(b.float(), (0, 0, 0, pad)).view(nb, kb, N)
+                    parts = torch.einsum("...bk,bkn->b...n", a32, b32)
+                    return parts.sum(0).to(torch.bfloat16)
+            return func(*args, **kwargs)
+
+    return Blocked
 
 
 def rel_err(a, ref) -> float:
@@ -5232,8 +5461,14 @@ def run_ssm_reference_checks(torch, model, S: int = 100):
     1 + ``SSM_FLOOR_MARGIN`` times the bf16 plain path's (the model's own
     rounding floor, measured here), and its argmax must be the fp32 plain
     path's wherever that path's top-2 margin is ``ARGMAX_MARGIN`` or
-    more."""
+    more.  The floor is posed on its spread: the median, over the plain
+    paths of ``FLOOR_BLOCKS`` (``k_blocked_products``: five other
+    summation orders of every bf16 product), of each path's largest
+    distance from the fp32 plain path; each path's distance and the one
+    plain path's (the floor this check took before) are logged beside
+    it."""
     import dataclasses
+    import statistics
 
     from repro_torch.models.model import build_model
 
@@ -5242,13 +5477,17 @@ def run_ssm_reference_checks(torch, model, S: int = 100):
         params = model.init(torch.Generator(device="cuda").manual_seed(seed))
         p32 = to_fp32(params)
         label = f"reference check {model.cfg.name} seed {seed}"
+        floors = [(model, params, False, k_blocked_products(torch, kb))
+                  for kb in FLOOR_BLOCKS]
         paths = ((model, params, True), (model, params, False),
-                 (m32, p32, True), (m32, p32, False))
+                 *floors, (m32, p32, True), (m32, p32, False))
         worst = dict.fromkeys(("kernel bf16", "plain bf16",
                                "bf16 kernel vs plain", "fp32 kernel vs plain"),
                               0.0)
-        for step, (k16, p16, k32, f32) in enumerate(
+        spread = [0.0] * len(floors)
+        for step, (k16, p16, *fl, k32, f32) in enumerate(
                 path_logits(torch, paths, S=S)):
+            spread = [max(w, rel_err(x, f32)) for w, x in zip(spread, fl)]
             errs = (rel_err(k16, f32), rel_err(p16, f32), rel_err(k16, p16),
                     rel_err(k32, f32))
             same32, _, ok32 = argmax_check(k32, f32, FP32_LOGIT_REL_TOL)
@@ -5268,13 +5507,18 @@ def run_ssm_reference_checks(torch, model, S: int = 100):
                           f"than fp32 at step {step} (margin {margin:.3e})")
             for key, e in zip(worst, errs):
                 worst[key] = max(worst[key], e)
-        limit = (1 + SSM_FLOOR_MARGIN) * worst["plain bf16"]
+        floor = statistics.median(spread)
+        limit = (1 + SSM_FLOOR_MARGIN) * floor
         log(f"{label}: largest over positions, distance from plain fp32: "
             f"kernel bf16 {worst['kernel bf16']:.3e}, limit {limit:.3e} = "
-            f"(1 + {SSM_FLOOR_MARGIN}) x the bf16 floor "
-            f"{worst['plain bf16']:.3e}; bf16 kernel vs plain "
-            f"{worst['bf16 kernel vs plain']:.3e}; fp32 kernel vs plain "
-            f"{worst['fp32 kernel vs plain']:.3e}")
+            f"(1 + {SSM_FLOOR_MARGIN}) x the bf16 floor {floor:.3e}, the "
+            f"median of the plain paths of K blocks {FLOOR_BLOCKS}: "
+            f"{', '.join(f'{d:.3e}' for d in spread)}; the one plain "
+            f"path (cuBLAS order) {worst['plain bf16']:.3e}, whose limit "
+            f"was {(1 + SSM_FLOOR_MARGIN) * worst['plain bf16']:.3e}; "
+            f"kernel {worst['kernel bf16'] / floor:.3f}x the floor; bf16 "
+            f"kernel vs plain {worst['bf16 kernel vs plain']:.3e}; fp32 "
+            f"kernel vs plain {worst['fp32 kernel vs plain']:.3e}")
         require(worst["kernel bf16"] <= limit,
                 f"{label}: the bf16 kernel path is further from fp32 than "
                 f"the bf16 rounding floor allows")
@@ -5978,6 +6222,11 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
         log(f"{run.__name__[4:]} done at {phase_s()}")
     log(f"phases 18-20 took {time.perf_counter() - t_modes:.1f} s")
+    t_shard = time.perf_counter()
+    for name, n in run_sharded_training_phase(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"sharded training phase took {time.perf_counter() - t_shard:.1f} "
+        f"s, done at {phase_s()}")
     run_analysis_phase(torch)
     log(f"analysis phase done at {phase_s()}")
 

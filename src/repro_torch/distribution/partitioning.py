@@ -1,0 +1,507 @@
+"""Logical-axis partitioning of the port (``repro.distribution.partitioning``)
+on a torch ``DeviceMesh``.
+
+Model code names every parameter dim with a *logical* axis ("embed",
+"heads", "mlp", "expert", ...): ``Model.logical_specs()`` gives the tree of
+those names beside the parameter tree.  A :class:`ShardingRules` maps
+logical names to mesh-dim names, so one model definition runs unchanged on
+one device, a (data, model) mesh or a (pod, data, model) mesh: only the
+rules change.
+
+A *physical spec* is a tuple with one entry per tensor dim: None
+(replicated), a mesh-dim name, or a tuple of mesh-dim names (the dim split
+over each, major to minor, as ``batch -> ("pod", "data")``).  It is what
+the reference's ``PartitionSpec`` holds.  :func:`placements` turns it into
+DTensor placements over a ``DeviceMesh``: ``Shard(dim)`` on every mesh dim
+that splits tensor dim ``dim``, ``Replicate()`` on the others.
+
+Spec functions take a ``DeviceMesh`` or a mapping of mesh-dim name to
+size.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+Entry = Optional[Union[str, Tuple[str, ...]]]
+LogicalSpec = Tuple[Entry, ...]
+Spec = Tuple[Entry, ...]
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Maps logical axis names -> mesh-dim name(s) (or None)."""
+
+    rules: Mapping[str, Entry]
+
+    def physical(self, logical: Entry) -> Entry:
+        if logical is None:
+            return None
+        if isinstance(logical, tuple):
+            out: list = []
+            for name in logical:
+                p = self.rules.get(name)
+                if p is None:
+                    continue
+                out.extend(p if isinstance(p, tuple) else (p,))
+            if not out:
+                return None
+            return tuple(out) if len(out) > 1 else out[0]
+        return self.rules.get(logical)
+
+    def spec(self, logical_spec: LogicalSpec) -> Spec:
+        return tuple(self.physical(ax) for ax in logical_spec)
+
+    def shard(self, mesh, logical_spec: LogicalSpec, shape=None) -> list:
+        """Placements of a tensor of ``shape`` (fitted where given)."""
+        spec = self.spec(logical_spec)
+        if shape is not None:
+            spec = fit_spec(spec, shape, mesh)
+        return placements(spec, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Default rule sets, the reference's tables.  Axis vocabulary:
+#   batch        global batch                    -> (pod, data)
+#   act_seq      residual-stream sequence dim    -> model in training
+#                (sequence parallelism of the remat-saved residuals)
+#   kv_seq       KV-cache sequence dim (decode)  -> model (split-K decode)
+#   embed        weight d_model dim              -> data under FSDP
+#   vocab        embedding / logits vocab dim    -> model
+#   heads        attention query heads           -> model
+#   kv_heads     attention kv heads              -> None (replicated; each
+#                model rank slices the KV heads of its query heads)
+#   mlp          dense FFN hidden dim            -> model
+#   expert       MoE expert dim                  -> data (train) / model
+#   expert_embed expert weight d_model dim       -> None / data
+#   expert_mlp   expert FFN hidden dim           -> model / None
+#   ssm_inner    mamba inner dim                 -> model
+#   lora         MLA latent dim                  -> None
+# ---------------------------------------------------------------------------
+
+def train_rules(fsdp: bool = True, sequence_parallel: bool = True
+                ) -> ShardingRules:
+    """Training: DP over (pod, data); TP over model; FSDP (ZeRO-3) over
+    data; expert parallelism over data; sequence-parallel residuals."""
+    return ShardingRules(rules={
+        "batch": ("pod", "data"),
+        "act_seq": "model" if sequence_parallel else None,
+        "kv_seq": None,
+        "embed": "data" if fsdp else None,
+        "vocab": "model",
+        "heads": "model",
+        "kv_heads": None,
+        "mlp": "model",
+        "expert": "data",
+        "expert_embed": None,
+        "expert_mlp": "model",
+        "ssm_inner": "model",
+        "layers": None,
+        "conv_w": None,
+        "state": None,
+        "lora": None,
+    })
+
+
+def serve_rules(fsdp_weights: bool = False) -> ShardingRules:
+    """Serving: batch over (pod, data); TP over model; the KV cache split-K
+    over model on its sequence dim.  ``fsdp_weights`` also shards weights'
+    d_model dims over data (2-D tensor parallelism)."""
+    return ShardingRules(rules={
+        "batch": ("pod", "data"),
+        "act_seq": None,
+        "kv_seq": "model",
+        "embed": "data" if fsdp_weights else None,
+        "vocab": "model",
+        "heads": "model",
+        "kv_heads": None,
+        "mlp": "model",
+        "expert": "model",
+        "expert_embed": "data" if fsdp_weights else None,
+        "expert_mlp": None,
+        "ssm_inner": "model",
+        "layers": None,
+        "conv_w": None,
+        "state": None,
+        "lora": None,
+    })
+
+
+def single_device_rules() -> ShardingRules:
+    return ShardingRules(rules={})
+
+
+# ---------------------------------------------------------------------------
+# trees of specs
+# ---------------------------------------------------------------------------
+
+def tree_map_specs(fn, tree: PyTree, *rest: PyTree) -> PyTree:
+    """Map ``fn(spec, *leaves)`` over a spec tree (dicts, lists, and spec
+    tuples as leaves) and trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_specs(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_specs(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def logical_specs(model) -> PyTree:
+    """The model's tree of logical specs, in its parameter tree's
+    structure (``Model.logical_specs``)."""
+    return model.logical_specs()
+
+
+def physical_specs(spec_tree: PyTree, rules: ShardingRules) -> PyTree:
+    """Tree of logical specs -> tree of physical specs."""
+    return tree_map_specs(rules.spec, spec_tree)
+
+
+def shardings(spec_tree: PyTree, mesh, rules: ShardingRules,
+              params: Optional[PyTree] = None) -> PyTree:
+    """Tree of DTensor placement lists on ``mesh``: each leaf's physical
+    spec, sanitized to the mesh's dims, and fitted to its tensor's shape
+    where ``params`` (the tree of tensors) is given."""
+    if params is None:
+        return tree_map_specs(
+            lambda s: placements(sanitize_spec(rules.spec(s), mesh), mesh),
+            spec_tree)
+    return tree_map_specs(
+        lambda s, t: placements(fit_spec(rules.spec(s), t.shape, mesh),
+                                mesh), spec_tree, params)
+
+
+# ---------------------------------------------------------------------------
+# meshes
+# ---------------------------------------------------------------------------
+
+def mesh_sizes(mesh) -> dict:
+    """{mesh-dim name: size} of a DeviceMesh or a mapping."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def placements(spec: Spec, mesh) -> list:
+    """DTensor placements of a physical spec on ``mesh`` (its dims must be
+    the mesh's; see :func:`sanitize_spec`).  A tensor dim split over
+    several mesh dims takes them in the mesh's order, major first, which is
+    the spec's order; another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_sizes(mesh))
+    out: List[Any] = [Replicate() for _ in names]
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} splits dim {dim} over "
+                             f"mesh dims out of the mesh's order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh dim {names[i]} shards two dims "
+                                 f"of spec {spec}")
+            out[i] = Shard(dim)
+    return out
+
+
+def validate_divisibility(shape: Sequence[int], spec: Spec, mesh) -> bool:
+    """True iff every sharded dim divides evenly on the mesh."""
+    sizes = mesh_sizes(mesh)
+    for dim, ax in zip(shape, spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        total = 1
+        for a in axes:
+            total *= sizes[a]
+        if dim % total:
+            return False
+    return True
+
+
+def sanitize_spec(spec: Spec, mesh) -> Spec:
+    """Drop mesh dims a spec references that this mesh lacks (the 'pod'
+    dim on single-pod meshes, and on composed sub-meshes)."""
+    names = set(mesh_sizes(mesh))
+
+    def keep(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, tuple):
+            kept = tuple(a for a in entry if a in names)
+            if not kept:
+                return None
+            return kept if len(kept) > 1 else kept[0]
+        return entry if entry in names else None
+
+    return tuple(keep(e) for e in spec)
+
+
+def fit_spec(spec: Spec, shape: Sequence[int], mesh) -> Spec:
+    """sanitize_spec + divisibility: drop sharded mesh dims whose product
+    does not evenly divide the tensor dim (hymba's 25 heads on a 16-wide
+    model dim, batch 1, odd vocabularies); replication is the graceful
+    degradation."""
+    spec = sanitize_spec(spec, mesh)
+    sizes = mesh_sizes(mesh)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+
+    def fit(dim, entry):
+        if entry is None:
+            return None
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        kept, prod = [], 1
+        for a in axes:
+            if dim % (prod * sizes[a]) == 0:
+                kept.append(a)
+                prod *= sizes[a]
+        if not kept:
+            return None
+        return tuple(kept) if len(kept) > 1 else kept[0]
+
+    return tuple(fit(d, e) for d, e in zip(shape, entries))
+
+
+def _sub_mesh(mesh, idx):
+    """A DeviceMesh over ``mesh.mesh[idx]`` with the same dim names.  Every
+    rank of the world calls it (it creates process groups); a rank outside
+    the slice gets a mesh it is not part of."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(mesh.device_type, mesh.mesh[idx],
+                      mesh_dim_names=mesh.mesh_dim_names)
+
+
+def tp_submesh(mesh, degree: Optional[int], axis: str = "model"):
+    """Restrict a mesh's ``axis`` to its first ``degree`` columns (a
+    tenant's tensor-parallel degree below its CU grant).  ``degree`` None
+    or 0, or >= the axis size, returns the mesh unchanged; a mesh without
+    ``axis`` is returned as it is."""
+    if mesh is None or not degree or axis not in mesh.mesh_dim_names:
+        return mesh
+    ax = mesh.mesh_dim_names.index(axis)
+    if degree >= mesh.mesh.shape[ax]:
+        return mesh
+    idx = [slice(None)] * mesh.mesh.ndim
+    idx[ax] = slice(0, degree)
+    return _sub_mesh(mesh, tuple(idx))
+
+
+def replica_submesh(mesh, index: int, replicas: int, axis: str = "model"):
+    """Tile ``index`` of ``replicas`` disjoint equal-width tiles of
+    ``mesh`` along ``axis`` (columns past ``replicas * (size //
+    replicas)`` idle).  ``replicas`` <= 1, or a mesh without ``axis``,
+    returns the mesh as it is."""
+    if mesh is None or replicas <= 1 or axis not in mesh.mesh_dim_names:
+        return mesh
+    ax = mesh.mesh_dim_names.index(axis)
+    width = mesh.mesh.shape[ax] // replicas
+    if width < 1:
+        raise ValueError(
+            f"cannot tile {mesh.mesh.shape[ax]} '{axis}' columns into "
+            f"{replicas} replica slices")
+    if not 0 <= index < replicas:
+        raise ValueError(f"replica index {index} out of range for "
+                         f"{replicas} replicas")
+    idx = [slice(None)] * mesh.mesh.ndim
+    idx[ax] = slice(index * width, (index + 1) * width)
+    return _sub_mesh(mesh, tuple(idx))
+
+
+# ---------------------------------------------------------------------------
+# DTensors
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def constrain(x, rules: ShardingRules, logical: LogicalSpec):
+    """Pin a DTensor's layout by logical axes (a ``redistribute`` to the
+    fitted placements); a plain tensor is returned as it is."""
+    return constrain_spec(x, rules.spec(logical))
+
+
+def constrain_spec(x, spec: Optional[Spec]):
+    """``constrain`` by a physical spec (None: as it is)."""
+    if spec is None or not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    want = placements(fit_spec(spec, x.shape, mesh), mesh)
+    if list(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def _grouped(x, dim: int, groups: Optional[int]):
+    """Replicate each mesh dim that splits ``dim`` into a count that does
+    not divide ``groups`` (None: every split, a 1-wide one too)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    want = [Replicate() if p.is_shard(dim) and (
+        groups is None or groups % mesh.size(i)) else p
+        for i, p in enumerate(x.placements)]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(mesh, want)
+
+
+class _GroupedGrad(torch.autograd.Function):
+    """Identity whose gradient is laid out as ``_grouped`` lays out the
+    value, so that the backward of a view can take it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, groups):
+        ctx.dim, ctx.groups = dim, groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _grouped(g, ctx.dim, ctx.groups), None, None
+
+
+def whole_groups(x, dim: int, groups: Optional[int]):
+    """A DTensor whose shards of ``dim`` hold whole groups of ``groups``
+    (heads of a flattened heads x head-dim axis, before it is unflattened;
+    None: ``dim`` whole), and whose gradient does too: a mesh dim that
+    splits ``dim`` into a count that does not divide ``groups`` is
+    replicated.  A plain tensor is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    dim = dim % x.ndim
+    return _GroupedGrad.apply(_grouped(x, dim, groups), dim, groups)
+
+
+def unshard(x, dim: int):
+    """A DTensor with ``dim`` whole on every rank, value and gradient
+    (each mesh dim that splits it replicated, a 1-wide one too), for ops
+    that flatten or reduce over it; a plain tensor as it is."""
+    return whole_groups(x, dim, None)
+
+
+def rows_matmul(x, w):
+    """``x @ w`` for (..., S, K) rows: on a mesh the sequence dim of the
+    operand, the product and their gradients whole (DTensor flattens
+    (B, S) into one dim around the product, which a split S refuses)."""
+    if not is_dtensor(x) or x.ndim < 3:
+        return x @ w
+    return unshard(unshard(x, -2) @ w, -2)
+
+
+def rows_only(x, lead: int):
+    """A DTensor split, if at all, over its ``lead`` leading dims (the
+    rows: batch, sequence): every other split, and every partial sum,
+    resolved to whole values on each rank."""
+    from torch.distributed.tensor import Replicate
+
+    want = [p if p.is_shard() and p.dim < lead else Replicate()
+            for p in x.placements]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _row_grads(placements) -> list:
+    """Gradient placements of a tensor replicated on every rank that
+    serves each rank's own rows: a partial sum over the mesh dims that
+    split the rows, whole over the others."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return [Partial() if p.is_shard() else Replicate() for p in placements]
+
+
+def lookup(table, idx):
+    """``table[idx]`` for a DTensor table and DTensor indices: the table
+    gathered whole on each rank, each rank's rows looked up in its local
+    copy, and the table's gradient a partial sum over the mesh dims that
+    split the indices, reduced back onto the table's layout."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = table.device_mesh
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=_row_grads(idx.placements))
+    rows = whole[idx.to_local().long()]
+    return DTensor.from_local(rows, mesh, list(idx.placements),
+                              run_check=False)
+
+
+def row_sum(fn, x, *rows, lead: int = 2):
+    """``fn(x, *rows)``, a sum over rows, run on each rank's local rows of
+    DTensors: ``x`` laid out by ``rows_only``, each of ``rows`` as ``x``'s
+    leading dims.  The result is a partial sum over the mesh dims that
+    split the rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    x = rows_only(x, lead)
+    mesh = x.device_mesh
+    place = list(x.placements)
+    local = [r.redistribute(mesh, place).to_local() if is_dtensor(r) else r
+             for r in rows]
+    out = fn(x.to_local(), *local)
+    return DTensor.from_local(
+        out, mesh, [Partial() if p.is_shard() else Replicate()
+                    for p in place], run_check=False)
+
+
+def distribute(t: torch.Tensor, mesh, place) -> Any:
+    """The local shard of a full tensor that every rank holds alike (no
+    communication: each rank keeps its own chunk)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, mesh, place, src_data_rank=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPlan:
+    """The sharding skeleton of a parameter tree: per leaf (path, shape,
+    dtype, logical spec), captured once and fitted to any mesh.
+    ``shardings(mesh, rules)`` gives the tree of placement lists, ``avals``
+    the tree of ``meta`` tensors of the leaves' shapes and dtypes."""
+
+    spec_tree: PyTree
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    logicals: Tuple[Optional[LogicalSpec], ...]
+
+    @classmethod
+    def of(cls, params: PyTree, spec_tree: PyTree) -> "ShardingPlan":
+        shapes, dtypes, logicals = [], [], []
+
+        def visit(spec, t):
+            shapes.append(tuple(t.shape))
+            dtypes.append(t.dtype)
+            logicals.append(spec)
+            return spec
+
+        tree_map_specs(visit, spec_tree, params)
+        return cls(spec_tree, tuple(shapes), tuple(dtypes), tuple(logicals))
+
+    @property
+    def annotated(self) -> bool:
+        return any(l is not None for l in self.logicals)
+
+    def specs(self, mesh, rules: ShardingRules) -> list:
+        return [fit_spec(rules.spec(l) if l is not None else (), shape, mesh)
+                for shape, l in zip(self.shapes, self.logicals)]
+
+    def _unflatten(self, leaves: list) -> PyTree:
+        it = iter(leaves)
+        return tree_map_specs(lambda _: next(it), self.spec_tree)
+
+    def shardings(self, mesh, rules: ShardingRules) -> PyTree:
+        return self._unflatten([placements(s, mesh)
+                                for s in self.specs(mesh, rules)])
+
+    def avals(self) -> PyTree:
+        return self._unflatten([torch.empty(s, dtype=d, device="meta")
+                                for s, d in zip(self.shapes, self.dtypes)])

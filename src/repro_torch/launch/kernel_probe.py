@@ -50,6 +50,15 @@ and of 8, and the plain backward.  Prints each run's losses and grad
 norms, and whether its last loss is below its first and step 1's (the
 phase's check).  Needs a CUDA card.
 
+    python -m repro_torch.launch.kernel_probe collectives [--device cpu]
+
+runs each collective that a sharded train step issues in a gloo world of
+4 ranks on the one card (CUDA tensors; ``--device cpu``: host tensors),
+each in a world of its own so that a crash names it: the c10d
+collectives on the world's group, then DTensor's all-gather, all-reduce
+and reduce-scatter over the dims of a 2 x 2 mesh.  NCCL takes one rank a
+device, so gloo is the only way for ranks to share a card.
+
 Prints one JSON object on its last line.
 """
 from __future__ import annotations
@@ -406,10 +415,87 @@ def train_spread(arch: str, lr: float, device) -> dict:
     return out
 
 
+COLLECTIVES = ("barrier", "all_reduce", "broadcast", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_to_all_single", "dtensor_all_gather",
+               "dtensor_all_reduce", "dtensor_reduce_scatter")
+_WORLD = 4
+
+
+def _collective(rank: int, name: str, init: str, device: str) -> None:
+    """One rank of ``collectives``' world for ``name``."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=_WORLD,
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.full((8, 4), float(rank + 1), device=device)
+    if name == "barrier":
+        dist.barrier()
+    elif name == "all_reduce":
+        dist.all_reduce(x)
+    elif name == "broadcast":
+        dist.broadcast(x, 0)
+    elif name == "all_gather":
+        dist.all_gather([torch.empty_like(x) for _ in range(_WORLD)], x)
+    elif name == "all_gather_into_tensor":
+        dist.all_gather_into_tensor(
+            torch.empty((8 * _WORLD, 4), device=device), x)
+    elif name == "reduce_scatter_tensor":
+        dist.reduce_scatter_tensor(torch.empty((2, 4), device=device), x)
+    elif name == "all_to_all_single":
+        dist.all_to_all_single(torch.empty_like(x), x)
+    elif name.startswith("dtensor_"):
+        mesh = init_device_mesh(device, (2, 2),
+                                mesh_dim_names=("data", "model"))
+        whole, split = [Replicate(), Replicate()], [Shard(0), Shard(1)]
+        if name == "dtensor_all_gather":
+            distribute_tensor(x, mesh, split,
+                              src_data_rank=None).redistribute(mesh, whole)
+        else:
+            part = DTensor.from_local(x, mesh, [Partial(), Partial()])
+            part.redistribute(mesh, whole if name == "dtensor_all_reduce"
+                              else split)
+    else:
+        raise ValueError(f"no collective {name}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def collectives(device: torch.device) -> Dict[str, str]:
+    """{collective: "ok" or how its world ended} (``COLLECTIVES``)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    out = {}
+    for name in COLLECTIVES:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            init = f"tcp://localhost:{s.getsockname()[1]}"
+        try:
+            mp.spawn(_collective, args=(name, init, device.type),
+                     nprocs=_WORLD)
+            out[name] = "ok"
+        except Exception as e:          # a rank's crash is the finding
+            out[name] = f"{type(e).__name__}: {str(e).strip()[-200:]}"
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=("rounding", "ragged-splits",
-                                      "scan-clusters", "train-spread"))
+                                      "scan-clusters", "train-spread",
+                                      "collectives"))
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--arch", default="hymba-1.5b")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
@@ -447,6 +533,13 @@ def main(argv=None) -> int:
                   + f"; last below the first and step 1's: {r['falls']}",
                   flush=True)
         doc.update(arch=args.arch, lr=args.lr, runs=res)
+    elif args.probe == "collectives":
+        res = collectives(device)
+        for name, r in res.items():
+            print(f"gloo, {_WORLD} ranks, {device.type} tensors, {name}: "
+                  f"{r}", flush=True)
+        doc.update(backend="gloo", ranks=_WORLD, tensors=device.type,
+                   collectives=res)
     elif args.probe == "scan-clusters":
         res = scan_clusters(device)
         for name, r in res.items():

@@ -30,6 +30,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import partitioning as part
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ragged_decode import ragged_decode_attention
 from repro_torch.models import layers as L
@@ -64,20 +65,34 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device) -> Params
     return p
 
 
+def gqa_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical specs of ``gqa_init``'s leaves (the reference's
+    annotations): query heads on "heads", KV heads on "kv_heads"."""
+    p = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+         "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+    if cfg.qkv_bias:
+        p.update(bq=("heads", None), bk=("kv_heads", None),
+                 bv=("kv_heads", None))
+    if cfg.qk_norm:
+        p.update(q_norm=(None,), k_norm=(None,))
+    return p
+
+
 def _proj(x, w):
     """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd).  Weights are cast to
     x's dtype at use, as the reference does (fp32 training masters); at
     serving they already are, and ``.to`` returns them as they are."""
     d, h, hd = w.shape
-    return (x @ w.reshape(d, h * hd).to(x.dtype)).reshape(*x.shape[:-1], h,
-                                                          hd)
+    w2 = part.whole_groups(w.reshape(d, h * hd), -1, h)
+    y = part.whole_groups(part.rows_matmul(x, w2.to(x.dtype)), -1, h)
+    return y.reshape(*x.shape[:-1], h, hd)
 
 
 def _out(o, wo):
     """o (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d)."""
     h, hd, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * hd) @ wo.reshape(h * hd, d).to(
-        o.dtype)
+    return part.rows_matmul(o.reshape(*o.shape[:-2], h * hd),
+                            wo.reshape(h * hd, d).to(o.dtype))
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x, positions):
@@ -98,6 +113,63 @@ def _window(cfg: ModelConfig) -> int:
     return cfg.window_size if cfg.attn_type == "sliding" else 0
 
 
+# The layout the attention kernels run in on a mesh: batch over the data
+# dims, query heads over the model dim, KV heads replicated.
+_KERNEL_LAYOUT = part.ShardingRules({"batch": ("pod", "data"),
+                                     "heads": "model"})
+
+
+def _local_heads(mesh, q_place, Hq: int, Hkv: int):
+    """(model mesh dim, first KV head, KV heads) of this rank's query
+    heads, or None where the model dim does not split the heads."""
+    names = list(mesh.mesh_dim_names)
+    if "model" not in names or not q_place[names.index("model")].is_shard():
+        return None
+    mi = names.index("model")
+    per = Hq // mesh.size(mi)
+    h0 = mesh.get_local_rank(mi) * per
+    G = Hq // Hkv
+    return mi, h0 // G, max(per // G, 1)
+
+
+def _attend(q, k, v, *, use_kernels: bool, **kw):
+    """Full-sequence attention through the flash kernel's wrapper (or the
+    plain blockwise version).  DTensor operands run on each rank's local
+    shard: q redistributed to batch on the data dims and heads on the
+    model dim, k and v to batch on the data dims, and each rank passes the
+    kernel the KV heads of its query heads' groups (kv_heads are
+    replicated; their gradient is a partial sum over the model dim)."""
+    fn = flash_attention if use_kernels else L.blockwise_attention
+    if not part.is_dtensor(q):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = q.device_mesh
+    B, _, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    qspec = part.fit_spec(_KERNEL_LAYOUT.spec(("batch", None, "heads")),
+                          q.shape, mesh)
+    if qspec[2] is not None:
+        per, G = Hq // part.mesh_sizes(mesh)["model"], Hq // Hkv
+        if per % G and G % per:       # a rank's heads straddle KV groups
+            qspec = qspec[:2] + (None,)
+    q_place = part.placements(qspec, mesh)
+    kv_place = part.placements(qspec[:1], mesh)
+    q = q.redistribute(mesh, q_place)
+    k, v = (t.redistribute(mesh, kv_place) for t in (k, v))
+    heads = _local_heads(mesh, q_place, Hq, Hkv)
+    if heads is None:
+        kl, vl = k.to_local(), v.to_local()
+    else:
+        mi, k0, n = heads
+        grad = list(kv_place)
+        grad[mi] = Partial()
+        kl, vl = (t.to_local(grad_placements=grad)[:, :, k0:k0 + n]
+                  for t in (k, v))
+    out = fn(q.to_local(), kl, vl, **kw)
+    return DTensor.from_local(out, mesh, q_place, run_check=False)
+
+
 def gqa_fwd(p: Params, cfg: ModelConfig, x, positions, *, causal: bool = True,
             is_global: bool = False, kv_len=None, use_kernels: bool = True):
     """Full-sequence attention without a cache (encoders, embedding
@@ -105,12 +177,9 @@ def gqa_fwd(p: Params, cfg: ModelConfig, x, positions, *, causal: bool = True,
     rows: each row masks its own key padding, so its valid outputs do not
     depend on the padded length."""
     q, k, v = _project_qkv(p, cfg, x, positions)
-    kw = dict(causal=causal, window=_window(cfg), logit_cap=cfg.logit_softcap,
-              is_global=is_global, kv_len=kv_len)
-    if use_kernels:
-        o = flash_attention(q, k, v, **kw)
-    else:
-        o = L.blockwise_attention(q, k, v, **kw)
+    o = _attend(q, k, v, use_kernels=use_kernels, causal=causal,
+                window=_window(cfg), logit_cap=cfg.logit_softcap,
+                is_global=is_global, kv_len=kv_len)
     return _out(o, p["wo"])
 
 
@@ -172,6 +241,10 @@ def cross_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
     return gqa_init(gen, cfg, dtype=dtype, device=device)
 
 
+def cross_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    return gqa_specs(cfg)
+
+
 def _cross_q(p: Params, cfg: ModelConfig, x):
     q = _proj(x, p["wq"])
     return q + p["bq"] if cfg.qkv_bias else q
@@ -201,10 +274,8 @@ def cross_fwd(p: Params, cfg: ModelConfig, x, enc_out, src_len=None, *,
     else the plain version."""
     q = _cross_q(p, cfg, x)
     k, v = cross_kv(p, cfg, enc_out)
-    if src_len is None and use_kernels:
-        o = flash_attention(q, k, v, causal=False)
-    elif src_len is None:
-        o = L.blockwise_attention(q, k, v, causal=False)
+    if src_len is None:
+        o = _attend(q, k, v, use_kernels=use_kernels, causal=False)
     else:
         B, Sq, Hq, D = q.shape
         Ss, Hkv = k.shape[1], k.shape[2]
@@ -275,6 +346,19 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
     return p
 
 
+def mla_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical specs of ``mla_init``'s leaves."""
+    p = {"w_dkv": ("embed", "lora"), "w_kr": ("embed", None),
+         "w_uk": ("lora", "heads", None), "w_uv": ("lora", "heads", None),
+         "wo": ("heads", None, "embed"), "kv_norm": (None,)}
+    if cfg.mla.q_lora_rank:
+        p.update(w_dq=("embed", "lora"), w_uq=("lora", "heads", None),
+                 q_norm=(None,))
+    else:
+        p["w_q"] = ("embed", "heads", None)
+    return p
+
+
 def _mla_q(p: Params, cfg: ModelConfig, x, positions):
     m = cfg.mla
     if m.q_lora_rank:
@@ -312,10 +396,7 @@ def _mla_attend(p: Params, cfg: ModelConfig, x, positions, ckv, kr, *,
     q = torch.cat([q_nope, q_rope], dim=-1)
     dqk = m.qk_nope_head_dim + m.qk_rope_head_dim
     vpad = torch.nn.functional.pad(v, (0, dqk - m.v_head_dim))
-    if use_kernels:
-        o = flash_attention(q, k, vpad, causal=True)
-    else:
-        o = L.blockwise_attention(q, k, vpad, causal=True)
+    o = _attend(q, k, vpad, use_kernels=use_kernels, causal=True)
     return _out(o[..., :m.v_head_dim], p["wo"])
 
 

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distribution import partitioning as part
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -50,34 +51,63 @@ class Model:
         self.device = torch.device("meta") if meta else resolve_device(device)
 
     # ------------------------------------------------------------------
-    def init(self, generator: torch.Generator, dtype=None) -> PyTree:
+    def init(self, generator: torch.Generator, dtype=None,
+             place=None) -> PyTree:
         """Random weights from ``generator`` (on this model's device), with
         the reference's init scales, in ``dtype`` (a torch dtype or its
         name, as ``cfg.param_dtype``; None: the activation dtype, for
-        serving)."""
+        serving).  ``place(tensor, logical_spec)``, where given, maps each
+        leaf as soon as its layer is drawn (a mesh keeps its local shard),
+        so that no more than one layer's full leaves exist at a time; the
+        draws are the same either way."""
         cfg, dev = self.cfg, self.device
         dt = (cfg.activation_dtype if dtype is None else dtype
               if isinstance(dtype, torch.dtype) else torch_dtype(dtype))
         std = cfg.d_model ** -0.5
+        specs = self.logical_specs()
 
-        def normal(shape):
-            return torch.randn(shape, generator=generator, dtype=dt,
-                               device=dev) * std
+        def normal(name, shape):
+            t = torch.randn(shape, generator=generator, dtype=dt,
+                            device=dev) * std
+            return t if place is None else place(t, specs[name])
+
+        def norm(name):
+            p = T.norm_init(cfg.norm, cfg.d_model, dev)
+            return T.placed(p, specs[name], place)
 
         params: Dict[str, PyTree] = {
-            "embed": normal((cfg.padded_vocab, cfg.d_model)),
-            "decoder": T.decoder_init(generator, cfg, dtype=dt, device=dev),
-            "final_norm": T.norm_init(cfg.norm, cfg.d_model, dev),
+            "embed": normal("embed", (cfg.padded_vocab, cfg.d_model)),
+            "decoder": T.decoder_init(generator, cfg, dtype=dt, device=dev,
+                                      place=place),
+            "final_norm": norm("final_norm"),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = normal((cfg.d_model, cfg.padded_vocab))
+            params["lm_head"] = normal("lm_head",
+                                       (cfg.d_model, cfg.padded_vocab))
         if cfg.is_encdec:
             params["encoder"] = T.encoder_init(generator, cfg, dtype=dt,
-                                               device=dev)
+                                               device=dev, place=place)
             if cfg.frontend == "frames":
-                params["frame_norm"] = T.norm_init(cfg.norm, cfg.d_model,
-                                                   dev)
+                params["frame_norm"] = norm("frame_norm")
         return params
+
+    def logical_specs(self) -> PyTree:
+        """The logical spec of every leaf of ``init``'s tree, in its
+        structure: the reference's annotations, where a scanned layer's
+        leaf drops the leading "layers" axis (the port keeps a list)."""
+        cfg = self.cfg
+        specs: Dict[str, PyTree] = {
+            "embed": ("vocab", "embed"),
+            "decoder": T.decoder_specs(cfg),
+            "final_norm": T.norm_specs(cfg.norm),
+        }
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = ("embed", "vocab")
+        if cfg.is_encdec:
+            specs["encoder"] = T.encoder_specs(cfg)
+            if cfg.frontend == "frames":
+                specs["frame_norm"] = T.norm_specs(cfg.norm)
+        return specs
 
     # ------------------------------------------------------------------
     def _head(self, params):
@@ -94,7 +124,10 @@ class Model:
         return torch.where(ok, logits, torch.full_like(logits, -1e30))
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(self.cfg.activation_dtype)
+        table = params["embed"]
+        if part.is_dtensor(table):          # a mesh: each rank's rows
+            return part.lookup(table, tokens).to(self.cfg.activation_dtype)
+        return table[tokens.long()].to(self.cfg.activation_dtype)
 
     def _encode(self, params, frames, src_len=None, use_kernels: bool = True,
                 remat: bool = False):
@@ -111,7 +144,8 @@ class Model:
 
     # ------------------------------------------------------------------
     def loss(self, params, batch, *, use_kernels: bool = True,
-             moe_dispatch: str = "einsum", aux_weight: float = 0.01):
+             moe_dispatch: str = "einsum", aux_weight: float = 0.01,
+             residual_spec=None):
         """batch: {tokens, labels} (B, S) int, and for enc-dec archs
         frames (B, S_src, d) -> (xent + aux_weight * aux, {"xent", "aux"}).
 
@@ -125,7 +159,8 @@ class Model:
         backward, and the Mamba blocks' scan through the scan kernel with
         its boundary states and the scan's backward kernel, on the card
         (the plain versions on a CPU tensor either way); ``moe_dispatch``: "einsum" (the reference's default) or
-        "gather"."""
+        "gather".  ``residual_spec``: the decoder's residual layout on a
+        mesh (``transformer.decoder_fwd``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -138,7 +173,7 @@ class Model:
         x, aux = T.decoder_fwd(params["decoder"], cfg, x, pos,
                                use_kernels=use_kernels,
                                moe_dispatch=moe_dispatch, remat=cfg.remat,
-                               enc_out=enc_out)
+                               enc_out=enc_out, residual_spec=residual_spec)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         labels = batch["labels"]
         mask = (labels >= 0).float()

@@ -29,6 +29,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distribution import partitioning as part
 from repro_torch.models import layers as L
 
 Params = Dict[str, torch.Tensor]
@@ -55,15 +56,29 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int, *, dtype,
     return p
 
 
+def ffn_specs(cfg: ModelConfig, *, expert: bool = False
+              ) -> Dict[str, tuple]:
+    """Logical specs of ``ffn_init``'s leaves; expert weights take their
+    own axes ("expert", "expert_embed", "expert_mlp") so that rules can
+    shard experts and their inner dim apart from the dense FFN's."""
+    lead = ("expert",) if expert else ()
+    ax_d = "expert_embed" if expert else "embed"
+    ax_f = "expert_mlp" if expert else "mlp"
+    p = {"w_up": lead + (ax_d, ax_f), "w_down": lead + (ax_f, ax_d)}
+    if cfg.glu:
+        p["w_gate"] = lead + (ax_d, ax_f)
+    return p
+
+
 def ffn_apply(p: Params, cfg: ModelConfig, x):
     """Weights cast to x's dtype at use, as in ``attention._proj``."""
     act = L.activation(cfg.act)
-    up = x @ p["w_up"].to(x.dtype)
+    up = part.rows_matmul(x, p["w_up"].to(x.dtype))
     if cfg.glu:
-        h = act(x @ p["w_gate"].to(x.dtype)) * up
+        h = act(part.rows_matmul(x, p["w_gate"].to(x.dtype))) * up
     else:
         h = act(up)
-    return h @ p["w_down"].to(x.dtype)
+    return part.rows_matmul(h, p["w_down"].to(x.dtype))
 
 
 def _expert_ffn(p: Params, cfg: ModelConfig, x):
@@ -99,6 +114,18 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
     if mo.dense_residual:
         p["dense"] = ffn_init(gen, cfg, mo.dense_residual_d_ff or cfg.d_ff,
                               **kw)
+    return p
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, object]:
+    """Logical specs of ``moe_init``'s leaves."""
+    mo = cfg.moe
+    p: Dict[str, object] = {"router": ("embed", None),
+                            "experts": ffn_specs(cfg, expert=True)}
+    if mo.num_shared_experts:
+        p["shared"] = ffn_specs(cfg)
+    if mo.dense_residual:
+        p["dense"] = ffn_specs(cfg)
     return p
 
 

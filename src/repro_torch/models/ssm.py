@@ -74,6 +74,16 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
     }
 
 
+def mamba_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Logical specs of ``mamba_init``'s leaves: the inner dim on
+    "ssm_inner"."""
+    return {"in_proj": ("embed", "ssm_inner"),
+            "conv_w": ("conv_w", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "x_proj": ("ssm_inner", None), "dt_proj": (None, "ssm_inner"),
+            "dt_bias": ("ssm_inner",), "A_log": ("ssm_inner", "state"),
+            "D": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")}
+
+
 def _conv_causal(x, w, b):
     """Depthwise causal conv along S.  x: (B, S, D); w: (W, D) -> (B, S, D)
     in x's dtype, summed in fp32."""

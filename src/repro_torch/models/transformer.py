@@ -27,12 +27,14 @@ rmsnorm(s))`` to the residual, each output under its own RMSNorm
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import partitioning as part
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -90,6 +92,38 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device,
     elif cfg.d_ff:
         p["ln2"] = norm_init(cfg.norm, cfg.d_model, device)
         p["ffn"] = M.ffn_init(gen, cfg, cfg.d_ff, **kw)
+    return p
+
+
+def norm_specs(kind: str) -> Dict[str, tuple]:
+    return ({"scale": (None,)} if kind == "rmsnorm"
+            else {"scale": (None,), "bias": (None,)})
+
+
+def _layer_specs(cfg: ModelConfig, *, cross: bool = False,
+                 dense_override_ff: int = 0):
+    """Logical specs of ``_layer_init``'s tree, leaf for leaf."""
+    p: Dict[str, PyTree] = {"ln1": norm_specs(cfg.norm)}
+    if cfg.hybrid_parallel:
+        p["attn"] = A.gqa_specs(cfg)
+        p["ssm"] = S.mamba_specs(cfg)
+        p["attn_out_norm"] = norm_specs("rmsnorm")
+        p["ssm_out_norm"] = norm_specs("rmsnorm")
+    elif cfg.ssm is not None:
+        p["ssm"] = S.mamba_specs(cfg)
+    elif cfg.mla is not None:
+        p["attn"] = A.mla_specs(cfg)
+    else:
+        p["attn"] = A.gqa_specs(cfg)
+    if cross:
+        p["ln_cross"] = norm_specs(cfg.norm)
+        p["cross"] = A.cross_specs(cfg)
+    if dense_override_ff or cfg.moe is not None or cfg.d_ff:
+        p["ln2"] = norm_specs(cfg.norm)
+        if cfg.moe is not None and not dense_override_ff:
+            p["moe"] = M.moe_specs(cfg)
+        else:
+            p["ffn"] = M.ffn_specs(cfg)
     return p
 
 
@@ -221,14 +255,43 @@ def _prologue_plan(cfg: ModelConfig) -> Tuple[int, int]:
     return k, cfg.num_layers - k
 
 
-def decoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
+def placed(tree, specs, place):
+    """``place(leaf, spec)`` over a tree and its spec tree (None: the tree
+    as it is)."""
+    if place is None:
+        return tree
+    return part.tree_map_specs(lambda s, t: place(t, s), specs, tree)
+
+
+def decoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device,
+                 place=None):
+    """``place``: as in ``Model.init``, applied to each layer's leaves as
+    soon as the layer is drawn."""
     check_supported(cfg)
     n_pro, n_scan = _prologue_plan(cfg)
     kw = dict(dtype=dtype, device=device, cross=cfg.cross_attention)
     pro_ff = cfg.moe.first_dense_d_ff if cfg.moe is not None else 0
-    return {"prologue": [_layer_init(gen, cfg, dense_override_ff=pro_ff,
-                                     **kw) for _ in range(n_pro)],
-            "layers": [_layer_init(gen, cfg, **kw) for _ in range(n_scan)]}
+    specs = decoder_specs(cfg)
+    return {"prologue": [placed(_layer_init(gen, cfg,
+                                            dense_override_ff=pro_ff, **kw),
+                                specs["prologue"][i], place)
+                         for i in range(n_pro)],
+            "layers": [placed(_layer_init(gen, cfg, **kw),
+                              specs["layers"][i], place)
+                       for i in range(n_scan)]}
+
+
+def decoder_specs(cfg: ModelConfig):
+    """Logical specs of ``decoder_init``'s tree: the reference's, less the
+    scanned leaves' leading "layers" axis (the port keeps a list)."""
+    n_pro, n_scan = _prologue_plan(cfg)
+    pro_ff = cfg.moe.first_dense_d_ff if cfg.moe is not None else 0
+    cross = cfg.cross_attention
+    return {"prologue": [_layer_specs(cfg, cross=cross,
+                                      dense_override_ff=pro_ff)
+                         for _ in range(n_pro)],
+            "layers": [_layer_specs(cfg, cross=cross)
+                       for _ in range(n_scan)]}
 
 
 def _layer_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -296,7 +359,7 @@ def _global(cfg: ModelConfig, i: int) -> bool:
 
 def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
                 use_kernels: bool = True, moe_dispatch: str = "einsum",
-                remat: bool = False, enc_out=None):
+                remat: bool = False, enc_out=None, residual_spec=None):
     """Full-sequence causal decoder pass without a cache (training, and the
     embedding stacks of decoder-only archs): (x, aux), aux the MoE layers'
     load-balance losses summed over the prologue and the layers in order
@@ -306,7 +369,10 @@ def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
     layer function returns both values, and takes ``enc_out`` as an
     argument, so that its cross K/V gradient reaches the encoder): its
     backward recomputes the layer from its input, as the reference's scan
-    body under ``jax.checkpoint(nothing_saveable)`` does."""
+    body under ``jax.checkpoint(nothing_saveable)`` does.
+    ``residual_spec``: a physical spec pinned onto a DTensor residual at
+    every layer boundary (sequence parallelism: the remat-saved residuals
+    split over the model dim)."""
     def layer(lp, i, h, enc):
         return _layer_fwd(lp, cfg, h, positions, causal=True,
                           is_global=_global(cfg, i), kv_len=None,
@@ -315,12 +381,14 @@ def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
 
     remat = remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = part.constrain_spec(x, residual_spec)
     for i, lp in enumerate(params["prologue"] + params["layers"]):
         if remat:
             x, aux = checkpoint(layer, lp, i, x, enc_out,
                                 use_reentrant=False)
         else:
             x, aux = layer(lp, i, x, enc_out)
+        x = part.constrain_spec(x, residual_spec)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -370,10 +438,20 @@ def decoder_step(params, cfg: ModelConfig, x1, cache, *,
 # encoder (bidirectional, enc-dec)
 # ---------------------------------------------------------------------------
 
-def encoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device):
-    return {"layers": [_layer_init(gen, cfg, dtype=dtype, device=device)
-                       for _ in range(cfg.encoder_layers)],
-            "final_norm": norm_init(cfg.norm, cfg.d_model, device)}
+def encoder_init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device,
+                 place=None):
+    specs = encoder_specs(cfg)
+    return {"layers": [placed(_layer_init(gen, cfg, dtype=dtype,
+                                          device=device),
+                              specs["layers"][i], place)
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": placed(norm_init(cfg.norm, cfg.d_model, device),
+                                 specs["final_norm"], place)}
+
+
+def encoder_specs(cfg: ModelConfig):
+    return {"layers": [_layer_specs(cfg) for _ in range(cfg.encoder_layers)],
+            "final_norm": norm_specs(cfg.norm)}
 
 
 def encoder_fwd(params, cfg: ModelConfig, x, positions, *, kv_len=None,
@@ -400,16 +478,25 @@ def encoder_fwd(params, cfg: ModelConfig, x, positions, *, kv_len=None,
 # losses
 # ---------------------------------------------------------------------------
 
-def _xent_chunk(xb, w_head, lb, mb, logit_softcap: float):
-    """Summed masked NLL of one sequence chunk: logits in the activation
-    dtype, then fp32; the gold logit by a gather (the reference's one-hot
-    contraction picks the same value)."""
-    logits = (xb @ w_head.to(xb.dtype)).float()
+def _nll_sum(logits, lb, mb, logit_softcap: float = 0.0):
     if logit_softcap > 0.0:
         logits = logit_softcap * torch.tanh(logits / logit_softcap)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lb.long()[..., None])[..., 0]
     return torch.sum((lse - gold) * mb)
+
+
+def _xent_chunk(xb, w_head, lb, mb, logit_softcap: float):
+    """Summed masked NLL of one sequence chunk: logits in the activation
+    dtype, then fp32; the gold logit by a gather (the reference's one-hot
+    contraction picks the same value).  On a mesh the logsumexp and the
+    gather run on each rank's rows with the vocab gathered whole
+    (``partitioning.row_sum``)."""
+    logits = part.rows_matmul(xb, w_head.to(xb.dtype)).float()
+    if part.is_dtensor(logits):
+        return part.row_sum(functools.partial(
+            _nll_sum, logit_softcap=logit_softcap), logits, lb, mb)
+    return _nll_sum(logits, lb, mb, logit_softcap)
 
 
 def chunked_softmax_xent(x, w_head, labels, mask, *, chunk: int = 512,
@@ -420,6 +507,7 @@ def chunked_softmax_xent(x, w_head, labels, mask, *, chunk: int = 512,
     chunk is checkpointed, so the backward recomputes its logits instead
     of keeping them (about 2.1 GB per chunk of fp32 logits at vocab 256000
     and B 4), as the reference checkpoints its scan body."""
+    x = part.unshard(x, 1)          # a sequence-parallel residual, whole
     S = x.shape[1]
     remat = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -22,6 +22,12 @@ Updates run IN PLACE on the parameters and their states, one leaf at a
 time and in bounded chunks (AdamW), so a full-width model trains with no
 second copy of a parameter; ``torch.optim`` is not used, since its state
 layout and decay rule are not the reference's.
+
+DTensor parameters (a mesh): AdamW's states take each parameter's layout
+and its count is replicated; the update runs on each rank's local shards
+(a gradient is first laid out as its parameter), elementwise as on one
+device.  Clipping's norm is a DTensor reduction.  Adafactor's factored
+statistics reduce over whole stacks and raise on a mesh.
 """
 from __future__ import annotations
 
@@ -100,21 +106,56 @@ def leaf_groups(tree: PyTree, path=()) -> Iterator[Tuple[str, List, bool]]:
 # gradient utilities
 # ---------------------------------------------------------------------------
 
+def _local(t: torch.Tensor, like=None) -> torch.Tensor:
+    """A DTensor's local shard, laid out as ``like`` first where given; a
+    plain tensor as it is."""
+    from repro_torch.distribution.partitioning import is_dtensor
+
+    if not is_dtensor(t):
+        return t
+    if like is not None and t.placements != like.placements:
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
+
+
+def _count_like(leaf: torch.Tensor) -> torch.Tensor:
+    """An int32 step count on ``leaf``'s device (replicated on its mesh)."""
+    from repro_torch.distribution.partitioning import distribute, is_dtensor
+
+    count = torch.zeros((), dtype=torch.int32,
+                        device=_local(leaf).device)
+    if not is_dtensor(leaf):
+        return count
+    from torch.distributed.tensor import Replicate
+
+    mesh = leaf.device_mesh
+    return distribute(count, mesh, [Replicate()] * mesh.ndim)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's value whole on every rank, as a plain tensor."""
+    from repro_torch.distribution.partitioning import is_dtensor
+
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor)."""
+    """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor;
+    each DTensor leaf's sum reduced over the mesh first)."""
     leaves = tree_leaves(tree)
-    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    sq = [_whole(torch.sum(torch.square(x.float()))) for x in leaves]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
 def clip_by_global_norm(tree: PyTree, max_norm: float
                         ) -> Tuple[PyTree, torch.Tensor]:
     """Scale every leaf IN PLACE by min(1, max_norm / norm); returns
-    (tree, norm before clipping)."""
+    (tree, norm before clipping).  DTensor leaves scale their local
+    shards."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     # a bf16 leaf is scaled in fp32 and rounded, as the reference does
-    torch._foreach_mul_(tree_leaves(tree), scale)
+    torch._foreach_mul_([_local(t) for t in tree_leaves(tree)], scale)
     return tree, norm
 
 
@@ -143,14 +184,16 @@ def adamw(cfg: AdamWConfig = AdamWConfig()) -> Optimizer:
     sdt = torch_dtype(cfg.state_dtype)
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=sdt, device=p.device)
-        dev = tree_leaves(params)[0].device
+        zeros = lambda p: torch.zeros_like(
+            p, dtype=sdt, memory_format=torch.contiguous_format)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+                "count": _count_like(tree_leaves(params)[0])}
 
     def update(grads, state, params, lr):
-        state["count"].add_(1)
-        count = state["count"].float()
+        with torch.no_grad():
+            count = _local(state["count"])
+            count.add_(1)
+            count = count.float()
         b1c = 1.0 - cfg.b1 ** count
         b2c = 1.0 - cfg.b2 ** count
         groups = zip(leaf_groups(grads), leaf_groups(state["m"]),
@@ -160,7 +203,8 @@ def adamw(cfg: AdamWConfig = AdamWConfig()) -> Optimizer:
                     in groups:
                 for g, m, v, p in zip(gs, ms, vs, ps):
                     decay = p.ndim + int(stacked) >= 2
-                    for gc, mc, vc, pc in _flat_chunks(g, m, v, p):
+                    local = (_local(g, p), _local(m), _local(v), _local(p))
+                    for gc, mc, vc, pc in _flat_chunks(*local):
                         g32 = gc.float()
                         # fp32 states and params update in place (.float()
                         # is then the tensor itself); others via a copy
@@ -198,6 +242,12 @@ def adafactor(cfg: AdafactorConfig = AdafactorConfig()) -> Optimizer:
     statistics are those of the reference's stacked leaf."""
 
     def init(params):
+        from repro_torch.distribution.partitioning import is_dtensor
+
+        if is_dtensor(tree_leaves(params)[0]):
+            raise NotImplementedError(
+                "Adafactor on a mesh: its factored statistics reduce over "
+                "whole stacks; the sharded step runs AdamW")
         state, dev = {}, None
         for name, ts, stacked in leaf_groups(params):
             shape = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)

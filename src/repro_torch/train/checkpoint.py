@@ -10,6 +10,13 @@ uint16 bits with dtype "bfloat16" in the manifest.  Atomicity: written to
 ``<dir>.tmp`` and renamed; ``latest_step`` sees complete checkpoints only.
 ``restore`` copies each leaf IN PLACE into the matching tensor of ``like``
 (its device and dtype), so a restore holds no second copy of the state.
+
+DTensor leaves (a mesh) keep the format: ``save``, called by every rank,
+gathers each leaf whole (one leaf at a time) and rank 0 writes it;
+``restore`` reads the whole array on every rank and copies the local shard
+of ``like``'s placements, on whatever mesh ``like`` lives on.  So a
+checkpoint saved on one mesh restores onto another mesh shape, other
+placements, or one device (the elastic reshard).
 """
 from __future__ import annotations
 
@@ -21,6 +28,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distribution.partitioning import distribute, is_dtensor
 
 PyTree = Any
 
@@ -39,15 +49,23 @@ def _flatten_with_paths(tree: PyTree, path=()) -> List[Tuple[str, Any]]:
 
 def save(ckpt_dir: str, step: int, tree: PyTree,
          extra: Optional[Dict[str, Any]] = None) -> str:
-    """Write a checkpoint atomically.  Returns the final directory."""
+    """Write a checkpoint atomically.  Returns the final directory.  With
+    DTensor leaves every rank calls it; rank 0 writes."""
+    flat = _flatten_with_paths(tree)
+    sharded = any(is_dtensor(leaf) for _, leaf in flat)
+    writer = not sharded or dist.get_rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
-    for name, leaf in _flatten_with_paths(tree):
-        t = torch.as_tensor(leaf).detach()
+    for name, leaf in flat:
+        t = leaf.full_tensor() if is_dtensor(leaf) else torch.as_tensor(leaf)
+        t = t.detach()
+        if not writer:
+            continue
         dtype = str(t.dtype).removeprefix("torch.")
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -56,11 +74,14 @@ def save(ckpt_dir: str, step: int, tree: PyTree,
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"][name] = {
             "file": fname, "shape": list(arr.shape), "dtype": dtype}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -77,8 +98,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore(ckpt_dir: str, step: int, like: PyTree
             ) -> Tuple[PyTree, Dict[str, Any]]:
-    """Copy the checkpoint's leaves into ``like`` (a tree of tensors of the
-    saved structure) in place; returns (like, extra)."""
+    """Copy the checkpoint's leaves into ``like`` (a tree of tensors or
+    DTensors of the saved structure) in place; returns (like, extra)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
@@ -96,5 +117,9 @@ def restore(ckpt_dir: str, step: int, like: PyTree
                                                         meta["file"])))
             if meta["dtype"] == "bfloat16":
                 src = src.view(torch.bfloat16)
+            if is_dtensor(t):
+                src = distribute(src.to(t.to_local().device), t.device_mesh,
+                                 t.placements).to_local()
+                t = t.to_local()
             t.copy_(src)
     return like, manifest["extra"]

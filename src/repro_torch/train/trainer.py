@@ -1,27 +1,36 @@
-"""Trainer of the port (``repro.train.trainer``) on one device: the train
-step with microbatch accumulation, global-norm clipping and the cosine
-schedule, and the host loop with checkpoints, preemption and straggler
-handling.
+"""Trainer of the port (``repro.train.trainer``): the train step with
+microbatch accumulation, global-norm clipping and the cosine schedule, and
+the host loop with checkpoints, preemption and straggler handling, on one
+device or on a ``DeviceMesh``.
 
 ``make_train_step`` builds the step function; :class:`Trainer` wraps it
 with the production loop.  Parameters are fp32 masters
 (``cfg.param_dtype``) that the layers cast to the activation dtype at use.
 The step updates the parameters and optimizer state IN PLACE and returns
 them; its gradients live in the parameters' ``.grad`` and are freed after
-the update.  A mesh (the reference's ``setup_sharded_state`` and its mesh
-and rules arguments) waits for a second GPU (ROADMAP queue 1, item 1
-(d)).
+the update.
+
+On a mesh (``Trainer(model, cfg, mesh, rules)``), ``setup_sharded_state``
+makes every parameter a DTensor laid out by its logical spec under the
+rules (``Model.logical_specs``, ``distribution.partitioning``), and each
+optimizer leaf the DTensor of its parameter's layout.  The step then runs
+the same clip, schedule and optimizer on DTensors: torch's DTensor ops
+insert the collectives, the attention kernels run on each rank's local
+shard (``models.attention._attend``), and the AdamW update runs on each
+rank's local shards, elementwise as on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distribution import partitioning as part
 from repro_torch.models.model import Model
 from repro_torch.optim import base as optim
 from repro_torch.train import checkpoint as ckpt_lib
@@ -43,8 +52,18 @@ class TrainConfig:
     seed: int = 0
 
 
-def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
-                    ) -> Callable:
+def _mesh_ops(leaf):
+    """DTensor ops on a mesh take plain tensors (masks, positions, the
+    norm's constants) as replicated: the context that lets them."""
+    if not part.is_dtensor(leaf):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig,
+                    *, residual_spec=None) -> Callable:
     """(params, opt_state, step, batch) -> (params, opt_state, metrics).
 
     ``batch``: {tokens, labels} (B, S), and frames (B, S_src, d) for
@@ -54,7 +73,9 @@ def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
     reference's sum of g / n for a power-of-two count; fp32 parameters
     only), and the metrics are the reference's: xent the microbatches'
     mean loss, aux 0.  The lr of step 0 is 0, as the reference's cosine
-    schedule gives: its first step moves nothing."""
+    schedule gives: its first step moves nothing.  DTensor parameters
+    (a mesh) take a batch of DTensors; ``residual_spec`` pins the
+    decoder's residual layout (sequence parallelism)."""
     lr_fn = optim.cosine_schedule(cfg.lr, cfg.warmup, cfg.steps)
     n_mb = cfg.microbatches
 
@@ -66,6 +87,10 @@ def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
         for p in leaves:
             p.grad = None
             p.requires_grad_(True)
+        with _mesh_ops(leaves[0]):
+            return _step(params, opt_state, step, batch, leaves)
+
+    def _step(params, opt_state, step, batch, leaves):
         try:
             if n_mb > 1:
                 rows = batch["tokens"].shape[0] // n_mb
@@ -75,14 +100,16 @@ def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
                 for i in range(n_mb):
                     mb = {k: v[i * rows:(i + 1) * rows]
                           for k, v in batch.items()}
-                    lmb, _ = model.loss(params, mb)
+                    lmb, _ = model.loss(params, mb,
+                                        residual_spec=residual_spec)
                     lmb.backward()
                     loss = loss + lmb.detach() / n_mb
                 for p in leaves:
                     p.grad.div_(n_mb)
                 metrics = {"xent": loss, "aux": zero}
             else:
-                loss, metrics = model.loss(params, batch)
+                loss, metrics = model.loss(params, batch,
+                                           residual_spec=residual_spec)
                 loss.backward()
                 loss = loss.detach()
                 metrics = {k: v.detach() for k, v in metrics.items()}
@@ -96,21 +123,65 @@ def make_train_step(model: Model, opt: optim.Optimizer, cfg: TrainConfig
         for p in leaves:
             p.grad = None
         out = dict(metrics)
-        out.update({"loss": loss, "grad_norm": gnorm, "lr": lr})
+        out.update({"loss": loss, "grad_norm": gnorm})
+        out = {k: v.full_tensor() if part.is_dtensor(v) else v
+               for k, v in out.items()}
+        out["lr"] = lr
         return params, opt_state, out
 
     return step_fn
 
 
-class Trainer:
-    """Production loop on one device: data -> step -> metrics, checkpoints
-    and fault handling.  ``device`` None is the card (and raises without
-    one); the model must live on the same device.  ``preempt_file``: a
-    flag file whose appearance requests a checkpoint and exit, for
-    schedulers that cannot signal.  ``on_step(step, metrics)`` is called
-    after every step with the step's metrics as floats."""
+def setup_sharded_state(model: Model, opt: optim.Optimizer, mesh,
+                        rules: part.ShardingRules, seed: int = 0
+                        ) -> Tuple[PyTree, PyTree, PyTree, PyTree]:
+    """Parameters and optimizer state as DTensors on ``mesh``: each leaf is
+    drawn from the seeded generator exactly as on one device and its local
+    shard kept at once (``Model.init``'s ``place``: no more than one
+    layer's full leaves exist at a time).  Optimizer leaves take the
+    placements of the parameter they mirror; the step count is replicated.
+    Returns (params, opt_state, param placements, opt placements)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    params = model.init(gen, dtype=model.cfg.param_dtype,
+                        place=lambda t, s: part.distribute(
+                            t, mesh, rules.shard(mesh, s, t.shape)))
+    opt_state = opt.init(params)
+    placements = lambda tree: optim.tree_map(lambda t: list(t.placements),
+                                             tree)
+    return params, opt_state, placements(params), placements(opt_state)
 
-    def __init__(self, model: Model, cfg: TrainConfig,
+
+def batch_shard(mesh, rules: part.ShardingRules) -> Tuple[int, int]:
+    """(index, count) of this rank's batch rows on ``mesh``: its
+    coordinate over the mesh dims that "batch" maps to, major first (the
+    pipeline's ``host_id`` and ``num_hosts``)."""
+    sizes = part.mesh_sizes(mesh)
+    axes = part.sanitize_spec((rules.physical("batch"),), mesh)[0]
+    axes = () if axes is None else axes if isinstance(axes, tuple) \
+        else (axes,)
+    index, count = 0, 1
+    for a in axes:
+        index = index * sizes[a] + mesh.get_local_rank(a)
+        count *= sizes[a]
+    return index, count
+
+
+class Trainer:
+    """Production loop: data -> step -> metrics, checkpoints and fault
+    handling, on one device or, with ``mesh`` (a ``DeviceMesh``) and
+    ``rules`` (``train_rules()`` by default), on a mesh of ranks.
+    ``device`` None is the card (and raises without one); the model must
+    live on the same device.  On a mesh, the pipeline gives this rank's
+    batch rows when its ``num_hosts`` is ``batch_shard(mesh, rules)``'s
+    count, else the whole batch, of which each rank keeps its rows; with
+    ``act_seq`` sharded the residual is pinned to ("batch", "act_seq",
+    None).  ``preempt_file``: a flag file whose appearance requests a
+    checkpoint and exit, for schedulers that cannot signal.
+    ``on_step(step, metrics)`` is called after every step with the step's
+    metrics as floats."""
+
+    def __init__(self, model: Model, cfg: TrainConfig, mesh=None,
+                 rules: Optional[part.ShardingRules] = None,
                  pipeline: Optional[SyntheticLM] = None, *,
                  device: DeviceLike = None,
                  preempt_file: Optional[str] = None,
@@ -122,6 +193,9 @@ class Trainer:
                              f"trainer on {self.device}")
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
+        self.rules = rules or (part.train_rules() if mesh is not None
+                               else part.single_device_rules())
         self.pipeline = pipeline
         self.opt = optim.make_optimizer(model.cfg.optimizer)
         self.guard = fault.PreemptionGuard(flag_file=preempt_file,
@@ -129,13 +203,42 @@ class Trainer:
         self.watchdog = fault.StragglerWatchdog()
         self.on_step = on_step
         self.metrics_log: list = []
-        self._step = make_train_step(model, self.opt, cfg)
+        residual_spec = None
+        if mesh is not None and self.rules.rules.get("act_seq"):
+            residual_spec = self.rules.spec(("batch", "act_seq", None))
+        self._step = make_train_step(model, self.opt, cfg,
+                                     residual_spec=residual_spec)
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0):
+        if self.mesh is not None:
+            return setup_sharded_state(self.model, self.opt, self.mesh,
+                                       self.rules, seed)[:2]
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = self.model.init(gen, dtype=self.model.cfg.param_dtype)
         return params, self.opt.init(params)
+
+    def _to_device(self, host: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A host batch on the device; on a mesh, DTensors with the batch
+        dim laid out by the rules."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in host.items()}
+        if self.mesh is None:
+            return batch
+        from torch.distributed.tensor import DTensor
+
+        mesh, rules = self.mesh, self.rules
+        count = batch_shard(mesh, rules)[1]
+        local = count > 1 and getattr(self.pipeline, "num_hosts", 1) == count
+        out = {}
+        for k, t in batch.items():
+            logical = ("batch",) + (None,) * (t.ndim - 1)
+            shape = ((t.shape[0] * count,) if local else t.shape[:1]) \
+                + tuple(t.shape[1:])
+            place = rules.shard(mesh, logical, shape)
+            out[k] = (DTensor.from_local(t, mesh, place, run_check=False)
+                      if local else part.distribute(t, mesh, place))
+        return out
 
     def restore_or_init(self, seed: int = 0):
         step0 = ckpt_lib.latest_step(self.cfg.ckpt_dir)
@@ -166,8 +269,7 @@ class Trainer:
             if self.model.cfg.is_encdec and "frames" not in host:
                 host = self.pipeline.batch_with_frames(
                     step, self.model.cfg.d_model)
-            batch = {k: torch.as_tensor(v, device=self.device)
-                     for k, v in host.items()}
+            batch = self._to_device(host)
             params, opt_state, metrics = self._step(params, opt_state, step,
                                                     batch)
             dur = time.monotonic() - t0

@@ -71,3 +71,36 @@ def test_no_tpu_profile_in_the_port():
     bad = [str(p.relative_to(ROOT)) for p in FILES
            if "TPU_V5E" in p.read_text()]
     assert not bad, bad
+
+
+DISTRIBUTED = ("distribution/partitioning.py", "distribution/__init__.py",
+               "launch/mesh.py", "optim/compression.py")
+
+
+@pytest.mark.parametrize("rel", DISTRIBUTED)
+def test_distributed_module_imports_nothing_of_jax_or_repro(rel):
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path.exists(), rel
+    bad = [name for _, name in _imports(path) if _forbidden(name)]
+    assert not bad, (rel, bad)
+
+
+def test_importing_the_distributed_layer_touches_no_process_group():
+    """The mesh builders are functions: importing them (and the trainer and
+    launcher that use them) initialises no process group and loads no
+    JAX."""
+    code = ("import sys\n"
+            "import torch.distributed as dist\n"
+            "import repro_torch.distribution, repro_torch.launch.mesh\n"
+            "import repro_torch.optim.compression, repro_torch.launch.train\n"
+            "from repro_torch.optim import compressed_psum, ErrorFeedback\n"
+            "from repro_torch.train.trainer import setup_sharded_state\n"
+            "assert not dist.is_initialized()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

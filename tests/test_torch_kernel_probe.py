@@ -75,3 +75,13 @@ def test_scan_clusters_needs_a_card():
 def test_train_spread_needs_a_card():
     with pytest.raises(ValueError, match="CUDA card"):
         kp.train_spread("falcon-mamba-7b", 3e-4, torch.device("cpu"))
+
+
+def test_collectives_probe_runs_each_in_a_world_of_its_own(monkeypatch):
+    """The probe's machinery with host tensors: each collective in its own
+    world of gloo ranks, a rank's failure reported and not raised."""
+    monkeypatch.setattr(kp, "COLLECTIVES", ("dtensor_all_gather",
+                                            "nothing"))
+    got = kp.collectives(torch.device("cpu"))
+    assert got["dtensor_all_gather"] == "ok"
+    assert "no collective nothing" in got["nothing"]

@@ -300,6 +300,7 @@ def test_launcher_trains_on_cpu(tmp_path, capsys):
     assert not flag.exists()
     out = capsys.readouterr().out
     assert '"status": "preempted"' in out and '"status": "completed"' in out
-    with pytest.raises(NotImplementedError):
-        launch_train.main(["--arch", "minitron-4b", "--reduced",
-                           "--production-mesh", "--device", "cpu"])
+    # outside torchrun the production mesh has no process group: exit 2
+    assert launch_train.main(["--arch", "minitron-4b", "--reduced",
+                              "--production-mesh", "--device", "cpu"]) == 2
+    assert "torchrun" in capsys.readouterr().err
