@@ -284,6 +284,22 @@
    SSM reference checks (phases 4 and 12) pose the bf16 floor
    on its spread: the median over five plain paths whose bf16 products
    sum in K blocks of 128-2048 (``k_blocked_products``).
+23. Tensor-parallel serving phase (``DecodeEngine(mesh=..., rules=
+   serve_engine_rules())``, ``MeshComposer``, ``reshard_to``): world 1
+   under NCCL, full-width minitron-4b on a (1, 1) mesh with phase 3's 8
+   prompts, 32 new tokens, 8 slots, ``max_len`` 2048, decode steps as CUDA
+   graphs warmed before the clock; mid-stream a ``reshard_to`` onto a
+   second grant over the same rank, then ``apply(DesignPoint(tp=1))``.
+   The streams must equal the unsharded engine's bitwise (at world 1 every
+   shard is the whole tensor), with no graph captured after the warm-up;
+   logs decode p50 on the mesh and unsharded, the reshard's wall time and
+   the peak memory.  Then each kernel at the shapes one rank of TP 2, 4
+   and 8 launches, against its plain version within the bf16 tolerance,
+   timed beside SDPA and its bound: ragged decode at minitron-4b's 12/4,
+   6/2 and 3/1 heads and granite-34b's 24 and 6 query heads on its one KV
+   head (8 slots, D 128), and the causal flash prefill of a 1024-token
+   prompt at minitron-4b's three head splits.  Several ranks cannot share
+   the one card, so TP > 1 itself does not run here.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -6060,6 +6076,208 @@ def run_dp_bench_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: tensor-parallel serving (DecodeEngine on a mesh, reshard_to)
+# ---------------------------------------------------------------------------
+
+TP_KERNELS = ("ragged_decode", "flash_attention")
+TP_RESHARD_AT = 16          # the decode step before which the engine moves
+# (label, Hq, Hkv) of one rank's heads at TP 2, 4 and 8
+TP_DECODE = (("minitron-4b TP 2", 12, 4), ("minitron-4b TP 4", 6, 2),
+             ("minitron-4b TP 8", 3, 1), ("granite-34b TP 2", 24, 1),
+             ("granite-34b TP 8", 6, 1))
+TP_FLASH = (("minitron-4b TP 2", 12, 4), ("minitron-4b TP 4", 6, 2),
+            ("minitron-4b TP 8", 3, 1))
+TP_PREFILL_S = 1024
+
+
+def tp_serve(torch, engine, prompts, new, hook=None):
+    """``serve`` with ``hook(engine)`` called once before decode step
+    ``TP_RESHARD_AT`` (timed).  Returns (step seconds, streams, hook
+    seconds)."""
+    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    step_s, hook_s, steps = [], None, 0
+    while engine.has_work:
+        if hook is not None and steps == TP_RESHARD_AT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hook(engine)
+            torch.cuda.synchronize()
+            hook_s = time.perf_counter() - t0
+        s0 = time.perf_counter()
+        engine.step()
+        step_s.append(time.perf_counter() - s0)
+        steps += 1
+        require(steps <= 1000, "serving did not finish")
+    torch.cuda.synchronize()
+    results = engine.results()
+    return step_s, [results[r] for r in rids], hook_s
+
+
+def run_tp_serving_phase(torch):
+    """Phase 23 (a): minitron-4b at full width through ``DecodeEngine``
+    on a (1, 1) mesh with ``serve_engine_rules()`` under a world-1 NCCL
+    group, against the unsharded engine, with a mid-stream ``reshard_to``
+    and ``apply(tp=1)``.  Returns the mesh run's launches."""
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.composer import MeshComposer
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import build_model
+    from repro_torch.workloads import DecodeEngine, ServeConfig
+
+    card = card_line()
+    cfg = get_config("minitron-4b")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    scfg = ServeConfig(max_slots=8, max_len=2048, eos_id=-1,
+                       use_kernels=True)
+    prompts = serving_prompts(cfg)
+    new = 32
+    one = DecodeEngine(model, params, scfg)
+    one.warm_compile(None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one_s, one_streams, _ = tp_serve(torch, one, prompts, new)
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        comp = MeshComposer(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        eng = DecodeEngine(model, params, scfg,
+                           mesh=comp.submesh([0], "tenant"),
+                           rules=part.serve_engine_rules())
+        built = eng.warm_compile(None)
+        torch.cuda.synchronize()
+        captures = eng.graph_captures
+        reset_counts(TP_KERNELS)
+
+        def move(e):
+            e.reshard_to(comp.submesh([0], "moved"))
+            moved["applied"] = e.apply(None, DesignPoint(cus=0, tp=1))
+
+        moved = {}
+        step_s, streams, move_s = tp_serve(torch, eng, prompts, new, move)
+        counts = read_counts(TP_KERNELS)
+        path_captures = eng.graph_captures - captures
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        shard = eng._shard
+        st = eng.stats()
+        del eng
+    finally:
+        dist.destroy_process_group()
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    p50 = lambda s: float(np.median(s[1:])) * 1e3
+    L = cfg.num_layers
+    log(f"tp serving minitron-4b, {L} layers, world 1 (NCCL), mesh (1, 1), "
+        f"serve_engine_rules(), shard ranks {shard.ranks} size {shard.size}: "
+        f"8 prompts, {new} new tokens each, warm_compile built {built}; "
+        f"decode ms per step p50 {p50(step_s):.3f} on the mesh against "
+        f"{p50(one_s):.3f} unsharded; reshard_to + apply(tp=1) before step "
+        f"{TP_RESHARD_AT} took {move_s * 1e3:.3f} ms (applied "
+        f"{moved['applied']}, reshard_count {st['reshard_count']}); graph "
+        f"captures on the serving path {path_captures}; launches {counts}; "
+        f"peak {peak:.2f} GiB on the mesh, {one_peak:.2f} unsharded "
+        f"({card})")
+    require(streams == one_streams,
+            "tp serving: the mesh engine's streams differ from the "
+            "unsharded engine's")
+    require(len(streams) == 8 and all(len(t) == new for t in streams),
+            "tp serving: streams incomplete")
+    require(path_captures == 0, f"tp serving: {path_captures} graph "
+            "captures after warm_compile")
+    steps = len(step_s) - 1
+    require(counts["ragged_decode"] >= L * steps > 0
+            and counts["flash_attention"] >= L * 8,
+            f"tp serving: launches {counts} for {steps} decode steps")
+    return counts
+
+
+def run_tp_kernel_checks(torch, reps: int = 20):
+    """Phase 23 (b): ragged decode and the causal flash prefill at the
+    shapes one rank of TP 2, 4 and 8 launches (``TP_DECODE``,
+    ``TP_FLASH``), bf16, against their plain versions within the bf16
+    tolerance, each timed beside its plain version, SDPA on the same mask
+    and its bound."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_decode.ref import \
+        ragged_decode_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    card = card_line()
+    dtype, D = "bfloat16", 128
+    tol = TOL[dtype]
+    # phase 3's prompts halfway through their 32 new tokens, one slot dead
+    lengths = [n + 16 for n in serving_prompt_lengths()]
+    live = [1, 1, 1, 1, 1, 1, 0, 1]
+
+    def timed(label, fn, plain, lib, nbytes, flops):
+        ms = time_ms(torch, fn, reps)
+        plain_ms = time_ms(torch, plain, max(reps // 4, 3))
+        lib_ms = time_ms(torch, lib, reps)
+        b_ms, b_by = kernel_bound(nbytes, flops, dtype)
+        log(f"{label} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) ({card})")
+
+    for label, Hq, Hkv in TP_DECODE:
+        q, k, v, lens, livet = decode_case(
+            torch, gen, lengths=lengths, live=live, T_full=2048,
+            dtype=dtype, Hq=Hq, Hkv=Hkv, D=D)
+        got = rd.ragged_decode_attention(q, k, v, lens, live=livet)
+        want = ragged_decode_attention_ref(q, k, v, lens, live=livet)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        B, T = q.shape[0], k.shape[1]
+        log(f"ragged_decode {label} (B {B}, Hq {Hq}, Hkv {Hkv}, D {D}, T "
+            f"{T}) {dtype}: max_abs_err={err:.3e} tol={tol:.0e}")
+        require(math.isfinite(err) and err <= tol,
+                f"ragged_decode {label} disagrees with its plain version")
+        live_len = sum(n for n, a in zip(lengths, live) if a)
+        mask = (torch.arange(T, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        timed(f"ragged_decode {label} (live KV rows {live_len})",
+              lambda: rd.ragged_decode_attention(q, k, v, lens, live=livet),
+              lambda: ragged_decode_attention_ref(q, k, v, lens, live=livet),
+              gqa_sdpa(torch, q, k, v, attn_mask=mask),
+              2 * live_len * Hkv * D * 2 + 2 * B * Hq * D * 2 + 8 * B,
+              4 * live_len * Hq * D)
+    S = TP_PREFILL_S
+    for label, Hq, Hkv in TP_FLASH:
+        q, k, v = (torch.randn((1, S, h, D), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"flash_attention {label} (Hq {Hq}, Hkv {Hkv}, D {D}) S={S} "
+            f"{dtype} causal: max_abs_err={err:.3e} tol={tol:.0e}")
+        require(math.isfinite(err) and err <= tol,
+                f"flash_attention {label} disagrees with its plain version")
+        timed(f"flash_attention {label} S={S} causal",
+              lambda: fa.flash_attention(q, k, v, causal=True),
+              lambda: flash_attention_ref(q, k, v, causal=True),
+              gqa_sdpa(torch, q, k, v, is_causal=True),
+              (2 * q.numel() + k.numel() + v.numel()) * 2,
+              4 * D * Hq * S * (S + 1) // 2)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -6227,6 +6445,12 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     log(f"sharded training phase took {time.perf_counter() - t_shard:.1f} "
         f"s, done at {phase_s()}")
+    t_tp = time.perf_counter()
+    for name, n in run_tp_serving_phase(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    run_tp_kernel_checks(torch)
+    log(f"tp serving phase took {time.perf_counter() - t_tp:.1f} s, done at "
+        f"{phase_s()}")
     run_analysis_phase(torch)
     log(f"analysis phase done at {phase_s()}")
 

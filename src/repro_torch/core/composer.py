@@ -16,6 +16,14 @@ is the reference's pure integer arithmetic, copied as it is.
 ``tp_submesh`` and ``replica_submesh`` (reference
 ``distribution/partitioning.py``) are the same tilings of a grant's CU
 ids.  Framework-free: the device is carried, never touched.
+
+On a torch ``DeviceMesh`` (several GPUs, or gloo CPU ranks) a CU is what
+the reference makes it, one column of the mesh's model dim:
+:class:`MeshComposer` carves those columns into sub-meshes, each a
+``SubAccelerator`` whose ``mesh`` a tenant's engine shards over.  It runs
+on every rank of the process group, in the same order, since a new
+sub-mesh creates process groups; sub-meshes are kept by rank grid, so a
+recomposition never creates the same group twice.
 """
 from __future__ import annotations
 
@@ -25,14 +33,30 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 from repro_torch.core.dse import ExecutionPlan, PlannedLayer
 
 
+def mesh_fingerprint(mesh) -> Optional[Tuple]:
+    """Identity of a composed mesh for executable caching: dim names, dim
+    sizes and the exact ranks.  Two recompositions that land a tenant on
+    the same ranks in the same arrangement share executables; anything
+    else is a different program."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
+            tuple(int(r) for r in mesh.mesh.flatten()))
+
+
 @dataclasses.dataclass(frozen=True)
 class SubAccelerator:
-    """A composed accelerator: a set of the card's CU ids."""
+    """A composed accelerator: a set of CU ids (of one card, or columns of
+    a mesh, whose sub-mesh ``mesh`` then is)."""
 
     name: str
     cu_ids: Tuple[int, ...]
     device: Any = None               # the card (None: no device attached)
     share: float = 0.0               # len(cu_ids) / the card's CU count
+    mesh: Any = None                 # the sub-mesh (MeshComposer's grants)
+
+    def fingerprint(self) -> Optional[Tuple]:
+        return mesh_fingerprint(self.mesh)
 
 
 class CUComposer:
@@ -88,6 +112,29 @@ class CUComposer:
             out[t] = current[t] if t in delta.unchanged else \
                 self.submesh(ids, t)
         return out, delta
+
+
+class MeshComposer(CUComposer):
+    """Carves the model-dim columns of a (data, model) or (pod, data,
+    model) ``DeviceMesh`` into sub-meshes (the reference's
+    ``MeshComposer``): one CU is one column.  Every rank calls it with the
+    same arguments in the same order."""
+
+    def __init__(self, mesh, *, cu_axis: str = "model"):
+        self.mesh = mesh
+        self.cu_axis = cu_axis
+        self.axis_index = list(mesh.mesh_dim_names).index(cu_axis)
+        super().__init__(mesh.mesh.shape[self.axis_index], mesh.device_type)
+
+    def _sub(self, name: str, ids: Sequence[int]) -> SubAccelerator:
+        from repro_torch.distribution.partitioning import _sub_mesh
+
+        ids = tuple(ids)
+        idx = [slice(None)] * self.mesh.mesh.ndim
+        idx[self.axis_index] = list(ids)
+        return SubAccelerator(name, ids, self.device,
+                              len(ids) / self.num_cus,
+                              _sub_mesh(self.mesh, tuple(idx)))
 
 
 def tp_submesh(sub: Optional[SubAccelerator],

@@ -21,6 +21,7 @@ size.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -128,6 +129,19 @@ def serve_rules(fsdp_weights: bool = False) -> ShardingRules:
         "state": None,
         "lora": None,
     })
+
+
+def serve_engine_rules() -> ShardingRules:
+    """``serve_rules()`` tuned for the decode engine's composed sub-meshes:
+    the KV cache shards over its kv *heads* rather than split-K over its
+    sequence (a write at a per-row position into a sequence-sharded cache
+    would move the whole cache every step), and head counts that do not
+    divide a sub-mesh fall back to replication per leaf, so the same rules
+    serve a 1-column and an 8-column composition."""
+    rules = dict(serve_rules().rules)
+    rules["kv_seq"] = None
+    rules["kv_heads"] = "model"
+    return ShardingRules(rules=rules)
 
 
 def single_device_rules() -> ShardingRules:
@@ -269,14 +283,41 @@ def fit_spec(spec: Spec, shape: Sequence[int], mesh) -> Spec:
     return tuple(fit(d, e) for d, e in zip(shape, entries))
 
 
+def _mesh_key(names, ranks: torch.Tensor) -> tuple:
+    return (tuple(names), tuple(ranks.shape),
+            tuple(int(r) for r in ranks.flatten()))
+
+
+def _family(mesh) -> dict:
+    """The sub-meshes carved from ``mesh`` and from the mesh it was carved
+    from, by (dim names, rank grid), the root included.  The dict is kept
+    on each of them, so a recomposition that lands on a rank set seen
+    before takes its mesh and never creates the same process groups
+    twice, and the dict goes with the meshes of its world."""
+    fam = getattr(mesh, "_sub_meshes", None)
+    if fam is None:
+        fam = {_mesh_key(mesh.mesh_dim_names, mesh.mesh): mesh}
+        mesh._sub_meshes = fam
+    return fam
+
+
 def _sub_mesh(mesh, idx):
-    """A DeviceMesh over ``mesh.mesh[idx]`` with the same dim names.  Every
-    rank of the world calls it (it creates process groups); a rank outside
-    the slice gets a mesh it is not part of."""
+    """A DeviceMesh over ``mesh.mesh[idx]`` with the same dim names,
+    created once per rank grid of ``mesh``'s family (``_family``).  Every
+    rank of the world calls it in the same order (a new one creates
+    process groups); a rank outside the slice gets a mesh it is not part
+    of."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh(mesh.device_type, mesh.mesh[idx],
-                      mesh_dim_names=mesh.mesh_dim_names)
+    ranks = mesh.mesh[idx]
+    fam = _family(mesh)
+    key = _mesh_key(mesh.mesh_dim_names, ranks)
+    if key not in fam:
+        sub = DeviceMesh(mesh.device_type, ranks,
+                         mesh_dim_names=mesh.mesh_dim_names)
+        sub._sub_meshes = fam
+        fam[key] = sub
+    return fam[key]
 
 
 def tp_submesh(mesh, degree: Optional[int], axis: str = "model"):
@@ -313,6 +354,20 @@ def replica_submesh(mesh, index: int, replicas: int, axis: str = "model"):
     idx = [slice(None)] * mesh.mesh.ndim
     idx[ax] = slice(index * width, (index + 1) * width)
     return _sub_mesh(mesh, tuple(idx))
+
+
+def row_submeshes(mesh, axis: str = "model") -> list:
+    """The sub-mesh of each row of ``mesh`` along ``axis`` (``axis`` whole,
+    one index on every other dim: a production mesh's data rows), in
+    row-major order.  Every rank calls it in the same order."""
+    ax = mesh.mesh_dim_names.index(axis)
+    others = [range(n) for i, n in enumerate(mesh.mesh.shape) if i != ax]
+    rows = []
+    for coords in itertools.product(*others):
+        idx = [slice(c, c + 1) for c in coords]
+        idx.insert(ax, slice(None))
+        rows.append(_sub_mesh(mesh, tuple(idx)))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -505,3 +560,158 @@ class ShardingPlan:
     def avals(self) -> PyTree:
         return self._unflatten([torch.empty(s, dtype=d, device="meta")
                                 for s, d in zip(self.shapes, self.dtypes)])
+
+    def leaves(self, tree: PyTree) -> list:
+        """``tree``'s leaves in this plan's order."""
+        out: list = []
+        tree_map_specs(lambda _, t: out.append(t), self.spec_tree, tree)
+        return out
+
+    def unflatten(self, leaves: list) -> PyTree:
+        return self._unflatten(leaves)
+
+    def model_dims(self, rules: Optional[ShardingRules],
+                   size: int) -> List[Optional[int]]:
+        """Each leaf's dim split over a ``size``-wide model dim
+        (``model_dim``)."""
+        return [model_dim(l, shape, rules, size)
+                for shape, l in zip(self.shapes, self.logicals)]
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: local shards and explicit collectives
+#
+# A serving engine on a mesh holds plain tensors, each rank its own shard,
+# and runs its steps with explicit ``torch.distributed`` collectives over
+# the mesh's "model" dim (DTensor dispatch stays off the decode hot path and
+# out of graph capture).  A leaf is split over "model" on at most one dim:
+# the first dim its rules put on "model" whose size the model dim divides;
+# any other leaf is whole on every rank.  The mesh's other dims (a
+# production mesh's data rows) hold replicas: each row runs the same
+# tensor-parallel step.
+# ---------------------------------------------------------------------------
+
+def model_dim(logical: Optional[LogicalSpec], shape: Sequence[int],
+              rules: Optional[ShardingRules], size: int) -> Optional[int]:
+    """The dim of a leaf of ``shape`` that ``rules`` split over a
+    ``size``-wide model dim, or None (whole): no rules, a 1-wide model
+    dim, or no dim on "model" that ``size`` divides."""
+    if rules is None or logical is None or size <= 1:
+        return None
+    for dim, (n, entry) in enumerate(zip(shape, rules.spec(logical))):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in axes and n % size == 0:
+            return dim
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class TPShard:
+    """This rank's place on a serving mesh: the mesh's ranks (row-major),
+    whether this rank is one of them, and its tensor-parallel group over
+    the "model" dim (its own row), that group's size and this rank's index
+    in it.  A rank outside the mesh holds none of an engine's tensors."""
+
+    mesh: Any
+    ranks: Tuple[int, ...]
+    member: bool
+    size: int
+    index: int
+    group: Any = None
+
+    @classmethod
+    def of(cls, mesh) -> "TPShard":
+        import torch.distributed as dist
+
+        ranks = tuple(int(r) for r in mesh.mesh.flatten())
+        names = list(mesh.mesh_dim_names)
+        size = mesh.mesh.shape[names.index("model")] if "model" in names \
+            else 1
+        member = dist.get_rank() in ranks
+        if not member or "model" not in names:
+            return cls(mesh, ranks, member, size, 0 if member else -1)
+        return cls(mesh, ranks, True, size, mesh.get_local_rank("model"),
+                   mesh.get_group("model") if size > 1 else None)
+
+    @property
+    def root(self) -> int:
+        """The mesh's first rank (global): the source of broadcasts."""
+        return self.ranks[0]
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the model group in place (a partial sum of a
+        row-parallel product); a no-op on a 1-wide group."""
+        if self.size > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(x, group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model group's shards of ``x`` concatenated along ``dim``,
+        in rank order."""
+        if self.size <= 1:
+            return x
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def local(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's shard of a whole tensor (the tensor itself when it
+        stays whole; a copy of the slice otherwise, so that the whole one
+        can be freed)."""
+        if dim is None:
+            return full
+        n = full.shape[dim] // self.size
+        return full.narrow(dim, self.index * n, n).clone()
+
+
+def local_shape(shape: Sequence[int], dim: Optional[int],
+                size: int) -> Tuple[int, ...]:
+    out = list(shape)
+    if dim is not None:
+        out[dim] //= size
+    return tuple(out)
+
+
+def _world_ranks() -> Tuple[int, ...]:
+    import torch.distributed as dist
+
+    return tuple(range(dist.get_world_size()))
+
+
+def needs_broadcast(old: Optional[TPShard], new: Optional[TPShard]) -> bool:
+    """True when a rank that will hold the new layout held none of the
+    old one (every rank holds whole tensors where the shard is None)."""
+    if old is None:
+        return False
+    holders = set(new.ranks) if new is not None else set(_world_ranks())
+    return not holders <= set(old.ranks)
+
+
+def move_leaf(t: Optional[torch.Tensor], shape: Sequence[int],
+              dtype: torch.dtype, device, old: Optional[TPShard],
+              old_dim: Optional[int], new: Optional[TPShard],
+              new_dim: Optional[int]) -> Optional[torch.Tensor]:
+    """One leaf from the ``old`` layout to the ``new`` one: gathered whole
+    within the old model group, broadcast from the old mesh's first rank
+    to every rank where a new holder held none of it, and sliced by each
+    new holder.  Returns this rank's new local tensor (None on a rank
+    outside ``new``).  Every rank of the world calls it with the same
+    layouts."""
+    import torch.distributed as dist
+
+    full = t
+    if old is not None and old.member:
+        full = old.all_gather(t, old_dim) if old_dim is not None else t
+    if needs_broadcast(old, new):
+        if old is None or not old.member:
+            full = torch.empty(tuple(shape), dtype=dtype, device=device)
+        dist.broadcast(full, src=old.root)
+    if new is None:
+        return full
+    if not new.member:
+        return None
+    return new.local(full, new_dim)

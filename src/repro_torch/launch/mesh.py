@@ -47,6 +47,26 @@ def make_host_mesh(shape: Tuple[int, ...] = (1, 1),
                             mesh_dim_names=tuple(axes))
 
 
+def init_world(device: str = "cuda") -> int:
+    """Join the process group ``torchrun`` describes (``RANK`` and
+    ``WORLD_SIZE`` set; NCCL on "cuda", gloo on "cpu") unless one is
+    initialised already; returns the world size (1 outside torchrun)."""
+    import os
+
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            return 1
+        dist.init_process_group("nccl" if device == "cuda" else "gloo")
+    return dist.get_world_size()
+
+
+def make_serve_mesh(*, device: str = "cuda"):
+    """The serving mesh: shape (1, world) named ("data", "model") over the
+    initialised process group, every rank one CU column."""
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    return make_host_mesh((1, world), ("data", "model"), device=device)
+
+
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
     """The 16x16 single-pod (256 ranks) or 2x16x16 dual-pod (512 ranks)
     mesh."""

@@ -66,11 +66,30 @@ reports the design points Stage 1 picked and the fabric applied (exit 1
 unless a non-default point with ``dp > 1`` was applied and every stream
 completed, the reference's test).  ``--dp-bench`` times Stage 1's chosen
 replica tiling of a 4-CU grant against the same grant forced to one
-engine.  One card has no tensor parallelism: the documents keep the
-reference's keys and ``tp`` reads false; the CUs are logical shares
+engine.  These modes run on one card, without a mesh: the documents keep
+the reference's keys and ``tp`` reads false; the CUs are logical shares
 (``CUComposer``), replicas are co-resident engines on shared weights,
 each on its own CUDA stream, every engine is warmed before a timed
 window, and every window ends on a device sync.
+
+Tensor parallelism, under ``torchrun`` (one rank per GPU under NCCL;
+gloo CPU ranks with ``--device cpu``):
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.serve --tp-smoke \
+        [--device cpu]
+    torchrun ... -m repro_torch.launch.serve --arch qwen2.5-32b \
+        --production-mesh [--no-tp] [--multi-pod]
+
+``--tp-smoke`` serves minitron-reduced in fp32 (3 prompts, 2 slots,
+``max_len`` 64) on a (1, world) mesh at TP 1 (replicated), TP 2, and TP 2
+resharded to 1 and back to 2 mid-stream; it prints the reference's JSON
+line and exits 1 unless the three streams are equal (2 at world 1).
+``--production-mesh`` serves the single-tenant mode on the 16x16 (data,
+model) mesh (``--multi-pod``: 2x16x16): each data row is an engine over
+its 16 model columns with ``serve_engine_rules()`` (``--no-tp``: whole on
+each rank), ``--max-slots`` split evenly over the rows, and request ``i``
+goes to row ``i`` mod the row count; a world of another size exits 2
+naming both.  Rank 0 prints, with its own row's captures.
 
 Every mode runs on the GPU unless ``--device cpu`` is given.
 """
@@ -90,7 +109,10 @@ import torch
 from repro_torch.common.platform import H100_SXM, per_cu
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.composer import CUComposer
+from repro_torch.core.composer import CUComposer, MeshComposer
+from repro_torch.distribution import row_submeshes, serve_engine_rules
+from repro_torch.launch.mesh import (init_world, make_production_mesh,
+                                     make_serve_mesh)
 from repro_torch.models.model import build_model
 from repro_torch.serve import (AnalyticalPolicy, ComposedServer,
                                ReplicaGroup, SLOTarget, ServeConfig,
@@ -788,7 +810,113 @@ def run_dp_bench(args) -> int:
     return 0
 
 
+def run_tp_smoke(args) -> int:
+    """TP 2 and a mid-stream reshard to TP 1 and back against TP 1
+    replicated, on a (1, world) mesh: the three streams must be equal (the
+    reference's ``run_tp_smoke``)."""
+    import torch.distributed as dist
+
+    if init_world(torch.device(args.device).type) < 2:
+        print("tp-smoke needs >= 2 devices (torchrun --nproc-per-node 8 "
+              "-m repro_torch.launch.serve --tp-smoke [--device cpu])")
+        return 2
+    mesh = make_serve_mesh(device=torch.device(args.device).type)
+    comp = MeshComposer(mesh)
+    cfg = dataclasses.replace(get_reduced("minitron-4b"), dtype="float32")
+    model = build_model(cfg, args.device)
+    params = model.init(torch.Generator(device=model.device).manual_seed(
+        args.seed))
+    sc = ServeConfig(max_slots=2, max_len=64, eos_id=-1)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 12)))
+               for _ in range(3)]
+
+    def run(tp, rules, reshard_at=None):
+        eng = DecodeEngine(model, params, sc,
+                           mesh=comp.submesh(range(tp), f"tp{tp}"),
+                           rules=rules)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        step = 0
+        while eng.has_work:
+            if reshard_at and step in reshard_at:
+                eng.reshard_to(comp.submesh(range(reshard_at[step]), "re"))
+            eng.step()
+            step += 1
+            assert step < 200
+        return eng.results()
+
+    ref = run(1, None)                                 # replicated baseline
+    tp2 = run(2, serve_engine_rules())
+    dyn = run(2, serve_engine_rules(), reshard_at={4: 1, 8: 2})
+    ok = ref == tp2 == dyn
+    if dist.get_rank() == 0:
+        print(json.dumps({"match_tp2": tp2 == ref, "match_dyn": dyn == ref,
+                          "requests": len(ref), "ok": ok}))
+        print("TP smoke OK: 2-way TP and mid-stream reshard match "
+              "replicated" if ok else "TP smoke FAILED: sharded decode "
+              "diverged from replicated")
+    return 0 if ok else 1
+
+
+def _serving_mesh(args):
+    """(mesh, rules, error) of ``--production-mesh``: the mesh over
+    torchrun's process group, or the message of a world that cannot hold
+    it."""
+    if not args.production_mesh:
+        return None, None, None
+    device = torch.device(args.device).type
+    if init_world(device) == 1 and "RANK" not in os.environ:
+        return None, None, ("--production-mesh runs under torchrun (RANK "
+                            "and WORLD_SIZE unset)")
+    try:
+        mesh = make_production_mesh(multi_pod=args.multi_pod, device=device)
+    except ValueError as e:
+        return None, None, str(e)
+    return mesh, None if args.no_tp else serve_engine_rules(), None
+
+
+def row_engines(cls, model, params, sc: ServeConfig, mesh, rules):
+    """One engine per data row of a serving mesh (``row_submeshes``), each
+    over its row's model columns (tensor-parallel under ``rules``, whole on
+    each rank without) with ``max_slots`` split evenly over the rows, as
+    the reference's rules split the slots' batch dim over the data dims.
+    Every rank builds every row's engine, in the same order, and does
+    device work only for its own row's."""
+    rows = row_submeshes(mesh)
+    rsc = dataclasses.replace(sc, max_slots=max(sc.max_slots // len(rows),
+                                                1))
+    return [cls(model, params, rsc, mesh=row, rules=rules) for row in rows]
+
+
+def serve_rows(engines, prompts, max_new_tokens: int):
+    """Request ``i`` to engine ``i % len(engines)``; each round steps every
+    engine that has work, until none has.  Returns (streams by request
+    index, rounds, tokens emitted, each round's ms)."""
+    placed = []
+    for i, p in enumerate(prompts):
+        eng = engines[i % len(engines)]
+        placed.append((eng, eng.submit(p, max_new_tokens=max_new_tokens)))
+    rounds = emitted = 0
+    round_ms = []
+    while any(e.has_work for e in engines) and rounds <= 10_000:
+        s0 = time.perf_counter()
+        for e in engines:
+            if e.has_work:
+                emitted += len(e.step())
+        round_ms.append((time.perf_counter() - s0) * 1e3)
+        rounds += 1
+    results = {id(e): e.results() for e in engines}
+    streams = {i: list(results[id(e)][rid])
+               for i, (e, rid) in enumerate(placed)}
+    return streams, rounds, emitted, round_ms
+
+
 def run_single(args) -> int:
+    mesh, rules, err = _serving_mesh(args)
+    if err is not None:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
     cfg = get_reduced(args.arch[0]) if args.reduced else \
         get_config(args.arch[0])
     cuts = _layer_cuts(args)
@@ -797,25 +925,23 @@ def run_single(args) -> int:
     model = build_model(cfg, args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)
-    engine = ENGINES[workload_class_of(cfg)](
-        model, params, ServeConfig(max_slots=args.max_slots,
-                                   max_len=args.max_len, eos_id=-1))
-    warm_builds = engine.warm_compile(None)
+    cls = ENGINES[workload_class_of(cfg)]
+    sc = ServeConfig(max_slots=args.max_slots, max_len=args.max_len,
+                     eos_id=-1)
+    engines = (row_engines(cls, model, params, sc, mesh, rules)
+               if mesh is not None else [cls(model, params, sc)])
+    warm_builds = sum(e.warm_compile(None) for e in engines)
     rng = np.random.default_rng(args.seed)
     t0 = time.monotonic()
-    for _ in range(args.requests):
-        plen = int(rng.integers(4, 24))
-        prompt = rng.integers(1, cfg.vocab_size, size=plen)
-        engine.submit(prompt, max_new_tokens=args.max_new_tokens)
-    steps = emitted = 0
-    step_ms = []
-    while engine.has_work and steps <= 10_000:
-        s0 = time.perf_counter()
-        emitted += len(engine.step())
-        step_ms.append((time.perf_counter() - s0) * 1e3)
-        steps += 1
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 24)))
+               for _ in range(args.requests)]
+    _, steps, emitted, step_ms = serve_rows(engines, prompts,
+                                            args.max_new_tokens)
     dt = time.monotonic() - t0
     arr = np.asarray(step_ms)
+    if mesh is not None and mesh.get_rank() != 0:
+        return 0
+    engine = engines[0]            # rank 0's row
     print(json.dumps({
         "device": _device_name(model.device),
         "arch": cfg.name, "workload_class": engine.workload_class,
@@ -828,6 +954,9 @@ def run_single(args) -> int:
         "warm_compile_builds": warm_builds,
         "graph_captures": engine.graph_captures,
         "covering_steps": engine.covering_steps,
+        "mesh": list(mesh.mesh.shape) if mesh is not None else None,
+        "rows": len(engines) if mesh is not None else None,
+        "tp": rules is not None,
     }, indent=1))
     return 0
 
@@ -914,12 +1043,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp-bench", action="store_true",
                     help="time Stage 1's replica tiling (dp > 1) against "
                          "the same grant forced to one engine")
+    ap.add_argument("--tp-smoke", action="store_true",
+                    help="require TP 2 decode, and a mid-stream reshard to "
+                         "TP 1 and back, to equal replicated decode "
+                         "(torchrun, >= 2 ranks)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="serve on the 16x16 production mesh (torchrun, "
+                         "256 ranks)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --production-mesh: 2x16x16 (512 ranks)")
+    ap.add_argument("--no-tp", action="store_true",
+                    help="with --production-mesh: replicated engines")
     return ap
 
 
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
+    if args.tp_smoke:
+        return run_tp_smoke(args)
     if args.obs_smoke:
         return run_obs_smoke(args)
     if args.slo_smoke:

@@ -119,17 +119,51 @@ _KERNEL_LAYOUT = part.ShardingRules({"batch": ("pod", "data"),
                                      "heads": "model"})
 
 
+def _kv_heads_of(index: int, per: int, Hq: int, Hkv: int, device=None):
+    """The KV heads that query heads ``[index * per, (index + 1) * per)``
+    attend under GQA (``Hq // Hkv`` query heads to a KV head): a slice
+    where those heads cover whole groups or lie within one; where they
+    straddle groups, a (per,) index tensor on ``device``, one KV head per
+    query head.  Training (``_attend``) and serving (``gqa_prefill``,
+    ``gqa_step``) slice a rank's KV heads with it."""
+    G = Hq // Hkv
+    h0 = index * per
+    if per % G == 0 or G % per == 0:
+        return slice(h0 // G, h0 // G + max(per // G, 1))
+    return (torch.arange(per, device=device) + h0) // G
+
+
 def _local_heads(mesh, q_place, Hq: int, Hkv: int):
-    """(model mesh dim, first KV head, KV heads) of this rank's query
-    heads, or None where the model dim does not split the heads."""
+    """(model mesh dim, slice of KV heads) of this rank's query heads, or
+    None where the model dim does not split the heads."""
     names = list(mesh.mesh_dim_names)
     if "model" not in names or not q_place[names.index("model")].is_shard():
         return None
     mi = names.index("model")
     per = Hq // mesh.size(mi)
-    h0 = mesh.get_local_rank(mi) * per
-    G = Hq // Hkv
-    return mi, h0 // G, max(per // G, 1)
+    return mi, _kv_heads_of(mesh.get_local_rank(mi), per, Hq, Hkv)
+
+
+def _kv_of_local_heads(cfg: ModelConfig, hq: int, k, v, tp):
+    """K and V (B, T, heads, D) for this rank's ``hq`` query heads on a
+    tensor-parallel mesh.  Heads whole, or KV heads split with the query
+    heads (the degree divides both): as they are.  Query heads split over
+    whole KV heads: those of this rank's query heads (``_kv_heads_of``)."""
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if hq == Hq or k.shape[2] < Hkv:
+        return k, v
+    sel = _kv_heads_of(tp.index, hq, Hq, Hkv, k.device)
+    if isinstance(sel, slice):
+        return k[:, :, sel], v[:, :, sel]
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def _reduce_heads(y, cfg: ModelConfig, wo, tp):
+    """The attention output's partial sum over this rank's query heads
+    (``wo`` row-parallel), summed over the model group."""
+    if tp is not None and wo.shape[0] < cfg.num_heads:
+        tp.all_reduce(y)
+    return y
 
 
 def _attend(q, k, v, *, use_kernels: bool, **kw):
@@ -150,9 +184,9 @@ def _attend(q, k, v, *, use_kernels: bool, **kw):
     qspec = part.fit_spec(_KERNEL_LAYOUT.spec(("batch", None, "heads")),
                           q.shape, mesh)
     if qspec[2] is not None:
-        per, G = Hq // part.mesh_sizes(mesh)["model"], Hq // Hkv
-        if per % G and G % per:       # a rank's heads straddle KV groups
-            qspec = qspec[:2] + (None,)
+        per = Hq // part.mesh_sizes(mesh)["model"]
+        if not isinstance(_kv_heads_of(0, per, Hq, Hkv), slice):
+            qspec = qspec[:2] + (None,)     # heads straddle KV groups
     q_place = part.placements(qspec, mesh)
     kv_place = part.placements(qspec[:1], mesh)
     q = q.redistribute(mesh, q_place)
@@ -161,10 +195,10 @@ def _attend(q, k, v, *, use_kernels: bool, **kw):
     if heads is None:
         kl, vl = k.to_local(), v.to_local()
     else:
-        mi, k0, n = heads
+        mi, sel = heads
         grad = list(kv_place)
         grad[mi] = Partial()
-        kl, vl = (t.to_local(grad_placements=grad)[:, :, k0:k0 + n]
+        kl, vl = (t.to_local(grad_placements=grad)[:, :, sel]
                   for t in (k, v))
     out = fn(q.to_local(), kl, vl, **kw)
     return DTensor.from_local(out, mesh, q_place, run_check=False)
@@ -191,32 +225,35 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def gqa_prefill(p: Params, cfg: ModelConfig, x, positions, cache: Params, *,
-                is_global: bool = False, use_kernels: bool = True):
+                is_global: bool = False, use_kernels: bool = True, tp=None):
     """Prefill: causal attention, and K/V written into the cache at [0, S)
     in place.  ``use_kernels=False`` runs the plain blockwise attention
-    whatever the device."""
+    whatever the device.  ``tp`` (a ``partitioning.TPShard``): the weights
+    and cache are this rank's shards; the kernel runs on its local heads
+    and the row-parallel ``wo`` product is summed over the model group."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     kw = dict(causal=True, window=_window(cfg), logit_cap=cfg.logit_softcap,
               is_global=is_global)
+    ka, va = _kv_of_local_heads(cfg, q.shape[2], k, v, tp)
     if use_kernels:
-        o = flash_attention(q, k, v, **kw)
+        o = flash_attention(q, ka, va, **kw)
     else:
-        o = L.blockwise_attention(q, k, v, **kw)
+        o = L.blockwise_attention(q, ka, va, **kw)
     S = x.shape[1]
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
-    return _out(o, p["wo"]), cache
+    return _reduce_heads(_out(o, p["wo"]), cfg, p["wo"], tp), cache
 
 
 def gqa_step(p: Params, cfg: ModelConfig, x1, cache: Params, pos, *,
              is_global: bool = False, use_kernels: bool = False,
-             kv_bound: Optional[int] = None, live=None):
+             kv_bound: Optional[int] = None, live=None, tp=None):
     """Decode one token.  x1: (B, 1, d); pos: (B,) int32 per-row positions.
 
     With ``use_kernels`` the ragged kernel reads only ``cache[:, :kv_bound]``
     (a strided view, never copied; the bound covers every live row's
     ``pos + 1``) and ``live`` marks empty slots.  The full-size cache is
-    written either way."""
+    written either way.  ``tp``: as in ``gqa_prefill``."""
     q, k, v = _project_qkv(p, cfg, x1, pos[:, None])
     ck = L.scatter_kv(cache["k"], k, pos)
     cv = L.scatter_kv(cache["v"], v, pos)
@@ -224,11 +261,13 @@ def gqa_step(p: Params, cfg: ModelConfig, x1, cache: Params, pos, *,
               logit_cap=cfg.logit_softcap)
     if use_kernels:
         kb = ck.shape[1] if kv_bound is None else kv_bound
-        o = ragged_decode_attention(q, ck[:, :kb], cv[:, :kb], pos + 1,
-                                    live=live, **kw)
+        ka, va = _kv_of_local_heads(cfg, q.shape[2], ck[:, :kb],
+                                    cv[:, :kb], tp)
+        o = ragged_decode_attention(q, ka, va, pos + 1, live=live, **kw)
     else:
-        o = L.decode_attention(q, ck, cv, pos + 1, **kw)
-    return _out(o, p["wo"]), cache
+        ka, va = _kv_of_local_heads(cfg, q.shape[2], ck, cv, tp)
+        o = L.decode_attention(q, ka, va, pos + 1, **kw)
+    return _reduce_heads(_out(o, p["wo"]), cfg, p["wo"], tp), cache
 
 
 # ---------------------------------------------------------------------------

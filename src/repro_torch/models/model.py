@@ -115,19 +115,61 @@ class Model:
             return params["embed"].T
         return params["lm_head"]
 
-    def _mask_pad(self, logits):
+    def _vocab_offset(self, local: int, tp) -> int:
+        """The first vocab id of this rank's columns: 0 unless the vocab is
+        split over a tensor-parallel mesh's model dim."""
+        if tp is None or local == self.cfg.padded_vocab:
+            return 0
+        return tp.index * local
+
+    def _mask_pad(self, logits, tp=None):
         """-1e30 on vocab-padding columns so sampling never emits them."""
         V = self.cfg.vocab_size
-        if logits.shape[-1] == V:
+        off = self._vocab_offset(logits.shape[-1], tp)
+        if off + logits.shape[-1] <= V:
             return logits
-        ok = torch.arange(logits.shape[-1], device=logits.device) < V
+        ok = torch.arange(logits.shape[-1], device=logits.device) + off < V
         return torch.where(ok, logits, torch.full_like(logits, -1e30))
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, tp=None):
+        """Token embeddings.  A vocab-split table (tensor-parallel serving)
+        looks up the ids in this rank's rows, zero elsewhere, and sums over
+        the model group: one row per token crosses the group, never the
+        table."""
         table = params["embed"]
         if part.is_dtensor(table):          # a mesh: each rank's rows
             return part.lookup(table, tokens).to(self.cfg.activation_dtype)
-        return table[tokens.long()].to(self.cfg.activation_dtype)
+        off = self._vocab_offset(table.shape[0], tp)
+        if not off and table.shape[0] == self.cfg.padded_vocab:
+            return table[tokens.long()].to(self.cfg.activation_dtype)
+        idx = tokens.long() - off
+        mine = (idx >= 0) & (idx < table.shape[0])
+        rows = table[idx.clamp(0, table.shape[0] - 1)]
+        x = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return tp.all_reduce(x.to(self.cfg.activation_dtype))
+
+    def greedy(self, logits, tp=None):
+        """The argmax of each row of ``logits`` (B, V) as int32, the first
+        id on ties.  Vocab-split logits: each rank's first maximum, the
+        (value, id) pairs gathered over the model group, and the maximum
+        of the rank that holds the lowest ids among those tied."""
+        idx = torch.argmax(logits, dim=-1)
+        if tp is None or logits.shape[-1] == self.cfg.padded_vocab:
+            return idx.to(torch.int32)
+        off = self._vocab_offset(logits.shape[-1], tp)
+        val = logits.gather(-1, idx[:, None])[:, 0].float()
+        pair = torch.stack([val, (idx + off).float()], dim=0)   # (2, B)
+        every = tp.all_gather(pair[None], 0)                    # (n, 2, B)
+        best = torch.argmax(every[:, 0], dim=0)                 # first rank
+        return every[best, 1, torch.arange(best.shape[0],
+                                           device=best.device)].to(
+            torch.int32)
+
+    def gather_logits(self, logits, tp=None):
+        """Vocab-split logits gathered whole on every rank of the group."""
+        if tp is None or logits.shape[-1] == self.cfg.padded_vocab:
+            return logits
+        return tp.all_gather(logits, -1)
 
     def _encode(self, params, frames, src_len=None, use_kernels: bool = True,
                 remat: bool = False):
@@ -183,19 +225,34 @@ class Model:
         return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int, *, src_len: int = 0):
-        """Pooled decode cache for ``batch`` slots of ``max_len`` tokens.
+    def init_cache(self, batch: int, max_len: int, *, src_len: int = 0,
+                   device: DeviceLike = None):
+        """Pooled decode cache for ``batch`` slots of ``max_len`` tokens
+        (on ``device``, this model's by default; "meta" gives the shapes).
         src_len: the cross cache's source capacity (enc-dec archs), with a
         per-slot ``src_len`` int32 vector of valid source lengths."""
         cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
         cache = T.decoder_cache_init(
-            cfg, batch, max_len, cfg.activation_dtype, self.device,
+            cfg, batch, max_len, cfg.activation_dtype, dev,
             cross_src=src_len if cfg.is_encdec else 0)
         if cfg.is_encdec:
             cache["src_len"] = torch.full((batch,), src_len,
-                                          dtype=torch.int32,
-                                          device=self.device)
+                                          dtype=torch.int32, device=dev)
         return cache
+
+    def cache_logical_specs(self, batch: int, max_len: int, *,
+                            src_len: int = 0) -> PyTree:
+        """The logical spec of every leaf of ``init_cache``'s tree, in its
+        structure (the reference's cache annotations): KV (batch, kv_seq,
+        kv_heads, None), a stacked leaf with a leading "layers" axis."""
+        del batch, max_len
+        cfg = self.cfg
+        specs = T.decoder_cache_specs(
+            cfg, cross_src=src_len if cfg.is_encdec else 0)
+        if cfg.is_encdec:
+            specs["src_len"] = ("batch",)
+        return specs
 
     @staticmethod
     def cache_slot_axes(cache):
@@ -204,7 +261,7 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, batch, cache, *, true_len=None,
                 use_kernels: bool = True, enc_out=None, src_len=None,
-                moe_dispatch: str = "einsum"):
+                moe_dispatch: str = "einsum", tp=None):
         """Run the prompt, writing its K/V into ``cache`` in place.
 
         true_len: optional scalar or (B,) valid prompt lengths of a
@@ -216,11 +273,14 @@ class Model:
         here), and ``src_len``, a scalar or (B,) valid source lengths of a
         right-padded ``enc_out``: it masks the cross-attention and is
         recorded in the returned cache's ``src_len``.  ``moe_dispatch``
-        selects the MoE layers' dispatch, "einsum" or "gather"."""
+        selects the MoE layers' dispatch, "einsum" or "gather".  ``tp`` (a
+        ``partitioning.TPShard``): a dense GQA decoder's local shards on a
+        tensor-parallel mesh; the logits are then this rank's vocab
+        columns where the vocab is split (``greedy``, ``gather_logits``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, tp)
         pos = torch.arange(S, device=x.device).expand(B, S)
         if cfg.is_encdec and enc_out is None:
             enc_out = self._encode(params, batch["frames"],
@@ -229,7 +289,7 @@ class Model:
                                      true_len=true_len,
                                      use_kernels=use_kernels,
                                      enc_out=enc_out, src_len=src_len,
-                                     moe_dispatch=moe_dispatch)
+                                     moe_dispatch=moe_dispatch, tp=tp)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
         rows = torch.arange(B, device=x.device)
         if true_len is None:
@@ -237,7 +297,7 @@ class Model:
         else:
             idx = torch.as_tensor(true_len, device=x.device).expand(B) - 1
             last = x[rows, idx.long()]
-        logits = self._mask_pad(last @ self._head(params))
+        logits = self._mask_pad(last @ self._head(params), tp)
         if cfg.is_encdec:
             src = enc_out.shape[1] if src_len is None else src_len
             cache["src_len"] = torch.as_tensor(
@@ -274,20 +334,20 @@ class Model:
     def decode_step(self, params, cache, tokens, *, use_kernels: bool = False,
                     kv_bound: Optional[int] = None,
                     src_bound: Optional[int] = None, live_mask=None,
-                    moe_dispatch: str = "einsum"):
+                    moe_dispatch: str = "einsum", tp=None):
         """tokens: (B, 1) -> (logits (B, V), cache).  With ``use_kernels``
         decode attention reads only the ``kv_bound`` prefix (cross-attention
         the ``src_bound`` prefix) and skips slots whose ``live_mask`` is
-        false.  ``moe_dispatch`` as in ``prefill``."""
+        false.  ``moe_dispatch`` and ``tp`` as in ``prefill``."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, tp)
         x, cache = T.decoder_step(params["decoder"], cfg, x, cache,
                                   use_kernels=use_kernels, kv_bound=kv_bound,
                                   live=live_mask, src_len=cache.get("src_len"),
                                   src_bound=src_bound,
-                                  moe_dispatch=moe_dispatch)
+                                  moe_dispatch=moe_dispatch, tp=tp)
         x = L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-        logits = self._mask_pad(x[:, 0] @ self._head(params))
+        logits = self._mask_pad(x[:, 0] @ self._head(params), tp)
         return logits, cache
 
 

@@ -127,10 +127,13 @@ def _layer_specs(cfg: ModelConfig, *, cross: bool = False,
     return p
 
 
-def _ffn(p, cfg: ModelConfig, x, moe_dispatch: str = "einsum"):
+def _ffn(p, cfg: ModelConfig, x, moe_dispatch: str = "einsum", tp=None):
     """The FFN sublayer: dense, or MoE.  Returns (x, aux): the MoE layer's
     load-balance loss (fp32, 0-d), None for a dense or FFN-less layer.
-    Training sums it (``decoder_fwd``); serving drops it."""
+    Training sums it (``decoder_fwd``); serving drops it.  ``tp`` (a
+    ``partitioning.TPShard``, serving): a dense FFN whose hidden dim is
+    split runs column-parallel up and row-parallel down, its partial sum
+    reduced over the model group."""
     aux = None
     if "moe" in p:
         h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
@@ -138,7 +141,10 @@ def _ffn(p, cfg: ModelConfig, x, moe_dispatch: str = "einsum"):
         x = x + y
     elif "ffn" in p:
         h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
-        x = x + M.ffn_apply(p["ffn"], cfg, h2)
+        y = M.ffn_apply(p["ffn"], cfg, h2)
+        if tp is not None and p["ffn"]["w_down"].shape[0] < cfg.d_ff:
+            tp.all_reduce(y)
+        x = x + y
     return x, aux
 
 
@@ -188,7 +194,7 @@ def _cross(p, cfg: ModelConfig, x, fn):
 
 def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
                    is_global: bool, use_kernels: bool, enc_out=None,
-                   src_len=None, moe_dispatch: str = "einsum"):
+                   src_len=None, moe_dispatch: str = "einsum", tp=None):
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     if cfg.hybrid_parallel:
         a, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
@@ -207,7 +213,7 @@ def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
     else:
         y, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
                                          cache["attn"], is_global=is_global,
-                                         use_kernels=use_kernels)
+                                         use_kernels=use_kernels, tp=tp)
     x = _cross(p, cfg, x + y, lambda hc: A.cross_fwd(
         p["cross"], cfg, hc, enc_out, src_len=src_len))
     if "cross" in p:
@@ -215,13 +221,13 @@ def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
         Ss = enc_out.shape[1]
         cache["cross"]["k"][:, :Ss] = ck.to(cache["cross"]["k"].dtype)
         cache["cross"]["v"][:, :Ss] = cv.to(cache["cross"]["v"].dtype)
-    return _ffn(p, cfg, x, moe_dispatch)[0], cache
+    return _ffn(p, cfg, x, moe_dispatch, tp)[0], cache
 
 
 def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
                 use_kernels: bool, kv_bound: Optional[int], live,
                 src_len=None, src_bound: Optional[int] = None,
-                moe_dispatch: str = "einsum"):
+                moe_dispatch: str = "einsum", tp=None):
     h = L.apply_norm(cfg.norm, p["ln1"], x1, cfg.norm_eps)
     if cfg.hybrid_parallel:
         a, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
@@ -242,11 +248,11 @@ def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
         y, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
                                       is_global=is_global,
                                       use_kernels=use_kernels,
-                                      kv_bound=kv_bound, live=live)
+                                      kv_bound=kv_bound, live=live, tp=tp)
     x1 = _cross(p, cfg, x1 + y, lambda hc: A.cross_step(
         p["cross"], cfg, hc, cache["cross"]["k"], cache["cross"]["v"],
         src_len, use_kernels=use_kernels, src_bound=src_bound, live=live))
-    return _ffn(p, cfg, x1, moe_dispatch)[0], cache
+    return _ffn(p, cfg, x1, moe_dispatch, tp)[0], cache
 
 
 def _prologue_plan(cfg: ModelConfig) -> Tuple[int, int]:
@@ -292,6 +298,43 @@ def decoder_specs(cfg: ModelConfig):
                          for _ in range(n_pro)],
             "layers": [_layer_specs(cfg, cross=cross)
                        for _ in range(n_scan)]}
+
+
+_KV_SPEC = ("batch", "kv_seq", "kv_heads", None)
+
+
+def _layer_cache_specs(cfg: ModelConfig, cross_src: int):
+    """Logical specs of ``_layer_cache_init``'s tree, leaf for leaf (the
+    reference's cache annotations)."""
+    kv = {"k": _KV_SPEC, "v": _KV_SPEC}
+    ssm = {"conv": ("batch", None, "ssm_inner"),
+           "h": ("batch", "ssm_inner", "state")}
+    if cfg.hybrid_parallel:
+        c = {"attn": dict(kv), "ssm": ssm}
+    elif cfg.ssm is not None:
+        c = {"ssm": ssm}
+    elif cfg.mla is not None:
+        c = {"attn": {"ckv": ("batch", "kv_seq", None),
+                      "krope": ("batch", "kv_seq", None)}}
+    else:
+        c = {"attn": kv}
+    if cross_src:
+        c["cross"] = {"k": ("batch", None, "kv_heads", None),
+                      "v": ("batch", None, "kv_heads", None)}
+    return c
+
+
+def decoder_cache_specs(cfg: ModelConfig, *, cross_src: int = 0):
+    """Logical specs of ``decoder_cache_init``'s tree: a stacked leaf
+    takes the leading "layers" axis, ``pos`` is per slot."""
+    n_pro, _ = _prologue_plan(cfg)
+    one = _layer_cache_specs(cfg, cross_src)
+    return {"prologue": [_layer_cache_specs(cfg, cross_src)
+                         for _ in range(n_pro)],
+            "scanned": {kind: {name: ("layers",) + spec
+                               for name, spec in leaves.items()}
+                        for kind, leaves in one.items()},
+            "pos": ("batch",)}
 
 
 def _layer_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -396,14 +439,16 @@ def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
 
 def decoder_prefill(params, cfg: ModelConfig, x, positions, cache, *,
                     true_len=None, use_kernels: bool = True, enc_out=None,
-                    src_len=None, moe_dispatch: str = "einsum"):
+                    src_len=None, moe_dispatch: str = "einsum", tp=None):
     """enc_out/src_len: the encoder output and its valid lengths, for the
-    cross layers of an enc-dec decoder (src_len None: all of enc_out)."""
+    cross layers of an enc-dec decoder (src_len None: all of enc_out);
+    ``tp``: a dense GQA decoder's tensor-parallel shard (``_ffn``)."""
     for i, (lp, lc) in enumerate(_layers_and_caches(params, cache)):
         x, _ = _layer_prefill(lp, cfg, x, positions, lc,
                               is_global=_global(cfg, i),
                               use_kernels=use_kernels, enc_out=enc_out,
-                              src_len=src_len, moe_dispatch=moe_dispatch)
+                              src_len=src_len, moe_dispatch=moe_dispatch,
+                              tp=tp)
     B, S = x.shape[0], x.shape[1]
     if true_len is None:
         pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -417,19 +462,19 @@ def decoder_prefill(params, cfg: ModelConfig, x, positions, cache, *,
 def decoder_step(params, cfg: ModelConfig, x1, cache, *,
                  use_kernels: bool = False, kv_bound: Optional[int] = None,
                  live=None, src_len=None, src_bound: Optional[int] = None,
-                 moe_dispatch: str = "einsum"):
+                 moe_dispatch: str = "einsum", tp=None):
     """use_kernels/kv_bound/live: the ragged decode hot path (see
     ``attention.gqa_step``; MLA bounds its latent read the same way);
     src_len/src_bound: the cross-attention reads of an enc-dec decoder
     (``attention.cross_step``).  Positions advance in place, as the KV and
     state do: a captured step reads and writes the same tensors on every
-    replay."""
+    replay.  ``tp`` as in ``decoder_prefill``."""
     pos = cache["pos"]
     for i, (lp, lc) in enumerate(_layers_and_caches(params, cache)):
         x1, _ = _layer_step(lp, cfg, x1, lc, pos, is_global=_global(cfg, i),
                             use_kernels=use_kernels, kv_bound=kv_bound,
                             live=live, src_len=src_len, src_bound=src_bound,
-                            moe_dispatch=moe_dispatch)
+                            moe_dispatch=moe_dispatch, tp=tp)
     pos.add_(1)
     return x1, cache
 

@@ -1,8 +1,8 @@
-"""The port's serving fabric (``repro.serve`` on one GPU): the
-multi-tenant ``ComposedServer`` with its analytical policy, the serving
-DSE's Stage 1, replica groups and open-loop traffic, over the four engine
-classes.  The reference's ``serve_engine_rules`` (tensor parallelism over
-a mesh) is not part of the port yet."""
+"""The port's serving fabric (``repro.serve``): the multi-tenant
+``ComposedServer`` with its analytical policy, the serving DSE's Stage 1,
+replica groups and open-loop traffic, over the four engine classes, on
+one GPU or a mesh (``serve_engine_rules``: tensor parallelism over a
+tenant's sub-mesh)."""
 from repro_torch.core.dse import DesignPoint
 from repro_torch.obs import (MetricsRegistry, PredictionLedger, SpanTracer,
                              Telemetry)
@@ -11,7 +11,8 @@ from repro_torch.serve.dse import (Stage1Optimizer, TenantDesignSpace,
 from repro_torch.serve.fabric import (AnalyticalPolicy, ComposedServer,
                                       RecompositionEvent, ReplicaGroup,
                                       SLOTarget, TenantLoad,
-                                      TenantObservation, TenantSpec)
+                                      TenantObservation, TenantSpec,
+                                      serve_engine_rules)
 from repro_torch.serve.traffic import PROFILES, Arrival, arrival_schedule
 from repro_torch.workloads import (DecodeEngine, EncDecEngine, EncoderEngine,
                                    Request, ServeConfig, SSMEngine)
@@ -26,6 +27,7 @@ __all__ = [
     "Request",
     "ServeConfig",
     "ServeEngine",
+    "serve_engine_rules",
     "DecodeEngine",
     "EncDecEngine",
     "EncoderEngine",

@@ -31,8 +31,21 @@ its own HBM; this port's is a share of the one card):
   share, and the slot retune is the real action.  A parked tenant (0 CUs)
   keeps its pool and is not stepped.
 
-The reference's tensor parallelism waits for a second GPU: engines raise on
-``tp > 1`` and Stage 1 runs with ``tp_allowed=False``.
+On a mesh (``ComposedServer(tenants, mesh=..., tp=True)``: a torch
+``DeviceMesh`` over one rank per GPU, or gloo CPU ranks) a CU is what the
+reference makes it, one column of the mesh's model dim: a
+:class:`~repro_torch.core.composer.MeshComposer` carves the columns into
+disjoint sub-meshes, each tenant's engine shards its params and pooled
+KV over its own (``serve_engine_rules``; ``tp=False`` keeps them whole on
+each of its ranks), and a recomposition moves only the tenants whose
+ranks change, params and live KV, while the others keep their ranks and
+tensors.  Every rank runs the fabric, in the same order.  For now a mesh
+serves with ``policy=None`` (manual ``recompose`` and ``unify``), no SLO
+preemption, one replica per tenant and length-based termination
+(``eos_id < 0``); the policy and Stage 1 priced for NVLink
+(``tp_allowed``), SLO preemption, EOS termination and replica groups on
+a mesh are queued (they raise).  On one card Stage 1 runs with
+``tp_allowed=False``.
 
 Reconfiguration cost: a new slot count is a new device pool whose decode
 steps are captured CUDA graphs (0.13-0.18 s each on the card).  With
@@ -59,10 +72,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.analytical import (AccelConfig, decode_kv_read_latency,
                                          layer_latency, ssm_step_latency)
 from repro_torch.core.arena import PagedArena
-from repro_torch.core.composer import (CUComposer, SubAccelerator,
-                                       replica_submesh)
+from repro_torch.core.composer import (CUComposer, MeshComposer,
+                                       SubAccelerator, replica_submesh)
 from repro_torch.core.dse import DesignPoint
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distribution.partitioning import (ShardingRules,
+                                                   serve_engine_rules)
 from repro_torch.models.model import build_model
 from repro_torch.models.ssm import dims as ssm_dims
 from repro_torch.obs import MetricsRegistry, PredictionLedger, Telemetry
@@ -71,7 +86,11 @@ from repro_torch.serve.dse import (Stage1Optimizer, TenantDesignSpace,
 from repro_torch.workloads.base import (DECODE, ENCDEC, ENCODER, SSM, Engine,
                                         build_engine, workload_class_of)
 from repro_torch.workloads.compile_cache import ExecutableCache
-from repro_torch.workloads.decode import ServeConfig
+from repro_torch.workloads.decode import ServeConfig, _mesh_of, tp_supported
+
+_MESH_QUEUED = ("is queued on a mesh (ROADMAP.md queue 1 item 7: the "
+                "fabric's policy and Stage 1 priced for NVLink, SLO "
+                "preemption, EOS termination and replica groups on a mesh)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -575,7 +594,8 @@ class ReplicaGroup:
     def __init__(self, wclass: str, model, params, serve_cfg: ServeConfig,
                  *, sub: Optional[SubAccelerator] = None,
                  exec_cache: Optional[ExecutableCache] = None,
-                 obs: Optional[Telemetry] = None):
+                 obs: Optional[Telemetry] = None,
+                 rules: Optional[ShardingRules] = None):
         self._wclass = wclass
         self.workload_class = wclass
         self._model = model
@@ -602,7 +622,7 @@ class ReplicaGroup:
         rep_obs = self._obs.fresh()
         self._replicas: List[_Replica] = [_Replica(build_engine(
             wclass, model, params, serve_cfg, exec_cache=self._exec,
-            obs=rep_obs), obs=rep_obs)]
+            obs=rep_obs, mesh=_mesh_of(sub), rules=rules), obs=rep_obs)]
 
     # -- grant geometry -------------------------------------------------
     @staticmethod
@@ -613,7 +633,10 @@ class ReplicaGroup:
         dp = point.dp if point.dp is not None else self._dp
         dp = max(int(dp), 1)
         width = self._grant_width(granted)
-        return min(dp, width) if width is not None else dp
+        dp = min(dp, width) if width is not None else dp
+        if dp > 1 and _mesh_of(granted) is not None:
+            raise ValueError(f"a replica group (dp={dp}) {_MESH_QUEUED}")
+        return dp
 
     @property
     def dp(self) -> int:
@@ -848,8 +871,13 @@ class ReplicaGroup:
 
     def reshard_to(self, sub: Optional[SubAccelerator]) -> None:
         """Move the whole group onto a new grant (current dp kept).  On one
-        card a grant is a share: the group records it and no state moves."""
+        card a grant is a share: the group records it and no state moves;
+        a mesh grant moves each replica onto its tile."""
         self._granted = sub
+        if _mesh_of(sub) is not None:
+            for rep in self._replicas:
+                rep.engine.reshard_to(replica_submesh(sub, rep.index,
+                                                      self._dp))
 
     def apply(self, sub: Optional[SubAccelerator] = None,
               point: Optional[DesignPoint] = None) -> Dict[str, Any]:
@@ -989,7 +1017,9 @@ class ReplicaGroup:
         built = 0
         for i in range(dp):
             if i < len(self._replicas):
-                built += self._replicas[i].engine.warm_compile(None,
+                tile = (replica_submesh(granted, i, dp)
+                        if _mesh_of(granted) is not None else None)
+                built += self._replicas[i].engine.warm_compile(tile,
                                                                eng_point)
                 continue
             rep = self._staged.get(i)
@@ -1036,6 +1066,12 @@ class ComposedServer:
 
     num_cus: logical CUs the card is composed of (the policy's ``platform``
         should be ``per_cu(H100_SXM, num_cus)``, the default's N is 8).
+    mesh: a ``DeviceMesh`` to compose instead of one card: its model-dim
+        columns are the CUs (``num_cus`` is ignored), and every rank of
+        its process group builds the server and calls it in the same
+        order (see the module docstring for what a mesh serves yet).
+    tp: on a mesh, shard each tenant's engine over its sub-mesh with
+        ``serve_engine_rules`` (off: whole on each of its ranks).
     device: the card (``cuda`` by default; ``cpu`` runs the plain path).
     params: optional ``{tenant: param tree}`` (e.g. bridged from the JAX
         package); without it a tenant initialises its weights from
@@ -1054,9 +1090,26 @@ class ComposedServer:
                  policy: Optional[AnalyticalPolicy] = None,
                  decide_every: int = 4, warm: bool = True,
                  prewarm_async: bool = False, telemetry: bool = True,
-                 events_cap: int = 256, slo_preempt: bool = True):
+                 events_cap: int = 256, slo_preempt: bool = True,
+                 mesh=None, tp: bool = True):
         self.device = resolve_device(device)
-        self.composer = CUComposer(num_cus, self.device)
+        self.mesh = mesh
+        self.rules = serve_engine_rules() if mesh is not None and tp \
+            else None
+        if mesh is not None:
+            for what, asked in (
+                    ("termination by EOS (eos_id >= 0)", any(
+                        t.serve.eos_id >= 0 for t in tenants)),
+                    ("a recomposition policy", policy is not None),
+                    ("background prewarming", prewarm_async),
+                    ("SLO preemption", slo_preempt and any(
+                        t.slo is not None and t.slo.tracked()
+                        for t in tenants))):
+                if asked:
+                    raise ValueError(f"{what} {_MESH_QUEUED}")
+            self.composer = MeshComposer(mesh)
+        else:
+            self.composer = CUComposer(num_cus, self.device)
         self.policy = policy
         self.decide_every = decide_every
         self.warm = warm
@@ -1137,7 +1190,9 @@ class ComposedServer:
             self.engines[spec.name] = ReplicaGroup(
                 wclass, model, tparams, spec.serve,
                 sub=self.subs[spec.name], exec_cache=self.exec_cache,
-                obs=self.obs.scoped(tenant=spec.name, wclass=wclass))
+                obs=self.obs.scoped(tenant=spec.name, wclass=wclass),
+                rules=self.rules if tp_supported(cfg) and wclass == DECODE
+                else None)
         if self.policy is not None and self.policy.stage1 is not None:
             # a grant's memory bound on slots: its CUs' share of the HBM
             # that every tenant's weights leave free (weights stay
@@ -1458,7 +1513,9 @@ class ComposedServer:
         design points' graphs are captured before anything changes, so the
         post-move step captures nothing.  On one card a move alone changes
         nothing a step reads (the pool, its graphs and the weights stay), so
-        only tenants whose knobs change are warmed."""
+        only tenants whose knobs change are warmed; on a mesh every moved
+        tenant is (its params reach the new ranks then, its KV at the
+        move)."""
         rc_t0 = time.perf_counter()
         before = self.sizes()
         points = {t: (v if isinstance(v, DesignPoint)
@@ -1475,7 +1532,8 @@ class ComposedServer:
         warm_s, warm_builds = 0.0, 0
         if self.warm:
             w0 = time.monotonic()
-            for t in (t for t in touched if knobs.get(t)):
+            for t in (t for t in touched
+                      if knobs.get(t) or self.mesh is not None):
                 warm_builds += self.engines[t].warm_compile(
                     new_subs[t],
                     self._delta_point(points[t], knobs.get(t)))
@@ -1533,7 +1591,8 @@ class ComposedServer:
 
     def unify(self, tenant: str, *, reason: str = "unify"
               ) -> RecompositionEvent:
-        """The monolithic composition: the whole card for one tenant."""
+        """The monolithic composition: the whole card (or mesh) for one
+        tenant."""
         return self.recompose({tenant: self.composer.num_cus}, reason=reason)
 
     # ------------------------------------------------------------------

@@ -116,8 +116,9 @@ class DecayedLengthEstimator:
 class Engine(Protocol):
     """What the fabric requires of a tenant engine: submit work, advance
     one batched step, expose the load signals the recomposition policy
-    decides on, retune live and build ahead for a candidate design point.
-    The reference's ``reshard_to`` waits for a second GPU."""
+    decides on, retune live, move onto another sub-accelerator
+    (``reshard_to``: a mesh grant's ranks, sharded under the engine's
+    rules) and build ahead for a candidate design point."""
 
     workload_class: str
 
@@ -148,6 +149,7 @@ class Engine(Protocol):
               point: Optional[DesignPoint] = None) -> Dict[str, Any]: ...
     def warm_compile(self, sub,
                      point: Optional[DesignPoint] = None) -> int: ...
+    def reshard_to(self, sub) -> None: ...
     def sync(self) -> None: ...
 
     # -- serving-DSE inputs/outputs -------------------------------------
@@ -200,8 +202,9 @@ class EngineTelemetry:
 
 
 def build_engine(wclass: str, model, params, serve_cfg, *, exec_cache=None,
-                 obs=None):
-    """Construct the engine serving ``wclass`` traffic for ``model``."""
+                 obs=None, mesh=None, rules=None):
+    """Construct the engine serving ``wclass`` traffic for ``model`` (on
+    ``mesh`` under ``rules``, where given)."""
     from repro_torch.workloads.decode import DecodeEngine
     from repro_torch.workloads.encdec import EncDecEngine
     from repro_torch.workloads.encoder import EncoderEngine
@@ -213,7 +216,7 @@ def build_engine(wclass: str, model, params, serve_cfg, *, exec_cache=None,
         raise KeyError(f"unknown workload class {wclass!r}; known: "
                        f"{tuple(classes)}")
     return classes[wclass](model, params, serve_cfg, exec_cache=exec_cache,
-                           obs=obs)
+                           obs=obs, mesh=mesh, rules=rules)
 
 
 # ----------------------------------------------------------------------

@@ -37,8 +37,30 @@ the device's work.  The two host syncs are the reference's two
 ``device_get`` points: the first token of a prefill and the harvest of a
 decode step.
 
-The reference's tensor parallelism (``reshard_to``, ``DesignPoint.tp``)
-waits for a second GPU.
+Tensor parallelism (the reference's, over a process group: one rank per
+GPU, or gloo CPU ranks).  Given a ``mesh`` (a torch ``DeviceMesh`` or a
+``MeshComposer`` grant) and ``rules`` (normally ``serve_engine_rules()``),
+each rank keeps its shard of the params and of the pooled KV cache as
+plain tensors: query and KV heads, the FFN hidden dim and the vocab split
+over the mesh's model dim where the degree divides them, whole otherwise.
+Its steps run the kernels on the local heads and sum the row-parallel
+products over the model group with explicit collectives; the greedy token
+is reduced from each rank's vocab columns.  ``reshard_to`` moves params
+and live KV onto another sub-mesh (another tensor-parallel degree, or the
+whole mesh), and ``apply(point.tp)`` narrows the grant to its first
+``tp`` columns.  Without a mesh nothing moves, as the reference's
+``tp_submesh(None, ...)``.  Tensor parallelism covers dense GQA decoders;
+the SSM, MoE/MLA, hybrid and enc-dec steps take a mesh replicated
+(``rules=None``).
+
+Every rank runs the engine's host code (admission, slots, arena), which
+only the lengths steer (a mesh takes ``eos_id < 0``; an EOS id raises), so
+it agrees across ranks.  A rank outside the
+engine's mesh does no device work and holds no tensors; its ``step()``
+emits placeholder tokens (-1), while ``results()`` and ``snapshot()``
+return the mesh's own (broadcast from its first rank when the mesh does
+not span the world; every rank calls them together).  On a mesh,
+preemption and replica migration are not supported yet (they raise).
 """
 from __future__ import annotations
 
@@ -55,7 +77,9 @@ import torch
 
 from repro_torch.core.arena import (AllocationError, FlexArena, PagedArena,
                                     ROLE_ACT)
+from repro_torch.core.composer import mesh_fingerprint
 from repro_torch.core.dse import DesignPoint
+from repro_torch.distribution import partitioning as part
 from repro_torch.kernels import launches
 from repro_torch.kernels.ragged_decode import ops as ragged_ops
 from repro_torch.models.model import Model
@@ -82,8 +106,50 @@ _WARMUP = 2
 _GENERATIONS = itertools.count()
 
 
+# what a rank outside an engine's mesh records for a token it never saw
+_PLACEHOLDER = -1
+
+_TP_QUEUED = ("(ROADMAP.md queue 1 item 7: tensor-parallel serving beyond "
+              "dense GQA decoders, EOS termination, preemption and replica "
+              "migration on a mesh)")
+
+
 def _round_block(n: int) -> int:
     return -(-max(n, 1) // KV_BOUND_BLOCK) * KV_BOUND_BLOCK
+
+
+def _mesh_of(sub):
+    """A DeviceMesh, a composer grant's ``mesh`` (a one-card grant has
+    none), or None."""
+    if sub is None or hasattr(sub, "mesh_dim_names"):
+        return sub
+    return getattr(sub, "mesh", None)
+
+
+def _rules_fp(rules: Optional[part.ShardingRules]):
+    """Hashable identity of a rule set for executable-cache keys: the same
+    config under other rules (replicated vs tensor-parallel) is another
+    program."""
+    if rules is None:
+        return None
+    return tuple(sorted(rules.rules.items()))
+
+
+def check_mesh_termination(cfg: "ServeConfig", mesh) -> None:
+    """A mesh serves with length-based termination (``eos_id < 0``): a rank
+    outside an engine's sub-mesh records placeholder tokens, so only the
+    length ends a request the same way on every rank."""
+    if _mesh_of(mesh) is not None and cfg.eos_id >= 0:
+        raise ValueError(
+            f"termination by EOS (eos_id={cfg.eos_id}) on a mesh is queued "
+            f"{_TP_QUEUED}; serve with eos_id=-1")
+
+
+def tp_supported(cfg) -> bool:
+    """Archs whose serving steps run tensor-parallel: dense GQA decoders
+    (the SSM, MoE/MLA, hybrid and enc-dec steps are queued)."""
+    return (cfg.ssm is None and cfg.mla is None and cfg.moe is None
+            and not cfg.is_encdec and not cfg.hybrid_parallel)
 
 
 @dataclasses.dataclass
@@ -144,7 +210,10 @@ class _Pool:
     """The device state one set of decode graphs reads and writes: the
     pooled cache and the static inputs of a step, ``prev`` (B,) the last
     step's tokens and ``inputs`` (3, B) int32 (inject values, inject mask,
-    live).  ``gen`` is unique in the process.  Its graphs share one memory
+    live), on one placement: ``shard`` (the rank's ``TPShard`` on the
+    pool's mesh, None without one; ``fp`` that mesh's fingerprint) and the
+    ``params`` its steps read.  ``cache`` is None on a rank outside the
+    mesh.  ``gen`` is unique in the process.  Its graphs share one memory
     pool, ``graph_pool`` (on the card), which goes with their eviction:
     the allocator frees a pool whose last graph is gone."""
 
@@ -155,6 +224,13 @@ class _Pool:
     prev: torch.Tensor
     inputs: torch.Tensor
     graph_pool: Any = None
+    shard: Optional[part.TPShard] = None
+    fp: Optional[Tuple] = None
+    params: PyTree = None
+
+    @property
+    def member(self) -> bool:
+        return self.shard is None or self.shard.member
 
 
 @dataclasses.dataclass
@@ -213,13 +289,12 @@ def _migrate_slots(dst: PyTree, src: PyTree, src_slots: List[int],
     _tree_map(cp, axes, dst, src)
 
 
-# fabriclint: disable=protocol -- one device: reshard_to waits for a second GPU
 class DecodeEngine(EngineTelemetry):
-    """Batched transformer decode on one device: continuous batching over
-    a pooled slot cache, arena admission control, decode steps replayed
-    from an executable cache of CUDA graphs, pipelined dispatch, live slot
-    resizing, replica evacuation and adoption, and preemption with exact
-    resume.
+    """Batched transformer decode: continuous batching over a pooled slot
+    cache, arena admission control, decode steps replayed from an
+    executable cache of CUDA graphs, pipelined dispatch, live slot
+    resizing, replica evacuation and adoption, preemption with exact
+    resume, and tensor parallelism over a mesh with live resharding.
 
     ``_lock`` (re-entrant) orders the host calls that launch the engine's
     device work: a step, a capture (``warm_compile`` from another thread
@@ -231,12 +306,37 @@ class DecodeEngine(EngineTelemetry):
 
     def __init__(self, model: Model, params: PyTree, cfg: ServeConfig,
                  exec_cache: Optional[ExecutableCache] = None,
-                 obs: Optional[Telemetry] = None):
+                 obs: Optional[Telemetry] = None, mesh=None,
+                 rules: Optional[part.ShardingRules] = None):
         self.model = model
         self.cfg = cfg
         self.device = model.device
         self._obs = obs if obs is not None else Telemetry()
+        check_mesh_termination(cfg, mesh)
+        if rules is not None and not tp_supported(model.cfg):
+            raise ValueError(
+                f"tensor-parallel serving of {model.cfg.name} "
+                f"(family={model.cfg.family!r}) is queued {_TP_QUEUED}; "
+                "serve it replicated on a mesh (rules=None)")
+        self.rules = rules
         self.reshard_count = 0
+        # tensor-parallel degree over the granted sub-mesh (None: the whole
+        # grant), set per design point by apply(point.tp)
+        self._tp: Optional[int] = None
+        self._granted = _mesh_of(mesh)      # the last grant, unsliced
+        self.mesh = part.tp_submesh(self._granted, self._tp)
+        self._mesh_fp = mesh_fingerprint(self.mesh)
+        self._shard = (part.TPShard.of(self.mesh) if self.mesh is not None
+                       else None)
+        # per-leaf (shape, dtype, logical spec) of the whole params and
+        # pooled caches, fitted to any sub-mesh by the rules (on a mesh)
+        self._params_plan: Optional[part.ShardingPlan] = None
+        self._cache_plans: Dict[int, part.ShardingPlan] = {}
+        # the memo fills from the serving loop and a warming thread
+        self._plan_lock = threading.Lock()
+        if self._shard is not None:
+            self._params_plan = part.ShardingPlan.of(params,
+                                                     model.logical_specs())
         self._recent_lens = DecayedLengthEstimator()
         self._per_token_elems = self._per_token_cache_elems()
         self.arena = self._make_arena()
@@ -249,7 +349,10 @@ class DecodeEngine(EngineTelemetry):
         self.finished_cap = 10_000
         self._next_rid = 0
         self._free_slots = list(range(cfg.max_slots))
-        self.params = params
+        # construction commits the params to the mesh: each rank keeps its
+        # shard, taken from the whole tree every rank was given
+        self.params = self._move_tree(params, self._params_plan, None,
+                                      self._shard)
         self._lock = threading.RLock()
         cuda = self.device.type == "cuda"
         # the serving stream; it first waits for the caller's stream, where
@@ -259,7 +362,8 @@ class DecodeEngine(EngineTelemetry):
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self._side = torch.cuda.Stream(self.device) if cuda else None
         with self._on_stream():
-            self._pool = self._new_pool(cfg.max_slots)
+            self._pool = self._new_pool(cfg.max_slots, self._shard,
+                                        self.params)
         # a candidate pool warm_compile built for another slot count
         self._staged: Optional[_Pool] = None
         self._exec = (exec_cache if exec_cache is not None
@@ -361,39 +465,215 @@ class DecodeEngine(EngineTelemetry):
         slot count: the model config and the serve dims that shape a
         step."""
         return (self.workload_class, self.model.cfg, slots,
-                self.cfg.max_len, self.cfg.use_kernels)
+                self.cfg.max_len, _rules_fp(self.rules), self.cfg.use_kernels)
 
     # ------------------------------------------------------------------
     # the device pool and live design-point reconfiguration
     # ------------------------------------------------------------------
-    def _init_cache(self, slots: int) -> PyTree:
+    def _init_cache(self, slots: int, device=None) -> PyTree:
         """The pooled cache of ``slots`` slots (hook: enc-dec adds its
-        cross cache)."""
-        return self.model.init_cache(slots, self.cfg.max_len)
+        cross cache); ``device`` "meta" gives its shapes."""
+        return self.model.init_cache(slots, self.cfg.max_len, device=device)
 
-    def _new_pool(self, slots: int) -> _Pool:
-        cache = self._init_cache(slots)
+    def _new_pool(self, slots: int, shard: Optional[part.TPShard],
+                  params: PyTree) -> _Pool:
+        """A zeroed pool of ``slots`` slots on ``shard``'s mesh (each rank
+        its shard of the cache; none on a rank outside the mesh)."""
+        if shard is None or (shard.member and self.rules is None):
+            cache = self._init_cache(slots)
+            axes = self.model.cache_slot_axes(cache)
+        else:
+            plan = self._plan_for_slots(slots)
+            meta = plan.avals()
+            axes = self.model.cache_slot_axes(meta)
+            cache = None
+            if shard.member:
+                dims = plan.model_dims(self.rules, shard.size)
+                cache = plan.unflatten([
+                    torch.zeros(part.local_shape(t.shape, d, shard.size),
+                                dtype=t.dtype, device=self.device)
+                    for t, d in zip(plan.leaves(meta), dims)])
         zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                            device=self.device)
         graph_pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
-        return _Pool(slots, next(_GENERATIONS), cache,
-                     self.model.cache_slot_axes(cache), zeros(slots),
-                     zeros(3, slots), graph_pool)
+        return _Pool(slots, next(_GENERATIONS), cache, axes, zeros(slots),
+                     zeros(3, slots), graph_pool, shard,
+                     mesh_fingerprint(shard.mesh) if shard else None, params)
 
-    def _pool_for(self, slots: int) -> _Pool:
-        """The pool of ``slots`` slots: the live one, or a candidate that
-        the next resize to that count takes over.  One candidate at a
-        time: staging another drops the last one's entries."""
-        if slots == self._pool.slots:
+    def _plan_for_slots(self, slots: int) -> part.ShardingPlan:
+        """The pooled cache's plan at ``slots`` slots: shapes from a
+        ``meta`` build, no device allocation (memoized)."""
+        with self._plan_lock:
+            if slots not in self._cache_plans:
+                meta = self._init_cache(slots, device="meta")
+                self._cache_plans[slots] = part.ShardingPlan.of(
+                    meta, self._cache_specs(slots))
+            return self._cache_plans[slots]
+
+    def _cache_specs(self, slots: int) -> PyTree:
+        """Logical specs of ``_init_cache``'s tree (hook: enc-dec)."""
+        return self.model.cache_logical_specs(slots, self.cfg.max_len)
+
+    def _pool_for(self, slots: int, mesh=None, live: bool = True) -> _Pool:
+        """The pool of ``slots`` slots on ``mesh`` (``live``: the engine's
+        own mesh): the live pool, or a candidate that the next resize or
+        reshard to it takes over.  A candidate on another mesh holds the
+        params moved there ahead (every rank calls this together).  One
+        candidate at a time: staging another drops the last one's
+        entries."""
+        if live:
+            mesh = self.mesh
+        fp = mesh_fingerprint(mesh)
+        if slots == self._pool.slots and fp == self._pool.fp:
             return self._pool
         staged = self._staged
-        if staged is None or staged.slots != slots:
+        if staged is None or (staged.slots, staged.fp) != (slots, fp):
             if staged is not None:
                 self._exec.evict(lambda k: k[2] == staged.gen)
-            staged = self._new_pool(slots)
+            self._staged = None
+            if fp == self._pool.fp:
+                shard, params = self._pool.shard, self.params
+            else:
+                shard = part.TPShard.of(mesh) if mesh is not None else None
+                params = self._move_tree(self.params, self._param_plan(),
+                                         self._shard, shard)
+            staged = self._new_pool(slots, shard, params)
             self._staged = staged
         return staged
+
+    # ------------------------------------------------------------------
+    # placement on a mesh: local shards, moved between sub-meshes
+    # ------------------------------------------------------------------
+    def _param_plan(self) -> part.ShardingPlan:
+        """The whole params' plan, captured from the first tree this
+        engine held whole (every rank, before any mesh)."""
+        if self._params_plan is None:
+            self._params_plan = part.ShardingPlan.of(
+                self.params, self.model.logical_specs())
+        return self._params_plan
+
+    @property
+    def _member(self) -> bool:
+        """False on a rank outside the engine's mesh."""
+        return self._shard is None or self._shard.member
+
+    def _move_tree(self, tree: PyTree, plan: Optional[part.ShardingPlan],
+                   old: Optional[part.TPShard],
+                   new: Optional[part.TPShard]) -> PyTree:
+        """``tree`` from the ``old`` layout to the ``new`` one, leaf by
+        leaf (``partitioning.move_leaf``); nothing moves without a mesh on
+        either side, and a leaf whose ranks and split are unchanged is kept
+        as it is."""
+        if old is None and new is None:
+            return tree
+        dims_old = (plan.model_dims(self.rules, old.size)
+                    if old is not None else [None] * len(plan.shapes))
+        dims_new = (plan.model_dims(self.rules, new.size)
+                    if new is not None else [None] * len(plan.shapes))
+        leaves = (plan.leaves(tree) if tree is not None
+                  else [None] * len(plan.shapes))
+        same = (old is not None and new is not None
+                and old.ranks == new.ranks)
+        out = []
+        for t, shape, dtype, do, dn in zip(leaves, plan.shapes, plan.dtypes,
+                                           dims_old, dims_new):
+            if same and do == dn:
+                out.append(t)
+            else:
+                out.append(part.move_leaf(t, shape, dtype, self.device,
+                                          old, do, new, dn))
+        if new is not None and not new.member:
+            return None
+        return plan.unflatten(out)
+
+    def _move_cache(self, src: _Pool, dst: _Pool) -> None:
+        """Copy the live pool's cache into ``dst`` (same slots, another
+        mesh), in place: ``dst``'s tensors are the ones its steps hold."""
+        plan = self._plan_for_slots(src.slots)
+        moved = self._move_tree(src.cache, plan, src.shard, dst.shard)
+        if moved is None:
+            return
+        for d, m in zip(plan.leaves(dst.cache), plan.leaves(moved)):
+            if d.data_ptr() != m.data_ptr():
+                d.copy_(m)
+
+    def reshard_to(self, sub) -> None:
+        """Migrate this engine, params and live decode state, onto a new
+        sub-accelerator (a ``MeshComposer`` grant or a ``DeviceMesh``),
+        computing on its first ``tp`` model columns (``apply(point.tp)``;
+        all of them by default).  In-flight tokens are harvested first;
+        the params (taken over from a ``warm_compile`` of the same mesh
+        where there was one) and the pooled cache are gathered on the old
+        mesh, broadcast from its first rank where a new rank held none of
+        them, and sliced into each new rank's shards; the host's tokens
+        follow from the old mesh's first rank.  Host state (queues, slots,
+        arena) is untouched, and the token streams are those of an engine
+        that never moved.  Every rank calls it together.  Without a mesh,
+        or onto the same ranks, nothing moves."""
+        check_mesh_termination(self.cfg, sub)
+        with self._lock, self._on_stream():
+            self._harvest()          # in-flight tokens live on the old mesh
+            with self._obs.span("reshard"):
+                self._granted = _mesh_of(sub)
+                self._place(part.tp_submesh(self._granted, self._tp))
+            self.reshard_count += 1
+            self._obs.inc("reshards")
+
+    def _place(self, mesh) -> None:
+        """Commit the engine to ``mesh`` (see ``reshard_to``)."""
+        if mesh_fingerprint(mesh) == self._mesh_fp:
+            self.mesh = mesh
+            return
+        if self._parked:
+            raise NotImplementedError(
+                f"resharding with preempted requests parked {_TP_QUEUED}")
+        old = self._pool
+        new = self._pool_for(old.slots, mesh, live=False)
+        self._move_cache(old, new)
+        if part.needs_broadcast(old.shard, new.shard):
+            self._sync_tokens(old.shard.root)
+        self._pool, self._staged = new, None
+        self._exec.evict(lambda k: k[2] == old.gen)
+        self.params = new.params
+        self.mesh, self._shard = mesh, new.shard
+        self._mesh_fp = new.fp
+
+    def _sync_tokens(self, root: int) -> None:
+        """Every live and finished request's tokens and the next injected
+        ones, as the rank ``root`` holds them, onto every rank (a rank
+        outside the old mesh recorded placeholders).  Every rank calls it
+        together."""
+        import torch.distributed as dist
+
+        reqs = list(self._active.values())
+        box = [({r.rid: list(r.out_tokens) for r in reqs},
+                {rid: list(t) for rid, t in self._finished.items()},
+                dict(self._inject))]
+        dist.broadcast_object_list(box, src=root)
+        live, finished, inject = box[0]
+        for r in reqs:
+            r.out_tokens = list(live[r.rid])
+        self._finished = {rid: list(t) for rid, t in finished.items()}
+        self._inject = dict(inject)
+
+    def _from_mesh(self, value):
+        """``value`` as the engine's mesh holds it, on every rank: broadcast
+        from the mesh's first rank when the mesh does not span the world
+        (every rank calls this together)."""
+        shard = self._shard
+        if shard is None or not part.needs_broadcast(shard, None):
+            return value
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=shard.root)
+        return box[0]
+
+    def _no_mesh(self, what: str) -> None:
+        if self._shard is not None:
+            raise NotImplementedError(f"{what} on a mesh is queued "
+                                      f"{_TP_QUEUED}")
 
     def sync(self) -> None:
         """Block until this engine's device work is done: its serving
@@ -402,26 +682,32 @@ class DecodeEngine(EngineTelemetry):
             self.stream.synchronize()
 
     def design(self) -> Dict[str, Any]:
-        """The applied design point: TP degree (one device: None), slot
-        count, encode bucket ladder (none for decode)."""
-        return {"tp": None, "slots": self.cfg.max_slots, "buckets": None}
+        """The applied design point: TP degree over the grant (None: all
+        of it), slot count, encode bucket ladder (none for decode)."""
+        return {"tp": self._tp, "slots": self.cfg.max_slots,
+                "buckets": None}
 
     def apply(self, sub=None,
               point: Optional[DesignPoint] = None) -> Dict[str, Any]:
-        """Apply a design-point delta live.  ``point.slots`` resizes the
-        pool, migrating live slots by exact copy (never below the live
-        count, never above ``slot_cap``); ``point.buckets`` goes to the
-        bucket hook; ``point.dp`` belongs to a replica group.  ``sub``
-        names a sub-accelerator: one device has nothing to move to.
-        Returns the knobs applied."""
-        del sub
+        """Apply a design-point delta live.  ``sub`` moves the engine onto
+        a new grant (``reshard_to``; a one-card grant, which has no mesh,
+        moves nothing); ``point.tp`` narrows the grant to its first ``tp``
+        model columns, resharding params and pooled state onto them (no
+        mesh: recorded, nothing moves); ``point.slots`` resizes the pool,
+        migrating live slots by exact copy (never below the live count,
+        never above ``slot_cap``); ``point.buckets`` goes to the bucket
+        hook; ``point.dp`` belongs to a replica group.  Returns the knobs
+        applied."""
         point = point if point is not None else DesignPoint(cus=0)
-        if point.tp not in (None, 1):
-            raise ValueError(f"tensor parallelism (tp={point.tp}) waits for "
-                             "a second GPU")
         with self._lock, self._on_stream():
             self._harvest()             # in-flight tokens of the old pool
             applied: Dict[str, Any] = {}
+            if point.tp is not None and point.tp != (self._tp or 0):
+                self._tp = max(int(point.tp), 1)
+                applied["tp"] = self._tp
+            if _mesh_of(sub) is not None or (
+                    "tp" in applied and self._granted is not None):
+                self.reshard_to(sub if sub is not None else self._granted)
             if point.slots is not None and \
                     int(point.slots) != self.cfg.max_slots:
                 applied["slots"] = self._resize_slots(int(point.slots))
@@ -455,7 +741,7 @@ class DecodeEngine(EngineTelemetry):
         with self._lock, self._on_stream():
             mapping = {old: new for new, old in enumerate(live)}
             new = self._pool_for(slots)
-            if live:
+            if live and self._member:
                 _migrate_slots(new.cache, self._pool.cache, live, new.axes)
             old = self._pool
             self._pool, self._staged = new, None
@@ -493,6 +779,7 @@ class DecodeEngine(EngineTelemetry):
         """One slot's cache rows as a host-side copy (slot dim kept; a
         copy even when the cache lies on the CPU, where ``.cpu()`` would
         alias the pool); leaves without a slot axis export a placeholder."""
+        self._no_mesh("exporting a slot (preemption, evacuation)")
         with explicit_read(), self._on_stream():
             return _tree_map(
                 lambda ax, t: torch.zeros(()) if ax < 0
@@ -502,6 +789,7 @@ class DecodeEngine(EngineTelemetry):
     def _restore_slot(self, req: Request, block: PyTree) -> None:
         """Write an exported block into ``req.slot`` and make it live; its
         last emitted token is host-injected, as after any harvest."""
+        self._no_mesh("restoring a slot (resume, adoption)")
         with explicit_read(), self._on_stream():
             _write_slot(self.cache, block, req.slot, self._slot_axes)
         self._active[req.slot] = req
@@ -709,10 +997,11 @@ class DecodeEngine(EngineTelemetry):
         live = inputs[2].bool()
         toks = torch.where(inputs[1].bool(), inputs[0], pool.prev)[:, None]
         logits, _ = self.model.decode_step(
-            self.params, pool.cache, toks, use_kernels=self.cfg.use_kernels,
+            pool.params, pool.cache, toks, use_kernels=self.cfg.use_kernels,
             kv_bound=bounds[0] if bounds else None,
-            src_bound=bounds[1] if len(bounds) > 1 else None, live_mask=live)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            src_bound=bounds[1] if len(bounds) > 1 else None, live_mask=live,
+            tp=pool.shard)
+        nxt = self.model.greedy(logits, pool.shard)
         return torch.where(live, nxt, torch.zeros_like(nxt))
 
     def _step_state(self, pool: _Pool) -> List[torch.Tensor]:
@@ -736,10 +1025,12 @@ class DecodeEngine(EngineTelemetry):
         tickets = None
         mc = self.model.cfg
         if self.cfg.use_kernels and not mc.attention_free:
-            # the wrapper's count: one ticket per (slot, KV head, head group)
+            # the wrapper's count: one ticket per (slot, KV head, head
+            # group); a rank's local heads take at most one per query head
             tickets = torch.zeros(
                 max(64, ragged_ops.ticket_count(pool.slots, mc.num_heads,
-                                                mc.num_kv_heads)),
+                                                mc.num_kv_heads),
+                    pool.slots * mc.num_heads),
                 dtype=torch.int32, device=self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
@@ -779,7 +1070,8 @@ class DecodeEngine(EngineTelemetry):
         def decode_once():
             return self._decode_fn(pool, bounds)
 
-        if self.device.type != "cuda" or not graphs:
+        # a rank outside the pool's mesh builds the entry, never runs it
+        if self.device.type != "cuda" or not graphs or not pool.member:
             return decode_once
         return self._capture(pool, decode_once)
 
@@ -793,7 +1085,10 @@ class DecodeEngine(EngineTelemetry):
         return prefill
 
     def _decode_key(self, pool: _Pool, cfg_key, bounds) -> Tuple:
-        return ("decode", cfg_key, pool.gen, tuple(bounds))
+        return ("decode", cfg_key + (pool.fp,), pool.gen, tuple(bounds))
+
+    def _prefill_key(self, pool: _Pool, cfg_key, nb: int) -> Tuple:
+        return ("prefill", cfg_key + (pool.fp,), pool.gen, nb)
 
     def _decode_exec(self, bounds: Tuple[int, ...] = ()):
         pool = self._pool
@@ -813,25 +1108,35 @@ class DecodeEngine(EngineTelemetry):
 
     def _prefill_exec(self, nb: int):
         pool = self._pool
-        key = ("prefill", self._cfg_key, pool.gen, nb)
+        key = self._prefill_key(pool, self._cfg_key, nb)
         self._prefill_lens.add(nb)
         return self._exec.get_or_build(
             key, self._counted(lambda: self._build_prefill(pool, nb)))
 
+    def _candidate_mesh(self, sub, point: DesignPoint):
+        """The mesh a candidate design point computes on: ``sub``'s grant
+        (None: the current one) narrowed to ``point.tp`` columns (None:
+        the current degree)."""
+        granted = _mesh_of(sub) if sub is not None else self._granted
+        return part.tp_submesh(granted,
+                               point.tp if point.tp is not None else self._tp)
+
     def warm_compile(self, sub, point: Optional[DesignPoint] = None) -> int:
         """Build this engine's decode and known prefill steps ahead, for
-        its current design point or a candidate one (``point.slots``: a
-        candidate pool, which the matching ``apply`` takes over).  Decode
-        is warmed at the bounds about to dispatch, one block above them
-        and at full capacity.  May run on another thread while serving
-        goes on: it holds the engine's device lock.  Returns the builds
-        performed."""
-        del sub
+        its current design point or a candidate one: ``point.slots`` a
+        candidate pool, ``sub`` and ``point.tp`` a candidate mesh (None:
+        the current grant and degree), onto which the params are moved
+        now; the matching ``apply`` or ``reshard_to`` takes the pool over.
+        Decode is warmed at the bounds about to dispatch, one block above
+        them and at full capacity.  Off a mesh it may run on another
+        thread while serving goes on: it holds the engine's device lock.
+        Returns the builds performed."""
         point = point if point is not None else DesignPoint(cus=0)
         with self._lock, self._on_stream(), \
                 self._obs.timed("warm_compile", "warm_compile_s") as sp:
             B = point.slots or self.cfg.max_slots
-            pool = self._pool_for(B)
+            pool = self._pool_for(B, self._candidate_mesh(sub, point),
+                                  live=False)
             key = self._config_key(B)
             built = 0
             for bounds in sorted({self._decode_bounds(), self._next_bounds(),
@@ -842,7 +1147,7 @@ class DecodeEngine(EngineTelemetry):
                                   self._build_decode(pool, bounds)))
             for nb in sorted(tuple(self._prefill_lens)):
                 built += self._exec.ensure(
-                    ("prefill", key, pool.gen, nb),
+                    self._prefill_key(pool, key, nb),
                     self._counted(lambda nb=nb: self._build_prefill(pool, nb)))
             if sp is not None:
                 sp["builds"] = built
@@ -872,10 +1177,10 @@ class DecodeEngine(EngineTelemetry):
         _tree_map(lambda ax, t: t.zero_() if ax >= 0 else None,
                   pool.axes, view)
         logits, filled = self.model.prefill(
-            self.params, {"tokens": tokens}, view, true_len=true_len,
-            use_kernels=self.cfg.use_kernels)
+            pool.params, {"tokens": tokens}, view, true_len=true_len,
+            use_kernels=self.cfg.use_kernels, tp=pool.shard)
         _write_slot(pool.cache, filled, slot, pool.axes)
-        return torch.argmax(logits[0]).to(torch.int32)
+        return self.model.greedy(logits, pool.shard)[0]
 
     # ------------------------------------------------------------------
     # load signals
@@ -1013,9 +1318,11 @@ class DecodeEngine(EngineTelemetry):
         with self._obs.timed("prefill", "prefill_s", len=L), \
                 self._on_stream():
             exe = self._prefill_exec(nb)
-            first_dev = exe(self._to_device(toks), L, req.slot)
-            with explicit_read():
-                first = int(first_dev.cpu())    # sync point: the first token
+            first = _PLACEHOLDER
+            if self._member:
+                first_dev = exe(self._to_device(toks), L, req.slot)
+                with explicit_read():
+                    first = int(first_dev.cpu())    # sync point: first token
         req.out_tokens.append(first)
         req.scheduled = 1
         self._inject[req.slot] = first
@@ -1070,24 +1377,27 @@ class DecodeEngine(EngineTelemetry):
                 host[0, slot] = self._inject[slot]
         exe = self._decode_exec(self._decode_bounds())
         src = torch.from_numpy(host)
-        cuda = self.device.type == "cuda"
-        pool.inputs.copy_(src.pin_memory() if cuda else src, non_blocking=cuda)
-        if self._inflight is None:
-            pool.prev.zero_()               # no step in flight feeds this one
-        start = None
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(self.stream)
-        nxt = exe()
-        pool.prev.copy_(nxt)
-        ready = None
-        if cuda:
-            host_nxt = torch.empty(B, dtype=torch.int32, pin_memory=True)
-            host_nxt.copy_(nxt, non_blocking=True)
-            ready = torch.cuda.Event(enable_timing=True)
-            ready.record(self.stream)
+        cuda = self.device.type == "cuda" and self._member
+        start = ready = None
+        if not self._member:                # a rank outside the mesh
+            host_nxt = torch.full((B,), _PLACEHOLDER, dtype=torch.int32)
         else:
-            host_nxt = nxt.clone()          # an entry may reuse its output
+            pool.inputs.copy_(src.pin_memory() if cuda else src,
+                              non_blocking=cuda)
+            if self._inflight is None:
+                pool.prev.zero_()           # no step in flight feeds this one
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self.stream)
+            nxt = exe()
+            pool.prev.copy_(nxt)
+            if cuda:
+                host_nxt = torch.empty(B, dtype=torch.int32, pin_memory=True)
+                host_nxt.copy_(nxt, non_blocking=True)
+                ready = torch.cuda.Event(enable_timing=True)
+                ready.record(self.stream)
+            else:
+                host_nxt = nxt.clone()      # an entry may reuse its output
         self._inject.clear()
 
         entries = []
@@ -1156,13 +1466,16 @@ class DecodeEngine(EngineTelemetry):
         return self.snapshot()
 
     def results(self) -> Dict[int, List[int]]:
-        """Completed (or rejected) requests' emitted tokens."""
+        """Completed (or rejected) requests' emitted tokens (the mesh's, on
+        every rank)."""
         with self._lock:
             self._harvest()
-            return {rid: list(toks) for rid, toks in self._finished.items()}
+            return self._from_mesh(
+                {rid: list(toks) for rid, toks in self._finished.items()})
 
     def snapshot(self) -> Dict[int, List[int]]:
-        """Every request seen so far -> tokens emitted."""
+        """Every request seen so far -> tokens emitted (the mesh's, on
+        every rank)."""
         with self._lock:
             self._harvest()
             out = {req.rid: list(req.out_tokens)
@@ -1171,4 +1484,4 @@ class DecodeEngine(EngineTelemetry):
                         for req, _ in self._parked})
             out.update({rid: list(toks)
                         for rid, toks in self._finished.items()})
-        return out
+            return self._from_mesh(out)

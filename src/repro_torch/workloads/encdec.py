@@ -37,21 +37,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.dse import DesignPoint
+from repro_torch.distribution.partitioning import ShardingRules
 from repro_torch.models.model import Model
 from repro_torch.obs import Telemetry
 from repro_torch.workloads.base import (ENCDEC, explicit_read, length_buckets,
                                         pick_bucket)
 from repro_torch.workloads.compile_cache import ExecutableCache
 from repro_torch.workloads.decode import (DecodeEngine, Request, ServeConfig,
-                                          _Pool, _round_block, _slot_view,
-                                          _tree_map, _write_slot)
+                                          _PLACEHOLDER, _Pool, _round_block,
+                                          _slot_view, _tree_map, _write_slot)
 
 # source kinds a batched encode groups by: token ids embedded as stand-in
 # frames (frontend stub) or precomputed frame embeddings
 TOKENS, FRAMES = "tokens", "frames"
 
 
-# fabriclint: disable=protocol -- one device: reshard_to waits for a second GPU
 class EncDecEngine(DecodeEngine):
     """Encode -> decode serving of enc-dec archs (the ``encdec`` workload
     class): batched bucketed source encodes at admission, a per-slot
@@ -62,7 +62,8 @@ class EncDecEngine(DecodeEngine):
 
     def __init__(self, model: Model, params, cfg: ServeConfig,
                  exec_cache: Optional[ExecutableCache] = None,
-                 obs: Optional[Telemetry] = None):
+                 obs: Optional[Telemetry] = None, mesh=None,
+                 rules: Optional[ShardingRules] = None):
         mc = model.cfg
         if not (mc.is_encdec and mc.cross_attention):
             raise ValueError(
@@ -79,7 +80,8 @@ class EncDecEngine(DecodeEngine):
         # what warm_compile builds
         self._dec_lens = {1}
         self._src_kinds = {TOKENS}
-        super().__init__(model, params, cfg, exec_cache=exec_cache, obs=obs)
+        super().__init__(model, params, cfg, exec_cache=exec_cache, obs=obs,
+                         mesh=mesh, rules=rules)
         # the base engine's token-bucketed prefills never run here
         self._prefill_lens = set()
 
@@ -93,11 +95,15 @@ class EncDecEngine(DecodeEngine):
                   if buckets is not None else self._src_buckets)
         return super()._config_key(slots) + (self._max_src, ladder)
 
-    def _init_cache(self, slots: int):
+    def _init_cache(self, slots: int, device=None):
         """Decoder KV plus the cross cache (per layer (slots, max_src,
         kv_heads, head_dim) K/V) and the per-slot ``src_len``."""
         return self.model.init_cache(slots, self.cfg.max_len,
-                                     src_len=self._max_src)
+                                     src_len=self._max_src, device=device)
+
+    def _cache_specs(self, slots: int):
+        return self.model.cache_logical_specs(slots, self.cfg.max_len,
+                                              src_len=self._max_src)
 
     def _arena_capacity(self) -> int:
         """Per slot, ``max_len`` decoder-KV rows plus ``max_src`` source
@@ -200,21 +206,22 @@ class EncDecEngine(DecodeEngine):
         _tree_map(lambda ax, t: t.zero_() if ax >= 0 else None,
                   pool.axes, view)
         logits, filled = self.model.prefill(
-            self.params, {"tokens": dec_toks}, view, true_len=dec_len,
+            pool.params, {"tokens": dec_toks}, view, true_len=dec_len,
             use_kernels=self.cfg.use_kernels, enc_out=enc[idx:idx + 1],
             src_len=src_len)
         _write_slot(pool.cache, filled, slot, pool.axes)
-        return torch.argmax(logits[0]).to(torch.int32)
+        return self.model.greedy(logits)[0]
 
     def _encode_exec(self, sb: int, kind: str = TOKENS):
-        key = ("encdec_encode", self._cfg_key, sb, kind)
+        key = ("encdec_encode", self._cfg_key + (self._mesh_fp,), sb, kind)
         self._src_kinds.add(kind)
         return self._exec.get_or_build(
             key, self._counted(lambda: self._build_encode(sb, kind)))
 
     def _prefill_exec_encdec(self, sb: int, nb: int):
         pool = self._pool
-        key = ("encdec_prefill", self._cfg_key, pool.gen, sb, nb)
+        key = ("encdec_prefill", self._cfg_key + (pool.fp,), pool.gen, sb,
+               nb)
         self._dec_lens.add(nb)
         return self._exec.get_or_build(
             key, self._counted(
@@ -225,12 +232,12 @@ class EncDecEngine(DecodeEngine):
         above and at full capacity, and every (bucket, source kind,
         decoder-prompt length) encode and prefill entry, for the current
         design point or a candidate one.  Returns the builds performed."""
-        del sub
         point = point if point is not None else DesignPoint(cus=0)
         with self._lock, self._on_stream(), \
                 self._obs.timed("warm_compile", "warm_compile_s") as sp:
             E = point.slots or self.cfg.max_slots
-            pool = self._pool_for(E)
+            pool = self._pool_for(E, self._candidate_mesh(sub, point),
+                                  live=False)
             key = self._config_key(E, point.buckets)
             ladder = (length_buckets(point.buckets, self._max_src)
                       if point.buckets is not None else self._src_buckets)
@@ -248,12 +255,13 @@ class EncDecEngine(DecodeEngine):
             for sb in ladder:
                 for kind in kinds:
                     built += self._exec.ensure(
-                        ("encdec_encode", key, sb, kind),
+                        ("encdec_encode", key + (pool.fp,), sb, kind),
                         self._counted(lambda sb=sb, kind=kind:
                                       self._build_encode(sb, kind)))
                 for nb in dec_lens:
                     built += self._exec.ensure(
-                        ("encdec_prefill", key, pool.gen, sb, nb),
+                        ("encdec_prefill", key + (pool.fp,), pool.gen, sb,
+                         nb),
                         self._counted(lambda sb=sb, nb=nb:
                                       self._build_prefill_encdec(
                                           pool, sb, nb)))
@@ -335,8 +343,10 @@ class EncDecEngine(DecodeEngine):
                 # this span times its dispatch
                 with self._obs.span("encode", bucket=sb, kind=kind,
                                     n=len(chunk)), self._on_stream():
-                    enc = self._encode_exec(sb, kind)(
-                        self._to_device(src), self._to_device(lens))
+                    enc = self._encode_exec(sb, kind)
+                    if self._member:        # a rank outside the mesh: none
+                        enc = enc(self._to_device(src),
+                                  self._to_device(lens))
                 for i, req in enumerate(chunk):
                     self._bucket_hits[sb] += 1
                     dec = self._dec_prompt(req)
@@ -347,10 +357,13 @@ class EncDecEngine(DecodeEngine):
                                          src=len(req.tokens)), \
                             self._on_stream():
                         exe = self._prefill_exec_encdec(sb, nb)
-                        first_dev = exe(enc, i, len(req.tokens), req.slot,
-                                        self._to_device(toks), len(dec))
-                        with explicit_read():
-                            first = int(first_dev.cpu())   # the first token
+                        first = _PLACEHOLDER
+                        if self._member:
+                            first_dev = exe(enc, i, len(req.tokens),
+                                            req.slot, self._to_device(toks),
+                                            len(dec))
+                            with explicit_read():
+                                first = int(first_dev.cpu())  # first token
                     req.out_tokens.append(first)
                     req.scheduled = 1
                     self._inject[req.slot] = first

@@ -20,6 +20,11 @@ growing cache, no per-token host round trip.
 * On the card the engine does all its device work on a CUDA stream of its
   own, ``stream``; the embeddings' copy to the host ends each step.  The
   encode runs eagerly, as the decode engines' prefills do.
+* On a mesh (``mesh``, ``rules=None``) the params are whole on each of the
+  mesh's ranks, and ``reshard_to`` moves only them: no job holds device
+  state between steps.  A rank outside the mesh encodes nothing, its
+  ``step()`` emits empty embeddings, and ``results()`` returns the mesh's.
+  The sharded encoder step is queued (``rules`` raise).
 
 Jobs longer than ``max_len`` are rejected but recorded (an empty
 embedding) and are not emitted, so they never count as throughput.
@@ -34,7 +39,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.composer import mesh_fingerprint
 from repro_torch.core.dse import DesignPoint
+from repro_torch.distribution import partitioning as part
 from repro_torch.models.model import Model
 from repro_torch.obs import Telemetry
 from repro_torch.workloads.base import (ENCODER, DecayedLengthEstimator,
@@ -42,7 +49,8 @@ from repro_torch.workloads.base import (ENCODER, DecayedLengthEstimator,
                                         length_buckets, pick_bucket,
                                         sanitize_check, sanitize_guard)
 from repro_torch.workloads.compile_cache import ExecutableCache
-from repro_torch.workloads.decode import ServeConfig
+from repro_torch.workloads.decode import (_TP_QUEUED, ServeConfig, _mesh_of,
+                                          _rules_fp)
 
 
 @dataclasses.dataclass
@@ -58,7 +66,6 @@ class EncodeJob:
     submitted_s: float = 0.0
 
 
-# fabriclint: disable=protocol -- one device: reshard_to waits for a second GPU
 class EncoderEngine(EngineTelemetry):
     """Prefill-only embedding serving (the ``encoder`` workload class):
     each step batches queued jobs through bucketed ``Model.encode`` calls
@@ -68,13 +75,25 @@ class EncoderEngine(EngineTelemetry):
 
     def __init__(self, model: Model, params, cfg: ServeConfig,
                  exec_cache: Optional[ExecutableCache] = None,
-                 obs: Optional[Telemetry] = None):
+                 obs: Optional[Telemetry] = None, mesh=None,
+                 rules: Optional[part.ShardingRules] = None):
+        if rules is not None:
+            raise ValueError(f"the sharded encoder step is queued "
+                             f"{_TP_QUEUED}; serve it replicated on a mesh "
+                             "(rules=None)")
         self.model = model
         self.cfg = cfg
         self.device = model.device
-        self.params = params
         self._obs = obs if obs is not None else Telemetry()
         self.reshard_count = 0
+        self._tp: Optional[int] = None
+        self._granted = _mesh_of(mesh)
+        self.mesh = part.tp_submesh(self._granted, self._tp)
+        self._shard = (part.TPShard.of(self.mesh) if self.mesh is not None
+                       else None)
+        self._plan = (part.ShardingPlan.of(params, model.logical_specs())
+                      if self.mesh is not None else None)
+        self.params = params if self._member else None
         self.graph_captures = 0          # encodes run eagerly
         self._exec = (exec_cache if exec_cache is not None
                       else ExecutableCache())
@@ -106,7 +125,45 @@ class EncoderEngine(EngineTelemetry):
         ladder = (length_buckets(buckets, self.cfg.max_len)
                   if buckets is not None else self._buckets)
         return (self.workload_class, self.model.cfg, slots,
-                self.cfg.max_len, ladder, self.cfg.use_kernels)
+                self.cfg.max_len, ladder, _rules_fp(None),
+                self.cfg.use_kernels)
+
+    @property
+    def _member(self) -> bool:
+        """False on a rank outside the engine's mesh."""
+        return self._shard is None or self._shard.member
+
+    def reshard_to(self, sub) -> None:
+        """Move the params, whole, onto a new sub-accelerator's ranks (its
+        first ``tp`` columns, ``apply(point.tp)``): broadcast from the old
+        mesh's first rank where a new rank held none of them, with the
+        finished embeddings.  No job holds device state between steps.
+        Every rank calls it together; without a mesh nothing moves."""
+        self._granted = _mesh_of(sub)
+        mesh = part.tp_submesh(self._granted, self._tp)
+        if mesh_fingerprint(mesh) != mesh_fingerprint(self.mesh):
+            old = self._shard
+            new = part.TPShard.of(mesh) if mesh is not None else None
+            if self._plan is None:
+                self._plan = part.ShardingPlan.of(self.params,
+                                                  self.model.logical_specs())
+            leaves = (self._plan.leaves(self.params) if self.params
+                      is not None else [None] * len(self._plan.shapes))
+            moved = [part.move_leaf(t, shape, dtype, self.device, old, None,
+                                    new, None)
+                     for t, shape, dtype in zip(leaves, self._plan.shapes,
+                                                self._plan.dtypes)]
+            if part.needs_broadcast(old, new):
+                import torch.distributed as dist
+
+                box = [self._finished]
+                dist.broadcast_object_list(box, src=old.root)
+                self._finished = box[0]
+            self.params = (self._plan.unflatten(moved)
+                           if new is None or new.member else None)
+            self.mesh, self._shard = mesh, new
+            self._cfg_key = self._config_key(self.cfg.max_slots)
+        self.reshard_count += 1
 
     def sync(self) -> None:
         """Block until the serving stream's work is done."""
@@ -117,9 +174,9 @@ class EncoderEngine(EngineTelemetry):
     # live design-point reconfiguration (serving DSE Stage 1's knobs)
     # ------------------------------------------------------------------
     def design(self) -> Dict[str, Any]:
-        """The applied design point: TP degree (one device: None), jobs per
-        step and the bucket ladder."""
-        return {"tp": None, "slots": self.cfg.max_slots,
+        """The applied design point: TP degree over the grant (None: all
+        of it), jobs per step and the bucket ladder."""
+        return {"tp": self._tp, "slots": self.cfg.max_slots,
                 "buckets": self._buckets}
 
     def apply(self, sub=None,
@@ -127,14 +184,17 @@ class EncoderEngine(EngineTelemetry):
         """Apply a design-point delta live.  Encoder jobs hold no device
         state between steps, so every knob is a host-side swap: ``slots``
         the jobs per step, ``buckets`` the padded-length ladder.  ``dp``
-        belongs to a replica group; ``sub`` names a sub-accelerator, and
-        one device has nothing to move to.  Returns the knobs applied."""
-        del sub
+        belongs to a replica group; ``sub`` (a grant with a mesh) and
+        ``tp`` move the params (``reshard_to``).  Returns the knobs
+        applied."""
         point = point if point is not None else DesignPoint(cus=0)
-        if point.tp not in (None, 1):
-            raise ValueError(f"tensor parallelism (tp={point.tp}) waits for "
-                             "a second GPU")
         applied: Dict[str, Any] = {}
+        if point.tp is not None and point.tp != (self._tp or 0):
+            self._tp = max(int(point.tp), 1)
+            applied["tp"] = self._tp
+        if _mesh_of(sub) is not None or (
+                "tp" in applied and self._granted is not None):
+            self.reshard_to(sub if sub is not None else self._granted)
         if point.slots is not None and int(point.slots) != self.cfg.max_slots:
             self.cfg = dataclasses.replace(self.cfg,
                                            max_slots=max(int(point.slots), 1))
@@ -197,19 +257,22 @@ class EncoderEngine(EngineTelemetry):
         return self._encode_fn
 
     def _encode_exec(self, sb: int):
-        key = ("encode", self._cfg_key, sb)
+        key = ("encode", self._cfg_key + (mesh_fingerprint(self.mesh),), sb)
         return self._exec.get_or_build(
             key, self._counted(lambda: self._build_encode(sb)))
 
     def warm_compile(self, sub, point: Optional[DesignPoint] = None) -> int:
         """Build the encode of every bucket of the current or a candidate
-        ladder: the ladder is finite, so this covers the design point.
+        ladder: the ladder is finite, so this covers the design point (on
+        ``sub``'s mesh narrowed to ``point.tp``; None: the current ones).
         Returns the builds performed."""
-        del sub
         point = point if point is not None else DesignPoint(cus=0)
+        granted = _mesh_of(sub) if sub is not None else self._granted
+        fp = mesh_fingerprint(part.tp_submesh(
+            granted, point.tp if point.tp is not None else self._tp))
         with self._obs.timed("warm_compile", "warm_compile_s") as sp:
             key = self._config_key(point.slots or self.cfg.max_slots,
-                                   point.buckets)
+                                   point.buckets) + (fp,)
             ladder = (length_buckets(point.buckets, self.cfg.max_len)
                       if point.buckets is not None else self._buckets)
             built = sum(self._exec.ensure(
@@ -344,11 +407,14 @@ class EncoderEngine(EngineTelemetry):
                     lens[i] = len(job.tokens)
                 with obs.timed("encode", "encode_s", bucket=sb, n=len(jobs)):
                     exe = self._encode_exec(sb)
-                    out = exe(self._to_device(toks), self._to_device(lens))
-                    with explicit_read():
-                        # the designed completion point: the embeddings
-                        # are the step's results
-                        emb = out[:len(jobs)].cpu().numpy()
+                    emb = [[] for _ in jobs]    # a rank outside the mesh
+                    if self._member:
+                        out = exe(self._to_device(toks),
+                                  self._to_device(lens))
+                        with explicit_read():
+                            # the designed completion point: the
+                            # embeddings are the step's results
+                            emb = out[:len(jobs)].cpu().numpy()
                 for i, job in enumerate(jobs):
                     job.embedding = [float(v) for v in emb[i]]
                     job.done = True
@@ -380,8 +446,17 @@ class EncoderEngine(EngineTelemetry):
         return self.snapshot()
 
     def results(self) -> Dict[int, List[float]]:
-        """Completed (or rejected) jobs' embeddings (copies)."""
-        return {rid: list(e) for rid, e in self._finished.items()}
+        """Completed (or rejected) jobs' embeddings (copies; the mesh's,
+        on every rank, which all call this together)."""
+        out = {rid: list(e) for rid, e in self._finished.items()}
+        if self._shard is None or not part.needs_broadcast(self._shard,
+                                                           None):
+            return out
+        import torch.distributed as dist
+
+        box = [out]
+        dist.broadcast_object_list(box, src=self._shard.root)
+        return box[0]
 
     def snapshot(self) -> Dict[int, List[float]]:
         out: Dict[int, List[float]] = {j.rid: [] for j in self._queue}

@@ -25,20 +25,20 @@ from repro_torch.workloads.compile_cache import ExecutableCache
 from repro_torch.workloads.decode import DecodeEngine, Request, ServeConfig
 
 
-# fabriclint: disable=protocol -- one device: reshard_to waits for a second GPU
 class SSMEngine(DecodeEngine):
     workload_class = SSM
 
     def __init__(self, model: Model, params, cfg: ServeConfig,
                  exec_cache: Optional[ExecutableCache] = None,
-                 obs: Optional[Telemetry] = None):
+                 obs: Optional[Telemetry] = None, mesh=None, rules=None):
         mc = model.cfg
         if mc.ssm is None or not mc.attention_free:
             raise ValueError(
                 f"SSMEngine serves attention-free SSM archs; {mc.name!r} is "
                 f"family={mc.family!r} (use DecodeEngine for archs with a "
                 "KV cache)")
-        super().__init__(model, params, cfg, exec_cache=exec_cache, obs=obs)
+        super().__init__(model, params, cfg, exec_cache=exec_cache, obs=obs,
+                         mesh=mesh, rules=rules)
 
     # ------------------------------------------------------------------
     # constant-size state pool: admission accounting hooks

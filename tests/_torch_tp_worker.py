@@ -1,0 +1,495 @@
+"""The port's side of ``tests/test_torch_tp_serving.py``: a gloo world of 8
+CPU ranks (``torch.multiprocessing.spawn``, one thread each, a ``file://``
+rendezvous of its own) that runs every tensor-parallel serving scenario on
+the port and pickles what rank 0 records.
+
+    python tests/_torch_tp_worker.py REF_PICKLE OUT_PICKLE
+
+REF_PICKLE is the reference run's output (its prompts and initial
+parameters); this file imports no JAX.  Every rank runs every scenario in
+the same order, as the engines' collectives require; a scenario that
+hangs fails at the gloo timeout.
+"""
+import contextlib
+import dataclasses
+import datetime
+import io
+import os
+import pickle
+import sys
+import tempfile
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+WORLD = 8
+SERVE = dict(max_slots=2, max_len=64, eos_id=-1)
+
+
+def _cfg(arch, dtype="float32"):
+    from repro_torch.configs import get_reduced
+
+    return dataclasses.replace(get_reduced(arch), dtype=dtype)
+
+
+def _params(ref, key, cfg):
+    from repro_torch.bridge import params_from_jax
+
+    return params_from_jax(ref[key], cfg, "cpu")
+
+
+def _serve(engine, prompts, script=None, comp=None, new=10, on_step=None):
+    """Submit ``prompts``, step to the end (``script``: step -> CU ids to
+    reshard onto), and return the results."""
+    for p in prompts:
+        engine.submit(p, max_new_tokens=new)
+    step = 0
+    while engine.has_work:
+        if script and step in script:
+            engine.reshard_to(comp.submesh(script[step], "re"))
+        if on_step is not None:
+            on_step(step, engine)
+        engine.step()
+        step += 1
+        assert step < 200
+    return engine.results()
+
+
+def _local(full, model, rules, shard):
+    """This rank's shards of a whole param tree."""
+    from repro_torch.distribution import partitioning as part
+
+    plan = part.ShardingPlan.of(full, model.logical_specs())
+    dims = plan.model_dims(rules, shard.size)
+    return plan.unflatten([shard.local(t, d)
+                           for t, d in zip(plan.leaves(full), dims)])
+
+
+def _first_logits(model, params, prompts, tp=None, rules=None):
+    """Prefill logits of the padded prompts and the logits of the decode
+    step after them, whole (gathered over the model group)."""
+    from repro_torch.distribution import partitioning as part
+
+    B, S = len(prompts), 16
+    toks = torch.zeros((B, S), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p)
+    lens = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32)
+    cache = model.init_cache(B, 64)
+    if tp is not None:
+        plan = part.ShardingPlan.of(cache, model.cache_logical_specs(B, 64))
+        dims = plan.model_dims(rules, tp.size)
+        cache = plan.unflatten([tp.local(t, d)
+                                for t, d in zip(plan.leaves(cache), dims)])
+    logits, cache = model.prefill(params, {"tokens": toks}, cache,
+                                  true_len=lens, use_kernels=False, tp=tp)
+    nxt = model.greedy(logits, tp)
+    step, _ = model.decode_step(params, cache, nxt[:, None].long(),
+                                use_kernels=False, tp=tp)
+    return (model.gather_logits(logits, tp).float(),
+            model.gather_logits(step, tp).float())
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _tp_degrees(ref, comp, out):
+    """(a), (b), (e): streams at every degree and across reshards, logits,
+    local shapes."""
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import DecodeEngine, ServeConfig
+
+    rank = dist.get_rank()
+    rules = part.serve_engine_rules()
+    sc = ServeConfig(**SERVE)
+    prompts = ref["prompts"]
+    for arch in ("minitron-4b", "qwen2.5-32b", "granite-34b"):
+        cfg = _cfg(arch)
+        model = Model(cfg, "cpu")
+        full = _params(ref, (arch, "params"), cfg)
+
+        def engine(ids, rules_, params=full):
+            return DecodeEngine(model, params, sc, mesh=comp.submesh(ids, "t"),
+                                rules=rules_)
+
+        if rank == 0:
+            out[arch, "unsharded"] = _serve(DecodeEngine(model, full, sc),
+                                            prompts)
+        out[arch, 1] = _serve(engine(range(1), None), prompts)
+        out[arch, 2] = _serve(engine(range(2), rules), prompts)
+        degrees = (4, 8) if arch == "minitron-4b" else (2,)
+        if arch == "minitron-4b":
+            out[arch, 4] = _serve(engine(range(4), rules), prompts)
+            out[arch, "dyn"] = _serve(
+                engine(range(4), rules), prompts,
+                {3: range(2), 7: range(8), 11: range(4)}, comp)
+            meshes = []
+            out["recompose"] = _serve(
+                engine(range(4), rules), prompts,
+                {3: range(6), 7: range(2), 11: range(8)}, comp,
+                on_step=lambda s, e: meshes.append(list(e._shard.ranks))
+                if s in (0, 3, 7, 11) else None)
+            out["recompose_meshes"] = meshes
+            for tp in (2, 4, 8):
+                eng = engine(range(tp), rules)
+                if eng._member:
+                    lyr = eng.params["decoder"]["layers"][0]
+                    shapes = {"wq": lyr["attn"]["wq"].shape[1],
+                              "wk": lyr["attn"]["wk"].shape[1],
+                              "w_up": lyr["ffn"]["w_up"].shape[1],
+                              "embed": eng.params["embed"].shape[0],
+                              "cache_k": eng.cache["scanned"]["attn"]["k"]
+                              .shape[3]}
+                    if rank == 0:
+                        out["shapes", tp] = shapes
+            # (e) a 4-column grant computing on its first two columns
+            eng = engine(range(4), rules)
+            applied = {}
+
+            def narrow(step, e):
+                if step == 3:
+                    applied.update(e.apply(None, DesignPoint(cus=0, tp=2)))
+
+            streams = _serve(eng, prompts, on_step=narrow)
+            out["apply_tp"] = {
+                "applied": applied, "ranks": list(eng._shard.ranks),
+                "design_tp": eng.design()["tp"],
+                "wq_heads": (eng.params["decoder"]["layers"][0]["attn"]
+                             ["wq"].shape[1] if eng._member else None),
+                "streams": streams}
+        # first-step logits against the unsharded model
+        unsharded = _first_logits(model, full, prompts) if rank == 0 \
+            else None
+        for tp in degrees:
+            sub = comp.submesh(range(tp), "logits")
+            shard = part.TPShard.of(sub.mesh)
+            if shard.member:
+                got = _first_logits(model, _local(full, model, rules, shard),
+                                    prompts, shard, rules)
+                if rank == 0:
+                    out["logits", arch, tp] = {
+                        "prefill": _rel(got[0], unsharded[0]),
+                        "decode": _rel(got[1], unsharded[1])}
+
+
+def _straddle(comp, out):
+    """Query heads whose KV groups straddle ranks: 12 heads on 4 KV heads
+    (groups of 3) at TP 3, 4 heads a rank, each taking one KV head per
+    query head; the port's own seeded weights, unsharded as the yardstick."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(_cfg("minitron-4b"), num_heads=12,
+                              num_kv_heads=4)
+    model = Model(cfg, "cpu")
+    full = model.init(torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 256, size=n) for n in (5, 9, 12)]
+    rules = part.serve_engine_rules()
+    shard = part.TPShard.of(comp.submesh(range(3), "straddle").mesh)
+    if shard.member:
+        got = _first_logits(model, _local(full, model, rules, shard),
+                            prompts, shard, rules)
+        if dist.get_rank() == 0:
+            want = _first_logits(model, full, prompts)
+            out["logits", "straddle", 3] = {
+                "prefill": _rel(got[0], want[0]),
+                "decode": _rel(got[1], want[1])}
+
+
+def _bf16(ref, comp, out):
+    """(c): bf16 at TP 2 against unsharded."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import DecodeEngine, ServeConfig
+
+    rank = dist.get_rank()
+    rules = part.serve_engine_rules()
+    cfg = _cfg("minitron-4b", "bfloat16")
+    model = Model(cfg, "cpu")
+    full = _params(ref, ("minitron-4b", "params"), cfg)
+    sc = ServeConfig(**SERVE)
+    prompts = ref["prompts"]
+    tp2 = _serve(DecodeEngine(model, full, sc,
+                              mesh=comp.submesh(range(2), "t"), rules=rules),
+                 prompts)
+    sub = comp.submesh(range(2), "t")
+    shard = part.TPShard.of(sub.mesh)
+    got = None
+    if shard.member:
+        got = _first_logits(model, _local(full, model, rules, shard),
+                            prompts, shard, rules)
+    if rank != 0:
+        return
+    one = _serve(DecodeEngine(model, full, sc), prompts)
+    want = _first_logits(model, full, prompts)
+    margins = []
+    for rid, stream in one.items():
+        other = tp2[rid]
+        if other == stream:
+            continue
+        at = next(i for i, (a, b) in enumerate(zip(stream, other)) if a != b)
+        # the unsharded model's logits where the streams part
+        toks = torch.as_tensor([list(prompts[rid]) + stream[:at]],
+                               dtype=torch.int32)
+        cache = model.init_cache(1, 64)
+        lg, _ = model.prefill(full, {"tokens": toks}, cache,
+                              use_kernels=False)
+        top = torch.topk(lg[0].float(), 2).values
+        margins.append(float((top[0] - top[1]) / lg[0].float().abs().max()))
+    out["bf16"] = {"logits": max(_rel(got[0], want[0]),
+                                 _rel(got[1], want[1])),
+                   "partings": len(margins), "margins": margins}
+
+
+def _fabric(ref, mesh, out):
+    """(d) and (f): ComposedServer on (1, 8)."""
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads.decode import ServeConfig
+
+    rank = dist.get_rank()
+    cfg = _cfg("minitron-4b")
+    fsc = ServeConfig(max_slots=2, max_len=32, eos_id=-1)
+    params = {n: _params(ref, ("fabric", n), cfg) for n in "abc"}
+    prompts = ref["prompts"][:2]
+    F.get_reduced = lambda arch: cfg
+
+    def server(names, **kw):
+        return F.ComposedServer(
+            [F.TenantSpec(n, "minitron-4b", seed=s, serve=fsc)
+             for n, s in names], mesh=mesh, device="cpu", params=params,
+            policy=None, **kw)
+
+    def traffic(srv, recompose):
+        rids = []
+        for n in "abc":
+            for p in prompts:
+                rids.append((n, srv.submit(n, p, max_new_tokens=10)))
+        for _ in range(3):
+            srv.step()
+        before = None
+        if recompose:
+            c = srv.engines["c"].replicas[0]
+            before = (srv.subs["c"], list(c._shard.ranks),
+                      [t.data_ptr() for t in _leaves(c.params)]
+                      if c._member else [])
+            srv.recompose({"a": 4, "b": 2, "c": 2})
+        res = srv.drain()
+        return [[n, r, list(res[n][r])] for n, r in rids], before
+
+    names = (("a", 0), ("b", 1), ("c", 2))
+    srv = server(names)
+    streams, (c_sub, c_ranks, c_ptrs) = traffic(srv, True)
+    c = srv.engines["c"].replicas[0]
+    same = ([t.data_ptr() for t in _leaves(c.params)] == c_ptrs
+            if c._member else True)
+    same_everywhere = [None] * WORLD
+    dist.all_gather_object(same_everywhere, same)
+    base, _ = traffic(server(names), False)
+    if rank == 0:
+        out["fabric"] = {
+            "c_same_sub": srv.subs["c"] is c_sub,
+            "c_ranks": [c_ranks, list(c._shard.ranks)],
+            "c_tensors_same": all(same_everywhere),
+            "a_ranks": list(srv.engines["a"].replicas[0]._shard.ranks),
+            "b_ranks": list(srv.engines["b"].replicas[0]._shard.ranks),
+            "events": [[e.step, e.reason, e.sizes_after, e.design,
+                        list(e.moved), list(e.unchanged)]
+                       for e in srv.events],
+            "streams": streams, "never_recomposed": base}
+
+    # (f) warm recomposition: two tenants 4 + 4, then 6 + 2
+    srv = server((("a", 0), ("b", 1)), warm=True)
+    for n in "ab":
+        srv.submit(n, ref["prompts"][0][:8], max_new_tokens=16)
+    for _ in range(3):
+        srv.step()
+    ev = srv.recompose({"a": 6, "b": 2})
+    builds = {n: srv.engines[n].compile_builds for n in "ab"}
+    srv.step()
+    after = {n: srv.engines[n].compile_builds for n in "ab"}
+    srv.drain()
+    if rank == 0:
+        out["warm"] = {
+            "warm_builds": ev.warm_builds,
+            "cold_after_move": {n: after[n] - builds[n] for n in "ab"},
+            "ranks": {n: len(srv.engines[n].replicas[0]._shard.ranks)
+                      for n in "ab"},
+            "post_step_recorded": sorted(ev.post_step_seconds)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _replicated(ref, comp, out):
+    """(h): an SSM engine and an encoder engine whole on a sub-mesh, moved
+    mid-stream; the SSM engine under TP rules raises."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import ServeConfig
+    from repro_torch.workloads.encoder import EncoderEngine
+    from repro_torch.workloads.ssm import SSMEngine
+
+    rank = dist.get_rank()
+    cfg = _cfg("falcon-mamba-7b")
+    model = Model(cfg, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    full = model.init(gen)
+    sc = ServeConfig(**SERVE)
+    prompts = ref["prompts"]
+    moved = _serve(SSMEngine(model, full, sc,
+                             mesh=comp.submesh(range(2), "s")), prompts,
+                   {2: range(3, 7)}, comp, new=6)
+    try:
+        SSMEngine(model, full, sc, mesh=comp.submesh(range(2), "s"),
+                  rules=part.serve_engine_rules())
+        err = ""
+    except ValueError as e:
+        err = str(e)
+    ecfg = _cfg("qwen2.5-32b")
+    emodel = Model(ecfg, "cpu")
+    efull = _params(ref, ("qwen2.5-32b", "params"), ecfg)
+    enc = EncoderEngine(emodel, efull, ServeConfig(max_slots=2, max_len=32),
+                        mesh=comp.submesh(range(2), "e"))
+    for p in prompts[:2]:
+        enc.submit(p)
+    enc.step()
+    enc.reshard_to(comp.submesh(range(4, 8), "e2"))
+    enc.submit(prompts[2])
+    enc.step()
+    enc_moved = enc.results()
+    if rank == 0:
+        one = _serve(SSMEngine(model, full, sc), prompts, new=6)
+        e1 = EncoderEngine(emodel, efull, ServeConfig(max_slots=2,
+                                                      max_len=32))
+        for p in prompts:
+            e1.submit(p)
+        e1.run_to_completion()
+        out["replicated"] = {
+            "ssm_moved": moved, "ssm_unsharded": one,
+            "ssm_rules_error": err,
+            "encoder_moved": {r: np.round(v, 5).tolist()
+                              for r, v in enc_moved.items()},
+            "encoder_unsharded": {r: np.round(v, 5).tolist()
+                                  for r, v in e1.results().items()}}
+
+
+def _refusals(comp, mesh, out):
+    """A mesh serves with length-based termination: an engine or a fabric
+    given a mesh and an EOS id raises, naming the queued item; so does a
+    mesh-less engine moved onto a mesh."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads.decode import DecodeEngine, ServeConfig
+
+    cfg = _cfg("minitron-4b")
+    model = Model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    eos = ServeConfig(max_slots=2, max_len=32, eos_id=0)
+    errors = []
+    for make in (
+            lambda: DecodeEngine(model, params, eos,
+                                 mesh=comp.submesh(range(2), "eos")),
+            lambda: DecodeEngine(model, params, eos).reshard_to(
+                comp.submesh(range(2), "eos")),
+            lambda: F.ComposedServer(
+                [F.TenantSpec("a", "minitron-4b", serve=eos)], mesh=mesh,
+                device="cpu", params={"a": params}, policy=None)):
+        try:
+            make()
+            errors.append("")
+        except ValueError as e:
+            errors.append(str(e))
+    if dist.get_rank() == 0:
+        out["eos_refused"] = errors
+
+
+def _rows(ref, out):
+    """The launcher's production-mesh serving on a (2, 4) mesh: one engine
+    per data row over disjoint requests; every rank builds both and does
+    device work for its own row's only."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import DecodeEngine, ServeConfig
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = _cfg("minitron-4b")
+    model = Model(cfg, "cpu")
+    full = _params(ref, ("minitron-4b", "params"), cfg)
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    engines = launch_serve.row_engines(DecodeEngine, model, full,
+                                       ServeConfig(**SERVE), mesh,
+                                       part.serve_engine_rules())
+    streams, rounds, emitted, _ = launch_serve.serve_rows(
+        engines, ref["prompts"], 10)
+    own = [None] * WORLD
+    dist.all_gather_object(own, [i for i, e in enumerate(engines)
+                                 if e._member])
+    if dist.get_rank() == 0:
+        one = launch_serve.serve_rows(
+            [DecodeEngine(model, full, ServeConfig(**SERVE))],
+            ref["prompts"], 10)
+        out["rows"] = {"streams": streams, "emitted": [emitted, one[2]],
+                       "rounds": rounds, "own_rows": own,
+                       "ranks": [list(e._shard.ranks) for e in engines],
+                       "slots": [e.cfg.max_slots for e in engines]}
+
+
+def _smoke(out):
+    """(g): the launcher's --tp-smoke on this world."""
+    from repro_torch.launch import serve as launch_serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(["--tp-smoke", "--device", "cpu"])
+    if dist.get_rank() == 0:
+        out["smoke"] = (rc, buf.getvalue().splitlines()[0])
+
+
+def _run(rank, init, ref_path, out_path):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=120))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.composer import MeshComposer
+
+    with open(ref_path, "rb") as f:
+        ref = pickle.load(f)
+    out = {}
+    mesh = init_device_mesh("cpu", (1, WORLD),
+                            mesh_dim_names=("data", "model"))
+    comp = MeshComposer(mesh)
+    _tp_degrees(ref, comp, out)
+    _straddle(comp, out)
+    _bf16(ref, comp, out)
+    _fabric(ref, mesh, out)
+    _replicated(ref, comp, out)
+    _refusals(comp, mesh, out)
+    _rows(ref, out)
+    _smoke(out)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "wb") as f:
+            pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    rendezvous = "file://" + os.path.join(tempfile.mkdtemp(), "rdzv")
+    mp.spawn(_run, args=(rendezvous, sys.argv[1], sys.argv[2]),
+             nprocs=WORLD)

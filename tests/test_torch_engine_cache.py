@@ -403,5 +403,7 @@ def test_engines_satisfy_protocol(wclass, arch):
     # any arch serves embeddings: the encoder class is a tenant's choice
     enc = build_engine("encoder", tm, tp, ServeConfig())
     assert enc.workload_class == "encoder" and isinstance(enc, Engine)
-    with pytest.raises(ValueError, match="second GPU"):
-        eng.apply(None, DesignPoint(cus=0, tp=2))
+    # without a mesh a TP degree is recorded and nothing moves, as the
+    # reference's tp_submesh(None, ...)
+    assert eng.apply(None, DesignPoint(cus=0, tp=2)) == {"tp": 2}
+    assert eng.design()["tp"] == 2 and eng.reshard_count == 0
