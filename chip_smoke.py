@@ -41,7 +41,8 @@
    engine 8 -> 12 -> 8 slots mid-stream, preempts, evacuates and adopts
    into a second engine: every stream must equal an uninterrupted run's
    and every ragged decode ticket buffer must read zero.
-4. Serving phase, falcon-mamba-7b: the same for full width (64 layers)
+4. Serving phase, falcon-mamba-7b: the same for full width cut to 16 of
+   64 layers (phase 24 serves all 64 through the same engine)
    through ``SSMEngine`` with ``max_len`` 512, so that prompts past it show
    admission to be slot-bound, profiled once more with the step's launches
    serialised, where each kernel's time is its own; the decode graph's
@@ -106,9 +107,10 @@
    SLO attainment, captures on the serving path (0), peak memory and the
    five serving kernels' launches (each must launch); every stream equals
    a slot-granular replay of the same schedule but at counted near-ties.
-10. MLA and MoE phase: full-width deepseek-v2-lite-16b (27 layers, 64
-   routed experts top-6 and 2 shared, MLA; random bf16 weights from seed
-   0, 31.4 GB) through ``DecodeEngine`` with the kernels on: phase 3's 8
+10. MLA and MoE phase: full-width deepseek-v2-lite-16b cut to 9 of 27
+   layers (the dense one and 8 MoE layers of 64 routed experts top-6 and
+   2 shared, MLA; random bf16 weights from seed 0; phase 24 serves all
+   27, 31.4 GB) through ``DecodeEngine`` with the kernels on: phase 3's 8
    prompts, 32 new tokens, 8 slots, ``max_len`` 2048, decode steps as
    graphs then eager (streams equal, 0 captures on the serving path, the
    flash kernel at head dim 192 launched 27 times per prefill, peak
@@ -116,7 +118,7 @@
    decode step beside its bound and by module (MoE dispatch, routed and
    shared experts, MLA), and the busy share; holds the kernel path's
    logits to the plain path's with the router pinned to the plain path's
-   experts, in bf16 (5e-2) and in fp32 (1e-3) at full depth, and logs the
+   experts, in bf16 (5e-2) and in fp32 (1e-3) at the cut, and logs the
    routing partings, the unpinned distance and the bf16 rounding floor.
    The kernel phase holds flash at head dims 24, 192 and 256 (causal,
    windowed, key-padded, S 65) in bf16 and fp32 and times it at
@@ -134,12 +136,13 @@
    layers) and times G = 48 at granite's serving shape beside SDPA; it
    holds flash at granite's heads (48 on 1, D 128, causal) and hymba's
    (25 on 5, D 64, window 1024, sliding and global) at S 65 and 1100.
-12. Hybrid phase: full-width hymba-1.5b (32 layers of attention beside
-   Mamba, window 1024 but 3 global layers; random bf16 weights from seed
-   0) through ``DecodeEngine``: 8 prompts, two past the window, 32 new
-   tokens, graphs then eager (streams equal, 0 captures; per step 32
-   launches of ragged decode and of the Mamba step, per prefill 32 of
-   flash and of the scan); a decode step beside its bound; kernel path
+12. Hybrid phase: full-width hymba-1.5b cut to 16 of 32 layers (attention
+   beside Mamba, window 1024 but layers 0 and 15 global; random bf16
+   weights from seed 0; phase 24 serves all 32) through
+   ``DecodeEngine``: 8 prompts, two past the window, 32 new tokens,
+   graphs then eager (streams equal, 0 captures; per step one launch a
+   layer of ragged decode and of the Mamba step, per prefill one a layer
+   of flash and of the scan); a decode step beside its bound; kernel path
    against plain path from an 1100-token prompt for three weight seeds,
    fp32 within 1e-3 and bf16 within 1.25x the model's own rounding floor.
    The kernel phase holds the Mamba step at hymba's widths (x_proj and
@@ -184,7 +187,8 @@
 15. SSM and hybrid training phases: full-width hymba-1.5b (32 layers,
    1.66 B params as fp32 masters, bf16 activations, AdamW, remat) at B 2
    x S 2048, past its window of 1024 so that the window masks keys, and
-   falcon-mamba-7b at its published widths cut to 32 of 64 layers (58.1 GiB of masters, grads and moments) at B 4 x S
+   falcon-mamba-7b at its published widths cut to 16 of 64 layers (29
+   GiB of masters, grads and moments; 32 until PR 34) at B 4 x S
    1024: the kernel path against the plain path at a few layers in fp32
    (hymba: a global layer and two windowed ones) and at the phase's depth
    in bf16 (``TRAIN_TOL``), then 8 steps of ``make_train_step`` (2 of
@@ -300,6 +304,25 @@
    head (8 slots, D 128), and the causal flash prefill of a 1024-token
    prompt at minitron-4b's three head splits.  Several ranks cannot share
    the one card, so TP > 1 itself does not run here.
+24. Tensor-parallel serving of the SSM, hybrid and MoE/MLA decoders:
+   (a) full-width falcon-mamba-7b through ``SSMEngine``, hymba-1.5b and
+   deepseek-v2-lite-16b through ``DecodeEngine``, each on a (1, 1) mesh
+   under ``serve_engine_rules()`` at world 1 (NCCL), moved by
+   ``reshard_to`` and ``apply(tp=1)`` mid-stream, against the unsharded
+   engine as phase 23 holds minitron-4b (streams bitwise, 0 captures after
+   the warm-up, decode p50 both ways, the move's ms, peaks).  (b) TP 2, 4
+   and 8 emulated rank by rank on the card: one layer of falcon-mamba-7b's
+   and of hymba-1.5b's Mamba block sliced into the ranks' shards by the
+   port's own slicing, each rank's stage A of the staged step, the fp32
+   x_proj sums added where the all-reduce would run, each rank's stage B,
+   the out_proj sums added and the finish, against the fused step on the
+   whole layer (output, conv windows and states; bf16 and fp32); each
+   stage against its plain version; the selective scan on each rank's
+   channels and the flash forward at D 192 on each rank's share of
+   deepseek-v2-lite's 16 heads, concatenated, against the whole; each
+   rank's instance timed beside its plain version, SDPA for the flash,
+   and its bound.  The emulation's stage-A calls are the staged step's
+   counted launches.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -328,6 +351,7 @@ outputs must be bitwise equal.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -2115,6 +2139,9 @@ def profile_serving(torch, make, run, name, kernels, wall, steps, per_step,
 # the serving fabric: two full-width tenants of one composed card
 # ---------------------------------------------------------------------------
 
+# the falcon-mamba-7b serving phase's depth: 16 of 64 layers (phase 24
+# serves all 64 through the same engine)
+FALCON_SERVE_LAYERS = 16
 FABRIC_CUS = 8
 # tenant (arch), max_len, weight seed
 FABRIC_FLEET = (("minitron-4b", 2048, 0), ("falcon-mamba-7b", 512, 1))
@@ -2570,6 +2597,9 @@ def run_encdec_phase(torch):
 # ---------------------------------------------------------------------------
 
 DEEPSEEK_SERVE = dict(max_slots=8, max_len=2048, eos_id=-1, use_kernels=True)
+# the deepseek phase's depth: the dense layer and 8 MoE layers of 27 (phase
+# 24 serves all 27 through the same engine)
+DEEPSEEK_SERVE_LAYERS = 9
 DEEPSEEK_NEW = 32
 DEEPSEEK_KERNELS = ("flash_attention_d192",)
 
@@ -2827,9 +2857,10 @@ def deepseek_step_breakdown(torch, model, params, scfg, reps: int = 10):
 
 
 def run_deepseek_phase(torch):
-    """Full-width deepseek-v2-lite-16b (27 layers: one dense prologue
-    layer, then 26 MoE layers of 64 routed experts top-6 and 2 shared;
-    MLA attention), random bf16 weights from seed 0, through
+    """Full-width deepseek-v2-lite-16b cut to ``DEEPSEEK_SERVE_LAYERS`` of
+    27 layers (the dense prologue layer, then MoE layers of 64 routed
+    experts top-6 and 2 shared; MLA attention; phase 24 serves all 27),
+    random bf16 weights from seed 0, through
     ``DecodeEngine`` with the kernels on: phase 3's 8 prompts, 32 new
     tokens, 8 slots, ``max_len`` 2048, on fresh engines in turns (decode
     steps as CUDA graphs, then eager), each warmed by
@@ -2837,12 +2868,12 @@ def run_deepseek_phase(torch):
     nope and rope, v padded); the rest is stock torch, as the reference
     computes it outside any kernel.  Logs prefill ms, decode p50,
     tokens/s, peak memory (< 80 GiB), captures on the serving path (0 with
-    graphs) and the flash launches (27 per prefill); streams must be
+    graphs) and the flash launches (one a layer and prefill); streams must be
     equal.  Then the step breakdown, the busy share under the profiler,
     and the kernel path's logits against the plain path's with the router
     pinned to the plain path's experts (``moe_reference_check``), in bf16
     (5e-2) and, the weights cast to fp32 in place, in fp32 (1e-3), both at
-    full depth, argmax partings only at counted near-ties; routing
+    the phase's depth, argmax partings only at counted near-ties; routing
     partings and the unpinned distance are logged, as is the bf16 model's
     own rounding floor (each bf16 path's distance from the fp32 plain
     path on fixed tokens).  Frees its weights before returning the graph
@@ -2853,12 +2884,15 @@ def run_deepseek_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.workloads import DecodeEngine, ServeConfig
-    cfg = get_config("deepseek-v2-lite-16b")
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_SERVE_LAYERS)
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    log(f"deepseek-v2-lite-16b: {cfg.param_count() / 1e9:.2f} B params "
+    log(f"deepseek-v2-lite-16b cut to {cfg.num_layers} of "
+        f"{full.num_layers} layers (phase 24 serves all {full.num_layers}): "
+        f"{cfg.param_count() / 1e9:.2f} B params "
         f"({cfg.num_layers} layers, {cfg.moe.first_k_dense} dense prologue; "
         f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
         f"{cfg.moe.num_shared_experts} shared; MLA rank "
@@ -2871,8 +2905,11 @@ def run_deepseek_phase(torch):
         f"elements per token over {cfg.num_layers} layers "
         f"(kv_lora_rank + qk_rope_head_dim = "
         f"{cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim} per layer)")
-    require(engine._per_token_elems == 15552,
-            f"per-token cache elements {engine._per_token_elems}, want 15552")
+    per_layer = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    require(per_layer == 576 and engine._per_token_elems
+            == per_layer * cfg.num_layers,
+            f"per-token cache elements {engine._per_token_elems}, want "
+            f"576 x {cfg.num_layers}")
     del engine
     prompts = serving_prompts(cfg)
     warm = DecodeEngine(model, params, scfg)
@@ -3003,6 +3040,9 @@ HYMBA_KERNELS = ("ragged_decode", "flash_attention", "mamba_step",
 GRANITE_FP32_LAYERS = 16
 # hymba's prompts past its 1024-token window, beside six of phase 3's
 HYMBA_LONG = (1500, 1200)
+# the hymba phase's depth: 16 of 32 layers, layers 0 and 15 global (phase
+# 24 serves all 32 through the same engine)
+HYMBA_SERVE_LAYERS = 16
 
 
 def family_serving(torch, model, params, prompts, kernels, per_step,
@@ -3201,17 +3241,19 @@ def hymba_prompts(cfg):
 
 
 def run_hymba_phase(torch):
-    """Full-width hymba-1.5b (32 layers, d_model 1600; in every layer GQA
-    attention, 25 heads on 5, head dim 64, sliding window 1024 but the
-    global layers 0, 15 and 31, beside a Mamba block of d_in 3200, N 16;
-    random bf16 weights from seed 0) through ``DecodeEngine`` with the
-    kernels on: 8 prompts, two of them past the window (``hymba_prompts``),
-    32 new tokens, 8 slots, ``max_len`` 2048, decode steps as graphs then
-    eager (``family_serving``): per decode step 32 launches each of ragged
-    decode and the Mamba step, per prefill 32 each of flash and the scan.
+    """Full-width hymba-1.5b (d_model 1600) cut to ``HYMBA_SERVE_LAYERS``
+    of 32 layers (phase 24 serves all 32; in every layer GQA attention, 25
+    heads on 5, head dim 64, sliding window 1024 but the global layers 0
+    and 15 of the cut, beside a Mamba block of d_in 3200, N 16; random
+    bf16 weights from seed 0) through ``DecodeEngine`` with the kernels
+    on: 8 prompts, two of them past the window (``hymba_prompts``), 32 new
+    tokens, 8 slots, ``max_len`` 2048, decode steps as graphs then eager
+    (``family_serving``): per decode step one launch a layer each of
+    ragged decode and the Mamba step, per prefill one a layer each of
+    flash and the scan.
     Then a decode step beside its bound, and for each weight seed of
     ``SSM_CHECK_SEEDS`` the kernel path against the plain path from a
-    1100-token prompt (past the window) at full depth: fp32 within 1e-3,
+    1100-token prompt (past the window) at the phase's depth: fp32 within 1e-3,
     bf16 within 1 + ``SSM_FLOOR_MARGIN`` of the model's own bf16 rounding
     floor, as falcon-mamba-7b is held.  Returns the graph run's
     launches."""
@@ -3220,13 +3262,16 @@ def run_hymba_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.models import ssm as S
     from repro_torch.models.model import build_model
-    cfg = get_config("hymba-1.5b")
+    full = get_config("hymba-1.5b")
+    cfg = dataclasses.replace(full, num_layers=HYMBA_SERVE_LAYERS)
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     d_in, R, N, _ = S.dims(cfg)
-    log(f"hymba-1.5b: {cfg.param_count() / 1e9:.2f} B params "
+    log(f"hymba-1.5b cut to {cfg.num_layers} of {full.num_layers} layers "
+        f"(phase 24 serves all {full.num_layers}): "
+        f"{cfg.param_count() / 1e9:.2f} B params "
         f"({cfg.num_layers} layers, window {cfg.window_size}, global "
         f"{cfg.global_attn_layers}; Mamba d_in {d_in}, dt_rank {R}, N {N}), "
         f"random bf16 weights ({param_bytes(params) / 1e9:.2f} GB) in "
@@ -4283,15 +4328,16 @@ def run_deepseek_training_phase(torch):
 # SSM and hybrid training: hymba-1.5b at full width and depth, B 2 x S 2048
 # (past its window of 1024: the window masks keys), the fp32 check at 3
 # layers (global layer 0 and two windowed ones); falcon-mamba-7b at its
-# published widths cut to 32 of 64 layers (fp32 masters, grads
-# and AdamW moments, 16 bytes a parameter: 58.1 GiB at 32; the full 64
-# would need 116 GB), B 4 x S 1024, the fp32 check at 2 layers
+# published widths cut to 16 of 64 layers (fp32 masters, grads
+# and AdamW moments, 16 bytes a parameter: 58.1 GiB at 32, the cut until
+# PR 34, which halved it for the script's time; the full 64 would need
+# 116 GB), B 4 x S 1024, the fp32 check at 2 layers
 # lr: falcon-mamba-7b's 8 steps at 3e-4 spike (loss 18 at step 2) into a
 # run whose last loss depends on the order of the scan backward's fp32
 # sums (launch/kernel_probe.py train-spread): at 1e-4 every valid
 # backward ends within 0.1 of the others; hymba-1.5b's agree at 3e-4
 SSM_TRAIN = {"hymba-1.5b": dict(B=2, S=2048, layers=None, check=3, lr=3e-4),
-             "falcon-mamba-7b": dict(B=4, S=1024, layers=32, check=2,
+             "falcon-mamba-7b": dict(B=4, S=1024, layers=16, check=2,
                                      lr=1e-4)}
 SSM_TRAIN_KERNELS = ("mamba_scan_train", "mamba_scan_bwd",
                      "flash_attention_lse_window",
@@ -5467,8 +5513,8 @@ def to_fp32(tree):
 
 
 def run_ssm_reference_checks(torch, model, S: int = 100):
-    """An SSM model (falcon-mamba-7b, hymba-1.5b) at full depth, for each
-    weight seed of ``SSM_CHECK_SEEDS``: four paths on the same tokens (an
+    """An SSM model (falcon-mamba-7b, hymba-1.5b) at its phase's depth, for
+    each weight seed of ``SSM_CHECK_SEEDS``: four paths on the same tokens (an
     S-token prompt, 5 steps), the kernel and the plain path in bf16 and on
     an fp32 copy of the same weights.  In fp32
     the kernel path must compute the plain path's function
@@ -6278,6 +6324,402 @@ def run_tp_kernel_checks(torch, reps: int = 20):
               4 * D * Hq * S * (S + 1) // 2)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: tensor-parallel serving of the SSM, hybrid and MoE/MLA decoders
+# ---------------------------------------------------------------------------
+
+# (arch, engine, serve config, decode-step kernels, prefill kernels)
+TP_FAMILIES = (
+    ("falcon-mamba-7b", "SSMEngine",
+     dict(max_slots=8, max_len=512, eos_id=-1, use_kernels=True),
+     ("mamba_step",), ("mamba_scan",)),
+    ("hymba-1.5b", "DecodeEngine", FAMILY_SERVE,
+     ("ragged_decode", "mamba_step"), ("flash_attention", "mamba_scan")),
+    ("deepseek-v2-lite-16b", "DecodeEngine", DEEPSEEK_SERVE, (),
+     ("flash_attention_d192",)))
+TP_FAMILY_NEW = 32
+TP_DEGREES = (2, 4, 8)
+TP_STEP_B, TP_STEP_DEAD = 8, 5          # slots of the emulated step, dead one
+TP_SCAN_S = 1024                        # the emulated scan's prompt
+# (label, d_model, d_in, dt_rank) of the emulated Mamba step and scan
+TP_MAMBA = (("falcon-mamba-7b", 4096, 8192, 256),
+            ("hymba-1.5b", 1600, 3200, 100))
+TP_MLA_H, TP_MLA_D = 16, 192            # deepseek-v2-lite's prefill heads
+
+
+def tp_family_prompts(arch, cfg):
+    return hymba_prompts(cfg) if arch == "hymba-1.5b" else \
+        serving_prompts(cfg)
+
+
+def run_tp_family_phase(torch):
+    """Phase 24 (a): falcon-mamba-7b through ``SSMEngine``, hybrid
+    hymba-1.5b and MoE/MLA deepseek-v2-lite-16b through ``DecodeEngine``
+    (the einsum dispatch, as their serving phases run them), each at full
+    width and depth, random bf16 weights from seed 0: the unsharded engine,
+    then the engine on a (1, 1) mesh with ``serve_engine_rules()`` under a
+    world-1 NCCL group, moved by ``reshard_to`` and ``apply(tp=1)`` before
+    decode step ``TP_RESHARD_AT``.  Each warmed by ``warm_compile(None)``;
+    streams must be bitwise the unsharded engine's, with 0 graph captures
+    after the warm-up and every kernel of its path launched.  Logs decode
+    p50 both ways, the move's ms and the peaks.  Returns the mesh runs'
+    launches."""
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.workloads as W
+    from repro_torch.configs import get_config
+    from repro_torch.core.composer import MeshComposer
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import build_model
+
+    card = card_line()
+    total = {}
+    p50 = lambda s: float(np.median(s[1:])) * 1e3
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        comp = MeshComposer(mesh)
+        for arch, engine_name, serve_kw, per_step, per_prefill in \
+                TP_FAMILIES:
+            t0 = time.perf_counter()
+            cls = getattr(W, engine_name)
+            cfg = get_config(arch)
+            model = build_model(cfg, "cuda")
+            params = model.init(torch.Generator(device="cuda").manual_seed(0))
+            scfg = W.ServeConfig(**serve_kw)
+            prompts = tp_family_prompts(arch, cfg)
+            one = cls(model, params, scfg)
+            one.warm_compile(None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            one_s, one_streams, _ = tp_serve(torch, one, prompts,
+                                             TP_FAMILY_NEW)
+            one_peak = torch.cuda.max_memory_allocated() / 2**30
+            del one
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eng = cls(model, params, scfg, mesh=comp.submesh([0], arch),
+                      rules=part.serve_engine_rules())
+            built = eng.warm_compile(None)
+            torch.cuda.synchronize()
+            captures = eng.graph_captures
+            names = per_step + per_prefill
+            reset_counts(names)
+            moved = {}
+
+            def move(e):
+                e.reshard_to(comp.submesh([0], arch + " moved"))
+                moved["applied"] = e.apply(None, DesignPoint(cus=0, tp=1))
+
+            step_s, streams, move_s = tp_serve(torch, eng, prompts,
+                                               TP_FAMILY_NEW, move)
+            counts = read_counts(names)
+            path_captures = eng.graph_captures - captures
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            shard, st = eng._shard, eng.stats()
+            del eng, params, model
+            gc.collect()
+            torch.cuda.empty_cache()
+            steps = len(step_s) - 1
+            L = cfg.num_layers
+            log(f"tp serving {arch} ({engine_name}), {L} layers, world 1 "
+                f"(NCCL), mesh (1, 1), serve_engine_rules(), shard ranks "
+                f"{shard.ranks} size {shard.size}: {len(prompts)} prompts, "
+                f"{TP_FAMILY_NEW} new tokens each, warm_compile built "
+                f"{built}; decode ms per step p50 {p50(step_s):.3f} on the "
+                f"mesh against {p50(one_s):.3f} unsharded; reshard_to + "
+                f"apply(tp=1) before step {TP_RESHARD_AT} took "
+                f"{move_s * 1e3:.3f} ms (applied {moved['applied']}, "
+                f"reshard_count {st['reshard_count']}); graph captures on "
+                f"the serving path {path_captures}; launches {counts}; peak "
+                f"{peak:.2f} GiB on the mesh, {one_peak:.2f} unsharded; "
+                f"{time.perf_counter() - t0:.1f} s ({card})")
+            require(streams == one_streams,
+                    f"tp serving {arch}: the mesh engine's streams differ "
+                    "from the unsharded engine's")
+            require(len(streams) == len(prompts) and all(
+                len(t) == TP_FAMILY_NEW for t in streams),
+                f"tp serving {arch}: streams incomplete")
+            require(path_captures == 0, f"tp serving {arch}: "
+                    f"{path_captures} graph captures after warm_compile")
+            require(all(counts[n] >= L * steps > 0 for n in per_step)
+                    and all(counts[n] > 0 for n in per_prefill),
+                    f"tp serving {arch}: launches {counts} for {steps} "
+                    "decode steps")
+            for n, c in counts.items():
+                total[n] = total.get(n, 0) + c
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def _rank_shards(whole, specs, tp: int, rank: int):
+    """Rank ``rank``'s shards of the whole tensors ``whole`` (name ->
+    tensor) at TP ``tp``, by the port's own slicing."""
+    from repro_torch.distribution import partitioning as part
+    rules = part.serve_engine_rules()
+    shard = part.TPShard(None, tuple(range(tp)), True, tp, rank)
+    return {k: shard.local(t, part.model_dim(specs[k], t.shape, rules, tp))
+            for k, t in whole.items()}
+
+
+def run_tp_family_kernels(torch, reps: int = 20):
+    """Phase 24 (b): tensor parallelism emulated on the one card.  The
+    Mamba step at falcon-mamba-7b's and hymba-1.5b's full layer widths, 8
+    slots (slot ``TP_STEP_DEAD`` dead), for TP 2, 4 and 8: one layer's
+    weights and state sliced into the ranks' shards by the port's own
+    slicing (``mamba_specs`` under ``serve_engine_rules()``), stage A run
+    for every rank, their fp32 x_proj sums added where the all-reduce
+    would run, stage B for every rank, their out_proj sums added, the
+    finish; the output and the concatenated conv windows and states
+    against the fused step on the whole layer (bf16 2e-2, fp32 1e-4).
+    These emulated launches are the staged step's counted path (one card
+    runs TP 1, where the engines take the fused step).  Each stage then
+    against its plain version, rank 0's shards, and rank 0's staged step
+    timed beside its plain version and its bound.  Then the selective scan
+    on each rank's channels (concatenated, against the whole scan and the
+    plain scan) and the flash forward at D 192 on each rank's share of
+    deepseek-v2-lite-16b's 16 heads, each rank's instance timed beside its
+    plain version, the library call where one exists, and its bound.
+    Returns (the staged step's kernels entry, its counted launches)."""
+    from repro_torch.analysis.roofline import flash_work, mamba_step_work
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,
+                                                    mamba_step_a_ref,
+                                                    mamba_step_b_ref,
+                                                    mamba_step_staged_ref)
+    from repro_torch.models import ssm as S
+
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    specs = S.mamba_specs(get_config("falcon-mamba-7b"))
+    B = TP_STEP_B
+    live = torch.ones(B, dtype=torch.bool, device="cuda")
+    live[TP_STEP_DEAD] = False
+    dead = ~live
+    nlive = B - 1
+    worst, timed, staged_counts = 0.0, None, 0
+    for label, d_model, d_in, R in TP_MAMBA:
+        cfg = get_config(label)
+        N, w = cfg.ssm.state_dim, cfg.ssm.conv_width
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            tol = TOL[dtype]
+            p = S.mamba_init(gen, cfg, dtype=dt, device="cuda")
+            x1 = torch.randn((B, 1, d_model), generator=gen,
+                             device="cuda").to(dt)
+            conv0 = torch.randn((B, w - 1, d_in), generator=gen,
+                                device="cuda").to(dt)
+            h0 = torch.randn((B, d_in, N), generator=gen,
+                             device="cuda") * 0.5
+            whole = [p[k] for k in MAMBA_ORDER]
+            c_all, h_all = conv0.clone(), h0.clone()
+            want = ms.mamba_step(x1, c_all, h_all, *whole, live=live)
+            # the layer's leaves and its slot's state, with their specs
+            leaves = dict(p, conv=conv0, h=h0)
+            leaf_specs = dict(specs, conv=(None, None, "ssm_inner"),
+                              h=(None, "ssm_inner", None))
+            for tp in TP_DEGREES:
+                ranks = [_rank_shards(leaves, leaf_specs, tp, r)
+                         for r in range(tp)]
+                # the counted path: every rank's stage A, the sum, every
+                # rank's stage B, the sum, the finish
+                reset_counts(("mamba_step_staged",))
+                stages = [ms.mamba_step_stage_a(
+                    x1, sh["conv"], sh["h"], *[sh[k] for k in MAMBA_ORDER],
+                    live=live) for sh in ranks]
+                dbc = stages[0][0].clone()
+                for st in stages[1:]:
+                    dbc += st[0]
+                out_sum = ms.mamba_step_stage_b(dbc, stages[0][1])
+                for st in stages[1:]:
+                    out_sum += ms.mamba_step_stage_b(dbc, st[1])
+                out = ms.mamba_step_finish(out_sum, stages[0][1])
+                torch.cuda.synchronize()
+                staged_counts += read_counts(("mamba_step_staged",))[
+                    "mamba_step_staged"]
+                c_cat = torch.cat([sh["conv"] for sh in ranks], 2)
+                h_cat = torch.cat([sh["h"] for sh in ranks], 1)
+                errs = [(g.float() - r.float()).abs().max().item()
+                        for g, r in ((out, want), (c_cat, c_all),
+                                     (h_cat, h_all))]
+                ok = (agree(out, want, tol) and agree(c_cat, c_all, tol)
+                      and agree(h_cat, h_all, tol))
+                dead_ok = bool((out[dead] == 0).all().item()
+                               and torch.equal(c_cat[dead], conv0[dead])
+                               and torch.equal(h_cat[dead], h0[dead]))
+                # each stage against its plain version, on fresh copies of
+                # rank 0's shards (the emulation advanced its state)
+                sh0 = _rank_shards(leaves, leaf_specs, tp, 0)
+                args0 = [sh0[k] for k in MAMBA_ORDER]
+                c0, hh0 = sh0["conv"].clone(), sh0["h"].clone()
+                dbc0, st0 = ms.mamba_step_stage_a(x1, c0, hh0, *args0,
+                                                  live=live)
+                want_dbc, _, _, want_conv = mamba_step_a_ref(
+                    x1, sh0["conv"], *args0[:4])
+                x_conv, z = st0.activations()
+                out0 = ms.mamba_step_stage_b(dbc0, st0)
+                want_out, want_h = mamba_step_b_ref(dbc0, x_conv, z,
+                                                    sh0["h"], *args0[4:])
+                fin = ms.mamba_step_finish(out0, st0)
+                torch.cuda.synchronize()
+                lv = live[:, None, None]
+                # a dead row's x_conv is zero in the kernel, so its x_proj
+                # sum is too; the plain version advances every row
+                stage_errs = [
+                    (dbc0[live] - want_dbc[live]).abs().max().item(),
+                    (out0[live] - want_out[live]).abs().max().item(),
+                    (hh0 - torch.where(lv, want_h, sh0["h"])).abs().max()
+                    .item()]
+                stage_ok = (agree(dbc0[live], want_dbc[live], tol)
+                            and agree(c0, torch.where(lv, want_conv,
+                                                      sh0["conv"]), tol)
+                            and agree(out0[live], want_out[live], tol)
+                            and agree(hh0, torch.where(lv, want_h,
+                                                       sh0["h"]), tol)
+                            and torch.equal(fin[live, 0],
+                                            out0[live].to(dt)))
+                log(f"mamba_step_staged {label} TP {tp} (d_in {d_in // tp} "
+                    f"a rank) {dtype}, {B} slots (slot {TP_STEP_DEAD} dead): "
+                    f"ranks summed vs the fused whole step max_abs_err out "
+                    f"{errs[0]:.3e} conv {errs[1]:.3e} h {errs[2]:.3e}; rank "
+                    f"0's stages vs plain: x_proj sum {stage_errs[0]:.3e}, "
+                    f"out_proj sum {stage_errs[1]:.3e}, h {stage_errs[2]:.3e};"
+                    f" tol {tol:.0e} abs + rel; dead row zero and "
+                    f"bit-unchanged {dead_ok}")
+                require(ok and dead_ok, f"mamba_step_staged {label} TP {tp} "
+                        f"{dtype}: the ranks' staged steps disagree with the "
+                        f"fused step")
+                require(stage_ok, f"mamba_step_staged {label} TP {tp} "
+                        f"{dtype}: a stage disagrees with its plain version")
+                if dtype == "bfloat16":
+                    worst = max(worst, *errs, *stage_errs)
+                    es = x1.element_size()
+                    c_t, h_t = sh0["conv"], sh0["h"]
+                    ms_ = time_ms(torch, lambda: ms.mamba_step_staged(
+                        x1, c_t, h_t, *args0, live=live), reps)
+                    plain_ms = time_ms(torch, lambda: mamba_step_staged_ref(
+                        x1, c_t, h_t, *args0, live=live), max(reps // 4, 3))
+                    nbytes, flops, exps = mamba_step_work(
+                        B, d_model, d_in // tp, R, N, w, es, nlive)
+                    b_ms, b_by = kernel_bound(nbytes, flops, dtype,
+                                              exps=exps)
+                    log(f"mamba_step_staged timing {label} TP {tp}, one "
+                        f"rank (d_in {d_in // tp}, bf16, {nlive} live of {B}"
+                        f" slots, one layer, no collective): kernel "
+                        f"{ms_:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                        f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB); "
+                        f"library none ({card})")
+                    if label == "falcon-mamba-7b" and tp == 2:
+                        timed = (ms_, plain_ms, b_ms, b_by)
+                del ranks, stages
+            del p, whole, leaves
+    torch.cuda.empty_cache()
+
+    # the selective scan on each rank's channels
+    for label, d_model, d_in, R in TP_MAMBA:
+        N = 16
+        a_log, d_vec = scan_params(torch, d_in, N)
+        x, delta, bm, cm = scan_inputs(torch, gen, TP_SCAN_S, d_in, R, N,
+                                       torch.bfloat16)
+        y_all, h_all = ms.mamba_scan(x, delta, bm, cm, a_log, d_vec)
+        for tp in TP_DEGREES:
+            n = d_in // tp
+            # each rank's channels, contiguous as a rank's prefill has them
+            chans = [[t[..., r * n:(r + 1) * n].contiguous()
+                      for t in (x, delta)]
+                     + [t[r * n:(r + 1) * n].contiguous()
+                        for t in (a_log, d_vec)] for r in range(tp)]
+            parts = [ms.mamba_scan(xr, dr, bm, cm, ar, vr)
+                     for xr, dr, ar, vr in chans]
+            y = torch.cat([q[0] for q in parts], -1)
+            h = torch.cat([q[1] for q in parts], 1)
+            xs, ds, al, dv = chans[0]
+            want_y, want_h = mamba_scan_ref(xs, ds, bm, cm, al, dv)
+            torch.cuda.synchronize()
+            tol = TOL["float32"]
+            err = max((y - y_all).abs().max().item(),
+                      (h - h_all).abs().max().item())
+            err_plain = max((parts[0][0] - want_y).abs().max().item(),
+                            (parts[0][1] - want_h).abs().max().item())
+            bitwise = torch.equal(y, y_all) and torch.equal(h, h_all)
+            require(agree(y, y_all, tol) and agree(h, h_all, tol)
+                    and agree(parts[0][0], want_y, tol)
+                    and agree(parts[0][1], want_h, tol),
+                    f"mamba_scan {label} TP {tp}: the ranks' scans disagree")
+            ms_ = time_ms(torch, lambda: ms.mamba_scan(xs, ds, bm, cm, al,
+                                                       dv), reps)
+            plain_ms = time_ms(torch, lambda: mamba_scan_ref(
+                xs, ds, bm, cm, al, dv), 3)
+            nbytes, exps, flops = scan_work(1, TP_SCAN_S, n, N, 2)
+            b_ms, b_by = kernel_bound(nbytes, flops, "float32", exps=exps)
+            log(f"mamba_scan {label} TP {tp} (S={TP_SCAN_S}, B=1, d_in {n} "
+                f"a rank, bf16): ranks concatenated vs the whole scan "
+                f"max_abs_err {err:.3e} (bitwise {bitwise}), rank 0 vs plain "
+                f"{err_plain:.3e}, tol {tol:.0e} abs + rel; kernel "
+                f"{ms_:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}); library none ({card})")
+        del x, delta, bm, cm
+
+    # the flash forward at D 192 on each rank's heads (MLA prefill)
+    F = torch.nn.functional
+    Sq, D, H = TP_SCAN_S, TP_MLA_D, TP_MLA_H
+    q, k, v = (torch.randn((1, Sq, H, D), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    v[..., 128:] = 0
+    o_all = fa.flash_attention(q, k, v, causal=True)
+    for tp in TP_DEGREES:
+        n = H // tp
+        heads = [[t[:, :, r * n:(r + 1) * n].contiguous() for t in (q, k, v)]
+                 for r in range(tp)]
+        outs = [fa.flash_attention(*hs, causal=True) for hs in heads]
+        o = torch.cat(outs, 2)
+        ql, kl, vl = heads[0]
+        want = flash_attention_ref(ql, kl, vl, causal=True)
+        torch.cuda.synchronize()
+        tol = TOL["bfloat16"]
+        err = (o.float() - o_all.float()).abs().max().item()
+        err_plain = (outs[0].float() - want.float()).abs().max().item()
+        require(agree(o, o_all, tol) and agree(outs[0], want, tol),
+                f"flash_attention D={D} TP {tp}: the ranks' heads disagree")
+        ms_ = time_ms(torch, lambda: fa.flash_attention(ql, kl, vl,
+                                                        causal=True), reps)
+        plain_ms = time_ms(torch, lambda: flash_attention_ref(
+            ql, kl, vl, causal=True), max(reps // 4, 3))
+        qh, kh, vh = (t.transpose(1, 2) for t in (ql, kl, vl))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), reps)
+        nbytes, flops = flash_work(ql.numel(), 2 * kl.numel(), D,
+                                   n * Sq * (Sq + 1) // 2, 2)
+        b_ms, b_by = kernel_bound(nbytes, flops, "bfloat16")
+        log(f"flash_attention D={D} TP {tp} ({n} of {H} heads a rank, S="
+            f"{Sq}, bf16 causal): ranks concatenated vs all heads "
+            f"max_abs_err {err:.3e}, rank 0 vs plain {err_plain:.3e}, tol "
+            f"{tol:.0e}; kernel {ms_:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}) ({card})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    ms_, plain_ms, b_ms, b_by = timed
+    return {"mamba_step_staged": dict(
+        name="mamba_step_staged", route="cuda",
+        source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan/kernel.py:107",
+        max_abs_err=worst, ms=ms_, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)}, staged_counts
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -6370,12 +6812,15 @@ def main() -> int:
 
     # falcon-mamba-7b through the SSM engine: max_len 512 is below three
     # of the prompts, which are served all the same (slot-bound admission)
-    cfg = get_config("falcon-mamba-7b")
+    full = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, num_layers=FALCON_SERVE_LAYERS)
     model = build_model(cfg, "cuda")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    log(f"falcon-mamba-7b: {cfg.param_count() / 1e9:.2f} B params, random "
+    log(f"falcon-mamba-7b cut to {cfg.num_layers} of {full.num_layers} "
+        f"layers (phase 24 serves all {full.num_layers}): "
+        f"{cfg.param_count() / 1e9:.2f} B params, random "
         f"bf16 weights in {time.perf_counter() - t0:.2f} s")
     scfg = ServeConfig(max_slots=8, max_len=512, eos_id=-1, use_kernels=True)
     arena = SSMEngine(model, params, scfg).arena
@@ -6450,6 +6895,13 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     run_tp_kernel_checks(torch)
     log(f"tp serving phase took {time.perf_counter() - t_tp:.1f} s, done at "
+        f"{phase_s()}")
+    t_tp = time.perf_counter()
+    for name, n in run_tp_family_phase(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    staged, launches["mamba_step_staged"] = run_tp_family_kernels(torch)
+    kernels.update(staged)
+    log(f"tp family phase took {time.perf_counter() - t_tp:.1f} s, done at "
         f"{phase_s()}")
     run_analysis_phase(torch)
     log(f"analysis phase done at {phase_s()}")

@@ -591,17 +591,55 @@ class ShardingPlan:
 # tensor-parallel step.
 # ---------------------------------------------------------------------------
 
+class Blocks(tuple):
+    """A logical spec whose dim on "model" is ``blocks`` equal tensors
+    concatenated: Mamba's ``in_proj`` (d, 2 d_in), its x columns then its
+    z columns on one "ssm_inner" dim.  It compares equal to the plain
+    spec (the reference's annotation); a serving rank's shard of such a
+    dim is the same slice of each block, concatenated (``model_dim``,
+    ``TPShard.local``), so that its x and z columns are those of its own
+    channels."""
+
+    def __new__(cls, spec, blocks: int = 2):
+        out = super().__new__(cls, spec)
+        out.blocks = blocks
+        return out
+
+    def __getnewargs__(self):
+        return tuple(self), self.blocks
+
+
+class BlockDim(int):
+    """A leaf's dim split over the model group, made of ``blocks`` equal
+    blocks, each split alike (``Blocks``)."""
+
+    def __new__(cls, dim: int, blocks: int):
+        out = super().__new__(cls, dim)
+        out.blocks = blocks
+        return out
+
+    def __getnewargs__(self):
+        return int(self), self.blocks
+
+
+def _blocks_of(dim) -> int:
+    return getattr(dim, "blocks", 1)
+
+
 def model_dim(logical: Optional[LogicalSpec], shape: Sequence[int],
               rules: Optional[ShardingRules], size: int) -> Optional[int]:
     """The dim of a leaf of ``shape`` that ``rules`` split over a
     ``size``-wide model dim, or None (whole): no rules, a 1-wide model
-    dim, or no dim on "model" that ``size`` divides."""
+    dim, or no dim on "model" that ``size`` divides.  A ``Blocks`` spec's
+    dim is split where ``size`` divides each block, and comes back as a
+    ``BlockDim``."""
     if rules is None or logical is None or size <= 1:
         return None
+    blocks = _blocks_of(logical)
     for dim, (n, entry) in enumerate(zip(shape, rules.spec(logical))):
         axes = entry if isinstance(entry, tuple) else (entry,)
-        if "model" in axes and n % size == 0:
-            return dim
+        if "model" in axes and n % (size * blocks) == 0:
+            return BlockDim(dim, blocks) if blocks > 1 else dim
     return None
 
 
@@ -656,16 +694,26 @@ class TPShard:
 
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim=dim)
+        blocks = _blocks_of(dim)
+        if blocks == 1:
+            return torch.cat(parts, dim=dim)
+        # each rank's shard holds its slice of every block, in block order
+        split = [p.chunk(blocks, dim) for p in parts]
+        return torch.cat([s[b] for b in range(blocks) for s in split],
+                         dim=dim)
 
     def local(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """This rank's shard of a whole tensor (the tensor itself when it
         stays whole; a copy of the slice otherwise, so that the whole one
-        can be freed)."""
+        can be freed); of a ``BlockDim``, its slice of each block."""
         if dim is None:
             return full
-        n = full.shape[dim] // self.size
-        return full.narrow(dim, self.index * n, n).clone()
+        blocks = _blocks_of(dim)
+        n = full.shape[dim] // (self.size * blocks)
+        if blocks == 1:
+            return full.narrow(dim, self.index * n, n).clone()
+        return torch.cat([b.narrow(dim, self.index * n, n)
+                          for b in full.chunk(blocks, dim)], dim=dim)
 
 
 def local_shape(shape: Sequence[int], dim: Optional[int],

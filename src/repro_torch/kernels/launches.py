@@ -28,6 +28,7 @@ COUNTERS = {"ragged_decode": (_rd, "launches"),
             "flash_attention_lse_cross": (_fa, "lse_cross_launches"),
             "flash_attention_bwd_cross": (_fa, "bwd_cross_launches"),
             "mamba_step": (_ms, "step_launches"),
+            "mamba_step_staged": (_ms, "staged_step_launches"),
             "mamba_scan": (_ms, "scan_launches"),
             "mamba_scan_train": (_ms, "scan_train_launches"),
             "mamba_scan_bwd": (_ms, "scan_bwd_launches"),

@@ -43,6 +43,16 @@
 //   for bit unchanged, and their output is zero.  The caches are updated
 //   in place, so a dead row is never written.
 //
+//   Under tensor parallelism a rank holds a slice of the d_in channels,
+//   and the two sums over them, x_proj's and out_proj's, are partial.
+//   mamba_step_stage cuts the step there: stage A (launches 1-3) writes
+//   x_proj's fp32 sum over the rank's channels, its split partials folded
+//   in split order and not rounded; the caller adds the ranks' sums (an
+//   all-reduce on the stream); stage B rounds that dbc and runs launches
+//   5-7, writing out_proj's fp32 sum the same way; after the second sum a
+//   finish rounds the output, dead rows zeros.  Dead rows keep their state
+//   in both stages.  A one-rank group takes the fused launches above.
+//
 // * mamba_scan / _scan_kernel, the selective scan of a prefill.  The
 //   Pallas kernel walks the sequence as a sequential grid axis with the
 //   state in VMEM scratch; here a loop over time inside the block takes its
@@ -398,7 +408,7 @@ struct MmaArgs {
   const __nv_bfloat16* x;   // this pass's rows of (B, K), stride ldx
   const __nv_bfloat16* w;   // (K, N) row-major
   float* part;              // (splits, B, N) fp32 partial sums, or
-  __nv_bfloat16* out;       // (B, N) rounded result when splits == 1
+  __nv_bfloat16* out;       // (B, N) rounded result (splits == 1)
   int B, r0, rows, K, N;
   long long ldx;
   int span, splits, items;
@@ -543,7 +553,7 @@ mamba_step_mma_kernel(MmaArgs a) {
       }
       if (b < a.rows && n < a.N) {
         const long long row = a.r0 + b;
-        if (a.splits == 1) {
+        if (a.out != nullptr) {
           a.out[row * a.N + n] = __float2bfloat16(sum);
         } else {
           a.part[(static_cast<long long>(split) * a.B + row) * a.N + n] = sum;
@@ -592,7 +602,8 @@ cudaError_t skinny_mma(const void* x, long long ldx, const void* w,
 
 // A product's result as the next launch reads it: fp32 partial sums per
 // split, summed in split order, or the rounded activation-dtype output of
-// an unsplit tensor-core product.
+// an unsplit tensor-core product.  ``fp32_out``: partial sums whatever the
+// plan (a product the staged step sums over ranks before it rounds).
 struct ProdOut {
   const float* part;     // (splits, B, width), or null
   const void* direct;    // (B, width), or null
@@ -602,8 +613,9 @@ struct ProdOut {
 template <typename T>
 cudaError_t skinny(const void* x, long long ldx, const void* w, int B, int K,
                    int N, const ProductPlan& p, float*& part, T*& direct,
-                   ProdOut& res, cudaStream_t s, bool overlap) {
-  if (p.route == kMma && p.splits == 1) {
+                   ProdOut& res, cudaStream_t s, bool overlap,
+                   bool fp32_out = false) {
+  if (p.route == kMma && p.splits == 1 && !fp32_out) {
     res = ProdOut{nullptr, direct, 1};
     T* out = direct;
     direct += (static_cast<long long>(B) * N + 7) / 8 * 8;
@@ -715,6 +727,25 @@ __global__ void __launch_bounds__(kEpiThreads) mamba_step_round_kernel(RoundArgs
   *o = from_f<T>(prod_at<T>(a.in, a.B, a.width, b, n));
 }
 
+// the staged step's sums over a rank's channels: a product's fp32 result,
+// its split partials added in split order, unrounded
+struct FoldArgs {
+  ProdOut in;          // (B, width)
+  float* out;          // (B, width)
+  int B, width;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kEpiThreads) mamba_step_fold_kernel(FoldArgs a) {
+  pdl_launch_dependents();
+  pdl_wait();
+  const int n = blockIdx.x * kEpiThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  if (n >= a.width) return;
+  a.out[static_cast<long long>(b) * a.width + n] =
+      prod_at<T>(a.in, a.B, a.width, b, n);
+}
+
 struct SsmArgs {
   ProdOut dt;          // dt_proj's (B, d_in)
   const int* live;
@@ -802,6 +833,8 @@ struct StepArgs {
   long long conv_sb, conv_sw, h_sb;
   ProductPlan plan[4];  // in_proj, x_proj, dt_proj, out_proj
   bool overlap;
+  float* dbc_sum;       // staged: x_proj's fp32 sum (B, R + 2N)
+  float* out_sum;       // staged: out_proj's fp32 sum (B, d_model)
 };
 
 #define REPRO_TRY(expr)                          \
@@ -860,6 +893,93 @@ cudaError_t step_for_n(const StepArgs& a, cudaStream_t s) {
     case 4: return step<T, 4>(a, s);
     case 8: return step<T, 8>(a, s);
     case 16: return step<T, 16>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The staged step: the fused step on one rank's channels of a
+// tensor-parallel group, cut at its two sums over the channels so that
+// the caller can add the ranks' fp32 sums between the stages (an
+// all-reduce on the same stream).  Stage A is launches 1-3 and a fold of
+// x_proj's partials into dbc_sum; stage B rounds the summed dbc and runs
+// launches 5-7 and a fold of out_proj's partials into out_sum; the finish
+// rounds the summed out_sum, dead rows zeros.  The rounding points are the
+// fused step's; act carries x_conv and z from stage A to stage B.
+template <typename T>
+cudaError_t stage_a(const StepArgs& a, cudaStream_t s) {
+  T* xconv = static_cast<T*>(a.act);
+  T* z = xconv + pad8(static_cast<long long>(a.B) * a.d_in);
+  const int wdbc = a.R + 2 * a.N;
+  const dim3 chan((a.d_in + kEpiThreads - 1) / kEpiThreads, a.B);
+  const dim3 epi(kEpiThreads);
+  const bool ov = a.overlap;
+  float* part = a.part;
+  T* direct = static_cast<T*>(a.prod);
+  ProdOut r;
+
+  REPRO_TRY(skinny<T>(a.x1, a.d_model, a.in_proj, a.B, a.d_model,
+                      2 * a.d_in, a.plan[0], part, direct, r, s, ov));
+  const ConvArgs ca{r, a.live, a.conv, a.conv_w, a.conv_b, xconv, z,
+                    a.B, a.d_in, a.w, a.conv_sb, a.conv_sw};
+  REPRO_TRY(launch(mamba_step_conv_kernel<T>, chan, epi, 0, s, ov, ca));
+  REPRO_TRY(skinny<T>(xconv, a.d_in, a.x_proj, a.B, a.d_in, wdbc,
+                      a.plan[1], part, direct, r, s, ov, true));
+  const FoldArgs fa{r, a.dbc_sum, a.B, wdbc};
+  return launch(mamba_step_fold_kernel<T>,
+                dim3((wdbc + kEpiThreads - 1) / kEpiThreads, a.B), epi, 0, s,
+                ov, fa);
+}
+
+template <typename T, int N>
+cudaError_t stage_b(const StepArgs& a, cudaStream_t s) {
+  T* xconv = static_cast<T*>(a.act);
+  T* z = xconv + pad8(static_cast<long long>(a.B) * a.d_in);
+  T* y = z + pad8(static_cast<long long>(a.B) * a.d_in);
+  T* dbc = y + pad8(static_cast<long long>(a.B) * a.d_in);
+  const int wdbc = a.R + 2 * N;
+  const dim3 chan((a.d_in + kEpiThreads - 1) / kEpiThreads, a.B);
+  const dim3 epi(kEpiThreads);
+  const bool ov = a.overlap;
+  float* part = a.part;
+  T* direct = static_cast<T*>(a.prod);
+  ProdOut r;
+
+  const RoundArgs ra{ProdOut{a.dbc_sum, nullptr, 1}, nullptr, dbc, a.B,
+                     wdbc};
+  REPRO_TRY(launch(mamba_step_round_kernel<T>,
+                   dim3((wdbc + kEpiThreads - 1) / kEpiThreads, a.B), epi, 0,
+                   s, ov, ra));
+  REPRO_TRY(skinny<T>(dbc, wdbc, a.dt_proj, a.B, a.R, a.d_in, a.plan[2],
+                      part, direct, r, s, ov));
+  const SsmArgs sa{r, a.live, dbc, xconv, z, a.dt_bias, a.a_log, a.d, a.h, y,
+                   a.B, a.d_in, a.R, a.h_sb};
+  REPRO_TRY(launch(mamba_step_ssm_kernel<T, N>, chan, epi, 0, s, ov, sa));
+  REPRO_TRY(skinny<T>(y, a.d_in, a.out_proj, a.B, a.d_in, a.d_model,
+                      a.plan[3], part, direct, r, s, ov, true));
+  const FoldArgs fa{r, a.out_sum, a.B, a.d_model};
+  return launch(mamba_step_fold_kernel<T>,
+                dim3((a.d_model + kEpiThreads - 1) / kEpiThreads, a.B), epi,
+                0, s, ov, fa);
+}
+
+template <typename T>
+cudaError_t stage_finish(const StepArgs& a, cudaStream_t s) {
+  const RoundArgs oa{ProdOut{a.out_sum, nullptr, 1}, a.live, a.out, a.B,
+                     a.d_model};
+  return launch(mamba_step_round_kernel<T>,
+                dim3((a.d_model + kEpiThreads - 1) / kEpiThreads, a.B),
+                dim3(kEpiThreads), 0, s, a.overlap, oa);
+}
+
+template <typename T>
+cudaError_t stage_for(const StepArgs& a, int stage, cudaStream_t s) {
+  if (stage == 0) return stage_a<T>(a, s);
+  if (stage == 2) return stage_finish<T>(a, s);
+  if (stage != 1) return cudaErrorInvalidValue;
+  switch (a.N) {
+    case 4: return stage_b<T, 4>(a, s);
+    case 8: return stage_b<T, 8>(a, s);
+    case 16: return stage_b<T, 16>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1943,6 +2063,46 @@ extern "C" int mamba_step(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return static_cast<int>(step_for_n<__nv_bfloat16>(a, s));
   if (dtype == kF32) return static_cast<int>(step_for_n<float>(a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// mamba_step_stage: one stage of the staged step (stage 0: A, 1: B, 2: the
+// finish), on a rank's d_in channels, arguments as mamba_step's (a stage
+// reads only its own: A x1, conv, in_proj, conv_w, conv_b, x_proj; B h,
+// dt_proj, dt_bias, a_log, d, out_proj; the finish out) and the fp32 sums
+// dbc_sum (B, R + 2N), written by A and read by B, and out_sum (B,
+// d_model), written by B and read by the finish.  act carries x_conv and
+// z from A to B.  part and prod: the stage's own products' scratch, as
+// mamba_step sizes them, x_proj and out_proj always among the split ones.
+extern "C" int mamba_step_stage(
+    int stage, const void* x1, void* conv, void* h, const void* live,
+    const void* in_proj, const void* conv_w, const void* conv_b,
+    const void* x_proj, const void* dt_proj, const void* dt_bias,
+    const void* a_log, const void* d, const void* out_proj, void* out,
+    void* dbc_sum, void* out_sum, void* part, void* prod, void* act,
+    const int* plan, int B, int d_model, int d_in, int R, int N, int w,
+    long long conv_sb, long long conv_sw, long long h_sb, int overlap,
+    int dtype, void* stream) {
+  using namespace repro;
+  if (B == 0) return 0;
+  if (w < 1 || w > kMaxConv) return static_cast<int>(cudaErrorInvalidValue);
+  StepArgs a{x1, conv, static_cast<float*>(h), static_cast<const int*>(live),
+             in_proj, static_cast<const float*>(conv_w),
+             static_cast<const float*>(conv_b), x_proj, dt_proj,
+             static_cast<const float*>(dt_bias),
+             static_cast<const float*>(a_log), static_cast<const float*>(d),
+             out_proj, out, static_cast<float*>(part), prod, act, B, d_model,
+             d_in, R, N, w, conv_sb, conv_sw, h_sb, {}, overlap != 0,
+             static_cast<float*>(dbc_sum), static_cast<float*>(out_sum)};
+  for (int i = 0; i < 4; ++i) {
+    a.plan[i] = ProductPlan{plan[4 * i], plan[4 * i + 1], plan[4 * i + 2],
+                            plan[4 * i + 3]};
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    return static_cast<int>(stage_for<__nv_bfloat16>(a, stage, s));
+  }
+  if (dtype == kF32) return static_cast<int>(stage_for<float>(a, stage, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,6 +17,17 @@ block: a producer warp keeps 64-step tiles of x, dt, B and C in flight
 a channel's states per lane in registers, each exponential one MUFU.EX2;
 ``scan_plan()`` spreads the channels evenly over the card from host ints.
 
+Tensor parallelism: a rank holds a slice of the d_in channels, and the
+step's two sums over them (x_proj's, out_proj's) are partial.
+``mamba_step_staged`` runs the step in the kernel's staged entry: stage A
+(in_proj, conv, x_proj) leaves x_proj's fp32 sum over the rank's channels,
+the caller's ``reduce`` adds the ranks' sums on the stream, stage B
+(dbc rounded, dt_proj, the state update, out_proj) leaves out_proj's, and
+after the second sum the finish rounds it.  ``mamba_step_stage_a``,
+``mamba_step_stage_b`` and ``mamba_step_finish`` are the three launches
+(``staged_step_launches`` counts stage A's); a one-rank group takes
+``mamba_step``.
+
 Training: ``SelectiveScanFn`` is the reference's ``fused_selective_scan``
 custom VJP (``models/ssm.py:_fss_fwd`` / ``_fss_bwd``).  Its forward
 launches the scan with its boundary output (the state before every
@@ -37,25 +48,29 @@ A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel or raises; a ``meta`` tensor (the dry run) gives the outputs'
 shapes and reports the kernel's work, by the formula of its bound, to
 ``repro_torch.analysis.opcount`` (the step: every slot live).
-``step_launches``, ``scan_launches``,
+``step_launches``, ``staged_step_launches``, ``scan_launches``,
 ``scan_train_launches`` and ``scan_bwd_launches`` count the calls that
 launched a kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan.ref import (SCAN_CHUNK, mamba_scan_ref,
+                                                mamba_step_a_ref,
+                                                mamba_step_b_ref,
                                                 mamba_step_ref,
                                                 selective_scan_bwd_ref,
                                                 selective_scan_fwd_ref)
 
 step_launches = 0
+staged_step_launches = 0
 scan_launches = 0
 scan_train_launches = 0
 scan_bwd_launches = 0
@@ -90,6 +105,14 @@ def _step_fn():
     fn = _build.load_library().mamba_step
     fn.restype = ctypes.c_int
     fn.argtypes = [_P] * 18 + [_I] * 6 + [_L] * 3 + [_I] * 2 + [_P]
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _stage_fn():
+    fn = _build.load_library().mamba_step_stage
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I] + [_P] * 20 + [_I] * 6 + [_L] * 3 + [_I] * 2 + [_P]
     return fn
 
 
@@ -259,6 +282,48 @@ def _check_step(x1, conv, h, live, weights, fp32s):
           and live.shape == (B,), "mamba_step: row counts disagree")
 
 
+def _step_shapes(x1, conv, h, in_proj, conv_w, x_proj, dt_proj, a_log,
+                 out_proj):
+    """(B, d_model, d_in, R, N, w) of a step, its weight shapes checked."""
+    B, _, d_model = x1.shape
+    d_in, N = h.shape[1], h.shape[2]
+    R = dt_proj.shape[0]
+    w = conv.shape[1] + 1
+    _need(in_proj.shape == (d_model, 2 * d_in)
+          and x_proj.shape == (d_in, R + 2 * N)
+          and dt_proj.shape == (R, d_in) and out_proj.shape == (d_in, d_model)
+          and conv_w.shape == (w, d_in) and a_log.shape == (d_in, N),
+          "mamba_step: weight shapes disagree with x1, conv and h")
+    return B, d_model, d_in, R, N, w
+
+
+def _step_plans(x2, weights, B, d_model, d_in, wdbc, R, sms):
+    """The four products' plans (in_proj, x_proj, dt_proj, out_proj) and
+    their output widths."""
+    in_proj, x_proj, dt_proj, out_proj = weights
+    plans = [_product_plan(B, d_model, 2 * d_in, d_model, x2.data_ptr(),
+                           in_proj, sms),
+             _product_plan(B, d_in, wdbc, d_in, 0, x_proj, sms),
+             _product_plan(B, R, d_in, wdbc, 0, dt_proj, sms),
+             _product_plan(B, d_in, d_model, d_in, 0, out_proj, sms)]
+    return plans, (2 * d_in, wdbc, d_in, d_model)
+
+
+def _scratch(plans, widths, B, which, fp32_out, dev, act_dtype):
+    """The fp32 partials and the activation-dtype direct outputs of the
+    products ``which`` (indices into ``plans``); those in ``fp32_out``
+    write partials whatever their plan."""
+    direct = {i: plans[i].route == _MMA and plans[i].splits == 1
+              and i not in fp32_out for i in which}
+    part = torch.empty(max(1, sum(plans[i].splits * B * widths[i]
+                                  for i in which if not direct[i])),
+                       dtype=torch.float32, device=dev)
+    prod = torch.empty(max(1, sum(_ceil(B * widths[i], 8) * 8
+                                  for i in which if direct[i])),
+                       dtype=act_dtype, device=dev)
+    return part, prod
+
+
 def mamba_step(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
                dt_bias, a_log, d, out_proj, *, live=None):
     """One decode token through a Mamba block.  x1: (B, 1, d_model); conv:
@@ -282,35 +347,18 @@ def mamba_step(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
         opcount.kernel("mamba_step", flops, nbytes)
         return torch.empty((B, 1, d_model), dtype=x1.dtype, device=x1.device)
     B, _, d_model = x1.shape
-    live_i = (torch.ones(B, dtype=torch.int32, device=x1.device)
-              if live is None
-              else live.to(device=x1.device, dtype=torch.int32).contiguous())
+    live_i = _live_rows(live, B, x1.device)
     weights = (in_proj, x_proj, dt_proj, out_proj)
     fp32s = (conv_w, conv_b, dt_bias, a_log, d)
     x2 = x1.reshape(B, d_model)
     _check_step(x2, conv, h, live_i, weights, fp32s)
-    d_in, N = h.shape[1], h.shape[2]
-    R = dt_proj.shape[0]
-    w = conv.shape[1] + 1
-    _need(in_proj.shape == (d_model, 2 * d_in)
-          and x_proj.shape == (d_in, R + 2 * N)
-          and dt_proj.shape == (R, d_in) and out_proj.shape == (d_in, d_model)
-          and conv_w.shape == (w, d_in) and a_log.shape == (d_in, N),
-          "mamba_step: weight shapes disagree with x1, conv and h")
+    B, d_model, d_in, R, N, w = _step_shapes(x1, conv, h, in_proj, conv_w,
+                                             x_proj, dt_proj, a_log, out_proj)
     sms = _build.sm_count(x1.device.index or 0)
     wdbc = R + 2 * N
-    plans = [_product_plan(B, d_model, 2 * d_in, d_model, x2.data_ptr(),
-                           in_proj, sms),
-             _product_plan(B, d_in, wdbc, d_in, 0, x_proj, sms),
-             _product_plan(B, R, d_in, wdbc, 0, dt_proj, sms),
-             _product_plan(B, d_in, d_model, d_in, 0, out_proj, sms)]
-    widths = (2 * d_in, wdbc, d_in, d_model)
-    direct = [p.route == _MMA and p.splits == 1 for p in plans]
+    plans, widths = _step_plans(x2, weights, B, d_model, d_in, wdbc, R, sms)
     dev, act_dtype = x1.device, x1.dtype
-    part = torch.empty(max(1, sum(p.splits * B * n for p, n, dr in zip(
-        plans, widths, direct) if not dr)), dtype=torch.float32, device=dev)
-    prod = torch.empty(max(1, sum(_ceil(B * n, 8) * 8 for n, dr in zip(
-        widths, direct) if dr)), dtype=act_dtype, device=dev)
+    part, prod = _scratch(plans, widths, B, range(4), (), dev, act_dtype)
     act = torch.empty(3 * _ceil(B * d_in, 8) * 8 + B * wdbc,
                       dtype=act_dtype, device=dev)
     out = torch.empty((B, 1, d_model), dtype=act_dtype, device=dev)
@@ -328,6 +376,174 @@ def mamba_step(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
     _build.check(err, "mamba_step")
     step_launches += 1
     return out
+
+
+def _live_rows(live, B: int, device):
+    """(B,) int32 live flags on ``device`` (every row live by default)."""
+    if live is None:
+        return torch.ones(B, dtype=torch.int32, device=device)
+    return live.to(device=device, dtype=torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the staged step: one rank's channels of a tensor-parallel group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StepStage:
+    """What a staged step carries from stage A to stage B and the finish:
+    its tensors (x1, conv, h and the weights, as ``mamba_step`` takes
+    them), the rows' live flags, and the activations stage A leaves: on
+    the card the scratch that holds x_conv and z (stage B adds y and the
+    rounded dbc), on the CPU x_conv and z themselves."""
+
+    args: tuple
+    live: Any
+    act: Optional[torch.Tensor] = None
+    x_conv: Optional[torch.Tensor] = None
+    z: Optional[torch.Tensor] = None
+
+    def activations(self):
+        """(x_conv, z), each (B, d_in) in x1's dtype, as stage A left
+        them (views of the card's scratch)."""
+        if self.act is None:
+            return self.x_conv, self.z
+        B, d_in = self.args[0].shape[0], self.args[2].shape[1]
+        n = _ceil(B * d_in, 8) * 8
+        return (self.act[:B * d_in].view(B, d_in),
+                self.act[n:n + B * d_in].view(B, d_in))
+
+
+def _stage_launch(stage: int, st: StepStage, *, dbc=None, out_sum=None,
+                  out=None, which=(), fp32_out=()):
+    """Launch one stage of ``mamba_step_stage`` on ``st``'s tensors."""
+    (x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias, a_log,
+     d, out_proj) = st.args
+    B, d_model, d_in, R, N, w = _step_shapes(x1, conv, h, in_proj, conv_w,
+                                             x_proj, dt_proj, a_log, out_proj)
+    weights = (in_proj, x_proj, dt_proj, out_proj)
+    x2 = x1.reshape(B, d_model)
+    dev, act_dtype = x1.device, x1.dtype
+    plans, widths = _step_plans(x2, weights, B, d_model, d_in, R + 2 * N, R,
+                                _build.sm_count(dev.index or 0))
+    part, prod = _scratch(plans, widths, B, which, fp32_out, dev, act_dtype)
+    plan_arg = (ctypes.c_int * 16)(*(v for p in plans for v in p[:4]))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _stage_fn()(
+        stage, x2.data_ptr(), conv.data_ptr(), h.data_ptr(),
+        st.live.data_ptr(), in_proj.data_ptr(), conv_w.data_ptr(),
+        conv_b.data_ptr(), x_proj.data_ptr(), dt_proj.data_ptr(),
+        dt_bias.data_ptr(), a_log.data_ptr(), d.data_ptr(),
+        out_proj.data_ptr(), ptr(out), ptr(dbc), ptr(out_sum),
+        part.data_ptr(), prod.data_ptr(), st.act.data_ptr(),
+        ctypes.addressof(plan_arg), B, d_model, d_in, R, N, w,
+        conv.stride(0), conv.stride(1), h.stride(0), int(overlap),
+        _DTYPES[act_dtype], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"mamba_step_stage {stage}")
+
+
+def mamba_step_stage_a(x1, conv, h, in_proj, conv_w, conv_b, x_proj,
+                       dt_proj, dt_bias, a_log, d, out_proj, *, live=None):
+    """Stage A of the staged step on a rank's d_in channels (arguments as
+    ``mamba_step``'s, the weights this rank's shards; ``in_proj`` (d_model,
+    2 d_in) its x columns then its z columns): in_proj, the conv (the
+    window advances in place for live rows) and x_proj -> (dbc (B, R + 2N)
+    fp32, x_proj's sum over these channels, unrounded; the ``StepStage``
+    that stage B takes).  ``staged_step_launches`` counts the calls that
+    launched it."""
+    global staged_step_launches
+    args = (x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias,
+            a_log, d, out_proj)
+    B = x1.shape[0]
+    if x1.device.type == "cpu":
+        dbc, x_conv, z, new_conv = mamba_step_a_ref(x1, conv, in_proj,
+                                                    conv_w, conv_b, x_proj)
+        st = StepStage(args, live, x_conv=x_conv, z=z)
+        _keep_dead(conv, new_conv, live)
+        return dbc, st
+    _need(x1.device.type == "cuda", "mamba_step_stage_a takes CPU or CUDA "
+          "tensors")
+    live_i = _live_rows(live, B, x1.device)
+    _check_step(x1.reshape(B, -1), conv, h, live_i,
+                (in_proj, x_proj, dt_proj, out_proj),
+                (conv_w, conv_b, dt_bias, a_log, d))
+    d_in, N, R = h.shape[1], h.shape[2], dt_proj.shape[0]
+    st = StepStage(args, live_i, act=torch.empty(
+        3 * _ceil(B * d_in, 8) * 8 + B * (R + 2 * N), dtype=x1.dtype,
+        device=x1.device))
+    dbc = torch.empty((B, R + 2 * N), dtype=torch.float32, device=x1.device)
+    _stage_launch(0, st, dbc=dbc, which=(0, 1), fp32_out=(1,))
+    staged_step_launches += 1
+    return dbc, st
+
+
+def mamba_step_stage_b(dbc, st: StepStage):
+    """Stage B from ``dbc``, x_proj's fp32 sum over every rank's channels
+    (B, R + 2N): dbc rounded, dt_proj, the state update (h advances in
+    place for live rows) and out_proj -> (B, d_model) fp32, out_proj's sum
+    over this rank's channels, unrounded."""
+    x1, _, h = st.args[:3]
+    dt_proj, dt_bias, a_log, d, out_proj = st.args[7:]
+    B, d_model = x1.shape[0], x1.shape[2]
+    if x1.device.type == "cpu":
+        out, h_new = mamba_step_b_ref(dbc, st.x_conv, st.z, h, dt_proj,
+                                      dt_bias, a_log, d, out_proj)
+        _keep_dead(h, h_new, st.live)
+        return out
+    _need(dbc.dtype == torch.float32 and dbc.is_contiguous()
+          and dbc.shape == (B, dt_proj.shape[0] + 2 * h.shape[2]),
+          "mamba_step_stage_b takes stage A's (B, R + 2N) fp32 sum")
+    out = torch.empty((B, d_model), dtype=torch.float32, device=x1.device)
+    _stage_launch(1, st, dbc=dbc, out_sum=out, which=(2, 3), fp32_out=(3,))
+    return out
+
+
+def mamba_step_finish(out_sum, st: StepStage):
+    """The step's output from ``out_sum``, out_proj's fp32 sum over every
+    rank's channels (B, d_model): rounded to x1's dtype, dead rows zeros
+    -> (B, 1, d_model)."""
+    x1 = st.args[0]
+    B, d_model = x1.shape[0], x1.shape[2]
+    if x1.device.type == "cpu":
+        out = out_sum.to(x1.dtype)[:, None]
+        if st.live is not None:
+            lv = st.live.to(dtype=torch.bool)[:, None, None]
+            out = torch.where(lv, out, torch.zeros_like(out))
+        return out
+    _need(out_sum.dtype == torch.float32 and out_sum.is_contiguous()
+          and out_sum.shape == (B, d_model),
+          "mamba_step_finish takes stage B's (B, d_model) fp32 sum")
+    out = torch.empty((B, 1, d_model), dtype=x1.dtype, device=x1.device)
+    _stage_launch(2, st, out_sum=out_sum, out=out)
+    return out
+
+
+def _keep_dead(state, new, live) -> None:
+    """Copy ``new`` into ``state`` in place for the live rows."""
+    if live is not None:
+        lv = live.to(device=state.device, dtype=torch.bool)
+        new = torch.where(lv.view(-1, *([1] * (state.ndim - 1))), new, state)
+    state.copy_(new)
+
+
+def mamba_step_staged(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
+                      dt_bias, a_log, d, out_proj, *, live=None,
+                      reduce: Callable = None):
+    """``mamba_step`` on one rank's d_in channels of a tensor-parallel
+    group: stage A, ``reduce(dbc)`` (the group's all-reduce of x_proj's
+    fp32 sum, in place, on the current stream), stage B,
+    ``reduce(out_sum)``, the finish.  Nothing waits on the host, so a
+    decode graph captures it.  Arguments and result as ``mamba_step``'s,
+    the weights this rank's shards."""
+    dbc, st = mamba_step_stage_a(x1, conv, h, in_proj, conv_w, conv_b,
+                                 x_proj, dt_proj, dt_bias, a_log, d,
+                                 out_proj, live=live)
+    if reduce is not None:
+        reduce(dbc)
+    out_sum = mamba_step_stage_b(dbc, st)
+    if reduce is not None:
+        reduce(out_sum)
+    return mamba_step_finish(out_sum, st)
 
 
 def _check_scan(x, dt, b, c, a_log, d, what: str):

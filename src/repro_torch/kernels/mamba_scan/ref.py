@@ -8,6 +8,11 @@ and out are rounded to the activation dtype; the conv sum, softplus, the
 recurrence and y are fp32.  It is functional: the kernel's wrapper and the
 model copy its new state into the cache.
 
+``mamba_step_staged_ref`` is the same step on one rank's channels of a
+tensor-parallel group, split at its two sums over the channels (x_proj's
+and out_proj's), which a caller's ``reduce`` completes in fp32; the CUDA
+step's staged entry computes it on the card.
+
 ``skinny_product_spec`` is the order in which the bf16 step kernel sums
 one weight product on the tensor cores, for the tests.
 
@@ -72,6 +77,71 @@ def mamba_step_ref(x1, conv, h, in_proj, conv_w, conv_b, x_proj, dt_proj,
     y = (y * F.silu(z[:, 0].to(f32)))[:, None].to(act)
     out = y @ out_proj.to(act)
     new_conv = window[:, 1:].to(conv.dtype)
+    if live is not None:
+        lv = live.to(device=x1.device, dtype=torch.bool)[:, None, None]
+        out = torch.where(lv, out, torch.zeros_like(out))
+        new_conv = torch.where(lv, new_conv, conv)
+        h_new = torch.where(lv, h_new, h)
+    return out, new_conv, h_new
+
+
+def mamba_step_a_ref(x1, conv, in_proj, conv_w, conv_b, x_proj):
+    """The step's first stage on a rank's channels: in_proj, the conv and
+    x_proj, whose output is a sum over the channels.  x1: (B, 1, d_model);
+    conv: (B, w-1, d_in) -> (dbc (B, R + 2N) fp32, the x_proj product
+    over these channels, unrounded; x_conv and z (B, d_in) in x1's dtype;
+    new_conv).  ``mamba_step_ref``'s arithmetic up to x_proj."""
+    f32 = torch.float32
+    act = x1.dtype
+    xz = x1 @ in_proj.to(act)
+    x_part, z = xz.chunk(2, dim=-1)
+    window = torch.cat([conv.to(act), x_part], dim=1)
+    xc = torch.einsum("bwd,wd->bd", window.to(f32),
+                      conv_w.to(f32)) + conv_b.to(f32)
+    x_conv = F.silu(xc).to(act)                           # (B, d_in)
+    dbc = x_conv.to(f32) @ x_proj.to(act).to(f32)
+    return dbc, x_conv, z[:, 0], window[:, 1:].to(conv.dtype)
+
+
+def mamba_step_b_ref(dbc, x_conv, z, h, dt_proj, dt_bias, a_log, d,
+                     out_proj):
+    """The second stage from the x_proj sum over every channel, ``dbc``
+    (B, R + 2N) fp32: dbc rounded to the activation dtype, dt_proj, the
+    state update and out_proj, whose output is again a sum over the
+    channels -> (out (B, d_model) fp32, unrounded; new_h)."""
+    f32 = torch.float32
+    act = x_conv.dtype
+    dt_rank, n = dt_proj.shape[0], a_log.shape[1]
+    dt_raw, b_ssm, c_ssm = torch.split(dbc.to(act), [dt_rank, n, n], dim=-1)
+    dt = softplus((dt_raw @ dt_proj.to(act)).to(f32) + dt_bias.to(f32))
+    a = -torch.exp(a_log.to(f32))
+    delta_a = torch.exp(dt[..., None] * a)                # (B, d_in, N)
+    delta_bx = (dt * x_conv.to(f32))[..., None] * b_ssm.to(f32)[:, None, :]
+    h_new = delta_a * h + delta_bx
+    y = torch.einsum("bdn,bn->bd", h_new, c_ssm.to(f32))
+    y = y + d.to(f32) * x_conv.to(f32)
+    y = (y * F.silu(z.to(f32))).to(act)
+    return y.to(f32) @ out_proj.to(act).to(f32), h_new
+
+
+def mamba_step_staged_ref(x1, conv, h, in_proj, conv_w, conv_b, x_proj,
+                          dt_proj, dt_bias, a_log, d, out_proj, *,
+                          live=None, reduce=None):
+    """``mamba_step_ref`` on one rank's channels of a tensor-parallel
+    group, split at its two sums over the channels: ``reduce(t)`` sums the
+    fp32 x_proj output, then the fp32 out_proj output, over the group in
+    place (None: this rank holds every channel).  The out_proj sum is
+    rounded to x1's dtype once, after the second sum.  Same arguments and
+    results as ``mamba_step_ref``."""
+    dbc, x_conv, z, new_conv = mamba_step_a_ref(x1, conv, in_proj, conv_w,
+                                                conv_b, x_proj)
+    if reduce is not None:
+        reduce(dbc)
+    out, h_new = mamba_step_b_ref(dbc, x_conv, z, h, dt_proj, dt_bias,
+                                  a_log, d, out_proj)
+    if reduce is not None:
+        reduce(out)
+    out = out.to(x1.dtype)[:, None]
     if live is not None:
         lv = live.to(device=x1.device, dtype=torch.bool)[:, None, None]
         out = torch.where(lv, out, torch.zeros_like(out))

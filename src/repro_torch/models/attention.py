@@ -457,11 +457,18 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def mla_prefill(p: Params, cfg: ModelConfig, x, positions, cache: Params, *,
-                use_kernels: bool = True):
+                use_kernels: bool = True, tp=None):
     """Prefill: the latents, computed once, feed the attention and are
-    written into the cache at [0, S) in place."""
+    written into the cache at [0, S) in place.  ``tp`` (a
+    ``partitioning.TPShard``): the query, ``w_uk``, ``w_uv`` and ``wo``
+    leaves hold this rank's heads where the degree divides them; the
+    latent projections and the latent cache have no heads dim and are
+    whole on every rank; the flash kernel runs on the local heads and
+    the row-parallel ``wo`` product is summed over the model group."""
     ckv, kr = _mla_latents(p, cfg, x, positions)
-    y = _mla_attend(p, cfg, x, positions, ckv, kr, use_kernels=use_kernels)
+    y = _reduce_heads(_mla_attend(p, cfg, x, positions, ckv, kr,
+                                  use_kernels=use_kernels),
+                      cfg, p["wo"], tp)
     S = x.shape[1]
     cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
     cache["krope"][:, :S] = kr.to(cache["krope"].dtype)
@@ -469,11 +476,14 @@ def mla_prefill(p: Params, cfg: ModelConfig, x, positions, cache: Params, *,
 
 
 def mla_step(p: Params, cfg: ModelConfig, x1, cache: Params, pos, *,
-             use_kernels: bool = False, kv_bound: Optional[int] = None):
+             use_kernels: bool = False, kv_bound: Optional[int] = None,
+             tp=None):
     """Absorbed MLA decode of one token, x1 (B, 1, d), at per-row positions
     ``pos`` (B,): scores, softmax and the latent output in fp32, scale
     1/sqrt(Dn + Dr).  With ``use_kernels`` the latent read is bounded to
-    ``[:, :kv_bound]`` (the masked suffix scores nothing either way)."""
+    ``[:, :kv_bound]`` (the masked suffix scores nothing either way).
+    ``tp``: as in ``mla_prefill``; each rank scores its heads over the
+    whole latent cache."""
     m = cfg.mla
     positions = pos[:, None]
     q_nope, q_rope = _mla_q(p, cfg, x1, positions)        # (B, 1, H, Dn/Dr)
@@ -497,4 +507,4 @@ def mla_step(p: Params, cfg: ModelConfig, x1, cache: Params, pos, *,
     o_lat = torch.einsum("bht,btr->bhr", w, ckv32)
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(x1.dtype), p["w_uv"])
     y = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None]
-    return y, cache
+    return _reduce_heads(y.contiguous(), cfg, p["wo"], tp), cache

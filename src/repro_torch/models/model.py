@@ -274,9 +274,11 @@ class Model:
         right-padded ``enc_out``: it masks the cross-attention and is
         recorded in the returned cache's ``src_len``.  ``moe_dispatch``
         selects the MoE layers' dispatch, "einsum" or "gather".  ``tp`` (a
-        ``partitioning.TPShard``): a dense GQA decoder's local shards on a
-        tensor-parallel mesh; the logits are then this rank's vocab
-        columns where the vocab is split (``greedy``, ``gather_logits``)."""
+        ``partitioning.TPShard``): a decoder-only arch's local shards on a
+        tensor-parallel mesh (heads, Mamba channels, experts, FFN widths;
+        ``transformer.decoder_prefill``); the logits are then this rank's
+        vocab columns where the vocab is split (``greedy``,
+        ``gather_logits``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape

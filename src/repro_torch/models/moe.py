@@ -81,6 +81,21 @@ def ffn_apply(p: Params, cfg: ModelConfig, x):
     return part.rows_matmul(h, p["w_down"].to(x.dtype))
 
 
+def ffn_split(p: Params, width: int, tp) -> bool:
+    """True when a dense FFN of hidden ``width`` holds a rank's slice of
+    its hidden dim on a tensor-parallel mesh (``tp``, a
+    ``partitioning.TPShard``): its output is then a partial sum."""
+    return tp is not None and p["w_down"].shape[0] < width
+
+
+def reduce_ffn(y, p: Params, width: int, tp):
+    """``ffn_apply``'s output ``y``, summed over the model group in place
+    where its hidden dim is split (row-parallel ``w_down``)."""
+    if ffn_split(p, width, tp):
+        tp.all_reduce(y)
+    return y
+
+
 def _expert_ffn(p: Params, cfg: ModelConfig, x):
     """x: (E, rows, d), batched over the stacked weights' expert axis;
     weights cast to x's dtype at use, as in ``ffn_apply``."""
@@ -170,10 +185,20 @@ def _capacity_positions(idx, E: int, C: int):
     return torch.stack(poss, -1), torch.stack(keeps, -1)
 
 
-def moe_apply(p, cfg: ModelConfig, x, *,
-              dispatch_impl: str = "einsum") -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss)."""
+def _shared_width(mo: MoEConfig) -> int:
+    return mo.num_shared_experts * (mo.shared_d_ff or mo.expert_d_ff)
+
+
+def moe_apply(p, cfg: ModelConfig, x, *, dispatch_impl: str = "einsum",
+              tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss).  ``tp`` (a ``partitioning.TPShard``,
+    serving): the routed experts are this rank's slice of the expert axis
+    where the degree divides it, and the shared and dense-residual FFNs
+    this rank's slice of their hidden dims where it divides those.  The
+    router is whole, so every rank computes the same gates, positions and
+    drops; the dispatch and combine run on the rank's experts, and the
+    partial outputs are summed over the model group once (the whole ones
+    added after)."""
     mo = cfg.moe
     B0, S0, d = x.shape
     # GShard groups bound the (G, T, E, C) dispatch tensors, C being
@@ -187,6 +212,9 @@ def moe_apply(p, cfg: ModelConfig, x, *,
     gate_vals, idx, probs = _routing(p, mo, x)
     pos, keep = _capacity_positions(idx, E, C)
     dt = x.dtype
+    # this rank's experts [e0, e0 + El): all of them unless split
+    El = p["experts"]["w_up"].shape[0]
+    e0 = tp.index * El if (tp is not None and El < E) else 0
 
     if dispatch_impl == "einsum":
         # combine (G, T, E, C): the gate weight at each kept (expert,
@@ -198,11 +226,13 @@ def moe_apply(p, cfg: ModelConfig, x, *,
             w = (gate_vals[:, :, j] * keep[:, :, j]).to(dt)
             combine = combine + w[..., None, None] * \
                 (oh_e[..., :, None] * oh_c[..., None, :])
+        if El < E:
+            combine = combine[:, :, e0:e0 + El]
         dispatch = (combine > 0).to(dt)
         expert_in = torch.einsum("gtec,gtd->gecd", dispatch, x)
         eo = _expert_ffn(p["experts"], cfg,
-                         expert_in.transpose(0, 1).reshape(E, B * C, d))
-        expert_out = eo.reshape(E, B, C, d).transpose(0, 1)  # (G, E, C, d)
+                         expert_in.transpose(0, 1).reshape(El, B * C, d))
+        expert_out = eo.reshape(El, B, C, d).transpose(0, 1)  # (G, E, C, d)
         y = torch.einsum("gtec,gecd->gtd", combine, expert_out)
     elif dispatch_impl == "gather":
         # (G, E, C) source-token index by a scatter; a dropped token goes to
@@ -217,19 +247,23 @@ def moe_apply(p, cfg: ModelConfig, x, *,
             src.scatter_(1, flat, tok)
             has.scatter_(1, flat, torch.ones((B, S), dtype=dt,
                                              device=x.device))
-        src = src.reshape(B, E, C + 1)[:, :, :C]
-        has = has.reshape(B, E, C + 1)[:, :, :C]
+        src = src.reshape(B, E, C + 1)[:, e0:e0 + El, :C]
+        has = has.reshape(B, E, C + 1)[:, e0:e0 + El, :C]
         rows = torch.arange(B, device=x.device)[:, None, None]
         expert_in = x[rows, src.clamp(0, S - 1)] * has[..., None]
         eo = _expert_ffn(p["experts"], cfg,
-                         expert_in.transpose(0, 1).reshape(E, B * C, d))
-        expert_out = eo.reshape(E, B, C, d).transpose(0, 1)
-        flat_out = expert_out.reshape(B, E * C, d)
+                         expert_in.transpose(0, 1).reshape(El, B * C, d))
+        expert_out = eo.reshape(El, B, C, d).transpose(0, 1)
+        flat_out = expert_out.reshape(B, El * C, d)
         y = torch.zeros_like(x)
         brow = torch.arange(B, device=x.device)[:, None]
         for j in range(mo.top_k):
-            w = (gate_vals[:, :, j] * keep[:, :, j]).to(dt)
-            t_out = flat_out[brow, idx[:, :, j] * C
+            e = idx[:, :, j] - e0
+            mine = keep[:, :, j]
+            if El < E:
+                mine = mine & (e >= 0) & (e < El)
+            w = (gate_vals[:, :, j] * mine).to(dt)
+            t_out = flat_out[brow, e.clamp(0, El - 1) * C
                              + pos[:, :, j].clamp(0, C - 1)]
             y = y + w[..., None] * t_out
     else:
@@ -240,8 +274,27 @@ def moe_apply(p, cfg: ModelConfig, x, *,
     fe = _one_hot(idx[:, :, 0], E, torch.float32).mean(dim=(0, 1))
     aux = E * (fe * me).sum()
 
+    # the routed experts', then the shared and dense-residual FFNs'
+    # outputs, each with whether it is a partial sum over the model group:
+    # the partial ones are summed and all-reduced once, the whole ones
+    # added after
+    terms = [(y, El < E)]
     if mo.num_shared_experts:
-        y = y + ffn_apply(p["shared"], cfg, x)
+        terms.append((ffn_apply(p["shared"], cfg, x),
+                       ffn_split(p["shared"], _shared_width(mo), tp)))
     if mo.dense_residual:
-        y = y + ffn_apply(p["dense"], cfg, x)
+        terms.append((ffn_apply(p["dense"], cfg, x),
+                      ffn_split(p["dense"], mo.dense_residual_d_ff or cfg.d_ff,
+                                tp)))
+    partial = [t for t, split in terms if split]
+    if partial:
+        y = partial[0]
+        for t in partial[1:]:
+            y = y + t
+        y = tp.all_reduce(y.contiguous())
+        whole = [t for t, split in terms if not split]
+    else:
+        whole = [t for t, _ in terms[1:]]
+    for t in whole:
+        y = y + t
     return y.reshape(B0, S0, d), aux

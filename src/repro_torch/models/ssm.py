@@ -11,6 +11,10 @@ hand-written CUDA step kernel and the prefill the selective-scan kernel
 (``repro_torch.kernels.mamba_scan``); on CPU tensors each wrapper runs its
 plain version.  The serving cache, ``{"conv": (B, w-1, d_in), "h": (B,
 d_in, N) fp32}``, is updated IN PLACE; ``mamba_fwd`` writes no cache.
+On a tensor-parallel mesh each rank holds a slice of the d_in channels
+(``tp``): its conv, scan and state are per channel, and the two products
+that sum over the channels, x_proj and out_proj, are summed over the
+model group in fp32 (the step kernel's staged entry).
 """
 from __future__ import annotations
 
@@ -21,9 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import partitioning as part
 from repro_torch.kernels.mamba_scan import ops
 from repro_torch.kernels.mamba_scan.ref import (mamba_scan_ref,
-                                                mamba_step_ref, softplus)
+                                                mamba_step_ref,
+                                                mamba_step_staged_ref,
+                                                softplus)
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,8 +83,10 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, *, dtype,
 
 def mamba_specs(cfg: ModelConfig) -> Dict[str, tuple]:
     """Logical specs of ``mamba_init``'s leaves: the inner dim on
-    "ssm_inner"."""
-    return {"in_proj": ("embed", "ssm_inner"),
+    "ssm_inner".  ``in_proj``'s (d, 2 d_in) holds the x then the z columns
+    of every channel (``partitioning.Blocks``): a serving rank's shard is
+    the x and the z columns of its own channels."""
+    return {"in_proj": part.Blocks(("embed", "ssm_inner"), 2),
             "conv_w": ("conv_w", "ssm_inner"), "conv_b": ("ssm_inner",),
             "x_proj": ("ssm_inner", None), "dt_proj": (None, "ssm_inner"),
             "dt_bias": ("ssm_inner",), "A_log": ("ssm_inner", "state"),
@@ -137,17 +146,37 @@ def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> Params:
                              device=device)}
 
 
+def _split(p: Params, cfg: ModelConfig, tp) -> bool:
+    """True when ``p`` holds a slice of the d_in channels of a
+    tensor-parallel group (``tp``, a ``partitioning.TPShard``)."""
+    return tp is not None and p["D"].shape[0] < dims(cfg)[0]
+
+
+def _summed(x, w, tp):
+    """``x @ w`` over a rank's channels, summed over the model group in
+    fp32 and rounded to x's dtype once (the reference's sharded product
+    rounds its sum; the step kernel's staged entry does the same)."""
+    y = (x.float() @ w.float()).contiguous()
+    return tp.all_reduce(y).to(x.dtype)
+
+
 def mamba_prefill(p: Params, cfg: ModelConfig, x, cache: Params, *,
-                  use_kernels: bool = True):
+                  use_kernels: bool = True, tp=None):
     """Prompt pass from a zero state.  x: (B, S, d) -> (B, S, d); the
     cache's conv window (the last w-1 pre-conv inputs, zeros before the
-    prompt when S < w-1) and final state are written in place."""
+    prompt when S < w-1) and final state are written in place.  ``tp`` (a
+    ``partitioning.TPShard``): the params and cache hold this rank's d_in
+    channels (``in_proj`` its x and z columns); the conv and the scan run
+    on them, and the x_proj and out_proj products are summed over the
+    model group."""
     d_in, dt_rank, n, w = dims(cfg)
     S = x.shape[1]
+    split = _split(p, cfg, tp)
     xz = x @ p["in_proj"]
     x_part, z = xz.chunk(2, dim=-1)
     x_conv = F.silu(_conv_causal(x_part, p["conv_w"], p["conv_b"]))
-    dbc = x_conv @ p["x_proj"]
+    dbc = (_summed(x_conv, p["x_proj"], tp) if split
+           else x_conv @ p["x_proj"])
     dt_raw, b_ssm, c_ssm = torch.split(dbc, [dt_rank, n, n], dim=-1)
     dt = softplus((dt_raw @ p["dt_proj"]).float() + p["dt_bias"].float())
     if use_kernels:
@@ -157,7 +186,7 @@ def mamba_prefill(p: Params, cfg: ModelConfig, x, cache: Params, *,
         y, h_last = mamba_scan_ref(x_conv, dt, b_ssm, c_ssm, p["A_log"],
                                    p["D"])
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["out_proj"]
+    out = _summed(y, p["out_proj"], tp) if split else y @ p["out_proj"]
     keep = min(S, w - 1)
     conv = cache["conv"]
     conv[:, :w - 1 - keep].zero_()
@@ -167,13 +196,26 @@ def mamba_prefill(p: Params, cfg: ModelConfig, x, cache: Params, *,
 
 
 def mamba_step(p: Params, cfg: ModelConfig, x1, cache: Params, *,
-               use_kernels: bool = False, live=None):
+               use_kernels: bool = False, live=None, tp=None):
     """One token.  x1: (B, 1, d) -> (B, 1, d); the cache advances in
     place.  With ``use_kernels`` the step kernel runs and rows whose
     ``live`` is false keep their state and output zeros; without, every
-    row advances, as the reference's inline chain does."""
+    row advances, as the reference's inline chain does.  ``tp``: as in
+    ``mamba_prefill``; the step then runs staged (the kernel's staged
+    entry, or its plain version), its x_proj and out_proj sums all-reduced
+    over the model group in fp32."""
     args = (p["in_proj"], p["conv_w"], p["conv_b"], p["x_proj"],
             p["dt_proj"], p["dt_bias"], p["A_log"], p["D"], p["out_proj"])
+    if _split(p, cfg, tp):
+        if use_kernels:
+            out = ops.mamba_step_staged(x1, cache["conv"], cache["h"], *args,
+                                        live=live, reduce=tp.all_reduce)
+            return out, cache
+        out, new_conv, new_h = mamba_step_staged_ref(
+            x1, cache["conv"], cache["h"], *args, reduce=tp.all_reduce)
+        cache["conv"].copy_(new_conv)
+        cache["h"].copy_(new_h)
+        return out, cache
     if use_kernels:
         out = ops.mamba_step(x1, cache["conv"], cache["h"], *args, live=live)
         return out, cache

@@ -133,24 +133,29 @@ def _ffn(p, cfg: ModelConfig, x, moe_dispatch: str = "einsum", tp=None):
     Training sums it (``decoder_fwd``); serving drops it.  ``tp`` (a
     ``partitioning.TPShard``, serving): a dense FFN whose hidden dim is
     split runs column-parallel up and row-parallel down, its partial sum
-    reduced over the model group."""
+    reduced over the model group; an MoE layer runs its rank's experts
+    (``moe.moe_apply``)."""
     aux = None
     if "moe" in p:
         h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
-        y, aux = M.moe_apply(p["moe"], cfg, h2, dispatch_impl=moe_dispatch)
+        y, aux = M.moe_apply(p["moe"], cfg, h2, dispatch_impl=moe_dispatch,
+                             tp=tp)
         x = x + y
     elif "ffn" in p:
         h2 = L.apply_norm(cfg.norm, p["ln2"], x, cfg.norm_eps)
         y = M.ffn_apply(p["ffn"], cfg, h2)
-        if tp is not None and p["ffn"]["w_down"].shape[0] < cfg.d_ff:
-            tp.all_reduce(y)
+        # a prologue layer's dense FFN (under an MoE config) has its own width
+        width = cfg.moe.first_dense_d_ff if cfg.moe is not None else cfg.d_ff
+        M.reduce_ffn(y, p["ffn"], width, tp)
         x = x + y
     return x, aux
 
 
 def _hybrid(p, cfg: ModelConfig, a, s):
     """The hybrid mixer's output from its attention and Mamba outputs:
-    0.5 (rmsnorm(a) + rmsnorm(s))."""
+    0.5 (rmsnorm(a) + rmsnorm(s)).  The norms take the whole d_model: on a
+    tensor-parallel mesh each branch's output arrives already summed over
+    the model group (``attention._reduce_heads``, ``ssm._summed``)."""
     a = L.apply_norm("rmsnorm", p["attn_out_norm"], a, cfg.norm_eps)
     s = L.apply_norm("rmsnorm", p["ssm_out_norm"], s, cfg.norm_eps)
     return 0.5 * (a + s)
@@ -199,17 +204,17 @@ def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
     if cfg.hybrid_parallel:
         a, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
                                          cache["attn"], is_global=is_global,
-                                         use_kernels=use_kernels)
+                                         use_kernels=use_kernels, tp=tp)
         s, cache["ssm"] = S.mamba_prefill(p["ssm"], cfg, h, cache["ssm"],
-                                          use_kernels=use_kernels)
+                                          use_kernels=use_kernels, tp=tp)
         y = _hybrid(p, cfg, a, s)
     elif "ssm" in p:
         y, cache["ssm"] = S.mamba_prefill(p["ssm"], cfg, h, cache["ssm"],
-                                          use_kernels=use_kernels)
+                                          use_kernels=use_kernels, tp=tp)
     elif cfg.mla is not None:
         y, cache["attn"] = A.mla_prefill(p["attn"], cfg, h, positions,
                                          cache["attn"],
-                                         use_kernels=use_kernels)
+                                         use_kernels=use_kernels, tp=tp)
     else:
         y, cache["attn"] = A.gqa_prefill(p["attn"], cfg, h, positions,
                                          cache["attn"], is_global=is_global,
@@ -233,17 +238,19 @@ def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
         a, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
                                       is_global=is_global,
                                       use_kernels=use_kernels,
-                                      kv_bound=kv_bound, live=live)
+                                      kv_bound=kv_bound, live=live, tp=tp)
         s, cache["ssm"] = S.mamba_step(p["ssm"], cfg, h, cache["ssm"],
-                                       use_kernels=use_kernels, live=live)
+                                       use_kernels=use_kernels, live=live,
+                                       tp=tp)
         y = _hybrid(p, cfg, a, s)
     elif "ssm" in p:
         y, cache["ssm"] = S.mamba_step(p["ssm"], cfg, h, cache["ssm"],
-                                       use_kernels=use_kernels, live=live)
+                                       use_kernels=use_kernels, live=live,
+                                       tp=tp)
     elif cfg.mla is not None:
         y, cache["attn"] = A.mla_step(p["attn"], cfg, h, cache["attn"], pos,
                                       use_kernels=use_kernels,
-                                      kv_bound=kv_bound)
+                                      kv_bound=kv_bound, tp=tp)
     else:
         y, cache["attn"] = A.gqa_step(p["attn"], cfg, h, cache["attn"], pos,
                                       is_global=is_global,
@@ -442,7 +449,8 @@ def decoder_prefill(params, cfg: ModelConfig, x, positions, cache, *,
                     src_len=None, moe_dispatch: str = "einsum", tp=None):
     """enc_out/src_len: the encoder output and its valid lengths, for the
     cross layers of an enc-dec decoder (src_len None: all of enc_out);
-    ``tp``: a dense GQA decoder's tensor-parallel shard (``_ffn``)."""
+    ``tp``: a decoder-only arch's tensor-parallel shard (attention on
+    local heads, Mamba on local channels, local experts, ``_ffn``)."""
     for i, (lp, lc) in enumerate(_layers_and_caches(params, cache)):
         x, _ = _layer_prefill(lp, cfg, x, positions, lc,
                               is_global=_global(cfg, i),

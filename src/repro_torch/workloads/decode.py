@@ -40,18 +40,20 @@ decode step.
 Tensor parallelism (the reference's, over a process group: one rank per
 GPU, or gloo CPU ranks).  Given a ``mesh`` (a torch ``DeviceMesh`` or a
 ``MeshComposer`` grant) and ``rules`` (normally ``serve_engine_rules()``),
-each rank keeps its shard of the params and of the pooled KV cache as
-plain tensors: query and KV heads, the FFN hidden dim and the vocab split
-over the mesh's model dim where the degree divides them, whole otherwise.
-Its steps run the kernels on the local heads and sum the row-parallel
-products over the model group with explicit collectives; the greedy token
-is reduced from each rank's vocab columns.  ``reshard_to`` moves params
+each rank keeps its shard of the params and of the pooled cache as plain
+tensors: query and KV heads, the FFN hidden dim, the Mamba channels
+(``d_in``: the conv window and state with them), the routed experts and
+the vocab split over the mesh's model dim where the degree divides them,
+whole otherwise (an MLA latent cache has no heads dim and is whole on
+every rank).  Its steps run the kernels on the local heads and channels
+(the Mamba step in the kernel's staged entry) and sum the row-parallel
+products over the model group with explicit collectives; the greedy
+token is reduced from each rank's vocab columns.  ``reshard_to`` moves params
 and live KV onto another sub-mesh (another tensor-parallel degree, or the
 whole mesh), and ``apply(point.tp)`` narrows the grant to its first
 ``tp`` columns.  Without a mesh nothing moves, as the reference's
-``tp_submesh(None, ...)``.  Tensor parallelism covers dense GQA decoders;
-the SSM, MoE/MLA, hybrid and enc-dec steps take a mesh replicated
-(``rules=None``).
+``tp_submesh(None, ...)``.  Tensor parallelism covers every decoder-only
+arch; the enc-dec steps take a mesh replicated (``rules=None``).
 
 Every rank runs the engine's host code (admission, slots, arena), which
 only the lengths steer (a mesh takes ``eos_id < 0``; an EOS id raises), so
@@ -109,9 +111,9 @@ _GENERATIONS = itertools.count()
 # what a rank outside an engine's mesh records for a token it never saw
 _PLACEHOLDER = -1
 
-_TP_QUEUED = ("(ROADMAP.md queue 1 item 7: tensor-parallel serving beyond "
-              "dense GQA decoders, EOS termination, preemption and replica "
-              "migration on a mesh)")
+_TP_QUEUED = ("(ROADMAP.md queue 1 item 7: tensor-parallel serving of the "
+              "encoder and enc-dec archs, EOS termination, preemption and "
+              "replica migration on a mesh)")
 
 
 def _round_block(n: int) -> int:
@@ -146,10 +148,10 @@ def check_mesh_termination(cfg: "ServeConfig", mesh) -> None:
 
 
 def tp_supported(cfg) -> bool:
-    """Archs whose serving steps run tensor-parallel: dense GQA decoders
-    (the SSM, MoE/MLA, hybrid and enc-dec steps are queued)."""
-    return (cfg.ssm is None and cfg.mla is None and cfg.moe is None
-            and not cfg.is_encdec and not cfg.hybrid_parallel)
+    """Archs whose serving steps run tensor-parallel: every decoder-only
+    arch (dense GQA, SSM, hybrid, MoE with MLA or GQA); the enc-dec steps
+    are queued."""
+    return not cfg.is_encdec
 
 
 @dataclasses.dataclass

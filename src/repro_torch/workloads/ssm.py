@@ -11,7 +11,11 @@ resume, live resizing, evacuation and adoption) is the decode engine's;
 this class swaps the admission accounting for the constant-size state
 pool.  The base engine prefills SSM archs at the exact prompt length
 (one prefill entry per length) and its decode bounds are ``()``: one
-decode graph per slot count, each layer's Mamba step in it.
+decode graph per slot count, each layer's Mamba step in it.  On a mesh
+with ``serve_engine_rules()`` each rank holds its slice of the d_in
+channels of the params and of the state pool (conv window and state);
+admission still counts the whole model's state per slot, so every degree
+admits the same requests.
 """
 from __future__ import annotations
 

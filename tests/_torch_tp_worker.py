@@ -3,12 +3,14 @@ CPU ranks (``torch.multiprocessing.spawn``, one thread each, a ``file://``
 rendezvous of its own) that runs every tensor-parallel serving scenario on
 the port and pickles what rank 0 records.
 
-    python tests/_torch_tp_worker.py REF_PICKLE OUT_PICKLE
+    python tests/_torch_tp_worker.py REF_PICKLE OUT_PICKLE [families]
 
 REF_PICKLE is the reference run's output (its prompts and initial
-parameters); this file imports no JAX.  Every rank runs every scenario in
-the same order, as the engines' collectives require; a scenario that
-hangs fails at the gloo timeout.
+parameters); this file imports no JAX.  With ``families`` it runs the
+scenarios of ``tests/test_torch_tp_families.py`` (the SSM, hybrid and
+MoE/MLA decoders), else those of ``tests/test_torch_tp_serving.py``.
+Every rank runs every scenario in the same order, as the engines'
+collectives require; a scenario that hangs fails at the gloo timeout.
 """
 import contextlib
 import dataclasses
@@ -335,7 +337,8 @@ def _leaves(tree):
 
 def _replicated(ref, comp, out):
     """(h): an SSM engine and an encoder engine whole on a sub-mesh, moved
-    mid-stream; the SSM engine under TP rules raises."""
+    mid-stream; the encoder engine under TP rules raises (its sharded step
+    is queued)."""
     from repro_torch.distribution import partitioning as part
     from repro_torch.models.model import Model
     from repro_torch.workloads.decode import ServeConfig
@@ -352,15 +355,16 @@ def _replicated(ref, comp, out):
     moved = _serve(SSMEngine(model, full, sc,
                              mesh=comp.submesh(range(2), "s")), prompts,
                    {2: range(3, 7)}, comp, new=6)
-    try:
-        SSMEngine(model, full, sc, mesh=comp.submesh(range(2), "s"),
-                  rules=part.serve_engine_rules())
-        err = ""
-    except ValueError as e:
-        err = str(e)
     ecfg = _cfg("qwen2.5-32b")
     emodel = Model(ecfg, "cpu")
     efull = _params(ref, ("qwen2.5-32b", "params"), ecfg)
+    try:
+        EncoderEngine(emodel, efull, ServeConfig(max_slots=2, max_len=32),
+                      mesh=comp.submesh(range(2), "e"),
+                      rules=part.serve_engine_rules())
+        err = ""
+    except ValueError as e:
+        err = str(e)
     enc = EncoderEngine(emodel, efull, ServeConfig(max_slots=2, max_len=32),
                         mesh=comp.submesh(range(2), "e"))
     for p in prompts[:2]:
@@ -379,7 +383,7 @@ def _replicated(ref, comp, out):
         e1.run_to_completion()
         out["replicated"] = {
             "ssm_moved": moved, "ssm_unsharded": one,
-            "ssm_rules_error": err,
+            "encoder_rules_error": err,
             "encoder_moved": {r: np.round(v, 5).tolist()
                               for r, v in enc_moved.items()},
             "encoder_unsharded": {r: np.round(v, 5).tolist()
@@ -459,7 +463,256 @@ def _smoke(out):
         out["smoke"] = (rc, buf.getvalue().splitlines()[0])
 
 
-def _run(rank, init, ref_path, out_path):
+# ---------------------------------------------------------------------------
+# families: tests/test_torch_tp_families.py
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("falcon-mamba-7b", "hymba-1.5b", "deepseek-v2-lite-16b")
+
+
+def _engine_cls(arch):
+    from repro_torch.workloads.decode import DecodeEngine
+    from repro_torch.workloads.ssm import SSMEngine
+
+    return SSMEngine if arch == "falcon-mamba-7b" else DecodeEngine
+
+
+def _exact_logits(model, params, prompts, tp=None, rules=None):
+    """Prefill logits of the prompts cut to their shortest length (no
+    padding: an SSM prefill folds every position into its state) and the
+    logits of the decode step after them, whole."""
+    from repro_torch.distribution import partitioning as part
+
+    S = min(len(p) for p in prompts)
+    toks = torch.as_tensor(np.stack([p[:S] for p in prompts]),
+                           dtype=torch.int32)
+    B = len(prompts)
+    cache = model.init_cache(B, 64)
+    if tp is not None:
+        plan = part.ShardingPlan.of(cache, model.cache_logical_specs(B, 64))
+        dims = plan.model_dims(rules, tp.size)
+        cache = plan.unflatten([tp.local(t, d)
+                                for t, d in zip(plan.leaves(cache), dims)])
+    logits, cache = model.prefill(params, {"tokens": toks}, cache,
+                                  use_kernels=False, tp=tp)
+    nxt = model.greedy(logits, tp)
+    step, _ = model.decode_step(params, cache, nxt[:, None].long(),
+                                use_kernels=False, tp=tp)
+    return (model.gather_logits(logits, tp).float(),
+            model.gather_logits(step, tp).float())
+
+
+def _flat_shapes(tree, path=()):
+    """{path: shape} of a tree of tensors (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in _flat_shapes(tree[key], path + (key,)).items()}
+    if isinstance(tree, list):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in _flat_shapes(t, path + (i,)).items()}
+    return {path: tuple(tree.shape)}
+
+
+def _in_proj_is_xz(eng, full, shard):
+    """Every layer's local ``in_proj`` is the x and then the z columns of
+    this rank's channels of the whole one."""
+    ok = True
+    for mine, whole in zip(eng.params["decoder"]["layers"],
+                           full["decoder"]["layers"]):
+        w = whole["ssm"]["in_proj"]
+        d_in = w.shape[1] // 2
+        n = d_in // shard.size
+        lo = shard.index * n
+        want = torch.cat([w[:, lo:lo + n], w[:, d_in + lo:d_in + lo + n]], 1)
+        ok = ok and torch.equal(mine["ssm"]["in_proj"], want)
+    return ok
+
+
+def _families_tp(ref, comp, out):
+    """(a)-(c): streams at every degree and across the reshard script,
+    first-step logits, local shapes and the in_proj layout."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import ServeConfig
+
+    rank = dist.get_rank()
+    rules = part.serve_engine_rules()
+    sc = ServeConfig(**SERVE)
+    prompts = ref["prompts"]
+    for arch in FAMILIES:
+        cfg = _cfg(arch)
+        model = Model(cfg, "cpu")
+        full = _params(ref, (arch, "params"), cfg)
+        cls = _engine_cls(arch)
+
+        def engine(tp, rules_):
+            return cls(model, full, sc, mesh=comp.submesh(range(tp), "t"),
+                       rules=rules_)
+
+        if rank == 0:
+            out[arch, "unsharded"] = _serve(cls(model, full, sc), prompts)
+        out[arch, 1] = _serve(engine(1, None), prompts)
+        for tp in (2, 4, 8):
+            eng = engine(tp, rules)
+            xz = _in_proj_is_xz(eng, full, eng._shard) \
+                if cfg.ssm is not None and eng._member else True
+            every = [None] * WORLD
+            dist.all_gather_object(every, xz)
+            if rank == 0:
+                out["shapes", arch, tp] = {
+                    "params": _flat_shapes(eng.params),
+                    "cache": _flat_shapes(eng.cache),
+                    "n_scanned": len(eng.params["decoder"]["layers"]),
+                    "in_proj_xz": all(every)}
+                if tp == 2 and cfg.ssm is not None:
+                    mine = eng.params["decoder"]["layers"][0]["ssm"][
+                        "in_proj"]
+                    whole = full["decoder"]["layers"][0]["ssm"]["in_proj"]
+                    contiguous = whole[:, :whole.shape[1] // 2]
+                    out["in_proj_tp2"] = {
+                        "shape_equal": mine.shape == contiguous.shape,
+                        "content_equal_contiguous": torch.equal(
+                            mine, contiguous)}
+            out[arch, tp] = _serve(eng, prompts)
+        out[arch, "dyn"] = _serve(engine(2, rules), prompts,
+                                  {3: range(1), 7: range(4), 11: range(2)},
+                                  comp)
+        unsharded = _exact_logits(model, full, prompts) if rank == 0 \
+            else None
+        for tp in (2, 4, 8):
+            shard = part.TPShard.of(comp.submesh(range(tp), "logits").mesh)
+            if shard.member:
+                got = _exact_logits(model, _local(full, model, rules, shard),
+                                    prompts, shard, rules)
+                if rank == 0:
+                    out["logits", arch, tp] = {
+                        "prefill": _rel(got[0], unsharded[0]),
+                        "decode": _rel(got[1], unsharded[1])}
+
+
+def _families_bf16(ref, comp, out):
+    """(d): bf16 at TP 2 against unsharded, per family."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import ServeConfig
+
+    rank = dist.get_rank()
+    rules = part.serve_engine_rules()
+    sc = ServeConfig(**SERVE)
+    prompts = ref["prompts"]
+    for arch in FAMILIES:
+        cfg = _cfg(arch, "bfloat16")
+        model = Model(cfg, "cpu")
+        full = _params(ref, (arch, "params"), cfg)
+        cls = _engine_cls(arch)
+        sub = comp.submesh(range(2), "t")
+        tp2 = _serve(cls(model, full, sc, mesh=sub, rules=rules), prompts)
+        shard = part.TPShard.of(sub.mesh)
+        got = None
+        if shard.member:
+            got = _exact_logits(model, _local(full, model, rules, shard),
+                                prompts, shard, rules)
+        if rank != 0:
+            continue
+        one = _serve(cls(model, full, sc), prompts)
+        want = _exact_logits(model, full, prompts)
+        margins = []
+        for rid, stream in one.items():
+            other = tp2[rid]
+            if other == stream:
+                continue
+            at = next(i for i, (a, b) in enumerate(zip(stream, other))
+                      if a != b)
+            toks = torch.as_tensor([list(prompts[rid]) + stream[:at]],
+                                   dtype=torch.int32)
+            lg, _ = model.prefill(full, {"tokens": toks},
+                                  model.init_cache(1, 64), use_kernels=False)
+            top = torch.topk(lg[0].float(), 2).values
+            margins.append(float((top[0] - top[1])
+                                 / lg[0].float().abs().max()))
+        out["bf16", arch] = {"logits": max(_rel(got[0], want[0]),
+                                           _rel(got[1], want[1])),
+                             "partings": len(margins), "margins": margins}
+
+
+def _families_fabric(ref, mesh, out):
+    """(e): an SSM and a hybrid tenant on ComposedServer(mesh, tp=True),
+    4 + 4 columns recomposed to 6 + 2 mid-stream."""
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads.decode import ServeConfig
+
+    fsc = ServeConfig(max_slots=2, max_len=32, eos_id=-1)
+    archs = {"s": "falcon-mamba-7b", "h": "hymba-1.5b"}
+    params = {n: _params(ref, ("fabric", n), _cfg(a))
+              for n, a in archs.items()}
+    F.get_reduced = lambda arch: _cfg(arch)
+    srv = F.ComposedServer(
+        [F.TenantSpec("s", archs["s"], seed=0, serve=fsc),
+         F.TenantSpec("h", archs["h"], seed=1, serve=fsc)], mesh=mesh,
+        device="cpu", params=params, policy=None)
+    size = lambda n: len(srv.engines[n].replicas[0]._shard.ranks)
+    before = {n: size(n) for n in "sh"}
+    rids = []
+    for n in "sh":
+        for p in ref["prompts"][:2]:
+            rids.append((n, srv.submit(n, p, max_new_tokens=10)))
+    for _ in range(3):
+        srv.step()
+    srv.recompose({"s": 6, "h": 2})
+    res = srv.drain()
+    if dist.get_rank() == 0:
+        out["fabric"] = {
+            "ranks_before": before, "ranks_after": {n: size(n) for n in "sh"},
+            "ruled": {n: srv.engines[n].replicas[0].rules is not None
+                      for n in "sh"},
+            "events": [[e.step, e.reason, e.sizes_after, e.design,
+                        list(e.moved), list(e.unchanged)]
+                       for e in srv.events],
+            "streams": [[n, r, list(res[n][r])] for n, r in rids]}
+
+
+def _families_admitted(comp, out):
+    """(f): every decoder-only arch's engine under serve_engine_rules() on
+    two ranks; the enc-dec arch's and an encoder engine raise."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.base import build_engine, workload_class_of
+    from repro_torch.workloads.decode import ServeConfig
+    from repro_torch.workloads.encoder import EncoderEngine
+
+    rules = part.serve_engine_rules()
+    sc = ServeConfig(**SERVE)
+    built, raised, refused = [], {}, {}
+    for arch in ARCH_IDS:
+        cfg = _cfg(arch)
+        model = Model(cfg, "cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        sub = comp.submesh(range(2), "admit")
+        try:
+            build_engine(workload_class_of(cfg), model, params, sc, mesh=sub,
+                         rules=rules)
+            built.append(arch)
+        except ValueError as e:
+            (refused if cfg.is_encdec else raised)[arch] = str(e)
+        if arch == "minitron-4b":
+            try:
+                EncoderEngine(model, params, sc, mesh=sub, rules=rules)
+            except ValueError as e:
+                refused["encoder"] = str(e)
+    if dist.get_rank() == 0:
+        out["admitted"] = {"built": built, "raised": raised,
+                           "refused": refused}
+
+
+def _run_families(ref, comp, mesh, out):
+    _families_tp(ref, comp, out)
+    _families_bf16(ref, comp, out)
+    _families_fabric(ref, mesh, out)
+    _families_admitted(comp, out)
+
+
+def _run(rank, init, ref_path, out_path, mode=""):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=WORLD,
@@ -474,14 +727,17 @@ def _run(rank, init, ref_path, out_path):
     mesh = init_device_mesh("cpu", (1, WORLD),
                             mesh_dim_names=("data", "model"))
     comp = MeshComposer(mesh)
-    _tp_degrees(ref, comp, out)
-    _straddle(comp, out)
-    _bf16(ref, comp, out)
-    _fabric(ref, mesh, out)
-    _replicated(ref, comp, out)
-    _refusals(comp, mesh, out)
-    _rows(ref, out)
-    _smoke(out)
+    if mode == "families":
+        _run_families(ref, comp, mesh, out)
+    else:
+        _tp_degrees(ref, comp, out)
+        _straddle(comp, out)
+        _bf16(ref, comp, out)
+        _fabric(ref, mesh, out)
+        _replicated(ref, comp, out)
+        _refusals(comp, mesh, out)
+        _rows(ref, out)
+        _smoke(out)
     dist.barrier()
     dist.destroy_process_group()
     if rank == 0:
@@ -491,5 +747,6 @@ def _run(rank, init, ref_path, out_path):
 
 if __name__ == "__main__":
     rendezvous = "file://" + os.path.join(tempfile.mkdtemp(), "rdzv")
-    mp.spawn(_run, args=(rendezvous, sys.argv[1], sys.argv[2]),
+    mp.spawn(_run, args=(rendezvous, sys.argv[1], sys.argv[2],
+                         sys.argv[3] if len(sys.argv) > 3 else ""),
              nprocs=WORLD)

@@ -865,6 +865,126 @@ def test_mamba_step_back_to_back_equals_synchronized(cuda, d_model):
     assert not torch.equal(results[0][0], results[0][1])
 
 
+# (d_model, d_in, dt_rank) of falcon-mamba-7b's and hymba-1.5b's blocks
+MAMBA_WIDTHS = {"falcon": (4096, 8192, 256), "hymba": (1600, 3200, 100)}
+
+
+def _staged_case(cuda, dtype, width, seed=7):
+    """One layer of ``width``'s Mamba block at full width (N 16, conv 4),
+    eight slots (slots 2 and 6 dead), as the step's whole tensors."""
+    d, d_in, R = MAMBA_WIDTHS[width]
+    N, w, B = 16, 4, 8
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    wts = {"in_proj": rnd(d, 2 * d_in) * d ** -0.5,
+           "conv_w": rnd(w, d_in) * w ** -0.5, "conv_b": rnd(d_in) * 0.1,
+           "x_proj": rnd(d_in, R + 2 * N) * d_in ** -0.5,
+           "dt_proj": rnd(R, d_in) * R ** -0.5,
+           "dt_bias": rnd(d_in) * 0.5 - 4.0,
+           "A_log": torch.log(torch.arange(1, N + 1.0, device=cuda)).expand(
+               d_in, N).contiguous(),
+           "D": torch.ones(d_in, device=cuda),
+           "out_proj": rnd(d_in, d) * d_in ** -0.5}
+    for k in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+        wts[k] = wts[k].to(dtype)
+    x1 = rnd(B, 1, d).to(dtype)
+    conv = rnd(B, w - 1, d_in).to(dtype)
+    h = rnd(B, d_in, N) * 0.5
+    live = torch.ones(B, dtype=torch.bool, device=cuda)
+    live[2] = live[6] = False
+    return wts, x1, conv, h, live
+
+
+def _rank_args(wts, conv, h, tp, rank):
+    """Rank ``rank``'s shards of TP ``tp``, by the port's own slicing
+    (``mamba_specs`` under ``serve_engine_rules()``)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.ssm import mamba_specs
+
+    specs = mamba_specs(get_reduced("falcon-mamba-7b"))
+    rules = part.serve_engine_rules()
+    shard = part.TPShard(None, tuple(range(tp)), True, tp, rank)
+    args = [shard.local(wts[k], part.model_dim(specs[k], wts[k].shape,
+                                                rules, tp))
+            for k in MAMBA_ORDER]
+    return shard.local(conv, 2), shard.local(h, 1), args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", ["falcon", "hymba"])
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_mamba_step_stages_match_plain_at_rank_widths(cuda, dtype, width,
+                                                      tp):
+    """Each stage of the staged step on rank 1's shards of TP ``tp`` at
+    falcon-mamba-7b's and hymba-1.5b's widths (d_in 4096/2048/1024 and
+    1600/800/400: 400 is no multiple of the 64-column strips) against its
+    plain version on the same inputs: stage A's fp32 x_proj sum and conv
+    window; stage B's fp32 out_proj sum and state from stage A's sum and
+    activations; the finish's rounding.  Dead rows keep their state bit
+    for bit."""
+    from repro_torch.kernels.mamba_scan.ref import (mamba_step_a_ref,
+                                                    mamba_step_b_ref)
+
+    wts, x1, conv, h, live = _staged_case(cuda, dtype, width)
+    conv0, h0, args = _rank_args(wts, conv, h, tp, 1)
+    c, hh = conv0.clone(), h0.clone()
+    tol = GPU_TOL[dtype]
+    before = ms.staged_step_launches
+    dbc, st = ms.mamba_step_stage_a(x1, c, hh, *args, live=live)
+    want_dbc, _, _, want_conv = mamba_step_a_ref(x1, conv0, *args[:4])
+    torch.cuda.synchronize()
+    assert ms.staged_step_launches == before + 1
+    # a dead row's x_conv is zero in the kernel, so its x_proj sum is too;
+    # the plain version advances every row
+    assert _agree(dbc[live], want_dbc[live], tol)
+    assert (dbc[~live] == 0).all()
+    lv = live[:, None, None]
+    assert _agree(c, torch.where(lv, want_conv, conv0), tol)
+    x_conv, z = st.activations()
+    out_sum = ms.mamba_step_stage_b(dbc, st)
+    want_out, want_h = mamba_step_b_ref(dbc, x_conv, z, h0, *args[4:])
+    torch.cuda.synchronize()
+    assert _agree(out_sum[live], want_out[live], tol)
+    assert _agree(hh, torch.where(lv, want_h, h0), tol)
+    out = ms.mamba_step_finish(out_sum, st)
+    torch.cuda.synchronize()
+    assert torch.equal(out[live, 0], out_sum[live].to(dtype))
+    assert (out[~live] == 0).all()
+    assert torch.equal(c[~live], conv0[~live])
+    assert torch.equal(hh[~live], h0[~live])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", ["falcon", "hymba"])
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_mamba_step_staged_ranks_equal_the_fused_step(cuda, dtype, width,
+                                                      tp):
+    """TP emulated on one card: stage A for every rank's shards, their
+    fp32 x_proj sums added where the all-reduce would run, stage B for
+    every rank, their out_proj sums added, the finish; output, and the
+    ranks' conv windows and states concatenated, against the fused step
+    on the whole block (``mamba_step``, the kernel)."""
+    wts, x1, conv, h, live = _staged_case(cuda, dtype, width)
+    whole = [wts[k] for k in MAMBA_ORDER]
+    c_all, h_all = conv.clone(), h.clone()
+    want = ms.mamba_step(x1, c_all, h_all, *whole, live=live)
+    ranks = [_rank_args(wts, conv, h, tp, r) for r in range(tp)]
+    stages = [ms.mamba_step_stage_a(x1, c, hh, *a, live=live)
+              for c, hh, a in ranks]
+    dbc = torch.stack([s[0] for s in stages]).sum(0)
+    out_sum = torch.stack([ms.mamba_step_stage_b(dbc, s[1])
+                           for s in stages]).sum(0)
+    out = ms.mamba_step_finish(out_sum, stages[0][1])
+    torch.cuda.synchronize()
+    tol = GPU_TOL[dtype]
+    assert _agree(out, want, tol)
+    assert _agree(torch.cat([c for c, _, _ in ranks], 2), c_all, tol)
+    assert _agree(torch.cat([hh for _, hh, _ in ranks], 1), h_all, tol)
+
+
 def _scan_case(cuda, dtype, B, S, D, N, R, seed=5):
     """x, dt, B and C (strided views of one (B, S, R + 2N) dbc tensor: at
     R = 6 in bf16 B starts 12 bytes into a row, at R = 256 16-byte

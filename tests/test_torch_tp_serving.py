@@ -32,7 +32,9 @@ reference's ``model.init(jax.random.key(seed))``.
     it exits 2, and ``--production-mesh`` under a world of 1 exits 2
     naming both sizes.
 (h) Replicated engines on a mesh (``rules=None``): an SSM tenant moved
-    mid-stream keeps its stream; the SSM engine's TP rules raise.
+    mid-stream keeps its stream; the encoder engine's TP rules raise
+    (the SSM engine takes them since its sharded step landed:
+    ``tests/test_torch_tp_families.py``).
 (i) A mesh serves with length-based termination: an engine or a fabric
     given a mesh and an EOS id raises, naming the queued item.
 (j) ``--production-mesh``'s serving on a (2, 4) mesh: one engine per data
@@ -301,7 +303,7 @@ def test_replicated_engines_on_a_mesh(runs):
     got = port["replicated"]
     assert got["ssm_moved"] == got["ssm_unsharded"]
     assert all(len(t) == 6 for t in got["ssm_unsharded"].values())
-    assert "ROADMAP" in got["ssm_rules_error"]
+    assert "ROADMAP" in got["encoder_rules_error"]
     assert got["encoder_moved"] == got["encoder_unsharded"]
 
 
