@@ -323,6 +323,19 @@
    rank's instance timed beside its plain version, SDPA for the flash,
    and its bound.  The emulation's stage-A calls are the staged step's
    counted launches.
+25. Tensor-parallel serving of the encoder and enc-dec engines: (a)
+   inside the enc-dec phase, its seamless-m4t-medium through
+   ``EncDecEngine`` on a (1, 1) mesh under ``serve_engine_rules()``,
+   moved mid-stream, against that phase's first graph run (streams
+   bitwise, 0 captures, encode + prefill and decode p50 both ways, the
+   move's ms, peaks); (b) inside the encoder phase, its qwen2.5-32b
+   through ``EncoderEngine`` on the mesh, moved between steps, embeddings
+   bitwise that phase's, sequences/s both ways; (c) after phase 24, TP 2,
+   4 and 8 emulated rank by rank: the ``kv_len`` flash at the seamless
+   encoder's shape, the causal flash at qwen2.5-32b's embedding shape and
+   the ragged decode over a full seamless cross cache, the ranks'
+   outputs against the whole call, rank 0 against its plain version,
+   timed beside it, SDPA under the same mask and the bound.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -2564,6 +2577,8 @@ def run_encdec_phase(torch):
         require(graph["streams"] == eager["streams"] == runs[0]["streams"],
                 "enc-dec graph and eager streams differ")
     log("enc-dec: streams of the four runs equal, token for token")
+    # phase 25 (a) on this phase's model and weights, against runs[0]
+    run_tp_encdec_phase(torch, model, params, scfg, sources, runs[0])
     profile_serving(
         torch, lambda: make_engine(torch, EncDecEngine, model, params, scfg,
                                    True)[0],
@@ -4908,6 +4923,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def world_one_mesh():
+    """A world-1 NCCL group and a (1, 1) mesh of ("data", "model") on the
+    card (phases 22-25); the group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
 def shard_train_config():
     from repro_torch.train import TrainConfig
 
@@ -5026,9 +5057,6 @@ def run_sharded_training_phase(torch):
     launches."""
     import gc
 
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
     from repro_torch.distribution import train_rules
     from repro_torch.models.model import build_model
     from repro_torch.train import Trainer
@@ -5037,11 +5065,7 @@ def run_sharded_training_phase(torch):
     cfg, batches = shard_inputs()
     L = cfg.num_layers
     ref_rows, ref_leaves, ref_counts = unsharded_run(torch)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", rank=0, world_size=1)
-    try:
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
+    with world_one_mesh() as mesh:
         torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(build_model(cfg, "cuda"), shard_train_config(),
                           mesh, train_rules(), device="cuda")
@@ -5049,8 +5073,6 @@ def run_sharded_training_phase(torch):
         peak = torch.cuda.max_memory_allocated() / 2**30
         leaves = host_leaves(params)
         del params, trainer
-    finally:
-        dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"sharded training minitron-4b, {L} layers, world 1 (NCCL), mesh "
@@ -5124,6 +5146,8 @@ def run_encoder_phase(torch):
     reset_counts(("flash_attention",))
     emb, wall, steps = encode_all(torch, engine, jobs)
     launches = read_counts(("flash_attention",))
+    # phase 25 (b) on this phase's model and weights, against this run
+    run_tp_encoder_phase(torch, model, params, scfg, jobs, (emb, wall))
     peak = torch.cuda.max_memory_allocated() / 2**30
     hits = engine.stats()["bucket_hits"]
     log(f"encoder qwen2.5-32b: {len(jobs)} jobs of "
@@ -6168,8 +6192,6 @@ def run_tp_serving_phase(torch):
     import gc
 
     import numpy as np
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_config
     from repro_torch.core.composer import MeshComposer
@@ -6195,11 +6217,7 @@ def run_tp_serving_phase(torch):
     del one
     gc.collect()
     torch.cuda.empty_cache()
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", rank=0, world_size=1)
-    try:
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
+    with world_one_mesh() as mesh:
         comp = MeshComposer(mesh)
         torch.cuda.reset_peak_memory_stats()
         eng = DecodeEngine(model, params, scfg,
@@ -6222,8 +6240,6 @@ def run_tp_serving_phase(torch):
         shard = eng._shard
         st = eng.stats()
         del eng
-    finally:
-        dist.destroy_process_group()
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6367,8 +6383,6 @@ def run_tp_family_phase(torch):
     import gc
 
     import numpy as np
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     import repro_torch.workloads as W
     from repro_torch.configs import get_config
@@ -6380,11 +6394,7 @@ def run_tp_family_phase(torch):
     card = card_line()
     total = {}
     p50 = lambda s: float(np.median(s[1:])) * 1e3
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", rank=0, world_size=1)
-    try:
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
+    with world_one_mesh() as mesh:
         comp = MeshComposer(mesh)
         for arch, engine_name, serve_kw, per_step, per_prefill in \
                 TP_FAMILIES:
@@ -6456,8 +6466,6 @@ def run_tp_family_phase(torch):
                     "decode steps")
             for n, c in counts.items():
                 total[n] = total.get(n, 0) + c
-    finally:
-        dist.destroy_process_group()
     return total
 
 
@@ -6720,6 +6728,302 @@ def run_tp_family_kernels(torch, reps: int = 20):
         bound_by=b_by, library_ms=None)}, staged_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 25: tensor-parallel serving of the encoder and enc-dec engines
+# ---------------------------------------------------------------------------
+
+TP_ENCDEC_KERNELS = ("ragged_decode", "flash_attention",
+                     "flash_attention_kv_len")
+TP_ENCODER_KERNELS = ("flash_attention",)
+# seamless-m4t-medium's encoder attention: B, S, heads (on as many KV
+# heads), D; its cross cache: slots, source bound, heads, D
+TP_ENC_FLASH = (8, 1024, 16, 64)
+TP_CROSS = (8, 1024, 16, 64)
+TP_CROSS_DEAD = 5
+# qwen2.5-32b's embedding jobs: B, S (the ladder's top bucket), Hq, Hkv, D
+TP_QWEN_FLASH = (8, 2048, 40, 8, 128)
+
+
+def run_tp_encdec_phase(torch, model, params, scfg, sources, one):
+    """Phase 25 (a): seamless-m4t-medium at full width and depth (the
+    enc-dec phase's model and weights) through ``EncDecEngine`` on a (1, 1)
+    mesh with ``serve_engine_rules()`` under a world-1 NCCL group, warmed by
+    ``warm_compile(None)``, moved by ``reshard_to`` and ``apply(tp=1)``
+    before decode step ``TP_RESHARD_AT``; the enc-dec phase's sources and
+    ``ENCDEC_NEW`` new tokens.  ``one`` is the enc-dec phase's first graph
+    run of the unsharded engine (the same sources, tokens and warm-up):
+    streams must be bitwise its, with 0 graph captures after the warm-up
+    and the three attention kernels launched.  Logs encode + prefill ms per
+    request and decode p50 both ways, the move's ms and the peaks.
+    Returns the mesh run's launches."""
+    import gc
+
+    from repro_torch.core.composer import MeshComposer
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.workloads import EncDecEngine
+
+    card = card_line()
+    t0 = time.perf_counter()
+    gc.collect()                # the last run's engine, as serving_run does
+    with world_one_mesh() as mesh:
+        comp = MeshComposer(mesh)
+        eng = EncDecEngine(model, params, scfg,
+                           mesh=comp.submesh([0], "seamless"),
+                           rules=part.serve_engine_rules())
+        built = eng.warm_compile(None)
+        torch.cuda.synchronize()
+        # from here, as serving_run measures the unsharded engine
+        torch.cuda.reset_peak_memory_stats()
+        captures = eng.graph_captures
+        reset_counts(TP_ENCDEC_KERNELS)
+        moved = {}
+
+        def move(e):
+            e.reshard_to(comp.submesh([0], "seamless moved"))
+            moved["applied"] = e.apply(None, DesignPoint(cus=0, tp=1))
+
+        step_s, streams, move_s = tp_serve(torch, eng, sources, ENCDEC_NEW,
+                                           move)
+        counts = read_counts(TP_ENCDEC_KERNELS)
+        path_captures = eng.graph_captures - captures
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prefill = eng._obs.registry.histogram_at("prefill_s")
+        shard, st = eng._shard, eng.stats()
+        del eng
+    decode_ms = sorted(s * 1e3 for s in step_s[1:])
+    p50 = decode_ms[len(decode_ms) // 2]
+    steps = len(step_s) - 1
+    L, Le = model.cfg.num_layers, model.cfg.encoder_layers
+    log(f"phase 25 (a) tp serving seamless-m4t-medium (EncDecEngine), {Le} "
+        f"+ {L} layers, world 1 (NCCL), mesh (1, 1), serve_engine_rules(), "
+        f"shard ranks {shard.ranks} size {shard.size}: {len(sources)} "
+        f"sources, {ENCDEC_NEW} new tokens each, warm_compile built {built}; "
+        f"encode + prefill ms per request (prefill spans, the first of a "
+        f"batch waits on its encode) mean {prefill.mean * 1e3:.2f} on the "
+        f"mesh against {one['prefill'][0]:.2f} unsharded; decode ms per "
+        f"step p50 {p50:.3f} on the mesh against {one['p50']:.3f} "
+        f"unsharded; reshard_to + apply(tp=1) before step {TP_RESHARD_AT} "
+        f"took {move_s * 1e3:.3f} ms (applied {moved['applied']}, "
+        f"reshard_count {st['reshard_count']}); graph captures on the "
+        f"serving path {path_captures}; launches {counts}; peak {peak:.2f} "
+        f"GiB on the mesh, {one['peak_gib']:.2f} unsharded; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    require(streams == one["streams"],
+            "phase 25 (a): the mesh engine's streams differ from the "
+            "unsharded engine's")
+    require(path_captures == 0, f"phase 25 (a): {path_captures} graph "
+            "captures after warm_compile")
+    require(counts["ragged_decode"] >= 2 * L * steps > 0
+            and counts["flash_attention"] >= L * len(sources)
+            and counts["flash_attention_kv_len"] >= Le,
+            f"phase 25 (a): launches {counts} for {steps} decode steps")
+    return counts
+
+
+def run_tp_encoder_phase(torch, model, params, scfg, jobs, one):
+    """Phase 25 (b): qwen2.5-32b at the encoder phase's cut (its model and
+    weights) through ``EncoderEngine`` on a (1, 1) mesh with
+    ``serve_engine_rules()``, warmed, moved by ``reshard_to`` and
+    ``apply(tp=1)`` between its two steps, on the encoder phase's 16 jobs.
+    ``one`` is (embeddings, wall seconds) of the encoder phase's warmed
+    unsharded engine on the same jobs: the embeddings must be bitwise its.
+    Logs sequences/s both ways.  Returns the mesh run's launches."""
+    from repro_torch.core.composer import MeshComposer
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.workloads import EncoderEngine
+
+    card = card_line()
+    t0 = time.perf_counter()
+    with world_one_mesh() as mesh:
+        comp = MeshComposer(mesh)
+        eng = EncoderEngine(model, params, scfg,
+                            mesh=comp.submesh([0], "qwen"),
+                            rules=part.serve_engine_rules())
+        built = eng.warm_compile(None)
+        torch.cuda.synchronize()
+        reset_counts(TP_ENCODER_KERNELS)
+        w0 = time.perf_counter()
+        rids = [eng.submit(j) for j in jobs]
+        steps, move_s, applied = 0, None, None
+        while eng.has_work:
+            if steps == 1:
+                torch.cuda.synchronize()
+                m0 = time.perf_counter()
+                eng.reshard_to(comp.submesh([0], "qwen moved"))
+                applied = eng.apply(None, DesignPoint(cus=0, tp=1))
+                torch.cuda.synchronize()
+                move_s = time.perf_counter() - m0
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        counts = read_counts(TP_ENCODER_KERNELS)
+        res = eng.results()
+        shard, st = eng._shard, eng.stats()
+        del eng
+    emb = torch.tensor([res[r] for r in rids])
+    want, one_wall = one
+    bitwise = bool(torch.equal(emb, want))
+    log(f"phase 25 (b) tp encoder qwen2.5-32b (EncoderEngine), "
+        f"{model.cfg.num_layers} layers, world 1 (NCCL), mesh (1, 1), "
+        f"serve_engine_rules(), shard ranks {shard.ranks} size "
+        f"{shard.size}: {len(jobs)} jobs in {steps} steps, warm_compile "
+        f"built {built}; {len(jobs) / wall:.2f} sequences/s on the mesh "
+        f"({wall:.3f} s) against {len(jobs) / one_wall:.2f} unsharded "
+        f"({one_wall:.3f} s); reshard_to + apply(tp=1) between steps took "
+        f"{move_s * 1e3:.3f} ms (applied {applied}, reshard_count "
+        f"{st['reshard_count']}); embeddings bitwise the unsharded "
+        f"engine's {bitwise}; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    require(bitwise, "phase 25 (b): the mesh engine's embeddings differ "
+            "from the unsharded engine's")
+    require(counts["flash_attention"] >= model.cfg.num_layers * steps,
+            f"phase 25 (b): launches {counts} in {steps} steps")
+    return counts
+
+
+def _rank_heads(tp: int, rank: int, q, k, v):
+    """One rank's query heads of TP ``tp`` and the KV heads they attend,
+    sliced by the port's own functions: ``TPShard.local`` on the heads
+    dim (KV heads too where the degree divides them) and
+    ``attention._kv_of_local_heads``."""
+    import types
+
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.attention import _kv_of_local_heads
+
+    Hq, Hkv = q.shape[2], k.shape[2]
+    heads = types.SimpleNamespace(num_heads=Hq, num_kv_heads=Hkv)
+    shard = part.TPShard(None, tuple(range(tp)), True, tp, rank)
+    ql = shard.local(q, 2)
+    if Hkv % tp == 0:
+        k, v = shard.local(k, 2), shard.local(v, 2)
+    return (ql, *_kv_of_local_heads(heads, ql.shape[2], k, v, shard))
+
+
+def run_tp_encdec_kernels(torch, reps: int = 10):
+    """Phase 25 (c): tensor parallelism of the encoder and enc-dec steps
+    emulated rank by rank on the one card, for TP 2, 4 and 8, bf16: the
+    bidirectional flash with ``kv_len`` at seamless-m4t-medium's encoder
+    shape (``TP_ENC_FLASH``, the serving phases' source lengths), the
+    causal flash at qwen2.5-32b's embedding shape (``TP_QWEN_FLASH``: 20 on
+    4, 10 on 2, 5 on 1 heads a rank) and the ragged decode over a full
+    seamless cross cache (``TP_CROSS``, slot ``TP_CROSS_DEAD`` dead).  Each
+    rank's heads are sliced by ``_rank_heads``; the ranks' outputs,
+    concatenated over heads, are held to the whole call within the kernel
+    tolerance (bitwise logged), rank 0's against its plain version, and
+    rank 0's call timed beside its plain version, SDPA under the same mask
+    and its bound.  Returns the emulation's launches, counted apart from
+    the path's."""
+    from repro_torch.analysis.roofline import flash_work, ragged_decode_work
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ragged_decode import ops as rd
+    from repro_torch.kernels.ragged_decode.ref import \
+        ragged_decode_attention_ref
+
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    F = torch.nn.functional
+    dtype = "bfloat16"
+    tol = TOL[dtype]
+    bf = lambda *shape: torch.randn(shape, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+    lens = torch.tensor(serving_prompt_lengths(), dtype=torch.int32,
+                        device="cuda")
+    counted = {n: 0 for n in TP_ENCDEC_KERNELS}
+
+    def check(label, tp, fn, plain, lib, work, q, k, v):
+        """Every rank's ``fn`` on its heads against the whole call; rank
+        0's against ``plain``; rank 0 timed."""
+        whole = fn(q, k, v)
+        reset_counts(TP_ENCDEC_KERNELS)
+        outs = [fn(*_rank_heads(tp, r, q, k, v)) for r in range(tp)]
+        torch.cuda.synchronize()
+        for n, c in read_counts(TP_ENCDEC_KERNELS).items():
+            counted[n] += c
+        got = torch.cat(outs, 2)
+        ql, kl, vl = _rank_heads(tp, 0, q, k, v)
+        want = plain(ql, kl, vl)
+        torch.cuda.synchronize()
+        err = (got.float() - whole.float()).abs().max().item()
+        err_plain = (outs[0].float() - want.float()).abs().max().item()
+        require(agree(got, whole, tol) and agree(outs[0], want, tol),
+                f"{label} TP {tp}: the ranks' heads disagree with the "
+                f"whole call ({err:.3e}) or rank 0 with its plain version "
+                f"({err_plain:.3e})")
+        ms_ = time_ms(torch, lambda: fn(ql, kl, vl), reps)
+        plain_ms = time_ms(torch, lambda: plain(ql, kl, vl), 3)
+        lib_ms = time_ms(torch, lib(ql, kl, vl), reps)
+        nbytes, flops = work(ql, kl)
+        b_ms, b_by = kernel_bound(nbytes, flops, dtype)
+        log(f"phase 25 (c) {label} TP {tp} ({ql.shape[2]} on {kl.shape[2]} "
+            f"heads a rank, {dtype}): ranks concatenated vs the whole call "
+            f"max_abs_err {err:.3e} (bitwise {torch.equal(got, whole)}), "
+            f"rank 0 vs plain {err_plain:.3e}, tol {tol:.0e}; kernel "
+            f"{ms_:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            f"bound {b_ms:.6f} ms ({b_by}) ({card})")
+
+    # seamless's encoder: bidirectional, each row's keys to its length
+    B, S, H, D = TP_ENC_FLASH
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    valid = int(lens.sum().item())
+    q, k, v = bf(B, S, H, D), bf(B, S, H, D), bf(B, S, H, D)
+    for tp in TP_DEGREES:
+        check(f"flash_attention kv_len seamless encoder (B {B}, S {S}, D "
+              f"{D}, source lengths {serving_prompt_lengths()})", tp,
+              lambda a, b, c: fa.flash_attention(a, b, c, causal=False,
+                                                 kv_len=lens),
+              lambda a, b, c: flash_attention_ref(a, b, c, causal=False,
+                                                  kv_len=lens),
+              lambda a, b, c: gqa_sdpa(torch, a, b, c, attn_mask=mask),
+              lambda a, b: (2 * a.numel() * 2 + 2 * valid * b.shape[2] * D
+                            * 2 + 4 * B,
+                            4 * D * a.shape[2] * S * valid), q, k, v)
+    del q, k, v
+    # qwen2.5-32b's embedding jobs: causal, GQA groups of 5
+    B, S, Hq, Hkv, D = TP_QWEN_FLASH
+    q, k, v = bf(B, S, Hq, D), bf(B, S, Hkv, D), bf(B, S, Hkv, D)
+    for tp in TP_DEGREES:
+        check(f"flash_attention qwen2.5-32b embedding (B {B}, S {S}, D {D}, "
+              f"causal)", tp,
+              lambda a, b, c: fa.flash_attention(a, b, c, causal=True),
+              lambda a, b, c: flash_attention_ref(a, b, c, causal=True),
+              lambda a, b, c: gqa_sdpa(torch, a, b, c, is_causal=True),
+              lambda a, b: flash_work(a.numel(), 2 * b.numel(), D,
+                                      attended_pairs(B, S, a.shape[2], True),
+                                      2), q, k, v)
+    del q, k, v
+    # seamless's cross step over a full cross cache, one slot dead
+    B, T, H, D = TP_CROSS
+    live = torch.ones(B, dtype=torch.bool, device="cuda")
+    live[TP_CROSS_DEAD] = False
+    rows = int(lens[live].sum().item())
+    cmask = (torch.arange(T, device="cuda")[None, :]
+             < lens[:, None])[:, None, None, :]
+    q, k, v = bf(B, 1, H, D), bf(B, T, H, D), bf(B, T, H, D)
+    for tp in TP_DEGREES:
+        check(f"ragged_decode seamless cross cache ({B} slots, src_bound "
+              f"{T}, D {D}, live source rows {rows})", tp,
+              lambda a, b, c: rd.ragged_decode_attention(a, b, c, lens,
+                                                         live=live),
+              lambda a, b, c: ragged_decode_attention_ref(a, b, c, lens,
+                                                          live=live),
+              lambda a, b, c: gqa_sdpa(torch, a, b, c, attn_mask=cmask),
+              lambda a, b: ragged_decode_work(B, a.shape[2], b.shape[2], D,
+                                              2, rows), q, k, v)
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(f"phase 25 (c): launches of the rank-by-rank emulation {counted}")
+    # one launch a rank for each degree, for each of the three instances
+    require(all(n == sum(TP_DEGREES) for n in counted.values()),
+            f"phase 25 (c): launches {counted}")
+    return counted
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -6902,6 +7206,12 @@ def main() -> int:
     staged, launches["mamba_step_staged"] = run_tp_family_kernels(torch)
     kernels.update(staged)
     log(f"tp family phase took {time.perf_counter() - t_tp:.1f} s, done at "
+        f"{phase_s()}")
+    # phase 25: (a) and (b) ran inside the enc-dec and encoder phases; the
+    # emulation's launches compare kernels and are not the path's
+    t_tp = time.perf_counter()
+    run_tp_encdec_kernels(torch)
+    log(f"phase 25 (c) took {time.perf_counter() - t_tp:.1f} s, done at "
         f"{phase_s()}")
     run_analysis_phase(torch)
     log(f"analysis phase done at {phase_s()}")

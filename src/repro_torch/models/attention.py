@@ -150,7 +150,7 @@ def _kv_of_local_heads(cfg: ModelConfig, hq: int, k, v, tp):
     heads (the degree divides both): as they are.  Query heads split over
     whole KV heads: those of this rank's query heads (``_kv_heads_of``)."""
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
-    if hq == Hq or k.shape[2] < Hkv:
+    if tp is None or hq == Hq or k.shape[2] < Hkv:
         return k, v
     sel = _kv_heads_of(tp.index, hq, Hq, Hkv, k.device)
     if isinstance(sel, slice):
@@ -205,16 +205,18 @@ def _attend(q, k, v, *, use_kernels: bool, **kw):
 
 
 def gqa_fwd(p: Params, cfg: ModelConfig, x, positions, *, causal: bool = True,
-            is_global: bool = False, kv_len=None, use_kernels: bool = True):
+            is_global: bool = False, kv_len=None, use_kernels: bool = True,
+            tp=None):
     """Full-sequence attention without a cache (encoders, embedding
     stacks).  kv_len: optional (B,) int32 valid lengths of right-padded
     rows: each row masks its own key padding, so its valid outputs do not
-    depend on the padded length."""
+    depend on the padded length.  ``tp``: as in ``gqa_prefill``."""
     q, k, v = _project_qkv(p, cfg, x, positions)
+    k, v = _kv_of_local_heads(cfg, q.shape[2], k, v, tp)
     o = _attend(q, k, v, use_kernels=use_kernels, causal=causal,
                 window=_window(cfg), logit_cap=cfg.logit_softcap,
                 is_global=is_global, kv_len=kv_len)
-    return _out(o, p["wo"])
+    return _reduce_heads(_out(o, p["wo"]), cfg, p["wo"], tp)
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -290,7 +292,9 @@ def _cross_q(p: Params, cfg: ModelConfig, x):
 
 
 def cross_kv(p: Params, cfg: ModelConfig, enc_out):
-    """Encoder output (B, S_src, d) -> cross K, V (B, S_src, Hkv, hd)."""
+    """Encoder output (B, S_src, d) -> cross K, V (B, S_src, Hkv, hd): on
+    a tensor-parallel mesh the KV heads this rank holds (``wk``, ``wv``
+    and their biases split on "kv_heads" where the degree divides them)."""
     k, v = _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
     if cfg.qkv_bias:
         k = k + p["bk"]
@@ -299,7 +303,7 @@ def cross_kv(p: Params, cfg: ModelConfig, enc_out):
 
 
 def cross_fwd(p: Params, cfg: ModelConfig, x, enc_out, src_len=None, *,
-              use_kernels: bool = False):
+              use_kernels: bool = False, tp=None):
     """Cross-attention of x (B, Sq, d) over the encoder output (training,
     prefill).
 
@@ -310,9 +314,12 @@ def cross_fwd(p: Params, cfg: ModelConfig, x, enc_out, src_len=None, *,
     bidirectional blockwise attention runs, as in the reference: with
     ``use_kernels`` through the flash kernel's wrapper (Skv = S_src apart
     from Sq; under autograd its forward with lse and backward kernels),
-    else the plain version."""
+    else the plain version.  ``tp``: as in ``gqa_prefill``; the rank's
+    query heads attend the KV heads of their groups, the encoder output
+    is whole on every rank."""
     q = _cross_q(p, cfg, x)
-    k, v = cross_kv(p, cfg, enc_out)
+    k, v = _kv_of_local_heads(cfg, q.shape[2], *cross_kv(p, cfg, enc_out),
+                              tp)
     if src_len is None:
         o = _attend(q, k, v, use_kernels=use_kernels, causal=False)
     else:
@@ -329,24 +336,28 @@ def cross_fwd(p: Params, cfg: ModelConfig, x, enc_out, src_len=None, *,
         w = torch.softmax(s, dim=-1).to(vexp.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", w.float(),
                          vexp.float()).to(q.dtype)
-    return _out(o, p["wo"])
+    return _reduce_heads(_out(o, p["wo"]), cfg, p["wo"], tp)
 
 
 def cross_step(p: Params, cfg: ModelConfig, x1, ck, cv, src_len, *,
                use_kernels: bool = False, src_bound: Optional[int] = None,
-               live=None):
+               live=None, tp=None):
     """Decode-step cross-attention of x1 (B, 1, d) over the slot's cross
     cache (B, max_src, Hkv, hd), each row masked at its ``src_len``.  With
     ``use_kernels`` the ragged kernel reads only ``[:, :src_bound]`` (the
-    bound covers every live row's source) and skips dead slots."""
+    bound covers every live row's source) and skips dead slots.  ``tp``:
+    as in ``gqa_step``; the cross cache holds the rank's KV heads where
+    the degree divides them."""
     q = _cross_q(p, cfg, x1)
     if use_kernels:
         sb = ck.shape[1] if src_bound is None else src_bound
-        o = ragged_decode_attention(q, ck[:, :sb], cv[:, :sb], src_len,
-                                    live=live)
+        ka, va = _kv_of_local_heads(cfg, q.shape[2], ck[:, :sb], cv[:, :sb],
+                                    tp)
+        o = ragged_decode_attention(q, ka, va, src_len, live=live)
     else:
-        o = L.decode_attention(q, ck, cv, src_len)
-    return _out(o, p["wo"])
+        ka, va = _kv_of_local_heads(cfg, q.shape[2], ck, cv, tp)
+        o = L.decode_attention(q, ka, va, src_len)
+    return _reduce_heads(_out(o, p["wo"]), cfg, p["wo"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -440,11 +451,13 @@ def _mla_attend(p: Params, cfg: ModelConfig, x, positions, ckv, kr, *,
 
 
 def mla_fwd(p: Params, cfg: ModelConfig, x, positions, *,
-            use_kernels: bool = True):
-    """Full-sequence causal MLA without a cache."""
+            use_kernels: bool = True, tp=None):
+    """Full-sequence causal MLA without a cache.  ``tp``: as in
+    ``mla_prefill``."""
     ckv, kr = _mla_latents(p, cfg, x, positions)
-    return _mla_attend(p, cfg, x, positions, ckv, kr,
-                       use_kernels=use_kernels)
+    return _reduce_heads(_mla_attend(p, cfg, x, positions, ckv, kr,
+                                     use_kernels=use_kernels),
+                         cfg, p["wo"], tp)
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,

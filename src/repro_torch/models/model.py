@@ -172,17 +172,19 @@ class Model:
         return tp.all_gather(logits, -1)
 
     def _encode(self, params, frames, src_len=None, use_kernels: bool = True,
-                remat: bool = False):
+                remat: bool = False, tp=None):
         """Bidirectional encoder over frame embeddings (B, S, d); src_len:
         optional (B,) int32 valid frame counts of right-padded rows;
-        ``remat``: per-layer checkpoints under autograd (training)."""
+        ``remat``: per-layer checkpoints under autograd (training); ``tp``:
+        this rank's shards on a tensor-parallel mesh (the output is whole
+        on every rank)."""
         cfg = self.cfg
         x = L.apply_norm(cfg.norm, params["frame_norm"],
                          frames.to(cfg.activation_dtype), cfg.norm_eps)
         B, S = x.shape[0], x.shape[1]
         pos = torch.arange(S, device=x.device).expand(B, S)
         return T.encoder_fwd(params["encoder"], cfg, x, pos, kv_len=src_len,
-                             use_kernels=use_kernels, remat=remat)
+                             use_kernels=use_kernels, remat=remat, tp=tp)
 
     # ------------------------------------------------------------------
     def loss(self, params, batch, *, use_kernels: bool = True,
@@ -274,11 +276,11 @@ class Model:
         right-padded ``enc_out``: it masks the cross-attention and is
         recorded in the returned cache's ``src_len``.  ``moe_dispatch``
         selects the MoE layers' dispatch, "einsum" or "gather".  ``tp`` (a
-        ``partitioning.TPShard``): a decoder-only arch's local shards on a
-        tensor-parallel mesh (heads, Mamba channels, experts, FFN widths;
-        ``transformer.decoder_prefill``); the logits are then this rank's
-        vocab columns where the vocab is split (``greedy``,
-        ``gather_logits``)."""
+        ``partitioning.TPShard``): this rank's local shards on a
+        tensor-parallel mesh (heads, cross-attention heads, Mamba channels,
+        experts, FFN widths; ``transformer.decoder_prefill``); the logits
+        are then this rank's vocab columns where the vocab is split
+        (``greedy``, ``gather_logits``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -286,7 +288,7 @@ class Model:
         pos = torch.arange(S, device=x.device).expand(B, S)
         if cfg.is_encdec and enc_out is None:
             enc_out = self._encode(params, batch["frames"],
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, tp=tp)
         x, cache = T.decoder_prefill(params["decoder"], cfg, x, pos, cache,
                                      true_len=true_len,
                                      use_kernels=use_kernels,
@@ -307,7 +309,8 @@ class Model:
         return logits, cache
 
     @torch.no_grad()
-    def encode(self, params, batch, *, lens=None, use_kernels: bool = True):
+    def encode(self, params, batch, *, lens=None, use_kernels: bool = True,
+               tp=None):
         """Full-sequence hidden states (B, S, d) for embedding workloads:
         no cache, no decode loop.
 
@@ -316,20 +319,23 @@ class Model:
         ``lens`` (optional (B,) int32 valid lengths of right-padded rows)
         masks each row's key padding.  Decoder-only archs run the causal
         decoder stack and its final norm; causal rows do not see their
-        padding, so ``lens`` is not needed there."""
+        padding, so ``lens`` is not needed there.  ``tp``: as in
+        ``prefill``; the token lookup is ``_embed``'s (a vocab-split table
+        looks up its own rows and sums over the group), and the hidden
+        states come out whole on every rank."""
         cfg = self.cfg
         if cfg.is_encdec:
             frames = batch.get("frames")
             if frames is None:
-                frames = params["embed"][batch["tokens"].long()]
+                frames = self._embed(params, batch["tokens"], tp)
             return self._encode(params, frames, src_len=lens,
-                                use_kernels=use_kernels)
+                                use_kernels=use_kernels, tp=tp)
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, tp)
         pos = torch.arange(S, device=x.device).expand(B, S)
         x, _ = T.decoder_fwd(params["decoder"], cfg, x, pos,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, tp=tp)
         return L.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
 
     @torch.no_grad()

@@ -118,24 +118,28 @@ def fused_selective_scan(x, dt, b, c, a_log, d, *, use_kernels: bool = True):
     return scan(x, dt, b, c, a_log, d)[0]
 
 
-def mamba_fwd(p: Params, cfg: ModelConfig, x, *, use_kernels: bool = True):
+def mamba_fwd(p: Params, cfg: ModelConfig, x, *, use_kernels: bool = True,
+              tp=None):
     """Full-sequence Mamba block from a zero state, without a cache.  x:
     (B, S, d) -> (B, S, d).  Weights are cast to x's dtype at use (fp32
     training masters); without autograd the arithmetic is
-    ``mamba_prefill``'s."""
+    ``mamba_prefill``'s.  ``tp``: as in ``mamba_prefill``."""
     d_in, dt_rank, n, w = dims(cfg)
     act = x.dtype
+    split = _split(p, cfg, tp)
     xz = x @ p["in_proj"].to(act)
     x_part, z = xz.chunk(2, dim=-1)
     x_conv = F.silu(_conv_causal(x_part, p["conv_w"], p["conv_b"]))
-    dbc = x_conv @ p["x_proj"].to(act)
+    dbc = (_summed(x_conv, p["x_proj"], tp) if split
+           else x_conv @ p["x_proj"].to(act))
     dt_raw, b_ssm, c_ssm = torch.split(dbc, [dt_rank, n, n], dim=-1)
     dt = softplus((dt_raw @ p["dt_proj"].to(act)).float()
                   + p["dt_bias"].float())
     y = fused_selective_scan(x_conv, dt, b_ssm, c_ssm, p["A_log"], p["D"],
                              use_kernels=use_kernels)
     y = (y * F.silu(z.float())).to(act)
-    return y @ p["out_proj"].to(act)
+    return (_summed(y, p["out_proj"], tp) if split
+            else y @ p["out_proj"].to(act))
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> Params:

@@ -163,30 +163,33 @@ def _hybrid(p, cfg: ModelConfig, a, s):
 
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, causal: bool,
                is_global: bool, kv_len, use_kernels: bool,
-               moe_dispatch: str = "einsum", enc_out=None):
+               moe_dispatch: str = "einsum", enc_out=None, tp=None):
     """Residual layer without a cache (training, encoders, embedding
     stacks): (x, aux) as ``_ffn`` gives them.  An SSM layer runs
     ``ssm.mamba_fwd`` from a zero state (its scan's backward under
     autograd).  An enc-dec decoder layer attends ``enc_out`` (B, S_src, d)
-    in its cross sublayer, between the mixer and the FFN."""
+    in its cross sublayer, between the mixer and the FFN.  ``tp`` (a
+    ``partitioning.TPShard``, serving): each sublayer on this rank's
+    shards, as ``_layer_prefill`` runs them."""
     h = L.apply_norm(cfg.norm, p["ln1"], x, cfg.norm_eps)
     if cfg.hybrid_parallel:
         a = A.gqa_fwd(p["attn"], cfg, h, positions, causal=causal,
                       is_global=is_global, kv_len=kv_len,
-                      use_kernels=use_kernels)
+                      use_kernels=use_kernels, tp=tp)
         y = _hybrid(p, cfg, a, S.mamba_fwd(p["ssm"], cfg, h,
-                                           use_kernels=use_kernels))
+                                           use_kernels=use_kernels, tp=tp))
     elif "ssm" in p:
-        y = S.mamba_fwd(p["ssm"], cfg, h, use_kernels=use_kernels)
+        y = S.mamba_fwd(p["ssm"], cfg, h, use_kernels=use_kernels, tp=tp)
     elif cfg.mla is not None:
-        y = A.mla_fwd(p["attn"], cfg, h, positions, use_kernels=use_kernels)
+        y = A.mla_fwd(p["attn"], cfg, h, positions, use_kernels=use_kernels,
+                      tp=tp)
     else:
         y = A.gqa_fwd(p["attn"], cfg, h, positions, causal=causal,
                       is_global=is_global, kv_len=kv_len,
-                      use_kernels=use_kernels)
+                      use_kernels=use_kernels, tp=tp)
     x = _cross(p, cfg, x + y, lambda hc: A.cross_fwd(
-        p["cross"], cfg, hc, enc_out, use_kernels=use_kernels))
-    return _ffn(p, cfg, x, moe_dispatch)
+        p["cross"], cfg, hc, enc_out, use_kernels=use_kernels, tp=tp))
+    return _ffn(p, cfg, x, moe_dispatch, tp)
 
 
 def _cross(p, cfg: ModelConfig, x, fn):
@@ -220,7 +223,7 @@ def _layer_prefill(p, cfg: ModelConfig, x, positions, cache, *,
                                          cache["attn"], is_global=is_global,
                                          use_kernels=use_kernels, tp=tp)
     x = _cross(p, cfg, x + y, lambda hc: A.cross_fwd(
-        p["cross"], cfg, hc, enc_out, src_len=src_len))
+        p["cross"], cfg, hc, enc_out, src_len=src_len, tp=tp))
     if "cross" in p:
         ck, cv = A.cross_kv(p["cross"], cfg, enc_out)
         Ss = enc_out.shape[1]
@@ -258,7 +261,8 @@ def _layer_step(p, cfg: ModelConfig, x1, cache, pos, *, is_global: bool,
                                       kv_bound=kv_bound, live=live, tp=tp)
     x1 = _cross(p, cfg, x1 + y, lambda hc: A.cross_step(
         p["cross"], cfg, hc, cache["cross"]["k"], cache["cross"]["v"],
-        src_len, use_kernels=use_kernels, src_bound=src_bound, live=live))
+        src_len, use_kernels=use_kernels, src_bound=src_bound, live=live,
+        tp=tp))
     return _ffn(p, cfg, x1, moe_dispatch, tp)[0], cache
 
 
@@ -409,7 +413,8 @@ def _global(cfg: ModelConfig, i: int) -> bool:
 
 def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
                 use_kernels: bool = True, moe_dispatch: str = "einsum",
-                remat: bool = False, enc_out=None, residual_spec=None):
+                remat: bool = False, enc_out=None, residual_spec=None,
+                tp=None):
     """Full-sequence causal decoder pass without a cache (training, and the
     embedding stacks of decoder-only archs): (x, aux), aux the MoE layers'
     load-balance losses summed over the prologue and the layers in order
@@ -422,12 +427,14 @@ def decoder_fwd(params, cfg: ModelConfig, x, positions, *,
     body under ``jax.checkpoint(nothing_saveable)`` does.
     ``residual_spec``: a physical spec pinned onto a DTensor residual at
     every layer boundary (sequence parallelism: the remat-saved residuals
-    split over the model dim)."""
+    split over the model dim).  ``tp``: a serving rank's shards
+    (``_layer_fwd``; an embedding job's stack on a tensor-parallel
+    mesh)."""
     def layer(lp, i, h, enc):
         return _layer_fwd(lp, cfg, h, positions, causal=True,
                           is_global=_global(cfg, i), kv_len=None,
                           use_kernels=use_kernels, moe_dispatch=moe_dispatch,
-                          enc_out=enc)
+                          enc_out=enc, tp=tp)
 
     remat = remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -449,7 +456,7 @@ def decoder_prefill(params, cfg: ModelConfig, x, positions, cache, *,
                     src_len=None, moe_dispatch: str = "einsum", tp=None):
     """enc_out/src_len: the encoder output and its valid lengths, for the
     cross layers of an enc-dec decoder (src_len None: all of enc_out);
-    ``tp``: a decoder-only arch's tensor-parallel shard (attention on
+    ``tp``: a tensor-parallel shard (attention and cross-attention on
     local heads, Mamba on local channels, local experts, ``_ffn``)."""
     for i, (lp, lc) in enumerate(_layers_and_caches(params, cache)):
         x, _ = _layer_prefill(lp, cfg, x, positions, lc,
@@ -508,17 +515,18 @@ def encoder_specs(cfg: ModelConfig):
 
 
 def encoder_fwd(params, cfg: ModelConfig, x, positions, *, kv_len=None,
-                use_kernels: bool = True, remat: bool = False):
+                use_kernels: bool = True, remat: bool = False, tp=None):
     """Bidirectional encoder stack.  kv_len: optional (B,) int32 valid
     lengths of right-padded rows; each row's attention masks its own key
     padding, so the valid rows of the output do not depend on the padded
     length (None: every row is all valid, as training runs it).  With
     ``remat`` and autograd recording, each layer is checkpointed as in
-    ``decoder_fwd``."""
+    ``decoder_fwd``.  ``tp``: as in ``decoder_fwd``; the output is whole
+    on every rank."""
     def layer(lp, h):
         return _layer_fwd(lp, cfg, h, positions, causal=False,
                           is_global=False, kv_len=kv_len,
-                          use_kernels=use_kernels)[0]
+                          use_kernels=use_kernels, tp=tp)[0]
 
     remat = remat and torch.is_grad_enabled()
     for lp in params["layers"]:

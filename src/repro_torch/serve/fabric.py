@@ -35,14 +35,13 @@ On a mesh (``ComposedServer(tenants, mesh=..., tp=True)``: a torch
 ``DeviceMesh`` over one rank per GPU, or gloo CPU ranks) a CU is what the
 reference makes it, one column of the mesh's model dim: a
 :class:`~repro_torch.core.composer.MeshComposer` carves the columns into
-disjoint sub-meshes, each decode or SSM tenant's engine (every
-decoder-only arch) shards its params and pooled KV or state over its own
+disjoint sub-meshes, each tenant's engine (of every workload class)
+shards its params and pooled KV or state over its own
 (``serve_engine_rules``; ``tp=False`` keeps them whole on each of its
-ranks, as it keeps every encoder and enc-dec tenant), and a
-recomposition moves only the tenants whose ranks change, params and live
-KV, while the others keep their ranks and tensors.  Every rank runs the
-fabric, in the same order.  For now a mesh serves with ``policy=None``
-(manual ``recompose`` and ``unify``), no SLO
+ranks), and a recomposition moves only the tenants whose ranks change,
+params and live KV, while the others keep their ranks and tensors.
+Every rank runs the fabric, in the same order.  For now a mesh serves
+with ``policy=None`` (manual ``recompose`` and ``unify``), no SLO
 preemption, one replica per tenant and length-based termination
 (``eos_id < 0``); the policy and Stage 1 priced for NVLink
 (``tp_allowed``), SLO preemption, EOS termination and replica groups on
@@ -88,7 +87,7 @@ from repro_torch.serve.dse import (Stage1Optimizer, TenantDesignSpace,
 from repro_torch.workloads.base import (DECODE, ENCDEC, ENCODER, SSM, Engine,
                                         build_engine, workload_class_of)
 from repro_torch.workloads.compile_cache import ExecutableCache
-from repro_torch.workloads.decode import ServeConfig, _mesh_of, tp_supported
+from repro_torch.workloads.decode import ServeConfig, _mesh_of
 
 _MESH_QUEUED = ("is queued on a mesh (ROADMAP.md queue 1 item 7: the "
                 "fabric's policy and Stage 1 priced for NVLink, SLO "
@@ -1193,8 +1192,7 @@ class ComposedServer:
                 wclass, model, tparams, spec.serve,
                 sub=self.subs[spec.name], exec_cache=self.exec_cache,
                 obs=self.obs.scoped(tenant=spec.name, wclass=wclass),
-                rules=self.rules if tp_supported(cfg)
-                and wclass in (DECODE, SSM) else None)
+                rules=self.rules)
         if self.policy is not None and self.policy.stage1 is not None:
             # a grant's memory bound on slots: its CUs' share of the HBM
             # that every tenant's weights leave free (weights stay

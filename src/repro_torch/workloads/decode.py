@@ -41,19 +41,20 @@ Tensor parallelism (the reference's, over a process group: one rank per
 GPU, or gloo CPU ranks).  Given a ``mesh`` (a torch ``DeviceMesh`` or a
 ``MeshComposer`` grant) and ``rules`` (normally ``serve_engine_rules()``),
 each rank keeps its shard of the params and of the pooled cache as plain
-tensors: query and KV heads, the FFN hidden dim, the Mamba channels
-(``d_in``: the conv window and state with them), the routed experts and
-the vocab split over the mesh's model dim where the degree divides them,
-whole otherwise (an MLA latent cache has no heads dim and is whole on
-every rank).  Its steps run the kernels on the local heads and channels
-(the Mamba step in the kernel's staged entry) and sum the row-parallel
-products over the model group with explicit collectives; the greedy
-token is reduced from each rank's vocab columns.  ``reshard_to`` moves params
-and live KV onto another sub-mesh (another tensor-parallel degree, or the
-whole mesh), and ``apply(point.tp)`` narrows the grant to its first
-``tp`` columns.  Without a mesh nothing moves, as the reference's
-``tp_submesh(None, ...)``.  Tensor parallelism covers every decoder-only
-arch; the enc-dec steps take a mesh replicated (``rules=None``).
+tensors: query and KV heads (an enc-dec's cross cache with them), the
+FFN hidden dim, the Mamba channels (``d_in``: the conv window and state
+with them), the routed experts and the vocab split over the mesh's model
+dim where the degree divides them, whole otherwise (an MLA latent cache
+has no heads dim and is whole on every rank).  Its steps run the kernels
+on the local heads and channels (the Mamba step in the kernel's staged
+entry) and sum the row-parallel products over the model group with
+explicit collectives; the greedy token is reduced from each rank's vocab
+columns.  ``reshard_to`` moves params and live KV onto another sub-mesh
+(another tensor-parallel degree, or the whole mesh), and
+``apply(point.tp)`` narrows the grant to its first ``tp`` columns.
+Without a mesh nothing moves, as the reference's ``tp_submesh(None,
+...)``.  Tensor parallelism covers every arch, the enc-dec ones
+included.
 
 Every rank runs the engine's host code (admission, slots, arena), which
 only the lengths steer (a mesh takes ``eos_id < 0``; an EOS id raises), so
@@ -111,9 +112,38 @@ _GENERATIONS = itertools.count()
 # what a rank outside an engine's mesh records for a token it never saw
 _PLACEHOLDER = -1
 
-_TP_QUEUED = ("(ROADMAP.md queue 1 item 7: tensor-parallel serving of the "
-              "encoder and enc-dec archs, EOS termination, preemption and "
-              "replica migration on a mesh)")
+_TP_QUEUED = ("(ROADMAP.md queue 1 item 7: EOS termination, preemption "
+              "and replica migration on a mesh)")
+
+
+def move_tree(tree: PyTree, plan: Optional[part.ShardingPlan],
+              rules: Optional[part.ShardingRules], device,
+              old: Optional[part.TPShard],
+              new: Optional[part.TPShard]) -> PyTree:
+    """``tree`` (of ``plan``) from the ``old`` layout under ``rules`` to
+    the ``new`` one, leaf by leaf (``partitioning.move_leaf``); nothing
+    moves without a mesh on either side, and a leaf whose ranks and split
+    are unchanged is kept as it is.  None on a rank outside ``new``."""
+    if old is None and new is None:
+        return tree
+    dims_old = (plan.model_dims(rules, old.size)
+                if old is not None else [None] * len(plan.shapes))
+    dims_new = (plan.model_dims(rules, new.size)
+                if new is not None else [None] * len(plan.shapes))
+    leaves = (plan.leaves(tree) if tree is not None
+              else [None] * len(plan.shapes))
+    same = old is not None and new is not None and old.ranks == new.ranks
+    out = []
+    for t, shape, dtype, do, dn in zip(leaves, plan.shapes, plan.dtypes,
+                                       dims_old, dims_new):
+        if same and do == dn:
+            out.append(t)
+        else:
+            out.append(part.move_leaf(t, shape, dtype, device, old, do, new,
+                                      dn))
+    if new is not None and not new.member:
+        return None
+    return plan.unflatten(out)
 
 
 def _round_block(n: int) -> int:
@@ -145,13 +175,6 @@ def check_mesh_termination(cfg: "ServeConfig", mesh) -> None:
         raise ValueError(
             f"termination by EOS (eos_id={cfg.eos_id}) on a mesh is queued "
             f"{_TP_QUEUED}; serve with eos_id=-1")
-
-
-def tp_supported(cfg) -> bool:
-    """Archs whose serving steps run tensor-parallel: every decoder-only
-    arch (dense GQA, SSM, hybrid, MoE with MLA or GQA); the enc-dec steps
-    are queued."""
-    return not cfg.is_encdec
 
 
 @dataclasses.dataclass
@@ -315,11 +338,6 @@ class DecodeEngine(EngineTelemetry):
         self.device = model.device
         self._obs = obs if obs is not None else Telemetry()
         check_mesh_termination(cfg, mesh)
-        if rules is not None and not tp_supported(model.cfg):
-            raise ValueError(
-                f"tensor-parallel serving of {model.cfg.name} "
-                f"(family={model.cfg.family!r}) is queued {_TP_QUEUED}; "
-                "serve it replicated on a mesh (rules=None)")
         self.rules = rules
         self.reshard_count = 0
         # tensor-parallel degree over the granted sub-mesh (None: the whole
@@ -353,8 +371,8 @@ class DecodeEngine(EngineTelemetry):
         self._free_slots = list(range(cfg.max_slots))
         # construction commits the params to the mesh: each rank keeps its
         # shard, taken from the whole tree every rank was given
-        self.params = self._move_tree(params, self._params_plan, None,
-                                      self._shard)
+        self.params = move_tree(params, self._params_plan, self.rules,
+                                self.device, None, self._shard)
         self._lock = threading.RLock()
         cuda = self.device.type == "cuda"
         # the serving stream; it first waits for the caller's stream, where
@@ -538,8 +556,9 @@ class DecodeEngine(EngineTelemetry):
                 shard, params = self._pool.shard, self.params
             else:
                 shard = part.TPShard.of(mesh) if mesh is not None else None
-                params = self._move_tree(self.params, self._param_plan(),
-                                         self._shard, shard)
+                params = move_tree(self.params, self._param_plan(),
+                                   self.rules, self.device, self._shard,
+                                   shard)
             staged = self._new_pool(slots, shard, params)
             self._staged = staged
         return staged
@@ -560,40 +579,12 @@ class DecodeEngine(EngineTelemetry):
         """False on a rank outside the engine's mesh."""
         return self._shard is None or self._shard.member
 
-    def _move_tree(self, tree: PyTree, plan: Optional[part.ShardingPlan],
-                   old: Optional[part.TPShard],
-                   new: Optional[part.TPShard]) -> PyTree:
-        """``tree`` from the ``old`` layout to the ``new`` one, leaf by
-        leaf (``partitioning.move_leaf``); nothing moves without a mesh on
-        either side, and a leaf whose ranks and split are unchanged is kept
-        as it is."""
-        if old is None and new is None:
-            return tree
-        dims_old = (plan.model_dims(self.rules, old.size)
-                    if old is not None else [None] * len(plan.shapes))
-        dims_new = (plan.model_dims(self.rules, new.size)
-                    if new is not None else [None] * len(plan.shapes))
-        leaves = (plan.leaves(tree) if tree is not None
-                  else [None] * len(plan.shapes))
-        same = (old is not None and new is not None
-                and old.ranks == new.ranks)
-        out = []
-        for t, shape, dtype, do, dn in zip(leaves, plan.shapes, plan.dtypes,
-                                           dims_old, dims_new):
-            if same and do == dn:
-                out.append(t)
-            else:
-                out.append(part.move_leaf(t, shape, dtype, self.device,
-                                          old, do, new, dn))
-        if new is not None and not new.member:
-            return None
-        return plan.unflatten(out)
-
     def _move_cache(self, src: _Pool, dst: _Pool) -> None:
         """Copy the live pool's cache into ``dst`` (same slots, another
         mesh), in place: ``dst``'s tensors are the ones its steps hold."""
         plan = self._plan_for_slots(src.slots)
-        moved = self._move_tree(src.cache, plan, src.shard, dst.shard)
+        moved = move_tree(src.cache, plan, self.rules, self.device,
+                          src.shard, dst.shard)
         if moved is None:
             return
         for d, m in zip(plan.leaves(dst.cache), plan.leaves(moved)):

@@ -20,6 +20,14 @@ opposite bound resources:
   the slot's ``src_len``.  The source bound joins the KV bound in each
   decode graph's key.
 
+On a mesh under ``rules`` (the decode engine's tensor parallelism) the
+encoder, the decoder and the cross-attention run on each rank's heads:
+the batched encode's output is whole on every rank, each rank writes the
+cross K/V of its own KV heads into its shard of the cross cache, and the
+decode steps' cross-attention reads it on the rank's heads, summed over
+the model group as the self-attention is.  Admission counts whole-model
+rows, so every degree admits the same requests.
+
 ``submit(source, max_new_tokens, prefix=...)``: ``source`` is int token
 ids (embedded as stand-in frames: the audio frontend is a stub) or a float
 (S, d_model) array of precomputed frame embeddings; ``prefix`` forces
@@ -182,7 +190,7 @@ class EncDecEngine(DecodeEngine):
         def encode(src, lens):
             batch = {"frames": src} if kind == FRAMES else {"tokens": src}
             return self.model.encode(self.params, batch, lens=lens,
-                                     use_kernels=use_kernels)
+                                     use_kernels=use_kernels, tp=self._shard)
         return encode
 
     def _build_prefill_encdec(self, pool: _Pool, sb: int, nb: int):
@@ -208,9 +216,9 @@ class EncDecEngine(DecodeEngine):
         logits, filled = self.model.prefill(
             pool.params, {"tokens": dec_toks}, view, true_len=dec_len,
             use_kernels=self.cfg.use_kernels, enc_out=enc[idx:idx + 1],
-            src_len=src_len)
+            src_len=src_len, tp=pool.shard)
         _write_slot(pool.cache, filled, slot, pool.axes)
-        return self.model.greedy(logits)[0]
+        return self.model.greedy(logits, pool.shard)[0]
 
     def _encode_exec(self, sb: int, kind: str = TOKENS):
         key = ("encdec_encode", self._cfg_key + (self._mesh_fp,), sb, kind)

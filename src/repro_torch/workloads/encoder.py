@@ -20,11 +20,16 @@ growing cache, no per-token host round trip.
 * On the card the engine does all its device work on a CUDA stream of its
   own, ``stream``; the embeddings' copy to the host ends each step.  The
   encode runs eagerly, as the decode engines' prefills do.
-* On a mesh (``mesh``, ``rules=None``) the params are whole on each of the
-  mesh's ranks, and ``reshard_to`` moves only them: no job holds device
-  state between steps.  A rank outside the mesh encodes nothing, its
-  ``step()`` emits empty embeddings, and ``results()`` returns the mesh's.
-  The sharded encoder step is queued (``rules`` raise).
+* On a mesh (``mesh``) each rank holds its shard of the params under
+  ``rules`` (normally ``serve_engine_rules()``: heads, FFN hidden dim,
+  Mamba channels, experts and vocab over the model dim where the degree
+  divides them), or the whole tree with ``rules=None``; the encode runs
+  on the local shards, sums the row-parallel products over the model
+  group, and gives every rank the whole hidden states, so the pooling is
+  unchanged.  ``reshard_to`` and ``apply(point.tp)`` move only the params:
+  no job holds device state between steps.  A rank outside the mesh
+  encodes nothing, its ``step()`` emits empty embeddings, and
+  ``results()`` returns the mesh's.
 
 Jobs longer than ``max_len`` are rejected but recorded (an empty
 embedding) and are not emitted, so they never count as throughput.
@@ -49,8 +54,8 @@ from repro_torch.workloads.base import (ENCODER, DecayedLengthEstimator,
                                         length_buckets, pick_bucket,
                                         sanitize_check, sanitize_guard)
 from repro_torch.workloads.compile_cache import ExecutableCache
-from repro_torch.workloads.decode import (_TP_QUEUED, ServeConfig, _mesh_of,
-                                          _rules_fp)
+from repro_torch.workloads.decode import (ServeConfig, _mesh_of, _rules_fp,
+                                          move_tree)
 
 
 @dataclasses.dataclass
@@ -77,14 +82,11 @@ class EncoderEngine(EngineTelemetry):
                  exec_cache: Optional[ExecutableCache] = None,
                  obs: Optional[Telemetry] = None, mesh=None,
                  rules: Optional[part.ShardingRules] = None):
-        if rules is not None:
-            raise ValueError(f"the sharded encoder step is queued "
-                             f"{_TP_QUEUED}; serve it replicated on a mesh "
-                             "(rules=None)")
         self.model = model
         self.cfg = cfg
         self.device = model.device
         self._obs = obs if obs is not None else Telemetry()
+        self.rules = rules
         self.reshard_count = 0
         self._tp: Optional[int] = None
         self._granted = _mesh_of(mesh)
@@ -93,7 +95,9 @@ class EncoderEngine(EngineTelemetry):
                        else None)
         self._plan = (part.ShardingPlan.of(params, model.logical_specs())
                       if self.mesh is not None else None)
-        self.params = params if self._member else None
+        # each rank keeps its shard of the whole tree it was given
+        self.params = move_tree(params, self._plan, rules, self.device, None,
+                                self._shard)
         self.graph_captures = 0          # encodes run eagerly
         self._exec = (exec_cache if exec_cache is not None
                       else ExecutableCache())
@@ -125,7 +129,7 @@ class EncoderEngine(EngineTelemetry):
         ladder = (length_buckets(buckets, self.cfg.max_len)
                   if buckets is not None else self._buckets)
         return (self.workload_class, self.model.cfg, slots,
-                self.cfg.max_len, ladder, _rules_fp(None),
+                self.cfg.max_len, ladder, _rules_fp(self.rules),
                 self.cfg.use_kernels)
 
     @property
@@ -134,10 +138,12 @@ class EncoderEngine(EngineTelemetry):
         return self._shard is None or self._shard.member
 
     def reshard_to(self, sub) -> None:
-        """Move the params, whole, onto a new sub-accelerator's ranks (its
-        first ``tp`` columns, ``apply(point.tp)``): broadcast from the old
-        mesh's first rank where a new rank held none of them, with the
-        finished embeddings.  No job holds device state between steps.
+        """Move the params onto a new sub-accelerator's ranks (its first
+        ``tp`` columns, ``apply(point.tp)``), leaf by leaf
+        (``partitioning.move_leaf``): gathered on the old mesh, broadcast
+        from its first rank where a new rank held none of them (with the
+        finished embeddings), and sliced into each new rank's shards.  No
+        job holds device state between steps, so nothing else moves.
         Every rank calls it together; without a mesh nothing moves."""
         self._granted = _mesh_of(sub)
         mesh = part.tp_submesh(self._granted, self._tp)
@@ -147,22 +153,16 @@ class EncoderEngine(EngineTelemetry):
             if self._plan is None:
                 self._plan = part.ShardingPlan.of(self.params,
                                                   self.model.logical_specs())
-            leaves = (self._plan.leaves(self.params) if self.params
-                      is not None else [None] * len(self._plan.shapes))
-            moved = [part.move_leaf(t, shape, dtype, self.device, old, None,
-                                    new, None)
-                     for t, shape, dtype in zip(leaves, self._plan.shapes,
-                                                self._plan.dtypes)]
+            with self._on_stream():
+                self.params = move_tree(self.params, self._plan, self.rules,
+                                        self.device, old, new)
             if part.needs_broadcast(old, new):
                 import torch.distributed as dist
 
                 box = [self._finished]
                 dist.broadcast_object_list(box, src=old.root)
                 self._finished = box[0]
-            self.params = (self._plan.unflatten(moved)
-                           if new is None or new.member else None)
             self.mesh, self._shard = mesh, new
-            self._cfg_key = self._config_key(self.cfg.max_slots)
         self.reshard_count += 1
 
     def sync(self) -> None:
@@ -245,7 +245,8 @@ class EncoderEngine(EngineTelemetry):
         embeddings, each the mean over its valid positions.  ``lens`` also
         masks a bidirectional stack's key padding."""
         x = self.model.encode(self.params, {"tokens": tokens}, lens=lens,
-                              use_kernels=self.cfg.use_kernels)
+                              use_kernels=self.cfg.use_kernels,
+                              tp=self._shard)
         S = x.shape[1]
         mask = (torch.arange(S, device=x.device)[None, :]
                 < lens[:, None]).float()

@@ -3,12 +3,14 @@ CPU ranks (``torch.multiprocessing.spawn``, one thread each, a ``file://``
 rendezvous of its own) that runs every tensor-parallel serving scenario on
 the port and pickles what rank 0 records.
 
-    python tests/_torch_tp_worker.py REF_PICKLE OUT_PICKLE [families]
+    python tests/_torch_tp_worker.py REF_PICKLE OUT_PICKLE [families|encdec]
 
 REF_PICKLE is the reference run's output (its prompts and initial
 parameters); this file imports no JAX.  With ``families`` it runs the
 scenarios of ``tests/test_torch_tp_families.py`` (the SSM, hybrid and
-MoE/MLA decoders), else those of ``tests/test_torch_tp_serving.py``.
+MoE/MLA decoders), with ``encdec`` those of
+``tests/test_torch_tp_encdec.py`` (the encoder and enc-dec engines), else
+those of ``tests/test_torch_tp_serving.py``.
 Every rank runs every scenario in the same order, as the engines'
 collectives require; a scenario that hangs fails at the gloo timeout.
 """
@@ -337,8 +339,7 @@ def _leaves(tree):
 
 def _replicated(ref, comp, out):
     """(h): an SSM engine and an encoder engine whole on a sub-mesh, moved
-    mid-stream; the encoder engine under TP rules raises (its sharded step
-    is queued)."""
+    mid-stream; the encoder engine under TP rules builds and encodes."""
     from repro_torch.distribution import partitioning as part
     from repro_torch.models.model import Model
     from repro_torch.workloads.decode import ServeConfig
@@ -358,13 +359,14 @@ def _replicated(ref, comp, out):
     ecfg = _cfg("qwen2.5-32b")
     emodel = Model(ecfg, "cpu")
     efull = _params(ref, ("qwen2.5-32b", "params"), ecfg)
-    try:
-        EncoderEngine(emodel, efull, ServeConfig(max_slots=2, max_len=32),
-                      mesh=comp.submesh(range(2), "e"),
-                      rules=part.serve_engine_rules())
-        err = ""
-    except ValueError as e:
-        err = str(e)
+    ruled = EncoderEngine(emodel, efull, ServeConfig(max_slots=2,
+                                                     max_len=32),
+                          mesh=comp.submesh(range(2), "e"),
+                          rules=part.serve_engine_rules())
+    for p in prompts:
+        ruled.submit(p)
+    ruled.run_to_completion()
+    ruled = ruled.results()
     enc = EncoderEngine(emodel, efull, ServeConfig(max_slots=2, max_len=32),
                         mesh=comp.submesh(range(2), "e"))
     for p in prompts[:2]:
@@ -383,7 +385,7 @@ def _replicated(ref, comp, out):
         e1.run_to_completion()
         out["replicated"] = {
             "ssm_moved": moved, "ssm_unsharded": one,
-            "encoder_rules_error": err,
+            "encoder_ruled": ruled,
             "encoder_moved": {r: np.round(v, 5).tolist()
                               for r, v in enc_moved.items()},
             "encoder_unsharded": {r: np.round(v, 5).tolist()
@@ -672,8 +674,9 @@ def _families_fabric(ref, mesh, out):
 
 
 def _families_admitted(comp, out):
-    """(f): every decoder-only arch's engine under serve_engine_rules() on
-    two ranks; the enc-dec arch's and an encoder engine raise."""
+    """(f): every arch's engine of its own class, and an encoder engine of
+    every arch, under serve_engine_rules() on two ranks; each encoder
+    engine encodes one job."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.distribution import partitioning as part
     from repro_torch.models.model import Model
@@ -683,26 +686,27 @@ def _families_admitted(comp, out):
 
     rules = part.serve_engine_rules()
     sc = ServeConfig(**SERVE)
-    built, raised, refused = [], {}, {}
+    built, encoded, raised = {}, {}, {}
     for arch in ARCH_IDS:
         cfg = _cfg(arch)
         model = Model(cfg, "cpu")
         params = model.init(torch.Generator().manual_seed(0))
         sub = comp.submesh(range(2), "admit")
         try:
-            build_engine(workload_class_of(cfg), model, params, sc, mesh=sub,
-                         rules=rules)
-            built.append(arch)
+            eng = build_engine(workload_class_of(cfg), model, params, sc,
+                               mesh=sub, rules=rules)
+            built[arch] = type(eng).__name__
+            enc = EncoderEngine(model, params, sc, mesh=sub, rules=rules)
+            enc.submit(np.arange(1, 9))
+            enc.step()
+            emb = enc.results()[0]
+            encoded[arch] = len(emb) == cfg.d_model and bool(
+                np.isfinite(emb).all())
         except ValueError as e:
-            (refused if cfg.is_encdec else raised)[arch] = str(e)
-        if arch == "minitron-4b":
-            try:
-                EncoderEngine(model, params, sc, mesh=sub, rules=rules)
-            except ValueError as e:
-                refused["encoder"] = str(e)
+            raised[arch] = str(e)
     if dist.get_rank() == 0:
-        out["admitted"] = {"built": built, "raised": raised,
-                           "refused": refused}
+        out["admitted"] = {"built": built, "encoded": encoded,
+                           "raised": raised}
 
 
 def _run_families(ref, comp, mesh, out):
@@ -710,6 +714,248 @@ def _run_families(ref, comp, mesh, out):
     _families_bf16(ref, comp, out)
     _families_fabric(ref, mesh, out)
     _families_admitted(comp, out)
+
+
+# ---------------------------------------------------------------------------
+# encoder and enc-dec: tests/test_torch_tp_encdec.py
+# ---------------------------------------------------------------------------
+
+SEAMLESS, QWEN = "seamless-m4t-medium", "qwen2.5-32b"
+ENCDEC_SERVE = dict(max_slots=2, max_len=24, eos_id=-1, max_src_len=16,
+                    len_buckets=(8,))
+ENCODER_SERVE = dict(max_slots=2, max_len=32)
+ENCDEC_NEW = 8
+
+
+def _sources(srcs, S=16):
+    """(B, S) right-padded int32 sources and their (B,) lengths."""
+    toks = torch.zeros((len(srcs), S), dtype=torch.int32)
+    for i, src in enumerate(srcs):
+        toks[i, :len(src)] = torch.as_tensor(src)
+    return toks, torch.as_tensor([len(x) for x in srcs], dtype=torch.int32)
+
+
+def _encdec_logits(model, params, srcs, tp=None, rules=None, prefix=None):
+    """The logits of the [bos] (+ ``prefix``) prefill over the batched
+    encode of ``srcs`` and of the decode step after it, whole."""
+    from repro_torch.distribution import partitioning as part
+
+    toks, lens = _sources(srcs)
+    B, S = toks.shape
+    enc = model.encode(params, {"tokens": toks}, lens=lens,
+                       use_kernels=False, tp=tp)
+    dec = torch.tensor([[1] + list(prefix or [])] * B, dtype=torch.int32)
+    cache = model.init_cache(B, 24, src_len=S)
+    if tp is not None:
+        plan = part.ShardingPlan.of(
+            cache, model.cache_logical_specs(B, 24, src_len=S))
+        dims = plan.model_dims(rules, tp.size)
+        cache = plan.unflatten([tp.local(t, d)
+                                for t, d in zip(plan.leaves(cache), dims)])
+    logits, cache = model.prefill(params, {"tokens": dec}, cache,
+                                  use_kernels=False, enc_out=enc,
+                                  src_len=lens, tp=tp)
+    nxt = model.greedy(logits, tp)
+    step, _ = model.decode_step(params, cache, nxt[:, None].long(),
+                                use_kernels=False, tp=tp)
+    return (model.gather_logits(logits, tp).float(),
+            model.gather_logits(step, tp).float())
+
+
+def _encdec_tp(ref, comp, out):
+    """seamless-reduced through EncDecEngine: streams at TP 1, 2, 4 and
+    across the reshard script, local shapes, first-step logits, and the
+    tokens-as-frames encode."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import ServeConfig
+    from repro_torch.workloads.encdec import EncDecEngine
+
+    rank = dist.get_rank()
+    rules = part.serve_engine_rules()
+    sc = ServeConfig(**ENCDEC_SERVE)
+    cfg = _cfg(SEAMLESS)
+    model = Model(cfg, "cpu")
+    full = _params(ref, (SEAMLESS, "params"), cfg)
+    srcs = ref["srcs"]
+    if rank == 0:
+        out[SEAMLESS, "unsharded"] = _serve(EncDecEngine(model, full, sc),
+                                            srcs, new=ENCDEC_NEW)
+    for tp in (1, 2, 4):
+        eng = EncDecEngine(model, full, sc,
+                           mesh=comp.submesh(range(tp), "t"), rules=rules)
+        if rank == 0 and tp > 1:
+            out["shapes", tp] = {
+                "params": _flat_shapes(eng.params),
+                "cache": _flat_shapes(eng.cache),
+                "n_layers": (len(eng.params["encoder"]["layers"]),
+                             len(eng.params["decoder"]["layers"]))}
+        out[SEAMLESS, tp] = _serve(eng, srcs, new=ENCDEC_NEW)
+    out[SEAMLESS, "dyn"] = _serve(
+        EncDecEngine(model, full, sc, mesh=comp.submesh(range(2), "t"),
+                     rules=rules),
+        srcs, {3: range(1), 7: range(4)}, comp, new=ENCDEC_NEW)
+    want = _encdec_logits(model, full, srcs) if rank == 0 else None
+    for tp in (2, 4):
+        shard = part.TPShard.of(comp.submesh(range(tp), "logits").mesh)
+        if shard.member:
+            got = _encdec_logits(model, _local(full, model, rules, shard),
+                                 srcs, shard, rules)
+            if rank == 0:
+                out["logits", tp] = {"prefill": _rel(got[0], want[0]),
+                                     "decode": _rel(got[1], want[1])}
+    # token ids as stand-in frames: the vocab-split table's lookup
+    shard = part.TPShard.of(comp.submesh(range(2), "frames").mesh)
+    toks, lens = _sources(srcs)
+    toks[:, 0] = torch.tensor([3, 130, 200, 255])   # ids in both halves
+    if shard.member:
+        local = _local(full, model, rules, shard)
+        rows = local["embed"].shape[0]
+        frames = model._embed(local, toks, shard)
+        got = model.encode(local, {"tokens": toks}, lens=lens,
+                           use_kernels=False, tp=shard)
+        whole = model.encode(full, {"tokens": toks}, lens=lens,
+                             use_kernels=False)
+        mask = (torch.arange(toks.shape[1])[None, :] < lens[:, None])
+        every = [None] * 2
+        dist.all_gather_object(every, {
+            "rows": rows,
+            "lookup_exact": torch.equal(frames, full["embed"][toks.long()]),
+            # what indexing the local table directly would have given
+            "direct_rows_right": torch.equal(
+                local["embed"][toks.long() % rows],
+                full["embed"][toks.long()]),
+            "encode": _rel(got[mask], whole[mask])},
+            group=shard.group)
+        if rank == 0:
+            out["frames"] = every
+
+
+def _encoder_tp(ref, comp, out):
+    """qwen2.5-reduced through EncoderEngine at TP 2 (moved to two other
+    ranks mid-stream too), and falcon-mamba- and deepseek-v2-lite-reduced
+    at TP 2 on the port's own seeded weights, each beside its unsharded
+    engine."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import ServeConfig
+    from repro_torch.workloads.encoder import EncoderEngine
+
+    rank = dist.get_rank()
+    rules = part.serve_engine_rules()
+    sc = ServeConfig(**ENCODER_SERVE)
+    jobs = ref["jobs"]
+
+    def run(model, params, ids, rules_, move=None):
+        eng = (EncoderEngine(model, params, sc) if ids is None else
+               EncoderEngine(model, params, sc, mesh=comp.submesh(ids, "e"),
+                             rules=rules_))
+        for i, job in enumerate(jobs):
+            eng.submit(job)
+            if move is not None and i == 2:
+                eng.reshard_to(comp.submesh(move, "moved"))
+            eng.step()
+        return eng.results()
+
+    for arch in (QWEN, "falcon-mamba-7b", "deepseek-v2-lite-16b"):
+        cfg = _cfg(arch)
+        model = Model(cfg, "cpu")
+        full = (_params(ref, (QWEN, "params"), cfg) if arch == QWEN
+                else model.init(torch.Generator().manual_seed(0)))
+        got = {"tp2": run(model, full, range(2), rules)}
+        if arch == QWEN:
+            got["moved"] = run(model, full, range(2), rules, move=[4, 5])
+        if rank == 0:
+            got["unsharded"] = run(model, full, None, None)
+            out[arch, "encoder"] = got
+
+
+def _encdec_bf16(ref, comp, out):
+    """bf16 seamless at TP 2 against unsharded: logits and stream
+    partings with their top-2 margins."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import ServeConfig
+    from repro_torch.workloads.encdec import EncDecEngine
+
+    rank = dist.get_rank()
+    rules = part.serve_engine_rules()
+    cfg = _cfg(SEAMLESS, "bfloat16")
+    model = Model(cfg, "cpu")
+    full = _params(ref, (SEAMLESS, "params"), cfg)
+    sc = ServeConfig(**ENCDEC_SERVE)
+    srcs = ref["srcs"]
+    sub = comp.submesh(range(2), "t")
+    tp2 = _serve(EncDecEngine(model, full, sc, mesh=sub, rules=rules), srcs,
+                 new=ENCDEC_NEW)
+    shard = part.TPShard.of(sub.mesh)
+    got = None
+    if shard.member:
+        got = _encdec_logits(model, _local(full, model, rules, shard), srcs,
+                             shard, rules)
+    if rank != 0:
+        return
+    one = _serve(EncDecEngine(model, full, sc), srcs, new=ENCDEC_NEW)
+    want = _encdec_logits(model, full, srcs)
+    margins = []
+    for rid, stream in one.items():
+        other = tp2[rid]
+        if other == stream:
+            continue
+        at = next(i for i, (a, b) in enumerate(zip(stream, other)) if a != b)
+        # the unsharded model's logits where the streams part
+        lg = _encdec_logits(model, full, [srcs[rid]], prefix=stream[:at])[0]
+        top = torch.topk(lg[0], 2).values
+        margins.append(float((top[0] - top[1]) / lg[0].abs().max()))
+    out["bf16"] = {"logits": max(_rel(got[0], want[0]),
+                                 _rel(got[1], want[1])),
+                   "partings": len(margins), "margins": margins}
+
+
+def _encdec_fabric(ref, mesh, out):
+    """An encoder tenant (qwen2.5-reduced) and an enc-dec tenant
+    (seamless-reduced) on ComposedServer(mesh, tp=True), 4 + 4 columns
+    recomposed to 2 + 6 mid-stream."""
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads.decode import ServeConfig
+
+    archs = {"e": QWEN, "d": SEAMLESS}
+    fsc = {"e": ServeConfig(max_slots=2, max_len=32, eos_id=-1),
+           "d": ServeConfig(**ENCDEC_SERVE)}
+    params = {n: _params(ref, ("fabric", n), _cfg(a))
+              for n, a in archs.items()}
+    F.get_reduced = lambda arch: _cfg(arch)
+    srv = F.ComposedServer(
+        [F.TenantSpec("e", QWEN, seed=0, serve=fsc["e"], workload="encoder"),
+         F.TenantSpec("d", SEAMLESS, seed=1, serve=fsc["d"])], mesh=mesh,
+        device="cpu", params=params, policy=None)
+    size = lambda n: len(srv.engines[n].replicas[0]._shard.ranks)
+    before = {n: size(n) for n in "ed"}
+    rids = []
+    for job in ref["jobs"][:3]:
+        rids.append(("e", srv.submit("e", job)))
+    for src in ref["srcs"][:3]:
+        rids.append(("d", srv.submit("d", src, max_new_tokens=ENCDEC_NEW)))
+    for _ in range(3):
+        srv.step()
+    srv.recompose({"e": 2, "d": 6})
+    res = srv.drain()
+    if dist.get_rank() == 0:
+        out["fabric"] = {
+            "ranks_before": before, "ranks_after": {n: size(n) for n in "ed"},
+            "ruled": {n: srv.engines[n].replicas[0].rules is not None
+                      for n in "ed"},
+            "events": [[e.step, e.reason, e.sizes_after, e.design,
+                        list(e.moved), list(e.unchanged)]
+                       for e in srv.events],
+            "streams": [[n, r, list(res[n][r])] for n, r in rids]}
+
+
+def _run_encdec(ref, comp, mesh, out):
+    _encdec_tp(ref, comp, out)
+    _encoder_tp(ref, comp, out)
+    _encdec_bf16(ref, comp, out)
+    _encdec_fabric(ref, mesh, out)
 
 
 def _run(rank, init, ref_path, out_path, mode=""):
@@ -729,6 +975,8 @@ def _run(rank, init, ref_path, out_path, mode=""):
     comp = MeshComposer(mesh)
     if mode == "families":
         _run_families(ref, comp, mesh, out)
+    elif mode == "encdec":
+        _run_encdec(ref, comp, mesh, out)
     else:
         _tp_degrees(ref, comp, out)
         _straddle(comp, out)

@@ -660,6 +660,83 @@ def test_flash_kernel_kv_len_is_deterministic(cuda, dtype):
     assert torch.equal(a, b)
 
 
+def _rank_heads(tp: int, rank: int, q, k, v):
+    """One rank's query heads of TP ``tp`` and the KV heads they attend,
+    sliced as the serving steps slice them (``TPShard.local`` on the
+    heads dim, ``attention._kv_of_local_heads`` for the KV heads)."""
+    import types
+
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.attention import _kv_of_local_heads
+
+    Hq, Hkv = q.shape[2], k.shape[2]
+    heads = types.SimpleNamespace(num_heads=Hq, num_kv_heads=Hkv)
+    shard = part.TPShard(None, tuple(range(tp)), True, tp, rank)
+    ql = shard.local(q, 2)
+    kl, vl = ((shard.local(t, 2) for t in (k, v)) if Hkv % tp == 0
+              else (k, v))
+    return ql, *_kv_of_local_heads(heads, ql.shape[2], kl, vl, shard)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_flash_kernel_kv_len_on_a_ranks_heads(cuda, dtype, tp):
+    """seamless-m4t's encoder attention on one rank of TP ``tp``: the
+    bidirectional flash with ``kv_len`` on 16 / tp heads (B 8, S 1024,
+    D 64), against its plain version and against the rank's heads of the
+    whole call."""
+    q, k, v, lens = _kv_case(cuda, 8, 1024, 64, dtype, _drawn_lens(8, 1024))
+    whole = fa.flash_attention(q, k, v, causal=False, kv_len=lens)
+    per = 16 // tp
+    for rank in (0, tp - 1):
+        ql, kl, vl = _rank_heads(tp, rank, q, k, v)
+        assert ql.shape[2] == kl.shape[2] == per
+        got = fa.flash_attention(ql, kl, vl, causal=False, kv_len=lens)
+        want = flash_attention_ref(ql, kl, vl, causal=False, kv_len=lens)
+        torch.cuda.synchronize()
+        assert _agree(got, want, GPU_TOL[dtype])
+        assert _agree(got, whole[:, :, rank * per:(rank + 1) * per],
+                      GPU_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("src_bound", [128, 1024])
+def test_ragged_decode_cross_cache_on_a_ranks_heads(cuda, dtype, tp,
+                                                    src_bound):
+    """seamless-m4t's cross step on one rank of TP ``tp``: the ragged
+    decode over a cross cache of 8 slots, 1024 source rows and 16 heads
+    (G 1, D 64), read to ``src_bound`` on the rank's 16 / tp heads, each
+    slot masked at its source length (one slot dead), against its plain
+    version and the rank's heads of the whole call."""
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    B, T, H, D = 8, 1024, 16, 64
+    q = torch.randn((B, 1, H, D), generator=gen, device=cuda).to(dtype)
+    ck, cv = (torch.randn((B, T, H, D), generator=gen,
+                          device=cuda).to(dtype) for _ in range(2))
+    src = torch.randint(1, src_bound + 1, (B,), generator=gen,
+                        device=cuda).to(torch.int32)
+    src[0] = src_bound
+    live = torch.tensor([1, 1, 1, 0, 1, 1, 1, 1], dtype=torch.bool,
+                        device=cuda)
+    sb = slice(0, src_bound)
+    whole = rd.ragged_decode_attention(q, ck[:, sb], cv[:, sb], src,
+                                       live=live)
+    per = H // tp
+    for rank in (0, tp - 1):
+        # the rank's shard of the cache, then the bounded (strided) view
+        ql, kl, vl = _rank_heads(tp, rank, q, ck, cv)
+        kl, vl = kl[:, sb], vl[:, sb]
+        got = rd.ragged_decode_attention(ql, kl, vl, src, live=live)
+        want = ragged_decode_attention_ref(ql, kl, vl, src, live=live)
+        torch.cuda.synchronize()
+        assert _agree(got, want, GPU_TOL[dtype])
+        assert _agree(got, whole[:, :, rank * per:(rank + 1) * per],
+                      GPU_TOL[dtype])
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((2, 1, 4, 64), dtype=torch.float16, device=cuda)

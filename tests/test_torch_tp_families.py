@@ -28,9 +28,9 @@ module; every test reads the two runs.  Parameters cross with
 (e) An SSM tenant and a hybrid tenant on ``ComposedServer(mesh=...,
     tp=True)``, recomposed 4 + 4 -> 6 + 2 mid-stream: the reference's
     events and streams.
-(f) Every decoder-only arch builds its engine under
-    ``serve_engine_rules()``; the enc-dec arch and ``EncoderEngine`` raise,
-    naming ROADMAP.md queue 1 item 7.
+(f) Every arch builds the engine of its own workload class, and an
+    ``EncoderEngine`` that encodes one job, under
+    ``serve_engine_rules()``.
 (g) On the CPU alone: the staged plain Mamba step on the ranks' shards of
     TP 2, 4 and 8, its two sums added here, equals the fused plain step
     within 1e-6 in fp32, dead rows untouched.
@@ -296,14 +296,20 @@ def test_fabric_ssm_and_hybrid_tenants_recompose(runs):
 
 
 def test_decoder_only_archs_take_tp_rules_encdec_raise(runs):
+    """Every arch, the enc-dec one included, builds the engine of its own
+    class under the rules, and an ``EncoderEngine`` of every arch encodes
+    a job under them (the enc-dec and encoder steps no longer raise; the
+    name is kept from when they did)."""
+    from repro_torch.configs import ARCH_IDS
+
     _, port = runs
     got = port["admitted"]
-    assert set(got["built"]) >= set(FAMILIES) | {"minitron-4b", "granite-34b",
-                                                 "arctic-480b"}
     assert got["raised"] == {}, got["raised"]
-    for what in ("seamless-m4t-medium", "encoder"):
-        e = got["refused"][what]
-        assert "ROADMAP.md queue 1 item 7" in e, e
+    assert set(got["built"]) == set(ARCH_IDS)
+    assert set(got["built"].values()) == {"DecodeEngine", "SSMEngine",
+                                          "EncDecEngine"}
+    assert got["built"]["seamless-m4t-medium"] == "EncDecEngine"
+    assert got["encoded"] == {arch: True for arch in ARCH_IDS}
 
 
 def _mamba_case(B, d, d_in, R, N, w, seed):

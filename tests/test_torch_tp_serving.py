@@ -32,9 +32,11 @@ reference's ``model.init(jax.random.key(seed))``.
     it exits 2, and ``--production-mesh`` under a world of 1 exits 2
     naming both sizes.
 (h) Replicated engines on a mesh (``rules=None``): an SSM tenant moved
-    mid-stream keeps its stream; the encoder engine's TP rules raise
-    (the SSM engine takes them since its sharded step landed:
-    ``tests/test_torch_tp_families.py``).
+    mid-stream keeps its stream, as does an encoder engine its
+    embeddings; the encoder engine under TP rules builds and encodes, its
+    embeddings beside the unsharded ones (the sharded engines are held to
+    the reference in ``tests/test_torch_tp_families.py`` and
+    ``tests/test_torch_tp_encdec.py``).
 (i) A mesh serves with length-based termination: an engine or a fabric
     given a mesh and an EOS id raises, naming the queued item.
 (j) ``--production-mesh``'s serving on a (2, 4) mesh: one engine per data
@@ -303,8 +305,12 @@ def test_replicated_engines_on_a_mesh(runs):
     got = port["replicated"]
     assert got["ssm_moved"] == got["ssm_unsharded"]
     assert all(len(t) == 6 for t in got["ssm_unsharded"].values())
-    assert "ROADMAP" in got["encoder_rules_error"]
     assert got["encoder_moved"] == got["encoder_unsharded"]
+    ruled, whole = got["encoder_ruled"], got["encoder_unsharded"]
+    assert set(ruled) == set(whole) and len(whole) == 3
+    for r in whole:
+        # the unsharded side is rounded to 5 decimals
+        assert np.allclose(ruled[r], whole[r], rtol=1e-5, atol=1e-5), r
 
 
 def test_eos_termination_on_a_mesh_raises(runs):
