@@ -336,6 +336,20 @@
    the ragged decode over a full seamless cross cache, the ranks'
    outputs against the whole call, rank 0 against its plain version,
    timed beside it, SDPA under the same mask and the bound.
+26. The policy-driven fabric on a mesh: (a) inside the minitron-4b phase,
+   its model and weights as the one tenant of ``ComposedServer`` on a (1,
+   1) mesh at world 1 (NCCL), as the reference's ``run_fabric`` builds
+   it: ``AnalyticalPolicy`` with Stage 1 on the NVLink profile,
+   background prewarm, SLO preemption under a TTFT target no queued
+   request meets and an EOS id that the unsharded engine emits
+   mid-stream; streams bitwise the unsharded engine's replay of the
+   fabric's schedule (slot retunes and preemptions at the same steps),
+   requests ended on EOS, preemptions, decisions and the decision
+   broadcasts' time logged, 0 captures after the warm-up.  (b) inside the
+   falcon-mamba-7b phase, its model and weights through ``SSMEngine`` on
+   the mesh, two live streams preempted (exported as blocks of the rank's
+   shards) and resumed mid-stream: streams bitwise the uninterrupted
+   unsharded run's, the Mamba step and the scan launched.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -7024,6 +7038,242 @@ def run_tp_encdec_kernels(torch, reps: int = 10):
     return counted
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the policy-driven fabric on a mesh (AnalyticalPolicy and Stage 1
+# on the NVLink profile, SLO preemption, EOS, background prewarm)
+# ---------------------------------------------------------------------------
+
+MESH_FABRIC_NEW = 24        # new tokens a request
+MESH_FABRIC_REQUESTS = 12   # on 4 slots: 8 queue behind a full pool
+MESH_FABRIC_SLOTS = 4       # below the queue, so Stage 1 asks for more
+# a TTFT p99 target (ms) that no queued request meets: every step with a
+# queue preempts a live stream, as the mixed fleet's flash crowd does
+MESH_FABRIC_TTFT_MS = 1.0
+SSM_PREEMPT_AT = 6          # the decode step before which (b) preempts
+SSM_PREEMPTS = 2
+
+
+def mesh_fabric_prompts(cfg):
+    """Phase 26's 12 prompts of 100-600 tokens, from numpy seed 3."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    return [rng.integers(1, cfg.vocab_size, size=int(n))
+            for n in rng.integers(100, 601, size=MESH_FABRIC_REQUESTS)]
+
+
+def eos_replay(torch, model, params, scfg, prompts, steps_slo, events):
+    """The unsharded ``DecodeEngine``'s replay of a fabric run's schedule:
+    the same requests, before step k the fabric's SLO preemptions of step
+    k (``preempt_one``, the same victim rule), after it the slot count the
+    fabric's events applied at that step.  Returns its streams."""
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.workloads import DecodeEngine
+
+    eng = DecodeEngine(model, params, scfg)
+    eng.warm_compile(None)
+    rids = [eng.submit(p, max_new_tokens=MESH_FABRIC_NEW) for p in prompts]
+    by_step = {}
+    for ev in events:
+        slots = ev.design.get("minitron-4b", {}).get("slots")
+        if slots is not None:
+            by_step[ev.step] = slots
+    step = 0
+    while eng.has_work:
+        for _ in range(steps_slo[step] if step < len(steps_slo) else 0):
+            require(eng.preempt_one() is not None,
+                    "phase 26 (a) replay: nothing to preempt")
+        eng.step()
+        step += 1
+        if step in by_step:
+            eng.apply(None, DesignPoint(cus=0, slots=by_step[step]))
+        require(step <= 2000, "phase 26 (a) replay did not finish")
+    torch.cuda.synchronize()
+    res = eng.results()
+    return [res[r] for r in rids]
+
+
+def run_mesh_fabric_phase(torch, model, params):
+    """Phase 26 (a): minitron-4b at full width and depth (the serving
+    phase's model and weights) as the one tenant of ``ComposedServer`` on
+    a (1, 1) mesh under a world-1 NCCL group, as the reference's
+    ``run_fabric`` builds it: ``AnalyticalPolicy`` with Stage 1 on the
+    NVLink profile (the fabric's default on a mesh), ``prewarm_async``
+    (every recomposition must commit from it), SLO preemption under a TTFT p99 target of ``MESH_FABRIC_TTFT_MS``, and
+    an EOS id the unsharded engine emits mid-stream.  The streams must be
+    bitwise the unsharded engine's replay of the fabric's schedule (its
+    slot retunes and SLO preemptions at the same steps), with at least one
+    request ended on EOS, one SLO preemption, one decision and 0 graph
+    captures after the warm-up.  Returns the fabric run's launches."""
+    import dataclasses as dc
+
+    from repro_torch.core.dse import tp_candidates
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads import DecodeEngine, ServeConfig
+
+    card = card_line()
+    t0 = time.perf_counter()
+    prompts = mesh_fabric_prompts(model.cfg)
+    base = ServeConfig(max_slots=MESH_FABRIC_SLOTS, max_len=2048, eos_id=-1,
+                       use_kernels=True, slot_cap=16)
+    # the EOS id: the token the unsharded engine emits halfway through the
+    # first request's stream
+    free = DecodeEngine(model, params, base)
+    free.warm_compile(None)
+    rids = [free.submit(p, max_new_tokens=MESH_FABRIC_NEW) for p in prompts]
+    while free.has_work:
+        free.step()
+    free_streams = [free.results()[r] for r in rids]
+    del free
+    eos = int(free_streams[0][MESH_FABRIC_NEW // 2])
+    scfg = dc.replace(base, eos_id=eos)
+    with world_one_mesh() as mesh:
+        srv = F.ComposedServer(
+            [F.TenantSpec("minitron-4b", "minitron-4b", reduced=False,
+                          serve=scfg,
+                          slo=F.SLOTarget(ttft_p99_ms=MESH_FABRIC_TTFT_MS))],
+            mesh=mesh, device="cuda", params={"minitron-4b": params},
+            policy=F.AnalyticalPolicy(), decide_every=4, warm=True,
+            prewarm_async=True)
+        decisions, spaces = [], []
+        decide = srv.policy.decide
+
+        def counted(obs, *a, **kw):
+            spaces.extend((t, o.space.tp_allowed) for t, o in obs.items()
+                          if o.space is not None)
+            out = decide(obs, *a, **kw)
+            decisions.append(out[1])
+            return out
+
+        srv.policy.decide = counted
+        for eng in srv.engines.values():
+            eng.warm_compile(None)
+        torch.cuda.synchronize()
+        reset_counts(TP_KERNELS)
+        w0 = time.perf_counter()
+        frids = [srv.submit("minitron-4b", p,
+                            max_new_tokens=MESH_FABRIC_NEW) for p in prompts]
+        steps_slo = []
+        while any(e.has_work for e in srv.engines.values()):
+            n0 = srv._slo_preemptions
+            srv.step()
+            steps_slo.append(srv._slo_preemptions - n0)
+            require(len(steps_slo) <= 2000, "phase 26 (a) did not finish")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        counts = read_counts(TP_KERNELS)
+        res = srv.results()["minitron-4b"]
+        streams = [res[r] for r in frids]
+        st = srv.stats()
+        events = list(srv.events)
+        platform = srv.policy.platform
+        del srv
+    replay = eos_replay(torch, model, params, scfg, prompts, steps_slo,
+                        events)
+    ended = sum(1 for s in streams
+                if len(s) < MESH_FABRIC_NEW and s[-1] == eos)
+    slo_n = sum(steps_slo)
+    L = model.cfg.num_layers
+    agree = st["mesh_decisions"]
+    log(f"phase 26 (a) mesh fabric minitron-4b, {L} layers, world 1 "
+        f"(NCCL), mesh (1, 1): {len(prompts)} requests of "
+        f"{MESH_FABRIC_NEW} new tokens on {scfg.max_slots} slots, eos_id "
+        f"{eos} (ended {ended} requests early), TTFT p99 target "
+        f"{MESH_FABRIC_TTFT_MS} ms: {len(steps_slo)} steps in "
+        f"{wall * 1e3:.1f} ms, SLO preemptions {slo_n}, "
+        f"preemptions {st['preemptions']}; policy on {platform.name} "
+        f"(ici_bw {platform.ici_bw:.0f} B/s x {platform.ici_links}): "
+        f"{len(decisions)} decisions {sorted(set(decisions))}, Stage 1 "
+        f"tp_allowed {sorted(set(a for _, a in spaces))}, TP candidates at "
+        f"one column {tp_candidates(1)}; events "
+        f"{[(e.step, e.reason, e.design, e.overlapped) for e in events]}; "
+        f"speculative prewarms {st['speculative_prewarms']}; decision "
+        f"broadcasts {agree['broadcasts']} in {agree['seconds'] * 1e3:.3f} "
+        f"ms (p50 {agree['p50_ms']} ms); serving captures {st['serving_captures']}; launches "
+        f"{counts}; {time.perf_counter() - t0:.1f} s ({card})")
+    require(streams == replay, "phase 26 (a): the mesh fabric's streams "
+            "differ from the unsharded replay of its schedule")
+    require(ended >= 1, "phase 26 (a): no request ended on EOS")
+    require(slo_n >= 1, "phase 26 (a): no SLO preemption")
+    require(len(decisions) >= 1 and spaces
+            and all(a for _, a in spaces),
+            f"phase 26 (a): decisions {decisions}, tp_allowed {spaces}")
+    require(platform.ici_bw == 450e9, f"phase 26 (a): priced on "
+            f"{platform.name}")
+    require(all(e.overlapped for e in events), "phase 26 (a): a "
+            "recomposition committed without the background prewarm")
+    require(sum(st["serving_captures"].values()) == 0,
+            f"phase 26 (a): captures {st['serving_captures']} on the "
+            "serving path")
+    require(counts["ragged_decode"] >= L and counts["flash_attention"]
+            >= L * len(prompts), f"phase 26 (a): launches {counts}")
+    return counts
+
+
+def run_mesh_preempt_phase(torch, model, params, scfg):
+    """Phase 26 (b): falcon-mamba-7b at the serving phase's cut (its model
+    and weights) through ``SSMEngine`` on a (1, 1) mesh under
+    ``serve_engine_rules()``: ``preempt_one`` twice before decode step
+    ``SSM_PREEMPT_AT`` (each slot exported as a block of the rank's
+    shards), resumed at once into the freed slots.  The streams must be
+    bitwise the uninterrupted unsharded engine's, and the Mamba step and
+    the scan must launch.  Returns the mesh run's launches."""
+    from repro_torch.core.composer import MeshComposer
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.workloads import SSMEngine
+
+    card = card_line()
+    t0 = time.perf_counter()
+    prompts = serving_prompts(model.cfg)
+    new = MESH_FABRIC_NEW
+    one = SSMEngine(model, params, scfg)
+    one.warm_compile(None)
+    _, one_streams, _ = tp_serve(torch, one, prompts, new)
+    del one
+    names = ("mamba_step", "mamba_scan")
+    with world_one_mesh() as mesh:
+        eng = SSMEngine(model, params, scfg,
+                        mesh=MeshComposer(mesh).submesh([0], "falcon"),
+                        rules=part.serve_engine_rules())
+        eng.warm_compile(None)
+        torch.cuda.synchronize()
+        captures = eng.graph_captures
+        reset_counts(names)
+        rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        victims, resumed, steps = [], None, 0
+        while eng.has_work:
+            if steps == SSM_PREEMPT_AT:
+                victims = [eng.preempt_one() for _ in range(SSM_PREEMPTS)]
+                parked = eng.preempted_depth
+            eng.step()
+            if steps == SSM_PREEMPT_AT:
+                resumed = parked - eng.preempted_depth
+            steps += 1
+            require(steps <= 1000, "phase 26 (b) did not finish")
+        torch.cuda.synchronize()
+        counts = read_counts(names)
+        res = eng.results()
+        streams = [res[r] for r in rids]
+        path_captures = eng.graph_captures - captures
+        del eng
+    log(f"phase 26 (b) mesh preemption falcon-mamba-7b, "
+        f"{model.cfg.num_layers} layers (SSMEngine, mesh (1, 1), "
+        f"serve_engine_rules()): {len(prompts)} prompts, {new} new tokens, "
+        f"preempted {victims} before step {SSM_PREEMPT_AT}, {resumed} "
+        f"resumed in that step; streams equal the uninterrupted unsharded "
+        f"run's: {streams == one_streams}; graph captures on the serving "
+        f"path {path_captures}; launches {counts}; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    require(len(victims) == SSM_PREEMPTS and None not in victims
+            and resumed == SSM_PREEMPTS,
+            f"phase 26 (b): preempted {victims}, resumed {resumed}")
+    require(streams == one_streams, "phase 26 (b): streams across the "
+            "preemption differ from the uninterrupted run's")
+    require(path_captures == 0, f"phase 26 (b): {path_captures} captures")
+    require(counts["mamba_step"] > 0 and counts["mamba_scan"] > 0,
+            f"phase 26 (b): launches {counts}")
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -7106,6 +7356,10 @@ def main() -> int:
         torch, model, params, DecodeEngine, scfg, per_step="ragged_decode",
         per_prefill="flash_attention")[0])
     run_migration_phase(torch, model, params, scfg)
+    t_mesh = time.perf_counter()
+    for name, n in run_mesh_fabric_phase(torch, model, params).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"phase 26 (a) took {time.perf_counter() - t_mesh:.1f} s")
     torch.cuda.empty_cache()
     run_reference_check(torch, (model, params, True), (model, params, False),
                         tol=LOGIT_REL_TOL, label="reference check minitron-4b")
@@ -7135,6 +7389,11 @@ def main() -> int:
         torch, model, params, SSMEngine, scfg, per_step="mamba_step",
         per_prefill="mamba_scan")[0])
     pdl_edge_check(torch, SSMEngine, model, params, scfg)
+    t_mesh = time.perf_counter()
+    for name, n in run_mesh_preempt_phase(torch, model, params,
+                                          scfg).items():
+        launches[name] = launches.get(name, 0) + n
+    log(f"phase 26 (b) took {time.perf_counter() - t_mesh:.1f} s")
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -11,12 +11,16 @@ Two profiles ship:
 * ``VCK190`` — the paper's evaluation board (AMD Versal ACAP, 150 MHz PL,
   1 GHz AIE), which the paper path's DSE prices designs on;
 * ``H100_SXM`` — one NVIDIA H100 SXM (data sheet figures), which the
-  serving fabric prices tenants on.
+  serving fabric prices tenants on;
+* ``H100_NVLINK`` — the same card behind an NVSwitch, with its NVLink
+  term: what one CU of a fabric composed over a mesh of GPUs is.
 
 The serving fabric composes one card out of ``N`` logical CUs, and its
 policy prices a tenant on ``c`` CUs as ``c/N`` of the card's compute,
 bandwidth and memory: :func:`per_cu` is that share as a profile (the
-reference's profiles are per chip, and a chip is one of its CUs).
+reference's profiles are per chip, and a chip is one of its CUs).  On a
+mesh a CU is a whole GPU, priced on ``H100_NVLINK``, whose link lets
+Stage 1 price tensor parallelism (``tp_collective_latency``).
 """
 from __future__ import annotations
 
@@ -113,6 +117,20 @@ H100_SXM = PlatformProfile(
     bitstream_reload_s=0.15,
 )
 
+# ---------------------------------------------------------------------------
+# One H100 SXM behind an NVSwitch (an 8-GPU HGX board): H100_SXM's per-GPU
+# numbers and one NVLink 4 term.  NVLink 4 gives a GPU 900 GB/s over its 18
+# links, both directions together (NVIDIA H100 data sheet), so 450e9 B/s
+# each way; through the switch an all-reduce's ring phase moves its bytes
+# over that aggregate, so it is one "link" here (ici_links = 1), and
+# ``tp_collective_latency`` and ``analysis.roofline.derive_terms`` read the
+# same 450e9 B/s.  A data sheet figure and a model assumption (the hop
+# latency is ``ICI_HOP_LATENCY_S``, the reference's): neither has been
+# measured, which takes two GPUs.
+# ---------------------------------------------------------------------------
+H100_NVLINK = dataclasses.replace(
+    H100_SXM, name="h100_sxm_nvlink", ici_bw=450e9, ici_links=1)
+
 # The serving fabric's default CU count on one card: 8, as the reference's
 # 8-column fabric, so decisions on both can be compared.
 DEFAULT_CUS = 8
@@ -135,7 +153,7 @@ def per_cu(profile: PlatformProfile, num_cus: int) -> PlatformProfile:
         onchip_bw=profile.onchip_bw / n)
 
 
-PROFILES = {p.name: p for p in (VCK190, H100_SXM)}
+PROFILES = {p.name: p for p in (VCK190, H100_SXM, H100_NVLINK)}
 
 
 def get_profile(name: str) -> PlatformProfile:

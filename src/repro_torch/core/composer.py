@@ -15,7 +15,8 @@ is the reference's pure integer arithmetic, copied as it is.
 
 ``tp_submesh`` and ``replica_submesh`` (reference
 ``distribution/partitioning.py``) are the same tilings of a grant's CU
-ids.  Framework-free: the device is carried, never touched.
+ids (``replica_submesh`` carves a mesh grant's sub-mesh alike).
+Framework-free on one card: the device is carried, never touched.
 
 On a torch ``DeviceMesh`` (several GPUs, or gloo CPU ranks) a CU is what
 the reference makes it, one column of the mesh's model dim:
@@ -151,9 +152,11 @@ def tp_submesh(sub: Optional[SubAccelerator],
 def replica_submesh(sub: Optional[SubAccelerator], index: int,
                     replicas: int) -> Optional[SubAccelerator]:
     """Tile ``index`` of a grant cut into ``replicas`` disjoint equal-width
-    tiles (a ``ReplicaGroup`` runs one engine per tile).  CUs past
-    ``replicas * (width // replicas)`` are left idle when the grant does
-    not divide evenly; ``replicas`` <= 1 returns the grant unchanged."""
+    tiles (a ``ReplicaGroup`` runs one engine per tile; a mesh grant's tile
+    is the same columns of its sub-mesh, which every rank creates in the
+    same order).  CUs past ``replicas * (width // replicas)`` are left idle
+    when the grant does not divide evenly; ``replicas`` <= 1 returns the
+    grant unchanged."""
     if sub is None or replicas <= 1:
         return sub
     n = len(sub.cu_ids)
@@ -165,7 +168,14 @@ def replica_submesh(sub: Optional[SubAccelerator], index: int,
         raise ValueError(f"replica index {index} out of range for "
                          f"{replicas} replicas")
     ids = sub.cu_ids[index * width:(index + 1) * width]
-    return dataclasses.replace(sub, cu_ids=ids, share=sub.share * width / n)
+    mesh = sub.mesh
+    if mesh is not None:
+        from repro_torch.distribution.partitioning import \
+            replica_submesh as tile
+
+        mesh = tile(mesh, index, replicas)
+    return dataclasses.replace(sub, cu_ids=ids, share=sub.share * width / n,
+                               mesh=mesh)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,8 +20,10 @@ size.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import threading
 from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -694,13 +696,7 @@ class TPShard:
 
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
-        blocks = _blocks_of(dim)
-        if blocks == 1:
-            return torch.cat(parts, dim=dim)
-        # each rank's shard holds its slice of every block, in block order
-        split = [p.chunk(blocks, dim) for p in parts]
-        return torch.cat([s[b] for b in range(blocks) for s in split],
-                         dim=dim)
+        return _join(parts, dim)
 
     def local(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """This rank's shard of a whole tensor (the tensor itself when it
@@ -714,6 +710,16 @@ class TPShard:
             return full.narrow(dim, self.index * n, n).clone()
         return torch.cat([b.narrow(dim, self.index * n, n)
                           for b in full.chunk(blocks, dim)], dim=dim)
+
+
+def _join(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """The model group's shards, in rank order, as the whole tensor."""
+    blocks = _blocks_of(dim)
+    if blocks == 1:
+        return torch.cat(list(parts), dim=dim)
+    # each rank's shard holds its slice of every block, in block order
+    split = [p.chunk(blocks, dim) for p in parts]
+    return torch.cat([s[b] for b in range(blocks) for s in split], dim=dim)
 
 
 def local_shape(shape: Sequence[int], dim: Optional[int],
@@ -739,6 +745,60 @@ def needs_broadcast(old: Optional[TPShard], new: Optional[TPShard]) -> bool:
     return not holders <= set(old.ranks)
 
 
+# The process group a thread's ``move_leaf`` calls run their collectives
+# on, where it is not the default one (``collectives_on``).
+_THREAD = threading.local()
+
+
+@contextlib.contextmanager
+def collectives_on(group):
+    """Run this thread's ``move_leaf`` calls (and the engines' token
+    broadcasts) over ``group`` (a process group over the whole world),
+    ``move_leaf`` by broadcasts alone: each shard of the old
+    layout from its holder, a whole leaf from the old mesh's first rank.
+    A second thread (a fabric's background warm-up) then issues none of
+    its collectives on the groups the serving thread uses, whose
+    collectives would otherwise interleave with its own in a different
+    order on each rank."""
+    prev = getattr(_THREAD, "group", None)
+    _THREAD.group = group
+    try:
+        yield
+    finally:
+        _THREAD.group = prev
+
+
+def thread_group():
+    """The process group this thread's collectives run on (None: the
+    default one)."""
+    return getattr(_THREAD, "group", None)
+
+
+def _whole_on(group, t: Optional[torch.Tensor], shape: Sequence[int],
+              dtype: torch.dtype, device, old: TPShard,
+              old_dim: Optional[int]) -> torch.Tensor:
+    """The whole leaf on every rank of ``group``: each shard of the old
+    mesh's first row broadcast from its holder (a leaf split over the
+    "model" dim, the mesh's last), or the leaf from the old mesh's first
+    rank.  Every rank calls it with the same layout."""
+    import torch.distributed as dist
+
+    me = dist.get_rank()
+    if old_dim is None:
+        full = (t if me == old.root
+                else torch.empty(tuple(shape), dtype=dtype, device=device))
+        dist.broadcast(full, src=old.root, group=group)
+        return full
+    piece = local_shape(shape, old_dim, old.size)
+    parts = []
+    for src in old.ranks[:old.size]:
+        buf = (t.contiguous() if me == src
+               else torch.empty(piece, dtype=dtype, device=device))
+        dist.broadcast(buf, src=src, group=group)
+        parts.append(buf)
+    return _join(parts, old_dim)
+
+
 def move_leaf(t: Optional[torch.Tensor], shape: Sequence[int],
               dtype: torch.dtype, device, old: Optional[TPShard],
               old_dim: Optional[int], new: Optional[TPShard],
@@ -746,11 +806,18 @@ def move_leaf(t: Optional[torch.Tensor], shape: Sequence[int],
     """One leaf from the ``old`` layout to the ``new`` one: gathered whole
     within the old model group, broadcast from the old mesh's first rank
     to every rank where a new holder held none of it, and sliced by each
-    new holder.  Returns this rank's new local tensor (None on a rank
-    outside ``new``).  Every rank of the world calls it with the same
-    layouts."""
+    new holder (under ``collectives_on``, broadcast whole to every rank
+    over that group instead).  Returns this rank's new local tensor (None
+    on a rank outside ``new``).  Every rank of the world calls it with the
+    same layouts."""
     import torch.distributed as dist
 
+    group = thread_group()
+    if group is not None and old is not None:
+        full = _whole_on(group, t, shape, dtype, device, old, old_dim)
+        if new is None:
+            return full
+        return new.local(full, new_dim) if new.member else None
     full = t
     if old is not None and old.member:
         full = old.all_gather(t, old_dim) if old_dim is not None else t

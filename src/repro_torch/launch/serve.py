@@ -22,6 +22,21 @@ analytical policy (``--split-only`` for the split-only ablation) deciding
 every ``--decide-every`` steps, and warm recomposition (``--no-warm`` off,
 ``--prewarm-async`` in a background thread).
 
+Under ``torchrun`` with more than one rank (one rank per GPU under NCCL,
+gloo CPU ranks with ``--device cpu``), or at a world of one with
+``--mesh-fabric``, ``--fabric`` builds what the reference's
+``run_fabric`` builds: the fabric over a (1, world) mesh, every column a
+CU, each tenant tensor-parallel on its sub-mesh (``--no-tp``: whole on
+each of its ranks), the policy pricing a CU as one GPU behind NVLink
+(``H100_NVLINK``), SLO preemption (``--no-preempt`` off) and
+``--prewarm-async``, every rank running the same schedule and rank 0
+printing the document:
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.serve --fabric \
+        --scenario flash-crowd --reduced [--device cpu]
+    python -m repro_torch.launch.serve --fabric --mesh-fabric \
+        --arch minitron-4b --reduced [--device cpu]
+
 The reference's mixed fleet (``MIXED_FLEET``: one tenant per workload
 class, minitron-4b decode, falcon-mamba-7b SSM, qwen2.5-32b encoder and
 seamless-m4t-medium enc-dec):
@@ -203,25 +218,53 @@ def fleet_tenants(args, serve: ServeConfig):
             for i, arch in enumerate(args.arch)]
 
 
-def serve_fabric(args, params=None):
+def fabric_mesh(args):
+    """The mesh ``--fabric`` composes: (1, world) over ``torchrun``'s
+    process group when it has more than one rank, or over a world of one
+    started here with ``--mesh-fabric``; None (one card's CUs)
+    otherwise."""
+    import torch.distributed as dist
+
+    device = torch.device(args.device).type
+    world = init_world(device)
+    if world == 1 and not args.mesh_fabric:
+        return None
+    if not dist.is_initialized():
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+    return make_serve_mesh(device=device)
+
+
+def serve_fabric(args, params=None, mesh=None):
     """Build the fabric of ``args``, serve its traffic and return
     ``(server, document, submitted)``: the document is what ``run_fabric``
     prints, ``submitted`` the (tenant, rid, tokens) of every request.
-    ``params`` (tenant name -> weights) replaces random weights."""
+    ``params`` (tenant name -> weights) replaces random weights; ``mesh``
+    composes its columns (``fabric_mesh``) instead of one card's CUs,
+    every rank calling this together."""
     serve = ServeConfig(max_slots=args.max_slots, max_len=args.max_len,
                         eos_id=-1, kv_arena_frac=args.kv_frac,
                         kv_page_rows=args.kv_page_rows)
     tenants = fleet_tenants(args, serve)
     use_traffic = args.scenario in TRAFFIC_SCENARIOS
-    policy = AnalyticalPolicy(per_cu(H100_SXM, args.num_cus),
-                              two_stage=not args.split_only)
+    # on a mesh the policy's default platform is a GPU behind NVLink
+    policy = AnalyticalPolicy(
+        per_cu(H100_SXM, args.num_cus) if mesh is None else None,
+        two_stage=not args.split_only)
     server = ComposedServer(tenants, num_cus=args.num_cus,
                             device=args.device, policy=policy,
                             decide_every=args.decide_every,
                             warm=not args.no_warm,
                             prewarm_async=args.prewarm_async,
                             telemetry=not args.no_telemetry,
-                            slo_preempt=not args.no_preempt, params=params)
+                            slo_preempt=not args.no_preempt, params=params,
+                            mesh=mesh, tp=not args.no_tp)
     if not args.no_warm:
         for eng in server.engines.values():
             eng.warm_compile(None)
@@ -288,7 +331,11 @@ def serve_fabric(args, params=None):
     doc = {
         "device": _device_name(server.device),
         "tenants": [t.name for t in tenants], "scenario": args.scenario,
-        "num_cus": args.num_cus, "two_stage": not args.split_only,
+        "num_cus": server.composer.num_cus,
+        "mesh": list(mesh.mesh.shape) if mesh is not None else None,
+        "tp": server.rules is not None,
+        "platform": policy.platform.name,
+        "two_stage": not args.split_only,
         "decode_steps": steps, "wall_s": round(dt, 2), **stats,
         "telemetry": not args.no_telemetry,
         "harness_step_ms": {
@@ -318,8 +365,14 @@ def serve_fabric(args, params=None):
 
 
 def run_fabric(args) -> int:
-    """Traffic-driven multi-tenant serving on one recomposable card."""
-    server, doc, _ = serve_fabric(args)
+    """Traffic-driven multi-tenant serving on one recomposable card, or on
+    a mesh (``fabric_mesh``; rank 0 prints)."""
+    import torch.distributed as dist
+
+    mesh = fabric_mesh(args)
+    server, doc, _ = serve_fabric(args, mesh=mesh)
+    if mesh is not None and dist.get_rank() != 0:
+        return 0
     print(json.dumps(doc, indent=1, default=list))
     if args.trace_out:
         server.dump_trace(args.trace_out)
@@ -1050,10 +1103,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--production-mesh", action="store_true",
                     help="serve on the 16x16 production mesh (torchrun, "
                          "256 ranks)")
+    ap.add_argument("--mesh-fabric", action="store_true",
+                    help="with --fabric at a world of one: compose a "
+                         "(1, 1) mesh (the policy, Stage 1 and the engines "
+                         "on a mesh) instead of one card's CUs; torchrun "
+                         "worlds of more ranks always do")
     ap.add_argument("--multi-pod", action="store_true",
                     help="with --production-mesh: 2x16x16 (512 ranks)")
     ap.add_argument("--no-tp", action="store_true",
-                    help="with --production-mesh: replicated engines")
+                    help="with --production-mesh or --fabric on a mesh: "
+                         "replicated engines")
     return ap
 
 

@@ -40,13 +40,24 @@ shards its params and pooled KV or state over its own
 (``serve_engine_rules``; ``tp=False`` keeps them whole on each of its
 ranks), and a recomposition moves only the tenants whose ranks change,
 params and live KV, while the others keep their ranks and tensors.
-Every rank runs the fabric, in the same order.  For now a mesh serves
-with ``policy=None`` (manual ``recompose`` and ``unify``), no SLO
-preemption, one replica per tenant and length-based termination
-(``eos_id < 0``); the policy and Stage 1 priced for NVLink
-(``tp_allowed``), SLO preemption, EOS termination and replica groups on
-a mesh are queued (they raise).  On one card Stage 1 runs with
-``tp_allowed=False``.
+Every rank runs the fabric, in the same order; the policy, SLO
+preemption, termination by EOS, replica groups and background prewarm
+run there as on one card.  A CU is then a whole GPU: the policy prices it
+on ``H100_NVLINK`` by default, Stage 1 searches tensor-parallel degrees
+(``tp_allowed`` under TP rules) priced on its NVLink term, and bounds a
+tenant's slots by what one GPU's HBM holds past the tenants' weights.  A
+``ReplicaGroup`` runs its ``dp`` replicas on disjoint ``replica_submesh``
+tiles of the grant, each a TP engine on its tile.  Multi-controller, the
+fabric keeps one decision for the whole mesh: what reads a clock of its
+own rank (the policy's decision, the SLO pass's victims, whether a
+background warm-up is ready to commit) is decided on the mesh's first
+rank and broadcast, on decide ticks (on every step while some tenant's
+SLO is tracked), and every rank applies it.  The background warm-up runs
+its collectives on a process group of its own (``dist.new_group`` over
+the world, made by every rank at construction), one job at a time, in
+the same order on every rank.  Decisions cross on a gloo group of their
+own: host objects, which never wait on the card.  On one card Stage 1
+runs with ``tp_allowed=False`` and the fabric issues no collective.
 
 Reconfiguration cost: a new slot count is a new device pool whose decode
 steps are captured CUDA graphs (0.13-0.18 s each on the card).  With
@@ -61,13 +72,14 @@ import concurrent.futures
 import dataclasses
 import itertools
 import math
+import statistics
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.common.platform import (DEFAULT_CUS, H100_SXM,
-                                         PlatformProfile, per_cu)
+from repro_torch.common.platform import (DEFAULT_CUS, H100_NVLINK,
+                                         H100_SXM, PlatformProfile, per_cu)
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.analytical import (AccelConfig, decode_kv_read_latency,
@@ -77,6 +89,7 @@ from repro_torch.core.composer import (CUComposer, MeshComposer,
                                        SubAccelerator, replica_submesh)
 from repro_torch.core.dse import DesignPoint
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distribution import partitioning as part
 from repro_torch.distribution.partitioning import (ShardingRules,
                                                    serve_engine_rules)
 from repro_torch.models.model import build_model
@@ -88,11 +101,6 @@ from repro_torch.workloads.base import (DECODE, ENCDEC, ENCODER, SSM, Engine,
                                         build_engine, workload_class_of)
 from repro_torch.workloads.compile_cache import ExecutableCache
 from repro_torch.workloads.decode import ServeConfig, _mesh_of
-
-_MESH_QUEUED = ("is queued on a mesh (ROADMAP.md queue 1 item 7: the "
-                "fabric's policy and Stage 1 priced for NVLink, SLO "
-                "preemption, EOS termination and replica groups on a mesh)")
-
 
 @dataclasses.dataclass(frozen=True)
 class SLOTarget:
@@ -234,7 +242,9 @@ class AnalyticalPolicy:
 
     ``platform`` is ONE CU's profile: by default an eighth of one H100
     (``per_cu(H100_SXM, 8)``); a fabric of ``N`` CUs takes
-    ``per_cu(H100_SXM, N)``.
+    ``per_cu(H100_SXM, N)``, and a fabric on a mesh, whose CU is a GPU,
+    ``H100_NVLINK`` (its default there: ``ComposedServer`` builds the
+    policy's default for it).
 
     Two-stage (default): for every candidate CU grant ``c`` the per-tenant
     Stage-1 optimizer (:class:`~repro_torch.serve.dse.Stage1Optimizer`)
@@ -268,18 +278,27 @@ class AnalyticalPolicy:
 
     def __init__(self, platform: Optional[PlatformProfile] = None,
                  min_gain: float = 1.25, two_stage: bool = True):
-        self.platform = (platform if platform is not None
-                         else per_cu(H100_SXM, DEFAULT_CUS))
+        # True while the platform is the default one, which a fabric on a
+        # mesh replaces with its CU's (``use_platform``)
+        self.default_platform = platform is None
         self.min_gain = min_gain
-        self._cost_cache: Dict[Tuple, float] = {}
+        self.two_stage = two_stage
         self.runner_up: Optional[Dict[str, DesignPoint]] = None
-        # Stage 1 shares this policy's step_cost memo as its price table
-        self.stage1: Optional[Stage1Optimizer] = (
-            Stage1Optimizer(self.step_cost, self.platform)
-            if two_stage else None)
         # last non-idle decision's predicted makespans (telemetry /
         # benchmark): {"best_s": ..., "current_s": ...}
         self.predicted: Optional[Dict[str, float]] = None
+        self.use_platform(platform if platform is not None
+                          else per_cu(H100_SXM, DEFAULT_CUS))
+
+    def use_platform(self, platform: PlatformProfile) -> None:
+        """Price on ``platform`` (one CU's profile) from now on: a fresh
+        price table and Stage 1 on it."""
+        self.platform = platform
+        self._cost_cache: Dict[Tuple, float] = {}
+        # Stage 1 shares this policy's step_cost memo as its price table
+        self.stage1: Optional[Stage1Optimizer] = (
+            Stage1Optimizer(self.step_cost, platform)
+            if self.two_stage else None)
 
     # -- per-tenant per-step cost on a c-CU sub-accelerator ----------------
     def step_cost(self, cfg: ModelConfig, batch: int, cus: int,
@@ -567,6 +586,11 @@ class ReplicaGroup:
     DesignPoint ``dp`` axis).  On one card the replicas are co-resident:
     each has its own slot pool, executable-cache entries and CUDA stream,
     and all share the tenant's parameter tensors (no weight is copied).
+    On a mesh each replica is an engine on its own ``replica_submesh``
+    tile of the grant (tensor-parallel there under the group's rules);
+    every rank keeps every replica's host bookkeeping, a replica's tokens
+    come from its tile's first rank, and evacuation and adoption between
+    tiles move each live slot's block of shards.
 
     The group IS the tenant's engine as far as the fabric is concerned —
     same Engine protocol — and owns:
@@ -602,6 +626,7 @@ class ReplicaGroup:
         self._model = model
         self._params = params            # shared by every replica
         self._serve_cfg = serve_cfg
+        self._rules = rules
         self._exec = (exec_cache if exec_cache is not None
                       else ExecutableCache())
         self._granted = sub              # the group's full grant (unsliced)
@@ -634,10 +659,22 @@ class ReplicaGroup:
         dp = point.dp if point.dp is not None else self._dp
         dp = max(int(dp), 1)
         width = self._grant_width(granted)
-        dp = min(dp, width) if width is not None else dp
-        if dp > 1 and _mesh_of(granted) is not None:
-            raise ValueError(f"a replica group (dp={dp}) {_MESH_QUEUED}")
-        return dp
+        return min(dp, width) if width is not None else dp
+
+    def make_meshes(self, sub: Optional[SubAccelerator],
+                    point: Optional[DesignPoint] = None) -> None:
+        """Create the sub-meshes a candidate design point's replicas run on
+        (``sub`` None: the current grant; each tile narrowed to the point's
+        TP degree), which every rank of a mesh does in the same order: a
+        fabric calls it on its serving thread before a background warm-up
+        of the point, which then creates none."""
+        point = point if point is not None else DesignPoint(cus=0)
+        granted = sub if sub is not None else self._granted
+        dp = self._target_dp(granted, point)
+        tp = point.tp if point.tp is not None else \
+            self._replicas[0].engine.design()["tp"]
+        for i in range(dp):
+            part.tp_submesh(_mesh_of(replica_submesh(granted, i, dp)), tp)
 
     @property
     def dp(self) -> int:
@@ -739,10 +776,14 @@ class ReplicaGroup:
         """Preempt one live stream — exact device-state save, re-admitted
         later bit-identically — on the replica whose head-of-line request
         has waited longest (replica-index tie-break).  Returns the victim's
-        group rid, or None when no replica holds a preemptible stream."""
+        group rid, or None when no replica holds a preemptible stream.
+        The waits are read at one instant, so the order is that of the
+        heads' submit stamps, which every rank of a mesh took in the same
+        order."""
+        now = time.perf_counter()
         order = sorted(
             self._replicas,
-            key=lambda r: (-(r.engine.queue_head_wait_s()
+            key=lambda r: (-(r.engine.queue_head_wait_s(now)
                              if r.engine.queue_depth > 0 else 0.0),
                            r.index))
         for rep in order:
@@ -971,7 +1012,8 @@ class ReplicaGroup:
                 rep = staged.get(i)
                 if rep is None:
                     rep_obs = self._obs.fresh()
-                    rep = _Replica(self._build_replica(eng_point, obs=rep_obs),
+                    rep = _Replica(self._build_replica(eng_point, tile,
+                                                       obs=rep_obs),
                                    obs=rep_obs)
                 rep.engine.apply(tile, DesignPoint(cus=0, slots=max(
                     rep.engine.design()["slots"], len(placed[i]), 1)))
@@ -994,15 +1036,23 @@ class ReplicaGroup:
         return applied
 
     def _build_replica(self, eng_point: DesignPoint,
+                       tile: Optional[SubAccelerator] = None,
                        obs: Optional[Telemetry] = None) -> Engine:
         """A fresh member engine at the group's design (dp growth), on the
-        shared parameters."""
+        shared parameters; on a mesh, on its ``tile`` under the group's
+        rules, at the group's TP degree."""
         d0 = self._replicas[0].engine.design()
         slots = (eng_point.slots if eng_point.slots is not None
                  else d0["slots"])
         cfg = dataclasses.replace(self._serve_cfg, max_slots=max(slots, 1))
-        return build_engine(self._wclass, self._model, self._params, cfg,
-                            exec_cache=self._exec, obs=obs)
+        mesh = _mesh_of(tile)
+        eng = build_engine(self._wclass, self._model, self._params, cfg,
+                           exec_cache=self._exec, obs=obs, mesh=mesh,
+                           rules=self._rules if mesh is not None else None)
+        tp = eng_point.tp if eng_point.tp is not None else d0["tp"]
+        if mesh is not None and tp is not None:
+            eng.apply(None, DesignPoint(cus=0, tp=tp))
+        return eng
 
     def warm_compile(self, sub: Optional[SubAccelerator],
                      point: Optional[DesignPoint] = None) -> int:
@@ -1016,10 +1066,10 @@ class ReplicaGroup:
         dp = self._target_dp(granted, point)
         eng_point = dataclasses.replace(point, dp=None)
         built = 0
+        mesh = _mesh_of(granted) is not None
         for i in range(dp):
+            tile = replica_submesh(granted, i, dp) if mesh else None
             if i < len(self._replicas):
-                tile = (replica_submesh(granted, i, dp)
-                        if _mesh_of(granted) is not None else None)
                 built += self._replicas[i].engine.warm_compile(tile,
                                                                eng_point)
                 continue
@@ -1028,10 +1078,11 @@ class ReplicaGroup:
                                rep.engine.design()["slots"]
                                != eng_point.slots):
                 rep_obs = self._obs.fresh()
-                rep = _Replica(self._build_replica(eng_point, obs=rep_obs),
+                rep = _Replica(self._build_replica(eng_point, tile,
+                                                   obs=rep_obs),
                                obs=rep_obs)
                 self._staged[i] = rep
-            built += rep.engine.warm_compile(None)
+            built += rep.engine.warm_compile(tile)
         return built
 
 
@@ -1070,7 +1121,9 @@ class ComposedServer:
     mesh: a ``DeviceMesh`` to compose instead of one card: its model-dim
         columns are the CUs (``num_cus`` is ignored), and every rank of
         its process group builds the server and calls it in the same
-        order (see the module docstring for what a mesh serves yet).
+        order; a policy built on its default platform prices a CU as one
+        GPU on ``H100_NVLINK``, and the mesh's first rank takes the
+        decisions (module docstring).
     tp: on a mesh, shard each tenant's engine over its sub-mesh with
         ``serve_engine_rules`` (off: whole on each of its ranks).
     device: the card (``cuda`` by default; ``cpu`` runs the plain path).
@@ -1097,18 +1150,26 @@ class ComposedServer:
         self.mesh = mesh
         self.rules = serve_engine_rules() if mesh is not None and tp \
             else None
+        # multi-controller: the rank that takes the mesh's decisions (None
+        # on one card) and the gloo group they cross on (host objects: no
+        # device copy, no sync of the card), the process group of the
+        # background warm-up, and the broadcasts' seconds (the last 1024)
+        self._root: Optional[int] = None
+        self._decision_group = None
+        self._warm_group = None
+        self._agreements = 0
+        self._agree_seconds: "collections.deque[float]" = \
+            collections.deque(maxlen=1024)
         if mesh is not None:
-            for what, asked in (
-                    ("termination by EOS (eos_id >= 0)", any(
-                        t.serve.eos_id >= 0 for t in tenants)),
-                    ("a recomposition policy", policy is not None),
-                    ("background prewarming", prewarm_async),
-                    ("SLO preemption", slo_preempt and any(
-                        t.slo is not None and t.slo.tracked()
-                        for t in tenants))):
-                if asked:
-                    raise ValueError(f"{what} {_MESH_QUEUED}")
+            import torch.distributed as dist
+
             self.composer = MeshComposer(mesh)
+            self._root = int(mesh.mesh.flatten()[0])
+            self._decision_group = dist.new_group(backend="gloo")
+            if prewarm_async:
+                self._warm_group = dist.new_group()
+            if policy is not None and policy.default_platform:
+                policy.use_platform(H100_NVLINK)
         else:
             self.composer = CUComposer(num_cus, self.device)
         self.policy = policy
@@ -1140,6 +1201,10 @@ class ComposedServer:
         # slo_preempt=False keeps attainment *reporting* while never
         # preempting.
         self.slo_preempt = slo_preempt
+        # on a mesh the SLO pass takes a decision every step, so it is
+        # broadcast every step, only while some tenant's SLO is tracked
+        self._slo_tracked = slo_preempt and any(
+            t.slo is not None and t.slo.tracked() for t in tenants)
         self._slo_preemptions = 0
         self._slo_obs: Dict[Tuple[str, str], float] = {}
         self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
@@ -1196,10 +1261,17 @@ class ComposedServer:
         if self.policy is not None and self.policy.stage1 is not None:
             # a grant's memory bound on slots: its CUs' share of the HBM
             # that every tenant's weights leave free (weights stay
-            # resident whatever the grant)
-            card = self.policy.platform.hbm_bytes * self.composer.num_cus
-            self.policy.stage1.mem_budget_bytes = (
-                max(card - weight_bytes, 0) / self.composer.num_cus)
+            # resident whatever the grant).  On a mesh a CU is one GPU,
+            # each of which keeps every tenant's whole weights (replicas
+            # and moves are cut from them), so the bound is per GPU
+            hbm = self.policy.platform.hbm_bytes
+            if mesh is not None:
+                self.policy.stage1.mem_budget_bytes = float(
+                    max(hbm - weight_bytes, 0))
+            else:
+                card = hbm * self.composer.num_cus
+                self.policy.stage1.mem_budget_bytes = (
+                    max(card - weight_bytes, 0) / self.composer.num_cus)
         # design-key memo for the prediction ledger's measured side (the
         # per-step path must not rebuild design dicts per tenant per step)
         self._design_keys: Dict[str, str] = {}
@@ -1323,7 +1395,8 @@ class ComposedServer:
                 base_tp=d["tp"],
                 base_dp=d.get("dp", 1),
                 per_slot_elems=per_slot,
-                tp_allowed=False,             # one device
+                # TP rules on a mesh (one card, or tp=False: none)
+                tp_allowed=self.rules is not None,
                 slot_cap=max(eng.cfg.slot_cap, 1),
                 dp_cap=max(self.specs[t].dp_cap, 1),
                 # SSM archs prefill at exact lengths — no padding for
@@ -1414,10 +1487,15 @@ class ComposedServer:
         With ``prewarm_async`` the switch is two-phase: kick background
         warm-ups for the chosen composition (at its target design points),
         keep serving on the current one, and commit on a later tick once
-        every graph is captured."""
+        every graph is captured.  On a mesh the first rank decides both
+        (its policy's decision, its warm-up's readiness) and every rank
+        applies what it decided."""
         if self._pending_prewarm is not None:
             target, reason, futures = self._pending_prewarm
-            if not all(f.done() for f in futures):
+            ready = all(f.done() for f in futures)
+            if self.mesh is not None:
+                ready = self._agree(lambda: ready)
+            if not ready:
                 return None               # still warming in the background
             self._pending_prewarm = None
             for f in futures:
@@ -1426,10 +1504,11 @@ class ComposedServer:
                 return None
             return self.recompose(target, reason=reason, overlapped=True)
 
-        with self.obs.span("decide", step=self._step_no):
-            target, reason = self.policy.decide(
-                self.observe(), self.cfgs, self._applied_points(),
-                self.composer.num_cus)
+        if self.mesh is not None:
+            target, reason, ru, predicted = self._agree(self._decide)
+            self.policy.runner_up, self.policy.predicted = ru, predicted
+        else:
+            target, reason, _, _ = self._decide()
         target = {t: p for t, p in target.items() if p.cus > 0}
         if self._no_change(target):
             # idle decide interval: nothing committed — speculatively warm
@@ -1443,19 +1522,63 @@ class ComposedServer:
             return None
         return self.recompose(target, reason=reason)
 
+    def _decide(self):
+        """The policy's decision on this rank: (target, reason, runner-up,
+        predicted makespans)."""
+        with self.obs.span("decide", step=self._step_no):
+            target, reason = self.policy.decide(
+                self.observe(), self.cfgs, self._applied_points(),
+                self.composer.num_cus)
+        return target, reason, self.policy.runner_up, self.policy.predicted
+
+    def _agree(self, decide):
+        """``decide()`` as the mesh's first rank takes it, on every rank:
+        it decides and broadcasts, the others receive (every rank calls
+        this together).  Decisions that read a rank's own clock are taken
+        so, and the broadcasts' count and time are kept (``stats()``)."""
+        import torch.distributed as dist
+
+        box = [decide() if dist.get_rank() == self._root else None]
+        t0 = time.perf_counter()
+        dist.broadcast_object_list(box, src=self._root,
+                                   group=self._decision_group)
+        self._agreements += 1
+        self._agree_seconds.append(time.perf_counter() - t0)
+        return box[0]
+
     def _warm_design(self, points: Mapping[str, DesignPoint]) -> list:
         """Submit background warm-ups for a candidate design — every
         tenant a knob delta would touch, each warmed at its target design
         point's overrides (a CU move alone changes nothing a step reads on
-        one card).  Returns the futures."""
-        new_subs, _ = self.composer.recompose(
+        one card; on a mesh a moved tenant is warmed too, its params moved
+        to its new ranks).  The candidate's sub-meshes are made here, on
+        the serving thread; the warm-up's collectives run on the fabric's
+        warm-up group.  Returns the futures."""
+        new_subs, delta = self.composer.recompose(
             self.subs, {t: p.cus for t, p in points.items()})
-        touched = {t for t, p in points.items() if self._knob_delta(t, p)}
-        return [self._pool().submit(
-            lambda t=t, pt=self._delta_point(
-                points[t], self._knob_delta(t, points[t])):
-            self.engines[t].warm_compile(new_subs[t], pt))
-            for t in sorted(touched)]
+        moved = set(delta.moved + delta.admitted) if self.mesh is not None \
+            else set()
+        jobs = []
+        for t in sorted(t for t, p in points.items()
+                        if self._knob_delta(t, p) or t in moved):
+            pt = self._delta_point(points[t], self._knob_delta(t, points[t]))
+            self.engines[t].make_meshes(new_subs[t], pt)
+            jobs.append(self._pool().submit(self._warm_job, t, new_subs[t],
+                                            pt))
+        return jobs
+
+    def _warm_job(self, t: str, sub, point: DesignPoint) -> int:
+        with part.collectives_on(self._warm_group):
+            return self.engines[t].warm_compile(sub, point)
+
+    def _settle_warm(self) -> None:
+        """Wait for every background warm-up in flight (on a mesh, before
+        a recomposition moves an engine that one may be moving too)."""
+        futures = list(self._spec_futures)
+        if self._pending_prewarm is not None:
+            futures += self._pending_prewarm[2]
+        for f in futures:
+            f.result()
 
     def _speculative_prewarm(self) -> None:
         """Warm the runner-up candidate design in the background (gated on
@@ -1517,6 +1640,8 @@ class ComposedServer:
         tenant is (its params reach the new ranks then, its KV at the
         move)."""
         rc_t0 = time.perf_counter()
+        if self.mesh is not None:
+            self._settle_warm()
         before = self.sizes()
         points = {t: (v if isinstance(v, DesignPoint)
                       else DesignPoint(cus=int(v)))
@@ -1705,28 +1830,48 @@ class ComposedServer:
         step's ``_admit``.  Per-token protection: a tenant whose observed
         per-token p99 breached target sheds one stream, at most one parked
         at a time.  Preemption saves exact device state; the victim
-        re-admits later and continues bit-identically."""
+        re-admits later and continues bit-identically.  On a mesh the
+        signals, which read clocks, are the first rank's (``_agree``)."""
         if not self.slo_preempt:
             return
+        if self.mesh is None:
+            signals = self._slo_signals()
+        elif self._slo_tracked:
+            signals = self._agree(self._slo_signals)
+        else:
+            return
+        for t, (ttft, per_token) in signals.items():
+            if ttft and self._slo_preempt(t, "ttft"):
+                continue
+            if per_token:
+                self._slo_preempt(t, "per_token")
+
+    def _slo_signals(self) -> Dict[str, Tuple[bool, bool]]:
+        """Per composed SLO-tracked tenant: (its head-of-line wait burns
+        its TTFT budget, its observed per-token p99 breached target) — the
+        SLO pass's decision, read from this rank's clocks."""
+        out: Dict[str, Tuple[bool, bool]] = {}
+        now = time.perf_counter()
         for t, eng in self.engines.items():
             if t not in self.subs:
                 continue                     # parked tenant: no CUs at all
             slo = self.specs[t].slo
             if slo is None or not slo.tracked():
                 continue
+            ttft = False
             if slo.ttft_p99_ms > 0 and eng.queue_depth > 0:
                 breached = (self._slo_obs.get((t, "ttft_p99_ms"), 0.0)
                             > slo.ttft_p99_ms)
                 frac = 0.25 if breached else 0.5
-                if (eng.queue_head_wait_s() * 1e3
-                        >= frac * slo.ttft_p99_ms):
-                    if self._slo_preempt(t, "ttft"):
-                        continue
-            if (slo.per_token_p99_ms > 0 and eng.active_count > 1
-                    and eng.preempted_depth == 0
-                    and self._slo_obs.get((t, "per_token_p99_ms"), 0.0)
-                    > slo.per_token_p99_ms):
-                self._slo_preempt(t, "per_token")
+                ttft = (eng.queue_head_wait_s(now) * 1e3
+                        >= frac * slo.ttft_p99_ms)
+            per_token = (slo.per_token_p99_ms > 0 and eng.active_count > 1
+                         and eng.preempted_depth == 0
+                         and self._slo_obs.get((t, "per_token_p99_ms"), 0.0)
+                         > slo.per_token_p99_ms)
+            if ttft or per_token:
+                out[t] = (ttft, per_token)
+        return out
 
     def slo_attainment(self) -> Dict[str, object]:
         """Per-tenant SLO attainment: for every declared target, the
@@ -1834,6 +1979,16 @@ class ComposedServer:
             "shared_exec_cache": {"builds": self.exec_cache.builds,
                                   "hits": self.exec_cache.hits},
             "speculative_prewarms": self.speculative_prewarms,
+            # on a mesh: decisions broadcast from its first rank, and the
+            # broadcasts' time over the last 1024 (on the first rank the
+            # broadcast alone; on the others with their wait for its
+            # decision)
+            "mesh_decisions": {
+                "broadcasts": self._agreements,
+                "seconds": round(sum(self._agree_seconds), 6),
+                "p50_ms": (round(statistics.median(self._agree_seconds)
+                                 * 1e3, 4) if self._agree_seconds
+                           else None)},
             "decode_step_ms": self.decode_step_ms(),
             "predicted_vs_measured": self.ledger.summary(),
             "composition": {t: list(self.subs[t].cu_ids)

@@ -57,13 +57,21 @@ Without a mesh nothing moves, as the reference's ``tp_submesh(None,
 included.
 
 Every rank runs the engine's host code (admission, slots, arena), which
-only the lengths steer (a mesh takes ``eos_id < 0``; an EOS id raises), so
-it agrees across ranks.  A rank outside the
-engine's mesh does no device work and holds no tensors; its ``step()``
-emits placeholder tokens (-1), while ``results()`` and ``snapshot()``
-return the mesh's own (broadcast from its first rank when the mesh does
-not span the world; every rank calls them together).  On a mesh,
-preemption and replica migration are not supported yet (they raise).
+only the lengths and the tokens steer, so it agrees across ranks.  A rank
+outside the engine's mesh does no device work and holds no tensors; with
+length-based termination (``eos_id < 0``) its ``step()`` emits
+placeholder tokens (-1), while ``results()`` and ``snapshot()`` return the
+mesh's own (broadcast from its first rank when the mesh does not span the
+world; every rank calls them together).  With an EOS id the engine
+harvests every step before the next (as the reference does), and a rank
+outside the mesh receives each step's tokens, and each prefill's first
+token, from the mesh's first rank: every rank frees the same slots and
+admits the same requests.  Preemption, evacuation and adoption move a
+slot as a block of each rank's own shards of its rows
+(:class:`SlotBlock`): restored onto the same mesh it is written back,
+parked requests move with ``reshard_to`` as the pool does, and a block
+adopted onto another rank set moves leaf by leaf as
+``partitioning.move_leaf`` moves a leaf.
 """
 from __future__ import annotations
 
@@ -111,9 +119,6 @@ _GENERATIONS = itertools.count()
 
 # what a rank outside an engine's mesh records for a token it never saw
 _PLACEHOLDER = -1
-
-_TP_QUEUED = ("(ROADMAP.md queue 1 item 7: EOS termination, preemption "
-              "and replica migration on a mesh)")
 
 
 def move_tree(tree: PyTree, plan: Optional[part.ShardingPlan],
@@ -167,14 +172,15 @@ def _rules_fp(rules: Optional[part.ShardingRules]):
     return tuple(sorted(rules.rules.items()))
 
 
-def check_mesh_termination(cfg: "ServeConfig", mesh) -> None:
-    """A mesh serves with length-based termination (``eos_id < 0``): a rank
-    outside an engine's sub-mesh records placeholder tokens, so only the
-    length ends a request the same way on every rank."""
-    if _mesh_of(mesh) is not None and cfg.eos_id >= 0:
-        raise ValueError(
-            f"termination by EOS (eos_id={cfg.eos_id}) on a mesh is queued "
-            f"{_TP_QUEUED}; serve with eos_id=-1")
+@dataclasses.dataclass
+class SlotBlock:
+    """One slot's cache rows exported by an engine on a mesh: this rank's
+    shards of them on the host (None on a rank outside the mesh) and the
+    layout they were cut in, ``shard`` (the exporting engine's
+    ``TPShard``).  Off a mesh a block is the plain tree of host copies."""
+
+    tree: Any
+    shard: Optional[part.TPShard]
 
 
 @dataclasses.dataclass
@@ -337,7 +343,6 @@ class DecodeEngine(EngineTelemetry):
         self.cfg = cfg
         self.device = model.device
         self._obs = obs if obs is not None else Telemetry()
-        check_mesh_termination(cfg, mesh)
         self.rules = rules
         self.reshard_count = 0
         # tensor-parallel degree over the granted sub-mesh (None: the whole
@@ -535,33 +540,61 @@ class DecodeEngine(EngineTelemetry):
         """Logical specs of ``_init_cache``'s tree (hook: enc-dec)."""
         return self.model.cache_logical_specs(slots, self.cfg.max_len)
 
-    def _pool_for(self, slots: int, mesh=None, live: bool = True) -> _Pool:
+    def _pool_for(self, slots: int, mesh=None, live: bool = True,
+                  moved=None) -> _Pool:
         """The pool of ``slots`` slots on ``mesh`` (``live``: the engine's
         own mesh): the live pool, or a candidate that the next resize or
         reshard to it takes over.  A candidate on another mesh holds the
-        params moved there ahead (every rank calls this together).  One
-        candidate at a time: staging another drops the last one's
-        entries."""
+        params moved there ahead: ``moved`` (``_params_for``'s), the last
+        candidate's on that mesh, or moved now (every rank calls this
+        together).  One candidate at a time: staging another drops the
+        last one's entries."""
         if live:
             mesh = self.mesh
         fp = mesh_fingerprint(mesh)
         if slots == self._pool.slots and fp == self._pool.fp:
             return self._pool
         staged = self._staged
-        if staged is None or (staged.slots, staged.fp) != (slots, fp):
-            if staged is not None:
-                self._exec.evict(lambda k: k[2] == staged.gen)
+        if staged is not None and (staged.slots, staged.fp) == (slots, fp):
+            return staged
+        if staged is not None:
+            self._exec.evict(lambda k: k[2] == staged.gen)
             self._staged = None
-            if fp == self._pool.fp:
-                shard, params = self._pool.shard, self.params
-            else:
-                shard = part.TPShard.of(mesh) if mesh is not None else None
-                params = move_tree(self.params, self._param_plan(),
-                                   self.rules, self.device, self._shard,
-                                   shard)
-            staged = self._new_pool(slots, shard, params)
-            self._staged = staged
-        return staged
+        if fp == self._pool.fp:
+            shard, params = self._pool.shard, self.params
+        elif staged is not None and staged.fp == fp:
+            shard, params = staged.shard, staged.params
+        elif moved is not None:
+            shard, params = moved
+        else:
+            shard, params = self._moved_to(mesh, self.params, self._shard)
+        self._staged = self._new_pool(slots, shard, params)
+        return self._staged
+
+    def _moved_to(self, mesh, params, shard):
+        """(the ``TPShard`` on ``mesh``, ``params`` of layout ``shard``
+        moved there).  Every rank calls it together."""
+        new = part.TPShard.of(mesh) if mesh is not None else None
+        return new, move_tree(params, self._param_plan(), self.rules,
+                              self.device, shard, new)
+
+    def _params_for(self, mesh):
+        """For ``warm_compile``: the params moved onto a candidate ``mesh``
+        (``_moved_to``), or None where the live or the staged pool already
+        holds them there.  The move's collectives run outside the engine's
+        lock: a warm-up on another thread then never holds the lock that a
+        serving step takes while it waits on another rank's step.  A
+        fabric's recomposition waits for the warm-ups in flight, so no
+        reshard runs beside this and every rank moves the same layout."""
+        fp = mesh_fingerprint(mesh)
+        with self._lock:
+            staged = self._staged
+            if fp == self._pool.fp or (staged is not None
+                                       and staged.fp == fp):
+                return None
+            params, shard = self.params, self._shard
+        with self._on_stream():
+            return self._moved_to(mesh, params, shard)
 
     # ------------------------------------------------------------------
     # placement on a mesh: local shards, moved between sub-meshes
@@ -599,12 +632,12 @@ class DecodeEngine(EngineTelemetry):
         the params (taken over from a ``warm_compile`` of the same mesh
         where there was one) and the pooled cache are gathered on the old
         mesh, broadcast from its first rank where a new rank held none of
-        them, and sliced into each new rank's shards; the host's tokens
-        follow from the old mesh's first rank.  Host state (queues, slots,
-        arena) is untouched, and the token streams are those of an engine
-        that never moved.  Every rank calls it together.  Without a mesh,
-        or onto the same ranks, nothing moves."""
-        check_mesh_termination(self.cfg, sub)
+        them, and sliced into each new rank's shards; parked requests'
+        blocks move the same way; the host's tokens follow from the old
+        mesh's first rank.  Host state (queues, slots, arena) is untouched,
+        and the token streams are those of an engine that never moved.
+        Every rank calls it together.  Without a mesh, or onto the same
+        ranks, nothing moves."""
         with self._lock, self._on_stream():
             self._harvest()          # in-flight tokens live on the old mesh
             with self._obs.span("reshard"):
@@ -618,9 +651,6 @@ class DecodeEngine(EngineTelemetry):
         if mesh_fingerprint(mesh) == self._mesh_fp:
             self.mesh = mesh
             return
-        if self._parked:
-            raise NotImplementedError(
-                f"resharding with preempted requests parked {_TP_QUEUED}")
         old = self._pool
         new = self._pool_for(old.slots, mesh, live=False)
         self._move_cache(old, new)
@@ -631,19 +661,22 @@ class DecodeEngine(EngineTelemetry):
         self.params = new.params
         self.mesh, self._shard = mesh, new.shard
         self._mesh_fp = new.fp
+        # parked requests' blocks follow the pool onto the new layout
+        self._parked = [(req, self._block_for(block))
+                        for req, block in self._parked]
 
     def _sync_tokens(self, root: int) -> None:
-        """Every live and finished request's tokens and the next injected
-        ones, as the rank ``root`` holds them, onto every rank (a rank
-        outside the old mesh recorded placeholders).  Every rank calls it
-        together."""
+        """Every live, parked and finished request's tokens and the next
+        injected ones, as the rank ``root`` holds them, onto every rank (a
+        rank outside the old mesh recorded placeholders).  Every rank calls
+        it together."""
         import torch.distributed as dist
 
-        reqs = list(self._active.values())
+        reqs = list(self._active.values()) + [r for r, _ in self._parked]
         box = [({r.rid: list(r.out_tokens) for r in reqs},
                 {rid: list(t) for rid, t in self._finished.items()},
                 dict(self._inject))]
-        dist.broadcast_object_list(box, src=root)
+        dist.broadcast_object_list(box, src=root, group=part.thread_group())
         live, finished, inject = box[0]
         for r in reqs:
             r.out_tokens = list(live[r.rid])
@@ -660,13 +693,9 @@ class DecodeEngine(EngineTelemetry):
         import torch.distributed as dist
 
         box = [value]
-        dist.broadcast_object_list(box, src=shard.root)
+        dist.broadcast_object_list(box, src=shard.root,
+                                   group=part.thread_group())
         return box[0]
-
-    def _no_mesh(self, what: str) -> None:
-        if self._shard is not None:
-            raise NotImplementedError(f"{what} on a mesh is queued "
-                                      f"{_TP_QUEUED}")
 
     def sync(self) -> None:
         """Block until this engine's device work is done: its serving
@@ -768,23 +797,71 @@ class DecodeEngine(EngineTelemetry):
     # cross-replica live migration: a retiring replica's requests move to
     # a sibling engine by exact cache-row copy, never by re-prefilling
     # ------------------------------------------------------------------
-    def _export_slot(self, slot: int) -> PyTree:
+    def _export_slot(self, slot: int):
         """One slot's cache rows as a host-side copy (slot dim kept; a
         copy even when the cache lies on the CPU, where ``.cpu()`` would
-        alias the pool); leaves without a slot axis export a placeholder."""
-        self._no_mesh("exporting a slot (preemption, evacuation)")
-        with explicit_read(), self._on_stream():
-            return _tree_map(
-                lambda ax, t: torch.zeros(()) if ax < 0
-                else t.narrow(ax, slot, 1).to("cpu", copy=True),
-                self._slot_axes, self.cache)
+        alias the pool); leaves without a slot axis export a placeholder.
+        On a mesh, a :class:`SlotBlock` of this rank's shards."""
+        tree = None
+        if self._member:
+            with explicit_read(), self._on_stream():
+                tree = _tree_map(
+                    lambda ax, t: torch.zeros(()) if ax < 0
+                    else t.narrow(ax, slot, 1).to("cpu", copy=True),
+                    self._slot_axes, self.cache)
+        if self._shard is None:
+            return tree
+        return SlotBlock(tree, self._shard)
 
-    def _restore_slot(self, req: Request, block: PyTree) -> None:
-        """Write an exported block into ``req.slot`` and make it live; its
-        last emitted token is host-injected, as after any harvest."""
-        self._no_mesh("restoring a slot (resume, adoption)")
+    def _block_here(self, block) -> PyTree:
+        """An exported block's tree in this engine's layout (None on a rank
+        outside its mesh): as it is when cut in that layout, else moved
+        leaf by leaf, gathered from the block's ranks and sliced here
+        (``partitioning.move_leaf``; every rank calls this together)."""
+        old = block.shard if isinstance(block, SlotBlock) else None
+        tree = block.tree if isinstance(block, SlotBlock) else block
+        new = self._shard
+        if old is None and new is None:
+            return tree
+        if (old is not None and new is not None and old.ranks == new.ranks
+                and old.size == new.size):
+            return tree
+        plan = self._plan_for_slots(1)
+        n = len(plan.shapes)
+        axes = plan.leaves(self._slot_axes)
+        leaves = plan.leaves(tree) if tree is not None else [None] * n
+        dims_old = (plan.model_dims(self.rules, old.size) if old is not None
+                    else [None] * n)
+        dims_new = (plan.model_dims(self.rules, new.size) if new is not None
+                    else [None] * n)
+        out = []
         with explicit_read(), self._on_stream():
-            _write_slot(self.cache, block, req.slot, self._slot_axes)
+            for t, shape, dtype, ax, do, dn in zip(
+                    leaves, plan.shapes, plan.dtypes, axes, dims_old,
+                    dims_new):
+                if ax < 0:                 # no slot axis: the placeholder
+                    out.append(torch.zeros(()))
+                    continue
+                moved = part.move_leaf(
+                    t.to(self.device) if t is not None else None, shape,
+                    dtype, self.device, old, do, new, dn)
+                out.append(moved.to("cpu", copy=True)
+                           if moved is not None else None)
+        return plan.unflatten(out) if self._member else None
+
+    def _block_for(self, block):
+        """``block`` as this engine exports it (its layout)."""
+        tree = self._block_here(block)
+        return tree if self._shard is None else SlotBlock(tree, self._shard)
+
+    def _restore_slot(self, req: Request, block) -> None:
+        """Write an exported block into ``req.slot`` and make it live; its
+        last emitted token is host-injected, as after any harvest.  A block
+        cut in another layout moves here first."""
+        tree = self._block_here(block)
+        if self._member:
+            with explicit_read(), self._on_stream():
+                _write_slot(self.cache, tree, req.slot, self._slot_axes)
         self._active[req.slot] = req
         if req.out_tokens:
             self._inject[req.slot] = req.out_tokens[-1]
@@ -794,9 +871,14 @@ class DecodeEngine(EngineTelemetry):
         Returns ``(live, queued)``: ``live`` is ``[(Request, host cache
         block)]`` for every active slot and every parked request,
         ``queued`` the unadmitted requests.  Finished records stay
-        readable through ``results()``."""
+        readable through ``results()``.  On a mesh every rank calls it
+        together: the records carry the mesh's tokens."""
         with self._lock:
             self._harvest()
+            if part.needs_broadcast(self._shard, None):
+                # the records leave the mesh: every rank's must hold its
+                # tokens, not placeholders
+                self._sync_tokens(self._shard.root)
             live = []
             for slot in sorted(self._active):
                 req = self._active[slot]
@@ -1121,15 +1203,18 @@ class DecodeEngine(EngineTelemetry):
         the current grant and degree), onto which the params are moved
         now; the matching ``apply`` or ``reshard_to`` takes the pool over.
         Decode is warmed at the bounds about to dispatch, one block above
-        them and at full capacity.  Off a mesh it may run on another
-        thread while serving goes on: it holds the engine's device lock.
-        Returns the builds performed."""
+        them and at full capacity.  It may run on another thread while
+        serving goes on: it holds the engine's device lock, and on a mesh
+        moves the params outside it (under ``partitioning.collectives_on``
+        a process group of the warm-up's own; every rank warms the same
+        points in the same order).  Returns the builds performed."""
         point = point if point is not None else DesignPoint(cus=0)
+        mesh = self._candidate_mesh(sub, point)
+        moved = self._params_for(mesh)
         with self._lock, self._on_stream(), \
                 self._obs.timed("warm_compile", "warm_compile_s") as sp:
             B = point.slots or self.cfg.max_slots
-            pool = self._pool_for(B, self._candidate_mesh(sub, point),
-                                  live=False)
+            pool = self._pool_for(B, mesh, live=False, moved=moved)
             key = self._config_key(B)
             built = 0
             for bounds in sorted({self._decode_bounds(), self._next_bounds(),
@@ -1316,10 +1401,17 @@ class DecodeEngine(EngineTelemetry):
                 first_dev = exe(self._to_device(toks), L, req.slot)
                 with explicit_read():
                     first = int(first_dev.cpu())    # sync point: first token
+        first = self._eos_token(first)
         req.out_tokens.append(first)
         req.scheduled = 1
         self._inject[req.slot] = first
         self._record_ttft(req)
+
+    def _eos_token(self, tok: int) -> int:
+        """A prefill's first token under EOS termination: the mesh's, on
+        every rank (a rank outside it recorded a placeholder), so that
+        every rank's streams and injections are the mesh's."""
+        return self._from_mesh(tok) if self.cfg.eos_id >= 0 else tok
 
     def _record_ttft(self, req: Request) -> None:
         """The first token just reached the host: time to first token from
@@ -1425,6 +1517,10 @@ class DecodeEngine(EngineTelemetry):
             self._step_device = (device_s, len(inf.entries))
             self._obs.observe("decode_device_s", device_s)
         nxt = inf.host.numpy()
+        if not inf.pipelined:
+            # EOS ends requests on the host: every rank reads the mesh's
+            # tokens (a rank outside it holds placeholders)
+            nxt = self._from_mesh(nxt)
         for slot, req, finishing in inf.entries:
             tok = int(nxt[slot])
             req.out_tokens.append(tok)

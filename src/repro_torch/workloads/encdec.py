@@ -241,11 +241,12 @@ class EncDecEngine(DecodeEngine):
         decoder-prompt length) encode and prefill entry, for the current
         design point or a candidate one.  Returns the builds performed."""
         point = point if point is not None else DesignPoint(cus=0)
+        mesh = self._candidate_mesh(sub, point)
+        moved = self._params_for(mesh)
         with self._lock, self._on_stream(), \
                 self._obs.timed("warm_compile", "warm_compile_s") as sp:
             E = point.slots or self.cfg.max_slots
-            pool = self._pool_for(E, self._candidate_mesh(sub, point),
-                                  live=False)
+            pool = self._pool_for(E, mesh, live=False, moved=moved)
             key = self._config_key(E, point.buckets)
             ladder = (length_buckets(point.buckets, self._max_src)
                       if point.buckets is not None else self._src_buckets)
@@ -372,6 +373,7 @@ class EncDecEngine(DecodeEngine):
                                             len(dec))
                             with explicit_read():
                                 first = int(first_dev.cpu())  # first token
+                    first = self._eos_token(first)
                     req.out_tokens.append(first)
                     req.scheduled = 1
                     self._inject[req.slot] = first

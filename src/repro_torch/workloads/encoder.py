@@ -160,7 +160,8 @@ class EncoderEngine(EngineTelemetry):
                 import torch.distributed as dist
 
                 box = [self._finished]
-                dist.broadcast_object_list(box, src=old.root)
+                dist.broadcast_object_list(box, src=old.root,
+                                           group=part.thread_group())
                 self._finished = box[0]
             self.mesh, self._shard = mesh, new
         self.reshard_count += 1

@@ -3,14 +3,18 @@ CPU ranks (``torch.multiprocessing.spawn``, one thread each, a ``file://``
 rendezvous of its own) that runs every tensor-parallel serving scenario on
 the port and pickles what rank 0 records.
 
-    python tests/_torch_tp_worker.py REF_PICKLE OUT_PICKLE [families|encdec]
+    python tests/_torch_tp_worker.py REF_PICKLE OUT_PICKLE \
+        [families|encdec|fabric]
 
 REF_PICKLE is the reference run's output (its prompts and initial
 parameters); this file imports no JAX.  With ``families`` it runs the
 scenarios of ``tests/test_torch_tp_families.py`` (the SSM, hybrid and
 MoE/MLA decoders), with ``encdec`` those of
-``tests/test_torch_tp_encdec.py`` (the encoder and enc-dec engines), else
-those of ``tests/test_torch_tp_serving.py``.
+``tests/test_torch_tp_encdec.py`` (the encoder and enc-dec engines), with
+``fabric`` those of ``tests/test_torch_tp_fabric.py`` (the policy-driven
+fabric: the policy and Stage 1, EOS, preemption, replica groups and the
+background prewarm on the mesh), else those of
+``tests/test_torch_tp_serving.py``.
 Every rank runs every scenario in the same order, as the engines'
 collectives require; a scenario that hangs fails at the gloo timeout.
 """
@@ -390,36 +394,6 @@ def _replicated(ref, comp, out):
                               for r, v in enc_moved.items()},
             "encoder_unsharded": {r: np.round(v, 5).tolist()
                                   for r, v in e1.results().items()}}
-
-
-def _refusals(comp, mesh, out):
-    """A mesh serves with length-based termination: an engine or a fabric
-    given a mesh and an EOS id raises, naming the queued item; so does a
-    mesh-less engine moved onto a mesh."""
-    from repro_torch.models.model import Model
-    from repro_torch.serve import fabric as F
-    from repro_torch.workloads.decode import DecodeEngine, ServeConfig
-
-    cfg = _cfg("minitron-4b")
-    model = Model(cfg, "cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    eos = ServeConfig(max_slots=2, max_len=32, eos_id=0)
-    errors = []
-    for make in (
-            lambda: DecodeEngine(model, params, eos,
-                                 mesh=comp.submesh(range(2), "eos")),
-            lambda: DecodeEngine(model, params, eos).reshard_to(
-                comp.submesh(range(2), "eos")),
-            lambda: F.ComposedServer(
-                [F.TenantSpec("a", "minitron-4b", serve=eos)], mesh=mesh,
-                device="cpu", params={"a": params}, policy=None)):
-        try:
-            make()
-            errors.append("")
-        except ValueError as e:
-            errors.append(str(e))
-    if dist.get_rank() == 0:
-        out["eos_refused"] = errors
 
 
 def _rows(ref, out):
@@ -958,6 +932,343 @@ def _run_encdec(ref, comp, mesh, out):
     _encdec_fabric(ref, mesh, out)
 
 
+# ---------------------------------------------------------------------------
+# the policy-driven fabric on a mesh: tests/test_torch_tp_fabric.py
+# ---------------------------------------------------------------------------
+
+def _tpu_numbers():
+    """The reference's per-chip TPU_V5E numbers, as one CU of the port's
+    policy (tests/test_torch_fabric_policy.py holds them to the
+    reference's record)."""
+    from repro_torch.common.platform import PlatformProfile
+
+    return PlatformProfile(
+        name="tpu_v5e", peak_flops=197e12, atom_shape=(8, 128, 128),
+        atom_cycles=8.0, compute_clock_hz=0.94e9, num_compute_units=4,
+        hbm_bytes=16 << 30, hbm_bw=819e9, onchip_bytes=128 << 20,
+        onchip_bw=22e12, ici_bw=50e9, ici_links=4, instr_bytes=32,
+        reconfig_cycles=16.0, bitstream_reload_s=10.0)
+
+
+def _fleet_server(ref, mesh, specs, **kw):
+    """ComposedServer on ``mesh`` over ``specs`` ((name, arch, seed,
+    serve config[, spec keywords])), on the reference's initial params."""
+    from repro_torch.serve import fabric as F
+
+    F.get_reduced = lambda arch: _cfg(arch)
+    tenants, params = [], {}
+    for name, arch, seed, sc, *extra in specs:
+        tenants.append(F.TenantSpec(name, arch, seed=seed, serve=sc,
+                                    **(extra[0] if extra else {})))
+        params[name] = _params(ref["params"], (arch, seed), _cfg(arch))
+    return F.ComposedServer(tenants, mesh=mesh, device="cpu", params=params,
+                            **kw)
+
+
+def _fabric_serve(srv, traffic, script=None, before_step=None,
+                  max_steps=500):
+    """The reference script's ``serve``: submit ``traffic`` at step 0, step
+    to the end (``script``: step -> call), return events and streams, with
+    every step's SLO preemptions."""
+    rids = [(t, srv.submit(t, p, max_new_tokens=n)) for t, p, n in traffic]
+    step, slo = 0, []
+    while any(e.has_work for e in srv.engines.values()):
+        if script and step in script:
+            script[step](srv)
+        if before_step is not None:
+            before_step(srv, step)
+        n0 = srv._slo_preemptions
+        srv.step()
+        slo.append(srv._slo_preemptions - n0)
+        step += 1
+        assert step < max_steps
+    res = srv.results()
+    return {"events": [[e.step, e.reason, e.sizes_after, e.design]
+                       for e in srv.events],
+            "overlapped": [e.overlapped for e in srv.events],
+            "streams": [[t, r, list(map(int, res[t][r]))] for t, r in rids],
+            "slo_per_step": slo}
+
+
+def _everywhere(value):
+    """``value`` of every rank, in rank order."""
+    got = [None] * WORLD
+    dist.all_gather_object(got, value)
+    return got
+
+
+def _replay(ref, specs, traffic, events):
+    """The port's unsharded replay of a fabric run: one mesh-less
+    DecodeEngine per tenant on the same params and requests, stepped
+    while its tenant held CUs, its slots retuned at the recorded events'
+    steps (dp and TP knobs change no token)."""
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.models.model import Model
+    from repro_torch.workloads.decode import DecodeEngine
+
+    engines = {name: DecodeEngine(Model(_cfg(arch), "cpu"),
+                                  _params(ref["params"], (arch, seed),
+                                          _cfg(arch)), sc)
+               for name, arch, seed, sc, *_ in specs}
+    rids = [(t, engines[t].submit(p, max_new_tokens=n))
+            for t, p, n in traffic]
+    base, extra = divmod(WORLD, len(specs))
+    sizes = {s[0]: base + (1 if i < extra else 0)
+             for i, s in enumerate(specs)}
+    step = 0
+    while any(e.has_work for e in engines.values()):
+        for t, eng in engines.items():
+            if sizes.get(t, 0) > 0:
+                eng.step()
+        step += 1
+        for ev_step, _, after, design in events:
+            if ev_step != step:
+                continue
+            sizes = dict(after)
+            for t, knobs in design.items():
+                if "slots" in knobs:
+                    engines[t].apply(None, DesignPoint(cus=0,
+                                                       slots=knobs["slots"]))
+        assert step < 500
+    res = {t: e.results() for t, e in engines.items()}
+    return [[t, r, list(map(int, res[t][r]))] for t, r in rids]
+
+
+def _tpf_policy(ref, mesh, out):
+    """1 and 6: the reference's autoscale scenario (two minitron tenants,
+    decide_every 4) under the policy on the reference's platform numbers,
+    synchronous and with the background prewarm."""
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads.decode import ServeConfig
+
+    sc = ServeConfig(max_slots=2, max_len=64, eos_id=-1)
+    specs = [("a", "minitron-4b", 0, sc), ("b", "minitron-4b", 1, sc)]
+    traffic = ref["autoscale_traffic"]
+    runs = {}
+    for name, kw, hook in (
+            ("sync", {}, None),
+            ("async", {"prewarm_async": True}, _settle_prewarm)):
+        srv = _fleet_server(ref, mesh, specs,
+                            policy=F.AnalyticalPolicy(_tpu_numbers()),
+                            decide_every=4, **kw)
+        got = _fabric_serve(srv, traffic, before_step=hook)
+        got["ranks"] = _everywhere([got["events"], got["streams"]])
+        got["platform"] = srv.policy.platform.name
+        got["broadcasts"] = srv.stats()["mesh_decisions"]["broadcasts"]
+        runs[name] = got
+    replay = _replay(ref, specs, traffic, runs["sync"]["events"])
+    if dist.get_rank() == 0:
+        out["policy"] = runs
+        out["policy_replay"] = replay
+
+
+def _settle_prewarm(srv, step):
+    """A test hook: every rank waits for its own background warm-up before
+    stepping, so the first rank finds it ready at the next decide tick
+    and the commit's step does not depend on the threads' speed."""
+    del step
+    if srv._pending_prewarm is not None:
+        for f in srv._pending_prewarm[2]:
+            f.result()
+
+
+def _tpf_dse(ref, mesh, out):
+    """2: the reference's Stage 1 scenario (minitron slot_cap 4 and
+    qwen2.5, decide_every 3) on the mesh."""
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads.decode import ServeConfig
+
+    sc = ServeConfig(max_slots=2, max_len=48, eos_id=-1)
+    specs = [("a", "minitron-4b", 0, dataclasses.replace(sc, slot_cap=4)),
+             ("b", "qwen2.5-32b", 1, sc)]
+    srv = _fleet_server(ref, mesh, specs,
+                        policy=F.AnalyticalPolicy(_tpu_numbers()),
+                        decide_every=3)
+    seen = []
+    best = srv.policy.stage1.best
+
+    def spy(cfg, space, *a, **kw):
+        seen.append(space.tp_allowed)
+        return best(cfg, space, *a, **kw)
+
+    srv.policy.stage1.best = spy
+    got = _fabric_serve(srv, ref["dse_traffic"])
+    st = srv.stats()
+    pvm = st["predicted_vs_measured"]
+    committed = {k: e for k, e in pvm["entries"].items()
+                 if e["commits"] > 0 and e["ratio"] is not None}
+    got.update(
+        recompositions=st["recompositions"],
+        committed={k: e["ratio"] for k, e in committed.items()},
+        tp_allowed=sorted({x for xs in _everywhere(sorted(set(seen)))
+                           for x in xs}),
+        ranks=_everywhere(got["events"]))
+    if dist.get_rank() == 0:
+        out["dse"] = got
+
+
+def _tpf_eos(ref, comp, mesh, out):
+    """3: EOS termination on a TP-4 sub-mesh and on a (1, 8) fabric."""
+    from repro_torch.distribution import partitioning as part
+    from repro_torch.models.model import Model
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads.decode import DecodeEngine, ServeConfig
+
+    cfg = _cfg("minitron-4b")
+    model = Model(cfg, "cpu")
+    params = _params(ref["params"], ("minitron-4b", 0), cfg)
+    prompts = ref["eos_prompts"]
+
+    def engine(eos, mesh_=True):
+        sc = ServeConfig(max_slots=2, max_len=64, eos_id=eos)
+        eng = (DecodeEngine(model, params, sc,
+                            mesh=comp.submesh(range(4), "eos"),
+                            rules=part.serve_engine_rules())
+               if mesh_ else DecodeEngine(model, params, sc))
+        for p in prompts:
+            eng.submit(p, max_new_tokens=10)
+        while eng.has_work:
+            eng.step()
+        return eng
+
+    free = engine(-1).results()
+    eos = int(free[0][4])
+    eng = engine(eos)
+    raw = {r: list(t) for r, t in eng._finished.items()}
+    got = {"id": eos, "engine": eng.results(), "raw": _everywhere(raw)}
+    if dist.get_rank() == 0:
+        got["unsharded"] = engine(eos, False).results()
+    sc = ServeConfig(max_slots=2, max_len=64, eos_id=eos)
+    srv = _fleet_server(ref, mesh, [("a", "minitron-4b", 0, sc),
+                                    ("b", "minitron-4b", 1, sc)],
+                        policy=None)
+    got["fabric"] = _fabric_serve(srv, [(t, p, 10) for t in "ab"
+                                        for p in prompts])
+    got["fabric_raw"] = _everywhere(
+        {t: {r: list(x) for r, x in
+             srv.engines[t].replicas[0]._finished.items()} for t in "ab"})
+    if dist.get_rank() == 0:
+        out["eos"] = got
+
+
+def _chaos(ref, mesh, chaos_seed):
+    """The reference's chaos body (tests/test_preempt_chaos.py) on the
+    mesh: the reduced mixed fleet on the plain path, preempt and
+    recompose at random."""
+    from repro_torch.launch.serve import _streams_digest
+    from repro_torch.workloads.decode import ServeConfig
+
+    serve = ServeConfig(max_slots=2, max_len=48, eos_id=-1, kv_page_rows=8,
+                        use_kernels=False)
+    specs = [(n, a, i, serve, {"workload": w, "reduced": True})
+             for n, a, i, w in ref["fleet"]]
+    server = _fleet_server(ref, mesh, specs, policy=None, warm=False)
+    for t, p, n in ref["chaos_traffic"]:
+        server.submit(t, p, max_new_tokens=n)
+    crng = (np.random.default_rng(chaos_seed)
+            if chaos_seed is not None else None)
+    names = sorted(server.engines)
+    steps = 0
+    while any(e.has_work for e in server.engines.values()):
+        if crng is not None and steps % 2 == 1:
+            op = int(crng.integers(0, 3))
+            if op == 0:
+                t = names[int(crng.integers(0, len(names)))]
+                server.engines[t].preempt_one()
+            elif op == 1:
+                sizes = server.sizes()
+                i, j = crng.choice(len(names), size=2, replace=False)
+                a, b = names[int(i)], names[int(j)]
+                if sizes.get(a, 0) > 1 and sizes.get(b, 0) > 0:
+                    sizes[a] -= 1
+                    sizes[b] += 1
+                    server.recompose(sizes, reason="chaos")
+        server.step()
+        steps += 1
+        assert steps < 3000, "chaos run did not drain"
+    server.drain(max_steps=300)
+    stats = server.stats()
+    return (_streams_digest(server.results()),
+            sum(stats["preemptions"].values()), stats["recompositions"])
+
+
+def _tpf_chaos(ref, mesh, out):
+    """4: the chaos body at seeds 3 and 11 against the run without."""
+    got = {seed: _chaos(ref, mesh, seed) for seed in (None, 3, 11)}
+    got["ranks"] = _everywhere([got[s][0] for s in (None, 3, 11)])
+    if dist.get_rank() == 0:
+        out["chaos"] = got
+
+
+def _tpf_dp(ref, mesh, out):
+    """5: tenant a (dp_cap 2) on its 4-column grant to dp 2 mid-stream,
+    then back to 1."""
+    from repro_torch.core.dse import DesignPoint
+    from repro_torch.workloads.decode import ServeConfig
+
+    sc = ServeConfig(max_slots=2, max_len=64, eos_id=-1)
+    specs = [("a", "minitron-4b", 0, sc, {"dp_cap": 2}),
+             ("b", "minitron-4b", 1, sc)]
+    tiles = []
+
+    def to(dp):
+        def go(srv):
+            srv.recompose({"a": DesignPoint(cus=4, dp=dp), "b": 4})
+            tiles.append([list(e._shard.ranks)
+                          for e in srv.engines["a"].replicas])
+        return go
+
+    got = _fabric_serve(_fleet_server(ref, mesh, specs, policy=None),
+                        ref["dp_traffic"], {3: to(2), 8: to(1)})
+    got["tiles"] = tiles
+    got["dp1"] = _fabric_serve(_fleet_server(ref, mesh, specs, policy=None),
+                               ref["dp_traffic"])["streams"]
+    if dist.get_rank() == 0:
+        out["dp"] = got
+
+
+def _tpf_divergent(ref, mesh, out):
+    """7: one rank observes a per-token p99 over target where the others
+    do not (a test hook on that rank's ``_refresh_slo_observed``); every
+    rank applies the first rank's decision."""
+    from repro_torch.serve import fabric as F
+    from repro_torch.workloads.decode import ServeConfig
+
+    sc = ServeConfig(max_slots=2, max_len=64, eos_id=-1)
+    # a target no CPU step breaches: only the hook's observation does
+    slo = F.SLOTarget(per_token_p99_ms=1e6)
+    specs = [("a", "minitron-4b", 0, sc, {"slo": slo}),
+             ("b", "minitron-4b", 1, sc)]
+    traffic = [("a", p, 12) for _, p, _ in ref["dp_traffic"][:4]]
+    runs = {}
+    for hooked in (None, 3, 0):
+        srv = _fleet_server(ref, mesh, specs, policy=None, decide_every=2)
+        if dist.get_rank() == hooked:
+            refresh = srv._refresh_slo_observed
+
+            def breach(srv=srv, refresh=refresh):
+                refresh()
+                srv._slo_obs[("a", "per_token_p99_ms")] = 1e9
+
+            srv._refresh_slo_observed = breach
+        got = _fabric_serve(srv, traffic)
+        got["ranks"] = _everywhere([got["slo_per_step"], got["events"],
+                                    srv.stats()["preemptions"]])
+        got["broadcasts"] = srv.stats()["mesh_decisions"]["broadcasts"]
+        runs[str(hooked)] = got
+    if dist.get_rank() == 0:
+        out["divergent"] = runs
+
+
+def _run_fabric(ref, comp, mesh, out):
+    _tpf_policy(ref, mesh, out)
+    _tpf_dse(ref, mesh, out)
+    _tpf_eos(ref, comp, mesh, out)
+    _tpf_chaos(ref, mesh, out)
+    _tpf_dp(ref, mesh, out)
+    _tpf_divergent(ref, mesh, out)
+
+
 def _run(rank, init, ref_path, out_path, mode=""):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank,
@@ -977,13 +1288,14 @@ def _run(rank, init, ref_path, out_path, mode=""):
         _run_families(ref, comp, mesh, out)
     elif mode == "encdec":
         _run_encdec(ref, comp, mesh, out)
+    elif mode == "fabric":
+        _run_fabric(ref, comp, mesh, out)
     else:
         _tp_degrees(ref, comp, out)
         _straddle(comp, out)
         _bf16(ref, comp, out)
         _fabric(ref, mesh, out)
         _replicated(ref, comp, out)
-        _refusals(comp, mesh, out)
         _rows(ref, out)
         _smoke(out)
     dist.barrier()

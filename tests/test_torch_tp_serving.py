@@ -37,9 +37,7 @@ reference's ``model.init(jax.random.key(seed))``.
     embeddings beside the unsharded ones (the sharded engines are held to
     the reference in ``tests/test_torch_tp_families.py`` and
     ``tests/test_torch_tp_encdec.py``).
-(i) A mesh serves with length-based termination: an engine or a fabric
-    given a mesh and an EOS id raises, naming the queued item.
-(j) ``--production-mesh``'s serving on a (2, 4) mesh: one engine per data
+(i) ``--production-mesh``'s serving on a (2, 4) mesh: one engine per data
     row over disjoint requests, each request's stream the reference's.
 """
 import json
@@ -311,16 +309,6 @@ def test_replicated_engines_on_a_mesh(runs):
     for r in whole:
         # the unsharded side is rounded to 5 decimals
         assert np.allclose(ruled[r], whole[r], rtol=1e-5, atol=1e-5), r
-
-
-def test_eos_termination_on_a_mesh_raises(runs):
-    """An engine built on a mesh, a mesh-less engine moved onto one, and a
-    fabric on a mesh, each with ``eos_id >= 0``."""
-    _, port = runs
-    errors = port["eos_refused"]
-    assert len(errors) == 3
-    for e in errors:
-        assert "EOS" in e and "ROADMAP.md queue 1 item 7" in e, e
 
 
 def test_production_mesh_rows_serve_disjoint_requests(runs):
