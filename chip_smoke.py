@@ -350,6 +350,23 @@
    the mesh, two live streams preempted (exported as blocks of the rank's
    shards) and resumed mid-stream: streams bitwise the uninterrupted
    unsharded run's, the Mamba step and the scan launched.
+27. The sharded train step for every family, after phase 25 (c), on a
+   (1, 1) mesh at world 1 (NCCL): (a) ``Trainer(model, cfg, mesh,
+   train_rules())`` at full width, each with its config's optimizer, for
+   falcon-mamba-7b (4 of 64 layers, B 4 x S 1024), hymba-1.5b (8 of 32,
+   B 2 x S 2048), deepseek-v2-lite-16b (4 of 27), seamless-m4t-medium
+   (whole, frames of 1024) and qwen1.5-110b (2 of 80, Adafactor), 2 steps
+   each against the unsharded Trainer's from the same seed (the runs take
+   turns on the card): bitwise expected, else within ``TRAIN_TOL``; step
+   times, peaks, and the launches of the flash forward with lse and
+   backward and the scan's training pair, equal both ways, which join the
+   kernels line.  (b) The scan's forward with boundary states and its
+   backward on a rank's channels of TP 2, 4 and 8 at falcon-mamba-7b's and
+   hymba-1.5b's training layers, bf16 and fp32: the ranks' y, dx, ddt, dA
+   and dD concatenated bitwise the whole call's, their dB and dC summed
+   in fp32 within the kernel tolerances, rank 0 against the plain pair; a
+   rank's call timed beside its bound, its plain pair and the whole
+   call's.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device,
@@ -4960,12 +4977,12 @@ def shard_train_config():
                        checkpoint_every=0)
 
 
-def trainer_steps(torch, trainer, batches):
+def trainer_steps(torch, trainer, batches, kernels=SHARD_KERNELS):
     """``SHARD_STEPS`` steps of ``trainer``'s step from its seed-0 state:
-    (params, [(seconds, loss, grad norm)], the counters' launches)."""
+    (params, [(seconds, loss, grad norm)], the launches of ``kernels``)."""
     params, opt_state = trainer.init_state(0)
     torch.cuda.synchronize()
-    reset_counts(SHARD_KERNELS)
+    reset_counts(kernels)
     rows = []
     for step in range(SHARD_STEPS):
         t0 = time.perf_counter()
@@ -4975,22 +4992,24 @@ def trainer_steps(torch, trainer, batches):
         torch.cuda.synchronize()
         rows.append((time.perf_counter() - t0, m["loss"].item(),
                      m["grad_norm"].item()))
-    counts = read_counts(SHARD_KERNELS)
+    counts = read_counts(kernels)
     del opt_state
     return params, rows, counts
 
 
-def host_leaves(params, path=()):
+def host_leaves(params, path=(), host: bool = True):
     """{path: leaf whole on the host} of a parameter tree (a DTensor
-    gathered)."""
+    gathered); ``host`` False: whole on its device."""
     if isinstance(params, dict):
         return {k: v for key, sub in params.items()
-                for k, v in host_leaves(sub, path + (str(key),)).items()}
+                for k, v in host_leaves(sub, path + (str(key),),
+                                        host).items()}
     if isinstance(params, list):
         return {k: v for i, sub in enumerate(params)
-                for k, v in host_leaves(sub, path + (str(i),)).items()}
+                for k, v in host_leaves(sub, path + (str(i),),
+                                        host).items()}
     t = params.full_tensor() if hasattr(params, "full_tensor") else params
-    return {"/".join(path): t.detach().cpu()}
+    return {"/".join(path): t.detach().cpu() if host else t.detach()}
 
 
 def hold_sharded(label, rows, leaves, ref_rows, ref_leaves):
@@ -5000,12 +5019,14 @@ def hold_sharded(label, rows, leaves, ref_rows, ref_leaves):
     loss_tol, leaf_tol = TRAIN_TOL["bfloat16"]
     require(sorted(leaves) == sorted(ref_leaves),
             f"{label}: the parameter trees differ")
-    differ = [k for k in ref_leaves if not (
-        leaves[k].dtype == ref_leaves[k].dtype
-        and leaves[k].equal(ref_leaves[k]))]
-    rel = {k: ((leaves[k].float() - b.float()).norm()
-               / b.float().norm().clamp(min=1e-30)).item()
-           for k, b in ref_leaves.items()}
+    differ, rel = [], {}
+    for k, b in ref_leaves.items():
+        a = leaves[k]
+        b = b.to(a.device)          # a host copy meets a leaf on the card
+        if not (a.dtype == b.dtype and a.equal(b)):
+            differ.append(k)
+        rel[k] = ((a.float() - b.float()).norm()
+                  / b.float().norm().clamp(min=1e-30)).item()
     metrics = [(abs(r[1] - q[1]) / abs(q[1]), abs(r[2] - q[2]) / abs(q[2]))
                for r, q in zip(rows, ref_rows)]
     same = not differ and all(r[1:] == q[1:] for r, q in zip(rows, ref_rows))
@@ -5100,6 +5121,241 @@ def run_sharded_training_phase(torch):
             and counts["flash_attention_bwd"] == L * SHARD_STEPS,
             f"sharded training: launches {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the sharded train step for every family (Trainer(mesh) on the
+# SSM, hybrid, MoE/MLA and enc-dec archs; Adafactor on a mesh) and the
+# scan's training kernels on a rank's channels
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: all), B, S) at full width, each with its config's
+# optimizer (qwen1.5-110b's Adafactor); parameters counted on meta from the
+# configs: 0.95 B, 0.49 B, 2.25 B, 0.88 B, 5.21 B
+FAMILY_SHARD = (("falcon-mamba-7b", 4, 4, 1024),
+                ("hymba-1.5b", 8, 2, 2048),
+                ("deepseek-v2-lite-16b", 4, 4, 1024),
+                ("seamless-m4t-medium", None, 4, 1024),
+                ("qwen1.5-110b", 2, 4, 1024))
+FAMILY_SHARD_KERNELS = ("flash_attention_lse", "flash_attention_lse_window",
+                        "flash_attention_lse_d192",
+                        "flash_attention_lse_bidir",
+                        "flash_attention_lse_cross", "mamba_scan_train",
+                        "flash_attention_bwd", "flash_attention_bwd_window",
+                        "flash_attention_bwd_d192",
+                        "flash_attention_bwd_bidir",
+                        "flash_attention_bwd_cross", "mamba_scan_bwd")
+RANK_SCAN_DEGREES = (2, 4, 8)
+
+
+def family_shard_inputs(arch: str, layers, B: int, S: int):
+    """The arch's config cut to ``layers`` and its ``SHARD_STEPS`` batches
+    of B x S (with frames of S rows for an enc-dec arch), on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers) if layers else full
+    pipe = make_pipeline(cfg, S, B, seed=0)
+    return full, cfg, [pipe.batch_with_frames(s, cfg.d_model)
+                       if cfg.is_encdec else pipe.batch(s)
+                       for s in range(SHARD_STEPS)]
+
+
+def family_run(torch, cfg, batches, mesh=None):
+    """``SHARD_STEPS`` steps of the arch's Trainer (on ``mesh`` with
+    ``train_rules()``, else unsharded): (rows, leaves, launches, peak
+    GiB).  The unsharded run's leaves are host copies and it leaves the
+    card empty; the sharded run's stay whole on the card, where the
+    comparison moves the host copies one leaf at a time."""
+    import gc
+
+    from repro_torch.distribution import train_rules
+    from repro_torch.models.model import build_model
+    from repro_torch.train import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(build_model(cfg, "cuda"), shard_train_config(), mesh,
+                      train_rules() if mesh is not None else None,
+                      device="cuda")
+    params, rows, counts = trainer_steps(torch, trainer, batches,
+                                         FAMILY_SHARD_KERNELS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaves = host_leaves(params, host=mesh is None)
+    del params, trainer
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows, leaves, counts, peak
+
+
+def run_family_sharded_phase(torch, mesh):
+    """Phase 27 (a): the sharded train step of every family on the card at
+    world 1 (``Trainer(model, cfg, mesh, train_rules())`` on ``mesh``, a
+    (1, 1) mesh under NCCL): each ``FAMILY_SHARD`` arch at full width, its
+    depth cut, ``SHARD_STEPS`` steps with its own optimizer, held against
+    the unsharded Trainer's steps from the same seed through host copies
+    (the two runs take turns on the card): bitwise expected, else within
+    TRAIN_TOL.  The Mamba scan runs on the rank's own rows and channels
+    (``partitioning.channel_local``), attention on its local heads.  The
+    launches of the flash forward with lse and backward (each variant) and
+    of the scan's training pair must be equal in both runs, with a
+    backward for every attention and scan block of every step.  Returns
+    the sharded runs' launches, summed over the families."""
+    card = card_line()
+    total = {}
+    for arch, layers, B, S in FAMILY_SHARD:
+        t0 = time.perf_counter()
+        full, cfg, batches = family_shard_inputs(arch, layers, B, S)
+        # attention and scan blocks with a backward: a decoder layer's
+        # mixer (a hybrid's two) and cross-attention, an encoder layer's
+        blocks = cfg.num_layers * (1 + int(cfg.hybrid_parallel)
+                                   + int(cfg.cross_attention)) + (
+            cfg.encoder_layers if cfg.is_encdec else 0)
+        ref_rows, ref_leaves, ref_counts, ref_peak = family_run(
+            torch, cfg, batches)
+        rows, leaves, counts, peak = family_run(torch, cfg, batches, mesh)
+        depth = (f"{cfg.num_layers} of {full.num_layers} layers"
+                 if layers else f"{cfg.encoder_layers} + {cfg.num_layers} "
+                 f"layers" if cfg.is_encdec else f"{cfg.num_layers} layers")
+        label = f"phase 27 (a) sharded training {arch}"
+        log(f"{label}, {depth}, {cfg.param_count() / 1e9:.2f} B params, "
+            f"{cfg.optimizer}, world 1 (NCCL), mesh (1, 1) data x model, "
+            f"train_rules(), B {B} x S {S}: step times sharded "
+            f"{[round(r[0] * 1e3, 1) for r in rows]} ms against unsharded "
+            f"{[round(r[0] * 1e3, 1) for r in ref_rows]} ms; peak "
+            f"{peak:.2f} GiB sharded, {ref_peak:.2f} unsharded; launches "
+            f"sharded {dict((k, v) for k, v in counts.items() if v)}, "
+            f"unsharded {dict((k, v) for k, v in ref_counts.items() if v)} "
+            f"({card})")
+        hold_sharded(label, rows, leaves, ref_rows, ref_leaves)
+        bwd = sum(v for k, v in counts.items() if "bwd" in k)
+        require(counts == ref_counts and bwd == blocks * SHARD_STEPS,
+                f"{label}: launches {counts} against {ref_counts}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        del leaves, ref_leaves
+        torch.cuda.empty_cache()
+        log(f"{label} took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def run_rank_scan_kernels(torch, reps: int = 10):
+    """Phase 27 (b): the scan's training pair on a rank's channels of TP
+    2, 4 and 8, emulated on the one card at falcon-mamba-7b's and
+    hymba-1.5b's training layers (``SCAN_TRAIN_CASES``), bf16 and fp32:
+    x, dt, A_log and D split by channel, ``mamba_scan(bounds=True)`` and
+    ``mamba_scan_bwd`` once per rank.  The ranks' y, dx, ddt, dA and dD
+    concatenated must equal the whole call's bitwise (each channel's own
+    arithmetic), their dB and dC summed in fp32 agree with the whole
+    call's within the kernel tolerances, and rank 0's pair with the plain
+    pair.  In bf16 a rank's call is timed (L2 flushed) beside its bound
+    and the whole call's.  These launches compare kernels and are not the
+    path's."""
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_fwd_ref,
+                                                    softplus)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    card = card_line()
+    names = ("dx", "ddt", "db", "dc", "dA", "dD")
+    for label, B, S_len, D, N in SCAN_TRAIN_CASES:
+        a_log, d_vec = scan_params(torch, D, N)
+        for dtype in ("bfloat16", "float32"):
+            dt_ = getattr(torch, dtype)
+            x = torch.randn((B, S_len, D), generator=gen,
+                            device="cuda").to(dt_)
+            delta = softplus(torch.randn((B, S_len, D), generator=gen,
+                                         device="cuda") - 4.0)
+            R = 256
+            dbc = torch.randn((B, S_len, R + 2 * N), generator=gen,
+                              device="cuda").to(dt_)
+            bm, cm = dbc[..., R:R + N], dbc[..., R + N:]
+            gy = torch.randn((B, S_len, D), generator=gen, device="cuda")
+            ins = (x, delta, bm, cm, a_log, d_vec)
+            y, _, bnd = ms.mamba_scan(*ins, bounds=True)
+            whole = ms.mamba_scan_bwd(*ins, bnd, gy)
+            if dtype == "bfloat16":
+                fb, bb, exps, ff, bf = scan_train_work(B, S_len, D, N, 2)
+                w_fwd = time_ms(torch, lambda: ms.mamba_scan(
+                    *ins, bounds=True), reps)
+                w_bwd = time_ms(torch, lambda: ms.mamba_scan_bwd(
+                    *ins, bnd, gy), reps)
+                w_fb = kernel_bound(fb, ff, "float32", exps=exps)[0]
+                w_bb = kernel_bound(bb, bf, "float32", exps=exps)[0]
+            for tp in RANK_SCAN_DEGREES:
+                n = D // tp
+                ranks = []
+                for r in range(tp):
+                    c = slice(r * n, (r + 1) * n)
+                    rin = (x[..., c].contiguous(), delta[..., c].contiguous(),
+                           bm, cm, a_log[c].contiguous(),
+                           d_vec[c].contiguous())
+                    yr, _, br = ms.mamba_scan(*rin, bounds=True)
+                    gyr = gy[..., c].contiguous()
+                    ranks.append((rin, yr, br, gyr,
+                                  ms.mamba_scan_bwd(*rin, br, gyr)))
+                rin, yr, br, gyr, got = ranks[0]
+                want_y, want_b = selective_scan_fwd_ref(*rin)
+                want = selective_scan_bwd_ref(*rin, br, gyr)
+                torch.cuda.synchronize()
+                cat = [torch.cat([q[1] for q in ranks], -1)] + [
+                    torch.cat([q[4][i] for q in ranks], dim)
+                    for i, dim in ((0, -1), (1, -1), (4, 0), (5, 0))]
+                per = [y] + [whole[i] for i in (0, 1, 4, 5)]
+                bitwise = [torch.equal(a, b) for a, b in zip(cat, per)]
+                sums = [sum(q[4][i].float() for q in ranks)
+                        for i in (2, 3)]
+                sum_err = [(a - whole[i].float()).abs().max().item()
+                           for a, i in zip(sums, (2, 3))]
+                tols = [TOL[dtype] if g.dtype == torch.bfloat16 else 1e-4
+                        for g in got]
+                plain_ok = (agree(yr, want_y, 1e-4)
+                            and agree(br, want_b, 1e-4)
+                            and all(close_scaled(g, w, t) for g, w, t
+                                    in zip(got, want, tols)))
+                plain_err = [(g.float() - w.float()).abs().max().item()
+                             for g, w in zip(got, want)]
+                line = (f"phase 27 (b) scan training {label} TP {tp} (B {B}, "
+                        f"S {S_len}, d_in {n} a rank, N {N}, {dtype}): y, dx, "
+                        f"ddt, dA, dD concatenated bitwise the whole call's "
+                        f"{bitwise}; dB, dC summed over the ranks in fp32 "
+                        f"max_abs_err {sum_err[0]:.3e}, {sum_err[1]:.3e} "
+                        f"(tol {TOL[dtype]:.0e} of the largest); rank 0 vs "
+                        f"plain " + " ".join(
+                            f"{k} {e:.3e}" for k, e in zip(names, plain_err)))
+                if dtype == "bfloat16":
+                    fb, bb, exps, ff, bf = scan_train_work(B, S_len, n, N, 2)
+                    r_fwd = time_ms(torch, lambda: ms.mamba_scan(
+                        *rin, bounds=True), reps)
+                    r_bwd = time_ms(torch, lambda: ms.mamba_scan_bwd(
+                        *rin, br, gyr), reps)
+                    p_fwd = time_ms(torch, lambda: selective_scan_fwd_ref(
+                        *rin), 3)
+                    p_bwd = time_ms(torch, lambda: selective_scan_bwd_ref(
+                        *rin, br, gyr), 3)
+                    fbd = kernel_bound(fb, ff, "float32", exps=exps)
+                    bbd = kernel_bound(bb, bf, "float32", exps=exps)
+                    line += (f"; a rank's forward with boundary states "
+                             f"{r_fwd:.4f} ms (bound {fbd[0]:.4f} ms, "
+                             f"{fbd[1]}; plain {p_fwd:.4f} ms), backward "
+                             f"{r_bwd:.4f} ms (bound {bbd[0]:.4f} ms, "
+                             f"{bbd[1]}; plain {p_bwd:.4f} ms); the whole "
+                             f"call {w_fwd:.4f} and {w_bwd:.4f} ms (bounds "
+                             f"{w_fb:.4f}, {w_bb:.4f}); library none")
+                log(line + f" ({card})")
+                require(all(bitwise), f"phase 27 (b) {label} TP {tp} "
+                        f"{dtype}: the ranks' per-channel outputs differ "
+                        f"from the whole call's")
+                require(all(close_scaled(a, whole[i], TOL[dtype])
+                            for a, i in zip(sums, (2, 3))),
+                        f"phase 27 (b) {label} TP {tp} {dtype}: the ranks' "
+                        f"dB, dC disagree with the whole call's")
+                require(plain_ok, f"phase 27 (b) {label} TP {tp} {dtype}: "
+                        f"rank 0 disagrees with the plain pair")
+                del ranks, cat, sums, got, want
+            del x, delta, dbc, gy, y, bnd, whole
+            torch.cuda.empty_cache()
 
 
 def encoder_jobs(cfg):
@@ -7471,6 +7727,15 @@ def main() -> int:
     t_tp = time.perf_counter()
     run_tp_encdec_kernels(torch)
     log(f"phase 25 (c) took {time.perf_counter() - t_tp:.1f} s, done at "
+        f"{phase_s()}")
+    # phase 27: (a) the sharded step of every family on the mesh, whose
+    # launches join the path's; (b) the scan's pair on a rank's channels
+    t_27 = time.perf_counter()
+    with world_one_mesh() as mesh:
+        for name, n in run_family_sharded_phase(torch, mesh).items():
+            launches[name] = launches.get(name, 0) + n
+    run_rank_scan_kernels(torch)
+    log(f"phase 27 took {time.perf_counter() - t_27:.1f} s, done at "
         f"{phase_s()}")
     run_analysis_phase(torch)
     log(f"analysis phase done at {phase_s()}")

@@ -510,6 +510,72 @@ def row_sum(fn, x, *rows, lead: int = 2):
                     for p in place], run_check=False)
 
 
+# The layout the per-channel kernels run in on a mesh (the Mamba scan):
+# batch over the data dims, channels over the model dim.
+_CHANNEL_LAYOUT = ShardingRules({"batch": ("pod", "data"),
+                                 "ssm_inner": "model"})
+
+
+def channel_local(fn, chans, shared=(), weights=(), weight_dims=None):
+    """``fn(*chans, *shared, *weights)``, a function whose every output
+    channel depends on its own channel alone, run on each rank's own rows
+    and channels of DTensors (plain tensors: called as it is).
+
+    - ``chans``, (B, S, C): batch on the data dims, channels on the model
+      dim, S whole; their gradients laid out alike.
+    - ``shared``, (B, S, N), read by every channel: batch on the data
+      dims, whole over the model dim; their gradients a partial sum over
+      the mesh dims that split the channels.
+    - ``weights``, per channel along dim ``weight_dims[i]`` (default 0):
+      channels on the model dim, whole over the data dims; their gradients
+      a partial sum over the mesh dims that split the rows.
+
+    ``fn`` returns one (B, S, C) tensor or a tuple of them, which come back
+    as DTensors laid out as ``chans``.  A dim that its mesh dims do not
+    divide stays whole (``fit_spec``)."""
+    if not is_dtensor(chans[0]):
+        return fn(*chans, *shared, *weights)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = chans[0].device_mesh
+    place = placements(fit_spec(_CHANNEL_LAYOUT.spec(
+        ("batch", None, "ssm_inner")), chans[0].shape, mesh), mesh)
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in place]
+    row_grads = [Partial() if p.is_shard(2) else q
+                 for p, q in zip(place, rows)]
+    local = [t.redistribute(mesh, place).to_local() for t in chans]
+    local += [t.redistribute(mesh, rows).to_local(grad_placements=row_grads)
+              for t in shared]
+    for t, dim in zip(weights, weight_dims or (0,) * len(weights)):
+        cols = [Shard(dim) if p.is_shard(2) else Replicate() for p in place]
+        local.append(t.redistribute(mesh, cols).to_local(grad_placements=[
+            Partial() if p.is_shard(0) else q for p, q in zip(place, cols)]))
+    out = fn(*local)
+    wrap = lambda y: DTensor.from_local(y, mesh, place, run_check=False)
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def split_over(x, dim: int) -> bool:
+    """True when a mesh dim wider than one splits ``dim`` of DTensor
+    ``x`` (False for a plain tensor)."""
+    if not is_dtensor(x):
+        return False
+    mesh = x.device_mesh
+    return any(p.is_shard(dim % x.ndim) and mesh.size(i) > 1
+               for i, p in enumerate(x.placements))
+
+
+def resolved(x):
+    """A DTensor with every partial sum reduced (whole on those mesh
+    dims); a plain tensor as it is."""
+    from torch.distributed.tensor import Replicate
+
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
 def distribute(t: torch.Tensor, mesh, place) -> Any:
     """The local shard of a full tensor that every rank holds alike (no
     communication: each rank keeps its own chunk)."""

@@ -791,10 +791,19 @@ class SelectiveScanFn(torch.autograd.Function):
     tensor) runs the plain pair, ``selective_scan_fwd_ref`` and
     ``selective_scan_bwd_ref``; else the kernels.  The gradient for
     ``a_log`` is dA A (A = -exp(A_log)); b and c may be strided views
-    (of the x_proj output), their gradients come back contiguous."""
+    (of the x_proj output), their gradients come back contiguous.  It
+    takes plain tensors only: on a mesh each rank calls it on its own rows
+    and channels (``partitioning.channel_local``), and a DTensor raises."""
 
     @staticmethod
     def forward(ctx, x, dt, b, c, a_log, d, plain=False):
+        from torch.distributed.tensor import DTensor
+
+        _need(not any(isinstance(t, DTensor)
+                      for t in (x, dt, b, c, a_log, d)),
+              "SelectiveScanFn takes each rank's local tensors, not "
+              "DTensors: run it through partitioning.channel_local",
+              TypeError)
         ctx.plain = plain or x.device.type == "cpu"
         if ctx.plain:
             y, bnd = selective_scan_fwd_ref(x, dt, b, c, a_log, d)

@@ -20,7 +20,9 @@ one, with ``train_rules()``: run under ``torchrun`` (NCCL on the cards,
 gloo with ``--device cpu``), whose world size must be the mesh's (else
 exit 2 with a message naming both); each rank's pipeline gives its batch
 rows (``host_id``/``num_hosts`` from its batch coordinate), and rank 0
-prints.  Runs on the GPU unless ``--device cpu`` is given.
+prints.  Every arch trains there with its config's optimizer (AdamW, or
+Adafactor for qwen1.5-110b and arctic-480b).  Runs on the GPU unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 

@@ -412,8 +412,8 @@ def mla_specs(cfg: ModelConfig) -> Dict[str, tuple]:
 def _mla_q(p: Params, cfg: ModelConfig, x, positions):
     m = cfg.mla
     if m.q_lora_rank:
-        cq = L.rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"],
-                        cfg.norm_eps)
+        cq = L.rms_norm(part.rows_matmul(x, p["w_dq"].to(x.dtype)),
+                        p["q_norm"], cfg.norm_eps)
         q = _proj(cq, p["w_uq"])
     else:
         q = _proj(x, p["w_q"])
@@ -422,10 +422,10 @@ def _mla_q(p: Params, cfg: ModelConfig, x, positions):
 
 
 def _mla_latents(p: Params, cfg: ModelConfig, x, positions):
-    ckv = L.rms_norm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"],
-                     cfg.norm_eps)
-    kr = L.apply_rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :], positions,
-                      cfg.rope_theta)[:, :, 0]
+    ckv = L.rms_norm(part.rows_matmul(x, p["w_dkv"].to(x.dtype)),
+                     p["kv_norm"], cfg.norm_eps)
+    kr = L.apply_rope(part.rows_matmul(x, p["w_kr"].to(x.dtype))[
+        :, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return ckv, kr
 
 
@@ -445,7 +445,10 @@ def _mla_attend(p: Params, cfg: ModelConfig, x, positions, ckv, kr, *,
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     dqk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    vpad = torch.nn.functional.pad(v, (0, dqk - m.v_head_dim))
+    # zero columns by a concatenation, the op a DTensor v takes alike
+    zeros = torch.zeros_like(v[..., :1]).expand(*v.shape[:-1],
+                                                dqk - m.v_head_dim)
+    vpad = torch.cat([v, zeros], dim=-1)
     o = _attend(q, k, vpad, use_kernels=use_kernels, causal=True)
     return _out(o[..., :m.v_head_dim], p["wo"])
 

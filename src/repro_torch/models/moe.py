@@ -200,6 +200,7 @@ def moe_apply(p, cfg: ModelConfig, x, *, dispatch_impl: str = "einsum",
     partial outputs are summed over the model group once (the whole ones
     added after)."""
     mo = cfg.moe
+    x = part.unshard(x, 1)      # on a mesh: routing and dispatch see S whole
     B0, S0, d = x.shape
     # GShard groups bound the (G, T, E, C) dispatch tensors, C being
     # proportional to the group's tokens

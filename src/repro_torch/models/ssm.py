@@ -14,10 +14,14 @@ d_in, N) fp32}``, is updated IN PLACE; ``mamba_fwd`` writes no cache.
 On a tensor-parallel mesh each rank holds a slice of the d_in channels
 (``tp``): its conv, scan and state are per channel, and the two products
 that sum over the channels, x_proj and out_proj, are summed over the
-model group in fp32 (the step kernel's staged entry).
+model group in fp32 (the step kernel's staged entry).  Training on a mesh
+(DTensor parameters, the reference's specs) runs ``mamba_fwd``'s conv and
+scan on each rank's own rows and channels
+(``partitioning.channel_local``): no DTensor reaches a kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -109,7 +113,14 @@ def fused_selective_scan(x, dt, b, c, a_log, d, *, use_kernels: bool = True):
     reference's ``fused_selective_scan``, chunk-boundary states saved and
     recomputed in the backward).  Where autograd records the call it runs
     ``SelectiveScanFn`` (the kernels on the card with ``use_kernels``, the
-    plain pair otherwise or on the CPU); else the prefill's scan."""
+    plain pair otherwise or on the CPU); else the prefill's scan.  On a
+    mesh (DTensors) each rank scans its own rows and channels
+    (``partitioning.channel_local``): dB, dC summed over the model dim,
+    dA_log and dD over the data dims."""
+    if part.is_dtensor(x):
+        return part.channel_local(
+            functools.partial(fused_selective_scan, use_kernels=use_kernels),
+            (x, dt), (b, c), (a_log, d))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, b, c, a_log, d)):
         return ops.SelectiveScanFn.apply(x, dt, b, c, a_log, d,
@@ -127,19 +138,36 @@ def mamba_fwd(p: Params, cfg: ModelConfig, x, *, use_kernels: bool = True,
     d_in, dt_rank, n, w = dims(cfg)
     act = x.dtype
     split = _split(p, cfg, tp)
-    xz = x @ p["in_proj"].to(act)
+    # on a mesh: S and the x | z columns whole (the reference's contiguous
+    # split of in_proj's columns over the model dim puts them on other
+    # ranks than their channels)
+    xz = part.unshard(part.rows_matmul(x, p["in_proj"].to(act)), -1)
     x_part, z = xz.chunk(2, dim=-1)
-    x_conv = F.silu(_conv_causal(x_part, p["conv_w"], p["conv_b"]))
+    # per channel along S whole: on a mesh, each rank's rows and channels
+    x_conv = F.silu(part.channel_local(
+        _conv_causal, (x_part,), (), (p["conv_w"], p["conv_b"]), (1, 0)))
     dbc = (_summed(x_conv, p["x_proj"], tp) if split
-           else x_conv @ p["x_proj"].to(act))
+           else _x_proj(x_conv, p["x_proj"]))
     dt_raw, b_ssm, c_ssm = torch.split(dbc, [dt_rank, n, n], dim=-1)
     dt = softplus((dt_raw @ p["dt_proj"].to(act)).float()
                   + p["dt_bias"].float())
     y = fused_selective_scan(x_conv, dt, b_ssm, c_ssm, p["A_log"], p["D"],
                              use_kernels=use_kernels)
     y = (y * F.silu(z.float())).to(act)
+    # on a mesh the product's gradient arrives laid out as the residual
+    # (S split under sequence parallelism): made whole before the product
     return (_summed(y, p["out_proj"], tp) if split
-            else y @ p["out_proj"].to(act))
+            else part.rows_matmul(y, p["out_proj"].to(act)))
+
+
+def _x_proj(x, w):
+    """``x @ w`` in x's dtype.  On a mesh whose model dim splits the d_in
+    rows of ``w``, the ranks' partial products are summed in fp32 and
+    rounded once, as ``_summed`` does for serving and one device's
+    product does."""
+    if not part.split_over(w, 0):
+        return part.resolved(x @ w.to(x.dtype))
+    return part.resolved(x.float() @ w.float()).to(x.dtype)
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> Params:

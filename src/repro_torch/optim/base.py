@@ -26,8 +26,10 @@ layout and decay rule are not the reference's.
 DTensor parameters (a mesh): AdamW's states take each parameter's layout
 and its count is replicated; the update runs on each rank's local shards
 (a gradient is first laid out as its parameter), elementwise as on one
-device.  Clipping's norm is a DTensor reduction.  Adafactor's factored
-statistics reduce over whole stacks and raise on a mesh.
+device.  Clipping's norm is a DTensor reduction.  Adafactor's statistics
+take their parameter's layout less the dim they average over, and its
+means over split dims are summed over the mesh dims that split them: both
+optimizers run on a mesh, for every family.
 """
 from __future__ import annotations
 
@@ -237,44 +239,137 @@ class AdafactorConfig:
     weight_decay: float = 0.0
 
 
+def _stat_placements(place, ndim: int, stacked: bool) -> Tuple[list, list]:
+    """DTensor placements of a factored leaf's (vr, vc) on a mesh, from its
+    parameter's ``place``: the stacked leaf's (one dim more where
+    ``stacked``) less the dim each averages over (vr the last, vc the one
+    before), a mesh dim that split it whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    off = int(stacked)
+
+    def drop(gone: int):
+        out = []
+        for p in place:
+            d = p.dim + off if p.is_shard() else None
+            out.append(Replicate() if d is None or d == gone
+                       else Shard(d - int(d > gone)))
+        return out
+
+    return drop(ndim - 1), drop(ndim - 2)
+
+
+class _Split(NamedTuple):
+    """Where a stacked group's leaves lie on a mesh: the process groups of
+    the mesh dims (wider than one) that split each dim of the stacked
+    leaf, and its whole shape (``groups`` empty: one device)."""
+    groups: Tuple[tuple, ...]
+    shape: Tuple[int, ...]
+
+    @classmethod
+    def of(cls, leaf, n: int, stacked: bool) -> "_Split":
+        from repro_torch.distribution.partitioning import is_dtensor
+
+        shape = ((n,) if stacked else ()) + tuple(leaf.shape)
+        if not is_dtensor(leaf):
+            return cls(((),) * len(shape), shape)
+        mesh, off = leaf.device_mesh, int(stacked)
+        return cls(tuple(tuple(mesh.get_group(i)
+                               for i, p in enumerate(leaf.placements)
+                               if p.is_shard(d - off) and mesh.size(i) > 1)
+                         if d >= off else () for d in range(len(shape))),
+                   shape)
+
+    def mean(self, x, dim: int, along: int, keepdim: bool = False):
+        """``x.mean(dim)`` of a local shard, ``dim`` of x being the stacked
+        leaf's dim ``along``: where mesh dims split it, the local sums
+        summed over their groups and divided by its whole size."""
+        if not self.groups[along]:
+            return x.mean(dim=dim, keepdim=keepdim)
+        import torch.distributed as dist
+
+        total = x.sum(dim=dim, keepdim=keepdim)
+        for g in self.groups[along]:
+            dist.all_reduce(total, group=g)
+        return total / self.shape[along]
+
+    def mean_all(self, x):
+        """The mean over the whole stacked leaf of a local shard ``x``."""
+        groups = {id(g): g for gs in self.groups for g in gs}
+        if not groups:
+            return torch.mean(x)
+        import torch.distributed as dist
+
+        total = x.sum()
+        for g in groups.values():
+            dist.all_reduce(total, group=g)
+        return total / math.prod(self.shape)
+
+
 def adafactor(cfg: AdafactorConfig = AdafactorConfig()) -> Optimizer:
     """State per group, keyed by its dotted path: a stacked group's
-    statistics are those of the reference's stacked leaf."""
+    statistics are those of the reference's stacked leaf.  On a mesh each
+    statistic is a DTensor laid out as its parameter, less the dim it
+    averages over (``_stat_placements``); the update runs on each rank's
+    local shards, and each mean over a dim that mesh dims split (the two
+    statistics', the row factor's, the update clip's RMS over the whole
+    group) sums the local sums over their groups.  On one device the
+    arithmetic is as it was: the same ops in the same order."""
 
     def init(params):
         from repro_torch.distribution.partitioning import is_dtensor
 
-        if is_dtensor(tree_leaves(params)[0]):
-            raise NotImplementedError(
-                "Adafactor on a mesh: its factored statistics reduce over "
-                "whole stacks; the sharded step runs AdamW")
-        state, dev = {}, None
+        state, count = {}, _count_like(tree_leaves(params)[0])
         for name, ts, stacked in leaf_groups(params):
-            shape = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)
-            dev = ts[0].device
-            z = lambda s: torch.zeros(s, dtype=torch.float32, device=dev)
-            if len(shape) >= 2:
-                state[name] = {"vr": z(shape[:-1]),
-                               "vc": z(shape[:-2] + shape[-1:])}
+            leaf = ts[0]
+            shape = ((len(ts),) if stacked else ()) + tuple(leaf.shape)
+            local = tuple(_local(leaf).shape)
+            local = ((len(ts),) if stacked else ()) + local
+            dev = _local(leaf).device
+
+            def z(keep, place):
+                t = torch.zeros(tuple(local[i] for i in keep),
+                                dtype=torch.float32, device=dev)
+                if not is_dtensor(leaf):
+                    return t
+                from torch.distributed.tensor import DTensor
+
+                return DTensor.from_local(t, leaf.device_mesh, place,
+                                          run_check=False)
+
+            n = len(shape)
+            if n >= 2:
+                pr, pc = ((None, None) if not is_dtensor(leaf) else
+                          _stat_placements(leaf.placements, n, stacked))
+                state[name] = {"vr": z(range(n - 1), pr),
+                               "vc": z([*range(n - 2), n - 1], pc)}
             else:
-                state[name] = {"v": z(shape)}
-        return {"v": state,
-                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+                state[name] = {"v": z(range(n), None if not is_dtensor(leaf)
+                                      else list(leaf.placements))}
+        return {"v": state, "count": count}
 
     def update(grads, state, params, lr):
-        state["count"].add_(1)
-        beta = 1.0 - state["count"].float() ** (-cfg.decay)
+        count = _local(state["count"])
+        count.add_(1)
+        beta = 1.0 - count.float() ** (-cfg.decay)
         with torch.no_grad():
             for (name, gs, stacked), (_, ps, _) in zip(leaf_groups(grads),
                                                        leaf_groups(params)):
-                v = state["v"][name]
-                g32 = (torch.stack(gs) if stacked else gs[0]).float()
-                p32 = (torch.stack(ps) if stacked else ps[0]).float()
+                v = {k: _local(t) for k, t in state["v"][name].items()}
+                split = _Split.of(ps[0], len(ps), stacked)
+                lg = [_local(g, p) for g, p in zip(gs, ps)]
+                lp = [_local(p) for p in ps]
+                g32 = (torch.stack(lg) if stacked else lg[0]).float()
+                p32 = (torch.stack(lp) if stacked else lp[0]).float()
                 g2 = torch.square(g32) + cfg.eps
-                if p32.ndim >= 2:
-                    vr = beta * v["vr"] + (1 - beta) * g2.mean(dim=-1)
-                    vc = beta * v["vc"] + (1 - beta) * g2.mean(dim=-2)
-                    rfac = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True)
+                n = p32.ndim
+                if n >= 2:
+                    vr = beta * v["vr"] + (1 - beta) * split.mean(
+                        g2, -1, n - 1)
+                    vc = beta * v["vc"] + (1 - beta) * split.mean(
+                        g2, -2, n - 2)
+                    rfac = torch.rsqrt(vr / split.mean(vr, -1, n - 2,
+                                                       keepdim=True)
                                        + cfg.eps)
                     cfac = torch.rsqrt(vc + cfg.eps)
                     step = g32 * rfac[..., None] * cfac[..., None, :]
@@ -284,13 +379,14 @@ def adafactor(cfg: AdafactorConfig = AdafactorConfig()) -> Optimizer:
                     vv = beta * v["v"] + (1 - beta) * g2
                     step = g32 * torch.rsqrt(vv + cfg.eps)
                     v["v"].copy_(vv)
-                # update clipping (rms of the step <= threshold)
-                rms = torch.sqrt(torch.mean(torch.square(step)) + 1e-30)
+                # update clipping (rms of the step <= threshold), over the
+                # whole stacked group as over the reference's stacked leaf
+                rms = torch.sqrt(split.mean_all(torch.square(step)) + 1e-30)
                 step = step / torch.clamp(rms / cfg.clip_threshold, min=1.0)
-                if cfg.weight_decay and p32.ndim >= 2:
+                if cfg.weight_decay and n >= 2:
                     step = step + cfg.weight_decay * p32
                 newp = p32 - lr * step
-                for i, p in enumerate(ps):
+                for i, p in enumerate(lp):
                     p.copy_(newp[i] if stacked else newp)
         return params, state
 

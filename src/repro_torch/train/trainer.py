@@ -13,11 +13,15 @@ the update.
 On a mesh (``Trainer(model, cfg, mesh, rules)``), ``setup_sharded_state``
 makes every parameter a DTensor laid out by its logical spec under the
 rules (``Model.logical_specs``, ``distribution.partitioning``), and each
-optimizer leaf the DTensor of its parameter's layout.  The step then runs
-the same clip, schedule and optimizer on DTensors: torch's DTensor ops
-insert the collectives, the attention kernels run on each rank's local
-shard (``models.attention._attend``), and the AdamW update runs on each
-rank's local shards, elementwise as on one device.
+optimizer leaf the DTensor of its parameter's layout (Adafactor's factored
+statistics: its layout less the dim each averages over).  The step then
+runs the same clip, schedule and optimizer on DTensors: torch's DTensor
+ops insert the collectives, the attention kernels run on each rank's local
+heads (``models.attention._attend``), the Mamba scan's on its own rows and
+channels (``partitioning.channel_local``), and both optimizers update each
+rank's local shards, Adafactor's means over split dims summed over their
+mesh dims.  Every family (dense, MoE/MLA, SSM, hybrid, enc-dec) and both
+optimizers run on a mesh.
 """
 from __future__ import annotations
 
@@ -139,8 +143,8 @@ def setup_sharded_state(model: Model, opt: optim.Optimizer, mesh,
     drawn from the seeded generator exactly as on one device and its local
     shard kept at once (``Model.init``'s ``place``: no more than one
     layer's full leaves exist at a time).  Optimizer leaves take the
-    placements of the parameter they mirror; the step count is replicated.
-    Returns (params, opt_state, param placements, opt placements)."""
+    placements of the parameter they mirror (an Adafactor statistic, less
+    the dim it averages over); the step count is replicated.  Returns (params, opt_state, param placements, opt placements)."""
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init(gen, dtype=model.cfg.param_dtype,
                         place=lambda t, s: part.distribute(

@@ -1196,6 +1196,54 @@ def test_mamba_scan_bwd_residency_is_the_plan(cuda, dtype, B, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("B,S,D", [(4, 256, 8192), (2, 256, 3200)],
+                         ids=["falcon", "hymba"])
+def test_mamba_scan_training_pair_on_a_ranks_channels(cuda, dtype, tp, B, S,
+                                                      D):
+    """The training forward and the backward on each rank's channels of a
+    tensor-parallel split (falcon-mamba-7b's d_in 8192 as 4096, 2048,
+    1024; hymba-1.5b's 3200 as 1600, 800, 400), as a sharded train step
+    runs them: the ranks' y, dx, ddt, dA and dD concatenated equal the
+    whole call's bitwise (each channel's own arithmetic), their dB and dC
+    summed in fp32 agree with the whole call's, and rank 0 with the plain
+    pair."""
+    from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_fwd_ref)
+    x, dt, bm, cm, a_log, d = _scan_case(cuda, dtype, B, S, D, 16, 256)
+    gy = torch.randn((B, S, D), generator=torch.Generator(
+        device=cuda).manual_seed(tp), device=cuda)
+    y, _, bounds = ms.mamba_scan(x, dt, bm, cm, a_log, d, bounds=True)
+    whole = ms.mamba_scan_bwd(x, dt, bm, cm, a_log, d, bounds, gy)
+    n = D // tp
+    ranks = []
+    for r in range(tp):
+        c = slice(r * n, (r + 1) * n)
+        ins = (x[..., c].contiguous(), dt[..., c].contiguous(), bm, cm,
+               a_log[c].contiguous(), d[c].contiguous())
+        yr, _, br = ms.mamba_scan(*ins, bounds=True)
+        gyr = gy[..., c].contiguous()
+        ranks.append((ins, yr, br, gyr,
+                      ms.mamba_scan_bwd(*ins, br, gyr)))
+    torch.cuda.synchronize()
+    cat = lambda i, dim: torch.cat([q[4][i] for q in ranks], dim)
+    assert torch.equal(torch.cat([q[1] for q in ranks], -1), y)
+    for i, dim in ((0, -1), (1, -1), (4, 0), (5, 0)):
+        assert torch.equal(cat(i, dim), whole[i]), i
+    for i in (2, 3):
+        summed = sum(q[4][i].float() for q in ranks)
+        assert _close_scaled(summed, whole[i].float(), GPU_TOL[dtype]), i
+    ins, yr, br, gyr, got = ranks[0]
+    want_y, want_b = selective_scan_fwd_ref(*ins)
+    want = selective_scan_bwd_ref(*ins, br, gyr)
+    assert _agree(yr, want_y, 1e-4) and _agree(br, want_b, 1e-4)
+    for g, w in zip(got, want):
+        tol = GPU_TOL[dtype] if g.dtype == torch.bfloat16 else 1e-4
+        assert _close_scaled(g, w, tol)
+
+
+@pytest.mark.gpu
 def test_selective_scan_autograd_on_gpu_matches_plain(cuda):
     """``ssm.fused_selective_scan`` under autograd on the card (the
     kernels) against the same Function's plain pair (``use_kernels``
